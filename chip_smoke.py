@@ -1,0 +1,436 @@
+"""Chip smoke test of the PyTorch/CUDA port (``torchdistx_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py [--seed N] [--report PATH]
+
+Phases, each fatal:
+
+1. build the port's CUDA kernels from ``torchdistx_tpu_torch/csrc`` with
+   ``nvcc`` (one process per source, started together);
+2. hold each kernel against its plain PyTorch version on the card, in bf16
+   at llama3_8b shapes (Hq 32, Hkv 8, D 128), and time kernel, plain
+   version and the PyTorch library call that computes the same function
+   (``scaled_dot_product_attention``, a yardstick the port never calls);
+3. serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
+   random weights drawn from the seed, check the results, the slot
+   independence of a greedy stream, and that every prefill and decode step
+   went through the kernels (launch counters reset just before the run).
+
+It prints the card's name and power limit, one ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the rest of the repository beside it, it exits non-zero and prints
+no result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+# kernel vs plain version: bf16 outputs of O(1).  The tolerance covers the
+# bf16 rounding of the output and of the probabilities (the kernels feed
+# unnormalised bf16 P to the tensor cores or keep f32 P, the plain path
+# casts normalised P to bf16), plus f32 sums taken in another order.
+ATOL = 2e-2
+RTOL = 2e-2
+# whole-model check at full width, depth cut to CHECK_LAYERS: the bf16
+# kernel path may be at most this many times further from the f32 plain
+# path than the bf16 plain path is (both share every bf16 projection; only
+# the attention arithmetic differs, and the kernels keep more of it in f32)
+LOGITS_FACTOR = 2.0
+CHECK_LAYERS = 4
+
+H100_BF16_FLOPS = 989e12
+H100_BYTES_PER_S = 3.35e12
+
+FLASH_CASES = [(b, s) for b in (1, 2) for s in (16, 37, 128, 1000, 2048)]
+FLASH_REPORTED = (1, 2048)  # the largest prefill bucket of the serve run
+DECODE_POSITIONS = [0, 511, 512, 1500, 2047, 37, 1023, 1800]
+
+
+def _fail(msg: str, code: int = 1):
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(code)
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    """Mean milliseconds per call on the card, by CUDA events, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _close(torch, out, ref):
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= ATOL + RTOL * ref.float().abs()).all())
+    return ok, float(diff.max())
+
+
+def flash_bound(b, sq, skv, hq, hkv, d):
+    """Least time (ms) for causal flash forward: operations over the bf16
+    tensor-core peak vs bytes (q, k, v read once, o written once) over the
+    memory rate.  Causal pairs counted exactly (end-aligned mask)."""
+    diag = skv - sq
+    pairs = sum(min(skv, i + diag + 1) for i in range(sq))
+    flops = 4.0 * d * pairs * b * hq  # Q.K^T and P.V, 2 flops per MAC
+    nbytes = 2.0 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def decode_bound(b, hq, hkv, d, positions):
+    """Least time (ms) for slot decode: the visible K/V rows (this run's
+    positions) plus q and o over the memory rate vs operations over the
+    bf16 peak."""
+    rows = sum(int(p) + 1 for p in positions)
+    nbytes = 2.0 * (2 * b * hq * d) + 2.0 * 2 * rows * hkv * d + 4 * b
+    flops = 4.0 * d * hq * rows
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _sdpa_gqa(torch, q, k, v, **kw):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **kw)
+
+
+def check_flash(torch, device, hq=32, hkv=8, d=128, cases=FLASH_CASES, iters=10):
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(1)
+    rows, failures = [], []
+    for b, s in cases:
+        def rnd(h):
+            return torch.randn((b, s, h, d), generator=g, device=device,
+                               dtype=torch.float32).to(torch.bfloat16)
+
+        q, k, v = rnd(hq), rnd(hkv), rnd(hkv)
+        out = fa.flash_attention(q, k, v, causal=True)
+        ref = fa.flash_attention_reference(q, k, v, causal=True)
+        ok, err = _close(torch, out, ref)
+        if not ok:
+            failures.append(f"flash B={b} S={s}: max|d|={err}")
+        row = {"B": b, "S": s, "max_abs_err": err, "ok": ok}
+        if device.type == "cuda":
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            row["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v), iters)
+            row["plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_reference(q, k, v), iters)
+            row["library_ms"] = time_ms(
+                torch, lambda: _sdpa_gqa(torch, qt, kt, vt, is_causal=True), iters)
+        row["bound_ms"], row["bound_by"] = flash_bound(b, s, s, hq, hkv, d)
+        rows.append(row)
+        print("flash", json.dumps(row))
+    return rows, failures
+
+
+def check_decode(torch, device, b=8, max_len=2048, hq=32, hkv=8, d=128,
+                 positions=DECODE_POSITIONS, iters=50):
+    from torchdistx_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q = rnd((b, 1, hq, d))
+    ck, cv = rnd((b, max_len, hkv, d)), rnd((b, max_len, hkv, d))
+    pos = torch.tensor(positions[:b], dtype=torch.int32, device=device)
+    out = da.decode_attention(q, ck, cv, pos)
+    ref = da.decode_attention_reference(q, ck, cv, pos)
+    ok, err = _close(torch, out, ref)
+    failures = [] if ok else [f"decode: max|d|={err}"]
+    row = {"B": b, "max_len": max_len, "positions": positions[:b],
+           "max_abs_err": err, "ok": ok}
+    if device.type == "cuda":
+        qt = q.transpose(1, 2)
+        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+        mask = (torch.arange(max_len, device=device)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        row["ms"] = time_ms(torch, lambda: da.decode_attention(q, ck, cv, pos), iters)
+        row["plain_ms"] = time_ms(
+            torch, lambda: da.decode_attention_reference(q, ck, cv, pos), iters)
+        row["library_ms"] = time_ms(
+            torch, lambda: _sdpa_gqa(torch, qt, kt, vt, attn_mask=mask), iters)
+    row["bound_ms"], row["bound_by"] = decode_bound(b, hq, hkv, d, positions[:b])
+    print("decode", json.dumps(row))
+    return row, failures
+
+
+def _logit_trace(torch, model, prompt, toks, use_flash):
+    """Last-position f32 logits of a prefill and of one decode step per
+    token of ``toks`` (forced, so every path sees the same inputs)."""
+    saved = model.cfg.use_flash
+    model.cfg.use_flash = use_flash
+    try:
+        s = prompt.shape[1]
+        cache = model.init_cache(1, s + len(toks) + 1)
+        logits, cache = model.forward_cached(prompt, cache, 0)
+        seq = [logits[:, -1].float()]
+        for i, tok in enumerate(toks):
+            pos = torch.tensor([s + i], device=prompt.device)
+            logits, cache = model.forward_decode(tok.view(1, 1), cache, pos)
+            seq.append(logits[:, -1].float())
+        return torch.stack(seq)
+    finally:
+        model.cfg.use_flash = saved
+
+
+def check_logits(torch, model, ref_model, prompt_len=37, decode_steps=3):
+    """The bf16 model through the kernels and through the plain path, each
+    held against the f32 plain path of the same weights (``ref_model``):
+    prefill of one short prompt, then a few decode steps on the tokens the
+    f32 reference picks.  The kernel path must be finite, of the expected
+    shape, and no further from the f32 reference than LOGITS_FACTOR times
+    the plain bf16 path is."""
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
+                           generator=g, device=dev)
+    ref = _logit_trace(torch, ref_model, prompt, [], False)
+    toks = []
+    for _ in range(decode_steps):
+        toks.append(torch.argmax(ref[-1], dim=-1))
+        ref = _logit_trace(torch, ref_model, prompt, toks, False)
+    kern = _logit_trace(torch, model, prompt, toks, None)
+    plain = _logit_trace(torch, model, prompt, toks, False)
+    err_k = float((kern - ref).abs().max())
+    err_p = float((plain - ref).abs().max())
+    finite = bool(torch.isfinite(kern).all())
+    shape_ok = list(kern.shape) == [decode_steps + 1, 1, model.cfg.vocab_size]
+    ok = finite and shape_ok and err_k <= LOGITS_FACTOR * err_p
+    return ok, {"kernel_vs_f32": err_k, "plain_vs_f32": err_p,
+                "f32_max_abs": float(ref.abs().max()), "finite": finite,
+                "shape": list(kern.shape), "layers": model.cfg.n_layers}
+
+
+def make_requests(rng, vocab, n=16, n_greedy=12, max_new=64, lo=16, hi=1536):
+    lengths = rng.randint(lo, hi + 1, size=n)
+    reqs = []
+    for i, n_tok in enumerate(lengths):
+        reqs.append({
+            "prompt": rng.randint(0, vocab, size=int(n_tok)).astype("int32"),
+            "max_new_tokens": max_new,
+            "temperature": 0.0 if i < n_greedy else 0.8,
+            "seed": 1000 + i,
+        })
+    return reqs
+
+
+def serve(torch, model, requests, num_slots, max_len, expect_kernels=True):
+    """The main path: ``ServeEngine(model, ...).run(requests)``, with the
+    launch counters set to 0 just before and read just after."""
+    import numpy as np
+    from torchdistx_tpu_torch.ops import decode_attention as da
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    failures = []
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_cuda.launches = 0
+    da.decode_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run(requests)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.flash_fwd_cuda.launches,
+                "decode_attention": da.decode_attention_cuda.launches}
+    m = engine.metrics.to_json()
+    n_layers = model.cfg.n_layers
+    prefills = m["counters"]["prefill_calls"]
+    steps = m["counters"]["decode_steps"]
+    vocab = model.cfg.vocab_size
+    for i, (req, r) in enumerate(zip(requests, results)):
+        toks = np.asarray(r.tokens)
+        if r.finish_reason != "length" or toks.size != req["max_new_tokens"]:
+            failures.append(f"request {i}: {r.finish_reason}, {toks.size} tokens")
+        if toks.size and (toks.min() < 0 or toks.max() >= vocab):
+            failures.append(f"request {i}: token out of [0, {vocab})")
+    if expect_kernels:
+        if launches["flash_fwd"] != n_layers * prefills:
+            failures.append(f"flash launches {launches['flash_fwd']} != "
+                            f"{n_layers} x {prefills} prefills")
+        if launches["decode_attention"] != n_layers * steps:
+            failures.append(f"decode launches {launches['decode_attention']} != "
+                            f"{n_layers} x {steps} decode steps")
+    summary = {
+        "requests": len(requests), "prefills": prefills, "decode_steps": steps,
+        "launches": launches, "wall_s": wall,
+        "ttft_p50_s": m["histograms"]["ttft_s"]["p50"],
+        "decode_tokens_per_sec": m["derived"]["decode_tokens_per_sec"],
+        "tokens_generated": m["counters"]["tokens_generated"],
+    }
+    if model.device.type == "cuda":
+        summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del engine
+    return results, summary, failures
+
+
+def slot_independence(torch, model, requests, results, num_slots, max_len):
+    """A greedy request served alone gives the stream it gave in the batch."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    idx = max(i for i, r in enumerate(requests) if r["temperature"] == 0.0)
+    alone = ServeEngine(model, num_slots=num_slots, max_len=max_len).run(
+        [requests[idx]])[0]
+    same = np.array_equal(np.asarray(alone.tokens), np.asarray(results[idx].tokens))
+    return same, idx
+
+
+def _kernel_entry(name, source, replaces, launches, row, max_err):
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max_err, "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--report", default=None,
+                    help="also write the full report as JSON to this path")
+    args = ap.parse_args(argv)
+
+    try:
+        import numpy as np
+        import torch
+        import torchdistx_tpu_torch as tt
+        from torchdistx_tpu_torch.ops import _build
+    except ImportError as e:
+        _fail(f"the port is not importable here ({e}); run from a checkout", 2)
+    if not torch.cuda.is_available():
+        _fail("no CUDA device: this smoke test runs only on the card", 2)
+    if "jax" in sys.modules or "torchdistx_tpu" in sys.modules:
+        _fail("JAX or the JAX package was imported", 1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda}
+    failures = []
+
+    # -- 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    built = _build.build_all(["flash_fwd", "decode_attention"])
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s ({', '.join(built) or 'up to date'})")
+    for name in ("flash_fwd", "decode_attention"):
+        log = _build.BUILD_DIR / f"lib{name}.log"
+        if log.exists():
+            used = [ln.split("info    :")[-1].strip()
+                    for ln in log.read_text().splitlines() if "Used" in ln]
+            print(f"  ptxas {name}: {' | '.join(used)}")
+    report["build_s"] = build_s
+
+    # -- 2. kernels vs plain versions ---------------------------------------
+    try:
+        flash_rows, f1 = check_flash(torch, device)
+        decode_row, f2 = check_decode(torch, device)
+        failures += f1 + f2
+    except Exception:
+        traceback.print_exc()
+        _fail("kernel phase failed")
+    report["flash"], report["decode"] = flash_rows, decode_row
+
+    # -- 3. serve -----------------------------------------------------------
+    try:
+        Llama = tt.models.Llama
+        tt.manual_seed(args.seed + 1)
+        small = Llama.from_name("llama3_8b", dtype=torch.bfloat16,
+                                device="cuda", n_layers=CHECK_LAYERS)
+        small_f32 = Llama.from_name("llama3_8b", dtype=torch.float32,
+                                    device="cuda", n_layers=CHECK_LAYERS)
+        small_f32.load_state_dict(small.state_dict())
+        with torch.no_grad():
+            ok, info = check_logits(torch, small, small_f32)
+        print("logits vs f32 plain path", json.dumps(info))
+        if not ok:
+            failures.append(f"model logits: {info}")
+        report["logits"] = info
+        del small, small_f32
+        torch.cuda.empty_cache()
+
+        tt.manual_seed(args.seed)
+        t0 = time.perf_counter()
+        model = Llama.from_name("llama3_8b", dtype=torch.bfloat16, device="cuda")
+        model.requires_grad_(False)
+        torch.cuda.synchronize()
+        print(f"model: llama3_8b, {sum(p.numel() for p in model.parameters())} "
+              f"params, init {time.perf_counter() - t0:.1f} s")
+        rng = np.random.RandomState(args.seed)
+        requests = make_requests(rng, model.cfg.vocab_size)
+        results, summary, f3 = serve(torch, model, requests, 8, 2048)
+        failures += f3
+        print("serve", json.dumps(summary))
+        same, idx = slot_independence(torch, model, requests, results, 8, 2048)
+        print(f"slot independence (request {idx} alone vs in batch): {same}")
+        if not same:
+            failures.append(f"request {idx} alone differs from its batch stream")
+        report["serve"] = summary
+    except Exception:
+        traceback.print_exc()
+        _fail("serve phase failed")
+
+    # -- 4. the record ------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"
+    report["card"] = card
+    rep = next(r for r in flash_rows if (r["B"], r["S"]) == FLASH_REPORTED)
+    kernels = [
+        _kernel_entry(
+            "flash_fwd", "torchdistx_tpu_torch/csrc/flash_fwd.cu",
+            "torchdistx_tpu/ops/flash_attention.py:141",
+            summary["launches"]["flash_fwd"], rep,
+            max(r["max_abs_err"] for r in flash_rows)),
+        _kernel_entry(
+            "decode_attention", "torchdistx_tpu_torch/csrc/decode_attention.cu",
+            "torchdistx_tpu/ops/decode_attention.py:79",
+            summary["launches"]["decode_attention"], decode_row,
+            decode_row["max_abs_err"]),
+    ]
+    report["kernels"] = kernels
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1)
+    if failures:
+        for f in failures:
+            print(f"FAIL {f}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

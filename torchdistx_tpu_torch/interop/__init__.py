@@ -1,0 +1,3 @@
+from .from_jax import load_jax_params
+
+__all__ = ["load_jax_params"]

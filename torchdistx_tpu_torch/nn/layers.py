@@ -1,0 +1,58 @@
+"""Core layers (the subset Llama needs), counterpart of
+``torchdistx_tpu/nn/layers.py``: ``torch.nn.Module``s whose parameters keep
+the JAX package's names and layouts (``Linear.weight`` is (out, in)).
+
+The initializer is the caller's (``weight_init(shape, dtype, device)``):
+the models pass their own scheme, and the JAX package's defaults
+(kaiming-uniform weights, uniform biases) are not on this slice's path."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import functional as F
+from . import init
+
+__all__ = ["Linear", "Embedding", "RMSNorm"]
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features: int, out_features: int, bias: bool = False,
+                 *, weight_init, dtype=torch.float32, device="cuda"):
+        super().__init__()
+        if bias:
+            raise NotImplementedError("Linear bias is not ported yet")
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(
+            weight_init((out_features, in_features), dtype, device)
+        )
+
+    def forward(self, x):
+        return F.linear(x, self.weight)
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings: int, features: int, *, weight_init,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.features = features
+        self.weight = nn.Parameter(
+            weight_init((num_embeddings, features), dtype, device)
+        )
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, features: int, eps: float = 1e-6, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(init.ones((features,), dtype, device))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.eps)

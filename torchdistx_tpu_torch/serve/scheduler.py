@@ -1,0 +1,335 @@
+"""Request queue + slot allocation: the continuous-batching policy.
+
+A copy of ``torchdistx_tpu/serve/scheduler.py``, which is host-only: the
+port keeps its own copy instead of importing the JAX package.
+
+FCFS with two admission gates: a free cache slot, and a max-tokens budget
+(the sum of ``prompt + max_new_tokens`` over running requests, capping the
+worst-case cache footprint a burst can claim).  New requests prefill into
+freed slots while the other slots keep decoding — admission never stalls
+the running batch, and nothing here touches the device.  The engine calls
+``admit`` once per ``step()``, i.e. once per fused decode dispatch: with
+``decode_chunk=K`` a slot freed mid-chunk rejoins the free pool at the
+next chunk boundary, so the scheduler's admission granularity is the
+chunk, not the token (the at-most-``K-1`` idle slot-steps in between are
+the engine's ``masked_slot_steps``).
+
+Deadlines are wall-clock (``time.monotonic``): an expired request — queued
+or running — finishes immediately with whatever tokens it has, flagged
+``truncated`` with ``finish_reason="deadline"``.  The other terminal
+reasons are ``"stop"`` (EOS), ``"length"`` (``max_new_tokens`` reached),
+and ``"cache_full"`` (slot hit the cache's ``max_len`` — also truncated,
+the request wanted more room than the geometry has).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+from typing import Deque, List, Optional, Tuple
+
+import numpy as np
+
+__all__ = ["Request", "RequestHandle", "RequestResult", "Scheduler"]
+
+_TRUNCATED_REASONS = ("deadline", "cache_full")
+
+# Fleet-scoped trace-context ids.  Every engine's scheduler mints rids
+# from its OWN counter, so rids collide across fleet replicas; trace ids
+# come from one process-wide stream instead, making them unique across
+# every engine in the process — the key ``ServeFleet.dump_trace()``
+# merges replicas on and the Perfetto flow-event id that stitches a
+# request's queued -> route -> prefill -> handoff -> decode -> finish
+# chain across engines (docs/observability.md).
+_TRACE_IDS = itertools.count(1)
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """Terminal state of one request.  ``tokens`` are the GENERATED ids
+    only (prompt excluded); ``truncated`` means the request ended before
+    its own stopping rule (deadline or cache exhaustion) and ``tokens``
+    is a partial result.  ``queue_wait_s``/``tpot_s`` are the other two
+    derived latencies (submit -> admitted, and decode seconds per token
+    after the first); ``events`` is the request's full lifecycle event
+    list (``(name, monotonic_ts, data)``) — the same timestamps that fed
+    the engine's aggregate histograms, so a per-request view can always
+    be reconciled against ``ServeMetrics`` (docs/observability.md)."""
+
+    rid: int
+    tokens: np.ndarray
+    finish_reason: str
+    truncated: bool
+    ttft_s: Optional[float]
+    latency_s: float
+    queue_wait_s: Optional[float] = None
+    tpot_s: Optional[float] = None
+    events: List[tuple] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (S,) int32
+    max_new_tokens: int
+    temperature: float = 0.0
+    seed: int = 0
+    deadline_s: Optional[float] = None  # seconds from submit, wall clock
+    # fleet-scoped trace context: unique across every engine in the
+    # process (rids are per-scheduler and collide across replicas).
+    # Assigned at submit from the module's ``_TRACE_IDS`` stream unless
+    # the caller propagates an existing context; rides the request
+    # through handoff_to/migrate_to untouched.
+    trace_id: Optional[int] = None
+    # -- lifecycle (owned by the scheduler/engine) -----------------------
+    submitted_at: float = 0.0
+    admitted_at: Optional[float] = None
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    slot: Optional[int] = None
+    generated: List[int] = dataclasses.field(default_factory=list)
+    finish_reason: Optional[str] = None
+    # -- paged-KV reservation (engine's admission gate stashes these) ----
+    pages: Optional[List[int]] = None  # page chain, prefix order
+    prefix_len: int = 0  # page-aligned tokens served from the prefix cache
+    # -- lifecycle event log (observability) -----------------------------
+    # (name, monotonic_ts, data-dict-or-None) appended by the scheduler
+    # and engine at every state change: submit -> admitted/gated/expire ->
+    # prefill -> first_token -> decode_chunk* -> finish.  JSON-able;
+    # exported as per-request Perfetto tracks by obs.trace.
+    events: List[tuple] = dataclasses.field(default_factory=list)
+
+    def record_event(self, name: str, ts: Optional[float] = None, **data):
+        self.events.append(
+            (name, time.monotonic() if ts is None else ts, data or None)
+        )
+
+    @property
+    def cost(self) -> int:
+        """Tokens this request can occupy at worst — the budget unit."""
+        return len(self.prompt) + self.max_new_tokens
+
+    @property
+    def deadline_at(self) -> Optional[float]:
+        if self.deadline_s is None:
+            return None
+        return self.submitted_at + self.deadline_s
+
+    def expired(self, now: float) -> bool:
+        d = self.deadline_at
+        return d is not None and now >= d
+
+    def result(self) -> RequestResult:
+        if self.finish_reason is None:
+            raise RuntimeError(f"request {self.rid} is not finished")
+        tpot = None
+        if (
+            self.first_token_at is not None
+            and self.finished_at is not None
+            and len(self.generated) > 1
+        ):
+            tpot = (self.finished_at - self.first_token_at) / (
+                len(self.generated) - 1
+            )
+        return RequestResult(
+            rid=self.rid,
+            tokens=np.asarray(self.generated, np.int32),
+            finish_reason=self.finish_reason,
+            truncated=self.finish_reason in _TRUNCATED_REASONS,
+            ttft_s=(
+                None
+                if self.first_token_at is None
+                else self.first_token_at - self.submitted_at
+            ),
+            latency_s=(self.finished_at or time.monotonic())
+            - self.submitted_at,
+            queue_wait_s=(
+                None
+                if self.admitted_at is None
+                else self.admitted_at - self.submitted_at
+            ),
+            tpot_s=tpot,
+            events=list(self.events),
+        )
+
+
+class RequestHandle:
+    """The ``submit()`` return value: poll ``done()``, then ``result()``.
+    (``ServeEngine.step()`` drives progress; a handle never blocks.)"""
+
+    def __init__(self, request: Request):
+        self._request = request
+
+    @property
+    def rid(self) -> int:
+        return self._request.rid
+
+    @property
+    def trace_id(self) -> Optional[int]:
+        """Fleet-scoped trace context (process-unique, unlike rid)."""
+        return self._request.trace_id
+
+    def done(self) -> bool:
+        return self._request.finish_reason is not None
+
+    def result(self) -> RequestResult:
+        return self._request.result()
+
+
+class Scheduler:
+    """FCFS queue + free-slot allocator + in-flight token budget."""
+
+    def __init__(
+        self,
+        num_slots: int,
+        max_tokens_in_flight: Optional[int] = None,
+    ):
+        self.num_slots = int(num_slots)
+        self.max_tokens_in_flight = max_tokens_in_flight
+        self._queue: Deque[Request] = deque()
+        self._free_slots = sorted(range(self.num_slots), reverse=True)
+        self._running: dict[int, Request] = {}  # slot -> request
+        self._in_flight_tokens = 0
+        self._rid = itertools.count()
+
+    # -- queue side ------------------------------------------------------
+
+    def submit(self, request: Request) -> None:
+        request.rid = next(self._rid)
+        if request.trace_id is None:
+            request.trace_id = next(_TRACE_IDS)
+        request.submitted_at = time.monotonic()
+        request.record_event("submit", ts=request.submitted_at)
+        self._queue.append(request)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    @property
+    def queued(self) -> List[Request]:
+        """Snapshot of the queue in FCFS order (for migration planning —
+        the queue itself is not exposed)."""
+        return list(self._queue)
+
+    @property
+    def running(self) -> List[Request]:
+        return list(self._running.values())
+
+    @property
+    def in_flight_tokens(self) -> int:
+        return self._in_flight_tokens
+
+    @property
+    def free_slot_count(self) -> int:
+        return len(self._free_slots)
+
+    def has_work(self) -> bool:
+        return bool(self._queue) or bool(self._running)
+
+    # -- migration (ServeEngine.migrate_to) ------------------------------
+
+    def adopt_running(self, request: Request) -> int:
+        """Attach an already-admitted request arriving from another
+        engine: claim a free slot WITHOUT re-running admission gates (the
+        migration validated capacity up front, and re-gating a request
+        that already holds KV state could deadlock the handoff).  Keeps
+        the request's rid, events, and generated tokens intact; returns
+        the claimed slot."""
+        if not self._free_slots:
+            raise RuntimeError(
+                f"no free slot to adopt request {request.rid} into"
+            )
+        slot = self._free_slots.pop()
+        request.slot = slot
+        self._running[slot] = request
+        self._in_flight_tokens += request.cost
+        return slot
+
+    def adopt_queued(self, request: Request) -> None:
+        """Append an already-submitted request (rid intact — its handle
+        stays valid) to the back of the queue."""
+        self._queue.append(request)
+
+    def drain_queue(self) -> List[Request]:
+        """Remove and return every queued request in FCFS order — the
+        migration's queue handoff."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
+
+    # -- admission -------------------------------------------------------
+
+    def expire_queued(self, now: float) -> List[Request]:
+        """Pull queued requests past their deadline and finish them as
+        truncated with no tokens.  RUNNING requests' deadlines are the
+        engine's job — retiring those must also release KV-cache
+        bookkeeping, which lives outside the scheduler."""
+        expired = [r for r in self._queue if r.expired(now)]
+        for r in expired:
+            self._queue.remove(r)
+            r.finish_reason = "deadline"
+            r.finished_at = now
+            r.record_event("expire", ts=now, where="queued")
+        return expired
+
+    def admit(self, now: float, gate=None) -> List[Tuple[Request, int]]:
+        """Admit queued requests FCFS while a slot is free and the token
+        budget holds.  Strict FCFS: a blocked head blocks the line (no
+        skip-ahead starvation of big requests).  ``gate`` is an optional
+        extra admission predicate over the head request — the paged
+        engine's free-pages check (which reserves pages as a side
+        effect); a False return blocks the line like the token budget
+        does.  Returns (request, slot) pairs; the engine prefills each
+        and then confirms with the KV-cache bookkeeping."""
+        admitted = []
+        while self._queue and self._free_slots:
+            head = self._queue[0]
+            if (
+                self.max_tokens_in_flight is not None
+                and self._in_flight_tokens + head.cost
+                > self.max_tokens_in_flight
+                and self._running
+            ):
+                self._record_gated(head, now, "token_budget")
+                break  # budget holds until running requests retire
+            if gate is not None and not gate(head):
+                # a composed gate names WHICH check refused by setting
+                # its own ``why`` attribute before returning False (the
+                # engine's HBM-budget gate says "hbm_budget", the page
+                # gate stays the default) — the named reason the
+                # request's lifecycle log carries
+                self._record_gated(head, now, getattr(gate, "why", "gate"))
+                break  # e.g. pages free up only when running requests end
+            self._queue.popleft()
+            slot = self._free_slots.pop()
+            head.slot = slot
+            head.admitted_at = now
+            head.record_event("admitted", ts=now, slot=slot)
+            self._running[slot] = head
+            self._in_flight_tokens += head.cost
+            admitted.append((head, slot))
+        return admitted
+
+    @staticmethod
+    def _record_gated(head: Request, now: float, why: str) -> None:
+        """One lifecycle event per CHANGE of gating cause, not per tick —
+        a long-blocked head would otherwise accumulate an event per
+        ``step()`` and swamp its trace row."""
+        if not (head.events and head.events[-1][0] == "gated"
+                and (head.events[-1][2] or {}).get("why") == why):
+            head.record_event("gated", ts=now, why=why)
+
+    def retire(self, request: Request) -> None:
+        """Return a running request's slot to the free pool (the caller
+        sets ``finish_reason``/``finished_at``)."""
+        slot = request.slot
+        if slot is None or self._running.get(slot) is not request:
+            raise ValueError(f"request {request.rid} is not running")
+        del self._running[slot]
+        self._free_slots.append(slot)
+        self._free_slots.sort(reverse=True)
+        self._in_flight_tokens -= request.cost
+        request.slot = None
