@@ -15,7 +15,17 @@ Phases, each fatal:
 3. serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
    random weights drawn from the seed, check the results, the slot
    independence of a greedy stream, and that every prefill and decode step
-   went through the kernels (launch counters reset just before the run).
+   went through the kernels (launch counters reset just before the run);
+4. hold the flash backward kernels (``flash_bwd_dkv``, ``flash_bwd_dq``) and
+   the forward's ``lse`` variant against their plain versions, and time
+   them beside the SDPA backward (a yardstick the port never calls);
+5. one backward step of a 4-layer, full-width llama_1b through the kernels
+   and through the plain path, each held against the f32 plain path;
+6. train llama_1b at full width and depth: ``deferred_init`` on the card
+   allocates nothing, ``materialize_module`` is bit-identical to an eager
+   construction, then ``Trainer.fit`` takes 10 AnyPrecisionAdamW steps
+   (batch 2 x 2048) with every attention forward and backward through the
+   kernels (launch counters reset just before the fit).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -55,6 +65,14 @@ H100_BYTES_PER_S = 3.35e12
 FLASH_CASES = [(b, s) for b in (1, 2) for s in (16, 37, 128, 1000, 2048)]
 FLASH_REPORTED = (1, 2048)  # the largest prefill bucket of the serve run
 DECODE_POSITIONS = [0, 511, 512, 1500, 2047, 37, 1023, 1800]
+# (B, S, Hq, Hkv) for the backward kernels, D 128; the third is the
+# llama_1b training shape, where the kernels are timed
+BWD_CASES = [(1, 37, 4, 4), (1, 1000, 32, 8), (2, 2048, 16, 16), (1, 2048, 32, 8)]
+BWD_REPORTED = (2, 2048, 16, 16)
+# kernel lse vs the plain f32 log-sum-exp: both take f32 sums of exact
+# products of the same bf16 inputs, in another order; lse is O(10)
+LSE_ATOL = 1e-3
+TRAIN_STEPS = 10
 
 
 def _fail(msg: str, code: int = 1):
@@ -300,6 +318,196 @@ def slot_independence(torch, model, requests, results, num_slots, max_len):
     return same, idx
 
 
+def _causal_pairs(s):
+    return s * (s + 1) // 2
+
+
+def bwd_bound(b, s, hq, hkv, d, products, outputs):
+    """Least time (ms) for one backward kernel: ``products`` matrix
+    products of 2 * D flops per causal pair and query head, over the bf16
+    peak, vs bytes (q, o, dO, k, v and lse read once, ``outputs`` written
+    once: "q" for dq, "kv" for dk and dv) over the memory rate."""
+    flops = 2.0 * products * d * _causal_pairs(s) * b * hq
+    nbytes = 2.0 * (3 * b * s * hq * d + 2 * b * s * hkv * d) + 4.0 * b * hq * s
+    nbytes += 2.0 * (b * s * hq * d if outputs == "q" else 2 * b * s * hkv * d)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_flash_bwd(torch, device, d=128, cases=BWD_CASES, iters=10):
+    """The backward kernels and the forward's lse variant against their
+    plain versions, from the same saved ``o`` and ``lse`` (bf16 grads of
+    O(1): ATOL/RTOL as for the forward, for the bf16 rounding of P, dS and
+    the outputs, and f32 sums in another order)."""
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(4)
+    rows, failures = [], []
+    for b, s, hq, hkv in cases:
+        def rnd(h):
+            return torch.randn((b, s, h, d), generator=g, device=device,
+                               dtype=torch.float32).to(torch.bfloat16)
+
+        q, k, v, do = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+        o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True)
+        _, lse_ref = fa.flash_attention_lse_reference(q, k, v)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        rq, rk, rv = fa.flash_bwd_reference(q, k, v, o, lse, do)
+        lse_err = float((lse - lse_ref).abs().max())
+        row = {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "lse_err": lse_err}
+        for name, out, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            ok, err = _close(torch, out, ref)
+            row[f"{name}_err"] = err
+            if not ok:
+                failures.append(f"flash bwd {name} {(b, s, hq, hkv)}: max|d|={err}")
+        if lse_err > LSE_ATOL:
+            failures.append(f"flash lse {(b, s, hq, hkv)}: max|d|={lse_err}")
+        if (b, s, hq, hkv) == BWD_REPORTED:
+            row["dkv_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do), iters)
+            row["dq_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, o, lse, do), iters)
+            row["plain_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_reference(q, k, v, o, lse, do), iters)
+            row["lse_ms"] = time_ms(
+                torch, lambda: fa.flash_fwd_cuda(q, k, v, return_lse=True), iters)
+            row["lse_plain_ms"] = time_ms(
+                torch, lambda: fa.flash_attention_lse_reference(q, k, v), iters)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            sdpa = _sdpa_gqa(torch, qt, kt, vt, is_causal=True)
+            row["lse_library_ms"] = time_ms(
+                torch, lambda: _sdpa_gqa(torch, qt, kt, vt, is_causal=True), iters)
+            dot = do.transpose(1, 2)
+            row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), dot, retain_graph=True), iters)
+            row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound(b, s, hq, hkv, d, 4, "kv")
+            row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound(b, s, hq, hkv, d, 3, "q")
+            fb, fby = flash_bound(b, s, s, hq, hkv, d)
+            row["lse_bound_ms"] = max(fb, (2.0 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+                                           + 4.0 * b * hq * s) / H100_BYTES_PER_S * 1e3)
+        rows.append(row)
+        print("flash_bwd", json.dumps(row))
+    return rows, failures
+
+
+def _grads(torch, model, tokens, labels, use_flash):
+    from torchdistx_tpu_torch.nn import functional as F
+
+    saved = model.cfg.use_flash
+    model.cfg.use_flash = use_flash
+    try:
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(tokens), labels).backward()
+        return torch.cat([p.grad.float().flatten() for p in model.parameters()])
+    finally:
+        model.cfg.use_flash = saved
+
+
+def check_grads(torch, model, ref_model, seq=512):
+    """One backward step of the bf16 model through the kernels and through
+    the plain path, each held against the f32 plain path of the same
+    weights: the kernel path's gradients must be finite and no further from
+    f32 than LOGITS_FACTOR times the plain bf16 path's."""
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, seq), generator=g, device=dev)
+    labels = torch.randint(0, model.cfg.vocab_size, (1, seq), generator=g, device=dev)
+    ref = _grads(torch, ref_model, tokens, labels, False)
+    kern = _grads(torch, model, tokens, labels, True)
+    plain = _grads(torch, model, tokens, labels, False)
+    err_k = float((kern - ref).abs().max())
+    err_p = float((plain - ref).abs().max())
+    finite = bool(torch.isfinite(kern).all())
+    ok = finite and err_k <= LOGITS_FACTOR * err_p
+    return ok, {"kernel_vs_f32": err_k, "plain_vs_f32": err_p,
+                "f32_max_abs": float(ref.abs().max()), "finite": finite,
+                "layers": model.cfg.n_layers, "seq": seq}
+
+
+def check_deferred(torch, tt, seed):
+    """``deferred_init`` of full llama_1b on the card allocates no parameter
+    storage; ``materialize_module`` gives parameters on the card equal to an
+    eager construction from the same seed."""
+    from torchdistx_tpu_torch.models import Llama
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tt.manual_seed(seed)
+    model = tt.deferred_init(Llama.from_name, "llama_1b", device="cuda")
+    grew = torch.cuda.memory_allocated() - before
+    deferred = tt.is_deferred(model)
+    t0 = time.perf_counter()
+    tt.materialize_module(model)
+    torch.cuda.synchronize()
+    mat_s = time.perf_counter() - t0
+    tt.manual_seed(seed)
+    eager = Llama.from_name("llama_1b", device="cuda")
+    params = list(model.named_parameters())
+    on_card = all(p.is_cuda and not tt.is_fake(p) for _, p in params)
+    same = all(torch.equal(p, q) for (_, p), (_, q) in zip(params, eager.named_parameters()))
+    info = {"alloc_growth_bytes": grew, "is_deferred": deferred,
+            "params": sum(p.numel() for _, p in params), "tensors": len(params),
+            "materialize_s": mat_s, "on_card": on_card, "bit_identical": same}
+    ok = grew < 1 << 20 and deferred and on_card and same and not tt.is_deferred(model)
+    return ok, info
+
+
+def train(torch, seed, steps=TRAIN_STEPS):
+    """The training main path: ``build_train_workload`` (deferred_init ->
+    materialize_module -> AnyPrecisionAdamW) on full llama_1b, one warm-up
+    step, then ``Trainer.fit`` over ``steps`` steps with the launch
+    counters set to 0 just before and read just after."""
+    import math
+
+    from torchdistx_tpu_torch.ops import decode_attention as da
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+    from torchdistx_tpu_torch.utils.benchmarks import build_train_workload
+
+    w = build_train_workload("llama_1b", batch=2, seq=2048, remat=False,
+                             device="cuda", seed=seed)
+    n_layers = w["model"].cfg.n_layers
+    w["run"](1)  # warm-up: cuBLAS handles and workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_cuda.launches = fa.flash_fwd_cuda.lse_launches = 0
+    fa.flash_bwd_dkv_cuda.launches = fa.flash_bwd_dq_cuda.launches = 0
+    da.decode_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    losses = w["run"](steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.flash_fwd_cuda.launches,
+                "flash_fwd_lse": fa.flash_fwd_cuda.lse_launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
+                "decode_attention": da.decode_attention_cuda.launches}
+    tokens_per_s = w["tokens_per_batch"] * steps / wall
+    summary = {
+        "model": w["name"], "n_params": w["n_params"], "batch": w["batch_size"],
+        "seq": w["seq"], "steps": steps, "losses": losses,
+        "step_ms": wall / steps * 1e3, "tokens_per_sec": tokens_per_s,
+        "mfu": w["flops_per_token"] * tokens_per_s / H100_BF16_FLOPS,
+        "flops_per_token": w["flops_per_token"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+    }
+    failures = []
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        failures.append(f"train losses not finite: {losses}")
+    elif not losses[-1] < losses[0]:
+        failures.append(f"train loss did not fall: {losses}")
+    for kernel in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
+        if launches[kernel] != n_layers * steps:
+            failures.append(f"{kernel} launches {launches[kernel]} != "
+                            f"{n_layers} x {steps} steps")
+    del w
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
 def _kernel_entry(name, source, replaces, launches, row, max_err):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -335,10 +543,10 @@ def main(argv=None) -> int:
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_all(["flash_fwd", "decode_attention"])
+    built = _build.build_all(["flash_fwd", "flash_bwd", "decode_attention"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({', '.join(built) or 'up to date'})")
-    for name in ("flash_fwd", "decode_attention"):
+    for name in ("flash_fwd", "flash_bwd", "decode_attention"):
         log = _build.BUILD_DIR / f"lib{name}.log"
         if log.exists():
             used = [ln.split("info    :")[-1].strip()
@@ -391,11 +599,58 @@ def main(argv=None) -> int:
         if not same:
             failures.append(f"request {idx} alone differs from its batch stream")
         report["serve"] = summary
+        del model
+        torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         _fail("serve phase failed")
 
-    # -- 4. the record ------------------------------------------------------
+    # -- 4. backward kernels vs plain versions ------------------------------
+    try:
+        bwd_rows, f4 = check_flash_bwd(torch, device)
+        failures += f4
+    except Exception:
+        traceback.print_exc()
+        _fail("backward kernel phase failed")
+    report["flash_bwd"] = bwd_rows
+
+    # -- 5. gradients at 4 layers of full llama_1b width ----------------------
+    try:
+        tt.manual_seed(args.seed + 2)
+        small = Llama.from_name("llama_1b", dtype=torch.bfloat16, device="cuda",
+                                n_layers=CHECK_LAYERS, remat=False)
+        small_f32 = Llama.from_name("llama_1b", dtype=torch.float32,
+                                    device="cuda", n_layers=CHECK_LAYERS,
+                                    remat=False)
+        small_f32.load_state_dict(small.state_dict())
+        ok, info = check_grads(torch, small, small_f32)
+        print("grads vs f32 plain path", json.dumps(info))
+        if not ok:
+            failures.append(f"model grads: {info}")
+        report["grads"] = info
+        del small, small_f32
+        torch.cuda.empty_cache()
+    except Exception:
+        traceback.print_exc()
+        _fail("gradient phase failed")
+
+    # -- 6. train llama_1b ----------------------------------------------------
+    try:
+        ok, info = check_deferred(torch, tt, args.seed)
+        print("deferred_init", json.dumps(info))
+        if not ok:
+            failures.append(f"deferred init: {info}")
+        report["deferred"] = info
+        torch.cuda.empty_cache()
+        train_summary, f6 = train(torch, args.seed)
+        failures += f6
+        print("train", json.dumps(train_summary))
+        report["train"] = train_summary
+    except Exception:
+        traceback.print_exc()
+        _fail("train phase failed")
+
+    # -- 7. the record ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -403,12 +658,36 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"
     report["card"] = card
     rep = next(r for r in flash_rows if (r["B"], r["S"]) == FLASH_REPORTED)
+    brep = next(r for r in bwd_rows
+                if (r["B"], r["S"], r["Hq"], r["Hkv"]) == BWD_REPORTED)
+    tl = train_summary["launches"]
+    fwd = _kernel_entry(
+        "flash_fwd", "torchdistx_tpu_torch/csrc/flash_fwd.cu",
+        "torchdistx_tpu/ops/flash_attention.py:141",
+        summary["launches"]["flash_fwd"] + tl["flash_fwd_lse"], rep,
+        max(r["max_abs_err"] for r in flash_rows))
+    fwd.update(launches_plain=summary["launches"]["flash_fwd"],
+               launches_lse=tl["flash_fwd_lse"], lse_ms=brep["lse_ms"],
+               lse_plain_ms=brep["lse_plain_ms"],
+               lse_library_ms=brep["lse_library_ms"],
+               lse_bound_ms=brep["lse_bound_ms"],
+               lse_max_abs_err=max(r["lse_err"] for r in bwd_rows))
     kernels = [
+        fwd,
         _kernel_entry(
-            "flash_fwd", "torchdistx_tpu_torch/csrc/flash_fwd.cu",
-            "torchdistx_tpu/ops/flash_attention.py:141",
-            summary["launches"]["flash_fwd"], rep,
-            max(r["max_abs_err"] for r in flash_rows)),
+            "flash_bwd_dkv", "torchdistx_tpu_torch/csrc/flash_bwd.cu",
+            "torchdistx_tpu/ops/flash_attention.py:299", tl["flash_bwd_dkv"],
+            {"ms": brep["dkv_ms"], "plain_ms": brep["plain_ms"],
+             "bound_ms": brep["dkv_bound_ms"], "bound_by": brep["dkv_bound_by"],
+             "library_ms": brep["library_ms"]},
+            max(max(r["dk_err"], r["dv_err"]) for r in bwd_rows)),
+        _kernel_entry(
+            "flash_bwd_dq", "torchdistx_tpu_torch/csrc/flash_bwd.cu",
+            "torchdistx_tpu/ops/flash_attention.py:373", tl["flash_bwd_dq"],
+            {"ms": brep["dq_ms"], "plain_ms": brep["plain_ms"],
+             "bound_ms": brep["dq_bound_ms"], "bound_by": brep["dq_bound_by"],
+             "library_ms": brep["library_ms"]},
+            max(r["dq_err"] for r in bwd_rows)),
         _kernel_entry(
             "decode_attention", "torchdistx_tpu_torch/csrc/decode_attention.cu",
             "torchdistx_tpu/ops/decode_attention.py:79",

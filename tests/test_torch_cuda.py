@@ -56,9 +56,48 @@ def test_decode_kernel_matches_plain(cuda, hq, hkv, d):
     torch.testing.assert_close(out, tdec.decode_attention_reference(q, ck, cv, pos), **TOL)
 
 
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(1, 37, 4, 4, 128), (2, 130, 8, 2, 64),
+                                          (1, 200, 16, 16, 128)])
+def test_flash_bwd_kernels_match_plain(cuda, b, s, hq, hkv, d):
+    """The lse forward and both backward kernels against the plain f32
+    versions from the same saved o and lse (lse to 1e-3: f32 sums of the
+    same products in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(s + hq)
+    q, k, v, do = (_rand(g, (b, s, h, d), cuda) for h in (hq, hkv, hkv, hq))
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True)
+    dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    _, lse_ref = tflash.flash_attention_lse_reference(q, k, v)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    for out, ref in zip((dq, dk, dv), tflash.flash_bwd_reference(q, k, v, o, lse, do)):
+        torch.testing.assert_close(out, ref, **TOL)
+
+
+def test_training_forward_goes_through_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_rand(g, (1, 64, 4, 64), cuda).requires_grad_() for _ in range(3))
+    counts = (tflash.flash_fwd_cuda.lse_launches, tflash.flash_bwd_dkv_cuda.launches,
+              tflash.flash_bwd_dq_cuda.launches)
+    tflash.flash_attention(q, k, v).float().sum().backward()
+    torch.cuda.synchronize()
+    after = (tflash.flash_fwd_cuda.lse_launches, tflash.flash_bwd_dkv_cuda.launches,
+             tflash.flash_bwd_dq_cuda.launches)
+    assert after == tuple(c + 1 for c in counts)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tflash.flash_fwd_cuda(x, x, x)
     with pytest.raises(TypeError, match="bf16"):
         tflash.flash_fwd_cuda(x.float(), x.float(), x.float())
+    y = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="causal"):
+        tflash.flash_bwd_dq_cuda(y, y, y, y, lse, y, causal=False)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        tflash.flash_bwd_dkv_cuda(y, y[:, :4], y[:, :4], y, lse, y)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tflash.flash_bwd_dkv_cuda(y.cpu(), y, y, y, lse, y)

@@ -18,7 +18,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
     code = (
         "import sys\n"
         "import torchdistx_tpu_torch, torchdistx_tpu_torch.serve, "
-        "torchdistx_tpu_torch.models, torchdistx_tpu_torch.interop\n"
+        "torchdistx_tpu_torch.models, torchdistx_tpu_torch.interop, "
+        "torchdistx_tpu_torch.trainer, torchdistx_tpu_torch.optimizers, "
+        "torchdistx_tpu_torch.deferred_init, torchdistx_tpu_torch.utils.benchmarks\n"
         "from torchdistx_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"

@@ -117,12 +117,13 @@ def test_configs_match_jax_table():
     for name, jcfg in jllama.llama_configs.items():
         tcfg = tllama.llama_configs[name]
         for key, val in jcfg.items():
-            if key in ("dtype", "remat"):
+            if key == "dtype":
                 continue
             assert tcfg[key] == val, (name, key)
-        j = jllama.LlamaConfig(**{k: v for k, v in jcfg.items() if k != "remat"})
+        j = jllama.LlamaConfig(**jcfg)
         t = tllama.LlamaConfig(**tcfg)
-        assert (j.ffn_dim, j.n_kv_heads, j.head_dim) == (t.ffn_dim, t.n_kv_heads, t.head_dim)
+        assert (j.ffn_dim, j.n_kv_heads, j.head_dim, j.remat, j.remat_policy) == (
+            t.ffn_dim, t.n_kv_heads, t.head_dim, t.remat, t.remat_policy)
 
 
 def test_greedy_generate_matches_jax(models):

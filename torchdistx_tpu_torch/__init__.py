@@ -7,14 +7,27 @@ hand-written CUDA for Hopper here (``csrc/``), built with ``nvcc`` at their
 first launch, never at import.  Entry points run on ``"cuda"`` unless the
 caller asks for the CPU, where every kernel's plain PyTorch version runs.
 
-This slice serves Llama through ``serve.ServeEngine``: ``Llama.from_name``
--> ``ServeEngine(model, ...)`` -> ``engine.run(requests)``.
+Serving: ``Llama.from_name`` -> ``ServeEngine(model, ...)`` ->
+``engine.run(requests)``.  Training: ``deferred_init(Llama.from_name,
+"llama_1b", device="cuda")`` -> ``materialize_module(model)`` ->
+``Trainer(TrainStep(model, AnyPrecisionAdamW(...), loss_fn)).fit(batches,
+n)``.
 """
 
 __version__ = "0.5.0.dev0"
 
-from . import generation, interop, models, nn, ops, serve
+from . import generation, interop, models, nn, ops, optimizers, serve
+from .deferred_init import (
+    can_materialize,
+    deferred_init,
+    is_deferred,
+    materialize_module,
+    materialize_tensor,
+)
+from .fake import fake_mode, is_fake
 from .generation import generate
+from .optimizers import AnyPrecisionAdamW
+from .trainer import Trainer, TrainStep
 from .utils.rng import manual_seed
 
 __all__ = [
@@ -24,7 +37,18 @@ __all__ = [
     "models",
     "nn",
     "ops",
+    "optimizers",
     "serve",
     "generate",
     "manual_seed",
+    "fake_mode",
+    "is_fake",
+    "deferred_init",
+    "is_deferred",
+    "can_materialize",
+    "materialize_tensor",
+    "materialize_module",
+    "Trainer",
+    "TrainStep",
+    "AnyPrecisionAdamW",
 ]

@@ -2,8 +2,10 @@
 // fp32 softmax state and accumulation.
 //
 // Replaces the Pallas kernel torchdistx_tpu/ops/flash_attention.py:_kernel
-// (launched by _flash_forward), in its causal / no-bias / no-window /
-// plain-output variant: the cold prefill of the serving engine.
+// (launched by _flash_forward), in its causal / no-bias / no-window
+// variant, plain output (the cold prefill of the serving engine) or with
+// the row log-sum-exp (emit_lse: the training forward, whose lse the
+// backward kernels in flash_bwd.cu consume).
 //
 // What bounds it on an H100: operations.  Causal prefill at S = 2048,
 // D = 128 does ~2 * S^2 * D flops per head against ~4 * S * D * 2 bytes of
@@ -18,7 +20,9 @@
 // their row mapping).
 //
 // Layout: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), o like q, all contiguous
-// (the JAX package's layout; no transpose on the host).  Grid
+// (the JAX package's layout; no transpose on the host); lse, when its
+// pointer is not null, (B, Hq, Sq) f32, lse = m + log(max(l, 1e-30)) in
+// units of the scaled logits, as the TPU kernel's emit_lse branch.  Grid
 // (ceil(Sq / 64), B * Hq); block of 4 warps, each warp owning 16 query rows.
 // GQA: query head h reads kv head h / (Hq / Hkv) in place.  The causal mask
 // is end-aligned (query i sees keys j <= i + Skv - Sq) like the TPU kernel;
@@ -79,8 +83,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                 int Skv, int Hq, int Hkv, float scale, int causal) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+                 float scale, int causal) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -222,10 +227,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           __float2bfloat16(val);
     }
   }
+  if (lse != nullptr && lane < 16) {
+    const int r = r0 + lane;
+    const int qi = q0 + r;
+    if (qi < Sq)
+      lse[((long long)b * Hq + h) * Sq + qi] = ms[r] + logf(fmaxf(ls[r], 1e-30f));
+  }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B,
                    int Sq, int Skv, int Hq, int Hkv, float scale, int causal,
                    cudaStream_t stream) {
   const size_t smem = Layout<D>::bytes;
@@ -236,23 +248,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, Hq, Hkv,
-      scale, causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Skv, Hq,
+      Hkv, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success); the Python
-// wrapper raises on anything else.
+// wrapper raises on anything else.  A null lse is not written.
 extern "C" int tdx_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                  void* o, int B, int Sq, int Skv, int Hq,
-                                  int Hkv, int D, float scale, int causal,
+                                  void* o, void* lse_out, int B, int Sq, int Skv,
+                                  int Hq, int Hkv, int D, float scale, int causal,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  if (D == 128) return (int)launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, st);
-  if (D == 64) return (int)launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, st);
+  if (D == 128) return (int)launch<128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, causal, st);
+  if (D == 64) return (int)launch<64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

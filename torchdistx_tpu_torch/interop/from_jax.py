@@ -5,7 +5,8 @@
 module imports no JAX) and copies them into the port's module of the same
 architecture, so both packages compute the same function in the parity
 tests.  Names and shapes must match exactly: a missing, extra or
-mis-shaped key raises.
+mis-shaped key raises.  ``export_params(model)`` is the inverse: the
+port's parameters as f32 numpy arrays under the same names.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "export_params"]
 
 
 def load_jax_params(model: torch.nn.Module,
@@ -38,3 +39,10 @@ def load_jax_params(model: torch.nn.Module,
             src = np.array(params[name], dtype=np.float32, copy=True)
             p.copy_(torch.from_numpy(src).to(p.dtype))
     return model
+
+
+def export_params(model: torch.nn.Module) -> dict:
+    """``{name: np.ndarray}`` of the module's parameters, as f32 on the
+    host."""
+    return {name: p.detach().float().cpu().numpy()
+            for name, p in model.named_parameters()}

@@ -3,9 +3,12 @@
 RMSNorm pre-norm, rotary position embeddings (computed in f32, cast back),
 grouped-query attention, SwiGLU MLP, untied LM head.  Parameter names and
 layouts are the JAX package's, so ``interop.load_jax_params`` carries a
-JAX model's weights across one to one.  Sequence parallelism and remat are
-later slices: their config fields (``remat``, ``remat_policy``, ``sp_axis``,
-``sp_mode``) are not carried yet.
+JAX model's weights across one to one.  With ``use_flash`` resolved on,
+the training forward runs through the differentiable
+``ops.flash_attention.flash_attention`` (forward with ``lse``, backward by
+the FA2 kernels).  ``remat`` recomputes each block in the backward through
+``torch.utils.checkpoint``.  Sequence parallelism is a later slice: its
+config fields (``sp_axis``, ``sp_mode``) are not carried yet.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn as tnn
 
 from .. import nn
@@ -44,8 +48,17 @@ class LlamaConfig:
     # the kernels; None = auto: on for CUDA tensors, off on the CPU
     use_flash: Optional[bool] = None
     sliding_window: Optional[int] = None
+    # recompute each block in the backward instead of keeping its
+    # activations; "full" recomputes everything ("dots", which keeps the
+    # matmul outputs, is not ported yet)
+    remat: bool = False
+    remat_policy: str = "full"
 
     def __post_init__(self) -> None:
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(
+                f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}"
+            )
         if self.sliding_window is not None and self.sliding_window < 1:
             raise ValueError(
                 f"sliding_window must be >= 1, got {self.sliding_window}"
@@ -67,8 +80,7 @@ def _hf_normal(shape, dtype, device):
     return nn_init.normal(shape, std=0.02, dtype=dtype, device=device)
 
 
-# the JAX package's table, with torch dtypes; llama_1b's remat=True is a
-# training setting and is dropped here (training is a later slice)
+# the JAX package's table, with torch dtypes
 llama_configs = {
     "tiny": dict(
         vocab_size=256, dim=64, n_layers=2, n_heads=4, max_seq_len=128,
@@ -76,7 +88,7 @@ llama_configs = {
     ),
     "llama_1b": dict(
         vocab_size=32000, dim=2048, n_layers=16, n_heads=16,
-        max_seq_len=2048,
+        max_seq_len=2048, remat=True,
     ),
     "llama2_7b": dict(
         vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
@@ -134,7 +146,7 @@ def apply_rope_at(x, rope, positions):
 
 
 def _linear(cfg, i, o, device):
-    return nn.Linear(i, o, dtype=cfg.dtype, device=device,
+    return nn.Linear(i, o, bias=False, dtype=cfg.dtype, device=device,
                      weight_init=_hf_normal)
 
 
@@ -273,12 +285,28 @@ class Llama(tnn.Module):
                                           cfg.rope_theta, dev)
         return self._rope[dev]
 
-    def forward(self, tokens):
+    def forward(self, tokens, return_hidden: bool = False):
+        """Logits (B, S, vocab); ``return_hidden=True`` returns the
+        pre-LM-head hidden states instead (the input of a fused LM-head
+        loss)."""
+        cfg = self.cfg
+        if cfg.remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet"
+            )
         rope = self.rope_table()
         x = self.tok_emb(tokens)
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, rope)
-        return self.lm_head(self.norm(x))
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    blk, x, rope, use_reentrant=False)
+            else:
+                x = blk(x, rope)
+        x = self.norm(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x)
 
     # -- incremental decoding (KV cache) ----------------------------------
 

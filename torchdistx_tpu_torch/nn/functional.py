@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as _F
 
-__all__ = ["silu", "rms_norm", "embedding", "linear"]
+__all__ = ["silu", "rms_norm", "embedding", "linear", "cross_entropy"]
 
 
 def silu(x):
@@ -33,3 +33,11 @@ def embedding(ids, table):
 def linear(x, weight, bias=None):
     # weight layout (out_features, in_features), as in the JAX package
     return _F.linear(x, weight, bias)
+
+
+def cross_entropy(logits, labels, dim: int = -1):
+    """Mean token cross-entropy: f32 log-softmax over ``dim``, then the mean
+    negative log-likelihood of the integer ``labels``."""
+    logp = torch.log_softmax(logits.float(), dim=dim)
+    nll = -torch.gather(logp, dim, labels.long().unsqueeze(dim)).squeeze(dim)
+    return nll.mean()

@@ -2,9 +2,9 @@
 ``torchdistx_tpu/nn/layers.py``: ``torch.nn.Module``s whose parameters keep
 the JAX package's names and layouts (``Linear.weight`` is (out, in)).
 
-The initializer is the caller's (``weight_init(shape, dtype, device)``):
-the models pass their own scheme, and the JAX package's defaults
-(kaiming-uniform weights, uniform biases) are not on this slice's path."""
+An initializer is ``fn(shape, dtype, device)``: the models pass their own
+scheme; without one, ``Linear`` takes the JAX package's default
+(kaiming-uniform weight, uniform bias in +-1/sqrt(in_features))."""
 
 from __future__ import annotations
 
@@ -18,19 +18,26 @@ __all__ = ["Linear", "Embedding", "RMSNorm"]
 
 
 class Linear(nn.Module):
-    def __init__(self, in_features: int, out_features: int, bias: bool = False,
-                 *, weight_init, dtype=torch.float32, device="cuda"):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, weight_init=None, dtype=torch.float32, device="cuda"):
         super().__init__()
-        if bias:
-            raise NotImplementedError("Linear bias is not ported yet")
         self.in_features = in_features
         self.out_features = out_features
+        if weight_init is None:
+            weight_init = lambda s, d, dev: init.kaiming_uniform(  # noqa: E731
+                s, dtype=d, device=dev)
         self.weight = nn.Parameter(
             weight_init((out_features, in_features), dtype, device)
         )
+        if bias:
+            bound = init.linear_bias_bound(in_features)
+            self.bias = nn.Parameter(
+                init.uniform((out_features,), -bound, bound, dtype, device))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x):
-        return F.linear(x, self.weight)
+        return F.linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):

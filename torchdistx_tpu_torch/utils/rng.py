@@ -43,8 +43,18 @@ def derive_seed(seed: int, counter: int) -> int:
 
 
 def next_generator(device="cuda") -> torch.Generator:
-    """The next generator of the stream, on ``device``."""
-    g = torch.Generator(device=torch.device(device))
+    """The next generator of the stream, on ``device``.  Under
+    ``fake_mode(fake_cuda=True)`` on a host without a card, a claimed
+    ``cuda`` device gets a CPU generator of the same seed: the draw is
+    recorded by its seed, and a replay on the CPU matches an eager CPU
+    construction."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        from ..fake import fake_cuda_active
+
+        if fake_cuda_active():
+            device = torch.device("cpu")
+    g = torch.Generator(device=device)
     g.manual_seed(derive_seed(_state.seed, _state.counter))
     _state.counter += 1
     return g
