@@ -14,6 +14,7 @@ import torch
 
 from torchdistx_tpu_torch.ops import decode_attention as tdec
 from torchdistx_tpu_torch.ops import flash_attention as tflash
+from torchdistx_tpu_torch.ops import fused_ce as tfc
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -101,3 +102,77 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tflash.flash_bwd_dkv_cuda(y, y[:, :4], y[:, :4], y, lse, y)
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         tflash.flash_bwd_dkv_cuda(y.cpu(), y, y, y, lse, y)
+
+
+def _ce_inputs(cuda, n, d, v, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = _rand(g, (n, d), cuda)
+    w = (torch.randn((v, d), generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=g, device=cuda)
+    labels[:3] = torch.tensor([v - 1, 0, v - 2], device=cuda)
+    return x, w, labels
+
+
+def _scaled(out, ref):
+    return float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fused_ce_kernels_match_plain(cuda, d):
+    """N 509 (prime), V 1000 (no tile divisor): loss to 1e-3 relative, lse
+    to 1e-3 absolute, dX and dW (bf16 dP, cotangent 2) within 2e-2 of their
+    max, as ``chip_smoke.py`` holds them."""
+    x, w, labels = _ce_inputs(cuda, 509, d, 1000, d)
+    g2 = torch.full((1,), 2.0, device=cuda)
+    before = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
+                                   tfc.fused_ce_dw_cuda)]
+    loss, lse = tfc.fused_ce_fwd_cuda(x, w, labels)
+    dx = tfc.fused_ce_dx_cuda(x, w, labels, lse, g2)
+    dw = tfc.fused_ce_dw_cuda(x, w, labels, lse, g2)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
+                                  tfc.fused_ce_dw_cuda)]
+    assert after == [b + 1 for b in before]
+    r_loss, r_lse = tfc.fused_ce_fwd_reference(x, w, labels)
+    torch.testing.assert_close(lse, r_lse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(loss.mean(), r_loss.mean(), atol=0, rtol=1e-3)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert _scaled(dx, tfc.fused_ce_dx_reference(x, w, labels, r_lse, g2)) <= 2e-2
+    assert _scaled(dw, tfc.fused_ce_dw_reference(x, w, labels, r_lse, g2)) <= 2e-2
+
+
+def test_fused_loss_autograd_goes_through_the_kernels(cuda):
+    x, w, labels = _ce_inputs(cuda, 64, 64, 300, 1)
+    x.requires_grad_()
+    w.requires_grad_()
+    counts = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
+                                   tfc.fused_ce_dw_cuda)]
+    tfc.fused_linear_cross_entropy(x.view(4, 16, 64), w, labels.view(4, 16)).backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
+                                 tfc.fused_ce_dw_cuda)] == [c + 1 for c in counts]
+    assert x.grad.shape == (64, 64) and w.grad.shape == (300, 64)
+    assert torch.isfinite(x.grad.float()).all() and torch.isfinite(w.grad.float()).all()
+
+
+def test_fused_ce_kernels_refuse_what_they_do_not_take(cuda):
+    """A CUDA f32 or mis-shaped input raises; no plain fallback runs."""
+    x, w, labels = _ce_inputs(cuda, 16, 64, 100, 2)
+    lse = torch.zeros(16, device=cuda)
+    one = torch.ones(1, device=cuda)
+    counts = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
+                                   tfc.fused_ce_dw_cuda)]
+    with pytest.raises(TypeError, match="bf16"):
+        tfc.fused_ce_fwd_cuda(x.float(), w.float(), labels)
+    with pytest.raises(TypeError, match="bf16"):
+        tfc.fused_linear_cross_entropy(x.float(), w.float(), labels)
+    with pytest.raises(ValueError, match=r"\(V, D\)"):
+        tfc.fused_ce_dx_cuda(x, w[:, :32], labels, lse, one)
+    with pytest.raises(ValueError, match="D % 8"):
+        tfc.fused_ce_dw_cuda(x[:, :60], w[:, :60], labels, lse, one)
+    with pytest.raises(ValueError, match="labels"):
+        tfc.fused_ce_fwd_cuda(x, w, labels[:-1])
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        tfc.fused_ce_dw_cuda(x, w, labels, lse.cpu(), one)
+    assert [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
+                                 tfc.fused_ce_dw_cuda)] == counts

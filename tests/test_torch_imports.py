@@ -5,6 +5,7 @@ import ast
 import os
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -20,7 +21,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         "import torchdistx_tpu_torch, torchdistx_tpu_torch.serve, "
         "torchdistx_tpu_torch.models, torchdistx_tpu_torch.interop, "
         "torchdistx_tpu_torch.trainer, torchdistx_tpu_torch.optimizers, "
-        "torchdistx_tpu_torch.deferred_init, torchdistx_tpu_torch.utils.benchmarks\n"
+        "torchdistx_tpu_torch.deferred_init, torchdistx_tpu_torch.utils.benchmarks, "
+        "torchdistx_tpu_torch.data, torchdistx_tpu_torch.examples.train_gpt2, "
+        "torchdistx_tpu_torch.models.gpt2, torchdistx_tpu_torch.ops.fused_ce\n"
         "from torchdistx_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
@@ -50,3 +53,14 @@ def test_source_has_no_jax_import(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: import {name}"
+
+
+def test_every_subpackage_is_packaged():
+    """``pyproject.toml`` lists its packages one by one: every package of
+    the port on disk must be in that list, or an installed wheel lacks it."""
+    listed = set(tomllib.loads((ROOT / "pyproject.toml").read_text())
+                 ["tool"]["setuptools"]["packages"])
+    on_disk = {p.parent.relative_to(ROOT).as_posix().replace("/", ".")
+               for p in PORT.rglob("__init__.py")}
+    assert "torchdistx_tpu_torch.optimizers" in on_disk
+    assert on_disk <= listed, sorted(on_disk - listed)

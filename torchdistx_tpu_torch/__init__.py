@@ -11,12 +11,14 @@ Serving: ``Llama.from_name`` -> ``ServeEngine(model, ...)`` ->
 ``engine.run(requests)``.  Training: ``deferred_init(Llama.from_name,
 "llama_1b", device="cuda")`` -> ``materialize_module(model)`` ->
 ``Trainer(TrainStep(model, AnyPrecisionAdamW(...), loss_fn)).fit(batches,
-n)``.
+n)``; GPT-2 the same way through ``examples.train_gpt2.main`` (param
+groups, the token loader, and with ``fused_ce=True`` the fused LM-head
+loss ``ops.fused_ce.fused_linear_cross_entropy``).
 """
 
 __version__ = "0.5.0.dev0"
 
-from . import generation, interop, models, nn, ops, optimizers, serve
+from . import data, examples, generation, interop, models, nn, ops, optimizers, serve
 from .deferred_init import (
     can_materialize,
     deferred_init,
@@ -32,6 +34,8 @@ from .utils.rng import manual_seed
 
 __all__ = [
     "__version__",
+    "data",
+    "examples",
     "generation",
     "interop",
     "models",

@@ -1,4 +1,4 @@
 from . import functional, init
-from .layers import Embedding, Linear, RMSNorm
+from .layers import Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["functional", "init", "Linear", "Embedding", "RMSNorm"]
+__all__ = ["functional", "init", "Linear", "Embedding", "LayerNorm", "RMSNorm"]

@@ -1,16 +1,40 @@
-"""Functional ops for module forwards (the subset Llama needs), counterpart
-of ``torchdistx_tpu/nn/functional.py``."""
+"""Functional ops for module forwards (the subset Llama and GPT-2 need),
+counterpart of ``torchdistx_tpu/nn/functional.py``."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as _F
 
-__all__ = ["silu", "rms_norm", "embedding", "linear", "cross_entropy"]
+__all__ = ["gelu", "silu", "layer_norm", "rms_norm", "embedding", "linear", "cross_entropy"]
+
+
+def gelu(x, approximate: bool = True):
+    """The JAX default is the tanh approximation (``jax.nn.gelu``);
+    torch's default is erf, so the mode is always named."""
+    return _F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def silu(x):
     return _F.silu(x)
+
+
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
+    """The JAX package's arithmetic: mean and (biased) variance taken in f32
+    and rounded to x's dtype (``jnp.mean``/``jnp.var`` upcast bf16), then
+    ``(x - mean) * rsqrt(var + eps)``, weight and bias in x's dtype.
+    (``torch.nn.functional.layer_norm`` normalizes in f32 and rounds once,
+    which differs in bf16.)"""
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (x - mean.to(dt)) * torch.rsqrt(var.to(dt) + eps)
+    if weight is not None:
+        y = y * weight
+    if bias is not None:
+        y = y + bias
+    return y
 
 
 def rms_norm(x, weight=None, eps: float = 1e-6):

@@ -1,10 +1,11 @@
-"""Core layers (the subset Llama needs), counterpart of
+"""Core layers (the subset Llama and GPT-2 need), counterpart of
 ``torchdistx_tpu/nn/layers.py``: ``torch.nn.Module``s whose parameters keep
 the JAX package's names and layouts (``Linear.weight`` is (out, in)).
 
 An initializer is ``fn(shape, dtype, device)``: the models pass their own
-scheme; without one, ``Linear`` takes the JAX package's default
-(kaiming-uniform weight, uniform bias in +-1/sqrt(in_features))."""
+scheme (``weight_init``, ``bias_init``); without one, ``Linear`` takes the
+JAX package's default (kaiming-uniform weight, uniform bias in
++-1/sqrt(in_features))."""
 
 from __future__ import annotations
 
@@ -14,12 +15,13 @@ from torch import nn
 from . import functional as F
 from . import init
 
-__all__ = ["Linear", "Embedding", "RMSNorm"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm"]
 
 
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, weight_init=None, dtype=torch.float32, device="cuda"):
+                 *, weight_init=None, bias_init=None, dtype=torch.float32,
+                 device="cuda"):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
@@ -30,9 +32,11 @@ class Linear(nn.Module):
             weight_init((out_features, in_features), dtype, device)
         )
         if bias:
-            bound = init.linear_bias_bound(in_features)
-            self.bias = nn.Parameter(
-                init.uniform((out_features,), -bound, bound, dtype, device))
+            if bias_init is None:
+                bound = init.linear_bias_bound(in_features)
+                bias_init = lambda s, d, dev: init.uniform(  # noqa: E731
+                    s, -bound, bound, d, dev)
+            self.bias = nn.Parameter(bias_init((out_features,), dtype, device))
         else:
             self.register_parameter("bias", None)
 
@@ -52,6 +56,18 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, features: int, eps: float = 1e-5, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(init.ones((features,), dtype, device))
+        self.bias = nn.Parameter(init.zeros((features,), dtype, device))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class RMSNorm(nn.Module):

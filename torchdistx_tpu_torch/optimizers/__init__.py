@@ -1,3 +1,4 @@
 from .anyprecision_optimizer import AnyPrecisionAdamW
+from .param_groups import decay_labels, label_tree, with_param_groups
 
-__all__ = ["AnyPrecisionAdamW"]
+__all__ = ["AnyPrecisionAdamW", "decay_labels", "label_tree", "with_param_groups"]

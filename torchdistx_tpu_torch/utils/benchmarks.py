@@ -4,10 +4,12 @@
 A Llama LM step (flash attention on the card, AnyPrecisionAdamW at lr
 1e-4, bf16) built the way the JAX one is: ``deferred_init`` of the model,
 ``materialize_module`` on the device, one fixed batch of tokens and labels
-from ``np.random.RandomState(0)``, the plain ``cross_entropy`` loss.  It
-takes explicit arguments where the JAX function reads environment
-variables.  The ZeRO-2 plan, the 8-bit optimizer, the fused LM-head loss
-and the numerics taps are not ported yet and raise.
+from ``np.random.RandomState(0)``, the plain ``cross_entropy`` loss, or
+with ``fused_ce=True`` the fused LM-head loss on the hidden states
+(``ops.fused_ce``, no (B, S, vocab) logits in device memory).  It takes
+explicit arguments where the JAX function reads environment variables.
+The ZeRO-2 plan, the 8-bit optimizer and the numerics taps are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -38,13 +40,12 @@ def build_train_workload(
 ) -> dict:
     """Returns ``{"run", "trainer", "step", "model", "optimizer", "batch",
     "name", "n_params", "batch_size", "seq", "tokens_per_batch",
-    "flops_per_token", "remat"}``; ``run(n_steps)`` takes ``n_steps``
+    "flops_per_token", "remat", "fused_ce"}``; ``run(n_steps)`` takes ``n_steps``
     more steps through ``Trainer.fit`` and returns their losses as
     floats."""
     if optimizer != "anyprecision":
         raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet")
-    for flag, what in ((fused_ce, "fused LM-head cross-entropy"),
-                       (zero2, "the ZeRO-2 plan"), (numerics, "numerics taps")):
+    for flag, what in ((zero2, "the ZeRO-2 plan"), (numerics, "numerics taps")):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
     if remat_policy != "full" and not remat:
@@ -53,6 +54,7 @@ def build_train_workload(
     from ..deferred_init import deferred_init, materialize_module
     from ..models.llama import Llama
     from ..nn import functional as F
+    from ..ops.fused_ce import fused_linear_cross_entropy
     from ..optimizers import AnyPrecisionAdamW
     from ..trainer import Trainer, TrainStep
     from .rng import manual_seed
@@ -71,9 +73,15 @@ def build_train_workload(
     tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq))).to(device)
     labels = torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq))).to(device)
 
-    def loss_fn(m, b):
-        toks, labs = b
-        return F.cross_entropy(m(toks), labs)
+    if fused_ce:
+        def loss_fn(m, b):
+            toks, labs = b
+            h = m(toks, return_hidden=True)
+            return fused_linear_cross_entropy(h, m.lm_head.weight, labs)
+    else:
+        def loss_fn(m, b):
+            toks, labs = b
+            return F.cross_entropy(m(toks), labs)
 
     step = TrainStep(model, opt, loss_fn)
     # model FLOPs per token: 6N for the forward and backward matmuls plus
@@ -93,5 +101,5 @@ def build_train_workload(
         "optimizer": opt, "batch": (tokens, labels), "name": name,
         "n_params": int(n_params), "batch_size": batch, "seq": seq,
         "tokens_per_batch": batch * seq, "flops_per_token": flops_per_token,
-        "remat": remat,
+        "remat": remat, "fused_ce": fused_ce,
     }
