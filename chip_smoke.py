@@ -12,10 +12,27 @@ Phases, each fatal:
    at llama3_8b shapes (Hq 32, Hkv 8, D 128), and time kernel, plain
    version and the PyTorch library call that computes the same function
    (``scaled_dot_product_attention``, a yardstick the port never calls);
-3. serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
+   the decode kernels in every variant, {slab, paged} x {one token, a
+   5-token verify block} x {bf16, int8}, at the serving geometry (8 slots,
+   max_len 2048, page size 16, shuffled page tables sharing prefix pages);
+3. a 4-layer, full-width llama3_8b through the kernels and the plain path
+   against f32, decoding over the slab, the int8 cache and page pools, one
+   token at a time and in the speculative verify's 5-token blocks (rows
+   past a slot's end included); then
+   serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
    random weights drawn from the seed, check the results, the slot
    independence of a greedy stream, and that every prefill and decode step
-   went through the kernels (launch counters reset just before the run);
+   went through the kernels (launch counters reset just before each run);
+   on the same model: (b) the paged engine with the prefix cache, one
+   shared system prompt, the burst twice (cold, then warm: prefix hits,
+   fewer tokens prefilled), its cold streams equal to the slab engine's
+   bit for bit; then, with the model biased to repeat its last token
+   (``copy_bias``: a random model's greedy output repeats nothing that
+   prompt lookup could draft), (c) the slab engine with ``speculate=4`` on
+   repetitive prompts (more than one token per verify; the share of
+   streams equal to ``speculate=0``'s is printed, not gated); (d) paged +
+   speculate 4 + int8 (the cache at most 0.53 of the bf16 one), and each
+   remaining decode variant's engine alone;
 4. hold the flash backward kernels (``flash_bwd_dkv``, ``flash_bwd_dq``) and
    the forward's ``lse`` variant against their plain versions, and time
    them beside the SDPA backward (a yardstick the port never calls);
@@ -51,6 +68,7 @@ no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -73,6 +91,20 @@ RTOL = 2e-2
 # the attention arithmetic differs, and the kernels keep more of it in f32)
 LOGITS_FACTOR = 2.0
 CHECK_LAYERS = 4
+# decode kernels vs plain versions, also per (slot, query row) over its
+# heads: the norm of the difference within ROW_RTOL of the row's norm.  At
+# depth a row averages hundreds of values and is O(0.05), where ATOL alone
+# would pass a dropped key tile or an off-by-one; bf16 rounding moves a row
+# by about 2^-9 of its norm
+ROW_RTOL = 1e-2
+# the whole-model verify check: two slots of VERIFY_LEN rows (4 pages of
+# 16), (depth of slot 0, depth of slot 1) per round of S = 5 tokens; the
+# second round rewrites rows of the first, as a partly rejected draft does,
+# and slot 1's last two rows run past the slot's end (dropped)
+VERIFY_LEN = 64
+VERIFY_S = 5
+VERIFY_PROMPTS = (37, 58)
+VERIFY_ROUNDS = ((37, 58), (40, 61))
 
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
@@ -80,6 +112,18 @@ H100_BYTES_PER_S = 3.35e12
 FLASH_CASES = [(b, s) for b in (1, 2) for s in (16, 37, 128, 1000, 2048)]
 FLASH_REPORTED = (1, 2048)  # the largest prefill bucket of the serve run
 DECODE_POSITIONS = [0, 511, 512, 1500, 2047, 37, 1023, 1800]
+# the decode variants' slot depths at page_size 16: 0, page boundaries +-1
+# and max_len - 1; with S = 5 the last two slots' rows run past max_len
+VARIANT_POSITIONS = {1: [0, 15, 16, 17, 1023, 1024, 1500, 2047],
+                     5: [0, 12, 15, 1020, 1024, 1800, 2044, 2047]}
+KERNEL_OF = {("slab", 1): "decode_attention", ("slab", 5): "decode_attention_block",
+             ("paged", 1): "paged_decode_attention",
+             ("paged", 5): "paged_decode_attention_block"}
+# file:line of the TPU kernel each replaces
+TPU_KERNEL_OF = {"decode_attention": "torchdistx_tpu/ops/decode_attention.py:79",
+                 "decode_attention_block": "torchdistx_tpu/ops/decode_attention.py:297",
+                 "paged_decode_attention": "torchdistx_tpu/ops/decode_attention.py:609",
+                 "paged_decode_attention_block": "torchdistx_tpu/ops/decode_attention.py:509"}
 # (B, S, Hq, Hkv, D) for the backward kernels; timed at the llama_1b
 # training shape (D 128) and the gpt2_large one (D 64)
 BWD_CASES = [(1, 37, 4, 4, 128), (1, 1000, 32, 8, 128), (2, 2048, 16, 16, 128),
@@ -101,6 +145,10 @@ CE_REPORTED = (8192, 1280, 50257)
 # max, within 2e-2
 CE_LOSS_RTOL = 1e-3
 CE_GRAD_TOL = 2e-2
+# engine counters a serve run reports
+SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
+                  "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
+                  "draft_tokens_accepted")
 
 
 def _fail(msg: str, code: int = 1):
@@ -127,6 +175,15 @@ def _close(torch, out, ref):
     diff = (out.float() - ref.float()).abs()
     ok = bool((diff <= ATOL + RTOL * ref.float().abs()).all())
     return ok, float(diff.max())
+
+
+def _close_rows(torch, out, ref):
+    """:func:`_close` and the per-(slot, query row) relative norm of a
+    (B, S, Hq, D) decode output.  Returns (ok, max abs err, max row err)."""
+    ok, err = _close(torch, out, ref)
+    o, r = out.float().flatten(2), ref.float().flatten(2)
+    rel = float(((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)).max())
+    return ok and rel <= ROW_RTOL, err, rel
 
 
 def flash_bound(b, sq, skv, hq, hkv, d):
@@ -202,10 +259,10 @@ def check_decode(torch, device, b=8, max_len=2048, hq=32, hkv=8, d=128,
     pos = torch.tensor(positions[:b], dtype=torch.int32, device=device)
     out = da.decode_attention(q, ck, cv, pos)
     ref = da.decode_attention_reference(q, ck, cv, pos)
-    ok, err = _close(torch, out, ref)
-    failures = [] if ok else [f"decode: max|d|={err}"]
+    ok, err, rel = _close_rows(torch, out, ref)
+    failures = [] if ok else [f"decode: max|d|={err}, row {rel}"]
     row = {"B": b, "max_len": max_len, "positions": positions[:b],
-           "max_abs_err": err, "ok": ok}
+           "max_abs_err": err, "max_row_rel_err": rel, "ok": ok}
     if device.type == "cuda":
         qt = q.transpose(1, 2)
         kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
@@ -221,32 +278,205 @@ def check_decode(torch, device, b=8, max_len=2048, hq=32, hkv=8, d=128,
     return row, failures
 
 
-def _logit_trace(torch, model, prompt, toks, use_flash):
+def variant_bound(positions, s, max_len, hq, hkv, d, quant, tables=None):
+    """Least time (ms) for one decode-variant call: the visible K/V rows
+    (rows up to each slot's deepest query row, ``min(pos + S, max_len)``)
+    in their stored type plus their f32 scales when int8, q and o in bf16,
+    over the memory rate; vs Q.K and P.V at 2 flops a MAC for every
+    visible (query row, key) pair over the bf16 peak.  Over page pools
+    (``tables``, (B, pages per slot) numpy) the rows are the union of the
+    pool rows the slots see: a page that slots share is read once.  Slab
+    rows are each slot's own memory."""
+    import numpy as np
+
+    depth = [min(p + s, max_len) for p in positions]
+    if tables is None:
+        rows = sum(depth)
+    else:
+        ps = max_len // tables.shape[1]
+        seen = set()
+        for b, n in enumerate(depth):
+            j = np.arange(n)
+            seen.update((tables[b, j // ps].astype(np.int64) * ps + j % ps).tolist())
+        rows = len(seen)
+    per_row = hkv * (d * (1 if quant else 2) + (4 if quant else 0))
+    nbytes = 2.0 * rows * per_row + 2.0 * 2 * len(positions) * s * hq * d
+    pairs = sum(min(p + i, max_len - 1) + 1 for p in positions for i in range(s))
+    flops = 4.0 * d * hq * pairs
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _shuffled_tables(torch, rng, b, pp, num_pages, shared, device):
+    """Page tables over pool pages 1..num_pages-1 in a shuffled order, with
+    slots 1..b-1 sharing slot 0's first ``shared`` pages (a common prefix)."""
+    perm = rng.permutation(num_pages - 1)[: b * pp] + 1
+    tables = perm.reshape(b, pp).copy()
+    tables[1:, :shared] = tables[0, :shared]
+    return torch.tensor(tables, dtype=torch.int32, device=device)
+
+
+def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
+                          d=128, page_size=16, iters=50):
+    """Each decode kernel variant, {slab, paged} x {S = 1, S = 5} x {bf16,
+    int8}, against its plain version at the llama3_8b serving geometry.
+    Positions include 0, page boundaries +-1 and ``max_len - 1``; for S = 5
+    some slots' rows run past ``max_len``.  The pools hold the slab's rows
+    under shuffled page tables whose slots share a prefix of pages, so each
+    paged output must equal the slab kernel's on the gathered rows bit for
+    bit.  Timed beside the plain version and the library yardstick (SDPA
+    with an explicit mask over the slab; over the gather, timed with it,
+    for paged; after the dequantization, timed with it, for int8)."""
+    import numpy as np
+    from torchdistx_tpu_torch.ops import decode_attention as da
+    from torchdistx_tpu_torch.ops.attention import _paged_gather
+    from torchdistx_tpu_torch.serve.kv_cache import dequantize_kv, quantize_kv
+
+    g = torch.Generator(device=device).manual_seed(7)
+    rng = np.random.RandomState(7)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    pp = max_len // page_size
+    num_pages = b * pp + 1
+    pools = {"k": rnd((num_pages, page_size, hkv, d)),
+             "v": rnd((num_pages, page_size, hkv, d))}
+    tables = _shuffled_tables(torch, rng, b, pp, num_pages, pp // 4, device)
+    qpools = {n: quantize_kv(t) for n, t in pools.items()}
+    rows, failures = [], []
+    for layout in ("slab", "paged"):
+        for s in (1, 5):
+            positions = VARIANT_POSITIONS[s]
+            pos = torch.tensor(positions, dtype=torch.int32, device=device)
+            q = rnd((b, s, hq, d))
+            for dt in ("bf16", "int8"):
+                quant = dt == "int8"
+                if quant:
+                    (kd, ksc), (vd, vsc) = qpools["k"], qpools["v"]
+                else:
+                    kd, vd, ksc, vsc = pools["k"], pools["v"], None, None
+                if layout == "paged":
+                    cache = (kd, vd, tables)
+                else:
+                    cache = (_paged_gather(kd, tables).contiguous(),
+                             _paged_gather(vd, tables).contiguous())
+                    if quant:
+                        ksc = _paged_gather(ksc, tables).contiguous()
+                        vsc = _paged_gather(vsc, tables).contiguous()
+                name = KERNEL_OF[(layout, s)]
+                kernel = getattr(da, f"{name}_cuda")
+                plain = getattr(da, f"{name}_reference")
+                kw = dict(k_scale=ksc, v_scale=vsc)
+                out = kernel(q, *cache, pos, **kw)
+                ref = plain(q, *cache, pos, **kw)
+                ok, err, rel = _close_rows(torch, out, ref)
+                row = {"kernel": name, "dtype": dt, "S": s, "B": b,
+                       "max_len": max_len, "page_size": page_size,
+                       "positions": positions, "max_abs_err": err,
+                       "max_row_rel_err": rel, "ok": ok}
+                if layout == "paged":
+                    # the same rows through the slab kernel: only the
+                    # address of a key row differs between the two
+                    slab = [_paged_gather(t, tables).contiguous() for t in (kd, vd)]
+                    skw = {k: None if v is None else _paged_gather(v, tables).contiguous()
+                           for k, v in kw.items()}
+                    slab_fn = getattr(da, f"{KERNEL_OF[('slab', s)]}_cuda")
+                    row["equals_slab_bitwise"] = bool(torch.equal(
+                        out, slab_fn(q, *slab, pos, **skw)))
+                    if not row["equals_slab_bitwise"]:
+                        failures.append(f"{name} {dt}: differs from the slab kernel")
+                if not ok:
+                    failures.append(f"{name} {dt} S={s}: max|d|={err}, row {rel}")
+                row["ms"] = time_ms(torch, lambda: kernel(q, *cache, pos, **kw), iters)
+                row["plain_ms"] = time_ms(torch, lambda: plain(q, *cache, pos, **kw), iters)
+                depth = (pos.long()[:, None] + torch.arange(s, device=device)[None, :])
+                mask = (torch.arange(max_len, device=device)[None, None, :]
+                        <= depth[:, :, None])[:, None]  # (B, 1, S, max_len)
+                qt = q.transpose(1, 2)
+
+                def library():
+                    kk, vv = cache[0], cache[1]
+                    if layout == "paged":
+                        kk, vv = _paged_gather(kk, tables), _paged_gather(vv, tables)
+                    if quant:
+                        ks_, vs_ = ksc, vsc
+                        if layout == "paged":
+                            ks_, vs_ = _paged_gather(ksc, tables), _paged_gather(vsc, tables)
+                        kk = dequantize_kv(kk, ks_).to(torch.bfloat16)
+                        vv = dequantize_kv(vv, vs_).to(torch.bfloat16)
+                    return _sdpa_gqa(torch, qt, kk.transpose(1, 2), vv.transpose(1, 2),
+                                     attn_mask=mask)
+
+                row["library_ms"] = time_ms(torch, library, iters)
+                row["bound_ms"], row["bound_by"] = variant_bound(
+                    positions, s, max_len, hq, hkv, d, quant,
+                    tables.cpu().numpy() if layout == "paged" else None)
+                rows.append(row)
+                print("decode variant", json.dumps(row))
+    return rows, failures
+
+
+def _decode_cache(torch, model, slab, kv_dtype, page_size):
+    """The prefilled slab ``slab`` as the decode path's cache: unchanged,
+    quantized to int8, and/or scattered into page pools behind shuffled
+    page tables (page 0 is the scratch page).  Returns (cache, tables)."""
+    from torchdistx_tpu_torch.serve import kv_cache as kc
+
+    tables = None
+    cache = slab
+    if page_size:
+        b, length = slab[0][0].shape[:2]
+        n = length // page_size
+        g = torch.Generator(device="cpu").manual_seed(n)
+        perm = (torch.randperm(2 * b * n, generator=g)[: b * n] + 1).to(model.device)
+        cache = model.init_cache(2 * b * n + 1, page_size)
+        for i, row in enumerate(perm.view(b, n)):
+            kc.paged_scatter_rows(cache, [(k[i:i + 1], v[i:i + 1]) for k, v in slab],
+                                  row, page_size, 0, n * page_size)
+        tables = perm.view(b, n).to(torch.int32)
+    if kv_dtype == "int8":
+        cache = kc.quantize_cache(cache)
+    return cache, tables
+
+
+def _logit_trace(torch, model, prompt, toks, use_flash, kv_dtype=None,
+                 page_size=None):
     """Last-position f32 logits of a prefill and of one decode step per
-    token of ``toks`` (forced, so every path sees the same inputs)."""
+    token of ``toks`` (forced, so every path sees the same inputs), the
+    decode steps over the slab, its int8 quantization or page pools."""
     saved = model.cfg.use_flash
     model.cfg.use_flash = use_flash
     try:
         s = prompt.shape[1]
-        cache = model.init_cache(1, s + len(toks) + 1)
+        length = s + len(toks) + 1
+        if page_size:
+            length = -(-length // page_size) * page_size
+        cache = model.init_cache(1, length)
         logits, cache = model.forward_cached(prompt, cache, 0)
         seq = [logits[:, -1].float()]
+        cache, tables = _decode_cache(torch, model, cache, kv_dtype, page_size)
+        extra = () if tables is None else (tables,)
         for i, tok in enumerate(toks):
             pos = torch.tensor([s + i], device=prompt.device)
-            logits, cache = model.forward_decode(tok.view(1, 1), cache, pos)
+            logits, cache = model.forward_decode(tok.view(1, 1), cache, pos, *extra)
             seq.append(logits[:, -1].float())
         return torch.stack(seq)
     finally:
         model.cfg.use_flash = saved
 
 
-def check_logits(torch, model, ref_model, prompt_len=37, decode_steps=3):
+def check_logits(torch, model, ref_model, prompt_len=37, decode_steps=3,
+                 kv_dtype=None, page_size=None):
     """The bf16 model through the kernels and through the plain path, each
-    held against the f32 plain path of the same weights (``ref_model``):
-    prefill of one short prompt, then a few decode steps on the tokens the
-    f32 reference picks.  The kernel path must be finite, of the expected
-    shape, and no further from the f32 reference than LOGITS_FACTOR times
-    the plain bf16 path is."""
+    held against the f32 plain path of the same weights (``ref_model``,
+    slab cache): prefill of one short prompt, then a few decode steps on
+    the tokens the f32 reference picks, over the slab, its int8
+    quantization (``kv_dtype``) or page pools (``page_size``).  The kernel
+    path must be finite, of the expected shape, and no further from the
+    f32 reference than LOGITS_FACTOR times the plain bf16 path (same cache)
+    is."""
     dev = model.device
     g = torch.Generator(device=dev).manual_seed(3)
     prompt = torch.randint(0, model.cfg.vocab_size, (1, prompt_len),
@@ -256,16 +486,73 @@ def check_logits(torch, model, ref_model, prompt_len=37, decode_steps=3):
     for _ in range(decode_steps):
         toks.append(torch.argmax(ref[-1], dim=-1))
         ref = _logit_trace(torch, ref_model, prompt, toks, False)
-    kern = _logit_trace(torch, model, prompt, toks, None)
-    plain = _logit_trace(torch, model, prompt, toks, False)
+    kw = dict(kv_dtype=kv_dtype, page_size=page_size)
+    kern = _logit_trace(torch, model, prompt, toks, None, **kw)
+    plain = _logit_trace(torch, model, prompt, toks, False, **kw)
+    return _logits_verdict(torch, model, kern, plain, ref,
+                           [decode_steps + 1, 1, model.cfg.vocab_size], **kw)
+
+
+def _logits_verdict(torch, model, kern, plain, ref, shape, **info):
+    """The kernel path's logits finite, of ``shape``, and no further from
+    the f32 reference than LOGITS_FACTOR times the plain bf16 path is.
+    Returns (ok, report)."""
     err_k = float((kern - ref).abs().max())
     err_p = float((plain - ref).abs().max())
     finite = bool(torch.isfinite(kern).all())
-    shape_ok = list(kern.shape) == [decode_steps + 1, 1, model.cfg.vocab_size]
-    ok = finite and shape_ok and err_k <= LOGITS_FACTOR * err_p
+    ok = finite and list(kern.shape) == shape and err_k <= LOGITS_FACTOR * err_p
     return ok, {"kernel_vs_f32": err_k, "plain_vs_f32": err_p,
                 "f32_max_abs": float(ref.abs().max()), "finite": finite,
-                "shape": list(kern.shape), "layers": model.cfg.n_layers}
+                "shape": list(kern.shape), "layers": model.cfg.n_layers, **info}
+
+
+def _verify_trace(torch, model, prompts, rounds, use_flash, kv_dtype=None,
+                  page_size=None):
+    """f32 logits of the speculative verify call, ``forward_decode`` of a
+    (B, S) block, round after round (``rounds``: (tokens, depths)) over a
+    slab of VERIFY_LEN rows per slot that one prefill per prompt filled,
+    its int8 quantization or page pools."""
+    from torchdistx_tpu_torch.serve import kv_cache as kc
+
+    saved = model.cfg.use_flash
+    model.cfg.use_flash = use_flash
+    try:
+        slab = model.init_cache(len(prompts), VERIFY_LEN)
+        for i, prompt in enumerate(prompts):
+            _, one = model.forward_cached(prompt, model.init_cache(1, VERIFY_LEN), 0)
+            kc.write_slot(slab, one, i)
+        cache, tables = _decode_cache(torch, model, slab, kv_dtype, page_size)
+        extra = () if tables is None else (tables,)
+        seq = []
+        for toks, depths in rounds:
+            logits, cache = model.forward_decode(toks, cache, depths, *extra)
+            seq.append(logits.float())
+        return torch.stack(seq)
+    finally:
+        model.cfg.use_flash = saved
+
+
+def check_verify_logits(torch, model, ref_model, kv_dtype=None, page_size=None):
+    """The (B, K+1) verify through the model, as ``ServeEngine(speculate=4)``
+    calls it, through the kernels and through the plain path, each held
+    against the f32 plain path over the slab (``ref_model``): two slots,
+    two rounds at VERIFY_ROUNDS's depths on random tokens, over the slab,
+    its int8 quantization or page pools; rows past a slot's end are dropped
+    by the writes.  Held as :func:`check_logits` holds a decode step."""
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    vocab = model.cfg.vocab_size
+    prompts = [torch.randint(0, vocab, (1, n), generator=g, device=dev)
+               for n in VERIFY_PROMPTS]
+    rounds = [(torch.randint(0, vocab, (len(prompts), VERIFY_S), generator=g, device=dev),
+               torch.tensor(depths, device=dev)) for depths in VERIFY_ROUNDS]
+    ref = _verify_trace(torch, ref_model, prompts, rounds, False)
+    kw = dict(kv_dtype=kv_dtype, page_size=page_size)
+    kern = _verify_trace(torch, model, prompts, rounds, None, **kw)
+    plain = _verify_trace(torch, model, prompts, rounds, False, **kw)
+    return _logits_verdict(torch, model, kern, plain, ref,
+                           [len(rounds), len(prompts), VERIFY_S, vocab],
+                           depths=VERIFY_ROUNDS, slot_len=VERIFY_LEN, **kw)
 
 
 def make_requests(rng, vocab, n=16, n_greedy=12, max_new=64, lo=16, hi=1536):
@@ -332,6 +619,222 @@ def serve(torch, model, requests, num_slots, max_len, expect_kernels=True):
         summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del engine
     return results, summary, failures
+
+
+def run_engine(torch, engine, requests):
+    """One ``engine.run(requests)`` of the main path, with every launch
+    counter set to 0 just before and read just after, and the engine's
+    counters of this run alone.  Returns (results, summary)."""
+    before = dict(engine.metrics.counters)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    results = engine.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_counters().items() if v}
+    counters = {k: v - before.get(k, 0) for k, v in engine.metrics.counters.items()}
+    cold = sum(1 for r in results for name, _, data in r.events
+               if name == "prefill" and data.get("cold"))
+    summary = {"requests": len(requests), "wall_s": wall, "launches": launches,
+               "cold_prefills": cold,
+               "decode_tokens_per_sec": counters["tokens_decoded"] / wall,
+               "counters": {k: counters[k] for k in SERVE_COUNTERS}}
+    return results, summary
+
+
+def _greedy_failures(what, requests, results, vocab):
+    import numpy as np
+
+    failures = []
+    for i, (req, r) in enumerate(zip(requests, results)):
+        toks = np.asarray(r.tokens)
+        if r.finish_reason != "length" or toks.size != req["max_new_tokens"]:
+            failures.append(f"{what} request {i}: {r.finish_reason}, {toks.size} tokens")
+        if toks.size and (toks.min() < 0 or toks.max() >= vocab):
+            failures.append(f"{what} request {i}: token out of [0, {vocab})")
+    return failures
+
+
+def _launch_failures(what, summary, expect):
+    got = summary["launches"]
+    return [f"{what}: {k} launches {got.get(k, 0)} != {n}"
+            for k, n in expect.items() if got.get(k, 0) != n]
+
+
+def prefix_share_requests(rng, vocab, n=8, max_len=2048, max_new=64, page_size=16):
+    """The ``bench_serve.py`` prefix-share shape: one system prompt of half
+    the longest prompt (page-aligned), a different tail per request."""
+    import numpy as np
+
+    max_prompt = min(max_len - max_new, max_len // 2)
+    sys_len = max(page_size, max_prompt // 2 - (max_prompt // 2) % page_size)
+    system = rng.randint(0, vocab, sys_len)
+    reqs = []
+    for i in range(n):
+        tail = rng.randint(0, vocab, 1 + rng.randint(0, max(1, max_prompt - sys_len)))
+        reqs.append({"prompt": np.concatenate([system, tail])[:max_prompt].astype("int32"),
+                     "max_new_tokens": max_new, "temperature": 0.0, "seed": i})
+    return reqs
+
+
+def cyclic_requests(rng, vocab, n=8, max_new=64):
+    """Prompts of short repeated cycles of token ids (the prompt-lookup
+    workload of tests/test_spec_decode.py, at the model's vocabulary)."""
+    import numpy as np
+
+    reqs = []
+    for i in range(n):
+        cycle = rng.randint(0, vocab, 2 + i % 4)
+        reps = 1 + (48 + 16 * i) // cycle.size
+        reqs.append({"prompt": np.tile(cycle, reps).astype("int32"),
+                     "max_new_tokens": max_new, "temperature": 0.0, "seed": i})
+    return reqs
+
+
+@contextlib.contextmanager
+def copy_bias(torch, model):
+    """Give the random-weight model a bias to repeat its last token: the
+    embedding table scaled by 2^12 (exact in bf16), so the residual stream
+    is the current token's embedding (every sublayer still reads RMS-
+    normalised inputs), and the LM head tied to the unscaled table.  A
+    random model's greedy output repeats no n-gram, so prompt lookup would
+    draft nothing it accepts; with the bias every stream repeats, and the
+    speculative runs accept drafts.  Each greedy token is then the previous
+    one whatever attention computes: the runs under the bias check launch
+    counts and the engine's draft, accept and finish bookkeeping, not the
+    verify's numbers, which :func:`check_verify_logits` holds.  Restored on
+    exit."""
+    emb, head = model.tok_emb.weight, model.lm_head.weight
+    saved = head.detach().clone()
+    with torch.no_grad():
+        head.copy_(emb)
+        emb.mul_(4096.0)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            emb.div_(4096.0)
+            head.copy_(saved)
+
+
+def serve_variants(torch, model, rng, num_slots=8, max_len=2048):
+    """Phases b-d: the paged engine with the prefix cache (cold pass, warm
+    pass, against the slab engine), the speculative slab engine (against
+    speculate 0), paged + speculative + int8, and each remaining
+    kernel variant's engine alone; c, d and the engines alone on the
+    model under :func:`copy_bias`."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    n_layers, vocab = model.cfg.n_layers, model.cfg.vocab_size
+    failures, report = [], {}
+
+    def engine(**kw):
+        return ServeEngine(model, num_slots=num_slots, max_len=max_len, **kw)
+
+    # -- b. paged + prefix cache, bf16 ---------------------------------------
+    reqs = prefix_share_requests(rng, vocab, n=num_slots, max_len=max_len)
+    paged = engine(page_size=16, prefix_cache=True)
+    cold, cs = run_engine(torch, paged, reqs)
+    warm, ws = run_engine(torch, paged, reqs)
+    del paged
+    slab = engine()
+    ref, rs_ = run_engine(torch, slab, reqs)
+    del slab
+    same = [bool(np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens)))
+            for a, b in zip(cold, ref)]
+    for what, res, summ in (("paged cold", cold, cs), ("paged warm", warm, ws),
+                            ("slab", ref, rs_)):
+        failures += _greedy_failures(what, reqs, res, vocab)
+        key = "decode_attention" if what == "slab" else "paged_decode_attention"
+        failures += _launch_failures(what, summ, {
+            key: n_layers * summ["counters"]["decode_steps"],
+            "flash_fwd": n_layers * summ["cold_prefills"]})
+    if not ws["counters"]["prefix_hit_tokens"] > 0:
+        failures.append(f"paged warm pass: no prefix hit {ws['counters']}")
+    if not ws["counters"]["tokens_prefilled"] < cs["counters"]["tokens_prefilled"]:
+        failures.append("paged warm pass prefilled no fewer tokens than the cold one")
+    if not all(same):
+        failures.append(f"paged cold pass differs from the slab engine: {same}")
+    report["b_paged_prefix"] = {"cold": cs, "warm": ws, "slab": rs_,
+                                "cold_equals_slab_bitwise": same}
+    print("b. paged + prefix cache", json.dumps(report["b_paged_prefix"]))
+    with copy_bias(torch, model):
+        failures += _speculative_variants(torch, engine, rng, n_layers, vocab,
+                                          num_slots, report)
+    return report, failures
+
+
+def _speculative_variants(torch, engine, rng, n_layers, vocab, num_slots, report):
+    """Phases c, d and the remaining variants' engines alone, into
+    ``report``.  Returns the failures."""
+    import numpy as np
+
+    failures = []
+    # -- c. slab, speculate 4, spec_ngram 2 ------------------------------------
+    reqs = cyclic_requests(rng, vocab, n=num_slots)
+    spec, ss = run_engine(torch, engine(speculate=4, spec_ngram=2), reqs)
+    base, bs = run_engine(torch, engine(), reqs)
+    failures += _greedy_failures("speculate 4", reqs, spec, vocab)
+    failures += _launch_failures("speculate 4", ss, {
+        "decode_attention_block": n_layers * ss["counters"]["decode_steps"]})
+    per_verify = _tokens_per_verify(ss["counters"], 4)
+    if not per_verify > 1:
+        failures.append(f"speculate 4: {per_verify} tokens per verify")
+    share = float(np.mean([np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens))
+                           for a, b in zip(spec, base)]))
+    report["c_speculate"] = {"spec": ss, "speculate0": bs, "tokens_per_verify": per_verify,
+                             "greedy_share_equal_to_speculate0": share}
+    print("c. speculate 4", json.dumps(report["c_speculate"]))
+
+    # -- d. paged + speculate 4 + int8 -------------------------------------------
+    bf16_bytes = engine(page_size=16).cache.nbytes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = engine(page_size=16, speculate=4, kv_dtype="int8")
+    out, ds = run_engine(torch, full, reqs)
+    ds["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    ds["kv_cache_bytes"], ds["bf16_kv_cache_bytes"] = full.cache.nbytes, bf16_bytes
+    ds["tokens_per_verify"] = _tokens_per_verify(ds["counters"], 4)
+    del full
+    failures += _greedy_failures("paged + speculate 4 + int8", reqs, out, vocab)
+    failures += _launch_failures("paged + speculate 4 + int8", ds, {
+        "paged_decode_attention_block_int8": n_layers * ds["counters"]["decode_steps"]})
+    if not ds["kv_cache_bytes"] <= 0.53 * bf16_bytes:
+        failures.append(f"int8 cache {ds['kv_cache_bytes']} > 0.53 x {bf16_bytes}")
+    report["d_paged_spec_int8"] = ds
+    print("d. paged + speculate 4 + int8", json.dumps(ds))
+
+    # -- each remaining variant's engine alone ------------------------------------
+    short = [dict(r, max_new_tokens=32) for r in reqs]
+    alone = {}
+    for kw, kernel in ((dict(kv_dtype="int8"), "decode_attention_int8"),
+                       (dict(kv_dtype="int8", page_size=16), "paged_decode_attention_int8"),
+                       (dict(kv_dtype="int8", speculate=4), "decode_attention_block_int8"),
+                       (dict(page_size=16, speculate=4), "paged_decode_attention_block")):
+        res, summ = run_engine(torch, engine(**kw), short)
+        failures += _greedy_failures(kernel, short, res, vocab)
+        failures += _launch_failures(kernel, summ, {
+            kernel: n_layers * summ["counters"]["decode_steps"]})
+        alone[kernel] = summ
+    report["alone"] = alone
+    print("d. each variant alone", json.dumps(alone))
+    return failures
+
+
+def _serve_runs(variants):
+    """Every serve-run summary of ``serve_variants``'s report."""
+    b, c = variants["b_paged_prefix"], variants["c_speculate"]
+    return ([b["cold"], b["warm"], b["slab"], c["spec"], c["speculate0"],
+             variants["d_paged_spec_int8"]] + list(variants["alone"].values()))
+
+
+def _tokens_per_verify(counters, k):
+    """Tokens emitted per live slot-iteration of the speculative decode:
+    every such iteration proposes ``k`` drafts."""
+    iterations = counters["draft_tokens_proposed"] / k
+    return counters["tokens_decoded"] / iterations if iterations else 0.0
 
 
 def slot_independence(torch, model, requests, results, num_slots, max_len):
@@ -593,24 +1096,32 @@ def _reset_counters():
 
     fa.flash_fwd_cuda.launches = fa.flash_fwd_cuda.lse_launches = 0
     fa.flash_bwd_dkv_cuda.launches = fa.flash_bwd_dq_cuda.launches = 0
-    da.decode_attention_cuda.launches = 0
+    for name in KERNEL_OF.values():
+        fn = getattr(da, f"{name}_cuda")
+        fn.launches = fn.int8_launches = 0
     fc.fused_ce_fwd_cuda.launches = fc.fused_ce_dx_cuda.launches = 0
     fc.fused_ce_dw_cuda.launches = 0
 
 
 def _read_counters():
+    """Launches since the last reset; a decode kernel's bf16 and int8
+    launches apart (``<name>`` and ``<name>_int8``)."""
     from torchdistx_tpu_torch.ops import decode_attention as da
     from torchdistx_tpu_torch.ops import flash_attention as fa
     from torchdistx_tpu_torch.ops import fused_ce as fc
 
-    return {"flash_fwd": fa.flash_fwd_cuda.launches,
-            "flash_fwd_lse": fa.flash_fwd_cuda.lse_launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches,
-            "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
-            "decode_attention": da.decode_attention_cuda.launches,
-            "fused_ce_fwd": fc.fused_ce_fwd_cuda.launches,
-            "fused_ce_dx": fc.fused_ce_dx_cuda.launches,
-            "fused_ce_dw": fc.fused_ce_dw_cuda.launches}
+    out = {"flash_fwd": fa.flash_fwd_cuda.launches,
+           "flash_fwd_lse": fa.flash_fwd_cuda.lse_launches,
+           "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches,
+           "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
+           "fused_ce_fwd": fc.fused_ce_fwd_cuda.launches,
+           "fused_ce_dx": fc.fused_ce_dx_cuda.launches,
+           "fused_ce_dw": fc.fused_ce_dw_cuda.launches}
+    for name in KERNEL_OF.values():
+        fn = getattr(da, f"{name}_cuda")
+        out[name] = fn.launches - fn.int8_launches
+        out[f"{name}_int8"] = fn.int8_launches
+    return out
 
 
 def _train_failures(losses, launches, n_layers, steps, fused_ce, what):
@@ -826,11 +1337,13 @@ def main(argv=None) -> int:
     try:
         flash_rows, f1 = check_flash(torch, device)
         decode_row, f2 = check_decode(torch, device)
-        failures += f1 + f2
+        variant_rows, f3 = check_decode_variants(torch, device)
+        failures += f1 + f2 + f3
     except Exception:
         traceback.print_exc()
         _fail("kernel phase failed")
     report["flash"], report["decode"] = flash_rows, decode_row
+    report["decode_variants"] = variant_rows
 
     # -- 3. serve -----------------------------------------------------------
     try:
@@ -841,12 +1354,20 @@ def main(argv=None) -> int:
         small_f32 = Llama.from_name("llama3_8b", dtype=torch.float32,
                                     device="cuda", n_layers=CHECK_LAYERS)
         small_f32.load_state_dict(small.state_dict())
-        with torch.no_grad():
-            ok, info = check_logits(torch, small, small_f32)
-        print("logits vs f32 plain path", json.dumps(info))
-        if not ok:
-            failures.append(f"model logits: {info}")
-        report["logits"] = info
+        report["logits"], report["verify_logits"] = [], []
+        for kw in ({}, {"kv_dtype": "int8"}, {"page_size": 16},
+                   {"page_size": 16, "kv_dtype": "int8"}):
+            with torch.no_grad():
+                ok, info = check_logits(torch, small, small_f32, **kw)
+                vok, vinfo = check_verify_logits(torch, small, small_f32, **kw)
+            print("logits vs f32 plain path", json.dumps(info))
+            print("verify logits vs f32 plain path", json.dumps(vinfo))
+            if not ok:
+                failures.append(f"model logits: {info}")
+            if not vok:
+                failures.append(f"model verify logits: {vinfo}")
+            report["logits"].append(info)
+            report["verify_logits"].append(vinfo)
         del small, small_f32
         torch.cuda.empty_cache()
 
@@ -867,6 +1388,10 @@ def main(argv=None) -> int:
         if not same:
             failures.append(f"request {idx} alone differs from its batch stream")
         report["serve"] = summary
+        with torch.no_grad():
+            variants, f3 = serve_variants(torch, model, np.random.RandomState(args.seed + 4))
+        failures += f3
+        report["serve_variants"] = variants
         del model
         torch.cuda.empty_cache()
     except Exception:
@@ -1035,14 +1560,30 @@ def main(argv=None) -> int:
         max(r["dq_err"] for r in bwd_rows))
     dq.update(d64("dq_"), plain_ms_d64=brep64["plain_ms"],
               library_ms_d64=brep64["library_ms"])
-    kernels = [
-        fwd, dkv, dq,
-        _kernel_entry(
-            "decode_attention", "torchdistx_tpu_torch/csrc/decode_attention.cu",
-            "torchdistx_tpu/ops/decode_attention.py:79",
-            summary["launches"]["decode_attention"], decode_row,
-            decode_row["max_abs_err"]),
-    ]
+    # the decode kernels: launches summed over the serve runs (phase 3 and
+    # b-d); the bf16 one-token kernel timed at DECODE_POSITIONS as before,
+    # every variant at VARIANT_POSITIONS
+    served = [summary["launches"]] + [r["launches"] for r in _serve_runs(variants)]
+
+    def decode_entry(name, dt, row):
+        key = name if dt == "bf16" else f"{name}_int8"
+        entry = _kernel_entry(
+            key, "torchdistx_tpu_torch/csrc/decode_attention.cu", TPU_KERNEL_OF[name],
+            sum(r.get(key, 0) for r in served), row, row["max_abs_err"])
+        entry.update(dtype=dt, S=row.get("S", 1), positions=row["positions"])
+        return entry
+
+    kernels = [fwd, dkv, dq, decode_entry("decode_attention", "bf16", decode_row)]
+    for row in variant_rows:
+        entry = decode_entry(row["kernel"], row["dtype"], row)
+        if (row["kernel"], row["dtype"]) == ("decode_attention", "bf16"):
+            kernels[-1]["variant_positions"] = {
+                k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                      "max_abs_err", "positions")}
+            continue
+        if "equals_slab_bitwise" in row:
+            entry["equals_slab_bitwise"] = row["equals_slab_bitwise"]
+        kernels.append(entry)
     # fused CE: timed at the gpt2_large loss shape, the llama_1b one beside
     crep = next(r for r in ce_rows if (r["N"], r["D"], r["V"]) == CE_REPORTED)
     clla = next(r for r in ce_rows if (r["N"], r["D"], r["V"]) == CE_CASES[0])
@@ -1062,6 +1603,8 @@ def main(argv=None) -> int:
                      bound_ms_llama=clla[f"{k}_bound_ms"], library_ms_llama=clla[lib])
         kernels.append(entry)
     report["kernels"] = kernels
+    failures += [f"{k['name']}: no launch on the main path" for k in kernels
+                 if not k["launches"]]
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:

@@ -104,6 +104,74 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tflash.flash_bwd_dkv_cuda(y.cpu(), y, y, y, lse, y)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name,s", [("decode_attention", 1), ("decode_attention_block", 5),
+                                    ("paged_decode_attention", 1),
+                                    ("paged_decode_attention_block", 5)])
+@pytest.mark.parametrize("hq,hkv,d,ps", [(32, 8, 128, 16), (8, 8, 64, 5), (16, 2, 128, 1)])
+def test_decode_variant_matches_plain(cuda, name, s, quant, hq, hkv, d, ps):
+    """Each decode kernel variant against its plain version: slot depths at
+    0, a page boundary and the end (S = 5 rows past it dropped); the pools
+    under shuffled tables whose slots share a first page; any page size.
+    A paged output equals the slab kernel's on the gathered rows bit for
+    bit."""
+    from torchdistx_tpu_torch.ops.attention import _paged_gather
+    from torchdistx_tpu_torch.serve.kv_cache import quantize_kv
+
+    g = torch.Generator(device=cuda).manual_seed(hq + d + ps)
+    b, pp = 4, 260 // ps
+    num_pages = b * pp + 1
+    q = _rand(g, (b, s, hq, d), cuda)
+    pools = [_rand(g, (num_pages, ps, hkv, d), cuda) for _ in range(2)]
+    tables = (torch.randperm(num_pages - 1, generator=g, device=cuda)[: b * pp] + 1)
+    tables = tables.view(b, pp).to(torch.int32)
+    tables[1:, 0] = tables[0, 0]
+    kw = {}
+    if quant:
+        (kq, ks), (vq, vs) = (quantize_kv(p) for p in pools)
+        pools, kw = [kq, vq], dict(k_scale=ks, v_scale=vs)
+    pos = torch.tensor([0, ps, pp * ps - 3, pp * ps - 1], dtype=torch.int32, device=cuda)
+    paged = name.startswith("paged")
+    if paged:
+        args = (*pools, tables, pos)
+    else:
+        args = (*(_paged_gather(p, tables).contiguous() for p in pools), pos)
+        kw = {k: _paged_gather(v, tables).contiguous() for k, v in kw.items()}
+    kernel = getattr(tdec, f"{name}_cuda")
+    before = (kernel.launches, kernel.int8_launches)
+    out = getattr(tdec, name)(q, *args, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.int8_launches) == (before[0] + 1, before[1] + int(quant))
+    ref = getattr(tdec, f"{name}_reference")(q, *args, **kw)
+    torch.testing.assert_close(out, ref, **TOL)
+    # per (slot, query row): a dropped key tile or an off-by-one at depth
+    # moves the row by far more than its bf16 rounding
+    diff = (out.float() - ref.float()).flatten(2).norm(dim=-1)
+    assert bool((diff <= 1e-2 * ref.float().flatten(2).norm(dim=-1)).all())
+    if paged:
+        slab = [_paged_gather(p, tables).contiguous() for p in pools]
+        skw = {k: _paged_gather(v, tables).contiguous() for k, v in kw.items()}
+        slab_fn = tdec.decode_attention if s == 1 else tdec.decode_attention_block
+        assert torch.equal(out, slab_fn(q, *slab, pos, **skw))
+
+
+def test_decode_variants_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 5, 8, 128, dtype=torch.bfloat16, device=cuda)
+    c = torch.zeros(2, 16, 2, 128, dtype=torch.bfloat16, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one token"):
+        tdec.decode_attention_cuda(q, c, c, pos)
+    with pytest.raises(TypeError, match="int8"):
+        tdec.decode_attention_block_cuda(q, c, c, pos, k_scale=c[..., :1].float(),
+                                         v_scale=c[..., :1].float())
+    with pytest.raises(ValueError, match="S \\* Hq/Hkv"):
+        tdec.decode_attention_block_cuda(torch.zeros(2, 20, 8, 128, dtype=torch.bfloat16,
+                                                     device=cuda), c, c, pos)
+    with pytest.raises(ValueError, match="page_tables rows"):
+        tdec.paged_decode_attention_block_cuda(q, c, c, torch.zeros(3, 4, dtype=torch.int32,
+                                                                    device=cuda), pos)
+
+
 def _ce_inputs(cuda, n, d, v, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
     x = _rand(g, (n, d), cuda)

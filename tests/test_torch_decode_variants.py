@@ -1,0 +1,192 @@
+"""The port's four decode-attention wrappers against the JAX package's Pallas
+kernels, on the CPU.
+
+On CPU tensors the wrappers run their plain versions (``_slot_attend`` /
+``_slot_attend_block`` over the slab, the page-table gather, or the
+dequantized view); the JAX side runs ``decode_attention``,
+``decode_attention_block``, ``paged_decode_attention`` and
+``paged_decode_attention_block`` in interpret mode, bf16 and int8 (the
+same int8 data and scales fed to both).  The inputs come from numpy with a
+seed.
+
+Tolerance: f32 1e-5 absolute (the kernels' online softmax sums in another
+order, a few f32 ulps); bf16 2e-2 (bf16 rounding of the probabilities and
+the output at different places).
+"""
+
+import numpy as np
+import pytest
+import torch
+import _jax_isolation  # noqa: F401  (adapts jax.monitoring listeners)
+
+import jax.numpy as jnp
+from torchdistx_tpu.ops import decode_attention as jda
+from torchdistx_tpu_torch.ops import decode_attention as da
+
+TOL = {"float32": dict(atol=1e-5, rtol=0), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
+          "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16)}
+
+
+def _quantize_np(x):
+    """The int8 cache both sides read: JAX's ``quantize_kv`` of ``x``."""
+    from torchdistx_tpu.serve.kv_cache import quantize_kv
+
+    q, s = quantize_kv(jnp.asarray(x))
+    return np.asarray(q), np.asarray(s)
+
+
+def _operands(seed, q_shape, kv_shape, dtype, quant):
+    """numpy q and K/V (or int8 K/V plus scales), and both sides' views."""
+    rs = np.random.RandomState(seed)
+    _, jdt, tdt = DTYPES[dtype]
+    q = rs.standard_normal(q_shape).astype(np.float32)
+    k = rs.standard_normal(kv_shape).astype(np.float32)
+    v = rs.standard_normal(kv_shape).astype(np.float32)
+    jq, tq = jnp.asarray(q, jdt), torch.tensor(q).to(tdt)
+    if quant:
+        (kq, ks), (vq, vs) = _quantize_np(k), _quantize_np(v)
+        jkv = [jnp.asarray(a) for a in (kq, vq)]
+        tkv = [torch.tensor(a) for a in (kq, vq)]
+        jsc = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        tsc = dict(k_scale=torch.tensor(ks), v_scale=torch.tensor(vs))
+    else:
+        jkv = [jnp.asarray(a, jdt) for a in (k, v)]
+        tkv = [torch.tensor(a).to(tdt) for a in (k, v)]
+        jsc, tsc = {}, {}
+    return (jq, jkv, jsc), (tq, tkv, tsc)
+
+
+def _tables(seed, b, pp, num_pages):
+    """Shuffled page tables over pages 1..num_pages-1; slot 1 shares slot
+    0's first page (a common prefix)."""
+    rs = np.random.RandomState(seed + 1)
+    t = (rs.permutation(num_pages - 1)[: b * pp] + 1).reshape(b, pp)
+    if b > 1:
+        t[1, 0] = t[0, 0]
+    return t.astype(np.int32)
+
+
+def _check(out, ref, dtype):
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,max_len,block_k",
+                         [(4, 4, 64, 512), (4, 2, 64, 16), (8, 2, 48, 512),
+                          (16, 1, 32, 8)])
+def test_decode_attention(hq, hkv, max_len, block_k, dtype, quant):
+    b, d = 3, 16
+    pos = np.array([0, max_len // 2, max_len - 1], np.int32)
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        hq * max_len, (b, 1, hq, d), (b, max_len, hkv, d), dtype, quant)
+    ref = jda.decode_attention(jq, *jkv, jnp.asarray(pos), block_k=block_k,
+                               interpret=True, **jsc)
+    out = da.decode_attention(tq, *tkv, torch.tensor(pos), **tsc)
+    assert out.dtype == tq.dtype and out.shape == (b, 1, hq, d)
+    _check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,hq,hkv,max_len,block_k",
+                         [(2, 4, 2, 32, 512), (5, 4, 2, 64, 16),
+                          (5, 8, 2, 48, 512), (3, 4, 4, 32, 8)])
+def test_decode_attention_block(s, hq, hkv, max_len, block_k, dtype, quant):
+    b, d = 3, 16
+    # the last slot's rows run past max_len: dropped, not attended
+    pos = np.array([0, max_len // 2 - 1, max_len - 2], np.int32)
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        s * hq + max_len, (b, s, hq, d), (b, max_len, hkv, d), dtype, quant)
+    ref = jda.decode_attention_block(jq, *jkv, jnp.asarray(pos),
+                                     block_k=block_k, interpret=True, **jsc)
+    out = da.decode_attention_block(tq, *tkv, torch.tensor(pos), **tsc)
+    assert out.shape == (b, s, hq, d)
+    _check(out, ref, dtype)
+
+
+def test_block_row_zero_is_the_one_token_call():
+    """Row 0 of the verify block is the one-token call, to f32 rounding:
+    the CPU matrix product sums in another order for another batch shape."""
+    (_, _, _), (tq, tkv, _) = _operands(3, (2, 4, 8, 16), (2, 32, 2, 16),
+                                        "float32", False)
+    pos = torch.tensor([5, 31])
+    block = da.decode_attention_block(tq, *tkv, pos)
+    one = da.decode_attention(tq[:, :1], *tkv, pos)
+    torch.testing.assert_close(block[:, :1], one, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,pp,ps", [(4, 2, 4, 16), (8, 2, 8, 4),
+                                          (4, 4, 2, 8), (16, 1, 1, 16)])
+def test_paged_decode_attention(hq, hkv, pp, ps, dtype, quant):
+    b, d = 3, 16
+    num_pages = b * pp + 2
+    pos = np.array([0, ps, pp * ps - 1], np.int32)  # a page boundary, the end
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        hq * ps + pp, (b, 1, hq, d), (num_pages, ps, hkv, d), dtype, quant)
+    tables = _tables(ps, b, pp, num_pages)
+    ref = jda.paged_decode_attention(jq, *jkv, jnp.asarray(tables),
+                                     jnp.asarray(pos), interpret=True, **jsc)
+    out = da.paged_decode_attention(tq, *tkv, torch.tensor(tables),
+                                    torch.tensor(pos), **tsc)
+    assert out.shape == (b, 1, hq, d)
+    _check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,hq,hkv,pp,ps", [(5, 4, 2, 4, 16), (2, 8, 2, 8, 4),
+                                            (5, 4, 4, 2, 8)])
+def test_paged_decode_attention_block(s, hq, hkv, pp, ps, dtype, quant):
+    b, d = 3, 16
+    num_pages = b * pp + 2
+    # slot 2's rows run past pages_per_slot * page_size
+    pos = np.array([0, ps - 1, pp * ps - 2], np.int32)
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        s * ps + pp, (b, s, hq, d), (num_pages, ps, hkv, d), dtype, quant)
+    tables = _tables(s + ps, b, pp, num_pages)
+    ref = jda.paged_decode_attention_block(jq, *jkv, jnp.asarray(tables),
+                                           jnp.asarray(pos), interpret=True,
+                                           **jsc)
+    out = da.paged_decode_attention_block(tq, *tkv, torch.tensor(tables),
+                                          torch.tensor(pos), **tsc)
+    assert out.shape == (b, s, hq, d)
+    _check(out, ref, dtype)
+
+
+def test_paged_equals_slab_on_the_gathered_rows():
+    """The paged plain version over a page table gives the slab version's
+    output on the gathered rows bit for bit (one body, only the address of
+    a key row differs)."""
+    b, s, hq, hkv, d, pp, ps = 2, 5, 4, 2, 16, 4, 8
+    (_, _, _), (tq, tkv, _) = _operands(11, (b, s, hq, d), (b * pp + 1, ps, hkv, d),
+                                        "float32", False)
+    tables = torch.tensor(_tables(4, b, pp, b * pp + 1))
+    pos = torch.tensor([3, 29])
+    from torchdistx_tpu_torch.ops.attention import _paged_gather
+
+    slab = [_paged_gather(t, tables) for t in tkv]
+    torch.testing.assert_close(
+        da.paged_decode_attention_block(tq, *tkv, tables, pos),
+        da.decode_attention_block(tq, *slab, pos), atol=0, rtol=0)
+    torch.testing.assert_close(
+        da.paged_decode_attention(tq[:, :1], *tkv, tables, pos),
+        da.decode_attention(tq[:, :1], *slab, pos), atol=0, rtol=0)
+
+
+def test_wrappers_check_scales():
+    (_, _, _), (tq, tkv, _) = _operands(0, (1, 1, 4, 16), (1, 8, 2, 16),
+                                        "float32", False)
+    pos = torch.tensor([3])
+    with pytest.raises(ValueError, match="together"):
+        da.decode_attention(tq, *tkv, pos, k_scale=torch.ones(1, 8, 2, 1))
+    with pytest.raises(ValueError, match="scale shapes"):
+        da.decode_attention(tq, *tkv, pos, k_scale=torch.ones(1, 8, 2, 16),
+                            v_scale=torch.ones(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="one token"):
+        da.decode_attention(torch.zeros(1, 2, 4, 16), *tkv, pos)

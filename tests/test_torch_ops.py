@@ -169,13 +169,22 @@ def test_resolve_use_flash():
 
 
 def test_unported_slot_variants_raise():
+    """The paged, quantized and multi-token variants are ported now (held
+    against the JAX package in test_torch_decode_variants.py and
+    test_torch_serve_paged.py); each runs, and what the JAX package itself
+    refuses still raises: a sliding window on a multi-token block."""
     x = torch.zeros(2, 1, 2, 8)
     cache = (torch.zeros(2, 4, 2, 8), torch.zeros(2, 4, 2, 8))
     pos = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tattn.slot_cached_attention(x, x, x, cache, pos, page_tables=pos[:, None])
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tattn.slot_cached_attention(x, x, x, cache + cache, pos)
+    pools = (torch.zeros(5, 2, 2, 8), torch.zeros(5, 2, 2, 8))
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    out, _ = tattn.slot_cached_attention(x, x, x, pools, pos, page_tables=tables)
+    assert out.shape == x.shape
+    quant = cache + (torch.ones(2, 4, 2, 1), torch.ones(2, 4, 2, 1))
+    out, back = tattn.slot_cached_attention(x, x, x, (quant[0].to(torch.int8),
+                                                      quant[1].to(torch.int8)) + quant[2:], pos)
+    assert out.shape == x.shape and len(back) == 4
     x2 = torch.zeros(2, 2, 2, 8)
-    with pytest.raises(NotImplementedError, match="multi-token"):
-        tattn.slot_cached_attention(x2, x2, x2, cache, pos)
+    assert tattn.slot_cached_attention(x2, x2, x2, cache, pos)[0].shape == x2.shape
+    with pytest.raises(ValueError, match="window"):
+        tattn.slot_cached_attention(x2, x2, x2, cache, pos, window=2)

@@ -116,14 +116,23 @@ def test_submit_validation(models):
         engine.submit(np.arange(10), max_new_tokens=4)
 
 
-@pytest.mark.parametrize("name", _UNPORTED)
+# arguments the port has taken since: each is accepted with a valid value
+_PORTED_SINCE = {"page_size": 8, "num_pages": None, "kv_dtype": "int8",
+                 "prefix_cache": False, "spec_ngram": 3}
+
+
+@pytest.mark.parametrize("name", _UNPORTED + tuple(_PORTED_SINCE))
 def test_unported_argument_raises(models, name):
     _, tm = models
+    if name in _PORTED_SINCE:
+        ServeEngine(tm, max_len=32, **{name: _PORTED_SINCE[name]})
+        return
     with pytest.raises(NotImplementedError, match=name):
         ServeEngine(tm, max_len=32, **{name: None})
 
 
-@pytest.mark.parametrize("kw", [dict(decode_mode="persistent"), dict(speculate=2)])
+@pytest.mark.parametrize("kw", [dict(decode_mode="persistent"),
+                                dict(speculate=2, decode_mode="persistent")])
 def test_unported_modes_raise(models, kw):
     _, tm = models
     with pytest.raises(NotImplementedError):

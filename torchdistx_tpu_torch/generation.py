@@ -98,11 +98,13 @@ def _make_decode_body(model, sampler, *, eos_token: Optional[int],
     ``pos + 1 >= max_len``; a finished slot freezes (token, position and
     step held, position clamped like ``SlotKVCache.positions()``).
     ``key_steps`` are the host-side sampler steps of this iteration: for
-    every live row they equal ``stp`` (a row that froze stays frozen)."""
+    every live row they equal ``stp`` (a row that froze stays frozen).
+    ``extra`` is forwarded to ``forward_decode``: the page tables of a paged
+    cache."""
 
-    def step(carry, *, temps, seeds, key_steps, budgets):
+    def step(carry, *, temps, seeds, key_steps, budgets, extra=()):
         kv, tok, pos, stp, fin = carry
-        logits, kv = model.forward_decode(tok[:, None], kv, pos)
+        logits, kv = model.forward_decode(tok[:, None], kv, pos, *extra)
         sampled = sampler(logits[:, -1, :], temps, seeds, key_steps)
         new_tok = torch.where(fin, tok, sampled)
         new_stp = torch.where(fin, stp, stp + 1)
@@ -123,23 +125,153 @@ def _make_fused_decode(model, sampler, *, eos_token: Optional[int],
                        max_len: int, decode_chunk: int):
     """``decode_chunk`` decode iterations in a Python loop with no host sync
     inside it.  Returns ``run(kv, toks, positions, temps, seeds, steps,
-    budgets, finished) -> (kv, (K, B) token block)``; ``toks``,
+    budgets, finished, *extra) -> (kv, (K, B) token block)``; ``toks``,
     ``positions``, ``budgets`` and ``finished`` are device tensors,
-    ``temps``/``seeds``/``steps`` host arrays."""
+    ``temps``/``seeds``/``steps`` host arrays.  ``extra`` is empty for the
+    slab; the paged engine passes its device page tables there, invariant
+    over the chunk (a request's whole footprint is allocated at admission)."""
     step = _make_decode_body(model, sampler, eos_token=eos_token,
                              max_len=max_len)
 
     @torch.no_grad()
-    def run(kv, toks, positions, temps, seeds, steps, budgets, finished):
+    def run(kv, toks, positions, temps, seeds, steps, budgets, finished,
+            *extra):
         steps = np.asarray(steps, np.int64)
         stp = torch.as_tensor(steps, device=toks.device)
         carry = (kv, toks, positions, stp, finished)
         block = []
         for j in range(decode_chunk):
             carry = step(carry, temps=temps, seeds=seeds,
-                         key_steps=steps + j, budgets=budgets)
+                         key_steps=steps + j, budgets=budgets, extra=extra)
             block.append(carry[1])
         return carry[0], torch.stack(block)
+
+    return run
+
+
+def _make_spec_decode_body(model, sampler, *, eos_token: Optional[int],
+                           max_len: int, speculate: int, ngram: int = 2):
+    """Self-speculative draft / verify / accept iteration, the
+    variable-advance sibling of ``_make_decode_body``, with no host sync:
+
+    1. DRAFT ``speculate`` tokens per slot by prompt lookup: the most recent
+       earlier occurrence of the slot's trailing ``ngram`` tokens in its own
+       (B, max_len) token history ``hist``, and the tokens that followed it
+       (garbage where nothing matches: it just verifies to accept length 0).
+    2. VERIFY the pending token plus the drafts in ONE (B, K+1)
+       ``forward_decode``, query row ``i`` masked to its own depth
+       ``pos + i``.
+    3. ACCEPT the longest draft prefix equal to the greedy targets of the
+       previous row: ``e = accepted + 1`` tokens.  Sampled rows force
+       accept length 0, so their ``(seed, step)`` keys are untouched.  ``e``
+       is truncated by the host walk's finish rules (first EOS in the
+       block, remaining budget, cache end), so a slot finishes only at the
+       last token of an iteration.
+
+    ``step(carry, *, temps, seeds, key_steps, budgets, extra)`` takes the
+    carry ``(kv, tok, pos, stp, fin, hist)`` and returns ``(carry, y_block,
+    cnt)``: the (B, K+1) verified tokens and the per-slot emitted count (0
+    for frozen slots).  ``key_steps`` are the host sampler steps: a live
+    sampled row advances exactly one token per iteration, so they are the
+    dispatch's steps plus the iteration index."""
+    if speculate < 1:
+        raise ValueError(f"speculate must be >= 1, got {speculate}")
+    if ngram < 1:
+        raise ValueError(f"ngram must be >= 1, got {ngram}")
+
+    def step(carry, *, temps, seeds, key_steps, budgets, extra=()):
+        kv, tok, pos, stp, fin, hist = carry
+        b = tok.shape[0]
+        dev = tok.device
+        rows = torch.arange(b, device=dev)
+        # the pending token enters the history at its own stream index
+        hist = hist.clone()
+        hist[rows, pos.clamp(0, max_len - 1)] = tok
+
+        # -- draft: most recent earlier occurrence of the trailing n-gram
+        idx = torch.arange(max_len, device=dev)[None, :]
+        match = (idx >= ngram - 1) & (idx < pos[:, None])
+        for d in range(ngram):
+            shifted = hist if d == 0 else torch.nn.functional.pad(hist, (d, 0))[:, :max_len]
+            tgt = torch.gather(hist, 1, (pos - d).clamp(0, max_len - 1)[:, None])
+            match = match & (shifted == tgt)
+        j_best = torch.where(match, idx, torch.full_like(idx, -1)).amax(dim=1)
+        ahead = torch.arange(speculate, device=dev)[None, :]
+        draft = torch.gather(
+            hist, 1, (j_best[:, None] + 1 + ahead).clamp(0, max_len - 1))
+
+        # -- verify: one (B, K+1) forward through slot_cached_attention
+        qtok = torch.cat([tok[:, None], draft.to(tok.dtype)], dim=1)
+        logits, kv = model.forward_decode(qtok, kv, pos, *extra)
+        y1 = sampler(logits[:, 0, :], temps, seeds, key_steps)
+        gre = torch.argmax(logits, dim=-1).to(tok.dtype)
+        y_block = torch.cat([y1.to(tok.dtype)[:, None], gre[:, 1:]], dim=1)
+
+        # -- accept: longest draft prefix matching the greedy targets
+        greedy = torch.as_tensor(np.asarray(temps) <= 0.0, device=dev)
+        m = (qtok[:, 1:] == y_block[:, :speculate]) & greedy[:, None]
+        acc = torch.cumprod(m.long(), dim=1).sum(dim=1)
+        e = acc + 1
+        jj = torch.arange(1, speculate + 2, device=dev)[None, :]
+        if eos_token is not None:
+            first_eos = torch.where(y_block == eos_token, jj,
+                                    torch.full_like(jj, speculate + 2)).amin(dim=1)
+            e = torch.minimum(e, first_eos)
+        e = torch.minimum(e, budgets - stp)
+        e = torch.minimum(e, max_len - pos)
+        e = e.clamp(min=1)
+        last = torch.gather(y_block, 1, (e - 1)[:, None])[:, 0]
+
+        # emitted tokens extend the history at pos + 1 .. pos + e; rejected
+        # lanes, frozen slots and rows past max_len leave it as it was
+        offs = idx - pos[:, None] - 1  # (B, max_len): lane of each column
+        emitted = (offs >= 0) & (offs < e[:, None]) & (~fin)[:, None]
+        lanes = torch.gather(y_block, 1, offs.clamp(0, speculate))
+        hist = torch.where(emitted, lanes.to(hist.dtype), hist)
+
+        new_tok = torch.where(fin, tok, last)
+        new_stp = torch.where(fin, stp, stp + e)
+        if eos_token is not None:
+            hit_eos = last == eos_token
+        else:
+            hit_eos = torch.zeros_like(fin)
+        hit_len = new_stp >= budgets
+        hit_full = pos + e >= max_len
+        new_fin = fin | hit_eos | hit_len | hit_full
+        new_pos = torch.where(fin, pos, (pos + e).clamp(0, max_len - 1))
+        cnt = torch.where(fin, torch.zeros_like(e), e)
+        return (kv, new_tok, new_pos, new_stp, new_fin, hist), y_block, cnt
+
+    return step
+
+
+def _make_fused_spec_decode(model, sampler, *, eos_token: Optional[int],
+                            max_len: int, decode_chunk: int, speculate: int,
+                            ngram: int = 2):
+    """``decode_chunk`` speculative iterations (``_make_spec_decode_body``)
+    with no host sync inside.  Returns ``run(kv, toks, positions, hist,
+    temps, seeds, steps, budgets, finished, *extra) -> (kv, (chunk, B, K+1)
+    token blocks, (chunk, B) counts, hist)``: ``hist`` the (B, max_len)
+    device history with every emitted token in place, the next dispatch's
+    input."""
+    step = _make_spec_decode_body(model, sampler, eos_token=eos_token,
+                                  max_len=max_len, speculate=speculate,
+                                  ngram=ngram)
+
+    @torch.no_grad()
+    def run(kv, toks, positions, hist, temps, seeds, steps, budgets,
+            finished, *extra):
+        steps = np.asarray(steps, np.int64)
+        stp = torch.as_tensor(steps, device=toks.device)
+        carry = (kv, toks, positions, stp, finished, hist)
+        ys, cs = [], []
+        for j in range(decode_chunk):
+            carry, y_block, cnt = step(carry, temps=temps, seeds=seeds,
+                                       key_steps=steps + j, budgets=budgets,
+                                       extra=extra)
+            ys.append(y_block)
+            cs.append(cnt)
+        return carry[0], torch.stack(ys), torch.stack(cs), carry[5]
 
     return run
 

@@ -1,16 +1,31 @@
-"""Slot decode attention: the hand-written CUDA kernel, its plain PyTorch
-version, and the dispatcher between them.
+"""Slot decode attention: the hand-written CUDA kernels, their plain PyTorch
+versions, and the dispatchers between them.
 
-Counterpart of ``torchdistx_tpu/ops/decode_attention.py``.  The kernel
-(``csrc/decode_attention.cu``) replaces the Pallas ``_decode_kernel``
-launched by ``decode_attention``, unquantized: one generated token per
-serving slot, each slot at its own depth, read in place from the
-(B, max_len, Hkv, D) slab.  It is bounded by bytes on an H100; the source
-file says what its design does about that.
+Counterpart of ``torchdistx_tpu/ops/decode_attention.py``.  One CUDA source
+(``csrc/decode_attention.cu``) replaces its four Pallas kernels, each in
+bf16 and with the int8 cache:
 
-A CUDA tensor launches the kernel or raises; the plain version
-(``decode_attention_reference``, the JAX package's ``_slot_attend``) runs
-only for tensors on the CPU.
+- ``decode_attention`` (``_decode_kernel``): one generated token per serving
+  slot, each slot at its own depth, read in place from the
+  (B, max_len, Hkv, D) slab;
+- ``decode_attention_block`` (``_decode_block_kernel``): the speculative
+  verify, ``S`` query tokens per slot, row ``i`` masked to depth
+  ``positions[b] + i``;
+- ``paged_decode_attention`` / ``paged_decode_attention_block``
+  (``_paged_decode_kernel`` / ``_paged_decode_block_kernel``): the same
+  math over page pools (num_pages, page_size, Hkv, D) read through the
+  per-slot page tables, any ``page_size >= 1``.
+
+The int8 cache passes f32 power-of-two scales ``k_scale``/``v_scale`` of
+the data's leading dims plus a trailing 1; the kernels dequantize as they
+read (``q * scale``, exact).  All are bounded by bytes on an H100; the
+source file says what the design does about that.
+
+A CUDA tensor launches a kernel or raises; the plain versions (the JAX
+package's ``_slot_attend`` / ``_slot_attend_block`` over the slab, the
+page-table gather, or their dequantized view) run only for CPU tensors.
+Each ``*_cuda`` wrapper counts its launches in ``.launches`` and, of those,
+the int8 ones in ``.int8_launches``.
 """
 
 from __future__ import annotations
@@ -22,83 +37,276 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import _slot_attend
+from .attention import _paged_gather, _slot_attend, _slot_attend_block
 
 __all__ = [
     "decode_attention",
+    "decode_attention_block",
+    "paged_decode_attention",
+    "paged_decode_attention_block",
     "decode_attention_reference",
+    "decode_attention_block_reference",
+    "paged_decode_attention_reference",
+    "paged_decode_attention_block_reference",
     "decode_attention_cuda",
+    "decode_attention_block_cuda",
+    "paged_decode_attention_cuda",
+    "paged_decode_attention_block_cuda",
 ]
 
 _LIB = "decode_attention"
+#: query heads per kv head the one-token kernel takes
+N_REP = (1, 2, 4, 8)
+#: query rows (S * n_rep) the block kernel takes at most
+MAX_BLOCK_ROWS = 64
 
 
-def decode_attention_reference(q, ck, cv, positions, *,
-                               scale: Optional[float] = None):
+def _check_kv_scales(k_scale, v_scale, ck) -> bool:
+    """Validate the optional int8 scale operands; returns ``quantized``."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if k_scale is None:
+        return False
+    want = tuple(ck.shape[:3]) + (1,)
+    if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+        raise ValueError(
+            f"kv scale shapes {tuple(k_scale.shape)}/{tuple(v_scale.shape)} "
+            f"!= cache rows + trailing 1 {want}"
+        )
+    return True
+
+
+def _dequant(ck, cv, k_scale, v_scale):
+    if k_scale is None:
+        return ck, cv
+    from ..serve.kv_cache import dequantize_kv
+
+    return dequantize_kv(ck, k_scale), dequantize_kv(cv, v_scale)
+
+
+# -- plain versions (CPU tensors, and the kernels' yardstick on the card) --
+
+
+def decode_attention_reference(q, ck, cv, positions, *, scale=None,
+                               k_scale=None, v_scale=None):
     """The plain version: ``_slot_attend`` (``_repeat_kv``, f32 logits and
     softmax over rows ``j <= positions[b]``, probabilities cast to
-    ``q.dtype`` before P.V)."""
-    return _slot_attend(q, ck, cv, positions, scale, None)
+    ``q.dtype`` before P.V) over the slab or its dequantized view."""
+    _check_kv_scales(k_scale, v_scale, ck)
+    kk, vv = _dequant(ck, cv, k_scale, v_scale)
+    return _slot_attend(q, kk, vv, positions, scale, None)
+
+
+def decode_attention_block_reference(q, ck, cv, positions, *, scale=None,
+                                     k_scale=None, v_scale=None):
+    """``_slot_attend_block`` over the slab or its dequantized view."""
+    _check_kv_scales(k_scale, v_scale, ck)
+    kk, vv = _dequant(ck, cv, k_scale, v_scale)
+    return _slot_attend_block(q, kk, vv, positions, scale)
+
+
+def _paged_views(ck, cv, page_tables, k_scale, v_scale):
+    view = lambda t: None if t is None else _paged_gather(t, page_tables)  # noqa: E731
+    return _dequant(view(ck), view(cv), view(k_scale), view(v_scale))
+
+
+def paged_decode_attention_reference(q, ck, cv, page_tables, positions, *,
+                                     scale=None, k_scale=None, v_scale=None):
+    """``_slot_attend`` over the page-table gather of the pools."""
+    _check_kv_scales(k_scale, v_scale, ck)
+    kk, vv = _paged_views(ck, cv, page_tables, k_scale, v_scale)
+    return _slot_attend(q, kk, vv, positions, scale, None)
+
+
+def paged_decode_attention_block_reference(q, ck, cv, page_tables, positions,
+                                           *, scale=None, k_scale=None,
+                                           v_scale=None):
+    """``_slot_attend_block`` over the page-table gather of the pools."""
+    _check_kv_scales(k_scale, v_scale, ck)
+    kk, vv = _paged_views(ck, cv, page_tables, k_scale, v_scale)
+    return _slot_attend_block(q, kk, vv, positions, scale)
+
+
+# -- the kernels -----------------------------------------------------------
 
 
 def _lib():
     lib = _build.load(_LIB)
-    fn = lib.tdx_decode_attention_bf16
+    fn = lib.tdx_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention_cuda(q, ck, cv, positions, *,
-                          scale: Optional[float] = None):
-    """Launch the CUDA kernel: ``q`` (B, 1, Hq, D) bf16, slab ``ck``/``cv``
-    (B, max_len, Hkv, D) bf16 contiguous, ``positions`` (B,) integer.
-    Hq / Hkv in {1, 2, 4, 8}, D in {64, 128}.  Adds one to
-    ``decode_attention_cuda.launches``."""
+def _launch(name, q, ck, cv, positions, page_tables, k_scale, v_scale, scale):
+    """Check the operands and launch ``tdx_decode_attention`` on the
+    current stream.  Returns the (B, S, Hq, D) output and whether the cache
+    was int8."""
     b, s, hq, d = q.shape
-    if s != 1:
-        raise ValueError(f"decode_attention takes one token per slot, got S={s}")
-    for name, t in (("q", q), ("ck", ck), ("cv", cv), ("positions", positions)):
+    paged = page_tables is not None
+    named = [("q", q), ("ck", ck), ("cv", cv), ("positions", positions)]
+    if paged:
+        named.append(("page_tables", page_tables))
+    quant = _check_kv_scales(k_scale, v_scale, ck)
+    if quant:
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for n, t in named:
         if not t.is_cuda:
-            raise ValueError(f"decode_attention_cuda: {name} is not a CUDA tensor")
-    for name, t in (("q", q), ("ck", ck), ("cv", cv)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"decode_attention_cuda takes bf16, got {name}.dtype={t.dtype}")
-    if ck.shape != cv.shape or ck.shape[0] != b or ck.shape[3] != d:
-        raise ValueError(f"slab shapes {tuple(ck.shape)}/{tuple(cv.shape)} do not match q {tuple(q.shape)}")
-    if not (ck.is_contiguous() and cv.is_contiguous()):
-        raise ValueError("decode_attention_cuda reads the slab in place: it must be contiguous")
-    max_len, hkv = ck.shape[1], ck.shape[2]
-    if hq % hkv != 0 or hq // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"decode_attention_cuda takes Hq/Hkv in (1, 2, 4, 8), got {hq}/{hkv}")
+            raise ValueError(f"{name}: {n} is not a CUDA tensor")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes a bf16 query, got {q.dtype}")
+    want = torch.int8 if quant else torch.bfloat16
+    if ck.dtype != want or cv.dtype != want:
+        raise TypeError(f"{name} takes a {want} cache here, got {ck.dtype}/{cv.dtype}")
+    if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
+        raise TypeError(f"{name} takes f32 scales")
+    if ck.shape != cv.shape or ck.shape[3] != d:
+        raise ValueError(f"cache shapes {tuple(ck.shape)}/{tuple(cv.shape)} do not match q {tuple(q.shape)}")
+    if not paged and ck.shape[0] != b:
+        raise ValueError(f"slab slots {ck.shape[0]} != batch {b}")
+    if paged and page_tables.shape[0] != b:
+        raise ValueError(f"page_tables rows {page_tables.shape[0]} != batch {b}")
+    for n, t in named[1:3] + (named[-2:] if quant else []):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} reads {n} in place: it must be contiguous")
+    hkv = ck.shape[2]
+    if hq % hkv != 0:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    n_rep = hq // hkv
+    if s == 1 and n_rep not in N_REP:
+        raise ValueError(f"{name} takes Hq/Hkv in {N_REP}, got {hq}/{hkv}")
+    if s > 1 and s * n_rep > MAX_BLOCK_ROWS:
+        raise ValueError(f"{name} takes S * Hq/Hkv <= {MAX_BLOCK_ROWS}, got {s} * {n_rep}")
     if d not in (64, 128):
-        raise ValueError(f"decode_attention_cuda takes head_dim 64 or 128, got {d}")
+        raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
+    if paged:
+        ps, pp = ck.shape[1], page_tables.shape[1]
+        max_len = pp * ps
+        tables = page_tables.to(torch.int32).contiguous()
+    else:
+        ps, pp, max_len = 1, 0, ck.shape[1]
+        tables = None
     q = q.contiguous()
     pos = positions.to(torch.int32).contiguous()
     scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         err = _lib()(
-            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, max_len, hq, hkv, d, scale_, stream,
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ptr(k_scale),
+            ptr(v_scale), pos.data_ptr(), ptr(tables), out.data_ptr(),
+            b, s, max_len, hq, hkv, d, ps, pp, int(paged), int(quant),
+            scale_, stream,
         )
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    decode_attention_cuda.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out, quant
+
+
+def _count(fn, quant):
+    fn.launches += 1
+    fn.int8_launches += int(quant)
+
+
+def decode_attention_cuda(q, ck, cv, positions, *, scale=None, k_scale=None,
+                          v_scale=None):
+    """Launch the one-token slab kernel: ``q`` (B, 1, Hq, D) bf16, slab
+    ``ck``/``cv`` (B, max_len, Hkv, D) bf16, or int8 with f32 ``k_scale``/
+    ``v_scale`` (B, max_len, Hkv, 1), contiguous; ``positions`` (B,).
+    Hq / Hkv in {1, 2, 4, 8}, D in {64, 128}."""
+    if q.shape[1] != 1:
+        raise ValueError(f"decode_attention takes one token per slot, got S={q.shape[1]}")
+    out, quant = _launch("decode_attention", q, ck, cv, positions, None,
+                         k_scale, v_scale, scale)
+    _count(decode_attention_cuda, quant)
     return out
 
 
-decode_attention_cuda.launches = 0
+def decode_attention_block_cuda(q, ck, cv, positions, *, scale=None,
+                                k_scale=None, v_scale=None):
+    """Launch the S-token slab kernel (the speculative verify): ``q``
+    (B, S, Hq, D) bf16, S * Hq / Hkv <= 64; the slab as for
+    :func:`decode_attention_cuda`."""
+    out, quant = _launch("decode_attention_block", q, ck, cv, positions, None,
+                         k_scale, v_scale, scale)
+    _count(decode_attention_block_cuda, quant)
+    return out
 
 
-def decode_attention(q, ck, cv, positions, *, scale: Optional[float] = None):
+def paged_decode_attention_cuda(q, ck, cv, page_tables, positions, *,
+                                scale=None, k_scale=None, v_scale=None):
+    """Launch the one-token paged kernel: pools ``ck``/``cv`` (num_pages,
+    page_size, Hkv, D) bf16, or int8 with scales (num_pages, page_size,
+    Hkv, 1); ``page_tables`` (B, pages_per_slot) integer."""
+    if q.shape[1] != 1:
+        raise ValueError(f"paged_decode_attention takes one token per slot, got S={q.shape[1]}")
+    out, quant = _launch("paged_decode_attention", q, ck, cv, positions,
+                         page_tables, k_scale, v_scale, scale)
+    _count(paged_decode_attention_cuda, quant)
+    return out
+
+
+def paged_decode_attention_block_cuda(q, ck, cv, page_tables, positions, *,
+                                      scale=None, k_scale=None, v_scale=None):
+    """Launch the S-token paged kernel."""
+    out, quant = _launch("paged_decode_attention_block", q, ck, cv, positions,
+                         page_tables, k_scale, v_scale, scale)
+    _count(paged_decode_attention_block_cuda, quant)
+    return out
+
+
+for _fn in (decode_attention_cuda, decode_attention_block_cuda,
+            paged_decode_attention_cuda, paged_decode_attention_block_cuda):
+    _fn.launches = 0
+    _fn.int8_launches = 0
+
+
+# -- dispatchers -------------------------------------------------------------
+
+
+def decode_attention(q, ck, cv, positions, *, scale: Optional[float] = None,
+                     k_scale=None, v_scale=None):
     """Slot decode attention (post-write): slot ``b`` attends cache rows
     ``j <= positions[b]``.  Returns (B, 1, Hq, D) in ``q.dtype``.  CUDA
     tensors go through the kernel; CPU tensors through the plain version."""
-    if q.is_cuda:
-        return decode_attention_cuda(q, ck, cv, positions, scale=scale)
-    return decode_attention_reference(q, ck, cv, positions, scale=scale)
+    if q.shape[1] != 1:
+        raise ValueError(f"decode_attention takes one token per slot, got S={q.shape[1]}")
+    fn = decode_attention_cuda if q.is_cuda else decode_attention_reference
+    return fn(q, ck, cv, positions, scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def decode_attention_block(q, ck, cv, positions, *,
+                           scale: Optional[float] = None, k_scale=None,
+                           v_scale=None):
+    """Multi-token slot decode attention (post-write), the speculative
+    verify block: query ``(b, i)`` attends cache rows ``j <= positions[b] +
+    i``.  Returns (B, S, Hq, D)."""
+    fn = decode_attention_block_cuda if q.is_cuda else decode_attention_block_reference
+    return fn(q, ck, cv, positions, scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_decode_attention(q, ck, cv, page_tables, positions, *,
+                           scale: Optional[float] = None, k_scale=None,
+                           v_scale=None):
+    """Paged one-token decode attention (post-write): slot ``b``'s logical
+    cache is the concatenation of the pool pages ``page_tables[b]`` names."""
+    if q.shape[1] != 1:
+        raise ValueError(f"paged_decode_attention takes one token per slot, got S={q.shape[1]}")
+    fn = paged_decode_attention_cuda if q.is_cuda else paged_decode_attention_reference
+    return fn(q, ck, cv, page_tables, positions, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+
+
+def paged_decode_attention_block(q, ck, cv, page_tables, positions, *,
+                                 scale: Optional[float] = None, k_scale=None,
+                                 v_scale=None):
+    """Paged multi-token decode attention (the speculative verify over the
+    page pools)."""
+    fn = (paged_decode_attention_block_cuda if q.is_cuda
+          else paged_decode_attention_block_reference)
+    return fn(q, ck, cv, page_tables, positions, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)

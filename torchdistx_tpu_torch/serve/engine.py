@@ -1,7 +1,8 @@
 """``ServeEngine``: continuous-batching inference over a slot KV cache,
-counterpart of ``torchdistx_tpu/serve/engine.py`` in its default mode
-(``decode_mode="chunked"``, contiguous slab, no speculation, model-dtype
-cache, single device).
+counterpart of ``torchdistx_tpu/serve/engine.py`` in its chunked decode
+mode on a single device: the contiguous slab or the paged pools with the
+radix prefix cache, self-speculative decode, and the model-dtype, plain-cast
+or int8 cache.
 
 The public surface is the JAX engine's: ``submit(prompt, ...) ->
 RequestHandle``, ``step()``, ``run(requests)``, ``finished_requests()``.
@@ -13,11 +14,18 @@ Device work comes in two kinds of dispatch:
    first token is sampled at the last REAL prompt position and the slab is
    copied into the request's slot row (``kv_cache.write_slot``).  One host
    sync fetches the token.
+   Paged engines prefill only the suffix past the page-aligned prefix the
+   radix index already holds: a cold prefill (no hit) is the slab's, a warm
+   one runs the suffix at the prefix length over the slot's gathered pages
+   on the plain path, and only the bucket's rows are scattered into the
+   pools.
 2. **Decode**: ``decode_chunk`` batched ``forward_decode`` steps over ALL
-   slots, each row at its own depth (the ``decode_attention`` CUDA kernel
-   on the card), with the on-device finish mask of
-   ``generation._make_decode_body``; ONE host sync fetches the (K, B) token
-   block, which the host walks with the same finish rules.
+   slots, each row at its own depth (the decode-attention CUDA kernels on
+   the card: slab or paged, bf16 or int8), with the on-device finish mask
+   of ``generation._make_decode_body``; ONE host sync fetches the (K, B)
+   token block, which the host walks with the same finish rules.  With
+   ``speculate=K`` each step is a draft / verify / accept iteration
+   (``generation._make_spec_decode_body``) through the multi-token kernels.
 
 PyTorch runs eagerly, so there are no compiled programs to count and no
 buffers to donate: the slab is updated in place.
@@ -35,10 +43,19 @@ import torch
 from ..generation import (
     _check_sampling_args,
     _make_fused_decode,
+    _make_fused_spec_decode,
     _make_slot_sampler,
 )
-from .kv_cache import SlotKVCache, write_slot
+from .kv_cache import (
+    PagedKVCache,
+    SlotKVCache,
+    canonicalize_kv_dtype,
+    paged_scatter_rows,
+    paged_view,
+    write_slot,
+)
 from .metrics import ServeMetrics
+from .prefix_cache import PagePool, RadixPrefixIndex
 from .scheduler import Request, RequestHandle, RequestResult, Scheduler
 
 __all__ = ["ServeEngine"]
@@ -46,10 +63,9 @@ __all__ = ["ServeEngine"]
 #: the JAX engine's constructor arguments this port does not carry yet;
 #: passing any of them raises instead of being ignored
 _UNPORTED = (
-    "ring_capacity", "persistent_stream", "page_size", "num_pages",
-    "kv_dtype", "prefix_cache", "params", "cost_cards", "numerics",
+    "ring_capacity", "persistent_stream", "params", "cost_cards", "numerics",
     "hbm_budget", "stall_timeout_s", "mesh", "plan", "tp_rule", "tp_axis",
-    "chunked_prefill", "spec_ngram", "record",
+    "chunked_prefill", "record",
 )
 
 
@@ -83,7 +99,23 @@ class ServeEngine:
         ``prompt + max_new_tokens``.
       decode_chunk: decode steps per dispatch (``K``): one host sync per
         ``K`` steps.
-      decode_mode: only ``"chunked"`` is ported; ``speculate`` only 0.
+      decode_mode: only ``"chunked"`` is ported.
+      page_size: switch the KV cache to the PAGED layout with pages of this
+        many tokens (must divide ``max_len``); ``None`` keeps the slab.
+        Greedy paged streams are bit-identical to the slab engine's.
+      num_pages: pool size in paged mode; default the slab's footprint plus
+        the scratch page, ``num_slots * max_len / page_size + 1``.
+      kv_dtype: ``None`` (the model's dtype), ``"int8"`` (quantized, f32
+        power-of-two scales per row and head) or a plain cast
+        (``"bfloat16"``, ``"float16"``, ``"float32"``).
+      prefix_cache: in paged mode, keep the radix prefix index: page-aligned
+        shared prompt prefixes are handed over by page-table rewrite and
+        prefill computes only the uncached suffix.
+      speculate: draft this many tokens per slot per decode iteration by
+        prompt lookup in the slot's own history and verify them in one
+        batched call; 0 disables.  Greedy streams equal ``speculate=0``'s
+        wherever the (B, K+1) verify rounds as the (B, 1) step does.
+      spec_ngram: trailing-token match length of the draft lookup.
       finished_history: finished requests kept for ``finished_requests()``.
       device: where the engine runs; defaults to the model's device (the
         model's own default is ``"cuda"``), and must equal it.
@@ -104,7 +136,12 @@ class ServeEngine:
         max_tokens_in_flight: Optional[int] = None,
         decode_chunk: int = 1,
         decode_mode: str = "chunked",
+        page_size: Optional[int] = None,
+        num_pages: Optional[int] = None,
+        kv_dtype: Optional[str] = None,
+        prefix_cache: bool = True,
         speculate: int = 0,
+        spec_ngram: int = 2,
         finished_history: int = 1024,
         device=None,
         **unported,
@@ -130,8 +167,10 @@ class ServeEngine:
             )
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
-        if speculate > 0:
-            raise NotImplementedError("speculate > 0 is not ported yet")
+        self.speculate = int(speculate)
+        self.spec_ngram = int(spec_ngram)
+        if self.speculate and self.spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
         _check_sampling_args(top_k, top_p)
         if device is not None and torch.device(device) != model.device:
             raise ValueError(
@@ -168,24 +207,65 @@ class ServeEngine:
                     f"bucket {buckets[-1]} exceeds max_len {self.max_len}"
                 )
         self.prefill_buckets = buckets
-        self.cache = SlotKVCache(model, self.num_slots, self.max_len)
+        self.kv_dtype = canonicalize_kv_dtype(kv_dtype)
+        self.page_size = None if page_size is None else int(page_size)
+        self.paged = self.page_size is not None
+        if self.paged:
+            if num_pages is None:
+                # the slab's footprint plus the reserved scratch page
+                num_pages = self.num_slots * (self.max_len // self.page_size) + 1
+            self.num_pages = int(num_pages)
+            self.pool = PagePool(self.num_pages)
+            self.prefix_index = (
+                RadixPrefixIndex(self.page_size) if prefix_cache else None
+            )
+            self.cache = PagedKVCache(
+                model, self.num_slots, self.max_len, self.page_size,
+                self.num_pages, kv_dtype=self.kv_dtype,
+            )
+        else:
+            if num_pages is not None:
+                raise ValueError("num_pages requires page_size")
+            self.num_pages = None
+            self.pool = None
+            self.prefix_index = None
+            self.cache = SlotKVCache(model, self.num_slots, self.max_len,
+                                     kv_dtype=self.kv_dtype)
+        self.kv_quantized = self.cache.quantized
+        self.kv_dtype_name = str(self.cache.kv[0][0].dtype).replace("torch.", "")
         self.scheduler = Scheduler(self.num_slots, max_tokens_in_flight)
+        kv_rows = (self.num_pages * self.page_size if self.paged
+                   else self.num_slots * self.max_len)
         self.metrics = ServeMetrics(
             self.num_slots,
+            num_pages=self.num_pages,
+            speculate=self.speculate or None,
             kv_cache_bytes=self.cache.nbytes,
-            kv_bytes_per_token=self.cache.nbytes
-            // (self.num_slots * self.max_len),
+            kv_bytes_per_token=self.cache.nbytes // kv_rows,
+            kv_quant_err_max=0.0 if self.kv_quantized else None,
+            kv_quant_err_rms=0.0 if self.kv_quantized else None,
         )
         self._sampler = _make_slot_sampler(top_k, top_p)
-        self._decode = _make_fused_decode(
-            model, self._sampler, eos_token=eos_token, max_len=self.max_len,
-            decode_chunk=self.decode_chunk,
-        )
+        if self.speculate:
+            self._decode = _make_fused_spec_decode(
+                model, self._sampler, eos_token=eos_token,
+                max_len=self.max_len, decode_chunk=self.decode_chunk,
+                speculate=self.speculate, ngram=self.spec_ngram,
+            )
+        else:
+            self._decode = _make_fused_decode(
+                model, self._sampler, eos_token=eos_token,
+                max_len=self.max_len, decode_chunk=self.decode_chunk,
+            )
         self._last_tok = np.zeros(self.num_slots, np.int64)
         self._temps = np.zeros(self.num_slots, np.float32)
         self._seeds = np.zeros(self.num_slots, np.int64)
         self._ntok = np.zeros(self.num_slots, np.int64)  # tokens sampled
         self._budget = np.zeros(self.num_slots, np.int64)  # max_new_tokens
+        # speculative drafting history on the card: each slot's token stream
+        # (prompt + everything generated), carried from dispatch to dispatch
+        self._hist = (torch.zeros((self.num_slots, self.max_len), dtype=torch.int64,
+                                  device=self.device) if self.speculate else None)
         self._finished: deque = deque(maxlen=int(finished_history))
 
     # -- public API ------------------------------------------------------
@@ -214,6 +294,18 @@ class ServeEngine:
                 f"prompt ({prompt.size}) exceeds the largest prefill "
                 f"bucket ({self.prefill_buckets[-1]})"
             )
+        if self.paged:
+            need = -(-(prompt.size + max_new_tokens) // self.page_size)
+            if need > self.pool.capacity:
+                # no admission order can ever free enough pages
+                raise ValueError(
+                    f"prompt ({prompt.size}) + max_new_tokens "
+                    f"({max_new_tokens}) needs {need} pages of "
+                    f"{self.page_size} tokens, but the "
+                    f"{self.kv_dtype_name} cache pool holds only "
+                    f"{self.pool.capacity} allocatable pages — raise "
+                    "num_pages or shrink the request"
+                )
         req = Request(
             rid=-1,
             prompt=prompt,
@@ -239,13 +331,16 @@ class ServeEngine:
         for req in list(self.scheduler.running):
             if req.expired(now):
                 self._finish(req, "deadline", now)
-        for req, slot in self.scheduler.admit(now):
+        gate = self._page_gate if self.paged else None
+        for req, slot in self.scheduler.admit(now, gate=gate):
             self._prefill_request(req, slot)
         if self.scheduler.running:
             self._decode_step()
         self.metrics.observe_gauges(
             self.scheduler.queue_depth, self.cache.active_count
         )
+        if self.paged:
+            self.metrics.observe_pages(self.pool.in_use)
         return self.scheduler.queue_depth + len(self.scheduler.running)
 
     def run(self, requests: Iterable[Union[dict, Any]], *,
@@ -277,38 +372,126 @@ class ServeEngine:
             f"({self.prefill_buckets[-1]})"
         )
 
-    def _prefill(self, tokens, true_len: int, slot: int, temp: float,
-                 seed: int) -> torch.Tensor:
-        """The JAX engine's prefill program: the padded bucket through
-        ``forward_cached`` from 0, sample at ``true_len - 1`` (sampler step
-        0), write the slab into the slot row.  Returns the (1,) token."""
-        model = self.model
-        slab = model.init_cache(1, tokens.shape[1])
-        logits, slab = model.forward_cached(tokens, slab, 0)
-        last = logits[:, true_len - 1, :]
-        tok = self._sampler(last, np.array([temp], np.float32),
-                            np.array([seed], np.int64), np.zeros(1, np.int64))
-        write_slot(self.cache.kv, slab, slot)
+    def _sample_first(self, logits, true_len: int, temp: float, seed: int):
+        """Sampler step 0 at the last real prompt position."""
+        return self._sampler(logits[:, true_len - 1, :],
+                             np.array([temp], np.float32),
+                             np.array([seed], np.int64), np.zeros(1, np.int64))
+
+    def _prefill(self, tokens, pfx: int, true_len: int, slot: int,
+                 temp: float, seed: int) -> torch.Tensor:
+        """The JAX engine's prefill programs: the padded (suffix) bucket
+        through ``forward_cached`` from ``pfx``, sampled at ``true_len - 1``
+        (sampler step 0), its rows written into the slot.  A cold prefill
+        (``pfx == 0``, every slab prefill) runs into a fresh (1, bucket)
+        cache (the flash path); a warm paged one runs at the page-aligned
+        prefix length over the slot's pages below ``pfx + bucket`` (the
+        plain path), gathered and, for int8, dequantized into the model's
+        dtype, which holds every ``int8 * 2^k`` exactly.  The slab takes the
+        rows with ``write_slot``; the pools take only the bucket's rows
+        (shared prefix pages are never rewritten; padding rows past the
+        chain land on the scratch page).  Returns the (1,) token."""
+        model, bucket = self.model, tokens.shape[1]
+        if self.paged:
+            n_pages = -(-(pfx + bucket) // self.page_size)
+            table_row = torch.as_tensor(self.cache.page_tables[slot, :n_pages],
+                                        device=self.device)
+        if pfx == 0:
+            view = model.init_cache(1, bucket)
+        else:
+            dt = model.cfg.dtype
+            view = [(k.to(dt), v.to(dt))
+                    for k, v in paged_view(self.cache.kv, table_row, self.page_size)]
+        logits, view = model.forward_cached(tokens, view, pfx)
+        tok = self._sample_first(logits, true_len, temp, seed)
+        if self.paged:
+            paged_scatter_rows(self.cache.kv, view, table_row, self.page_size,
+                               pfx, bucket)
+        else:
+            write_slot(self.cache.kv, view, slot)
         return tok
 
+    def _page_gate(self, req: Request) -> bool:
+        """Paged admission gate (run by ``Scheduler.admit`` on the FCFS
+        head): match the prompt against the prefix index, reserve the shared
+        pages (incref) plus fresh pages for the rest of the request's
+        page-aligned footprint, evicting LRU unreferenced prefixes under
+        pressure.  False (pages short even after eviction) blocks the line
+        until running requests retire; the reservation is stashed on the
+        request for ``_prefill_request``."""
+        ps = self.page_size
+        hit: list = []
+        if self.prefix_index is not None:
+            hit = self.prefix_index.match(req.prompt)
+            # the suffix prefill writes view rows [P, P + bucket): shrink
+            # the hit until that span fits the slot geometry
+            while hit and (
+                len(hit) * ps + self._bucket_for(req.prompt.size - len(hit) * ps)
+                > self.max_len
+            ):
+                hit.pop()
+        need_total = -(-(req.prompt.size + req.max_new_tokens) // ps)
+        need_new = need_total - len(hit)
+        self.pool.incref(hit)  # pin before eviction can consider them
+        if self.pool.free_count < need_new and self.prefix_index is not None:
+            self.metrics.count(
+                "pages_evicted",
+                self.prefix_index.evict(self.pool, need_new - self.pool.free_count),
+            )
+        if self.pool.free_count < need_new:
+            self.pool.decref(hit)
+            self.metrics.count("admissions_rejected_pages")
+            return False
+        req.pages = hit + self.pool.alloc(need_new)
+        req.prefix_len = len(hit) * ps
+        return True
+
+    def _adopt_prefix(self, req: Request) -> None:
+        """Post-prefill prefix bookkeeping: hit-rate counters, and the
+        request's full-prompt page-aligned pages handed to the radix index."""
+        if self.prefix_index is None:
+            return
+        ps = self.page_size
+        self.metrics.count("prefix_lookup_tokens", int(req.prompt.size))
+        self.metrics.count("prefix_hit_tokens", req.prefix_len)
+        n_full = req.prompt.size // ps
+        self.prefix_index.insert(req.prompt[: n_full * ps], req.pages[:n_full],
+                                 self.pool)
+
     def _prefill_request(self, req: Request, slot: int) -> None:
-        bucket = self._bucket_for(req.prompt.size)
-        req.record_event("prefill", bucket=bucket, cold=True)
+        pfx = req.prefix_len if self.paged else 0
+        suffix = req.prompt[pfx:]
+        bucket = self._bucket_for(suffix.size)
+        if self.paged:
+            req.record_event("prefill", bucket=bucket, cold=pfx == 0,
+                             prefix_hit_tokens=pfx)
+            self.cache.set_table(slot, req.pages)
+        else:
+            req.record_event("prefill", bucket=bucket, cold=True)
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, : req.prompt.size] = req.prompt
+        padded[0, : suffix.size] = suffix
+        tokens = torch.as_tensor(padded, device=self.device)
         t0 = time.perf_counter()
-        tok = self._prefill(
-            torch.as_tensor(padded, device=self.device), req.prompt.size,
-            slot, req.temperature, req.seed,
-        )
+        tok = self._prefill(tokens, pfx, suffix.size, slot, req.temperature,
+                            req.seed)
         tok = int(tok[0].item())  # host sync: the first token exists
         self.metrics.prefill_s.record(time.perf_counter() - t0)
+        # only the suffix bucket was computed: the prefix hit is the
+        # prefill the cache saved
         self.metrics.count("tokens_prefilled", bucket)
+        if self.paged:
+            self._adopt_prefix(req)
         self.cache.admit(slot, req.prompt.size)
         self._temps[slot] = req.temperature
         self._seeds[slot] = req.seed
         self._ntok[slot] = 1
         self._budget[slot] = req.max_new_tokens
+        if self.speculate:
+            # seed the slot's draft history with the prompt; the decode body
+            # writes every later token at its stream index on the card
+            self._hist[slot].zero_()
+            self._hist[slot, : req.prompt.size] = torch.as_tensor(
+                req.prompt, device=self.device)
         now = time.monotonic()
         self.metrics.count("prefill_calls")
         self.metrics.count("requests_admitted")
@@ -327,26 +510,36 @@ class ServeEngine:
         self.metrics.count("tokens_generated")
         self.metrics.ttft_s.record(req.first_token_at - req.submitted_at)
 
+    def _decode_args(self):
+        """The decode dispatch's dynamic inputs after the cache, plus the
+        page tables of a paged cache as the trailing extra input."""
+        dev = self.device
+        state = [torch.as_tensor(self._last_tok, device=dev),
+                 torch.as_tensor(self.cache.positions(), device=dev).long()]
+        if self.speculate:
+            state.append(self._hist)
+        state += [self._temps, self._seeds, self._ntok,
+                  torch.as_tensor(self._budget, device=dev),
+                  torch.as_tensor(~self.cache.active, device=dev)]
+        if self.paged:
+            state.append(torch.as_tensor(self.cache.page_tables, device=dev))
+        return state
+
     def _decode_step(self) -> None:
-        """One decode dispatch: ``K = decode_chunk`` steps, ONE host sync
-        for the (K, num_slots) token block, then the host walk with the
-        finish rules the device mask applied (``_check_finished``)."""
+        """One decode dispatch: ``K = decode_chunk`` steps (speculative
+        iterations with ``speculate``), ONE host sync for the token block,
+        then the host walk with the finish rules the device mask applied
+        (``_check_finished``)."""
         running = self.scheduler.running
         k_steps = self.decode_chunk
-        dev = self.device
         t0 = time.perf_counter()
-        kv, block = self._decode(
-            self.cache.kv,
-            torch.as_tensor(self._last_tok, device=dev),
-            torch.as_tensor(self.cache.positions(), device=dev),
-            self._temps,
-            self._seeds,
-            self._ntok,
-            torch.as_tensor(self._budget, device=dev),
-            torch.as_tensor(~self.cache.active, device=dev),
-        )
-        self.cache.kv = kv
-        block = block.cpu().numpy()  # ONE host sync per K slot-steps
+        out = self._decode(self.cache.kv, *self._decode_args())
+        self.cache.kv = out[0]
+        if self.speculate:
+            self._hist = out[3]
+            ys, cs = (t.cpu().numpy() for t in out[1:3])  # ONE host sync
+        else:
+            block = out[1].cpu().numpy()  # ONE host sync per K slot-steps
         seconds = time.perf_counter() - t0
         self.metrics.decode_s.record(seconds)
         self.metrics.count("host_syncs")
@@ -358,14 +551,17 @@ class ServeEngine:
             slot = req.slot
             took = 0
             for j in range(k_steps):
-                tok = int(block[j, slot])
-                self._ntok[slot] += 1
-                self.cache.advance_slot(slot)
-                self._last_tok[slot] = tok
-                req.generated.append(tok)
-                emitted += 1
+                if self.speculate:
+                    c = int(cs[j, slot])
+                    if c == 0:
+                        break  # frozen from here on
+                    n, finished = self._consume_spec_block(req, ys[j, slot], c, now)
+                else:
+                    n, finished = self._consume_token(req, int(block[j, slot]), now)
+                emitted += n
                 took = j + 1
-                if self._check_finished(req, tok, now):
+                if finished:
+                    # the device froze this slot for the rest of the chunk
                     self.metrics.count("masked_slot_steps", k_steps - 1 - j)
                     break
             ev = ("decode_chunk", now, {"tokens": took})
@@ -377,6 +573,36 @@ class ServeEngine:
         self.metrics.count("tokens_decoded", emitted)
         if emitted:
             self.metrics.decode_token_s.record(seconds / emitted)
+
+    def _consume_token(self, req: Request, tok: int, now: float) -> tuple:
+        """One decoded token of one request.  Returns ``(1, finished)``."""
+        slot = req.slot
+        self._ntok[slot] += 1
+        self.cache.advance_slot(slot)
+        self._last_tok[slot] = tok
+        req.generated.append(tok)
+        return 1, self._check_finished(req, tok, now)
+
+    def _consume_spec_block(self, req: Request, ys_row, c: int,
+                            now: float) -> tuple:
+        """One verified block (``c`` accepted tokens of a ``(speculate +
+        1,)`` row) of one request: the one-token bookkeeping per token and
+        the draft-economy counters.  The device's truncation lands any
+        finish on the block's last emitted token.  Returns ``(emitted,
+        finished)``."""
+        k = self.speculate
+        # per live slot-iteration: K lanes drafted, c - 1 of them accepted
+        self.metrics.count("draft_tokens_proposed", k)
+        self.metrics.count("draft_tokens_accepted", c - 1)
+        self.metrics.count("spec_rejected_lane_steps", (k + 1) - c)
+        emitted = 0
+        finished = False
+        for i in range(c):
+            _, finished = self._consume_token(req, int(ys_row[i]), now)
+            emitted += 1
+            if finished:
+                break
+        return emitted, finished
 
     def _check_finished(self, req: Request, tok: int, now: float) -> bool:
         if self.eos_token is not None and tok == self.eos_token:
@@ -392,7 +618,12 @@ class ServeEngine:
     def _finish(self, req: Request, reason: str, now: float) -> None:
         slot = req.slot
         self.scheduler.retire(req)
-        self.cache.retire(slot)
+        self.cache.retire(slot)  # paged: also rewires the table to scratch
+        if self.paged and req.pages is not None:
+            # drop the request's references; pages the prefix index adopted
+            # live on under its own refcount until LRU eviction
+            self.pool.decref(req.pages)
+            req.pages = None
         self._temps[slot] = 0.0
         req.finish_reason = reason
         req.finished_at = now
