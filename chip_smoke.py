@@ -57,7 +57,22 @@ Phases, each fatal:
    1024) through ``examples.train_gpt2.main`` with the fused loss: one
    warm-up step, then 10 steps with the launch counters reset just before;
 10. ``torch.profiler`` over two more gpt2_large steps: device time per
-   step by kernel and kernel class against the step's host-clock time.
+   step by kernel and kernel class against the step's host-clock time;
+11. hold T5's relative-position-bias variants of the flash kernels (an
+   additive bias, the bucket table; causal and not; forward with and
+   without lse, dK/dV, dQ) and the ``flash_bwd_dbias`` and
+   ``flash_bwd_dtable`` kernels against their plain versions at T5-3B's
+   heads (B 4 x S 512, a ragged S 114, B 1 x S 2048), and time them beside
+   SDPA with the bias as a float mask (a yardstick the port never calls);
+12. one backward step of a T5-3B with 4 layers per stack through the
+   kernels, in each bias mode, and through the plain path, each held
+   against the f32 plain path;
+13. train full T5-3B (24 + 24 layers, bf16, batch 4 x 512) through
+   ``build_t5_train_workload``: deferred init, materialize on the card,
+   one warm-up step, then 10 ``Trainer.fit`` steps with the launch
+   counters reset just before, (a) with the materialized bias (dbias),
+   then ``torch.profiler`` over two more of its steps, (b) with the
+   bucket table (dtable).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -69,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -145,6 +161,19 @@ CE_REPORTED = (8192, 1280, 50257)
 # max, within 2e-2
 CE_LOSS_RTOL = 1e-3
 CE_GRAD_TOL = 2e-2
+# T5's relative-position bias in the flash kernels, at T5-3B's heads (Hq 32,
+# D 128, 32 buckets, max distance 128): (B, S) of the training shape, T5's
+# target length (ragged: no tile divides it) and a long S (one row), where
+# the bucket mode keeps memory O(S).  Each (B, S) runs the encoder's
+# variant (bidirectional, no mask) and the decoder's (causal).
+BIAS_CASES = [(4, 512), (4, 114), (1, 2048)]
+BIAS_REPORTED = (4, 512)
+T5_HEADS, T5_DKV, T5_BUCKETS, T5_MAX_DIST = 32, 128, 32, 128
+# dbias and dtable vs their plain f32 versions, scaled by their max: bf16
+# outputs (dbias) or a bf16 cast of f32 sums added in no fixed order (dtable)
+BIAS_GRAD_TOL = 2e-2
+# the T5-3B training runs: scripts/bench_t5_train.py's batch and length
+T5_BATCH, T5_SEQ = 4, 512
 # engine counters a serve run reports
 SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
                   "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
@@ -1094,8 +1123,10 @@ def _reset_counters():
     from torchdistx_tpu_torch.ops import flash_attention as fa
     from torchdistx_tpu_torch.ops import fused_ce as fc
 
-    fa.flash_fwd_cuda.launches = fa.flash_fwd_cuda.lse_launches = 0
-    fa.flash_bwd_dkv_cuda.launches = fa.flash_bwd_dq_cuda.launches = 0
+    for fn in (fa.flash_fwd_cuda, fa.flash_bwd_dkv_cuda, fa.flash_bwd_dq_cuda):
+        fn.launches = fn.bias_launches = fn.bucket_launches = 0
+    fa.flash_fwd_cuda.lse_launches = 0
+    fa.flash_bwd_dbias_cuda.launches = fa.flash_bwd_dtable_cuda.launches = 0
     for name in KERNEL_OF.values():
         fn = getattr(da, f"{name}_cuda")
         fn.launches = fn.int8_launches = 0
@@ -1114,9 +1145,14 @@ def _read_counters():
            "flash_fwd_lse": fa.flash_fwd_cuda.lse_launches,
            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches,
            "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
+           "flash_bwd_dbias": fa.flash_bwd_dbias_cuda.launches,
+           "flash_bwd_dtable": fa.flash_bwd_dtable_cuda.launches,
            "fused_ce_fwd": fc.fused_ce_fwd_cuda.launches,
            "fused_ce_dx": fc.fused_ce_dx_cuda.launches,
            "fused_ce_dw": fc.fused_ce_dw_cuda.launches}
+    for key, fn in (("flash_fwd", fa.flash_fwd_cuda), ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda),
+                    ("flash_bwd_dq", fa.flash_bwd_dq_cuda)):
+        out[f"{key}_bias"], out[f"{key}_bucket"] = fn.bias_launches, fn.bucket_launches
     for name in KERNEL_OF.values():
         fn = getattr(da, f"{name}_cuda")
         out[name] = fn.launches - fn.int8_launches
@@ -1240,10 +1276,24 @@ def profile_gpt2(torch, seed, steps=2, batch=8, seq=1024, top=15):
     from its second step on, so with ``steps + 3`` steps the profiler waits
     through steps 1-2, warms up on step 3 and records the last ``steps``."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile, schedule
     from torchdistx_tpu_torch.examples.train_gpt2 import main as train_main
 
     stream = np.random.RandomState(seed).randint(0, 50257, 4 * batch * seq + 1)
+
+    def drive(on_step):
+        train_main("gpt2_large", batch=batch, seq=seq, steps=steps + 3, fused_ce=True,
+                   device="cuda", dtype=torch.bfloat16, stream=stream, log_every=1,
+                   log_fn=on_step)
+
+    return _profile(torch, drive, steps, top)
+
+
+def _profile(torch, drive, steps, top=15):
+    """Profile ``drive(on_step)``, which must call ``on_step`` once after
+    each synchronized step, ``steps + 2`` times: the profiler waits one
+    step, warms up on one and records ``steps``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     marks = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=steps)) as prof:
@@ -1251,9 +1301,7 @@ def profile_gpt2(torch, seed, steps=2, batch=8, seq=1024, top=15):
             marks.append(time.perf_counter())
             prof.step()
 
-        train_main("gpt2_large", batch=batch, seq=seq, steps=steps + 3, fused_ce=True,
-                   device="cuda", dtype=torch.bfloat16, stream=stream, log_every=1,
-                   log_fn=on_step)
+        drive(on_step)
     wall_ms = (marks[-1] - marks[1]) / steps * 1e3  # the active steps, synced at each end
     cuda = torch.autograd.DeviceType.CUDA
     rows, opt_span = [], None
@@ -1286,6 +1334,306 @@ def profile_gpt2(torch, seed, steps=2, batch=8, seq=1024, top=15):
     }
 
 
+def bias_bound(b, s, hq, hkv, d, products, causal, mode, kernel):
+    """Least time (ms) of one T5 flash kernel (Sq == Skv == S):
+    ``products`` matrix products of 2 * D flops per visible pair, query
+    head and batch row, over the bf16 peak, vs the bytes it must move over
+    the memory rate: its inputs read once (q, k, v; the backward's o, dO
+    and lse too), the bias (2 bytes a pair per head) or the table and the
+    bucket ids, and its outputs written once (``kernel``: "fwd" o and lse,
+    "dkv", "dq", "dbias" (Hq, S, S) bf16 or "dtable" (Hq, buckets) f32)."""
+    pairs = _causal_pairs(s) if causal else s * s
+    flops = 2.0 * products * d * pairs * b * hq
+    qo = 2.0 * b * s * hq * d
+    kv = 2.0 * b * s * hkv * d
+    lse = 4.0 * b * hq * s
+    nbytes = qo + 2 * kv
+    nbytes += {"fwd": qo + lse, "dkv": 2 * qo + lse + 2 * kv, "dq": 3 * qo + lse,
+               "dbias": 2 * qo + lse + 2.0 * hq * s * s,
+               "dtable": 2 * qo + lse + 4.0 * hq * T5_BUCKETS}[kernel]
+    nbytes += 2.0 * hq * s * s if mode == "bias" else 2.0 * hq * T5_BUCKETS + 4.0 * (2 * s - 1)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _library_bias(torch, q, k, v, do, table, bias, causal, mode, iters, scale=None):
+    """SDPA at ``scale`` with the batch-broadcast float mask (the bias,
+    -inf above the diagonal when causal), and in the bucket mode the table
+    lookup timed in: forward ms, backward ms of (q, k, v), and backward ms
+    with the mask's (and the table's) gradient, or the reason it has none."""
+    F = torch.nn.functional
+    s = q.shape[1]
+    ids = None
+    if mode == "bucket":
+        from torchdistx_tpu_torch.ops import flash_attention as fa
+        ids = fa.rel_bucket_matrix(s, s, (T5_BUCKETS, T5_MAX_DIST, not causal), q.device)
+    causal_mask = None
+    if causal:
+        ones = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        causal_mask = torch.zeros((s, s), dtype=q.dtype, device=q.device).masked_fill(
+            ~torch.tril(ones), float("-inf"))
+
+    def mask_of(t):
+        m = (t[:, ids] if ids is not None else t)[None]
+        return m + causal_mask if causal_mask is not None else m
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    src = (table if mode == "bucket" else bias).detach()
+    out = {"fwd": time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask_of(src), scale=scale), iters)}
+    y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask_of(src), scale=scale)
+    out["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        y, (qt, kt, vt), dot, retain_graph=True), iters)
+    try:
+        srcg = src.clone().requires_grad_()
+        yg = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask_of(srcg), scale=scale)
+        out["bias_bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+            yg, (qt, kt, vt, srcg), dot, retain_graph=True), iters)
+        del yg
+    except RuntimeError as e:  # a yardstick only: its absence fails nothing
+        out["bias_bwd"] = None
+        out["bias_bwd_why"] = str(e).splitlines()[0][:200]
+    del y, qt, kt, vt
+    return out
+
+
+def check_flash_bias(torch, device, cases=BIAS_CASES, iters=5):
+    """The bias and bucket variants of the forward and backward kernels and
+    the dbias and dtable kernels against their plain versions, on bf16
+    N(0, 1) inputs at T5-3B's heads with an N(0, 1) table (the bias mode
+    reads that table looked up, materialized), from the same saved o and
+    lse: outputs within ATOL/RTOL, lse within LSE_ATOL, dbias and dtable
+    scaled within BIAS_GRAD_TOL.  Each case is checked at the default
+    scale 1/sqrt(D) and at T5's scale 1.0 (q then carries the 1/sqrt(D),
+    as T5's initialization folds it in, and dq is held divided by
+    sqrt(D)), and timed at T5's beside its
+    plain version (dbias and dtable: ``flash_bias_grad_reference``, the
+    plain version of that kernel alone), its bound and SDPA with the bias
+    as a float mask."""
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+
+    hq = hkv = T5_HEADS
+    d = T5_DKV
+    g = torch.Generator(device=device).manual_seed(8)
+    rows, failures = [], []
+    for b, s in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+        q0, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        table = rnd(hq, T5_BUCKETS)
+        for mode, causal, scale in itertools.product(("bias", "bucket"), (False, True),
+                                                     (None, 1.0)):
+            q = q0 if scale is None else (q0.float() * d ** -0.5).to(torch.bfloat16)
+            cfg = (T5_BUCKETS, T5_MAX_DIST, not causal)
+            kw = dict(causal=causal, scale=scale, bucket_cfg=cfg)
+            bias = None
+            if mode == "bias":
+                ids = fa.rel_bucket_matrix(s, s, cfg, device)
+                bias = kw["bias"] = table[:, ids].contiguous()
+            else:
+                kw["table"] = table
+            out = fa.flash_fwd_cuda(q, k, v, **kw)
+            o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+            dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw)
+            if mode == "bias":
+                dgrad = fa.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal,
+                                                scale=scale)
+            else:
+                dgrad = fa.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg,
+                                                 causal=causal, scale=scale)
+            torch.cuda.synchronize()
+            ref_o, ref_lse = fa.flash_attention_lse_reference(q, k, v, **kw)
+            rq, rk, rv, rgrad = fa.flash_bwd_reference(q, k, v, o, lse, do, **kw)
+            scale_name = "1/sqrt(D)" if scale is None else scale
+            case = (b, s, mode, "causal" if causal else "full", f"scale {scale_name}")
+            gkey = "dbias_scaled_err" if mode == "bias" else "dtable_scaled_err"
+            row = {"B": b, "S": s, "mode": mode, "causal": causal, "scale": scale_name,
+                   "lse_err": float((lse - ref_lse).abs().max()),
+                   gkey: _scaled_err(torch, dgrad, rgrad)}
+            # at T5's scale dq is that of the folded q, sqrt(D) times the
+            # gradient of the q before the fold: held as the latter, the
+            # quantity the default scale holds
+            fold = 1.0 if scale is None else d ** -0.5
+            for name, got, ref in (("out", out, ref_o), ("o", o, ref_o),
+                                   ("dq", dq.float() * fold, rq.float() * fold),
+                                   ("dk", dk, rk), ("dv", dv, rv)):
+                ok, err = _close(torch, got, ref)
+                row[f"{name}_err"] = err
+                if not ok:
+                    failures.append(f"flash {mode} {name} {case}: max|d|={err}")
+            if row["lse_err"] > LSE_ATOL:
+                failures.append(f"flash {mode} lse {case}: max|d|={row['lse_err']}")
+            if row[gkey] > BIAS_GRAD_TOL:
+                failures.append(f"flash {mode} {gkey} {case}: {row[gkey]}")
+            del ref_o, ref_lse, rq, rk, rv, rgrad
+            if scale is not None:  # timed at T5's scale, the main path's
+                _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters)
+            rows.append(row)
+            print("flash_bias", json.dumps(row))
+            del out, o, lse, dk, dv, dq, dgrad, bias
+            torch.cuda.empty_cache()
+    return rows, failures
+
+
+def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters):
+    """The times of one case of ``check_flash_bias`` into ``row``: each
+    kernel, its plain version, its bound and the SDPA yardstick."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    mode, causal = row["mode"], row["causal"]
+    bwd = (q, k, v, o, lse, do)
+    gname = "dbias" if mode == "bias" else "dtable"
+    ckw = dict(causal=causal, scale=kw["scale"])
+    row["fwd_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw),
+                            iters)
+    row["dkv_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*bwd, **kw), iters)
+    row["dq_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*bwd, **kw), iters)
+    if mode == "bias":
+        row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dbias_cuda(*bwd, bias, **ckw),
+                                  iters)
+    else:
+        row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dtable_cuda(
+            *bwd, table, kw["bucket_cfg"], **ckw), iters)
+    row["fwd_plain_ms"] = time_ms(
+        torch, lambda: fa.flash_attention_lse_reference(q, k, v, **kw), iters)
+    row["bwd_plain_ms"] = time_ms(torch, lambda: fa.flash_bwd_reference(*bwd, **kw), iters)
+    row["dgrad_plain_ms"] = time_ms(
+        torch, lambda: fa.flash_bias_grad_reference(*bwd, **kw), iters)
+    lib = _library_bias(torch, q, k, v, do, table, bias, causal, mode, iters, kw["scale"])
+    row["fwd_library_ms"], row["bwd_library_ms"] = lib["fwd"], lib["bwd"]
+    row["dgrad_library_ms"] = lib["bias_bwd"]
+    if "bias_bwd_why" in lib:
+        row["dgrad_library_why"] = lib["bias_bwd_why"]
+    for key, kern, prods in (("fwd", "fwd", 2), ("dkv", "dkv", 4), ("dq", "dq", 3),
+                             ("dgrad", gname, 2)):
+        row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bias_bound(
+            b, s, hq, hkv, d, prods, causal, mode, kern)
+
+
+def _t5_grads(torch, model, src, labels, use_flash, bucket):
+    """Flattened f32 gradients of one backward step of the T5 loss, the
+    decoder fed the labels shifted right (T5's teacher forcing: with the
+    labels themselves as its input the model copies them and the gradients
+    vanish)."""
+    from torchdistx_tpu_torch.nn import functional as F
+
+    saved = model.cfg.use_flash, model.cfg.flash_bucket_bias
+    model.cfg.use_flash, model.cfg.flash_bucket_bias = use_flash, bucket
+    tgt = torch.cat([torch.zeros_like(labels[:, :1]), labels[:, :-1]], dim=1)
+    try:
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(src, tgt), labels).backward()
+        return torch.cat([p.grad.float().flatten() for p in model.parameters()])
+    finally:
+        model.cfg.use_flash, model.cfg.flash_bucket_bias = saved
+
+
+def check_t5_grads(torch, model, ref_model, bucket, seq=T5_SEQ, batch=2):
+    """One backward step of the bf16 T5 through the kernels (in the chosen
+    bias mode) and through the plain path, each against the f32 plain path
+    of the same weights: the kernel path's gradients finite and their max
+    distance from f32 no more than LOGITS_FACTOR times the plain bf16
+    path's, over all parameters, over the self-attention projections
+    (q, k, v, o) alone, which the flash kernels' dq, dk, dv feed, and over
+    the two ``rel_bias`` tables alone, which dbias or dtable feeds (the
+    max over all is set by the MLP weights' bf16 noise)."""
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(9)
+    src = torch.randint(0, model.cfg.vocab_size, (batch, seq), generator=g, device=dev)
+    labels = torch.randint(0, model.cfg.vocab_size, (batch, seq), generator=g, device=dev)
+    names = [n for n, _ in model.named_parameters()]
+    sizes = [p.numel() for p in model.parameters()]
+    ref = _t5_grads(torch, ref_model, src, labels, False, False)
+    kern = _t5_grads(torch, model, src, labels, True, bucket)
+    plain = _t5_grads(torch, model, src, labels, False, False)
+    groups = {"all": lambda n: True,
+              "self_attn": lambda n: "self_attn." in n and "rel_bias" not in n,
+              "rel_bias": lambda n: "rel_bias" in n}
+    info = {"bucket": bucket, "layers": model.cfg.n_layers, "batch": batch, "seq": seq,
+            "finite": bool(torch.isfinite(kern).all())}
+    ok = info["finite"]
+    for group, keep in groups.items():
+        k_, r_, p_ = (torch.cat([t for n, t in zip(names, torch.split(x, sizes)) if keep(n)])
+                      for x in (kern, ref, plain))
+        pre = "" if group == "all" else f"{group}_"
+        info[f"{pre}kernel_vs_f32"] = float((k_ - r_).abs().max())
+        info[f"{pre}plain_vs_f32"] = float((p_ - r_).abs().max())
+        info[f"{pre}f32_max_abs"] = float(r_.abs().max())
+        ok = ok and info[f"{pre}kernel_vs_f32"] <= LOGITS_FACTOR * info[f"{pre}plain_vs_f32"]
+    return ok, info
+
+
+def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda",
+             profile_steps=0):
+    """The T5 training main path: ``build_t5_train_workload`` (deferred_init
+    -> materialize_module -> AnyPrecisionAdamW) on full T5-3B, batch 4 x
+    512, in one bias mode; one warm-up step, then ``Trainer.fit`` over
+    ``steps`` steps with the launch counters set to 0 just before and read
+    just after.  With ``profile_steps``, ``torch.profiler`` then records
+    that many more steps (after one to wait and one to warm up)."""
+    import math
+    from torchdistx_tpu_torch.utils.benchmarks import build_t5_train_workload
+
+    w = build_t5_train_workload(name, batch=T5_BATCH, seq=T5_SEQ,
+                                flash_bucket_bias=bucket, device=device, seed=seed)
+    n_layers = w["model"].cfg.n_layers
+    w["run"](1)  # warm-up: optimizer state, cuBLAS handles and workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    losses = w["run"](steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    tokens_per_s = w["tokens_per_batch"] * steps / wall
+    what = f"{name} train ({'bucket' if bucket else 'bias'})"
+    summary = {
+        "model": w["name"], "bias_mode": "bucket" if bucket else "bias",
+        "n_params": w["n_params"], "layers_per_stack": n_layers, "batch": w["batch_size"],
+        "seq": w["seq"], "steps": steps, "losses": losses, "loss_fell": losses[-1] < losses[0],
+        "step_ms": wall / steps * 1e3, "tokens_per_sec": tokens_per_s,
+        "mfu": w["flops_per_token"] * tokens_per_s / H100_BF16_FLOPS,
+        "flops_per_token": w["flops_per_token"],
+        "deferred_init_s": w["deferred_init_s"], "materialize_s": w["materialize_s"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+    }
+    failures = []
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        failures.append(f"{what} losses not finite: {losses}")
+    # every self-attention of both stacks, each step: forward with lse,
+    # dK/dV, dQ and the bias (or table) gradient, in this run's variant
+    per = 2 * n_layers * steps
+    variant = "bucket" if bucket else "bias"
+    expect = {"flash_fwd_lse": per, f"flash_fwd_{variant}": per,
+              "flash_bwd_dkv": per, f"flash_bwd_dkv_{variant}": per,
+              "flash_bwd_dq": per, f"flash_bwd_dq_{variant}": per,
+              "flash_bwd_dtable" if bucket else "flash_bwd_dbias": per,
+              "flash_bwd_dbias" if bucket else "flash_bwd_dtable": 0,
+              "flash_fwd": 0}
+    for kernel, n in expect.items():
+        if launches[kernel] != n:
+            failures.append(f"{what}: {kernel} launches {launches[kernel]} != {n}")
+    if profile_steps:
+        def drive(on_step):
+            w["trainer"].log_fn = on_step  # called after each synchronized step
+            w["run"](profile_steps + 2)
+
+        prof = _profile(torch, drive, profile_steps)
+        if isinstance(prof["device_ms_per_step"], float):
+            prof["unprofiled_step_ms"] = summary["step_ms"]
+            prof["device_idle_share_unprofiled"] = max(
+                0.0, 1.0 - prof["device_ms_per_step"] / summary["step_ms"])
+        summary["profile"] = prof
+    del w
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
+
 def _kernel_entry(name, source, replaces, launches, row, max_err):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1295,12 +1643,65 @@ def _kernel_entry(name, source, replaces, launches, row, max_err):
     }
 
 
+def t5_kernel_entries(rows, runs):
+    """The T5 variants and kernels of the ``kernels`` line: timed at
+    BIAS_REPORTED and T5's scale in the encoder's variant (no mask; the
+    decoder's causal one beside it, ``*_causal``), launches from runs (a)
+    (bias) and (b) (bucket), the worst error over every case and scale."""
+    b, s = BIAS_REPORTED
+    fwd_line, dkv_line, dq_line = 141, 299, 373
+    timed = [r for r in rows if "fwd_ms" in r]
+
+    def row(mode, causal):
+        return next(r for r in timed if (r["B"], r["S"], r["mode"], r["causal"])
+                    == (b, s, mode, causal))
+
+    def worst(mode, keys):
+        return max(r[k] for r in rows if r["mode"] == mode for k in keys)
+
+    out = []
+    for mode, run in (("bias", runs["bias"]), ("bucket", runs["bucket"])):
+        gname = "dbias" if mode == "bias" else "dtable"
+        specs = (
+            (f"flash_fwd_{mode}", "flash_fwd.cu", fwd_line, f"flash_fwd_{mode}", "fwd",
+             ("out_err", "o_err"), "fwd_library_ms", "fwd_plain_ms"),
+            (f"flash_bwd_dkv_{mode}", "flash_bwd.cu", dkv_line, f"flash_bwd_dkv_{mode}", "dkv",
+             ("dk_err", "dv_err"), "bwd_library_ms", "bwd_plain_ms"),
+            (f"flash_bwd_dq_{mode}", "flash_bwd.cu", dq_line, f"flash_bwd_dq_{mode}", "dq",
+             ("dq_err",), "bwd_library_ms", "bwd_plain_ms"),
+            (f"flash_bwd_{gname}", "flash_bias_bwd.cu", 428 if mode == "bias" else 482,
+             f"flash_bwd_{gname}", "dgrad", (f"{gname}_scaled_err",), "dgrad_library_ms",
+             "dgrad_plain_ms"),
+        )
+        for name, src, line, counter, key, errs, lib, plain in specs:
+            full, causal = row(mode, False), row(mode, True)
+            entry = _kernel_entry(
+                name, f"torchdistx_tpu_torch/csrc/{src}",
+                f"torchdistx_tpu/ops/flash_attention.py:{line}", run["launches"][counter],
+                {"ms": full[f"{key}_ms"], "plain_ms": full[plain],
+                 "bound_ms": full[f"{key}_bound_ms"], "bound_by": full[f"{key}_bound_by"],
+                 "library_ms": full[lib]}, worst(mode, errs))
+            entry.update(shape={"B": b, "S": s, "H": T5_HEADS, "D": T5_DKV},
+                         ms_causal=causal[f"{key}_ms"], plain_ms_causal=causal[plain],
+                         bound_ms_causal=causal[f"{key}_bound_ms"],
+                         library_ms_causal=causal[lib],
+                         by_case=[{"B": r["B"], "S": r["S"], "causal": r["causal"],
+                                   "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"]}
+                                  for r in timed if r["mode"] == mode])
+            if key == "dgrad" and full.get("dgrad_library_why"):
+                entry["library_why_null"] = full["dgrad_library_why"]
+            out.append(entry)
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--report", default=None,
                     help="also write the full report as JSON to this path")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     try:
         import numpy as np
@@ -1321,7 +1722,7 @@ def main(argv=None) -> int:
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = ["flash_fwd", "flash_bwd", "decode_attention", "fused_ce"]
+    libs = ["flash_fwd", "flash_bwd", "flash_bias_bwd", "decode_attention", "fused_ce"]
     built = _build.build_all(libs)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({', '.join(built) or 'up to date'})")
@@ -1505,13 +1906,64 @@ def main(argv=None) -> int:
         traceback.print_exc()
         _fail("gpt2 profile phase failed")
 
-    # -- 11. the record ------------------------------------------------------
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 11. T5 bias kernels vs plain versions ----------------------------------
+    torch.cuda.empty_cache()
+    try:
+        bias_rows, f11 = check_flash_bias(torch, device)
+        failures += f11
+    except Exception:
+        traceback.print_exc()
+        _fail("T5 bias kernel phase failed")
+    report["flash_bias"] = bias_rows
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 12. gradients at 4 layers per stack of full T5-3B width ----------------
+    try:
+        T5 = tt.models.T5
+        tt.manual_seed(args.seed + 5)
+        small = T5.from_name("t5_3b", dtype=torch.bfloat16, device="cuda",
+                             n_layers=CHECK_LAYERS)
+        small_f32 = T5.from_name("t5_3b", dtype=torch.float32, device="cuda",
+                                 n_layers=CHECK_LAYERS)
+        small_f32.load_state_dict(small.state_dict())
+        report["t5_grads"] = []
+        for bucket in (False, True):
+            ok, info = check_t5_grads(torch, small, small_f32, bucket)
+            print("t5 grads vs f32 plain path", json.dumps(info))
+            if not ok:
+                failures.append(f"t5 grads: {info}")
+            report["t5_grads"].append(info)
+        del small, small_f32
+        torch.cuda.empty_cache()
+    except Exception:
+        traceback.print_exc()
+        _fail("T5 gradient phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 13. train T5-3B, (a) materialized bias, (b) bucket table ---------------
+    try:
+        t5_runs = {}
+        for bucket in (False, True):
+            t5_summary, f13 = train_t5(torch, args.seed, bucket,
+                                       profile_steps=0 if bucket else 2)
+            failures += f13
+            print(f"train t5_3b {t5_summary['bias_mode']}", json.dumps(t5_summary))
+            t5_runs[t5_summary["bias_mode"]] = t5_summary
+        report["train_t5"] = t5_runs
+    except Exception:
+        traceback.print_exc()
+        _fail("T5 train phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 14. the record ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     )
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"
     report["card"] = card
+    report["smoke_s"] = time.perf_counter() - t_start
     rep = next(r for r in flash_rows if (r["B"], r["S"]) == FLASH_REPORTED)
 
     def bwd_row(case):
@@ -1602,6 +2054,7 @@ def main(argv=None) -> int:
                      ms_llama=clla[f"{k}_ms"], plain_ms_llama=clla[f"{k}_plain_ms"],
                      bound_ms_llama=clla[f"{k}_bound_ms"], library_ms_llama=clla[lib])
         kernels.append(entry)
+    kernels += t5_kernel_entries(bias_rows, t5_runs)
     report["kernels"] = kernels
     failures += [f"{k['name']}: no launch on the main path" for k in kernels
                  if not k["launches"]]

@@ -12,9 +12,11 @@ versions round at different places (``chip_smoke.py`` states the same).
 import pytest
 import torch
 
+import torchdistx_tpu_torch as tt
 from torchdistx_tpu_torch.ops import decode_attention as tdec
 from torchdistx_tpu_torch.ops import flash_attention as tflash
 from torchdistx_tpu_torch.ops import fused_ce as tfc
+from torchdistx_tpu_torch.models import T5
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -96,12 +98,115 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tflash.flash_fwd_cuda(x.float(), x.float(), x.float())
     y = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device=cuda)
     lse = torch.zeros(1, 2, 8, device=cuda)
-    with pytest.raises(ValueError, match="causal"):
-        tflash.flash_bwd_dq_cuda(y, y, y, y, lse, y, causal=False)
+    with pytest.raises(ValueError, match="bias shape"):
+        tflash.flash_bwd_dq_cuda(y, y, y, y, lse, y, causal=False,
+                                 bias=torch.zeros(2, 8, 4, dtype=torch.bfloat16, device=cuda))
     with pytest.raises(ValueError, match="Sq == Skv"):
         tflash.flash_bwd_dkv_cuda(y, y[:, :4], y[:, :4], y, lse, y)
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         tflash.flash_bwd_dkv_cuda(y.cpu(), y, y, y, lse, y)
+
+
+
+def _scaled_err(out, ref):
+    ref = ref.float()
+    return float((out.float() - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+@pytest.mark.parametrize("scale", [None, 1.0], ids=["default-scale", "t5-scale"])
+@pytest.mark.parametrize("mode", ["bias", "bucket"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(2, 114, 4, 4, 128), (1, 200, 8, 2, 64)])
+def test_biased_kernels_match_plain(cuda, mode, causal, b, s, hq, hkv, d, scale):
+    """The bias and bucket variants of the forward (plain and lse) and of
+    both backward kernels, and the dbias / dtable kernels, against the plain
+    versions from the same saved o and lse; dbias and dtable scaled by
+    their max within 2e-2 (bf16 outputs; dtable's f32 atomics add in no
+    fixed order).  At the default scale 1/sqrt(D) and at T5's 1.0, whose
+    q carries the 1/sqrt(D) instead (as T5's initialization folds it in)."""
+    g = torch.Generator(device=cuda).manual_seed(s + hq)
+    q, k, v, do = (_rand(g, (b, s, h, d), cuda) for h in (hq, hkv, hkv, hq))
+    if scale is not None:
+        q = (q.float() * d ** -0.5).to(torch.bfloat16)
+    cfg = (32, 128, not causal)
+    table = _rand(g, (hq, 32), cuda)
+    kw = dict(causal=causal, scale=scale, bucket_cfg=cfg)
+    if mode == "bias":
+        kw["bias"] = table[:, tflash.rel_bucket_matrix(s, s, cfg, cuda)].contiguous()
+    else:
+        kw["table"] = table
+    out = tflash.flash_fwd_cuda(q, k, v, **kw)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+    dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw)
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw)
+    if mode == "bias":
+        dbias = tflash.flash_bwd_dbias_cuda(q, k, v, o, lse, do, kw["bias"], causal=causal,
+                                            scale=scale)
+    else:
+        dbias = tflash.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg, causal=causal,
+                                             scale=scale)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = tflash.flash_attention_lse_reference(q, k, v, **kw)
+    torch.testing.assert_close(out, ref_o, **TOL)
+    torch.testing.assert_close(o, ref_o, **TOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    ref = list(tflash.flash_bwd_reference(q, k, v, o, lse, do, **kw))
+    if scale is not None:
+        # dq of the folded q is sqrt(D) times the gradient of the q before
+        # the fold: held as the latter, the quantity the default scale holds
+        dq, ref[0] = (x.float() * d ** -0.5 for x in (dq, ref[0]))
+    for got, want in zip((dq, dk, dv), ref[:3]):
+        torch.testing.assert_close(got, want, **TOL)
+    assert _scaled_err(dbias, ref[3]) <= 2e-2
+
+
+@pytest.mark.parametrize("bucket", [False, True], ids=["bias", "bucket"])
+def test_t5_training_goes_through_the_kernels(cuda, bucket):
+    """One backward step of a 2-layer T5 (head_dim 64) on the card: every
+    self-attention forward and backward, and the bias gradient, through
+    the kernels; the gradients finite, and the norm of their distance from
+    the f32 plain path's gradients within twice the bf16 plain path's
+    (``chip_smoke.py``'s ``LOGITS_FACTOR``: both share every bf16
+    projection, only the attention arithmetic differs; a norm, since a max
+    over so small a model is one bf16 rounding): over all parameters, over
+    the self-attention projections alone, and over the ``rel_bias`` tables
+    alone, whose gradients come only from the dbias or dtable kernel."""
+    tt.manual_seed(0)
+    torch.manual_seed(0)
+    m = T5.from_name("tiny", device=cuda, dtype=torch.bfloat16, d_kv=64,
+                     flash_bucket_bias=bucket)
+    ref = T5.from_name("tiny", device=cuda, dtype=torch.float32, d_kv=64, use_flash=False)
+    ref.load_state_dict(m.state_dict())
+    src = torch.randint(0, 256, (2, 40), device=cuda)
+    tgt = torch.randint(0, 256, (2, 33), device=cuda)
+    labels = torch.randint(0, 256, (2, 33), device=cuda)
+
+    def grads(model):
+        model.zero_grad(set_to_none=True)
+        torch.nn.functional.cross_entropy(model(src, tgt).float().flatten(0, 1),
+                                          labels.flatten()).backward()
+        return {n: p.grad.float().flatten() for n, p in model.named_parameters()}
+
+    for fn in (tflash.flash_fwd_cuda, tflash.flash_bwd_dkv_cuda, tflash.flash_bwd_dq_cuda):
+        fn.bias_launches = fn.bucket_launches = 0
+    tflash.flash_bwd_dbias_cuda.launches = tflash.flash_bwd_dtable_cuda.launches = 0
+    kern = grads(m)
+    torch.cuda.synchronize()
+    key = "bucket_launches" if bucket else "bias_launches"
+    for fn in (tflash.flash_fwd_cuda, tflash.flash_bwd_dkv_cuda, tflash.flash_bwd_dq_cuda):
+        assert getattr(fn, key) == 4, fn.__name__
+    assert tflash.flash_bwd_dtable_cuda.launches == (4 if bucket else 0)
+    assert tflash.flash_bwd_dbias_cuda.launches == (0 if bucket else 4)
+    want = grads(ref)
+    m.cfg.use_flash = False
+    plain = grads(m)
+    groups = {"all": lambda n: True, "rel_bias": lambda n: "rel_bias" in n,
+              "self_attn": lambda n: "self_attn." in n and "rel_bias" not in n}
+    for group, keep in groups.items():
+        part = [n for n in kern if keep(n)]
+        k_, w_, p_ = (torch.cat([g[n] for n in part]) for g in (kern, want, plain))
+        assert torch.isfinite(k_).all(), group
+        assert (k_ - w_).norm() <= 2.0 * (p_ - w_).norm(), group
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])

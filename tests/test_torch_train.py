@@ -21,6 +21,13 @@ through the GPT-2 example recipe on both sides (``deferred_init`` ->
 ``with_param_groups(AnyPrecisionAdamW, decay / no_decay, Kahan)`` ->
 ``DataLoader(TokenDataset)`` -> ``Trainer.fit``) with the fused loss on
 the tied ``tok_emb.weight``; same tolerances.
+
+T5 is held the same way: ``build_t5_train_workload("tiny")`` with the JAX
+weights loaded, in both bias modes (the materialized bias and the bucket
+table), 3 steps against the JAX loop of ``scripts/bench_t5_train.py``
+(``value_and_grad``, ``anyprecision_adamw(1e-4)``, ``apply_updates``)
+under ``Trainer.fit``, JAX through its flash kernels in interpret mode;
+same tolerances.
 """
 
 import itertools
@@ -38,6 +45,7 @@ from torchdistx_tpu.data import DataLoader as JLoader
 from torchdistx_tpu.data import TokenDataset as JDataset
 from torchdistx_tpu.models import GPT2 as JGPT2
 from torchdistx_tpu.models import Llama as JLlama
+from torchdistx_tpu.models import T5 as JT5
 from torchdistx_tpu.nn import functional as jF
 from torchdistx_tpu.nn import functional_call
 from torchdistx_tpu.ops.fused_ce import fused_linear_cross_entropy as jfused
@@ -48,7 +56,7 @@ from torchdistx_tpu_torch.examples.train_gpt2 import main as train_gpt2_main
 from torchdistx_tpu_torch.interop import export_params, load_jax_params
 from torchdistx_tpu_torch.models import Llama as TLlama
 from torchdistx_tpu_torch.nn import functional as tF
-from torchdistx_tpu_torch.utils.benchmarks import build_train_workload
+from torchdistx_tpu_torch.utils.benchmarks import build_t5_train_workload, build_train_workload
 
 LR = 1e-3
 STEPS = 3
@@ -259,3 +267,52 @@ def test_build_train_workload_on_the_cpu():
     n, cfg = w["n_params"], w["model"].cfg
     assert w["flops_per_token"] == 6 * n + 12 * cfg.n_layers * cfg.dim * w["seq"]
     assert w["trainer"].metrics["tokens_total"] == 2 * w["tokens_per_batch"]
+
+
+def _jax_t5_run(src, tgt, flash_bucket_bias):
+    """``scripts/bench_t5_train.py``'s step (f32 variance, as the port's
+    side below) under the JAX ``Trainer.fit``."""
+    tdx.manual_seed(0)
+    jm = tdx.deferred_init(JT5.from_name, "tiny", use_flash=True,
+                           flash_bucket_bias=flash_bucket_bias)
+    tdx.materialize_module(jm)
+    params = dict(jm.named_parameters())
+    init = {k: np.asarray(v) for k, v in params.items()}
+    tx = anyprecision_adamw(1e-4, variance_dtype=jnp.float32)
+
+    def loss_fn(p, b):
+        return jF.cross_entropy(functional_call(jm, p, b), b[1])
+
+    @jax.jit
+    def step(p, s, b):
+        loss, g = jax.value_and_grad(loss_fn)(p, b)
+        u, s = tx.update(g, s, p)
+        return jax.tree_util.tree_map(lambda a, d: a + d, p, u), s, loss
+
+    losses = []
+
+    def recording_step(p, s, b):
+        p, s, loss = step(p, s, b)
+        losses.append(float(loss))
+        return p, s, loss
+
+    jb = (jnp.asarray(src), jnp.asarray(tgt))
+    trainer = JTrainer(recording_step, params, tx.init(params), log_every=1,
+                       log_fn=lambda m: None, cost_card=False)
+    trainer.fit(itertools.repeat(jb), STEPS)
+    return init, losses, {k: np.asarray(v) for k, v in trainer.params.items()}
+
+
+@pytest.mark.parametrize("flash_bucket_bias", [False, True], ids=["bias", "bucket"])
+def test_t5_workload_matches_the_jax_t5_step(flash_bucket_bias):
+    w = build_t5_train_workload("tiny", batch=2, seq=16, device="cpu",
+                                flash_bucket_bias=flash_bucket_bias)
+    assert w["flops_per_token"] == 6 * w["n_params"] and w["tokens_per_batch"] == 32
+    src, tgt = (t.numpy().astype(np.int32) for t in w["batch"])
+    init, jlosses, jfinal = _jax_t5_run(src, tgt, flash_bucket_bias)
+    load_jax_params(w["model"], init)
+    for group in w["optimizer"].param_groups:
+        group["variance_dtype"] = torch.float32
+    tlosses = w["run"](STEPS)
+    _assert_losses_match(tlosses, jlosses)
+    _assert_params_match(export_params(w["model"]), jfinal)

@@ -13,7 +13,9 @@ Serving: ``Llama.from_name`` -> ``ServeEngine(model, ...)`` ->
 ``Trainer(TrainStep(model, AnyPrecisionAdamW(...), loss_fn)).fit(batches,
 n)``; GPT-2 the same way through ``examples.train_gpt2.main`` (param
 groups, the token loader, and with ``fused_ce=True`` the fused LM-head
-loss ``ops.fused_ce.fused_linear_cross_entropy``).
+loss ``ops.fused_ce.fused_linear_cross_entropy``); T5 through
+``utils.benchmarks.build_t5_train_workload`` (its relative-position bias
+inside the flash kernels, materialized or as the bucket table).
 """
 
 __version__ = "0.5.0.dev0"

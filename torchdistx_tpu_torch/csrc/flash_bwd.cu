@@ -1,21 +1,25 @@
-// Causal flash-attention backward for Hopper (sm_90a): two kernels, bf16 in
-// and out, fp32 recompute and accumulation.
+// Flash-attention backward for Hopper (sm_90a): two kernels, bf16 in and
+// out, fp32 recompute and accumulation.
 //
 // Replaces the Pallas kernels torchdistx_tpu/ops/flash_attention.py
 // _bwd_dkv_kernel (K/V-stationary: dK, dV) and _bwd_dq_kernel
-// (Q-stationary: dQ), launched by _flash_backward_core, in their causal /
-// no-bias / no-window variant: the training path of the Llama models.
+// (Q-stationary: dQ), launched by _flash_backward_core, in their no-window
+// variants: causal (the Llama and GPT-2 training paths, T5's decoder) or
+// not (T5's encoder), with no bias, an additive bias or T5's bucket table
+// (flash_common.cuh).  The gradient of the bias itself is flash_bias_bwd.cu's.
 //
 // Both recompute the probabilities from the forward's saved row
-// log-sum-exp, p = exp(q.k * scale - lse), and take delta = rowsum(dO * O)
-// in-kernel from the O rows as the TPU kernels do (FlashAttention-2):
+// log-sum-exp, p = exp(q.k * scale + bias - lse) (the lse includes the
+// bias), and take delta = rowsum(dO * O) in-kernel from the O rows as the
+// TPU kernels do (FlashAttention-2):
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta) * scale,
 //   dK = dS^T Q,  dQ = dS K.
 //
 // What bounds them on an H100: operations.  At the llama_1b training shape
 // (B 2, S 2048, 16 heads, D 128) the least work is five products over the
 // 2.1M causal pairs of each head (1e11 flops against ~134 MB of inputs and
-// outputs), far right of the card's ridge point.  The design therefore
+// outputs), far right of the card's ridge point; a bias adds 2 bytes a
+// pair, still far right.  The design therefore
 // keeps S, P, dP and dS out of device memory: each block holds one 64-row
 // tile stationary, streams the other operand's 64-row tiles through shared
 // memory, and runs every product on the tensor cores through warp-level
@@ -30,125 +34,32 @@
 // partials per query head reach device memory.
 //
 // Layout: q, o, dO, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); lse
-// (B, Hq, S) f32; all contiguous (the JAX package's layout).  Sq == Skv,
-// causal, end-aligned.  The ragged last tile is masked here: zero-filled
+// (B, Hq, S) f32; all contiguous (the JAX package's layout).  Sq == Skv.
+// Causal tiles above the diagonal are skipped; without the causal mask
+// every tile is visited.  The ragged last tile is masked here: zero-filled
 // rows, probabilities of masked pairs set to 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BT = 64;  // rows of every tile (query and key tiles alike)
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
+using namespace tdx_flash;
 
-template <int D>
-struct Layout {
-  static constexpr int LDH = D + 8;   // bf16 Q/dO/K/V tiles
-  static constexpr int LDS = BT + 4;  // fp32 64x64 products S, dP
-  static constexpr int LDP = BT + 8;  // bf16 64x64 P, dS
-  static constexpr int LDO = D + 4;   // fp32 staging of a 64 x D accumulator
-  static constexpr int NF = D / 32;   // accumulator fragments per warp
-  static constexpr size_t tile = size_t(BT) * LDH * 2;
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + tile;
-  static constexpr size_t k_off = do_off + tile;
-  static constexpr size_t v_off = k_off + tile;
-  static constexpr size_t s_off = v_off + tile;
-  static constexpr size_t dp_off = s_off + size_t(BT) * LDS * 4;
-  static constexpr size_t p_off = dp_off + size_t(BT) * LDS * 4;
-  static constexpr size_t ds_off = p_off + size_t(BT) * LDP * 2;
-  static constexpr size_t lse_off = ds_off + size_t(BT) * LDP * 2;
-  static constexpr size_t dl_off = lse_off + BT * 4;
-  static constexpr size_t bytes = dl_off + BT * 4;
-  // the epilogue stages one accumulator over S and dP
-  static_assert(size_t(BT) * LDO * 4 <= p_off - s_off, "staging too small");
-};
-
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long long gstride, int valid) {
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < BT * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * gstride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = val;
-  }
-}
-
-// lse of the tile's rows into shared memory (0 for rows past the end).
-__device__ __forceinline__ void load_lse(float* dst, const float* src, int valid) {
-  for (int i = threadIdx.x; i < BT; i += NTHREADS) dst[i] = i < valid ? src[i] : 0.f;
-}
-
-// delta = rowsum(dO * O) for the tile's rows: four threads a row, O read
-// from device memory with 16-byte loads, dO from the tile in shared memory.
-template <int D>
-__device__ __forceinline__ void tile_delta(float* delta, const bf16* dOs,
-                                           const bf16* obase, long long gstride,
-                                           int valid) {
-  using L = Layout<D>;
-  const int r = threadIdx.x / 4;
-  const int part = threadIdx.x % 4;
-  float acc = 0.f;
-  if (r < valid) {
-    for (int c = part * 8; c < D; c += 32) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(obase + r * gstride + c);
-      const bf16* o8 = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        acc += __bfloat162float(o8[j]) * __bfloat162float(dOs[r * L::LDH + c + j]);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) delta[r] = acc;
-}
-
-// out (64x64 fp32) = A B^T for A, B 64 x D row-major bf16 tiles; 16 output
-// tiles of 16x16, two per warp.
-template <int D>
-__device__ __forceinline__ void gemm_abt(float* out, const bf16* A, const bf16* B,
-                                         int warp) {
-  using L = Layout<D>;
-#pragma unroll
-  for (int t = warp * 2; t < warp * 2 + 2; ++t) {
-    const int tm = t / 4, tn = t % 4;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, A + tm * 16 * L::LDH + kk * 16, L::LDH);
-      wmma::load_matrix_sync(fb, B + tn * 16 * L::LDH + kk * 16, L::LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + tm * 16 * L::LDS + tn * 16, acc, L::LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// P and dS of one 64x64 tile (rows q0.., columns k0..), causal-masked.
+// P and dS of one 64x64 tile (rows q0.., columns k0..), masked.
 template <int D>
 __device__ __forceinline__ void ds_tile(const float* Ss, const float* dPs, bf16* Ps,
                                         bf16* dSs, const float* lse,
-                                        const float* delta, int q0, int k0, int S,
-                                        float scale) {
-  using L = Layout<D>;
-  for (int i = threadIdx.x; i < BT * BT; i += NTHREADS) {
+                                        const float* delta, const BiasArgs& ba,
+                                        const float* dist_bias, int h, int q0,
+                                        int k0, int S, int causal, float scale) {
+  using L = BwdLayout<D>;
+  for (int i = threadIdx.x; i < BT * BT; i += BWD_THREADS) {
     const int r = i / BT, c = i % BT;
     const int qi = q0 + r, kj = k0 + c;
-    const bool vis = qi < S && kj <= qi;
-    const float p = vis ? expf(Ss[r * L::LDS + c] * scale - lse[r]) : 0.f;
+    float p = 0.f;
+    if (visible(qi, kj, S, causal))
+      p = expf(Ss[r * L::LDS + c] * scale +
+               bias_at(ba, dist_bias, h, S, S, qi, kj, r, c) - lse[r]);
     const float ds = p * (dPs[r * L::LDS + c] - delta[r]) * scale;
     Ps[r * L::LDP + c] = __float2bfloat16(p);
     dSs[r * L::LDP + c] = __float2bfloat16(ds);
@@ -161,7 +72,7 @@ template <int D>
 __device__ __forceinline__ void acc_atb(
     wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, const bf16* A,
     const bf16* B, int warp) {
-  using L = Layout<D>;
+  using L = BwdLayout<D>;
   const int rm = (warp % 4) * 16;
   const int cn = (warp / 4) * (D / 2);
 #pragma unroll
@@ -182,7 +93,7 @@ template <int D>
 __device__ __forceinline__ void acc_ab(
     wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, const bf16* A,
     const bf16* B, int warp) {
-  using L = Layout<D>;
+  using L = BwdLayout<D>;
   const int rm = (warp % 4) * 16;
   const int cn = (warp / 4) * (D / 2);
 #pragma unroll
@@ -204,7 +115,7 @@ template <int D>
 __device__ __forceinline__ void store_acc(
     wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, float* stage,
     bf16* gbase, long long gstride, int valid, int warp) {
-  using L = Layout<D>;
+  using L = BwdLayout<D>;
   const int rm = (warp % 4) * 16;
   const int cn = (warp / 4) * (D / 2);
   __syncthreads();
@@ -213,20 +124,20 @@ __device__ __forceinline__ void store_acc(
     wmma::store_matrix_sync(stage + rm * L::LDO + cn + f * 16, acc[f], L::LDO,
                             wmma::mem_row_major);
   __syncthreads();
-  for (int i = threadIdx.x; i < BT * D; i += NTHREADS) {
+  for (int i = threadIdx.x; i < BT * D; i += BWD_THREADS) {
     const int r = i / D, c = i % D;
     if (r < valid) gbase[r * gstride + c] = __float2bfloat16(stage[r * L::LDO + c]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq,
-                     int Hkv, float scale) {
-  using L = Layout<D>;
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, BiasArgs ba,
+                     int S, int Hq, int Hkv, int causal, float scale) {
+  using L = BwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
@@ -238,6 +149,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
   float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
   float* delta_s = reinterpret_cast<float*>(smem + L::dl_off);
+  float* dist_bias = reinterpret_cast<float*>(smem + L::diag_off);
 
   const int k0 = blockIdx.x * BT;
   const int b = blockIdx.y / Hkv;
@@ -261,20 +173,23 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int rep = 0; rep < n_rep; ++rep) {
     const int h = hk * n_rep + rep;
-    // query rows i see key j iff j <= i: tiles from the diagonal to the end
-    for (int q0 = k0; q0 < S; q0 += BT) {
+    // causal: query rows i see key j iff j <= i, so the tiles from the
+    // diagonal to the end; otherwise every tile
+    for (int q0 = causal ? k0 : 0; q0 < S; q0 += BT) {
       const int qvalid = min(BT, S - q0);
       const long long qoff = ((long long)b * S + q0) * qstride + (long long)h * D;
       __syncthreads();  // the previous tile is fully consumed
       load_tile<D>(Qs, L::LDH, q + qoff, qstride, qvalid);
       load_tile<D>(dOs, L::LDH, dout + qoff, qstride, qvalid);
       load_lse(lse_s, lse + ((long long)b * Hq + h) * S + q0, qvalid);
+      stage_diag(dist_bias, ba, h, q0, k0, S, threadIdx.x, BWD_THREADS);
       __syncthreads();
       tile_delta<D>(delta_s, dOs, o + qoff, qstride, qvalid);
       gemm_abt<D>(Ss, Qs, Ks, warp);
       gemm_abt<D>(dPs, dOs, Vs, warp);
       __syncthreads();
-      ds_tile<D>(Ss, dPs, Ps, dSs, lse_s, delta_s, q0, k0, S, scale);
+      ds_tile<D>(Ss, dPs, Ps, dSs, lse_s, delta_s, ba, dist_bias, h, q0, k0, S,
+                 causal, scale);
       __syncthreads();
       acc_atb<D>(acc_v, Ps, dOs, warp);
       acc_atb<D>(acc_k, dSs, Qs, warp);
@@ -286,12 +201,13 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    bf16* __restrict__ dq, int S, int Hq, int Hkv, float scale) {
-  using L = Layout<D>;
+                    bf16* __restrict__ dq, BiasArgs ba, int S, int Hq, int Hkv,
+                    int causal, float scale) {
+  using L = BwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
   bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
@@ -303,6 +219,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
   float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
   float* delta_s = reinterpret_cast<float*>(smem + L::dl_off);
+  float* dist_bias = reinterpret_cast<float*>(smem + L::diag_off);
 
   const int q0 = blockIdx.x * BT;
   const int b = blockIdx.y / Hq;
@@ -324,19 +241,21 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int f = 0; f < L::NF; ++f) wmma::fill_fragment(acc_q[f], 0.f);
 
-  // key tiles up to the diagonal, as the forward walks them
-  const int kv_end = min(S, q0 + BT);
+  // causal: key tiles up to the diagonal, as the forward walks them
+  const int kv_end = causal ? min(S, q0 + BT) : S;
   for (int k0 = 0; k0 < kv_end; k0 += BT) {
     const int kvalid = min(BT, S - k0);
     const long long koff = ((long long)b * S + k0) * kstride + (long long)hk * D;
     __syncthreads();  // the previous tile is fully consumed
     load_tile<D>(Ks, L::LDH, k + koff, kstride, kvalid);
     load_tile<D>(Vs, L::LDH, v + koff, kstride, kvalid);
+    stage_diag(dist_bias, ba, h, q0, k0, S, threadIdx.x, BWD_THREADS);
     __syncthreads();
     gemm_abt<D>(Ss, Qs, Ks, warp);
     gemm_abt<D>(dPs, dOs, Vs, warp);
     __syncthreads();
-    ds_tile<D>(Ss, dPs, Ps, dSs, lse_s, delta_s, q0, k0, S, scale);
+    ds_tile<D>(Ss, dPs, Ps, dSs, lse_s, delta_s, ba, dist_bias, h, q0, k0, S,
+               causal, scale);
     __syncthreads();
     acc_ab<D>(acc_q, dSs, Ks, warp);
   }
@@ -347,68 +266,81 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, void* dk, void* dv,
-                       int B, int S, int Hq, int Hkv, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = Layout<D>::bytes;
+                       const BiasArgs& ba, int B, int S, int Hq, int Hkv,
+                       int causal, float scale, cudaStream_t stream) {
+  const size_t smem = BwdLayout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BT - 1) / BT, B * Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, Hq, Hkv, scale);
+      static_cast<bf16*>(dv), ba, S, Hq, Hkv, causal, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, void* dq, int B, int S,
-                      int Hq, int Hkv, float scale, cudaStream_t stream) {
-  const size_t smem = Layout<D>::bytes;
+                      const void* dout, const float* lse, void* dq,
+                      const BiasArgs& ba, int B, int S, int Hq, int Hkv,
+                      int causal, float scale, cudaStream_t stream) {
+  const size_t smem = BwdLayout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BT - 1) / BT, B * Hq);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), S, Hq, Hkv,
-      scale);
+      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), ba, S, Hq,
+      Hkv, causal, scale);
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int S, int Hq, int Hkv) {
-  return B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0;
+bool bad_bias(const void* table, const void* ids, int buckets) {
+  return table != nullptr && (ids == nullptr || buckets < 1 || buckets > MAX_BUCKETS);
 }
 
 }  // namespace
 
 // Each returns cudaGetLastError() after the launch (0 on success); the
-// Python wrappers raise on anything else.
+// Python wrappers raise on anything else.  bias, table and ids as in
+// flash_common.cuh (null when unused).
 extern "C" int tdx_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                       const void* o, const void* dout,
-                                      const void* lse, void* dk, void* dv, int B,
-                                      int S, int Hq, int Hkv, int D, float scale,
-                                      void* stream) {
+                                      const void* lse, void* dk, void* dv,
+                                      const void* bias, const void* table,
+                                      const void* ids, int buckets, int B, int S,
+                                      int Hq, int Hkv, int D, int causal,
+                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  if (bad_shape(B, S, Hq, Hkv)) return (int)cudaErrorInvalidValue;
-  if (D == 128) return (int)launch_dkv<128>(q, k, v, o, dout, l, dk, dv, B, S, Hq, Hkv, scale, st);
-  if (D == 64) return (int)launch_dkv<64>(q, k, v, o, dout, l, dk, dv, B, S, Hq, Hkv, scale, st);
+  const BiasArgs ba = bias_args(bias, table, ids, buckets);
+  if (bad_shape(B, S, Hq, Hkv) || bad_bias(table, ids, buckets))
+    return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return (int)launch_dkv<128>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, scale, st);
+  if (D == 64)
+    return (int)launch_dkv<64>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int tdx_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                      const void* o, const void* dout,
-                                     const void* lse, void* dq, int B, int S,
-                                     int Hq, int Hkv, int D, float scale,
-                                     void* stream) {
+                                     const void* lse, void* dq, const void* bias,
+                                     const void* table, const void* ids,
+                                     int buckets, int B, int S, int Hq, int Hkv,
+                                     int D, int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  if (bad_shape(B, S, Hq, Hkv)) return (int)cudaErrorInvalidValue;
-  if (D == 128) return (int)launch_dq<128>(q, k, v, o, dout, l, dq, B, S, Hq, Hkv, scale, st);
-  if (D == 64) return (int)launch_dq<64>(q, k, v, o, dout, l, dq, B, S, Hq, Hkv, scale, st);
+  const BiasArgs ba = bias_args(bias, table, ids, buckets);
+  if (bad_shape(B, S, Hq, Hkv) || bad_bias(table, ids, buckets))
+    return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return (int)launch_dq<128>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, scale, st);
+  if (D == 64)
+    return (int)launch_dq<64>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,16 +1,20 @@
-// Causal flash-attention forward for Hopper (sm_90a), bf16 in and out,
-// fp32 softmax state and accumulation.
+// Flash-attention forward for Hopper (sm_90a), bf16 in and out, fp32
+// softmax state and accumulation.
 //
 // Replaces the Pallas kernel torchdistx_tpu/ops/flash_attention.py:_kernel
-// (launched by _flash_forward), in its causal / no-bias / no-window
-// variant, plain output (the cold prefill of the serving engine) or with
-// the row log-sum-exp (emit_lse: the training forward, whose lse the
-// backward kernels in flash_bwd.cu consume).
+// (launched by _flash_forward) in its no-window variants: causal or not;
+// plain output (the cold prefill of the serving engine) or with the row
+// log-sum-exp (emit_lse: the training forward, whose lse the backward
+// kernels in flash_bwd.cu and flash_bias_bwd.cu consume); with no bias, an
+// additive (Hq, Sq, Skv) bias, or T5's bucket table (flash_common.cuh), the
+// bias added in f32 to the scaled logits before the mask as the TPU kernel
+// adds it.  The lse then includes the bias, as the backward expects.
 //
 // What bounds it on an H100: operations.  Causal prefill at S = 2048,
 // D = 128 does ~2 * S^2 * D flops per head against ~4 * S * D * 2 bytes of
 // input and output, hundreds of flops per byte, far right of the card's
-// ridge point.  The design therefore keeps the logits out of device memory
+// ridge point (the bias adds 2 bytes per pair, still far right).  The
+// design therefore keeps the logits out of device memory
 // (online softmax over K/V tiles in shared memory, the TPU kernel's scheme)
 // and runs both products, Q.K^T and P.V, on the tensor cores through
 // warp-level WMMA 16x16x16 bf16 fragments with fp32 accumulators.  It is the
@@ -34,10 +38,14 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using tdx_flash::BiasArgs;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
@@ -60,7 +68,8 @@ struct Layout {
   static constexpr size_t m_off = o_off + size_t(BQ) * LDO * 4;
   static constexpr size_t l_off = m_off + size_t(BQ) * 4;
   static constexpr size_t c_off = l_off + size_t(BQ) * 4;
-  static constexpr size_t bytes = c_off + size_t(BQ) * 4;
+  static constexpr size_t d_off = c_off + size_t(BQ) * 4;  // bucket biases
+  static constexpr size_t bytes = d_off + 128 * 4;
 };
 
 // Copy a 64-row tile into shared memory with 16-byte loads; rows at or
@@ -84,8 +93,8 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-                 float scale, int causal) {
+                 float* __restrict__ lse, BiasArgs ba, int Sq, int Skv, int Hq,
+                 int Hkv, float scale, int causal) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -97,6 +106,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* ms = reinterpret_cast<float*>(smem + L::m_off);
   float* ls = reinterpret_cast<float*>(smem + L::l_off);
   float* cs = reinterpret_cast<float*>(smem + L::c_off);
+  float* dist_bias = reinterpret_cast<float*>(smem + L::d_off);
 
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / Hq;
@@ -130,6 +140,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // previous tile fully consumed; Q/O/m/l init visible
     load_tile<D>(Ks, L::LDH, kbase + k0 * kstride, kstride, min(BK, Skv - k0));
     load_tile<D>(Vs, L::LDH, vbase + k0 * kstride, kstride, min(BK, Skv - k0));
+    tdx_flash::stage_diag(dist_bias, ba, h, q0, k0, Skv, threadIdx.x, NTHREADS);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows (fp32 accumulate)
@@ -150,7 +161,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncwarp();
 
-    // online softmax, one row at a time across the warp (2 columns a lane)
+    // the bias (0 without one) of each lane's 2 columns in this warp's 16
+    // rows, all loads issued before the softmax waits on any of them
+    float bias_reg[16][2];
+#pragma unroll
+    for (int rr = 0; rr < 16; ++rr)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int r = r0 + rr, c = lane + 32 * t;
+        bias_reg[rr][t] = tdx_flash::bias_at(ba, dist_bias, h, Sq, Skv, q0 + r, k0 + c, r, c);
+      }
+
+    // online softmax, one row at a time across the warp (2 columns a lane),
+    // on the scaled and biased logits
+#pragma unroll
     for (int rr = 0; rr < 16; ++rr) {
       const int r = r0 + rr;
       const int qi = q0 + r;
@@ -161,7 +185,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int c = lane + 32 * t;
         const int col = k0 + c;
         const bool vis = col < Skv && (!causal || col <= qi + diag);
-        s[t] = vis ? Ss[r * L::LDS + c] * scale : NEG_INF;
+        s[t] = vis ? Ss[r * L::LDS + c] * scale + bias_reg[rr][t] : NEG_INF;
         mx = fmaxf(mx, s[t]);
       }
 #pragma unroll
@@ -237,9 +261,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B,
-                   int Sq, int Skv, int Hq, int Hkv, float scale, int causal,
-                   cudaStream_t stream) {
+                   float* lse, const BiasArgs& ba, int B, int Sq, int Skv,
+                   int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
   const size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -248,24 +271,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Skv, Hq,
-      Hkv, scale, causal);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, ba, Sq, Skv,
+      Hq, Hkv, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success); the Python
-// wrapper raises on anything else.  A null lse is not written.
+// wrapper raises on anything else.  A null lse is not written; bias, table
+// and ids as in flash_common.cuh (null when unused).
 extern "C" int tdx_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                  void* o, void* lse_out, int B, int Sq, int Skv,
-                                  int Hq, int Hkv, int D, float scale, int causal,
-                                  void* stream) {
+                                  void* o, void* lse_out, const void* bias,
+                                  const void* table, const void* ids, int buckets,
+                                  int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                                  float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+  const BiasArgs ba = tdx_flash::bias_args(bias, table, ids, buckets);
   if (Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  if (D == 128) return (int)launch<128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, causal, st);
-  if (D == 64) return (int)launch<64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, causal, st);
+  if (table != nullptr && (Sq != Skv || ids == nullptr || buckets < 1 ||
+                           buckets > tdx_flash::MAX_BUCKETS))
+    return (int)cudaErrorInvalidValue;
+  if (D == 128) return (int)launch<128>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, st);
+  if (D == 64) return (int)launch<64>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

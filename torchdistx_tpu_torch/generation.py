@@ -1,6 +1,7 @@
 """Autoregressive generation with a static-shape KV cache, counterpart of
 ``torchdistx_tpu/generation.py`` (the decoder-only paths the serving engine
-uses; encoder-decoder generation is a later slice).
+uses; encoder-decoder generation, ``generate_encdec``, is not ported yet
+and raises).
 
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` loops are Python
 loops here; the caches are updated in place.
@@ -24,7 +25,7 @@ import torch
 
 from .utils.rng import derive_seed
 
-__all__ = ["generate"]
+__all__ = ["generate", "generate_encdec"]
 
 
 def _apply_top_k(logits, top_k: int):
@@ -308,3 +309,9 @@ def generate(model, prompt, max_new_tokens: int, *, temperature: float = 0.0,
         if i + 1 < max_new_tokens:
             logits, cache = model.forward_cached(tok[:, None], cache, s + i)
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+def generate_encdec(model, enc_tokens, max_new_tokens: int, **kwargs):
+    """Encoder-decoder (T5) generation: not ported yet (T5 serves through
+    ``T5.init_decoder_cache`` / ``decode_step``, which raise too)."""
+    raise NotImplementedError("generate_encdec (T5 generation) is not ported yet")

@@ -1,4 +1,4 @@
-"""Functional ops for module forwards (the subset Llama and GPT-2 need),
+"""Functional ops for module forwards (the subset Llama, GPT-2 and T5 need),
 counterpart of ``torchdistx_tpu/nn/functional.py``."""
 
 from __future__ import annotations
@@ -6,7 +6,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as _F
 
-__all__ = ["gelu", "silu", "layer_norm", "rms_norm", "embedding", "linear", "cross_entropy"]
+__all__ = ["relu", "gelu", "silu", "layer_norm", "rms_norm", "embedding", "linear", "cross_entropy"]
+
+
+def relu(x):
+    return _F.relu(x)
 
 
 def gelu(x, approximate: bool = True):

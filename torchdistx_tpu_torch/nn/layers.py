@@ -1,11 +1,11 @@
-"""Core layers (the subset Llama and GPT-2 need), counterpart of
+"""Core layers (the subset Llama, GPT-2 and T5 need), counterpart of
 ``torchdistx_tpu/nn/layers.py``: ``torch.nn.Module``s whose parameters keep
 the JAX package's names and layouts (``Linear.weight`` is (out, in)).
 
 An initializer is ``fn(shape, dtype, device)``: the models pass their own
 scheme (``weight_init``, ``bias_init``); without one, ``Linear`` takes the
 JAX package's default (kaiming-uniform weight, uniform bias in
-+-1/sqrt(in_features))."""
++-1/sqrt(in_features)), and ``Embedding`` its N(0, 1)."""
 
 from __future__ import annotations
 
@@ -45,11 +45,14 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings: int, features: int, *, weight_init,
+    def __init__(self, num_embeddings: int, features: int, *, weight_init=None,
                  dtype=torch.float32, device="cuda"):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.features = features
+        if weight_init is None:
+            weight_init = lambda s, d, dev: init.normal(s, std=1.0, dtype=d,  # noqa: E731
+                                                        device=dev)
         self.weight = nn.Parameter(
             weight_init((num_embeddings, features), dtype, device)
         )

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>.so`` at the
 repository root, at first use, and loaded with ``ctypes``.  Nothing here
 runs at import time: importing the package needs no ``nvcc`` and no card.
-A source newer than its library is rebuilt.  A failed build raises.
+A source, or a shared header (``csrc/*.cuh``), newer than its library is
+rebuilt.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -51,7 +52,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *CSRC_DIR.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -1,31 +1,49 @@
 """Flash attention: the hand-written CUDA kernels, their plain PyTorch
 versions, the dispatcher between them, and its gradient.
 
-Counterpart of ``torchdistx_tpu/ops/flash_attention.py``.  Three kernels
-replace the Pallas ones in their causal, no-bias, no-window variants:
+Counterpart of ``torchdistx_tpu/ops/flash_attention.py``.  Five kernels
+replace the Pallas ones, in every variant but the sliding window and the
+``(m, l)`` residuals:
 
 - ``csrc/flash_fwd.cu`` replaces ``_kernel`` (launched by
   ``_flash_forward``): plain output for the serving engine's prefill, or
   with the row log-sum-exp (``emit_lse``) for the training forward;
+  causal or not; with no bias, an additive (Hq, Sq, Skv) ``bias`` shared
+  across the batch, or T5's in-kernel bucket bias from an (Hq, buckets)
+  ``rel_bias_table``;
 - ``csrc/flash_bwd.cu`` replaces ``_bwd_dkv_kernel`` (dK, dV) and
-  ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``.
+  ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``, in the
+  same variants;
+- ``csrc/flash_bias_bwd.cu`` replaces ``_bwd_dbias_kernel`` (launched by
+  ``_flash_dbias``) and ``_bwd_dtable_kernel`` (``_flash_dtable``): the
+  gradient of the bias or of the bucket table.
 
-All three are bounded by operations on an H100; the sources say what
-their designs do about that.
+All are bounded by operations on an H100; the sources say what their
+designs do about that.
 
 ``flash_attention`` keeps the JAX layout, (B, S, H, D).  When autograd
 needs it (grad mode on and an input that requires a gradient) it runs
 through ``_FlashAttention``, a ``torch.autograd.Function`` whose forward
-saves ``(q, k, v, o, lse)`` and whose backward launches the two backward
+saves ``(q, k, v, o, lse)`` and whose backward launches the backward
 kernels, as the JAX ``custom_vjp`` does.  Otherwise the serving call is
 unchanged.  A CUDA tensor launches the kernels or raises; the plain
 versions (``flash_attention_reference``, ``flash_attention_lse_reference``,
-``flash_bwd_reference``) run only for tensors on the CPU.
+``flash_bwd_reference``, ``flash_bias_grad_reference``) run only for
+tensors on the CPU.
+
+Bucket ids.  T5's bucket of a distance takes an f32 ``log``; one ulp of
+difference flips a bucket at its edge.  So the ids are never recomputed
+on the card: ``rel_bucket_ids`` evaluates ``rel_pos_bucket`` once per
+(Sq, Skv, buckets, max_dist, bidirectional) on the CPU (where a test pins
+it equal to JAX's), caches the int32 ids of every distance on the device,
+and the kernels, the plain versions and T5's materialized bias all read
+those.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -36,14 +54,23 @@ from .attention import _repeat_kv, multihead_attention
 
 __all__ = [
     "resolve_use_flash",
+    "rel_pos_bucket",
+    "rel_bucket_ids",
+    "rel_bucket_matrix",
     "flash_attention",
     "flash_attention_reference",
     "flash_attention_lse_reference",
     "flash_bwd_reference",
+    "flash_bias_grad_reference",
     "flash_fwd_cuda",
     "flash_bwd_dkv_cuda",
     "flash_bwd_dq_cuda",
+    "flash_bwd_dbias_cuda",
+    "flash_bwd_dtable_cuda",
 ]
+
+# the kernels stage one head's bucket partials in shared memory
+MAX_BUCKETS = 256
 
 
 def resolve_use_flash(setting: Optional[bool], device) -> bool:
@@ -54,23 +81,79 @@ def resolve_use_flash(setting: Optional[bool], device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+def rel_pos_bucket(rel_pos, *, bidirectional: bool, buckets: int, max_dist: int):
+    """T5's relative-position bucketing (log-spaced beyond buckets/2) of an
+    integer tensor, the JAX function's arithmetic: every float step in f32,
+    ``log(max_dist / max_exact)`` included (JAX takes it of a weakly typed
+    Python float, so in f32), truncation toward zero."""
+    ret = torch.zeros_like(rel_pos)
+    n = -rel_pos
+    if bidirectional:
+        buckets = buckets // 2
+        ret = torch.where(n < 0, buckets, 0).to(rel_pos.dtype)
+        n = n.abs()
+    else:
+        n = n.clamp_min(0)
+    max_exact = buckets // 2
+    is_small = n < max_exact
+    denom = torch.log(torch.tensor(max_dist / max_exact, dtype=torch.float32))
+    log_big = max_exact + (
+        torch.log(n.float() / max_exact + 1e-6) / denom * (buckets - max_exact)
+    ).to(torch.int32)
+    log_big = log_big.clamp_max(buckets - 1)
+    return ret + torch.where(is_small, n, log_big.to(n.dtype))
+
+
+@functools.lru_cache(maxsize=64)
+def _bucket_ids_cached(sq, skv, bidirectional, buckets, max_dist, device):
+    rel = torch.arange(-(sq - 1), skv, dtype=torch.int32)
+    ids = rel_pos_bucket(rel, bidirectional=bidirectional, buckets=buckets,
+                         max_dist=max_dist)
+    return ids.to(torch.int32).to(device)
+
+
+def rel_bucket_ids(sq: int, skv: int, *, bidirectional: bool, buckets: int,
+                   max_dist: int, device="cpu"):
+    """int32 (Sq + Skv - 1,) bucket ids of every distance ``col - row``,
+    at index ``col - row + Sq - 1``; computed on the CPU, cached on
+    ``device``."""
+    return _bucket_ids_cached(int(sq), int(skv), bool(bidirectional),
+                              int(buckets), int(max_dist), torch.device(device))
+
+
+def rel_bucket_matrix(sq: int, skv: int, bucket_cfg, device="cpu"):
+    """(Sq, Skv) int64 bucket id of each (row, col), start-aligned, from
+    ``rel_bucket_ids``; ``bucket_cfg = (buckets, max_dist,
+    bidirectional)``."""
+    buckets, max_dist, bidirectional = bucket_cfg
+    ids = rel_bucket_ids(sq, skv, bidirectional=bidirectional, buckets=buckets,
+                         max_dist=max_dist, device=device)
+    rel = (torch.arange(skv, device=device)[None, :]
+           - torch.arange(sq, device=device)[:, None] + (sq - 1))
+    return ids.long()[rel]
+
+
 def _scale(scale, d):
     return scale if scale is not None else 1.0 / math.sqrt(d)
 
 
-def flash_attention_reference(q, k, v, *, causal: bool = True,
-                              scale: Optional[float] = None):
-    """The plain version: ``multihead_attention``'s math (``_repeat_kv``,
-    f32 logits and softmax, probabilities cast to ``q.dtype`` before P.V)."""
-    return multihead_attention(q, k, v, causal=causal, scale=scale)
+def _dense_bias(q, k, bias, table, bucket_cfg):
+    """The (Hq, Sq, Skv) bias: ``bias`` itself, or the one a bucket table
+    stands for."""
+    if table is not None:
+        return table[:, rel_bucket_matrix(q.shape[1], k.shape[1], bucket_cfg, table.device)]
+    return bias
 
 
-def _f32_logits(q, k, causal, scale):
+def _f32_logits(q, k, causal, scale, bias=None):
     """(B, Hq, Sq, Skv) f32 scaled logits from f32 copies of the inputs,
-    masked with -inf above the end-aligned diagonal, and the mask."""
+    plus the f32 bias, masked with -inf above the end-aligned diagonal,
+    and the mask."""
     sq, skv, hq, hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
     kk = _repeat_kv(k.float(), hq // hkv)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * _scale(scale, q.shape[-1])
+    if bias is not None:
+        logits = logits + bias.float()[None]
     mask = None
     if causal:
         ones = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -79,62 +162,122 @@ def _f32_logits(q, k, causal, scale):
     return logits, mask
 
 
+def flash_attention_reference(q, k, v, *, causal: bool = True,
+                              scale: Optional[float] = None, bias=None,
+                              table=None, bucket_cfg=None):
+    """The plain version: ``multihead_attention``'s math (``_repeat_kv``,
+    logits of the input-dtype product widened to f32, f32 softmax,
+    probabilities cast to ``q.dtype`` before P.V), the bias (or the
+    table's) added to the f32 logits as the JAX jnp path adds it."""
+    bias = _dense_bias(q, k, bias, table, bucket_cfg)
+    if bias is None:
+        return multihead_attention(q, k, v, causal=causal, scale=scale)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kk, vv = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * _scale(scale, d)
+    logits = logits + bias.float()[None]
+    if causal:
+        ones = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        logits = logits.masked_fill(~torch.tril(ones, diagonal=skv - sq), float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+
+
 def flash_attention_lse_reference(q, k, v, *, causal: bool = True,
-                                  scale: Optional[float] = None):
+                                  scale: Optional[float] = None, bias=None,
+                                  table=None, bucket_cfg=None):
     """The plain version of the ``emit_lse`` forward: the output of
     ``flash_attention_reference`` and the f32 row log-sum-exp of the scaled
-    logits, (B, Hq, Sq)."""
-    out = flash_attention_reference(q, k, v, causal=causal, scale=scale)
-    logits, _ = _f32_logits(q, k, causal, scale)
+    (and biased) logits, (B, Hq, Sq)."""
+    bias = _dense_bias(q, k, bias, table, bucket_cfg)
+    out = flash_attention_reference(q, k, v, causal=causal, scale=scale, bias=bias)
+    logits, _ = _f32_logits(q, k, causal, scale, bias)
     return out, torch.logsumexp(logits, dim=-1)
 
 
-def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
-                        scale: Optional[float] = None):
-    """The plain backward, in f32 from the saved ``o`` and ``lse``: the
-    FA2 formulas of the JAX ``_bwd_recompute``.  GQA partials are summed
-    over each group.  Returns (dq, dk, dv) in the inputs' dtypes."""
-    b, sq, hq, d = q.shape
-    hkv = k.shape[2]
-    n_rep = hq // hkv
-    s = _scale(scale, d)
-    logits, mask = _f32_logits(q, k, causal, scale)
+def _bwd_probs(q, k, v, o, lse, do, causal, scale, dense):
+    """The backward's f32 recompute from the saved ``o`` and ``lse``: the
+    probabilities ``p`` (0 where masked) and the logit gradient
+    ``p * (dp - delta)``, both (B, Hq, Sq, Skv)."""
+    logits, mask = _f32_logits(q, k, causal, scale, dense)
     p = torch.exp(logits - lse.float()[..., None])
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
-    dof, of = do.float(), o.float()
-    kk = _repeat_kv(k.float(), n_rep)
-    vv = _repeat_kv(v.float(), n_rep)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dof = do.float()
+    vv = _repeat_kv(v.float(), q.shape[2] // k.shape[2])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vv)
-    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]  # (B, Hq, Sq, 1)
-    ds = p * (dp - delta) * s
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]  # (B, Hq, Sq, 1)
+    return p, p * (dp - delta)
+
+
+def _bias_grad(dlogits, bias, table, bucket_cfg):
+    """dbias = the batch sum of the logit gradient (the bias enters the
+    logits unscaled) in the bias's dtype, or dtable = that sum added up
+    per bucket id in the table's."""
+    if bias is not None:
+        return dlogits.sum(0).to(bias.dtype)
+    sq, skv = dlogits.shape[2], dlogits.shape[3]
+    ids = rel_bucket_matrix(sq, skv, bucket_cfg, dlogits.device).flatten()
+    dt = torch.zeros(table.shape, dtype=torch.float32, device=dlogits.device)
+    dt.index_add_(1, ids, dlogits.sum(0).flatten(1))
+    return dt.to(table.dtype)
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: Optional[float] = None, bias=None, table=None,
+                        bucket_cfg=None):
+    """The plain backward, in f32 from the saved ``o`` and ``lse``: the
+    FA2 formulas of the JAX ``_bwd_recompute``.  GQA partials are summed
+    over each group.  Returns (dq, dk, dv) in the inputs' dtypes, and with
+    a ``bias`` or ``table`` also its gradient (``flash_bias_grad_reference``)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    n_rep = hq // hkv
+    dense = _dense_bias(q, k, bias, table, bucket_cfg)
+    p, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense)
+    ds = dlogits * _scale(scale, d)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kk)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _repeat_kv(k.float(), n_rep))
     skv = k.shape[1]
     dk = dk.reshape(b, skv, hkv, n_rep, d).sum(3)
     dv = dv.reshape(b, skv, hkv, n_rep, d).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if bias is None and table is None:
+        return grads
+    return grads + (_bias_grad(dlogits, bias, table, bucket_cfg),)
 
 
-def _fwd_fn():
-    fn = _build.load("flash_fwd").tdx_flash_fwd_bf16
+def flash_bias_grad_reference(q, k, v, o, lse, do, *, causal: bool = True,
+                              scale: Optional[float] = None, bias=None,
+                              table=None, bucket_cfg=None):
+    """The plain version of the dbias and dtable kernels alone: with a
+    ``bias``, the batch sum of ``p * (dp - delta)`` in the bias's dtype;
+    with a ``table``, that sum added up per bucket id, in the table's."""
+    if (bias is None) == (table is None):
+        raise ValueError("flash_bias_grad_reference takes one of bias and table")
+    dense = _dense_bias(q, k, bias, table, bucket_cfg)
+    _, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense)
+    return _bias_grad(dlogits, bias, table, bucket_cfg)
+
+
+# -- the kernels ---------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _fn(lib: str, name: str, argtypes):
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _bwd_fn(name: str, n_ptrs: int):
-    fn = getattr(_build.load("flash_bwd"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+# the bias arguments every kernel takes after its tensors: bias, table,
+# bucket ids (each null when unused), buckets
+_BIAS_ARGS = [_P, _P, _P, _I]
 
 
 def _check(fn_name, tensors, d):
@@ -147,12 +290,45 @@ def _check(fn_name, tensors, d):
         raise ValueError(f"{fn_name} takes head_dim 64 or 128, got {d}")
 
 
+def _bias_args(fn_name, q, k, bias, table, bucket_cfg):
+    """Checked kernel arguments (bias, table, ids, buckets) and the
+    tensors they point into (kept alive until the launch returns)."""
+    if table is not None and bucket_cfg is None:
+        raise ValueError(f"{fn_name}: a bucket table needs its bucket_cfg")
+    _check_shapes(q, k, False, bias, table, bucket_cfg)
+    if bias is not None:
+        _check(fn_name, (("bias", bias),), q.shape[-1])
+        bias = bias.contiguous()
+        return (bias.data_ptr(), None, None, 0), (bias,)
+    if table is not None:
+        _check(fn_name, (("table", table),), q.shape[-1])
+        buckets, max_dist, bidirectional = bucket_cfg
+        if buckets > MAX_BUCKETS:
+            raise ValueError(f"{fn_name} takes at most {MAX_BUCKETS} buckets, got {buckets}")
+        table = table.contiguous()
+        ids = rel_bucket_ids(q.shape[1], k.shape[1], bidirectional=bidirectional,
+                             buckets=buckets, max_dist=max_dist, device=q.device)
+        return (None, table.data_ptr(), ids.data_ptr(), buckets), (table, ids)
+    return (None, None, None, 0), ()
+
+
+def _count(fn, bias, table):
+    if bias is not None:
+        fn.bias_launches += 1
+    elif table is not None:
+        fn.bucket_launches += 1
+
+
 def flash_fwd_cuda(q, k, v, *, causal: bool = True,
-                   scale: Optional[float] = None, return_lse: bool = False):
+                   scale: Optional[float] = None, return_lse: bool = False,
+                   bias=None, table=None, bucket_cfg=None):
     """Launch the forward kernel on CUDA tensors (bf16, D in {64, 128},
     (B, S, H, D)).  With ``return_lse`` it also writes the f32 row
-    log-sum-exp (B, Hq, Sq) and returns ``(out, lse)``.  Adds one to
-    ``flash_fwd_cuda.launches`` (plain) or ``flash_fwd_cuda.lse_launches``."""
+    log-sum-exp (B, Hq, Sq) and returns ``(out, lse)``.  ``bias``: bf16
+    (Hq, Sq, Skv); ``table``: bf16 (Hq, buckets) with ``bucket_cfg =
+    (buckets, max_dist, bidirectional)``, Sq == Skv.  Adds one to
+    ``flash_fwd_cuda.launches`` (plain output) or ``.lse_launches``, and
+    to ``.bias_launches`` or ``.bucket_launches`` for those variants."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     _check("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)), d)
@@ -162,19 +338,21 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
     if causal and sq > skv:
         raise ValueError(f"causal attention requires Sq ({sq}) <= Skv ({skv})")
+    bargs, keep = _bias_args("flash_fwd_cuda", q, k, bias, table, bucket_cfg)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _fn("flash_fwd", "tdx_flash_fwd_bf16",
+             [_P] * 5 + _BIAS_ARGS + [_I] * 6 + [_F, _I, _P])
     with torch.cuda.device(q.device):
-        err = _fwd_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None,
-            b, sq, skv, hq, hkv, d, _scale(scale, d), int(causal), stream,
-        )
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if return_lse else None, *bargs,
+                 b, sq, skv, hq, hkv, d, _scale(scale, d), int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    _count(flash_fwd_cuda, bias, table)
     if return_lse:
         flash_fwd_cuda.lse_launches += 1
         return out, lse
@@ -184,13 +362,13 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.lse_launches = 0
+flash_fwd_cuda.bias_launches = 0
+flash_fwd_cuda.bucket_launches = 0
 
 
-def _check_bwd(fn_name, q, k, v, o, lse, do, causal):
+def _check_bwd(fn_name, q, k, v, o, lse, do):
     b, sq, hq, d = q.shape
     _check(fn_name, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)), d)
-    if not causal:
-        raise ValueError(f"{fn_name} takes causal attention only")
     if k.shape != v.shape or k.shape[:2] != (b, sq) or k.shape[3] != d:
         raise ValueError(f"{fn_name} takes Sq == Skv; k/v {tuple(k.shape)}, q {tuple(q.shape)}")
     if o.shape != q.shape or do.shape != q.shape:
@@ -202,98 +380,209 @@ def _check_bwd(fn_name, q, k, v, o, lse, do, causal):
     return [t.contiguous() for t in (q, k, v, o, lse, do)]
 
 
-def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                       scale: Optional[float] = None):
-    """Launch the K/V-stationary backward kernel: (dk, dv), GQA groups
-    summed in the kernel.  Adds one to ``flash_bwd_dkv_cuda.launches``."""
-    q, k, v, o, lse, do = _check_bwd("flash_bwd_dkv_cuda", q, k, v, o, lse, do, causal)
+def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
+                bias, table, bucket_cfg):
+    """Check and launch one backward kernel: the six inputs, ``outs``'
+    pointers, the bias arguments, then (B, S, Hq, Hkv, D, causal, scale)."""
+    q, k, v, o, lse, do = _check_bwd(fn_name, q, k, v, o, lse, do)
+    bargs, keep = _bias_args(fn_name, q, k, bias, table, bucket_cfg)
     b, s, hq, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _fn(lib, name, [_P] * (6 + len(outs)) + _BIAS_ARGS + [_I] * 6 + [_F, _P])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _bwd_fn("tdx_flash_bwd_dkv_bf16", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, hq, k.shape[2], d, _scale(scale, d), stream,
-        )
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), *(t.data_ptr() for t in outs), *bargs,
+                 b, s, hq, k.shape[2], d, int(causal), _scale(scale, d), stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+
+
+def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                       scale: Optional[float] = None, bias=None, table=None,
+                       bucket_cfg=None):
+    """Launch the K/V-stationary backward kernel: (dk, dv), GQA groups
+    summed in the kernel.  Bias arguments as ``flash_fwd_cuda``'s.  Adds
+    one to ``flash_bwd_dkv_cuda.launches`` (and ``.bias_launches`` or
+    ``.bucket_launches``)."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd", "tdx_flash_bwd_dkv_bf16", "flash_bwd_dkv_cuda",
+                q, k, v, o, lse, do, (dk, dv), causal, scale, bias, table, bucket_cfg)
     flash_bwd_dkv_cuda.launches += 1
+    _count(flash_bwd_dkv_cuda, bias, table)
     return dk, dv
 
 
-flash_bwd_dkv_cuda.launches = 0
-
-
 def flash_bwd_dq_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None, bias=None, table=None,
+                      bucket_cfg=None):
     """Launch the Q-stationary backward kernel: dq.  Adds one to
-    ``flash_bwd_dq_cuda.launches``."""
-    q, k, v, o, lse, do = _check_bwd("flash_bwd_dq_cuda", q, k, v, o, lse, do, causal)
-    b, s, hq, d = q.shape
+    ``flash_bwd_dq_cuda.launches`` (and ``.bias_launches`` or
+    ``.bucket_launches``)."""
     dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _bwd_fn("tdx_flash_bwd_dq_bf16", 7)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(),
-            b, s, hq, k.shape[2], d, _scale(scale, d), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+    _launch_bwd("flash_bwd", "tdx_flash_bwd_dq_bf16", "flash_bwd_dq_cuda",
+                q, k, v, o, lse, do, (dq,), causal, scale, bias, table, bucket_cfg)
     flash_bwd_dq_cuda.launches += 1
+    _count(flash_bwd_dq_cuda, bias, table)
     return dq
 
 
-flash_bwd_dq_cuda.launches = 0
+for _f in (flash_bwd_dkv_cuda, flash_bwd_dq_cuda):
+    _f.launches = _f.bias_launches = _f.bucket_launches = 0
+
+
+def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, *, causal: bool = True,
+                         scale: Optional[float] = None):
+    """Launch the dbias kernel: the (Hq, Sq, Skv) batch sum of
+    ``p * (dp - delta)`` in bf16, reduced over the batch inside each block
+    (deterministic, no atomics).  Adds one to
+    ``flash_bwd_dbias_cuda.launches``."""
+    if bias is None:
+        raise ValueError("flash_bwd_dbias_cuda needs the bias")
+    dbias = torch.empty(bias.shape, dtype=torch.bfloat16, device=q.device)
+    _launch_bwd("flash_bias_bwd", "tdx_flash_bwd_dbias_bf16", "flash_bwd_dbias_cuda",
+                q, k, v, o, lse, do, (dbias,), causal, scale, bias, None, None)
+    flash_bwd_dbias_cuda.launches += 1
+    return dbias
+
+
+def flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, *,
+                          causal: bool = True, scale: Optional[float] = None):
+    """Launch the dtable kernel: ``p * (dp - delta)`` summed per bucket id
+    (and over the batch) into an (Hq, buckets) f32 buffer by one atomic
+    add per (block, bucket), cast to the table's dtype at the end.  The
+    order of the atomics is not fixed.  Adds one to
+    ``flash_bwd_dtable_cuda.launches``."""
+    if table is None:
+        raise ValueError("flash_bwd_dtable_cuda needs the table")
+    acc = torch.zeros(table.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd("flash_bias_bwd", "tdx_flash_bwd_dtable_bf16", "flash_bwd_dtable_cuda",
+                q, k, v, o, lse, do, (acc,), causal, scale, None, table, bucket_cfg)
+    flash_bwd_dtable_cuda.launches += 1
+    return acc.to(table.dtype)
+
+
+flash_bwd_dbias_cuda.launches = 0
+flash_bwd_dtable_cuda.launches = 0
+
+
+# -- dispatch and gradient -------------------------------------------------------
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, bias=None, table=None,
+                        bucket_cfg=None):
     """(out, lse): the kernel on CUDA tensors, the plain version on the CPU."""
+    kw = dict(causal=causal, scale=scale, bias=bias, table=table, bucket_cfg=bucket_cfg)
     if q.is_cuda:
-        return flash_fwd_cuda(q, k, v, causal=causal, scale=scale, return_lse=True)
-    return flash_attention_lse_reference(q, k, v, causal=causal, scale=scale)
+        return flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+    return flash_attention_lse_reference(q, k, v, **kw)
 
 
 def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
-                   scale: Optional[float] = None):
-    """(dq, dk, dv): the two kernels on CUDA tensors, the plain version on
-    the CPU."""
-    if q.is_cuda:
-        dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, causal=causal, scale=scale)
-        dq = flash_bwd_dq_cuda(q, k, v, o, lse, do, causal=causal, scale=scale)
+                   scale: Optional[float] = None, bias=None, table=None,
+                   bucket_cfg=None, bias_grad: bool = True):
+    """(dq, dk, dv), and with a bias or table its gradient (None when
+    ``bias_grad`` is off): the kernels on CUDA tensors, the plain version
+    on the CPU."""
+    kw = dict(causal=causal, scale=scale)
+    bkw = dict(bias=bias, table=table, bucket_cfg=bucket_cfg)
+    has_bias = bias is not None or table is not None
+    if not q.is_cuda:
+        grads = flash_bwd_reference(q, k, v, o, lse, do, **kw, **bkw)
+        if has_bias and not bias_grad:
+            grads = grads[:3] + (None,)
+        return grads
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw, **bkw)
+    dq = flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw, **bkw)
+    if not has_bias:
         return dq, dk, dv
-    return flash_bwd_reference(q, k, v, o, lse, do, causal=causal, scale=scale)
+    if not bias_grad:
+        return dq, dk, dv, None
+    if bias is not None:
+        return dq, dk, dv, flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, **kw)
+    return dq, dk, dv, flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, **kw)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The JAX ``custom_vjp``: forward with ``lse`` saved, backward by the
-    two FA2 kernels (no recompute of the forward)."""
+    FA2 kernels (no recompute of the forward), and with a bias or table a
+    further kernel for its gradient, as ``_flash_bwd_rule``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_lse(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+    def forward(ctx, q, k, v, bias, table, causal, scale, bucket_cfg):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, scale=scale,
+                                       bias=bias, table=table, bucket_cfg=bucket_cfg)
+        ctx.save_for_backward(q, k, v, out, lse, bias, table)
+        ctx.causal, ctx.scale, ctx.bucket_cfg = causal, scale, bucket_cfg
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, do.contiguous(),
-                                    causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        q, k, v, out, lse, bias, table = ctx.saved_tensors
+        bias_grad = ctx.needs_input_grad[3] or ctx.needs_input_grad[4]
+        grads = flash_backward(q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
+                               scale=ctx.scale, bias=bias, table=table,
+                               bucket_cfg=ctx.bucket_cfg, bias_grad=bias_grad)
+        dbias = grads[3] if bias is not None else None
+        dtable = grads[3] if table is not None else None
+        return grads[0], grads[1], grads[2], dbias, dtable, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: Optional[float] = None):
+def flash_attention(q, k, v, *, bias=None, causal: bool = True,
+                    scale: Optional[float] = None, rel_bias_table=None,
+                    rel_bias_buckets: int = 32, rel_bias_max_dist: int = 128,
+                    rel_bias_bidirectional: bool = False,
+                    window: Optional[int] = None):
     """(B, Sq, Hq, D) x (B, Skv, Hkv, D)^2 -> (B, Sq, Hq, D), end-aligned
     causal mask.  CUDA tensors go through the kernels; CPU tensors through
-    the plain versions.  Differentiable."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, scale)
+    the plain versions.  Differentiable, in the bias and table too.
+
+    ``bias``: additive logit bias (Hq, Sq, Skv) shared across the batch
+    (T5's relative-position bias).  ``rel_bias_table``: the (Hq, buckets)
+    bucket table instead, each (row, col) biased by
+    ``table[h, rel_pos_bucket(col - row)]`` without an (Hq, S, S) bias in
+    memory; requires Sq == Skv.  ``window`` (sliding window) is not
+    ported yet: the JAX argument checks run, then it raises."""
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if bias is not None or rel_bias_table is not None:
+            raise ValueError("window is mutually exclusive with bias/rel_bias_table")
+        raise NotImplementedError("the sliding-window flash variant is not ported yet")
+    bucket_cfg = None
+    if rel_bias_table is not None:
+        bucket_cfg = (int(rel_bias_buckets), int(rel_bias_max_dist),
+                      bool(rel_bias_bidirectional))
+    _check_shapes(q, k, causal, bias, rel_bias_table, bucket_cfg)
+    needs = (q, k, v, bias, rel_bias_table)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in needs):
+        return _FlashAttention.apply(q, k, v, bias, rel_bias_table, causal, scale,
+                                     bucket_cfg)
+    kw = dict(causal=causal, scale=scale, bias=bias, table=rel_bias_table,
+              bucket_cfg=bucket_cfg)
     if q.is_cuda:
-        return flash_fwd_cuda(q, k, v, causal=causal, scale=scale)
-    return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+        return flash_fwd_cuda(q, k, v, **kw)
+    return flash_attention_reference(q, k, v, **kw)
+
+
+def _check_shapes(q, k, causal, bias, table, bucket_cfg):
+    """The JAX ``flash_attention`` / ``_flash_forward`` argument checks, on
+    either device."""
+    _, sq, hq, _ = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if bias is not None and table is not None:
+        raise ValueError("pass bias OR rel_bias_table, not both")
+    if hq % hkv != 0:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    if causal and sq > skv:
+        raise ValueError(f"causal attention requires Sq ({sq}) <= Skv ({skv})")
+    if table is not None:
+        if sq != skv:
+            raise ValueError(f"in-kernel bucket bias requires Sq == Skv (got {sq} vs {skv})")
+        if tuple(table.shape) != (hq, bucket_cfg[0]):
+            raise ValueError(f"bucket-bias table shape {tuple(table.shape)} != "
+                             f"(Hq, buckets) = {(hq, bucket_cfg[0])}")
+    elif bias is not None and tuple(bias.shape) != (hq, sq, skv):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != (Hq, Sq, Skv) = {(hq, sq, skv)}")
