@@ -72,7 +72,36 @@ Phases, each fatal:
    one warm-up step, then 10 ``Trainer.fit`` steps with the launch
    counters reset just before, (a) with the materialized bias (dbias),
    then ``torch.profiler`` over two more of its steps, (b) with the
-   bucket table (dtable).
+   bucket table (dtable);
+14. hold the sliding-window variants of the three flash kernels (forward
+   with and without lse, dK/dV, dQ) against their plain versions at
+   Mistral's heads (B 1, Hq 32, Hkv 8, D 128; (S, window) of (37, 16),
+   (1000, 300), (2048, 4096), (8192, 4096) and (777, 1)), element-wise and
+   by the relative norm of each (row, head), and time them
+   beside the causal kernels at the same shape, the plain versions and
+   SDPA with a boolean band mask (a yardstick the port never calls);
+15. a 4-layer, full-width mistral_7b through the kernels and the plain
+   path against f32, with one 4600-token prompt (past the window): the
+   logits of the prefill and of three decode steps, then the gradients
+   of one backward step;
+16. serve full mistral_7b (32 layers, random weights from the seed)
+   through ``ServeEngine`` over 8 slots x 8192 rows: 8 greedy requests
+   with prompts of 4097-7000 tokens and 64 new tokens, every prefill
+   through the window forward kernel (counters reset just before);
+17. train mistral_7b at full width and 8 of its 32 layers (batch 1 x 8192)
+   through ``build_train_workload``: deferred init, materialize on the
+   card, one warm-up step, then 10 ``Trainer.fit`` steps with every
+   attention forward and backward through the window kernels;
+18. a 2-layer, full-width mixtral_8x7b in int8 at four seeds against its
+   bf16 self (the JAX package's MoE fidelity metric over 64 prompts of 16
+   tokens) and, on one 2048-token prompt, against its f32 self beside the
+   bf16 model's agreement with f32, then full mixtral_8x7b (32 layers,
+   8 experts) built block by block (materialize one block, quantize it to
+   int8, release its bf16 weights) and served through ``ServeEngine``
+   with its dense MoE over 8 slots x 4096 rows: 8 requests of 16-1536
+   prompt tokens and 32 new tokens, prefill through the flash forward
+   kernel and decode through the slot decode kernel, peak memory under
+   the card's.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -113,6 +142,15 @@ CHECK_LAYERS = 4
 # would pass a dropped key tile or an off-by-one; bf16 rounding moves a row
 # by about 2^-9 of its norm
 ROW_RTOL = 1e-2
+# the window kernels are held by the same relative norm per (row, head) of a
+# (B, S, H, D) output or gradient: at S 8192, W 4096 an element is about
+# sqrt(e / W) = 0.026, so ATOL alone would pass a dropped 64-key tile (which
+# moves a row by about 12% of its norm).  They are held against the plain
+# versions in f32 (the bf16 plain forward is itself up to 2e-2 of a row
+# away from f32).  A row whose reference norm is under
+# ROW_FLOOR is held relative to ROW_FLOOR instead: dq of a row that sees one
+# key, and dq and dk at window 1, are zero up to f32 rounding (about 1e-6)
+ROW_FLOOR = 1e-2
 # the whole-model verify check: two slots of VERIFY_LEN rows (4 pages of
 # 16), (depth of slot 0, depth of slot 1) per round of S = 5 tokens; the
 # second round rewrites rows of the first, as a partly rejected draft does,
@@ -178,6 +216,29 @@ T5_BATCH, T5_SEQ = 4, 512
 SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
                   "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
                   "draft_tokens_accepted")
+# the window variants at Mistral's heads (B 1, Hq 32, Hkv 8, D 128): (S,
+# window) with a window below S and not a multiple of the 64-row tile, a
+# window at least S, the training length 8192 with Mistral's 4096, and a
+# ragged S with one key a row
+WINDOW_CASES = [(37, 16), (1000, 300), (2048, 4096), (8192, 4096), (777, 1)]
+WINDOW_REPORTED = (8192, 4096)
+# the 4-layer mistral_7b check: one prompt past the 4096-token window
+MISTRAL_PROMPT = 4600
+# mistral_7b training at full width is cut to this depth: 32 layers of
+# weights, gradients and optimizer state take about 72 GB
+MISTRAL_TRAIN_LAYERS = 8
+# int8 Mixtral vs bf16, the JAX package's MoE fidelity metric as its test
+# applies it (tests/test_quantization.py, 16-token prompts): a near-tie
+# routing choice may flip under any precision change, so the bulk of the
+# logits is held, not their max
+MIXTRAL_REL_P99 = 0.05
+MIXTRAL_ARGMAX = 0.9
+# ... and on a 2048-token prompt, where bf16 against f32 also loses
+# agreement (0.948-0.961 on the H100), int8 against f32 within this much of
+# bf16 against f32 at each of MIXTRAL_SEEDS seeds (int8 0.049-0.062 below
+# bf16 there; a wrong scale or code loses far more)
+MIXTRAL_LONG_MARGIN = 0.08
+MIXTRAL_SEEDS = 4
 
 
 def _fail(msg: str, code: int = 1):
@@ -206,21 +267,32 @@ def _close(torch, out, ref):
     return ok, float(diff.max())
 
 
-def _close_rows(torch, out, ref):
-    """:func:`_close` and the per-(slot, query row) relative norm of a
-    (B, S, Hq, D) decode output.  Returns (ok, max abs err, max row err)."""
+def _close_rows(torch, out, ref, per_head=False, floor=1e-30):
+    """:func:`_close` and the relative norm of each row of a (B, S, H, D)
+    tensor: per (slot, query row) over its heads, or with ``per_head`` per
+    (row, head), the norm of a reference row under ``floor`` counting as
+    ``floor``.  Returns (ok, max abs err, max row err)."""
     ok, err = _close(torch, out, ref)
-    o, r = out.float().flatten(2), ref.float().flatten(2)
-    rel = float(((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)).max())
+    o, r = (x.float() if per_head else x.float().flatten(2) for x in (out, ref))
+    rel = float(((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(floor)).max())
     return ok and rel <= ROW_RTOL, err, rel
 
 
-def flash_bound(b, sq, skv, hq, hkv, d):
+def _pairs(sq, skv, window=None):
+    """The (query, key) pairs the end-aligned causal mask shows, within the
+    sliding ``window``'s band when one is set: sum over rows of
+    min(i + diag + 1, window)."""
+    diag = skv - sq
+    w = skv if window is None else min(window, skv)
+    return sum(min(skv, i + diag + 1, w) for i in range(sq))
+
+
+def flash_bound(b, sq, skv, hq, hkv, d, window=None):
     """Least time (ms) for causal flash forward: operations over the bf16
     tensor-core peak vs bytes (q, k, v read once, o written once) over the
-    memory rate.  Causal pairs counted exactly (end-aligned mask)."""
-    diag = skv - sq
-    pairs = sum(min(skv, i + diag + 1) for i in range(sq))
+    memory rate.  Causal pairs counted exactly (end-aligned mask), the
+    band's with a window."""
+    pairs = _pairs(sq, skv, window)
     flops = 4.0 * d * pairs * b * hq  # Q.K^T and P.V, 2 flops per MAC
     nbytes = 2.0 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
@@ -882,12 +954,14 @@ def _causal_pairs(s):
     return s * (s + 1) // 2
 
 
-def bwd_bound(b, s, hq, hkv, d, products, outputs):
+def bwd_bound(b, s, hq, hkv, d, products, outputs, window=None):
     """Least time (ms) for one backward kernel: ``products`` matrix
-    products of 2 * D flops per causal pair and query head, over the bf16
-    peak, vs bytes (q, o, dO, k, v and lse read once, ``outputs`` written
-    once: "q" for dq, "kv" for dk and dv) over the memory rate."""
-    flops = 2.0 * products * d * _causal_pairs(s) * b * hq
+    products of 2 * D flops per causal pair (the band's with a window) and
+    query head, over the bf16 peak, vs bytes (q, o, dO, k, v and lse read
+    once, ``outputs`` written once: "q" for dq, "kv" for dk and dv) over the
+    memory rate."""
+    pairs = _causal_pairs(s) if window is None else _pairs(s, s, window)
+    flops = 2.0 * products * d * pairs * b * hq
     nbytes = 2.0 * (3 * b * s * hq * d + 2 * b * s * hkv * d) + 4.0 * b * hq * s
     nbytes += 2.0 * (b * s * hq * d if outputs == "q" else 2 * b * s * hkv * d)
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
@@ -1124,7 +1198,7 @@ def _reset_counters():
     from torchdistx_tpu_torch.ops import fused_ce as fc
 
     for fn in (fa.flash_fwd_cuda, fa.flash_bwd_dkv_cuda, fa.flash_bwd_dq_cuda):
-        fn.launches = fn.bias_launches = fn.bucket_launches = 0
+        fn.launches = fn.bias_launches = fn.bucket_launches = fn.window_launches = 0
     fa.flash_fwd_cuda.lse_launches = 0
     fa.flash_bwd_dbias_cuda.launches = fa.flash_bwd_dtable_cuda.launches = 0
     for name in KERNEL_OF.values():
@@ -1153,6 +1227,7 @@ def _read_counters():
     for key, fn in (("flash_fwd", fa.flash_fwd_cuda), ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda),
                     ("flash_bwd_dq", fa.flash_bwd_dq_cuda)):
         out[f"{key}_bias"], out[f"{key}_bucket"] = fn.bias_launches, fn.bucket_launches
+        out[f"{key}_window"] = fn.window_launches
     for name in KERNEL_OF.values():
         fn = getattr(da, f"{name}_cuda")
         out[name] = fn.launches - fn.int8_launches
@@ -1634,6 +1709,444 @@ def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda"
 
 
 
+# -- the sliding window (Mistral) and Mixtral ------------------------------------
+
+
+def _by_head_groups(torch, fn, groups, tensors, dims, cat_dims):
+    """``fn`` over ``groups`` slices of the heads at a time (each tensor
+    split along its entry of ``dims``), each of its outputs concatenated
+    along its entry of ``cat_dims``: at S 8192 one plain pass over every
+    head would take 8.6 GB of f32 logits a copy."""
+    parts = [fn(*xs) for xs in zip(*(t.chunk(groups, d) for t, d in zip(tensors, dims)))]
+    return tuple(torch.cat(p, d) for p, d in zip(zip(*parts), cat_dims))
+
+
+def _window_plain_fwd(torch, fa, q, k, v, window, groups):
+    """The plain lse forward, by head groups."""
+    return _by_head_groups(
+        torch, lambda *x: fa.flash_attention_lse_reference(*x, window=window), groups,
+        (q, k, v), (2, 2, 2), (2, 1))
+
+
+def _window_plain_out(torch, fa, q, k, v, window, groups):
+    return _by_head_groups(
+        torch, lambda *x: (fa.flash_attention_reference(*x, window=window),), groups,
+        (q, k, v), (2, 2, 2), (2,))[0]
+
+
+def _window_plain_bwd(torch, fa, q, k, v, o, lse, do, window, groups):
+    """The plain backward, by head groups."""
+    return _by_head_groups(
+        torch, lambda *x: fa.flash_bwd_reference(*x, window=window), groups,
+        (q, k, v, o, lse, do), (2, 2, 2, 2, 1, 2), (2, 2, 2))
+
+
+def _library_window(torch, q, k, v, do, window, iters):
+    """SDPA with the band as a boolean ``attn_mask`` (K/V repeated to the
+    query heads beforehand, outside the timing): the forward, and the
+    backward of all three inputs.  Null, with the reason, if SDPA refuses."""
+    s = q.shape[1]
+    band = torch.ones((s, s), dtype=torch.bool, device=q.device).tril_().triu_(-(window - 1))
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(rep, 2).transpose(1, 2).detach().requires_grad_()
+              for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"fwd_library_ms": None, "bwd_library_ms": None}
+    try:
+        out["fwd_library_ms"] = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=band), iters)
+        y = sdpa(qt, kt, vt, attn_mask=band)
+        dot = do.transpose(1, 2)
+        out["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            y, (qt, kt, vt), dot, retain_graph=True), iters)
+        del y
+    except RuntimeError as e:  # out of memory, or no backend for the mask
+        out["library_why_null"] = str(e).splitlines()[0][:200]
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_window(torch, device, cases=WINDOW_CASES, iters=5):
+    """The window variants of the three flash kernels against their plain
+    versions (bf16 outputs of O(1): ATOL/RTOL; per (row, head) the relative
+    norm ROW_RTOL over ROW_FLOOR against the plain versions in f32, which a
+    band one key short must fail; the lse to LSE_ATOL), at Mistral's heads
+    (B 1, Hq 32, Hkv 8, D 128).  At S >= 2048 each is timed
+    beside the causal kernel at the same shape, the plain version and SDPA
+    with a boolean band mask (a yardstick the port never calls)."""
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+
+    hq, hkv, d = 32, 8, 128
+    g = torch.Generator(device=device).manual_seed(6)
+    rows, failures = [], []
+    for s, w in cases:
+        def rnd(h):
+            return torch.randn((1, s, h, d), generator=g, device=device,
+                               dtype=torch.float32).to(torch.bfloat16)
+
+        q, k, v, do = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+        groups = hkv if s >= 4096 else 1
+        out = fa.flash_fwd_cuda(q, k, v, window=w)
+        o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True, window=w)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do, window=w)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, window=w)
+        torch.cuda.synchronize()
+        # the rows are held against the plain versions of the inputs widened
+        # to f32: the bf16 plain forward rounds its logits and probabilities
+        # to bf16 and sits up to 2e-2 of a (row, head) from f32 itself
+        f32 = [x.float() for x in (q, k, v, o, do)]
+        ref, lse_ref = _window_plain_fwd(torch, fa, q, k, v, w, groups)
+        ref32 = _window_plain_out(torch, fa, *f32[:3], w, groups)
+        rq, rk, rv = _window_plain_bwd(torch, fa, *f32[:4], lse, f32[4], w, groups)
+        row = {"B": 1, "S": s, "window": w, "Hq": hq, "Hkv": hkv, "D": d,
+               "band_pairs": _pairs(s, s, w), "causal_pairs": _causal_pairs(s),
+               "lse_err": float((lse - lse_ref).abs().max()),
+               "plain_row_err": _close_rows(torch, ref, ref32, True, ROW_FLOOR)[2]}
+        for name, x, r, r32 in (("out", out, ref, ref32), ("o", o, ref, ref32),
+                                ("dq", dq, rq, rq), ("dk", dk, rk, rk), ("dv", dv, rv, rv)):
+            ok, row[f"{name}_err"] = _close(torch, x, r)
+            rows_ok, _, row[f"{name}_row_err"] = _close_rows(torch, x, r32, True, ROW_FLOOR)
+            row[f"{name}_rows_floored"] = int((r32.norm(dim=-1) < ROW_FLOOR).sum())
+            if not (ok and rows_ok):
+                failures.append(f"flash window {name} S={s} W={w}: max|d|={row[f'{name}_err']}"
+                                f", max row err {row[f'{name}_row_err']}")
+        if row["lse_err"] > LSE_ATOL:
+            failures.append(f"flash window lse S={s} W={w}: max|d|={row['lse_err']}")
+        if 1 < w <= s:
+            # the row check must tell a band one key short at every row
+            short = fa.flash_fwd_cuda(q, k, v, window=w - 1)
+            row["window_minus_1_row_err"] = _close_rows(torch, short, ref32, True, ROW_FLOOR)[2]
+            if row["window_minus_1_row_err"] <= ROW_RTOL:
+                failures.append(f"flash window S={s} W={w}: the row check passes window {w - 1}")
+            del short
+        del ref, lse_ref, ref32, rq, rk, rv, f32
+        torch.cuda.empty_cache()
+        if s >= 2048:
+            row["fwd_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, window=w), iters)
+            row["lse_ms"] = time_ms(
+                torch, lambda: fa.flash_fwd_cuda(q, k, v, return_lse=True, window=w), iters)
+            row["dkv_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do, window=w), iters)
+            row["dq_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, window=w), iters)
+            oc, lc = fa.flash_fwd_cuda(q, k, v, return_lse=True)
+            row["fwd_causal_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v), iters)
+            row["dkv_causal_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, oc, lc, do), iters)
+            row["dq_causal_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, oc, lc, do), iters)
+            del oc, lc
+            for kind in ("fwd", "dkv", "dq"):
+                row[f"{kind}_over_causal"] = row[f"{kind}_ms"] / row[f"{kind}_causal_ms"]
+            plain_iters = 2 if s >= 4096 else iters
+            row["fwd_plain_ms"] = time_ms(
+                torch, lambda: _window_plain_out(torch, fa, q, k, v, w, groups), plain_iters)
+            row["lse_plain_ms"] = time_ms(
+                torch, lambda: _window_plain_fwd(torch, fa, q, k, v, w, groups), plain_iters)
+            row["bwd_plain_ms"] = time_ms(
+                torch, lambda: _window_plain_bwd(torch, fa, q, k, v, o, lse, do, w, groups),
+                plain_iters)
+            row["plain_head_groups"] = groups
+            torch.cuda.empty_cache()
+            row.update(_library_window(torch, q, k, v, do, w, plain_iters))
+            row["fwd_bound_ms"], row["fwd_bound_by"] = flash_bound(1, s, s, hq, hkv, d, w)
+            row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound(1, s, hq, hkv, d, 4, "kv", w)
+            row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound(1, s, hq, hkv, d, 3, "q", w)
+        rows.append(row)
+        print("flash_window", json.dumps(row))
+        del q, k, v, do, out, o, lse, dk, dv, dq
+        torch.cuda.empty_cache()
+    return rows, failures
+
+
+def check_mistral(torch, tt, seed, prompt_len=MISTRAL_PROMPT):
+    """A CHECK_LAYERS-layer, full-width mistral_7b through the kernels (the
+    window forward in the prefill, the window forward and backward kernels
+    in the gradient step) and through the plain path, each held against the
+    f32 plain path as ``check_logits`` and ``check_grads`` hold Llama: one
+    prompt longer than the window, so the band cuts, then decode steps
+    (windowed decode is plain on both paths, as in the JAX package)."""
+    Llama = tt.models.Llama
+    tt.manual_seed(seed)
+    small = Llama.from_name("mistral_7b", dtype=torch.bfloat16, device="cuda",
+                            n_layers=CHECK_LAYERS)
+    small_f32 = Llama.from_name("mistral_7b", dtype=torch.float32, device="cuda",
+                                n_layers=CHECK_LAYERS)
+    small_f32.load_state_dict(small.state_dict())
+    failures, report = [], {}
+    _reset_counters()
+    with torch.no_grad():
+        ok, report["logits"] = check_logits(torch, small, small_f32, prompt_len=prompt_len)
+    report["logits"]["window"] = small.cfg.sliding_window
+    report["logits"]["prefill_window_launches"] = _read_counters()["flash_fwd_window"]
+    if not ok or report["logits"]["prefill_window_launches"] != CHECK_LAYERS:
+        failures.append(f"mistral logits: {report['logits']}")
+    _reset_counters()
+    ok, report["grads"] = check_grads(torch, small, small_f32, seq=prompt_len)
+    got = _read_counters()
+    report["grads"]["window_launches"] = {k: got[f"{k}_window"] for k in
+                                          ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    if not ok or set(report["grads"]["window_launches"].values()) != {CHECK_LAYERS}:
+        failures.append(f"mistral grads: {report['grads']}")
+    del small, small_f32
+    torch.cuda.empty_cache()
+    return report, failures
+
+
+def long_requests(rng, vocab, n=8, max_new=64, lo=4097, hi=7000):
+    """Greedy requests with prompts longer than Mistral's 4096-token window."""
+    return [{"prompt": rng.randint(0, vocab, size=int(m)).astype("int32"),
+             "max_new_tokens": max_new, "temperature": 0.0, "seed": 2000 + i}
+            for i, m in enumerate(rng.randint(lo, hi + 1, size=n))]
+
+
+def serve_mistral(torch, tt, seed, num_slots=8, max_len=8192):
+    """The windowed serving main path: full mistral_7b (32 layers, random
+    weights from the seed) through ``ServeEngine`` over a slab of 8 slots x
+    8192 rows, 8 greedy requests past the window; every prefill goes
+    through the window forward kernel (its counter checked), decode is
+    plain (windowed decode is jnp in the JAX package too)."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    tt.manual_seed(seed)
+    model = tt.models.Llama.from_name("mistral_7b", dtype=torch.bfloat16, device="cuda")
+    model.requires_grad_(False)
+    requests = long_requests(np.random.RandomState(seed), model.cfg.vocab_size)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, summary = run_engine(torch, engine, requests)
+    m = engine.metrics.to_json()
+    n_layers, prefills = model.cfg.n_layers, summary["counters"]["prefill_calls"]
+    summary.update(model="mistral_7b", window=model.cfg.sliding_window, slots=num_slots,
+                   max_len=max_len, prompt_lens=[len(r["prompt"]) for r in requests],
+                   ttft_p50_s=m["histograms"]["ttft_s"]["p50"],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    failures = _greedy_failures("mistral serve", requests, results, model.cfg.vocab_size)
+    failures += _launch_failures("mistral serve", summary, {
+        "flash_fwd": n_layers * prefills, "flash_fwd_window": n_layers * prefills,
+        "decode_attention": 0})
+    if prefills != len(requests):
+        failures.append(f"mistral serve: {prefills} prefills for {len(requests)} requests")
+    del engine, model
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
+def train_mistral(torch, seed, steps=TRAIN_STEPS, n_layers=MISTRAL_TRAIN_LAYERS, seq=8192):
+    """The windowed training main path: ``build_train_workload`` of
+    mistral_7b at full width, ``n_layers`` deep, batch 1 x ``seq``
+    (deferred_init -> materialize on the card -> AnyPrecisionAdamW), one
+    warm-up step, then ``Trainer.fit`` over ``steps`` steps with the launch
+    counters set to 0 just before: every attention forward and backward
+    through the window kernels."""
+    from torchdistx_tpu_torch.utils.benchmarks import build_train_workload
+
+    w = build_train_workload("mistral_7b", batch=1, seq=seq, device="cuda", seed=seed,
+                             n_layers=n_layers)
+    cfg = w["model"].cfg
+    w["run"](1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    losses = w["run"](steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    tokens_per_s = w["tokens_per_batch"] * steps / wall
+    summary = {
+        "model": "mistral_7b", "layers": n_layers, "window": cfg.sliding_window,
+        "n_params": w["n_params"], "batch": 1, "seq": seq, "steps": steps, "losses": losses,
+        "step_ms": wall / steps * 1e3, "tokens_per_sec": tokens_per_s,
+        "mfu": w["flops_per_token"] * tokens_per_s / H100_BF16_FLOPS,
+        "flops_per_token": w["flops_per_token"],
+        "band_pairs_per_head": _pairs(seq, seq, cfg.sliding_window),
+        "causal_pairs_per_head": _causal_pairs(seq),
+        "deferred_init_s": w["deferred_init_s"], "materialize_s": w["materialize_s"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+    }
+    failures = _train_failures(losses, launches, n_layers, steps, False, "mistral train")
+    for k in ("flash_fwd_window", "flash_bwd_dkv_window", "flash_bwd_dq_window"):
+        if launches[k] != n_layers * steps:
+            failures.append(f"mistral train: {k} launches {launches[k]} != {n_layers * steps}")
+    del w
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
+def _keep_head(path, mod):
+    return "lm_head" not in path
+
+
+def build_mixtral_int8(torch, tt, **overrides):
+    """``deferred_init`` of mixtral_8x7b on the card, then each block
+    materialized and quantized to int8 in turn (its bf16 weights released
+    before the next block's are made), then the embedding, final norm and
+    LM head (kept bf16).  Returns (model, seconds, peak bytes of the
+    build)."""
+    from torchdistx_tpu_torch.nn import quantize_module
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tt.deferred_init(tt.models.Mixtral.from_name, "mixtral_8x7b", device="cuda",
+                             **overrides)
+    for blk in model.blocks:
+        tt.materialize_module(blk)
+        quantize_module(blk)
+    tt.materialize_module(model)
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _fidelity(torch, out, ref, g):
+    """JAX's MoE metric of ``out`` against ``ref``: the 99th percentile of
+    |out - ref| / max|ref| (over a sample of 4M entries) and the greedy
+    argmax agreement."""
+    rel = ((out - ref).abs() / ref.abs().max()).flatten()
+    sample = torch.randperm(rel.numel(), device=rel.device, generator=g)[:1 << 22]
+    return {"rel_p99": float(torch.quantile(rel[sample], 0.99)),
+            "argmax_agree": float((out.argmax(-1) == ref.argmax(-1)).float().mean()),
+            "finite": bool(torch.isfinite(out).all()),
+            "max_abs_diff": float((out - ref).abs().max())}
+
+
+def check_mixtral_int8(torch, tt, seeds, n_layers=2, prompts=64, prompt_len=16,
+                       long_len=2048):
+    """A 2-layer, full-width mixtral_8x7b at each of ``seeds``: the int8
+    model's logits against the same weights in bf16, held to the JAX
+    package's MoE fidelity metric as its test applies it
+    (``tests/test_quantization.py``: 16-token prompts): over ``prompts``
+    random prompts of ``prompt_len`` tokens, the 99th percentile of
+    |int8 - bf16| / max|bf16| below MIXTRAL_REL_P99 and greedy argmax
+    agreement above MIXTRAL_ARGMAX.  On one ``long_len``-token prompt the
+    agreement of every precision falls with the context, so there the
+    int8 model's argmax agreement with the same weights in f32 is held to
+    the bf16 model's, less MIXTRAL_LONG_MARGIN."""
+    from torchdistx_tpu_torch.nn import quantize_module
+
+    runs, failures = [], []
+    for seed in seeds:
+        tt.manual_seed(seed)
+        model = tt.deferred_init(tt.models.Mixtral.from_name, "mixtral_8x7b",
+                                 device="cuda", n_layers=n_layers)
+        tt.materialize_module(model)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        vocab = model.cfg.vocab_size
+        short = torch.randint(0, vocab, (prompts, prompt_len), generator=g, device="cuda")
+        long = torch.randint(0, vocab, (1, long_len), generator=g, device="cuda")
+        with torch.no_grad():
+            f32 = tt.models.Mixtral.from_name("mixtral_8x7b", device="cuda",
+                                              dtype=torch.float32, n_layers=n_layers,
+                                              use_flash=False)
+            f32.load_state_dict(model.state_dict())
+            ref32 = f32(long).float()
+            del f32
+            torch.cuda.empty_cache()
+            refs = [model(t).float() for t in (short, long)]
+            quantize_module(model, filter_fn=_keep_head)
+            outs = [model(t).float() for t in (short, long)]
+        info = {"seed": seed, **_fidelity(torch, outs[0], refs[0], g),
+                "long_context": {"tokens": long_len,
+                                 "int8_vs_bf16": _fidelity(torch, outs[1], refs[1], g),
+                                 "bf16_vs_f32": _fidelity(torch, refs[1], ref32, g),
+                                 "int8_vs_f32": _fidelity(torch, outs[1], ref32, g)}}
+        del model, refs, outs, ref32
+        torch.cuda.empty_cache()
+        lc = info["long_context"]
+        ok = (info["finite"] and info["rel_p99"] < MIXTRAL_REL_P99
+              and info["argmax_agree"] > MIXTRAL_ARGMAX and lc["int8_vs_f32"]["finite"]
+              and lc["int8_vs_f32"]["argmax_agree"]
+              >= lc["bf16_vs_f32"]["argmax_agree"] - MIXTRAL_LONG_MARGIN)
+        runs.append(info)
+        if not ok:
+            failures.append(f"mixtral int8 fidelity: {info}")
+    return {"layers": n_layers, "prompts": prompts, "tokens": prompt_len,
+            "long_margin": MIXTRAL_LONG_MARGIN, "seeds": runs}, failures
+
+
+def serve_mixtral(torch, tt, seed, num_slots=8, max_len=4096):
+    """The Mixtral serving main path: full mixtral_8x7b (32 layers, 8
+    experts, random weights from the seed) built block by block in int8,
+    then ``ServeEngine`` with its dense MoE (the JAX config's
+    ``capacity_factor=None``) over 8 slots x 4096 rows, 8 requests of
+    16-1536 prompt tokens and 32 new tokens: every prefill through the
+    flash forward kernel, every decode step through the slot decode kernel
+    (counters checked), peak memory under the card's."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    tt.manual_seed(seed)
+    model, build_s, build_peak = build_mixtral_int8(torch, tt)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    requests = make_requests(np.random.RandomState(seed), model.cfg.vocab_size, n=8,
+                             n_greedy=8, max_new=32)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, summary = run_engine(torch, engine, requests)
+    m = engine.metrics.to_json()
+    n_layers = model.cfg.n_layers
+    total = torch.cuda.get_device_properties(0).total_memory
+    summary.update(model="mixtral_8x7b", weights="int8 (embedding and norms bf16)",
+                   build_s=build_s, build_peak_bytes=build_peak, weight_bytes=weight_bytes,
+                   kv_cache_bytes=engine.cache.nbytes, slots=num_slots, max_len=max_len,
+                   ttft_p50_s=m["histograms"]["ttft_s"]["p50"],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   device_memory_bytes=total)
+    counters = summary["counters"]
+    failures = _greedy_failures("mixtral serve", requests, results, model.cfg.vocab_size)
+    failures += _launch_failures("mixtral serve", summary, {
+        "flash_fwd": n_layers * counters["prefill_calls"],
+        "decode_attention": n_layers * counters["decode_steps"]})
+    if max(build_peak, summary["peak_memory_bytes"]) >= total:
+        failures.append(f"mixtral serve: peak memory {summary['peak_memory_bytes']} "
+                        f"(build {build_peak}) not under the card's {total}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
+def window_kernel_entries(rows, serve_run, train_run):
+    """The window variants of the three flash kernels for the ``kernels``
+    line: timed at WINDOW_REPORTED beside the causal kernel at the same
+    shape, launches from the Mistral serve (prefill) and train runs, the
+    worst error and the worst (row, head) relative error over every case."""
+    rep = next(r for r in rows if (r["S"], r["window"]) == WINDOW_REPORTED)
+    runs = (serve_run["launches"], train_run["launches"])
+    out = []
+    specs = (("flash_fwd_window", "flash_fwd.cu", 141, "fwd", ("out_err", "o_err"),
+              "fwd_library_ms", "fwd_plain_ms"),
+             ("flash_bwd_dkv_window", "flash_bwd.cu", 299, "dkv", ("dk_err", "dv_err"),
+              "bwd_library_ms", "bwd_plain_ms"),
+             ("flash_bwd_dq_window", "flash_bwd.cu", 373, "dq", ("dq_err",),
+              "bwd_library_ms", "bwd_plain_ms"))
+    for name, src, line, key, errs, lib, plain in specs:
+        entry = _kernel_entry(
+            name, f"torchdistx_tpu_torch/csrc/{src}",
+            f"torchdistx_tpu/ops/flash_attention.py:{line}",
+            sum(r.get(name, 0) for r in runs),
+            {"ms": rep[f"{key}_ms"], "plain_ms": rep[plain], "bound_ms": rep[f"{key}_bound_ms"],
+             "bound_by": rep[f"{key}_bound_by"], "library_ms": rep[lib]},
+            max(r[e] for r in rows for e in errs))
+        entry.update(max_row_rel_err=max(r[f"{e[:-4]}_row_err"] for r in rows for e in errs),
+                     shape={"B": 1, "S": rep["S"], "window": rep["window"], "Hq": rep["Hq"],
+                            "Hkv": rep["Hkv"], "D": rep["D"]},
+                     ms_causal=rep[f"{key}_causal_ms"], over_causal=rep[f"{key}_over_causal"],
+                     band_pairs=rep["band_pairs"], causal_pairs=rep["causal_pairs"],
+                     launches_serve=runs[0].get(name, 0), launches_train=runs[1].get(name, 0))
+        if key == "fwd":
+            entry.update(lse_ms=rep["lse_ms"], lse_plain_ms=rep["lse_plain_ms"],
+                         lse_max_abs_err=max(r["lse_err"] for r in rows))
+        if rep.get("library_why_null"):
+            entry["library_why_null"] = rep["library_why_null"]
+        out.append(entry)
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, row, max_err):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1956,7 +2469,65 @@ def main(argv=None) -> int:
         _fail("T5 train phase failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
-    # -- 14. the record ------------------------------------------------------
+    # -- 14. the window kernels vs plain versions -----------------------------
+    torch.cuda.empty_cache()
+    try:
+        window_rows, f14 = check_flash_window(torch, device)
+        failures += f14
+    except Exception:
+        traceback.print_exc()
+        _fail("window kernel phase failed")
+    report["flash_window"] = window_rows
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 15. 4 layers of full mistral_7b width: logits, decode, gradients -----
+    try:
+        report["mistral_check"], f15 = check_mistral(torch, tt, args.seed + 6)
+        print("mistral vs f32 plain path", json.dumps(report["mistral_check"]))
+        failures += f15
+    except Exception:
+        traceback.print_exc()
+        _fail("mistral check phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 16. serve mistral_7b past its window -----------------------------------
+    try:
+        mistral_serve, f16 = serve_mistral(torch, tt, args.seed + 7)
+        print("serve mistral_7b", json.dumps(mistral_serve))
+        failures += f16
+        report["serve_mistral"] = mistral_serve
+    except Exception:
+        traceback.print_exc()
+        _fail("mistral serve phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 17. train mistral_7b at 8192 tokens ------------------------------------
+    try:
+        mistral_train, f17 = train_mistral(torch, args.seed)
+        print("train mistral_7b", json.dumps(mistral_train))
+        failures += f17
+        report["train_mistral"] = mistral_train
+    except Exception:
+        traceback.print_exc()
+        _fail("mistral train phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 18. serve mixtral_8x7b in int8 ------------------------------------------
+    try:
+        report["mixtral_int8_check"], f18 = check_mixtral_int8(
+            torch, tt, range(args.seed + 8, args.seed + 8 + MIXTRAL_SEEDS))
+        print("mixtral int8 vs bf16", json.dumps(report["mixtral_int8_check"]))
+        failures += f18
+        mixtral_serve, f18 = serve_mixtral(torch, tt, args.seed + 9)
+        print("serve mixtral_8x7b int8", json.dumps(mixtral_serve))
+        failures += f18
+        report["serve_mixtral"] = mixtral_serve
+    except Exception:
+        traceback.print_exc()
+        _fail("mixtral serve phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 19. the record ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -1980,12 +2551,13 @@ def main(argv=None) -> int:
     def d64(key):  # the gpt2_large (head_dim 64) timings of a flash kernel
         return {f"{k}_d64": brep64[f"{key}{k}"] for k in ("ms", "bound_ms")}
 
+    mixtral_fwd = mixtral_serve["launches"].get("flash_fwd", 0)
     fwd = _kernel_entry(
         "flash_fwd", "torchdistx_tpu_torch/csrc/flash_fwd.cu",
         "torchdistx_tpu/ops/flash_attention.py:141",
-        summary["launches"]["flash_fwd"] + trained("flash_fwd_lse"), rep,
+        summary["launches"]["flash_fwd"] + mixtral_fwd + trained("flash_fwd_lse"), rep,
         max(r["max_abs_err"] for r in flash_rows))
-    fwd.update(launches_plain=summary["launches"]["flash_fwd"],
+    fwd.update(launches_plain=summary["launches"]["flash_fwd"], launches_mixtral=mixtral_fwd,
                launches_lse=trained("flash_fwd_lse"), lse_ms=brep["lse_ms"],
                lse_plain_ms=brep["lse_plain_ms"],
                lse_library_ms=brep["lse_library_ms"],
@@ -2015,7 +2587,8 @@ def main(argv=None) -> int:
     # the decode kernels: launches summed over the serve runs (phase 3 and
     # b-d); the bf16 one-token kernel timed at DECODE_POSITIONS as before,
     # every variant at VARIANT_POSITIONS
-    served = [summary["launches"]] + [r["launches"] for r in _serve_runs(variants)]
+    served = ([summary["launches"]] + [r["launches"] for r in _serve_runs(variants)]
+              + [mixtral_serve["launches"]])
 
     def decode_entry(name, dt, row):
         key = name if dt == "bf16" else f"{name}_int8"
@@ -2055,6 +2628,7 @@ def main(argv=None) -> int:
                      bound_ms_llama=clla[f"{k}_bound_ms"], library_ms_llama=clla[lib])
         kernels.append(entry)
     kernels += t5_kernel_entries(bias_rows, t5_runs)
+    kernels += window_kernel_entries(window_rows, mistral_serve, mistral_train)
     report["kernels"] = kernels
     failures += [f"{k['name']}: no launch on the main path" for k in kernels
                  if not k["launches"]]

@@ -349,3 +349,107 @@ def test_fused_ce_kernels_refuse_what_they_do_not_take(cuda):
         tfc.fused_ce_dw_cuda(x, w, labels, lse.cpu(), one)
     assert [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
                                  tfc.fused_ce_dw_cuda)] == counts
+
+
+# -- the sliding-window variants ------------------------------------------------
+
+# (b, sq, skv, hq, hkv, d, window): below the tile, not a multiple of it,
+# one key a row, at least S, Sq < Skv, head_dim 64, and a band of 1000 keys
+# (rows of O(0.03), where only the row check tells a lost tile)
+WINDOW_CASES = [(1, 200, 200, 8, 2, 128, 37), (2, 130, 130, 4, 4, 64, 64),
+                (1, 77, 77, 4, 2, 128, 1), (1, 100, 100, 8, 8, 128, 300),
+                (1, 40, 150, 8, 2, 128, 70), (1, 300, 300, 8, 2, 128, 100),
+                (1, 2100, 2100, 4, 2, 128, 1000)]
+
+
+def _assert_head_rows_close(out, ref):
+    """Per (row, head) of a (B, S, H, D) tensor, the norm of the difference
+    from the plain version in f32 within 1e-2 of the reference row's norm,
+    or of 1e-2 where that norm is smaller (dq of a row that sees one key,
+    and dq and dk at window 1, are zero up to f32 rounding): a key of the
+    band dropped or added moves a row by far more than its bf16 rounding,
+    even where ATOL is as large as a typical element.  (The bf16 plain
+    forward rounds its logits to bf16 and is itself up to 2e-2 of a row
+    away from f32.)"""
+    o, r = out.float(), ref.float()
+    assert bool(((o - r).norm(dim=-1) <= 1e-2 * r.norm(dim=-1).clamp_min(1e-2)).all())
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", WINDOW_CASES)
+def test_window_forward_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, window):
+    g = torch.Generator(device=cuda).manual_seed(sq + window)
+    q = _rand(g, (b, sq, hq, d), cuda)
+    k, v = (_rand(g, (b, skv, hkv, d), cuda) for _ in range(2))
+    before = tflash.flash_fwd_cuda.window_launches
+    out = tflash.flash_attention(q, k, v, window=window)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, window=window)
+    torch.cuda.synchronize()
+    assert tflash.flash_fwd_cuda.window_launches == before + 2
+    ref, lse_ref = tflash.flash_attention_lse_reference(q, k, v, window=window)
+    ref32 = tflash.flash_attention_reference(q.float(), k.float(), v.float(), window=window)
+    for x in (out, o):
+        torch.testing.assert_close(x, ref, **TOL)
+        _assert_head_rows_close(x, ref32)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window",
+                         [c for c in WINDOW_CASES if c[1] == c[2]])
+def test_window_bwd_kernels_match_plain(cuda, b, sq, skv, hq, hkv, d, window):
+    g = torch.Generator(device=cuda).manual_seed(sq * window)
+    q, k, v, do = (_rand(g, (b, sq, h, d), cuda) for h in (hq, hkv, hkv, hq))
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, window=window)
+    dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do, window=window)
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, window=window)
+    torch.cuda.synchronize()
+    refs = tflash.flash_bwd_reference(q, k, v, o, lse, do, window=window)
+    refs32 = tflash.flash_bwd_reference(*(x.float() for x in (q, k, v, o)), lse,
+                                        do.float(), window=window)
+    for out, ref, ref32 in zip((dq, dk, dv), refs, refs32):
+        torch.testing.assert_close(out, ref, **TOL)
+        _assert_head_rows_close(out, ref32)
+
+
+def test_window_training_goes_through_the_window_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (_rand(g, (1, 192, 4, 128), cuda).requires_grad_() for _ in range(3))
+    fns = (tflash.flash_fwd_cuda, tflash.flash_bwd_dkv_cuda, tflash.flash_bwd_dq_cuda)
+    counts = [f.window_launches for f in fns]
+    tflash.flash_attention(q, k, v, window=50).float().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.window_launches for f in fns] == [c + 1 for c in counts]
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_window_kernels_refuse_a_bias(cuda):
+    x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    bias = torch.zeros(2, 8, 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tflash.flash_fwd_cuda(x, x, x, window=4, bias=bias)
+    with pytest.raises(ValueError, match="causal"):
+        tflash.flash_bwd_dq_cuda(x, x, x, x, lse, x, window=4, causal=False)
+
+
+def test_int8_mixtral_block_matches_plain(cuda):
+    """One full-width Mixtral block (dim 4096, 8 experts of 14336) in int8
+    against its bf16 self: the MoE fidelity metric of the JAX package's
+    tests as they apply it, on 16-token prompts (99th percentile of |int8 -
+    bf16| / max|bf16| below 0.05, argmax agreement above 0.9); the LM head
+    stays bf16, as the smoke serves it."""
+    from torchdistx_tpu_torch.models import Mixtral
+    from torchdistx_tpu_torch.nn import QuantizedMoE, quantize_module
+
+    tt.manual_seed(0)
+    m = tt.deferred_init(Mixtral.from_name, "mixtral_8x7b", device="cuda", n_layers=1)
+    tt.materialize_module(m)
+    toks = torch.randint(0, 32000, (32, 16), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    with torch.no_grad():
+        ref = m(toks).float()
+        quantize_module(m, filter_fn=lambda path, mod: "lm_head" not in path)
+        assert isinstance(m.blocks[0].mlp, QuantizedMoE)
+        out = m(toks).float()
+    rel = ((out - ref).abs() / ref.abs().max()).flatten()
+    assert torch.quantile(rel[:1 << 20], 0.99) < 0.05
+    assert (out.argmax(-1) == ref.argmax(-1)).float().mean() > 0.9

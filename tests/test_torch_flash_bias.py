@@ -190,9 +190,15 @@ def test_argument_checks_raise_where_jax_raises(jkw, match, q_len):
 
 
 def test_window_is_not_ported():
-    q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tflash.flash_attention(q, q, q, window=4)
+    """The name dates from when ``window=`` raised.  The window is ported
+    now (``tests/test_torch_flash_window.py`` holds it against the JAX
+    kernels): on the CPU the windowed call is the windowed plain
+    attention."""
+    from torchdistx_tpu_torch.ops.attention import multihead_attention
+
+    q = torch.from_numpy(np.random.RandomState(0).randn(1, 8, 2, 16).astype(np.float32))
+    out = tflash.flash_attention(q, q, q, window=4)
+    torch.testing.assert_close(out, multihead_attention(q, q, q, window=4), **FWD_TOL)
 
 
 def test_bias_gradient_wrappers_refuse_cpu_tensors():

@@ -15,10 +15,13 @@ n)``; GPT-2 the same way through ``examples.train_gpt2.main`` (param
 groups, the token loader, and with ``fused_ce=True`` the fused LM-head
 loss ``ops.fused_ce.fused_linear_cross_entropy``); T5 through
 ``utils.benchmarks.build_t5_train_workload`` (its relative-position bias
-inside the flash kernels, materialized or as the bucket table).
+inside the flash kernels, materialized or as the bucket table).  Mistral
+(``Llama.from_name("mistral_7b")``) runs its sliding window through the
+windowed flash kernels; ``models.Mixtral`` puts ``nn.MoE`` in the FFN
+slot, and ``nn.quantize_module`` stores weights as int8 for serving.
 """
 
-__version__ = "0.5.0.dev0"
+__version__ = "0.6.0.dev0"
 
 from . import data, examples, generation, interop, models, nn, ops, optimizers, serve
 from .deferred_init import (

@@ -16,7 +16,11 @@ for each of those nodes, every node that made or wrote a group it read
 before it ran; in record order.  Intermediates are dropped at their last
 use.  A target's group is kept per device: the same record always gives
 back the same tensor, and a node is never applied twice to a tensor that
-was handed out.
+was handed out.  The ``nn.Parameter`` made for a record is held weakly:
+once every parameter of a group has died (a module was dropped, as
+``quantize_module`` drops a ``Linear``), the next replay releases the
+group's cached tensors, so a model materialized one block at a time holds
+only what its modules still reference.
 
 The JAX package's jit compile cache, chunked replay and native core are
 JAX-specific and have no counterpart here.
@@ -25,6 +29,7 @@ JAX-specific and have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Dict, List, Set, Tuple
 
 import torch
@@ -84,7 +89,8 @@ class _DeviceState:
         self.cache: Dict[Tuple[int, int], torch.Tensor] = {}
         self.done: Set[int] = set()
         self.persisted: Set[int] = set()
-        self.params: Dict[Tuple[int, int], torch.nn.Parameter] = {}
+        self.params = weakref.WeakValueDictionary()  # (node, idx) -> Parameter
+        self.owners: Dict[int, Set[Tuple[int, int]]] = {}  # group -> its params' refs
 
 
 def _norm(device) -> torch.device:
@@ -212,6 +218,7 @@ class RecordingSession:
         out_idx)``, in one replay."""
         device = _norm(device)
         st = self._devices.setdefault(device, _DeviceState())
+        self._release(st)
         groups = {self.nodes[n].outs[i] for n, i in targets}
         need, reach = self._closure(groups)
         stale = {g for g in st.persisted
@@ -252,12 +259,29 @@ class RecordingSession:
         return [st.cache[(n, i)] if (n, i) in st.cache else env[(n, i)]
                 for n, i in targets]
 
+    def _release(self, st: _DeviceState) -> None:
+        """Drop the cached tensors of every group whose parameters have all
+        died, where no node that made or wrote it touches a live group."""
+        dead = {g for g, refs in st.owners.items()
+                if not any(r in st.params for r in refs)}
+        for g in dead:
+            nodes = self.group_nodes[g]
+            if any(not self.nodes[n].touches <= dead for n in nodes):
+                continue
+            for n in nodes:
+                st.done.discard(n)
+                for i in self.nodes[n].outs:
+                    st.cache.pop((n, i), None)
+            st.persisted.discard(g)
+            del st.owners[g]
+
     def parameter(self, ref, device, requires_grad: bool) -> torch.nn.Parameter:
         """The one ``nn.Parameter`` for a materialized record (tied
-        parameters stay one object)."""
+        parameters stay one object while any holder keeps it)."""
         st = self._devices[_norm(device)]
         p = st.params.get(ref)
         if p is None:
             p = torch.nn.Parameter(st.cache[ref], requires_grad=requires_grad)
             st.params[ref] = p
+            st.owners.setdefault(self.nodes[ref[0]].outs[ref[1]], set()).add(ref)
         return p

@@ -92,7 +92,7 @@ __device__ __forceinline__ void accumulate(
 #pragma unroll
     for (int j = 0; j < PER_THREAD; ++j) {
       const int r = tile_row(j);
-      if (visible(q0 + r, k0 + c, S, causal)) {
+      if (visible(q0 + r, k0 + c, S, S, causal, 0)) {
         const float p = expf(Ss[r * L::LDS + c] * scale + bias[j] - lse_s[r]);
         acc[j] += p * (dPs[r * L::LDS + c] - delta_s[r]);
       }
@@ -231,8 +231,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // Each returns cudaGetLastError() after the launch (0 on success); the
-// Python wrappers raise on anything else.  Inputs as flash_bwd.cu's; the
-// dbias kernel needs the bias and writes (Hq, S, S) bf16, the dtable
+// Python wrappers raise on anything else.  Inputs as flash_bwd.cu's (the
+// window must be off: it excludes a bias); the dbias kernel needs the bias and writes (Hq, S, S) bf16, the dtable
 // kernel needs the table and ids and adds into (Hq, buckets) f32.
 extern "C" int tdx_flash_bwd_dbias_bf16(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout,
@@ -240,8 +240,8 @@ extern "C" int tdx_flash_bwd_dbias_bf16(const void* q, const void* k, const void
                                         const void* bias, const void* table,
                                         const void* ids, int buckets, int B, int S,
                                         int Hq, int Hkv, int D, int causal,
-                                        float scale, void* stream) {
-  if (bias == nullptr || table != nullptr) return (int)cudaErrorInvalidValue;
+                                        int window, float scale, void* stream) {
+  if (bias == nullptr || table != nullptr || window > 0) return (int)cudaErrorInvalidValue;
   return dispatch<false>(q, k, v, o, dout, lse, dbias, bias_args(bias, nullptr, nullptr, 0),
                          B, S, Hq, Hkv, D, causal, scale, stream);
 }
@@ -252,9 +252,9 @@ extern "C" int tdx_flash_bwd_dtable_bf16(const void* q, const void* k, const voi
                                          const void* bias, const void* table,
                                          const void* ids, int buckets, int B, int S,
                                          int Hq, int Hkv, int D, int causal,
-                                         float scale, void* stream) {
+                                         int window, float scale, void* stream) {
   if (table == nullptr || ids == nullptr || bias != nullptr || buckets < 1 ||
-      buckets > MAX_BUCKETS)
+      buckets > MAX_BUCKETS || window > 0)
     return (int)cudaErrorInvalidValue;
   return dispatch<true>(q, k, v, o, dout, lse, dtable, bias_args(nullptr, table, ids, buckets),
                         B, S, Hq, Hkv, D, causal, scale, stream);

@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas kernels torchdistx_tpu/ops/flash_attention.py
 // _bwd_dkv_kernel (K/V-stationary: dK, dV) and _bwd_dq_kernel
-// (Q-stationary: dQ), launched by _flash_backward_core, in their no-window
-// variants: causal (the Llama and GPT-2 training paths, T5's decoder) or
-// not (T5's encoder), with no bias, an additive bias or T5's bucket table
-// (flash_common.cuh).  The gradient of the bias itself is flash_bias_bwd.cu's.
+// (Q-stationary: dQ), launched by _flash_backward_core, in every variant:
+// causal (the Llama and GPT-2 training paths, T5's decoder) or not (T5's
+// encoder), with no bias, an additive bias or T5's bucket table
+// (flash_common.cuh), or with the sliding window (Mistral; causal, no
+// bias).  The gradient of the bias itself is flash_bias_bwd.cu's.
 //
 // Both recompute the probabilities from the forward's saved row
 // log-sum-exp, p = exp(q.k * scale + bias - lse) (the lse includes the
@@ -36,8 +37,12 @@
 // Layout: q, o, dO, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); lse
 // (B, Hq, S) f32; all contiguous (the JAX package's layout).  Sq == Skv.
 // Causal tiles above the diagonal are skipped; without the causal mask
-// every tile is visited.  The ragged last tile is masked here: zero-filled
-// rows, probabilities of masked pairs set to 0.
+// every tile is visited.  With a window, tiles wholly below the band are
+// skipped too: dQ starts its key loop at the first tile the band reaches
+// (band_kv_begin), dK/dV stops its query loop after the last query tile
+// that sees the key tile (band_q_end), so the work grows with S * window.
+// The ragged last tile is masked here: zero-filled rows, probabilities of
+// masked pairs set to 0.
 
 #include "flash_common.cuh"
 
@@ -51,13 +56,14 @@ __device__ __forceinline__ void ds_tile(const float* Ss, const float* dPs, bf16*
                                         bf16* dSs, const float* lse,
                                         const float* delta, const BiasArgs& ba,
                                         const float* dist_bias, int h, int q0,
-                                        int k0, int S, int causal, float scale) {
+                                        int k0, int S, int causal, int window,
+                                        float scale) {
   using L = BwdLayout<D>;
   for (int i = threadIdx.x; i < BT * BT; i += BWD_THREADS) {
     const int r = i / BT, c = i % BT;
     const int qi = q0 + r, kj = k0 + c;
     float p = 0.f;
-    if (visible(qi, kj, S, causal))
+    if (visible(qi, kj, S, S, causal, window))
       p = expf(Ss[r * L::LDS + c] * scale +
                bias_at(ba, dist_bias, h, S, S, qi, kj, r, c) - lse[r]);
     const float ds = p * (dPs[r * L::LDS + c] - delta[r]) * scale;
@@ -136,7 +142,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, BiasArgs ba,
-                     int S, int Hq, int Hkv, int causal, float scale) {
+                     int S, int Hq, int Hkv, int causal, int window, float scale) {
   using L = BwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -174,8 +180,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int rep = 0; rep < n_rep; ++rep) {
     const int h = hk * n_rep + rep;
     // causal: query rows i see key j iff j <= i, so the tiles from the
-    // diagonal to the end; otherwise every tile
-    for (int q0 = causal ? k0 : 0; q0 < S; q0 += BT) {
+    // diagonal on; with a window, up to the last row the band reaches
+    const int q_end = band_q_end(k0, 0, window, BT, S);
+    for (int q0 = causal ? k0 : 0; q0 < q_end; q0 += BT) {
       const int qvalid = min(BT, S - q0);
       const long long qoff = ((long long)b * S + q0) * qstride + (long long)h * D;
       __syncthreads();  // the previous tile is fully consumed
@@ -189,7 +196,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       gemm_abt<D>(dPs, dOs, Vs, warp);
       __syncthreads();
       ds_tile<D>(Ss, dPs, Ps, dSs, lse_s, delta_s, ba, dist_bias, h, q0, k0, S,
-                 causal, scale);
+                 causal, window, scale);
       __syncthreads();
       acc_atb<D>(acc_v, Ps, dOs, warp);
       acc_atb<D>(acc_k, dSs, Qs, warp);
@@ -206,7 +213,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
                     bf16* __restrict__ dq, BiasArgs ba, int S, int Hq, int Hkv,
-                    int causal, float scale) {
+                    int causal, int window, float scale) {
   using L = BwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -241,9 +248,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int f = 0; f < L::NF; ++f) wmma::fill_fragment(acc_q[f], 0.f);
 
-  // causal: key tiles up to the diagonal, as the forward walks them
+  // causal: key tiles up to the diagonal, from the first the band reaches,
+  // as the forward walks them
   const int kv_end = causal ? min(S, q0 + BT) : S;
-  for (int k0 = 0; k0 < kv_end; k0 += BT) {
+  for (int k0 = band_kv_begin(q0, 0, window, BT); k0 < kv_end; k0 += BT) {
     const int kvalid = min(BT, S - k0);
     const long long koff = ((long long)b * S + k0) * kstride + (long long)hk * D;
     __syncthreads();  // the previous tile is fully consumed
@@ -255,7 +263,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     gemm_abt<D>(dPs, dOs, Vs, warp);
     __syncthreads();
     ds_tile<D>(Ss, dPs, Ps, dSs, lse_s, delta_s, ba, dist_bias, h, q0, k0, S,
-               causal, scale);
+               causal, window, scale);
     __syncthreads();
     acc_ab<D>(acc_q, dSs, Ks, warp);
   }
@@ -267,7 +275,7 @@ template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, void* dk, void* dv,
                        const BiasArgs& ba, int B, int S, int Hq, int Hkv,
-                       int causal, float scale, cudaStream_t stream) {
+                       int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = BwdLayout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -277,7 +285,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), ba, S, Hq, Hkv, causal, scale);
+      static_cast<bf16*>(dv), ba, S, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -285,7 +293,7 @@ template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, void* dq,
                       const BiasArgs& ba, int B, int S, int Hq, int Hkv,
-                      int causal, float scale, cudaStream_t stream) {
+                      int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = BwdLayout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -295,11 +303,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), ba, S, Hq,
-      Hkv, causal, scale);
+      Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
-bool bad_bias(const void* table, const void* ids, int buckets) {
+bool bad_args(const void* bias, const void* table, const void* ids, int buckets,
+              int causal, int window) {
+  if (window > 0 && (!causal || bias != nullptr || table != nullptr)) return true;
   return table != nullptr && (ids == nullptr || buckets < 1 || buckets > MAX_BUCKETS);
 }
 
@@ -307,23 +317,24 @@ bool bad_bias(const void* table, const void* ids, int buckets) {
 
 // Each returns cudaGetLastError() after the launch (0 on success); the
 // Python wrappers raise on anything else.  bias, table and ids as in
-// flash_common.cuh (null when unused).
+// flash_common.cuh (null when unused); window > 0 sets the sliding window
+// (causal only, no bias), window <= 0 none.
 extern "C" int tdx_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                       const void* o, const void* dout,
                                       const void* lse, void* dk, void* dv,
                                       const void* bias, const void* table,
                                       const void* ids, int buckets, int B, int S,
                                       int Hq, int Hkv, int D, int causal,
-                                      float scale, void* stream) {
+                                      int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const BiasArgs ba = bias_args(bias, table, ids, buckets);
-  if (bad_shape(B, S, Hq, Hkv) || bad_bias(table, ids, buckets))
+  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window))
     return (int)cudaErrorInvalidValue;
   if (D == 128)
-    return (int)launch_dkv<128>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, scale, st);
+    return (int)launch_dkv<128>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, window, scale, st);
   if (D == 64)
-    return (int)launch_dkv<64>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, scale, st);
+    return (int)launch_dkv<64>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -332,15 +343,16 @@ extern "C" int tdx_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
                                      const void* lse, void* dq, const void* bias,
                                      const void* table, const void* ids,
                                      int buckets, int B, int S, int Hq, int Hkv,
-                                     int D, int causal, float scale, void* stream) {
+                                     int D, int causal, int window, float scale,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const BiasArgs ba = bias_args(bias, table, ids, buckets);
-  if (bad_shape(B, S, Hq, Hkv) || bad_bias(table, ids, buckets))
+  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window))
     return (int)cudaErrorInvalidValue;
   if (D == 128)
-    return (int)launch_dq<128>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, scale, st);
+    return (int)launch_dq<128>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, window, scale, st);
   if (D == 64)
-    return (int)launch_dq<64>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, scale, st);
+    return (int)launch_dq<64>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

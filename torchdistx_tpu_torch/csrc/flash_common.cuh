@@ -1,6 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_bias_bwd.cu): the logit bias of a tile, and the backward's 64-row
-// tile helpers.
+// flash_bias_bwd.cu): the logit bias of a tile, the mask and the tile
+// pruning of the causal and sliding-window variants, and the backward's
+// 64-row tile helpers.
 //
 // Bias.  The logits of query row i and key column j get, in f32 and before
 // any mask, either
@@ -163,10 +164,35 @@ __device__ __forceinline__ void gemm_abt(float* out, const bf16* A, const bf16* 
   }
 }
 
-// Whether (qi, kj) of an S x S attention is seen: in range, and under the
-// diagonal when causal.
-__device__ __forceinline__ bool visible(int qi, int kj, int S, int causal) {
-  return qi < S && kj < S && (!causal || kj <= qi);
+// Whether query row qi sees key kj in an Sq x Skv attention whose mask is
+// end-aligned by diag = Skv - Sq: in range, under the diagonal (kj <= qi +
+// diag) when causal, and inside the sliding-window band (kj > qi + diag -
+// window) when window > 0; window <= 0 means no band.  The one mask test of
+// every flash kernel (the TPU kernels' _tile_mask).
+__device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Skv, int causal,
+                                        int window) {
+  const int diag = Skv - Sq;
+  return qi < Sq && kj < Skv && (!causal || kj <= qi + diag) &&
+         (window <= 0 || kj > qi + diag - window);
+}
+
+// Tile pruning by the band (the TPU kernels' _block_visible), for tiles of
+// `tile` rows.  The start of the first key tile that query rows q0.. can
+// see: the first key row q0 sees, q0 + diag - window + 1, rounded down to a
+// tile (0 without a window).
+__host__ __device__ inline int band_kv_begin(int q0, int diag, int window, int tile) {
+  if (window <= 0) return 0;
+  const int first = q0 + diag - window + 1;
+  return first <= 0 ? 0 : first / tile * tile;
+}
+
+// One past the last query row that sees any key of the tile k0..k0+tile-1:
+// row i sees key j only if i < j - diag + window (Sq without a window).
+__host__ __device__ inline int band_q_end(int k0, int diag, int window, int tile,
+                                          int Sq) {
+  if (window <= 0) return Sq;
+  const int end = k0 + tile - 1 - diag + window;
+  return end < Sq ? end : Sq;
 }
 
 __host__ __device__ inline bool bad_shape(int B, int S, int Hq, int Hkv) {

@@ -2,13 +2,16 @@
 // softmax state and accumulation.
 //
 // Replaces the Pallas kernel torchdistx_tpu/ops/flash_attention.py:_kernel
-// (launched by _flash_forward) in its no-window variants: causal or not;
-// plain output (the cold prefill of the serving engine) or with the row
-// log-sum-exp (emit_lse: the training forward, whose lse the backward
-// kernels in flash_bwd.cu and flash_bias_bwd.cu consume); with no bias, an
-// additive (Hq, Sq, Skv) bias, or T5's bucket table (flash_common.cuh), the
-// bias added in f32 to the scaled logits before the mask as the TPU kernel
-// adds it.  The lse then includes the bias, as the backward expects.
+// (launched by _flash_forward) in all its variants but the (m, l)
+// residuals: causal or not; plain output (the cold prefill of the serving
+// engine) or with the row log-sum-exp (emit_lse: the training forward,
+// whose lse the backward kernels in flash_bwd.cu and flash_bias_bwd.cu
+// consume); with no bias, an additive (Hq, Sq, Skv) bias, or T5's bucket
+// table (flash_common.cuh), the bias added in f32 to the scaled logits
+// before the mask as the TPU kernel adds it (the lse then includes the
+// bias, as the backward expects); or, causal only and without a bias, the
+// sliding window of Mistral and Mixtral: query i sees keys j with
+// i + diag - window < j <= i + diag.
 //
 // What bounds it on an H100: operations.  Causal prefill at S = 2048,
 // D = 128 does ~2 * S^2 * D flops per head against ~4 * S * D * 2 bytes of
@@ -30,8 +33,14 @@
 // (ceil(Sq / 64), B * Hq); block of 4 warps, each warp owning 16 query rows.
 // GQA: query head h reads kv head h / (Hq / Hkv) in place.  The causal mask
 // is end-aligned (query i sees keys j <= i + Skv - Sq) like the TPU kernel;
-// K/V tiles entirely above the diagonal are never loaded, and the ragged
+// K/V tiles entirely above the diagonal, or entirely below the window's
+// band, are never loaded (the key loop runs from the first tile the band
+// reaches), so a windowed prefill costs S * window, not S^2; the ragged
 // last tile of Q and of K/V is masked here (zero-filled rows, -1e30 logits).
+// Masked logits take the TPU kernel's finite -1e30, not -inf: a row whose
+// first visited tile lies wholly outside its band keeps m = -1e30 and gets
+// p = 1 for those columns, and the next tile's correction exp(-1e30 - m)
+// = 0 cancels them, exactly as in the Pallas kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,7 +103,7 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, BiasArgs ba, int Sq, int Skv, int Hq,
-                 int Hkv, float scale, int causal) {
+                 int Hkv, float scale, int causal, int window) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -130,13 +139,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ls[i] = 0.f;
   }
 
-  // block pruning: the last key any row of this Q tile can see
+  // block pruning: from the first key tile the band reaches to the last
+  // key any row of this Q tile can see
   int kv_end = Skv;
   if (causal) kv_end = min(Skv, q0 + BQ + diag);
-  const int n_kt = (kv_end + BK - 1) / BK;
+  const int kv_begin = tdx_flash::band_kv_begin(q0, diag, window, BK);
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // previous tile fully consumed; Q/O/m/l init visible
     load_tile<D>(Ks, L::LDH, kbase + k0 * kstride, kstride, min(BK, Skv - k0));
     load_tile<D>(Vs, L::LDH, vbase + k0 * kstride, kstride, min(BK, Skv - k0));
@@ -183,8 +192,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int c = lane + 32 * t;
-        const int col = k0 + c;
-        const bool vis = col < Skv && (!causal || col <= qi + diag);
+        const bool vis = tdx_flash::visible(qi, k0 + c, Sq, Skv, causal, window);
         s[t] = vis ? Ss[r * L::LDS + c] * scale + bias_reg[rr][t] : NEG_INF;
         mx = fmaxf(mx, s[t]);
       }
@@ -262,7 +270,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const BiasArgs& ba, int B, int Sq, int Skv,
-                   int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
+                   int Hq, int Hkv, float scale, int causal, int window,
+                   cudaStream_t stream) {
   const size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -272,7 +281,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, ba, Sq, Skv,
-      Hq, Hkv, scale, causal);
+      Hq, Hkv, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -280,12 +289,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // Returns cudaGetLastError() after the launch (0 on success); the Python
 // wrapper raises on anything else.  A null lse is not written; bias, table
-// and ids as in flash_common.cuh (null when unused).
+// and ids as in flash_common.cuh (null when unused); window > 0 sets the
+// sliding window (causal only, no bias), window <= 0 none.
 extern "C" int tdx_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   void* o, void* lse_out, const void* bias,
                                   const void* table, const void* ids, int buckets,
                                   int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                                  float scale, int causal, void* stream) {
+                                  float scale, int causal, int window,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
   const BiasArgs ba = tdx_flash::bias_args(bias, table, ids, buckets);
@@ -294,7 +305,9 @@ extern "C" int tdx_flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (table != nullptr && (Sq != Skv || ids == nullptr || buckets < 1 ||
                            buckets > tdx_flash::MAX_BUCKETS))
     return (int)cudaErrorInvalidValue;
-  if (D == 128) return (int)launch<128>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, st);
-  if (D == 64) return (int)launch<64>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, st);
+  if (window > 0 && (!causal || bias != nullptr || table != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (D == 128) return (int)launch<128>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, window, st);
+  if (D == 64) return (int)launch<64>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

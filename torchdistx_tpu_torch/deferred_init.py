@@ -93,8 +93,14 @@ def materialize_module(
     device: Optional[Any] = None,
 ) -> nn.Module:
     """Materialize a module tree in place, children first (``check_fn``
-    skips a module's own tensors, ``buffers_only`` skips parameters).  All
-    tensors of one record session and one device replay in one pass.
+    skips a module's own tensors, ``buffers_only`` skips parameters).  The
+    tensors of one record session and one device replay in one pass, which
+    runs only the recorded ops those tensors need: materializing one block
+    of a deferred model allocates that block's tensors alone, bit-identical
+    to a whole-model materialize.  A parameter the caller later drops (as
+    ``quantize_module`` drops a ``Linear``'s weight) is released at the
+    next materialize of the session, so a model too large for the device
+    in full precision can be materialized and quantized block by block.
     Tied parameters stay one ``nn.Parameter``."""
     if sharding_rule is not None:
         raise NotImplementedError(

@@ -5,8 +5,11 @@
 module imports no JAX) and copies them into the port's module of the same
 architecture, so both packages compute the same function in the parity
 tests.  Names and shapes must match exactly: a missing, extra or
-mis-shaped key raises.  ``export_params(model)`` is the inverse: the
-port's parameters as f32 numpy arrays under the same names.
+mis-shaped key raises.  Float arrays cross through f32 (exact for bf16 and
+f32); integer arrays (the int8 codes of ``nn.quantization``) cross in
+their own dtype, so codes arrive exactly.  Stacked MoE expert weights
+(E, D, F) keep their layout.  ``export_params(model)`` is the inverse:
+the port's parameters as f32 numpy arrays under the same names.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ def load_jax_params(model: torch.nn.Module,
             )
     with torch.no_grad():
         for name, p in own.items():
-            src = np.array(params[name], dtype=np.float32, copy=True)
-            p.copy_(torch.from_numpy(src).to(p.dtype))
+            src = np.asarray(params[name])
+            if not np.issubdtype(src.dtype, np.integer):
+                src = src.astype(np.float32)
+            p.copy_(torch.from_numpy(np.array(src, copy=True)).to(p.dtype))
     return model
 
 

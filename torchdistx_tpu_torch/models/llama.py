@@ -6,7 +6,10 @@ layouts are the JAX package's, so ``interop.load_jax_params`` carries a
 JAX model's weights across one to one.  With ``use_flash`` resolved on,
 the training forward runs through the differentiable
 ``ops.flash_attention.flash_attention`` (forward with ``lse``, backward by
-the FA2 kernels).  ``remat`` recomputes each block in the backward through
+the FA2 kernels), within the sliding window when the config sets one
+(Mistral).  The block's FFN slot is pluggable and ``Llama.block_cls``
+names the block type, so Mixtral subclasses Llama as in the JAX package.
+``remat`` recomputes each block in the backward through
 ``torch.utils.checkpoint``.  Sequence parallelism is a later slice: its
 config fields (``sp_axis``, ``sp_mode``) are not carried yet.
 """
@@ -178,11 +181,7 @@ class LlamaAttention(tnn.Module):
         q = apply_rope(q, rope, pos_offset)
         k = apply_rope(k, rope, pos_offset)
         if resolve_use_flash(cfg.use_flash, x.device):
-            if cfg.sliding_window is not None:
-                raise NotImplementedError(
-                    "sliding-window flash attention is not ported yet"
-                )
-            out = flash_attention(q, k, v, causal=True)
+            out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
         else:
             out = multihead_attention(
                 q, k, v, causal=True, window=cfg.sliding_window
@@ -224,14 +223,16 @@ class LlamaMLP(tnn.Module):
 
 
 class LlamaBlock(tnn.Module):
-    def __init__(self, cfg: LlamaConfig, device="cuda"):
+    def __init__(self, cfg: LlamaConfig, device="cuda", mlp=None):
         super().__init__()
         self.attn_norm = nn.RMSNorm(cfg.dim, eps=cfg.norm_eps, dtype=cfg.dtype,
                                     device=device)
         self.attn = LlamaAttention(cfg, device)
         self.mlp_norm = nn.RMSNorm(cfg.dim, eps=cfg.norm_eps, dtype=cfg.dtype,
                                    device=device)
-        self.mlp = LlamaMLP(cfg, device)
+        # the FFN half is pluggable: Mixtral's block passes an MoE here and
+        # inherits the attention and cache paths
+        self.mlp = mlp if mlp is not None else LlamaMLP(cfg, device)
 
     def forward(self, x, rope):
         x = x + self.attn(self.attn_norm(x), rope)
@@ -251,13 +252,17 @@ class LlamaBlock(tnn.Module):
 
 
 class Llama(tnn.Module):
+    block_cls = LlamaBlock  # subclasses (Mixtral) swap the block type
+    configs = llama_configs
+    config_cls = LlamaConfig
+
     def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.dim, dtype=cfg.dtype,
                                     device=device, weight_init=_hf_normal)
         self.blocks = tnn.ModuleList(
-            [LlamaBlock(cfg, device) for _ in range(cfg.n_layers)]
+            [self.block_cls(cfg, device) for _ in range(cfg.n_layers)]
         )
         self.norm = nn.RMSNorm(cfg.dim, eps=cfg.norm_eps, dtype=cfg.dtype,
                                device=device)
@@ -267,11 +272,11 @@ class Llama(tnn.Module):
     @classmethod
     def from_name(cls, name: str, *, device="cuda", dtype=None,
                   **overrides) -> "Llama":
-        kw = dict(llama_configs[name])
+        kw = dict(cls.configs[name])
         if dtype is not None:
             kw["dtype"] = dtype
         kw.update(overrides)
-        return cls(LlamaConfig(**kw), device=device)
+        return cls(cls.config_cls(**kw), device=device)
 
     @property
     def device(self) -> torch.device:

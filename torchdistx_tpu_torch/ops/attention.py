@@ -73,9 +73,11 @@ def cached_attention(
 
     **Flash prefill**: the from-empty prefill (``cache_pos`` the int 0,
     S > 1, no bias) is ordinary causal attention over the new keys alone,
-    so it goes to ``flash_attention`` when ``use_flash`` resolves on (auto:
-    CUDA tensors).  The CUDA kernel masks ragged tiles itself, so the JAX
-    path's padding of S to a multiple of 128 is not needed.
+    within the sliding ``window`` when one is set, so it goes to
+    ``flash_attention`` when ``use_flash`` resolves on (auto: CUDA
+    tensors).  The CUDA kernel masks ragged tiles itself, so the JAX path's
+    padding of S to a multiple of 128 is not needed.  Windowed decode stays
+    plain, as in the JAX package.
     """
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -94,11 +96,8 @@ def cached_attention(
         and cache_pos_i == 0
         and resolve_use_flash(use_flash, q.device)
     ):
-        if window is not None:
-            raise NotImplementedError(
-                "sliding-window flash prefill is not ported yet"
-            )
-        out = flash_attention(q, k_new, v_new, causal=True, scale=scale)
+        out = flash_attention(q, k_new, v_new, causal=True, scale=scale,
+                              window=window)
         return out, (ck, cv)
     max_seq, hkv = ck.shape[1], ck.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -275,6 +274,19 @@ def _paged_gather(pool, page_tables):
     return pool.reshape(-1, *pool.shape[2:])[rows.reshape(tables.shape[0], -1)]
 
 
+def _causal_mask(sq: int, skv: int, causal: bool, window: Optional[int], device):
+    """The (Sq, Skv) bool visibility of the end-aligned causal mask (query
+    ``i`` sees keys ``j <= i + Skv - Sq``) and, with a ``window``, its band
+    ``j > i + Skv - Sq - window``; None when every pair is seen."""
+    if not causal:
+        return None
+    ones = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    mask = torch.tril(ones, diagonal=skv - sq)
+    if window is not None:
+        mask = mask & torch.triu(ones, diagonal=skv - sq - (window - 1))
+    return mask
+
+
 def multihead_attention(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None,
                         window: Optional[int] = None):
@@ -292,11 +304,8 @@ def multihead_attention(q, k, v, *, causal: bool = True,
             raise ValueError(f"window must be >= 1, got {window}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = _einsum_logits(q, k, scale)
-    if causal:
-        ones = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-        mask = torch.tril(ones, diagonal=skv - sq)
-        if window is not None:
-            mask = mask & torch.triu(ones, diagonal=skv - sq - (window - 1))
+    mask = _causal_mask(sq, skv, causal, window, q.device)
+    if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -2,15 +2,17 @@
 versions, the dispatcher between them, and its gradient.
 
 Counterpart of ``torchdistx_tpu/ops/flash_attention.py``.  Five kernels
-replace the Pallas ones, in every variant but the sliding window and the
-``(m, l)`` residuals:
+replace the Pallas ones, in every variant but the ``(m, l)`` residuals
+(ring attention's, which waits for the parallel stack):
 
 - ``csrc/flash_fwd.cu`` replaces ``_kernel`` (launched by
   ``_flash_forward``): plain output for the serving engine's prefill, or
   with the row log-sum-exp (``emit_lse``) for the training forward;
   causal or not; with no bias, an additive (Hq, Sq, Skv) ``bias`` shared
   across the batch, or T5's in-kernel bucket bias from an (Hq, buckets)
-  ``rel_bias_table``;
+  ``rel_bias_table``; or with Mistral's sliding ``window`` (causal, no
+  bias: query i sees keys (i + diag - window, i + diag]), whose pruned
+  tiles make the work grow with S * window;
 - ``csrc/flash_bwd.cu`` replaces ``_bwd_dkv_kernel`` (dK, dV) and
   ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``, in the
   same variants;
@@ -50,7 +52,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import _repeat_kv, multihead_attention
+from .attention import _causal_mask, _repeat_kv, multihead_attention
 
 __all__ = [
     "resolve_use_flash",
@@ -145,62 +147,62 @@ def _dense_bias(q, k, bias, table, bucket_cfg):
     return bias
 
 
-def _f32_logits(q, k, causal, scale, bias=None):
+def _f32_logits(q, k, causal, scale, bias=None, window=None):
     """(B, Hq, Sq, Skv) f32 scaled logits from f32 copies of the inputs,
-    plus the f32 bias, masked with -inf above the end-aligned diagonal,
-    and the mask."""
+    plus the f32 bias, masked with -inf outside the end-aligned causal
+    mask (and the window's band), and the mask."""
     sq, skv, hq, hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
     kk = _repeat_kv(k.float(), hq // hkv)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * _scale(scale, q.shape[-1])
     if bias is not None:
         logits = logits + bias.float()[None]
-    mask = None
-    if causal:
-        ones = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-        mask = torch.tril(ones, diagonal=skv - sq)
+    mask = _causal_mask(sq, skv, causal, window, q.device)
+    if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
     return logits, mask
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = True,
                               scale: Optional[float] = None, bias=None,
-                              table=None, bucket_cfg=None):
+                              table=None, bucket_cfg=None, window=None):
     """The plain version: ``multihead_attention``'s math (``_repeat_kv``,
     logits of the input-dtype product widened to f32, f32 softmax,
     probabilities cast to ``q.dtype`` before P.V), the bias (or the
-    table's) added to the f32 logits as the JAX jnp path adds it."""
+    table's) added to the f32 logits as the JAX jnp path adds it, the
+    ``window``'s band masked as ``multihead_attention`` masks it."""
     bias = _dense_bias(q, k, bias, table, bucket_cfg)
     if bias is None:
-        return multihead_attention(q, k, v, causal=causal, scale=scale)
+        return multihead_attention(q, k, v, causal=causal, scale=scale, window=window)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     kk, vv = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * _scale(scale, d)
     logits = logits + bias.float()[None]
-    if causal:
-        ones = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-        logits = logits.masked_fill(~torch.tril(ones, diagonal=skv - sq), float("-inf"))
+    mask = _causal_mask(sq, skv, causal, None, q.device)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
 
 
 def flash_attention_lse_reference(q, k, v, *, causal: bool = True,
                                   scale: Optional[float] = None, bias=None,
-                                  table=None, bucket_cfg=None):
+                                  table=None, bucket_cfg=None, window=None):
     """The plain version of the ``emit_lse`` forward: the output of
     ``flash_attention_reference`` and the f32 row log-sum-exp of the scaled
-    (and biased) logits, (B, Hq, Sq)."""
+    (and biased) logits over the visible keys, (B, Hq, Sq)."""
     bias = _dense_bias(q, k, bias, table, bucket_cfg)
-    out = flash_attention_reference(q, k, v, causal=causal, scale=scale, bias=bias)
-    logits, _ = _f32_logits(q, k, causal, scale, bias)
+    out = flash_attention_reference(q, k, v, causal=causal, scale=scale, bias=bias,
+                                    window=window)
+    logits, _ = _f32_logits(q, k, causal, scale, bias, window)
     return out, torch.logsumexp(logits, dim=-1)
 
 
-def _bwd_probs(q, k, v, o, lse, do, causal, scale, dense):
+def _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window=None):
     """The backward's f32 recompute from the saved ``o`` and ``lse``: the
     probabilities ``p`` (0 where masked) and the logit gradient
     ``p * (dp - delta)``, both (B, Hq, Sq, Skv)."""
-    logits, mask = _f32_logits(q, k, causal, scale, dense)
+    logits, mask = _f32_logits(q, k, causal, scale, dense, window)
     p = torch.exp(logits - lse.float()[..., None])
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
@@ -226,16 +228,17 @@ def _bias_grad(dlogits, bias, table, bucket_cfg):
 
 def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: Optional[float] = None, bias=None, table=None,
-                        bucket_cfg=None):
+                        bucket_cfg=None, window=None):
     """The plain backward, in f32 from the saved ``o`` and ``lse``: the
-    FA2 formulas of the JAX ``_bwd_recompute``.  GQA partials are summed
-    over each group.  Returns (dq, dk, dv) in the inputs' dtypes, and with
-    a ``bias`` or ``table`` also its gradient (``flash_bias_grad_reference``)."""
+    FA2 formulas of the JAX ``_bwd_recompute``, masked by the causal mask
+    and the ``window``'s band.  GQA partials are summed over each group.
+    Returns (dq, dk, dv) in the inputs' dtypes, and with a ``bias`` or
+    ``table`` also its gradient (``flash_bias_grad_reference``)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     n_rep = hq // hkv
     dense = _dense_bias(q, k, bias, table, bucket_cfg)
-    p, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense)
+    p, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window)
     ds = dlogits * _scale(scale, d)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
@@ -312,23 +315,39 @@ def _bias_args(fn_name, q, k, bias, table, bucket_cfg):
     return (None, None, None, 0), ()
 
 
-def _count(fn, bias, table):
+def _count(fn, bias, table, window):
     if bias is not None:
         fn.bias_launches += 1
     elif table is not None:
         fn.bucket_launches += 1
+    elif window is not None:
+        fn.window_launches += 1
+
+
+def _check_window(causal, window, bias, table):
+    """The JAX ``flash_attention`` window checks."""
+    if window is None:
+        return
+    if not causal:
+        raise ValueError("window requires causal=True")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if bias is not None or table is not None:
+        raise ValueError("window is mutually exclusive with bias/rel_bias_table")
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool = True,
                    scale: Optional[float] = None, return_lse: bool = False,
-                   bias=None, table=None, bucket_cfg=None):
+                   bias=None, table=None, bucket_cfg=None, window=None):
     """Launch the forward kernel on CUDA tensors (bf16, D in {64, 128},
     (B, S, H, D)).  With ``return_lse`` it also writes the f32 row
     log-sum-exp (B, Hq, Sq) and returns ``(out, lse)``.  ``bias``: bf16
     (Hq, Sq, Skv); ``table``: bf16 (Hq, buckets) with ``bucket_cfg =
-    (buckets, max_dist, bidirectional)``, Sq == Skv.  Adds one to
+    (buckets, max_dist, bidirectional)``, Sq == Skv; ``window``: the
+    sliding window (causal, no bias).  Adds one to
     ``flash_fwd_cuda.launches`` (plain output) or ``.lse_launches``, and
-    to ``.bias_launches`` or ``.bucket_launches`` for those variants."""
+    to ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``
+    for those variants."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     _check("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)), d)
@@ -338,6 +357,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
     if causal and sq > skv:
         raise ValueError(f"causal attention requires Sq ({sq}) <= Skv ({skv})")
+    _check_window(causal, window, bias, table)
     bargs, keep = _bias_args("flash_fwd_cuda", q, k, bias, table, bucket_cfg)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -345,14 +365,15 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
            if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _fn("flash_fwd", "tdx_flash_fwd_bf16",
-             [_P] * 5 + _BIAS_ARGS + [_I] * 6 + [_F, _I, _P])
+             [_P] * 5 + _BIAS_ARGS + [_I] * 6 + [_F, _I, _I, _P])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if return_lse else None, *bargs,
-                 b, sq, skv, hq, hkv, d, _scale(scale, d), int(causal), stream)
+                 b, sq, skv, hq, hkv, d, _scale(scale, d), int(causal),
+                 int(window or 0), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    _count(flash_fwd_cuda, bias, table)
+    _count(flash_fwd_cuda, bias, table, window)
     if return_lse:
         flash_fwd_cuda.lse_launches += 1
         return out, lse
@@ -364,6 +385,7 @@ flash_fwd_cuda.launches = 0
 flash_fwd_cuda.lse_launches = 0
 flash_fwd_cuda.bias_launches = 0
 flash_fwd_cuda.bucket_launches = 0
+flash_fwd_cuda.window_launches = 0
 
 
 def _check_bwd(fn_name, q, k, v, o, lse, do):
@@ -381,53 +403,58 @@ def _check_bwd(fn_name, q, k, v, o, lse, do):
 
 
 def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
-                bias, table, bucket_cfg):
+                bias, table, bucket_cfg, window=None):
     """Check and launch one backward kernel: the six inputs, ``outs``'
-    pointers, the bias arguments, then (B, S, Hq, Hkv, D, causal, scale)."""
+    pointers, the bias arguments, then (B, S, Hq, Hkv, D, causal, window,
+    scale)."""
     q, k, v, o, lse, do = _check_bwd(fn_name, q, k, v, o, lse, do)
+    _check_window(causal, window, bias, table)
     bargs, keep = _bias_args(fn_name, q, k, bias, table, bucket_cfg)
     b, s, hq, d = q.shape
-    fn = _fn(lib, name, [_P] * (6 + len(outs)) + _BIAS_ARGS + [_I] * 6 + [_F, _P])
+    fn = _fn(lib, name, [_P] * (6 + len(outs)) + _BIAS_ARGS + [_I] * 7 + [_F, _P])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), *(t.data_ptr() for t in outs), *bargs,
-                 b, s, hq, k.shape[2], d, int(causal), _scale(scale, d), stream)
+                 b, s, hq, k.shape[2], d, int(causal), int(window or 0),
+                 _scale(scale, d), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
 
 
 def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                        scale: Optional[float] = None, bias=None, table=None,
-                       bucket_cfg=None):
+                       bucket_cfg=None, window=None):
     """Launch the K/V-stationary backward kernel: (dk, dv), GQA groups
-    summed in the kernel.  Bias arguments as ``flash_fwd_cuda``'s.  Adds
-    one to ``flash_bwd_dkv_cuda.launches`` (and ``.bias_launches`` or
-    ``.bucket_launches``)."""
+    summed in the kernel.  Bias and window arguments as
+    ``flash_fwd_cuda``'s.  Adds one to ``flash_bwd_dkv_cuda.launches`` (and
+    ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_bwd", "tdx_flash_bwd_dkv_bf16", "flash_bwd_dkv_cuda",
-                q, k, v, o, lse, do, (dk, dv), causal, scale, bias, table, bucket_cfg)
+                q, k, v, o, lse, do, (dk, dv), causal, scale, bias, table, bucket_cfg,
+                window)
     flash_bwd_dkv_cuda.launches += 1
-    _count(flash_bwd_dkv_cuda, bias, table)
+    _count(flash_bwd_dkv_cuda, bias, table, window)
     return dk, dv
 
 
 def flash_bwd_dq_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                       scale: Optional[float] = None, bias=None, table=None,
-                      bucket_cfg=None):
+                      bucket_cfg=None, window=None):
     """Launch the Q-stationary backward kernel: dq.  Adds one to
-    ``flash_bwd_dq_cuda.launches`` (and ``.bias_launches`` or
-    ``.bucket_launches``)."""
+    ``flash_bwd_dq_cuda.launches`` (and ``.bias_launches``,
+    ``.bucket_launches`` or ``.window_launches``)."""
     dq = torch.empty_like(q)
     _launch_bwd("flash_bwd", "tdx_flash_bwd_dq_bf16", "flash_bwd_dq_cuda",
-                q, k, v, o, lse, do, (dq,), causal, scale, bias, table, bucket_cfg)
+                q, k, v, o, lse, do, (dq,), causal, scale, bias, table, bucket_cfg,
+                window)
     flash_bwd_dq_cuda.launches += 1
-    _count(flash_bwd_dq_cuda, bias, table)
+    _count(flash_bwd_dq_cuda, bias, table, window)
     return dq
 
 
 for _f in (flash_bwd_dkv_cuda, flash_bwd_dq_cuda):
-    _f.launches = _f.bias_launches = _f.bucket_launches = 0
+    _f.launches = _f.bias_launches = _f.bucket_launches = _f.window_launches = 0
 
 
 def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, *, causal: bool = True,
@@ -470,9 +497,10 @@ flash_bwd_dtable_cuda.launches = 0
 
 def flash_attention_lse(q, k, v, *, causal: bool = True,
                         scale: Optional[float] = None, bias=None, table=None,
-                        bucket_cfg=None):
+                        bucket_cfg=None, window=None):
     """(out, lse): the kernel on CUDA tensors, the plain version on the CPU."""
-    kw = dict(causal=causal, scale=scale, bias=bias, table=table, bucket_cfg=bucket_cfg)
+    kw = dict(causal=causal, scale=scale, bias=bias, table=table, bucket_cfg=bucket_cfg,
+              window=window)
     if q.is_cuda:
         return flash_fwd_cuda(q, k, v, return_lse=True, **kw)
     return flash_attention_lse_reference(q, k, v, **kw)
@@ -480,7 +508,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True,
 
 def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
                    scale: Optional[float] = None, bias=None, table=None,
-                   bucket_cfg=None, bias_grad: bool = True):
+                   bucket_cfg=None, bias_grad: bool = True, window=None):
     """(dq, dk, dv), and with a bias or table its gradient (None when
     ``bias_grad`` is off): the kernels on CUDA tensors, the plain version
     on the CPU."""
@@ -488,12 +516,12 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
     bkw = dict(bias=bias, table=table, bucket_cfg=bucket_cfg)
     has_bias = bias is not None or table is not None
     if not q.is_cuda:
-        grads = flash_bwd_reference(q, k, v, o, lse, do, **kw, **bkw)
+        grads = flash_bwd_reference(q, k, v, o, lse, do, **kw, **bkw, window=window)
         if has_bias and not bias_grad:
             grads = grads[:3] + (None,)
         return grads
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw, **bkw)
-    dq = flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw, **bkw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window)
+    dq = flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window)
     if not has_bias:
         return dq, dk, dv
     if not bias_grad:
@@ -509,11 +537,13 @@ class _FlashAttention(torch.autograd.Function):
     further kernel for its gradient, as ``_flash_bwd_rule``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, table, causal, scale, bucket_cfg):
+    def forward(ctx, q, k, v, bias, table, causal, scale, bucket_cfg, window):
         out, lse = flash_attention_lse(q, k, v, causal=causal, scale=scale,
-                                       bias=bias, table=table, bucket_cfg=bucket_cfg)
+                                       bias=bias, table=table, bucket_cfg=bucket_cfg,
+                                       window=window)
         ctx.save_for_backward(q, k, v, out, lse, bias, table)
         ctx.causal, ctx.scale, ctx.bucket_cfg = causal, scale, bucket_cfg
+        ctx.window = window
         return out
 
     @staticmethod
@@ -522,10 +552,11 @@ class _FlashAttention(torch.autograd.Function):
         bias_grad = ctx.needs_input_grad[3] or ctx.needs_input_grad[4]
         grads = flash_backward(q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
                                scale=ctx.scale, bias=bias, table=table,
-                               bucket_cfg=ctx.bucket_cfg, bias_grad=bias_grad)
+                               bucket_cfg=ctx.bucket_cfg, bias_grad=bias_grad,
+                               window=ctx.window)
         dbias = grads[3] if bias is not None else None
         dtable = grads[3] if table is not None else None
-        return grads[0], grads[1], grads[2], dbias, dtable, None, None, None
+        return grads[0], grads[1], grads[2], dbias, dtable, None, None, None, None
 
 
 def flash_attention(q, k, v, *, bias=None, causal: bool = True,
@@ -541,16 +572,12 @@ def flash_attention(q, k, v, *, bias=None, causal: bool = True,
     (T5's relative-position bias).  ``rel_bias_table``: the (Hq, buckets)
     bucket table instead, each (row, col) biased by
     ``table[h, rel_pos_bucket(col - row)]`` without an (Hq, S, S) bias in
-    memory; requires Sq == Skv.  ``window`` (sliding window) is not
-    ported yet: the JAX argument checks run, then it raises."""
-    if window is not None:
-        if not causal:
-            raise ValueError("window requires causal=True")
-        if window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
-        if bias is not None or rel_bias_table is not None:
-            raise ValueError("window is mutually exclusive with bias/rel_bias_table")
-        raise NotImplementedError("the sliding-window flash variant is not ported yet")
+    memory; requires Sq == Skv.  ``window``: the sliding window of Mistral
+    and Mixtral, query ``i`` sees keys ``(i + diag - window, i + diag]``
+    (``diag = Skv - Sq``); requires ``causal=True`` and no bias, and the
+    kernels skip the tiles outside the band, so the work grows with
+    ``S * window``."""
+    _check_window(causal, window, bias, rel_bias_table)
     bucket_cfg = None
     if rel_bias_table is not None:
         bucket_cfg = (int(rel_bias_buckets), int(rel_bias_max_dist),
@@ -559,9 +586,9 @@ def flash_attention(q, k, v, *, bias=None, causal: bool = True,
     needs = (q, k, v, bias, rel_bias_table)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in needs):
         return _FlashAttention.apply(q, k, v, bias, rel_bias_table, causal, scale,
-                                     bucket_cfg)
+                                     bucket_cfg, window)
     kw = dict(causal=causal, scale=scale, bias=bias, table=rel_bias_table,
-              bucket_cfg=bucket_cfg)
+              bucket_cfg=bucket_cfg, window=window)
     if q.is_cuda:
         return flash_fwd_cuda(q, k, v, **kw)
     return flash_attention_reference(q, k, v, **kw)

@@ -8,9 +8,14 @@ A Llama LM step (flash attention on the card, AnyPrecisionAdamW at lr
 from ``np.random.RandomState(0)``, the plain ``cross_entropy`` loss, or
 with ``fused_ce=True`` the fused LM-head loss on the hidden states
 (``ops.fused_ce``, no (B, S, vocab) logits in device memory).  It takes
-explicit arguments where the JAX function reads environment variables.
-The ZeRO-2 plan, the 8-bit optimizer and the numerics taps are not ported
-yet and raise.
+explicit arguments where the JAX function reads environment variables
+(``name`` for ``TDX_BENCH_TRAIN_MODEL``, ``batch``, ``seq``, ``remat``), and
+takes model overrides: ``build_train_workload("mistral_7b", batch=1,
+seq=8192, n_layers=8)`` trains a windowed model through the window flash
+kernels.  ``flops_per_token`` keeps the JAX formula, which counts every
+causal pair and so overcounts a windowed model's attention.  The ZeRO-2
+plan, the 8-bit optimizer and the numerics taps are not ported yet and
+raise.
 
 The T5 workload is the JAX script's step: ``deferred_init`` of
 ``T5.from_name(name, use_flash=True)``, ``materialize_module``,
