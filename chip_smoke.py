@@ -101,7 +101,28 @@ Phases, each fatal:
    with its dense MoE over 8 slots x 4096 rows: 8 requests of 16-1536
    prompt tokens and 32 new tokens, prefill through the flash forward
    kernel and decode through the slot decode kernel, peak memory under
-   the card's.
+   the card's;
+19. hold the ``(m, l)`` residuals variant of the flash forward (the raw f32
+   accumulator per (row, head), each row's max and sum) and the f32-output
+   variants of the dK/dV and dQ kernels against their plain versions in
+   f32 at llama3_8b's heads (S 8192 causal and not, a ragged S 777),
+   gpt2_large's (D 64) and T5-3B's with an additive bias, and time them
+   beside the lse forward and the bf16-output kernels, the plain versions
+   and SDPA (a yardstick the port never calls);
+20. the flash ring on one card: 4 shards of llama3_8b's heads in one
+   process, each simulated rank calling the port's per-hop forward and
+   backward functions in the ring's order, held against the kernels over
+   the whole 32768-token sequence (and at 4 x 1024 against the plain
+   versions in f32, and with T5-3B's heads and an additive bias at 4 x
+   512, not causal), with the residual and f32 launches counted;
+21. sequence-parallel training at world size 1: ``init_multihost`` on
+   NCCL, deferred init of llama3_8b (8 of 32 layers, ``sp_axis="sp"``),
+   ``materialize_module(sharding_rule=fsdp_shard_rule(mesh))`` on the
+   card, ``ShardedTrainStep(batch_spec=(None, "sp"))`` and 10
+   ``Trainer.fit`` steps at 1 x 8192 with every attention forward through
+   the residuals kernel and every backward through the f32-output kernels
+   (counters reset just before), the first loss held against the plain
+   path's.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -239,6 +260,40 @@ MIXTRAL_ARGMAX = 0.9
 # bf16 there; a wrong scale or code loses far more)
 MIXTRAL_LONG_MARGIN = 0.08
 MIXTRAL_SEEDS = 4
+# the (m, l) residuals and the f32-output backward kernels, (B, S, Hq, Hkv,
+# D, causal, bias): llama3_8b's heads at the SP training length, causal and
+# not, and a ragged S; gpt2_large's heads at D 64; T5-3B's with an additive
+# bias.  Timed at llama3_8b's causal S 8192 (the training shape), the
+# non-causal one beside it.
+RESIDUAL_CASES = [(1, 8192, 32, 8, 128, True, False), (1, 8192, 32, 8, 128, False, False),
+                  (1, 777, 32, 8, 128, False, False), (8, 1024, 20, 20, 64, True, False),
+                  (4, 512, 32, 32, 128, False, True)]
+RESIDUAL_REPORTED = RESIDUAL_CASES[0]
+RESIDUAL_FULL = RESIDUAL_CASES[1]
+# against the plain version on the inputs widened to f32: m is the max of
+# f32 sums of the same exact bf16 products taken in another order (logits
+# of O(1)); l = sum_j exp(s_ij - m_i) is rescaled once per 64-key tile, so
+# its relative error grows with S / 64 roundings of 2^-24
+RESIDUAL_M_ATOL = 1e-5
+RESIDUAL_L_RTOL = 1e-5
+# the ring on one card: (case, B, S per shard, Hq, Hkv, D, causal, bias,
+# held against), RING_SHARDS shards; llama3_8b's heads at 4 x 8192 (the
+# kernels over all 32768 tokens), at 4 x 1024 (the plain versions in f32)
+# and T5-3B's heads with an additive bias at 4 x 512, not causal
+RING_SHARDS = 4
+RING_CASES = [("llama3_8b_4x8192", 1, 8192, 32, 8, 128, True, False, "kernels"),
+              ("llama3_8b_4x1024", 1, 1024, 32, 8, 128, True, False, "plain_f32"),
+              ("t5_3b_bias_4x512", 1, 512, 32, 32, 128, False, True, "kernels")]
+RING_TIMED = "llama3_8b_4x8192"
+# SP training of llama3_8b at world size 1 is cut to 8 of its 32 layers:
+# 32 layers of weights, gradients and AnyPrecisionAdamW state take 128 GB
+SP_TRAIN_LAYERS = 8
+# the first SP step's loss against the plain path's on the same weights: a
+# ring of one block is the flash kernel's loop with the divide moved out of
+# the epilogue, so the two agree to bf16 rounding of the logits
+SP_LOSS_RTOL = 1e-2
+# torch.profiler over this many more SP steps: where a step's time goes
+SP_PROFILE_STEPS = 2
 
 
 def _fail(msg: str, code: int = 1):
@@ -1199,7 +1254,8 @@ def _reset_counters():
 
     for fn in (fa.flash_fwd_cuda, fa.flash_bwd_dkv_cuda, fa.flash_bwd_dq_cuda):
         fn.launches = fn.bias_launches = fn.bucket_launches = fn.window_launches = 0
-    fa.flash_fwd_cuda.lse_launches = 0
+    fa.flash_fwd_cuda.lse_launches = fa.flash_fwd_cuda.residual_launches = 0
+    fa.flash_bwd_dkv_cuda.f32_launches = fa.flash_bwd_dq_cuda.f32_launches = 0
     fa.flash_bwd_dbias_cuda.launches = fa.flash_bwd_dtable_cuda.launches = 0
     for name in KERNEL_OF.values():
         fn = getattr(da, f"{name}_cuda")
@@ -1217,6 +1273,9 @@ def _read_counters():
 
     out = {"flash_fwd": fa.flash_fwd_cuda.launches,
            "flash_fwd_lse": fa.flash_fwd_cuda.lse_launches,
+           "flash_fwd_residuals": fa.flash_fwd_cuda.residual_launches,
+           "flash_bwd_dkv_f32": fa.flash_bwd_dkv_cuda.f32_launches,
+           "flash_bwd_dq_f32": fa.flash_bwd_dq_cuda.f32_launches,
            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches,
            "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
            "flash_bwd_dbias": fa.flash_bwd_dbias_cuda.launches,
@@ -2110,6 +2169,437 @@ def serve_mixtral(torch, tt, seed, num_slots=8, max_len=4096):
     return summary, failures
 
 
+# -- the parallel stack: the residuals and f32 variants, the ring, SP training ---
+
+
+def residual_bound(b, sq, skv, hq, hkv, d, causal, bias):
+    """Least time (ms) for the residuals forward: Q.K^T and P.V over the
+    visible pairs at the bf16 peak vs bytes (q, k, v and a bias read once;
+    the f32 accumulator, m and l written once) over the memory rate."""
+    pairs = (_pairs(sq, skv) if causal else sq * skv) * b * hq
+    flops = 4.0 * d * pairs
+    nbytes = (2.0 * (b * sq * hq * d + 2 * b * skv * hkv * d) + 4.0 * b * sq * hq * d
+              + 8.0 * b * hq * sq + (2.0 * hq * sq * skv if bias else 0.0))
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def f32_bwd_bound(b, s, hq, hkv, d, products, outputs, causal, bias):
+    """:func:`bwd_bound` for the f32-output kernels, causal or not: the
+    outputs written as f32, a bias read once."""
+    pairs = (_causal_pairs(s) if causal else s * s) * b * hq
+    flops = 2.0 * products * d * pairs
+    nbytes = 2.0 * (3 * b * s * hq * d + 2 * b * s * hkv * d) + 4.0 * b * hq * s
+    nbytes += 4.0 * (b * s * hq * d if outputs == "q" else 2 * b * s * hkv * d)
+    nbytes += 2.0 * hq * s * s if bias else 0.0
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _plain_residuals(torch, fa, q, k, v, causal, bias, groups):
+    return _by_head_groups(
+        torch, lambda *x: fa.flash_attention_residuals_reference(
+            *x, causal=causal, bias=bias), groups, (q, k, v), (2, 2, 2), (2, 1, 1))
+
+
+def _plain_bwd_f32(torch, fa, q, k, v, o, lse, do, causal, bias, groups):
+    return _by_head_groups(
+        torch, lambda *x: fa.flash_bwd_reference(
+            *x, causal=causal, bias=bias, dq_dtype=torch.float32,
+            part_dtype=torch.float32)[:3], groups,
+        (q, k, v, o, lse, do), (2, 2, 2, 2, 1, 2), (2, 2, 2))
+
+
+def check_flash_residuals(torch, device, cases=RESIDUAL_CASES, iters=5):
+    """The (m, l) residuals forward and the f32-output dK/dV and dQ kernels
+    against their plain versions on the inputs widened to f32: the raw
+    accumulator and the f32 gradients per (row, head) within ROW_RTOL of
+    the row's norm (over ROW_FLOOR), the gradients element-wise within
+    ATOL/RTOL too; m within RESIDUAL_M_ATOL, l within RESIDUAL_L_RTOL of
+    itself.  Cases of S >= 1024 are timed beside the lse forward and the
+    bf16-output kernels at the same shape, the plain versions and SDPA (a
+    yardstick the port never calls)."""
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(9)
+    rows, failures = [], []
+    f32 = torch.float32
+    for b, s, hq, hkv, d, causal, bias in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=device, dtype=f32).to(torch.bfloat16)
+
+        q, k, v, do = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), rnd(b, s, hq, d)
+        bi = rnd(hq, s, s) if bias else None
+        kw = dict(causal=causal, bias=bi)
+        groups = hkv if s >= 4096 else 1
+        acc, m, l = fa.flash_fwd_cuda(q, k, v, return_residuals=True, **kw)
+        o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do, part_dtype=f32, **kw)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, dq_dtype=f32, **kw)
+        torch.cuda.synchronize()
+        wide = [x.float() for x in (q, k, v, o, do)]
+        bias32 = None if bi is None else bi.float()
+        ra, rm, rl = _plain_residuals(torch, fa, *wide[:3], causal, bias32, groups)
+        rq, rk, rv = _plain_bwd_f32(torch, fa, *wide[:4], lse, wide[4], causal, bias32, groups)
+        case = {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "causal": causal, "bias": bias}
+        row = dict(case, acc_max_abs_err=float((acc - ra).abs().max()),
+                   acc_row_err=_close_rows(torch, acc, ra, True, ROW_FLOOR)[2],
+                   m_err=float((m - rm).abs().max()),
+                   l_rel_err=float(((l - rl).abs() / rl).max()))
+        if (row["acc_row_err"] > ROW_RTOL or row["m_err"] > RESIDUAL_M_ATOL
+                or row["l_rel_err"] > RESIDUAL_L_RTOL):
+            failures.append(f"flash residuals {case}: {row}")
+        for name, x, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            if x.dtype != f32:
+                failures.append(f"flash f32 {name} {case}: dtype {x.dtype}")
+            ok, row[f"{name}_err"], row[f"{name}_row_err"] = _close_rows(
+                torch, x, r, True, ROW_FLOOR)
+            if not ok:
+                failures.append(f"flash f32 {name} {case}: max|d|={row[f'{name}_err']}, "
+                                f"max row err {row[f'{name}_row_err']}")
+        del ra, rm, rl, rq, rk, rv, wide
+        torch.cuda.empty_cache()
+        if s >= 1024:
+            plain_iters = 2 if s >= 4096 else iters
+            row["res_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(
+                q, k, v, return_residuals=True, **kw), iters)
+            row["lse_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(
+                q, k, v, return_lse=True, **kw), iters)
+            row["res_over_lse"] = row["res_ms"] / row["lse_ms"]
+            row["res_plain_ms"] = time_ms(torch, lambda: _plain_residuals(
+                torch, fa, q, k, v, causal, bi, groups), plain_iters)
+            row["dkv_f32_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+                q, k, v, o, lse, do, part_dtype=f32, **kw), iters)
+            row["dkv_bf16_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+                q, k, v, o, lse, do, **kw), iters)
+            row["dq_f32_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, o, lse, do, dq_dtype=f32, **kw), iters)
+            row["dq_bf16_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, o, lse, do, **kw), iters)
+            row["bwd_plain_ms"] = time_ms(torch, lambda: _plain_bwd_f32(
+                torch, fa, q, k, v, o, lse, do, causal, bi, groups), plain_iters)
+            torch.cuda.empty_cache()
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            mask = {"attn_mask": bi.expand(b, -1, -1, -1)} if bias else {"is_causal": causal}
+            row["fwd_library_ms"] = time_ms(
+                torch, lambda: _sdpa_gqa(torch, qt, kt, vt, **mask), iters)
+            y = _sdpa_gqa(torch, qt, kt, vt, **mask)
+            dot = do.transpose(1, 2)
+            row["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                y, (qt, kt, vt), dot, retain_graph=True), iters)
+            del y, qt, kt, vt
+            row["res_bound_ms"], row["res_bound_by"] = residual_bound(
+                b, s, s, hq, hkv, d, causal, bias)
+            row["dkv_bound_ms"], row["dkv_bound_by"] = f32_bwd_bound(
+                b, s, hq, hkv, d, 4, "kv", causal, bias)
+            row["dq_bound_ms"], row["dq_bound_by"] = f32_bwd_bound(
+                b, s, hq, hkv, d, 3, "q", causal, bias)
+        rows.append(row)
+        print("flash_residuals", json.dumps(row))
+        del q, k, v, do, bi, acc, m, l, o, lse, dk, dv, dq
+        torch.cuda.empty_cache()
+    return rows, failures
+
+
+def _ring_run(torch, q, k, v, do, bias, n, causal):
+    """The flash ring of ``ops.attention`` on one card: ``n`` shards of the
+    sequence, each simulated rank ``idx`` calling ``ring_flash_fwd_block``
+    and then ``ring_bwd_block`` on the blocks ``j`` its hops hold, in the
+    ring's order (the block after rank idx's own skipped when causal); the
+    dK/dV accumulators of block j add up as they would travelling with it.
+    Returns out, lse, dq, dk, dv (f32 gradients) and dbias."""
+    from torchdistx_tpu_torch.ops import attention as A
+
+    f32 = torch.float32
+    s = q.shape[1] // n
+
+    def blk(t, i):
+        return t[:, i * s:(i + 1) * s]
+
+    def hops(idx):
+        for t in range(n):
+            j = (idx - t) % n
+            if not (causal and j > idx):
+                yield j, causal and j == idx
+
+    b, _, hq, d = q.shape
+    outs, lses = [], []
+    for idx in range(n):
+        bias_i = None if bias is None else bias[:, idx * s:(idx + 1) * s]
+        acc = torch.zeros((b, hq, s, d), dtype=f32, device=q.device)
+        m = torch.full((b, hq, s), -1e30, dtype=f32, device=q.device)
+        l = torch.zeros((b, hq, s), dtype=f32, device=q.device)
+        for j, diag in hops(idx):
+            acc, m, l = A.ring_flash_fwd_block(blk(q, idx), blk(k, j), blk(v, j), acc, m, l,
+                                               causal=diag, bias=A._ring_bias_block(bias_i, j, s))
+        safe = l.clamp_min(1e-30)
+        outs.append((acc / safe[..., None]).transpose(1, 2).to(q.dtype))
+        lses.append(m + torch.log(safe))
+    dks = [torch.zeros(blk(k, 0).shape, dtype=f32, device=q.device) for _ in range(n)]
+    dvs = [torch.zeros_like(x) for x in dks]
+    db = None if bias is None else torch.zeros(bias.shape, dtype=f32, device=q.device)
+    dqs = []
+    for idx in range(n):
+        bias_i = None if bias is None else bias[:, idx * s:(idx + 1) * s]
+        dq = torch.zeros(blk(q, 0).shape, dtype=f32, device=q.device)
+        for j, diag in hops(idx):
+            dq_c, dk_c, dv_c, db_c = A.ring_bwd_block(
+                blk(q, idx), blk(k, j), blk(v, j), outs[idx], lses[idx], blk(do, idx),
+                A._ring_bias_block(bias_i, j, s), causal=diag)
+            dq += dq_c
+            dks[j] += dk_c
+            dvs[j] += dv_c
+            if db_c is not None:
+                db[:, idx * s:(idx + 1) * s, j * s:(j + 1) * s] = db_c
+        dqs.append(dq)
+    return (torch.cat(outs, 1), torch.cat(lses, 2), torch.cat(dqs, 1), torch.cat(dks, 1),
+            torch.cat(dvs, 1), db)
+
+
+def check_ring(torch, device, cases=RING_CASES, iters=2):
+    """The flash ring's per-hop functions at RING_SHARDS shards in one
+    process, held against attention over the whole sequence: out and the
+    gradients per (row, head) within ROW_RTOL (over ROW_FLOOR) and
+    element-wise, the lse within LSE_ATOL, dbias within BIAS_GRAD_TOL of
+    its max; against the PR 1-2 kernels ("kernels") or the plain versions
+    in f32 ("plain_f32": the forward, then the backward from the ring's own
+    output and lse).  The launches of the residual and f32 kernels
+    are counted: n(n + 1)/2 blocks causal, n^2 not.  The largest case
+    times the ring beside the kernels over the whole sequence."""
+    from torchdistx_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(10)
+    n = RING_SHARDS
+    rows, failures = [], []
+    for name, b, s, hq, hkv, d, causal, bias, ref in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=device,
+                               dtype=torch.float32).to(torch.bfloat16)
+
+        S = n * s
+        q, k, v, do = rnd(b, S, hq, d), rnd(b, S, hkv, d), rnd(b, S, hkv, d), rnd(b, S, hq, d)
+        bi = rnd(hq, S, S) if bias else None
+        kw = dict(causal=causal, bias=bi)
+        _reset_counters()
+        out, lse, dq, dk, dv, db = _ring_run(torch, q, k, v, do, bi, n, causal)
+        torch.cuda.synchronize()
+        got = _read_counters()
+        blocks = n * (n + 1) // 2 if causal else n * n
+        launches = {key: got[key] for key in ("flash_fwd_residuals", "flash_bwd_dkv_f32",
+                                              "flash_bwd_dq_f32", "flash_bwd_dbias")}
+        want = dict.fromkeys(("flash_fwd_residuals", "flash_bwd_dkv_f32", "flash_bwd_dq_f32"),
+                             blocks)
+        want["flash_bwd_dbias"] = blocks if bias else 0
+        if launches != want:
+            failures.append(f"ring {name}: launches {launches} != {want}")
+        if ref == "kernels":
+            o_ref, lse_ref = fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+            rk, rv = fa.flash_bwd_dkv_cuda(q, k, v, o_ref, lse_ref, do, **kw)
+            rq = fa.flash_bwd_dq_cuda(q, k, v, o_ref, lse_ref, do, **kw)
+            rdb = fa.flash_bwd_dbias_cuda(q, k, v, o_ref, lse_ref, do, bi, causal=causal) \
+                if bias else None
+        else:
+            groups = hkv if S >= 4096 else 1
+            wide = [x.float() for x in (q, k, v, do)]
+            o_ref, lse_ref = _by_head_groups(
+                torch, lambda *x: fa.flash_attention_lse_reference(*x, causal=causal), groups,
+                wide[:3], (2, 2, 2), (2, 1))
+            # the backward from the ring's own saved output and lse, as every
+            # backward kernel is held: its delta takes the bf16 output, and
+            # from the f32 one instead a row whose dq nearly cancels moved
+            # by 0.168 of its norm on an H100
+            rq, rk, rv = _plain_bwd_f32(torch, fa, *wide[:3], out.float(), lse, wide[3],
+                                        causal, None, groups)
+            rdb = None
+        row = {"case": name, "B": b, "shards": n, "S_shard": s, "Hq": hq, "Hkv": hkv, "D": d,
+               "causal": causal, "bias": bias, "against": ref, "launches": launches,
+               "lse_err": float((lse - lse_ref).abs().max())}
+        for key, x, r in (("out", out, o_ref), ("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            ok, row[f"{key}_err"], row[f"{key}_row_err"] = _close_rows(
+                torch, x, r, True, ROW_FLOOR)
+            if not ok:
+                failures.append(f"ring {name} {key}: max|d|={row[f'{key}_err']}, "
+                                f"max row err {row[f'{key}_row_err']}")
+        if row["lse_err"] > LSE_ATOL:
+            failures.append(f"ring {name} lse: max|d|={row['lse_err']}")
+        if bias:
+            row["dbias_scaled_err"] = _scaled_err(torch, db, rdb)
+            if row["dbias_scaled_err"] > BIAS_GRAD_TOL:
+                failures.append(f"ring {name} dbias: {row['dbias_scaled_err']}")
+        if name == RING_TIMED:
+            row["ring_ms"] = time_ms(torch, lambda: _ring_run(
+                torch, q, k, v, do, bi, n, causal), iters)
+            row["whole_fwd_bwd_ms"] = time_ms(torch, lambda: (
+                fa.flash_bwd_dkv_cuda(q, k, v, o_ref, lse_ref, do, **kw),
+                fa.flash_bwd_dq_cuda(q, k, v, o_ref, lse_ref, do, **kw),
+                fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw)), iters)
+        rows.append(row)
+        print("ring", json.dumps(row))
+        del q, k, v, do, bi, out, lse, dq, dk, dv, db, o_ref, lse_ref, rq, rk, rv
+        torch.cuda.empty_cache()
+    return rows, failures
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def train_sp_llama(torch, tt, seed, steps=TRAIN_STEPS, n_layers=SP_TRAIN_LAYERS, seq=8192):
+    """The sequence-parallel training main path at world size 1 on NCCL:
+    ``init_multihost`` (one NCCL all-reduce checks the group), the mesh
+    ``{"fsdp": 1, "sp": 1}``, ``deferred_init`` of llama3_8b at full width
+    and ``n_layers`` deep with ``sp_axis="sp"``, ``materialize_module(
+    sharding_rule=fsdp_shard_rule(mesh))`` on the card, then
+    ``ShardedTrainStep(shard_axis="fsdp", batch_spec=(None, "sp"))`` with
+    AnyPrecisionAdamW and the next-token loss: one warm-up step, then
+    ``Trainer.fit`` over ``steps`` steps with the launch counters set to 0
+    just before.  Every attention forward goes through the residuals
+    kernel (a ring of one block), every backward through the f32-output
+    kernels; remat is off (llama3_8b's config), so one of each per layer
+    and step.  The first step's loss is held against the plain path's
+    (``sp_axis`` off: the flash kernels) on the same weights and batch.
+    Then ``torch.profiler`` records SP_PROFILE_STEPS more steps."""
+    import numpy as np
+    import torch.distributed as dist
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import (
+        ShardedTrainStep, create_mesh, fsdp_shard_rule, init_multihost)
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE="1", RANK="0")
+    init_multihost()
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)
+    failures = [] if float(probe.sum()) == 4.0 else [f"NCCL all-reduce gave {probe}"]
+    mesh = create_mesh({"fsdp": 1, "sp": 1})
+    tt.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tt.deferred_init(tt.models.Llama.from_name, "llama3_8b", n_layers=n_layers,
+                             max_seq_len=seq, sp_axis="sp", use_flash=True, device="cuda")
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tt.materialize_module(model, sharding_rule=fsdp_shard_rule(mesh))
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t1
+    materialize_peak = torch.cuda.max_memory_allocated()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(seed)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (1, seq + 1))).to("cuda")
+    batch = (toks[:, :-1], toks[:, 1:])
+
+    def loss_fn(m, b):
+        return F.cross_entropy(m(b[0]), b[1])
+
+    cfg.sp_axis = None  # the plain path on the same weights: flash_attention
+    with torch.no_grad():
+        plain_loss = float(loss_fn(model, batch))
+    cfg.sp_axis = "sp"
+    opt = tt.AnyPrecisionAdamW(model.parameters(), lr=1e-4)
+    step = ShardedTrainStep(model, opt, loss_fn, mesh, shard_axis="fsdp",
+                            batch_spec=(None, "sp"))
+    trainer = tt.Trainer(step, tokens_per_batch=seq, log_every=1, log_fn=lambda _: None)
+    trainer.fit([batch], 1)  # warm-up
+    first_loss = float(step.losses[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t2 = time.perf_counter()
+    trainer.fit(itertools.repeat(batch), 1 + steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t2
+    launches = _read_counters()
+    losses = [float(x) for x in step.losses[1:]]
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.dim * seq
+    tokens_per_s = seq * steps / wall
+    summary = {
+        "model": "llama3_8b", "layers": n_layers, "world_size": dist.get_world_size(),
+        "backend": dist.get_backend(), "mesh": mesh.shape, "sp_mode": cfg.sp_mode,
+        "remat": cfg.remat, "n_params": n_params, "batch": 1, "seq": seq, "steps": steps,
+        "losses": losses, "first_loss": first_loss, "plain_first_loss": plain_loss,
+        "first_loss_rel_diff": abs(first_loss - plain_loss) / abs(plain_loss),
+        "step_ms": wall / steps * 1e3, "tokens_per_sec": tokens_per_s,
+        "mfu": flops_per_token * tokens_per_s / H100_BF16_FLOPS,
+        "flops_per_token": flops_per_token, "deferred_init_s": t1 - t0,
+        "materialize_s": materialize_s, "materialize_peak_bytes": materialize_peak,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+    }
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        failures.append(f"sp train losses not finite: {losses}")
+    elif not losses[-1] < losses[0]:
+        failures.append(f"sp train loss did not fall: {losses}")
+    if summary["first_loss_rel_diff"] > SP_LOSS_RTOL:
+        failures.append(f"sp train first loss {first_loss} vs plain {plain_loss}")
+    want = {"flash_fwd_residuals": n_layers * steps, "flash_bwd_dkv_f32": n_layers * steps,
+            "flash_bwd_dq_f32": n_layers * steps, "flash_bwd_dkv": n_layers * steps,
+            "flash_bwd_dq": n_layers * steps, "flash_fwd": 0, "flash_fwd_lse": 0}
+    for kernel, count in want.items():
+        if launches[kernel] != count:
+            failures.append(f"sp train: {kernel} launches {launches[kernel]} != {count}")
+
+    def drive(on_step):
+        trainer.log_fn = on_step  # called after each synchronized step
+        trainer.fit(itertools.repeat(batch), trainer.global_step + SP_PROFILE_STEPS + 2)
+
+    prof = _profile(torch, drive, SP_PROFILE_STEPS)
+    if isinstance(prof["device_ms_per_step"], float):
+        prof["unprofiled_step_ms"] = summary["step_ms"]
+        prof["device_idle_share_unprofiled"] = max(
+            0.0, 1.0 - prof["device_ms_per_step"] / summary["step_ms"])
+    summary["profile"] = prof
+    del trainer, step, opt, model
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
+def sp_kernel_entries(rows, sp_run):
+    """The residuals forward and the f32-output backward kernels for the
+    ``kernels`` line: timed at RESIDUAL_REPORTED (the non-causal 8192 row
+    beside it, ``*_full``), launches from the SP training run, the worst
+    error over every case."""
+    rep = next(r for r in rows if _residual_case(r) == RESIDUAL_REPORTED)
+    full = next(r for r in rows if _residual_case(r) == RESIDUAL_FULL)
+    shape = {"B": rep["B"], "S": rep["S"], "Hq": rep["Hq"], "Hkv": rep["Hkv"], "D": rep["D"]}
+    specs = (("flash_fwd_residuals", "flash_fwd.cu", 141, "res", "fwd_library_ms",
+              "res_plain_ms", "acc_max_abs_err"),
+             ("flash_bwd_dkv_f32", "flash_bwd.cu", 299, "dkv", "bwd_library_ms",
+              "bwd_plain_ms", ("dk_err", "dv_err")),
+             ("flash_bwd_dq_f32", "flash_bwd.cu", 373, "dq", "bwd_library_ms",
+              "bwd_plain_ms", ("dq_err",)))
+    out = []
+    for name, src, line, key, lib, plain, errs in specs:
+        errs = errs if isinstance(errs, tuple) else (errs,)
+        ms_key = f"{key}_ms" if key == "res" else f"{key}_f32_ms"
+        entry = _kernel_entry(
+            name, f"torchdistx_tpu_torch/csrc/{src}",
+            f"torchdistx_tpu/ops/flash_attention.py:{line}", sp_run["launches"][name],
+            {"ms": rep[ms_key], "plain_ms": rep[plain], "bound_ms": rep[f"{key}_bound_ms"],
+             "bound_by": rep[f"{key}_bound_by"], "library_ms": rep[lib]},
+            max(r[e] for r in rows for e in errs))
+        entry.update(shape=shape, causal=True, ms_full=full[ms_key],
+                     bound_ms_full=full[f"{key}_bound_ms"], library_ms_full=full[lib])
+        if key == "res":
+            entry.update(lse_ms=rep["lse_ms"], over_lse=rep["res_over_lse"],
+                         over_lse_full=full["res_over_lse"],
+                         max_row_rel_err=max(r["acc_row_err"] for r in rows),
+                         m_max_abs_err=max(r["m_err"] for r in rows),
+                         l_max_rel_err=max(r["l_rel_err"] for r in rows))
+        else:
+            entry.update(bf16_ms=rep[f"{key}_bf16_ms"],
+                         max_row_rel_err=max(r[f"{e[:-4]}_row_err"] for r in rows for e in errs))
+        out.append(entry)
+    return out
+
+
+def _residual_case(r):
+    return (r["B"], r["S"], r["Hq"], r["Hkv"], r["D"], r["causal"], r["bias"])
+
+
 def window_kernel_entries(rows, serve_run, train_run):
     """The window variants of the three flash kernels for the ``kernels``
     line: timed at WINDOW_REPORTED beside the causal kernel at the same
@@ -2527,7 +3017,38 @@ def main(argv=None) -> int:
         _fail("mixtral serve phase failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
-    # -- 19. the record ------------------------------------------------------
+    # -- 19. the residuals and f32-output variants vs plain versions -------------
+    torch.cuda.empty_cache()
+    try:
+        residual_rows, f19 = check_flash_residuals(torch, device)
+        failures += f19
+    except Exception:
+        traceback.print_exc()
+        _fail("residuals kernel phase failed")
+    report["flash_residuals"] = residual_rows
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 20. the ring on one card, four shards in one process ----------------------
+    try:
+        report["ring"], f20 = check_ring(torch, device)
+        failures += f20
+    except Exception:
+        traceback.print_exc()
+        _fail("ring phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 21. sequence-parallel llama3_8b training at world size 1 ------------------
+    try:
+        sp_train, f21 = train_sp_llama(torch, tt, args.seed + 10)
+        print("train sp llama3_8b", json.dumps(sp_train))
+        failures += f21
+        report["train_sp"] = sp_train
+    except Exception:
+        traceback.print_exc()
+        _fail("sequence-parallel train phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 22. the record ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -2629,6 +3150,7 @@ def main(argv=None) -> int:
         kernels.append(entry)
     kernels += t5_kernel_entries(bias_rows, t5_runs)
     kernels += window_kernel_entries(window_rows, mistral_serve, mistral_train)
+    kernels += sp_kernel_entries(residual_rows, sp_train)
     report["kernels"] = kernels
     failures += [f"{k['name']}: no launch on the main path" for k in kernels
                  if not k["launches"]]

@@ -453,3 +453,70 @@ def test_int8_mixtral_block_matches_plain(cuda):
     rel = ((out - ref).abs() / ref.abs().max()).flatten()
     assert torch.quantile(rel[:1 << 20], 0.99) < 0.05
     assert (out.argmax(-1) == ref.argmax(-1)).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,bias", [
+    (1, 200, 200, 8, 2, 128, True, False), (2, 130, 130, 4, 4, 64, False, False),
+    (1, 96, 160, 4, 4, 128, True, False), (2, 128, 128, 4, 4, 128, False, True)])
+def test_residuals_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, bias):
+    """The (m, l) residuals: the raw f32 accumulator per (row, head) within
+    1e-2 of its norm (the kernel's P.V takes bf16 P), m to 1e-5 absolute and
+    l to 1e-5 relative, against the plain version on f32-widened inputs."""
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    q = _rand(g, (b, sq, hq, d), cuda)
+    k, v = _rand(g, (b, skv, hkv, d), cuda), _rand(g, (b, skv, hkv, d), cuda)
+    bi = _rand(g, (hq, sq, skv), cuda) if bias else None
+    before = tflash.flash_fwd_cuda.residual_launches
+    acc, m, l = tflash.flash_fwd_cuda(q, k, v, causal=causal, bias=bi, return_residuals=True)
+    torch.cuda.synchronize()
+    assert tflash.flash_fwd_cuda.residual_launches == before + 1
+    ra, rm, rl = tflash.flash_attention_residuals_reference(
+        q.float(), k.float(), v.float(), causal=causal, bias=None if bi is None else bi.float())
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    rows = (acc - ra).norm(dim=-1) / ra.norm(dim=-1).clamp_min(1e-30)
+    assert float(rows.max()) < 1e-2
+    assert float((m - rm).abs().max()) < 1e-5
+    assert float(((l - rl).abs() / rl).max()) < 1e-5
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal", [(1, 200, 8, 2, 128, True),
+                                                 (2, 130, 4, 4, 64, False)])
+def test_f32_output_backward_kernels_match_plain(cuda, b, s, hq, hkv, d, causal):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, do = _rand(g, (b, s, hq, d), cuda), _rand(g, (b, s, hq, d), cuda)
+    k, v = _rand(g, (b, s, hkv, d), cuda), _rand(g, (b, s, hkv, d), cuda)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, causal=causal, return_lse=True)
+    before = (tflash.flash_bwd_dkv_cuda.f32_launches, tflash.flash_bwd_dq_cuda.f32_launches)
+    dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do, causal=causal,
+                                       part_dtype=torch.float32)
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, causal=causal, dq_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (tflash.flash_bwd_dkv_cuda.f32_launches, tflash.flash_bwd_dq_cuda.f32_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = tflash.flash_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                     dq_dtype=torch.float32, part_dtype=torch.float32)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == want.dtype == torch.float32
+        torch.testing.assert_close(got, want, **TOL)
+    # the bf16 kernels write the same sums rounded
+    torch.testing.assert_close(tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, causal=causal),
+                               dq.to(torch.bfloat16), rtol=1e-2, atol=1e-2)
+
+
+def test_ring_of_one_block_is_flash(cuda):
+    """At world size 1 the flash ring is one diagonal block: its output and
+    gradients equal flash attention's within bf16 rounding, through the
+    residuals and f32-output kernels."""
+    from torchdistx_tpu_torch.ops.attention import ring_flash_attention
+    from torchdistx_tpu_torch.parallel import create_mesh
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_rand(g, (1, 256, h, 128), cuda).requires_grad_() for h in (8, 2, 2))
+    with create_mesh({"sp": 1}):
+        out = ring_flash_attention(q, k, v, axis="sp")
+        grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    ref = tflash.flash_attention(q, k, v)
+    rgrads = torch.autograd.grad(ref.float().sum(), (q, k, v))
+    torch.testing.assert_close(out, ref, **TOL)
+    for a, r in zip(grads, rgrads):
+        torch.testing.assert_close(a, r, **TOL)

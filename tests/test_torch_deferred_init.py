@@ -195,9 +195,18 @@ def test_double_materialize_is_stable_noop():
 
 
 def test_sharding_rule_not_ported():
+    """Sharded materialization is ported (``tests/test_torch_fsdp.py`` holds
+    it at world 4): a rule that shards nothing (None for every path) gives
+    the unsharded module, bit-identical to eager, and sees every path."""
+    tt.manual_seed(42)
     m = tt.deferred_init(MLP)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tt.materialize_module(m, sharding_rule=lambda path, fake: None)
+    paths = []
+    tt.materialize_module(m, sharding_rule=lambda path, fake: paths.append(path))
+    tt.manual_seed(42)
+    eager = MLP()
+    assert paths == list(_params(eager))
+    for (k, a), b in zip(_params(m).items(), eager.parameters()):
+        assert type(a) is torch.nn.Parameter and torch.equal(a, b), k
 
 
 def test_fake_cuda_claims_cuda_and_needs_device_to_materialize():

@@ -23,12 +23,17 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         "torchdistx_tpu_torch.trainer, torchdistx_tpu_torch.optimizers, "
         "torchdistx_tpu_torch.deferred_init, torchdistx_tpu_torch.utils.benchmarks, "
         "torchdistx_tpu_torch.data, torchdistx_tpu_torch.examples.train_gpt2, "
-        "torchdistx_tpu_torch.models.gpt2, torchdistx_tpu_torch.ops.fused_ce\n"
+        "torchdistx_tpu_torch.models.gpt2, torchdistx_tpu_torch.ops.fused_ce, "
+        "torchdistx_tpu_torch.parallel, torchdistx_tpu_torch.parallel.multihost, "
+        "torchdistx_tpu_torch.parallel.mesh, torchdistx_tpu_torch.parallel.collectives, "
+        "torchdistx_tpu_torch.parallel.comm_hooks, torchdistx_tpu_torch.parallel.fsdp\n"
+        "import torch.distributed as dist\n"
         "from torchdistx_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert not _build._libs\n"
+        "assert not dist.is_initialized()\n"
         "print('clean')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT), PATH="/usr/bin:/bin")

@@ -19,11 +19,18 @@ inside the flash kernels, materialized or as the bucket table).  Mistral
 (``Llama.from_name("mistral_7b")``) runs its sliding window through the
 windowed flash kernels; ``models.Mixtral`` puts ``nn.MoE`` in the FFN
 slot, and ``nn.quantize_module`` stores weights as int8 for serving.
+
+Parallel: ``parallel.init_multihost()`` (NCCL on the card, ``gloo`` when
+asked for the CPU), ``parallel.create_mesh({"fsdp": ..., "sp": ...})``,
+``materialize_module(model, sharding_rule=parallel.fsdp_shard_rule(mesh))``
+and ``parallel.ShardedTrainStep``; Llama with ``sp_axis="sp"`` trains
+sequence-parallel through the flash ring (``ops.attention.
+ring_flash_attention``).
 """
 
-__version__ = "0.6.0.dev0"
+__version__ = "0.7.0.dev0"
 
-from . import data, examples, generation, interop, models, nn, ops, optimizers, serve
+from . import data, examples, generation, interop, models, nn, ops, optimizers, parallel, serve
 from .deferred_init import (
     can_materialize,
     deferred_init,
@@ -47,6 +54,7 @@ __all__ = [
     "nn",
     "ops",
     "optimizers",
+    "parallel",
     "serve",
     "generate",
     "manual_seed",

@@ -262,18 +262,27 @@ class RecordingSession:
     def _release(self, st: _DeviceState) -> None:
         """Drop the cached tensors of every group whose parameters have all
         died, where no node that made or wrote it touches a live group."""
-        dead = {g for g, refs in st.owners.items()
-                if not any(r in st.params for r in refs)}
-        for g in dead:
+        self._drop(st, {g for g, refs in st.owners.items()
+                        if not any(r in st.params for r in refs)})
+
+    def _drop(self, st: _DeviceState, groups: Set[int]) -> None:
+        for g in groups:
             nodes = self.group_nodes[g]
-            if any(not self.nodes[n].touches <= dead for n in nodes):
+            if any(not self.nodes[n].touches <= groups for n in nodes):
                 continue
             for n in nodes:
                 st.done.discard(n)
                 for i in self.nodes[n].outs:
                     st.cache.pop((n, i), None)
             st.persisted.discard(g)
-            del st.owners[g]
+            st.owners.pop(g, None)
+
+    def forget(self, targets, device) -> None:
+        """Drop the cached tensors of ``targets``' groups on ``device`` (a
+        sharded materialize keeps only a slice of each); a later replay that
+        needs them makes them again."""
+        st = self._devices[_norm(device)]
+        self._drop(st, {self.nodes[n].outs[i] for n, i in targets})
 
     def parameter(self, ref, device, requires_grad: bool) -> torch.nn.Parameter:
         """The one ``nn.Parameter`` for a materialized record (tied

@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, bf16 in and
-// out, fp32 recompute and accumulation.
+// Flash-attention backward for Hopper (sm_90a): two kernels, bf16 in, bf16
+// or f32 out, fp32 recompute and accumulation.
 //
 // Replaces the Pallas kernels torchdistx_tpu/ops/flash_attention.py
 // _bwd_dkv_kernel (K/V-stationary: dK, dV) and _bwd_dq_kernel
@@ -33,6 +33,12 @@
 // GQA: a dK/dV block owns one KV head and loops over the n_rep query heads
 // of its group itself, so the group sum happens in its registers and no f32
 // partials per query head reach device memory.
+//
+// Output type: bf16, the gradients of one attention call; or f32 (the JAX
+// kernels' dq_dtype / part_dtype = float32), which ring attention's
+// backward asks for: it adds one block's partial gradients per hop into
+// f32 accumulators that travel the ring, and a bf16 rounding per hop would
+// add up.  The accumulators are f32 in either case; only the store differs.
 //
 // Layout: q, o, dO, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); lse
 // (B, Hq, S) f32; all contiguous (the JAX package's layout).  Sq == Skv.
@@ -115,12 +121,16 @@ __device__ __forceinline__ void acc_ab(
   }
 }
 
+__device__ __forceinline__ void put(bf16* dst, float x) { *dst = __float2bfloat16(x); }
+__device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
+
 // Write this block's 64 x D accumulator (spread over the warps' fragments)
-// as bf16 rows of a (B, S, H, D) tensor, through fp32 staging in `stage`.
-template <int D>
+// as rows of a (B, S, H, D) bf16 or f32 tensor, through fp32 staging in
+// `stage`.
+template <int D, typename OutT>
 __device__ __forceinline__ void store_acc(
     wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, float* stage,
-    bf16* gbase, long long gstride, int valid, int warp) {
+    OutT* gbase, long long gstride, int valid, int warp) {
   using L = BwdLayout<D>;
   const int rm = (warp % 4) * 16;
   const int cn = (warp / 4) * (D / 2);
@@ -132,16 +142,16 @@ __device__ __forceinline__ void store_acc(
   __syncthreads();
   for (int i = threadIdx.x; i < BT * D; i += BWD_THREADS) {
     const int r = i / D, c = i % D;
-    if (r < valid) gbase[r * gstride + c] = __float2bfloat16(stage[r * L::LDO + c]);
+    if (r < valid) put(gbase + r * gstride + c, stage[r * L::LDO + c]);
   }
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ o,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, BiasArgs ba,
+                     OutT* __restrict__ dk, OutT* __restrict__ dv, BiasArgs ba,
                      int S, int Hq, int Hkv, int causal, int window, float scale) {
   using L = BwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -203,16 +213,16 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  store_acc<D>(acc_k, Ss, dk + koff, kstride, kvalid, warp);
-  store_acc<D>(acc_v, Ss, dv + koff, kstride, kvalid, warp);
+  store_acc<D, OutT>(acc_k, Ss, dk + koff, kstride, kvalid, warp);
+  store_acc<D, OutT>(acc_v, Ss, dv + koff, kstride, kvalid, warp);
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    bf16* __restrict__ dq, BiasArgs ba, int S, int Hq, int Hkv,
+                    OutT* __restrict__ dq, BiasArgs ba, int S, int Hq, int Hkv,
                     int causal, int window, float scale) {
   using L = BwdLayout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -268,41 +278,43 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     acc_ab<D>(acc_q, dSs, Ks, warp);
   }
 
-  store_acc<D>(acc_q, Ss, dq + qoff, qstride, qvalid, warp);
+  store_acc<D, OutT>(acc_q, Ss, dq + qoff, qstride, qvalid, warp);
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, void* dk, void* dv,
                        const BiasArgs& ba, int B, int S, int Hq, int Hkv,
                        int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = BwdLayout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BT - 1) / BT, B * Hkv);
-  flash_bwd_dkv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<D, OutT><<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), ba, S, Hq, Hkv, causal, window, scale);
+      static_cast<const bf16*>(dout), lse, static_cast<OutT*>(dk),
+      static_cast<OutT*>(dv), ba, S, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, void* dq,
                       const BiasArgs& ba, int B, int S, int Hq, int Hkv,
                       int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = BwdLayout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BT - 1) / BT, B * Hq);
-  flash_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<D, OutT><<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), ba, S, Hq,
+      static_cast<const bf16*>(dout), lse, static_cast<OutT*>(dq), ba, S, Hq,
       Hkv, causal, window, scale);
   return cudaGetLastError();
 }
@@ -313,46 +325,74 @@ bool bad_args(const void* bias, const void* table, const void* ids, int buckets,
   return table != nullptr && (ids == nullptr || buckets < 1 || buckets > MAX_BUCKETS);
 }
 
+template <typename OutT>
+int dkv(const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const void* lse, void* dk, void* dv, const void* bias,
+        const void* table, const void* ids, int buckets, int B, int S, int Hq,
+        int Hkv, int D, int causal, int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const BiasArgs ba = bias_args(bias, table, ids, buckets);
+  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window))
+    return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return (int)launch_dkv<128, OutT>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, window, scale, st);
+  if (D == 64)
+    return (int)launch_dkv<64, OutT>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, window, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename OutT>
+int dq(const void* q, const void* k, const void* v, const void* o,
+       const void* dout, const void* lse, void* dqo, const void* bias,
+       const void* table, const void* ids, int buckets, int B, int S, int Hq,
+       int Hkv, int D, int causal, int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const BiasArgs ba = bias_args(bias, table, ids, buckets);
+  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window))
+    return (int)cudaErrorInvalidValue;
+  if (D == 128)
+    return (int)launch_dq<128, OutT>(q, k, v, o, dout, l, dqo, ba, B, S, Hq, Hkv, causal, window, scale, st);
+  if (D == 64)
+    return (int)launch_dq<64, OutT>(q, k, v, o, dout, l, dqo, ba, B, S, Hq, Hkv, causal, window, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Each returns cudaGetLastError() after the launch (0 on success); the
 // Python wrappers raise on anything else.  bias, table and ids as in
 // flash_common.cuh (null when unused); window > 0 sets the sliding window
-// (causal only, no bias), window <= 0 none.
-extern "C" int tdx_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                      const void* o, const void* dout,
-                                      const void* lse, void* dk, void* dv,
-                                      const void* bias, const void* table,
-                                      const void* ids, int buckets, int B, int S,
-                                      int Hq, int Hkv, int D, int causal,
-                                      int window, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const BiasArgs ba = bias_args(bias, table, ids, buckets);
-  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window))
-    return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return (int)launch_dkv<128>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, window, scale, st);
-  if (D == 64)
-    return (int)launch_dkv<64>(q, k, v, o, dout, l, dk, dv, ba, B, S, Hq, Hkv, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+// (causal only, no bias), window <= 0 none.  The _bf16 functions write
+// bf16 gradients, the _f32 ones f32 gradients; the inputs are bf16 in both.
+#define TDX_DKV_ARGS                                                          \
+  const void *q, const void *k, const void *v, const void *o,                 \
+      const void *dout, const void *lse, void *dk, void *dv, const void *bias, \
+      const void *table, const void *ids, int buckets, int B, int S, int Hq,  \
+      int Hkv, int D, int causal, int window, float scale, void *stream
+#define TDX_DQ_ARGS                                                           \
+  const void *q, const void *k, const void *v, const void *o,                 \
+      const void *dout, const void *lse, void *dqo, const void *bias,         \
+      const void *table, const void *ids, int buckets, int B, int S, int Hq,  \
+      int Hkv, int D, int causal, int window, float scale, void *stream
+
+extern "C" int tdx_flash_bwd_dkv_bf16(TDX_DKV_ARGS) {
+  return dkv<bf16>(q, k, v, o, dout, lse, dk, dv, bias, table, ids, buckets, B, S,
+                   Hq, Hkv, D, causal, window, scale, stream);
 }
 
-extern "C" int tdx_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                     const void* o, const void* dout,
-                                     const void* lse, void* dq, const void* bias,
-                                     const void* table, const void* ids,
-                                     int buckets, int B, int S, int Hq, int Hkv,
-                                     int D, int causal, int window, float scale,
-                                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const BiasArgs ba = bias_args(bias, table, ids, buckets);
-  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window))
-    return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return (int)launch_dq<128>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, window, scale, st);
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, o, dout, l, dq, ba, B, S, Hq, Hkv, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+extern "C" int tdx_flash_bwd_dkv_f32(TDX_DKV_ARGS) {
+  return dkv<float>(q, k, v, o, dout, lse, dk, dv, bias, table, ids, buckets, B,
+                    S, Hq, Hkv, D, causal, window, scale, stream);
+}
+
+extern "C" int tdx_flash_bwd_dq_bf16(TDX_DQ_ARGS) {
+  return dq<bf16>(q, k, v, o, dout, lse, dqo, bias, table, ids, buckets, B, S, Hq,
+                  Hkv, D, causal, window, scale, stream);
+}
+
+extern "C" int tdx_flash_bwd_dq_f32(TDX_DQ_ARGS) {
+  return dq<float>(q, k, v, o, dout, lse, dqo, bias, table, ids, buckets, B, S,
+                   Hq, Hkv, D, causal, window, scale, stream);
 }

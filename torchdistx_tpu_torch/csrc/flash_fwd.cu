@@ -1,17 +1,28 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in and out, fp32
-// softmax state and accumulation.
+// Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax
+// state and accumulation.
 //
 // Replaces the Pallas kernel torchdistx_tpu/ops/flash_attention.py:_kernel
-// (launched by _flash_forward) in all its variants but the (m, l)
-// residuals: causal or not; plain output (the cold prefill of the serving
-// engine) or with the row log-sum-exp (emit_lse: the training forward,
-// whose lse the backward kernels in flash_bwd.cu and flash_bias_bwd.cu
-// consume); with no bias, an additive (Hq, Sq, Skv) bias, or T5's bucket
-// table (flash_common.cuh), the bias added in f32 to the scaled logits
-// before the mask as the TPU kernel adds it (the lse then includes the
-// bias, as the backward expects); or, causal only and without a bias, the
-// sliding window of Mistral and Mixtral: query i sees keys j with
+// (launched by _flash_forward) in all its variants: causal or not; plain
+// bf16 output (the cold prefill of the serving engine), with the row
+// log-sum-exp (emit_lse: the training forward, whose lse the backward
+// kernels in flash_bwd.cu and flash_bias_bwd.cu consume), or the (m, l)
+// residuals (emit_residuals: ring attention's per-hop block, below); with
+// no bias, an additive (Hq, Sq, Skv) bias, or T5's bucket table
+// (flash_common.cuh), the bias added in f32 to the scaled logits before
+// the mask as the TPU kernel adds it (the lse then includes the bias, as
+// the backward expects); or, causal only and without a bias, the sliding
+// window of Mistral and Mixtral: query i sees keys j with
 // i + diag - window < j <= i + diag.
+//
+// The residuals variant runs the same loop; only its epilogue differs.  It
+// writes the raw f32 accumulator sum_j exp(s_ij - m_i) v_j (no divide by l,
+// no bf16 rounding) as (B, Sq, Hq, D) f32, and each row's running max m
+// and running sum l as (B, Hq, Sq) f32, so that ring attention can merge
+// the blocks of several hops in f32 (ops/attention.py _ring_combine, which
+// rescales by exp(m - m')).  m stays in the natural-log domain of the
+// scaled and biased logits, as the loop computes it with expf.  The ring
+// takes it with no bias or an additive bias (the column slice of its
+// (Hq, Sq, S) bias), never with the window or the bucket table.
 //
 // What bounds it on an H100: operations.  Causal prefill at S = 2048,
 // D = 128 does ~2 * S^2 * D flops per head against ~4 * S * D * 2 bytes of
@@ -62,6 +73,16 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's _NEG_INF
 
+// What the epilogue writes: o (and lse when not null), or with acc set the
+// residuals acc, m and l instead.
+struct Outs {
+  bf16* o;
+  float* lse;
+  float* acc;
+  float* m;
+  float* l;
+};
+
 template <int D>
 struct Layout {
   static constexpr int LDH = D + 8;   // bf16 Q/K/V tiles (row stride, elements)
@@ -101,9 +122,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, BiasArgs ba, int Sq, int Skv, int Hq,
-                 int Hkv, float scale, int causal, int window) {
+                 const bf16* __restrict__ v, Outs out, BiasArgs ba, int Sq,
+                 int Skv, int Hq, int Hkv, float scale, int causal, int window) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
@@ -248,6 +268,27 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
   }
 
+  if (out.acc != nullptr) {
+    // the (m, l) residuals: the raw accumulator and each row's state
+    for (int i = lane; i < 16 * D; i += 32) {
+      const int r = r0 + i / D;
+      const int c = i % D;
+      const int qi = q0 + r;
+      if (qi < Sq)
+        out.acc[((long long)b * Sq + qi) * qstride + (long long)h * D + c] =
+            Os[r * L::LDO + c];
+    }
+    if (lane < 16) {
+      const int r = r0 + lane;
+      const int qi = q0 + r;
+      if (qi < Sq) {
+        out.m[((long long)b * Hq + h) * Sq + qi] = ms[r];
+        out.l[((long long)b * Hq + h) * Sq + qi] = ls[r];
+      }
+    }
+    return;
+  }
+
   // normalise and store this warp's rows
   for (int i = lane; i < 16 * D; i += 32) {
     const int r = r0 + i / D;
@@ -255,23 +296,22 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qi = q0 + r;
     if (qi < Sq) {
       const float val = Os[r * L::LDO + c] / fmaxf(ls[r], 1e-30f);
-      o[((long long)b * Sq + qi) * qstride + (long long)h * D + c] =
+      out.o[((long long)b * Sq + qi) * qstride + (long long)h * D + c] =
           __float2bfloat16(val);
     }
   }
-  if (lse != nullptr && lane < 16) {
+  if (out.lse != nullptr && lane < 16) {
     const int r = r0 + lane;
     const int qi = q0 + r;
     if (qi < Sq)
-      lse[((long long)b * Hq + h) * Sq + qi] = ms[r] + logf(fmaxf(ls[r], 1e-30f));
+      out.lse[((long long)b * Hq + h) * Sq + qi] = ms[r] + logf(fmaxf(ls[r], 1e-30f));
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, const BiasArgs& ba, int B, int Sq, int Skv,
-                   int Hq, int Hkv, float scale, int causal, int window,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const Outs& out,
+                   const BiasArgs& ba, int B, int Sq, int Skv, int Hq, int Hkv,
+                   float scale, int causal, int window, cudaStream_t stream) {
   const size_t smem = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -280,25 +320,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, ba, Sq, Skv,
-      Hq, Hkv, scale, causal, window);
+      static_cast<const bf16*>(v), out, ba, Sq, Skv, Hq, Hkv, scale, causal,
+      window);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 on success); the Python
-// wrapper raises on anything else.  A null lse is not written; bias, table
-// and ids as in flash_common.cuh (null when unused); window > 0 sets the
-// sliding window (causal only, no bias), window <= 0 none.
-extern "C" int tdx_flash_fwd_bf16(const void* q, const void* k, const void* v,
-                                  void* o, void* lse_out, const void* bias,
-                                  const void* table, const void* ids, int buckets,
-                                  int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                                  float scale, int causal, int window,
-                                  void* stream) {
+int run(const void* q, const void* k, const void* v, const Outs& out,
+        const void* bias, const void* table, const void* ids, int buckets, int B,
+        int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
+        int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* lse = static_cast<float*>(lse_out);
   const BiasArgs ba = tdx_flash::bias_args(bias, table, ids, buckets);
   if (Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
@@ -307,7 +338,43 @@ extern "C" int tdx_flash_fwd_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   if (window > 0 && (!causal || bias != nullptr || table != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (D == 128) return (int)launch<128>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, window, st);
-  if (D == 64) return (int)launch<64>(q, k, v, o, lse, ba, B, Sq, Skv, Hq, Hkv, scale, causal, window, st);
+  if (D == 128) return (int)launch<128>(q, k, v, out, ba, B, Sq, Skv, Hq, Hkv, scale, causal, window, st);
+  if (D == 64) return (int)launch<64>(q, k, v, out, ba, B, Sq, Skv, Hq, Hkv, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Each returns cudaGetLastError() after the launch (0 on success); the
+// Python wrapper raises on anything else.  bias, table and ids as in
+// flash_common.cuh (null when unused); window > 0 sets the sliding window
+// (causal only, no bias), window <= 0 none.
+
+// The bf16 output o; the lse too when its pointer is not null.
+extern "C" int tdx_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                                  void* o, void* lse_out, const void* bias,
+                                  const void* table, const void* ids, int buckets,
+                                  int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                                  float scale, int causal, int window,
+                                  void* stream) {
+  Outs out{static_cast<bf16*>(o), static_cast<float*>(lse_out), nullptr, nullptr,
+           nullptr};
+  return run(q, k, v, out, bias, table, ids, buckets, B, Sq, Skv, Hq, Hkv, D,
+             scale, causal, window, stream);
+}
+
+// The (m, l) residuals: acc (B, Sq, Hq, D) f32, m and l (B, Hq, Sq) f32;
+// no bias or an additive one, no window, no bucket table.
+extern "C" int tdx_flash_fwd_residuals_bf16(const void* q, const void* k,
+                                            const void* v, void* acc, void* m,
+                                            void* l, const void* bias, int B,
+                                            int Sq, int Skv, int Hq, int Hkv,
+                                            int D, float scale, int causal,
+                                            void* stream) {
+  if (acc == nullptr || m == nullptr || l == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Outs out{nullptr, nullptr, static_cast<float*>(acc), static_cast<float*>(m),
+           static_cast<float*>(l)};
+  return run(q, k, v, out, bias, nullptr, nullptr, 0, B, Sq, Skv, Hq, Hkv, D,
+             scale, causal, 0, stream);
 }

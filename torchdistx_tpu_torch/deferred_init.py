@@ -11,8 +11,8 @@ children first, so every parameter is born there, bit-identical to an
 eager construction from the same ``manual_seed``.
 
 A second ``materialize_module`` is a no-op, as in the JAX package (the
-reference raises).  Sharded materialization (``sharding_rule``) waits for
-the port's parallel stack and raises ``NotImplementedError``.
+reference raises).  With a ``sharding_rule`` (``parallel.fsdp_shard_rule``)
+each rank keeps only its piece of every tensor the rule shards.
 """
 
 from __future__ import annotations
@@ -101,20 +101,28 @@ def materialize_module(
     ``quantize_module`` drops a ``Linear``'s weight) is released at the
     next materialize of the session, so a model too large for the device
     in full precision can be materialized and quantized block by block.
-    Tied parameters stay one ``nn.Parameter``."""
-    if sharding_rule is not None:
-        raise NotImplementedError(
-            "sharded materialization waits for the port's parallel stack"
-        )
+    Tied parameters stay one ``nn.Parameter``.
+
+    ``sharding_rule(path, fake) -> NamedSharding`` (or None: unsharded)
+    names each tensor's sharding over a ``parallel.Mesh``; each rank keeps
+    its piece of it (``parallel.mesh.sharding_of`` reads the sharding and
+    the global shape back).  The tensors replay one at a time, each full
+    tensor dropped once its piece is cut, so the device holds the pieces
+    and one full tensor at most, never the whole model.  A piece is
+    bit-identical to the same slice of an eager construction."""
     entries = []
-    _collect(module, buffers_only, check_fn, entries)
-    groups = {}
-    for store, name, fake, is_param in entries:
+    _collect(module, "", buffers_only, check_fn, entries)
+    for _, store, name, fake, _ in entries:
         if not fake.is_deferred:
             raise RuntimeError(
                 f"{name!r} is fake but was made outside deferred_init and "
                 "cannot be materialized"
             )
+    if sharding_rule is not None:
+        _materialize_sharded(entries, sharding_rule, device)
+        return module
+    groups = {}
+    for _, store, name, fake, is_param in entries:
         dev = _norm(device if device is not None else _resolve_claim(fake))
         key = (id(fake._ref[0]), dev)
         groups.setdefault(key, (fake._ref[0], dev, []))[2].append(
@@ -128,9 +136,31 @@ def materialize_module(
     return module
 
 
-def _collect(module, buffers_only, check_fn, entries) -> None:
-    for child in module.children():
-        _collect(child, buffers_only, check_fn, entries)
+def _materialize_sharded(entries, rule, device) -> None:
+    from .parallel.mesh import mark_sharded, shard_tensor
+
+    made = {}
+    for path, store, name, fake, is_param in entries:
+        session, node, idx = fake._ref
+        key = (id(session), node, idx)
+        if key not in made:
+            dev = _norm(device if device is not None else _resolve_claim(fake))
+            sharding = rule(path, fake)
+            full = session.materialize_many([(node, idx)], dev)[0]
+            piece = shard_tensor(full, sharding)
+            if piece is full:
+                t = session.parameter((node, idx), dev, fake.requires_grad) if is_param else full
+            else:
+                session.forget([(node, idx)], dev)
+                t = nn.Parameter(piece, requires_grad=fake.requires_grad) if is_param else piece
+            del full, piece
+            made[key] = mark_sharded(t, sharding, fake.shape) if sharding is not None else t
+        store[name] = made[key]
+
+
+def _collect(module, prefix, buffers_only, check_fn, entries) -> None:
+    for cname, child in module.named_children():
+        _collect(child, f"{prefix}{cname}.", buffers_only, check_fn, entries)
     if check_fn is not None and not check_fn(module):
         return
     stores = [(module._buffers, False)]
@@ -139,4 +169,4 @@ def _collect(module, buffers_only, check_fn, entries) -> None:
     for store, is_param in stores:
         for name, value in store.items():
             if isinstance(value, FakeTensor):
-                entries.append((store, name, value, is_param))
+                entries.append((prefix + name, store, name, value, is_param))

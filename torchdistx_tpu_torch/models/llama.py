@@ -10,8 +10,12 @@ the FA2 kernels), within the sliding window when the config sets one
 (Mistral).  The block's FFN slot is pluggable and ``Llama.block_cls``
 names the block type, so Mixtral subclasses Llama as in the JAX package.
 ``remat`` recomputes each block in the backward through
-``torch.utils.checkpoint``.  Sequence parallelism is a later slice: its
-config fields (``sp_axis``, ``sp_mode``) are not carried yet.
+``torch.utils.checkpoint``.  With ``sp_axis`` set the sequence is sharded
+over that mesh axis (run the model inside the ``parallel.Mesh``, as
+``parallel.ShardedTrainStep`` does): each rank rotates its block from
+position ``axis_index * s`` and attends through ``ops.attention.
+sp_attention``, the flash ring (``sp_mode="ring"``, the default) or
+Ulysses.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..ops.attention import (
     cached_attention,
     multihead_attention,
     slot_cached_attention,
+    sp_attention,
 )
 from ..ops.flash_attention import flash_attention, resolve_use_flash
 
@@ -48,6 +53,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # sequence parallelism: the mesh axis the sequence is sharded over, and
+    # "ring" (the flash ring, or the plain ring without flash) or "ulysses"
+    # (two all-to-alls around local attention; head counts divisible by
+    # the axis size)
+    sp_axis: Optional[str] = None
+    sp_mode: str = "ring"
     # the kernels; None = auto: on for CUDA tensors, off on the CPU
     use_flash: Optional[bool] = None
     sliding_window: Optional[int] = None
@@ -58,6 +69,10 @@ class LlamaConfig:
     remat_policy: str = "full"
 
     def __post_init__(self) -> None:
+        if self.sp_mode not in ("ring", "ulysses"):
+            raise ValueError(
+                f"sp_mode must be 'ring' or 'ulysses', got {self.sp_mode!r}"
+            )
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}"
@@ -65,6 +80,10 @@ class LlamaConfig:
         if self.sliding_window is not None and self.sliding_window < 1:
             raise ValueError(
                 f"sliding_window must be >= 1, got {self.sliding_window}"
+            )
+        if self.sliding_window is not None and self.sp_axis is not None:
+            raise ValueError(
+                "sliding_window is not supported together with sp_axis"
             )
         if self.n_kv_heads is None:
             self.n_kv_heads = self.n_heads
@@ -178,9 +197,17 @@ class LlamaAttention(tnn.Module):
     def forward(self, x, rope, pos_offset: int = 0):
         cfg = self.cfg
         q, k, v = self._qkv(x)
+        if cfg.sp_axis is not None:
+            # this shard holds positions [axis_index * s, axis_index * s + s)
+            from ..parallel.collectives import axis_index
+
+            pos_offset = axis_index(cfg.sp_axis) * x.shape[1]
         q = apply_rope(q, rope, pos_offset)
         k = apply_rope(k, rope, pos_offset)
-        if resolve_use_flash(cfg.use_flash, x.device):
+        if cfg.sp_axis is not None:
+            out = sp_attention(q, k, v, axis=cfg.sp_axis, mode=cfg.sp_mode,
+                               causal=True, use_flash=cfg.use_flash)
+        elif resolve_use_flash(cfg.use_flash, x.device):
             out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
         else:
             out = multihead_attention(

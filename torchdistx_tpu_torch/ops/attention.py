@@ -1,6 +1,7 @@
-"""Attention ops, counterpart of ``torchdistx_tpu/ops/attention.py`` (the
-single-device and serving paths; the sequence-parallel ring/Ulysses paths
-are a later slice).
+"""Attention ops, counterpart of ``torchdistx_tpu/ops/attention.py``: the
+single-device and serving paths, and the sequence-parallel ones (the ring,
+flash-backed or plain, and Ulysses) over a mesh axis of
+``parallel.collectives``.
 
 Shapes follow (batch, seq, heads, head_dim) throughout.  GQA is supported
 by passing fewer KV heads; they are broadcast over query-head groups.
@@ -22,6 +23,12 @@ __all__ = [
     "multihead_attention",
     "cached_attention",
     "slot_cached_attention",
+    "ring_attention",
+    "ring_flash_attention",
+    "ring_flash_fwd_block",
+    "ring_bwd_block",
+    "ulysses_attention",
+    "sp_attention",
 ]
 
 
@@ -309,3 +316,260 @@ def multihead_attention(q, k, v, *, causal: bool = True,
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# -- sequence parallelism ----------------------------------------------------------
+#
+# Inside a mesh with the sequence dim sharded over ``axis``, each rank holds
+# its block of queries and keys.  The ring passes K/V blocks from rank i to
+# rank i + 1 (``collectives.shift``); after ``t`` hops rank ``idx`` holds
+# block ``j = (idx - t) mod n``.  Causal: blocks ``j < idx`` are fully
+# visible, ``j == idx`` takes the local causal mask, ``j > idx`` is
+# skipped.  K/V travel at hkv heads.
+
+
+_NEG_INF = -1e30  # the TPU kernels' finite mask value
+
+
+def _ring_bias_block(bias, j, skv):
+    """The held block's bias columns: shard j's keys are global columns
+    [j * skv, (j + 1) * skv)."""
+    return None if bias is None else bias[:, :, j * skv:(j + 1) * skv]
+
+
+def _validate_ring_bias(name, bias, hq, sq, n, skv):
+    if bias is not None and tuple(bias.shape) != (hq, sq, n * skv):
+        raise ValueError(
+            f"{name} bias shape {tuple(bias.shape)} != (H, sq_local, "
+            f"S_global) = {(hq, sq, n * skv)} — keep the key dim of the "
+            "bias UNsharded (in_specs P(None, axis, None))"
+        )
+
+
+def _hops(n, idx, causal):
+    """(hop, held block j, whether block j is computed, its causal mask)."""
+    for t in range(n):
+        j = (idx - t) % n
+        yield t, j, not (causal and j > idx), causal and j == idx
+
+
+def ring_attention(q, k, v, *, axis, causal: bool = True,
+                   scale: Optional[float] = None, bias=None):
+    """Ring attention over sequence shards, the plain path (the JAX ``jnp``
+    ring): each hop attends the local queries to the held K/V block with
+    an f32 online softmax, then passes the block on.  Differentiable by
+    autograd (the shift's backward is the opposite shift).  ``bias``:
+    (H, sq_local, S_global), this shard's query rows against every key."""
+    from ..parallel.collectives import shift
+    from ..parallel.mesh import resolve_axis
+
+    ax = resolve_axis(axis)
+    n, idx = ax.size, ax.index
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    _validate_ring_bias("ring_attention", bias, hq, sq, n, skv)
+    n_rep = hq // hkv
+    scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
+    local_mask = torch.tril(torch.ones((sq, skv), dtype=torch.bool, device=q.device))
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    row_max = torch.full((b, hq, sq), _NEG_INF, dtype=torch.float32, device=q.device)
+    row_sum = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    kb, vb = k, v
+    for t, j, _, diag in _hops(n, idx, causal):
+        # every hop computes, the blocks after this shard's masked whole, as
+        # the JAX ring does: each rank's autograd graph then holds every
+        # shift, and the backward's shifts pair up across the ranks
+        logits = _einsum_logits(q, _repeat_kv(kb, n_rep), scale_)
+        if bias is not None:
+            logits = logits + _ring_bias_block(bias, j, skv)[None].float()
+        if causal and j > idx:
+            logits = torch.full_like(logits, _NEG_INF)
+        elif diag:
+            logits = logits.masked_fill(~local_mask, _NEG_INF)
+        new_max = torch.maximum(row_max, logits.amax(-1))
+        correction = torch.exp(row_max - new_max)
+        probs = torch.exp(logits - new_max[..., None])
+        row_sum = row_sum * correction + probs.sum(-1)
+        acc = acc * correction[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", probs, _repeat_kv(vb, n_rep).float())
+        row_max = new_max
+        if t < n - 1:
+            kb, vb = shift((kb, vb), ax)
+    out = acc / row_sum.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _ring_combine(acc, m, l, raw_j, m_j, l_j):
+    """Two-level online-softmax merge, in f32: fold one block's raw
+    accumulator ``raw_j`` (B, Sq, Hq, D) and its (m_j, l_j) (B, Hq, Sq)
+    into the running ``acc`` (B, Hq, Sq, D) and (m, l)."""
+    new_m = torch.maximum(m, m_j)
+    alpha = torch.exp(m - new_m)
+    beta = torch.exp(m_j - new_m)
+    acc = acc * alpha[..., None] + raw_j.transpose(1, 2) * beta[..., None]
+    return acc, new_m, l * alpha + l_j * beta
+
+
+def ring_flash_fwd_block(q, kb, vb, acc, m, l, *, causal: bool,
+                         scale: Optional[float] = None, bias=None):
+    """One hop of the flash ring's forward: the residuals kernel on the
+    held block (``causal`` on the diagonal block; ``bias`` its column
+    slice), merged into (acc, m, l) by ``_ring_combine``."""
+    from .flash_attention import flash_attention_residuals
+
+    return _ring_combine(acc, m, l, *flash_attention_residuals(
+        q, kb, vb, causal=causal, scale=scale, bias=bias))
+
+
+def ring_bwd_block(q, kb, vb, o, lse, do, bias=None, *, causal: bool,
+                   scale: Optional[float] = None):
+    """One hop of the flash ring's backward: the dK/dV and dQ kernels on the
+    held block, seeded with the GLOBAL row lse (so each block's partial
+    probabilities are exact) and the global output ``o``, writing f32
+    partials; with ``bias`` (the block's column slice) the dbias kernel
+    too.  Returns f32 (dq, dk, dv, dbias or None); the GQA groups of dk
+    and dv are summed in the kernel."""
+    from .flash_attention import flash_backward
+
+    grads = flash_backward(q, kb, vb, o, lse, do, causal=causal, scale=scale, bias=bias,
+                           dq_dtype=torch.float32, part_dtype=torch.float32)
+    return (*grads[:3], grads[3].float() if bias is not None else None)
+
+
+
+class _RingFlash(torch.autograd.Function):
+    """The flash ring with the JAX whole-ring VJP: the forward's per-hop
+    residuals merged in f32, the global lse saved; the backward a second
+    ring in which the f32 dK/dV accumulators travel with their blocks and
+    land home after n hops, and dbias is written by column slice (each
+    block visits once)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, ax, causal, scale):
+        from ..parallel.collectives import shift
+
+        n, idx = ax.size, ax.index
+        b, sq, hq, d = q.shape
+        skv = k.shape[1]
+        acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, hq, sq), _NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+        kb, vb = k, v
+        for t, j, compute, diag in _hops(n, idx, causal):
+            if compute:
+                acc, m, l = ring_flash_fwd_block(q, kb, vb, acc, m, l, causal=diag, scale=scale,
+                                                 bias=_ring_bias_block(bias, j, skv))
+            if t < n - 1:
+                kb, vb = shift((kb, vb), ax)
+        safe_l = l.clamp_min(1e-30)
+        out = (acc / safe_l[..., None]).transpose(1, 2).to(q.dtype)
+        lse = m + torch.log(safe_l)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.ax, ctx.causal, ctx.scale = ax, causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.collectives import shift
+
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        ax, causal, scale = ctx.ax, ctx.causal, ctx.scale
+        n, idx = ax.size, ax.index
+        skv = k.shape[1]
+        g = g.contiguous()
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        db = (torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
+              if bias is not None else None)
+        dkb = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dvb = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        kb, vb = k, v
+        for t, j, compute, diag in _hops(n, idx, causal):
+            if compute:
+                dq_c, dk_c, dv_c, db_c = ring_bwd_block(
+                    q, kb, vb, out, lse, g, _ring_bias_block(bias, j, skv),
+                    causal=diag, scale=scale)
+                dq += dq_c
+                dkb += dk_c
+                dvb += dv_c
+                if db_c is not None:
+                    db[:, :, j * skv:(j + 1) * skv] = db_c
+            if t < n - 1:
+                kb, vb = shift((kb, vb), ax)
+            dkb, dvb = shift((dkb, dvb), ax)
+        dbias = db.to(bias.dtype) if bias is not None else None
+        return (dq.to(q.dtype), dkb.to(k.dtype), dvb.to(v.dtype), dbias,
+                None, None, None)
+
+
+def ring_flash_attention(q, k, v, *, axis, causal: bool = True,
+                         scale: Optional[float] = None, bias=None):
+    """Ring attention with the flash kernels per hop: the same schedule and
+    exact result as :func:`ring_attention`, without an (sq x skv) logits
+    matrix per hop.  The forward merges the residuals kernel's raw f32
+    blocks; the backward is a second ring through the dK/dV and dQ kernels'
+    f32 variants (the plain versions on CPU tensors).  Differentiable in
+    q, k, v and ``bias`` (H, sq_local, S_global)."""
+    from ..parallel.mesh import resolve_axis
+
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(
+            "causal ring attention requires equal per-shard query and key "
+            f"lengths, got {q.shape[1]} vs {k.shape[1]}"
+        )
+    ax = resolve_axis(axis)
+    if bias is not None:
+        _validate_ring_bias("ring_flash_attention", bias, q.shape[2], q.shape[1],
+                            ax.size, k.shape[1])
+    return _RingFlash.apply(q, k, v, bias, ax, causal, scale)
+
+
+def ulysses_attention(q, k, v, *, axis, causal: bool = True,
+                      scale: Optional[float] = None, use_flash: Optional[bool] = None):
+    """All-to-all (DeepSpeed-Ulysses) sequence parallelism: one all-to-all
+    reshards (seq-sharded, all heads) to (full seq, heads / n), attention
+    runs locally (the flash kernels when ``use_flash`` resolves on), and a
+    second all-to-all reshards back.  Needs query and kv head counts
+    divisible by the axis size."""
+    from ..parallel.collectives import all_to_all
+    from ..parallel.mesh import resolve_axis
+    from .flash_attention import flash_attention, resolve_use_flash
+
+    ax = resolve_axis(axis)
+    n = ax.size
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq % n != 0 or hkv % n != 0:
+        raise ValueError(
+            f"ulysses_attention needs head counts divisible by the axis "
+            f"size: hq={hq}, hkv={hkv}, |{ax.name}|={n} — use ring attention "
+            "for non-dividing head counts"
+        )
+    qg, kg, vg = (all_to_all(t, ax, 2, 1) for t in (q, k, v))
+    if resolve_use_flash(use_flash, q.device):
+        out = flash_attention(qg, kg, vg, causal=causal, scale=scale)
+    else:
+        out = multihead_attention(qg, kg, vg, causal=causal, scale=scale)
+    return all_to_all(out, ax, 1, 2)
+
+
+def sp_attention(q, k, v, *, axis, mode: str = "ring", causal: bool = True,
+                 scale: Optional[float] = None, bias=None,
+                 use_flash: Optional[bool] = None):
+    """The sequence-parallel dispatch the models share: "ring" takes the
+    flash ring when ``use_flash`` resolves on (auto: CUDA tensors) and the
+    plain ring otherwise; "ulysses" the all-to-all strategy (no bias)."""
+    from .flash_attention import resolve_use_flash
+
+    if mode == "ulysses":
+        if bias is not None:
+            raise ValueError(
+                "ulysses sequence parallelism does not support an additive "
+                "bias; use mode='ring'"
+            )
+        return ulysses_attention(q, k, v, axis=axis, causal=causal, scale=scale,
+                                 use_flash=use_flash)
+    if mode != "ring":
+        raise ValueError(f"sp mode must be 'ring' or 'ulysses', got {mode!r}")
+    if resolve_use_flash(use_flash, q.device):
+        return ring_flash_attention(q, k, v, axis=axis, causal=causal, scale=scale,
+                                    bias=bias)
+    return ring_attention(q, k, v, axis=axis, causal=causal, scale=scale, bias=bias)

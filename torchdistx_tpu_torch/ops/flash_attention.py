@@ -2,20 +2,23 @@
 versions, the dispatcher between them, and its gradient.
 
 Counterpart of ``torchdistx_tpu/ops/flash_attention.py``.  Five kernels
-replace the Pallas ones, in every variant but the ``(m, l)`` residuals
-(ring attention's, which waits for the parallel stack):
+replace the Pallas ones, in every variant:
 
 - ``csrc/flash_fwd.cu`` replaces ``_kernel`` (launched by
-  ``_flash_forward``): plain output for the serving engine's prefill, or
-  with the row log-sum-exp (``emit_lse``) for the training forward;
-  causal or not; with no bias, an additive (Hq, Sq, Skv) ``bias`` shared
-  across the batch, or T5's in-kernel bucket bias from an (Hq, buckets)
-  ``rel_bias_table``; or with Mistral's sliding ``window`` (causal, no
-  bias: query i sees keys (i + diag - window, i + diag]), whose pruned
-  tiles make the work grow with S * window;
+  ``_flash_forward``): plain output for the serving engine's prefill,
+  with the row log-sum-exp (``emit_lse``) for the training forward, or
+  the ``(m, l)`` residuals (``emit_residuals``: the raw f32 accumulator
+  and each row's running max and sum) for ring attention's per-hop block,
+  which merges the blocks of its hops in f32; causal or not; with no
+  bias, an additive (Hq, Sq, Skv) ``bias`` shared across the batch, or
+  T5's in-kernel bucket bias from an (Hq, buckets) ``rel_bias_table``;
+  or with Mistral's sliding ``window`` (causal, no bias: query i sees
+  keys (i + diag - window, i + diag]), whose pruned tiles make the work
+  grow with S * window;
 - ``csrc/flash_bwd.cu`` replaces ``_bwd_dkv_kernel`` (dK, dV) and
   ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``, in the
-  same variants;
+  same variants, writing bf16 gradients or, for the ring's per-hop
+  partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``);
 - ``csrc/flash_bias_bwd.cu`` replaces ``_bwd_dbias_kernel`` (launched by
   ``_flash_dbias``) and ``_bwd_dtable_kernel`` (``_flash_dtable``): the
   gradient of the bias or of the bucket table.
@@ -30,8 +33,8 @@ saves ``(q, k, v, o, lse)`` and whose backward launches the backward
 kernels, as the JAX ``custom_vjp`` does.  Otherwise the serving call is
 unchanged.  A CUDA tensor launches the kernels or raises; the plain
 versions (``flash_attention_reference``, ``flash_attention_lse_reference``,
-``flash_bwd_reference``, ``flash_bias_grad_reference``) run only for
-tensors on the CPU.
+``flash_attention_residuals_reference``, ``flash_bwd_reference``,
+``flash_bias_grad_reference``) run only for tensors on the CPU.
 
 Bucket ids.  T5's bucket of a distance takes an f32 ``log``; one ulp of
 difference flips a bucket at its edge.  So the ids are never recomputed
@@ -52,7 +55,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import _causal_mask, _repeat_kv, multihead_attention
+from .attention import _NEG_INF, _causal_mask, _repeat_kv, multihead_attention
 
 __all__ = [
     "resolve_use_flash",
@@ -62,6 +65,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_reference",
     "flash_attention_lse_reference",
+    "flash_attention_residuals_reference",
+    "flash_attention_residuals",
     "flash_bwd_reference",
     "flash_bias_grad_reference",
     "flash_fwd_cuda",
@@ -198,6 +203,23 @@ def flash_attention_lse_reference(q, k, v, *, causal: bool = True,
     return out, torch.logsumexp(logits, dim=-1)
 
 
+def flash_attention_residuals_reference(q, k, v, *, causal: bool = True,
+                                        scale: Optional[float] = None, bias=None):
+    """The plain version of the ``emit_residuals`` forward, in f32: the raw
+    accumulator ``sum_j exp(s_ij - m_i) v_j`` (B, Sq, Hq, D), the row max
+    ``m`` and the row sum ``l = sum_j exp(s_ij - m_i)`` (B, Hq, Sq) of the
+    scaled (and biased) logits, masked pairs at the kernels' finite -1e30
+    as the TPU kernel masks them."""
+    logits, mask = _f32_logits(q, k, causal, scale, bias)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, _NEG_INF)
+    m = logits.amax(-1)
+    p = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bhqk,bkhd->bqhd", p,
+                       _repeat_kv(v.float(), q.shape[2] // k.shape[2]))
+    return acc, m, p.sum(-1)
+
+
 def _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window=None):
     """The backward's f32 recompute from the saved ``o`` and ``lse``: the
     probabilities ``p`` (0 where masked) and the logit gradient
@@ -228,12 +250,14 @@ def _bias_grad(dlogits, bias, table, bucket_cfg):
 
 def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: Optional[float] = None, bias=None, table=None,
-                        bucket_cfg=None, window=None):
+                        bucket_cfg=None, window=None, dq_dtype=None,
+                        part_dtype=None):
     """The plain backward, in f32 from the saved ``o`` and ``lse``: the
     FA2 formulas of the JAX ``_bwd_recompute``, masked by the causal mask
     and the ``window``'s band.  GQA partials are summed over each group.
-    Returns (dq, dk, dv) in the inputs' dtypes, and with a ``bias`` or
-    ``table`` also its gradient (``flash_bias_grad_reference``)."""
+    Returns (dq, dk, dv) in the inputs' dtypes, or ``dq_dtype`` and
+    ``part_dtype`` (dk, dv) when given, and with a ``bias`` or ``table``
+    also its gradient (``flash_bias_grad_reference``)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     n_rep = hq // hkv
@@ -246,7 +270,8 @@ def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
     skv = k.shape[1]
     dk = dk.reshape(b, skv, hkv, n_rep, d).sum(3)
     dv = dv.reshape(b, skv, hkv, n_rep, d).sum(3)
-    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    grads = (dq.to(dq_dtype or q.dtype), dk.to(part_dtype or k.dtype),
+             dv.to(part_dtype or v.dtype))
     if bias is None and table is None:
         return grads
     return grads + (_bias_grad(dlogits, bias, table, bucket_cfg),)
@@ -336,20 +361,34 @@ def _check_window(causal, window, bias, table):
         raise ValueError("window is mutually exclusive with bias/rel_bias_table")
 
 
+def _check_residuals(window, table):
+    """The ring takes the residuals with no bias or an additive one: the JAX
+    package refuses ``sp_axis`` with a window or the bucket table."""
+    if window is not None or table is not None:
+        raise ValueError("the (m, l) residuals take no window and no bucket table")
+
+
 def flash_fwd_cuda(q, k, v, *, causal: bool = True,
                    scale: Optional[float] = None, return_lse: bool = False,
-                   bias=None, table=None, bucket_cfg=None, window=None):
+                   return_residuals: bool = False, bias=None, table=None,
+                   bucket_cfg=None, window=None):
     """Launch the forward kernel on CUDA tensors (bf16, D in {64, 128},
     (B, S, H, D)).  With ``return_lse`` it also writes the f32 row
-    log-sum-exp (B, Hq, Sq) and returns ``(out, lse)``.  ``bias``: bf16
-    (Hq, Sq, Skv); ``table``: bf16 (Hq, buckets) with ``bucket_cfg =
-    (buckets, max_dist, bidirectional)``, Sq == Skv; ``window``: the
-    sliding window (causal, no bias).  Adds one to
-    ``flash_fwd_cuda.launches`` (plain output) or ``.lse_launches``, and
-    to ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``
-    for those variants."""
+    log-sum-exp (B, Hq, Sq) and returns ``(out, lse)``; with
+    ``return_residuals`` it returns ``(acc, m, l)`` instead: the raw f32
+    accumulator (B, Sq, Hq, D) and each row's f32 max and sum (B, Hq, Sq),
+    no bias or ``bias`` only.  ``bias``: bf16 (Hq, Sq, Skv); ``table``:
+    bf16 (Hq, buckets) with ``bucket_cfg = (buckets, max_dist,
+    bidirectional)``, Sq == Skv; ``window``: the sliding window (causal, no
+    bias).  Adds one to ``flash_fwd_cuda.launches`` (plain output),
+    ``.lse_launches`` or ``.residual_launches``, and to ``.bias_launches``,
+    ``.bucket_launches`` or ``.window_launches`` for those variants."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
+    if return_residuals:
+        if return_lse:
+            raise ValueError("return_lse and return_residuals are exclusive")
+        _check_residuals(window, table)
     _check("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)), d)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -360,29 +399,45 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
     _check_window(causal, window, bias, table)
     bargs, keep = _bias_args("flash_fwd_cuda", q, k, bias, table, bucket_cfg)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn = _fn("flash_fwd", "tdx_flash_fwd_bf16",
-             [_P] * 5 + _BIAS_ARGS + [_I] * 6 + [_F, _I, _I, _P])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if return_lse else None, *bargs,
-                 b, sq, skv, hq, hkv, d, _scale(scale, d), int(causal),
-                 int(window or 0), stream)
+    if return_residuals:
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m, l = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+                for _ in range(2))
+        fn = _fn("flash_fwd", "tdx_flash_fwd_residuals_bf16",
+                 [_P] * 7 + [_I] * 6 + [_F, _I, _P])
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                     m.data_ptr(), l.data_ptr(), bargs[0], b, sq, skv, hq, hkv, d,
+                     _scale(scale, d), int(causal), stream)
+        outs = (acc, m, l)
+    else:
+        out = torch.empty_like(q)
+        lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+               if return_lse else None)
+        fn = _fn("flash_fwd", "tdx_flash_fwd_bf16",
+                 [_P] * 5 + _BIAS_ARGS + [_I] * 6 + [_F, _I, _I, _P])
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr() if return_lse else None, *bargs,
+                     b, sq, skv, hq, hkv, d, _scale(scale, d), int(causal),
+                     int(window or 0), stream)
+        outs = (out, lse) if return_lse else out
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     _count(flash_fwd_cuda, bias, table, window)
-    if return_lse:
+    if return_residuals:
+        flash_fwd_cuda.residual_launches += 1
+    elif return_lse:
         flash_fwd_cuda.lse_launches += 1
-        return out, lse
-    flash_fwd_cuda.launches += 1
-    return out
+    else:
+        flash_fwd_cuda.launches += 1
+    return outs
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.lse_launches = 0
+flash_fwd_cuda.residual_launches = 0
 flash_fwd_cuda.bias_launches = 0
 flash_fwd_cuda.bucket_launches = 0
 flash_fwd_cuda.window_launches = 0
@@ -422,39 +477,57 @@ def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
 
 
+def _out_dtype(fn_name, dtype):
+    """The output variant: None or bf16 the bf16 kernels, f32 the f32 ones."""
+    if dtype in (None, torch.bfloat16):
+        return torch.bfloat16, "bf16"
+    if dtype == torch.float32:
+        return torch.float32, "f32"
+    raise TypeError(f"{fn_name} writes bf16 or float32, not {dtype}")
+
+
 def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                        scale: Optional[float] = None, bias=None, table=None,
-                       bucket_cfg=None, window=None):
+                       bucket_cfg=None, window=None, part_dtype=None):
     """Launch the K/V-stationary backward kernel: (dk, dv), GQA groups
-    summed in the kernel.  Bias and window arguments as
+    summed in the kernel, in bf16 or with ``part_dtype=torch.float32`` in
+    f32 (the ring's per-hop partials).  Bias and window arguments as
     ``flash_fwd_cuda``'s.  Adds one to ``flash_bwd_dkv_cuda.launches`` (and
-    ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``)."""
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd", "tdx_flash_bwd_dkv_bf16", "flash_bwd_dkv_cuda",
+    ``.f32_launches``, ``.bias_launches``, ``.bucket_launches`` or
+    ``.window_launches``)."""
+    dt, tag = _out_dtype("flash_bwd_dkv_cuda", part_dtype)
+    dk = torch.empty(k.shape, dtype=dt, device=k.device)
+    dv = torch.empty(v.shape, dtype=dt, device=v.device)
+    _launch_bwd("flash_bwd", f"tdx_flash_bwd_dkv_{tag}", "flash_bwd_dkv_cuda",
                 q, k, v, o, lse, do, (dk, dv), causal, scale, bias, table, bucket_cfg,
                 window)
     flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.f32_launches += tag == "f32"
     _count(flash_bwd_dkv_cuda, bias, table, window)
     return dk, dv
 
 
 def flash_bwd_dq_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                       scale: Optional[float] = None, bias=None, table=None,
-                      bucket_cfg=None, window=None):
-    """Launch the Q-stationary backward kernel: dq.  Adds one to
-    ``flash_bwd_dq_cuda.launches`` (and ``.bias_launches``,
-    ``.bucket_launches`` or ``.window_launches``)."""
-    dq = torch.empty_like(q)
-    _launch_bwd("flash_bwd", "tdx_flash_bwd_dq_bf16", "flash_bwd_dq_cuda",
+                      bucket_cfg=None, window=None, dq_dtype=None):
+    """Launch the Q-stationary backward kernel: dq, in bf16 or with
+    ``dq_dtype=torch.float32`` in f32.  Adds one to
+    ``flash_bwd_dq_cuda.launches`` (and ``.f32_launches``,
+    ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``)."""
+    dt, tag = _out_dtype("flash_bwd_dq_cuda", dq_dtype)
+    dq = torch.empty(q.shape, dtype=dt, device=q.device)
+    _launch_bwd("flash_bwd", f"tdx_flash_bwd_dq_{tag}", "flash_bwd_dq_cuda",
                 q, k, v, o, lse, do, (dq,), causal, scale, bias, table, bucket_cfg,
                 window)
     flash_bwd_dq_cuda.launches += 1
+    flash_bwd_dq_cuda.f32_launches += tag == "f32"
     _count(flash_bwd_dq_cuda, bias, table, window)
     return dq
 
 
 for _f in (flash_bwd_dkv_cuda, flash_bwd_dq_cuda):
     _f.launches = _f.bias_launches = _f.bucket_launches = _f.window_launches = 0
+    _f.f32_launches = 0
 
 
 def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, *, causal: bool = True,
@@ -506,22 +579,39 @@ def flash_attention_lse(q, k, v, *, causal: bool = True,
     return flash_attention_lse_reference(q, k, v, **kw)
 
 
+def flash_attention_residuals(q, k, v, *, causal: bool = True,
+                              scale: Optional[float] = None, bias=None):
+    """(acc, m, l), the ``(m, l)`` residuals forward: the kernel on CUDA
+    tensors, the plain version on the CPU.  Not differentiable: ring
+    attention's backward is a ring of its own."""
+    _check_shapes(q, k, causal, bias, None, None)
+    if q.is_cuda:
+        return flash_fwd_cuda(q, k, v, causal=causal, scale=scale, bias=bias,
+                              return_residuals=True)
+    return flash_attention_residuals_reference(q, k, v, causal=causal, scale=scale,
+                                               bias=bias)
+
+
 def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
                    scale: Optional[float] = None, bias=None, table=None,
-                   bucket_cfg=None, bias_grad: bool = True, window=None):
-    """(dq, dk, dv), and with a bias or table its gradient (None when
-    ``bias_grad`` is off): the kernels on CUDA tensors, the plain version
-    on the CPU."""
+                   bucket_cfg=None, bias_grad: bool = True, window=None,
+                   dq_dtype=None, part_dtype=None):
+    """(dq, dk, dv), in the inputs' dtypes or ``dq_dtype`` / ``part_dtype``,
+    and with a bias or table its gradient (None when ``bias_grad`` is off):
+    the kernels on CUDA tensors, the plain version on the CPU."""
     kw = dict(causal=causal, scale=scale)
     bkw = dict(bias=bias, table=table, bucket_cfg=bucket_cfg)
     has_bias = bias is not None or table is not None
     if not q.is_cuda:
-        grads = flash_bwd_reference(q, k, v, o, lse, do, **kw, **bkw, window=window)
+        grads = flash_bwd_reference(q, k, v, o, lse, do, **kw, **bkw, window=window,
+                                    dq_dtype=dq_dtype, part_dtype=part_dtype)
         if has_bias and not bias_grad:
             grads = grads[:3] + (None,)
         return grads
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window)
-    dq = flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window,
+                                part_dtype=part_dtype)
+    dq = flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window,
+                           dq_dtype=dq_dtype)
     if not has_bias:
         return dq, dk, dv
     if not bias_grad:
