@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each fatal:
 
 1. build the port's CUDA kernels from ``torchdistx_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, started together);
+   ``nvcc`` (one process per source, started together), and print the
+   ptxas lines (registers, spills) of each kernel of the two Hopper
+   sources, ``flash_fwd.cu`` and ``flash_bwd.cu``;
 2. hold each kernel against its plain PyTorch version on the card, in bf16
    at llama3_8b shapes (Hq 32, Hkv 8, D 128), and time kernel, plain
    version and the PyTorch library call that computes the same function
@@ -33,9 +35,11 @@ Phases, each fatal:
    streams equal to ``speculate=0``'s is printed, not gated); (d) paged +
    speculate 4 + int8 (the cache at most 0.53 of the bf16 one), and each
    remaining decode variant's engine alone;
-4. hold the flash backward kernels (``flash_bwd_dkv``, ``flash_bwd_dq``) and
-   the forward's ``lse`` variant against their plain versions, and time
-   them beside the SDPA backward (a yardstick the port never calls);
+4. hold the flash backward kernels (``flash_bwd_dkv``, its delta
+   pre-pass ``flash_bwd_delta``, ``flash_bwd_dq``) and the forward's
+   ``lse`` variant against their plain versions, dK/dV bit for bit
+   against a second launch, and time them beside the SDPA backward (a
+   yardstick the port never calls);
 5. one backward step of a 4-layer, full-width llama_1b through the kernels
    and through the plain path, each held against the f32 plain path;
 6. train llama_1b at full width and depth: ``deferred_init`` on the card
@@ -124,8 +128,10 @@ Phases, each fatal:
    (counters reset just before), the first loss held against the plain
    path's.
 
-It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward and dK/dV
+variant: its ms, bound and library ms, the factor over the library and over
+the bound.  It prints the card's name and power limit, one ``{"kernels":
+[...]}`` line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
 """
@@ -208,6 +214,12 @@ BWD_REPORTED_D64 = (8, 1024, 20, 20, 64)
 # kernel lse vs the plain f32 log-sum-exp: both take f32 sums of exact
 # products of the same bf16 inputs, in another order; lse is O(10)
 LSE_ATOL = 1e-3
+# the delta pre-pass vs its plain version: f32 sums of the same D exact
+# products of bf16 values in another order (delta of O(1), rounding ~1e-6)
+DELTA_ATOL = 1e-4
+# the two rebuilt kernels, whose ptxas lines (registers, spills) the build
+# phase prints per kernel
+HOPPER_LIBS = ("flash_fwd", "flash_bwd")
 TRAIN_STEPS = 10
 # (N, D, V) of the fused LM-head loss: llama_1b (2 x 2048 tokens), gpt2_large
 # (8 x 1024 tokens, vocab 50257 with no tile divisor), a prime and a tiny N
@@ -370,6 +382,30 @@ def _sdpa_gqa(torch, q, k, v, **kw):
         q, k, v, enable_gqa=True, **kw)
 
 
+def speed_line(phase, variant, row, ms, bound, library):
+    """Print one forward or dK/dV variant's time beside its bound and the
+    library call's (keys of ``row``): the factor over the library and over
+    the bound, and the bound's share of the kernel's time."""
+    ms, bound, lib = row[ms], row[bound], row.get(library)
+    line = {"phase": phase, "variant": variant, "ms": ms, "bound_ms": bound,
+            "library_ms": lib, "x_library": ms / lib if lib else None,
+            "x_bound": ms / bound, "bound_fraction": bound / ms}
+    print("speed", json.dumps(line))
+    return line
+
+
+def ptxas_lines(log_text):
+    """Per kernel of a ``-Xptxas -v`` log: its mangled name, then the
+    registers, the spills and any warning."""
+    out = []
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            out.append(ln.split("'")[1] if "'" in ln else ln.strip())
+        elif "Used" in ln or "spill" in ln or "warning" in ln.lower():
+            out.append("    " + ln.split("info    :")[-1].strip())
+    return out
+
+
 def check_flash(torch, device, hq=32, hkv=8, d=128, cases=FLASH_CASES, iters=10):
     from torchdistx_tpu_torch.ops import flash_attention as fa
 
@@ -397,6 +433,9 @@ def check_flash(torch, device, hq=32, hkv=8, d=128, cases=FLASH_CASES, iters=10)
         row["bound_ms"], row["bound_by"] = flash_bound(b, s, s, hq, hkv, d)
         rows.append(row)
         print("flash", json.dumps(row))
+        if device.type == "cuda" and (b, s) == FLASH_REPORTED:
+            speed_line(2, f"plain causal B{b} S{s} Hq{hq}/Hkv{hkv} D{d}", row, "ms",
+                       "bound_ms", "library_ms")
     return rows, failures
 
 
@@ -1041,12 +1080,21 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
         o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True)
         _, lse_ref = fa.flash_attention_lse_reference(q, k, v)
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
+        dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
         dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do)
+        delta = fa.flash_bwd_delta_cuda(o, do)
         torch.cuda.synchronize()
         rq, rk, rv = fa.flash_bwd_reference(q, k, v, o, lse, do)
         lse_err = float((lse - lse_ref).abs().max())
         case = (b, s, hq, hkv, d)
-        row = {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "lse_err": lse_err}
+        row = {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "lse_err": lse_err,
+               "delta_err": float((delta - fa.flash_bwd_delta_reference(o, do)).abs().max()),
+               "dkv_bitwise_repeat": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
+        if row["delta_err"] > DELTA_ATOL:
+            failures.append(f"flash bwd delta {case}: max|d|={row['delta_err']}")
+        if not row["dkv_bitwise_repeat"]:
+            failures.append(f"flash bwd dk/dv {case}: two launches differ")
+        del dk2, dv2, delta
         for name, out, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
             ok, err = _close(torch, out, ref)
             row[f"{name}_err"] = err
@@ -1057,6 +1105,11 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
         if case in (BWD_REPORTED, BWD_REPORTED_D64):
             row["dkv_ms"] = time_ms(
                 torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do), iters)
+            row["delta_ms"] = time_ms(torch, lambda: fa.flash_bwd_delta_cuda(o, do), iters)
+            row["delta_plain_ms"] = time_ms(
+                torch, lambda: fa.flash_bwd_delta_reference(o, do), iters)
+            row["delta_bound_ms"] = ((2.0 * 2 * b * s * hq * d + 4.0 * b * hq * s)
+                                     / H100_BYTES_PER_S * 1e3)
             row["dq_ms"] = time_ms(
                 torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, o, lse, do), iters)
             row["plain_ms"] = time_ms(
@@ -1079,6 +1132,11 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
             row["lse_bound_ms"] = max(fb, (2.0 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
                                            + 4.0 * b * hq * s) / H100_BYTES_PER_S * 1e3)
             del sdpa, qt, kt, vt
+            shape = f"B{b} S{s} Hq{hq}/Hkv{hkv} D{d}"
+            speed_line(4, f"lse causal {shape}", row, "lse_ms", "lse_bound_ms",
+                       "lse_library_ms")
+            speed_line(4, f"dkv bf16 causal {shape} (library: all three gradients)", row,
+                       "dkv_ms", "dkv_bound_ms", "library_ms")
         rows.append(row)
         print("flash_bwd", json.dumps(row))
     return rows, failures
@@ -1257,6 +1315,7 @@ def _reset_counters():
     fa.flash_fwd_cuda.lse_launches = fa.flash_fwd_cuda.residual_launches = 0
     fa.flash_bwd_dkv_cuda.f32_launches = fa.flash_bwd_dq_cuda.f32_launches = 0
     fa.flash_bwd_dbias_cuda.launches = fa.flash_bwd_dtable_cuda.launches = 0
+    fa.flash_bwd_delta_cuda.launches = 0
     for name in KERNEL_OF.values():
         fn = getattr(da, f"{name}_cuda")
         fn.launches = fn.int8_launches = 0
@@ -1278,6 +1337,7 @@ def _read_counters():
            "flash_bwd_dq_f32": fa.flash_bwd_dq_cuda.f32_launches,
            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches,
            "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
+           "flash_bwd_delta": fa.flash_bwd_delta_cuda.launches,
            "flash_bwd_dbias": fa.flash_bwd_dbias_cuda.launches,
            "flash_bwd_dtable": fa.flash_bwd_dtable_cuda.launches,
            "fused_ce_fwd": fc.fused_ce_fwd_cuda.launches,
@@ -1645,6 +1705,10 @@ def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters)
                              ("dgrad", gname, 2)):
         row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bias_bound(
             b, s, hq, hkv, d, prods, causal, mode, kern)
+    shape = f"{mode} {'causal' if causal else 'full'} B{b} S{s} H{hq} D{d}"
+    speed_line(11, f"lse {shape}", row, "fwd_ms", "fwd_bound_ms", "fwd_library_ms")
+    speed_line(11, f"dkv {shape} (library: all three gradients)", row, "dkv_ms",
+               "dkv_bound_ms", "bwd_library_ms")
 
 
 def _t5_grads(torch, model, src, labels, use_flash, bucket):
@@ -1911,6 +1975,11 @@ def check_flash_window(torch, device, cases=WINDOW_CASES, iters=5):
             row["fwd_bound_ms"], row["fwd_bound_by"] = flash_bound(1, s, s, hq, hkv, d, w)
             row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound(1, s, hq, hkv, d, 4, "kv", w)
             row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound(1, s, hq, hkv, d, 3, "q", w)
+            shape = f"window {w} B1 S{s} Hq{hq}/Hkv{hkv} D{d}"
+            speed_line(14, f"plain {shape}", row, "fwd_ms", "fwd_bound_ms", "fwd_library_ms")
+            speed_line(14, f"lse {shape}", row, "lse_ms", "fwd_bound_ms", "fwd_library_ms")
+            speed_line(14, f"dkv {shape} (library: all three gradients)", row, "dkv_ms",
+                       "dkv_bound_ms", "bwd_library_ms")
         rows.append(row)
         print("flash_window", json.dumps(row))
         del q, k, v, do, out, o, lse, dk, dv, dq
@@ -2294,6 +2363,12 @@ def check_flash_residuals(torch, device, cases=RESIDUAL_CASES, iters=5):
                 b, s, hq, hkv, d, 4, "kv", causal, bias)
             row["dq_bound_ms"], row["dq_bound_by"] = f32_bwd_bound(
                 b, s, hq, hkv, d, 3, "q", causal, bias)
+            shape = (f"{'causal' if causal else 'full'}{' bias' if bias else ''} B{b} S{s} "
+                     f"Hq{hq}/Hkv{hkv} D{d}")
+            speed_line(19, f"residuals {shape}", row, "res_ms", "res_bound_ms",
+                       "fwd_library_ms")
+            speed_line(19, f"dkv f32 {shape} (library: all three gradients)", row,
+                       "dkv_f32_ms", "dkv_bound_ms", "bwd_library_ms")
         rows.append(row)
         print("flash_residuals", json.dumps(row))
         del q, k, v, do, bi, acc, m, l, o, lse, dk, dv, dq
@@ -2735,6 +2810,9 @@ def main(argv=None) -> int:
             used = [ln.split("info    :")[-1].strip()
                     for ln in log.read_text().splitlines() if "Used" in ln]
             print(f"  ptxas {name}: {' | '.join(used)}")
+            if name in HOPPER_LIBS:
+                report[f"ptxas_{name}"] = ptxas_lines(log.read_text())
+                print("\n".join(f"    {ln}" for ln in report[f"ptxas_{name}"]))
     report["build_s"] = build_s
 
     # -- 2. kernels vs plain versions ---------------------------------------
@@ -3105,6 +3183,16 @@ def main(argv=None) -> int:
         max(r["dq_err"] for r in bwd_rows))
     dq.update(d64("dq_"), plain_ms_d64=brep64["plain_ms"],
               library_ms_d64=brep64["library_ms"])
+    # the dK/dV kernel's delta pre-pass (the TPU kernel computes delta in
+    # its own body); no single library call computes it in f32
+    delta = _kernel_entry(
+        "flash_bwd_delta", "torchdistx_tpu_torch/csrc/flash_bwd.cu",
+        "torchdistx_tpu/ops/flash_attention.py:299", trained("flash_bwd_delta"),
+        {"ms": brep["delta_ms"], "plain_ms": brep["delta_plain_ms"],
+         "bound_ms": brep["delta_bound_ms"], "bound_by": "bytes", "library_ms": None},
+        max(r["delta_err"] for r in bwd_rows))
+    delta.update(part_of="flash_bwd_dkv", ms_d64=brep64["delta_ms"],
+                 bound_ms_d64=brep64["delta_bound_ms"])
     # the decode kernels: launches summed over the serve runs (phase 3 and
     # b-d); the bf16 one-token kernel timed at DECODE_POSITIONS as before,
     # every variant at VARIANT_POSITIONS
@@ -3119,7 +3207,7 @@ def main(argv=None) -> int:
         entry.update(dtype=dt, S=row.get("S", 1), positions=row["positions"])
         return entry
 
-    kernels = [fwd, dkv, dq, decode_entry("decode_attention", "bf16", decode_row)]
+    kernels = [fwd, dkv, delta, dq, decode_entry("decode_attention", "bf16", decode_row)]
     for row in variant_rows:
         entry = decode_entry(row["kernel"], row["dtype"], row)
         if (row["kernel"], row["dtype"]) == ("decode_attention", "bf16"):

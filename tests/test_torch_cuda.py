@@ -520,3 +520,145 @@ def test_ring_of_one_block_is_flash(cuda):
     torch.testing.assert_close(out, ref, **TOL)
     for a, r in zip(grads, rgrads):
         torch.testing.assert_close(a, r, **TOL)
+
+
+# -- the Hopper flash forward and dK/dV: 128-row tiles, TMA, wgmma ----------------
+
+# (b, sq, skv, hq, hkv, d): S below, at and just past the 128-row tile, a
+# ragged S, Sq < Skv (end-aligned), head_dim 64 and 128, n_rep 1, 4 and 8
+TILE_CASES = [(1, 127, 127, 8, 8, 128), (2, 128, 128, 8, 2, 64), (1, 129, 129, 8, 1, 128),
+              (1, 777, 777, 8, 2, 128), (1, 100, 300, 4, 4, 64), (1, 129, 257, 8, 1, 128)]
+# the variants of each: (name, causal, window); bias and bucket need Sq == Skv
+FWD_VARIANTS = [("plain", True, None), ("lse", False, None), ("residuals", True, None),
+                ("residuals", False, None), ("bias", True, None), ("bucket", False, None),
+                ("window", True, 300), ("window", True, 100)]
+
+
+def _tile_cases():
+    for case in TILE_CASES:
+        for name, causal, window in FWD_VARIANTS:
+            if name in ("bias", "bucket") and case[1] != case[2]:
+                continue
+            yield pytest.param(*case, name, causal, window,
+                               id=f"{name}-{'causal' if causal else 'full'}-w{window}-"
+                                  + "-".join(map(str, case)))
+
+
+def _bias_kw(g, name, hq, sq, skv, causal, dev):
+    if name == "bias":
+        return dict(bias=_rand(g, (hq, sq, skv), dev))
+    if name == "bucket":
+        return dict(table=_rand(g, (hq, 32), dev), bucket_cfg=(32, 128, not causal))
+    return {}
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,name,causal,window", list(_tile_cases()))
+def test_flash_forward_tile_geometry(cuda, b, sq, skv, hq, hkv, d, name, causal, window):
+    """Every forward variant at S around the 128-row tile, a ragged S,
+    Sq < Skv, D 64 / 128 and n_rep 1 / 4 / 8 against the plain versions,
+    with the tolerances of the tests above."""
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + skv + d)
+    q = _rand(g, (b, sq, hq, d), cuda)
+    k, v = _rand(g, (b, skv, hkv, d), cuda), _rand(g, (b, skv, hkv, d), cuda)
+    kw = dict(causal=causal, window=window, **_bias_kw(g, name, hq, sq, skv, causal, cuda))
+    if name == "residuals":
+        acc, m, l = tflash.flash_fwd_cuda(q, k, v, causal=causal, return_residuals=True)
+        torch.cuda.synchronize()
+        ra, rm, rl = tflash.flash_attention_residuals_reference(
+            q.float(), k.float(), v.float(), causal=causal)
+        assert float(((acc - ra).norm(dim=-1) / ra.norm(dim=-1)).max()) < 1e-2
+        assert float((m - rm).abs().max()) < 1e-5
+        assert float(((l - rl).abs() / rl).max()) < 1e-5
+        return
+    out = tflash.flash_fwd_cuda(q, k, v, **kw)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ref, lse_ref = tflash.flash_attention_lse_reference(q, k, v, **kw)
+    for x in (out, o):
+        torch.testing.assert_close(x, ref, **TOL)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    if window is not None:
+        ref32 = tflash.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                 window=window)
+        _assert_head_rows_close(o, ref32)
+
+
+# the backward's variants: (name, causal, window, part_dtype)
+BWD_VARIANTS = [("plain", True, None, None), ("plain", False, None, torch.float32),
+                ("bias", False, None, None), ("bucket", True, None, None),
+                ("window", True, 300, None), ("window", True, 100, torch.float32)]
+
+
+@pytest.mark.parametrize("name,causal,window,part", BWD_VARIANTS,
+                         ids=[f"{v[0]}-{'causal' if v[1] else 'full'}-w{v[2]}-"
+                              f"{'f32' if v[3] else 'bf16'}" for v in BWD_VARIANTS])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [c[:2] + c[3:] for c in TILE_CASES if c[1] == c[2]],
+                         ids=lambda x: str(x))
+def test_flash_dkv_tile_geometry(cuda, b, s, hq, hkv, d, name, causal, window, part):
+    """dK/dV (and its delta pre-pass) in every variant at the same
+    geometry, from the kernel forward's o and lse, against the plain
+    backward (bf16 or f32 outputs, the tolerance of the tests above)."""
+    g = torch.Generator(device=cuda).manual_seed(s * 3 + d + hkv)
+    q, do = _rand(g, (b, s, hq, d), cuda), _rand(g, (b, s, hq, d), cuda)
+    k, v = _rand(g, (b, s, hkv, d), cuda), _rand(g, (b, s, hkv, d), cuda)
+    kw = dict(causal=causal, window=window, **_bias_kw(g, name, hq, s, s, causal, cuda))
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+    before = tflash.flash_bwd_delta_cuda.launches
+    dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do, part_dtype=part, **kw)
+    delta = tflash.flash_bwd_delta_cuda(o, do)
+    torch.cuda.synchronize()
+    assert tflash.flash_bwd_delta_cuda.launches == before + 2
+    torch.testing.assert_close(delta, tflash.flash_bwd_delta_reference(o, do),
+                               atol=1e-4, rtol=0)
+    _, rk, rv = tflash.flash_bwd_reference(q, k, v, o, lse, do, part_dtype=part, **kw)[:3]
+    for got, want in ((dk, rk), (dv, rv)):
+        assert got.dtype == want.dtype == (part or torch.bfloat16)
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_dkv_is_bit_identical_across_launches(cuda, d):
+    """No atomics: the GQA group sum and every tile add up in one order."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, do = _rand(g, (2, 777, 8, d), cuda), _rand(g, (2, 777, 8, d), cuda)
+    k, v = _rand(g, (2, 777, 1, d), cuda), _rand(g, (2, 777, 1, d), cuda)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True)
+    first = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do, part_dtype=torch.float32)
+    second = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do, part_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_kernels_read_strided_inputs_in_place(cuda):
+    """q, k and v sliced from one packed (B, S, 3, H, D) projection (GPT-2's
+    layout) go to the TMA kernels with their strides: the same bits as
+    contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = _rand(g, (2, 300, 3, 4, 64), cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = _rand(g, (2, 300, 4, 64), cuda)
+    assert not q.is_contiguous()
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True)
+    oc, lsec = tflash.flash_fwd_cuda(*(x.contiguous() for x in (q, k, v)), return_lse=True)
+    dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
+    dkc, dvc = tflash.flash_bwd_dkv_cuda(*(x.contiguous() for x in (q, k, v)), oc, lsec, do)
+    torch.cuda.synchronize()
+    for a, b in ((o, oc), (lse, lsec), (dk, dkc), (dv, dvc)):
+        assert torch.equal(a, b)
+
+
+def test_tma_kernels_refuse_misaligned_or_strided_inputs(cuda):
+    x = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    misaligned = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(x.shape)
+    not_inner = torch.zeros(1, 64, 64, 2, dtype=torch.bfloat16, device=cuda).transpose(2, 3)
+    odd_heads = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16, device=cuda)[..., :64]
+    for bad in (misaligned, not_inner, odd_heads):
+        with pytest.raises(ValueError, match="TMA"):
+            tflash.flash_fwd_cuda(bad, x, x)
+        with pytest.raises(ValueError, match="TMA"):
+            tflash.flash_fwd_cuda(x, x, bad, return_residuals=True)
+        with pytest.raises(ValueError, match="TMA"):
+            tflash.flash_bwd_dkv_cuda(x, bad, x, x, lse, x)
+        with pytest.raises(ValueError, match="TMA"):
+            tflash.flash_bwd_dkv_cuda(x, x, x, x, lse, bad)

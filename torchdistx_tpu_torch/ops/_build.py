@@ -28,6 +28,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# after the source: csrc/hopper.cuh looks up libcuda's
+# cuTensorMapEncodeTiled with dlopen / dlsym
+LINK_FLAGS = ["-ldl"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -62,7 +65,7 @@ def _start(name: str) -> subprocess.Popen:
     src, lib = _paths(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src), *LINK_FLAGS]
     return subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

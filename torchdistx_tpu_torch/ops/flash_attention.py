@@ -18,13 +18,18 @@ replace the Pallas ones, in every variant:
 - ``csrc/flash_bwd.cu`` replaces ``_bwd_dkv_kernel`` (dK, dV) and
   ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``, in the
   same variants, writing bf16 gradients or, for the ring's per-hop
-  partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``);
+  partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``); dK/dV
+  after a pre-pass that writes ``delta = rowsum(dO * O)`` once per row
+  (``flash_bwd_delta_cuda``; the TPU kernel computes it in its body);
 - ``csrc/flash_bias_bwd.cu`` replaces ``_bwd_dbias_kernel`` (launched by
   ``_flash_dbias``) and ``_bwd_dtable_kernel`` (``_flash_dtable``): the
   gradient of the bias or of the bucket table.
 
 All are bounded by operations on an H100; the sources say what their
-designs do about that.
+designs do about that.  The forward and dK/dV are Hopper designs (TMA,
+``wgmma``, accumulators in registers; ``csrc/hopper.cuh``) that read q,
+k, v, o and dO in place; dQ, dbias and dtable are WMMA kernels that take
+contiguous copies.
 
 ``flash_attention`` keeps the JAX layout, (B, S, H, D).  When autograd
 needs it (grad mode on and an input that requires a gradient) it runs
@@ -68,8 +73,10 @@ __all__ = [
     "flash_attention_residuals_reference",
     "flash_attention_residuals",
     "flash_bwd_reference",
+    "flash_bwd_delta_reference",
     "flash_bias_grad_reference",
     "flash_fwd_cuda",
+    "flash_bwd_delta_cuda",
     "flash_bwd_dkv_cuda",
     "flash_bwd_dq_cuda",
     "flash_bwd_dbias_cuda",
@@ -228,11 +235,15 @@ def _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window=None):
     p = torch.exp(logits - lse.float()[..., None])
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
-    dof = do.float()
     vv = _repeat_kv(v.float(), q.shape[2] // k.shape[2])
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vv)
-    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]  # (B, Hq, Sq, 1)
-    return p, p * (dp - delta)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vv)
+    return p, p * (dp - flash_bwd_delta_reference(o, do)[..., None])
+
+
+def flash_bwd_delta_reference(o, do):
+    """The plain version of the delta pre-pass: ``rowsum(dO * O)`` in f32,
+    (B, Hq, S) from (B, S, Hq, D) ``o`` and ``do``."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2)
 
 
 def _bias_grad(dlogits, bias, table, bucket_cfg):
@@ -318,6 +329,30 @@ def _check(fn_name, tensors, d):
         raise ValueError(f"{fn_name} takes head_dim 64 or 128, got {d}")
 
 
+def _tma_strides(fn_name, name, t):
+    """The (batch, seq, head) element strides of a (B, S, H, D) bf16
+    tensor that the TMA kernels read in place: D contiguous, a 16-byte
+    aligned base and the other strides multiples of 16 bytes, else a
+    ValueError (no copy is made).  The stride of a dimension of size 1 is
+    never used; it is reported as the packed one."""
+    st = t.stride()
+    if st[3] != 1 or t.data_ptr() % 16 or any((x * t.element_size()) % 16 for x in st[:3]):
+        raise ValueError(
+            f"{fn_name}: {name} must have a contiguous last dimension, a 16-byte "
+            f"aligned base and strides that are multiples of 16 bytes for TMA "
+            f"(strides {tuple(st)}, base {t.data_ptr():#x})")
+    b, s, h, d = t.shape
+    sh = st[2] if h > 1 else d
+    ss = st[1] if s > 1 else h * sh
+    return (st[0] if b > 1 else s * ss), ss, sh
+
+
+def _stride_args(fn_name, tensors):
+    """The C array of the TMA strides of ``tensors`` ((name, tensor)s)."""
+    vals = [x for name, t in tensors for x in _tma_strides(fn_name, name, t)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def _bias_args(fn_name, q, k, bias, table, bucket_cfg):
     """Checked kernel arguments (bias, table, ids, buckets) and the
     tensors they point into (kept alive until the launch returns)."""
@@ -380,7 +415,9 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
     no bias or ``bias`` only.  ``bias``: bf16 (Hq, Sq, Skv); ``table``:
     bf16 (Hq, buckets) with ``bucket_cfg = (buckets, max_dist,
     bidirectional)``, Sq == Skv; ``window``: the sliding window (causal, no
-    bias).  Adds one to ``flash_fwd_cuda.launches`` (plain output),
+    bias).  q, k and v are read in place (strides TMA takes, else a
+    ValueError); the outputs are contiguous.  Adds one to
+    ``flash_fwd_cuda.launches`` (plain output),
     ``.lse_launches`` or ``.residual_launches``, and to ``.bias_launches``,
     ``.bucket_launches`` or ``.window_launches`` for those variants."""
     b, sq, hq, d = q.shape
@@ -398,30 +435,30 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"causal attention requires Sq ({sq}) <= Skv ({skv})")
     _check_window(causal, window, bias, table)
     bargs, keep = _bias_args("flash_fwd_cuda", q, k, bias, table, bucket_cfg)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    strides = _stride_args("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if return_residuals:
         acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         m, l = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
                 for _ in range(2))
         fn = _fn("flash_fwd", "tdx_flash_fwd_residuals_bf16",
-                 [_P] * 7 + [_I] * 6 + [_F, _I, _P])
+                 [_P] * 7 + [_I] * 6 + [_F, _I, _P, _P])
         with torch.cuda.device(q.device):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
                      m.data_ptr(), l.data_ptr(), bargs[0], b, sq, skv, hq, hkv, d,
-                     _scale(scale, d), int(causal), stream)
+                     _scale(scale, d), int(causal), strides, stream)
         outs = (acc, m, l)
     else:
-        out = torch.empty_like(q)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
                if return_lse else None)
         fn = _fn("flash_fwd", "tdx_flash_fwd_bf16",
-                 [_P] * 5 + _BIAS_ARGS + [_I] * 6 + [_F, _I, _I, _P])
+                 [_P] * 5 + _BIAS_ARGS + [_I] * 6 + [_F, _I, _I, _P, _P])
         with torch.cuda.device(q.device):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      lse.data_ptr() if return_lse else None, *bargs,
                      b, sq, skv, hq, hkv, d, _scale(scale, d), int(causal),
-                     int(window or 0), stream)
+                     int(window or 0), strides, stream)
         outs = (out, lse) if return_lse else out
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
@@ -454,7 +491,6 @@ def _check_bwd(fn_name, q, k, v, o, lse, do):
         raise ValueError(f"query heads {hq} not a multiple of kv heads {k.shape[2]}")
     if not lse.is_cuda or lse.dtype != torch.float32 or lse.shape != (b, hq, sq):
         raise ValueError(f"{fn_name}: lse must be f32 CUDA (B, Hq, Sq)")
-    return [t.contiguous() for t in (q, k, v, o, lse, do)]
 
 
 def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
@@ -462,7 +498,8 @@ def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
     """Check and launch one backward kernel: the six inputs, ``outs``'
     pointers, the bias arguments, then (B, S, Hq, Hkv, D, causal, window,
     scale)."""
-    q, k, v, o, lse, do = _check_bwd(fn_name, q, k, v, o, lse, do)
+    _check_bwd(fn_name, q, k, v, o, lse, do)
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     _check_window(causal, window, bias, table)
     bargs, keep = _bias_args(fn_name, q, k, bias, table, bucket_cfg)
     b, s, hq, d = q.shape
@@ -486,21 +523,62 @@ def _out_dtype(fn_name, dtype):
     raise TypeError(f"{fn_name} writes bf16 or float32, not {dtype}")
 
 
+def flash_bwd_delta_cuda(o, do):
+    """Launch the delta pre-pass of the dK/dV kernel: ``rowsum(dO * O)``,
+    (B, Hq, S) f32, once per row (the TPU kernel recomputes it in every
+    tile).  ``o`` and ``do`` bf16 (B, S, Hq, D) with strides TMA takes.
+    Adds one to ``flash_bwd_delta_cuda.launches``."""
+    name = "flash_bwd_delta_cuda"
+    _check(name, (("o", o), ("do", do)), o.shape[-1])
+    if do.shape != o.shape:
+        raise ValueError(f"{name}: do shape {tuple(do.shape)} != o shape {tuple(o.shape)}")
+    b, s, h, d = o.shape
+    strides = _stride_args(name, (("o", o), ("do", do)))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
+    fn = _fn("flash_bwd", "tdx_flash_bwd_delta", [_P] * 3 + [_I] * 4 + [_P, _P])
+    with torch.cuda.device(o.device):
+        err = fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, s, h, d, strides,
+                 torch.cuda.current_stream(o.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    flash_bwd_delta_cuda.launches += 1
+    return delta
+
+
+flash_bwd_delta_cuda.launches = 0
+
+
 def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                        scale: Optional[float] = None, bias=None, table=None,
                        bucket_cfg=None, window=None, part_dtype=None):
-    """Launch the K/V-stationary backward kernel: (dk, dv), GQA groups
-    summed in the kernel, in bf16 or with ``part_dtype=torch.float32`` in
-    f32 (the ring's per-hop partials).  Bias and window arguments as
-    ``flash_fwd_cuda``'s.  Adds one to ``flash_bwd_dkv_cuda.launches`` (and
-    ``.f32_launches``, ``.bias_launches``, ``.bucket_launches`` or
-    ``.window_launches``)."""
-    dt, tag = _out_dtype("flash_bwd_dkv_cuda", part_dtype)
+    """Launch the delta pre-pass, then the K/V-stationary backward kernel:
+    (dk, dv), GQA groups summed in the kernel, in bf16 or with
+    ``part_dtype=torch.float32`` in f32 (the ring's per-hop partials).  q,
+    k, v, o and do are read in place (strides TMA takes, else a
+    ValueError).  Bias and window arguments as ``flash_fwd_cuda``'s.  Adds
+    one to ``flash_bwd_dkv_cuda.launches`` (and ``.f32_launches``,
+    ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``)."""
+    name = "flash_bwd_dkv_cuda"
+    dt, tag = _out_dtype(name, part_dtype)
+    _check_bwd(name, q, k, v, o, lse, do)
+    lse = lse.contiguous()
+    _check_window(causal, window, bias, table)
+    bargs, keep = _bias_args(name, q, k, bias, table, bucket_cfg)
+    strides = _stride_args(name, (("q", q), ("k", k), ("v", v), ("do", do)))
+    delta = flash_bwd_delta_cuda(o, do)
     dk = torch.empty(k.shape, dtype=dt, device=k.device)
     dv = torch.empty(v.shape, dtype=dt, device=v.device)
-    _launch_bwd("flash_bwd", f"tdx_flash_bwd_dkv_{tag}", "flash_bwd_dkv_cuda",
-                q, k, v, o, lse, do, (dk, dv), causal, scale, bias, table, bucket_cfg,
-                window)
+    b, s, hq, d = q.shape
+    fn = _fn("flash_bwd", f"tdx_flash_bwd_dkv_{tag}",
+             [_P] * 8 + _BIAS_ARGS + [_I] * 7 + [_F, _P, _P])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *bargs, b, s, hq,
+                 k.shape[2], d, int(causal), int(window or 0), _scale(scale, d), strides,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.f32_launches += tag == "f32"
     _count(flash_bwd_dkv_cuda, bias, table, window)
