@@ -8,15 +8,16 @@ Phases, each fatal:
 
 1. build the port's CUDA kernels from ``torchdistx_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together), and print the
-   ptxas lines (registers, spills) of each kernel of the two Hopper
-   sources, ``flash_fwd.cu`` and ``flash_bwd.cu``;
+   ptxas lines (registers, spills) of each kernel of the three redesigned
+   sources, ``flash_fwd.cu``, ``flash_bwd.cu`` and ``decode_attention.cu``;
 2. hold each kernel against its plain PyTorch version on the card, in bf16
    at llama3_8b shapes (Hq 32, Hkv 8, D 128), and time kernel, plain
    version and the PyTorch library call that computes the same function
    (``scaled_dot_product_attention``, a yardstick the port never calls);
    the decode kernels in every variant, {slab, paged} x {one token, a
    5-token verify block} x {bf16, int8}, at the serving geometry (8 slots,
-   max_len 2048, page size 16, shuffled page tables sharing prefix pages);
+   max_len 2048, page size 16, shuffled page tables sharing prefix pages),
+   each bit for bit against a second launch;
 3. a 4-layer, full-width llama3_8b through the kernels and the plain path
    against f32, decoding over the slab, the int8 cache and page pools, one
    token at a time and in the speculative verify's 5-token blocks (rows
@@ -37,7 +38,7 @@ Phases, each fatal:
    remaining decode variant's engine alone;
 4. hold the flash backward kernels (``flash_bwd_dkv``, its delta
    pre-pass ``flash_bwd_delta``, ``flash_bwd_dq``) and the forward's
-   ``lse`` variant against their plain versions, dK/dV bit for bit
+   ``lse`` variant against their plain versions, dK/dV and dQ bit for bit
    against a second launch, and time them beside the SDPA backward (a
    yardstick the port never calls);
 5. one backward step of a 4-layer, full-width llama_1b through the kernels
@@ -128,9 +129,10 @@ Phases, each fatal:
    (counters reset just before), the first loss held against the plain
    path's.
 
-Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward and dK/dV
-variant: its ms, bound and library ms, the factor over the library and over
-the bound.  It prints the card's name and power limit, one ``{"kernels":
+Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
+dQ variant and per decode variant: its ms, bound and library ms, the factor
+over the library and over the bound (the decode variants also by device
+time).  It prints the card's name and power limit, one ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
@@ -217,9 +219,9 @@ LSE_ATOL = 1e-3
 # the delta pre-pass vs its plain version: f32 sums of the same D exact
 # products of bf16 values in another order (delta of O(1), rounding ~1e-6)
 DELTA_ATOL = 1e-4
-# the two rebuilt kernels, whose ptxas lines (registers, spills) the build
+# the redesigned sources, whose ptxas lines (registers, spills) the build
 # phase prints per kernel
-HOPPER_LIBS = ("flash_fwd", "flash_bwd")
+HOPPER_LIBS = ("flash_fwd", "flash_bwd", "decode_attention")
 TRAIN_STEPS = 10
 # (N, D, V) of the fused LM-head loss: llama_1b (2 x 2048 tokens), gpt2_large
 # (8 x 1024 tokens, vocab 50257 with no tile divisor), a prime and a tiny N
@@ -328,6 +330,26 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int):
+    """Milliseconds per call of the card's own work in ``fn``: the device
+    time of every kernel and copy it launches, summed by ``torch.profiler``
+    over ``iters`` calls after one warm-up call, without the host's time
+    between launches (which bounds :func:`time_ms` for a call that
+    launches little work).  None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                if getattr(e, "device_type", None) == cuda)
+    return total / 1e3 / iters if total else None
+
+
 def _close(torch, out, ref):
     diff = (out.float() - ref.float()).abs()
     ok = bool((diff <= ATOL + RTOL * ref.float().abs()).all())
@@ -383,9 +405,9 @@ def _sdpa_gqa(torch, q, k, v, **kw):
 
 
 def speed_line(phase, variant, row, ms, bound, library):
-    """Print one forward or dK/dV variant's time beside its bound and the
-    library call's (keys of ``row``): the factor over the library and over
-    the bound, and the bound's share of the kernel's time."""
+    """Print one kernel variant's time beside its bound and the library
+    call's (keys of ``row``): the factor over the library and over the
+    bound, and the bound's share of the kernel's time."""
     ms, bound, lib = row[ms], row[bound], row.get(library)
     line = {"phase": phase, "variant": variant, "ms": ms, "bound_ms": bound,
             "library_ms": lib, "x_library": ms / lib if lib else None,
@@ -467,6 +489,9 @@ def check_decode(torch, device, b=8, max_len=2048, hq=32, hkv=8, d=128,
         row["plain_ms"] = time_ms(
             torch, lambda: da.decode_attention_reference(q, ck, cv, pos), iters)
         row["library_ms"] = time_ms(
+            torch, lambda: _sdpa_gqa(torch, qt, kt, vt, attn_mask=mask), iters)
+        row["device_ms"] = device_ms(torch, lambda: da.decode_attention(q, ck, cv, pos), iters)
+        row["library_device_ms"] = device_ms(
             torch, lambda: _sdpa_gqa(torch, qt, kt, vt, attn_mask=mask), iters)
     row["bound_ms"], row["bound_by"] = decode_bound(b, hq, hkv, d, positions[:b])
     print("decode", json.dumps(row))
@@ -570,7 +595,10 @@ def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
                 row = {"kernel": name, "dtype": dt, "S": s, "B": b,
                        "max_len": max_len, "page_size": page_size,
                        "positions": positions, "max_abs_err": err,
-                       "max_row_rel_err": rel, "ok": ok}
+                       "max_row_rel_err": rel, "ok": ok,
+                       "bitwise_repeat": bool(torch.equal(out, kernel(q, *cache, pos, **kw)))}
+                if not row["bitwise_repeat"]:
+                    failures.append(f"{name} {dt}: two launches differ")
                 if layout == "paged":
                     # the same rows through the slab kernel: only the
                     # address of a key row differs between the two
@@ -605,11 +633,20 @@ def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
                                      attn_mask=mask)
 
                 row["library_ms"] = time_ms(torch, library, iters)
+                # the kernels' device time alone: a call's host time (the
+                # wrapper's checks and allocations) can exceed it
+                row["device_ms"] = device_ms(torch, lambda: kernel(q, *cache, pos, **kw), iters)
+                row["library_device_ms"] = device_ms(torch, library, iters)
                 row["bound_ms"], row["bound_by"] = variant_bound(
                     positions, s, max_len, hq, hkv, d, quant,
                     tables.cpu().numpy() if layout == "paged" else None)
                 rows.append(row)
                 print("decode variant", json.dumps(row))
+                shape = f"{name} {dt} S{s} B{b} max_len {max_len} Hq{hq}/Hkv{hkv} D{d}"
+                speed_line(2, shape, row, "ms", "bound_ms", "library_ms")
+                if row["device_ms"] and row["library_device_ms"]:
+                    speed_line(2, f"{shape} (device time)", row, "device_ms", "bound_ms",
+                               "library_device_ms")
     return rows, failures
 
 
@@ -1083,18 +1120,22 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
         dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
         dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do)
         delta = fa.flash_bwd_delta_cuda(o, do)
+        dq2 = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, delta=delta)
         torch.cuda.synchronize()
         rq, rk, rv = fa.flash_bwd_reference(q, k, v, o, lse, do)
         lse_err = float((lse - lse_ref).abs().max())
         case = (b, s, hq, hkv, d)
         row = {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "lse_err": lse_err,
                "delta_err": float((delta - fa.flash_bwd_delta_reference(o, do)).abs().max()),
-               "dkv_bitwise_repeat": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))}
+               "dkv_bitwise_repeat": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)),
+               "dq_bitwise_repeat": bool(torch.equal(dq, dq2))}
         if row["delta_err"] > DELTA_ATOL:
             failures.append(f"flash bwd delta {case}: max|d|={row['delta_err']}")
         if not row["dkv_bitwise_repeat"]:
             failures.append(f"flash bwd dk/dv {case}: two launches differ")
-        del dk2, dv2, delta
+        if not row["dq_bitwise_repeat"]:
+            failures.append(f"flash bwd dq {case}: two launches differ")
+        del dk2, dv2, dq2
         for name, out, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
             ok, err = _close(torch, out, ref)
             row[f"{name}_err"] = err
@@ -1110,8 +1151,12 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
                 torch, lambda: fa.flash_bwd_delta_reference(o, do), iters)
             row["delta_bound_ms"] = ((2.0 * 2 * b * s * hq * d + 4.0 * b * hq * s)
                                      / H100_BYTES_PER_S * 1e3)
+            # dQ alone, on the pre-pass's delta as flash_backward runs it;
+            # the whole backward (one pre-pass, dK/dV, dQ) beside it
             row["dq_ms"] = time_ms(
-                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, o, lse, do), iters)
+                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, delta=delta), iters)
+            row["bwd_ms"] = time_ms(
+                torch, lambda: fa.flash_backward(q, k, v, o, lse, do), iters)
             row["plain_ms"] = time_ms(
                 torch, lambda: fa.flash_bwd_reference(q, k, v, o, lse, do), iters)
             row["lse_ms"] = time_ms(
@@ -1137,6 +1182,9 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
                        "lse_library_ms")
             speed_line(4, f"dkv bf16 causal {shape} (library: all three gradients)", row,
                        "dkv_ms", "dkv_bound_ms", "library_ms")
+            speed_line(4, f"dq bf16 causal {shape} (library: all three gradients)", row,
+                       "dq_ms", "dq_bound_ms", "library_ms")
+        del delta
         rows.append(row)
         print("flash_bwd", json.dumps(row))
     return rows, failures
@@ -1362,7 +1410,9 @@ def _train_failures(losses, launches, n_layers, steps, fused_ce, what):
         failures.append(f"{what} losses not finite: {losses}")
     elif not losses[-1] < losses[0]:
         failures.append(f"{what} loss did not fall: {losses}")
-    expect = {k: n_layers * steps for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}
+    # one delta pre-pass per backward, read by both gradient kernels
+    expect = {k: n_layers * steps for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
+                                            "flash_bwd_delta")}
     for k in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
         expect[k] = steps if fused_ce else 0
     for kernel, n in expect.items():
@@ -1684,7 +1734,8 @@ def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters)
     row["fwd_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw),
                             iters)
     row["dkv_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*bwd, **kw), iters)
-    row["dq_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*bwd, **kw), iters)
+    delta = fa.flash_bwd_delta_cuda(o, do)
+    row["dq_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*bwd, delta=delta, **kw), iters)
     if mode == "bias":
         row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dbias_cuda(*bwd, bias, **ckw),
                                   iters)
@@ -1709,6 +1760,8 @@ def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters)
     speed_line(11, f"lse {shape}", row, "fwd_ms", "fwd_bound_ms", "fwd_library_ms")
     speed_line(11, f"dkv {shape} (library: all three gradients)", row, "dkv_ms",
                "dkv_bound_ms", "bwd_library_ms")
+    speed_line(11, f"dq {shape} (library: all three gradients)", row, "dq_ms",
+               "dq_bound_ms", "bwd_library_ms")
 
 
 def _t5_grads(torch, model, src, labels, use_flash, bucket):
@@ -1808,7 +1861,7 @@ def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda"
     variant = "bucket" if bucket else "bias"
     expect = {"flash_fwd_lse": per, f"flash_fwd_{variant}": per,
               "flash_bwd_dkv": per, f"flash_bwd_dkv_{variant}": per,
-              "flash_bwd_dq": per, f"flash_bwd_dq_{variant}": per,
+              "flash_bwd_dq": per, f"flash_bwd_dq_{variant}": per, "flash_bwd_delta": per,
               "flash_bwd_dtable" if bucket else "flash_bwd_dbias": per,
               "flash_bwd_dbias" if bucket else "flash_bwd_dtable": 0,
               "flash_fwd": 0}
@@ -1950,15 +2003,17 @@ def check_flash_window(torch, device, cases=WINDOW_CASES, iters=5):
                 torch, lambda: fa.flash_fwd_cuda(q, k, v, return_lse=True, window=w), iters)
             row["dkv_ms"] = time_ms(
                 torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do, window=w), iters)
-            row["dq_ms"] = time_ms(
-                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, window=w), iters)
+            delta = fa.flash_bwd_delta_cuda(o, do)
+            row["dq_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, o, lse, do, window=w, delta=delta), iters)
             oc, lc = fa.flash_fwd_cuda(q, k, v, return_lse=True)
+            dc = fa.flash_bwd_delta_cuda(oc, do)
             row["fwd_causal_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v), iters)
             row["dkv_causal_ms"] = time_ms(
                 torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, oc, lc, do), iters)
             row["dq_causal_ms"] = time_ms(
-                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, oc, lc, do), iters)
-            del oc, lc
+                torch, lambda: fa.flash_bwd_dq_cuda(q, k, v, oc, lc, do, delta=dc), iters)
+            del oc, lc, dc, delta
             for kind in ("fwd", "dkv", "dq"):
                 row[f"{kind}_over_causal"] = row[f"{kind}_ms"] / row[f"{kind}_causal_ms"]
             plain_iters = 2 if s >= 4096 else iters
@@ -1980,6 +2035,8 @@ def check_flash_window(torch, device, cases=WINDOW_CASES, iters=5):
             speed_line(14, f"lse {shape}", row, "lse_ms", "fwd_bound_ms", "fwd_library_ms")
             speed_line(14, f"dkv {shape} (library: all three gradients)", row, "dkv_ms",
                        "dkv_bound_ms", "bwd_library_ms")
+            speed_line(14, f"dq {shape} (library: all three gradients)", row, "dq_ms",
+                       "dq_bound_ms", "bwd_library_ms")
         rows.append(row)
         print("flash_window", json.dumps(row))
         del q, k, v, do, out, o, lse, dk, dv, dq
@@ -2341,10 +2398,12 @@ def check_flash_residuals(torch, device, cases=RESIDUAL_CASES, iters=5):
                 q, k, v, o, lse, do, part_dtype=f32, **kw), iters)
             row["dkv_bf16_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
                 q, k, v, o, lse, do, **kw), iters)
+            delta = fa.flash_bwd_delta_cuda(o, do)
             row["dq_f32_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
-                q, k, v, o, lse, do, dq_dtype=f32, **kw), iters)
+                q, k, v, o, lse, do, dq_dtype=f32, delta=delta, **kw), iters)
             row["dq_bf16_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
-                q, k, v, o, lse, do, **kw), iters)
+                q, k, v, o, lse, do, delta=delta, **kw), iters)
+            del delta
             row["bwd_plain_ms"] = time_ms(torch, lambda: _plain_bwd_f32(
                 torch, fa, q, k, v, o, lse, do, causal, bi, groups), plain_iters)
             torch.cuda.empty_cache()
@@ -2369,6 +2428,8 @@ def check_flash_residuals(torch, device, cases=RESIDUAL_CASES, iters=5):
                        "fwd_library_ms")
             speed_line(19, f"dkv f32 {shape} (library: all three gradients)", row,
                        "dkv_f32_ms", "dkv_bound_ms", "bwd_library_ms")
+            speed_line(19, f"dq f32 {shape} (library: all three gradients)", row,
+                       "dq_f32_ms", "dq_bound_ms", "bwd_library_ms")
         rows.append(row)
         print("flash_residuals", json.dumps(row))
         del q, k, v, do, bi, acc, m, l, o, lse, dk, dv, dq
@@ -2384,6 +2445,7 @@ def _ring_run(torch, q, k, v, do, bias, n, causal):
     dK/dV accumulators of block j add up as they would travelling with it.
     Returns out, lse, dq, dk, dv (f32 gradients) and dbias."""
     from torchdistx_tpu_torch.ops import attention as A
+    from torchdistx_tpu_torch.ops.flash_attention import flash_bwd_delta
 
     f32 = torch.float32
     s = q.shape[1] // n
@@ -2417,10 +2479,11 @@ def _ring_run(torch, q, k, v, do, bias, n, causal):
     for idx in range(n):
         bias_i = None if bias is None else bias[:, idx * s:(idx + 1) * s]
         dq = torch.zeros(blk(q, 0).shape, dtype=f32, device=q.device)
+        delta = flash_bwd_delta(outs[idx], blk(do, idx))  # one for all of the rank's hops
         for j, diag in hops(idx):
             dq_c, dk_c, dv_c, db_c = A.ring_bwd_block(
                 blk(q, idx), blk(k, j), blk(v, j), outs[idx], lses[idx], blk(do, idx),
-                A._ring_bias_block(bias_i, j, s), causal=diag)
+                A._ring_bias_block(bias_i, j, s), causal=diag, delta=delta)
             dq += dq_c
             dks[j] += dk_c
             dvs[j] += dv_c
@@ -2461,10 +2524,12 @@ def check_ring(torch, device, cases=RING_CASES, iters=2):
         got = _read_counters()
         blocks = n * (n + 1) // 2 if causal else n * n
         launches = {key: got[key] for key in ("flash_fwd_residuals", "flash_bwd_dkv_f32",
-                                              "flash_bwd_dq_f32", "flash_bwd_dbias")}
+                                              "flash_bwd_dq_f32", "flash_bwd_dbias",
+                                              "flash_bwd_delta")}
         want = dict.fromkeys(("flash_fwd_residuals", "flash_bwd_dkv_f32", "flash_bwd_dq_f32"),
                              blocks)
         want["flash_bwd_dbias"] = blocks if bias else 0
+        want["flash_bwd_delta"] = n
         if launches != want:
             failures.append(f"ring {name}: launches {launches} != {want}")
         if ref == "kernels":
@@ -2611,6 +2676,7 @@ def train_sp_llama(torch, tt, seed, steps=TRAIN_STEPS, n_layers=SP_TRAIN_LAYERS,
         failures.append(f"sp train first loss {first_loss} vs plain {plain_loss}")
     want = {"flash_fwd_residuals": n_layers * steps, "flash_bwd_dkv_f32": n_layers * steps,
             "flash_bwd_dq_f32": n_layers * steps, "flash_bwd_dkv": n_layers * steps,
+            "flash_bwd_delta": n_layers * steps,
             "flash_bwd_dq": n_layers * steps, "flash_fwd": 0, "flash_fwd_lse": 0}
     for kernel, count in want.items():
         if launches[kernel] != count:
@@ -3182,7 +3248,9 @@ def main(argv=None) -> int:
          "library_ms": brep["library_ms"]},
         max(r["dq_err"] for r in bwd_rows))
     dq.update(d64("dq_"), plain_ms_d64=brep64["plain_ms"],
-              library_ms_d64=brep64["library_ms"])
+              library_ms_d64=brep64["library_ms"], with_delta_given=True,
+              backward_ms=brep["bwd_ms"], backward_ms_d64=brep64["bwd_ms"],
+              bitwise_repeat=all(r["dq_bitwise_repeat"] for r in bwd_rows))
     # the dK/dV kernel's delta pre-pass (the TPU kernel computes delta in
     # its own body); no single library call computes it in f32
     delta = _kernel_entry(
@@ -3204,7 +3272,11 @@ def main(argv=None) -> int:
         entry = _kernel_entry(
             key, "torchdistx_tpu_torch/csrc/decode_attention.cu", TPU_KERNEL_OF[name],
             sum(r.get(key, 0) for r in served), row, row["max_abs_err"])
-        entry.update(dtype=dt, S=row.get("S", 1), positions=row["positions"])
+        entry.update(dtype=dt, S=row.get("S", 1), positions=row["positions"],
+                     device_ms=row.get("device_ms"),
+                     library_device_ms=row.get("library_device_ms"))
+        if "bitwise_repeat" in row:
+            entry["bitwise_repeat"] = row["bitwise_repeat"]
         return entry
 
     kernels = [fwd, dkv, delta, dq, decode_entry("decode_attention", "bf16", decode_row)]
@@ -3213,7 +3285,8 @@ def main(argv=None) -> int:
         if (row["kernel"], row["dtype"]) == ("decode_attention", "bf16"):
             kernels[-1]["variant_positions"] = {
                 k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                      "max_abs_err", "positions")}
+                                      "max_abs_err", "positions", "device_ms",
+                                      "library_device_ms")}
             continue
         if "equals_slab_bitwise" in row:
             entry["equals_slab_bitwise"] = row["equals_slab_bitwise"]

@@ -616,6 +616,64 @@ def test_flash_dkv_tile_geometry(cuda, b, s, hq, hkv, d, name, causal, window, p
         torch.testing.assert_close(got, want, **TOL)
 
 
+@pytest.mark.parametrize("name,causal,window,part", BWD_VARIANTS,
+                         ids=[f"{v[0]}-{'causal' if v[1] else 'full'}-w{v[2]}-"
+                              f"{'f32' if v[3] else 'bf16'}" for v in BWD_VARIANTS])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [c[:2] + c[3:] for c in TILE_CASES if c[1] == c[2]],
+                         ids=lambda x: str(x))
+def test_flash_dq_tile_geometry(cuda, b, s, hq, hkv, d, name, causal, window, part):
+    """dQ in every variant at the dK/dV geometry (S around the 128-row block
+    and the 64-key tile, ragged S, D 64 / 128, n_rep 1 / 4 / 8; no bias, the
+    additive bias, the bucket table, windows 100 / 300; bf16 or f32 output),
+    from the kernel forward's o and lse and the pre-pass's delta, against
+    the plain backward (the tolerance of the tests above)."""
+    g = torch.Generator(device=cuda).manual_seed(s * 5 + d + hkv)
+    q, do = _rand(g, (b, s, hq, d), cuda), _rand(g, (b, s, hq, d), cuda)
+    k, v = _rand(g, (b, s, hkv, d), cuda), _rand(g, (b, s, hkv, d), cuda)
+    kw = dict(causal=causal, window=window, **_bias_kw(g, name, hq, s, s, causal, cuda))
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+    delta = tflash.flash_bwd_delta_cuda(o, do)
+    before = tflash.flash_bwd_delta_cuda.launches
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, dq_dtype=part, delta=delta, **kw)
+    torch.cuda.synchronize()
+    assert tflash.flash_bwd_delta_cuda.launches == before  # the given delta is read
+    rq = tflash.flash_bwd_reference(q, k, v, o, lse, do, dq_dtype=part, **kw)[0]
+    assert dq.dtype == rq.dtype == (part or torch.bfloat16)
+    torch.testing.assert_close(dq, rq, **TOL)
+
+
+def test_flash_dq_is_bit_identical_across_launches(cuda):
+    """No atomics: each block owns its query rows and adds its key tiles up
+    in one order."""
+    for d in (64, 128):
+        g = torch.Generator(device=cuda).manual_seed(d + 1)
+        q, do = _rand(g, (2, 777, 8, d), cuda), _rand(g, (2, 777, 8, d), cuda)
+        k, v = _rand(g, (2, 777, 1, d), cuda), _rand(g, (2, 777, 1, d), cuda)
+        o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True)
+        first = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, dq_dtype=torch.float32)
+        second = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, dq_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_flash_backward_runs_one_delta_for_both_kernels(cuda):
+    """``flash_backward`` launches the pre-pass once and hands its delta to
+    dK/dV and dQ: the same bits as each kernel computing its own."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, do = _rand(g, (1, 300, 8, 128), cuda), _rand(g, (1, 300, 8, 128), cuda)
+    k, v = _rand(g, (1, 300, 2, 128), cuda), _rand(g, (1, 300, 2, 128), cuda)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True)
+    before = tflash.flash_bwd_delta_cuda.launches
+    dq, dk, dv = tflash.flash_backward(q, k, v, o, lse, do)
+    assert tflash.flash_bwd_delta_cuda.launches == before + 1
+    dk2, dv2 = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
+    dq2 = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert tflash.flash_bwd_delta_cuda.launches == before + 3
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_dkv_is_bit_identical_across_launches(cuda, d):
     """No atomics: the GQA group sum and every tile add up in one order."""
@@ -642,8 +700,10 @@ def test_flash_kernels_read_strided_inputs_in_place(cuda):
     oc, lsec = tflash.flash_fwd_cuda(*(x.contiguous() for x in (q, k, v)), return_lse=True)
     dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
     dkc, dvc = tflash.flash_bwd_dkv_cuda(*(x.contiguous() for x in (q, k, v)), oc, lsec, do)
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do)
+    dqc = tflash.flash_bwd_dq_cuda(*(x.contiguous() for x in (q, k, v)), oc, lsec, do)
     torch.cuda.synchronize()
-    for a, b in ((o, oc), (lse, lsec), (dk, dkc), (dv, dvc)):
+    for a, b in ((o, oc), (lse, lsec), (dk, dkc), (dv, dvc), (dq, dqc)):
         assert torch.equal(a, b)
 
 
@@ -662,3 +722,55 @@ def test_tma_kernels_refuse_misaligned_or_strided_inputs(cuda):
             tflash.flash_bwd_dkv_cuda(x, bad, x, x, lse, x)
         with pytest.raises(ValueError, match="TMA"):
             tflash.flash_bwd_dkv_cuda(x, x, x, x, lse, bad)
+
+
+# -- the verify-block decode kernel: split key range, tensor cores ---------------
+
+# (hq, hkv, s, page_size): llama3_8b's 32 / 8 heads at S 5 (20 rows), and
+# S * n_rep = 64, the most the kernel takes (4 m-tiles, 8 warps)
+SPLIT_CASES = [(32, 8, 5, 16), (32, 2, 4, 16), (16, 4, 2, 5)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv,s,ps", SPLIT_CASES)
+def test_block_decode_splits_at_their_edges(cuda, hq, hkv, s, ps, quant):
+    """Slots whose deepest row is a split boundary (SPLIT_KEYS keys) -1, 0
+    and +1, one slot deep, one at the cache's end (max_len not a multiple of
+    a split): the kernel against the plain split-and-combine and the plain
+    version, two launches bit-identical, the paged kernel equal to the slab
+    kernel bit for bit."""
+    from torchdistx_tpu_torch.ops.attention import _paged_gather
+    from torchdistx_tpu_torch.serve.kv_cache import quantize_kv
+
+    split = tdec.SPLIT_KEYS
+    g = torch.Generator(device=cuda).manual_seed(hq * s + ps)
+    pp = -(-(2 * split + 200) // ps)
+    max_len = pp * ps
+    lasts = [split - 2, split - 1, split, 2 * split - 1, 2 * split, max_len - 1]
+    b = len(lasts)
+    pos = torch.tensor([max(x - s + 1, 0) for x in lasts], dtype=torch.int32, device=cuda)
+    num_pages = b * pp + 1
+    q = _rand(g, (b, s, hq, 128), cuda)
+    pools = [_rand(g, (num_pages, ps, hkv, 128), cuda) for _ in range(2)]
+    tables = (torch.randperm(num_pages - 1, generator=g, device=cuda)[: b * pp] + 1)
+    tables = tables.view(b, pp).to(torch.int32)
+    kw = {}
+    if quant:
+        (kq, ks), (vq, vs) = (quantize_kv(x) for x in pools)
+        pools, kw = [kq, vq], dict(k_scale=ks, v_scale=vs)
+    slab = [_paged_gather(x, tables).contiguous() for x in pools]
+    skw = {k: _paged_gather(x, tables).contiguous() for k, x in kw.items()}
+    out = tdec.decode_attention_block_cuda(q, *slab, pos, **skw)
+    again = tdec.decode_attention_block_cuda(q, *slab, pos, **skw)
+    paged = tdec.paged_decode_attention_block_cuda(q, *pools, tables, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, paged)
+    cpu = [x.cpu() for x in slab]
+    ckw = {k: x.cpu() for k, x in skw.items()}
+    split_ref = tdec.decode_attention_block_split_reference(q.cpu(), *cpu, pos.cpu(), **ckw)
+    torch.testing.assert_close(out.cpu(), split_ref, **TOL)
+    ref = tdec.decode_attention_block_reference(q, *slab, pos, **skw)
+    torch.testing.assert_close(out, ref, **TOL)
+    diff = (out.float() - ref.float()).flatten(2).norm(dim=-1)
+    assert bool((diff <= 1e-2 * ref.float().flatten(2).norm(dim=-1)).all())

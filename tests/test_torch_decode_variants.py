@@ -12,6 +12,11 @@ seed.
 Tolerance: f32 1e-5 absolute (the kernels' online softmax sums in another
 order, a few f32 ulps); bf16 2e-2 (bf16 rounding of the probabilities and
 the output at different places).
+
+The verify-block kernel's algorithm (its key range split at
+``block_splits``' boundaries, each split's (m, l, acc) merged in split
+order) has a plain version of its own, held here against the same JAX
+kernels at depths on the split edges and one key either side.
 """
 
 import numpy as np
@@ -190,3 +195,98 @@ def test_wrappers_check_scales():
                             v_scale=torch.ones(1, 8, 2, 16))
     with pytest.raises(ValueError, match="one token"):
         da.decode_attention(torch.zeros(1, 2, 4, 16), *tkv, pos)
+
+
+# (s, hq, hkv, max_len, split): splits of 16 keys over 64- and 72-row caches
+# (the last split short), and the kernel's own SPLIT_KEYS over 600 rows
+SPLIT_CASES = [(5, 4, 2, 64, 16), (2, 8, 2, 72, 16), (3, 4, 4, 600, da.SPLIT_KEYS)]
+
+
+def _edge_positions(s, split, max_len):
+    """Base depths putting a slot's deepest row (pos + s - 1) one before, on
+    and one past a split's first key, and the last row at max_len - 1."""
+    lasts = [split - 1, split, split + 1, 2 * split - 1, max_len - 1]
+    return np.array([max(x - s + 1, 0) for x in lasts], np.int32)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,hq,hkv,max_len,split", SPLIT_CASES)
+def test_block_split_reference_matches_jax(s, hq, hkv, max_len, split, dtype, quant):
+    """The plain split-and-combine against ``decode_attention_block`` in
+    interpret mode, at the module's tolerances: in f32 1e-5, since merging
+    the splits' (m, l, acc) only reorders the softmax's f32 sums; in bf16
+    2e-2, the output's and the probabilities' bf16 rounding (the JAX kernel
+    rounds P before P.V, the plain version keeps it f32)."""
+    d = 16
+    pos = _edge_positions(s, split, max_len)
+    b = len(pos)
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        split + max_len + s, (b, s, hq, d), (b, max_len, hkv, d), dtype, quant)
+    ref = jda.decode_attention_block(jq, *jkv, jnp.asarray(pos), block_k=16,
+                                     interpret=True, **jsc)
+    out = da.decode_attention_block_split_reference(tq, *tkv, torch.tensor(pos),
+                                                    split_keys=split, **tsc)
+    assert out.dtype == tq.dtype and out.shape == (b, s, hq, d)
+    _check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,hq,hkv,pp,ps,split", [(5, 4, 2, 8, 8, 16), (4, 8, 2, 9, 4, 8)])
+def test_paged_block_split_reference_matches_jax(s, hq, hkv, pp, ps, split, dtype, quant):
+    """The paged plain split-and-combine against
+    ``paged_decode_attention_block`` in interpret mode, split edges +-1."""
+    d = 16
+    pos = _edge_positions(s, split, pp * ps)
+    b = len(pos)
+    num_pages = b * pp + 2
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        split * ps + s, (b, s, hq, d), (num_pages, ps, hkv, d), dtype, quant)
+    tables = _tables(split + pp, b, pp, num_pages)
+    ref = jda.paged_decode_attention_block(jq, *jkv, jnp.asarray(tables),
+                                           jnp.asarray(pos), interpret=True, **jsc)
+    out = da.paged_decode_attention_block_split_reference(
+        tq, *tkv, torch.tensor(tables), torch.tensor(pos), split_keys=split, **tsc)
+    assert out.shape == (b, s, hq, d)
+    _check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("split", [64, da.SPLIT_KEYS])
+def test_block_splits_cover_every_visible_key_once(split):
+    """Each slot depth's splits tile keys 0..last in order, without a gap
+    or an overlap, in whole 64-key tiles but the last, and depend on the
+    key index alone: a slot's splits are the same whatever the cache's
+    length, so the slab and any page layout over it split alike."""
+    for last in [0, 1, 63, 64, split - 1, split, split + 1, 3 * split + 7, 2047]:
+        splits = da.block_splits(last, split)
+        assert splits[0][0] == 0 and splits[-1][1] == last + 1
+        assert all(a[1] == b[0] for a, b in zip(splits, splits[1:]))
+        assert all(lo % 64 == 0 and lo % split == 0 for lo, _ in splits)
+        assert all(hi - lo == split for lo, hi in splits[:-1])
+        keys = [j for lo, hi in splits for j in range(lo, hi)]
+        assert keys == list(range(last + 1))
+        # a deeper slot's splits start with the same boundaries
+        assert da.block_splits(last + split, split)[: len(splits) - 1] == splits[:-1]
+    # the kernel's grid: every split of the deepest slot of a cache
+    for max_len in (1, 256, 257, 2048, 8192):
+        assert len(da.block_splits(max_len - 1)) == -(-max_len // da.SPLIT_KEYS)
+
+
+@pytest.mark.parametrize("ps", [1, 8, 16])
+def test_paged_split_reference_equals_slab(ps):
+    """Over page tables the split plain version gives the slab one's output
+    on the gathered rows bit for bit, at split edges +-1."""
+    from torchdistx_tpu_torch.ops.attention import _paged_gather
+
+    b, s, hq, hkv, d, pp, split = 5, 5, 4, 2, 16, 96 // ps, 32
+    pos = torch.tensor(_edge_positions(s, split, pp * ps))
+    (_, _, _), (tq, tkv, _) = _operands(ps, (b, s, hq, d), (b * pp + 1, ps, hkv, d),
+                                        "float32", False)
+    tables = torch.tensor(_tables(ps, b, pp, b * pp + 1))
+    slab = [_paged_gather(t, tables) for t in tkv]
+    torch.testing.assert_close(
+        da.paged_decode_attention_block_split_reference(tq, *tkv, tables, pos,
+                                                        split_keys=split),
+        da.decode_attention_block_split_reference(tq, *slab, pos, split_keys=split),
+        atol=0, rtol=0)

@@ -90,6 +90,23 @@ def test_bwd_reference_matches_autograd_of_plain_attention(hq, hkv, s):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("hq,hkv,s", CASES)
+def test_bwd_reference_takes_the_pre_pass_delta(hq, hkv, s):
+    """The plain backward given the pre-pass's delta (as ``flash_backward``
+    hands one delta to both gradient kernels) equals the one that computes
+    it, bit for bit, through ``flash_backward`` too."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(hq, hkv, s, seed=3 * s + hq))
+    o, lse = tflash.flash_attention_lse_reference(q, k, v)
+    delta = tflash.flash_bwd_delta(o, do)
+    assert torch.equal(delta, tflash.flash_bwd_delta_reference(o, do))
+    want = tflash.flash_bwd_reference(q, k, v, o, lse, do)
+    for got in (tflash.flash_bwd_reference(q, k, v, o, lse, do, delta=delta),
+                tflash.flash_backward(q, k, v, o, lse, do, delta=delta),
+                tflash.flash_backward(q, k, v, o, lse, do)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_no_grad_keeps_the_serving_call():
     """Without autograd the call is the serving forward: no lse, and a
     tensor that needs no gradient gets no graph."""

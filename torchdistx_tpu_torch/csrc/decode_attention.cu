@@ -13,43 +13,69 @@
 // What bounds them on an H100: bytes.  Each slot's query rows meet every
 // visible K/V row once, a few flops per byte of cache read, far left of the
 // card's ridge point; the time is the visible K/V rows (plus scales) over the
-// memory rate.  Both bodies read each visible row exactly once per block,
-// with 16-byte loads, prune by depth (only rows up to the slot's deepest
-// query row are streamed) and fold GQA: the n_rep = Hq / Hkv query heads of
-// one kv head are computed together, so no K/V is repeated.  int8 halves the
-// bytes; the scale adds 4 / D.
+// memory rate.  Both bodies read each visible row exactly once, with 16-byte
+// loads, prune by depth (only rows up to the slot's deepest query row are
+// streamed) and fold GQA: the n_rep = Hq / Hkv query heads of one kv head
+// are computed together, so no K/V is repeated.  int8 halves the bytes; the
+// scale adds 4 / D.
 //
 // Slab and pages share each body: the only difference is where key row j of
 // slot b lives (kv_row below).  A greedy paged engine therefore gives the
-// slab engine's streams bit for bit.  Grid (Hkv, B): one block per
-// (slot, kv head); at the llama3_8b serving geometry that is 64 blocks for
-// 132 SMs, so the card is not filled (splitting the key range over blocks
-// with a combine pass is the later design).
+// slab engine's streams bit for bit.
 //
-// One token per slot (decode_kernel): key rows are dealt round-robin to
-// groups of D / 8 lanes; each group keeps its own online-softmax state and a
-// D / 8-wide accumulator per query row in registers, and the groups are
-// merged through shared memory at the end.
+// One token per slot (decode_kernel), grid (Hkv, B): one block per (slot,
+// kv head).  Key rows are dealt round-robin to groups of D / 8 lanes; each
+// group keeps its own online-softmax state and a D / 8-wide accumulator per
+// query row in registers, and the groups are merged through shared memory
+// at the end.
 //
-// S tokens per slot, the speculative verify (decode_block_kernel): the
-// S * n_rep query rows (20 at llama3_8b with S = 5) would not fit that
-// register layout, so the block stages 32 key rows at a time in shared
-// memory as f32 (int8 dequantized on the way in: q * scale, exact for a
-// power-of-two scale) and each warp owns a few query rows: a lane scores one
-// key of the tile, the warp reduces the row's max and sum, and each lane
-// accumulates D / 32 output columns of P.V.  Row r is token r / n_rep of
-// head r % n_rep and sees keys j <= pos + min(r / n_rep, S - 1); the tiles
-// stop at pos + S - 1, capped at max_len - 1.
+// S tokens per slot, the speculative verify (decode_block_split_kernel,
+// then decode_block_combine_kernel).  Row r of a (slot, kv head) is token
+// r / n_rep of query head h * n_rep + r % n_rep and sees keys j <= pos +
+// min(r / n_rep, S - 1); the deepest visible row is last = min(pos + S -
+// 1, max_len - 1).  The design:
+//   - the key range is split over blocks, grid (splits, Hkv, B): split i
+//     holds keys [i * split, (i + 1) * split), boundaries that depend on
+//     the key index alone (never on the layout or on max_len), so slab and
+//     pages split alike; a block whose range starts past `last` exits at
+//     once.  At the llama3_8b serving geometry (8 slots, 8 kv heads) a
+//     2048-deep slot gives 8 splits of 256 keys: up to 512 blocks for 132
+//     SMs, where (slot, kv head) alone would give 64;
+//   - K/V tiles of 64 rows are staged as bf16 through a 2-stage cp.async
+//     pipeline, 16-byte chunks addressed by kv_row (the page indirection is
+//     per row); an int8 tile is copied raw with its scales, and each thread
+//     dequantizes the chunks it copied into one bf16 tile as q x scale
+//     (exact: an int8 value times a power-of-two scale is a bf16);
+//   - both products run on the tensor cores, mma.sync m16n8k16 bf16 with
+//     f32 accumulation: the S * n_rep rows are padded to m-tiles of 16 (20
+//     -> 32 at llama3_8b), and warp 2 m + d owns m-tile m and half d of the
+//     output columns: it scores its 16 rows against the tile's 64 keys (the
+//     two halves' warps compute the same scores), keeps the rows' online
+//     softmax in registers (exp2 units), and feeds P, rounded to bf16 as the
+//     TPU kernel's default-precision product rounds it, to P V straight
+//     from the score fragments as the A operand;
+//   - each split writes its rows' raw f32 accumulator and (m, l) to f32
+//     scratch that the wrapper allocates; the combine kernel merges a
+//     slot's splits in split order (no atomics), so two launches give the
+//     same bits.
+// Masked keys take the TPU kernel's -1e30 in the max and 0 in P.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
+using tdx_hopper::exp2_ftz;
+using tdx_hopper::pack_bf16;
+using tdx_hopper::smem_u32;
+
 constexpr float NEG_INF = -1e30f;  // the TPU kernels' _NEG_INF
+constexpr float NEG2 = -1e30f * 1.4426950408889634f;  // the same, in log2 units
 constexpr int SMEM_DEFAULT = 48 * 1024;
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
@@ -91,24 +117,6 @@ __device__ __forceinline__ void load8(const void* data, const float* scales,
                 scales[row * Hkv + h], out);
   } else {
     unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(data) + off),
-            out);
-  }
-}
-
-// One 16-byte chunk (chunk c) of one kv head's row, as f32: 8 bf16 or 16 int8.
-template <bool QUANT>
-__device__ __forceinline__ void load_chunk(const void* data,
-                                           const float* scales, long long row,
-                                           int Hkv, int h, int D, int c,
-                                           float* out) {
-  if (QUANT) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        static_cast<const int8_t*>(data) + (row * Hkv + h) * D + c * 16);
-    unpack_int8(reinterpret_cast<const int8_t*>(&raw), 16,
-                scales[row * Hkv + h], out);
-  } else {
-    unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(data) +
-                                            (row * Hkv + h) * D + c * 8),
             out);
   }
 }
@@ -230,185 +238,354 @@ decode_kernel(const bf16* __restrict__ q, const void* __restrict__ ck,
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// S tokens per slot (speculative verify)
+// S tokens per slot (speculative verify): the split kernel and the combine
 // ---------------------------------------------------------------------------
 
-constexpr int TK = 32;          // key rows per shared-memory tile
-constexpr int BLOCK_WARPS = 8;  // warps of the block kernel
+constexpr int TK = 64;       // key rows of a tile
+constexpr int KSTAGES = 2;   // tiles in flight
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// 16 bytes (4 for a scale) from global to shared memory, asynchronously;
+// zeros when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-__host__ __device__ constexpr int block_k_stride(int D) { return D + 4; }
-
-// dynamic shared memory of the block kernel, in bytes
-size_t block_smem_bytes(int R, int D, int rpw, int pp, bool paged) {
-  const size_t floats = (size_t)R * D + (size_t)TK * block_k_stride(D) +
-                        (size_t)TK * D + (size_t)BLOCK_WARPS * rpw * TK;
-  return floats * 4 + (paged ? (size_t)pp * 4 : 0);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-template <int D, int RPW, bool PAGED, bool QUANT>
-__global__ void __launch_bounds__(BLOCK_WARPS * 32)
-decode_block_kernel(const bf16* __restrict__ q, const void* __restrict__ ck,
-                    const void* __restrict__ cv, const float* __restrict__ ks,
-                    const float* __restrict__ vs, const int* __restrict__ pos,
-                    const int* __restrict__ tables, bf16* __restrict__ o,
-                    int max_len, int S, int Hq, int Hkv, int ps, int pp,
-                    float scale) {
-  constexpr int KS = block_k_stride(D);  // padded K row: conflict-free float4 reads
-  constexpr int CPL = D / 32;            // output columns per lane
-  constexpr int EPC = QUANT ? 16 : 8;    // elements per 16-byte chunk
-  constexpr int CPR = D / EPC;           // chunks per key row
-  constexpr int NT = BLOCK_WARPS * 32;
-  extern __shared__ float smem[];
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane l giving a row address
+// of matrix l / 8; .trans delivers each transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared memory of the split kernel: the query rows, the bf16 K/V tiles,
+// for int8 the raw tiles and their scales per stage, then the slot's
+// page-table entries for the split's keys.
+template <int D, int MT, bool QUANT>
+struct BlockSmem {
+  static constexpr int LDK = D + 8;  // bf16 row stride: conflict-free ldmatrix
+  static constexpr int ROWS = 16 * MT;
+  static constexpr int TILE = TK * LDK * 2;         // bytes of one bf16 K or V tile
+  static constexpr int NBUF = QUANT ? 1 : KSTAGES;  // int8 converts into one
+  static constexpr int RAW = TK * D;                // bytes of one int8 K or V tile
+  static constexpr int NCH = RAW / 16;              // its 16-byte chunks
+  static constexpr int q_off = 0;
+  static constexpr int kv_off = q_off + ROWS * LDK * 2;
+  static constexpr int raw_off = kv_off + NBUF * 2 * TILE;
+  static constexpr int sc_off = raw_off + (QUANT ? KSTAGES * 2 * RAW : 0);
+  static constexpr int tab_off = sc_off + (QUANT ? KSTAGES * 2 * NCH * 4 : 0);
+  static size_t bytes(int ntab) { return (size_t)tab_off + (size_t)ntab * 4; }
+};
+
+template <int D, int MT, bool PAGED, bool QUANT>
+__global__ void __launch_bounds__(MT * 64)
+decode_block_split_kernel(const bf16* __restrict__ q, const void* __restrict__ ck,
+                          const void* __restrict__ cv, const float* __restrict__ ks,
+                          const float* __restrict__ vs, const int* __restrict__ pos,
+                          const int* __restrict__ tables, float* __restrict__ part_acc,
+                          float* __restrict__ part_ml, int max_len, int S, int Hq, int Hkv,
+                          int ps, int pp, int split, float scale_log2) {
+  using L = BlockSmem<D, MT, QUANT>;
+  constexpr int NT = MT * 64;
+  constexpr int LDK = L::LDK;
+  constexpr int NO = D / 16;  // 8-column n-tiles of a warp's half of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q_off);
+  int* tab_s = reinterpret_cast<int*>(smem + L::tab_off);
+
+  const int sp = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
   const int n_rep = Hq / Hkv;
   const int R = S * n_rep;
-  float* q_s = smem;              // [R][D]
-  float* k_s = q_s + R * D;       // [TK][KS]
-  float* v_s = k_s + TK * KS;     // [TK][D]
-  float* p_s = v_s + TK * D;      // [BLOCK_WARPS][RPW][TK]
-  int* table_s = reinterpret_cast<int*>(p_s + BLOCK_WARPS * RPW * TK);
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int p = min(max(pos[b], 0), max_len - 1);
-  const int last = min(p + S - 1, max_len - 1);  // the deepest visible row
-  stage_table<PAGED>(table_s, tables, b, pp, last / ps + 1);
-
-  // query row r: token r / n_rep of query head h * n_rep + r % n_rep
-  for (int i = tid; i < R * (D / 8); i += NT) {
+  const int last = min(p + S - 1, max_len - 1);
+  const int k_begin = sp * split;
+  if (k_begin > last) return;
+  const int k_end = min(k_begin + split, last + 1);
+  const int ntiles = (k_end - k_begin + TK - 1) / TK;
+  const int page0 = k_begin / ps;
+  if (PAGED)
+    for (int i = tid; i <= (k_end - 1) / ps - page0; i += NT)
+      tab_s[i] = tables[(long long)b * pp + page0 + i];
+  // query row r: token r / n_rep of head h * n_rep + r % n_rep; zeros past R
+  for (int i = tid; i < L::ROWS * (D / 8); i += NT) {
     const int r = i / (D / 8);
     const int c = i % (D / 8);
-    const int hq = h * n_rep + r % n_rep;
-    float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(
-                q + (((long long)b * S + r / n_rep) * Hq + hq) * D + c * 8),
-            f);
-    float4* dst = reinterpret_cast<float4*>(q_s + r * D + c * 8);
-    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R)
+      val = *reinterpret_cast<const uint4*>(
+          q + (((long long)b * S + r / n_rep) * Hq + h * n_rep + r % n_rep) * D + c * 8);
+    *reinterpret_cast<uint4*>(q_s + r * LDK + c * 8) = val;
   }
+  __syncthreads();  // the table entries, before the first loads
 
-  // this warp's rows: warp, warp + BLOCK_WARPS, ... (clamped for the reads)
-  int qrow[RPW], depth[RPW];
-  float m[RPW], l[RPW], acc[RPW][CPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp + i * BLOCK_WARPS;
-    qrow[i] = min(r, R - 1);
-    depth[i] = p + min(r / n_rep, S - 1);
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < CPL; ++e) acc[i][e] = 0.f;
-  }
-  __syncthreads();
+  // kv_row over the table entries staged from page page0 on
+  auto row_of = [&](int j) -> long long {
+    if (PAGED) return (long long)tab_s[j / ps - page0] * ps + j % ps;
+    return kv_row<false>(j, b, max_len, nullptr, ps);
+  };
 
-  for (int j0 = 0; j0 <= last; j0 += TK) {
-    // stage K/V rows j0 .. j0 + TK - 1 as f32 (rows past `last` as zeros)
-    for (int i = tid; i < TK * CPR; i += NT) {
-      const int jj = i / CPR;
-      const int c = i % CPR;
-      const int j = j0 + jj;
-      float kf[EPC], vf[EPC];
-      if (j <= last) {
-        const long long row = kv_row<PAGED>(j, b, max_len, table_s, ps);
-        load_chunk<QUANT>(ck, ks, row, Hkv, h, D, c, kf);
-        load_chunk<QUANT>(cv, vs, row, Hkv, h, D, c, vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPC; ++e) kf[e] = vf[e] = 0.f;
+  // tile t of the split into stage st: bf16 rows straight into their tile,
+  // int8 rows and their scales raw (zeros past k_end)
+  auto load_tile = [&](int t, int st) {
+    const int j0 = k_begin + t * TK;
+    if constexpr (!QUANT) {
+      constexpr int CPR = D / 8;
+      bf16* kd = reinterpret_cast<bf16*>(smem + L::kv_off + st * 2 * L::TILE);
+      bf16* vd = kd + TK * LDK;
+      for (int i = tid; i < TK * CPR; i += NT) {
+        const int jj = i / CPR;
+        const int c = i % CPR;
+        const int j = j0 + jj;
+        const bool ok = j < k_end;
+        const long long row = ok ? row_of(j) : 0;
+        const long long off = (row * Hkv + h) * D + c * 8;
+        cp_async16(kd + jj * LDK + c * 8, static_cast<const bf16*>(ck) + (ok ? off : 0), ok);
+        cp_async16(vd + jj * LDK + c * 8, static_cast<const bf16*>(cv) + (ok ? off : 0), ok);
       }
-      float4* kd = reinterpret_cast<float4*>(k_s + jj * KS + c * EPC);
-      float4* vd = reinterpret_cast<float4*>(v_s + jj * D + c * EPC);
-#pragma unroll
-      for (int e = 0; e < EPC / 4; ++e) {
-        kd[e] = make_float4(kf[4 * e], kf[4 * e + 1], kf[4 * e + 2], kf[4 * e + 3]);
-        vd[e] = make_float4(vf[4 * e], vf[4 * e + 1], vf[4 * e + 2], vf[4 * e + 3]);
+    } else {
+      constexpr int CPR = D / 16;
+      int8_t* kr = reinterpret_cast<int8_t*>(smem + L::raw_off + st * 2 * L::RAW);
+      int8_t* vr = kr + L::RAW;
+      float* ksc = reinterpret_cast<float*>(smem + L::sc_off) + st * 2 * L::NCH;
+      float* vsc = ksc + L::NCH;
+      for (int i = tid; i < L::NCH; i += NT) {
+        const int j = j0 + i / CPR;
+        const bool ok = j < k_end;
+        const long long row = ok ? row_of(j) : 0;
+        const long long off = (row * Hkv + h) * D + (i % CPR) * 16;
+        cp_async16(kr + i * 16, static_cast<const int8_t*>(ck) + (ok ? off : 0), ok);
+        cp_async16(vr + i * 16, static_cast<const int8_t*>(cv) + (ok ? off : 0), ok);
+        cp_async4(ksc + i, ks + (ok ? row * Hkv + h : 0), ok);
+        cp_async4(vsc + i, vs + (ok ? row * Hkv + h : 0), ok);
       }
     }
-    __syncthreads();
+  };
 
-    // scores: lane `lane` takes key j0 + lane against every row of the warp
-    float s[RPW];
+  // int8: this thread's own chunks of stage st, dequantized into the bf16 tile
+  auto convert = [&](int st) {
+    constexpr int CPR = D / 16;
+    const int8_t* kr = reinterpret_cast<const int8_t*>(smem + L::raw_off + st * 2 * L::RAW);
+    const float* ksc = reinterpret_cast<const float*>(smem + L::sc_off) + st * 2 * L::NCH;
+    bf16* kd = reinterpret_cast<bf16*>(smem + L::kv_off);
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) s[i] = 0.f;
-    const float* krow = k_s + lane * KS;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+    for (int kv = 0; kv < 2; ++kv) {
+      for (int i = tid; i < L::NCH; i += NT) {
+        const int4 raw = *reinterpret_cast<const int4*>(kr + kv * L::RAW + i * 16);
+        const int8_t* v8 = reinterpret_cast<const int8_t*>(&raw);
+        const float s = ksc[kv * L::NCH + i];
+        uint32_t out[8];
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + qrow[i] * D + d);
-        s[i] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+        for (int e = 0; e < 8; ++e)
+          out[e] = pack_bf16(static_cast<float>(v8[2 * e]) * s,
+                             static_cast<float>(v8[2 * e + 1]) * s);
+        uint4* dst = reinterpret_cast<uint4*>(kd + kv * TK * LDK + (i / CPR) * LDK +
+                                              (i % CPR) * 16);
+        dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+        dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
       }
     }
-    const int j = j0 + lane;
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      if (warp + i * BLOCK_WARPS >= R) break;  // warp-uniform
-      const bool valid = j <= depth[i] && j <= last;
-      const float sv = valid ? s[i] * scale : NEG_INF;
-      const float m_new = fmaxf(m[i], warp_max(sv));
-      const float corr = expf(m[i] - m_new);
-      const float pe = valid ? expf(sv - m_new) : 0.f;
-      l[i] = l[i] * corr + warp_sum(pe);
-      p_s[(warp * RPW + i) * TK + lane] = pe;
-#pragma unroll
-      for (int e = 0; e < CPL; ++e) acc[i][e] *= corr;
-      m[i] = m_new;
-    }
-    __syncwarp();
+  };
 
-    // P.V: lane `lane` owns output columns lane * CPL .. + CPL - 1
-    const int nk = min(TK, last - j0 + 1);
-    for (int jj = 0; jj < nk; ++jj) {
-      float vv[CPL];
-      const float* vrow = v_s + jj * D + lane * CPL;
-      if constexpr (CPL == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(vrow);
-        vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-      } else {
 #pragma unroll
-        for (int e = 0; e < CPL; ++e) vv[e] = vrow[e];
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        if (warp + i * BLOCK_WARPS >= R) break;
-        const float pj = p_s[(warp * RPW + i) * TK + jj];
-#pragma unroll
-        for (int e = 0; e < CPL; ++e) acc[i][e] += pj * vv[e];
-      }
-    }
-    __syncthreads();  // the next tile overwrites k_s, v_s and p_s
+  for (int s = 0; s < KSTAGES; ++s) {
+    if (s < ntiles) load_tile(s, s);
+    cp_async_commit();
   }
 
+  // warp 2 mi + dh: rows 16 mi.. of the block, output columns dh * D / 2..
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int mi = warp / 2;
+  const int dh = warp % 2;
+  const int g = lane / 4;         // the thread's rows: 16 mi + g and + 8
+  const int cq = 2 * (lane % 4);  // its columns in each 8-column n-tile
+  uint32_t qa[D / 16][4];         // the m-tile's Q fragments, every k-step
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp + i * BLOCK_WARPS;
-    if (r >= R) break;
-    const int hq = h * n_rep + r % n_rep;
-    bf16* dst = o + (((long long)b * S + r / n_rep) * Hq + hq) * D + lane * CPL;
-    const float den = fmaxf(l[i], 1e-30f);
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qa[kk], q_s + (mi * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LDK + kk * 16 +
+                        8 * (lane / 16));
+  int lim[2];  // the last key each row sees
 #pragma unroll
-    for (int e = 0; e < CPL; ++e) dst[e] = __float2bfloat16(acc[i][e] / den);
+  for (int j = 0; j < 2; ++j) lim[j] = min(p + min((mi * 16 + g + 8 * j) / n_rep, S - 1), last);
+  float m[2] = {NEG2, NEG2};
+  float l[2] = {0.f, 0.f};  // this thread's share; summed over the quad at the end
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<KSTAGES - 1>();
+    if constexpr (QUANT) convert(t % KSTAGES);
+    __syncthreads();  // tile t in shared memory for every warp
+    const bf16* kt = reinterpret_cast<const bf16*>(
+        smem + L::kv_off + (QUANT ? 0 : (t % KSTAGES) * 2 * L::TILE));
+    const bf16* vt = kt + TK * LDK;
+
+    // scores of the m-tile against the tile's 64 keys
+    float s[TK / 8][4];
+#pragma unroll
+    for (int n = 0; n < TK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np) {
+        uint32_t bb[4];
+        ldsm_x4(bb, kt + (np * 16 + lane % 8 + 8 * (lane / 16)) * LDK + kk * 16 +
+                        8 * ((lane / 8) % 2));
+        mma_bf16(s[2 * np], qa[kk], bb[0], bb[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bb[2], bb[3]);
+      }
+    }
+
+    // online softmax in log2 units: the rows' new max over the quad, P
+    const int j0 = k_begin + t * TK + cq;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < TK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = e / 2;
+        const float x = j0 + 8 * n + (e % 2) <= lim[j] ? s[n][e] * scale_log2 : NEG2;
+        s[n][e] = x;
+        mx[j] = fmaxf(mx[j], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      corr[j] = exp2_ftz(m[j] - mx[j]);
+      m[j] = mx[j];
+      l[j] *= corr[j];
+    }
+    uint32_t pa[TK / 16][4];
+#pragma unroll
+    for (int n = 0; n < TK / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool ok0 = j0 + 8 * n <= lim[j];
+        const bool ok1 = j0 + 8 * n + 1 <= lim[j];
+        const float p0 = ok0 ? exp2_ftz(s[n][2 * j] - mx[j]) : 0.f;
+        const float p1 = ok1 ? exp2_ftz(s[n][2 * j + 1] - mx[j]) : 0.f;
+        l[j] += p0 + p1;
+        pa[n / 2][(n % 2) * 2 + j] = pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // O += P V over this warp's half of the columns
+#pragma unroll
+    for (int kt2 = 0; kt2 < TK / 16; ++kt2) {
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vt + (kt2 * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LDK + dh * (D / 2) +
+                          np * 16 + 8 * (lane / 16));
+        mma_bf16(acc[2 * np], pa[kt2], bb[0], bb[1]);
+        mma_bf16(acc[2 * np + 1], pa[kt2], bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with the tile's buffers
+    if (t + KSTAGES < ntiles) load_tile(t + KSTAGES, t % KSTAGES);
+    cp_async_commit();
   }
+
+  // the split's raw accumulator and (m, l) of its real rows
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+  }
+  const long long base = ((long long)(b * Hkv + h) * gridDim.x + sp) * R;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = mi * 16 + g + 8 * j;
+    if (r >= R) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(part_acc + (base + r) * D + dh * (D / 2) + 8 * n + cq) =
+          make_float2(acc[n][2 * j], acc[n][2 * j + 1]);
+    if (dh == 0 && lane % 4 == 0)
+      *reinterpret_cast<float2*>(part_ml + (base + r) * 2) = make_float2(m[j], l[j]);
+  }
+}
+
+// out = the splits of one (slot, kv head, row) merged in split order: grid
+// (R, Hkv, B), one thread a column
+__global__ void decode_block_combine_kernel(const float* __restrict__ part_acc,
+                                            const float* __restrict__ part_ml,
+                                            const int* __restrict__ pos, bf16* __restrict__ o,
+                                            int max_len, int S, int Hq, int Hkv, int D,
+                                            int split, int nsplit) {
+  const int r = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int c = threadIdx.x;
+  const int n_rep = Hq / Hkv;
+  const int R = S * n_rep;
+  const int p = min(max(pos[b], 0), max_len - 1);
+  const int n = min(p + S - 1, max_len - 1) / split + 1;  // the splits that ran
+  const long long base = (long long)(b * Hkv + h) * nsplit * R + r;
+  float M = NEG2;
+  for (int i = 0; i < n; ++i) M = fmaxf(M, part_ml[(base + (long long)i * R) * 2]);
+  float lsum = 0.f, out = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const long long row = base + (long long)i * R;
+    const float w = exp2f(part_ml[row * 2] - M);
+    lsum += part_ml[row * 2 + 1] * w;
+    out += part_acc[row * D + c] * w;
+  }
+  o[(((long long)b * S + r / n_rep) * Hq + h * n_rep + r % n_rep) * D + c] =
+      __float2bfloat16(out / fmaxf(lsum, 1e-30f));
 }
 
 // ---------------------------------------------------------------------------
@@ -417,8 +594,8 @@ decode_block_kernel(const bf16* __restrict__ q, const void* __restrict__ ck,
 
 struct Args {
   const void* q; const void* ck; const void* cv; const void* ks; const void* vs;
-  const void* pos; const void* tables; void* o;
-  int B, S, max_len, Hq, Hkv, D, ps, pp;
+  const void* pos; const void* tables; void* o; float* part;
+  int B, S, max_len, Hq, Hkv, D, ps, pp, split, nsplit;
   float scale;
   cudaStream_t stream;
 };
@@ -448,17 +625,25 @@ cudaError_t launch_one(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D, int RPW, bool PAGED, bool QUANT>
+template <int D, int MT, bool PAGED, bool QUANT>
 cudaError_t launch_block(const Args& a) {
-  auto kernel = decode_block_kernel<D, RPW, PAGED, QUANT>;
-  const size_t dyn = block_smem_bytes(a.S * (a.Hq / a.Hkv), D, RPW, a.pp, PAGED);
+  using L = BlockSmem<D, MT, QUANT>;
+  auto kernel = decode_block_split_kernel<D, MT, PAGED, QUANT>;
+  const size_t dyn = L::bytes(PAGED ? a.split / a.ps + 2 : 0);
   cudaError_t err = allow_smem(kernel, 0, dyn);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.Hkv, a.B), BLOCK_WARPS * 32, dyn, a.stream>>>(
-      static_cast<const bf16*>(a.q), a.ck, a.cv,
-      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
-      static_cast<const int*>(a.pos), static_cast<const int*>(a.tables),
-      static_cast<bf16*>(a.o), a.max_len, a.S, a.Hq, a.Hkv, a.ps, a.pp, a.scale);
+  const int R = a.S * (a.Hq / a.Hkv);
+  float* part_ml = a.part + (long long)a.B * a.Hkv * a.nsplit * R * D;
+  kernel<<<dim3(a.nsplit, a.Hkv, a.B), MT * 64, dyn, a.stream>>>(
+      static_cast<const bf16*>(a.q), a.ck, a.cv, static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),
+      static_cast<const int*>(a.tables), a.part, part_ml, a.max_len, a.S, a.Hq, a.Hkv, a.ps,
+      a.pp, a.split, a.scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_block_combine_kernel<<<dim3(R, a.Hkv, a.B), D, 0, a.stream>>>(
+      a.part, part_ml, static_cast<const int*>(a.pos), static_cast<bf16*>(a.o), a.max_len,
+      a.S, a.Hq, a.Hkv, D, a.split, a.nsplit);
   return cudaGetLastError();
 }
 
@@ -474,13 +659,17 @@ cudaError_t dispatch(const Args& a) {
       default: return cudaErrorInvalidValue;
     }
   }
-  const int rows = a.S * n_rep;
-  const int rpw = (rows + BLOCK_WARPS - 1) / BLOCK_WARPS;
-  if (rpw <= 1) return launch_block<D, 1, PAGED, QUANT>(a);
-  if (rpw <= 2) return launch_block<D, 2, PAGED, QUANT>(a);
-  if (rpw <= 4) return launch_block<D, 4, PAGED, QUANT>(a);
-  if (rpw <= 8) return launch_block<D, 8, PAGED, QUANT>(a);
-  return cudaErrorInvalidValue;
+  // the splits cover every key and are whole tiles
+  if (a.part == nullptr || a.split < TK || a.split % TK != 0 ||
+      (long long)a.nsplit * a.split < a.max_len)
+    return cudaErrorInvalidValue;
+  switch ((a.S * n_rep + 15) / 16) {
+    case 1: return launch_block<D, 1, PAGED, QUANT>(a);
+    case 2: return launch_block<D, 2, PAGED, QUANT>(a);
+    case 3: return launch_block<D, 3, PAGED, QUANT>(a);
+    case 4: return launch_block<D, 4, PAGED, QUANT>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int D>
@@ -495,19 +684,22 @@ cudaError_t dispatch_layout(const Args& a, bool paged, bool quant) {
 // (B, max_len, Hkv, D) or, with paged != 0, the pools (num_pages, ps, Hkv, D)
 // read through tables (B, pp) int32 (max_len is then pp * ps); bf16, or int8
 // with quant != 0 and f32 scales ks/vs of the data's rows x Hkv; pos (B,)
-// int32; o (B, S, Hq, D) bf16.  Returns cudaGetLastError() after the launch
-// (0 on success); the Python wrapper raises on anything else.
+// int32; o (B, S, Hq, D) bf16.  For S > 1: `split` keys a split (a multiple
+// of 64), nsplit splits (nsplit * split >= max_len), and part, f32 scratch of
+// B * Hkv * nsplit * S * Hq / Hkv * (D + 2) floats.  Returns
+// cudaGetLastError() after the launches (0 on success); the Python wrapper
+// raises on anything else.
 extern "C" int tdx_decode_attention(const void* q, const void* ck,
                                     const void* cv, const void* ks,
                                     const void* vs, const void* pos,
-                                    const void* tables, void* o, int B, int S,
+                                    const void* tables, void* o, void* part, int B, int S,
                                     int max_len, int Hq, int Hkv, int D,
-                                    int ps, int pp, int paged, int quant,
-                                    float scale, void* stream) {
+                                    int ps, int pp, int paged, int quant, int split,
+                                    int nsplit, float scale, void* stream) {
   if (B < 1 || S < 1 || max_len < 1 || Hkv < 1 || Hq % Hkv != 0 || ps < 1)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, ck, cv, ks, vs, pos, tables, o, B, S, max_len, Hq, Hkv, D,
-               ps, pp, scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q, ck, cv, ks, vs, pos, tables, o, static_cast<float*>(part), B, S, max_len,
+               Hq, Hkv, D, ps, pp, split, nsplit, scale, static_cast<cudaStream_t>(stream)};
   if (D == 128) return (int)dispatch_layout<128>(a, paged != 0, quant != 0);
   if (D == 64) return (int)dispatch_layout<64>(a, paged != 0, quant != 0);
   return (int)cudaErrorInvalidValue;

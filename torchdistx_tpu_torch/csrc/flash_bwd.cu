@@ -48,12 +48,23 @@
 // times, where the JAX kernel recomputes it from O in every tile (which
 // saves HBM on the TPU).
 //
-// dQ is still the first version: a block holds one 64-row query tile
-// stationary, streams K/V tiles through shared memory with synchronous
-// loads, and runs every product with warp-level WMMA 16x16x16 bf16
-// fragments (BwdLayout, load_tile, tile_delta, gemm_abt of
-// flash_common.cuh); its f32 accumulator stays in registers.  It
-// recomputes Q.K^T and dO.V^T, as the JAX design does.
+// dQ, the same Hopper design with the roles turned: a block owns 128 query
+// rows of one query head (two consumer warpgroups of 64 and a producer
+// warpgroup).  The producer loads Q and dO once by TMA, then streams the
+// K/V tiles of 64 keys of the head's kv group through a 2-stage ring.  Per
+// tile a consumer runs S = Q K^T and dP = dO V^T as wgmma m64n64k16 from
+// shared memory (K-major), forms P = exp2(S scale log2 e + bias log2 e -
+// lse log2 e) and dS = P (dP - delta) scale in registers, and accumulates
+// dQ += dS K with dS as the bf16 register A operand and K MN-major, as the
+// forward does P V: S, P, dP and dS never touch shared memory, dQ stays in
+// registers (64 f32 a thread at D 128), and 64-key tiles keep S, dP and dQ
+// in the consumers' 240 registers.  lse and delta are read once per row
+// (delta from the pre-pass, O is not read at all); a tile past a
+// warpgroup's diagonal or below its band is skipped, and only tiles that
+// cross the diagonal, the band's edge or the ragged end are masked.  Each
+// block owns its rows, so dQ has no atomics and is the same bits on every
+// launch.  The additive bias and the bucket biases are staged per
+// warpgroup as for dK/dV.
 //
 // Output type: bf16, the gradients of one attention call; or f32 (the JAX
 // kernels' dq_dtype / part_dtype = float32), which ring attention's
@@ -62,9 +73,9 @@
 // either case; only the store differs.
 //
 // Layout: q, o, dO, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); lse and
-// delta (B, Hq, S) f32.  Sq == Skv.  dK/dV and the pre-pass take q, k, v,
-// o and dO with any strides TMA takes (hopper.cuh), dQ contiguous ones;
-// the outputs are contiguous.  Causal tiles above the diagonal are
+// delta (B, Hq, S) f32.  Sq == Skv.  The kernels and the pre-pass take q,
+// k, v, o and dO with any strides TMA takes (hopper.cuh); the outputs are
+// contiguous.  Causal tiles above the diagonal are
 // skipped; with a window, tiles wholly below the band are skipped too: dQ
 // starts its key loop at the first tile the band reaches (band_kv_begin),
 // dK/dV stops its query loop after the last query tile that sees the key
@@ -416,156 +427,275 @@ cudaError_t launch_dkv_d(const CUtensorMap* maps, const float* lse, const float*
 
 // ---- dQ ---------------------------------------------------------------------------
 
-// P and dS of one 64x64 tile (rows q0.., columns k0..), masked.
+namespace hop {
+
+constexpr int DQ_BQ = 128;  // query rows of a dQ block, 64 per consumer warpgroup
+constexpr int DQ_BK = 64;   // key rows of a streamed K/V tile
+constexpr int PANEL_DQ = DQ_BQ * 128;  // bytes of a 64-column panel of the Q/dO tiles
+constexpr int PANEL_K = DQ_BK * 128;   // ... of a K/V tile
+
 template <int D>
-__device__ __forceinline__ void ds_tile(const float* Ss, const float* dPs, bf16* Ps,
-                                        bf16* dSs, const float* lse,
-                                        const float* delta, const BiasArgs& ba,
-                                        const float* dist_bias, int h, int q0,
-                                        int k0, int S, int causal, int window,
-                                        float scale) {
-  using L = BwdLayout<D>;
-  for (int i = threadIdx.x; i < BT * BT; i += BWD_THREADS) {
-    const int r = i / BT, c = i % BT;
-    const int qi = q0 + r, kj = k0 + c;
-    float p = 0.f;
-    if (visible(qi, kj, S, S, causal, window))
-      p = expf(Ss[r * L::LDS + c] * scale +
-               bias_at(ba, dist_bias, h, S, S, qi, kj, r, c) - lse[r]);
-    const float ds = p * (dPs[r * L::LDS + c] - delta[r]) * scale;
-    Ps[r * L::LDP + c] = __float2bfloat16(p);
-    dSs[r * L::LDP + c] = __float2bfloat16(ds);
-  }
-}
+struct DqSmem {
+  static constexpr int Q_TILE = DQ_BQ * D * 2;
+  static constexpr int KV_TILE = DQ_BK * D * 2;
+  static constexpr int q_off = 0;
+  static constexpr int do_off = Q_TILE;
+  static constexpr int k_off = 2 * Q_TILE;
+  static constexpr int v_off = k_off + STAGES * KV_TILE;
+  static constexpr int diag_off = v_off + STAGES * KV_TILE;  // 2 warpgroups x 2 buffers
+  static constexpr int bias_off = diag_off + 2 * 2 * 128 * 4;  // 2 warpgroups x 2 buffers
+  static constexpr int bar_off = bias_off + 2 * 2 * 64 * LDB * 2;
+  static constexpr int bytes = bar_off + (1 + 2 * STAGES) * 8 + 1024;
+};
 
-// acc += A B, A 64x64 bf16 (LDP), B 64 x D bf16 (LDH): dQ += dS K.
-template <int D>
-__device__ __forceinline__ void acc_ab(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, const bf16* A,
-    const bf16* B, int warp) {
-  using L = BwdLayout<D>;
-  const int rm = (warp % 4) * 16;
-  const int cn = (warp / 4) * (D / 2);
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, A + rm * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-    for (int f = 0; f < L::NF; ++f) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, B + kk * 16 * L::LDH + cn + f * 16, L::LDH);
-      wmma::mma_sync(acc[f], fa, fb, acc[f]);
-    }
-  }
-}
+template <int D, int BIAS, typename OutT>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    OutT* __restrict__ dq, BiasArgs ba, int S, int Hq, int Hkv, int causal,
+                    int window, float scale, float scale_log2) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + STAGES;
 
-__device__ __forceinline__ void put(bf16* dst, float x) { *dst = __float2bfloat16(x); }
-__device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
-
-// Write this block's 64 x D accumulator (spread over the warps' fragments)
-// as rows of a (B, S, H, D) bf16 or f32 tensor, through fp32 staging in
-// `stage`.
-template <int D, typename OutT>
-__device__ __forceinline__ void store_acc(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, float* stage,
-    OutT* gbase, long long gstride, int valid, int warp) {
-  using L = BwdLayout<D>;
-  const int rm = (warp % 4) * 16;
-  const int cn = (warp / 4) * (D / 2);
-  __syncthreads();
-#pragma unroll
-  for (int f = 0; f < L::NF; ++f)
-    wmma::store_matrix_sync(stage + rm * L::LDO + cn + f * 16, acc[f], L::LDO,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BT * D; i += BWD_THREADS) {
-    const int r = i / D, c = i % D;
-    if (r < valid) put(gbase + r * gstride + c, stage[r * L::LDO + c]);
-  }
-}
-
-template <int D, typename OutT>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ o,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    OutT* __restrict__ dq, BiasArgs ba, int S, int Hq, int Hkv,
-                    int causal, int window, float scale) {
-  using L = BwdLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::do_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dPs = reinterpret_cast<float*>(smem + L::dp_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::ds_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + L::dl_off);
-  float* dist_bias = reinterpret_cast<float*>(smem + L::diag_off);
-
-  const int q0 = blockIdx.x * BT;
-  const int b = blockIdx.y / Hq;
-  const int h = blockIdx.y % Hq;
+  const int b = blockIdx.x / Hq;
+  const int h = blockIdx.x % Hq;
   const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const long long qstride = (long long)Hq * D;
-  const long long kstride = (long long)Hkv * D;
-  const int qvalid = min(BT, S - q0);
-  const long long qoff = ((long long)b * S + q0) * qstride + (long long)h * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BQ;  // heaviest causal tiles first
+  // from the first key tile the band reaches to the last key a row sees
+  const int kv_end = causal ? min(S, q0 + DQ_BQ) : S;
+  const int kv_begin = band_kv_begin(q0, 0, window, DQ_BK);
+  const int ntiles = (kv_end - kv_begin + DQ_BK - 1) / DQ_BK;
 
-  load_tile<D>(Qs, L::LDH, q + qoff, qstride, qvalid);
-  load_tile<D>(dOs, L::LDH, dout + qoff, qstride, qvalid);
-  load_lse(lse_s, lse + ((long long)b * Hq + h) * S + q0, qvalid);
+  if (threadIdx.x == 0) {
+    bar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 256);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  tile_delta<D>(delta_s, dOs, o + qoff, qstride, qvalid);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_q[L::NF];
-#pragma unroll
-  for (int f = 0; f < L::NF; ++f) wmma::fill_fragment(acc_q[f], 0.f);
-
-  // causal: key tiles up to the diagonal, from the first the band reaches,
-  // as the forward walks them
-  const int kv_end = causal ? min(S, q0 + BT) : S;
-  for (int k0 = band_kv_begin(q0, 0, window, BT); k0 < kv_end; k0 += BT) {
-    const int kvalid = min(BT, S - k0);
-    const long long koff = ((long long)b * S + k0) * kstride + (long long)hk * D;
-    __syncthreads();  // the previous tile is fully consumed
-    load_tile<D>(Ks, L::LDH, k + koff, kstride, kvalid);
-    load_tile<D>(Vs, L::LDH, v + koff, kstride, kvalid);
-    stage_diag(dist_bias, ba, h, q0, k0, S, threadIdx.x, BWD_THREADS);
-    __syncthreads();
-    gemm_abt<D>(Ss, Qs, Ks, warp);
-    gemm_abt<D>(dPs, dOs, Vs, warp);
-    __syncthreads();
-    ds_tile<D>(Ss, dPs, Ps, dSs, lse_s, delta_s, ba, dist_bias, h, q0, k0, S,
-               causal, window, scale);
-    __syncthreads();
-    acc_ab<D>(acc_q, dSs, Ks, warp);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full --------------------------
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      bar_expect_tx(full_q, 2 * L::Q_TILE);
+      for (int p = 0; p < D / 64; ++p) {
+        tma_load(smem + L::q_off + p * PANEL_DQ, &tq, full_q, p * 64, h, q0, b);
+        tma_load(smem + L::do_off + p * PANEL_DQ, &tdo, full_q, p * 64, h, q0, b);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % STAGES;
+        const int k0 = kv_begin + t * DQ_BK;
+        bar_wait(empty + st, ((t / STAGES) & 1) ^ 1);
+        bar_expect_tx(full + st, 2 * L::KV_TILE);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load(smem + L::k_off + st * L::KV_TILE + p * PANEL_K, &tk, full + st, p * 64, hk,
+                   k0, b);
+          tma_load(smem + L::v_off + st * L::KV_TILE + p * PANEL_K, &tv, full + st, p * 64, hk,
+                   k0, b);
+        }
+      }
+    }
+    return;
   }
 
-  store_acc<D, OutT>(acc_q, Ss, dq + qoff, qstride, qvalid, warp);
+  // ---- consumers: 64 query rows each -----------------------------------------------
+  reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int qw = q0 + 64 * wg;          // this warpgroup's first query row
+  const int r0 = 16 * warp + lane / 4;  // the thread's rows: r0 and r0 + 8
+  const int cq = 2 * (lane % 4);        // its columns in each 8-column chunk
+  float* dist = reinterpret_cast<float*>(smem + L::diag_off) + wg * 2 * 128;
+  bf16* btile = reinterpret_cast<bf16*>(smem + L::bias_off) + wg * 2 * 64 * LDB;
+
+  // the thread's two rows' lse (in log2 units) and delta, from the pre-pass
+  float lse2[2], dl[2];
+  const long long srow = ((long long)b * Hq + h) * S;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qi = qw + r0 + 8 * j;
+    lse2[j] = qi < S ? lse[srow + qi] * LOG2E : 0.f;
+    dl[j] = qi < S ? delta[srow + qi] : 0.f;
+  }
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  const uint64_t dqa = desc_sw128(smem + L::q_off + wg * 64 * 128, 16, 1024);
+  const uint64_t doa = desc_sw128(smem + L::do_off + wg * 64 * 128, 16, 1024);
+  bar_wait(full_q, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % STAGES;
+    const uint32_t ph = (t / STAGES) & 1;
+    const int k0 = kv_begin + t * DQ_BK;
+    bar_wait(full + st, ph);
+    // a tile this warpgroup's rows see nothing of: past the diagonal, wholly
+    // below the band, or rows past S
+    if (qw >= S || (causal && k0 > qw + 63) || (window > 0 && k0 + DQ_BK - 1 <= qw - window)) {
+      bar_arrive(empty + st);
+      continue;
+    }
+    float* dcur = dist + (t & 1) * 128;
+    bf16* bcur = btile + (t & 1) * 64 * LDB;
+    const uint64_t dkk = desc_sw128(smem + L::k_off + st * L::KV_TILE, 16, 1024);
+    const uint64_t dvk = desc_sw128(smem + L::v_off + st * L::KV_TILE, 16, 1024);
+
+    // S = Q K^T and dP = dO V^T, in flight together
+    float s[DQ_BK / 2], dp[DQ_BK / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_add(dqa, (kk / 4) * PANEL_DQ + (kk % 4) * 32),
+                   desc_add(dkk, (kk / 4) * PANEL_K + (kk % 4) * 32), kk > 0);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_add(doa, (kk / 4) * PANEL_DQ + (kk % 4) * 32),
+                   desc_add(dvk, (kk / 4) * PANEL_K + (kk % 4) * 32), kk > 0);
+    wg_commit();
+    // the tile's biases, staged while the products run
+    if constexpr (BIAS == ADD_BIAS) {
+      // bcur[r * LDB + c] = bias[h, qw + r, k0 + c], 0 past the ends: rows
+      // of 64 keys read two at a time by consecutive threads
+      const bf16* src = ba.bias + ((long long)h * S + qw) * S + k0;
+      const bool inside = qw + 64 <= S && k0 + DQ_BK <= S && S % 2 == 0;
+      constexpr int PAIRS = 64 * 32 / 128;  // a thread's pairs: all loads, then all stores
+      __nv_bfloat162 pr[PAIRS];
+#pragma unroll
+      for (int it = 0; it < PAIRS; ++it) {
+        const int r = (tid + 128 * it) / 32, c = (tid % 32) * 2;
+        if (inside) {
+          pr[it] = *reinterpret_cast<const __nv_bfloat162*>(src + (long long)r * S + c);
+        } else {
+          const bool row = qw + r < S;
+          pr[it].x = row && k0 + c < S ? src[(long long)r * S + c] : __float2bfloat16(0.f);
+          pr[it].y = row && k0 + c + 1 < S ? src[(long long)r * S + c + 1]
+                                           : __float2bfloat16(0.f);
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < PAIRS; ++it)
+        *reinterpret_cast<__nv_bfloat162*>(bcur + (tid + 128 * it) / 32 * LDB +
+                                           (tid % 32) * 2) = pr[it];
+    }
+    if constexpr (BIAS == TABLE_BIAS) {
+      // dcur[c - r + 63] = the bias of distance k0 + c - (qw + r)
+      for (int d = tid; d < NDIST; d += 128) {
+        const int rel = k0 - qw + d - 63;
+        float val = 0.f;
+        if (rel > -S && rel < S)
+          val = __bfloat162float(ba.table[h * ba.buckets + ba.ids[rel + S - 1]]);
+        dcur[d] = val;
+      }
+    }
+    if constexpr (BIAS != NO_BIAS) named_sync(1 + wg, 128);
+    wg_wait<1>();
+    fence_regs(s);
+
+    // P = exp2(S scale log2 e + bias log2 e - lse log2 e)
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i) {
+      const int j = (i / 2) % 2;
+      const int c = 8 * (i / 4) + cq + (i % 2);
+      float x = s[i] * scale_log2;
+      if constexpr (BIAS == ADD_BIAS)
+        x = fmaf(__bfloat162float(bcur[(r0 + 8 * j) * LDB + c]), LOG2E, x);
+      if constexpr (BIAS == TABLE_BIAS) x = fmaf(dcur[c - r0 - 8 * j + 63], LOG2E, x);
+      s[i] = exp2_ftz(x - lse2[j]);
+    }
+    // the mask, only in tiles that cross the diagonal, the band's edge or
+    // the ragged end: query row qi sees the tile's key columns lo <= c < hi
+    // (rows past S are never stored and need none)
+    if (k0 + DQ_BK > S || (causal && k0 + DQ_BK - 1 > qw) ||
+        (window > 0 && k0 <= qw + 63 - window)) {
+      int lo[2], hi[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qi = qw + r0 + 8 * j;
+        hi[j] = (causal ? min(S, qi + 1) : S) - k0 - cq;
+        lo[j] = (window > 0 ? qi - window + 1 - k0 : 0) - cq;
+      }
+#pragma unroll
+      for (int i = 0; i < DQ_BK / 2; ++i) {
+        const int c = 8 * (i / 4) + (i % 2);  // less the thread's cq
+        const int j = (i / 2) % 2;
+        if (c < lo[j] || c >= hi[j]) s[i] = 0.f;
+      }
+    }
+    wg_wait<0>();
+    fence_regs(dp);
+
+    // dS = P (dP - delta) scale, as the bf16 register A operand
+    uint32_t dsa[DQ_BK / 4];
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; i += 2) {
+      const int j = (i / 2) % 2;
+      dsa[i / 2] = pack_bf16(s[i] * (dp[i] - dl[j]) * scale,
+                             s[i + 1] * (dp[i + 1] - dl[j]) * scale);
+    }
+
+    // dQ += dS K: K MN-major
+    const uint64_t dkm = desc_sw128(smem + L::k_off + st * L::KV_TILE, PANEL_K, 1024);
+    fence_regs(dq_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk)
+      acc_rs<D>(dq_acc, dsa + 4 * kk, desc_add(dkm, kk * 2048));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dq_acc);
+    bar_arrive(empty + st);
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int qi = qw + r0 + 8 * ((i / 2) % 2);
+    const int c = 8 * (i / 4) + cq;
+    if (qi < S) put2(dq + (((long long)b * S + qi) * Hq + h) * D + c, dq_acc[i], dq_acc[i + 1]);
+  }
 }
 
-template <int D, typename OutT>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, void* dq,
-                      const BiasArgs& ba, int B, int S, int Hq, int Hkv,
-                      int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem = BwdLayout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <int D, int BIAS, typename OutT>
+cudaError_t launch_dq(const CUtensorMap* maps, const float* lse, const float* delta, void* dq,
+                      const BiasArgs& ba, int B, int S, int Hq, int Hkv, int causal, int window,
+                      float scale, cudaStream_t stream) {
+  const int smem = DqSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, BIAS, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + BT - 1) / BT, B * Hq);
-  flash_bwd_dq_kernel<D, OutT><<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dout), lse, static_cast<OutT*>(dq), ba, S, Hq,
-      Hkv, causal, window, scale);
+  dim3 grid(B * Hq, (S + DQ_BQ - 1) / DQ_BQ);
+  flash_bwd_dq_kernel<D, BIAS, OutT><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<OutT*>(dq), ba, S, Hq, Hkv,
+      causal, window, scale, (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
+
+template <int D, typename OutT>
+cudaError_t launch_dq_d(const CUtensorMap* maps, const float* lse, const float* delta,
+                        void* dq, const BiasArgs& ba, int B, int S, int Hq, int Hkv,
+                        int causal, int window, float scale, cudaStream_t st) {
+  if (ba.bias != nullptr)
+    return launch_dq<D, ADD_BIAS, OutT>(maps, lse, delta, dq, ba, B, S, Hq, Hkv, causal,
+                                        window, scale, st);
+  if (ba.table != nullptr)
+    return launch_dq<D, TABLE_BIAS, OutT>(maps, lse, delta, dq, ba, B, S, Hq, Hkv, causal,
+                                          window, scale, st);
+  return launch_dq<D, NO_BIAS, OutT>(maps, lse, delta, dq, ba, B, S, Hq, Hkv, causal, window,
+                                     scale, st);
+}
+
+}  // namespace hop
 
 bool bad_args(const void* bias, const void* table, const void* ids, int buckets,
               int causal, int window) {
@@ -573,21 +703,42 @@ bool bad_args(const void* bias, const void* table, const void* ids, int buckets,
   return table != nullptr && (ids == nullptr || buckets < 1 || buckets > MAX_BUCKETS);
 }
 
+// The tensor maps of q, k, v and dO (strides: q's, k's, v's and dO's (batch,
+// seq, head), in elements), boxes of `qrows` query and `krows` key rows.
+bool bwd_maps(CUtensorMap* maps, const void* q, const void* k, const void* v,
+              const void* dout, int B, int S, int Hq, int Hkv, int D,
+              const long long* strides, int qrows, int krows) {
+  using tdx_hopper::map_bshd;
+  const Strides sq{strides[0], strides[1], strides[2]};
+  const Strides sk{strides[3], strides[4], strides[5]};
+  const Strides sv{strides[6], strides[7], strides[8]};
+  const Strides sdo{strides[9], strides[10], strides[11]};
+  return map_bshd(&maps[0], q, B, S, Hq, D, sq, qrows) &&
+         map_bshd(&maps[1], k, B, S, Hkv, D, sk, krows) &&
+         map_bshd(&maps[2], v, B, S, Hkv, D, sv, krows) &&
+         map_bshd(&maps[3], dout, B, S, Hq, D, sdo, qrows);
+}
+
 template <typename OutT>
-int dq(const void* q, const void* k, const void* v, const void* o,
-       const void* dout, const void* lse, void* dqo, const void* bias,
-       const void* table, const void* ids, int buckets, int B, int S, int Hq,
-       int Hkv, int D, int causal, int window, float scale, void* stream) {
+int dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+       const void* delta, void* dqo, const void* bias, const void* table, const void* ids,
+       int buckets, int B, int S, int Hq, int Hkv, int D, int causal, int window, float scale,
+       const long long* strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
   const BiasArgs ba = bias_args(bias, table, ids, buckets);
-  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window))
+  if (bad_shape(B, S, Hq, Hkv) || bad_args(bias, table, ids, buckets, causal, window) ||
+      (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (!bwd_maps(maps, q, k, v, dout, B, S, Hq, Hkv, D, strides, hop::DQ_BQ, hop::DQ_BK))
     return (int)cudaErrorInvalidValue;
   if (D == 128)
-    return (int)launch_dq<128, OutT>(q, k, v, o, dout, l, dqo, ba, B, S, Hq, Hkv, causal, window, scale, st);
-  if (D == 64)
-    return (int)launch_dq<64, OutT>(q, k, v, o, dout, l, dqo, ba, B, S, Hq, Hkv, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+    return (int)hop::launch_dq_d<128, OutT>(maps, l, dl, dqo, ba, B, S, Hq, Hkv, causal,
+                                            window, scale, st);
+  return (int)hop::launch_dq_d<64, OutT>(maps, l, dl, dqo, ba, B, S, Hq, Hkv, causal, window,
+                                         scale, st);
 }
 
 template <typename OutT>
@@ -603,15 +754,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout, const voi
       (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
-  const Strides sdo{strides[9], strides[10], strides[11]};
-  using tdx_hopper::map_bshd;
-  if (!map_bshd(&maps[0], q, B, S, Hq, D, sq, hop::BQ) ||
-      !map_bshd(&maps[1], k, B, S, Hkv, D, sk, hop::BKV) ||
-      !map_bshd(&maps[2], v, B, S, Hkv, D, sv, hop::BKV) ||
-      !map_bshd(&maps[3], dout, B, S, Hq, D, sdo, hop::BQ))
+  if (!bwd_maps(maps, q, k, v, dout, B, S, Hq, Hkv, D, strides, hop::BQ, hop::BKV))
     return (int)cudaErrorInvalidValue;
   if (D == 128)
     return (int)hop::launch_dkv_d<128, OutT>(maps, l, dl, dk, dv, ba, B, S, Hq, Hkv, causal,
@@ -646,18 +789,18 @@ extern "C" int tdx_flash_bwd_delta(const void* o, const void* dout, void* delta,
   return (int)cudaGetLastError();
 }
 
-// dK/dV from q, k, v, dO, lse and the pre-pass's delta; strides: q's, k's,
-// v's and dO's (batch, seq, head), in elements.
+// dK/dV or dQ from q, k, v, dO, lse and the pre-pass's delta; strides: q's,
+// k's, v's and dO's (batch, seq, head), in elements.
 #define TDX_DKV_ARGS                                                            \
   const void *q, const void *k, const void *v, const void *dout, const void *lse, \
       const void *delta, void *dk, void *dv, const void *bias, const void *table, \
       const void *ids, int buckets, int B, int S, int Hq, int Hkv, int D,         \
       int causal, int window, float scale, const long long *strides, void *stream
-#define TDX_DQ_ARGS                                                           \
-  const void *q, const void *k, const void *v, const void *o,                 \
-      const void *dout, const void *lse, void *dqo, const void *bias,         \
-      const void *table, const void *ids, int buckets, int B, int S, int Hq,  \
-      int Hkv, int D, int causal, int window, float scale, void *stream
+#define TDX_DQ_ARGS                                                             \
+  const void *q, const void *k, const void *v, const void *dout, const void *lse, \
+      const void *delta, void *dqo, const void *bias, const void *table,          \
+      const void *ids, int buckets, int B, int S, int Hq, int Hkv, int D,         \
+      int causal, int window, float scale, const long long *strides, void *stream
 
 extern "C" int tdx_flash_bwd_dkv_bf16(TDX_DKV_ARGS) {
   return dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, bias, table, ids, buckets, B, S, Hq,
@@ -670,11 +813,11 @@ extern "C" int tdx_flash_bwd_dkv_f32(TDX_DKV_ARGS) {
 }
 
 extern "C" int tdx_flash_bwd_dq_bf16(TDX_DQ_ARGS) {
-  return dq<bf16>(q, k, v, o, dout, lse, dqo, bias, table, ids, buckets, B, S, Hq,
-                  Hkv, D, causal, window, scale, stream);
+  return dq<bf16>(q, k, v, dout, lse, delta, dqo, bias, table, ids, buckets, B, S, Hq, Hkv, D,
+                  causal, window, scale, strides, stream);
 }
 
 extern "C" int tdx_flash_bwd_dq_f32(TDX_DQ_ARGS) {
-  return dq<float>(q, k, v, o, dout, lse, dqo, bias, table, ids, buckets, B, S,
-                   Hq, Hkv, D, causal, window, scale, stream);
+  return dq<float>(q, k, v, dout, lse, delta, dqo, bias, table, ids, buckets, B, S, Hq, Hkv,
+                   D, causal, window, scale, strides, stream);
 }

@@ -422,17 +422,18 @@ def ring_flash_fwd_block(q, kb, vb, acc, m, l, *, causal: bool,
 
 
 def ring_bwd_block(q, kb, vb, o, lse, do, bias=None, *, causal: bool,
-                   scale: Optional[float] = None):
+                   scale: Optional[float] = None, delta=None):
     """One hop of the flash ring's backward: the dK/dV and dQ kernels on the
     held block, seeded with the GLOBAL row lse (so each block's partial
     probabilities are exact) and the global output ``o``, writing f32
     partials; with ``bias`` (the block's column slice) the dbias kernel
-    too.  Returns f32 (dq, dk, dv, dbias or None); the GQA groups of dk
-    and dv are summed in the kernel."""
+    too.  ``delta``: ``flash_bwd_delta(o, do)``, the same at every hop
+    (computed here unless given).  Returns f32 (dq, dk, dv, dbias or
+    None); the GQA groups of dk and dv are summed in the kernel."""
     from .flash_attention import flash_backward
 
     grads = flash_backward(q, kb, vb, o, lse, do, causal=causal, scale=scale, bias=bias,
-                           dq_dtype=torch.float32, part_dtype=torch.float32)
+                           dq_dtype=torch.float32, part_dtype=torch.float32, delta=delta)
     return (*grads[:3], grads[3].float() if bias is not None else None)
 
 
@@ -471,12 +472,14 @@ class _RingFlash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from ..parallel.collectives import shift
+        from .flash_attention import flash_bwd_delta
 
         q, k, v, bias, out, lse = ctx.saved_tensors
         ax, causal, scale = ctx.ax, ctx.causal, ctx.scale
         n, idx = ax.size, ax.index
         skv = k.shape[1]
         g = g.contiguous()
+        delta = flash_bwd_delta(out, g)  # o and dO are the same at every hop
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         db = (torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
               if bias is not None else None)
@@ -487,7 +490,7 @@ class _RingFlash(torch.autograd.Function):
             if compute:
                 dq_c, dk_c, dv_c, db_c = ring_bwd_block(
                     q, kb, vb, out, lse, g, _ring_bias_block(bias, j, skv),
-                    causal=diag, scale=scale)
+                    causal=diag, scale=scale, delta=delta)
                 dq += dq_c
                 dkb += dk_c
                 dvb += dv_c

@@ -26,6 +26,11 @@ package's ``_slot_attend`` / ``_slot_attend_block`` over the slab, the
 page-table gather, or their dequantized view) run only for CPU tensors.
 Each ``*_cuda`` wrapper counts its launches in ``.launches`` and, of those,
 the int8 ones in ``.int8_launches``.
+
+The verify-block kernel splits each slot's key range over blocks at the
+fixed boundaries of :func:`block_splits` and merges the splits in split
+order; :func:`decode_attention_block_split_reference` (and its paged
+twin) is the plain version of that algorithm, in f32.
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ __all__ = [
     "decode_attention_block_reference",
     "paged_decode_attention_reference",
     "paged_decode_attention_block_reference",
+    "decode_attention_block_split_reference",
+    "paged_decode_attention_block_split_reference",
+    "block_splits",
     "decode_attention_cuda",
     "decode_attention_block_cuda",
     "paged_decode_attention_cuda",
@@ -59,6 +67,19 @@ _LIB = "decode_attention"
 N_REP = (1, 2, 4, 8)
 #: query rows (S * n_rep) the block kernel takes at most
 MAX_BLOCK_ROWS = 64
+#: keys of one split of the block kernel's key range (a multiple of its
+#: 64-key tile)
+SPLIT_KEYS = 256
+_NEG_INF = -1e30  # the TPU kernels' finite mask value
+
+
+def block_splits(last: int, split_keys: int = SPLIT_KEYS):
+    """The key ranges ``[start, end)`` the verify-block kernel's splits
+    cover for a slot whose deepest visible key is ``last``: split ``i``
+    holds keys ``[i * split_keys, (i + 1) * split_keys)``, cut at
+    ``last + 1``.  The boundaries depend on the key index alone, never on
+    the cache's layout or length, so the slab and the pages split alike."""
+    return [(s, min(s + split_keys, last + 1)) for s in range(0, last + 1, split_keys)]
 
 
 def _check_kv_scales(k_scale, v_scale, ck) -> bool:
@@ -127,6 +148,65 @@ def paged_decode_attention_block_reference(q, ck, cv, page_tables, positions,
     return _slot_attend_block(q, kk, vv, positions, scale)
 
 
+def _split_attend_block(q, kk, vv, positions, scale, split_keys):
+    """The split-and-combine of the verify-block kernel in f32 over the
+    (B, max_len, Hkv, D) view ``kk``/``vv``: per slot, each split of
+    :func:`block_splits` gives its rows' max ``m``, sum ``l`` and raw
+    accumulator over its keys (masked keys -1e30 in the max, 0 in P), and
+    the splits merge in split order."""
+    b, s, hq, d = q.shape
+    max_len, hkv = kk.shape[1], kk.shape[2]
+    n_rep = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf = kk.float().repeat_interleave(n_rep, 2)
+    vf = vv.float().repeat_interleave(n_rep, 2)
+    logits = torch.einsum("bshd,bkhd->bhsk", q.float(), kf) * scale
+    pos = positions.long().clamp(0, max_len - 1)
+    depth = (pos[:, None] + torch.arange(s)[None, :]).clamp_max(max_len - 1)
+    visible = torch.arange(max_len)[None, None, :] <= depth[:, :, None]  # (B, S, K)
+    out = torch.empty((b, s, hq, d), dtype=torch.float32)
+    for i in range(b):
+        big_m = big_l = big_o = None
+        for lo, hi in block_splits(int(depth[i, -1]), split_keys):
+            vis = visible[i, None, :, lo:hi]
+            x = logits[i, :, :, lo:hi].masked_fill(~vis, _NEG_INF)
+            m = x.amax(-1)
+            p = torch.exp(x - m[..., None]).masked_fill(~vis, 0.0)
+            l = p.sum(-1)
+            acc = torch.einsum("hsk,khd->hsd", p, vf[i, lo:hi])
+            if big_m is None:
+                big_m, big_l, big_o = m, l, acc
+                continue
+            new_m = torch.maximum(big_m, m)
+            a, w = torch.exp(big_m - new_m), torch.exp(m - new_m)
+            big_l = big_l * a + l * w
+            big_o = big_o * a[..., None] + acc * w[..., None]
+            big_m = new_m
+        out[i] = (big_o / big_l.clamp_min(1e-30)[..., None]).transpose(0, 1)
+    return out.to(q.dtype)
+
+
+def decode_attention_block_split_reference(q, ck, cv, positions, *, scale=None,
+                                           k_scale=None, v_scale=None,
+                                           split_keys: int = SPLIT_KEYS):
+    """The plain version of the verify-block kernel's algorithm over the
+    slab: :func:`block_splits`' splits, each one's (m, l, acc) in f32,
+    merged in split order (CPU tensors)."""
+    _check_kv_scales(k_scale, v_scale, ck)
+    kk, vv = _dequant(ck, cv, k_scale, v_scale)
+    return _split_attend_block(q, kk, vv, positions, scale, split_keys)
+
+
+def paged_decode_attention_block_split_reference(q, ck, cv, page_tables, positions, *,
+                                                 scale=None, k_scale=None, v_scale=None,
+                                                 split_keys: int = SPLIT_KEYS):
+    """:func:`decode_attention_block_split_reference` over the page-table
+    gather of the pools."""
+    _check_kv_scales(k_scale, v_scale, ck)
+    kk, vv = _paged_views(ck, cv, page_tables, k_scale, v_scale)
+    return _split_attend_block(q, kk, vv, positions, scale, split_keys)
+
+
 # -- the kernels -----------------------------------------------------------
 
 
@@ -134,7 +214,7 @@ def _lib():
     lib = _build.load(_LIB)
     fn = lib.tdx_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -193,14 +273,18 @@ def _launch(name, q, ck, cv, positions, page_tables, k_scale, v_scale, scale):
     pos = positions.to(torch.int32).contiguous()
     scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    # the block kernel's per-split (acc, m, l) of every row, f32
+    nsplit = len(block_splits(max_len - 1)) if s > 1 else 0
+    part = (torch.empty(b * hkv * nsplit * s * n_rep * (d + 2), dtype=torch.float32,
+                        device=q.device) if s > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         err = _lib()(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ptr(k_scale),
-            ptr(v_scale), pos.data_ptr(), ptr(tables), out.data_ptr(),
+            ptr(v_scale), pos.data_ptr(), ptr(tables), out.data_ptr(), ptr(part),
             b, s, max_len, hq, hkv, d, ps, pp, int(paged), int(quant),
-            scale_, stream,
+            SPLIT_KEYS, nsplit, scale_, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -228,7 +312,8 @@ def decode_attention_cuda(q, ck, cv, positions, *, scale=None, k_scale=None,
 
 def decode_attention_block_cuda(q, ck, cv, positions, *, scale=None,
                                 k_scale=None, v_scale=None):
-    """Launch the S-token slab kernel (the speculative verify): ``q``
+    """Launch the S-token slab kernel (the speculative verify; its key
+    range split over blocks, then the splits merged in order): ``q``
     (B, S, Hq, D) bf16, S * Hq / Hkv <= 64; the slab as for
     :func:`decode_attention_cuda`."""
     out, quant = _launch("decode_attention_block", q, ck, cv, positions, None,

@@ -18,18 +18,19 @@ replace the Pallas ones, in every variant:
 - ``csrc/flash_bwd.cu`` replaces ``_bwd_dkv_kernel`` (dK, dV) and
   ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``, in the
   same variants, writing bf16 gradients or, for the ring's per-hop
-  partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``); dK/dV
-  after a pre-pass that writes ``delta = rowsum(dO * O)`` once per row
-  (``flash_bwd_delta_cuda``; the TPU kernel computes it in its body);
+  partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``); both read
+  ``delta = rowsum(dO * O)`` from a pre-pass that writes it once per row
+  (``flash_bwd_delta_cuda``; the TPU kernels compute it in their bodies),
+  which one backward runs once for both;
 - ``csrc/flash_bias_bwd.cu`` replaces ``_bwd_dbias_kernel`` (launched by
   ``_flash_dbias``) and ``_bwd_dtable_kernel`` (``_flash_dtable``): the
   gradient of the bias or of the bucket table.
 
 All are bounded by operations on an H100; the sources say what their
-designs do about that.  The forward and dK/dV are Hopper designs (TMA,
-``wgmma``, accumulators in registers; ``csrc/hopper.cuh``) that read q,
-k, v, o and dO in place; dQ, dbias and dtable are WMMA kernels that take
-contiguous copies.
+designs do about that.  The forward, dK/dV and dQ are Hopper designs
+(TMA, ``wgmma``, accumulators in registers; ``csrc/hopper.cuh``) that
+read q, k, v, o and dO in place; dbias and dtable are WMMA kernels that
+take contiguous copies.
 
 ``flash_attention`` keeps the JAX layout, (B, S, H, D).  When autograd
 needs it (grad mode on and an input that requires a gradient) it runs
@@ -74,6 +75,7 @@ __all__ = [
     "flash_attention_residuals",
     "flash_bwd_reference",
     "flash_bwd_delta_reference",
+    "flash_bwd_delta",
     "flash_bias_grad_reference",
     "flash_fwd_cuda",
     "flash_bwd_delta_cuda",
@@ -227,17 +229,20 @@ def flash_attention_residuals_reference(q, k, v, *, causal: bool = True,
     return acc, m, p.sum(-1)
 
 
-def _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window=None):
+def _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window=None, delta=None):
     """The backward's f32 recompute from the saved ``o`` and ``lse``: the
     probabilities ``p`` (0 where masked) and the logit gradient
-    ``p * (dp - delta)``, both (B, Hq, Sq, Skv)."""
+    ``p * (dp - delta)``, both (B, Hq, Sq, Skv); ``delta`` (B, Hq, Sq)
+    computed from ``o`` and ``do`` unless given."""
     logits, mask = _f32_logits(q, k, causal, scale, dense, window)
     p = torch.exp(logits - lse.float()[..., None])
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
     vv = _repeat_kv(v.float(), q.shape[2] // k.shape[2])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vv)
-    return p, p * (dp - flash_bwd_delta_reference(o, do)[..., None])
+    if delta is None:
+        delta = flash_bwd_delta_reference(o, do)
+    return p, p * (dp - delta.float()[..., None])
 
 
 def flash_bwd_delta_reference(o, do):
@@ -262,18 +267,19 @@ def _bias_grad(dlogits, bias, table, bucket_cfg):
 def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: Optional[float] = None, bias=None, table=None,
                         bucket_cfg=None, window=None, dq_dtype=None,
-                        part_dtype=None):
+                        part_dtype=None, delta=None):
     """The plain backward, in f32 from the saved ``o`` and ``lse``: the
     FA2 formulas of the JAX ``_bwd_recompute``, masked by the causal mask
     and the ``window``'s band.  GQA partials are summed over each group.
-    Returns (dq, dk, dv) in the inputs' dtypes, or ``dq_dtype`` and
+    ``delta`` is the pre-pass's ``rowsum(dO * O)``, computed here unless
+    given.  Returns (dq, dk, dv) in the inputs' dtypes, or ``dq_dtype`` and
     ``part_dtype`` (dk, dv) when given, and with a ``bias`` or ``table``
     also its gradient (``flash_bias_grad_reference``)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     n_rep = hq // hkv
     dense = _dense_bias(q, k, bias, table, bucket_cfg)
-    p, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window)
+    p, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, window, delta)
     ds = dlogits * _scale(scale, d)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
@@ -494,13 +500,12 @@ def _check_bwd(fn_name, q, k, v, o, lse, do):
 
 
 def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
-                bias, table, bucket_cfg, window=None):
-    """Check and launch one backward kernel: the six inputs, ``outs``'
-    pointers, the bias arguments, then (B, S, Hq, Hkv, D, causal, window,
-    scale)."""
+                bias, table, bucket_cfg):
+    """Check and launch one WMMA bias-gradient kernel on contiguous copies:
+    the six inputs, ``outs``' pointers, the bias arguments, then (B, S,
+    Hq, Hkv, D, causal, window 0, scale)."""
     _check_bwd(fn_name, q, k, v, o, lse, do)
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
-    _check_window(causal, window, bias, table)
     bargs, keep = _bias_args(fn_name, q, k, bias, table, bucket_cfg)
     b, s, hq, d = q.shape
     fn = _fn(lib, name, [_P] * (6 + len(outs)) + _BIAS_ARGS + [_I] * 7 + [_F, _P])
@@ -508,8 +513,35 @@ def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), *(t.data_ptr() for t in outs), *bargs,
-                 b, s, hq, k.shape[2], d, int(causal), int(window or 0),
-                 _scale(scale, d), stream)
+                 b, s, hq, k.shape[2], d, int(causal), 0, _scale(scale, d), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
+
+
+def _launch_tma_bwd(symbol, fn_name, q, k, v, o, lse, do, delta, outs, causal, scale, bias,
+                    table, bucket_cfg, window):
+    """Check and launch the Hopper backward kernel ``symbol`` (dK/dV or
+    dQ): q, k, v and do read in place, lse, ``delta`` (the pre-pass's, run
+    here when None), ``outs``' pointers, the bias arguments, then (B, S,
+    Hq, Hkv, D, causal, window, scale) and the TMA strides."""
+    _check_bwd(fn_name, q, k, v, o, lse, do)
+    lse = lse.contiguous()
+    _check_window(causal, window, bias, table)
+    bargs, keep = _bias_args(fn_name, q, k, bias, table, bucket_cfg)
+    strides = _stride_args(fn_name, (("q", q), ("k", k), ("v", v), ("do", do)))
+    b, s, hq, d = q.shape
+    if delta is None:
+        delta = flash_bwd_delta_cuda(o, do)
+    elif not delta.is_cuda or delta.dtype != torch.float32 or delta.shape != (b, hq, s):
+        raise ValueError(f"{fn_name}: delta must be f32 CUDA (B, Hq, S)")
+    delta = delta.contiguous()
+    fn = _fn("flash_bwd", symbol, [_P] * (6 + len(outs)) + _BIAS_ARGS + [_I] * 7 + [_F, _P, _P])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), *(t.data_ptr() for t in outs), *bargs, b, s, hq,
+                 k.shape[2], d, int(causal), int(window or 0), _scale(scale, d), strides,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
 
@@ -524,10 +556,10 @@ def _out_dtype(fn_name, dtype):
 
 
 def flash_bwd_delta_cuda(o, do):
-    """Launch the delta pre-pass of the dK/dV kernel: ``rowsum(dO * O)``,
-    (B, Hq, S) f32, once per row (the TPU kernel recomputes it in every
-    tile).  ``o`` and ``do`` bf16 (B, S, Hq, D) with strides TMA takes.
-    Adds one to ``flash_bwd_delta_cuda.launches``."""
+    """Launch the delta pre-pass of the dK/dV and dQ kernels:
+    ``rowsum(dO * O)``, (B, Hq, S) f32, once per row (the TPU kernels
+    recompute it in every tile).  ``o`` and ``do`` bf16 (B, S, Hq, D) with
+    strides TMA takes.  Adds one to ``flash_bwd_delta_cuda.launches``."""
     name = "flash_bwd_delta_cuda"
     _check(name, (("o", o), ("do", do)), o.shape[-1])
     if do.shape != o.shape:
@@ -548,37 +580,29 @@ def flash_bwd_delta_cuda(o, do):
 flash_bwd_delta_cuda.launches = 0
 
 
+def flash_bwd_delta(o, do):
+    """``rowsum(dO * O)``, (B, Hq, S) f32: the pre-pass kernel on CUDA
+    tensors, the plain version on the CPU."""
+    return flash_bwd_delta_cuda(o, do) if o.is_cuda else flash_bwd_delta_reference(o, do)
+
+
 def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                        scale: Optional[float] = None, bias=None, table=None,
-                       bucket_cfg=None, window=None, part_dtype=None):
-    """Launch the delta pre-pass, then the K/V-stationary backward kernel:
-    (dk, dv), GQA groups summed in the kernel, in bf16 or with
-    ``part_dtype=torch.float32`` in f32 (the ring's per-hop partials).  q,
-    k, v, o and do are read in place (strides TMA takes, else a
-    ValueError).  Bias and window arguments as ``flash_fwd_cuda``'s.  Adds
-    one to ``flash_bwd_dkv_cuda.launches`` (and ``.f32_launches``,
+                       bucket_cfg=None, window=None, part_dtype=None, delta=None):
+    """Launch the K/V-stationary backward kernel: (dk, dv), GQA groups
+    summed in the kernel, in bf16 or with ``part_dtype=torch.float32`` in
+    f32 (the ring's per-hop partials).  ``delta``: the pre-pass's (B, Hq,
+    S) f32 ``rowsum(dO * O)``; without it the pre-pass runs first.  q, k,
+    v, o and do are read in place (strides TMA takes, else a ValueError).
+    Bias and window arguments as ``flash_fwd_cuda``'s.  Adds one to
+    ``flash_bwd_dkv_cuda.launches`` (and ``.f32_launches``,
     ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``)."""
     name = "flash_bwd_dkv_cuda"
     dt, tag = _out_dtype(name, part_dtype)
-    _check_bwd(name, q, k, v, o, lse, do)
-    lse = lse.contiguous()
-    _check_window(causal, window, bias, table)
-    bargs, keep = _bias_args(name, q, k, bias, table, bucket_cfg)
-    strides = _stride_args(name, (("q", q), ("k", k), ("v", v), ("do", do)))
-    delta = flash_bwd_delta_cuda(o, do)
     dk = torch.empty(k.shape, dtype=dt, device=k.device)
     dv = torch.empty(v.shape, dtype=dt, device=v.device)
-    b, s, hq, d = q.shape
-    fn = _fn("flash_bwd", f"tdx_flash_bwd_dkv_{tag}",
-             [_P] * 8 + _BIAS_ARGS + [_I] * 7 + [_F, _P, _P])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *bargs, b, s, hq,
-                 k.shape[2], d, int(causal), int(window or 0), _scale(scale, d), strides,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _launch_tma_bwd(f"tdx_flash_bwd_dkv_{tag}", name, q, k, v, o, lse, do, delta, (dk, dv),
+                    causal, scale, bias, table, bucket_cfg, window)
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.f32_launches += tag == "f32"
     _count(flash_bwd_dkv_cuda, bias, table, window)
@@ -587,16 +611,17 @@ def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
 
 def flash_bwd_dq_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                       scale: Optional[float] = None, bias=None, table=None,
-                      bucket_cfg=None, window=None, dq_dtype=None):
+                      bucket_cfg=None, window=None, dq_dtype=None, delta=None):
     """Launch the Q-stationary backward kernel: dq, in bf16 or with
-    ``dq_dtype=torch.float32`` in f32.  Adds one to
-    ``flash_bwd_dq_cuda.launches`` (and ``.f32_launches``,
+    ``dq_dtype=torch.float32`` in f32.  ``delta`` and the in-place inputs
+    as ``flash_bwd_dkv_cuda``'s (``o`` is read only by the pre-pass).  Adds
+    one to ``flash_bwd_dq_cuda.launches`` (and ``.f32_launches``,
     ``.bias_launches``, ``.bucket_launches`` or ``.window_launches``)."""
-    dt, tag = _out_dtype("flash_bwd_dq_cuda", dq_dtype)
+    name = "flash_bwd_dq_cuda"
+    dt, tag = _out_dtype(name, dq_dtype)
     dq = torch.empty(q.shape, dtype=dt, device=q.device)
-    _launch_bwd("flash_bwd", f"tdx_flash_bwd_dq_{tag}", "flash_bwd_dq_cuda",
-                q, k, v, o, lse, do, (dq,), causal, scale, bias, table, bucket_cfg,
-                window)
+    _launch_tma_bwd(f"tdx_flash_bwd_dq_{tag}", name, q, k, v, o, lse, do, delta, (dq,),
+                    causal, scale, bias, table, bucket_cfg, window)
     flash_bwd_dq_cuda.launches += 1
     flash_bwd_dq_cuda.f32_launches += tag == "f32"
     _count(flash_bwd_dq_cuda, bias, table, window)
@@ -673,23 +698,27 @@ def flash_attention_residuals(q, k, v, *, causal: bool = True,
 def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
                    scale: Optional[float] = None, bias=None, table=None,
                    bucket_cfg=None, bias_grad: bool = True, window=None,
-                   dq_dtype=None, part_dtype=None):
+                   dq_dtype=None, part_dtype=None, delta=None):
     """(dq, dk, dv), in the inputs' dtypes or ``dq_dtype`` / ``part_dtype``,
     and with a bias or table its gradient (None when ``bias_grad`` is off):
-    the kernels on CUDA tensors, the plain version on the CPU."""
+    the kernels on CUDA tensors, the plain version on the CPU.  ``delta``
+    (``flash_bwd_delta(o, do)``) is computed once here unless given, and
+    both gradient kernels read it."""
     kw = dict(causal=causal, scale=scale)
     bkw = dict(bias=bias, table=table, bucket_cfg=bucket_cfg)
     has_bias = bias is not None or table is not None
     if not q.is_cuda:
         grads = flash_bwd_reference(q, k, v, o, lse, do, **kw, **bkw, window=window,
-                                    dq_dtype=dq_dtype, part_dtype=part_dtype)
+                                    dq_dtype=dq_dtype, part_dtype=part_dtype, delta=delta)
         if has_bias and not bias_grad:
             grads = grads[:3] + (None,)
         return grads
+    if delta is None:
+        delta = flash_bwd_delta_cuda(o, do)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window,
-                                part_dtype=part_dtype)
+                                part_dtype=part_dtype, delta=delta)
     dq = flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window,
-                           dq_dtype=dq_dtype)
+                           dq_dtype=dq_dtype, delta=delta)
     if not has_bias:
         return dq, dk, dv
     if not bias_grad:
