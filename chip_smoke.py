@@ -8,8 +8,9 @@ Phases, each fatal:
 
 1. build the port's CUDA kernels from ``torchdistx_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together), and print the
-   ptxas lines (registers, spills) of each kernel of the three redesigned
-   sources, ``flash_fwd.cu``, ``flash_bwd.cu`` and ``decode_attention.cu``;
+   ptxas lines (registers, spills) of each kernel of the four redesigned
+   sources, ``flash_fwd.cu``, ``flash_bwd.cu``, ``decode_attention.cu`` and
+   ``fused_ce.cu``;
 2. hold each kernel against its plain PyTorch version on the card, in bf16
    at llama3_8b shapes (Hq 32, Hkv 8, D 128), and time kernel, plain
    version and the PyTorch library call that computes the same function
@@ -17,7 +18,10 @@ Phases, each fatal:
    the decode kernels in every variant, {slab, paged} x {one token, a
    5-token verify block} x {bf16, int8}, at the serving geometry (8 slots,
    max_len 2048, page size 16, shuffled page tables sharing prefix pages),
-   each bit for bit against a second launch;
+   each bit for bit against a second launch; the one-token kernel also at
+   the serving run's depths, bit for bit against a second launch and its
+   paged variant against the slab one, timed beside SDPA by call and by
+   device time;
 3. a 4-layer, full-width llama3_8b through the kernels and the plain path
    against f32, decoding over the slab, the int8 cache and page pools, one
    token at a time and in the speculative verify's 5-token blocks (rows
@@ -49,12 +53,13 @@ Phases, each fatal:
    (batch 2 x 2048) with every attention forward and backward through the
    kernels (launch counters reset just before the fit); then the same 10
    steps with the fused LM-head loss (``fused_ce=True``), every loss
-   forward and backward through the three ``fused_ce`` kernels;
-7. hold the fused LM-head cross-entropy kernels (``fused_ce_fwd``,
-   ``fused_ce_dx``, ``fused_ce_dw``) against their plain versions at the
-   llama_1b and gpt2_large loss shapes, a prime and a tiny token count,
-   and time them beside the unfused bf16 path (``F.linear`` then f32
-   ``cross_entropy``, a yardstick the port never calls);
+   forward and backward through the ``fused_ce`` kernels;
+7. hold the fused LM-head cross-entropy kernels (``fused_ce_fwd``, and
+   ``fused_ce_bwd``, which computes dX and dW in one backward) against
+   their plain versions at the llama_1b and gpt2_large loss shapes, a
+   prime and a tiny token count, the backward bit for bit against a second
+   launch, and time them beside the unfused bf16 path (``F.linear`` then
+   f32 ``cross_entropy``, a yardstick the port never calls);
 8. one backward step of a 4-layer, full-width gpt2_large through the
    kernels (flash at head_dim 64, fused loss on the tied head) and through
    the plain path, each held against the f32 plain path;
@@ -221,7 +226,7 @@ LSE_ATOL = 1e-3
 DELTA_ATOL = 1e-4
 # the redesigned sources, whose ptxas lines (registers, spills) the build
 # phase prints per kernel
-HOPPER_LIBS = ("flash_fwd", "flash_bwd", "decode_attention")
+HOPPER_LIBS = ("flash_fwd", "flash_bwd", "decode_attention", "fused_ce")
 TRAIN_STEPS = 10
 # (N, D, V) of the fused LM-head loss: llama_1b (2 x 2048 tokens), gpt2_large
 # (8 x 1024 tokens, vocab 50257 with no tile divisor), a prime and a tiny N
@@ -229,9 +234,9 @@ CE_CASES = [(4096, 2048, 32000), (8192, 1280, 50257), (509, 1280, 50257), (3, 20
 CE_REPORTED = (8192, 1280, 50257)
 # kernel vs plain f32 version: the kernels take f32 sums of the same exact
 # bf16 products in another order (lse to 1e-3 absolute, loss to 1e-3
-# relative); dX and dW are fed through a bf16 dP (p - onehot, relative
-# rounding 2^-9) and rounded to bf16, so they are held, scaled by their
-# max, within 2e-2
+# relative); dX and dW are fed through a bf16 dP panel (p - onehot,
+# relative rounding 2^-9) and rounded to bf16, so they are held, scaled by
+# their max, within 2e-2
 CE_LOSS_RTOL = 1e-3
 CE_GRAD_TOL = 2e-2
 # T5's relative-position bias in the flash kernels, at T5-3B's heads (Hq 32,
@@ -462,7 +467,12 @@ def check_flash(torch, device, hq=32, hkv=8, d=128, cases=FLASH_CASES, iters=10)
 
 
 def check_decode(torch, device, b=8, max_len=2048, hq=32, hkv=8, d=128,
-                 positions=DECODE_POSITIONS, iters=50):
+                 positions=DECODE_POSITIONS, page_size=16, iters=50):
+    """The one-token kernel at the serving run's depths against its plain
+    version, bit for bit against a second launch and, over page pools that
+    hold the slab's rows under shuffled tables, its paged variant against
+    it; timed by call and by device time beside SDPA with the mask."""
+    import numpy as np
     from torchdistx_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device=device).manual_seed(2)
@@ -481,20 +491,44 @@ def check_decode(torch, device, b=8, max_len=2048, hq=32, hkv=8, d=128,
     row = {"B": b, "max_len": max_len, "positions": positions[:b],
            "max_abs_err": err, "max_row_rel_err": rel, "ok": ok}
     if device.type == "cuda":
+        row["bitwise_repeat"] = bool(torch.equal(out, da.decode_attention(q, ck, cv, pos)))
+        pp = max_len // page_size
+        tables = _shuffled_tables(torch, np.random.RandomState(2), b, pp, b * pp + 1, 0,
+                                  device)
+        pools = []
+        for t in (ck, cv):
+            pool = torch.zeros((b * pp + 1, page_size, hkv, d), dtype=t.dtype, device=device)
+            pool[tables.flatten().long()] = t.reshape(b * pp, page_size, hkv, d)
+            pools.append(pool)
+        paged = da.paged_decode_attention(q, *pools, tables, pos)
+        row["paged_equals_slab_bitwise"] = bool(torch.equal(paged, out))
+        for k in ("bitwise_repeat", "paged_equals_slab_bitwise"):
+            if not row[k]:
+                failures.append(f"decode: {k} is false")
         qt = q.transpose(1, 2)
         kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
         mask = (torch.arange(max_len, device=device)[None, :]
                 <= pos.long()[:, None])[:, None, None, :]
         row["ms"] = time_ms(torch, lambda: da.decode_attention(q, ck, cv, pos), iters)
+        row["paged_ms"] = time_ms(
+            torch, lambda: da.paged_decode_attention(q, *pools, tables, pos), iters)
         row["plain_ms"] = time_ms(
             torch, lambda: da.decode_attention_reference(q, ck, cv, pos), iters)
         row["library_ms"] = time_ms(
             torch, lambda: _sdpa_gqa(torch, qt, kt, vt, attn_mask=mask), iters)
         row["device_ms"] = device_ms(torch, lambda: da.decode_attention(q, ck, cv, pos), iters)
+        row["paged_device_ms"] = device_ms(
+            torch, lambda: da.paged_decode_attention(q, *pools, tables, pos), iters)
         row["library_device_ms"] = device_ms(
             torch, lambda: _sdpa_gqa(torch, qt, kt, vt, attn_mask=mask), iters)
     row["bound_ms"], row["bound_by"] = decode_bound(b, hq, hkv, d, positions[:b])
     print("decode", json.dumps(row))
+    if device.type == "cuda":
+        shape = f"decode_attention bf16 S1 B{b} max_len {max_len} Hq{hq}/Hkv{hkv} D{d} serve depths"
+        speed_line(2, shape, row, "ms", "bound_ms", "library_ms")
+        if row["device_ms"] and row["library_device_ms"]:
+            speed_line(2, f"{shape} (device time)", row, "device_ms", "bound_ms",
+                       "library_device_ms")
     return row, failures
 
 
@@ -1191,16 +1225,17 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
 
 
 def ce_bound(n, d, v, kernel):
-    """Least time (ms) for one fused CE kernel: its N x V x D matrix
-    products (one forward, two with the recompute for dX and dW; 2 flops a
-    MAC) over the bf16 peak, vs bytes (x, w and labels read once; forward:
-    loss and lse written; dX/dW: lse read, dX or dW written once) over the
-    memory rate.  The true V, not a padded one."""
-    products = 1 if kernel == "fwd" else 2
+    """Least time (ms) for one fused CE call: its N x V x D matrix
+    products (one forward; three backward: the logits once, dW = dP^T X,
+    dX = dP W; 2 flops a MAC) over the bf16 peak, vs bytes (x, w and
+    labels read once; forward: loss and lse written; backward: lse read,
+    dX and dW written once, and the bf16 (N, V) dP panel written once and
+    read twice) over the memory rate.  The true V, not a padded one."""
+    products = 1 if kernel == "fwd" else 3
     flops = 2.0 * products * n * v * d
     nbytes = 2.0 * (n * d + v * d) + 4.0 * n
-    nbytes += {"fwd": 8.0 * n, "dx": 4.0 * n + 2.0 * n * d,
-               "dw": 4.0 * n + 2.0 * v * d}[kernel]
+    nbytes += {"fwd": 8.0 * n,
+               "bwd": 4.0 * n + 2.0 * (n * d + v * d) + 3 * 2.0 * n * v}[kernel]
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1212,12 +1247,14 @@ def _scaled_err(torch, out, ref):
 
 
 def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
-    """The three fused CE kernels against their plain f32 versions (loss,
-    lse, dX, dW with cotangent 1) on bf16 x ~ N(0, 1), w ~ 0.1 N(0, 1);
-    labels include 0, V - 2 and V - 1 (the last, partial vocab tile).
+    """The fused CE kernels against their plain f32 versions (loss, lse;
+    dX and dW of the one backward, with cotangent 1, against the plain
+    version of its chunked algorithm at the same chunk) on bf16 x ~ N(0,
+    1), w ~ 0.1 N(0, 1); labels include 0, V - 2 and V - 1 (the last,
+    partial vocab tile); the backward bit for bit against a second launch.
     Timed at the llama_1b and gpt2_large shapes beside the unfused bf16
     path (``F.linear`` then f32 ``cross_entropy``: forward for the fwd
-    kernel, ``autograd.grad`` of both inputs for the dX + dW pair)."""
+    kernel, ``autograd.grad`` of both inputs for the backward)."""
     from torchdistx_tpu_torch.ops import fused_ce as fc
 
     F = torch.nn.functional
@@ -1230,39 +1267,39 @@ def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
         labels[: min(n, 3)] = torch.tensor([v - 1, 0, v - 2], device=device)[: min(n, 3)]
         one = torch.ones(1, dtype=torch.float32, device=device)
         loss, lse = fc.fused_ce_fwd_cuda(x, w, labels)
-        dx = fc.fused_ce_dx_cuda(x, w, labels, lse, one)
-        dw = fc.fused_ce_dw_cuda(x, w, labels, lse, one)
+        dx, dw = fc.fused_ce_bwd_cuda(x, w, labels, lse, one)
+        again = fc.fused_ce_bwd_cuda(x, w, labels, lse, one)
         torch.cuda.synchronize()
+        bitwise = bool(torch.equal(dx, again[0]) and torch.equal(dw, again[1]))
+        del again
         r_loss, r_lse = fc.fused_ce_fwd_reference(x, w, labels)
-        r_dx = fc.fused_ce_dx_reference(x, w, labels, r_lse, one)
-        r_dw = fc.fused_ce_dw_reference(x, w, labels, r_lse, one)
+        r_dx, r_dw = fc.fused_ce_bwd_reference(x, w, labels, r_lse, one)
         ref_mean = float(r_loss.mean())
-        row = {"N": n, "D": d, "V": v,
+        row = {"N": n, "D": d, "V": v, "chunk": fc.bwd_chunk(n, v),
                "lse_err": float((lse - r_lse).abs().max()),
                "loss_rel_err": abs(float(loss.mean()) - ref_mean) / abs(ref_mean),
                "dx_err": float((dx.float() - r_dx.float()).abs().max()),
                "dw_err": float((dw.float() - r_dw.float()).abs().max()),
                "dx_scaled_err": _scaled_err(torch, dx, r_dx),
-               "dw_scaled_err": _scaled_err(torch, dw, r_dw)}
+               "dw_scaled_err": _scaled_err(torch, dw, r_dw),
+               "bwd_bitwise_repeat": bitwise}
         del r_dx, r_dw
         case = (n, d, v)
         if row["lse_err"] > LSE_ATOL or row["loss_rel_err"] > CE_LOSS_RTOL:
             failures.append(f"fused_ce fwd {case}: {row}")
         for name in ("dx", "dw"):
             if row[f"{name}_scaled_err"] > CE_GRAD_TOL:
-                failures.append(f"fused_ce {name} {case}: {row}")
+                failures.append(f"fused_ce bwd {name} {case}: {row}")
+        if not bitwise:
+            failures.append(f"fused_ce bwd {case}: two launches differ")
         if n >= 4096:
             row["fwd_ms"] = time_ms(torch, lambda: fc.fused_ce_fwd_cuda(x, w, labels), iters)
-            row["dx_ms"] = time_ms(
-                torch, lambda: fc.fused_ce_dx_cuda(x, w, labels, lse, one), iters)
-            row["dw_ms"] = time_ms(
-                torch, lambda: fc.fused_ce_dw_cuda(x, w, labels, lse, one), iters)
+            row["bwd_ms"] = time_ms(
+                torch, lambda: fc.fused_ce_bwd_cuda(x, w, labels, lse, one), iters)
             row["fwd_plain_ms"] = time_ms(
                 torch, lambda: fc.fused_ce_fwd_reference(x, w, labels), iters)
-            row["dx_plain_ms"] = time_ms(
-                torch, lambda: fc.fused_ce_dx_reference(x, w, labels, lse, one), iters)
-            row["dw_plain_ms"] = time_ms(
-                torch, lambda: fc.fused_ce_dw_reference(x, w, labels, lse, one), iters)
+            row["bwd_plain_ms"] = time_ms(
+                torch, lambda: fc.fused_ce_bwd_reference(x, w, labels, lse, one), iters)
             row["fwd_library_ms"] = time_ms(
                 torch, lambda: F.cross_entropy(F.linear(x, w).float(), labels), iters)
             xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
@@ -1270,8 +1307,13 @@ def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
             row["grad_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
                 lib_loss, (xr, wr), retain_graph=True), iters)
             del lib_loss, xr, wr
-            for k in ("fwd", "dx", "dw"):
+            for k in ("fwd", "bwd"):
                 row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = ce_bound(n, d, v, k)
+            print("speed", json.dumps({
+                "phase": 7, "variant": f"fused_ce_bwd N{n} D{d} V{v}", "ms": row["bwd_ms"],
+                "bound_ms": row["bwd_bound_ms"], "library_ms": row["grad_library_ms"],
+                "x_library": row["bwd_ms"] / row["grad_library_ms"],
+                "x_bound": row["bwd_ms"] / row["bwd_bound_ms"]}))
         rows.append(row)
         print("fused_ce", json.dumps(row))
         del x, w, labels, loss, lse, dx, dw, r_loss, r_lse
@@ -1367,8 +1409,7 @@ def _reset_counters():
     for name in KERNEL_OF.values():
         fn = getattr(da, f"{name}_cuda")
         fn.launches = fn.int8_launches = 0
-    fc.fused_ce_fwd_cuda.launches = fc.fused_ce_dx_cuda.launches = 0
-    fc.fused_ce_dw_cuda.launches = 0
+    fc.fused_ce_fwd_cuda.launches = fc.fused_ce_bwd_cuda.launches = 0
 
 
 def _read_counters():
@@ -1389,8 +1430,7 @@ def _read_counters():
            "flash_bwd_dbias": fa.flash_bwd_dbias_cuda.launches,
            "flash_bwd_dtable": fa.flash_bwd_dtable_cuda.launches,
            "fused_ce_fwd": fc.fused_ce_fwd_cuda.launches,
-           "fused_ce_dx": fc.fused_ce_dx_cuda.launches,
-           "fused_ce_dw": fc.fused_ce_dw_cuda.launches}
+           "fused_ce_bwd": fc.fused_ce_bwd_cuda.launches}
     for key, fn in (("flash_fwd", fa.flash_fwd_cuda), ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda),
                     ("flash_bwd_dq", fa.flash_bwd_dq_cuda)):
         out[f"{key}_bias"], out[f"{key}_bucket"] = fn.bias_launches, fn.bucket_launches
@@ -1413,7 +1453,7 @@ def _train_failures(losses, launches, n_layers, steps, fused_ce, what):
     # one delta pre-pass per backward, read by both gradient kernels
     expect = {k: n_layers * steps for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
                                             "flash_bwd_delta")}
-    for k in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+    for k in ("fused_ce_fwd", "fused_ce_bwd"):
         expect[k] = steps if fused_ce else 0
     for kernel, n in expect.items():
         if launches[kernel] != n:
@@ -3275,8 +3315,10 @@ def main(argv=None) -> int:
         entry.update(dtype=dt, S=row.get("S", 1), positions=row["positions"],
                      device_ms=row.get("device_ms"),
                      library_device_ms=row.get("library_device_ms"))
-        if "bitwise_repeat" in row:
-            entry["bitwise_repeat"] = row["bitwise_repeat"]
+        for k in ("bitwise_repeat", "paged_equals_slab_bitwise", "paged_ms",
+                  "paged_device_ms"):
+            if k in row:
+                entry[k] = row[k]
         return entry
 
     kernels = [fwd, dkv, delta, dq, decode_entry("decode_attention", "bf16", decode_row)]
@@ -3291,14 +3333,17 @@ def main(argv=None) -> int:
         if "equals_slab_bitwise" in row:
             entry["equals_slab_bitwise"] = row["equals_slab_bitwise"]
         kernels.append(entry)
-    # fused CE: timed at the gpt2_large loss shape, the llama_1b one beside
+    # fused CE: timed at the gpt2_large loss shape, the llama_1b one beside;
+    # one backward launch replaces both TPU gradient kernels, so their two
+    # entries carry the same launch and the whole backward's times
     crep = next(r for r in ce_rows if (r["N"], r["D"], r["V"]) == CE_REPORTED)
     clla = next(r for r in ce_rows if (r["N"], r["D"], r["V"]) == CE_CASES[0])
-    for k, line in (("fwd", 74), ("dx", 123), ("dw", 152)):
+    for name, k, line in (("fused_ce_fwd", "fwd", 74), ("fused_ce_bwd_dx", "bwd", 123),
+                          ("fused_ce_bwd_dw", "bwd", 152)):
         lib = "fwd_library_ms" if k == "fwd" else "grad_library_ms"
-        err = max(r["lse_err"] if k == "fwd" else r[f"{k}_err"] for r in ce_rows)
+        err = max(r["lse_err"] if k == "fwd" else r[f"{name[-2:]}_err"] for r in ce_rows)
         entry = _kernel_entry(
-            f"fused_ce_{k}", "torchdistx_tpu_torch/csrc/fused_ce.cu",
+            name, "torchdistx_tpu_torch/csrc/fused_ce.cu",
             f"torchdistx_tpu/ops/fused_ce.py:{line}", trained(f"fused_ce_{k}"),
             {"ms": crep[f"{k}_ms"], "plain_ms": crep[f"{k}_plain_ms"],
              "bound_ms": crep[f"{k}_bound_ms"], "bound_by": crep[f"{k}_bound_by"],
@@ -3308,6 +3353,9 @@ def main(argv=None) -> int:
                      launches_llama=fused_summary["launches"][f"fused_ce_{k}"],
                      ms_llama=clla[f"{k}_ms"], plain_ms_llama=clla[f"{k}_plain_ms"],
                      bound_ms_llama=clla[f"{k}_bound_ms"], library_ms_llama=clla[lib])
+        if k == "bwd":
+            entry.update(one_launch_computes="dx and dw",
+                         bitwise_repeat=all(r["bwd_bitwise_repeat"] for r in ce_rows))
         kernels.append(entry)
     kernels += t5_kernel_entries(bias_rows, t5_runs)
     kernels += window_kernel_entries(window_rows, mistral_serve, mistral_train)

@@ -266,6 +266,10 @@ def test_decode_variants_refuse_what_they_do_not_take(cuda):
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="one token"):
         tdec.decode_attention_cuda(q, c, c, pos)
+    # one token takes S * Hq/Hkv <= 64 rows, as the verify block does
+    with pytest.raises(ValueError, match="S \\* Hq/Hkv"):
+        tdec.decode_attention_cuda(torch.zeros(2, 1, 130, 128, dtype=torch.bfloat16,
+                                               device=cuda), c, c, pos)
     with pytest.raises(TypeError, match="int8"):
         tdec.decode_attention_block_cuda(q, c, c, pos, k_scale=c[..., :1].float(),
                                          v_scale=c[..., :1].float())
@@ -275,6 +279,53 @@ def test_decode_variants_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="page_tables rows"):
         tdec.paged_decode_attention_block_cuda(q, c, c, torch.zeros(3, 4, dtype=torch.int32,
                                                                     device=cuda), pos)
+
+
+# (hq, hkv): n_rep 1, 2, 4 (llama3_8b's 32 / 8) and 8 in one m-tile; 32
+# and 64 in two and four (more than the old one-token kernel's 8)
+ONE_TOKEN_HEADS = [(8, 8), (8, 4), (32, 8), (16, 2), (64, 2), (64, 1)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", ONE_TOKEN_HEADS)
+def test_one_token_decode_matches_plain(cuda, hq, hkv, d, quant):
+    """One token a slot through the split kernel, slab and paged (page size
+    16), at depths on a split edge (SPLIT_KEYS keys) -1, 0, +1, the first
+    key and the cache's end: against the plain version (also per (slot,
+    row) within 1e-2 of the row's norm), two launches bit-identical, the
+    paged output equal to the slab one bit for bit."""
+    from torchdistx_tpu_torch.ops.attention import _paged_gather
+    from torchdistx_tpu_torch.serve.kv_cache import quantize_kv
+
+    split, ps = tdec.SPLIT_KEYS, 16
+    g = torch.Generator(device=cuda).manual_seed(hq * d + hkv)
+    pp = -(-(2 * split + 100) // ps)
+    max_len = pp * ps
+    lasts = [0, split - 1, split, split + 1, 2 * split, max_len - 1]
+    b = len(lasts)
+    pos = torch.tensor(lasts, dtype=torch.int32, device=cuda)
+    num_pages = b * pp + 1
+    q = _rand(g, (b, 1, hq, d), cuda)
+    pools = [_rand(g, (num_pages, ps, hkv, d), cuda) for _ in range(2)]
+    tables = (torch.randperm(num_pages - 1, generator=g, device=cuda)[: b * pp] + 1)
+    tables = tables.view(b, pp).to(torch.int32)
+    kw = {}
+    if quant:
+        (kq, ks), (vq, vs) = (quantize_kv(x) for x in pools)
+        pools, kw = [kq, vq], dict(k_scale=ks, v_scale=vs)
+    slab = [_paged_gather(x, tables).contiguous() for x in pools]
+    skw = {k: _paged_gather(x, tables).contiguous() for k, x in kw.items()}
+    out = tdec.decode_attention_cuda(q, *slab, pos, **skw)
+    again = tdec.decode_attention_cuda(q, *slab, pos, **skw)
+    paged = tdec.paged_decode_attention_cuda(q, *pools, tables, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out, paged)
+    ref = tdec.decode_attention_reference(q, *slab, pos, **skw)
+    torch.testing.assert_close(out, ref, **TOL)
+    diff = (out.float() - ref.float()).flatten(2).norm(dim=-1)
+    assert bool((diff <= 1e-2 * ref.float().flatten(2).norm(dim=-1)).all())
 
 
 def _ce_inputs(cuda, n, d, v, seed):
@@ -293,37 +344,57 @@ def _scaled(out, ref):
 @pytest.mark.parametrize("d", [64, 128])
 def test_fused_ce_kernels_match_plain(cuda, d):
     """N 509 (prime), V 1000 (no tile divisor): loss to 1e-3 relative, lse
-    to 1e-3 absolute, dX and dW (bf16 dP, cotangent 2) within 2e-2 of their
-    max, as ``chip_smoke.py`` holds them."""
+    to 1e-3 absolute, dX and dW of the one backward (bf16 dP, cotangent 2)
+    within 2e-2 of their max, as ``chip_smoke.py`` holds them."""
     x, w, labels = _ce_inputs(cuda, 509, d, 1000, d)
     g2 = torch.full((1,), 2.0, device=cuda)
-    before = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
-                                   tfc.fused_ce_dw_cuda)]
+    before = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_bwd_cuda)]
     loss, lse = tfc.fused_ce_fwd_cuda(x, w, labels)
-    dx = tfc.fused_ce_dx_cuda(x, w, labels, lse, g2)
-    dw = tfc.fused_ce_dw_cuda(x, w, labels, lse, g2)
+    dx, dw = tfc.fused_ce_bwd_cuda(x, w, labels, lse, g2)
     torch.cuda.synchronize()
-    after = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
-                                  tfc.fused_ce_dw_cuda)]
+    after = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_bwd_cuda)]
     assert after == [b + 1 for b in before]
     r_loss, r_lse = tfc.fused_ce_fwd_reference(x, w, labels)
     torch.testing.assert_close(lse, r_lse, atol=1e-3, rtol=0)
     torch.testing.assert_close(loss.mean(), r_loss.mean(), atol=0, rtol=1e-3)
     assert dx.dtype == dw.dtype == torch.bfloat16
-    assert _scaled(dx, tfc.fused_ce_dx_reference(x, w, labels, r_lse, g2)) <= 2e-2
-    assert _scaled(dw, tfc.fused_ce_dw_reference(x, w, labels, r_lse, g2)) <= 2e-2
+    r_dx, r_dw = tfc.fused_ce_bwd_reference(x, w, labels, r_lse, g2)
+    assert _scaled(dx, r_dx) <= 2e-2
+    assert _scaled(dw, r_dw) <= 2e-2
+
+
+@pytest.mark.parametrize("n,d,v,chunk", [(509, 64, 1000, 256), (130, 128, 1777, 512),
+                                         (3, 64, 600, 256)])
+def test_fused_ce_backward_chunks_are_bit_identical(cuda, monkeypatch, n, d, v, chunk):
+    """The backward with the vocab in several chunks (``PANEL_BYTES`` cut
+    so that a chunk is ``chunk`` columns; the last one ragged): against
+    the plain chunked algorithm at the same chunk within 2e-2 of each
+    gradient's max, and two launches bit-identical (no atomics, sums in a
+    fixed order)."""
+    monkeypatch.setattr(tfc, "PANEL_BYTES", 2 * n * chunk)
+    assert tfc.bwd_chunk(n, v) == chunk
+    x, w, labels = _ce_inputs(cuda, n, d, v, n + v)
+    labels[:3] = torch.tensor([chunk - 1, chunk, v - 1], device=cuda)[:n]
+    g = torch.full((1,), 0.5, device=cuda)
+    _, lse = tfc.fused_ce_fwd_cuda(x, w, labels)
+    dx, dw = tfc.fused_ce_bwd_cuda(x, w, labels, lse, g)
+    dx2, dw2 = tfc.fused_ce_bwd_cuda(x, w, labels, lse, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    r_dx, r_dw = tfc.fused_ce_bwd_reference(x, w, labels, lse, g, chunk=chunk)
+    assert _scaled(dx, r_dx) <= 2e-2
+    assert _scaled(dw, r_dw) <= 2e-2
 
 
 def test_fused_loss_autograd_goes_through_the_kernels(cuda):
     x, w, labels = _ce_inputs(cuda, 64, 64, 300, 1)
     x.requires_grad_()
     w.requires_grad_()
-    counts = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
-                                   tfc.fused_ce_dw_cuda)]
+    counts = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_bwd_cuda)]
     tfc.fused_linear_cross_entropy(x.view(4, 16, 64), w, labels.view(4, 16)).backward()
     torch.cuda.synchronize()
-    assert [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
-                                 tfc.fused_ce_dw_cuda)] == [c + 1 for c in counts]
+    assert [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_bwd_cuda)] == [
+        c + 1 for c in counts]
     assert x.grad.shape == (64, 64) and w.grad.shape == (300, 64)
     assert torch.isfinite(x.grad.float()).all() and torch.isfinite(w.grad.float()).all()
 
@@ -333,22 +404,24 @@ def test_fused_ce_kernels_refuse_what_they_do_not_take(cuda):
     x, w, labels = _ce_inputs(cuda, 16, 64, 100, 2)
     lse = torch.zeros(16, device=cuda)
     one = torch.ones(1, device=cuda)
-    counts = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
-                                   tfc.fused_ce_dw_cuda)]
+    counts = [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_bwd_cuda)]
     with pytest.raises(TypeError, match="bf16"):
         tfc.fused_ce_fwd_cuda(x.float(), w.float(), labels)
     with pytest.raises(TypeError, match="bf16"):
         tfc.fused_linear_cross_entropy(x.float(), w.float(), labels)
+    with pytest.raises(TypeError, match="bf16"):
+        tfc.fused_ce_bwd_cuda(x, w.float(), labels, lse, one)
     with pytest.raises(ValueError, match=r"\(V, D\)"):
-        tfc.fused_ce_dx_cuda(x, w[:, :32], labels, lse, one)
+        tfc.fused_ce_bwd_cuda(x, w[:, :32], labels, lse, one)
     with pytest.raises(ValueError, match="D % 8"):
-        tfc.fused_ce_dw_cuda(x[:, :60], w[:, :60], labels, lse, one)
+        tfc.fused_ce_bwd_cuda(x[:, :60], w[:, :60], labels, lse, one)
     with pytest.raises(ValueError, match="labels"):
         tfc.fused_ce_fwd_cuda(x, w, labels[:-1])
+    with pytest.raises(ValueError, match="lse"):
+        tfc.fused_ce_bwd_cuda(x, w, labels, lse[:-1], one)
     with pytest.raises(ValueError, match="not a CUDA tensor"):
-        tfc.fused_ce_dw_cuda(x, w, labels, lse.cpu(), one)
-    assert [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_dx_cuda,
-                                 tfc.fused_ce_dw_cuda)] == counts
+        tfc.fused_ce_bwd_cuda(x, w, labels, lse.cpu(), one)
+    assert [f.launches for f in (tfc.fused_ce_fwd_cuda, tfc.fused_ce_bwd_cuda)] == counts
 
 
 # -- the sliding-window variants ------------------------------------------------

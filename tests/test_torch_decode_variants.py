@@ -13,10 +13,11 @@ Tolerance: f32 1e-5 absolute (the kernels' online softmax sums in another
 order, a few f32 ulps); bf16 2e-2 (bf16 rounding of the probabilities and
 the output at different places).
 
-The verify-block kernel's algorithm (its key range split at
-``block_splits``' boundaries, each split's (m, l, acc) merged in split
-order) has a plain version of its own, held here against the same JAX
-kernels at depths on the split edges and one key either side.
+The kernel's algorithm for one token and for the verify block (its key
+range split at ``block_splits``' boundaries, each split's (m, l, acc)
+merged in split order) has a plain version of its own, held here against
+the same JAX kernels at depths on the split edges and one key either
+side.
 """
 
 import numpy as np
@@ -249,6 +250,56 @@ def test_paged_block_split_reference_matches_jax(s, hq, hkv, pp, ps, split, dtyp
     out = da.paged_decode_attention_block_split_reference(
         tq, *tkv, torch.tensor(tables), torch.tensor(pos), split_keys=split, **tsc)
     assert out.shape == (b, s, hq, d)
+    _check(out, ref, dtype)
+
+
+# (hq, hkv, max_len, split): one token a slot through the kernel's split
+# algorithm; n_rep 2, 8 and 16 (more than the 8 the one-token kernel took
+# before it shared the verify's body)
+ONE_TOKEN_SPLIT_CASES = [(4, 2, 64, 16), (8, 1, 72, 16), (16, 1, 40, 8)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,max_len,split", ONE_TOKEN_SPLIT_CASES)
+def test_one_token_split_reference_matches_jax(hq, hkv, max_len, split, dtype, quant):
+    """The plain split-and-combine at S = 1, the one-token decode's
+    algorithm since it runs the verify block's kernel, against
+    ``decode_attention`` in interpret mode at depths on a split edge and
+    one key either side and at the cache's end, at the module's
+    tolerances (in bf16 the JAX kernel rounds P before P.V, the plain
+    version keeps it f32)."""
+    d = 16
+    pos = _edge_positions(1, split, max_len)
+    b = len(pos)
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        split + max_len + hq, (b, 1, hq, d), (b, max_len, hkv, d), dtype, quant)
+    ref = jda.decode_attention(jq, *jkv, jnp.asarray(pos), block_k=16, interpret=True,
+                               **jsc)
+    out = da.decode_attention_block_split_reference(tq, *tkv, torch.tensor(pos),
+                                                    split_keys=split, **tsc)
+    assert out.dtype == tq.dtype and out.shape == (b, 1, hq, d)
+    _check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,pp,ps,split", [(4, 2, 8, 8, 16), (8, 2, 9, 4, 8)])
+def test_paged_one_token_split_reference_matches_jax(hq, hkv, pp, ps, split, dtype, quant):
+    """The paged plain split-and-combine at S = 1 against
+    ``paged_decode_attention`` in interpret mode, split edges +-1."""
+    d = 16
+    pos = _edge_positions(1, split, pp * ps)
+    b = len(pos)
+    num_pages = b * pp + 2
+    (jq, jkv, jsc), (tq, tkv, tsc) = _operands(
+        split * ps + hq, (b, 1, hq, d), (num_pages, ps, hkv, d), dtype, quant)
+    tables = _tables(split + ps, b, pp, num_pages)
+    ref = jda.paged_decode_attention(jq, *jkv, jnp.asarray(tables), jnp.asarray(pos),
+                                     interpret=True, **jsc)
+    out = da.paged_decode_attention_block_split_reference(
+        tq, *tkv, torch.tensor(tables), torch.tensor(pos), split_keys=split, **tsc)
+    assert out.shape == (b, 1, hq, d)
     _check(out, ref, dtype)
 
 

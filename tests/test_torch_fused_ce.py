@@ -126,9 +126,10 @@ def test_shape_validation():
 
 
 def test_plain_pieces_match_the_unfused_reference():
-    """The plain forward, dX and dW (the kernels' CPU stand-ins) against
-    autograd of ``fused_linear_cross_entropy_reference``, with a cotangent
-    of 3 (f32, 1e-5)."""
+    """The plain forward and backward (the kernels' CPU stand-ins; the
+    backward in one chunk and in 128-column chunks) against autograd of
+    ``fused_linear_cross_entropy_reference``, with a cotangent of 3 (f32,
+    1e-5)."""
     x, w, y = (torch.from_numpy(a) for a in _mk(96, 48, 300, seed=4))
     g = torch.tensor([3.0])
     loss_rows, lse = tfc.fused_ce_fwd_reference(x, w, y)
@@ -137,10 +138,47 @@ def test_plain_pieces_match_the_unfused_reference():
     (3.0 * ref).backward()
     torch.testing.assert_close(loss_rows.mean(), ref.detach(), atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(lse, torch.logsumexp(x @ w.T, -1), atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(tfc.fused_ce_dx_reference(x, w, y, lse, g), xr.grad,
-                               atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(tfc.fused_ce_dw_reference(x, w, y, lse, g), wr.grad,
-                               atol=1e-5, rtol=1e-5)
+    for chunk in (None, 128):
+        dx, dw = tfc.fused_ce_bwd_reference(x, w, y, lse, g, chunk=chunk)
+        torch.testing.assert_close(dx, xr.grad, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(dw, wr.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,v,chunk", [
+    (37, 32, 300, 128),   # 3 chunks, the last of 44 columns
+    (129, 16, 700, 256),  # 3 chunks, the last of 188
+    (3, 32, 129, 128),    # fewer tokens than any tile; a last chunk of one column
+])
+def test_chunked_backward_matches_jax(n, d, v, chunk):
+    """``fused_ce_bwd_reference``, the backward kernel's algorithm (per
+    vocab chunk, in order: dP, dW of the chunk, dX += dP W) with chunks
+    smaller than V, against ``jax.vjp`` of the JAX fused loss (its Pallas
+    kernels in interpret mode): an odd N, V not a multiple of the chunk,
+    labels on the chunk edges, cotangent 2.5.  f32 within 1e-5 of each
+    gradient's max: the chunks only reorder the f32 sums."""
+    x, w, y = _mk(n, d, v, seed=v + chunk)
+    edges = [e for e in (0, chunk - 1, chunk, 2 * chunk - 1, 2 * chunk, v - 1) if e < v]
+    y[: min(n, len(edges))] = edges[:n]
+    xj, wj, yj = jnp.asarray(x), jnp.asarray(w), jnp.asarray(y)
+    loss, vjp = jax.vjp(lambda a, b: jfused(a, b, yj), xj, wj)
+    gx, gw = (np.asarray(t) for t in vjp(jnp.float32(2.5)))
+    xt, wt, yt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(y)
+    _, lse = tfc.fused_ce_fwd_reference(xt, wt, yt)
+    dx, dw = tfc.fused_ce_bwd_reference(xt, wt, yt, lse, torch.tensor(2.5), chunk=chunk)
+    assert tfc.bwd_chunk(n, v) >= v  # a real run of this size takes one chunk
+    _assert_match((float(loss), dx.numpy(), dw.numpy()), (float(loss), gx, gw), 1e-5)
+
+
+def test_bwd_chunk_keeps_the_panel_in_its_budget():
+    """The backward's vocab chunks: whole 256-column tiles, as few as keep
+    the bf16 (N, chunk) dP panel within ``PANEL_BYTES``, covering V; four
+    at GPT-2-large's loss shape, one at llama_1b's."""
+    for n, v in [(8192, 50257), (4096, 32000), (509, 50257), (3, 32000), (65536, 128256)]:
+        chunk = tfc.bwd_chunk(n, v)
+        chunks = -(-v // chunk)
+        assert chunk % 256 == 0 and 2 * n * chunk <= tfc.PANEL_BYTES + 2 * n * 256
+        assert chunks == -(-(2 * n * v) // tfc.PANEL_BYTES)
+    assert tfc.bwd_chunk(8192, 50257) == 12800 and tfc.bwd_chunk(4096, 32000) == 32000
 
 
 @pytest.mark.parametrize("family", ["gpt2", "llama"])

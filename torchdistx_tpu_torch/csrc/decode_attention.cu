@@ -13,27 +13,22 @@
 // What bounds them on an H100: bytes.  Each slot's query rows meet every
 // visible K/V row once, a few flops per byte of cache read, far left of the
 // card's ridge point; the time is the visible K/V rows (plus scales) over the
-// memory rate.  Both bodies read each visible row exactly once, with 16-byte
-// loads, prune by depth (only rows up to the slot's deepest query row are
-// streamed) and fold GQA: the n_rep = Hq / Hkv query heads of one kv head
-// are computed together, so no K/V is repeated.  int8 halves the bytes; the
-// scale adds 4 / D.
+// memory rate.  The kernel reads each visible row exactly once, prunes by
+// depth (only rows up to the slot's deepest query row are streamed) and
+// folds GQA: the n_rep = Hq / Hkv query heads of one kv head are computed
+// together, so no K/V is repeated.  int8 halves the bytes; the scale adds
+// 4 / D.
 //
-// Slab and pages share each body: the only difference is where key row j of
-// slot b lives (kv_row below).  A greedy paged engine therefore gives the
-// slab engine's streams bit for bit.
+// Slab and pages share one body: the only difference is where key row j of
+// slot b lives.  A greedy paged engine therefore gives the slab engine's
+// streams bit for bit.
 //
-// One token per slot (decode_kernel), grid (Hkv, B): one block per (slot,
-// kv head).  Key rows are dealt round-robin to groups of D / 8 lanes; each
-// group keeps its own online-softmax state and a D / 8-wide accumulator per
-// query row in registers, and the groups are merged through shared memory
-// at the end.
-//
-// S tokens per slot, the speculative verify (decode_block_split_kernel,
-// then decode_block_combine_kernel).  Row r of a (slot, kv head) is token
-// r / n_rep of query head h * n_rep + r % n_rep and sees keys j <= pos +
-// min(r / n_rep, S - 1); the deepest visible row is last = min(pos + S -
-// 1, max_len - 1).  The design:
+// One kernel serves one token per slot (decode, S = 1) and the speculative
+// verify (S tokens per slot): decode_split_kernel, then
+// decode_combine_kernel.  Row r of a (slot, kv head) is token r / n_rep of
+// query head h * n_rep + r % n_rep and sees keys j <= pos + min(r / n_rep,
+// S - 1); the deepest visible row is last = min(pos + S - 1, max_len - 1).
+// The design:
 //   - the key range is split over blocks, grid (splits, Hkv, B): split i
 //     holds keys [i * split, (i + 1) * split), boundaries that depend on
 //     the key index alone (never on the layout or on max_len), so slab and
@@ -42,18 +37,22 @@
 //     2048-deep slot gives 8 splits of 256 keys: up to 512 blocks for 132
 //     SMs, where (slot, kv head) alone would give 64;
 //   - K/V tiles of 64 rows are staged as bf16 through a 2-stage cp.async
-//     pipeline, 16-byte chunks addressed by kv_row (the page indirection is
-//     per row); an int8 tile is copied raw with its scales, and each thread
-//     dequantizes the chunks it copied into one bf16 tile as q x scale
-//     (exact: an int8 value times a power-of-two scale is a bf16);
+//     pipeline, 16-byte chunks addressed by key row (the page indirection
+//     is per row), so a tile's loads are in flight while the previous one
+//     is multiplied; an int8 tile is copied raw with its scales, and each
+//     thread dequantizes the chunks it copied into one bf16 tile as q x
+//     scale (exact: an int8 value times a power-of-two scale is a bf16);
 //   - both products run on the tensor cores, mma.sync m16n8k16 bf16 with
-//     f32 accumulation: the S * n_rep rows are padded to m-tiles of 16 (20
-//     -> 32 at llama3_8b), and warp 2 m + d owns m-tile m and half d of the
-//     output columns: it scores its 16 rows against the tile's 64 keys (the
-//     two halves' warps compute the same scores), keeps the rows' online
-//     softmax in registers (exp2 units), and feeds P, rounded to bf16 as the
-//     TPU kernel's default-precision product rounds it, to P V straight
-//     from the score fragments as the A operand;
+//     f32 accumulation: the S * n_rep rows are padded to m-tiles of 16 (a
+//     decode step's 4 rows at llama3_8b to one m-tile, the verify's 20 to
+//     two), and warp WN m + d owns m-tile m and share d of WN of the output
+//     columns: it scores its 16 rows against the tile's 64 keys (the
+//     shares' warps compute the same scores), keeps the rows' online
+//     softmax in registers (exp2 units), and feeds P, rounded to bf16 as
+//     the TPU kernel's default-precision product rounds it, to P V straight
+//     from the score fragments as the A operand.  WN is 2 for the verify;
+//     one token's single m-tile would leave a block of two warps, so there
+//     each warp owns 32 columns (WN 4 at D 128);
 //   - each split writes its rows' raw f32 accumulator and (m, l) to f32
 //     scratch that the wrapper allocates; the combine kernel merges a
 //     slot's splits in split order (no atomics), so two launches give the
@@ -74,173 +73,15 @@ using tdx_hopper::exp2_ftz;
 using tdx_hopper::pack_bf16;
 using tdx_hopper::smem_u32;
 
-constexpr float NEG_INF = -1e30f;  // the TPU kernels' _NEG_INF
-constexpr float NEG2 = -1e30f * 1.4426950408889634f;  // the same, in log2 units
+constexpr float NEG2 = -1e30f * 1.4426950408889634f;  // the TPU kernels' -1e30, in log2 units
 constexpr int SMEM_DEFAULT = 48 * 1024;
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void unpack_int8(const int8_t* v, int n, float s,
-                                            float* out) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) out[i] = static_cast<float>(v[i]) * s;
-}
-
-// The row index of key row j of slot b in the flattened (rows, Hkv, D) data
-// and (rows, Hkv) scales: b * max_len + j in the slab, through the slot's
-// page-table row (staged in shared memory) in the pools.
-template <bool PAGED>
-__device__ __forceinline__ long long kv_row(int j, int b, int max_len,
-                                            const int* table_s, int ps) {
-  if (PAGED) return (long long)table_s[j / ps] * ps + (j % ps);
-  return (long long)b * max_len + j;
-}
-
-// 8 consecutive elements (from element 8 * sub) of one kv head's row, as f32.
-template <bool QUANT>
-__device__ __forceinline__ void load8(const void* data, const float* scales,
-                                      long long row, int Hkv, int h, int D,
-                                      int sub, float* out) {
-  const long long off = (row * Hkv + h) * D + sub * 8;
-  if (QUANT) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(
-        static_cast<const int8_t*>(data) + off);
-    unpack_int8(reinterpret_cast<const int8_t*>(&raw), 8,
-                scales[row * Hkv + h], out);
-  } else {
-    unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(data) + off),
-            out);
-  }
-}
-
-template <bool PAGED>
-__device__ __forceinline__ void stage_table(int* table_s, const int* tables,
-                                            int b, int pp, int n) {
-  if (PAGED) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      table_s[i] = tables[(long long)b * pp + i];
-    __syncthreads();
-  }
-}
+// warps across the output columns of one m-tile (see the header): two for
+// the verify; one token's warps own 32 columns each (4 at D 128, 2 at D 64)
+constexpr int WN_BLOCK = 2;
+constexpr int COLS_ONE = 32;
 
 // ---------------------------------------------------------------------------
-// one token per slot
-// ---------------------------------------------------------------------------
-
-template <int D, int NREP, int NWARPS, bool PAGED, bool QUANT>
-__global__ void __launch_bounds__(NWARPS * 32)
-decode_kernel(const bf16* __restrict__ q, const void* __restrict__ ck,
-              const void* __restrict__ cv, const float* __restrict__ ks,
-              const float* __restrict__ vs, const int* __restrict__ pos,
-              const int* __restrict__ tables, bf16* __restrict__ o,
-              int max_len, int Hq, int Hkv, int ps, int pp, float scale) {
-  constexpr int LPK = D / 8;            // lanes per key row
-  constexpr int KPW = 32 / LPK;         // key rows per warp per step
-  constexpr int NGROUPS = NWARPS * KPW; // key rows per block per step
-  __shared__ float m_s[NGROUPS][NREP];
-  __shared__ float l_s[NGROUPS][NREP];
-  __shared__ float acc_s[NGROUPS][NREP][D];
-  extern __shared__ int table_s[];
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int sub = lane % LPK;
-  const int grp = warp * KPW + lane / LPK;
-  const int p = min(max(pos[b], 0), max_len - 1);
-  stage_table<PAGED>(table_s, tables, b, pp, p / ps + 1);
-
-  float qf[NREP][8];
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        q + ((long long)b * Hq + h * NREP + r) * D + sub * 8);
-    unpack8(raw, qf[r]);
-  }
-  float m[NREP], l[NREP], acc[NREP][8];
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
-  }
-
-  // j0 is warp-uniform, so every lane reaches the shuffles below
-  for (int j0 = warp * KPW; j0 <= p; j0 += NGROUPS) {
-    const int j = j0 + lane / LPK;
-    const bool valid = j <= p;
-    float kf[8], vf[8];
-    if (valid) {
-      const long long row = kv_row<PAGED>(j, b, max_len, table_s, ps);
-      load8<QUANT>(ck, ks, row, Hkv, h, D, sub, kf);
-      load8<QUANT>(cv, vs, row, Hkv, h, D, sub, vf);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < NREP; ++r) {
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += qf[r][e] * kf[e];
-#pragma unroll
-      for (int off = LPK / 2; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      s *= scale;
-      if (valid) {
-        const float m_new = fmaxf(m[r], s);
-        const float corr = expf(m[r] - m_new);
-        const float pe = expf(s - m_new);
-        l[r] = l[r] * corr + pe;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[r][e] = acc[r][e] * corr + pe * vf[e];
-        m[r] = m_new;
-      }
-    }
-  }
-
-  // merge the groups' online-softmax states
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    if (sub == 0) {
-      m_s[grp][r] = m[r];
-      l_s[grp][r] = l[r];
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc_s[grp][r][sub * 8 + e] = acc[r][e];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < NREP * D; i += NWARPS * 32) {
-    const int r = i / D;
-    const int c = i % D;
-    float M = NEG_INF;
-#pragma unroll
-    for (int g = 0; g < NGROUPS; ++g) M = fmaxf(M, m_s[g][r]);
-    float Lsum = 0.f, O = 0.f;
-#pragma unroll
-    for (int g = 0; g < NGROUPS; ++g) {
-      const float w = expf(m_s[g][r] - M);
-      Lsum += l_s[g][r] * w;
-      O += acc_s[g][r][c] * w;
-    }
-    o[((long long)b * Hq + h * NREP + r) * D + c] =
-        __float2bfloat16(O / fmaxf(Lsum, 1e-30f));
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// S tokens per slot (speculative verify): the split kernel and the combine
+// the split kernel and the combine
 // ---------------------------------------------------------------------------
 
 constexpr int TK = 64;       // key rows of a tile
@@ -316,18 +157,19 @@ struct BlockSmem {
   static size_t bytes(int ntab) { return (size_t)tab_off + (size_t)ntab * 4; }
 };
 
-template <int D, int MT, bool PAGED, bool QUANT>
-__global__ void __launch_bounds__(MT * 64)
-decode_block_split_kernel(const bf16* __restrict__ q, const void* __restrict__ ck,
+template <int D, int MT, int WN, bool PAGED, bool QUANT>
+__global__ void __launch_bounds__(MT * WN * 32)
+decode_split_kernel(const bf16* __restrict__ q, const void* __restrict__ ck,
                           const void* __restrict__ cv, const float* __restrict__ ks,
                           const float* __restrict__ vs, const int* __restrict__ pos,
                           const int* __restrict__ tables, float* __restrict__ part_acc,
                           float* __restrict__ part_ml, int max_len, int S, int Hq, int Hkv,
                           int ps, int pp, int split, float scale_log2) {
   using L = BlockSmem<D, MT, QUANT>;
-  constexpr int NT = MT * 64;
+  constexpr int NT = MT * WN * 32;
   constexpr int LDK = L::LDK;
-  constexpr int NO = D / 16;  // 8-column n-tiles of a warp's half of the output
+  constexpr int NO = D / (8 * WN);  // 8-column n-tiles of a warp's share of the output
+  static_assert(NO % 2 == 0, "P V loads 16 columns at a time");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem + L::q_off);
   int* tab_s = reinterpret_cast<int*>(smem + L::tab_off);
@@ -360,10 +202,11 @@ decode_block_split_kernel(const bf16* __restrict__ q, const void* __restrict__ c
   }
   __syncthreads();  // the table entries, before the first loads
 
-  // kv_row over the table entries staged from page page0 on
+  // the index of key row j in the data: the slab row, or through the table
+  // entries staged from page page0 on
   auto row_of = [&](int j) -> long long {
     if (PAGED) return (long long)tab_s[j / ps - page0] * ps + j % ps;
-    return kv_row<false>(j, b, max_len, nullptr, ps);
+    return (long long)b * max_len + j;
   };
 
   // tile t of the split into stage st: bf16 rows straight into their tile,
@@ -434,11 +277,11 @@ decode_block_split_kernel(const bf16* __restrict__ q, const void* __restrict__ c
     cp_async_commit();
   }
 
-  // warp 2 mi + dh: rows 16 mi.. of the block, output columns dh * D / 2..
+  // warp WN mi + dh: rows 16 mi.. of the block, output columns dh * D / WN..
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int mi = warp / 2;
-  const int dh = warp % 2;
+  const int mi = warp / WN;
+  const int dh = warp % WN;
   const int g = lane / 4;         // the thread's rows: 16 mi + g and + 8
   const int cq = 2 * (lane % 4);  // its columns in each 8-column n-tile
   uint32_t qa[D / 16][4];         // the m-tile's Q fragments, every k-step
@@ -522,13 +365,13 @@ decode_block_split_kernel(const bf16* __restrict__ q, const void* __restrict__ c
       acc[n][3] *= corr[1];
     }
 
-    // O += P V over this warp's half of the columns
+    // O += P V over this warp's share of the columns
 #pragma unroll
     for (int kt2 = 0; kt2 < TK / 16; ++kt2) {
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         uint32_t bb[4];
-        ldsm_x4_t(bb, vt + (kt2 * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LDK + dh * (D / 2) +
+        ldsm_x4_t(bb, vt + (kt2 * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LDK + dh * (D / WN) +
                           np * 16 + 8 * (lane / 16));
         mma_bf16(acc[2 * np], pa[kt2], bb[0], bb[1]);
         mma_bf16(acc[2 * np + 1], pa[kt2], bb[2], bb[3]);
@@ -552,7 +395,7 @@ decode_block_split_kernel(const bf16* __restrict__ q, const void* __restrict__ c
     if (r >= R) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(part_acc + (base + r) * D + dh * (D / 2) + 8 * n + cq) =
+      *reinterpret_cast<float2*>(part_acc + (base + r) * D + dh * (D / WN) + 8 * n + cq) =
           make_float2(acc[n][2 * j], acc[n][2 * j + 1]);
     if (dh == 0 && lane % 4 == 0)
       *reinterpret_cast<float2*>(part_ml + (base + r) * 2) = make_float2(m[j], l[j]);
@@ -561,7 +404,7 @@ decode_block_split_kernel(const bf16* __restrict__ q, const void* __restrict__ c
 
 // out = the splits of one (slot, kv head, row) merged in split order: grid
 // (R, Hkv, B), one thread a column
-__global__ void decode_block_combine_kernel(const float* __restrict__ part_acc,
+__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                             const float* __restrict__ part_ml,
                                             const int* __restrict__ pos, bf16* __restrict__ o,
                                             int max_len, int S, int Hq, int Hkv, int D,
@@ -600,76 +443,55 @@ struct Args {
   cudaStream_t stream;
 };
 
-// above 48 KB a block's shared memory needs the opt-in for its dynamic part
+// above 48 KB a block's (dynamic) shared memory needs the opt-in
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t stat, size_t dyn) {
-  if (stat + dyn <= SMEM_DEFAULT) return cudaSuccess;
+cudaError_t allow_smem(K kernel, size_t dyn) {
+  if (dyn <= SMEM_DEFAULT) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)dyn);
 }
 
-template <int D, int NREP, bool PAGED, bool QUANT>
-cudaError_t launch_one(const Args& a) {
-  // static shared memory: about NWARPS * NREP KB; keep it near 32 KB
-  constexpr int NWARPS = NREP <= 4 ? 8 : 4;
-  constexpr size_t STAT = (size_t)NWARPS * (32 / (D / 8)) * NREP * (D + 2) * 4;
-  auto kernel = decode_kernel<D, NREP, NWARPS, PAGED, QUANT>;
-  const size_t dyn = PAGED ? (size_t)a.pp * 4 : 0;
-  cudaError_t err = allow_smem(kernel, STAT, dyn);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.Hkv, a.B), NWARPS * 32, dyn, a.stream>>>(
-      static_cast<const bf16*>(a.q), a.ck, a.cv,
-      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
-      static_cast<const int*>(a.pos), static_cast<const int*>(a.tables),
-      static_cast<bf16*>(a.o), a.max_len, a.Hq, a.Hkv, a.ps, a.pp, a.scale);
-  return cudaGetLastError();
-}
-
-template <int D, int MT, bool PAGED, bool QUANT>
-cudaError_t launch_block(const Args& a) {
+template <int D, int MT, int WN, bool PAGED, bool QUANT>
+cudaError_t launch(const Args& a) {
   using L = BlockSmem<D, MT, QUANT>;
-  auto kernel = decode_block_split_kernel<D, MT, PAGED, QUANT>;
+  auto kernel = decode_split_kernel<D, MT, WN, PAGED, QUANT>;
   const size_t dyn = L::bytes(PAGED ? a.split / a.ps + 2 : 0);
-  cudaError_t err = allow_smem(kernel, 0, dyn);
+  cudaError_t err = allow_smem(kernel, dyn);
   if (err != cudaSuccess) return err;
   const int R = a.S * (a.Hq / a.Hkv);
   float* part_ml = a.part + (long long)a.B * a.Hkv * a.nsplit * R * D;
-  kernel<<<dim3(a.nsplit, a.Hkv, a.B), MT * 64, dyn, a.stream>>>(
+  kernel<<<dim3(a.nsplit, a.Hkv, a.B), MT * WN * 32, dyn, a.stream>>>(
       static_cast<const bf16*>(a.q), a.ck, a.cv, static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),
       static_cast<const int*>(a.tables), a.part, part_ml, a.max_len, a.S, a.Hq, a.Hkv, a.ps,
       a.pp, a.split, a.scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_block_combine_kernel<<<dim3(R, a.Hkv, a.B), D, 0, a.stream>>>(
+  decode_combine_kernel<<<dim3(R, a.Hkv, a.B), D, 0, a.stream>>>(
       a.part, part_ml, static_cast<const int*>(a.pos), static_cast<bf16*>(a.o), a.max_len,
       a.S, a.Hq, a.Hkv, D, a.split, a.nsplit);
   return cudaGetLastError();
 }
 
+template <int D, int WN, bool PAGED, bool QUANT>
+cudaError_t dispatch_rows(const Args& a) {
+  switch ((a.S * (a.Hq / a.Hkv) + 15) / 16) {
+    case 1: return launch<D, 1, WN, PAGED, QUANT>(a);
+    case 2: return launch<D, 2, WN, PAGED, QUANT>(a);
+    case 3: return launch<D, 3, WN, PAGED, QUANT>(a);
+    case 4: return launch<D, 4, WN, PAGED, QUANT>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int D, bool PAGED, bool QUANT>
 cudaError_t dispatch(const Args& a) {
-  const int n_rep = a.Hq / a.Hkv;
-  if (a.S == 1) {
-    switch (n_rep) {
-      case 1: return launch_one<D, 1, PAGED, QUANT>(a);
-      case 2: return launch_one<D, 2, PAGED, QUANT>(a);
-      case 4: return launch_one<D, 4, PAGED, QUANT>(a);
-      case 8: return launch_one<D, 8, PAGED, QUANT>(a);
-      default: return cudaErrorInvalidValue;
-    }
-  }
   // the splits cover every key and are whole tiles
   if (a.part == nullptr || a.split < TK || a.split % TK != 0 ||
       (long long)a.nsplit * a.split < a.max_len)
     return cudaErrorInvalidValue;
-  switch ((a.S * n_rep + 15) / 16) {
-    case 1: return launch_block<D, 1, PAGED, QUANT>(a);
-    case 2: return launch_block<D, 2, PAGED, QUANT>(a);
-    case 3: return launch_block<D, 3, PAGED, QUANT>(a);
-    case 4: return launch_block<D, 4, PAGED, QUANT>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  if (a.S == 1) return dispatch_rows<D, D / COLS_ONE, PAGED, QUANT>(a);
+  return dispatch_rows<D, WN_BLOCK, PAGED, QUANT>(a);
 }
 
 template <int D>
@@ -684,9 +506,9 @@ cudaError_t dispatch_layout(const Args& a, bool paged, bool quant) {
 // (B, max_len, Hkv, D) or, with paged != 0, the pools (num_pages, ps, Hkv, D)
 // read through tables (B, pp) int32 (max_len is then pp * ps); bf16, or int8
 // with quant != 0 and f32 scales ks/vs of the data's rows x Hkv; pos (B,)
-// int32; o (B, S, Hq, D) bf16.  For S > 1: `split` keys a split (a multiple
-// of 64), nsplit splits (nsplit * split >= max_len), and part, f32 scratch of
-// B * Hkv * nsplit * S * Hq / Hkv * (D + 2) floats.  Returns
+// int32; o (B, S, Hq, D) bf16; S * Hq / Hkv <= 64.  `split` keys a split (a
+// multiple of 64), nsplit splits (nsplit * split >= max_len), and part, f32
+// scratch of B * Hkv * nsplit * S * Hq / Hkv * (D + 2) floats.  Returns
 // cudaGetLastError() after the launches (0 on success); the Python wrapper
 // raises on anything else.
 extern "C" int tdx_decode_attention(const void* q, const void* ck,

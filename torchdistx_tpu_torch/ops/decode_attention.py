@@ -27,10 +27,11 @@ page-table gather, or their dequantized view) run only for CPU tensors.
 Each ``*_cuda`` wrapper counts its launches in ``.launches`` and, of those,
 the int8 ones in ``.int8_launches``.
 
-The verify-block kernel splits each slot's key range over blocks at the
-fixed boundaries of :func:`block_splits` and merges the splits in split
-order; :func:`decode_attention_block_split_reference` (and its paged
-twin) is the plain version of that algorithm, in f32.
+Every variant, one token or a verify block, runs one kernel that splits
+each slot's key range over blocks at the fixed boundaries of
+:func:`block_splits` and merges the splits in split order;
+:func:`decode_attention_block_split_reference` (and its paged twin) is the
+plain version of that algorithm, in f32, for any S (one token: S = 1).
 """
 
 from __future__ import annotations
@@ -63,19 +64,17 @@ __all__ = [
 ]
 
 _LIB = "decode_attention"
-#: query heads per kv head the one-token kernel takes
-N_REP = (1, 2, 4, 8)
-#: query rows (S * n_rep) the block kernel takes at most
+#: query rows (S * n_rep) of a slot and kv head the kernel takes at most
 MAX_BLOCK_ROWS = 64
-#: keys of one split of the block kernel's key range (a multiple of its
-#: 64-key tile)
+#: keys of one split of the kernel's key range (a multiple of its 64-key
+#: tile)
 SPLIT_KEYS = 256
 _NEG_INF = -1e30  # the TPU kernels' finite mask value
 
 
 def block_splits(last: int, split_keys: int = SPLIT_KEYS):
-    """The key ranges ``[start, end)`` the verify-block kernel's splits
-    cover for a slot whose deepest visible key is ``last``: split ``i``
+    """The key ranges ``[start, end)`` the kernel's splits cover for a
+    slot whose deepest visible key is ``last``: split ``i``
     holds keys ``[i * split_keys, (i + 1) * split_keys)``, cut at
     ``last + 1``.  The boundaries depend on the key index alone, never on
     the cache's layout or length, so the slab and the pages split alike."""
@@ -149,8 +148,8 @@ def paged_decode_attention_block_reference(q, ck, cv, page_tables, positions,
 
 
 def _split_attend_block(q, kk, vv, positions, scale, split_keys):
-    """The split-and-combine of the verify-block kernel in f32 over the
-    (B, max_len, Hkv, D) view ``kk``/``vv``: per slot, each split of
+    """The split-and-combine of the kernel in f32 over the (B, max_len,
+    Hkv, D) view ``kk``/``vv``: per slot, each split of
     :func:`block_splits` gives its rows' max ``m``, sum ``l`` and raw
     accumulator over its keys (masked keys -1e30 in the max, 0 in P), and
     the splits merge in split order."""
@@ -189,9 +188,9 @@ def _split_attend_block(q, kk, vv, positions, scale, split_keys):
 def decode_attention_block_split_reference(q, ck, cv, positions, *, scale=None,
                                            k_scale=None, v_scale=None,
                                            split_keys: int = SPLIT_KEYS):
-    """The plain version of the verify-block kernel's algorithm over the
-    slab: :func:`block_splits`' splits, each one's (m, l, acc) in f32,
-    merged in split order (CPU tensors)."""
+    """The plain version of the kernel's algorithm over the slab, for any
+    S (one token: S = 1): :func:`block_splits`' splits, each one's (m, l,
+    acc) in f32, merged in split order (CPU tensors)."""
     _check_kv_scales(k_scale, v_scale, ck)
     kk, vv = _dequant(ck, cv, k_scale, v_scale)
     return _split_attend_block(q, kk, vv, positions, scale, split_keys)
@@ -256,9 +255,7 @@ def _launch(name, q, ck, cv, positions, page_tables, k_scale, v_scale, scale):
     if hq % hkv != 0:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
     n_rep = hq // hkv
-    if s == 1 and n_rep not in N_REP:
-        raise ValueError(f"{name} takes Hq/Hkv in {N_REP}, got {hq}/{hkv}")
-    if s > 1 and s * n_rep > MAX_BLOCK_ROWS:
+    if s * n_rep > MAX_BLOCK_ROWS:
         raise ValueError(f"{name} takes S * Hq/Hkv <= {MAX_BLOCK_ROWS}, got {s} * {n_rep}")
     if d not in (64, 128):
         raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
@@ -273,16 +270,17 @@ def _launch(name, q, ck, cv, positions, page_tables, k_scale, v_scale, scale):
     pos = positions.to(torch.int32).contiguous()
     scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    # the block kernel's per-split (acc, m, l) of every row, f32
-    nsplit = len(block_splits(max_len - 1)) if s > 1 else 0
-    part = (torch.empty(b * hkv * nsplit * s * n_rep * (d + 2), dtype=torch.float32,
-                        device=q.device) if s > 1 else None)
+    # the per-split (acc, m, l) of every row, f32: the splits of the
+    # deepest slot the cache holds
+    nsplit = -(-max_len // SPLIT_KEYS)
+    part = torch.empty(b * hkv * nsplit * s * n_rep * (d + 2), dtype=torch.float32,
+                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         err = _lib()(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), ptr(k_scale),
-            ptr(v_scale), pos.data_ptr(), ptr(tables), out.data_ptr(), ptr(part),
+            ptr(v_scale), pos.data_ptr(), ptr(tables), out.data_ptr(), part.data_ptr(),
             b, s, max_len, hq, hkv, d, ps, pp, int(paged), int(quant),
             SPLIT_KEYS, nsplit, scale_, stream,
         )
@@ -298,10 +296,11 @@ def _count(fn, quant):
 
 def decode_attention_cuda(q, ck, cv, positions, *, scale=None, k_scale=None,
                           v_scale=None):
-    """Launch the one-token slab kernel: ``q`` (B, 1, Hq, D) bf16, slab
-    ``ck``/``cv`` (B, max_len, Hkv, D) bf16, or int8 with f32 ``k_scale``/
-    ``v_scale`` (B, max_len, Hkv, 1), contiguous; ``positions`` (B,).
-    Hq / Hkv in {1, 2, 4, 8}, D in {64, 128}."""
+    """Launch the kernel for one token per slot (its key range split over
+    blocks, then the splits merged in order): ``q`` (B, 1, Hq, D) bf16,
+    slab ``ck``/``cv`` (B, max_len, Hkv, D) bf16, or int8 with f32
+    ``k_scale``/``v_scale`` (B, max_len, Hkv, 1), contiguous;
+    ``positions`` (B,).  Hq / Hkv <= 64, D in {64, 128}."""
     if q.shape[1] != 1:
         raise ValueError(f"decode_attention takes one token per slot, got S={q.shape[1]}")
     out, quant = _launch("decode_attention", q, ck, cv, positions, None,
@@ -312,9 +311,8 @@ def decode_attention_cuda(q, ck, cv, positions, *, scale=None, k_scale=None,
 
 def decode_attention_block_cuda(q, ck, cv, positions, *, scale=None,
                                 k_scale=None, v_scale=None):
-    """Launch the S-token slab kernel (the speculative verify; its key
-    range split over blocks, then the splits merged in order): ``q``
-    (B, S, Hq, D) bf16, S * Hq / Hkv <= 64; the slab as for
+    """Launch the kernel for S tokens per slot (the speculative verify):
+    ``q`` (B, S, Hq, D) bf16, S * Hq / Hkv <= 64; the slab as for
     :func:`decode_attention_cuda`."""
     out, quant = _launch("decode_attention_block", q, ck, cv, positions, None,
                          k_scale, v_scale, scale)
@@ -324,9 +322,9 @@ def decode_attention_block_cuda(q, ck, cv, positions, *, scale=None,
 
 def paged_decode_attention_cuda(q, ck, cv, page_tables, positions, *,
                                 scale=None, k_scale=None, v_scale=None):
-    """Launch the one-token paged kernel: pools ``ck``/``cv`` (num_pages,
-    page_size, Hkv, D) bf16, or int8 with scales (num_pages, page_size,
-    Hkv, 1); ``page_tables`` (B, pages_per_slot) integer."""
+    """Launch the kernel for one token per slot over pools ``ck``/``cv``
+    (num_pages, page_size, Hkv, D) bf16, or int8 with scales (num_pages,
+    page_size, Hkv, 1); ``page_tables`` (B, pages_per_slot) integer."""
     if q.shape[1] != 1:
         raise ValueError(f"paged_decode_attention takes one token per slot, got S={q.shape[1]}")
     out, quant = _launch("paged_decode_attention", q, ck, cv, positions,
@@ -337,7 +335,7 @@ def paged_decode_attention_cuda(q, ck, cv, page_tables, positions, *,
 
 def paged_decode_attention_block_cuda(q, ck, cv, page_tables, positions, *,
                                       scale=None, k_scale=None, v_scale=None):
-    """Launch the S-token paged kernel."""
+    """Launch the kernel for S tokens per slot over page pools."""
     out, quant = _launch("paged_decode_attention_block", q, ck, cv, positions,
                          page_tables, k_scale, v_scale, scale)
     _count(paged_decode_attention_block_cuda, quant)

@@ -4,22 +4,24 @@ PyTorch versions, and the differentiable ``fused_linear_cross_entropy``.
 Counterpart of ``torchdistx_tpu/ops/fused_ce.py``.  The mean token
 cross-entropy of ``logits = x @ w.T`` needs only per-token ``(lse,
 z_label)`` forward and the products ``dX = dP W``, ``dW = dP^T X``
-backward, where each dP tile is a recompute from the saved ``lse``: the
-(N, V) logits never reach device memory.  Three kernels in
-``csrc/fused_ce.cu`` replace the Pallas ones:
+backward, where dP is a recompute from the saved ``lse``: the (N, V)
+logits never reach device memory.  ``csrc/fused_ce.cu`` replaces the
+Pallas kernels:
 
 - ``fused_ce_fwd_cuda`` (``_fwd_kernel``): per-token loss and f32 ``lse``;
-- ``fused_ce_dx_cuda`` (``_dx_kernel``): dX, scaled by 1/N and the
-  cotangent on the device;
-- ``fused_ce_dw_cuda`` (``_dw_kernel``): dW, the same.
+- ``fused_ce_bwd_cuda`` (``_dx_kernel`` and ``_dw_kernel``): dX and dW in
+  one backward, scaled by 1/N and the cotangent on the device.  Per chunk
+  of :func:`bwd_chunk` vocab columns it writes the chunk's bf16 dP panel
+  once and takes both products from it, with no atomics: two launches give
+  the same bits.
 
 The kernels choose their own tiles (the TPU knobs ``block_t``, ``block_v``
 and ``interpret`` are not carried over) and mask the ragged vocab and token
 edges in-kernel: nothing is padded in memory.  A CUDA tensor launches the
 kernels or raises; the plain versions (``fused_ce_fwd_reference``,
-``fused_ce_dx_reference``, ``fused_ce_dw_reference``) run only for tensors
-on the CPU.  ``fused_linear_cross_entropy_reference`` is the unfused
-function they all compute.
+``fused_ce_bwd_reference``) run only for tensors on the CPU.
+``fused_linear_cross_entropy_reference`` is the unfused function they all
+compute.
 """
 
 from __future__ import annotations
@@ -34,12 +36,16 @@ __all__ = [
     "fused_linear_cross_entropy",
     "fused_linear_cross_entropy_reference",
     "fused_ce_fwd_reference",
-    "fused_ce_dx_reference",
-    "fused_ce_dw_reference",
+    "fused_ce_bwd_reference",
     "fused_ce_fwd_cuda",
-    "fused_ce_dx_cuda",
-    "fused_ce_dw_cuda",
+    "fused_ce_bwd_cuda",
+    "bwd_chunk",
 ]
+
+#: the backward's bf16 (N, chunk) dP panel holds at most this many bytes
+PANEL_BYTES = 256 << 20
+#: a chunk is a whole number of the backward kernels' 256-wide tiles
+_CHUNK_ALIGN = 256
 
 
 def fused_linear_cross_entropy_reference(x, w, labels):
@@ -58,22 +64,34 @@ def fused_ce_fwd_reference(x, w, labels):
     return lse - zy, lse
 
 
-def _dlogits(x, w, labels, lse, g):
-    """(softmax - onehot) * g / N in f32, recomputed from ``lse``."""
-    n = x.shape[0]
-    p = torch.exp(x.float() @ w.float().T - lse.float()[:, None])
-    p[torch.arange(n, device=p.device), labels.long()] -= 1.0
-    return p * (g.float().reshape(()) / n)
+def bwd_chunk(n: int, v: int) -> int:
+    """Vocab columns per chunk of the backward: the fewest chunks whose
+    bf16 (N, chunk) dP panel fits ``PANEL_BYTES``, each rounded up to a
+    multiple of 256 columns (the last one holds the rest)."""
+    chunks = -(-(2 * n * v) // PANEL_BYTES)
+    return -(-v // (chunks * _CHUNK_ALIGN)) * _CHUNK_ALIGN
 
 
-def fused_ce_dx_reference(x, w, labels, lse, g):
-    """Plain dX = dP W in x's dtype."""
-    return (_dlogits(x, w, labels, lse, g) @ w.float()).to(x.dtype)
-
-
-def fused_ce_dw_reference(x, w, labels, lse, g):
-    """Plain dW = dP^T X in w's dtype."""
-    return (_dlogits(x, w, labels, lse, g).T @ x.float()).to(w.dtype)
+def fused_ce_bwd_reference(x, w, labels, lse, g, chunk=None):
+    """The plain version of the backward's algorithm, in f32: for each
+    chunk of ``chunk`` vocab columns (default :func:`bwd_chunk`), in order,
+    dP = exp(X W_c^T - lse) - onehot, dW_c = dP^T X and dX += dP W_c; both
+    times g / N.  Returns (dX, dW) in x's and w's dtypes."""
+    n, v = x.shape[0], w.shape[0]
+    chunk = chunk or bwd_chunk(n, v)
+    xf, wf, lab = x.float(), w.float(), labels.long()
+    rows = torch.arange(n, device=x.device)
+    dx = torch.zeros_like(xf)
+    dw = torch.empty_like(wf)
+    for v0 in range(0, v, chunk):
+        wc = wf[v0:v0 + chunk]
+        dp = torch.exp(xf @ wc.T - lse.float()[:, None])
+        hit = (lab >= v0) & (lab < v0 + wc.shape[0])
+        dp[rows[hit], lab[hit] - v0] -= 1.0
+        dw[v0:v0 + chunk] = dp.T @ xf
+        dx += dp @ wc
+    scale = g.float().reshape(()) / n
+    return (dx * scale).to(x.dtype), (dw * scale).to(w.dtype)
 
 
 def _lib():
@@ -84,10 +102,9 @@ def _lib():
         lib.tdx_fused_ce_fwd_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         lib.tdx_fused_ce_fwd_bf16.restype = ctypes.c_int
-        for name in ("tdx_fused_ce_dx_bf16", "tdx_fused_ce_dw_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+        lib.tdx_fused_ce_bwd_bf16.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.tdx_fused_ce_bwd_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -149,51 +166,39 @@ def fused_ce_fwd_cuda(x, w, labels):
 fused_ce_fwd_cuda.launches = 0
 
 
-def _grad(fn_name, entry, x, w, labels, lse, g, rows):
-    x, w, labels = _check(fn_name, x, w, labels, lse, g)
+def fused_ce_bwd_cuda(x, w, labels, lse, g):
+    """Launch the backward: (dX (N, D), dW (V, D)) bf16 = (softmax -
+    onehot) W and its transpose times X, times ``g`` / N, ``g`` a
+    one-element f32 CUDA tensor.  Scratch: the bf16 (N, chunk) dP panel
+    and, when the vocab takes more than one chunk, an f32 (N, D) sum for
+    dX.  Adds one to ``fused_ce_bwd_cuda.launches``."""
+    x, w, labels = _check("fused_ce_bwd_cuda", x, w, labels, lse, g)
     n, d = x.shape
     v = w.shape[0]
-    stat = n if rows == "x" else v
-    ws = torch.zeros((stat, d), dtype=torch.float32, device=x.device)
-    out = torch.empty((stat, d), dtype=torch.bfloat16, device=x.device)
+    chunk = bwd_chunk(n, v)
+    panel = torch.empty((n, chunk), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((n, d), dtype=torch.float32, device=x.device) if chunk < v else None
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
     lse, g = lse.contiguous(), g.reshape(1).contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = getattr(_lib(), entry)(
+        err = _lib().tdx_fused_ce_bwd_bf16(
             x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
-            ws.data_ptr(), out.data_ptr(), n, v, d, stream)
+            panel.data_ptr(), None if ws is None else ws.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), n, v, d, chunk, stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
-    return out
+        raise RuntimeError(f"fused_ce_bwd kernel launch failed: CUDA error {err}")
+    fused_ce_bwd_cuda.launches += 1
+    return dx, dw
 
 
-def fused_ce_dx_cuda(x, w, labels, lse, g):
-    """Launch the dX kernel: bf16 (N, D) = (softmax - onehot) W * g / N,
-    ``g`` a one-element f32 CUDA tensor.  Adds one to
-    ``fused_ce_dx_cuda.launches``."""
-    out = _grad("fused_ce_dx", "tdx_fused_ce_dx_bf16", x, w, labels, lse, g, "x")
-    fused_ce_dx_cuda.launches += 1
-    return out
-
-
-fused_ce_dx_cuda.launches = 0
-
-
-def fused_ce_dw_cuda(x, w, labels, lse, g):
-    """Launch the dW kernel: bf16 (V, D) = (softmax - onehot)^T X * g / N.
-    Adds one to ``fused_ce_dw_cuda.launches``."""
-    out = _grad("fused_ce_dw", "tdx_fused_ce_dw_bf16", x, w, labels, lse, g, "w")
-    fused_ce_dw_cuda.launches += 1
-    return out
-
-
-fused_ce_dw_cuda.launches = 0
+fused_ce_bwd_cuda.launches = 0
 
 
 class _FusedCE(torch.autograd.Function):
     """The JAX ``custom_vjp``: the forward saves the per-token f32 ``lse``;
-    the backward launches the dX and dW kernels, which recompute the
-    logits tiles and scale by the cotangent on the device."""
+    the backward recomputes the logits once for dX and dW and scales by
+    the cotangent on the device."""
 
     @staticmethod
     def forward(ctx, x, w, labels):
@@ -207,19 +212,10 @@ class _FusedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, labels, lse = ctx.saved_tensors
-        g = g.float()
-        dx = dw = None
-        if x.is_cuda:
-            if ctx.needs_input_grad[0]:
-                dx = fused_ce_dx_cuda(x, w, labels, lse, g)
-            if ctx.needs_input_grad[1]:
-                dw = fused_ce_dw_cuda(x, w, labels, lse, g)
-        else:
-            if ctx.needs_input_grad[0]:
-                dx = fused_ce_dx_reference(x, w, labels, lse, g)
-            if ctx.needs_input_grad[1]:
-                dw = fused_ce_dw_reference(x, w, labels, lse, g)
-        return dx, dw, None
+        bwd = fused_ce_bwd_cuda if x.is_cuda else fused_ce_bwd_reference
+        dx, dw = bwd(x, w, labels, lse, g.float())
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None)
 
 
 def fused_linear_cross_entropy(x, w, labels):
