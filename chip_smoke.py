@@ -57,7 +57,7 @@ Phases, each fatal:
 7. hold the fused LM-head cross-entropy kernels (``fused_ce_fwd``, and
    ``fused_ce_bwd``, which computes dX and dW in one backward) against
    their plain versions at the llama_1b and gpt2_large loss shapes, a
-   prime and a tiny token count, the backward bit for bit against a second
+   prime and a tiny token count, each bit for bit against a second
    launch, and time them beside the unfused bf16 path (``F.linear`` then
    f32 ``cross_entropy``, a yardstick the port never calls);
 8. one backward step of a 4-layer, full-width gpt2_large through the
@@ -72,8 +72,9 @@ Phases, each fatal:
    additive bias, the bucket table; causal and not; forward with and
    without lse, dK/dV, dQ) and the ``flash_bwd_dbias`` and
    ``flash_bwd_dtable`` kernels against their plain versions at T5-3B's
-   heads (B 4 x S 512, a ragged S 114, B 1 x S 2048), and time them beside
-   SDPA with the bias as a float mask (a yardstick the port never calls);
+   heads (B 4 x S 512, a ragged S 114, B 1 x S 2048), dbias bit for bit
+   against a second launch, and time them beside SDPA with the bias as a
+   float mask (a yardstick the port never calls);
 12. one backward step of a T5-3B with 4 layers per stack through the
    kernels, in each bias mode, and through the plain path, each held
    against the f32 plain path;
@@ -135,9 +136,10 @@ Phases, each fatal:
    path's.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
-dQ variant and per decode variant: its ms, bound and library ms, the factor
-over the library and over the bound (the decode variants also by device
-time).  It prints the card's name and power limit, one ``{"kernels":
+dQ variant and per decode variant, phase 7 one per fused CE kernel and
+shape, phase 11 one per dbias and dtable variant: its ms, bound and
+library ms, the factor over the library and over the bound (the decode
+variants also by device time).  It prints the card's name and power limit, one ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
@@ -1267,11 +1269,13 @@ def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
         labels[: min(n, 3)] = torch.tensor([v - 1, 0, v - 2], device=device)[: min(n, 3)]
         one = torch.ones(1, dtype=torch.float32, device=device)
         loss, lse = fc.fused_ce_fwd_cuda(x, w, labels)
+        loss2, lse2 = fc.fused_ce_fwd_cuda(x, w, labels)
         dx, dw = fc.fused_ce_bwd_cuda(x, w, labels, lse, one)
         again = fc.fused_ce_bwd_cuda(x, w, labels, lse, one)
         torch.cuda.synchronize()
+        fwd_bitwise = bool(torch.equal(loss, loss2) and torch.equal(lse, lse2))
         bitwise = bool(torch.equal(dx, again[0]) and torch.equal(dw, again[1]))
-        del again
+        del again, loss2, lse2
         r_loss, r_lse = fc.fused_ce_fwd_reference(x, w, labels)
         r_dx, r_dw = fc.fused_ce_bwd_reference(x, w, labels, r_lse, one)
         ref_mean = float(r_loss.mean())
@@ -1282,7 +1286,7 @@ def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
                "dw_err": float((dw.float() - r_dw.float()).abs().max()),
                "dx_scaled_err": _scaled_err(torch, dx, r_dx),
                "dw_scaled_err": _scaled_err(torch, dw, r_dw),
-               "bwd_bitwise_repeat": bitwise}
+               "fwd_bitwise_repeat": fwd_bitwise, "bwd_bitwise_repeat": bitwise}
         del r_dx, r_dw
         case = (n, d, v)
         if row["lse_err"] > LSE_ATOL or row["loss_rel_err"] > CE_LOSS_RTOL:
@@ -1290,6 +1294,8 @@ def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
         for name in ("dx", "dw"):
             if row[f"{name}_scaled_err"] > CE_GRAD_TOL:
                 failures.append(f"fused_ce bwd {name} {case}: {row}")
+        if not fwd_bitwise:
+            failures.append(f"fused_ce fwd {case}: two launches differ")
         if not bitwise:
             failures.append(f"fused_ce bwd {case}: two launches differ")
         if n >= 4096:
@@ -1309,11 +1315,11 @@ def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
             del lib_loss, xr, wr
             for k in ("fwd", "bwd"):
                 row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = ce_bound(n, d, v, k)
-            print("speed", json.dumps({
-                "phase": 7, "variant": f"fused_ce_bwd N{n} D{d} V{v}", "ms": row["bwd_ms"],
-                "bound_ms": row["bwd_bound_ms"], "library_ms": row["grad_library_ms"],
-                "x_library": row["bwd_ms"] / row["grad_library_ms"],
-                "x_bound": row["bwd_ms"] / row["bwd_bound_ms"]}))
+            shape = f"N{n} D{d} V{v}"
+            speed_line(7, f"fused_ce_fwd {shape}", row, "fwd_ms", "fwd_bound_ms",
+                       "fwd_library_ms")
+            speed_line(7, f"fused_ce_bwd {shape}", row, "bwd_ms", "bwd_bound_ms",
+                       "grad_library_ms")
         rows.append(row)
         print("fused_ce", json.dumps(row))
         del x, w, labels, loss, lse, dx, dw, r_loss, r_lse
@@ -1623,9 +1629,10 @@ def bias_bound(b, s, hq, hkv, d, products, causal, mode, kernel):
     ``products`` matrix products of 2 * D flops per visible pair, query
     head and batch row, over the bf16 peak, vs the bytes it must move over
     the memory rate: its inputs read once (q, k, v; the backward's o, dO
-    and lse too), the bias (2 bytes a pair per head) or the table and the
-    bucket ids, and its outputs written once (``kernel``: "fwd" o and lse,
-    "dkv", "dq", "dbias" (Hq, S, S) bf16 or "dtable" (Hq, buckets) f32)."""
+    and lse too, where dbias reads dO, lse and the pre-pass's delta and no
+    o), the bias (2 bytes a pair per head) or the table and the bucket ids,
+    and its outputs written once (``kernel``: "fwd" o and lse, "dkv", "dq",
+    "dbias" (Hq, S, S) bf16 or "dtable" (Hq, buckets) f32)."""
     pairs = _causal_pairs(s) if causal else s * s
     flops = 2.0 * products * d * pairs * b * hq
     qo = 2.0 * b * s * hq * d
@@ -1633,7 +1640,7 @@ def bias_bound(b, s, hq, hkv, d, products, causal, mode, kernel):
     lse = 4.0 * b * hq * s
     nbytes = qo + 2 * kv
     nbytes += {"fwd": qo + lse, "dkv": 2 * qo + lse + 2 * kv, "dq": 3 * qo + lse,
-               "dbias": 2 * qo + lse + 2.0 * hq * s * s,
+               "dbias": qo + 2 * lse + 2.0 * hq * s * s,
                "dtable": 2 * qo + lse + 4.0 * hq * T5_BUCKETS}[kernel]
     nbytes += 2.0 * hq * s * s if mode == "bias" else 2.0 * hq * T5_BUCKETS + 4.0 * (2 * s - 1)
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
@@ -1722,9 +1729,12 @@ def check_flash_bias(torch, device, cases=BIAS_CASES, iters=5):
             o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
             dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw)
             dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw)
+            repeat = None
             if mode == "bias":
                 dgrad = fa.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal,
                                                 scale=scale)
+                repeat = fa.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal,
+                                                 scale=scale)
             else:
                 dgrad = fa.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg,
                                                  causal=causal, scale=scale)
@@ -1737,6 +1747,11 @@ def check_flash_bias(torch, device, cases=BIAS_CASES, iters=5):
             row = {"B": b, "S": s, "mode": mode, "causal": causal, "scale": scale_name,
                    "lse_err": float((lse - ref_lse).abs().max()),
                    gkey: _scaled_err(torch, dgrad, rgrad)}
+            if repeat is not None:
+                row["dbias_bitwise_repeat"] = bool(torch.equal(dgrad, repeat))
+                if not row["dbias_bitwise_repeat"]:
+                    failures.append(f"flash dbias {case}: two launches differ")
+                del repeat
             # at T5's scale dq is that of the folded q, sqrt(D) times the
             # gradient of the q before the fold: held as the latter, the
             # quantity the default scale holds
@@ -1776,9 +1791,12 @@ def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters)
     row["dkv_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*bwd, **kw), iters)
     delta = fa.flash_bwd_delta_cuda(o, do)
     row["dq_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*bwd, delta=delta, **kw), iters)
-    if mode == "bias":
-        row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dbias_cuda(*bwd, bias, **ckw),
-                                  iters)
+    if mode == "bias":  # the kernel alone on the pre-pass's delta, as the backward runs it
+        row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dbias_cuda(
+            *bwd, bias, delta=delta, **ckw), iters)
+        # and with the pre-pass, as the kernel that read o and formed delta itself ran
+        row["dgrad_with_delta_ms"] = time_ms(torch, lambda: fa.flash_bwd_dbias_cuda(
+            *bwd, bias, **ckw), iters)
     else:
         row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dtable_cuda(
             *bwd, table, kw["bucket_cfg"], **ckw), iters)
@@ -1802,6 +1820,8 @@ def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters)
                "dkv_bound_ms", "bwd_library_ms")
     speed_line(11, f"dq {shape} (library: all three gradients)", row, "dq_ms",
                "dq_bound_ms", "bwd_library_ms")
+    speed_line(11, f"{gname} {shape} (library: dq, dk, dv and the mask's gradient)", row,
+               "dgrad_ms", "dgrad_bound_ms", "dgrad_library_ms")
 
 
 def _t5_grads(torch, model, src, labels, use_flash, bucket):
@@ -2853,7 +2873,8 @@ def t5_kernel_entries(rows, runs):
              ("dk_err", "dv_err"), "bwd_library_ms", "bwd_plain_ms"),
             (f"flash_bwd_dq_{mode}", "flash_bwd.cu", dq_line, f"flash_bwd_dq_{mode}", "dq",
              ("dq_err",), "bwd_library_ms", "bwd_plain_ms"),
-            (f"flash_bwd_{gname}", "flash_bias_bwd.cu", 428 if mode == "bias" else 482,
+            (f"flash_bwd_{gname}", "flash_bwd.cu" if mode == "bias" else "flash_bias_bwd.cu",
+             428 if mode == "bias" else 482,
              f"flash_bwd_{gname}", "dgrad", (f"{gname}_scaled_err",), "dgrad_library_ms",
              "dgrad_plain_ms"),
         )
@@ -2874,6 +2895,9 @@ def t5_kernel_entries(rows, runs):
                                   for r in timed if r["mode"] == mode])
             if key == "dgrad" and full.get("dgrad_library_why"):
                 entry["library_why_null"] = full["dgrad_library_why"]
+            if key == "dgrad" and mode == "bias":
+                entry["bitwise_repeat"] = all(r["dbias_bitwise_repeat"] for r in rows
+                                              if r["mode"] == "bias")
             out.append(entry)
     return out
 
@@ -3353,9 +3377,9 @@ def main(argv=None) -> int:
                      launches_llama=fused_summary["launches"][f"fused_ce_{k}"],
                      ms_llama=clla[f"{k}_ms"], plain_ms_llama=clla[f"{k}_plain_ms"],
                      bound_ms_llama=clla[f"{k}_bound_ms"], library_ms_llama=clla[lib])
+        entry["bitwise_repeat"] = all(r[f"{k}_bitwise_repeat"] for r in ce_rows)
         if k == "bwd":
-            entry.update(one_launch_computes="dx and dw",
-                         bitwise_repeat=all(r["bwd_bitwise_repeat"] for r in ce_rows))
+            entry["one_launch_computes"] = "dx and dw"
         kernels.append(entry)
     kernels += t5_kernel_entries(bias_rows, t5_runs)
     kernels += window_kernel_entries(window_rows, mistral_serve, mistral_train)

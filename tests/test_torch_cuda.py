@@ -386,6 +386,35 @@ def test_fused_ce_backward_chunks_are_bit_identical(cuda, monkeypatch, n, d, v, 
     assert _scaled(dw, r_dw) <= 2e-2
 
 
+# (n, v): the last 256-column tile holds one column (V = 256 k + 1), the
+# last 2048-column range of a forward block holds one (V = 8 * 256 + 1), and
+# a second range of 512 columns; N 3 and the prime 509
+@pytest.mark.parametrize("v", [769, 2049, 2560])
+@pytest.mark.parametrize("n", [3, 509])
+def test_fused_ce_forward_at_tile_and_range_edges(cuda, n, v):
+    """The forward against its plain version with labels at V - 1, 0 and
+    the first column of the second range (of the second tile when there is
+    one range): lse within 1e-3, each row's loss within 1e-3 relative (the
+    constants of ``test_fused_ce_kernels_match_plain``)."""
+    x, w, labels = _ce_inputs(cuda, n, 128, v, n + v)
+    labels[:3] = torch.tensor([v - 1, 0, 2048 if v > 2048 else 256], device=cuda)[:n]
+    loss, lse = tfc.fused_ce_fwd_cuda(x, w, labels)
+    torch.cuda.synchronize()
+    r_loss, r_lse = tfc.fused_ce_fwd_reference(x, w, labels)
+    torch.testing.assert_close(lse, r_lse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(loss, r_loss, atol=0, rtol=1e-3)
+
+
+def test_fused_ce_forward_is_bit_identical_across_launches(cuda):
+    """No atomics: each block owns its rows' partials of its vocab range,
+    and the combine merges the ranges in order."""
+    x, w, labels = _ce_inputs(cuda, 509, 128, 5000, 7)
+    first = tfc.fused_ce_fwd_cuda(x, w, labels)
+    second = tfc.fused_ce_fwd_cuda(x, w, labels)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_fused_loss_autograd_goes_through_the_kernels(cuda):
     x, w, labels = _ce_inputs(cuda, 64, 64, 300, 1)
     x.requires_grad_()
@@ -745,6 +774,54 @@ def test_flash_backward_runs_one_delta_for_both_kernels(cuda):
     assert tflash.flash_bwd_delta_cuda.launches == before + 3
     for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
+
+
+# (b, s, hq, hkv, d): one batch row, five, a ragged odd S (bf16 pairs of a
+# dbias row not 4-byte aligned), GQA, head_dim 64
+DBIAS_CASES = [(1, 200, 8, 2, 128), (5, 130, 4, 4, 64), (2, 777, 8, 1, 128),
+               (3, 64, 4, 2, 64)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("b,s,hq,hkv,d", DBIAS_CASES)
+def test_flash_dbias_matches_plain_and_repeats_bit_for_bit(cuda, b, s, hq, hkv, d, causal):
+    """The dbias kernel against ``flash_bias_grad_reference`` scaled by its
+    max within 2e-2 (``test_biased_kernels_match_plain``'s bound); two
+    launches the same bits (no atomics, the batch summed in order); with the
+    pre-pass's ``delta`` given the same bits as without it."""
+    g = torch.Generator(device=cuda).manual_seed(b * s + hq + d)
+    q, do = _rand(g, (b, s, hq, d), cuda), _rand(g, (b, s, hq, d), cuda)
+    k, v = _rand(g, (b, s, hkv, d), cuda), _rand(g, (b, s, hkv, d), cuda)
+    bias = _rand(g, (hq, s, s), cuda)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, causal=causal, bias=bias)
+    delta = tflash.flash_bwd_delta_cuda(o, do)
+    first = tflash.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal)
+    second = tflash.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal)
+    given = tflash.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal,
+                                        delta=delta)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, given)
+    ref = tflash.flash_bias_grad_reference(q, k, v, o, lse, do, causal=causal, bias=bias)
+    assert first.dtype == torch.bfloat16 and first.shape == bias.shape
+    assert _scaled_err(first, ref) <= 2e-2
+
+
+def test_flash_backward_with_a_bias_runs_one_delta(cuda):
+    """``flash_backward`` with a bias launches the pre-pass once and hands
+    its delta to dK/dV, dQ and dbias."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, do = _rand(g, (2, 130, 4, 128), cuda), _rand(g, (2, 130, 4, 128), cuda)
+    k, v = _rand(g, (2, 130, 4, 128), cuda), _rand(g, (2, 130, 4, 128), cuda)
+    bias = _rand(g, (4, 130, 130), cuda)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, causal=False, bias=bias)
+    before = [tflash.flash_bwd_delta_cuda.launches, tflash.flash_bwd_dbias_cuda.launches]
+    dbias = tflash.flash_backward(q, k, v, o, lse, do, causal=False, bias=bias)[3]
+    torch.cuda.synchronize()
+    assert [tflash.flash_bwd_delta_cuda.launches,
+            tflash.flash_bwd_dbias_cuda.launches] == [before[0] + 1, before[1] + 1]
+    assert torch.equal(dbias, tflash.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias,
+                                                          causal=False))
 
 
 @pytest.mark.parametrize("d", [64, 128])

@@ -79,6 +79,30 @@ def test_bias_forward_and_grads_match_jax(hq, hkv, s, causal):
     assert tflash.flash_bwd_dbias_cuda.launches == before
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hq,hkv,s", CASES)
+def test_backward_with_delta_given_matches_jax_dbias(hq, hkv, s, causal):
+    """``flash_backward`` handed the pre-pass's ``delta`` (as the backward
+    hands it to the dK/dV, dQ and dbias kernels) gives the same dbias, bit
+    for bit, as computing delta itself, and both hold against the Pallas
+    ``_flash_dbias`` (through ``jax.vjp``, interpret mode) at the gradient
+    tolerance."""
+    q, k, v, do, bias, _ = _inputs(hq, hkv, s, seed=3 * s + hq)
+
+    def jf(q_, k_, v_, b_):
+        return j_flash(q_, k_, v_, bias=b_, causal=causal, block_q=8, block_k=8,
+                       interpret=True)
+
+    jdbias = _jax_vjp(jf, (q, k, v, bias), do)[1][3]
+    tq, tk, tv, tdo, tb = (torch.from_numpy(x) for x in (q, k, v, do, bias))
+    o, lse = tflash.flash_attention_lse_reference(tq, tk, tv, causal=causal, bias=tb)
+    own = tflash.flash_backward(tq, tk, tv, o, lse, tdo, causal=causal, bias=tb)[3]
+    given = tflash.flash_backward(tq, tk, tv, o, lse, tdo, causal=causal, bias=tb,
+                                  delta=tflash.flash_bwd_delta(o, tdo))[3]
+    assert torch.equal(own, given)
+    np.testing.assert_allclose(given.numpy(), jdbias, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("bidir", [True, False], ids=["bidirectional", "unidirectional"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("hq,hkv,s", CASES)

@@ -1,34 +1,28 @@
-// Gradients of the flash-attention logit bias for Hopper (sm_90a): two
-// kernels, bf16 in, fp32 recompute and accumulation.
+// Gradient of the flash-attention bucket table for Hopper (sm_90a): bf16
+// in, fp32 recompute and accumulation.
 //
-// Replace the Pallas kernels torchdistx_tpu/ops/flash_attention.py
-// _bwd_dbias_kernel (launched by _flash_dbias) and _bwd_dtable_kernel
-// (_flash_dtable): the training path of T5, whose relative-position bias
-// is shared across the batch (and, per stack, across layers).  The bias
-// enters the logits unscaled, so its gradient is the logit-space one,
+// Replaces the Pallas kernel torchdistx_tpu/ops/flash_attention.py
+// _bwd_dtable_kernel (launched by _flash_dtable): the training path of T5
+// with the in-kernel bucket bias, whose relative-position table is shared
+// across the batch (and, per stack, across layers).  The bias enters the
+// logits unscaled, so its gradient is the logit-space one,
 //   dlogits = p * (dP - delta),  p = exp(q.k * scale + bias - lse),
 //   dP = dO V^T,  delta = rowsum(dO * O),
-// summed over the batch (dbias, (Hq, Sq, Skv) bf16) and further over every
-// (row, col) whose distance falls in one bucket (dtable, (Hq, buckets)).
+// summed over the batch and over every (row, col) whose distance falls in
+// one bucket: dtable, (Hq, buckets).  (The additive bias's gradient, dbias,
+// is flash_bwd.cu's Hopper kernel.)
 //
-// What bounds them on an H100: operations.  Each pair of each head and
-// batch row costs the two recomputed products Q.K^T and dO.V^T, 4 * D
-// flops, against 2 bytes of bias read and 2 of dbias written per pair per
-// head (not per batch row): at T5-3B's B 4, S 512, D 128 that is ~1000
-// flops a byte, right of the ridge point.  The design keeps every
-// intermediate out of device memory: a block owns one (64 x 64, head) tile
-// of the output, loops over the batch inside, recomputes both products with
-// WMMA 16x16x16 bf16 fragments (fp32 accumulators, shared-memory tiles as
-// in flash_bwd.cu), and keeps its 16 dlogits per thread in registers across
-// the batch.  dbias is then written once, in bf16, with no atomics: the
-// result is deterministic.  dtable folds the tile into its 127 distances
-// and those into bucket partials in shared memory, then adds one f32
-// atomic per (block, bucket) into an (Hq, buckets) f32 buffer the wrapper
-// zeroed (and casts to the table's dtype): the order of those atomics is
-// not fixed.  Causal tiles above the diagonal do no work (dbias writes
-// their zeros).  A third recompute of both products, beside dK/dV and dQ's:
-// folding this into the dK/dV kernel, which forms p * (dP - delta) already,
-// is later work.
+// What bounds it on an H100: bytes.  Each pair of each head and batch row
+// costs the two recomputed products Q.K^T and dO.V^T, 4 * D flops, against
+// the inputs read once.  The design keeps every intermediate out of device
+// memory: a block owns one (64 x 64, head) tile of the logit gradient,
+// loops over the batch inside, recomputes both products with WMMA
+// 16x16x16 bf16 fragments (fp32 accumulators, shared-memory tiles), keeps
+// its 16 dlogits per thread in registers across the batch, folds the tile
+// into its 127 distances and those into bucket partials in shared memory,
+// then adds one f32 atomic per (block, bucket) into an (Hq, buckets) f32
+// buffer the wrapper zeroed (and casts to the table's dtype): the order of
+// those atomics is not fixed.  Causal tiles above the diagonal do no work.
 //
 // Grid (ceil(S / 64), ceil(S / 64), Hq); 8 warps.  Layout as flash_bwd.cu;
 // Sq == Skv == S.
@@ -102,41 +96,6 @@ __device__ __forceinline__ void accumulate(
 
 template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ o,
-                       const bf16* __restrict__ dout, const float* __restrict__ lse,
-                       bf16* __restrict__ dbias, BiasArgs ba, int B, int S, int Hq,
-                       int Hkv, int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int q0 = blockIdx.x * BT;
-  const int k0 = blockIdx.y * BT;
-  const int h = blockIdx.z;
-  const int c = tile_col();
-  bf16* out = dbias + ((long long)h * S + q0) * S + k0;
-
-  if (causal && k0 > q0 + BT - 1) {  // above the diagonal: no pair is seen
-#pragma unroll
-    for (int j = 0; j < PER_THREAD; ++j) {
-      const int r = tile_row(j);
-      if (q0 + r < S && k0 + c < S) out[(long long)r * S + c] = __float2bfloat16(0.f);
-    }
-    return;
-  }
-  float bias[PER_THREAD], acc[PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j)
-    bias[j] = bias_at(ba, nullptr, h, S, S, q0 + tile_row(j), k0 + c, tile_row(j), c);
-  accumulate<D>(acc, bias, smem, q, k, v, o, dout, lse, B, S, Hq, Hkv, h, q0, k0,
-                causal, scale);
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int r = tile_row(j);
-    if (q0 + r < S && k0 + c < S) out[(long long)r * S + c] = __float2bfloat16(acc[j]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dtable_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
                         const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -182,70 +141,29 @@ flash_bwd_dtable_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool TABLE>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const float* lse, void* out,
-                   const BiasArgs& ba, int B, int S, int Hq, int Hkv, int causal,
-                   float scale, cudaStream_t stream) {
+                   const void* dout, const float* lse, float* dtable, const BiasArgs& ba,
+                   int B, int S, int Hq, int Hkv, int causal, float scale,
+                   cudaStream_t stream) {
   const size_t smem = BwdLayout<D>::bytes;
   dim3 grid((S + BT - 1) / BT, (S + BT - 1) / BT, Hq);
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  const bf16* oo = static_cast<const bf16*>(o);
-  const bf16* dd = static_cast<const bf16*>(dout);
-  cudaError_t err;
-  if constexpr (TABLE) {
-    err = cudaFuncSetAttribute(flash_bwd_dtable_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dtable_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
-        qq, kk, vv, oo, dd, lse, static_cast<float*>(out), ba, B, S, Hq, Hkv,
-        causal, scale);
-  } else {
-    err = cudaFuncSetAttribute(flash_bwd_dbias_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dbias_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
-        qq, kk, vv, oo, dd, lse, static_cast<bf16*>(out), ba, B, S, Hq, Hkv,
-        causal, scale);
-  }
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dtable_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dtable_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, dtable, ba, B, S, Hq,
+      Hkv, causal, scale);
   return cudaGetLastError();
-}
-
-template <bool TABLE>
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const void* lse, void* out, const BiasArgs& ba,
-             int B, int S, int Hq, int Hkv, int D, int causal, float scale,
-             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  if (bad_shape(B, S, Hq, Hkv)) return (int)cudaErrorInvalidValue;
-  if (D == 128)
-    return (int)launch<128, TABLE>(q, k, v, o, dout, l, out, ba, B, S, Hq, Hkv, causal, scale, st);
-  if (D == 64)
-    return (int)launch<64, TABLE>(q, k, v, o, dout, l, out, ba, B, S, Hq, Hkv, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Each returns cudaGetLastError() after the launch (0 on success); the
-// Python wrappers raise on anything else.  Inputs as flash_bwd.cu's (the
-// window must be off: it excludes a bias); the dbias kernel needs the bias and writes (Hq, S, S) bf16, the dtable
-// kernel needs the table and ids and adds into (Hq, buckets) f32.
-extern "C" int tdx_flash_bwd_dbias_bf16(const void* q, const void* k, const void* v,
-                                        const void* o, const void* dout,
-                                        const void* lse, void* dbias,
-                                        const void* bias, const void* table,
-                                        const void* ids, int buckets, int B, int S,
-                                        int Hq, int Hkv, int D, int causal,
-                                        int window, float scale, void* stream) {
-  if (bias == nullptr || table != nullptr || window > 0) return (int)cudaErrorInvalidValue;
-  return dispatch<false>(q, k, v, o, dout, lse, dbias, bias_args(bias, nullptr, nullptr, 0),
-                         B, S, Hq, Hkv, D, causal, scale, stream);
-}
-
+// Returns cudaGetLastError() after the launch (0 on success); the Python
+// wrapper raises on anything else.  Inputs as flash_bwd.cu's (the window
+// must be off: it excludes a bias); it needs the table and ids and adds
+// into (Hq, buckets) f32.
 extern "C" int tdx_flash_bwd_dtable_bf16(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout,
                                          const void* lse, void* dtable,
@@ -254,8 +172,14 @@ extern "C" int tdx_flash_bwd_dtable_bf16(const void* q, const void* k, const voi
                                          int Hq, int Hkv, int D, int causal,
                                          int window, float scale, void* stream) {
   if (table == nullptr || ids == nullptr || bias != nullptr || buckets < 1 ||
-      buckets > MAX_BUCKETS || window > 0)
+      buckets > MAX_BUCKETS || window > 0 || bad_shape(B, S, Hq, Hkv) ||
+      (D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
-  return dispatch<true>(q, k, v, o, dout, lse, dtable, bias_args(nullptr, table, ids, buckets),
-                        B, S, Hq, Hkv, D, causal, scale, stream);
+  const BiasArgs ba = bias_args(nullptr, table, ids, buckets);
+  const float* l = static_cast<const float*>(lse);
+  float* out = static_cast<float*>(dtable);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch<128>(q, k, v, o, dout, l, out, ba, B, S, Hq, Hkv, causal, scale, st);
+  return (int)launch<64>(q, k, v, o, dout, l, out, ba, B, S, Hq, Hkv, causal, scale, st);
 }

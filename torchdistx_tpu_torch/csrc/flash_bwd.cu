@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): the dK/dV kernel, its
-// delta pre-pass and the dQ kernel; bf16 in, bf16 or f32 out, f32
-// recompute and accumulation.
+// delta pre-pass, the dQ kernel and the dbias kernel; bf16 in, bf16 or f32
+// out, f32 recompute and accumulation.
 //
 // Replaces the Pallas kernels torchdistx_tpu/ops/flash_attention.py
 // _bwd_dkv_kernel (K/V-stationary: dK, dV) and _bwd_dq_kernel
@@ -8,8 +8,9 @@
 // causal (the Llama and GPT-2 training paths, T5's decoder) or not (T5's
 // encoder), with no bias, an additive bias or T5's bucket table
 // (flash_common.cuh), or with the sliding window (Mistral; causal, no
-// bias); D 64 and 128; GQA.  The gradient of the bias itself is
-// flash_bias_bwd.cu's.
+// bias); D 64 and 128; GQA.  And _bwd_dbias_kernel (launched by
+// _flash_dbias): the gradient of T5's additive bias.  The bucket table's
+// gradient is flash_bias_bwd.cu's.
 //
 // Both recompute the probabilities from the forward's saved row
 // log-sum-exp, p = exp(q.k * scale + bias - lse) (the lse includes the
@@ -65,6 +66,25 @@
 // block owns its rows, so dQ has no atomics and is the same bits on every
 // launch.  The additive bias and the bucket biases are staged per
 // warpgroup as for dK/dV.
+//
+// dbias, the dQ design with the loop turned to the batch: the bias is
+// shared across the batch, so dbias[h] = sum_b p_b * (dP_b - delta_b), with
+// no scale (the bias enters the logits unscaled).  A block owns one (128
+// query rows x 64 keys, head) tile of it, 64 rows per consumer warpgroup,
+// and loops over the batch inside, b = 0..B-1: the producer streams Q_b,
+// dO_b (rows q0.., head h), K_b and V_b (rows k0.., head h / n_rep) by TMA
+// through a 2-stage ring (96 KB a stage at D 128).  The tile's biases are
+// read once before the loop into registers (log2 units); per b a consumer
+// runs S = Q K^T and dP = dO V^T as dQ does, forms P in registers, frees
+// the stage once both products are done and adds P (dP - delta_b) into 32
+// f32 registers.  delta_b comes from the pre-pass (O is not read).  Each
+// element is stored once in bf16 after the loop: no atomics, the batch sum
+// in a fixed order, the same bits on every launch.  A causal tile wholly
+// above the diagonal loads nothing and stores zeros.  What bounds it:
+// bytes (the bias read and dbias written once, 2 bytes a pair each, and
+// the inputs), where the recomputed products cost 4 D flops a pair and
+// batch row; its blocks read Q and dO once per key tile and K and V once
+// per query tile, from L2.
 //
 // Output type: bf16, the gradients of one attention call; or f32 (the JAX
 // kernels' dq_dtype / part_dtype = float32), which ring attention's
@@ -697,6 +717,206 @@ cudaError_t launch_dq_d(const CUtensorMap* maps, const float* lse, const float* 
 
 }  // namespace hop
 
+// ---- dbias ------------------------------------------------------------------------
+
+namespace hop {
+
+template <int D>
+struct DbSmem {
+  static constexpr int Q_TILE = DQ_BQ * D * 2;
+  static constexpr int KV_TILE = DQ_BK * D * 2;
+  static constexpr int q_off = 0;  // within a stage: Q_b, dO_b, K_b, V_b
+  static constexpr int do_off = Q_TILE;
+  static constexpr int k_off = 2 * Q_TILE;
+  static constexpr int v_off = k_off + KV_TILE;
+  static constexpr int STAGE = v_off + KV_TILE;  // 96 KB at D 128
+  static constexpr int bar_off = STAGES * STAGE;
+  static constexpr int bytes = bar_off + 2 * STAGES * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dbias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dbias, const bf16* __restrict__ bias, int B, int S,
+                       int Hq, int Hkv, int causal, float scale_log2) {
+  using L = DbSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* empty = full + STAGES;
+
+  const int k0 = blockIdx.x * DQ_BK;
+  const int q0 = blockIdx.y * DQ_BQ;
+  const int h = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  // a causal tile wholly above the diagonal: zeros, nothing loaded
+  const int nb = causal && k0 > q0 + DQ_BQ - 1 ? 0 : B;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread streams the batch rows through the ring -------
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      for (int b = 0; b < nb; ++b) {
+        const int st = b % STAGES;
+        unsigned char* base = smem + st * L::STAGE;
+        bar_wait(empty + st, ((b / STAGES) & 1) ^ 1);
+        bar_expect_tx(full + st, L::STAGE);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load(base + L::q_off + p * PANEL_DQ, &tq, full + st, p * 64, h, q0, b);
+          tma_load(base + L::do_off + p * PANEL_DQ, &tdo, full + st, p * 64, h, q0, b);
+          tma_load(base + L::k_off + p * PANEL_K, &tk, full + st, p * 64, hk, k0, b);
+          tma_load(base + L::v_off + p * PANEL_K, &tv, full + st, p * 64, hk, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows x 64 keys each ------------------------------------
+  reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int qw = q0 + 64 * wg;                        // this warpgroup's first query row
+  const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // the thread's rows: r0 and r0 + 8
+  const int cq = 2 * (tid % 4);                      // its columns in each 8-column chunk
+  // a warpgroup whose rows see nothing of the tile (past S, or all above
+  // the diagonal) computes nothing and stores zeros
+  const bool idle = qw >= S || (causal && k0 > qw + 63);
+  const bool pairs = S % 2 == 0;  // bf16 pairs of a row are 4-byte aligned
+
+  // the tile's bias in log2 units, batch-shared: read once
+  float bias2[DQ_BK / 2];
+#pragma unroll
+  for (int i = 0; i < DQ_BK / 2; i += 2) {
+    const int qi = qw + r0 + 8 * ((i / 2) % 2);
+    const int kj = k0 + 8 * (i / 4) + cq;
+    float2 bv = make_float2(0.f, 0.f);
+    const bf16* src = bias + ((long long)h * S + qi) * S + kj;
+    if (!idle && qi < S) {
+      if (pairs && kj + 1 < S) {
+        bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+      } else {
+        if (kj < S) bv.x = __bfloat162float(src[0]);
+        if (kj + 1 < S) bv.y = __bfloat162float(src[1]);
+      }
+    }
+    bias2[i] = bv.x * LOG2E;
+    bias2[i + 1] = bv.y * LOG2E;
+  }
+  // causal, a tile the diagonal crosses: row qi sees the columns c < hi
+  // (less the thread's cq); key columns past S are never stored and need
+  // no mask
+  const bool crosses = causal && k0 + DQ_BK - 1 > qw;
+  int hi[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) hi[j] = qw + r0 + 8 * j + 1 - k0 - cq;
+
+  float acc[DQ_BK / 2];
+#pragma unroll
+  for (int i = 0; i < DQ_BK / 2; ++i) acc[i] = 0.f;
+
+  for (int b = 0; b < nb; ++b) {
+    const int st = b % STAGES;
+    // the batch row's lse (log2 units) and delta of the thread's rows,
+    // read while its tiles land
+    float lse2[2], dl[2];
+    const long long srow = ((long long)b * Hq + h) * S;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int qi = qw + r0 + 8 * j;
+      lse2[j] = qi < S ? lse[srow + qi] * LOG2E : 0.f;
+      dl[j] = qi < S ? delta[srow + qi] : 0.f;
+    }
+    bar_wait(full + st, (b / STAGES) & 1);
+    if (idle) {
+      bar_arrive(empty + st);
+      continue;
+    }
+    const unsigned char* base = smem + st * L::STAGE;
+    const uint64_t dqa = desc_sw128(base + L::q_off + wg * 64 * 128, 16, 1024);
+    const uint64_t doa = desc_sw128(base + L::do_off + wg * 64 * 128, 16, 1024);
+    const uint64_t dkk = desc_sw128(base + L::k_off, 16, 1024);
+    const uint64_t dvk = desc_sw128(base + L::v_off, 16, 1024);
+
+    // S = Q K^T and dP = dO V^T, in flight together
+    float s[DQ_BK / 2], dp[DQ_BK / 2];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_add(dqa, (kk / 4) * PANEL_DQ + (kk % 4) * 32),
+                   desc_add(dkk, (kk / 4) * PANEL_K + (kk % 4) * 32), kk > 0);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_add(doa, (kk / 4) * PANEL_DQ + (kk % 4) * 32),
+                   desc_add(dvk, (kk / 4) * PANEL_K + (kk % 4) * 32), kk > 0);
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(s);
+
+    // P = exp2(S scale log2 e + bias log2 e - lse log2 e)
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i)
+      s[i] = exp2_ftz(fmaf(s[i], scale_log2, bias2[i]) - lse2[(i / 2) % 2]);
+    if (crosses) {
+#pragma unroll
+      for (int i = 0; i < DQ_BK / 2; ++i)
+        if (8 * (i / 4) + (i % 2) >= hi[(i / 2) % 2]) s[i] = 0.f;
+    }
+    wg_wait<0>();
+    fence_regs(dp);
+    bar_arrive(empty + st);  // both products have read the stage
+
+    // the logit gradient, unscaled (the bias enters the logits unscaled)
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i)
+      acc[i] = fmaf(s[i], dp[i] - dl[(i / 2) % 2], acc[i]);
+  }
+
+  // each element stored once, in bf16
+#pragma unroll
+  for (int i = 0; i < DQ_BK / 2; i += 2) {
+    const int qi = qw + r0 + 8 * ((i / 2) % 2);
+    const int kj = k0 + 8 * (i / 4) + cq;
+    if (qi >= S) continue;
+    bf16* dst = dbias + ((long long)h * S + qi) * S + kj;
+    if (pairs && kj + 1 < S) {
+      put2(dst, acc[i], acc[i + 1]);
+    } else {
+      if (kj < S) dst[0] = __float2bfloat16(acc[i]);
+      if (kj + 1 < S) dst[1] = __float2bfloat16(acc[i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dbias(const CUtensorMap* maps, const float* lse, const float* delta,
+                         void* dbias, const bf16* bias, int B, int S, int Hq, int Hkv,
+                         int causal, float scale, cudaStream_t stream) {
+  const int smem = DbSmem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dbias_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + DQ_BK - 1) / DQ_BK, (S + DQ_BQ - 1) / DQ_BQ, Hq);
+  flash_bwd_dbias_kernel<D><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(dbias), bias, B, S,
+      Hq, Hkv, causal, (float)(scale * 1.4426950408889634));
+  return cudaGetLastError();
+}
+
+}  // namespace hop
+
 bool bad_args(const void* bias, const void* table, const void* ids, int buckets,
               int causal, int window) {
   if (window > 0 && (!causal || bias != nullptr || table != nullptr)) return true;
@@ -820,4 +1040,23 @@ extern "C" int tdx_flash_bwd_dq_bf16(TDX_DQ_ARGS) {
 extern "C" int tdx_flash_bwd_dq_f32(TDX_DQ_ARGS) {
   return dq<float>(q, k, v, dout, lse, delta, dqo, bias, table, ids, buckets, B, S, Hq, Hkv,
                    D, causal, window, scale, strides, stream);
+}
+
+// dbias (Hq, S, S) bf16 = the batch sum of p * (dP - delta) (no scale: the
+// bias enters the logits unscaled), from q, k, v, dO, lse, the pre-pass's
+// delta and the additive bias; the table and the window are refused.
+extern "C" int tdx_flash_bwd_dbias_bf16(TDX_DQ_ARGS) {
+  if (bias == nullptr || table != nullptr || window > 0 || bad_shape(B, S, Hq, Hkv) ||
+      (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (!bwd_maps(maps, q, k, v, dout, B, S, Hq, Hkv, D, strides, hop::DQ_BQ, hop::DQ_BK))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const bf16* bb = static_cast<const bf16*>(bias);
+  if (D == 128)
+    return (int)hop::launch_dbias<128>(maps, l, dl, dqo, bb, B, S, Hq, Hkv, causal, scale, st);
+  return (int)hop::launch_dbias<64>(maps, l, dl, dqo, bb, B, S, Hq, Hkv, causal, scale, st);
 }

@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_bias_bwd.cu): the logit bias of a tile, the mask and the tile
 // pruning of the causal and sliding-window variants, and the 64-row WMMA
-// tile helpers of the bias-gradient kernels (flash_bias_bwd.cu).
+// tile helpers of the bucket-table gradient kernel (flash_bias_bwd.cu).
 //
 // Bias.  The logits of query row i and key column j get, in f32 and before
 // any mask, either

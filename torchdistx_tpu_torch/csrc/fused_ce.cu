@@ -17,17 +17,22 @@
 // product (2NVD flops) against inputs read once (X and W, ~140 MB at the
 // llama_1b and GPT-2 shapes), far right of the card's ridge point.
 //
-// Forward: the (N, V) logits never reach device memory.  Every 128 x 128
-// logits tile lives in shared memory only, built through warp-level WMMA
-// 16x16x16 bf16 fragments with fp32 accumulators fed by a three-stage
-// cp.async pipeline of 64-wide K chunks; a block takes 128 tokens and a
-// range of 16 vocab tiles (2048 columns) and folds each tile into per-row
-// running (max, sum-exp) and the label logit in registers.  Partial (max,
-// sum-exp, z_y) per vocab range go to a small workspace, and a second
-// kernel combines them per token (an exact log-sum-exp merge).  Shared
-// memory: the three stages of X and W chunks (3 x 2 x 18,432 bytes) and,
-// aliased once they are consumed, the f32 logits tile (128 x 132 x 4); two
-// blocks per SM.
+// Forward: the (N, V) logits never reach device memory.  It is a fourth
+// pass, STATS, of the kernel whose other three are the backward's
+// (fused_ce_kernel): the LOGITS pass's mainloop (X and W rows K-major,
+// 128 x 256 logits tiles in registers, below) with an
+// epilogue that folds each tile into per-token running (max, sum-exp) and
+// the label logit in registers.  A block takes 128 tokens and a range of
+// FWD_TILES consecutive 256-column vocab tiles (2048 columns); its producer
+// streams the k-blocks of every tile of the range through the ring without
+// a break, so the next tile's loads overlap this tile's epilogue.  Each
+// thread holds two token rows x 64 columns of a tile and reduces them over
+// the four threads of its quad with two shuffles.  Partial (max, sum-exp,
+// z_y) per vocab range go to a small workspace, and a second kernel merges
+// them per token in range order (an exact log-sum-exp merge, the same bits
+// on every launch).  The forward's logits are the same wgmma products, in
+// the same k order and tiling, as the backward's LOGITS pass, so the
+// backward's exp(z - lse) is formed from the lse of the same numbers.
 //
 // Backward: 6NVD flops in three passes over each chunk of the vocab, where
 // the TPU kernels pay 8NVD (each of dX and dW recomputes the logits).  The
@@ -67,177 +72,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// ---- the forward ---------------------------------------------------------------
-
-constexpr int BM = 128;          // rows of a logits tile (tokens)
-constexpr int BN = 128;          // columns of a logits tile (vocab entries)
-constexpr int BK = 64;           // depth of one staged chunk (hidden dim)
-constexpr int STAGES = 3;        // cp.async pipeline depth of the logits tiles
-constexpr int LDK = BK + 8;      // bf16 row stride of a staged chunk
-constexpr int LDS = BN + 4;      // f32 row stride of the logits tile
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int FWD_TILES = 16;    // vocab tiles per forward block
-
-constexpr size_t CHUNK_BYTES = size_t(BM) * LDK * 2;
-constexpr size_t STAGE_BYTES = 2 * CHUNK_BYTES;  // an X chunk and a W chunk
-constexpr size_t REGION_BYTES = STAGES * STAGE_BYTES;
-constexpr size_t FWD_SMEM = REGION_BYTES;
-static_assert(size_t(BM) * LDS * 4 <= REGION_BYTES, "the logits tile exceeds the region");
-static_assert(BM == BN, "one loader for both operands");
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-}
-
-// Stage rows [0, ROWS) x columns [k0, k0 + BK) of a row-major (*, D) bf16
-// matrix whose row 0 is `src` into dst (row stride LDK); rows >= valid and
-// columns >= D are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int valid, int D, int k0) {
-  constexpr int CPR = BK / 8;
-  // not unrolled: under the forward's two-block register cap the unrolled
-  // loop's addresses spill
-#pragma unroll 1
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = r < valid && k0 + c < D;
-    // a 32-bit offset: r < 128 rows of at most 2^24 columns
-    cp_async16(dst + r * LDK + c, src + (ok ? r * D + k0 + c : 0), ok);
-  }
-}
-
-// The f32 logits tile S (BM x BN, row stride LDS, at `region`) = X[0:BM] .
-// W[0:BN]^T over the full depth D, through a STAGES-deep cp.async pipeline
-// of BK-wide chunks.  Rows of x past x_rows and of w past w_rows read as
-// zeros.  On return S is complete and visible to the block.
-__device__ void logits_tile(unsigned char* region, const bf16* x, int x_rows,
-                            const bf16* w, int w_rows, int D) {
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps, each 32 x 64
-  Acc acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  __syncthreads();  // the region (the previous tile's S) is free
-  const int nk = (D + BK - 1) / BK;
-  auto stage_a = [&](int s) { return reinterpret_cast<bf16*>(region + s * STAGE_BYTES); };
-  auto stage_b = [&](int s) {
-    return reinterpret_cast<bf16*>(region + s * STAGE_BYTES + CHUNK_BYTES);
-  };
-  // one commit group per chunk, empty past the end, so that waiting for
-  // all but STAGES - 2 groups always means "chunk kt has landed"
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) {
-      load_chunk<BM>(stage_a(s), x, x_rows, D, s * BK);
-      load_chunk<BN>(stage_b(s), w, w_rows, D, s * BK);
-    }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait_stages();
-    __syncthreads();  // chunk kt is visible; chunk kt - 1 is consumed
-    const int next = kt + STAGES - 1;
-    if (next < nk) {
-      load_chunk<BM>(stage_a(next % STAGES), x, x_rows, D, next * BK);
-      load_chunk<BN>(stage_b(next % STAGES), w, w_rows, D, next * BK);
-    }
-    cp_async_commit();
-    const bf16* A = stage_a(kt % STAGES);
-    const bf16* B = stage_b(kt % STAGES);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], A + (wm * 32 + i * 16) * LDK + kk * 16, LDK);
-      // one B fragment live at a time (fewer registers)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, B + (wn * 64 + j * 16) * LDK + kk * 16, LDK);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();  // every stage is consumed before S overwrites them
-  float* S = reinterpret_cast<float*>(region);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(S + (wm * 32 + i * 16) * LDS + wn * 64 + j * 16, acc[i][j],
-                              LDS, wmma::mem_row_major);
-  __syncthreads();
-}
-
-
-// Grid (ceil(N / BM), ceil(V / (FWD_TILES * BN))).  Two threads per token
-// row, each over half the tile's columns.  Two blocks per SM (ptxas caps
-// the kernel at 128 registers): more latency hidden than by one block of
-// 180 registers.
-__global__ void __launch_bounds__(NTHREADS, 2)
-fused_ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const int* __restrict__ labels, float* __restrict__ m_part,
-                    float* __restrict__ l_part, float* __restrict__ zy_part, int N, int V,
-                    int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int t0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
-  const int rows = min(BM, N - t0);
-  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-  const int label = r < rows ? labels[t0 + r] : -1;
-  float m_run = -1e30f, l_run = 0.f, zy = 0.f;
-  const int v_end = min((split + 1) * FWD_TILES * BN, V);
-  for (int v0 = split * FWD_TILES * BN; v0 < v_end; v0 += BN) {
-    const int cols = min(BN, V - v0);
-    logits_tile(smem, x + (long long)t0 * D, rows, w + (long long)v0 * D, cols, D);
-    const float* S = reinterpret_cast<const float*>(smem) + r * LDS + half * 64;
-    const int c_end = min(64, cols - half * 64);  // <= 0: nothing in this half
-    float mx = -1e30f;
-    for (int c = 0; c < c_end; ++c) mx = fmaxf(mx, S[c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    float sum = 0.f;
-    for (int c = 0; c < c_end; ++c) sum += expf(S[c] - mx);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float m_new = fmaxf(m_run, mx);
-    l_run = l_run * expf(m_run - m_new) + sum * expf(mx - m_new);
-    m_run = m_new;
-    const int lc = label - v0 - half * 64;
-    if (lc >= 0 && lc < c_end) zy += S[lc];
-  }
-  zy += __shfl_xor_sync(0xffffffffu, zy, 1);
-  if (half == 0 && r < rows) {
-    const long long o = (long long)split * N + t0 + r;
-    m_part[o] = m_run;
-    l_part[o] = l_run;
-    zy_part[o] = zy;
-  }
-}
+// ---- the forward's combine ------------------------------------------------------
 
 // One thread per token: merge the vocab ranges' (max, sum-exp, z_y).
 __global__ void fused_ce_combine_kernel(const float* __restrict__ m_part,
@@ -260,9 +103,9 @@ __global__ void fused_ce_combine_kernel(const float* __restrict__ m_part,
   loss[i] = out - zy;
 }
 
-// ---- the backward ----------------------------------------------------------------
+// ---- the wgmma passes: the forward's STATS, the backward's LOGITS, DW, DX ----------
 
-namespace bwd {
+namespace hop {
 
 using namespace tdx_hopper;
 
@@ -276,8 +119,10 @@ constexpr int A_BYTES = TM * TK * 2;   // a stage's A tile: two panels
 constexpr int STAGE_BYTES = A_BYTES + TN * TK * 2;
 constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // 197,696
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int FWD_TILES = 8;  // 256-column vocab tiles of a forward block
+constexpr float NEG = -1e30f;  // a logit out of the max and the sum: exp2 of it is 0
 
-enum Pass { LOGITS = 0, DW = 1, DX = 2 };
+enum Pass { LOGITS = 0, DW = 1, DX = 2, STATS = 3 };
 
 // The map of a row-major (rows, cols) bf16 matrix, boxes of 64 columns x
 // box_rows rows, 128-byte swizzled; what lies outside reads as zeros.
@@ -337,30 +182,47 @@ struct Params {
   const int* labels;
   const float* g;
   bf16* out;   // LOGITS: the panel; DW: the chunk's rows of dW; DX: dX
-  float* ws;   // DX: the f32 (N, D) sum over the chunks so far
+  float* ws;   // DX: the f32 (N, D) sum over the chunks so far; STATS: the
+               // (3, n_split, N) partials (max, sum-exp, label logit)
   int N, D;
-  int v0, cw;  // the chunk's first vocab row and its width (<= ld)
+  int v0, cw;  // the chunk's first vocab row and its width (<= ld); STATS: 0, V
   int ld;      // the panel's row stride
-  int nk;      // k-blocks of the pass
+  int nk;      // k-blocks of a tile
   int first, last;
   float inv_n;
 };
 
-// LOGITS: rows are tokens, columns the chunk's vocab, grid (row tiles,
-// column tiles): the blocks in flight share W's tiles and read X, which L2
-// holds (21 MB at GPT-2-large's N 8192), where llama_1b's W (131 MB) would
-// be read from memory once per row tile.  DW: rows the chunk's vocab,
-// columns D; DX: rows tokens, columns D; grid (column tiles, row tiles).
+// The quad's (threads 4r .. 4r + 3 of a warp, which hold one row's 64
+// columns of a tile between them) max or sum of v.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// LOGITS and STATS: rows are tokens, columns the vocab, grid (row tiles,
+// column tiles or ranges): the blocks in flight share W's tiles and read X,
+// which L2 holds (21 MB at GPT-2-large's N 8192), where llama_1b's W (131
+// MB) would be read from memory once per row tile.  A STATS block walks the
+// FWD_TILES tiles of its range, the ring running on across tiles.  DW: rows
+// the chunk's vocab, columns D; DX: rows tokens, columns D; grid (column
+// tiles, row tiles).
 template <int PASS>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_ce_bwd_kernel(const __grid_constant__ CUtensorMap ta,
-                    const __grid_constant__ CUtensorMap tb, const Params p) {
+fused_ce_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                const Params p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
-  const int n0 = (PASS == LOGITS ? blockIdx.y : blockIdx.x) * TN;
-  const int m0 = (PASS == LOGITS ? blockIdx.x : blockIdx.y) * TM;
+  constexpr bool ROWS_X = PASS == LOGITS || PASS == STATS;  // token rows, vocab columns
+  const int m0 = (ROWS_X ? blockIdx.x : blockIdx.y) * TM;
+  // the first column of the block's first tile, and its tiles
+  const int n_begin = (ROWS_X ? blockIdx.y : blockIdx.x) * TN * (PASS == STATS ? FWD_TILES : 1);
+  const int ntile = PASS == STATS ? min(FWD_TILES, (p.cw - n_begin + TN - 1) / TN) : 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -373,28 +235,31 @@ fused_ce_bwd_kernel(const __grid_constant__ CUtensorMap ta,
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // ---- producer: one thread keeps the ring full ----------------------------
+    // ---- producer: one thread keeps the ring full, across tiles --------------
     reg_dealloc<24>();
     if (threadIdx.x == 256) {
-      for (int kb = 0; kb < p.nk; ++kb) {
-        const int st = kb % STAGES;
-        const int k0 = kb * TK;
-        unsigned char* a = smem + st * STAGE_BYTES;
-        unsigned char* b = a + A_BYTES;
-        bar_wait(empty + st, ((kb / STAGES) & 1) ^ 1);
-        bar_expect_tx(full + st, STAGE_BYTES);
-        if (PASS == LOGITS) {
-          tma_load_2d(a, &ta, full + st, k0, m0);          // X rows m0.., K-major
-          tma_load_2d(b, &tb, full + st, k0, p.v0 + n0);   // W rows v0 + n0.., K-major
-        } else if (PASS == DW) {
-          for (int h = 0; h < 2; ++h)  // dP, MN-major
-            tma_load_2d(a + h * PANEL, &ta, full + st, m0 + 64 * h, k0);
-          for (int h = 0; h < TN / 64; ++h)  // X, MN-major
-            tma_load_2d(b + h * PANEL, &tb, full + st, n0 + 64 * h, k0);
-        } else {
-          tma_load_2d(a, &ta, full + st, k0, m0);  // dP rows m0.., K-major
-          for (int h = 0; h < TN / 64; ++h)        // W rows v0 + k0.., MN-major
-            tma_load_2d(b + h * PANEL, &tb, full + st, n0 + 64 * h, p.v0 + k0);
+      for (int t = 0, it = 0; t < ntile; ++t) {
+        const int n0 = n_begin + t * TN;
+        for (int kb = 0; kb < p.nk; ++kb, ++it) {
+          const int st = it % STAGES;
+          const int k0 = kb * TK;
+          unsigned char* a = smem + st * STAGE_BYTES;
+          unsigned char* b = a + A_BYTES;
+          bar_wait(empty + st, ((it / STAGES) & 1) ^ 1);
+          bar_expect_tx(full + st, STAGE_BYTES);
+          if (ROWS_X) {
+            tma_load_2d(a, &ta, full + st, k0, m0);          // X rows m0.., K-major
+            tma_load_2d(b, &tb, full + st, k0, p.v0 + n0);   // W rows v0 + n0.., K-major
+          } else if (PASS == DW) {
+            for (int h = 0; h < 2; ++h)  // dP, MN-major
+              tma_load_2d(a + h * PANEL, &ta, full + st, m0 + 64 * h, k0);
+            for (int h = 0; h < TN / 64; ++h)  // X, MN-major
+              tma_load_2d(b + h * PANEL, &tb, full + st, n0 + 64 * h, k0);
+          } else {
+            tma_load_2d(a, &ta, full + st, k0, m0);  // dP rows m0.., K-major
+            for (int h = 0; h < TN / 64; ++h)        // W rows v0 + k0.., MN-major
+              tma_load_2d(b + h * PANEL, &tb, full + st, n0 + 64 * h, p.v0 + k0);
+          }
         }
       }
     }
@@ -406,78 +271,151 @@ fused_ce_bwd_kernel(const __grid_constant__ CUtensorMap ta,
   const int tid = threadIdx.x % 128;
   const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // the thread's rows: r0 and r0 + 8
   const int cq = 2 * (tid % 4);                      // its columns in each 8-column chunk
-  float acc[TN / 2];
-#pragma unroll
-  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
-
-  for (int kb = 0; kb < p.nk; ++kb) {
-    const int st = kb % STAGES;
-    const unsigned char* a = smem + st * STAGE_BYTES;
-    const unsigned char* b = a + A_BYTES;
-    // K-major: the warpgroup's 64 rows (A) or all 256 (B), a 16-deep step
-    // +32 bytes; MN-major: the warpgroup's 64-column panel (A) or all four
-    // (B), a 16-deep step +2048 bytes
-    const uint64_t da = PASS == DW ? desc_sw128(a + wg * PANEL, PANEL, 1024)
-                                   : desc_sw128(a + wg * 64 * 128, 16, 1024);
-    const uint64_t db = PASS == LOGITS ? desc_sw128(b, 16, 1024) : desc_sw128(b, PANEL, 1024);
-    constexpr uint32_t STEP_A = PASS == DW ? 2048 : 32;
-    constexpr uint32_t STEP_B = PASS == LOGITS ? 32 : 2048;
-    bar_wait(full + st, (kb / STAGES) & 1);
-    fence_regs(acc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk)
-      mma<PASS == DW, PASS != LOGITS>(acc, desc_add(da, kk * STEP_A), desc_add(db, kk * STEP_B));
-    wg_commit();
-    wg_wait<1>();
-    fence_regs(acc);
-    // the previous k-block's products are done: its stage is free
-    if (kb > 0) bar_arrive(empty + (kb - 1) % STAGES);
-  }
-  wg_wait<0>();
-  fence_regs(acc);
-
-  // acc[4 j + 2 h + e]: row r0 + 8 h, column 8 j + cq + e of the warpgroup's tile
-  if constexpr (PASS == LOGITS) {
-    const int lim = p.cw - n0;  // the tile's columns inside the chunk (and V)
+  // STATS: the running (max, sum-exp, label logit) of the thread's two rows
+  // over the range; sum-exp relative to the max, the label logit held by the
+  // one thread of the quad whose column it is (0 in the others)
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f}, zy[2] = {0.f, 0.f};
+  int label[2] = {-1, -1};
+  if constexpr (PASS == STATS) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = m0 + 64 * wg + r0 + 8 * h;
-      if (t >= p.N) continue;
-      const float lse2 = p.lse[t] * LOG2E;
-      const int lab = p.labels[t] - p.v0 - n0;
-      bf16* row = p.out + (long long)t * p.ld + n0;
+      if (t < p.N) label[h] = p.labels[t];
+    }
+  }
+  float acc[TN / 2];
+
+  for (int t = 0, it = 0; t < ntile; ++t) {
+    const int n0 = n_begin + t * TN;
 #pragma unroll
-      for (int j = 0; j < TN / 8; ++j) {
-        const int c = 8 * j + cq;
-        float e0 = c < lim ? exp2_ftz(fmaf(acc[4 * j + 2 * h], LOG2E, -lse2)) : 0.f;
-        float e1 = c + 1 < lim ? exp2_ftz(fmaf(acc[4 * j + 2 * h + 1], LOG2E, -lse2)) : 0.f;
-        if (c == lab && c < lim) e0 -= 1.f;
-        if (c + 1 == lab && c + 1 < lim) e1 -= 1.f;
-        *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(e0, e1);
+    for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+    for (int kb = 0; kb < p.nk; ++kb, ++it) {
+      const int st = it % STAGES;
+      const unsigned char* a = smem + st * STAGE_BYTES;
+      const unsigned char* b = a + A_BYTES;
+      // K-major: the warpgroup's 64 rows (A) or all 256 (B), a 16-deep step
+      // +32 bytes; MN-major: the warpgroup's 64-column panel (A) or all four
+      // (B), a 16-deep step +2048 bytes
+      const uint64_t da = PASS == DW ? desc_sw128(a + wg * PANEL, PANEL, 1024)
+                                     : desc_sw128(a + wg * 64 * 128, 16, 1024);
+      const uint64_t db = ROWS_X ? desc_sw128(b, 16, 1024) : desc_sw128(b, PANEL, 1024);
+      constexpr uint32_t STEP_A = PASS == DW ? 2048 : 32;
+      constexpr uint32_t STEP_B = ROWS_X ? 32 : 2048;
+      bar_wait(full + st, (it / STAGES) & 1);
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        mma<PASS == DW, !ROWS_X>(acc, desc_add(da, kk * STEP_A), desc_add(db, kk * STEP_B));
+      wg_commit();
+      wg_wait<1>();
+      fence_regs(acc);
+      // the previous k-block's products are done: its stage is free
+      if (kb > 0) bar_arrive(empty + (it - 1) % STAGES);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    // the tile's last k-block is done too: the producer may run on into the
+    // next tile while this epilogue runs
+    bar_arrive(empty + (it - 1) % STAGES);
+
+    // acc[4 j + 2 h + e]: row r0 + 8 h, column 8 j + cq + e of the warpgroup's tile
+    if constexpr (PASS == STATS) {
+      // columns past V read zero-filled W rows, which give logit 0: out of
+      // the max and the sum
+      const int lim = p.cw - n0;
+      if (lim < TN) {
+#pragma unroll
+        for (int i = 0; i < TN / 2; ++i)
+          if (8 * (i / 4) + cq + (i % 2) >= lim) acc[i] = NEG;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = NEG;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+        mx = quad_max(mx);  // finite: column 0 of the tile lies inside V
+        const float mx2 = mx * LOG2E;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          sum += exp2_ftz(fmaf(acc[4 * j + 2 * h], LOG2E, -mx2));
+          sum += exp2_ftz(fmaf(acc[4 * j + 2 * h + 1], LOG2E, -mx2));
+        }
+        sum = quad_sum(sum);
+        const float m_new = fmaxf(m_run[h], mx);
+        l_run[h] = l_run[h] * exp2_ftz((m_run[h] - m_new) * LOG2E) +
+                   sum * exp2_ftz((mx - m_new) * LOG2E);
+        m_run[h] = m_new;
+        // the label logit: matched inside V only
+        const int lab = label[h] - n0;
+        if (lab >= 0 && lab < min(lim, TN)) {
+#pragma unroll
+          for (int j = 0; j < TN / 8; ++j) {
+            const int c = 8 * j + cq;
+            if (c == lab) zy[h] += acc[4 * j + 2 * h];
+            if (c + 1 == lab) zy[h] += acc[4 * j + 2 * h + 1];
+          }
+        }
+      }
+    } else if constexpr (PASS == LOGITS) {
+      const int lim = p.cw - n0;  // the tile's columns inside the chunk (and V)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = m0 + 64 * wg + r0 + 8 * h;
+        if (t >= p.N) continue;
+        const float lse2 = p.lse[t] * LOG2E;
+        const int lab = p.labels[t] - p.v0 - n0;
+        bf16* row = p.out + (long long)t * p.ld + n0;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          const int c = 8 * j + cq;
+          float e0 = c < lim ? exp2_ftz(fmaf(acc[4 * j + 2 * h], LOG2E, -lse2)) : 0.f;
+          float e1 = c + 1 < lim ? exp2_ftz(fmaf(acc[4 * j + 2 * h + 1], LOG2E, -lse2)) : 0.f;
+          if (c == lab && c < lim) e0 -= 1.f;
+          if (c + 1 == lab && c + 1 < lim) e1 -= 1.f;
+          *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(e0, e1);
+        }
+      }
+    } else {
+      const float gs = p.g[0] * p.inv_n;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + 64 * wg + r0 + 8 * h;  // DW: the chunk's vocab row; DX: a token
+        if (r >= (PASS == DW ? p.cw : p.N)) continue;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          const int d = n0 + 8 * j + cq;
+          if (d >= p.D) continue;
+          float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+          const long long off = (long long)r * p.D + d;
+          if (PASS == DX && !p.first) {
+            const float2 s = *reinterpret_cast<const float2*>(p.ws + off);
+            a0 += s.x;
+            a1 += s.y;
+          }
+          if (PASS == DW || p.last)
+            *reinterpret_cast<uint32_t*>(p.out + off) = pack_bf16(a0 * gs, a1 * gs);
+          else
+            *reinterpret_cast<float2*>(p.ws + off) = make_float2(a0, a1);
+        }
       }
     }
-  } else {
-    const float gs = p.g[0] * p.inv_n;
+  }
+
+  if constexpr (PASS == STATS) {
+    // the range's partials of the thread's rows, from the quad's first thread
+    const long long ns = gridDim.y;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = m0 + 64 * wg + r0 + 8 * h;  // DW: the chunk's vocab row; DX: a token
-      if (r >= (PASS == DW ? p.cw : p.N)) continue;
-#pragma unroll
-      for (int j = 0; j < TN / 8; ++j) {
-        const int d = n0 + 8 * j + cq;
-        if (d >= p.D) continue;
-        float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
-        const long long off = (long long)r * p.D + d;
-        if (PASS == DX && !p.first) {
-          const float2 s = *reinterpret_cast<const float2*>(p.ws + off);
-          a0 += s.x;
-          a1 += s.y;
-        }
-        if (PASS == DW || p.last)
-          *reinterpret_cast<uint32_t*>(p.out + off) = pack_bf16(a0 * gs, a1 * gs);
-        else
-          *reinterpret_cast<float2*>(p.ws + off) = make_float2(a0, a1);
+      const float z = quad_sum(zy[h]);
+      const int t = m0 + 64 * wg + r0 + 8 * h;
+      if (cq == 0 && t < p.N) {
+        const long long o = (long long)blockIdx.y * p.N + t;
+        p.ws[o] = m_run[h];
+        p.ws[ns * p.N + o] = l_run[h];
+        p.ws[2 * ns * p.N + o] = z;
       }
     }
   }
@@ -486,24 +424,24 @@ fused_ce_bwd_kernel(const __grid_constant__ CUtensorMap ta,
 template <int PASS>
 cudaError_t launch_pass(const CUtensorMap& ta, const CUtensorMap& tb, const Params& p,
                         dim3 grid, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_ce_bwd_kernel<PASS>,
+  cudaError_t err = cudaFuncSetAttribute(fused_ce_kernel<PASS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
-  fused_ce_bwd_kernel<PASS><<<grid, THREADS, SMEM, stream>>>(ta, tb, p);
+  fused_ce_kernel<PASS><<<grid, THREADS, SMEM, stream>>>(ta, tb, p);
   return cudaGetLastError();
 }
 
-}  // namespace bwd
-
 bool bad_shape(int N, int V, int D) { return N < 1 || V < 1 || D < 8 || D % 8 != 0; }
 
-int n_split(int V) { return (V + FWD_TILES * BN - 1) / (FWD_TILES * BN); }
+int tiles(int n, int t) { return (n + t - 1) / t; }
+
+}  // namespace hop
 
 }  // namespace
 
 // Columns of the vocab per forward block: the workspace holds
 // ceil(V / tdx_fused_ce_fwd_cols()) partials per token.
-extern "C" int tdx_fused_ce_fwd_cols() { return FWD_TILES * BN; }
+extern "C" int tdx_fused_ce_fwd_cols() { return hop::FWD_TILES * hop::TN; }
 
 // Each returns cudaGetLastError() after its launches (0 on success); the
 // Python wrappers raise on anything else.  part: 3 x n_split x N f32
@@ -511,23 +449,27 @@ extern "C" int tdx_fused_ce_fwd_cols() { return FWD_TILES * BN; }
 extern "C" int tdx_fused_ce_fwd_bf16(const void* x, const void* w, const void* labels,
                                      void* part, void* loss, void* lse, int N, int V, int D,
                                      void* stream) {
+  using namespace hop;
   if (bad_shape(N, V, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int ns = n_split(V);
+  CUtensorMap xa, wb;
+  if (!map_2d(&xa, x, N, D, TM) || !map_2d(&wb, w, V, D, TN))
+    return (int)cudaErrorInvalidValue;
+  const int ns = tiles(V, FWD_TILES * TN);
   float* m_part = static_cast<float*>(part);
-  float* l_part = m_part + (long long)ns * N;
-  float* zy_part = l_part + (long long)ns * N;
-  dim3 grid((N + BM - 1) / BM, ns);
-  fused_ce_fwd_kernel<<<grid, NTHREADS, FWD_SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const int*>(labels),
-      m_part, l_part, zy_part, N, V, D);
-  err = cudaGetLastError();
+  Params p{};  // lse, g, out: unused by STATS
+  p.labels = static_cast<const int*>(labels);
+  p.ws = m_part;  // the (3, ns, N) partials
+  p.N = N;
+  p.D = D;
+  p.v0 = 0;
+  p.cw = V;  // the whole vocabulary is one chunk
+  p.nk = tiles(D, TK);
+  cudaError_t err = launch_pass<STATS>(xa, wb, p, dim3(tiles(N, TM), ns), st);
   if (err != cudaSuccess) return (int)err;
   fused_ce_combine_kernel<<<(N + 255) / 256, 256, 0, st>>>(
-      m_part, l_part, zy_part, static_cast<float*>(loss), static_cast<float*>(lse), N, ns);
+      m_part, m_part + (long long)ns * N, m_part + 2LL * ns * N, static_cast<float*>(loss),
+      static_cast<float*>(lse), N, ns);
   return (int)cudaGetLastError();
 }
 
@@ -539,7 +481,7 @@ extern "C" int tdx_fused_ce_bwd_bf16(const void* x, const void* w, const void* l
                                      const void* lse, const void* g, void* panel, void* ws,
                                      void* dx, void* dw, int N, int V, int D, int chunk,
                                      void* stream) {
-  using namespace bwd;
+  using namespace hop;
   if (bad_shape(N, V, D) || chunk < TN || chunk % TN != 0 || (chunk < V && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -551,7 +493,6 @@ extern "C" int tdx_fused_ce_bwd_bf16(const void* x, const void* w, const void* l
   Params p{static_cast<const float*>(lse), static_cast<const int*>(labels),
            static_cast<const float*>(g), nullptr, static_cast<float*>(ws), N, D, 0, 0, chunk,
            0, 0, 0, 1.0f / (float)N};
-  auto tiles = [](int n, int t) { return (n + t - 1) / t; };
   for (int v0 = 0; v0 < V; v0 += chunk) {
     p.v0 = v0;
     p.cw = V - v0 < chunk ? V - v0 : chunk;

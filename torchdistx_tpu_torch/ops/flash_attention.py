@@ -18,19 +18,20 @@ replace the Pallas ones, in every variant:
 - ``csrc/flash_bwd.cu`` replaces ``_bwd_dkv_kernel`` (dK, dV) and
   ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``, in the
   same variants, writing bf16 gradients or, for the ring's per-hop
-  partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``); both read
-  ``delta = rowsum(dO * O)`` from a pre-pass that writes it once per row
-  (``flash_bwd_delta_cuda``; the TPU kernels compute it in their bodies),
-  which one backward runs once for both;
-- ``csrc/flash_bias_bwd.cu`` replaces ``_bwd_dbias_kernel`` (launched by
-  ``_flash_dbias``) and ``_bwd_dtable_kernel`` (``_flash_dtable``): the
-  gradient of the bias or of the bucket table.
+  partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``), and
+  ``_bwd_dbias_kernel`` (launched by ``_flash_dbias``), the gradient of
+  the additive bias; all three read ``delta = rowsum(dO * O)`` from a
+  pre-pass that writes it once per row (``flash_bwd_delta_cuda``; the TPU
+  kernels compute it in their bodies), which one backward runs once for
+  all;
+- ``csrc/flash_bias_bwd.cu`` replaces ``_bwd_dtable_kernel`` (launched by
+  ``_flash_dtable``): the gradient of the bucket table.
 
-All are bounded by operations on an H100; the sources say what their
-designs do about that.  The forward, dK/dV and dQ are Hopper designs
-(TMA, ``wgmma``, accumulators in registers; ``csrc/hopper.cuh``) that
-read q, k, v, o and dO in place; dbias and dtable are WMMA kernels that
-take contiguous copies.
+The sources say what bounds each on an H100 and what their designs do
+about it.  The forward, dK/dV, dQ and dbias are Hopper designs (TMA,
+``wgmma``, accumulators in registers; ``csrc/hopper.cuh``) that read q,
+k, v, o and dO in place; dtable is a WMMA kernel that takes contiguous
+copies.
 
 ``flash_attention`` keeps the JAX layout, (B, S, H, D).  When autograd
 needs it (grad mode on and an input that requires a gradient) it runs
@@ -499,29 +500,10 @@ def _check_bwd(fn_name, q, k, v, o, lse, do):
         raise ValueError(f"{fn_name}: lse must be f32 CUDA (B, Hq, Sq)")
 
 
-def _launch_bwd(lib, name, fn_name, q, k, v, o, lse, do, outs, causal, scale,
-                bias, table, bucket_cfg):
-    """Check and launch one WMMA bias-gradient kernel on contiguous copies:
-    the six inputs, ``outs``' pointers, the bias arguments, then (B, S,
-    Hq, Hkv, D, causal, window 0, scale)."""
-    _check_bwd(fn_name, q, k, v, o, lse, do)
-    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
-    bargs, keep = _bias_args(fn_name, q, k, bias, table, bucket_cfg)
-    b, s, hq, d = q.shape
-    fn = _fn(lib, name, [_P] * (6 + len(outs)) + _BIAS_ARGS + [_I] * 7 + [_F, _P])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), *(t.data_ptr() for t in outs), *bargs,
-                 b, s, hq, k.shape[2], d, int(causal), 0, _scale(scale, d), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {err}")
-
-
 def _launch_tma_bwd(symbol, fn_name, q, k, v, o, lse, do, delta, outs, causal, scale, bias,
                     table, bucket_cfg, window):
-    """Check and launch the Hopper backward kernel ``symbol`` (dK/dV or
-    dQ): q, k, v and do read in place, lse, ``delta`` (the pre-pass's, run
+    """Check and launch the Hopper backward kernel ``symbol`` (dK/dV, dQ
+    or dbias): q, k, v and do read in place, lse, ``delta`` (the pre-pass's, run
     here when None), ``outs``' pointers, the bias arguments, then (B, S,
     Hq, Hkv, D, causal, window, scale) and the TMA strides."""
     _check_bwd(fn_name, q, k, v, o, lse, do)
@@ -634,32 +616,45 @@ for _f in (flash_bwd_dkv_cuda, flash_bwd_dq_cuda):
 
 
 def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, *, causal: bool = True,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None, delta=None):
     """Launch the dbias kernel: the (Hq, Sq, Skv) batch sum of
     ``p * (dp - delta)`` in bf16, reduced over the batch inside each block
-    (deterministic, no atomics).  Adds one to
-    ``flash_bwd_dbias_cuda.launches``."""
+    (deterministic, no atomics).  ``delta`` and the in-place inputs as
+    ``flash_bwd_dkv_cuda``'s: without ``delta`` the pre-pass runs first.
+    Adds one to ``flash_bwd_dbias_cuda.launches``."""
     if bias is None:
         raise ValueError("flash_bwd_dbias_cuda needs the bias")
     dbias = torch.empty(bias.shape, dtype=torch.bfloat16, device=q.device)
-    _launch_bwd("flash_bias_bwd", "tdx_flash_bwd_dbias_bf16", "flash_bwd_dbias_cuda",
-                q, k, v, o, lse, do, (dbias,), causal, scale, bias, None, None)
+    _launch_tma_bwd("tdx_flash_bwd_dbias_bf16", "flash_bwd_dbias_cuda", q, k, v, o, lse, do,
+                    delta, (dbias,), causal, scale, bias, None, None, None)
     flash_bwd_dbias_cuda.launches += 1
     return dbias
 
 
 def flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, *,
                           causal: bool = True, scale: Optional[float] = None):
-    """Launch the dtable kernel: ``p * (dp - delta)`` summed per bucket id
-    (and over the batch) into an (Hq, buckets) f32 buffer by one atomic
-    add per (block, bucket), cast to the table's dtype at the end.  The
-    order of the atomics is not fixed.  Adds one to
-    ``flash_bwd_dtable_cuda.launches``."""
+    """Launch the dtable kernel on contiguous copies of its inputs: ``p *
+    (dp - delta)`` summed per bucket id (and over the batch) into an (Hq,
+    buckets) f32 buffer by one atomic add per (block, bucket), cast to the
+    table's dtype at the end.  The order of the atomics is not fixed.  Adds
+    one to ``flash_bwd_dtable_cuda.launches``."""
+    name = "flash_bwd_dtable_cuda"
     if table is None:
-        raise ValueError("flash_bwd_dtable_cuda needs the table")
+        raise ValueError(f"{name} needs the table")
+    _check_bwd(name, q, k, v, o, lse, do)
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    bargs, keep = _bias_args(name, q, k, None, table, bucket_cfg)
+    b, s, hq, d = q.shape
     acc = torch.zeros(table.shape, dtype=torch.float32, device=q.device)
-    _launch_bwd("flash_bias_bwd", "tdx_flash_bwd_dtable_bf16", "flash_bwd_dtable_cuda",
-                q, k, v, o, lse, do, (acc,), causal, scale, None, table, bucket_cfg)
+    fn = _fn("flash_bias_bwd", "tdx_flash_bwd_dtable_bf16",
+             [_P] * 7 + _BIAS_ARGS + [_I] * 7 + [_F, _P])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), acc.data_ptr(), *bargs, b, s, hq, k.shape[2], d,
+                 int(causal), 0, _scale(scale, d),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     flash_bwd_dtable_cuda.launches += 1
     return acc.to(table.dtype)
 
@@ -703,7 +698,7 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
     and with a bias or table its gradient (None when ``bias_grad`` is off):
     the kernels on CUDA tensors, the plain version on the CPU.  ``delta``
     (``flash_bwd_delta(o, do)``) is computed once here unless given, and
-    both gradient kernels read it."""
+    the dK/dV, dQ and dbias kernels read it."""
     kw = dict(causal=causal, scale=scale)
     bkw = dict(bias=bias, table=table, bucket_cfg=bucket_cfg)
     has_bias = bias is not None or table is not None
@@ -724,7 +719,7 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
     if not bias_grad:
         return dq, dk, dv, None
     if bias is not None:
-        return dq, dk, dv, flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, **kw)
+        return dq, dk, dv, flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, **kw, delta=delta)
     return dq, dk, dv, flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, **kw)
 
 
