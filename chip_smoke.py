@@ -8,9 +8,9 @@ Phases, each fatal:
 
 1. build the port's CUDA kernels from ``torchdistx_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together), and print the
-   ptxas lines (registers, spills) of each kernel of the four redesigned
-   sources, ``flash_fwd.cu``, ``flash_bwd.cu``, ``decode_attention.cu`` and
-   ``fused_ce.cu``;
+   ptxas lines (registers, spills) of each kernel of the four sources,
+   ``flash_fwd.cu``, ``flash_bwd.cu`` (dbias and dtable with it),
+   ``decode_attention.cu`` and ``fused_ce.cu``;
 2. hold each kernel against its plain PyTorch version on the card, in bf16
    at llama3_8b shapes (Hq 32, Hkv 8, D 128), and time kernel, plain
    version and the PyTorch library call that computes the same function
@@ -72,18 +72,20 @@ Phases, each fatal:
    additive bias, the bucket table; causal and not; forward with and
    without lse, dK/dV, dQ) and the ``flash_bwd_dbias`` and
    ``flash_bwd_dtable`` kernels against their plain versions at T5-3B's
-   heads (B 4 x S 512, a ragged S 114, B 1 x S 2048), dbias bit for bit
-   against a second launch, and time them beside SDPA with the bias as a
-   float mask (a yardstick the port never calls);
+   heads (B 4 x S 512, a ragged S 114, B 1 x S 2048), dbias and dtable
+   each bit for bit against a second launch and against a launch on a
+   given delta, and time them beside SDPA with the bias as a float mask
+   (a yardstick the port never calls);
 12. one backward step of a T5-3B with 4 layers per stack through the
    kernels, in each bias mode, and through the plain path, each held
    against the f32 plain path;
 13. train full T5-3B (24 + 24 layers, bf16, batch 4 x 512) through
    ``build_t5_train_workload``: deferred init, materialize on the card,
    one warm-up step, then 10 ``Trainer.fit`` steps with the launch
-   counters reset just before, (a) with the materialized bias (dbias),
-   then ``torch.profiler`` over two more of its steps, (b) with the
-   bucket table (dtable);
+   counters reset just before, then ``torch.profiler`` over two more
+   steps, (a) with the materialized bias (dbias), (b) with the bucket
+   table (dtable), whose loss and gradients are then computed twice from
+   the same state and compared bit for bit (recorded, not gated);
 14. hold the sliding-window variants of the three flash kernels (forward
    with and without lse, dK/dV, dQ) against their plain versions at
    Mistral's heads (B 1, Hq 32, Hkv 8, D 128; (S, window) of (37, 16),
@@ -250,7 +252,7 @@ BIAS_CASES = [(4, 512), (4, 114), (1, 2048)]
 BIAS_REPORTED = (4, 512)
 T5_HEADS, T5_DKV, T5_BUCKETS, T5_MAX_DIST = 32, 128, 32, 128
 # dbias and dtable vs their plain f32 versions, scaled by their max: bf16
-# outputs (dbias) or a bf16 cast of f32 sums added in no fixed order (dtable)
+# outputs of f32 sums taken in another order than the plain versions'
 BIAS_GRAD_TOL = 2e-2
 # the T5-3B training runs: scripts/bench_t5_train.py's batch and length
 T5_BATCH, T5_SEQ = 4, 512
@@ -355,6 +357,25 @@ def device_ms(torch, fn, iters: int):
     total = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
                 if getattr(e, "device_type", None) == cuda)
     return total / 1e3 / iters if total else None
+
+
+def queued_ms(torch, fn, iters: int, sleep_cycles: int = 20_000_000) -> float:
+    """Mean device milliseconds per call of ``fn``: CUDA events around
+    ``iters`` calls queued behind a ``torch.cuda._sleep`` (about 10 ms) that
+    gives the host time to enqueue them all, so a call's host time (the
+    wrapper's checks, allocations and the ctypes call) drops out where it
+    exceeds its kernels' time.  One warm-up call first."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _close(torch, out, ref):
@@ -1629,10 +1650,11 @@ def bias_bound(b, s, hq, hkv, d, products, causal, mode, kernel):
     ``products`` matrix products of 2 * D flops per visible pair, query
     head and batch row, over the bf16 peak, vs the bytes it must move over
     the memory rate: its inputs read once (q, k, v; the backward's o, dO
-    and lse too, where dbias reads dO, lse and the pre-pass's delta and no
-    o), the bias (2 bytes a pair per head) or the table and the bucket ids,
-    and its outputs written once (``kernel``: "fwd" o and lse, "dkv", "dq",
-    "dbias" (Hq, S, S) bf16 or "dtable" (Hq, buckets) f32)."""
+    and lse too, where dbias and dtable read dO, lse and the pre-pass's
+    delta and no o), the bias (2 bytes a pair per head) or the table and
+    the bucket ids, and its outputs written once (``kernel``: "fwd" o and
+    lse, "dkv", "dq", "dbias" (Hq, S, S) bf16 or "dtable" (Hq, buckets)
+    bf16; dtable's per-tile scratch is neither input nor output)."""
     pairs = _causal_pairs(s) if causal else s * s
     flops = 2.0 * products * d * pairs * b * hq
     qo = 2.0 * b * s * hq * d
@@ -1641,7 +1663,7 @@ def bias_bound(b, s, hq, hkv, d, products, causal, mode, kernel):
     nbytes = qo + 2 * kv
     nbytes += {"fwd": qo + lse, "dkv": 2 * qo + lse + 2 * kv, "dq": 3 * qo + lse,
                "dbias": qo + 2 * lse + 2.0 * hq * s * s,
-               "dtable": 2 * qo + lse + 4.0 * hq * T5_BUCKETS}[kernel]
+               "dtable": qo + 2 * lse + 2.0 * hq * T5_BUCKETS}[kernel]
     nbytes += 2.0 * hq * s * s if mode == "bias" else 2.0 * hq * T5_BUCKETS + 4.0 * (2 * s - 1)
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -1729,29 +1751,28 @@ def check_flash_bias(torch, device, cases=BIAS_CASES, iters=5):
             o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
             dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw)
             dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do, **kw)
-            repeat = None
-            if mode == "bias":
-                dgrad = fa.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal,
-                                                scale=scale)
-                repeat = fa.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, causal=causal,
-                                                 scale=scale)
-            else:
-                dgrad = fa.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg,
-                                                 causal=causal, scale=scale)
+            # the bias gradient three times: twice on its own pre-pass, once
+            # on a given delta (all three the same bits)
+            dgrad_of = _bias_grad_call(fa, (q, k, v, o, lse, do), bias, table, kw)
+            dgrad, repeat = dgrad_of(), dgrad_of()
+            given = dgrad_of(delta=fa.flash_bwd_delta_cuda(o, do))
             torch.cuda.synchronize()
             ref_o, ref_lse = fa.flash_attention_lse_reference(q, k, v, **kw)
             rq, rk, rv, rgrad = fa.flash_bwd_reference(q, k, v, o, lse, do, **kw)
             scale_name = "1/sqrt(D)" if scale is None else scale
             case = (b, s, mode, "causal" if causal else "full", f"scale {scale_name}")
-            gkey = "dbias_scaled_err" if mode == "bias" else "dtable_scaled_err"
+            gname = "dbias" if mode == "bias" else "dtable"
+            gkey = f"{gname}_scaled_err"
             row = {"B": b, "S": s, "mode": mode, "causal": causal, "scale": scale_name,
                    "lse_err": float((lse - ref_lse).abs().max()),
-                   gkey: _scaled_err(torch, dgrad, rgrad)}
-            if repeat is not None:
-                row["dbias_bitwise_repeat"] = bool(torch.equal(dgrad, repeat))
-                if not row["dbias_bitwise_repeat"]:
-                    failures.append(f"flash dbias {case}: two launches differ")
-                del repeat
+                   gkey: _scaled_err(torch, dgrad, rgrad),
+                   f"{gname}_bitwise_repeat": bool(torch.equal(dgrad, repeat)),
+                   f"{gname}_bitwise_delta_given": bool(torch.equal(dgrad, given))}
+            if not row[f"{gname}_bitwise_repeat"]:
+                failures.append(f"flash {gname} {case}: two launches differ")
+            if not row[f"{gname}_bitwise_delta_given"]:
+                failures.append(f"flash {gname} {case}: a given delta changes the bits")
+            del repeat, given
             # at T5's scale dq is that of the folded q, sqrt(D) times the
             # gradient of the q before the fold: held as the latter, the
             # quantity the default scale holds
@@ -1777,6 +1798,15 @@ def check_flash_bias(torch, device, cases=BIAS_CASES, iters=5):
     return rows, failures
 
 
+def _bias_grad_call(fa, bwd, bias, table, kw):
+    """The case's dbias (with a ``bias``) or dtable kernel on ``bwd`` = (q,
+    k, v, o, lse, do), as a function of its ``delta=``."""
+    ckw = dict(causal=kw["causal"], scale=kw["scale"])
+    if bias is not None:
+        return lambda **dkw: fa.flash_bwd_dbias_cuda(*bwd, bias, **ckw, **dkw)
+    return lambda **dkw: fa.flash_bwd_dtable_cuda(*bwd, table, kw["bucket_cfg"], **ckw, **dkw)
+
+
 def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters):
     """The times of one case of ``check_flash_bias`` into ``row``: each
     kernel, its plain version, its bound and the SDPA yardstick."""
@@ -1785,21 +1815,19 @@ def _time_bias_case(torch, fa, row, q, k, v, o, lse, do, table, bias, kw, iters)
     mode, causal = row["mode"], row["causal"]
     bwd = (q, k, v, o, lse, do)
     gname = "dbias" if mode == "bias" else "dtable"
-    ckw = dict(causal=causal, scale=kw["scale"])
     row["fwd_ms"] = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, return_lse=True, **kw),
                             iters)
     row["dkv_ms"] = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*bwd, **kw), iters)
     delta = fa.flash_bwd_delta_cuda(o, do)
     row["dq_ms"] = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*bwd, delta=delta, **kw), iters)
-    if mode == "bias":  # the kernel alone on the pre-pass's delta, as the backward runs it
-        row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dbias_cuda(
-            *bwd, bias, delta=delta, **ckw), iters)
-        # and with the pre-pass, as the kernel that read o and formed delta itself ran
-        row["dgrad_with_delta_ms"] = time_ms(torch, lambda: fa.flash_bwd_dbias_cuda(
-            *bwd, bias, **ckw), iters)
-    else:
-        row["dgrad_ms"] = time_ms(torch, lambda: fa.flash_bwd_dtable_cuda(
-            *bwd, table, kw["bucket_cfg"], **ckw), iters)
+    dgrad = _bias_grad_call(fa, bwd, bias, table, kw)  # dtable's with its tile-order sum
+    # the kernel alone on the pre-pass's delta, as the backward runs it; by
+    # CUDA events and by device time (a call's host time may exceed it)
+    row["dgrad_ms"] = time_ms(torch, lambda: dgrad(delta=delta), iters)
+    row["dgrad_device_ms"] = queued_ms(torch, lambda: dgrad(delta=delta), iters)
+    # and with the pre-pass, as the WMMA kernels that read o and formed
+    # delta themselves ran
+    row["dgrad_with_delta_ms"] = time_ms(torch, dgrad, iters)
     row["fwd_plain_ms"] = time_ms(
         torch, lambda: fa.flash_attention_lse_reference(q, k, v, **kw), iters)
     row["bwd_plain_ms"] = time_ms(torch, lambda: fa.flash_bwd_reference(*bwd, **kw), iters)
@@ -1884,7 +1912,8 @@ def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda"
     512, in one bias mode; one warm-up step, then ``Trainer.fit`` over
     ``steps`` steps with the launch counters set to 0 just before and read
     just after.  With ``profile_steps``, ``torch.profiler`` then records
-    that many more steps (after one to wait and one to warm up)."""
+    that many more steps (after one to wait and one to warm up).  In the
+    bucket mode, last, :func:`repeat_step`."""
     import math
     from torchdistx_tpu_torch.utils.benchmarks import build_t5_train_workload
 
@@ -1939,9 +1968,40 @@ def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda"
             prof["device_idle_share_unprofiled"] = max(
                 0.0, 1.0 - prof["device_ms_per_step"] / summary["step_ms"])
         summary["profile"] = prof
+    if bucket:
+        summary["repeat_step"] = repeat_step(torch, w)
     del w
     torch.cuda.empty_cache()
     return summary, failures
+
+
+def repeat_step(torch, w):
+    """The loss and the gradients of one training step of workload ``w``,
+    computed twice from the same state and batch (no optimizer step
+    between): whether the loss, the ``rel_bias`` tables' gradients and each
+    other parameter's come out the same bits, and which parameters' do not.
+    Recorded, not gated: ops outside the port's kernels may add in no
+    fixed order."""
+    model = w["model"]
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss = w["step"].loss_fn(model, w["batch"])
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                     if p.grad is not None}))
+    model.zero_grad(set_to_none=True)
+    (loss0, g0), (loss1, g1) = runs
+    differ = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    rel = [n for n in g0 if "rel_bias" in n]
+    out = {"loss": float(loss0), "loss_bitwise": bool(torch.equal(loss0, loss1)),
+           "rel_bias_params": rel,
+           "rel_bias_bitwise": not any(n in differ for n in rel),
+           "params": len(g0), "params_differing": len(differ),
+           "differing": differ[:40]}
+    del runs, g0, g1
+    torch.cuda.empty_cache()
+    return out
 
 
 
@@ -2873,8 +2933,7 @@ def t5_kernel_entries(rows, runs):
              ("dk_err", "dv_err"), "bwd_library_ms", "bwd_plain_ms"),
             (f"flash_bwd_dq_{mode}", "flash_bwd.cu", dq_line, f"flash_bwd_dq_{mode}", "dq",
              ("dq_err",), "bwd_library_ms", "bwd_plain_ms"),
-            (f"flash_bwd_{gname}", "flash_bwd.cu" if mode == "bias" else "flash_bias_bwd.cu",
-             428 if mode == "bias" else 482,
+            (f"flash_bwd_{gname}", "flash_bwd.cu", 428 if mode == "bias" else 482,
              f"flash_bwd_{gname}", "dgrad", (f"{gname}_scaled_err",), "dgrad_library_ms",
              "dgrad_plain_ms"),
         )
@@ -2895,9 +2954,13 @@ def t5_kernel_entries(rows, runs):
                                   for r in timed if r["mode"] == mode])
             if key == "dgrad" and full.get("dgrad_library_why"):
                 entry["library_why_null"] = full["dgrad_library_why"]
-            if key == "dgrad" and mode == "bias":
-                entry["bitwise_repeat"] = all(r["dbias_bitwise_repeat"] for r in rows
-                                              if r["mode"] == "bias")
+            if key == "dgrad":
+                entry["bitwise_repeat"] = all(
+                    r[f"{gname}_bitwise_repeat"] and r[f"{gname}_bitwise_delta_given"]
+                    for r in rows if r["mode"] == mode)
+                entry["ms_with_delta"] = full["dgrad_with_delta_ms"]
+                entry["device_ms"] = full["dgrad_device_ms"]
+                entry["device_ms_causal"] = causal["dgrad_device_ms"]
             out.append(entry)
     return out
 
@@ -2930,7 +2993,7 @@ def main(argv=None) -> int:
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = ["flash_fwd", "flash_bwd", "flash_bias_bwd", "decode_attention", "fused_ce"]
+    libs = ["flash_fwd", "flash_bwd", "decode_attention", "fused_ce"]
     built = _build.build_all(libs)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({', '.join(built) or 'up to date'})")
@@ -3156,8 +3219,7 @@ def main(argv=None) -> int:
     try:
         t5_runs = {}
         for bucket in (False, True):
-            t5_summary, f13 = train_t5(torch, args.seed, bucket,
-                                       profile_steps=0 if bucket else 2)
+            t5_summary, f13 = train_t5(torch, args.seed, bucket, profile_steps=2)
             failures += f13
             print(f"train t5_3b {t5_summary['bias_mode']}", json.dumps(t5_summary))
             t5_runs[t5_summary["bias_mode"]] = t5_summary

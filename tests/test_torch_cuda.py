@@ -121,8 +121,8 @@ def test_biased_kernels_match_plain(cuda, mode, causal, b, s, hq, hkv, d, scale)
     """The bias and bucket variants of the forward (plain and lse) and of
     both backward kernels, and the dbias / dtable kernels, against the plain
     versions from the same saved o and lse; dbias and dtable scaled by
-    their max within 2e-2 (bf16 outputs; dtable's f32 atomics add in no
-    fixed order).  At the default scale 1/sqrt(D) and at T5's 1.0, whose
+    their max within 2e-2 (bf16 outputs of f32 sums taken in another order
+    than the plain versions').  At the default scale 1/sqrt(D) and at T5's 1.0, whose
     q carries the 1/sqrt(D) instead (as T5's initialization folds it in)."""
     g = torch.Generator(device=cuda).manual_seed(s + hq)
     q, k, v, do = (_rand(g, (b, s, h, d), cuda) for h in (hq, hkv, hkv, hq))
@@ -822,6 +822,63 @@ def test_flash_backward_with_a_bias_runs_one_delta(cuda):
             tflash.flash_bwd_dbias_cuda.launches] == [before[0] + 1, before[1] + 1]
     assert torch.equal(dbias, tflash.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias,
                                                           causal=False))
+
+
+# (b, s, hq, hkv, d, buckets): DBIAS_CASES at T5's 32 buckets, T5's ragged
+# target length, and a bucket count at MAX_BUCKETS
+DTABLE_CASES = [c + (32,) for c in DBIAS_CASES] + [(4, 114, 4, 4, 128, 32),
+                                                  (2, 777, 4, 2, 64, 256)]
+
+
+@pytest.mark.parametrize("bidir", [True, False], ids=["bidirectional", "unidirectional"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("b,s,hq,hkv,d,buckets", DTABLE_CASES)
+def test_flash_dtable_matches_plain_and_repeats_bit_for_bit(cuda, b, s, hq, hkv, d, buckets,
+                                                             causal, bidir):
+    """The dtable kernel against ``flash_bias_grad_reference`` scaled by its
+    max within 2e-2 (``test_biased_kernels_match_plain``'s bound); two
+    launches the same bits (per-tile partials summed in tile order, no
+    atomics); with the pre-pass's ``delta`` given the same bits as without
+    it."""
+    g = torch.Generator(device=cuda).manual_seed(b * s + hq + d + buckets)
+    q, do = _rand(g, (b, s, hq, d), cuda), _rand(g, (b, s, hq, d), cuda)
+    k, v = _rand(g, (b, s, hkv, d), cuda), _rand(g, (b, s, hkv, d), cuda)
+    table = _rand(g, (hq, buckets), cuda)
+    cfg = (buckets, 4 * buckets, bidir)
+    kw = dict(causal=causal, table=table, bucket_cfg=cfg)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+    delta = tflash.flash_bwd_delta_cuda(o, do)
+    before = tflash.flash_bwd_dtable_cuda.launches
+    first = tflash.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg, causal=causal)
+    second = tflash.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg, causal=causal)
+    given = tflash.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg, causal=causal,
+                                         delta=delta)
+    torch.cuda.synchronize()
+    assert tflash.flash_bwd_dtable_cuda.launches == before + 3
+    assert torch.equal(first, second)
+    assert torch.equal(first, given)
+    ref = tflash.flash_bias_grad_reference(q, k, v, o, lse, do, **kw)
+    assert first.dtype == torch.bfloat16 and first.shape == table.shape
+    assert _scaled_err(first, ref) <= 2e-2
+
+
+def test_flash_backward_with_a_table_runs_one_delta(cuda):
+    """``flash_backward`` with a bucket table launches the pre-pass once and
+    hands its delta to dK/dV, dQ and dtable."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, do = _rand(g, (2, 130, 4, 128), cuda), _rand(g, (2, 130, 4, 128), cuda)
+    k, v = _rand(g, (2, 130, 4, 128), cuda), _rand(g, (2, 130, 4, 128), cuda)
+    table, cfg = _rand(g, (4, 32), cuda), (32, 128, True)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, causal=False, table=table,
+                                   bucket_cfg=cfg)
+    before = [tflash.flash_bwd_delta_cuda.launches, tflash.flash_bwd_dtable_cuda.launches]
+    dtable = tflash.flash_backward(q, k, v, o, lse, do, causal=False, table=table,
+                                   bucket_cfg=cfg)[3]
+    torch.cuda.synchronize()
+    assert [tflash.flash_bwd_delta_cuda.launches,
+            tflash.flash_bwd_dtable_cuda.launches] == [before[0] + 1, before[1] + 1]
+    assert torch.equal(dtable, tflash.flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, cfg,
+                                                            causal=False))
 
 
 @pytest.mark.parametrize("d", [64, 128])

@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): the dK/dV kernel, its
-// delta pre-pass, the dQ kernel and the dbias kernel; bf16 in, bf16 or f32
-// out, f32 recompute and accumulation.
+// delta pre-pass, the dQ kernel and the dbias / dtable kernel; bf16 in,
+// bf16 or f32 out, f32 recompute and accumulation.
 //
 // Replaces the Pallas kernels torchdistx_tpu/ops/flash_attention.py
 // _bwd_dkv_kernel (K/V-stationary: dK, dV) and _bwd_dq_kernel
@@ -9,8 +9,8 @@
 // encoder), with no bias, an additive bias or T5's bucket table
 // (flash_common.cuh), or with the sliding window (Mistral; causal, no
 // bias); D 64 and 128; GQA.  And _bwd_dbias_kernel (launched by
-// _flash_dbias): the gradient of T5's additive bias.  The bucket table's
-// gradient is flash_bias_bwd.cu's.
+// _flash_dbias) and _bwd_dtable_kernel (launched by _flash_dtable): the
+// gradients of T5's additive bias and of its bucket table.
 //
 // Both recompute the probabilities from the forward's saved row
 // log-sum-exp, p = exp(q.k * scale + bias - lse) (the lse includes the
@@ -85,6 +85,23 @@
 // the inputs), where the recomputed products cost 4 D flops a pair and
 // batch row; its blocks read Q and dO once per key tile and K and V once
 // per query tile, from L2.
+//
+// dtable, the same kernel with another epilogue (one template): the tile's
+// bias is the bucket bias, table[h, ids[j - i + S - 1]], staged once into
+// the tile's 191 distances as dQ stages it; after the batch loop the tile
+// is folded in a fixed order.  It goes to shared memory over the ring's
+// stages with every element outside the visible region zeroed (rows and
+// key columns past S, the causal upper triangle: TMA zero-fills K and V
+// past S, so there S = dP = 0 while p = exp(bias - lse) is not), one
+// thread a distance sums its diagonal in row order, and one thread a
+// bucket sums the distances of its bucket in distance order into the
+// tile's (Hq, tiles, buckets) f32 partials (4 * buckets bytes a tile, no
+// atomics; a causal tile wholly above the diagonal writes zeros and folds
+// nothing).  A second kernel sums each (h, bucket) over the tiles in tile
+// order and writes the bf16 table gradient: the same bits on every launch.
+// The scratch: 128 KB at Hq 32, S 512, 32 buckets; 16 MB at Hq 32, S 2048,
+// 256 buckets.  What bounds it: bytes, as dbias, less the (Hq, S, S) bias
+// and dbias.
 //
 // Output type: bf16, the gradients of one attention call; or f32 (the JAX
 // kernels' dq_dtype / part_dtype = float32), which ring attention's
@@ -717,9 +734,12 @@ cudaError_t launch_dq_d(const CUtensorMap* maps, const float* lse, const float* 
 
 }  // namespace hop
 
-// ---- dbias ------------------------------------------------------------------------
+// ---- dbias and dtable ---------------------------------------------------------------
 
 namespace hop {
+
+constexpr int TILE_DIST = DQ_BQ + DQ_BK - 1;  // distances c - r of a 128 x 64 tile: 191
+constexpr int LDF = DQ_BK + 1;  // f32 row stride of the folded tile: diagonals conflict-free
 
 template <int D>
 struct DbSmem {
@@ -731,16 +751,28 @@ struct DbSmem {
   static constexpr int v_off = k_off + KV_TILE;
   static constexpr int STAGE = v_off + KV_TILE;  // 96 KB at D 128
   static constexpr int bar_off = STAGES * STAGE;
-  static constexpr int bytes = bar_off + 2 * STAGES * 8 + 1024;
+  // dtable: the bias, the bucket id and the sum of each of the tile's distances
+  static constexpr int dist_off = bar_off + 2 * STAGES * 8;
+  static constexpr int bytes = dist_off + 3 * 192 * 4 + 1024;
+  // the fold writes the f32 tile over the ring's stages
+  static_assert(DQ_BQ * LDF * 4 <= STAGES * STAGE, "the folded tile does not fit");
 };
 
-template <int D>
+// One (128 query rows x 64 keys, head) tile of the batch sum of
+// p * (dP - delta), and its epilogue: BIAS == ADD_BIAS stores it as the
+// bf16 dbias, from the (Hq, S, S) bias; BIAS == TABLE_BIAS folds it into
+// the tile's bucket partials, out = (Hq, tiles, buckets) f32, from the
+// table and the bucket ids.
+template <int D, int BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dbias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       bf16* __restrict__ dbias, const bf16* __restrict__ bias, int B, int S,
-                       int Hq, int Hkv, int causal, float scale_log2) {
+flash_bwd_bias_grad_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           void* __restrict__ out, BiasArgs ba, int B, int S, int Hq, int Hkv,
+                           int causal, float scale_log2) {
+  static_assert(BIAS == ADD_BIAS || BIAS == TABLE_BIAS, "a bias gradient needs a bias");
   using L = DbSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -791,32 +823,64 @@ flash_bwd_dbias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   const int r0 = 16 * (tid / 32) + (tid % 32) / 4;  // the thread's rows: r0 and r0 + 8
   const int cq = 2 * (tid % 4);                      // its columns in each 8-column chunk
   // a warpgroup whose rows see nothing of the tile (past S, or all above
-  // the diagonal) computes nothing and stores zeros
+  // the diagonal) computes nothing
   const bool idle = qw >= S || (causal && k0 > qw + 63);
-  const bool pairs = S % 2 == 0;  // bf16 pairs of a row are 4-byte aligned
+  [[maybe_unused]] const bool pairs = S % 2 == 0;  // dbias: bf16 pairs 4-byte aligned
+  float* dist_bias = reinterpret_cast<float*>(smem + L::dist_off);
+  int* dist_id = reinterpret_cast<int*>(dist_bias + 192);
+  float* dist_sum = reinterpret_cast<float*>(dist_id + 192);
+  float* part = nullptr;  // dtable: this tile's bucket partials
+  if constexpr (BIAS == TABLE_BIAS) {
+    const long long tile_idx = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+    part = static_cast<float*>(out) +
+           ((long long)h * gridDim.x * gridDim.y + tile_idx) * ba.buckets;
+    if (nb == 0) {  // above the diagonal: zero partials, no fold
+      for (int t = threadIdx.x; t < ba.buckets; t += 256) part[t] = 0.f;
+      return;
+    }
+  }
 
   // the tile's bias in log2 units, batch-shared: read once
   float bias2[DQ_BK / 2];
+  if constexpr (BIAS == ADD_BIAS) {
 #pragma unroll
-  for (int i = 0; i < DQ_BK / 2; i += 2) {
-    const int qi = qw + r0 + 8 * ((i / 2) % 2);
-    const int kj = k0 + 8 * (i / 4) + cq;
-    float2 bv = make_float2(0.f, 0.f);
-    const bf16* src = bias + ((long long)h * S + qi) * S + kj;
-    if (!idle && qi < S) {
-      if (pairs && kj + 1 < S) {
-        bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
-      } else {
-        if (kj < S) bv.x = __bfloat162float(src[0]);
-        if (kj + 1 < S) bv.y = __bfloat162float(src[1]);
+    for (int i = 0; i < DQ_BK / 2; i += 2) {
+      const int qi = qw + r0 + 8 * ((i / 2) % 2);
+      const int kj = k0 + 8 * (i / 4) + cq;
+      float2 bv = make_float2(0.f, 0.f);
+      const bf16* src = ba.bias + ((long long)h * S + qi) * S + kj;
+      if (!idle && qi < S) {
+        if (pairs && kj + 1 < S) {
+          bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+        } else {
+          if (kj < S) bv.x = __bfloat162float(src[0]);
+          if (kj + 1 < S) bv.y = __bfloat162float(src[1]);
+        }
       }
+      bias2[i] = bv.x * LOG2E;
+      bias2[i + 1] = bv.y * LOG2E;
     }
-    bias2[i] = bv.x * LOG2E;
-    bias2[i + 1] = bv.y * LOG2E;
+  } else {
+    // the bias and bucket id of each distance c - r = d - 127 of the tile,
+    // k0 - q0 + d - 127 globally (id -1 and bias 0 out of range: those
+    // pairs are masked), staged once by both warpgroups
+    if (threadIdx.x < TILE_DIST) {
+      const int rel = k0 - q0 + (int)threadIdx.x - (DQ_BQ - 1);
+      const bool in = rel > -S && rel < S;
+      const int id = in ? ba.ids[rel + S - 1] : -1;
+      dist_id[threadIdx.x] = id;
+      dist_bias[threadIdx.x] = in ? __bfloat162float(ba.table[h * ba.buckets + id]) : 0.f;
+    }
+    named_sync(1, 256);
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i) {
+      const int r = 64 * wg + r0 + 8 * ((i / 2) % 2);
+      const int c = 8 * (i / 4) + cq + (i % 2);
+      bias2[i] = dist_bias[c - r + DQ_BQ - 1] * LOG2E;
+    }
   }
   // causal, a tile the diagonal crosses: row qi sees the columns c < hi
-  // (less the thread's cq); key columns past S are never stored and need
-  // no mask
+  // (less the thread's cq)
   const bool crosses = causal && k0 + DQ_BK - 1 > qw;
   int hi[2];
 #pragma unroll
@@ -884,35 +948,99 @@ flash_bwd_dbias_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       acc[i] = fmaf(s[i], dp[i] - dl[(i / 2) % 2], acc[i]);
   }
 
-  // each element stored once, in bf16
+  if constexpr (BIAS == ADD_BIAS) {
+    // each element stored once, in bf16 (key columns past S are never
+    // stored and need no mask)
+    bf16* dbias = static_cast<bf16*>(out);
 #pragma unroll
-  for (int i = 0; i < DQ_BK / 2; i += 2) {
-    const int qi = qw + r0 + 8 * ((i / 2) % 2);
-    const int kj = k0 + 8 * (i / 4) + cq;
-    if (qi >= S) continue;
-    bf16* dst = dbias + ((long long)h * S + qi) * S + kj;
-    if (pairs && kj + 1 < S) {
-      put2(dst, acc[i], acc[i + 1]);
-    } else {
-      if (kj < S) dst[0] = __float2bfloat16(acc[i]);
-      if (kj + 1 < S) dst[1] = __float2bfloat16(acc[i + 1]);
+    for (int i = 0; i < DQ_BK / 2; i += 2) {
+      const int qi = qw + r0 + 8 * ((i / 2) % 2);
+      const int kj = k0 + 8 * (i / 4) + cq;
+      if (qi >= S) continue;
+      bf16* dst = dbias + ((long long)h * S + qi) * S + kj;
+      if (pairs && kj + 1 < S) {
+        put2(dst, acc[i], acc[i + 1]);
+      } else {
+        if (kj < S) dst[0] = __float2bfloat16(acc[i]);
+        if (kj + 1 < S) dst[1] = __float2bfloat16(acc[i + 1]);
+      }
+    }
+  } else {
+    // The fold, in a fixed order.  The f32 tile goes over the ring's stages
+    // (free once both warpgroups are past their last product), zero outside
+    // the visible region: rows past S, the causal upper triangle, and key
+    // columns past S, where TMA zero-filled K and V, so S = dP = 0 but
+    // p = exp(bias - lse) is not, and p (0 - delta) would land in a real
+    // bucket.  Each distance's diagonal is summed in row order, then the
+    // distances into their buckets in distance order: no atomics.
+    float* tile = reinterpret_cast<float*>(smem);
+    named_sync(1, 256);
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i) {
+      const int r = 64 * wg + r0 + 8 * ((i / 2) % 2);
+      const int c = 8 * (i / 4) + cq + (i % 2);
+      tile[r * LDF + c] = visible(q0 + r, k0 + c, S, S, causal, 0) ? acc[i] : 0.f;
+    }
+    named_sync(1, 256);
+    if (threadIdx.x < TILE_DIST) {
+      const int dd = (int)threadIdx.x - (DQ_BQ - 1);  // c - r
+      float sum = 0.f;
+      for (int r = max(0, -dd); r < min(DQ_BQ, DQ_BK - dd); ++r) sum += tile[r * LDF + r + dd];
+      dist_sum[threadIdx.x] = sum;
+    }
+    named_sync(1, 256);
+    for (int t = threadIdx.x; t < ba.buckets; t += 256) {
+      float sum = 0.f;
+      for (int d = 0; d < TILE_DIST; ++d)
+        if (dist_id[d] == t) sum += dist_sum[d];
+      part[t] = sum;
     }
   }
 }
 
-template <int D>
-cudaError_t launch_dbias(const CUtensorMap* maps, const float* lse, const float* delta,
-                         void* dbias, const bf16* bias, int B, int S, int Hq, int Hkv,
-                         int causal, float scale, cudaStream_t stream) {
+// dtable[h, t] = the sum over the tiles of their partials of bucket t, in
+// tile order; one block a head, one thread a bucket.
+__global__ void __launch_bounds__(MAX_BUCKETS)
+flash_bwd_dtable_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dtable,
+                               int ntiles, int buckets) {
+  const int h = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t >= buckets) return;
+  const float* p = part + (long long)h * ntiles * buckets + t;
+  float sum = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < ntiles; ++i) sum += p[(long long)i * buckets];
+  dtable[h * buckets + t] = __float2bfloat16(sum);
+}
+
+inline int dtable_tiles(int S) {
+  return ((S + DQ_BK - 1) / DQ_BK) * ((S + DQ_BQ - 1) / DQ_BQ);
+}
+
+template <int D, int BIAS>
+cudaError_t launch_bias_grad(const CUtensorMap* maps, const float* lse, const float* delta,
+                             void* out, const BiasArgs& ba, int B, int S, int Hq, int Hkv,
+                             int causal, float scale, cudaStream_t stream) {
   const int smem = DbSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dbias_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_bias_grad_kernel<D, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + DQ_BK - 1) / DQ_BK, (S + DQ_BQ - 1) / DQ_BQ, Hq);
-  flash_bwd_dbias_kernel<D><<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(dbias), bias, B, S,
-      Hq, Hkv, causal, (float)(scale * 1.4426950408889634));
+  flash_bwd_bias_grad_kernel<D, BIAS><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, out, ba, B, S, Hq, Hkv, causal,
+      (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
+}
+
+template <int BIAS>
+cudaError_t launch_bias_grad_d(const CUtensorMap* maps, const float* lse, const float* delta,
+                               void* out, const BiasArgs& ba, int B, int S, int Hq, int Hkv,
+                               int D, int causal, float scale, cudaStream_t st) {
+  if (D == 128)
+    return launch_bias_grad<128, BIAS>(maps, lse, delta, out, ba, B, S, Hq, Hkv, causal, scale,
+                                       st);
+  return launch_bias_grad<64, BIAS>(maps, lse, delta, out, ba, B, S, Hq, Hkv, causal, scale,
+                                    st);
 }
 
 }  // namespace hop
@@ -1052,11 +1180,41 @@ extern "C" int tdx_flash_bwd_dbias_bf16(TDX_DQ_ARGS) {
   CUtensorMap maps[4];
   if (!bwd_maps(maps, q, k, v, dout, B, S, Hq, Hkv, D, strides, hop::DQ_BQ, hop::DQ_BK))
     return (int)cudaErrorInvalidValue;
+  return (int)hop::launch_bias_grad_d<hop::ADD_BIAS>(
+      maps, static_cast<const float*>(lse), static_cast<const float*>(delta), dqo,
+      bias_args(bias, nullptr, nullptr, 0), B, S, Hq, Hkv, D, causal, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The tiles of dtable's (Hq, tiles, buckets) f32 scratch at length S.
+extern "C" int tdx_flash_bwd_dtable_tiles(int S) { return hop::dtable_tiles(S); }
+
+// dtable (Hq, buckets) bf16 = the batch sum of p * (dP - delta) added up
+// per bucket id, from q, k, v, dO, lse, the pre-pass's delta, the table
+// and the bucket ids: per tile into `part`, (Hq, tdx_flash_bwd_dtable_tiles(S),
+// buckets) f32, then summed in tile order by a second kernel.  The same
+// bits on every launch.  The additive bias and the window are refused.
+extern "C" int tdx_flash_bwd_dtable_bf16(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* lse,
+                                         const void* delta, void* part, void* dtable,
+                                         const void* bias, const void* table,
+                                         const void* ids, int buckets, int B, int S, int Hq,
+                                         int Hkv, int D, int causal, int window, float scale,
+                                         const long long* strides, void* stream) {
+  if (bias != nullptr || table == nullptr || ids == nullptr || buckets < 1 ||
+      buckets > MAX_BUCKETS || window > 0 || bad_shape(B, S, Hq, Hkv) ||
+      (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (!bwd_maps(maps, q, k, v, dout, B, S, Hq, Hkv, D, strides, hop::DQ_BQ, hop::DQ_BK))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const bf16* bb = static_cast<const bf16*>(bias);
-  if (D == 128)
-    return (int)hop::launch_dbias<128>(maps, l, dl, dqo, bb, B, S, Hq, Hkv, causal, scale, st);
-  return (int)hop::launch_dbias<64>(maps, l, dl, dqo, bb, B, S, Hq, Hkv, causal, scale, st);
+  cudaError_t err = hop::launch_bias_grad_d<hop::TABLE_BIAS>(
+      maps, static_cast<const float*>(lse), static_cast<const float*>(delta), part,
+      bias_args(nullptr, table, ids, buckets), B, S, Hq, Hkv, D, causal, scale, st);
+  if (err != cudaSuccess) return (int)err;
+  hop::flash_bwd_dtable_reduce_kernel<<<Hq, (buckets + 31) / 32 * 32, 0, st>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(dtable), hop::dtable_tiles(S),
+      buckets);
+  return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 versions, the dispatcher between them, and its gradient.
 
 Counterpart of ``torchdistx_tpu/ops/flash_attention.py``.  Five kernels
-replace the Pallas ones, in every variant:
+replace the Pallas ones, in every variant, from two sources:
 
 - ``csrc/flash_fwd.cu`` replaces ``_kernel`` (launched by
   ``_flash_forward``): plain output for the serving engine's prefill,
@@ -19,19 +19,16 @@ replace the Pallas ones, in every variant:
   ``_bwd_dq_kernel`` (dQ), launched by ``_flash_backward_core``, in the
   same variants, writing bf16 gradients or, for the ring's per-hop
   partials, f32 ones (the JAX ``dq_dtype`` / ``part_dtype``), and
-  ``_bwd_dbias_kernel`` (launched by ``_flash_dbias``), the gradient of
-  the additive bias; all three read ``delta = rowsum(dO * O)`` from a
-  pre-pass that writes it once per row (``flash_bwd_delta_cuda``; the TPU
-  kernels compute it in their bodies), which one backward runs once for
-  all;
-- ``csrc/flash_bias_bwd.cu`` replaces ``_bwd_dtable_kernel`` (launched by
-  ``_flash_dtable``): the gradient of the bucket table.
+  ``_bwd_dbias_kernel`` (launched by ``_flash_dbias``) and
+  ``_bwd_dtable_kernel`` (launched by ``_flash_dtable``), the gradients of
+  the additive bias and of the bucket table (one kernel, two epilogues);
+  all four read ``delta = rowsum(dO * O)`` from a pre-pass that writes it
+  once per row (``flash_bwd_delta_cuda``; the TPU kernels compute it in
+  their bodies), which one backward runs once for all.
 
 The sources say what bounds each on an H100 and what their designs do
-about it.  The forward, dK/dV, dQ and dbias are Hopper designs (TMA,
-``wgmma``, accumulators in registers; ``csrc/hopper.cuh``) that read q,
-k, v, o and dO in place; dtable is a WMMA kernel that takes contiguous
-copies.
+about it.  All are Hopper designs (TMA, ``wgmma``, accumulators in
+registers; ``csrc/hopper.cuh``) that read q, k, v, o and dO in place.
 
 ``flash_attention`` keeps the JAX layout, (B, S, H, D).  When autograd
 needs it (grad mode on and an input that requires a gradient) it runs
@@ -86,7 +83,7 @@ __all__ = [
     "flash_bwd_dtable_cuda",
 ]
 
-# the kernels stage one head's bucket partials in shared memory
+# dtable's fold and its reduction run one thread a bucket in one block
 MAX_BUCKETS = 256
 
 
@@ -502,8 +499,8 @@ def _check_bwd(fn_name, q, k, v, o, lse, do):
 
 def _launch_tma_bwd(symbol, fn_name, q, k, v, o, lse, do, delta, outs, causal, scale, bias,
                     table, bucket_cfg, window):
-    """Check and launch the Hopper backward kernel ``symbol`` (dK/dV, dQ
-    or dbias): q, k, v and do read in place, lse, ``delta`` (the pre-pass's, run
+    """Check and launch the Hopper backward kernel ``symbol`` (dK/dV, dQ,
+    dbias or dtable): q, k, v and do read in place, lse, ``delta`` (the pre-pass's, run
     here when None), ``outs``' pointers, the bias arguments, then (B, S,
     Hq, Hkv, D, causal, window, scale) and the TMA strides."""
     _check_bwd(fn_name, q, k, v, o, lse, do)
@@ -632,31 +629,26 @@ def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, *, causal: bool = True,
 
 
 def flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, *,
-                          causal: bool = True, scale: Optional[float] = None):
-    """Launch the dtable kernel on contiguous copies of its inputs: ``p *
-    (dp - delta)`` summed per bucket id (and over the batch) into an (Hq,
-    buckets) f32 buffer by one atomic add per (block, bucket), cast to the
-    table's dtype at the end.  The order of the atomics is not fixed.  Adds
-    one to ``flash_bwd_dtable_cuda.launches``."""
+                          causal: bool = True, scale: Optional[float] = None, delta=None):
+    """Launch the dtable kernel: ``p * (dp - delta)`` summed over the batch
+    and per bucket id, (Hq, buckets) in bf16.  Per (128 x 64, head) tile
+    into an (Hq, tiles, buckets) f32 scratch, then summed in tile order by a
+    second kernel: no atomics, the same bits on every launch.  ``delta``
+    and the in-place inputs as ``flash_bwd_dkv_cuda``'s: without ``delta``
+    the pre-pass runs first.  Adds one to ``flash_bwd_dtable_cuda.launches``
+    per call."""
     name = "flash_bwd_dtable_cuda"
     if table is None:
         raise ValueError(f"{name} needs the table")
     _check_bwd(name, q, k, v, o, lse, do)
-    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
-    bargs, keep = _bias_args(name, q, k, None, table, bucket_cfg)
-    b, s, hq, d = q.shape
-    acc = torch.zeros(table.shape, dtype=torch.float32, device=q.device)
-    fn = _fn("flash_bias_bwd", "tdx_flash_bwd_dtable_bf16",
-             [_P] * 7 + _BIAS_ARGS + [_I] * 7 + [_F, _P])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), acc.data_ptr(), *bargs, b, s, hq, k.shape[2], d,
-                 int(causal), 0, _scale(scale, d),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    hq, buckets = table.shape
+    tiles = _fn("flash_bwd", "tdx_flash_bwd_dtable_tiles", [_I])(q.shape[1])
+    part = torch.empty((hq, tiles, buckets), dtype=torch.float32, device=q.device)
+    dtable = torch.empty(table.shape, dtype=torch.bfloat16, device=q.device)
+    _launch_tma_bwd("tdx_flash_bwd_dtable_bf16", name, q, k, v, o, lse, do, delta,
+                    (part, dtable), causal, scale, None, table, bucket_cfg, None)
     flash_bwd_dtable_cuda.launches += 1
-    return acc.to(table.dtype)
+    return dtable
 
 
 flash_bwd_dbias_cuda.launches = 0
@@ -698,7 +690,7 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
     and with a bias or table its gradient (None when ``bias_grad`` is off):
     the kernels on CUDA tensors, the plain version on the CPU.  ``delta``
     (``flash_bwd_delta(o, do)``) is computed once here unless given, and
-    the dK/dV, dQ and dbias kernels read it."""
+    the dK/dV, dQ and dbias or dtable kernels read it."""
     kw = dict(causal=causal, scale=scale)
     bkw = dict(bias=bias, table=table, bucket_cfg=bucket_cfg)
     has_bias = bias is not None or table is not None
@@ -720,7 +712,8 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
         return dq, dk, dv, None
     if bias is not None:
         return dq, dk, dv, flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, **kw, delta=delta)
-    return dq, dk, dv, flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, **kw)
+    return dq, dk, dv, flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, **kw,
+                                             delta=delta)
 
 
 class _FlashAttention(torch.autograd.Function):
