@@ -27,19 +27,27 @@ Phases, each fatal:
    token at a time and in the speculative verify's 5-token blocks (rows
    past a slot's end included); then
    serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
-   random weights drawn from the seed, check the results, the slot
-   independence of a greedy stream, and that every prefill and decode step
-   went through the kernels (launch counters reset just before each run);
-   on the same model: (b) the paged engine with the prefix cache, one
-   shared system prompt, the burst twice (cold, then warm: prefix hits,
-   fewer tokens prefilled), its cold streams equal to the slab engine's
-   bit for bit; then, with the model biased to repeat its last token
-   (``copy_bias``: a random model's greedy output repeats nothing that
-   prompt lookup could draft), (c) the slab engine with ``speculate=4`` on
-   repetitive prompts (more than one token per verify; the share of
-   streams equal to ``speculate=0``'s is printed, not gated); (d) paged +
-   speculate 4 + int8 (the cache at most 0.53 of the bf16 one), and each
-   remaining decode variant's engine alone;
+   random weights drawn from the seed, in turns chunked one step a
+   dispatch, persistent (the decode loop one CUDA graph of an iteration,
+   replayed), chunked eight steps a dispatch, persistent, chunked one;
+   check the results, every persistent stream (greedy and sampled) equal
+   to the first chunked run's, one host sync per ring drain, one graph
+   replay per loop iteration, the slot independence of a greedy stream,
+   and that every prefill and decode step went through the kernels
+   (launch counters reset just before each run, replays counted); then
+   ``torch.profiler`` over one ring of decode per mode (device ms a step,
+   the card's idle share); on the same model: (b) the paged engine with
+   the prefix cache, one shared system prompt, the burst twice (cold,
+   then warm: prefix hits, fewer tokens prefilled), its cold streams equal
+   to the slab engine's bit for bit, chunked and persistent; then, with
+   the model biased to repeat its last token (``copy_bias``: a random
+   model's greedy output repeats nothing that prompt lookup could draft),
+   (c) the slab engine with ``speculate=4`` on repetitive prompts (more
+   than one token per verify; the share of streams equal to
+   ``speculate=0``'s is printed, not gated), persistent equal to chunked;
+   (d) paged + speculate 4 + int8 (the cache at most 0.53 of the bf16
+   one), persistent equal to chunked, and each remaining decode variant's
+   engine alone; so all four decode kernels also launch from a graph;
 4. hold the flash backward kernels (``flash_bwd_dkv``, its delta
    pre-pass ``flash_bwd_delta``, ``flash_bwd_dq``) and the forward's
    ``lse`` variant against their plain versions, dK/dV and dQ bit for bit
@@ -259,7 +267,23 @@ T5_BATCH, T5_SEQ = 4, 512
 # engine counters a serve run reports
 SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
                   "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
-                  "draft_tokens_accepted")
+                  "draft_tokens_accepted", "host_syncs", "ring_drains",
+                  "ring_full_drains", "loop_iterations")
+# the main serve run's decode modes, run in turns on one model: the
+# chunked engine one step a dispatch, eight, and the persistent loop (one
+# CUDA graph of an iteration, replayed)
+SERVE_MODES = (("chunked-1", {}), ("persistent", {"decode_mode": "persistent"}),
+               ("chunked-8", {"decode_chunk": 8}),
+               ("persistent", {"decode_mode": "persistent"}), ("chunked-1", {}))
+# decode steps run before, and profiled in, each mode's profile window: one
+# persistent ring of this capacity
+PROFILE_RING = 32
+# the other decode kernels' persistent engines, profiled the same way for
+# each kernel's device time a call inside the graph
+GRAPH_VARIANTS = (("paged_decode_attention", {"page_size": 16}),
+                  ("decode_attention_block", {"speculate": 4}),
+                  ("paged_decode_attention_block_int8",
+                   {"page_size": 16, "speculate": 4, "kv_dtype": "int8"}))
 # the window variants at Mistral's heads (B 1, Hq 32, Hkv 8, D 128): (S,
 # window) with a window below S and not a multiple of the 64-row tile, a
 # window at least S, the training length 8192 with Mistral's 4096, and a
@@ -857,28 +881,26 @@ def make_requests(rng, vocab, n=16, n_greedy=12, max_new=64, lo=16, hi=1536):
     return reqs
 
 
-def serve(torch, model, requests, num_slots, max_len, expect_kernels=True):
+def serve(torch, model, requests, num_slots, max_len, expect_kernels=True,
+          **engine_kw):
     """The main path: ``ServeEngine(model, ...).run(requests)``, with the
     launch counters set to 0 just before and read just after."""
     import numpy as np
-    from torchdistx_tpu_torch.ops import decode_attention as da
-    from torchdistx_tpu_torch.ops import flash_attention as fa
     from torchdistx_tpu_torch.serve import ServeEngine
 
     failures = []
-    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, **engine_kw)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    fa.flash_fwd_cuda.launches = 0
-    da.decode_attention_cuda.launches = 0
+    _reset_counters()
     t0 = time.perf_counter()
     results = engine.run(requests)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.flash_fwd_cuda.launches,
-                "decode_attention": da.decode_attention_cuda.launches}
+    got = _read_counters()
+    launches = {k: got[k] for k in ("flash_fwd", "decode_attention")}
     m = engine.metrics.to_json()
     n_layers = model.cfg.n_layers
     prefills = m["counters"]["prefill_calls"]
@@ -898,16 +920,136 @@ def serve(torch, model, requests, num_slots, max_len, expect_kernels=True):
             failures.append(f"decode launches {launches['decode_attention']} != "
                             f"{n_layers} x {steps} decode steps")
     summary = {
+        "decode_mode": engine.decode_mode, "decode_chunk": engine.decode_chunk,
         "requests": len(requests), "prefills": prefills, "decode_steps": steps,
         "launches": launches, "wall_s": wall,
         "ttft_p50_s": m["histograms"]["ttft_s"]["p50"],
         "decode_tokens_per_sec": m["derived"]["decode_tokens_per_sec"],
+        "host_ms_per_decode_step": engine.metrics.decode_s.total / steps * 1e3,
         "tokens_generated": m["counters"]["tokens_generated"],
+        "counters": {k: m["counters"][k] for k in SERVE_COUNTERS},
+        "loop_replays": engine.loop_replays,
+        "graph_captured": _graph_captured(engine),
     }
+    if engine.decode_mode == "persistent":
+        failures += _persistent_failures("serve persistent", summary)
     if model.device.type == "cuda":
         summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del engine
     return results, summary, failures
+
+
+def _graph_captured(engine):
+    """Whether a persistent engine's loop runs a captured CUDA graph."""
+    loop = getattr(engine._decode, "loop", None)
+    return loop is not None and loop.graph is not None
+
+
+def _persistent_failures(what, summary):
+    """A persistent run's loop contract: one host sync per ring drain, one
+    decode step per loop iteration, one graph replay per iteration (none
+    past the loop's end), and the iteration a captured graph."""
+    c = summary["counters"]
+    out = []
+    if c["host_syncs"] != c["ring_drains"]:
+        out.append(f"{what}: host_syncs {c['host_syncs']} != ring_drains {c['ring_drains']}")
+    if c["loop_iterations"] != c["decode_steps"]:
+        out.append(f"{what}: loop_iterations {c['loop_iterations']} != "
+                   f"decode_steps {c['decode_steps']}")
+    if summary["loop_replays"] != c["loop_iterations"]:
+        out.append(f"{what}: {summary['loop_replays']} replays != "
+                   f"{c['loop_iterations']} loop iterations")
+    if not summary["graph_captured"]:
+        out.append(f"{what}: no CUDA graph captured")
+    return out
+
+
+def _streams(results):
+    import numpy as np
+
+    return [(np.asarray(r.tokens).tolist(), r.finish_reason) for r in results]
+
+
+def serve_modes(torch, model, requests, num_slots=8, max_len=2048):
+    """Phase 3's main runs: :data:`SERVE_MODES` in turns on one model, each
+    persistent run's streams (greedy and sampled) and finish reasons equal
+    to the first chunked-1 run's, then :func:`profile_decode` per mode."""
+    failures, runs = [], []
+    ref = None
+    for name, kw in SERVE_MODES:
+        results, summary, f = serve(torch, model, requests, num_slots, max_len, **kw)
+        failures += [f"{name}: {x}" for x in f]
+        summary["mode"] = name
+        if ref is None:
+            ref = _streams(results)
+        summary["streams_equal_chunked_1"] = _streams(results) == ref
+        if name == "persistent" and not summary["streams_equal_chunked_1"]:
+            failures.append("persistent streams differ from chunked-1's")
+        print(f"serve {name}", json.dumps(summary))
+        runs.append(summary)
+    profiles = {}
+    variants = [(name, kw) for name, kw in dict(SERVE_MODES).items()]
+    variants += [(f"persistent {k}", dict(kw, decode_mode="persistent"))
+                 for k, kw in GRAPH_VARIANTS]
+    for name, kw in variants:
+        prof = profile_decode(torch, model, requests[:num_slots], num_slots, max_len, **kw)
+        if kw.get("decode_mode") == "persistent" and "by_class_ms_per_step" in prof:
+            # one decode kernel call a layer a step
+            prof["decode_kernel_device_ms_per_call"] = (
+                prof["by_class_ms_per_step"].get("decode_attention", 0.0)
+                / model.cfg.n_layers)
+        profiles[name] = prof
+        print(f"serve profile {name}", json.dumps(prof))
+    return runs, profiles, failures, results
+
+
+def profile_decode(torch, model, requests, num_slots, max_len, **engine_kw):
+    """``torch.profiler`` over one ring of decode: the requests (one a
+    slot) admitted at once, :data:`PROFILE_RING` decode steps run
+    unprofiled, then the next ones to the end profiled (a persistent
+    engine's second ring, at ``ring_capacity=PROFILE_RING``).  Device ms a
+    step is the profiler's sum of kernel and copy time; the idle share
+    is 1 - that over the window's host-clock time (the profiler's own
+    host overhead included)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    if engine_kw.get("decode_mode") == "persistent":
+        engine_kw = dict(engine_kw, ring_capacity=PROFILE_RING)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, **engine_kw)
+    for r in requests:
+        engine.submit(**r)
+    counters = engine.metrics.counters
+    while counters["decode_steps"] < PROFILE_RING:
+        engine.step()
+    torch.cuda.synchronize()
+    first = counters["decode_steps"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while engine.step():
+            pass
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = counters["decode_steps"] - first
+    cuda = torch.autograd.DeviceType.CUDA
+    by_class = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == cuda:
+            cls = _kernel_class(e.key) if "decode_" not in e.key else "decode_attention"
+            by_class[cls] = (by_class.get(cls, 0.0)
+                             + getattr(e, "self_device_time_total", 0.0) / 1e3 / max(steps, 1))
+    busy = sum(by_class.values())
+    del engine
+    if not steps:
+        return {"decode_steps": 0, "device_ms_per_step": "not measured"}
+    out = {"decode_steps": steps, "wall_ms_per_step": wall_ms / steps}
+    if not busy:
+        out["device_ms_per_step"] = "not measured"
+        return out
+    out["device_ms_per_step"] = busy
+    out["device_idle_share"] = max(0.0, 1.0 - busy * steps / wall_ms)
+    out["by_class_ms_per_step"] = dict(sorted(by_class.items(), key=lambda kv: -kv[1]))
+    return out
 
 
 def run_engine(torch, engine, requests):
@@ -915,7 +1057,9 @@ def run_engine(torch, engine, requests):
     counter set to 0 just before and read just after, and the engine's
     counters of this run alone.  Returns (results, summary)."""
     before = dict(engine.metrics.counters)
+    replays = engine.loop_replays
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counters()
     t0 = time.perf_counter()
     results = engine.run(requests)
@@ -925,10 +1069,13 @@ def run_engine(torch, engine, requests):
     counters = {k: v - before.get(k, 0) for k, v in engine.metrics.counters.items()}
     cold = sum(1 for r in results for name, _, data in r.events
                if name == "prefill" and data.get("cold"))
-    summary = {"requests": len(requests), "wall_s": wall, "launches": launches,
-               "cold_prefills": cold,
+    summary = {"decode_mode": engine.decode_mode, "requests": len(requests),
+               "wall_s": wall, "launches": launches, "cold_prefills": cold,
                "decode_tokens_per_sec": counters["tokens_decoded"] / wall,
-               "counters": {k: counters[k] for k in SERVE_COUNTERS}}
+               "counters": {k: counters[k] for k in SERVE_COUNTERS},
+               "loop_replays": engine.loop_replays - replays,
+               "graph_captured": _graph_captured(engine),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     return results, summary
 
 
@@ -1049,6 +1196,32 @@ def serve_variants(torch, model, rng, num_slots=8, max_len=2048):
     report["b_paged_prefix"] = {"cold": cs, "warm": ws, "slab": rs_,
                                 "cold_equals_slab_bitwise": same}
     print("b. paged + prefix cache", json.dumps(report["b_paged_prefix"]))
+
+    # -- b, persistent: the same burst through the loop's CUDA graph ----------
+    paged = engine(page_size=16, prefix_cache=True, decode_mode="persistent")
+    pcold, pcs = run_engine(torch, paged, reqs)
+    pwarm, pws = run_engine(torch, paged, reqs)
+    del paged
+    slab = engine(decode_mode="persistent")
+    pref, prs = run_engine(torch, slab, reqs)
+    del slab
+    for what, res, summ in (("persistent paged cold", pcold, pcs),
+                            ("persistent paged warm", pwarm, pws),
+                            ("persistent slab", pref, prs)):
+        failures += _greedy_failures(what, reqs, res, vocab)
+        failures += _persistent_failures(what, summ)
+        key = "decode_attention" if what == "persistent slab" else "paged_decode_attention"
+        failures += _launch_failures(what, summ, {
+            key: n_layers * summ["counters"]["decode_steps"],
+            "flash_fwd": n_layers * summ["cold_prefills"]})
+    if not pws["counters"]["prefix_hit_tokens"] > 0:
+        failures.append(f"persistent paged warm pass: no prefix hit {pws['counters']}")
+    equal = {"cold_equals_slab_persistent": _streams(pcold) == _streams(pref),
+             "slab_persistent_equals_chunked": _streams(pref) == _streams(ref)}
+    failures += [f"b persistent: not {k}" for k, v in equal.items() if not v]
+    report["b_paged_prefix_persistent"] = dict(cold=pcs, warm=pws, slab=prs, **equal)
+    print("b. paged + prefix cache, persistent",
+          json.dumps(report["b_paged_prefix_persistent"]))
     with copy_bias(torch, model):
         failures += _speculative_variants(torch, engine, rng, n_layers, vocab,
                                           num_slots, report)
@@ -1073,8 +1246,18 @@ def _speculative_variants(torch, engine, rng, n_layers, vocab, num_slots, report
         failures.append(f"speculate 4: {per_verify} tokens per verify")
     share = float(np.mean([np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens))
                            for a, b in zip(spec, base)]))
+    specp, sps = run_engine(torch, engine(speculate=4, spec_ngram=2,
+                                          decode_mode="persistent"), reqs)
+    failures += _greedy_failures("persistent speculate 4", reqs, specp, vocab)
+    failures += _persistent_failures("persistent speculate 4", sps)
+    failures += _launch_failures("persistent speculate 4", sps, {
+        "decode_attention_block": n_layers * sps["counters"]["decode_steps"]})
+    sps["streams_equal_chunked"] = _streams(specp) == _streams(spec)
+    if not sps["streams_equal_chunked"]:
+        failures.append("persistent speculate 4 differs from chunked speculate 4")
     report["c_speculate"] = {"spec": ss, "speculate0": bs, "tokens_per_verify": per_verify,
-                             "greedy_share_equal_to_speculate0": share}
+                             "greedy_share_equal_to_speculate0": share,
+                             "spec_persistent": sps}
     print("c. speculate 4", json.dumps(report["c_speculate"]))
 
     # -- d. paged + speculate 4 + int8 -------------------------------------------
@@ -1092,6 +1275,17 @@ def _speculative_variants(torch, engine, rng, n_layers, vocab, num_slots, report
         "paged_decode_attention_block_int8": n_layers * ds["counters"]["decode_steps"]})
     if not ds["kv_cache_bytes"] <= 0.53 * bf16_bytes:
         failures.append(f"int8 cache {ds['kv_cache_bytes']} > 0.53 x {bf16_bytes}")
+    outp, dps = run_engine(torch, engine(page_size=16, speculate=4, kv_dtype="int8",
+                                         decode_mode="persistent"), reqs)
+    failures += _greedy_failures("persistent paged + speculate 4 + int8", reqs, outp, vocab)
+    failures += _persistent_failures("persistent paged + speculate 4 + int8", dps)
+    failures += _launch_failures(
+        "persistent paged + speculate 4 + int8", dps, {
+            "paged_decode_attention_block_int8": n_layers * dps["counters"]["decode_steps"]})
+    dps["streams_equal_chunked"] = _streams(outp) == _streams(out)
+    if not dps["streams_equal_chunked"]:
+        failures.append("persistent paged + speculate 4 + int8 differs from chunked")
+    ds["persistent"] = dps
     report["d_paged_spec_int8"] = ds
     print("d. paged + speculate 4 + int8", json.dumps(ds))
 
@@ -1115,8 +1309,10 @@ def _speculative_variants(torch, engine, rng, n_layers, vocab, num_slots, report
 def _serve_runs(variants):
     """Every serve-run summary of ``serve_variants``'s report."""
     b, c = variants["b_paged_prefix"], variants["c_speculate"]
-    return ([b["cold"], b["warm"], b["slab"], c["spec"], c["speculate0"],
-             variants["d_paged_spec_int8"]] + list(variants["alone"].values()))
+    bp, d = variants["b_paged_prefix_persistent"], variants["d_paged_spec_int8"]
+    return ([b["cold"], b["warm"], b["slab"], bp["cold"], bp["warm"], bp["slab"],
+             c["spec"], c["speculate0"], c["spec_persistent"], d, d["persistent"]]
+            + list(variants["alone"].values()))
 
 
 def _tokens_per_verify(counters, k):
@@ -3055,14 +3251,14 @@ def main(argv=None) -> int:
               f"params, init {time.perf_counter() - t0:.1f} s")
         rng = np.random.RandomState(args.seed)
         requests = make_requests(rng, model.cfg.vocab_size)
-        results, summary, f3 = serve(torch, model, requests, 8, 2048)
+        serve_runs, profiles, f3, results = serve_modes(torch, model, requests)
         failures += f3
-        print("serve", json.dumps(summary))
         same, idx = slot_independence(torch, model, requests, results, 8, 2048)
         print(f"slot independence (request {idx} alone vs in batch): {same}")
         if not same:
             failures.append(f"request {idx} alone differs from its batch stream")
-        report["serve"] = summary
+        report["serve"], report["serve_runs"] = serve_runs[0], serve_runs
+        report["serve_profiles"] = profiles
         with torch.no_grad():
             variants, f3 = serve_variants(torch, model, np.random.RandomState(args.seed + 4))
         failures += f3
@@ -3343,12 +3539,13 @@ def main(argv=None) -> int:
         return {f"{k}_d64": brep64[f"{key}{k}"] for k in ("ms", "bound_ms")}
 
     mixtral_fwd = mixtral_serve["launches"].get("flash_fwd", 0)
+    served_fwd = sum(r["launches"]["flash_fwd"] for r in serve_runs)
     fwd = _kernel_entry(
         "flash_fwd", "torchdistx_tpu_torch/csrc/flash_fwd.cu",
         "torchdistx_tpu/ops/flash_attention.py:141",
-        summary["launches"]["flash_fwd"] + mixtral_fwd + trained("flash_fwd_lse"), rep,
+        served_fwd + mixtral_fwd + trained("flash_fwd_lse"), rep,
         max(r["max_abs_err"] for r in flash_rows))
-    fwd.update(launches_plain=summary["launches"]["flash_fwd"], launches_mixtral=mixtral_fwd,
+    fwd.update(launches_plain=served_fwd, launches_mixtral=mixtral_fwd,
                launches_lse=trained("flash_fwd_lse"), lse_ms=brep["lse_ms"],
                lse_plain_ms=brep["lse_plain_ms"],
                lse_library_ms=brep["lse_library_ms"],
@@ -3390,7 +3587,7 @@ def main(argv=None) -> int:
     # the decode kernels: launches summed over the serve runs (phase 3 and
     # b-d); the bf16 one-token kernel timed at DECODE_POSITIONS as before,
     # every variant at VARIANT_POSITIONS
-    served = ([summary["launches"]] + [r["launches"] for r in _serve_runs(variants)]
+    served = ([r["launches"] for r in serve_runs] + [r["launches"] for r in _serve_runs(variants)]
               + [mixtral_serve["launches"]])
 
     def decode_entry(name, dt, row):

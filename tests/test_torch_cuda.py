@@ -981,3 +981,98 @@ def test_block_decode_splits_at_their_edges(cuda, hq, hkv, s, ps, quant):
     torch.testing.assert_close(out, ref, **TOL)
     diff = (out.float() - ref.float()).flatten(2).norm(dim=-1)
     assert bool((diff <= 1e-2 * ref.float().flatten(2).norm(dim=-1)).all())
+
+
+# -- persistent decode: the loop as a CUDA graph --------------------------------
+
+
+def _graph_llama(cuda):
+    """A small Llama the decode kernels take (head_dim 64), bf16 on the card."""
+    tt.manual_seed(3)
+    return tt.models.Llama.from_name("tiny", dim=256, n_heads=4, n_kv_heads=2,
+                                     dtype=torch.bfloat16, device=cuda)
+
+
+def _graph_requests(n_new=12):
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    return [{"prompt": rs.randint(0, 256, n).astype(np.int32), "max_new_tokens": n_new,
+             "temperature": 0.0 if i % 2 else 0.9, "seed": 40 + i}
+            for i, n in enumerate((5, 17, 9, 30, 12, 3))]
+
+
+def test_noise_bits_equal_on_cpu_and_cuda(cuda):
+    from torchdistx_tpu_torch.generation import _noise_bits
+
+    seeds = torch.tensor([0, 7, 2**31 - 1, 123456789])
+    steps = torch.tensor([0, 1, 2**32 - 1, 77])
+    cpu = _noise_bits(seeds, steps, 50257)
+    dev = _noise_bits(seeds.to(cuda), steps.to(cuda), 50257)
+    assert torch.equal(cpu, dev.cpu())
+
+
+@pytest.mark.parametrize("kw", [{}, dict(page_size=8), dict(speculate=2),
+                                dict(page_size=8, speculate=2, kv_dtype="int8"),
+                                dict(eos_token=7, ring_capacity=4)],
+                         ids=["slab", "paged", "spec", "paged-spec-int8", "eos-ring4"])
+def test_persistent_streams_equal_chunked_on_the_card(cuda, kw):
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _graph_llama(cuda)
+    common = dict(num_slots=3, max_len=64, prefill_buckets=(32,), **kw)
+    ring = common.pop("ring_capacity", None)
+    base = ServeEngine(model, **common).run(_graph_requests())
+    engine = ServeEngine(model, decode_mode="persistent", ring_capacity=ring, **common)
+    out = engine.run(_graph_requests())
+    for a, b in zip(base, out):
+        assert b.tokens.tolist() == a.tokens.tolist()
+        assert b.finish_reason == a.finish_reason
+    c = engine.metrics.counters
+    assert engine._decode.loop.graph is not None
+    assert c["host_syncs"] == c["ring_drains"]
+    assert engine.loop_replays == c["loop_iterations"] == c["decode_steps"]
+
+
+def test_launch_counters_count_replays(cuda):
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _graph_llama(cuda)
+    engine = ServeEngine(model, num_slots=3, max_len=64, prefill_buckets=(32,),
+                         decode_mode="persistent")
+    engine.run(_graph_requests(4))  # captures the graph
+    before = tdec.decode_attention_cuda.launches, tflash.flash_fwd_cuda.launches
+    steps, prefills = (engine.metrics.counters[k] for k in ("decode_steps", "prefill_calls"))
+    engine.run(_graph_requests())
+    torch.cuda.synchronize()
+    steps = engine.metrics.counters["decode_steps"] - steps
+    prefills = engine.metrics.counters["prefill_calls"] - prefills
+    n = model.cfg.n_layers
+    assert steps > 0
+    assert tdec.decode_attention_cuda.launches - before[0] == n * steps
+    assert tflash.flash_fwd_cuda.launches - before[1] == n * prefills
+
+
+def test_a_body_that_syncs_fails_to_capture(cuda):
+    """Capture of an iteration that reads back (``.item()``) raises, and
+    nothing runs in its place: no replay, the state as it was."""
+    from torchdistx_tpu_torch.serve.graph_loop import GraphLoop
+
+    cursor = torch.zeros(1, dtype=torch.int64, device=cuda)
+    done = torch.zeros(1, dtype=torch.bool, device=cuda)
+    x = torch.zeros(4, device=cuda)
+
+    def body():
+        x.add_((cursor < 8).float())
+        cursor.add_((cursor < 8).long())
+        done.fill_(x.sum().item() > 100)
+
+    loop = GraphLoop(cursor=cursor, capacity=8, done=done)
+    before = tdec.decode_attention_cuda.launches
+    with pytest.raises(RuntimeError):
+        loop.run(body, 3, 3)
+    torch.cuda.synchronize()
+    assert loop.graph is None and loop.replays == 0
+    assert int(cursor.item()) == 0 and not bool(done.item())
+    assert torch.equal(x, torch.zeros_like(x))
+    assert tdec.decode_attention_cuda.launches == before

@@ -118,12 +118,20 @@ def test_submit_validation(models):
 
 # arguments the port has taken since: each is accepted with a valid value
 _PORTED_SINCE = {"page_size": 8, "num_pages": None, "kv_dtype": "int8",
-                 "prefix_cache": False, "spec_ngram": 3}
+                 "prefix_cache": False, "spec_ngram": 3, "ring_capacity": 8}
 
 
 @pytest.mark.parametrize("name", _UNPORTED + tuple(_PORTED_SINCE))
 def test_unported_argument_raises(models, name):
     _, tm = models
+    if name == "ring_capacity":
+        # persistent mode's: refused without it, taken with it
+        with pytest.raises(ValueError, match="requires decode_mode='persistent'"):
+            ServeEngine(tm, max_len=32, ring_capacity=8)
+        engine = ServeEngine(tm, max_len=32, decode_mode="persistent",
+                             ring_capacity=8)
+        assert engine.ring_capacity == 8
+        return
     if name in _PORTED_SINCE:
         ServeEngine(tm, max_len=32, **{name: _PORTED_SINCE[name]})
         return
@@ -134,9 +142,22 @@ def test_unported_argument_raises(models, name):
 @pytest.mark.parametrize("kw", [dict(decode_mode="persistent"),
                                 dict(speculate=2, decode_mode="persistent")])
 def test_unported_modes_raise(models, kw):
+    """Both persistent modes, once unported, construct and run: streams
+    equal to the chunked engine's."""
     _, tm = models
-    with pytest.raises(NotImplementedError):
-        ServeEngine(tm, max_len=32, **kw)
+    reqs = _requests(7, (6, 9, 4), max_new=6) + _requests(8, (5,), max_new=6,
+                                                          temperature=0.9)
+    common = dict(num_slots=2, max_len=32, prefill_buckets=(16,), eos_token=EOS)
+    chunked = ServeEngine(tm, **dict(kw, decode_mode="chunked"), **common).run(reqs)
+    engine = ServeEngine(tm, **kw, **common)
+    assert engine.decode_mode == "persistent" and engine.ring_capacity == 32
+    out = engine.run(reqs)
+    for a, b in zip(chunked, out):
+        np.testing.assert_array_equal(b.tokens, a.tokens)
+        assert b.finish_reason == a.finish_reason
+    assert "persistent_stream" in _UNPORTED
+    with pytest.raises(NotImplementedError, match="persistent_stream"):
+        ServeEngine(tm, max_len=32, persistent_stream=True, **kw)
 
 
 def test_engine_device_must_match_model(models):

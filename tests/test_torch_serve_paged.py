@@ -6,9 +6,10 @@ Tiny f32 Llama (GQA), the JAX model's weights carried into the port.
 Greedy token streams and finish reasons must be EQUAL to the JAX engine's,
 and so must the counters the features move: ``prefix_hit_tokens``,
 ``pages_evicted``, ``tokens_prefilled``, ``decode_steps`` and the draft
-economy.  Chunked decode only (persistent mode is not ported); the JAX
-engine's own failures of this tree are in its persistent mode and in slab
-internals no stream here depends on.
+economy.  Chunked decode here; the persistent mode's paged, speculative
+and int8 runs are held in ``tests/test_torch_serve_persistent.py``.  The
+JAX engine's own failures of this tree are in tests whose EOS premise no
+stream here depends on.
 """
 
 import numpy as np

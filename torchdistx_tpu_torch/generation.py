@@ -4,16 +4,21 @@ uses; encoder-decoder generation, ``generate_encdec``, is not ported yet
 and raises).
 
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` loops are Python
-loops here; the caches are updated in place.
+loops here; the caches are updated in place.  Its ``lax.while_loop`` (the
+persistent decode) is one guarded iteration over a device-resident loop
+state, captured in a CUDA graph and replayed (``serve.graph_loop``); on the
+CPU the same iteration runs eagerly.
 
 **Sampling.**  Greedy rows take the argmax, exactly as the JAX package does,
 so greedy token ids agree with it wherever the logits do.  A sampled row
-draws Gumbel noise from a ``torch.Generator`` keyed on ``(seed, step)``
-(``utils.rng.derive_seed``) and takes the argmax of the tempered, filtered
-logits plus that noise.  A request's sampled stream therefore depends only
-on its seed and token index, never on its slot, its batch-mates or the
-decode chunking — but it cannot reproduce ``jax.random``'s bits, and CPU
-and CUDA generators give different streams from the same key.
+takes the argmax of the tempered, filtered logits plus Gumbel noise whose
+bits come from a counter-based hash of ``(seed, step, vocab index)``:
+Threefry-2x32 (20 rounds) written in integer tensor ops, so the CPU and
+CUDA give the same bits.  Every row computes its noise and ``torch.where``
+picks the drawn or the greedy token: the sampler reads nothing back and
+can be captured.  A request's sampled stream depends only on its seed and
+token index, never on its slot, its batch-mates or the decode chunking; it
+does not reproduce ``jax.random``'s bits.
 """
 
 from __future__ import annotations
@@ -23,7 +28,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .utils.rng import derive_seed
 
 __all__ = ["generate", "generate_encdec"]
 
@@ -53,60 +57,93 @@ def _check_sampling_args(top_k, top_p) -> None:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
 
-def _gumbel(n: int, seed: int, step: int, device) -> torch.Tensor:
-    g = torch.Generator(device=device)
-    g.manual_seed(derive_seed(seed, step))
-    u = torch.rand(n, generator=g, device=device, dtype=torch.float32)
+_MASK32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def _rotl32(x, r: int):
+    return ((x << r) & _MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher, 20 rounds (Salmon et al., SC'11; the
+    block ``jax.random`` is built on), on 32-bit lanes held in int64
+    tensors: add, xor, shift and mask only, and no product, so the CPU and
+    CUDA give the same bits.  Key ``(k0, k1)``, counter ``(x0, x1)``, all
+    in ``[0, 2^32)`` and broadcast together; returns the two output
+    words."""
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0 = (x0 + k0) & _MASK32
+    x1 = (x1 + k1) & _MASK32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
+
+
+def _noise_bits(seeds, steps, vocab: int):
+    """(B, vocab) int64 random words in ``[0, 2^32)``: lanes ``2j`` and
+    ``2j + 1`` of row ``b`` are the two words of the Threefry block keyed
+    on ``(seeds[b], steps[b])`` at counter ``(j, 0)``.  A lane's bits
+    depend on its row's seed and step and its own index alone."""
+    k0 = (seeds.long() & _MASK32)[:, None]
+    k1 = (steps.long() & _MASK32)[:, None]
+    j = torch.arange((vocab + 1) // 2, dtype=torch.int64, device=seeds.device)[None, :]
+    y0, y1 = threefry2x32(k0, k1, j, torch.zeros_like(j))
+    return torch.stack((y0, y1), dim=-1).reshape(seeds.shape[0], -1)[:, :vocab]
+
+
+def _gumbel_noise(seeds, steps, vocab: int):
+    """(B, vocab) f32 Gumbel noise ``-log(-log(u))`` from the top 23 bits
+    of :func:`_noise_bits`: ``u = (m + 1/2) / 2^23`` lies strictly inside
+    (0, 1) and is exact in f32."""
+    u = ((_noise_bits(seeds, steps, vocab) >> 9).float() + 0.5) * 2.0 ** -23
     return -torch.log(-torch.log(u))
 
 
 def _make_slot_sampler(top_k: Optional[int] = None,
                        top_p: Optional[float] = None):
     """Per-row sampler: ``sample(logits, temps, seeds, steps)`` with
-    ``logits`` (B, V) and host arrays ``temps``/``seeds``/``steps`` (B,).
-    Rows with ``temps[b] <= 0`` are greedy; the rest sample at their own
-    temperature with noise keyed on ``(seeds[b], steps[b])``.  Returns
-    (B,) int64 token ids on ``logits.device``."""
+    ``logits`` (B, V) and ``temps`` (f32), ``seeds``, ``steps`` (integer)
+    (B,) tensors on ``logits.device``.  Rows with ``temps[b] <= 0`` take the
+    argmax; the rest take the argmax of their tempered, filtered logits
+    plus Gumbel noise keyed on ``(seeds[b], steps[b])``.  Every row computes
+    both; nothing is read back to the host.  Returns (B,) int64 token ids."""
 
     def sample(logits, temps, seeds, steps):
         greedy = torch.argmax(logits, dim=-1)
-        temps = np.asarray(temps, np.float32)
-        rows = np.nonzero(temps > 0.0)[0]
-        if rows.size == 0:
-            return greedy
-        t = torch.as_tensor(np.maximum(temps, 1e-6), device=logits.device)
-        scaled = logits.float() / t[:, None]
+        scaled = logits.float() / temps.float().clamp_min(1e-6)[:, None]
         if top_k is not None:
             scaled = _apply_top_k(scaled, top_k)
         if top_p is not None:
             scaled = _apply_top_p(scaled, top_p)
-        noise = torch.zeros_like(scaled)
-        for r in rows:
-            noise[r] = _gumbel(scaled.shape[-1], int(seeds[r]), int(steps[r]),
-                               logits.device)
+        noise = _gumbel_noise(seeds, steps, scaled.shape[-1])
         drawn = torch.argmax(scaled + noise, dim=-1)
-        sampled = torch.as_tensor(temps > 0.0, device=logits.device)
-        return torch.where(sampled, drawn, greedy)
+        return torch.where(temps > 0.0, drawn, greedy)
 
     return sample
 
 
 def _make_decode_body(model, sampler, *, eos_token: Optional[int],
                       max_len: int):
-    """One batched ``forward_decode`` + slot-sampler iteration over the
-    carry ``(kv, tok, pos, stp, fin)`` (device tensors, the cache updated in
-    place), with the on-device finish rules: EOS, budget, and
-    ``pos + 1 >= max_len``; a finished slot freezes (token, position and
-    step held, position clamped like ``SlotKVCache.positions()``).
-    ``key_steps`` are the host-side sampler steps of this iteration: for
-    every live row they equal ``stp`` (a row that froze stays frozen).
-    ``extra`` is forwarded to ``forward_decode``: the page tables of a paged
-    cache."""
+    """The ONE decode iteration both decode modes share: one batched
+    ``forward_decode`` + slot-sampler step over the carry ``(kv, tok, pos,
+    stp, fin)`` (device tensors, the cache updated in place), with the
+    on-device finish rules: EOS, budget, and ``pos + 1 >= max_len``; a
+    finished slot freezes (token, position and step held, position clamped
+    like ``SlotKVCache.positions()``).  The sampler keys on the carried
+    step ``stp``.  ``temps``, ``seeds`` and ``budgets`` are (B,) device
+    tensors; ``extra`` is forwarded to ``forward_decode``: the page tables
+    of a paged cache."""
 
-    def step(carry, *, temps, seeds, key_steps, budgets, extra=()):
+    def step(carry, *, temps, seeds, budgets, extra=()):
         kv, tok, pos, stp, fin = carry
         logits, kv = model.forward_decode(tok[:, None], kv, pos, *extra)
-        sampled = sampler(logits[:, -1, :], temps, seeds, key_steps)
+        sampled = sampler(logits[:, -1, :], temps, seeds, stp)
         new_tok = torch.where(fin, tok, sampled)
         new_stp = torch.where(fin, stp, stp + 1)
         if eos_token is not None:
@@ -126,24 +163,21 @@ def _make_fused_decode(model, sampler, *, eos_token: Optional[int],
                        max_len: int, decode_chunk: int):
     """``decode_chunk`` decode iterations in a Python loop with no host sync
     inside it.  Returns ``run(kv, toks, positions, temps, seeds, steps,
-    budgets, finished, *extra) -> (kv, (K, B) token block)``; ``toks``,
-    ``positions``, ``budgets`` and ``finished`` are device tensors,
-    ``temps``/``seeds``/``steps`` host arrays.  ``extra`` is empty for the
-    slab; the paged engine passes its device page tables there, invariant
-    over the chunk (a request's whole footprint is allocated at admission)."""
+    budgets, finished, *extra) -> (kv, (K, B) token block)``, every input
+    a device tensor.  ``extra`` is empty for the slab; the paged engine
+    passes its device page tables there, invariant over the chunk (a
+    request's whole footprint is allocated at admission)."""
     step = _make_decode_body(model, sampler, eos_token=eos_token,
                              max_len=max_len)
 
     @torch.no_grad()
     def run(kv, toks, positions, temps, seeds, steps, budgets, finished,
             *extra):
-        steps = np.asarray(steps, np.int64)
-        stp = torch.as_tensor(steps, device=toks.device)
-        carry = (kv, toks, positions, stp, finished)
+        carry = (kv, toks, positions, steps, finished)
         block = []
-        for j in range(decode_chunk):
-            carry = step(carry, temps=temps, seeds=seeds,
-                         key_steps=steps + j, budgets=budgets, extra=extra)
+        for _ in range(decode_chunk):
+            carry = step(carry, temps=temps, seeds=seeds, budgets=budgets,
+                         extra=extra)
             block.append(carry[1])
         return carry[0], torch.stack(block)
 
@@ -169,18 +203,17 @@ def _make_spec_decode_body(model, sampler, *, eos_token: Optional[int],
        block, remaining budget, cache end), so a slot finishes only at the
        last token of an iteration.
 
-    ``step(carry, *, temps, seeds, key_steps, budgets, extra)`` takes the
-    carry ``(kv, tok, pos, stp, fin, hist)`` and returns ``(carry, y_block,
+    ``step(carry, *, temps, seeds, budgets, extra)`` takes the carry
+    ``(kv, tok, pos, stp, fin, hist)`` and returns ``(carry, y_block,
     cnt)``: the (B, K+1) verified tokens and the per-slot emitted count (0
-    for frozen slots).  ``key_steps`` are the host sampler steps: a live
-    sampled row advances exactly one token per iteration, so they are the
-    dispatch's steps plus the iteration index."""
+    for frozen slots).  The sampler keys on the carried step ``stp``: a
+    live sampled row advances exactly one token per iteration."""
     if speculate < 1:
         raise ValueError(f"speculate must be >= 1, got {speculate}")
     if ngram < 1:
         raise ValueError(f"ngram must be >= 1, got {ngram}")
 
-    def step(carry, *, temps, seeds, key_steps, budgets, extra=()):
+    def step(carry, *, temps, seeds, budgets, extra=()):
         kv, tok, pos, stp, fin, hist = carry
         b = tok.shape[0]
         dev = tok.device
@@ -204,13 +237,12 @@ def _make_spec_decode_body(model, sampler, *, eos_token: Optional[int],
         # -- verify: one (B, K+1) forward through slot_cached_attention
         qtok = torch.cat([tok[:, None], draft.to(tok.dtype)], dim=1)
         logits, kv = model.forward_decode(qtok, kv, pos, *extra)
-        y1 = sampler(logits[:, 0, :], temps, seeds, key_steps)
+        y1 = sampler(logits[:, 0, :], temps, seeds, stp)
         gre = torch.argmax(logits, dim=-1).to(tok.dtype)
         y_block = torch.cat([y1.to(tok.dtype)[:, None], gre[:, 1:]], dim=1)
 
         # -- accept: longest draft prefix matching the greedy targets
-        greedy = torch.as_tensor(np.asarray(temps) <= 0.0, device=dev)
-        m = (qtok[:, 1:] == y_block[:, :speculate]) & greedy[:, None]
+        m = (qtok[:, 1:] == y_block[:, :speculate]) & (temps <= 0.0)[:, None]
         acc = torch.cumprod(m.long(), dim=1).sum(dim=1)
         e = acc + 1
         jj = torch.arange(1, speculate + 2, device=dev)[None, :]
@@ -252,9 +284,9 @@ def _make_fused_spec_decode(model, sampler, *, eos_token: Optional[int],
     """``decode_chunk`` speculative iterations (``_make_spec_decode_body``)
     with no host sync inside.  Returns ``run(kv, toks, positions, hist,
     temps, seeds, steps, budgets, finished, *extra) -> (kv, (chunk, B, K+1)
-    token blocks, (chunk, B) counts, hist)``: ``hist`` the (B, max_len)
-    device history with every emitted token in place, the next dispatch's
-    input."""
+    token blocks, (chunk, B) counts, hist)``, every input a device tensor:
+    ``hist`` the (B, max_len) history with every emitted token in place, the
+    next dispatch's input."""
     step = _make_spec_decode_body(model, sampler, eos_token=eos_token,
                                   max_len=max_len, speculate=speculate,
                                   ngram=ngram)
@@ -262,19 +294,215 @@ def _make_fused_spec_decode(model, sampler, *, eos_token: Optional[int],
     @torch.no_grad()
     def run(kv, toks, positions, hist, temps, seeds, steps, budgets,
             finished, *extra):
-        steps = np.asarray(steps, np.int64)
-        stp = torch.as_tensor(steps, device=toks.device)
-        carry = (kv, toks, positions, stp, finished, hist)
+        carry = (kv, toks, positions, steps, finished, hist)
         ys, cs = [], []
-        for j in range(decode_chunk):
+        for _ in range(decode_chunk):
             carry, y_block, cnt = step(carry, temps=temps, seeds=seeds,
-                                       key_steps=steps + j, budgets=budgets,
-                                       extra=extra)
+                                       budgets=budgets, extra=extra)
             ys.append(y_block)
             cs.append(cnt)
         return carry[0], torch.stack(ys), torch.stack(cs), carry[5]
 
     return run
+
+
+class _PersistentDecode:
+    """The persistent decode of ``_make_persistent_decode`` /
+    ``_make_persistent_spec_decode``: the SAME decode body the chunked mode
+    runs, iterated until every slot has finished or the output ring is
+    full, over a loop state that lives on the device at fixed addresses.
+
+    Loop state: the carry (``tok``, ``pos``, ``stp``, ``fin``, and the
+    caller's ``hist`` for speculation), the ring (``(ring_capacity, B)``
+    tokens and a ``valid`` mask, True where the slot was live when the
+    iteration sampled, the finishing token included; speculation keeps a
+    ``(ring_capacity, B, K+1)`` block ring and a ``(ring_capacity, B)``
+    count ring, ``cnts > 0`` being the valid mask), the cursor ``it`` and
+    the static inputs (``temps``, ``seeds``, ``budgets``, page tables).
+    One iteration is guarded by ``go = ~all(fin) & (it < ring_capacity)``:
+    an iteration past the fixpoint changes no carry, ring row or cursor (it
+    only rewrites each slot's next row of the cache with what the next live
+    iteration writes there, as the chunked engine's frozen steps do), so
+    the iteration count equals the JAX ``while_loop``'s.  The ring is
+    linear per call: a request outliving it continues from its carry at the
+    next call.
+
+    ``serve.graph_loop.GraphLoop`` runs the iteration: on CUDA one
+    iteration captured in a CUDA graph and replayed, on the CPU the same
+    iteration eagerly.  A call takes the host arrays of the JAX program's
+    inputs (``hist`` a device tensor or None), stages them into the static
+    state, splices ``firsts`` (slot -> (1,) device token: the prefill's
+    first tokens the host has not fetched) into ``tok``, and computes the
+    initial finish mask ON DEVICE, ``~active | steps >= budgets | tok ==
+    eos``; ``active`` must carry the cache-full rule from the unclamped host
+    positions.  It returns ``(kv, ring, valid, iterations)`` device tensors,
+    the rings cut to the host's bound on the iterations (the rows past the
+    cursor are zeros).  The cache tensors and ``hist`` are held by address:
+    passing others after the first call raises."""
+
+    def __init__(self, step, *, eos_token: Optional[int], max_len: int,
+                 ring_capacity: int, speculate: int = 0):
+        if ring_capacity < 1:
+            raise ValueError(f"ring_capacity must be >= 1, got {ring_capacity}")
+        self.step = step
+        self.eos_token = eos_token
+        self.max_len = int(max_len)
+        self.ring_capacity = int(ring_capacity)
+        self.speculate = int(speculate)
+        self.loop = None  # serve.graph_loop.GraphLoop, at the first call
+
+    @property
+    def replays(self) -> int:
+        """Iterations launched so far (CUDA graph replays on the card)."""
+        return 0 if self.loop is None else self.loop.replays
+
+    def _allocate(self, kv, hist, b: int, tables, device) -> None:
+        from .serve.graph_loop import GraphLoop
+
+        cuda = device.type == "cuda"
+        ring_shape = (self.ring_capacity, b)
+        if self.speculate:
+            ring_shape += (self.speculate + 1,)
+        # host staging: tok, pos, stp, budgets, seeds, active in one pinned
+        # buffer, one copy per call
+        self._host_ints = torch.zeros((6, b), dtype=torch.int64, pin_memory=cuda)
+        self._host_temps = torch.zeros(b, dtype=torch.float32, pin_memory=cuda)
+        self._ints = torch.zeros((6, b), dtype=torch.int64, device=device)
+        self.tok, self.pos, self.stp, self.budgets, self.seeds, self.active = self._ints
+        self.temps = torch.zeros(b, dtype=torch.float32, device=device)
+        self.fin = torch.zeros(b, dtype=torch.bool, device=device)
+        self.ring = torch.zeros(ring_shape, dtype=torch.int64, device=device)
+        self.valid = torch.zeros(ring_shape[:2],
+                                 dtype=torch.int64 if self.speculate else torch.bool,
+                                 device=device)
+        self.it = torch.zeros(1, dtype=torch.int64, device=device)
+        self.done = torch.zeros(1, dtype=torch.bool, device=device)
+        self.tables = self._host_tables = None
+        if tables is not None:
+            tables = np.asarray(tables)
+            self._host_tables = torch.zeros(tables.shape, dtype=torch.int32,
+                                            pin_memory=cuda)
+            self.tables = torch.zeros(tables.shape, dtype=torch.int32, device=device)
+        self.kv, self.hist = kv, hist
+        self._held = self._addresses(kv, hist)
+        self.loop = GraphLoop(cursor=self.it, capacity=self.ring_capacity,
+                              done=self.done)
+
+    @staticmethod
+    def _addresses(kv, hist):
+        ptrs = [t.data_ptr() for entry in kv for t in entry]
+        return ptrs + ([] if hist is None else [hist.data_ptr()])
+
+    def _iteration(self) -> None:
+        """One guarded iteration over the static state, in place."""
+        fin, it, cap = self.fin, self.it, self.ring_capacity
+        go = ~fin.all() & (it[0] < cap)
+        extra = () if self.tables is None else (self.tables,)
+        carry = (self.kv, self.tok, self.pos, self.stp, fin)
+        if self.speculate:
+            carry, row, mark = self.step(carry + (self.hist,), temps=self.temps,
+                                         seeds=self.seeds, budgets=self.budgets,
+                                         extra=extra)
+        else:
+            live = ~fin
+            carry = self.step(carry, temps=self.temps, seeds=self.seeds,
+                              budgets=self.budgets, extra=extra)
+            row, mark = carry[1], live
+        at = it.clamp(max=cap - 1)
+        for ring, new in ((self.ring, row), (self.valid, mark)):
+            ring.index_copy_(0, at, torch.where(go, new[None], ring.index_select(0, at)))
+        state = (self.tok, self.pos, self.stp, fin)
+        if self.speculate:
+            state += (self.hist,)
+        for dst, new in zip(state, carry[1:]):
+            dst.copy_(torch.where(go, new, dst))
+        it.add_(go.long())
+        self.done.copy_(fin.all() | (it >= cap))
+
+    def _bounds(self, positions, steps, budgets, active, pending):
+        """(fewest, most) iterations this call can take, from the host
+        arrays: a live slot finishes within ``min(budget - steps, max_len -
+        pos)`` iterations and, advancing at most ``speculate + 1`` tokens an
+        iteration, takes at least that over ``speculate + 1``; an EOS can
+        end any slot at its next iteration, so with one only a live slot
+        whose last token the host knows guarantees one iteration."""
+        live = active & (steps < budgets)
+        if not live.any():
+            return 0, 0
+        left = np.minimum(budgets - steps, self.max_len - positions)[live]
+        most = min(self.ring_capacity, int(left.max()))
+        if self.eos_token is not None:
+            known = live.copy()
+            known[list(pending)] = False
+            return int(known.any()), most
+        fewest = -(-left // (self.speculate + 1))
+        return min(most, int(fewest.max())), most
+
+    @torch.no_grad()
+    def __call__(self, kv, toks, positions, hist, temps, seeds, steps, budgets,
+                 active, *extra, firsts=None):
+        firsts = firsts or {}
+        device = kv[0][0].device
+        tables = extra[0] if extra else None
+        if self.loop is None:
+            self._allocate(kv, hist, len(toks), tables, device)
+        elif self._addresses(kv, hist) != self._held:
+            raise ValueError(
+                "the cache or the history was rebound: the persistent loop "
+                "holds the tensors of its first call by address"
+            )
+        positions = np.asarray(positions, np.int64)
+        steps = np.asarray(steps, np.int64)
+        budgets = np.asarray(budgets, np.int64)
+        active = np.asarray(active, bool)
+        staged = self._host_ints.numpy()
+        for i, a in enumerate((toks, positions, steps, budgets, seeds, active)):
+            staged[i] = a
+        self._host_temps.numpy()[:] = temps
+        self._ints.copy_(self._host_ints, non_blocking=True)
+        self.temps.copy_(self._host_temps, non_blocking=True)
+        if tables is not None:
+            self._host_tables.numpy()[:] = tables
+            self.tables.copy_(self._host_tables, non_blocking=True)
+        for slot, tok in firsts.items():
+            self.tok[slot:slot + 1].copy_(tok)
+        fin = (self.active == 0) | (self.stp >= self.budgets)
+        if self.eos_token is not None:
+            fin |= self.tok == self.eos_token
+        self.fin.copy_(fin)
+        self.ring.zero_()
+        self.valid.zero_()
+        self.it.zero_()
+        self.done.copy_(self.fin.all())
+        fewest, most = self._bounds(positions, steps, budgets, active, firsts)
+        self.loop.run(self._iteration, fewest, most)
+        return kv, self.ring[:most], self.valid[:most], self.it
+
+
+def _make_persistent_decode(model, sampler, *, eos_token: Optional[int],
+                            max_len: int, ring_capacity: int):
+    """The persistent decode program (JAX: ``lax.while_loop`` over
+    ``_make_decode_body``): ``run(kv, toks, positions, None, temps, seeds,
+    steps, budgets, active, *extra, firsts=) -> (kv, ring, valid,
+    iterations)``; see :class:`_PersistentDecode`."""
+    step = _make_decode_body(model, sampler, eos_token=eos_token,
+                             max_len=max_len)
+    return _PersistentDecode(step, eos_token=eos_token, max_len=max_len,
+                             ring_capacity=ring_capacity)
+
+
+def _make_persistent_spec_decode(model, sampler, *, eos_token: Optional[int],
+                                 max_len: int, ring_capacity: int,
+                                 speculate: int, ngram: int = 2):
+    """The persistent speculative decode (``_make_spec_decode_body`` under
+    the same loop): ``run(kv, toks, positions, hist, temps, seeds, steps,
+    budgets, active, *extra, firsts=) -> (kv, ring, cnts, iterations)``,
+    one ring row per ITERATION (up to ``speculate + 1`` tokens each)."""
+    step = _make_spec_decode_body(model, sampler, eos_token=eos_token,
+                                  max_len=max_len, speculate=speculate,
+                                  ngram=ngram)
+    return _PersistentDecode(step, eos_token=eos_token, max_len=max_len,
+                             ring_capacity=ring_capacity, speculate=speculate)
 
 
 @torch.no_grad()
@@ -298,13 +526,13 @@ def generate(model, prompt, max_new_tokens: int, *, temperature: float = 0.0,
             f"model's maximum sequence length {limit}"
         )
     sample = _make_slot_sampler(top_k, top_p)
-    temps = np.full(b, temperature, np.float32)
-    seeds = np.full(b, seed, np.int64)
+    temps = torch.full((b,), temperature, dtype=torch.float32, device=device)
+    seeds = torch.full((b,), seed, dtype=torch.int64, device=device)
     cache = model.init_cache(b, s + max_new_tokens)
     logits, cache = model.forward_cached(prompt, cache, 0)
     toks = []
     for i in range(max_new_tokens):
-        tok = sample(logits[:, -1], temps, seeds, np.full(b, i, np.int64))
+        tok = sample(logits[:, -1], temps, seeds, torch.full_like(seeds, i))
         toks.append(tok)
         if i + 1 < max_new_tokens:
             logits, cache = model.forward_cached(tok[:, None], cache, s + i)

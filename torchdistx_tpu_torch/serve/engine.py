@@ -1,8 +1,8 @@
 """``ServeEngine``: continuous-batching inference over a slot KV cache,
-counterpart of ``torchdistx_tpu/serve/engine.py`` in its chunked decode
-mode on a single device: the contiguous slab or the paged pools with the
-radix prefix cache, self-speculative decode, and the model-dtype, plain-cast
-or int8 cache.
+counterpart of ``torchdistx_tpu/serve/engine.py`` on a single device, in
+its chunked and persistent decode modes: the contiguous slab or the paged
+pools with the radix prefix cache, self-speculative decode, and the
+model-dtype, plain-cast or int8 cache.
 
 The public surface is the JAX engine's: ``submit(prompt, ...) ->
 RequestHandle``, ``step()``, ``run(requests)``, ``finished_requests()``.
@@ -13,7 +13,8 @@ Device work comes in two kinds of dispatch:
    (the flash-prefill path: the ``flash_fwd`` CUDA kernel on the card); the
    first token is sampled at the last REAL prompt position and the slab is
    copied into the request's slot row (``kv_cache.write_slot``).  One host
-   sync fetches the token.
+   sync fetches the token; in persistent mode none: the token stays on
+   the card until the next ring drain.
    Paged engines prefill only the suffix past the page-aligned prefix the
    radix index already holds: a cold prefill (no hit) is the slab's, a warm
    one runs the suffix at the prefix length over the slot's gathered pages
@@ -26,6 +27,11 @@ Device work comes in two kinds of dispatch:
    token block, which the host walks with the same finish rules.  With
    ``speculate=K`` each step is a draft / verify / accept iteration
    (``generation._make_spec_decode_body``) through the multi-token kernels.
+   With ``decode_mode="persistent"`` one dispatch runs the same body until
+   every slot has finished or the ``ring_capacity``-row output ring is full
+   (``generation._make_persistent_decode``): on the card one iteration
+   captured in a CUDA graph and replayed (``serve.graph_loop``), then ONE
+   host sync drains the ring, the cursor and the pending first tokens.
 
 PyTorch runs eagerly, so there are no compiled programs to count and no
 buffers to donate: the slab is updated in place.
@@ -44,6 +50,8 @@ from ..generation import (
     _check_sampling_args,
     _make_fused_decode,
     _make_fused_spec_decode,
+    _make_persistent_decode,
+    _make_persistent_spec_decode,
     _make_slot_sampler,
 )
 from .kv_cache import (
@@ -63,7 +71,7 @@ __all__ = ["ServeEngine"]
 #: the JAX engine's constructor arguments this port does not carry yet;
 #: passing any of them raises instead of being ignored
 _UNPORTED = (
-    "ring_capacity", "persistent_stream", "params", "cost_cards", "numerics",
+    "persistent_stream", "params", "cost_cards", "numerics",
     "hbm_budget", "stall_timeout_s", "mesh", "plan", "tp_rule", "tp_axis",
     "chunked_prefill", "record",
 )
@@ -99,7 +107,16 @@ class ServeEngine:
         ``prompt + max_new_tokens``.
       decode_chunk: decode steps per dispatch (``K``): one host sync per
         ``K`` steps.
-      decode_mode: only ``"chunked"`` is ported.
+      decode_mode: ``"chunked"`` (``decode_chunk`` steps per dispatch) or
+        ``"persistent"``: each dispatch decodes until every slot has
+        finished or the output ring is full, then the host drains the ring
+        once (one sync per wave); prefill defers its first-token fetch to
+        that drain.  On the card the loop is a CUDA graph of one
+        iteration, captured at the first dispatch (a failed capture
+        raises), replayed from a device-resident loop state.  Streams are
+        the chunked mode's token for token.
+      ring_capacity: persistent mode's output ring depth (max loop
+        iterations per dispatch); default ``max_len``.
       page_size: switch the KV cache to the PAGED layout with pages of this
         many tokens (must divide ``max_len``); ``None`` keeps the slab.
         Greedy paged streams are bit-identical to the slab engine's.
@@ -136,6 +153,7 @@ class ServeEngine:
         max_tokens_in_flight: Optional[int] = None,
         decode_chunk: int = 1,
         decode_mode: str = "chunked",
+        ring_capacity: Optional[int] = None,
         page_size: Optional[int] = None,
         num_pages: Optional[int] = None,
         kv_dtype: Optional[str] = None,
@@ -156,11 +174,7 @@ class ServeEngine:
             raise TypeError(
                 f"unexpected ServeEngine argument(s) {sorted(unported)}"
             )
-        if decode_mode != "chunked":
-            if decode_mode == "persistent":
-                raise NotImplementedError(
-                    "decode_mode='persistent' is not ported yet"
-                )
+        if decode_mode not in ("chunked", "persistent"):
             raise ValueError(
                 f"decode_mode must be 'chunked' or 'persistent', got "
                 f"{decode_mode!r}"
@@ -196,6 +210,21 @@ class ServeEngine:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self.decode_chunk = int(decode_chunk)
         self.decode_mode = decode_mode
+        self._persistent = decode_mode == "persistent"
+        if self._persistent:
+            if ring_capacity is None:
+                ring_capacity = self.max_len
+            if ring_capacity < 1:
+                raise ValueError(
+                    f"ring_capacity must be >= 1, got {ring_capacity}"
+                )
+            self.ring_capacity: Optional[int] = int(ring_capacity)
+        else:
+            if ring_capacity is not None:
+                raise ValueError(
+                    "ring_capacity requires decode_mode='persistent'"
+                )
+            self.ring_capacity = None
         if prefill_buckets is None:
             buckets = _default_buckets(self.max_len)
         else:
@@ -239,6 +268,7 @@ class ServeEngine:
         self.metrics = ServeMetrics(
             self.num_slots,
             num_pages=self.num_pages,
+            ring_capacity=self.ring_capacity,
             speculate=self.speculate or None,
             kv_cache_bytes=self.cache.nbytes,
             kv_bytes_per_token=self.cache.nbytes // kv_rows,
@@ -246,7 +276,18 @@ class ServeEngine:
             kv_quant_err_rms=0.0 if self.kv_quantized else None,
         )
         self._sampler = _make_slot_sampler(top_k, top_p)
-        if self.speculate:
+        if self._persistent and self.speculate:
+            self._decode = _make_persistent_spec_decode(
+                model, self._sampler, eos_token=eos_token,
+                max_len=self.max_len, ring_capacity=self.ring_capacity,
+                speculate=self.speculate, ngram=self.spec_ngram,
+            )
+        elif self._persistent:
+            self._decode = _make_persistent_decode(
+                model, self._sampler, eos_token=eos_token,
+                max_len=self.max_len, ring_capacity=self.ring_capacity,
+            )
+        elif self.speculate:
             self._decode = _make_fused_spec_decode(
                 model, self._sampler, eos_token=eos_token,
                 max_len=self.max_len, decode_chunk=self.decode_chunk,
@@ -262,8 +303,12 @@ class ServeEngine:
         self._seeds = np.zeros(self.num_slots, np.int64)
         self._ntok = np.zeros(self.num_slots, np.int64)  # tokens sampled
         self._budget = np.zeros(self.num_slots, np.int64)  # max_new_tokens
+        # persistent mode: slot -> the prefill's (1,) first token, left on
+        # the card until the next ring drain fetches it
+        self._pending_first: dict = {}
         # speculative drafting history on the card: each slot's token stream
         # (prompt + everything generated), carried from dispatch to dispatch
+        # (persistent mode: updated in place, never rebound)
         self._hist = (torch.zeros((self.num_slots, self.max_len), dtype=torch.int64,
                                   device=self.device) if self.speculate else None)
         self._finished: deque = deque(maxlen=int(finished_history))
@@ -361,6 +406,13 @@ class ServeEngine:
         """The bounded finished-request history (newest last)."""
         return list(self._finished)
 
+    @property
+    def loop_replays(self) -> int:
+        """Persistent mode: loop iterations launched (CUDA graph replays
+        on the card); equal to ``loop_iterations``, since the host never
+        launches one past the loop's end.  0 in chunked mode."""
+        return self._decode.replays if self._persistent else 0
+
     # -- internals -------------------------------------------------------
 
     def _bucket_for(self, length: int) -> int:
@@ -374,9 +426,11 @@ class ServeEngine:
 
     def _sample_first(self, logits, true_len: int, temp: float, seed: int):
         """Sampler step 0 at the last real prompt position."""
+        dev = logits.device
         return self._sampler(logits[:, true_len - 1, :],
-                             np.array([temp], np.float32),
-                             np.array([seed], np.int64), np.zeros(1, np.int64))
+                             torch.tensor([temp], dtype=torch.float32, device=dev),
+                             torch.tensor([seed], dtype=torch.int64, device=dev),
+                             torch.zeros(1, dtype=torch.int64, device=dev))
 
     def _prefill(self, tokens, pfx: int, true_len: int, slot: int,
                  temp: float, seed: int) -> torch.Tensor:
@@ -474,7 +528,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         tok = self._prefill(tokens, pfx, suffix.size, slot, req.temperature,
                             req.seed)
-        tok = int(tok[0].item())  # host sync: the first token exists
+        if not self._persistent:
+            tok = int(tok[0].item())  # host sync: the first token exists
         self.metrics.prefill_s.record(time.perf_counter() - t0)
         # only the suffix bucket was computed: the prefix hit is the
         # prefill the cache saved
@@ -498,6 +553,11 @@ class ServeEngine:
         self.metrics.queue_wait_s.record(
             (req.admitted_at or now) - req.submitted_at
         )
+        if self._persistent:
+            # no host sync: the loop splices the token in on the card and
+            # computes its finish bit there; the drain records it
+            self._pending_first[slot] = tok
+            return
         self.metrics.count("host_syncs")
         self._record_first(req, tok, now)
         self._check_finished(req, tok, now)
@@ -511,16 +571,16 @@ class ServeEngine:
         self.metrics.ttft_s.record(req.first_token_at - req.submitted_at)
 
     def _decode_args(self):
-        """The decode dispatch's dynamic inputs after the cache, plus the
+        """The chunked dispatch's device inputs after the cache, plus the
         page tables of a paged cache as the trailing extra input."""
         dev = self.device
         state = [torch.as_tensor(self._last_tok, device=dev),
                  torch.as_tensor(self.cache.positions(), device=dev).long()]
         if self.speculate:
             state.append(self._hist)
-        state += [self._temps, self._seeds, self._ntok,
-                  torch.as_tensor(self._budget, device=dev),
-                  torch.as_tensor(~self.cache.active, device=dev)]
+        state += [torch.as_tensor(a, device=dev) for a in
+                  (self._temps, self._seeds, self._ntok, self._budget,
+                   ~self.cache.active)]
         if self.paged:
             state.append(torch.as_tensor(self.cache.page_tables, device=dev))
         return state
@@ -529,7 +589,9 @@ class ServeEngine:
         """One decode dispatch: ``K = decode_chunk`` steps (speculative
         iterations with ``speculate``), ONE host sync for the token block,
         then the host walk with the finish rules the device mask applied
-        (``_check_finished``)."""
+        (``_check_finished``).  Persistent mode: ``_persistent_step``."""
+        if self._persistent:
+            return self._persistent_step()
         running = self.scheduler.running
         k_steps = self.decode_chunk
         t0 = time.perf_counter()
@@ -569,6 +631,88 @@ class ServeEngine:
                 req.events.insert(-1, ev)
             else:
                 req.events.append(ev)
+        self.metrics.count("tokens_generated", emitted)
+        self.metrics.count("tokens_decoded", emitted)
+        if emitted:
+            self.metrics.decode_token_s.record(seconds / emitted)
+
+    def _persistent_step(self) -> None:
+        """One persistent dispatch: the loop runs on the card until every
+        slot's finish bit is set or the ring is full, then ONE host sync
+        drains the ring, its valid mask (speculation: the count ring), the
+        cursor and every pending first token together.  The walk applies
+        the finish rules the device mask applied, bounded by the mask (True
+        exactly on the rows a live slot sampled, the finishing token
+        included), so host bookkeeping and device carries agree iteration
+        for iteration.  A request the ring cut off stays running and
+        continues from its frozen carry at the next dispatch.  Shared by the
+        one-token and the speculative loop, as the chunked walk is."""
+        running = self.scheduler.running
+        cache, dev = self.cache, self.device
+        pending = self._pending_first
+        t0 = time.perf_counter()
+        args = [self._last_tok, cache.positions(), self._hist, self._temps,
+                self._seeds, self._ntok, self._budget,
+                # the cache-full rule from the UNCLAMPED host positions
+                cache.active & (cache.pos < self.max_len)]
+        if self.paged:
+            args.append(cache.page_tables)
+        _, ring, marks, it = self._decode(cache.kv, *args, firsts=pending)
+        slots = list(pending)
+        firsts = (torch.cat([pending[s] for s in slots]) if slots
+                  else torch.zeros(0, dtype=torch.int64, device=dev))
+        # ONE host sync: the ring, its marks, the cursor, the first tokens
+        flat = torch.cat([ring.reshape(-1), marks.reshape(-1).long(), it,
+                          firsts.long()]).cpu().numpy()
+        seconds = time.perf_counter() - t0
+        n_ring, n_marks = ring.numel(), marks.numel()
+        block = flat[:n_ring].reshape(ring.shape)
+        marks = flat[n_ring:n_ring + n_marks].reshape(marks.shape)
+        n_it = int(flat[n_ring + n_marks])
+        firsts = dict(zip(slots, flat[n_ring + n_marks + 1:].tolist()))
+        pending.clear()
+        self.metrics.decode_s.record(seconds)
+        self.metrics.count("host_syncs")  # the drain IS the sync
+        self.metrics.count("ring_drains")
+        self.metrics.count("decode_dispatches")
+        self.metrics.count("decode_steps", n_it)
+        self.metrics.count("loop_iterations", n_it)
+        self.metrics.observe_ring(n_it)
+        now = time.monotonic()
+        emitted = 0
+        any_cut = False
+        for req in running:
+            slot = req.slot
+            taken = 0
+            finished = False
+            if slot in firsts:
+                tok = firsts[slot]
+                self._record_first(req, tok, now)
+                # fin0 froze an EOS first token or a spent one-token budget
+                # before iteration 0: the slot idled the whole loop
+                finished = self._check_finished(req, tok, now)
+            j = 0
+            while not finished and j < n_it and marks[j, slot]:
+                if self.speculate:
+                    n, finished = self._consume_spec_block(
+                        req, block[j, slot], int(marks[j, slot]), now)
+                else:
+                    n, finished = self._consume_token(req, int(block[j, slot]), now)
+                emitted += n
+                j += 1
+                taken = j
+            if finished:
+                # iterations the loop ran past this slot's finish
+                self.metrics.count("masked_slot_steps", n_it - taken)
+            else:
+                any_cut = True  # the ring filled before this request's end
+            ev = ("decode_chunk", now, {"tokens": taken})
+            if req.events and req.events[-1][0] == "finish":
+                req.events.insert(-1, ev)
+            else:
+                req.events.append(ev)
+        if any_cut:
+            self.metrics.count("ring_full_drains")
         self.metrics.count("tokens_generated", emitted)
         self.metrics.count("tokens_decoded", emitted)
         if emitted:
@@ -617,6 +761,12 @@ class ServeEngine:
 
     def _finish(self, req: Request, reason: str, now: float) -> None:
         slot = req.slot
+        pending = self._pending_first.pop(slot, None)
+        if pending is not None:
+            # a finish before the first drain (a deadline): the prefill did
+            # sample a token; fetch it, at the cost of one sync
+            self.metrics.count("host_syncs")
+            self._record_first(req, int(pending[0].item()), now)
         self.scheduler.retire(req)
         self.cache.retire(slot)  # paged: also rewires the table to scratch
         if self.paged and req.pages is not None:
