@@ -143,13 +143,36 @@ Phases, each fatal:
    ``Trainer.fit`` steps at 1 x 8192 with every attention forward through
    the residuals kernel and every backward through the f32-output kernels
    (counters reset just before), the first loss held against the plain
-   path's.
+   path's;
+22. SlowMo on the llama_1b training path at world size 1, on phase 21's
+   NCCL group: full llama_1b (16 layers, bf16, batch 2 x 2048, the fused
+   loss, remat off) through ``deferred_init`` and ``materialize_module``,
+   ``ShardedTrainStep(shard_axis=None, replica_axes=("node",),
+   comm_hook=slowmo_hook, divergent_replicas=True)`` on
+   ``hierarchical_mesh(1)`` with ``SlowMomentumOptimizer(
+   AnyPrecisionAdamW(lr=1e-4), slowmo_freq=3)``: one warm-up step, then 9
+   ``Trainer.fit`` steps with every attention forward and backward and
+   every loss through the kernels (counters reset just before); 3 slow
+   steps, each one's parameters and slow momentum within one bf16 ulp of
+   the update recomputed tensor by tensor, and timed (CUDA events);
+23. GossipGraD and SlowMo across two ranks on the one card: 2 spawned
+   processes joined over ``gloo`` (NCCL refuses two ranks on one device;
+   ``gloo``'s sends go through pinned host buffers), each with llama_1b
+   at full width and 4 of its 16 layers from the same seed and its own
+   half of each batch, on ``hierarchical_mesh(2)``: (a) 6 GossipGraD
+   steps, after each of which the two ranks' parameters are bit-identical
+   (with two nodes both take the same sum, (own + peer) * 0.5); (b) 6
+   SlowMo steps (``slowmo_freq`` 3), the ranks bit-identical after steps 3
+   and 6 and different after step 4, and ``consensus()`` the mean of the
+   two ranks' parameters; the kernels' launches on each rank, and per step
+   its ms, the bytes it exchanged and the ms the exchange took.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
 dQ variant and per decode variant, phase 7 one per fused CE kernel and
 shape, phase 11 one per dbias and dtable variant: its ms, bound and
 library ms, the factor over the library and over the bound (the decode
-variants also by device time).  It prints the card's name and power limit, one ``{"kernels":
+variants also by device time); phases 22-23 one ``train slowmo llama_1b``
+line and one ``gossip``/``slowmo`` line per rank.  It prints the card's name and power limit, one ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
@@ -341,6 +364,20 @@ SP_TRAIN_LAYERS = 8
 SP_LOSS_RTOL = 1e-2
 # torch.profiler over this many more SP steps: where a step's time goes
 SP_PROFILE_STEPS = 2
+# phase 22: SlowMo on full llama_1b at world size 1, Trainer.fit steps after
+# one warm-up, a slow step every SLOWMO_FREQ optimizer steps; each slow step's
+# parameters and momentum held within SLOWMO_ULPS bf16 ulps of the update
+# recomputed tensor by tensor (the foreach kernels may fuse a multiply-add
+# that the per-tensor ops round twice)
+SLOWMO_STEPS = 9
+SLOWMO_FREQ = 3
+SLOWMO_ULPS = 1.0
+# phase 23: two ranks on the one card over gloo (NCCL refuses two ranks on
+# one device), llama_1b at full width and GOSSIP_LAYERS of its 16 layers a
+# rank, GOSSIP_STEPS steps of GossipGraD, then as many of SlowMo
+GOSSIP_LAYERS = 4
+GOSSIP_STEPS = 6
+GOSSIP_TIMEOUT_S = 300
 
 
 def _fail(msg: str, code: int = 1):
@@ -2918,7 +2955,8 @@ def train_sp_llama(torch, tt, seed, steps=TRAIN_STEPS, n_layers=SP_TRAIN_LAYERS,
     kernels; remat is off (llama3_8b's config), so one of each per layer
     and step.  The first step's loss is held against the plain path's
     (``sp_axis`` off: the flash kernels) on the same weights and batch.
-    Then ``torch.profiler`` records SP_PROFILE_STEPS more steps."""
+    Then ``torch.profiler`` records SP_PROFILE_STEPS more steps.  The
+    process group stays up for phase 22."""
     import numpy as np
     import torch.distributed as dist
     from torchdistx_tpu_torch.nn import functional as F
@@ -3009,9 +3047,326 @@ def train_sp_llama(torch, tt, seed, steps=TRAIN_STEPS, n_layers=SP_TRAIN_LAYERS,
             0.0, 1.0 - prof["device_ms_per_step"] / summary["step_ms"])
     summary["profile"] = prof
     del trainer, step, opt, model
-    dist.destroy_process_group()
     torch.cuda.empty_cache()
     return summary, failures
+
+
+def _bf16_ulps(torch, a, b) -> float:
+    """The largest distance between ``a`` and ``b``, element by element, in
+    bf16 units in the last place at the larger magnitude."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _checked_slowmo(torch):
+    """``SlowMomentumOptimizer`` that times each slow update with CUDA events
+    and holds it against the update recomputed tensor by tensor, in JAX's
+    order, from the saved ``prev``, ``v`` and fast parameters with the
+    identity average (one replica).  Each slow step adds a row to
+    ``self.slow``; ``host_s`` is the instrumentation's host time, which the
+    step time leaves out."""
+    from torchdistx_tpu_torch.slowmo import SlowMomentumOptimizer
+
+    class Checked(SlowMomentumOptimizer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.slow = []
+
+        def _slow_update(self, params):
+            t0 = time.perf_counter()
+            prev = [t.clone() for t in self.prev_params]
+            mom = [t.clone() for t in self.slow_momentum]
+            fast = [p.detach().clone() for p in params]
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            start.record()
+            super()._slow_update(params)
+            end.record()
+            end.synchronize()
+            t2 = time.perf_counter()
+            worst_p = worst_v = 0.0
+            for p, v_new, pp, v, f in zip(params, self.slow_momentum, prev, mom, fast):
+                v_ref = self.slowmo_factor * v + (pp - f) / self.base_lr
+                p_ref = pp - (self.slowmo_lr * self.base_lr) * v_ref
+                worst_v = max(worst_v, _bf16_ulps(torch, v_new, v_ref))
+                worst_p = max(worst_p, _bf16_ulps(torch, p, p_ref))
+            del prev, mom, fast
+            torch.cuda.synchronize()
+            self.slow.append({"count": self.count, "ms": start.elapsed_time(end),
+                              "param_ulps": worst_p, "momentum_ulps": worst_v,
+                              "host_s": (t1 - t0) + (time.perf_counter() - t2)})
+
+    return Checked
+
+
+def _fused_loss(m, b):
+    from torchdistx_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+
+    return fused_linear_cross_entropy(m(b[0], return_hidden=True), m.lm_head.weight, b[1])
+
+
+def train_slowmo(torch, tt, seed, steps=SLOWMO_STEPS, freq=SLOWMO_FREQ, batch=2, seq=2048):
+    """Phase 22, SlowMo on the llama_1b training path at world size 1 on
+    phase 21's NCCL group: ``deferred_init`` of full llama_1b (remat off),
+    ``materialize_module`` on the card, ``ShardedTrainStep(shard_axis=None,
+    replica_axes=("node",), comm_hook=slowmo_hook, divergent_replicas=True)``
+    on ``hierarchical_mesh(1)`` with ``SlowMomentumOptimizer(
+    AnyPrecisionAdamW(lr=1e-4), slowmo_freq=freq, base_lr=1e-4)`` and the
+    fused loss: one warm-up step, then ``Trainer.fit`` over ``steps`` steps
+    with the launch counters set to 0 just before.  Each slow step is held
+    against its per-tensor recomputation (``_checked_slowmo``)."""
+    import numpy as np
+    import torch.distributed as dist
+    from torchdistx_tpu_torch.parallel import ShardedTrainStep, hierarchical_mesh
+    from torchdistx_tpu_torch.slowmo import SlowMoState, slowmo_hook
+
+    failures = [] if dist.is_initialized() else ["slowmo: phase 21's process group is gone"]
+    mesh = hierarchical_mesh(1)
+    tt.manual_seed(seed)
+    model = tt.deferred_init(tt.models.Llama.from_name, "llama_1b", max_seq_len=seq,
+                             remat=False, device="cuda")
+    tt.materialize_module(model)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(seed)
+    data = tuple(torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq))).to("cuda")
+                 for _ in range(2))
+    opt = _checked_slowmo(torch)(tt.AnyPrecisionAdamW(model.parameters(), lr=1e-4),
+                                 slowmo_freq=freq, base_lr=1e-4)
+    step = ShardedTrainStep(model, opt, _fused_loss, mesh, shard_axis=None,
+                            replica_axes=("node",), comm_hook=slowmo_hook,
+                            hook_state=SlowMoState(), divergent_replicas=True)
+    step.stack_replicas()
+    trainer = tt.Trainer(step, tokens_per_batch=batch * seq, log_every=1, log_fn=lambda _: None)
+    trainer.fit([data], 1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    warm_slow = len(opt.slow)
+    t0 = time.perf_counter()
+    trainer.fit(itertools.repeat(data), 1 + steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    slow = opt.slow[warm_slow:]
+    losses = [float(x) for x in step.losses[1:]]
+    step_s = (wall - sum(r["host_s"] for r in slow)) / steps
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.dim * seq
+    summary = {
+        "model": "llama_1b", "layers": cfg.n_layers, "world_size": dist.get_world_size(),
+        "backend": dist.get_backend(), "mesh": mesh.shape, "optimizer":
+        f"SlowMomentumOptimizer(AnyPrecisionAdamW, slowmo_freq={freq})", "remat": cfg.remat,
+        "n_params": n_params, "batch": batch, "seq": seq, "steps": steps, "losses": losses,
+        "step_ms": step_s * 1e3, "tokens_per_sec": batch * seq / step_s,
+        "mfu": flops_per_token * batch * seq / step_s / H100_BF16_FLOPS,
+        "flops_per_token": flops_per_token, "slow_steps": slow,
+        "slow_update_ms": [r["ms"] for r in slow], "slowmo_count": opt.count,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+    }
+    failures += _train_failures(losses, launches, cfg.n_layers, steps, True, "slowmo llama_1b")
+    want_slow = (1 + steps) // freq - 1 // freq
+    if len(slow) != want_slow:
+        failures.append(f"slowmo: {len(slow)} slow steps counted, want {want_slow}")
+    for r in slow:
+        if max(r["param_ulps"], r["momentum_ulps"]) > SLOWMO_ULPS:
+            failures.append(f"slowmo: slow step {r['count']} off its recomputation: {r}")
+    del trainer, step, opt, model
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
+def _bits_checksum(torch, tensors) -> list:
+    """Two int64 sums of each tensor's bit pattern, the second weighted by
+    position: equal tensors give equal sums, and a changed element changes
+    them (but for a collision of the weighted sum)."""
+    out = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(torch.int16 if t.element_size() == 2
+                                            else torch.int32).flatten().to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 65521 + 1
+        out.append([int(bits.sum()), int((bits * w).sum())])
+    return out
+
+
+def _gossip_runs(torch, seed, steps, n_layers, seq):
+    """Phase 23 on one rank of two: llama_1b at full width, ``n_layers``
+    deep, from ``seed`` on every rank, each rank its row of the (2, seq)
+    batch; ``hierarchical_mesh(2)``; (a) ``steps`` GossipGraD steps, (b)
+    ``steps`` SlowMo steps (``slowmo_freq`` 3) on the same model.  Returns
+    the per-step rows, launches and this rank's failures."""
+    import math
+
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.parallel import (
+        GossipGraDState, ShardedTrainStep, collectives, gossip_grad_hook, hierarchical_mesh)
+    from torchdistx_tpu_torch.slowmo import (
+        SlowMomentumOptimizer, SlowMoState, replica_mean, slowmo_hook)
+
+    rank = dist.get_rank()
+    mesh = hierarchical_mesh(2)
+    tt.manual_seed(seed)
+    model = tt.deferred_init(tt.models.Llama.from_name, "llama_1b", n_layers=n_layers,
+                             max_seq_len=seq, remat=False, device="cuda")
+    tt.materialize_module(model)
+    rs = np.random.RandomState(seed)
+    data = tuple(torch.from_numpy(rs.randint(0, model.cfg.vocab_size, (2, seq))).to("cuda")
+                 for _ in range(2))
+    exchange = {"ms": 0.0, "bytes": 0}
+
+    def timed(fn, count_bytes):
+        def run(*args):
+            torch.cuda.synchronize()
+            staged, t0 = collectives._permute.staged_bytes, time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            exchange["ms"] += (time.perf_counter() - t0) * 1e3
+            exchange["bytes"] += (count_bytes(args) if count_bytes
+                                  else collectives._permute.staged_bytes - staged)
+            return out
+        return run
+
+    def drive(step, what):
+        rows = []
+        trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+        _reset_counters()
+        for i in range(steps):
+            exchange.update(ms=0.0, bytes=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit([data], i + 1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            sums = [None, None]
+            dist.all_gather_object(sums, _bits_checksum(torch, model.parameters()))
+            rows.append({"run": what, "step": i + 1, "ms": ms, "loss": float(step.losses[-1]),
+                         "exchange_ms": exchange["ms"], "exchange_bytes": exchange["bytes"],
+                         "ranks_bit_identical": sums[0] == sums[1]})
+        launches = _read_counters()
+        fails = []
+        if not all(math.isfinite(r["loss"]) for r in rows):
+            fails.append(f"{what} rank {rank}: losses not finite: {[r['loss'] for r in rows]}")
+        want = {k: n_layers * steps for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
+                                              "flash_bwd_delta")}
+        want.update(fused_ce_fwd=steps, fused_ce_bwd=steps)
+        fails += [f"{what} rank {rank}: {k} launches {launches[k]} != {n}"
+                  for k, n in want.items() if launches[k] != n]
+        return rows, launches, fails
+
+    # (a) GossipGraD: with two nodes each takes (own + peer) * 0.5, the same
+    # sum in either order, so the ranks stay bit-identical on different data
+    opt = tt.AnyPrecisionAdamW(model.parameters(), lr=1e-4)
+    step = ShardedTrainStep(model, opt, _fused_loss, mesh, shard_axis=None,
+                            replica_axes=("node",), comm_hook=timed(gossip_grad_hook, None),
+                            hook_state=GossipGraDState(2), divergent_replicas=True)
+    step.stack_replicas()
+    gossip_rows, gossip_launches, failures = drive(step, "gossip")
+    failures += [f"gossip rank {rank}: ranks differ after step {r['step']}"
+                 for r in gossip_rows if not r["ranks_bit_identical"]]
+    del step, opt
+
+    # (b) SlowMo: the nodes meet only at the slow steps (3 and 6)
+    def payload(args):
+        return sum(t.numel() * t.element_size() for t in args[0])
+
+    opt = SlowMomentumOptimizer(tt.AnyPrecisionAdamW(model.parameters(), lr=1e-4),
+                                slowmo_freq=3, base_lr=1e-4,
+                                average_fn=timed(replica_mean, payload))
+    step = ShardedTrainStep(model, opt, _fused_loss, mesh, shard_axis=None,
+                            replica_axes=("node",), comm_hook=slowmo_hook,
+                            hook_state=SlowMoState(), divergent_replicas=True)
+    slowmo_rows, slowmo_launches, fails = drive(step, "slowmo")
+    failures += fails
+    for r in slowmo_rows:
+        want = r["step"] % 3 == 0
+        if r["ranks_bit_identical"] != want:
+            failures.append(f"slowmo rank {rank}: after step {r['step']} the ranks are "
+                            f"{'equal' if r['ranks_bit_identical'] else 'different'}")
+    consensus = step.consensus()
+    own = step.full_params()
+    with mesh:
+        peer = collectives.exchange(own, "node", [1, 0], [1, 0])
+    mean_equal = all(torch.equal(consensus[k], (own[k] + peer[k]) * 0.5) for k in own)
+    if not mean_equal:
+        failures.append(f"slowmo rank {rank}: consensus() is not the mean of the two ranks")
+    return {"rank": rank, "world_size": dist.get_world_size(), "backend": dist.get_backend(),
+            "mesh": mesh.shape, "layers": n_layers, "seq": seq,
+            "n_params": sum(p.numel() for p in model.parameters()),
+            "gossip": gossip_rows, "slowmo": slowmo_rows,
+            "launches_gossip": gossip_launches, "launches_slowmo": slowmo_launches,
+            "consensus_is_mean": mean_equal,
+            "staged_bytes_total": collectives._permute.staged_bytes,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "failures": failures}
+
+
+def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
+    """One spawned rank of phase 23: joins the ``gloo`` world through a
+    ``FileStore``, runs ``_gossip_runs`` on ``cuda:0`` and writes its result
+    (or the traceback) as JSON to ``out_path``."""
+    result = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        from torchdistx_tpu_torch.parallel import init_multihost
+
+        init_multihost(num_processes=world, process_id=rank, backend="gloo",
+                       store=dist.FileStore(store_path, world), timeout_s=GOSSIP_TIMEOUT_S)
+        try:
+            result = _gossip_runs(torch, seed, steps, n_layers, seq)
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        result["error"] = traceback.format_exc()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def gossip_two_ranks(seed, steps=GOSSIP_STEPS, n_layers=GOSSIP_LAYERS, seq=2048, world=2):
+    """Phase 23: ``world`` spawned processes on the one card, joined over
+    ``gloo`` (NCCL refuses two ranks on one device), each running
+    ``_gossip_runs``; every rank is killed if the world outlives
+    GOSSIP_TIMEOUT_S.  Returns the ranks' results and failures."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="tdx_gossip_")
+    failures, ranks, wall = [], [], None
+    try:
+        ctx = mp.get_context("spawn")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        procs = [ctx.Process(target=_gossip_rank, args=(r, world, os.path.join(tmp, "store"),
+                                                        outs[r], seed, steps, n_layers, seq))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + GOSSIP_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        wall = time.perf_counter() - t0
+        if hung:
+            failures.append(f"gossip: {len(hung)} ranks still running after {GOSSIP_TIMEOUT_S} s")
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if not os.path.exists(out):
+                failures.append(f"gossip rank {r} exited with {p.exitcode} and wrote nothing")
+                continue
+            with open(out) as f:
+                res = json.load(f)
+            if "error" in res:
+                failures.append(f"gossip rank {r} raised:\n{res['error']}")
+            failures += res.get("failures", [])
+            ranks.append(res)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"wall_s": wall, "ranks": ranks}, failures
 
 
 def sp_kernel_entries(rows, sp_run):
@@ -3514,7 +3869,37 @@ def main(argv=None) -> int:
         _fail("sequence-parallel train phase failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
-    # -- 22. the record ------------------------------------------------------
+    # -- 22. SlowMo on llama_1b at world size 1, on phase 21's group ---------------
+    try:
+        slowmo_train, f22 = train_slowmo(torch, tt, args.seed + 11)
+        print("train slowmo llama_1b", json.dumps(slowmo_train))
+        failures += f22
+        report["train_slowmo"] = slowmo_train
+    except Exception:
+        traceback.print_exc()
+        _fail("slowmo train phase failed")
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 23. GossipGraD and SlowMo across two ranks on the one card ----------------
+    try:
+        gossip, f23 = gossip_two_ranks(args.seed + 12)
+        for res in gossip["ranks"]:
+            for run in ("gossip", "slowmo"):
+                print(f"{run} rank {res.get('rank')}", json.dumps(res.get(run)))
+        print("gossip world", json.dumps({k: v for k, v in gossip.items() if k != "ranks"}))
+        failures += f23
+        report["gossip_two_ranks"] = gossip
+    except Exception:
+        traceback.print_exc()
+        _fail("two-rank gossip phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 24. the record ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -3529,8 +3914,9 @@ def main(argv=None) -> int:
                     if (r["B"], r["S"], r["Hq"], r["Hkv"], r["D"]) == case)
 
     brep, brep64 = bwd_row(BWD_REPORTED), bwd_row(BWD_REPORTED_D64)
-    # the training main paths: llama_1b unfused and fused, gpt2_large
-    runs = (train_summary, fused_summary, gpt2_summary)
+    # the training main paths: llama_1b unfused and fused, gpt2_large, and
+    # llama_1b under SlowMo (phase 22)
+    runs = (train_summary, fused_summary, gpt2_summary, slowmo_train)
 
     def trained(kernel):
         return sum(r["launches"][kernel] for r in runs)
@@ -3643,6 +4029,18 @@ def main(argv=None) -> int:
     kernels += t5_kernel_entries(bias_rows, t5_runs)
     kernels += window_kernel_entries(window_rows, mistral_serve, mistral_train)
     kernels += sp_kernel_entries(residual_rows, sp_train)
+    # phases 22-23 apart: SlowMo at world size 1, and each rank of the
+    # two-rank run (GossipGraD and SlowMo steps together)
+    counter_of = {"flash_fwd": "flash_fwd_lse", "flash_bwd_dkv": "flash_bwd_dkv",
+                  "flash_bwd_delta": "flash_bwd_delta", "flash_bwd_dq": "flash_bwd_dq",
+                  "fused_ce_fwd": "fused_ce_fwd", "fused_ce_bwd_dx": "fused_ce_bwd",
+                  "fused_ce_bwd_dw": "fused_ce_bwd"}
+    for entry in kernels:
+        key = counter_of.get(entry["name"])
+        if key:
+            entry["launches_slowmo"] = slowmo_train["launches"][key]
+            entry["launches_two_ranks"] = [r["launches_gossip"][key] + r["launches_slowmo"][key]
+                                           for r in gossip["ranks"]]
     report["kernels"] = kernels
     failures += [f"{k['name']}: no launch on the main path" for k in kernels
                  if not k["launches"]]

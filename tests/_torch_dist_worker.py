@@ -89,9 +89,9 @@ def _np(t):
 # -- inputs, shared with the parent -------------------------------------------------
 
 
-def coll_input(seed: int, shape=(2, 8)) -> np.ndarray:
-    """Rank r's operand of a collective case: (WORLD, *shape), row r."""
-    return np.random.RandomState(seed).randn(WORLD, *shape).astype(np.float32)
+def coll_input(seed: int, shape=(2, 8), world: int = WORLD) -> np.ndarray:
+    """Rank r's operand of a collective case: (world, *shape), row r."""
+    return np.random.RandomState(seed).randn(world, *shape).astype(np.float32)
 
 
 def attn_inputs(b, s, hq, hkv, d, seed=0, bias=False):
@@ -379,4 +379,201 @@ def _sp_llama(payload):
     yield "train_ulysses", train(sp, use_flash=True, sp_mode="ulysses")
 
 
-SUITES = {"collectives": _collectives, "ring": _ring, "fsdp": _fsdp, "sp_llama": _sp_llama}
+# GossipGraD's hook on a pinned topology: (mesh nodes, topology, permutation,
+# iteration); world 4 but "cube_6x1", a world of 6
+GOSSIP_HOOKS = {
+    "cube_2x2": (2, "CUBE", [0, 1], 0),
+    "dissemination_4x1_power1": (4, "DISSEMINATION", [0, 1, 2, 3], 1),
+    "dissemination_4x1_permuted": (4, "DISSEMINATION", [2, 0, 3, 1], 0),
+    "cube_6x1_power2": (6, "CUBE", [0, 1, 2, 3, 4, 5], 2),
+}
+
+
+def gossip_grads(name: str, world: int = WORLD) -> dict:
+    """Every rank's gradient tree of a hook case: two leaves, (world, ...)."""
+    seed = 40 + 2 * list(GOSSIP_HOOKS).index(name) if name in GOSSIP_HOOKS else 30
+    return {"a": coll_input(seed, (2, 8), world), "b": coll_input(seed + 1, (3,), world)}
+
+
+def _gossip(payload):
+    """GossipGraD and SlowMo: their hooks on pinned inputs, the slow update
+    on closed forms, and divergent-replica training of tiny Llama.  The
+    cases of ``payload["part"]``: "gossip" and "slowmo" at world 4,
+    "cube6" at world 6, "cuda" (CUDA tensors on one card) at world 2."""
+    import functools
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import (
+        GossipGraDState,
+        ShardedTrainStep,
+        Topology,
+        gossip_grad_hook,
+        hierarchical_mesh,
+        noop_hook,
+    )
+    from torchdistx_tpu_torch.parallel.comm_hooks import HookContext
+    from torchdistx_tpu_torch.slowmo import SlowMomentumOptimizer, SlowMoState, slowmo_hook
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def grads(name):
+        return {k: torch.from_numpy(v[rank]) for k, v in gossip_grads(name, world).items()}
+
+    def gossip_hook(name):
+        nodes, topology, perm, iteration = GOSSIP_HOOKS[name]
+
+        def case():
+            state = GossipGraDState(nodes, topology=Topology[topology], seed=0)
+            state.topologies_set = [tuple(perm)]
+            state.topology_cycle = itertools.cycle([0])
+            state.iteration = iteration
+            with hierarchical_mesh(nodes):
+                ctx = HookContext(replica_axes=("node", "local"), step=state.step_args())
+                return _np(gossip_grad_hook(state, grads(name), ctx))
+        return case
+
+    def slowmo_hook_case(sync_grads):
+        def case():
+            with hierarchical_mesh(2):
+                ctx = HookContext(replica_axes=("node", "local"))
+                return _np(slowmo_hook(SlowMoState(sync_grads=sync_grads), grads("slowmo"), ctx))
+        return case
+
+    def replica_average():
+        # two replicas [1] and [3], no gradient: the slow step meets at 2
+        mesh = hierarchical_mesh(2)
+        w = torch.nn.Parameter(torch.tensor([1.0 + 2.0 * mesh.axes["node"].index]))
+        w.grad = torch.zeros(1)
+        opt = SlowMomentumOptimizer(torch.optim.SGD([w], lr=0.1), slowmo_freq=1,
+                                    base_lr=0.1, slowmo_lr=1.0, slowmo_factor=0.0)
+        with mesh:
+            opt.step()
+        return {"w": _np(w)}
+
+    def loaded_freq_governs():
+        # the loaded slowmo_freq (2, not the default 48) times the slow step
+        mesh = hierarchical_mesh(2)
+        w = torch.nn.Parameter(torch.tensor([1.0 + 2.0 * mesh.axes["node"].index]))
+        w.grad = torch.zeros(1)
+        sd = SlowMomentumOptimizer(torch.optim.SGD([w], lr=0.1), slowmo_freq=2, base_lr=0.1,
+                                   slowmo_factor=0.0, slowmo_lr=1.0).state_dict()
+        opt = SlowMomentumOptimizer(torch.optim.SGD([w], lr=0.1), base_lr=0.1)
+        opt.load_state_dict(sd)
+        out = {}
+        with mesh:
+            for i in (1, 2):
+                opt.step()
+                out[f"after_{i}"] = _np(w).copy()
+        return out
+
+    def train(nodes, steps, hook, state, slowmo_freq=None, **kw):
+        def case():
+            mesh = hierarchical_mesh(nodes)
+            tt.manual_seed(0)
+            m = tt.deferred_init(Llama.from_name, "tiny", device="cpu")
+            tt.materialize_module(m)
+            load_jax_params(m, payload["init"])
+            # node 0's weights reach every node only through stack_replicas
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.add_(float(mesh.axes["node"].index))
+            opt = tt.AnyPrecisionAdamW(m.parameters(), lr=payload["lr"],
+                                       variance_dtype=torch.float32)
+            if slowmo_freq:
+                opt = SlowMomentumOptimizer(opt, slowmo_freq=slowmo_freq, base_lr=payload["lr"])
+            step = ShardedTrainStep(
+                m, opt, lambda mod, b: F.cross_entropy(mod(b[0]), b[1]), mesh,
+                replica_axes=("node",), comm_hook=hook, hook_state=state(),
+                divergent_replicas=True, **kw)
+            step.stack_replicas()
+            batch = tuple(torch.from_numpy(a) for a in payload["batch"])
+            trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+            snapshots = []
+            for i in range(steps):
+                trainer.fit([batch], i + 1)
+                # copies: an unsharded parameter comes back as itself
+                snapshots.append({k: _np(t).copy() for k, t in step.full_params().items()})
+            return {"losses": [float(x) for x in step.losses], "snapshots": snapshots,
+                    "consensus": _np(step.consensus()), "node": mesh.axes["node"].index}
+        return case
+
+    def full_node_batch():
+        # noop hook, batch over (node, local): each node's update is the
+        # mean of its own rows (w = -lr * mean)
+        mesh = hierarchical_mesh(2)
+        m = torch.nn.Module()
+        m.w = torch.nn.Parameter(torch.zeros(1))
+        step = ShardedTrainStep(m, torch.optim.SGD(m.parameters(), lr=1.0),
+                                lambda mod, b: torch.mean(mod.w * b), mesh, shard_axis=None,
+                                replica_axes=("node",), comm_hook=noop_hook,
+                                divergent_replicas=True, batch_axes=("node", "local"))
+        step.stack_replicas()
+        step(m, step.optimizer, torch.arange(16.0))
+        return {"w": _np(m.w), "node": mesh.axes["node"].index}
+
+    def staged_on_the_card():
+        # gloo's sends take no CUDA tensor: exchange and the hook stage
+        # through pinned host buffers, counted in _permute.staged_bytes
+        from torchdistx_tpu_torch.parallel import collectives as C
+
+        mesh = hierarchical_mesh(2)
+        tree = {k: v.to("cuda") for k, v in grads("cube_2x2").items()}
+        tree["c"] = torch.full((5,), float(rank + 1), dtype=torch.bfloat16, device="cuda")
+        before = C._permute.staged_bytes
+        with mesh:
+            out = C.exchange(tree, "node", [1, 0], [1, 0])
+            staged = C._permute.staged_bytes - before
+            state = GossipGraDState(2)
+            hooked = gossip_grad_hook(state, tree, HookContext(("node",), state.step_args()))
+            shifted = C.shift(tree["a"], "node")
+        return {"out": _np({k: t.float() for k, t in out.items()}),
+                "hooked": _np({k: t.float() for k, t in hooked.items()}),
+                "shifted": _np(shifted),
+                "devices": sorted({str(t.device) for t in (*out.values(), *hooked.values())}),
+                "dtype_c": str(out["c"].dtype), "staged": staged,
+                "tree_bytes": sum(t.numel() * t.element_size() for t in tree.values())}
+
+    part = payload["part"]
+    if part == "cuda":
+        yield "staged_on_the_card", staged_on_the_card
+    if part == "cube6":
+        yield "hook_cube_6x1_power2", gossip_hook("cube_6x1_power2")
+    if part == "gossip":
+        for name in ("cube_2x2", "dissemination_4x1_power1", "dissemination_4x1_permuted"):
+            yield f"hook_{name}", gossip_hook(name)
+        yield "full_node_batch", full_node_batch
+        for name, (nodes, kw, topology) in GOSSIP_TRAINS.items():
+            if topology is None:
+                yield name, train(nodes, payload["steps"], noop_hook, lambda: None, **kw)
+                continue
+            yield name, train(nodes, payload["steps"], gossip_grad_hook, functools.partial(
+                GossipGraDState, nodes, topology=Topology[topology]), **kw)
+    if part == "slowmo":
+        yield "slowmo_hook_sync", slowmo_hook_case(True)
+        yield "slowmo_hook_no_sync", slowmo_hook_case(False)
+        yield "replica_average", replica_average
+        yield "loaded_freq_governs", loaded_freq_governs
+        yield "slowmo_2x2", train(2, payload["steps"], slowmo_hook, SlowMoState,
+                                  slowmo_freq=payload["slowmo_freq"], shard_axis=None,
+                                  batch_axes=("node", "local"))
+
+
+# divergent training of tiny Llama: (mesh nodes, ShardedTrainStep kwargs,
+# GossipGraD topology or None for noop_hook)
+GOSSIP_TRAINS = {
+    "gossip_2x2_shard_local": (2, dict(shard_axis="local"), "DISSEMINATION"),
+    "gossip_4x1_dissemination": (4, dict(shard_axis=None), "DISSEMINATION"),
+    "gossip_4x1_cube": (4, dict(shard_axis=None), "CUBE"),
+    "noop_2x2_node_local_batch": (2, dict(shard_axis=None, batch_axes=("node", "local")), None),
+}
+
+
+SUITES = {"collectives": _collectives, "ring": _ring, "fsdp": _fsdp, "sp_llama": _sp_llama,
+          "gossip": _gossip}

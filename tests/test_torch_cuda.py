@@ -1076,3 +1076,29 @@ def test_a_body_that_syncs_fails_to_capture(cuda):
     assert int(cursor.item()) == 0 and not bool(done.item())
     assert torch.equal(x, torch.zeros_like(x))
     assert tdec.decode_attention_cuda.launches == before
+
+
+def test_exchange_over_gloo_stages_cuda_tensors_through_the_host(cuda, tmp_path):
+    """Two ranks on one card over ``gloo``, whose sends take no device
+    address: ``exchange``, ``shift`` and GossipGraD's hook stage CUDA
+    tensors through pinned host buffers and give the peer's values on the
+    card, bf16 kept; the staged bytes are those sent plus received."""
+    import numpy as np
+
+    from _torch_dist_worker import gossip_grads, spawn_world
+
+    res = [r["staged_on_the_card"]
+           for r in spawn_world("gossip", tmp_path, {"part": "cuda"}, world=2)]
+    for r in res:
+        assert "error" not in r, r["error"]
+    grads = gossip_grads("cube_2x2", 2)
+    for rank, r in enumerate(res):
+        peer = 1 - rank
+        assert r["devices"] == ["cuda:0"] and r["dtype_c"] == "torch.bfloat16"
+        assert r["staged"] == 2 * r["tree_bytes"]
+        for k in ("a", "b"):
+            np.testing.assert_array_equal(r["out"][k], grads[k][peer])
+            np.testing.assert_allclose(r["hooked"][k], (grads[k][rank] + grads[k][peer]) * 0.5,
+                                       rtol=1e-6)
+        np.testing.assert_array_equal(r["out"]["c"].astype(np.float32), np.full(5, peer + 1.0))
+        np.testing.assert_array_equal(r["shifted"], grads["a"][peer])

@@ -25,12 +25,26 @@ asked for the CPU), ``parallel.create_mesh({"fsdp": ..., "sp": ...})``,
 ``materialize_module(model, sharding_rule=parallel.fsdp_shard_rule(mesh))``
 and ``parallel.ShardedTrainStep``; Llama with ``sp_axis="sp"`` trains
 sequence-parallel through the flash ring (``ops.attention.
-ring_flash_attention``).
+ring_flash_attention``).  ``ShardedTrainStep(divergent_replicas=True)``
+trains with ``parallel.gossip_grad_hook`` (GossipGraD) or
+``slowmo.slowmo_hook`` and ``slowmo.SlowMomentumOptimizer`` (SlowMo).
 """
 
 __version__ = "0.7.0.dev0"
 
-from . import data, examples, generation, interop, models, nn, ops, optimizers, parallel, serve
+from . import (
+    data,
+    examples,
+    generation,
+    interop,
+    models,
+    nn,
+    ops,
+    optimizers,
+    parallel,
+    serve,
+    slowmo,
+)
 from .deferred_init import (
     can_materialize,
     deferred_init,
@@ -56,6 +70,7 @@ __all__ = [
     "optimizers",
     "parallel",
     "serve",
+    "slowmo",
     "generate",
     "manual_seed",
     "fake_mode",

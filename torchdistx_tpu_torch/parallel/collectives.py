@@ -18,6 +18,16 @@ gradient.
 
 NCCL refuses a send to one's own rank, so ``exchange`` and ``shift`` keep
 a self-edge local (a copy).
+
+``gloo`` takes CUDA tensors for its reductions, broadcasts and gathers,
+but its point-to-point transport writes the tensor's raw address to a
+socket, and a device address fails there ("Bad address").  So on a
+``gloo`` group the sends and receives of CUDA tensors (``exchange``,
+``shift``) go through pinned host buffers: decided from the group's
+backend and the tensor's device before anything is sent, and counted in
+``_permute.staged_bytes`` (bytes sent plus bytes received through the
+host).  One card can hold a multi-rank world only on ``gloo`` (NCCL
+refuses two ranks on one device); on NCCL nothing is staged.
 """
 
 from __future__ import annotations
@@ -106,21 +116,45 @@ def broadcast(tree: Any, axis, source: int = 0) -> Any:
     return _map(one, tree)
 
 
+def _staged(x: torch.Tensor, ax: Axis) -> bool:
+    """Whether point-to-point traffic of ``x`` over ``ax`` goes through the
+    host: a CUDA tensor on a ``gloo`` group."""
+    return x.is_cuda and dist.get_backend(ax.group) == "gloo"
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+
+
 def _permute(xs, ax: Axis, dst: int, src: int, fill: str) -> list:
     """Send each of ``xs`` to member ``dst`` and receive from member ``src``
     (-1: none), all in one batch; a self-edge is a local copy."""
     xs = [x.contiguous() for x in xs]
     keep = src == ax.index or (src < 0 and fill == "self")
     outs = [x.clone() if keep else torch.zeros_like(x) for x in xs]
+    send = dst >= 0 and dst != ax.index
+    recv = src >= 0 and src != ax.index
+    if not xs or not (send or recv):
+        return outs
+    staged = _staged(xs[0], ax)
+    wire_in = [_pinned(x).copy_(x) for x in xs] if staged and send else xs
+    wire_out = [_pinned(o) for o in outs] if staged and recv else outs
     ops = []
-    if dst >= 0 and dst != ax.index:
-        ops += [dist.P2POp(dist.isend, x, ax.rank_of(dst), ax.group) for x in xs]
-    if src >= 0 and src != ax.index:
-        ops += [dist.P2POp(dist.irecv, o, ax.rank_of(src), ax.group) for o in outs]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    if send:
+        ops += [dist.P2POp(dist.isend, x, ax.rank_of(dst), ax.group) for x in wire_in]
+    if recv:
+        ops += [dist.P2POp(dist.irecv, o, ax.rank_of(src), ax.group) for o in wire_out]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        if recv:
+            for o, w in zip(outs, wire_out):
+                o.copy_(w)
+        _permute.staged_bytes += sum(x.numel() * x.element_size() for x in xs) * (send + recv)
     return outs
+
+
+_permute.staged_bytes = 0
 
 
 def exchange(tree: Any, axis, send_to: Sequence[int], recv_from: Sequence[int], *,
@@ -128,7 +162,8 @@ def exchange(tree: Any, axis, send_to: Sequence[int], recv_from: Sequence[int], 
     """Point-to-point exchange: member i sends its value to ``send_to[i]``
     (-1: to nobody) and receives from ``recv_from[i]``, which must agree
     with ``send_to``.  A member nobody sends to keeps its own value
-    (``fill="self"``) or gets zeros (``fill="zero"``)."""
+    (``fill="self"``) or gets zeros (``fill="zero"``).  Every tensor of the
+    tree goes in one batch of sends and receives."""
     if fill not in ("self", "zero"):
         raise ValueError(f"fill must be 'self' or 'zero', got {fill!r}")
     ax = resolve_axis(axis)
@@ -142,7 +177,10 @@ def exchange(tree: Any, axis, send_to: Sequence[int], recv_from: Sequence[int], 
                     f"inconsistent peer lists: member {i} expects to receive "
                     f"from {src} but the send permutation delivers {implied.get(i)}")
     dst, src = int(send_to[ax.index]), implied.get(ax.index, -1)
-    return _map(lambda x: _permute([x], ax, dst, src, fill)[0], tree)
+    leaves = []
+    _map(leaves.append, tree)
+    it = iter(_permute(leaves, ax, dst, src, fill))
+    return _map(lambda _: next(it), tree)
 
 
 class _Shift(torch.autograd.Function):

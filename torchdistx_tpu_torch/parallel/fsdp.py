@@ -25,10 +25,19 @@ from full parameters).  A step mirrors the JAX ``shard_map`` step:
 The loss returned is the mean over every mesh axis.  ``accum_steps``
 splits the local batch into microbatches whose gradients add up in the
 shards' ``.grad``; the parameters are gathered once per microbatch, not
-once per step as in the JAX step.  Not ported yet: ``divergent_replicas``
-(with ``stack_replicas`` and ``consensus``, which GossipGraD and SlowMo
-need), the numerics taps, the declarative ``plan``, and the donated-carry
-and optimizer-state sharding helpers, which have no eager counterpart.
+once per step as in the JAX step.
+
+``divergent_replicas=True`` is for hooks whose replicas' parameters
+legitimately differ between synchronizations (GossipGraD, SlowMo).  The
+JAX step gives each parameter a leading per-replica dimension sharded over
+the (single) replica axis; here each rank already owns its own
+parameters, so a rank's parameters are its node's replica and nothing is
+stacked.  ``stack_replicas()`` broadcasts every parameter (or shard) from
+node index 0 over the replica axis, so all replicas start from the same
+weights; ``consensus()`` returns every parameter gathered over the shard
+axis and averaged over the replica axis.  Not ported yet: the numerics
+taps, the declarative ``plan``, and the donated-carry and optimizer-state
+sharding helpers, which have no eager counterpart.
 """
 
 from __future__ import annotations
@@ -132,18 +141,23 @@ class ShardedTrainStep(TrainStep):
     ``hook_state``, ``batch_axes`` (default ``replica_axes + (shard_axis,)``,
     sharding dim 0 of every batch tensor) or a full ``batch_spec`` such as
     ``(None, "sp")`` for tokens sharded over the sequence, and
-    ``accum_steps``.  Full parameters in ``model`` are cut to their shards
-    in place (``param.data``), so an optimizer made before keeps them."""
+    ``accum_steps``, and ``divergent_replicas`` (exactly one replica axis;
+    see :meth:`stack_replicas` and :meth:`consensus`).  Full parameters in
+    ``model`` are cut to their shards in place (``param.data``), so an
+    optimizer made before keeps them."""
 
     def __init__(self, model: nn.Module, optimizer, loss_fn: Callable, mesh: Mesh, *,
                  shard_axis: Optional[str] = "fsdp", replica_axes: tuple = (),
                  comm_hook: Callable = allreduce_hook,
                  hook_state: Optional[DefaultState] = None,
                  batch_axes: Optional[tuple] = None, batch_spec: Optional[tuple] = None,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, divergent_replicas: bool = False):
         super().__init__(model, optimizer, loss_fn)
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if divergent_replicas and len(replica_axes) != 1:
+            raise ValueError("divergent_replicas requires exactly one replica axis")
+        self.divergent_replicas = divergent_replicas
         self.mesh = mesh
         self.shard_axis = shard_axis
         self.replica_axes = tuple(replica_axes)
@@ -196,6 +210,29 @@ class ShardedTrainStep(TrainStep):
         """Every parameter gathered to its full shape (detached)."""
         with torch.no_grad():
             return {name: self._full(p, dim) for name, p, dim in self._params}
+
+    def stack_replicas(self) -> nn.Module:
+        """Every parameter (or shard) of node index 0 broadcast over the
+        replica axis, in place: all replicas start from the same weights.
+        Without ``divergent_replicas`` nothing changes.  Returns the
+        model."""
+        if self.divergent_replicas:
+            with self.mesh, torch.no_grad():
+                for _, p, _ in self._params:
+                    p.copy_(collectives.broadcast(p.detach(), self.replica_axes[0]))
+        return self.model
+
+    def consensus(self) -> dict:
+        """``{name: full tensor}``: every parameter gathered over the shard
+        axis and averaged over the replica axis (the model is not
+        written).  Without ``divergent_replicas``, a copy of
+        :meth:`full_params`."""
+        with self.mesh:
+            full = self.full_params()
+            if self.divergent_replicas:
+                full = collectives.all_mean(full, self.replica_axes[0])
+        # a parameter neither gathered nor averaged comes back as itself
+        return {name: t.detach().clone() for name, t in full.items()}
 
     def _full(self, p, dim):
         if dim is not None:
