@@ -87,7 +87,8 @@ Phases, each fatal:
 12. one backward step of a T5-3B with 4 layers per stack through the
    kernels, in each bias mode, and through the plain path, each held
    against the f32 plain path;
-13. train full T5-3B (24 + 24 layers, bf16, batch 4 x 512) through
+13. train T5-3B at full width and 12 of its 24 layers a stack (bf16,
+   batch 4 x 512) through
    ``build_t5_train_workload``: deferred init, materialize on the card,
    one warm-up step, then 10 ``Trainer.fit`` steps with the launch
    counters reset just before, then ``torch.profiler`` over two more
@@ -165,14 +166,40 @@ Phases, each fatal:
    SlowMo steps (``slowmo_freq`` 3), the ranks bit-identical after steps 3
    and 6 and different after step 4, and ``consensus()`` the mean of the
    two ranks' parameters; the kernels' launches on each rank, and per step
-   its ms, the bytes it exchanged and the ms the exchange took.
+   its ms, the bytes it exchanged and the ms the exchange took;
+25. BASELINE config 5 on one card: the flash backward kernels and the lse
+   forward at llama2_7b's attention (B 1, S 4096, 32 heads, D 128,
+   causal) and the fused CE kernels at its loss (N 4096, D 4096, V 32000)
+   against their plain versions, timed; then, in a spawned process (its
+   host RSS peak its own, the card's memory to itself once the parent
+   emptied its cache), ``build_train_workload("llama2_7b", batch=1,
+   seq=4096, optimizer="adamw_8bit", remat=True, remat_policy="dots",
+   fused_ce=True)`` on full llama2_7b (32 layers, dim 4096, bf16):
+   deferred init (no card bytes), materialize on the card, 2 warm-up
+   steps, 4 timed ``Trainer.fit`` steps with the launch counters set to 0
+   just before (the flash forward twice a layer a step: ``dots``
+   recomputes it), then ``torch.profiler`` over one more step; gated on
+   finite losses, the host RSS growth under 32 GB, 6.74e9 parameters on
+   the card in bf16, 2.03 bytes of 8-bit state a parameter and the
+   launches;
+26. checkpoint, resume and the failure policy on llama_1b at full width
+   and 4 of its 16 layers with the 8-bit AdamW and the fused loss:
+   ``Trainer.fit`` to step 4 with a checkpoint every 2 steps, ``restore``
+   of step 2 (parameters and codes bit-identical to those saved), on to
+   step 4 again (losses within 2e-3 of the first run's; whether bitwise
+   is printed); then a fresh ``Trainer`` with a ``FailureDetector`` and
+   ``on_failure="restore"`` whose loss is made non-finite at step 3 rolls
+   back to its step-2 checkpoint and logs what the CPU tests expect.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
 dQ variant and per decode variant, phase 7 one per fused CE kernel and
 shape, phase 11 one per dbias and dtable variant: its ms, bound and
 library ms, the factor over the library and over the bound (the decode
-variants also by device time); phases 22-23 one ``train slowmo llama_1b``
-line and one ``gossip``/``slowmo`` line per rank.  It prints the card's name and power limit, one ``{"kernels":
+variants also by device time), phase 25 one per kernel at config 5's
+shapes; phases 22-23 one ``train slowmo llama_1b`` line and one
+``gossip``/``slowmo`` line per rank, phase 25 ``train llama2_7b config
+5``, phase 26 ``checkpoint and failure llama_1b``.  Each phase's start
+second is printed (``phase start``).  It prints the card's name and power limit, one ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
@@ -285,8 +312,11 @@ T5_HEADS, T5_DKV, T5_BUCKETS, T5_MAX_DIST = 32, 128, 32, 128
 # dbias and dtable vs their plain f32 versions, scaled by their max: bf16
 # outputs of f32 sums taken in another order than the plain versions'
 BIAS_GRAD_TOL = 2e-2
-# the T5-3B training runs: scripts/bench_t5_train.py's batch and length
+# the T5-3B training runs: scripts/bench_t5_train.py's batch and length, at
+# full width and T5_TRAIN_LAYERS of its 24 layers a stack (cut to keep the
+# smoke inside its time with phases 25-26)
 T5_BATCH, T5_SEQ = 4, 512
+T5_TRAIN_LAYERS = 12
 # engine counters a serve run reports
 SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
                   "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
@@ -378,6 +408,25 @@ SLOWMO_ULPS = 1.0
 GOSSIP_LAYERS = 4
 GOSSIP_STEPS = 6
 GOSSIP_TIMEOUT_S = 300
+# phase 25: BASELINE config 5 on one card, full llama2_7b trained with the
+# 8-bit AdamW and remat_policy="dots" in a spawned process (its host RSS
+# peak its own, the card's memory to itself); the kernels first at its
+# shapes: the flash backward at B 1, S 4096, 32 heads, D 128, causal, the
+# fused CE at its loss (N 4096, D 4096, V 32000)
+CONFIG5_BATCH, CONFIG5_SEQ = 1, 4096
+CONFIG5_WARMUP, CONFIG5_STEPS = 2, 4
+CONFIG5_PROFILE_STEPS = 1
+CONFIG5_BWD_CASE = (1, 4096, 32, 32, 128)
+CONFIG5_CE_CASE = (4096, 4096, 32000)
+CONFIG5_PARAMS = 6.74e9  # Llama-2-7B
+CONFIG5_HOST_RSS_GB = 32.0  # BASELINE.json's host RAM target
+CONFIG5_STATE_BYTES = (2.02, 2.04)  # 8-bit moments: 2 + 2 * 4 / 256 a parameter
+CONFIG5_TIMEOUT_S = 400
+# phase 26: checkpoint, resume and the failure policy on llama_1b at full
+# width and CKPT_LAYERS of its 16 layers; resumed losses within CKPT_LOSS_ATOL
+# of the uninterrupted run's
+CKPT_LAYERS = 4
+CKPT_LOSS_ATOL = 2e-3
 
 
 def _fail(msg: str, code: int = 1):
@@ -1389,11 +1438,13 @@ def bwd_bound(b, s, hq, hkv, d, products, outputs, window=None):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
+def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10,
+                    timed=(BWD_REPORTED, BWD_REPORTED_D64), phase=4):
     """The backward kernels and the forward's lse variant against their
     plain versions, from the same saved ``o`` and ``lse`` (bf16 grads of
     O(1): ATOL/RTOL as for the forward, for the bf16 rounding of P, dS and
-    the outputs, and f32 sums in another order)."""
+    the outputs, and f32 sums in another order); the ``timed`` cases
+    timed, their ``speed`` lines under ``phase``."""
     from torchdistx_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=device).manual_seed(4)
@@ -1433,7 +1484,7 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
                 failures.append(f"flash bwd {name} {case}: max|d|={err}")
         if lse_err > LSE_ATOL:
             failures.append(f"flash lse {case}: max|d|={lse_err}")
-        if case in (BWD_REPORTED, BWD_REPORTED_D64):
+        if case in timed:
             row["dkv_ms"] = time_ms(
                 torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do), iters)
             row["delta_ms"] = time_ms(torch, lambda: fa.flash_bwd_delta_cuda(o, do), iters)
@@ -1468,12 +1519,12 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10):
                                            + 4.0 * b * hq * s) / H100_BYTES_PER_S * 1e3)
             del sdpa, qt, kt, vt
             shape = f"B{b} S{s} Hq{hq}/Hkv{hkv} D{d}"
-            speed_line(4, f"lse causal {shape}", row, "lse_ms", "lse_bound_ms",
+            speed_line(phase, f"lse causal {shape}", row, "lse_ms", "lse_bound_ms",
                        "lse_library_ms")
-            speed_line(4, f"dkv bf16 causal {shape} (library: all three gradients)", row,
-                       "dkv_ms", "dkv_bound_ms", "library_ms")
-            speed_line(4, f"dq bf16 causal {shape} (library: all three gradients)", row,
-                       "dq_ms", "dq_bound_ms", "library_ms")
+            speed_line(phase, f"dkv bf16 causal {shape} (library: all three gradients)",
+                       row, "dkv_ms", "dkv_bound_ms", "library_ms")
+            speed_line(phase, f"dq bf16 causal {shape} (library: all three gradients)",
+                       row, "dq_ms", "dq_bound_ms", "library_ms")
         del delta
         rows.append(row)
         print("flash_bwd", json.dumps(row))
@@ -1502,7 +1553,7 @@ def _scaled_err(torch, out, ref):
     return float((out.float() - ref).abs().max() / (ref.abs().max() + 1e-30))
 
 
-def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
+def check_fused_ce(torch, device, cases=CE_CASES, iters=5, phase=7):
     """The fused CE kernels against their plain f32 versions (loss, lse;
     dX and dW of the one backward, with cotangent 1, against the plain
     version of its chunked algorithm at the same chunk) on bf16 x ~ N(0,
@@ -1570,9 +1621,9 @@ def check_fused_ce(torch, device, cases=CE_CASES, iters=5):
             for k in ("fwd", "bwd"):
                 row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = ce_bound(n, d, v, k)
             shape = f"N{n} D{d} V{v}"
-            speed_line(7, f"fused_ce_fwd {shape}", row, "fwd_ms", "fwd_bound_ms",
+            speed_line(phase, f"fused_ce_fwd {shape}", row, "fwd_ms", "fwd_bound_ms",
                        "fwd_library_ms")
-            speed_line(7, f"fused_ce_bwd {shape}", row, "bwd_ms", "bwd_bound_ms",
+            speed_line(phase, f"fused_ce_bwd {shape}", row, "bwd_ms", "bwd_bound_ms",
                        "grad_library_ms")
         rows.append(row)
         print("fused_ce", json.dumps(row))
@@ -2141,18 +2192,18 @@ def check_t5_grads(torch, model, ref_model, bucket, seq=T5_SEQ, batch=2):
 def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda",
              profile_steps=0):
     """The T5 training main path: ``build_t5_train_workload`` (deferred_init
-    -> materialize_module -> AnyPrecisionAdamW) on full T5-3B, batch 4 x
-    512, in one bias mode; one warm-up step, then ``Trainer.fit`` over
-    ``steps`` steps with the launch counters set to 0 just before and read
-    just after.  With ``profile_steps``, ``torch.profiler`` then records
-    that many more steps (after one to wait and one to warm up).  In the
-    bucket mode, last, :func:`repeat_step`."""
+    -> materialize_module -> AnyPrecisionAdamW) on T5-3B at full width and
+    ``T5_TRAIN_LAYERS`` layers a stack, batch 4 x 512, in one bias mode; one
+    warm-up step, then ``Trainer.fit`` over ``steps`` steps with the launch
+    counters set to 0 just before and read just after.  With
+    ``profile_steps``, ``torch.profiler`` then records that many more steps
+    (after one to wait and one to warm up).  In the bucket mode, last,
+    :func:`repeat_step`."""
     import math
     from torchdistx_tpu_torch.utils.benchmarks import build_t5_train_workload
 
-    w = build_t5_train_workload(name, batch=T5_BATCH, seq=T5_SEQ,
+    w = build_t5_train_workload(name, batch=T5_BATCH, seq=T5_SEQ, n_layers=T5_TRAIN_LAYERS,
                                 flash_bucket_bias=bucket, device=device, seed=seed)
-    n_layers = w["model"].cfg.n_layers
     w["run"](1)  # warm-up: optimizer state, cuBLAS handles and workspaces
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2166,7 +2217,7 @@ def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda"
     what = f"{name} train ({'bucket' if bucket else 'bias'})"
     summary = {
         "model": w["name"], "bias_mode": "bucket" if bucket else "bias",
-        "n_params": w["n_params"], "layers_per_stack": n_layers, "batch": w["batch_size"],
+        "n_params": w["n_params"], "layers_per_stack": T5_TRAIN_LAYERS, "batch": w["batch_size"],
         "seq": w["seq"], "steps": steps, "losses": losses, "loss_fell": losses[-1] < losses[0],
         "step_ms": wall / steps * 1e3, "tokens_per_sec": tokens_per_s,
         "mfu": w["flops_per_token"] * tokens_per_s / H100_BF16_FLOPS,
@@ -2179,7 +2230,7 @@ def train_t5(torch, seed, bucket, steps=TRAIN_STEPS, name="t5_3b", device="cuda"
         failures.append(f"{what} losses not finite: {losses}")
     # every self-attention of both stacks, each step: forward with lse,
     # dK/dV, dQ and the bias (or table) gradient, in this run's variant
-    per = 2 * n_layers * steps
+    per = 2 * T5_TRAIN_LAYERS * steps
     variant = "bucket" if bucket else "bias"
     expect = {"flash_fwd_lse": per, f"flash_fwd_{variant}": per,
               "flash_bwd_dkv": per, f"flash_bwd_dkv_{variant}": per,
@@ -3369,6 +3420,334 @@ def gossip_two_ranks(seed, steps=GOSSIP_STEPS, n_layers=GOSSIP_LAYERS, seq=2048,
     return {"wall_s": wall, "ranks": ranks}, failures
 
 
+def _config5_run(torch, seed, warmup, steps):
+    """Phase 25's body, in the spawned process: ``build_train_workload``
+    of full llama2_7b (deferred init, materialize on the card, the 8-bit
+    AdamW, ``remat_policy="dots"``, the fused loss), ``warmup`` steps, then
+    ``steps`` timed ``Trainer.fit`` steps with the launch counters set to 0
+    just before and read just after."""
+    from torchdistx_tpu_torch import deferred_init, is_fake
+    from torchdistx_tpu_torch.models.llama import Llama
+    from torchdistx_tpu_torch.utils.benchmarks import _PeakRss, _rss_now_gb, build_train_workload
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.init()
+    cuda_gb = _rss_now_gb()
+    w = build_train_workload("llama2_7b", batch=CONFIG5_BATCH, seq=CONFIG5_SEQ,
+                             optimizer="adamw_8bit", remat=True, remat_policy="dots",
+                             fused_ce=True, device="cuda", seed=seed)
+    model, cfg = w["model"], w["model"].cfg
+    params = list(model.parameters())
+    info = {k: w[k] for k in ("deferred_init_s", "materialize_s", "host_rss_before_gb",
+                              "peak_host_rss_gb", "host_rss_delta_gb", "card_bytes_deferred",
+                              "card_bytes_materialized", "n_params", "flops_per_token")}
+    info.update(model="llama2_7b", layers=cfg.n_layers, dim=cfg.dim, heads=cfg.n_heads,
+                kv_heads=cfg.n_kv_heads, ffn_dim=cfg.ffn_dim, vocab=cfg.vocab_size,
+                batch=w["batch_size"], seq=w["seq"], optimizer="adamw_8bit",
+                remat_policy="dots", fused_ce=True, host_rss_after_cuda_init_gb=cuda_gb,
+                all_on_card_bf16=all(p.is_cuda and p.dtype == torch.bfloat16
+                                     and not is_fake(p) for p in params))
+    # the same deferred init twice more, warm: unsampled, then under the
+    # host-RSS sampler (what the first one's time owes to a cold start,
+    # and what the sampler costs)
+    for key, ctx in (("unsampled", contextlib.nullcontext), ("sampled", _PeakRss)):
+        t0 = time.perf_counter()
+        with ctx():
+            twin = deferred_init(Llama.from_name, "llama2_7b", device="cuda",
+                                 max_seq_len=CONFIG5_SEQ, remat=True, remat_policy="dots")
+        info[f"deferred_init_warm_{key}_s"] = time.perf_counter() - t0
+        del twin
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info["warmup_losses"] = w["run"](warmup)
+    torch.cuda.synchronize()
+    info["warmup_s"] = time.perf_counter() - t0
+    _reset_counters()
+    t0 = time.perf_counter()
+    info["losses"] = w["run"](steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info["launches"] = _read_counters()
+    tokens_per_s = w["tokens_per_batch"] * steps / wall
+    info.update(steps=steps, warmup_steps=warmup, step_ms=wall / steps * 1e3,
+                tokens_per_sec=tokens_per_s,
+                mfu=w["flops_per_token"] * tokens_per_s / H100_BF16_FLOPS,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                state_bytes=w["optimizer"].state_bytes())
+    info["state_bytes_per_param"] = info["state_bytes"] / info["n_params"]
+
+    def drive(on_step):
+        w["trainer"].log_fn = on_step  # called after each synchronized step
+        w["run"](CONFIG5_PROFILE_STEPS + 2)
+
+    # where a step's time goes, the optimizer's span among it
+    info["profile"] = _profile(torch, drive, CONFIG5_PROFILE_STEPS)
+    # what the f64 emulation costs the update, and what it changes
+    info["update_f64_vs_f32"] = _update_f64_vs_f32(torch, w["optimizer"])
+    return info
+
+
+def _plain_f32_quantize(torch, x, block, signed):
+    blocks = torch.nn.functional.pad(x.reshape(-1), (0, (-x.numel()) % block)).reshape(-1, block)
+    absmax = blocks.abs().amax(dim=1, keepdim=True)
+    if signed:
+        scales = absmax / 127.0
+        return torch.round(blocks / scales.clamp(min=1e-30)).to(torch.int8), scales
+    unit = blocks / absmax.clamp(min=1e-30)
+    return torch.round(255.0 * unit.pow(0.25)).to(torch.uint8), absmax
+
+
+def _plain_f32_dequantize(torch, codes, scales, shape):
+    unit = (codes.float() / 255.0).pow(4.0) if codes.dtype == torch.uint8 else codes.float()
+    return (unit * scales).reshape(-1)[:shape.numel()].reshape(shape)
+
+
+def _plain_f32_update(torch, p, grad, state, group, c1, c2, block):
+    """``AdamW8bit``'s update of one parameter, in place, written in plain
+    f32 as the JAX source reads: separate multiplies and adds, f32
+    ``pow``, no f64.  Phase 25 times it beside the port's update, which
+    emulates XLA's fused multiply-adds and the C library's ``powf`` in f64
+    to match the JAX package's codes; the port does not use it."""
+    b1, b2 = group["betas"]
+    lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+    g32 = grad.float()
+    m = b1 * _plain_f32_dequantize(torch, state["m_codes"], state["m_scales"], p.shape)
+    m = m + (1.0 - b1) * g32
+    v = b2 * _plain_f32_dequantize(torch, state["v_codes"], state["v_scales"], p.shape)
+    v = v + (1.0 - b2) * g32 * g32
+    denom = torch.sqrt(v / c2) + eps
+    upd = -lr * ((m / c1) / denom + wd * p.float())
+    p.add_(upd.to(p.dtype))
+    state["m_codes"], state["m_scales"] = _plain_f32_quantize(torch, m, block, True)
+    state["v_codes"], state["v_scales"] = _plain_f32_quantize(torch, v, block, False)
+
+
+def _update_f64_vs_f32(torch, opt, repeats=2):
+    """The 8-bit update with and without its f64 emulation, from the last
+    step's gradients: on the largest parameter, both from one state, the
+    share of codes and parameter values where they differ; then a whole
+    step over every parameter, CUDA events around it, the port's
+    ``AdamW8bit.step`` and :func:`_plain_f32_update` alternated ``repeats``
+    times.  Run last: both move the parameters and the state."""
+    from torchdistx_tpu_torch.optimizers.quantized import _correction
+
+    with torch.no_grad():
+        pairs = [(g, p) for g in opt.param_groups for p in g["params"] if p.grad is not None]
+        group, big = max(pairs, key=lambda gp: gp[1].numel())
+        b1, b2 = group["betas"]
+        c1 = _correction(b1, opt.count + 1, big.device)
+        c2 = _correction(b2, opt.count + 1, big.device)
+        port_p, plain_p = big.detach().clone(), big.detach().clone()
+        port_st = {k: v.clone() for k, v in opt.state[big].items()}
+        plain_st = {k: v.clone() for k, v in opt.state[big].items()}
+        opt._update(port_p, big.grad, port_st, group, c1, c2)
+        _plain_f32_update(torch, plain_p, big.grad, plain_st, group, c1, c2, opt.block_size)
+        out = {"leaf_numel": big.numel(),
+               "leaf_params_differ": float((port_p != plain_p).float().mean()),
+               **{f"leaf_{k}_differ": float((port_st[k] != plain_st[k]).float().mean())
+                  for k in ("m_codes", "v_codes", "m_scales", "v_scales")}}
+        del port_p, plain_p, port_st, plain_st
+
+        def plain_step():
+            opt.count += 1
+            for group, p in pairs:
+                b1, b2 = group["betas"]
+                _plain_f32_update(torch, p, p.grad, opt.state[p], group,
+                                  _correction(b1, opt.count, p.device),
+                                  _correction(b2, opt.count, p.device), opt.block_size)
+
+        spans = {"port_f64_ms": [], "plain_f32_ms": []}
+        for _ in range(repeats):
+            for key, step in (("port_f64_ms", opt.step), ("plain_f32_ms", plain_step)):
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                step()
+                end.record()
+                end.synchronize()
+                spans[key].append(start.elapsed_time(end))
+    return {**spans, **out}
+
+
+def _config5_child(out_path, seed, warmup, steps):
+    """Phase 25's spawned process: runs ``_config5_run`` and writes its
+    result (or the traceback) as JSON to ``out_path``."""
+    result = {}
+    try:
+        import torch
+        from torchdistx_tpu_torch.utils.benchmarks import _rss_now_gb
+
+        after_import = _rss_now_gb()
+        result = _config5_run(torch, seed, warmup, steps)
+        result["host_rss_after_import_gb"] = after_import
+    except Exception:
+        result["error"] = traceback.format_exc()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def _config5_failures(r):
+    import math
+
+    failures = []
+    losses = r["warmup_losses"] + r["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"config 5 losses not finite: {losses}")
+    if not r["host_rss_delta_gb"] < CONFIG5_HOST_RSS_GB:
+        failures.append(f"config 5 host RSS grew {r['host_rss_delta_gb']} GB")
+    if abs(r["n_params"] - CONFIG5_PARAMS) > 0.005e9 or not r["all_on_card_bf16"]:
+        failures.append(f"config 5 parameters: {r['n_params']}, "
+                        f"on the card in bf16: {r['all_on_card_bf16']}")
+    if r["card_bytes_deferred"] >= 1 << 20:
+        failures.append(f"config 5 deferred init allocated {r['card_bytes_deferred']} bytes")
+    lo, hi = CONFIG5_STATE_BYTES
+    if not lo <= r["state_bytes_per_param"] <= hi:
+        failures.append(f"config 5 8-bit state {r['state_bytes_per_param']} bytes a parameter")
+    # dots recomputes each block's forward in the backward: the flash
+    # forward launches twice a layer a step
+    per = r["layers"] * r["steps"]
+    expect = {"flash_fwd_lse": 2 * per, "flash_bwd_dkv": per, "flash_bwd_dq": per,
+              "flash_bwd_delta": per, "fused_ce_fwd": r["steps"], "fused_ce_bwd": r["steps"]}
+    for kernel, n in expect.items():
+        if r["launches"][kernel] != n:
+            failures.append(f"config 5: {kernel} launches {r['launches'][kernel]} != {n}")
+    return failures
+
+
+def train_config5(torch, seed, warmup=CONFIG5_WARMUP, steps=CONFIG5_STEPS):
+    """Phase 25: ``_config5_run`` in a spawned process, once the parent has
+    given back its cached card memory; killed after CONFIG5_TIMEOUT_S."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parent = {"parent_allocated_bytes": torch.cuda.memory_allocated(),
+              "parent_reserved_bytes": torch.cuda.memory_reserved()}
+    tmp = tempfile.mkdtemp(prefix="tdx_config5_")
+    try:
+        out = os.path.join(tmp, "result.json")
+        proc = mp.get_context("spawn").Process(target=_config5_child,
+                                               args=(out, seed, warmup, steps))
+        t0 = time.perf_counter()
+        proc.start()
+        proc.join(CONFIG5_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+            return parent, [f"config 5 still running after {CONFIG5_TIMEOUT_S} s"]
+        wall = time.perf_counter() - t0
+        if not os.path.exists(out):
+            return parent, [f"config 5 exited with {proc.exitcode} and wrote nothing"]
+        with open(out) as f:
+            result = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result.update(parent, process_s=wall, exitcode=proc.exitcode)
+    if "error" in result:
+        return result, [f"config 5 raised:\n{result['error']}"]
+    return result, _config5_failures(result)
+
+
+def _snapshot(torch, model, opt):
+    return ([p.detach().clone() for p in model.parameters()],
+            [{k: v.clone() for k, v in opt.state[p].items()} for p in model.parameters()],
+            opt.count)
+
+
+def _same_snapshot(torch, a, b):
+    (pa, sa, ca), (pb, sb, cb) = a, b
+    return ca == cb and all(torch.equal(x, y) for x, y in zip(pa, pb)) and all(
+        x.keys() == y.keys() and all(x[k].dtype == y[k].dtype and torch.equal(x[k], y[k])
+                                     for k in x) for x, y in zip(sa, sb))
+
+
+def checkpoint_and_failure(torch, seed, name="llama_1b", n_layers=CKPT_LAYERS, batch=2,
+                           seq=2048, device="cuda"):
+    """Phase 26 on llama_1b at full width and ``n_layers`` layers with the
+    8-bit AdamW and the fused loss: (a) ``Trainer.fit`` to step 4 with a
+    checkpoint every 2 steps, ``restore`` of step 2, on to step 4 again;
+    (b) a fresh ``Trainer`` with a ``FailureDetector`` and
+    ``on_failure="restore"`` whose loss is made non-finite at step 3."""
+    import itertools
+    import math
+    import shutil
+    import tempfile
+
+    from torchdistx_tpu_torch.trainer import Trainer, TrainStep
+    from torchdistx_tpu_torch.utils.benchmarks import build_train_workload
+    from torchdistx_tpu_torch.utils.failure import FailureDetector
+
+    failures = []
+    tmp = tempfile.mkdtemp(prefix="tdx_ckpt_")
+    try:
+        w = build_train_workload(name, batch=batch, seq=seq, n_layers=n_layers,
+                                 optimizer="adamw_8bit", fused_ce=True, device=device,
+                                 seed=seed)
+        model, opt, tr = w["model"], w["optimizer"], w["trainer"]
+        tr.checkpoint_dir, tr.checkpoint_every = os.path.join(tmp, "run"), 2
+        _reset_counters()
+        first = w["run"](2)
+        saved = _snapshot(torch, model, opt)
+        first += w["run"](2)
+        launches = _read_counters()
+        saves = tr.metrics["checkpoints_total"]
+        t0 = time.perf_counter()
+        tr.restore(os.path.join(tmp, "run", "step_2"))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_bitwise = _same_snapshot(torch, _snapshot(torch, model, opt), saved)
+        del saved
+        resumed = w["run"](2)
+        resume_err = max(abs(a - b) for a, b in zip(resumed, first[2:]))
+        info = {"model": name, "layers": n_layers, "n_params": w["n_params"],
+                "optimizer": "adamw_8bit", "losses": first, "resumed_losses": resumed,
+                "resume_max_abs_err": resume_err, "resume_bitwise": resumed == first[2:],
+                "restored_bitwise": restored_bitwise, "restore_s": restore_s,
+                "checkpoints_total": saves,
+                "checkpoint_bytes": os.path.getsize(
+                    os.path.join(tmp, "run", "step_2", "state.pt")),
+                "launches": launches}
+        if not restored_bitwise:
+            failures.append("checkpoint: restored parameters or codes differ from the saved")
+        if not resume_err <= CKPT_LOSS_ATOL:
+            failures.append(f"checkpoint: resumed losses {resumed} vs {first[2:]}")
+        if tr.global_step != 4 or saves != 2:
+            failures.append(f"checkpoint: step {tr.global_step}, {saves} checkpoints")
+
+        calls = itertools.count(1)
+
+        class NanAtStep3(TrainStep):
+            def __call__(self, params, opt_state, batch):
+                params, opt_state, loss = super().__call__(params, opt_state, batch)
+                return params, opt_state, loss * float("nan") if next(calls) == 3 else loss
+
+        logs = []
+        tr2 = Trainer(NanAtStep3(model, opt, w["step"].loss_fn), log_every=1,
+                      log_fn=logs.append, checkpoint_dir=os.path.join(tmp, "nan"),
+                      checkpoint_every=2, failure_detector=FailureDetector(),
+                      on_failure="restore")
+        tr2.fit(itertools.repeat(w["batch"]), 4)
+        shape = [(m["step"], "failure" if "failure" in m else "loss") for m in logs]
+        failure_records = [m for m in logs if "failure" in m]
+        info["rollback"] = {"log": logs, "global_step": tr2.global_step,
+                            "failures_total": tr2.metrics["failures_total"],
+                            "checkpoints_total": tr2.metrics["checkpoints_total"]}
+        expect = {"step": 3, "failure": "nonfinite", "action": "restored", "resumed_from": 2}
+        if (shape != [(2, "loss"), (3, "failure"), (3, "loss"), (4, "loss")]
+                or failure_records != [expect] or tr2.global_step != 4
+                or tr2.metrics["failures_total"] != 1
+                or tr2.metrics["checkpoints_total"] != 2
+                or not all(math.isfinite(m["loss"]) for m in logs if "loss" in m)):
+            failures.append(f"failure policy: {info['rollback']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return info, failures
+
+
 def sp_kernel_entries(rows, sp_run):
     """The residuals forward and the f32-output backward kernels for the
     ``kernels`` line: timed at RESIDUAL_REPORTED (the non-causal 8192 row
@@ -3899,7 +4278,38 @@ def main(argv=None) -> int:
         _fail("two-rank gossip phase failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
-    # -- 24. the record ------------------------------------------------------
+    # -- 25. BASELINE config 5: llama2_7b, 8-bit AdamW, dots, on one card ----------
+    try:
+        torch.cuda.empty_cache()
+        c5_bwd, f25 = check_flash_bwd(torch, device, cases=[CONFIG5_BWD_CASE],
+                                      timed=(CONFIG5_BWD_CASE,), phase=25)
+        failures += f25
+        c5_ce, f25 = check_fused_ce(torch, device, cases=[CONFIG5_CE_CASE], phase=25)
+        failures += f25
+        torch.cuda.empty_cache()
+        config5, f25 = train_config5(torch, args.seed + 13)
+        print("train llama2_7b config 5", json.dumps(config5))
+        failures += f25
+        if "launches" not in config5:
+            _fail("config 5 phase failed: " + "; ".join(f25))
+        report["config5"] = {"train": config5, "flash_bwd": c5_bwd, "fused_ce": c5_ce}
+    except Exception:
+        traceback.print_exc()
+        _fail("config 5 phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 26. checkpoint, resume and the failure policy on the card -----------------
+    try:
+        ckpt, f26 = checkpoint_and_failure(torch, args.seed + 14)
+        print("checkpoint and failure llama_1b", json.dumps(ckpt))
+        failures += f26
+        report["checkpoint"] = ckpt
+    except Exception:
+        traceback.print_exc()
+        _fail("checkpoint phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- the record -----------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
@@ -3914,9 +4324,10 @@ def main(argv=None) -> int:
                     if (r["B"], r["S"], r["Hq"], r["Hkv"], r["D"]) == case)
 
     brep, brep64 = bwd_row(BWD_REPORTED), bwd_row(BWD_REPORTED_D64)
-    # the training main paths: llama_1b unfused and fused, gpt2_large, and
-    # llama_1b under SlowMo (phase 22)
-    runs = (train_summary, fused_summary, gpt2_summary, slowmo_train)
+    # the training main paths: llama_1b unfused and fused, gpt2_large,
+    # llama_1b under SlowMo (phase 22), config 5 (phase 25) and the
+    # checkpointed llama_1b (phase 26)
+    runs = (train_summary, fused_summary, gpt2_summary, slowmo_train, config5, ckpt)
 
     def trained(kernel):
         return sum(r["launches"][kernel] for r in runs)
@@ -4035,12 +4446,37 @@ def main(argv=None) -> int:
                   "flash_bwd_delta": "flash_bwd_delta", "flash_bwd_dq": "flash_bwd_dq",
                   "fused_ce_fwd": "fused_ce_fwd", "fused_ce_bwd_dx": "fused_ce_bwd",
                   "fused_ce_bwd_dw": "fused_ce_bwd"}
+    # phase 25's shapes: (ms, plain, bound, library, error keys) of each row
+    c5b, c5c = report["config5"]["flash_bwd"][0], report["config5"]["fused_ce"][0]
+    at_config5 = {
+        "flash_fwd": (c5b, "lse_ms", "lse_plain_ms", "lse_bound_ms", "lse_library_ms",
+                      ("lse_err",)),
+        "flash_bwd_dkv": (c5b, "dkv_ms", "plain_ms", "dkv_bound_ms", "library_ms",
+                          ("dk_err", "dv_err")),
+        "flash_bwd_delta": (c5b, "delta_ms", "delta_plain_ms", "delta_bound_ms", None,
+                            ("delta_err",)),
+        "flash_bwd_dq": (c5b, "dq_ms", "plain_ms", "dq_bound_ms", "library_ms", ("dq_err",)),
+        "fused_ce_fwd": (c5c, "fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "fwd_library_ms",
+                         ("lse_err",)),
+        "fused_ce_bwd_dx": (c5c, "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "grad_library_ms",
+                            ("dx_err",)),
+        "fused_ce_bwd_dw": (c5c, "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "grad_library_ms",
+                            ("dw_err",))}
     for entry in kernels:
         key = counter_of.get(entry["name"])
         if key:
             entry["launches_slowmo"] = slowmo_train["launches"][key]
             entry["launches_two_ranks"] = [r["launches_gossip"][key] + r["launches_slowmo"][key]
                                            for r in gossip["ranks"]]
+            entry["launches_config5"] = config5["launches"][key]
+            entry["launches_checkpoint"] = ckpt["launches"][key]
+            row, ms, plain, bound, lib, errs = at_config5[entry["name"]]
+            entry["config5"] = {
+                "shape": {k: row[k] for k in ("B", "S", "Hq", "Hkv", "D", "N", "V")
+                          if k in row},
+                "ms": row[ms], "plain_ms": row[plain], "bound_ms": row[bound],
+                "library_ms": row[lib] if lib else None,
+                "max_abs_err": max(row[e] for e in errs)}
     report["kernels"] = kernels
     failures += [f"{k['name']}: no launch on the main path" for k in kernels
                  if not k["launches"]]

@@ -1102,3 +1102,39 @@ def test_exchange_over_gloo_stages_cuda_tensors_through_the_host(cuda, tmp_path)
                                        rtol=1e-6)
         np.testing.assert_array_equal(r["out"]["c"].astype(np.float32), np.full(5, peer + 1.0))
         np.testing.assert_array_equal(r["shifted"], grads["a"][peer])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_adamw8bit_on_the_card_matches_the_cpu(cuda, dtype):
+    """``AdamW8bit`` on CUDA tensors against the same update on the CPU:
+    5 steps from the same parameters and gradients (a 1000-value leaf pads
+    its last block).  The arithmetic is the same; the card's f64 fourth
+    root may round a code the other way at a half-integer, so parameters
+    are held within atol 1e-6, rtol 1e-5 (bf16: one ulp), the codes to 1
+    apart in under 1e-3 of them, the scales to rtol 1e-5."""
+    from torchdistx_tpu_torch.optimizers import AdamW8bit
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(256, 96), (1000,), (4096,)]
+    init = [torch.randn(s, generator=g) * 0.02 for s in shapes]
+    grads = [[torch.randn(s, generator=g) * 0.01 for s in shapes] for _ in range(5)]
+    sides = []
+    for dev in ("cpu", cuda):
+        ps = [torch.nn.Parameter(x.clone().to(dev, dtype)) for x in init]
+        opt = AdamW8bit(ps, lr=1e-3, weight_decay=0.01)
+        for step in grads:
+            for p, gr in zip(ps, step):
+                p.grad = gr.to(dev, dtype)
+            opt.step()
+        sides.append((ps, opt))
+    (cpu_ps, cpu_opt), (gpu_ps, gpu_opt) = sides
+    tol = dict(atol=1e-6, rtol=1e-5) if dtype == torch.float32 else dict(atol=0, rtol=2 ** -7)
+    for p, q in zip(cpu_ps, gpu_ps):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), **tol)
+        a, b = cpu_opt.state[p], gpu_opt.state[q]
+        for k in ("m_codes", "v_codes"):
+            diff = (a[k].int() - b[k].cpu().int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3, k
+        for k in ("m_scales", "v_scales"):
+            torch.testing.assert_close(b[k].cpu(), a[k], atol=0, rtol=1e-5)
+    assert gpu_opt.state_bytes() == cpu_opt.state_bytes()

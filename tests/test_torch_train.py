@@ -251,9 +251,11 @@ def test_return_hidden_and_unported_options():
         assert h.shape == (1, 4, 64)
         torch.testing.assert_close(m.lm_head(h), m(toks))
     dots = TLlama.from_name("tiny", device="cpu", remat=True, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        dots(toks)
-    for kw in (dict(checkpoint_dir="x"), dict(stall_timeout_s=1.0), dict(cost_card=True)):
+    dots.load_state_dict(m.state_dict())
+    out = dots(toks)
+    out.sum().backward()
+    torch.testing.assert_close(out.detach(), m(toks).detach())
+    for kw in (dict(flight=object()), dict(stall_timeout_s=1.0), dict(cost_card=True)):
         with pytest.raises(NotImplementedError):
             tt.Trainer(lambda p, s, b: (p, s, 0.0), **kw)
     with pytest.raises(NotImplementedError, match="ZeRO-2"):

@@ -10,6 +10,9 @@ f32); integer arrays (the int8 codes of ``nn.quantization``) cross in
 their own dtype, so codes arrive exactly.  Stacked MoE expert weights
 (E, D, F) keep their layout.  ``export_params(model)`` is the inverse:
 the port's parameters as f32 numpy arrays under the same names.
+``load_jax_adam8bit_state(optimizer, params, state)`` loads a JAX
+``Adam8bitState`` (its flat lists, in ``tree_leaves(params)`` order) into
+an ``optimizers.AdamW8bit``, so both optimizers go on from one state.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "export_params"]
+__all__ = ["load_jax_params", "export_params", "load_jax_adam8bit_state"]
 
 
 def load_jax_params(model: torch.nn.Module,
@@ -51,3 +54,34 @@ def export_params(model: torch.nn.Module) -> dict:
     host."""
     return {name: p.detach().float().cpu().numpy()
             for name, p in model.named_parameters()}
+
+
+def load_jax_adam8bit_state(optimizer, params, state):
+    """Copy a JAX ``Adam8bitState`` into ``optimizer`` (an ``AdamW8bit``).
+
+    ``params`` gives the port's parameters in the JAX state's leaf order:
+    a sequence of them, or a module or ``{name: parameter}`` mapping, which
+    JAX flattens as a dict, by sorted name.  ``state`` has the fields
+    ``count``, ``m_codes``, ``m_scales``, ``v_codes`` and ``v_scales``
+    (the NamedTuple, or a dict of them); codes cross in their own integer
+    dtype and scales in f32, bit for bit."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    if isinstance(params, Mapping):
+        params = [params[k] for k in sorted(params)]
+    fields = ("m_codes", "m_scales", "v_codes", "v_scales")
+    get = (state.get if isinstance(state, Mapping)
+           else lambda k: getattr(state, k))
+    lists = {k: list(get(k)) for k in fields}
+    if any(len(v) != len(params) for v in lists.values()):
+        raise ValueError(f"the state has {len(lists['m_codes'])} leaves, "
+                         f"not {len(params)}")
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for i, p in enumerate(params):
+        if id(p) not in owned:
+            raise ValueError(f"leaf {i} is not a parameter of the optimizer")
+        optimizer.state[p] = {
+            k: torch.from_numpy(np.array(lists[k][i], copy=True)).to(p.device)
+            for k in fields}
+    optimizer.count = int(np.asarray(get("count")))
+    return optimizer

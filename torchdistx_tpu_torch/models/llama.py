@@ -10,8 +10,13 @@ the FA2 kernels), within the sliding window when the config sets one
 (Mistral).  The block's FFN slot is pluggable and ``Llama.block_cls``
 names the block type, so Mixtral subclasses Llama as in the JAX package.
 ``remat`` recomputes each block in the backward through
-``torch.utils.checkpoint``.  With ``sp_axis`` set the sequence is sharded
-over that mesh axis (run the model inside the ``parallel.Mesh``, as
+``torch.utils.checkpoint``: all of it (``remat_policy="full"``), or all
+but the outputs of the products with no batch dimension (``"dots"``, the
+JAX package's ``dots_with_no_batch_dims_saveable``): a selective
+checkpoint that saves ``aten.mm`` / ``aten.addmm``, which ``F.linear``
+lowers to, and recomputes the batched products, the flash
+``autograd.Function``, norms, RoPE and SiLU.  With ``sp_axis`` set the
+sequence is sharded over that mesh axis (run the model inside the ``parallel.Mesh``, as
 ``parallel.ShardedTrainStep`` does): each rank rotates its block from
 position ``axis_index * s`` and attends through ``ops.attention.
 sp_attention``, the flash ring (``sp_mode="ring"``, the default) or
@@ -63,8 +68,8 @@ class LlamaConfig:
     use_flash: Optional[bool] = None
     sliding_window: Optional[int] = None
     # recompute each block in the backward instead of keeping its
-    # activations; "full" recomputes everything ("dots", which keeps the
-    # matmul outputs, is not ported yet)
+    # activations; "full" recomputes everything, "dots" keeps the outputs
+    # of the products with no batch dimension (the projections)
     remat: bool = False
     remat_policy: str = "full"
 
@@ -95,6 +100,41 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+
+# the products with no batch dimension: F.linear on (B, S, D) folds the
+# batch into rows and lowers to one of these
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat_policy(name: str):
+    """Resolve ``LlamaConfig.remat_policy`` to ``torch.utils.checkpoint``'s
+    keyword arguments ({} = recompute everything, the default)."""
+    if name == "full":
+        return {}
+    if name == "dots":
+        return {"context_fn": _dots_context}
+    raise ValueError(f"remat_policy must be 'full' or 'dots', got {name!r}")
+
+
+def checkpoint_block(cfg, blk, *args):
+    """``blk(*args)`` recomputed in the backward under ``cfg.remat_policy``."""
+    return torch.utils.checkpoint.checkpoint(
+        blk, *args, use_reentrant=False, **_remat_policy(cfg.remat_policy))
 
 
 def _hf_normal(shape, dtype, device):
@@ -322,17 +362,12 @@ class Llama(tnn.Module):
         pre-LM-head hidden states instead (the input of a fused LM-head
         loss)."""
         cfg = self.cfg
-        if cfg.remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet"
-            )
         rope = self.rope_table()
         x = self.tok_emb(tokens)
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    blk, x, rope, use_reentrant=False)
+                x = checkpoint_block(cfg, blk, x, rope)
             else:
                 x = blk(x, rope)
         x = self.norm(x)

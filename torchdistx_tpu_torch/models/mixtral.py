@@ -16,10 +16,9 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.utils.checkpoint
 
 from ..nn.moe import MoE
-from .llama import Llama, LlamaBlock, LlamaConfig
+from .llama import Llama, LlamaBlock, LlamaConfig, checkpoint_block
 
 __all__ = ["MixtralConfig", "MixtralBlock", "Mixtral", "mixtral_configs"]
 
@@ -77,17 +76,13 @@ class Mixtral(Llama):
         """(logits, aux): ``aux`` is the mean over layers of the Switch
         load-balancing loss, from the same routing pass as the forward."""
         cfg = self.cfg
-        if cfg.remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet")
         rope = self.rope_table()
         x = self.tok_emb(tokens)
         remat = cfg.remat and torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             if remat:
-                x, aux = torch.utils.checkpoint.checkpoint(
-                    blk, x, rope, True, use_reentrant=False)
+                x, aux = checkpoint_block(cfg, blk, x, rope, True)
             else:
                 x, aux = blk(x, rope, return_aux=True)
             aux_total = aux_total + aux

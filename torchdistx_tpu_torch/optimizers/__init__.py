@@ -1,4 +1,6 @@
 from .anyprecision_optimizer import AnyPrecisionAdamW
 from .param_groups import decay_labels, label_tree, with_param_groups
+from .quantized import AdamW8bit, adamw_8bit, blockwise_dequantize, blockwise_quantize
 
-__all__ = ["AnyPrecisionAdamW", "decay_labels", "label_tree", "with_param_groups"]
+__all__ = ["AnyPrecisionAdamW", "AdamW8bit", "adamw_8bit", "blockwise_quantize",
+           "blockwise_dequantize", "decay_labels", "label_tree", "with_param_groups"]

@@ -3,7 +3,8 @@ of ``torchdistx_tpu/utils/benchmarks.py:build_train_workload``, and
 ``build_t5_train_workload``, counterpart of ``scripts/bench_t5_train.py``.
 
 A Llama LM step (flash attention on the card, AnyPrecisionAdamW at lr
-1e-4, bf16) built the way the JAX one is: ``deferred_init`` of the model,
+1e-4, or with ``optimizer="adamw_8bit"`` the 8-bit AdamW at lr 1e-4, bf16)
+built the way the JAX one is: ``deferred_init`` of the model,
 ``materialize_module`` on the device, one fixed batch of tokens and labels
 from ``np.random.RandomState(0)``, the plain ``cross_entropy`` loss, or
 with ``fused_ce=True`` the fused LM-head loss on the hidden states
@@ -12,10 +13,14 @@ explicit arguments where the JAX function reads environment variables
 (``name`` for ``TDX_BENCH_TRAIN_MODEL``, ``batch``, ``seq``, ``remat``), and
 takes model overrides: ``build_train_workload("mistral_7b", batch=1,
 seq=8192, n_layers=8)`` trains a windowed model through the window flash
-kernels.  ``flops_per_token`` keeps the JAX formula, which counts every
-causal pair and so overcounts a windowed model's attention.  The ZeRO-2
-plan, the 8-bit optimizer and the numerics taps are not ported yet and
-raise.
+kernels, and ``build_train_workload("llama2_7b", batch=1, seq=4096,
+optimizer="adamw_8bit", remat=True, remat_policy="dots", fused_ce=True)``
+trains BASELINE config 5 on one card.  ``flops_per_token`` keeps the JAX
+formula, which counts every causal pair and so overcounts a windowed
+model's attention.  The workload also reports the process's host RSS
+before deferred init, its peak over deferred init and materialize, and
+the growth (GB; sampled, see :class:`_PeakRss`).  The ZeRO-2 plan and the numerics taps
+are not ported yet and raise.
 
 The T5 workload is the JAX script's step: ``deferred_init`` of
 ``T5.from_name(name, use_flash=True)``, ``materialize_module``,
@@ -29,13 +34,19 @@ choosing the bias mode.
 from __future__ import annotations
 
 import itertools
+import os
+import threading
 import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..optimizers import AnyPrecisionAdamW, adamw_8bit
+
 __all__ = ["build_train_workload", "build_t5_train_workload"]
+
+_RSS_INTERVAL_S = 0.005  # host RSS sampling period over deferred init
 
 
 def build_train_workload(
@@ -55,11 +66,16 @@ def build_train_workload(
 ) -> dict:
     """Returns ``{"run", "trainer", "step", "model", "optimizer", "batch",
     "name", "n_params", "batch_size", "seq", "tokens_per_batch",
-    "flops_per_token", "remat", "fused_ce", "deferred_init_s",
-    "materialize_s"}``; ``run(n_steps)`` takes ``n_steps`` more steps
-    through ``Trainer.fit`` and returns their losses as floats."""
-    if optimizer != "anyprecision":
-        raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet")
+    "flops_per_token", "remat", "remat_policy", "fused_ce",
+    "deferred_init_s", "materialize_s", "host_rss_before_gb",
+    "peak_host_rss_gb", "host_rss_delta_gb", "card_bytes_deferred",
+    "card_bytes_materialized"}``;
+    ``run(n_steps)`` takes ``n_steps`` more steps through ``Trainer.fit``
+    and returns their losses as floats.  ``optimizer``: ``"anyprecision"``
+    or ``"adamw_8bit"`` (the JAX labels)."""
+    if optimizer not in _OPTIMIZERS:
+        raise ValueError(f"optimizer must be one of {sorted(_OPTIMIZERS)}, "
+                         f"got {optimizer!r}")
     for flag, what in ((zero2, "the ZeRO-2 plan"), (numerics, "numerics taps")):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -94,7 +110,8 @@ def build_train_workload(
     # the attention term 12 * L * dim * seq (PaLM appendix convention)
     flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.dim * seq
     return _workload(model, loss_fn, (tokens, labels), name, batch, seq, n_params,
-                     flops_per_token, init_s, remat=remat, fused_ce=fused_ce)
+                     flops_per_token, init_s, optimizer, remat=remat,
+                     remat_policy=remat_policy, fused_ce=fused_ce)
 
 
 def build_t5_train_workload(
@@ -132,7 +149,7 @@ def build_t5_train_workload(
         return F.cross_entropy(m(s, t), t)
 
     return _workload(model, loss_fn, (src, tgt), name, batch, seq, n_params,
-                     6 * n_params, init_s, remat=False, fused_ce=False)
+                     6 * n_params, init_s, "anyprecision", remat=False, fused_ce=False)
 
 
 def _sync(device):
@@ -140,27 +157,80 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _rss_now_gb() -> float:
+    """This process's resident set now, GB (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class _PeakRss:
+    """The resident set before the block and the largest one read every
+    ``_RSS_INTERVAL_S`` on a thread while it runs (GB); a peak shorter than
+    the interval can be missed.  Not ``ru_maxrss``: it survives ``exec``,
+    so a process started with multiprocessing's spawn inherits its
+    parent's peak there.  Not the kernel's ``VmHWM``: the sandboxed
+    kernels the card runs under here give no ``VmHWM`` and refuse
+    ``/proc/self/clear_refs``."""
+
+    def __enter__(self) -> "_PeakRss":
+        self._stop = threading.Event()
+        self.before = self.peak = _rss_now_gb()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(_RSS_INTERVAL_S):
+            self.peak = max(self.peak, _rss_now_gb())
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_now_gb())
+
+
 def _deferred_model(ctor, name, device, seed, **kwargs):
-    """``deferred_init`` then ``materialize_module`` on ``device``, and the
-    host seconds of each (the card synchronized)."""
+    """``deferred_init`` then ``materialize_module`` on ``device``: the
+    host seconds of each (the card synchronized), the process's RSS before
+    them, its peak over them (:class:`_PeakRss`) and the difference (GB),
+    and the growth of the card's allocated bytes over deferred init and
+    over both (0 on the CPU)."""
     from ..deferred_init import deferred_init, materialize_module
     from .rng import manual_seed
 
+    def card_bytes():
+        return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
     manual_seed(seed)
-    t0 = time.perf_counter()
-    model = deferred_init(ctor, name, device=device, **kwargs)
-    t1 = time.perf_counter()
-    materialize_module(model)
     _sync(device)
-    return model, {"deferred_init_s": t1 - t0, "materialize_s": time.perf_counter() - t1}
+    bytes0 = card_bytes()
+    with _PeakRss() as rss:
+        t0 = time.perf_counter()
+        model = deferred_init(ctor, name, device=device, **kwargs)
+        t1 = time.perf_counter()
+        bytes1 = card_bytes()
+        materialize_module(model)
+        _sync(device)
+        t2 = time.perf_counter()
+    return model, {"deferred_init_s": t1 - t0, "materialize_s": t2 - t1,
+                   "host_rss_before_gb": rss.before, "peak_host_rss_gb": rss.peak,
+                   "host_rss_delta_gb": rss.peak - rss.before,
+                   "card_bytes_deferred": bytes1 - bytes0,
+                   "card_bytes_materialized": card_bytes() - bytes0}
+
+
+# the JAX labels; both at the JAX workload's lr
+_OPTIMIZERS = {
+    "anyprecision": lambda params: AnyPrecisionAdamW(params, lr=1e-4),
+    "adamw_8bit": lambda params: adamw_8bit(params, 1e-4),
+}
 
 
 def _workload(model, loss_fn, batch_data, name, batch, seq, n_params,
-              flops_per_token, init_s, **flags):
-    from ..optimizers import AnyPrecisionAdamW
+              flops_per_token, init_s, optimizer, **flags):
     from ..trainer import Trainer, TrainStep
 
-    opt = AnyPrecisionAdamW(model.parameters(), lr=1e-4)
+    opt = _OPTIMIZERS[optimizer](model.parameters())
     step = TrainStep(model, opt, loss_fn)
     trainer = Trainer(step, tokens_per_batch=batch * seq, log_every=1,
                       log_fn=lambda m: None, flops_per_token=flops_per_token)
