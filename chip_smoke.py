@@ -189,7 +189,25 @@ Phases, each fatal:
    step 4 again (losses within 2e-3 of the first run's; whether bitwise
    is printed); then a fresh ``Trainer`` with a ``FailureDetector`` and
    ``on_failure="restore"`` whose loss is made non-finite at step 3 rolls
-   back to its step-2 checkpoint and logs what the CPU tests expect.
+   back to its step-2 checkpoint and logs what the CPU tests expect;
+27. BASELINE config 2 in a spawned process (phase 28 follows in the same
+   one): ``build_vision_train_workload("resnet50")`` in f32,
+   ``deferred_init`` (no card bytes) then ``materialize_module`` on the
+   card (25,557,032 parameters; deferred-init and materialize seconds,
+   host RSS growth under 32 GB), its eval forward at 2 x 224 x 224 held
+   against the same weights' forward on the CPU (f32, TF32 off, within
+   1e-3 of the largest logit), then bf16 ResNet-50 at 128 x 224 x 224
+   with AnyPrecisionAdamW: one warm-up step, 10 timed ``Trainer.fit``
+   steps (step ms, images/s, MFU at 3 x 8.18e9 FLOPs an image, peak) with
+   the launch counters set to 0 just before (no port kernel lies on this
+   path: cuDNN's convolutions stand where the JAX package's XLA
+   convolutions do), the BatchNorm running statistics unchanged (the JAX
+   semantics), then ``torch.profiler`` over one more step (cuDNN's
+   kernels, its layout transforms included, in the class ``conv``);
+28. ViT-B/16 the same way: f32 deferred init and materialize (86,567,656
+   parameters), the eval forward against the CPU at batch 2, bf16 training
+   at 64 x 224 x 224 (3 x 35.1e9 FLOPs an image), one profiled step; its
+   attention is the plain einsum path, as in the JAX package.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
 dQ variant and per decode variant, phase 7 one per fused CE kernel and
@@ -198,7 +216,8 @@ library ms, the factor over the library and over the bound (the decode
 variants also by device time), phase 25 one per kernel at config 5's
 shapes; phases 22-23 one ``train slowmo llama_1b`` line and one
 ``gossip``/``slowmo`` line per rank, phase 25 ``train llama2_7b config
-5``, phase 26 ``checkpoint and failure llama_1b``.  Each phase's start
+5``, phase 26 ``checkpoint and failure llama_1b``, phases 27-28 ``train
+resnet50 config 2`` and ``train vit_b16``.  Each phase's start
 second is printed (``phase start``).  It prints the card's name and power limit, one ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -427,6 +446,22 @@ CONFIG5_TIMEOUT_S = 400
 # of the uninterrupted run's
 CKPT_LAYERS = 4
 CKPT_LOSS_ATOL = 2e-3
+# phases 27-28: BASELINE config 2 (ResNet-50), then ViT-B/16, in one
+# spawned process (its host RSS its own; the second run spares the process
+# start and the first deferred init's one-time cost, about 9 s each on the
+# card's machine): deferred init and materialize in f32, the eval forward
+# at VISION_EVAL_BATCH x 224 x 224 against the same weights on the CPU
+# (max |card - cpu| / max |cpu| within VISION_EVAL_RTOL: cuDNN's and
+# oneDNN's f32 convolutions, TF32 off, over 50 layers), then bf16 training
+# at the batch given, one warm-up step, VISION_STEPS timed steps and one
+# profiled step
+VISION_RUNS = ((27, "resnet50", 128), (28, "vit_b16", 64))
+VISION_PARAMS = {"resnet50": 25_557_032, "vit_b16": 86_567_656}
+VISION_EVAL_BATCH = 2
+VISION_EVAL_RTOL = 1e-3
+VISION_WARMUP, VISION_STEPS = 1, 10
+VISION_PROFILE_STEPS = 1
+VISION_TIMEOUT_S = 400
 
 
 def _fail(msg: str, code: int = 1):
@@ -1855,6 +1890,7 @@ def _kernel_class(name):
     """A coarse class of a device kernel's name, for the step breakdown."""
     low = name.lower()
     for cls, keys in (("fused_ce", ("fused_ce",)), ("flash", ("flash_",)),
+                      ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d")),
                       ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")),
                       ("memcpy/memset", ("memcpy", "memset"))):
         if any(k in low for k in keys):
@@ -3570,16 +3606,16 @@ def _update_f64_vs_f32(torch, opt, repeats=2):
     return {**spans, **out}
 
 
-def _config5_child(out_path, seed, warmup, steps):
-    """Phase 25's spawned process: runs ``_config5_run`` and writes its
-    result (or the traceback) as JSON to ``out_path``."""
+def _spawned_child(out_path, fn_name, args):
+    """A spawned phase's process: ``fn_name(torch, *args)`` of this module,
+    its result (or the traceback) written as JSON to ``out_path``."""
     result = {}
     try:
         import torch
         from torchdistx_tpu_torch.utils.benchmarks import _rss_now_gb
 
         after_import = _rss_now_gb()
-        result = _config5_run(torch, seed, warmup, steps)
+        result = globals()[fn_name](torch, *args)
         result["host_rss_after_import_gb"] = after_import
     except Exception:
         result["error"] = traceback.format_exc()
@@ -3615,9 +3651,11 @@ def _config5_failures(r):
     return failures
 
 
-def train_config5(torch, seed, warmup=CONFIG5_WARMUP, steps=CONFIG5_STEPS):
-    """Phase 25: ``_config5_run`` in a spawned process, once the parent has
-    given back its cached card memory; killed after CONFIG5_TIMEOUT_S."""
+def _run_spawned(torch, fn_name, args, timeout, what):
+    """``fn_name(torch, *args)`` in a spawned process (its host RSS peak its
+    own, the card's memory to itself once the parent has given back its
+    cached memory), killed after ``timeout`` s: (its result with the
+    parent's card bytes and the process's seconds, failures)."""
     import multiprocessing as mp
     import shutil
     import tempfile
@@ -3626,29 +3664,158 @@ def train_config5(torch, seed, warmup=CONFIG5_WARMUP, steps=CONFIG5_STEPS):
     torch.cuda.empty_cache()
     parent = {"parent_allocated_bytes": torch.cuda.memory_allocated(),
               "parent_reserved_bytes": torch.cuda.memory_reserved()}
-    tmp = tempfile.mkdtemp(prefix="tdx_config5_")
+    tmp = tempfile.mkdtemp(prefix="tdx_spawned_")
     try:
         out = os.path.join(tmp, "result.json")
-        proc = mp.get_context("spawn").Process(target=_config5_child,
-                                               args=(out, seed, warmup, steps))
+        proc = mp.get_context("spawn").Process(target=_spawned_child,
+                                               args=(out, fn_name, args))
         t0 = time.perf_counter()
         proc.start()
-        proc.join(CONFIG5_TIMEOUT_S)
+        proc.join(timeout)
         if proc.is_alive():
             proc.kill()
             proc.join()
-            return parent, [f"config 5 still running after {CONFIG5_TIMEOUT_S} s"]
+            return parent, [f"{what} still running after {timeout} s"]
         wall = time.perf_counter() - t0
         if not os.path.exists(out):
-            return parent, [f"config 5 exited with {proc.exitcode} and wrote nothing"]
+            return parent, [f"{what} exited with {proc.exitcode} and wrote nothing"]
         with open(out) as f:
             result = json.load(f)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result.update(parent, process_s=wall, exitcode=proc.exitcode)
     if "error" in result:
-        return result, [f"config 5 raised:\n{result['error']}"]
-    return result, _config5_failures(result)
+        return result, [f"{what} raised:\n{result['error']}"]
+    return result, []
+
+
+def train_config5(torch, seed, warmup=CONFIG5_WARMUP, steps=CONFIG5_STEPS):
+    """Phase 25: ``_config5_run`` in a spawned process, killed after
+    CONFIG5_TIMEOUT_S."""
+    result, failures = _run_spawned(torch, "_config5_run", (seed, warmup, steps),
+                                    CONFIG5_TIMEOUT_S, "config 5")
+    return result, failures or _config5_failures(result)
+
+
+def _vision_runs(torch, seed):
+    """Phases 27-28 in the spawned process: ``_vision_run`` of each of
+    VISION_RUNS in turn, ``{name: result}``."""
+    out = {}
+    for phase, name, batch in VISION_RUNS:
+        t0 = time.perf_counter()
+        out[name] = _vision_run(torch, name, batch, seed + phase)
+        out[name].update(phase=phase, phase_s=time.perf_counter() - t0)
+    return out
+
+
+def _vision_run(torch, name, batch, seed):
+    """One of phases 27-28: ``name`` (resnet50: BASELINE config 2) through
+    ``build_vision_train_workload`` in f32
+    (deferred init, materialize on the card), its eval forward at
+    VISION_EVAL_BATCH against the same weights on the CPU; then in bf16 at
+    ``batch`` images of 224 x 224, VISION_WARMUP steps, VISION_STEPS timed
+    ``Trainer.fit`` steps with the launch counters set to 0 just before
+    and read just after, and ``torch.profiler`` over VISION_PROFILE_STEPS
+    more."""
+    from torchdistx_tpu_torch import is_fake
+    from torchdistx_tpu_torch.utils.benchmarks import build_vision_train_workload
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    w = build_vision_train_workload(name, batch=VISION_EVAL_BATCH, dtype=torch.float32,
+                                    device="cuda", seed=seed)
+    model = w["model"]
+    info = {k: w[k] for k in ("deferred_init_s", "materialize_s", "host_rss_before_gb",
+                              "peak_host_rss_gb", "host_rss_delta_gb", "card_bytes_deferred",
+                              "card_bytes_materialized", "n_params", "flops_per_token",
+                              "image_size", "num_classes")}
+    info.update(model=name, all_on_card_f32=all(
+        t.is_cuda and t.dtype == torch.float32 and not is_fake(t)
+        for t in (*model.parameters(), *model.buffers())))
+    images = w["batch"][0]
+    with torch.no_grad():
+        card = model.eval()(images).cpu()
+        ref = model.cpu()(images.cpu())
+    scale = ref.abs().max().item()
+    info["eval"] = {"batch": VISION_EVAL_BATCH, "dtype": "f32", "tf32": False,
+                    "max_abs_err": (card - ref).abs().max().item(), "ref_max_abs": scale,
+                    "rel_err": (card - ref).abs().max().item() / scale,
+                    "rtol": VISION_EVAL_RTOL, "finite": bool(torch.isfinite(card).all())}
+    del w, model, card, ref
+    torch.cuda.empty_cache()
+
+    w = build_vision_train_workload(name, batch=batch, dtype=torch.bfloat16, device="cuda",
+                                    seed=seed)
+    # the same build again, warm: what the first one's seconds owe to the
+    # process's first deferred op
+    info.update(bf16_deferred_init_s=w["deferred_init_s"], bf16_materialize_s=w["materialize_s"])
+    buffers = [b.clone() for b in w["model"].buffers()]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info["warmup_losses"] = w["run"](VISION_WARMUP)
+    torch.cuda.synchronize()
+    info["warmup_s"] = time.perf_counter() - t0
+    _reset_counters()
+    t0 = time.perf_counter()
+    info["losses"] = w["run"](VISION_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info["launches"] = _read_counters()
+    images_per_s = w["batch_size"] * VISION_STEPS / wall
+    info.update(dtype="bf16", batch=batch, steps=VISION_STEPS, warmup_steps=VISION_WARMUP,
+                step_ms=wall / VISION_STEPS * 1e3, images_per_sec=images_per_s,
+                mfu=w["flops_per_token"] * images_per_s / H100_BF16_FLOPS,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                buffers_unchanged=all(torch.equal(a, b)
+                                      for a, b in zip(buffers, w["model"].buffers())))
+
+    def drive(on_step):
+        w["trainer"].log_fn = on_step  # called after each synchronized step
+        w["run"](VISION_PROFILE_STEPS + 2)
+
+    info["profile"] = _profile(torch, drive, VISION_PROFILE_STEPS)
+    return info
+
+
+def _vision_failures(r):
+    import math
+
+    name = r["model"]
+    failures = []
+    losses = r["warmup_losses"] + r["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"{name} losses not finite: {losses}")
+    if not r["host_rss_delta_gb"] < CONFIG5_HOST_RSS_GB:
+        failures.append(f"{name} host RSS grew {r['host_rss_delta_gb']} GB")
+    if r["n_params"] != VISION_PARAMS[name] or not r["all_on_card_f32"]:
+        failures.append(f"{name} parameters: {r['n_params']}, "
+                        f"on the card in f32: {r['all_on_card_f32']}")
+    if r["card_bytes_deferred"] >= 1 << 20:
+        failures.append(f"{name} deferred init allocated {r['card_bytes_deferred']} bytes")
+    ev = r["eval"]
+    if not (ev["finite"] and ev["rel_err"] <= VISION_EVAL_RTOL):
+        failures.append(f"{name} eval forward on the card vs the CPU: {ev}")
+    if not r["buffers_unchanged"]:
+        failures.append(f"{name}: a training step wrote the BatchNorm running statistics")
+    # no Pallas kernel lies on this path in the JAX package (XLA's
+    # convolutions, the jnp attention): no port kernel may launch
+    launched = {k: n for k, n in r["launches"].items() if n}
+    if launched:
+        failures.append(f"{name} launched the port's kernels: {launched}")
+    return failures
+
+
+def train_vision(torch, seed):
+    """Phases 27-28: ``_vision_runs`` in a spawned process, killed after
+    VISION_TIMEOUT_S: ``{name: result}``, failures."""
+    result, failures = _run_spawned(torch, "_vision_runs", (seed,), VISION_TIMEOUT_S,
+                                    "phases 27-28")
+    if failures:
+        return result, failures
+    names = [name for _, name, _ in VISION_RUNS]
+    return result, [f for name in names for f in _vision_failures(result[name])]
 
 
 def _snapshot(torch, model, opt):
@@ -4307,6 +4474,21 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         _fail("checkpoint phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 27-28. BASELINE config 2 (ResNet-50) and ViT-B/16 ---------------------------
+    try:
+        vision, f27 = train_vision(torch, args.seed)
+        for phase, name, _ in VISION_RUNS:
+            label = "train resnet50 config 2" if phase == 27 else f"train {name}"
+            print(label, json.dumps(vision.get(name)))
+        failures += f27
+        if not all("losses" in vision.get(name, {}) for _, name, _ in VISION_RUNS):
+            _fail("phases 27-28 failed: " + "; ".join(f27))
+        report["vision"] = vision
+    except Exception:
+        traceback.print_exc()
+        _fail("phases 27-28 failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- the record -----------------------------------------------------------

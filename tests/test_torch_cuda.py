@@ -1138,3 +1138,90 @@ def test_adamw8bit_on_the_card_matches_the_cpu(cuda, dtype):
         for k in ("m_scales", "v_scales"):
             torch.testing.assert_close(b[k].cpu(), a[k], atol=0, rtol=1e-5)
     assert gpu_opt.state_bytes() == cpu_opt.state_bytes()
+
+
+@pytest.fixture
+def no_tf32():
+    """f32 convolutions and products in full f32 on the card (cuDNN takes
+    TF32 for f32 convolutions by default), restored afterwards."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("stride,padding,dilation,groups", [
+    (1, 1, 1, 1), (2, 3, 1, 1), (2, ((1, 0), (2, 1)), 1, 1), (1, 2, 2, 2), (2, (0, 1), 1, 4)])
+def test_conv2d_on_the_card_matches_the_cpu(cuda, no_tf32, stride, padding, dilation, groups):
+    """``nn.functional.conv2d`` (cuDNN) against the CPU's (oneDNN), f32,
+    atol = rtol = 1e-4: two libraries' algorithms summing 576 products in
+    other orders."""
+    from torchdistx_tpu_torch.nn import functional as tF
+
+    g = torch.Generator().manual_seed(stride + groups)
+    x = torch.randn(4, 64, 28, 30, generator=g)
+    w = torch.randn(32, 64 // groups, 3, 3, generator=g) / 24
+    b = torch.randn(32, generator=g)
+    kw = dict(stride=stride, padding=padding, dilation=dilation, groups=groups)
+    out = tF.conv2d(x.to(cuda), w.to(cuda), b.to(cuda), **kw)
+    torch.testing.assert_close(out.cpu(), tF.conv2d(x, w, b, **kw), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["max", "avg"])
+def test_pools_on_the_card_match_the_cpu(cuda, kind):
+    """Both pools with symmetric and asymmetric padding: max exactly, avg
+    within 1e-6 (the window's sum in another order)."""
+    from torchdistx_tpu_torch.nn import functional as tF
+
+    fn = tF.max_pool2d if kind == "max" else tF.avg_pool2d
+    x = torch.randn(8, 64, 56, 57, generator=torch.Generator().manual_seed(1))
+    for window, stride, padding in ((3, 2, 1), (3, 1, ((0, 0), (0, 0), (1, 2), (0, 1)))):
+        out = fn(x.to(cuda), window, stride=stride, padding=padding)
+        tol = 0 if kind == "max" else 1e-6
+        torch.testing.assert_close(out.cpu(), fn(x, window, stride=stride, padding=padding),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_batchnorm_on_the_card_matches_the_cpu(cuda, dtype, training):
+    """``nn.BatchNorm2d`` (the JAX semantics) on the card against the CPU:
+    f32 atol = rtol = 1e-5; bf16 within one bf16 ulp (rtol 2**-7, atol
+    2**-7 for results of cancellation); the running statistics untouched by
+    a training forward."""
+    from torchdistx_tpu_torch import nn as tnn
+
+    g = torch.Generator().manual_seed(2)
+    x = (2 * torch.randn(16, 64, 14, 14, generator=g) + 0.5).to(dtype)
+    mods = []
+    for dev in ("cpu", cuda):
+        bn = tnn.BatchNorm2d(64, dtype=dtype, device=dev).train(training)
+        with torch.no_grad():
+            for t, lo in ((bn.weight, 0.5), (bn.running_var, 0.5)):
+                t.copy_(torch.rand(64, generator=torch.Generator().manual_seed(3)) + lo)
+            bn.bias.copy_(torch.randn(64, generator=torch.Generator().manual_seed(4)))
+            bn.running_mean.copy_(torch.randn(64, generator=torch.Generator().manual_seed(5)))
+        mods.append(bn)
+    before = [b.clone() for b in mods[1].buffers()]
+    out = mods[1](x.to(cuda))
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2 ** -7,
+                                                                          rtol=2 ** -7)
+    torch.testing.assert_close(out.cpu(), mods[0](x), **tol)
+    assert all(torch.equal(a, b) for a, b in zip(before, mods[1].buffers()))
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+def test_resnet18_forward_on_the_card_matches_the_cpu(cuda, no_tf32, training):
+    """resnet18 (1000 classes) at batch 2 x 3 x 224 x 224 in f32, the same
+    weights on both sides: logits within 1e-3 of the largest magnitude
+    (cuDNN's and oneDNN's convolutions over 18 layers)."""
+    from torchdistx_tpu_torch.models import resnet18
+
+    tt.manual_seed(0)
+    model = resnet18(device=cuda).train(training)
+    x = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        out = model(x.to(cuda)).cpu()
+        ref = model.cpu()(x)
+    assert out.shape == (2, 1000) and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=1e-3 * ref.abs().max().item(), rtol=0)

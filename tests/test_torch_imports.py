@@ -26,7 +26,10 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         "torchdistx_tpu_torch.models.gpt2, torchdistx_tpu_torch.ops.fused_ce, "
         "torchdistx_tpu_torch.parallel, torchdistx_tpu_torch.parallel.multihost, "
         "torchdistx_tpu_torch.parallel.mesh, torchdistx_tpu_torch.parallel.collectives, "
-        "torchdistx_tpu_torch.parallel.comm_hooks, torchdistx_tpu_torch.parallel.fsdp\n"
+        "torchdistx_tpu_torch.parallel.comm_hooks, torchdistx_tpu_torch.parallel.fsdp, "
+        "torchdistx_tpu_torch.models.resnet, torchdistx_tpu_torch.models.vit, "
+        "torchdistx_tpu_torch.interop.torch_interop, torchdistx_tpu_torch.nn.layers, "
+        "torchdistx_tpu_torch.nn.functional\n"
         "import torch.distributed as dist\n"
         "from torchdistx_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -1,11 +1,12 @@
-"""Carry parameters exported from the JAX package into the port.
+"""Carry parameters and buffers exported from the JAX package into the port.
 
 ``load_jax_params(model, params)`` takes the JAX model's
 ``named_parameters()`` as a dict of numpy arrays (the caller converts; this
 module imports no JAX) and copies them into the port's module of the same
 architecture, so both packages compute the same function in the parity
-tests.  Names and shapes must match exactly: a missing, extra or
-mis-shaped key raises.  Float arrays cross through f32 (exact for bf16 and
+tests; ``load_jax_buffers(model, buffers)`` does the same for
+``named_buffers()`` (BatchNorm's running statistics).  Names and shapes
+must match exactly: a missing, extra or mis-shaped key raises.  Float arrays cross through f32 (exact for bf16 and
 f32); integer arrays (the int8 codes of ``nn.quantization``) cross in
 their own dtype, so codes arrive exactly.  Stacked MoE expert weights
 (E, D, F) keep their layout.  ``export_params(model)`` is the inverse:
@@ -22,30 +23,43 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "export_params", "load_jax_adam8bit_state"]
+__all__ = ["load_jax_params", "load_jax_buffers", "export_params",
+           "load_jax_adam8bit_state"]
+
+
+def _load(own: Mapping[str, torch.Tensor], arrays: Mapping[str, np.ndarray],
+          what: str) -> None:
+    missing = sorted(set(own) - set(arrays))
+    extra = sorted(set(arrays) - set(own))
+    if missing or extra:
+        raise KeyError(
+            f"{what} names differ: missing {missing}, unexpected {extra}"
+        )
+    for name, t in own.items():
+        src = np.asarray(arrays[name])
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(
+                f"{name}: shape {tuple(src.shape)} != {tuple(t.shape)}"
+            )
+    with torch.no_grad():
+        for name, t in own.items():
+            src = np.asarray(arrays[name])
+            if not np.issubdtype(src.dtype, np.integer):
+                src = src.astype(np.float32)
+            t.copy_(torch.from_numpy(np.array(src, copy=True)).to(t.dtype))
 
 
 def load_jax_params(model: torch.nn.Module,
                     params: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(params))
-    extra = sorted(set(params) - set(own))
-    if missing or extra:
-        raise KeyError(
-            f"parameter names differ: missing {missing}, unexpected {extra}"
-        )
-    for name, p in own.items():
-        src = np.asarray(params[name])
-        if tuple(src.shape) != tuple(p.shape):
-            raise ValueError(
-                f"{name}: shape {tuple(src.shape)} != {tuple(p.shape)}"
-            )
-    with torch.no_grad():
-        for name, p in own.items():
-            src = np.asarray(params[name])
-            if not np.issubdtype(src.dtype, np.integer):
-                src = src.astype(np.float32)
-            p.copy_(torch.from_numpy(np.array(src, copy=True)).to(p.dtype))
+    _load(dict(model.named_parameters()), params, "parameter")
+    return model
+
+
+def load_jax_buffers(model: torch.nn.Module,
+                     buffers: Mapping[str, np.ndarray]) -> torch.nn.Module:
+    """The JAX model's ``named_buffers()`` into the port's buffers of the
+    same names, with ``load_jax_params``'s checks."""
+    _load(dict(model.named_buffers()), buffers, "buffer")
     return model
 
 

@@ -86,11 +86,16 @@ def kaiming_normal(shape, a=0.0, dtype=torch.float32, device="cuda"):
 
 def truncated_normal(shape, std=1.0, dtype=torch.float32, device="cuda"):
     """N(0, 1) cut to [-2, 2], then scaled by ``std`` (the JAX package's
-    order)."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
-                                generator=next_generator(device))
-    return out.mul_(std) if std != 1.0 else out
+    order), drawn in f32 by the inverse CDF: a uniform draw between the
+    normal CDF's values at -2 and 2, through ``erfinv``.  A fixed sequence
+    of ops, so ``deferred_init`` records and replays it (rejection
+    sampling, which ``torch.nn.init.trunc_normal_`` may use, branches on
+    the data)."""
+    lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    out.uniform_(lo, hi, generator=next_generator(device))
+    out.erfinv_().mul_(math.sqrt(2.0) * std).clamp_(-2.0 * std, 2.0 * std)
+    return out.to(dtype)
 
 
 def linear_bias_bound(fan_in: int) -> float:

@@ -1,6 +1,7 @@
 """The single-card training workloads: ``build_train_workload``, counterpart
-of ``torchdistx_tpu/utils/benchmarks.py:build_train_workload``, and
-``build_t5_train_workload``, counterpart of ``scripts/bench_t5_train.py``.
+of ``torchdistx_tpu/utils/benchmarks.py:build_train_workload``,
+``build_t5_train_workload``, counterpart of ``scripts/bench_t5_train.py``,
+and ``build_vision_train_workload`` for ResNet and ViT.
 
 A Llama LM step (flash attention on the card, AnyPrecisionAdamW at lr
 1e-4, or with ``optimizer="adamw_8bit"`` the 8-bit AdamW at lr 1e-4, bf16)
@@ -29,6 +30,16 @@ AnyPrecisionAdamW at lr 1e-4, one fixed (src, tgt) batch from
 tgt)``, model FLOPs 6N per token (tokens = batch x seq), bf16 on the
 card and f32 on the CPU (the script's choice), ``flash_bucket_bias``
 choosing the bias mode.
+
+The vision workload builds ``resnet18/50/101`` or a ``ViT`` the same way
+(``deferred_init``, ``materialize_module``, AnyPrecisionAdamW at lr 1e-4)
+and trains it in training mode (BatchNorm on batch statistics) on one
+fixed batch of random images and labels from ``np.random.RandomState(seed)``
+with the ``cross_entropy`` of the logits.  A "token" is an image:
+``tokens_per_batch`` is the batch size and ``flops_per_token`` three times
+one image's forward FLOPs (the convolutions' and matrix products'
+multiply-adds, counted by ``torch.utils.flop_counter.FlopCounterMode``
+over a one-image forward).
 """
 
 from __future__ import annotations
@@ -37,14 +48,14 @@ import itertools
 import os
 import threading
 import time
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ..optimizers import AnyPrecisionAdamW, adamw_8bit
 
-__all__ = ["build_train_workload", "build_t5_train_workload"]
+__all__ = ["build_train_workload", "build_t5_train_workload", "build_vision_train_workload"]
 
 _RSS_INTERVAL_S = 0.005  # host RSS sampling period over deferred init
 
@@ -150,6 +161,78 @@ def build_t5_train_workload(
 
     return _workload(model, loss_fn, (src, tgt), name, batch, seq, n_params,
                      6 * n_params, init_s, "anyprecision", remat=False, fused_ce=False)
+
+
+_RESNETS = ("resnet18", "resnet50", "resnet101")
+
+
+def build_vision_train_workload(
+    name: str = "resnet50",
+    *,
+    batch: int = 128,
+    image_size: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    dtype: Optional[torch.dtype] = None,
+    device="cuda",
+    seed: int = 0,
+) -> dict:
+    """ResNet (``name`` in ``resnet18``, ``resnet50``, ``resnet101``) or ViT
+    (a ``vit_configs`` name) trained on ``batch`` images of ``image_size``
+    (default: the ViT config's, 224 for ResNet) in ``num_classes`` classes
+    (default: the model's, 1000 for ResNet); ``dtype`` defaults to bf16 on
+    the card and f32 on the CPU.  Returns what ``build_train_workload``
+    returns (``seq`` is 1: a token is an image), with ``image_size``,
+    ``num_classes`` and ``dtype``."""
+    from ..models.vit import vit_configs
+    from ..nn import functional as F
+
+    if name not in _RESNETS and name not in vit_configs:
+        raise ValueError(f"unknown vision model {name!r}")
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model, init_s = _deferred_model(_vision_model, name, device, seed, dtype=dtype,
+                                    num_classes=num_classes, image_size=image_size)
+    if name in _RESNETS:
+        image_size, num_classes = image_size or 224, model.fc.out_features
+    else:
+        image_size, num_classes = model.cfg.image_size, model.cfg.num_classes
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(seed)
+    images = torch.from_numpy(rs.randn(batch, 3, image_size, image_size).astype(np.float32))
+    images = images.to(device=device, dtype=dtype)
+    labels = torch.from_numpy(rs.randint(0, num_classes, batch)).to(device)
+
+    def loss_fn(m, b):
+        return F.cross_entropy(m(b[0]), b[1])
+
+    flops_per_image = 3 * _forward_flops(model, images[:1])
+    return _workload(model, loss_fn, (images, labels), name, batch, 1, n_params,
+                     flops_per_image, init_s, "anyprecision", image_size=image_size,
+                     num_classes=num_classes, dtype=dtype)
+
+
+def _vision_model(name, *, device, dtype, num_classes=None, image_size=None):
+    from ..models import resnet
+    from ..models.vit import ViT
+
+    if name in _RESNETS:
+        return getattr(resnet, name)(num_classes=num_classes or 1000, dtype=dtype,
+                                     device=device)
+    overrides = {k: v for k, v in (("num_classes", num_classes), ("image_size", image_size))
+                 if v is not None}
+    return ViT.from_name(name, device=device, dtype=dtype, **overrides)
+
+
+def _forward_flops(model, x) -> int:
+    """FLOPs of one forward of ``model`` on ``x`` (2 per multiply-add of the
+    convolutions and matrix products), the module left in its mode."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        model(x)
+    return counter.get_total_flops()
 
 
 def _sync(device):
