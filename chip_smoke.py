@@ -29,7 +29,7 @@ Phases, each fatal:
    serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
    random weights drawn from the seed, in turns chunked one step a
    dispatch, persistent (the decode loop one CUDA graph of an iteration,
-   replayed), chunked eight steps a dispatch, persistent, chunked one;
+   replayed), chunked eight steps a dispatch;
    check the results, every persistent stream (greedy and sampled) equal
    to the first chunked run's, one host sync per ring drain, one graph
    replay per loop iteration, the slot independence of a greedy stream,
@@ -50,9 +50,10 @@ Phases, each fatal:
    engine alone; so all four decode kernels also launch from a graph;
 4. hold the flash backward kernels (``flash_bwd_dkv``, its delta
    pre-pass ``flash_bwd_delta``, ``flash_bwd_dq``) and the forward's
-   ``lse`` variant against their plain versions, dK/dV and dQ bit for bit
-   against a second launch, and time them beside the SDPA backward (a
-   yardstick the port never calls);
+   ``lse`` variant (its output and its lse) against their plain versions,
+   dK/dV and dQ bit for bit against a second launch, also at the shapes
+   the training paths of phases 23 (c)/(d) and 25b give them, and time
+   them beside the SDPA backward (a yardstick the port never calls);
 5. one backward step of a 4-layer, full-width llama_1b through the kernels
    and through the plain path, each held against the f32 plain path;
 6. train llama_1b at full width and depth: ``deferred_init`` on the card
@@ -74,7 +75,7 @@ Phases, each fatal:
 9. train gpt2_large at full width and depth (36 layers, bf16, batch 8 x
    1024) through ``examples.train_gpt2.main`` with the fused loss: one
    warm-up step, then 10 steps with the launch counters reset just before;
-10. ``torch.profiler`` over two more gpt2_large steps: device time per
+10. ``torch.profiler`` over one more gpt2_large step: device time per
    step by kernel and kernel class against the step's host-clock time;
 11. hold T5's relative-position-bias variants of the flash kernels (an
    additive bias, the bucket table; causal and not; forward with and
@@ -87,7 +88,7 @@ Phases, each fatal:
 12. one backward step of a T5-3B with 4 layers per stack through the
    kernels, in each bias mode, and through the plain path, each held
    against the f32 plain path;
-13. train T5-3B at full width and 12 of its 24 layers a stack (bf16,
+13. train T5-3B at full width and 8 of its 24 layers a stack (bf16,
    batch 4 x 512) through
    ``build_t5_train_workload``: deferred init, materialize on the card,
    one warm-up step, then 10 ``Trainer.fit`` steps with the launch
@@ -166,7 +167,21 @@ Phases, each fatal:
    SlowMo steps (``slowmo_freq`` 3), the ranks bit-identical after steps 3
    and 6 and different after step 4, and ``consensus()`` the mean of the
    two ranks' parameters; the kernels' launches on each rank, and per step
-   its ms, the bytes it exchanged and the ms the exchange took;
+   its ms, the bytes it exchanged and the ms the exchange took; then in
+   the same world (c) tensor parallelism: llama_1b at full width and 2 of
+   its 16 layers, ``materialize_module(sharding_rule=llama_tp_rule(mesh,
+   "tp"))`` on ``{"tp": 2}``, 3 ``GSPMDTrainStep`` steps with
+   ``llama_tp_plan`` (Megatron compute, each rank's 8 of 16 heads through
+   the flash kernels), and (d) expert parallelism: mixtral_8x7b at full
+   width and 1 layer under ``m.shard_rule(mesh)`` on ``{"ep": 2}`` (4 of 8
+   experts a rank), 2 steps with the 1e-2 aux loss; both with plain SGD
+   (a gradient off by a factor shows in the update), each held against a
+   world-1 run of the same seed and batch (each step's loss within
+   TP_LOSS_RTOL, the first step's gradient of every parameter within
+   TP_GRAD_RTOL by norm, the update by norm within TP_UPDATE_RTOL of the
+   world-1 update), the flash launches of each rank counted, and per step its ms
+   and the bytes its collectives handed to ``gloo`` (staged through the
+   host: a check of correctness on real CUDA tensors, not of speed);
 25. BASELINE config 5 on one card: the flash backward kernels and the lse
    forward at llama2_7b's attention (B 1, S 4096, 32 heads, D 128,
    causal) and the fused CE kernels at its loss (N 4096, D 4096, V 32000)
@@ -182,6 +197,33 @@ Phases, each fatal:
    finite losses, the host RSS growth under 32 GB, 6.74e9 parameters on
    the card in bf16, 2.03 bytes of 8-bit state a parameter and the
    launches;
+25b. Mixtral-8x7B trained, in phase 25's process once config 5 has
+   released its model, optimizer and cache: ``deferred_init`` of
+   mixtral_8x7b at full width (dim 4096, 32/8 heads, 8 experts, top-2, ffn
+   14336, V 32000) and 4 of its 32 layers (6.07e9 parameters, bf16, remat
+   "full"), ``materialize_module(sharding_rule=m.shard_rule(mesh))`` on a
+   world-1 ``{"dp": 1, "ep": 1}`` mesh, then ``GSPMDTrainStep`` with
+   ``ShardingPlan(mesh, rules=MIXTRAL_EP_RULES)`` (the same placement,
+   checked) and the 8-bit AdamW through ``Trainer.fit``: the loss
+   ``cross_entropy + 1e-2 * aux`` through ``forward_with_aux``, its first
+   value held against the plain attention path's on the same weights and
+   batch (rtol 1e-4), one warm-up step, 3 timed steps at 1 x 4096 with the
+   launch counters set to 0 just before (every attention forward and
+   backward through the flash kernels; remat "full" runs the forward twice
+   a layer a step): step ms, tokens/s, MFU on active parameters (6 x
+   (non-expert + 2/8 of the expert parameters) + 12 L dim seq FLOPs a
+   token), peak; the aux finite and positive; then on the same model the
+   capacity dispatch, set on its MoE modules: ``"gather"`` at
+   ``capacity_factor`` 4.0 (no token can drop) against the dense forward,
+   each MoE layer on the input the dense forward gave it (max |difference|
+   / max |output| within 2e-2), and the whole forward in both modes, its
+   routing compared layer by layer (no token changes experts in the first
+   MoE layer, and after it only tokens whose k-th and (k+1)-th router
+   logits lay within twice the largest change the other mode made to a
+   logit; the logits of the tokens routed alike in every layer within
+   2e-2 of the largest, those of all tokens and the argmax agreement
+   printed), and 2 timed steps at 1.25; between the two,
+   ``torch.profiler`` over one more dense step;
 26. checkpoint, resume and the failure policy on llama_1b at full width
    and 4 of its 16 layers with the 8-bit AdamW and the fused loss:
    ``Trainer.fit`` to step 4 with a checkpoint every 2 steps, ``restore``
@@ -215,11 +257,15 @@ shape, phase 11 one per dbias and dtable variant: its ms, bound and
 library ms, the factor over the library and over the bound (the decode
 variants also by device time), phase 25 one per kernel at config 5's
 shapes; phases 22-23 one ``train slowmo llama_1b`` line and one
-``gossip``/``slowmo`` line per rank, phase 25 ``train llama2_7b config
-5``, phase 26 ``checkpoint and failure llama_1b``, phases 27-28 ``train
+``gossip``/``slowmo``/``tp llama_1b``/``ep mixtral_8x7b`` line per rank,
+phase 25 ``train llama2_7b config 5`` and ``train mixtral_8x7b``, phase 26 ``checkpoint and failure llama_1b``, phases 27-28 ``train
 resnet50 config 2`` and ``train vit_b16``.  Each phase's start
 second is printed (``phase start``).  It prints the card's name and power limit, one ``{"kernels":
-[...]}`` line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+[...]}`` line and, last, ``{"ok": true, "device": {...}}``.  In the kernels
+line each flash and fused-CE entry's ``launches`` counts phase 25b's
+timed Mixtral steps among the training runs (also apart, as
+``launches_mixtral_train``), and ``launches_tp_ep_ranks`` gives each
+rank's launches in phase 23 (c) and (d).  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
 """
@@ -294,9 +340,12 @@ TPU_KERNEL_OF = {"decode_attention": "torchdistx_tpu/ops/decode_attention.py:79"
                  "paged_decode_attention": "torchdistx_tpu/ops/decode_attention.py:609",
                  "paged_decode_attention_block": "torchdistx_tpu/ops/decode_attention.py:509"}
 # (B, S, Hq, Hkv, D) for the backward kernels; timed at the llama_1b
-# training shape (D 128) and the gpt2_large one (D 64)
+# training shape (D 128) and the gpt2_large one (D 64); the last three are
+# the attention of phase 25b's mixtral_8x7b and, per rank, of phase 23's
+# tensor-parallel llama_1b (c) and expert-parallel mixtral_8x7b (d)
 BWD_CASES = [(1, 37, 4, 4, 128), (1, 1000, 32, 8, 128), (2, 2048, 16, 16, 128),
-             (1, 2048, 32, 8, 128), (1, 130, 8, 8, 64), (8, 1024, 20, 20, 64)]
+             (1, 2048, 32, 8, 128), (1, 130, 8, 8, 64), (8, 1024, 20, 20, 64),
+             (1, 4096, 32, 8, 128), (1, 2048, 8, 8, 128), (1, 1024, 32, 8, 128)]
 BWD_REPORTED = (2, 2048, 16, 16, 128)
 BWD_REPORTED_D64 = (8, 1024, 20, 20, 64)
 # kernel lse vs the plain f32 log-sum-exp: both take f32 sums of exact
@@ -333,23 +382,26 @@ T5_HEADS, T5_DKV, T5_BUCKETS, T5_MAX_DIST = 32, 128, 32, 128
 BIAS_GRAD_TOL = 2e-2
 # the T5-3B training runs: scripts/bench_t5_train.py's batch and length, at
 # full width and T5_TRAIN_LAYERS of its 24 layers a stack (cut to keep the
-# smoke inside its time with phases 25-26)
+# smoke inside its time: 12 with phases 25-26, 8 with phases 23 (c)/(d) and
+# 25b)
 T5_BATCH, T5_SEQ = 4, 512
-T5_TRAIN_LAYERS = 12
+T5_TRAIN_LAYERS = 8
 # engine counters a serve run reports
 SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
                   "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
                   "draft_tokens_accepted", "host_syncs", "ring_drains",
                   "ring_full_drains", "loop_iterations")
 # the main serve run's decode modes, run in turns on one model: the
-# chunked engine one step a dispatch, eight, and the persistent loop (one
-# CUDA graph of an iteration, replayed)
+# chunked engine one step a dispatch, the persistent loop (one CUDA graph
+# of an iteration, replayed), the chunked engine eight steps a dispatch
+# (two more turns, persistent and chunked-1 again, were cut to keep the
+# smoke inside its time with phases 23 (c)/(d) and 25b)
 SERVE_MODES = (("chunked-1", {}), ("persistent", {"decode_mode": "persistent"}),
-               ("chunked-8", {"decode_chunk": 8}),
-               ("persistent", {"decode_mode": "persistent"}), ("chunked-1", {}))
+               ("chunked-8", {"decode_chunk": 8}))
 # decode steps run before, and profiled in, each mode's profile window: one
-# persistent ring of this capacity
-PROFILE_RING = 32
+# persistent ring of this capacity (16, not 32, to keep the smoke inside its
+# time: the profiler's key_averages takes about a second a profiled step)
+PROFILE_RING = 16
 # the other decode kernels' persistent engines, profiled the same way for
 # each kernel's device time a call inside the graph
 GRAPH_VARIANTS = (("paged_decode_attention", {"page_size": 16}),
@@ -426,7 +478,26 @@ SLOWMO_ULPS = 1.0
 # rank, GOSSIP_STEPS steps of GossipGraD, then as many of SlowMo
 GOSSIP_LAYERS = 4
 GOSSIP_STEPS = 6
-GOSSIP_TIMEOUT_S = 300
+GOSSIP_TIMEOUT_S = 480
+# phase 23 (c) and (d) in the same world: tensor parallelism on {"tp": 2},
+# llama_1b at full width and TP_LAYERS of its 16 layers, TP_STEPS steps at
+# 1 x TP_SEQ; expert parallelism on {"ep": 2}, mixtral_8x7b at full width
+# and EP_LAYERS of its 32 layers, EP_STEPS steps at 1 x EP_SEQ; both with
+# plain SGD at TP_LR (the update is the gradient, scaled: a gradient off by
+# a factor shows in it), held against a world-1 run of the same seed and
+# batch (bf16 products summed in another order): each step's loss within
+# TP_LOSS_RTOL, the first step's gradient of every parameter within
+# TP_GRAD_RTOL of the world-1 one by norm, and the update every parameter
+# took, p - p0, within TP_UPDATE_RTOL of the world-1 update by norm over
+# the model
+TP_LAYERS, TP_STEPS, TP_SEQ = 2, 3, 2048
+EP_LAYERS, EP_STEPS, EP_SEQ = 1, 2, 1024
+TP_LR = 10.0
+# about 3x the largest readings on an H100 (losses 2.6e-4, gradients
+# 0.017, updates 0.030)
+TP_LOSS_RTOL = 8e-4
+TP_GRAD_RTOL = 0.05
+TP_UPDATE_RTOL = 0.09
 # phase 25: BASELINE config 5 on one card, full llama2_7b trained with the
 # 8-bit AdamW and remat_policy="dots" in a spawned process (its host RSS
 # peak its own, the card's memory to itself); the kernels first at its
@@ -440,7 +511,37 @@ CONFIG5_CE_CASE = (4096, 4096, 32000)
 CONFIG5_PARAMS = 6.74e9  # Llama-2-7B
 CONFIG5_HOST_RSS_GB = 32.0  # BASELINE.json's host RAM target
 CONFIG5_STATE_BYTES = (2.02, 2.04)  # 8-bit moments: 2 + 2 * 4 / 256 a parameter
-CONFIG5_TIMEOUT_S = 400
+CONFIG5_TIMEOUT_S = 600
+# phase 25b, in phase 25's spawned process once config 5 has released the
+# card: mixtral_8x7b at full width (dim 4096, 32/8 heads, 8 experts, top-2,
+# ffn 14336) and MIXTRAL_TRAIN_LAYERS of its 32 layers, bf16, born
+# expert-sharded on a world-1 {"dp", "ep"} mesh, trained through
+# GSPMDTrainStep with the 8-bit AdamW, remat "full" and the Switch aux loss
+# at MIXTRAL_AUX_WEIGHT: warm-up, timed steps, then the capacity dispatch
+# (gather) at capacity 4.0 (no token can drop: E / top_k) against the dense
+# forward and MIXTRAL_CAPACITY_STEPS steps at 1.25
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_SEQ = 4, 4096
+MIXTRAL_TRAIN_WARMUP, MIXTRAL_TRAIN_STEPS = 1, 3
+MIXTRAL_CAPACITY_STEPS = 2
+MIXTRAL_PROFILE_STEPS = 1
+MIXTRAL_AUX_WEIGHT = 1e-2
+MIXTRAL_TRAIN_LR = 1e-5
+MIXTRAL_TRAIN_PARAMS = 6.066e9  # 4 layers of 1.451e9, the embedding and the head
+# the kernels' first loss against the plain path's: about 5x the gap
+# measured on an H100 (1.8e-5)
+MIXTRAL_LOSS_RTOL = 1e-4
+# each MoE layer in gather mode against dense on the same input, by
+# max |difference| / max |output| (a bf16 rounding can flip a router
+# near-tie and send a token to other experts in the layers after, so the
+# whole forward's logits over all tokens and its argmax agreement are
+# printed, not gated)
+MIXTRAL_GATHER_RTOL = 2e-2
+# and in the whole forward, layer by layer, the tokens whose top-2 experts
+# differ between the two modes: none in the first MoE layer (the same
+# input), and after it only tokens whose router margin the other mode's
+# rounding could close (``_route_flips``); the logits of the tokens routed
+# alike in every layer within MIXTRAL_GATHER_RTOL of the largest
+MIXTRAL_EP_RULES = ((r"\.mlp\.(w_gate|w_up|w_down)$", ("ep", None, None)),)
 # phase 26: checkpoint, resume and the failure policy on llama_1b at full
 # width and CKPT_LAYERS of its 16 layers; resumed losses within CKPT_LOSS_ATOL
 # of the uninterrupted run's
@@ -1127,7 +1228,7 @@ def serve_modes(torch, model, requests, num_slots=8, max_len=2048):
 def profile_decode(torch, model, requests, num_slots, max_len, **engine_kw):
     """``torch.profiler`` over one ring of decode: the requests (one a
     slot) admitted at once, :data:`PROFILE_RING` decode steps run
-    unprofiled, then the next ones to the end profiled (a persistent
+    unprofiled, then the next PROFILE_RING profiled (a persistent
     engine's second ring, at ``ring_capacity=PROFILE_RING``).  Device ms a
     step is the profiler's sum of kernel and copy time; the idle share
     is 1 - that over the window's host-clock time (the profiler's own
@@ -1147,7 +1248,7 @@ def profile_decode(torch, model, requests, num_slots, max_len, **engine_kw):
     first = counters["decode_steps"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        while engine.step():
+        while engine.step() and counters["decode_steps"] - first < PROFILE_RING:
             pass
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1491,7 +1592,7 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10,
 
         q, k, v, do = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
         o, lse = fa.flash_fwd_cuda(q, k, v, return_lse=True)
-        _, lse_ref = fa.flash_attention_lse_reference(q, k, v)
+        o_ref, lse_ref = fa.flash_attention_lse_reference(q, k, v)
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
         dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do)
         dq = fa.flash_bwd_dq_cuda(q, k, v, o, lse, do)
@@ -1519,6 +1620,10 @@ def check_flash_bwd(torch, device, cases=BWD_CASES, iters=10,
                 failures.append(f"flash bwd {name} {case}: max|d|={err}")
         if lse_err > LSE_ATOL:
             failures.append(f"flash lse {case}: max|d|={lse_err}")
+        ok, row["o_err"] = _close(torch, o, o_ref)
+        if not ok:
+            failures.append(f"flash lse output {case}: max|d|={row['o_err']}")
+        del o_ref
         if case in timed:
             row["dkv_ms"] = time_ms(
                 torch, lambda: fa.flash_bwd_dkv_cuda(q, k, v, o, lse, do), iters)
@@ -1898,7 +2003,7 @@ def _kernel_class(name):
     return "elementwise/other"
 
 
-def profile_gpt2(torch, seed, steps=2, batch=8, seq=1024, top=15):
+def profile_gpt2(torch, seed, steps=1, batch=8, seq=1024, top=15):
     """``torch.profiler`` over ``steps`` gpt2_large training steps of the
     main path: device time per step by kernel and by class, against the
     host-clock step time (the profiler's own overhead included); the
@@ -3389,6 +3494,163 @@ def _gossip_runs(torch, seed, steps, n_layers, seq):
             "peak_memory_bytes": torch.cuda.max_memory_allocated(), "failures": failures}
 
 
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _rel_norm_err(torch, got, ref):
+    """``|| got - ref || / || ref ||`` in f32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _bf16_update_err(torch, got, init, ref):
+    """``|| (got - init) - (ref - init) || / || ref - init ||`` over every
+    parameter, in f32."""
+    num = den = 0.0
+    for n, g in got.items():
+        d_ref = ref[n].float() - init[n].float()
+        num += float(((g.float() - init[n].float()) - d_ref).pow(2).sum())
+        den += float(d_ref.pow(2).sum())
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+TP_EP_CASES = (("c", "llama_1b", TP_LAYERS, TP_SEQ, TP_STEPS, {"tp": 2}),
+               ("d", "mixtral_8x7b", EP_LAYERS, EP_SEQ, EP_STEPS, {"ep": 2}))
+
+
+def _tp_ep_runs(torch, seed, cases=TP_EP_CASES, device="cuda"):
+    """Phase 23 (c) and (d) on one rank of two: (c) ``llama_1b`` (full
+    width, TP_LAYERS layers) materialized under ``llama_tp_rule`` on
+    ``{"tp": 2}`` and trained TP_STEPS steps by ``GSPMDTrainStep`` with
+    ``llama_tp_plan`` (Megatron compute, the flash kernels on the rank's 8
+    of 16 heads); (d) ``mixtral_8x7b`` (full width, EP_LAYERS layers) under
+    ``Mixtral.shard_rule`` on ``{"ep": 2}`` (4 of 8 experts a rank),
+    EP_STEPS steps with the 1e-2 aux loss; both with SGD.  Each held
+    against a world-1 run of the same seed and batch, made on each rank in
+    turn (the card holds one at a time): the losses, the first step's
+    gradients parameter by parameter and the update.  Per step its ms and the bytes its collectives
+    handed to ``gloo`` (``collectives.payload_bytes``), and the launches.
+    ``cases`` and ``device`` rehearse it on the CPU with tiny models."""
+    import math
+
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama, Mixtral
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import (
+        GSPMDTrainStep, ShardingPlan, collectives, create_mesh, llama_tp_plan, llama_tp_rule)
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out, failures = {}, []
+    for part, name, n_layers, seq, steps, axes in cases:
+        cls = Llama if part == "c" else Mixtral
+        mesh = create_mesh(axes)
+        plan = llama_tp_plan(mesh) if part == "c" else ShardingPlan(mesh, rules=MIXTRAL_EP_RULES)
+        rs = np.random.RandomState(seed + n_layers)
+        vocab = cls.configs[name]["vocab_size"]
+        batch = tuple(torch.from_numpy(rs.randint(0, vocab, (1, seq))).to(device)
+                      for _ in range(2))
+
+        def loss_fn(mod, b, part=part):
+            if part == "d":
+                logits, aux = mod.forward_with_aux(b[0])
+                return F.cross_entropy(logits, b[1]) + MIXTRAL_AUX_WEIGHT * aux
+            return F.cross_entropy(mod(b[0]), b[1])
+
+        def build(sharded, cls=cls, name=name, n_layers=n_layers, seq=seq, mesh=mesh, part=part):
+            tt.manual_seed(seed)
+            m = tt.deferred_init(cls.from_name, name, n_layers=n_layers, max_seq_len=seq,
+                                 remat=False, device=device)
+            rule = None
+            if sharded:
+                rule = llama_tp_rule(mesh, "tp") if part == "c" else m.shard_rule(mesh)
+            return tt.materialize_module(m, sharding_rule=rule)
+
+        def opt_of(m):
+            return torch.optim.SGD(m.parameters(), lr=TP_LR)
+
+        for r in range(world):  # the world-1 run, one rank at a time
+            if r == rank:
+                m = build(False)
+                init = {n: p.detach().clone() for n, p in m.named_parameters()}
+                ref_step = tt.TrainStep(m, opt_of(m), loss_fn)
+                ref_trainer = tt.Trainer(ref_step, log_every=1, log_fn=lambda _: None)
+                ref_trainer.fit([batch], 1)
+                ref_grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+                ref_trainer.fit([batch] * (steps - 1), steps)
+                ref = {"losses": [float(x) for x in ref_step.losses],
+                       "params": {n: p.detach().clone() for n, p in m.named_parameters()}}
+                del m, ref_step, ref_trainer
+                _empty(torch, device)
+            dist.barrier()
+        m = build(True)
+        local_params = sum(p.numel() for p in m.parameters())
+        step = GSPMDTrainStep(m, opt_of(m), loss_fn, mesh, plan=plan)
+        trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+        rows = []
+        _reset_counters()
+        for i in range(steps):
+            before = dict(collectives.payload_bytes)
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            trainer.fit([batch], i + 1)
+            _sync(torch, device)
+            rows.append({"step": i + 1, "ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": float(step.losses[-1]), "ref_loss": ref["losses"][i],
+                         "collective_bytes": {k: collectives.payload_bytes[k] - before[k]
+                                              for k in before}})
+            if i == 0:
+                grad_err = {n: _rel_norm_err(torch, gather_full(p.grad, sharding_of(p)[0]),
+                                             ref_grads[n])
+                            for n, p in m.named_parameters()}
+        launches = _read_counters()
+        full = step.full_params()
+        update_err = _bf16_update_err(torch, full, init, ref["params"])
+        update_by_param = {n: _rel_norm_err(torch, full[n].float() - init[n].float(),
+                                            ref["params"][n].float() - init[n].float())
+                           for n in full}
+        max_diff = max(float((full[n].float() - ref["params"][n].float()).abs().max())
+                       for n in full)
+        what = f"{'tp' if part == 'c' else 'ep'} {name} rank {rank}"
+        for row in rows:
+            rel = abs(row["loss"] - row["ref_loss"]) / abs(row["ref_loss"])
+            if not (math.isfinite(row["loss"]) and rel <= TP_LOSS_RTOL):
+                failures.append(f"{what}: step {row['step']} loss {row['loss']} against the "
+                                f"world-1 run's {row['ref_loss']}")
+        if not update_err <= TP_UPDATE_RTOL:
+            failures.append(f"{what}: the update is {update_err} off the world-1 run's by norm")
+        worst = max(grad_err, key=grad_err.get)
+        if not grad_err[worst] <= TP_GRAD_RTOL:
+            failures.append(f"{what}: the first gradient of {worst} is {grad_err[worst]} off "
+                            "the world-1 run's by norm")
+        want = {k: n_layers * steps for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
+                                              "flash_bwd_delta")}
+        failures += [f"{what}: {k} launches {launches[k]} != {n}"
+                     for k, n in want.items() if launches[k] != n]
+        out[part] = {"model": name, "mesh": dict(mesh.shape), "layers": n_layers, "seq": seq,
+                     "steps": rows, "launches": launches, "update_rel_err": update_err,
+                     "grad_rel_err_max": grad_err[worst], "grad_rel_err_worst": worst,
+                     "grad_rel_err": grad_err, "update_rel_err_by_param": update_by_param,
+                     "max_abs_param_diff": max_diff, "local_params": local_params,
+                     "full_params": sum(t.numel() for t in full.values()),
+                     "local_forwards": len(step._forwards),
+                     "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                           if device == "cuda" else None)}
+        del m, step, trainer, full, init, ref, ref_grads
+        _empty(torch, device)
+    return out, failures
+
+
 def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
     """One spawned rank of phase 23: joins the ``gloo`` world through a
     ``FileStore``, runs ``_gossip_runs`` on ``cuda:0`` and writes its result
@@ -3403,6 +3665,11 @@ def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
                        store=dist.FileStore(store_path, world), timeout_s=GOSSIP_TIMEOUT_S)
         try:
             result = _gossip_runs(torch, seed, steps, n_layers, seq)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            result["tp_ep"], fails = _tp_ep_runs(torch, seed)
+            result["tp_ep"]["seconds"] = time.perf_counter() - t0
+            result["failures"] += fails
         finally:
             dist.destroy_process_group()
     except Exception:
@@ -3689,10 +3956,267 @@ def _run_spawned(torch, fn_name, args, timeout, what):
     return result, []
 
 
+
+
+def _mixtral_train_run(torch, seed, n_layers=MIXTRAL_TRAIN_LAYERS, seq=MIXTRAL_TRAIN_SEQ,
+                       warmup=MIXTRAL_TRAIN_WARMUP, steps=MIXTRAL_TRAIN_STEPS,
+                       name="mixtral_8x7b", device="cuda"):
+    """Phase 25b's body: ``deferred_init`` of mixtral_8x7b at full width and
+    ``n_layers`` layers (remat "full", bf16), ``materialize_module(
+    sharding_rule=m.shard_rule(mesh))`` on a world-1 ``{"dp": 1, "ep": 1}``
+    mesh, the loss ``cross_entropy + MIXTRAL_AUX_WEIGHT * aux`` through
+    ``forward_with_aux`` (its first value also on the plain attention path),
+    ``GSPMDTrainStep(plan=ShardingPlan(mesh, rules=MIXTRAL_EP_RULES))`` with
+    the 8-bit AdamW through ``Trainer.fit``: ``warmup`` steps, then ``steps``
+    timed with the launch counters set to 0 just before and read just
+    after.  Then, on the same model (the MoE modules' mode set, no
+    parameter changed), the gather dispatch at capacity 4.0 against the
+    dense forward and MIXTRAL_CAPACITY_STEPS steps at capacity 1.25.  It
+    also runs on the CPU at a small ``name`` (``"tiny"``), to rehearse."""
+    import math
+
+    import numpy as np
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Mixtral
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.nn.moe import MoE
+    from torchdistx_tpu_torch.optimizers import adamw_8bit
+    from torchdistx_tpu_torch.parallel import GSPMDTrainStep, ShardingPlan, create_mesh
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    mesh = create_mesh({"dp": 1, "ep": 1})
+    tt.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tt.deferred_init(Mixtral.from_name, name, n_layers=n_layers, remat=True,
+                             max_seq_len=seq, device=device)
+    deferred_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tt.materialize_module(model, sharding_rule=model.shard_rule(mesh))
+    _sync(torch, device)
+    materialize_s = time.perf_counter() - t0
+    cfg = model.cfg
+    plan = ShardingPlan(mesh, rules=MIXTRAL_EP_RULES)
+    born = {n: tuple(sharding_of(p)[0].spec) for n, p in model.named_parameters()}
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    n_expert = sum(m.w_gate.numel() + m.w_up.numel() + m.w_down.numel() for m in moes)
+    # the Mixtral paper's active parameters: top_k of the E experts
+    n_active = n_params - n_expert + n_expert * cfg.top_k / cfg.n_experts
+    attn = 12 * cfg.n_layers * cfg.dim * seq
+    flops_per_token = 6 * n_active + attn
+    rs = np.random.RandomState(seed)
+    batch = tuple(torch.from_numpy(rs.randint(0, cfg.vocab_size, (1, seq))).to(device)
+                  for _ in range(2))
+    auxes = []
+
+    def loss_fn(mod, b):
+        logits, aux = mod.forward_with_aux(b[0])
+        auxes.append(aux.detach())
+        return F.cross_entropy(logits, b[1]) + MIXTRAL_AUX_WEIGHT * aux
+
+    # the first loss on the plain attention path, the same weights and batch
+    flash = cfg.use_flash
+    cfg.use_flash = False
+    with torch.no_grad():
+        plain_loss = float(loss_fn(model, batch))
+    cfg.use_flash = flash
+    auxes.clear()
+    opt = adamw_8bit(params, MIXTRAL_TRAIN_LR)
+    step = GSPMDTrainStep(model, opt, loss_fn, mesh, batch_spec=("dp",), plan=plan)
+    trainer = tt.Trainer(step, tokens_per_batch=seq, flops_per_token=flops_per_token,
+                         log_every=1, log_fn=lambda _: None)
+    t0 = time.perf_counter()
+    trainer.fit([batch] * warmup, warmup)
+    _sync(torch, device)
+    warmup_s = time.perf_counter() - t0
+    _reset_counters()
+    t0 = time.perf_counter()
+    trainer.fit([batch] * steps, warmup + steps)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    tokens_per_s = seq * steps / wall
+    info = {"model": name, "layers": cfg.n_layers, "dim": cfg.dim,
+            "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "ffn_dim": cfg.ffn_dim,
+            "experts": cfg.n_experts, "top_k": cfg.top_k, "vocab": cfg.vocab_size,
+            "batch": 1, "seq": seq, "optimizer": "adamw_8bit", "remat_policy": cfg.remat_policy,
+            "mesh": dict(mesh.shape), "deferred_init_s": deferred_s,
+            "materialize_s": materialize_s, "n_params": n_params, "n_expert_params": n_expert,
+            "n_active_params": n_active, "flops_per_token": flops_per_token,
+            "dense_flops_per_token": 6 * n_params + attn,
+            "expert_flops_executed_over_active": cfg.n_experts / cfg.top_k,
+            "plan_matches_rule": born == {n: tuple(v) for n, v in plan.describe(model).items()},
+            "expert_spec": born["blocks.0.mlp.w_gate"], "plain_first_loss": plain_loss,
+            "warmup_s": warmup_s, "warmup_losses": [float(x) for x in step.losses[:warmup]],
+            "losses": [float(x) for x in step.losses[warmup:]],
+            "aux": [float(a) for a in auxes], "steps": steps, "step_ms": wall / steps * 1e3,
+            "tokens_per_sec": tokens_per_s,
+            "mfu_active": flops_per_token * tokens_per_s / H100_BF16_FLOPS,
+            "peak_memory_bytes": peak,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved() if on_card else None,
+            "state_bytes": opt.state_bytes(), "launches": launches}
+    if on_card:  # where a dense step's time goes
+
+        def drive(on_step):
+            trainer.log_fn = on_step  # called after each synchronized step
+            done = trainer.global_step
+            trainer.fit([batch] * (MIXTRAL_PROFILE_STEPS + 2), done + MIXTRAL_PROFILE_STEPS + 2)
+
+        info["profile"] = _profile(torch, drive, MIXTRAL_PROFILE_STEPS)
+        trainer.log_fn = lambda _: None
+    # the capacity dispatch at Mixtral's width: set on the MoE modules
+    ids = [id(p) for p in model.parameters()]
+
+    def set_mode(cf, mode):
+        for m in moes:
+            m.capacity_factor, m.dispatch_mode = cf, mode
+
+    # each MoE on the input the dense forward gave it, in both modes (the
+    # same routing), then the whole forward in both, every router's logits
+    # kept (a router near-tie that a rounding flips sends a token to
+    # other experts in the layers after: _route_flips)
+    inputs, routed = [], []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.append(args[0]))
+             for m in moes]
+    taps = [m.router.register_forward_hook(lambda mod, args, out: routed.append(out))
+            for m in moes]
+    with torch.no_grad():
+        set_mode(None, "einsum")
+        dense = model(batch[0]).float()
+        for h in hooks:
+            h.remove()
+        dense_routed, routed[:] = routed[:], []
+        per_layer = []
+        for m, x in zip(moes, inputs):
+            yd = m(x).float()
+            m.capacity_factor, m.dispatch_mode = 4.0, "gather"
+            yg = m(x).float()
+            per_layer.append(float((yg - yd).abs().max() / yd.abs().max()))
+        routed.clear()
+        gathered = model(batch[0]).float()
+        for h in taps:
+            h.remove()
+        flips = [_route_flips(torch, a, b, cfg.top_k) for a, b in zip(dense_routed, routed)]
+        same = torch.ones(dense.shape[:-1], dtype=torch.bool, device=dense.device)
+        for f in flips:
+            same &= ~f.pop("mask").reshape(same.shape)
+    info["gather_c4_vs_dense_by_layer"] = per_layer
+    info["gather_c4_vs_dense_logits"] = float((gathered - dense).abs().max() / dense.abs().max())
+    info["gather_c4_argmax_agreement"] = float(
+        (gathered.argmax(-1) == dense.argmax(-1)).float().mean())
+    info["gather_c4_route_flips"] = flips
+    info["gather_c4_tokens_routed_alike"] = int(same.sum())
+    info["gather_c4_vs_dense_logits_routed_alike"] = (
+        float((gathered - dense)[same].abs().max() / dense.abs().max()) if same.any() else None)
+    del dense, gathered, inputs, dense_routed, routed
+    set_mode(1.25, "gather")
+    cap_ms = []
+    done = trainer.global_step
+    for i in range(MIXTRAL_CAPACITY_STEPS):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        trainer.fit([batch], done + i + 1)
+        _sync(torch, device)
+        cap_ms.append((time.perf_counter() - t0) * 1e3)
+    info.update(capacity_factor=1.25, capacity_step_ms=cap_ms,
+                capacity_losses=[float(x) for x in step.losses[done:]],
+                mode_change_kept_parameters=[id(p) for p in model.parameters()] == ids,
+                peak_memory_bytes_with_capacity=(torch.cuda.max_memory_allocated()
+                                                 if on_card else None))
+    info["all_finite"] = all(math.isfinite(x) for x in info["warmup_losses"] + info["losses"]
+                             + info["capacity_losses"] + info["aux"])
+    return info
+
+
+def _route_flips(torch, a, b, k):
+    """One MoE layer's routing in two runs, from its router logits ``a``
+    and ``b`` (..., E): the tokens whose top-``k`` expert sets differ
+    (``mask``, and how many), and how many of them had ``a``'s k-th and
+    (k+1)-th logits further apart than twice the largest change of a
+    logit between the runs (``unexplained``: a flip needs the gap to
+    close, which that change cannot do), beside the tokens within it
+    (``near_ties``), the largest change and the largest logit."""
+    a, b = (x.float().reshape(-1, x.shape[-1]) for x in (a, b))
+    sets = [torch.topk(x, k, dim=-1).indices.sort(-1).values for x in (a, b)]
+    mask = (sets[0] != sets[1]).any(-1)
+    top = torch.topk(a, k + 1, dim=-1).values
+    margin = top[:, k - 1] - top[:, k]
+    change = (a - b).abs().amax(-1)
+    near = margin <= 2 * change
+    return {"mask": mask, "flipped": int(mask.sum()), "near_ties": int(near.sum()),
+            "unexplained": int((mask & ~near).sum()),
+            "max_flipped_margin": float(margin[mask].max()) if mask.any() else None,
+            "max_logit_change": float(change.max()), "max_abs_logit": float(a.abs().max())}
+
+
+def _mixtral_failures(r):
+    if "error" in r:
+        return ["mixtral train raised:\n" + r["error"]]
+    failures = []
+    if not r["all_finite"]:
+        failures.append(f"mixtral train: losses or aux not finite: {r['losses']} {r['aux']}")
+    if not all(a > 0 for a in r["aux"]):
+        failures.append(f"mixtral train: aux not positive: {r['aux']}")
+    first = r["warmup_losses"][0]
+    if not abs(first - r["plain_first_loss"]) <= MIXTRAL_LOSS_RTOL * abs(r["plain_first_loss"]):
+        failures.append(f"mixtral train: first loss {first} against the plain path's "
+                        f"{r['plain_first_loss']}")
+    if r["layers"] == MIXTRAL_TRAIN_LAYERS and abs(r["n_params"] - MIXTRAL_TRAIN_PARAMS) > 0.01e9:
+        failures.append(f"mixtral train: {r['n_params']} parameters")
+    if not r["plan_matches_rule"] or tuple(r["expert_spec"]) != ("ep", None, None):
+        failures.append(f"mixtral train: the plan and shard_rule disagree ({r['expert_spec']})")
+    if not max(r["gather_c4_vs_dense_by_layer"]) <= MIXTRAL_GATHER_RTOL:
+        failures.append("mixtral train: gather at capacity 4.0 is "
+                        f"{r['gather_c4_vs_dense_by_layer']} off the dense MoE")
+    alike = r["gather_c4_vs_dense_logits_routed_alike"]
+    if alike is None or not alike <= MIXTRAL_GATHER_RTOL:
+        failures.append(f"mixtral train: gather at capacity 4.0 is {alike} off the dense "
+                        "forward's logits over the tokens routed alike")
+    # the first MoE sees the same input in both modes; after it a token
+    # changes experts only across a near-tie that the modes' rounding closed
+    flips = r["gather_c4_route_flips"]
+    if flips[0]["flipped"] or any(f["unexplained"] for f in flips):
+        failures.append(f"mixtral train: routing differs between gather and dense: {flips}")
+    if not r["mode_change_kept_parameters"]:
+        failures.append("mixtral train: setting the MoE mode changed the parameters")
+    # remat "full" recomputes each block's forward in the backward: the
+    # flash forward launches twice a layer a step
+    per = r["layers"] * r["steps"]
+    expect = {"flash_fwd_lse": 2 * per, "flash_bwd_dkv": per, "flash_bwd_dq": per,
+              "flash_bwd_delta": per, "fused_ce_fwd": 0, "fused_ce_bwd": 0}
+    failures += [f"mixtral train: {k} launches {r['launches'][k]} != {n}"
+                 for k, n in expect.items() if r["launches"][k] != n]
+    return failures
+
+
+def _phase25_runs(torch, seed, warmup, steps):
+    """Phase 25's spawned process: config 5, then, once its model,
+    optimizer and cached blocks are released, phase 25b's Mixtral run
+    (``{..., "mixtral": {...}}``)."""
+    import gc
+
+    info = _config5_run(torch, seed, warmup, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    info["card_bytes_before_mixtral"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        info["mixtral"] = _mixtral_train_run(torch, seed + 100)
+    except Exception:
+        info["mixtral"] = {"error": traceback.format_exc()}
+    info["mixtral"]["phase_s"] = time.perf_counter() - t0
+    return info
+
+
 def train_config5(torch, seed, warmup=CONFIG5_WARMUP, steps=CONFIG5_STEPS):
-    """Phase 25: ``_config5_run`` in a spawned process, killed after
-    CONFIG5_TIMEOUT_S."""
-    result, failures = _run_spawned(torch, "_config5_run", (seed, warmup, steps),
+    """Phases 25 and 25b: ``_phase25_runs`` in a spawned process, killed
+    after CONFIG5_TIMEOUT_S."""
+    result, failures = _run_spawned(torch, "_phase25_runs", (seed, warmup, steps),
                                     CONFIG5_TIMEOUT_S, "config 5")
     return result, failures or _config5_failures(result)
 
@@ -4105,6 +4629,7 @@ def main(argv=None) -> int:
                 print("\n".join(f"    {ln}" for ln in report[f"ptxas_{name}"]))
     report["build_s"] = build_s
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 2. kernels vs plain versions ---------------------------------------
     try:
         flash_rows, f1 = check_flash(torch, device)
@@ -4117,6 +4642,7 @@ def main(argv=None) -> int:
     report["flash"], report["decode"] = flash_rows, decode_row
     report["decode_variants"] = variant_rows
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 3. serve -----------------------------------------------------------
     try:
         Llama = tt.models.Llama
@@ -4170,6 +4696,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         _fail("serve phase failed")
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 4. backward kernels vs plain versions ------------------------------
     try:
         bwd_rows, f4 = check_flash_bwd(torch, device)
@@ -4179,6 +4706,7 @@ def main(argv=None) -> int:
         _fail("backward kernel phase failed")
     report["flash_bwd"] = bwd_rows
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 5. gradients at 4 layers of full llama_1b width ----------------------
     try:
         tt.manual_seed(args.seed + 2)
@@ -4199,6 +4727,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         _fail("gradient phase failed")
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 6. train llama_1b ----------------------------------------------------
     try:
         ok, info = check_deferred(torch, tt, args.seed)
@@ -4223,6 +4752,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         _fail("train phase failed")
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 7. fused LM-head cross-entropy kernels vs plain versions -------------
     try:
         ce_rows, f7 = check_fused_ce(torch, device)
@@ -4232,6 +4762,7 @@ def main(argv=None) -> int:
         _fail("fused cross-entropy kernel phase failed")
     report["fused_ce"] = ce_rows
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 8. gradients at 4 layers of full gpt2_large width --------------------
     try:
         GPT2 = tt.models.GPT2
@@ -4253,6 +4784,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         _fail("gpt2 gradient phase failed")
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 9. train gpt2_large ----------------------------------------------------
     try:
         gpt2_summary, f9 = train_gpt2(torch, args.seed)
@@ -4263,6 +4795,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         _fail("gpt2 train phase failed")
 
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 10. where a gpt2_large step's time goes ----------------------------
     try:
         prof = profile_gpt2(torch, args.seed)
@@ -4431,12 +4964,16 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
-    # -- 23. GossipGraD and SlowMo across two ranks on the one card ----------------
+    # -- 23. GossipGraD, SlowMo, TP and EP across two ranks on the one card ---------
     try:
+        torch.cuda.empty_cache()
         gossip, f23 = gossip_two_ranks(args.seed + 12)
         for res in gossip["ranks"]:
             for run in ("gossip", "slowmo"):
                 print(f"{run} rank {res.get('rank')}", json.dumps(res.get(run)))
+            for part, what in (("c", "tp llama_1b"), ("d", "ep mixtral_8x7b")):
+                print(f"{what} rank {res.get('rank')}",
+                      json.dumps(res.get("tp_ep", {}).get(part)))
         print("gossip world", json.dumps({k: v for k, v in gossip.items() if k != "ranks"}))
         failures += f23
         report["gossip_two_ranks"] = gossip
@@ -4455,11 +4992,14 @@ def main(argv=None) -> int:
         failures += f25
         torch.cuda.empty_cache()
         config5, f25 = train_config5(torch, args.seed + 13)
+        mixtral_train = config5.pop("mixtral", {"error": "phase 25's process did not run it"})
         print("train llama2_7b config 5", json.dumps(config5))
-        failures += f25
-        if "launches" not in config5:
-            _fail("config 5 phase failed: " + "; ".join(f25))
+        print("train mixtral_8x7b", json.dumps(mixtral_train))
+        failures += f25 + _mixtral_failures(mixtral_train)
+        if "launches" not in config5 or "launches" not in mixtral_train:
+            _fail("config 5 phase failed: " + "; ".join(f25 + _mixtral_failures(mixtral_train)))
         report["config5"] = {"train": config5, "flash_bwd": c5_bwd, "fused_ce": c5_ce}
+        report["mixtral_train"] = mixtral_train
     except Exception:
         traceback.print_exc()
         _fail("config 5 phase failed")
@@ -4509,7 +5049,8 @@ def main(argv=None) -> int:
     # the training main paths: llama_1b unfused and fused, gpt2_large,
     # llama_1b under SlowMo (phase 22), config 5 (phase 25) and the
     # checkpointed llama_1b (phase 26)
-    runs = (train_summary, fused_summary, gpt2_summary, slowmo_train, config5, ckpt)
+    runs = (train_summary, fused_summary, gpt2_summary, slowmo_train, config5, ckpt,
+            mixtral_train)
 
     def trained(kernel):
         return sum(r["launches"][kernel] for r in runs)
@@ -4652,6 +5193,10 @@ def main(argv=None) -> int:
                                            for r in gossip["ranks"]]
             entry["launches_config5"] = config5["launches"][key]
             entry["launches_checkpoint"] = ckpt["launches"][key]
+            entry["launches_mixtral_train"] = mixtral_train["launches"][key]
+            entry["launches_tp_ep_ranks"] = [
+                {part: r["tp_ep"][part]["launches"][key] for part in ("c", "d")}
+                for r in gossip["ranks"]]
             row, ms, plain, bound, lib, errs = at_config5[entry["name"]]
             entry["config5"] = {
                 "shape": {k: row[k] for k in ("B", "S", "Hq", "Hkv", "D", "N", "V")

@@ -300,10 +300,10 @@ def _fsdp(payload):
                          "is_param": type(p) is torch.nn.Parameter}
         return out
 
-    def train(mesh, **kw):
+    def train(mesh, remat=False, **kw):
         def case():
             tt.manual_seed(0)
-            m = tt.deferred_init(Llama.from_name, "tiny", device="cpu")
+            m = tt.deferred_init(Llama.from_name, "tiny", device="cpu", remat=remat)
             tt.materialize_module(m)
             load_jax_params(m, payload["init"])
             opt = tt.AnyPrecisionAdamW(m.parameters(), lr=payload["lr"],
@@ -327,6 +327,8 @@ def _fsdp(payload):
                                         comm_hook=noop_hook)
     yield "train_fsdp4_accum2", train(fsdp, shard_axis="fsdp", accum_steps=2,
                                       batch_axes=("fsdp",))
+    # remat recomputes each block from the gathered parameters
+    yield "train_fsdp4_remat", train(fsdp, remat=True, shard_axis="fsdp")
 
 
 def _sp_llama(payload):
@@ -575,5 +577,509 @@ GOSSIP_TRAINS = {
 }
 
 
+# -- plans, tensor and expert parallelism, the sharded loader -------------------------
+
+
+# TestRuleResolution of tests/test_plan.py: (rules, default_axis) and the
+# (path, shape) queries, on {"fsdp": WORLD}
+PLAN_RESOLUTION = {
+    "first_match": (((r"\.weight$", ("fsdp", None)), (r"attn\..*\.weight$", (None, "fsdp"))),
+                    None, [("blocks.0.attn.wq.weight", (64, 64)),
+                           ("deep.nesting.attn.weight", (64, 64))]),
+    "no_match": (((r"\.weight$", ("fsdp", None)),), None, [("something.bias", (64,))]),
+    "default_axis": ((), "fsdp", [("h", (4096, 64)), ("tiny.bias", (8,))]),
+    "explicit_beats_min_elems": (((r"bias$", ("fsdp",)),), "fsdp", [("tiny.bias", (8,))]),
+}
+TP_RULE_PATHS = [("blocks.0.attn.wq.weight", (64, 64)), ("blocks.0.attn.wo.weight", (64, 64)),
+                 ("blocks.0.mlp.w_down.weight", (64, 64)), ("tok_emb.weight", (64, 64)),
+                 ("norm.weight", (64,))]
+TP_LR, TP_STEPS = 1e-1, 3
+# name: (mesh axes, batch_spec, plan: "llama", "llama_2d" or "custom")
+TP_TRAINS = {
+    "train_dp2_tp2": ({"dp": 2, "tp": 2}, ("dp",), "llama"),
+    "train_tp4": ({"tp": 4}, (), "llama"),
+    "train_fsdp2_tp2_2d": ({"fsdp": 2, "tp": 2}, ("fsdp",), "llama_2d"),
+    "train_dp2_tp2_gathered": ({"dp": 2, "tp": 2}, ("dp",), "custom"),
+}
+# rules no local path knows, ahead of llama_tp_plan's: the norms over tp
+# (gathered at use), the head row-parallel (its input cut)
+CUSTOM_RULES = ((r"norm\.weight$", ("tp",)), (r"lm_head\.weight$", (None, "tp")))
+
+
+def tp_batch(b=4, s=16, vocab=256):
+    """test_tp.py's ``_data``."""
+    rs = np.random.RandomState(0)
+    return (rs.randint(0, vocab, (b, s)).astype(np.int64),
+            rs.randint(0, vocab, (b, s)).astype(np.int64))
+
+
+MOE_SHAPE = dict(dim=16, ffn=32, experts=8, top_k=2)
+# name: (mesh axes, capacity_factor, dispatch_mode)
+MOE_CASES = {
+    "dense_ep4": ({"ep": 4}, None, "einsum"),
+    "dense_dp2_ep2": ({"dp": 2, "ep": 2}, None, "einsum"),
+    "einsum_c2_ep4": ({"ep": 4}, 2.0, "einsum"),
+    "einsum_c1_dp2_ep2": ({"dp": 2, "ep": 2}, 1.0, "einsum"),
+    "gather_c1_ep4": ({"ep": 4}, 1.0, "gather"),
+}
+MIXTRAL_LR, MIXTRAL_STEPS = 1e-2, 3
+MIXTRAL_TRAINS = {"mixtral_ep4": {"ep": 4}, "mixtral_dp2_ep2": {"dp": 2, "ep": 2}}
+
+
+def moe_input(seed=1):
+    return np.random.RandomState(seed).randn(4, 8, 16).astype(np.float32)
+
+
+# the card's EP check: (capacity_factor, dispatch_mode) of each mode, at
+# dim 64, ffn 128, 8 experts, top-2, 2 x 16 tokens
+CARD_MOE_MODES = [(None, "einsum"), (2.0, "einsum"), (1.25, "gather")]
+
+
+def moe_weights(seed, dim=64, ffn=128, experts=8):
+    """Named f32 weights of an ``nn.MoE``, made with numpy."""
+    rs = np.random.RandomState(seed)
+    w = lambda *s: (rs.randn(*s) / np.sqrt(s[-2] if len(s) > 2 else s[-1])).astype(np.float32)
+    return {"router.weight": w(experts, dim), "w_gate": w(experts, dim, ffn),
+            "w_up": w(experts, dim, ffn), "w_down": w(experts, ffn, dim)}
+
+
+def mixtral_batch():
+    """test_mixtral.py's ``_tokens(seed=7)`` and ``_tokens(seed=8)``."""
+    return tuple(np.random.RandomState(s).randint(0, 256, (2, 32)).astype(np.int64)
+                 for s in (7, 8))
+
+
+def _specs(model):
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+
+    return {n: tuple(sharding_of(p)[0].spec) for n, p in model.named_parameters()}
+
+
+def _plan(payload):
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.parallel import (
+        PlanError,
+        ShardingPlan,
+        create_mesh,
+        donated_carry_shardings,
+        fsdp_partition_spec,
+        llama_tp_plan,
+        llama_tp_rule,
+        optimizer_state_shardings,
+        shard_params,
+        tree_path_str,
+    )
+    from torchdistx_tpu_torch.parallel.fsdp import accumulate_grads, strided_split
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+
+    fsdp = create_mesh({"fsdp": WORLD})
+    grid = create_mesh({"dp": 2, "tp": 2})
+    other = create_mesh({"dp": 2, "fsdp": 2})
+
+    def resolution():
+        out = {}
+        for name, (rules, default, queries) in PLAN_RESOLUTION.items():
+            plan = ShardingPlan(fsdp, rules=rules, default_axis=default)
+            out[name] = [(plan.spec_for(p, s), plan.maybe_spec_for(p, s)) for p, s in queries]
+        out["fsdp_partition_spec"] = fsdp_partition_spec((4096, 64), fsdp, "fsdp", 1024)
+        return out
+
+    def errors():
+        out = {}
+        for key, make in (("default_axis", lambda: ShardingPlan(fsdp, default_axis="nope")),
+                          ("rule_axis", lambda: ShardingPlan(fsdp, rules=((r".", ("tp",)),))),
+                          ("zero2", lambda: ShardingPlan(fsdp, zero2=True)),
+                          ("with_mesh", lambda: ShardingPlan(fsdp, default_axis="fsdp")
+                           .with_mesh(grid))):
+            try:
+                make()
+                out[key] = None
+            except PlanError as e:
+                out[key] = str(e)
+        return out
+
+    def with_mesh():
+        plan = ShardingPlan(fsdp, rules=((r"w", ("fsdp",)),), default_axis="fsdp")
+        moved = plan.with_mesh(other)
+        return {"rules_equal": moved.rules == plan.rules, "spec": moved.spec_for("w", (8, 8)),
+                "size": moved.mesh.shape["fsdp"]}
+
+    def tp_rule():
+        rule = llama_tp_rule(grid, "tp")
+        return [tuple(rule(p, torch.empty(s)).spec) for p, s in TP_RULE_PATHS]
+
+    def eager():
+        tt.manual_seed(7)
+        return dict(Llama.from_name("tiny", device="cpu").named_parameters())
+
+    def materialize():
+        tt.manual_seed(7)
+        m = tt.deferred_init(Llama.from_name, "tiny", device="cpu")
+        plan = llama_tp_plan(grid)
+        tt.materialize_module(m, sharding_rule=plan.as_rule())
+        return {"pieces": _np(dict(m.named_parameters())), "specs": _specs(m),
+                "describe": plan.describe(m), "per_device_bytes": plan.per_device_bytes(m),
+                "coords": {k: a.index for k, a in grid.axes.items()}}
+
+    def apply():
+        tt.manual_seed(7)
+        m = Llama.from_name("tiny", device="cpu")
+        plan = llama_tp_plan(grid)
+        before = {n: p for n, p in m.named_parameters()}
+        plan.apply(m)
+        same_objects = all(p is before[n] for n, p in m.named_parameters())
+        pieces = _np(dict(m.named_parameters()))
+        data = {n: p.data_ptr() for n, p in m.named_parameters()}
+        plan.apply(m)  # placed already: nothing moves
+        again = all(p.data_ptr() == data[n] for n, p in m.named_parameters())
+        # re-cut to the 2-D plan: gathered, then cut again
+        plan2d = llama_tp_plan(grid, "tp", fsdp_axis="dp")
+        plan2d.apply(m)
+        d = shard_params({n: t.detach() for n, t in eager().items()}, plan2d.as_rule())
+        return {"same_objects": same_objects, "pieces": pieces, "reapplied_in_place": again,
+                "pieces_2d": _np(dict(m.named_parameters())), "specs_2d": _specs(m),
+                "dict_pieces_2d": _np(d),
+                "dict_specs_2d": {n: tuple(sharding_of(t)[0].spec) for n, t in d.items()}}
+
+    def opt_state():
+        tt.manual_seed(7)
+        m = Llama.from_name("tiny", device="cpu")
+        plan = llama_tp_plan(grid)
+        plan.apply(m)
+        opt = tt.AnyPrecisionAdamW(m.parameters(), lr=1e-3)
+        for p in m.parameters():
+            p.grad = torch.zeros_like(p)
+        opt.step()
+        derived = plan.optimizer_state_shardings(opt, m)
+        actual = optimizer_state_shardings(opt, m, grid)
+        carry = donated_carry_shardings({"w": m.tok_emb.weight, "x": torch.zeros(2)})
+        return {"derived": {n: {k: tuple(v.spec) for k, v in row.items()}
+                            for n, row in derived.items()},
+                "actual": {n: {k: tuple(v.spec) for k, v in row.items()}
+                           for n, row in actual.items()},
+                "carry": [tuple(carry[0]["w"].spec), carry[0]["x"]]}
+
+    def unported():
+        plan = llama_tp_plan(grid)
+        out = {}
+        for key, fn in (("validate", lambda: plan.validate({})),
+                        ("price_step", lambda: plan.price_step({})),
+                        ("record_step_collectives", lambda: plan.record_step_collectives({})),
+                        ("zero2", lambda: ShardingPlan(grid, dp_axis="dp", zero2=True))):
+            try:
+                fn()
+                out[key] = None
+            except NotImplementedError as e:
+                out[key] = str(e)
+        return out
+
+    def accumulate():
+        # accumulate_grads against one backward over the whole batch
+        w = torch.nn.Parameter(torch.from_numpy(coll_input(3, (4, 3))[0]))
+        x = torch.from_numpy(coll_input(4, (8, 4))[0])
+
+        def loss_fn(b):
+            return ((b @ w) ** 2).mean()
+
+        whole = torch.autograd.grad(loss_fn(x), [w])[0]
+        loss2, g2 = accumulate_grads(loss_fn, [w], x, 2, strided_split)
+        pieces = strided_split(torch.arange(8), 4)
+        return {"whole": _np(whole), "accum2": _np(g2[0]), "loss": float(loss_fn(x)),
+                "loss2": float(loss2), "strided": [_np(p) for p in pieces],
+                "path": tree_path_str(("blocks", 0, "attn"))}
+
+    yield "resolution", resolution
+    yield "errors", errors
+    yield "with_mesh", with_mesh
+    yield "tp_rule", tp_rule
+    yield "materialize", materialize
+    yield "apply", apply
+    yield "opt_state", opt_state
+    yield "unported", unported
+    yield "accumulate", accumulate
+
+
+def _tp(payload):
+    import warnings
+
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import (
+        GSPMDTrainStep,
+        ShardingPlan,
+        collectives,
+        create_mesh,
+        llama_tp_plan,
+        llama_tp_rule,
+    )
+    from torchdistx_tpu_torch.parallel.mesh import NamedSharding, mark_sharded
+
+    meshes = {}
+
+    def mesh_of(axes):
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = create_mesh(axes)
+        return meshes[key]
+
+    def loss_fn(mod, b):
+        return F.cross_entropy(mod(b[0]), b[1])
+
+    def plan_of(mesh, kind):
+        if kind == "llama":
+            return llama_tp_plan(mesh)
+        if kind == "llama_2d":
+            return llama_tp_plan(mesh, "tp", fsdp_axis="fsdp")
+        return ShardingPlan(mesh, rules=CUSTOM_RULES + llama_tp_plan(mesh).rules)
+
+    def loaded(**kw):
+        m = tt.deferred_init(Llama.from_name, "tiny", device="cpu", **kw)
+        tt.materialize_module(m)
+        return load_jax_params(m, payload["init"])
+
+    def run(step, batch, steps):
+        trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+        trainer.fit([batch] * steps, steps)
+        return {"losses": [float(x) for x in step.losses], "params": _np(step.full_params()),
+                "specs": _specs(step.model),
+                "local_shapes": {n: tuple(p.shape) for n, p in step.model.named_parameters()}}
+
+    def train(axes, batch_spec, kind):
+        def case():
+            mesh = mesh_of(axes)
+            m = loaded()
+            step = GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=TP_LR), loss_fn, mesh,
+                                  batch_spec=batch_spec, plan=plan_of(mesh, kind))
+            before = dict(collectives.payload_bytes)
+            out = run(step, tuple(torch.from_numpy(a) for a in tp_batch()), TP_STEPS)
+            out["payload_bytes"] = {k: v - before[k] for k, v in collectives.payload_bytes.items()}
+            out["local_forwards"] = len(step._forwards)
+            return out
+        return case
+
+    def born_sharded():
+        # materialized under the rule, trained without a plan, against the
+        # port's own unsharded steps from the same seed
+        mesh = mesh_of({"dp": 2, "tp": 2})
+        tt.manual_seed(5)
+        m = tt.deferred_init(Llama.from_name, "tiny", device="cpu")
+        tt.materialize_module(m, sharding_rule=llama_tp_rule(mesh, "tp"))
+        step = GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=TP_LR), loss_fn, mesh,
+                              batch_spec=("dp",))
+        batch = tuple(torch.from_numpy(a) for a in tp_batch())
+        out = run(step, batch, TP_STEPS)
+        tt.manual_seed(5)
+        ref = Llama.from_name("tiny", device="cpu")
+        rstep = tt.TrainStep(ref, torch.optim.SGD(ref.parameters(), lr=TP_LR), loss_fn)
+        for _ in range(TP_STEPS):
+            rstep(ref, rstep.optimizer, batch)
+        out.update(ref_losses=[float(x) for x in rstep.losses],
+                   ref_params=_np(dict(ref.named_parameters())))
+        return out
+
+    def accum():
+        mesh = mesh_of({"dp": 2, "tp": 2})
+        batch = tuple(torch.from_numpy(a) for a in tp_batch(b=8))
+        out = {}
+        for n in (1, 2):
+            m = loaded()
+            step = GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-2), loss_fn, mesh,
+                                  batch_spec=("dp",), accum_steps=n, plan=llama_tp_plan(mesh))
+            out[f"accum{n}"] = run(step, batch, 1)
+        m = loaded()
+        step = GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-2), loss_fn, mesh,
+                              batch_spec=("dp",), accum_steps=3, plan=llama_tp_plan(mesh))
+        try:
+            step(m, step.optimizer, batch)
+            out["indivisible"] = None
+        except ValueError as e:
+            out["indivisible"] = str(e)
+        return out
+
+    def presharded():
+        # a batch distributed over tp, not the step's dp: gathered, cut
+        # again, and warned about once per layout
+        mesh = mesh_of({"dp": 2, "tp": 2})
+        glob = tuple(torch.from_numpy(a) for a in tp_batch(b=8))
+        wrong = NamedSharding(mesh, ("tp",))
+        pieces = tuple(mark_sharded(t[wrong.shard_slices(t.shape)].clone(), wrong, t.shape)
+                       for t in glob)
+        out = {}
+        for key, batch in (("global", glob), ("tp_sharded", pieces)):
+            m = loaded()
+            step = GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-3), loss_fn, mesh,
+                                  batch_spec=("dp",), plan=llama_tp_plan(mesh))
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                step(m, step.optimizer, batch)
+                step(m, step.optimizer, batch)
+            out[key] = {"losses": [float(x) for x in step.losses],
+                        "warnings": sum("batch_spec" in str(w.message) for w in rec)}
+        return out
+
+    def kv_heads():
+        mesh = mesh_of({"tp": 4})
+        tt.manual_seed(0)
+        m = Llama.from_name("tiny", device="cpu", n_kv_heads=2)
+        try:
+            GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-3), loss_fn, mesh,
+                           plan=llama_tp_plan(mesh))
+            return {"message": None}
+        except ValueError as e:
+            return {"message": str(e)}
+
+    for name, (axes, batch_spec, kind) in TP_TRAINS.items():
+        yield name, train(axes, batch_spec, kind)
+    yield "born_sharded", born_sharded
+    yield "accum", accum
+    yield "presharded", presharded
+    yield "kv_heads", kv_heads
+
+
+def _moe_ep(payload):
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Mixtral
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.nn.moe import MoE, moe_shard_rule
+    from torchdistx_tpu_torch.parallel import GSPMDTrainStep, ShardingPlan, create_mesh
+    from torchdistx_tpu_torch.parallel import collectives as C
+    from torchdistx_tpu_torch.parallel import shard_params
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+
+    meshes = {}
+
+    def mesh_of(axes):
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = create_mesh(axes)
+        return meshes[key]
+
+    def moe(axes, capacity_factor, mode):
+        def case():
+            mesh = mesh_of(axes)
+            sh = MOE_SHAPE
+            m = MoE(sh["dim"], sh["ffn"], sh["experts"], top_k=sh["top_k"],
+                    capacity_factor=capacity_factor, dispatch_mode=mode, device="cpu")
+            load_jax_params(m, payload["moe"][(capacity_factor, mode)])
+            shard_params(m, moe_shard_rule(mesh, "ep"))
+            x_full = moe_input()
+            dp = mesh.axes["dp"] if "dp" in mesh.axes else None
+            rows = slice(None) if dp is None else slice(dp.index * 2, dp.index * 2 + 2)
+            x = torch.from_numpy(x_full[rows].copy()).requires_grad_()
+            y, aux = m(x, return_aux=True)
+            # the dp-sharded cases hold sum(y^2), whose gradient adds over dp
+            loss = (y * y).sum() + (aux if dp is None else 0.0)
+            loss.backward()
+            with mesh:
+                grads = {}
+                for n, p in m.named_parameters():
+                    g = p.grad if dp is None else C.all_reduce(p.grad, "dp")
+                    found = sharding_of(p)
+                    grads[n] = _np(gather_full(g, found[0]) if found else g)
+            return {"y": _np(y), "aux": float(aux), "x_grad": _np(x.grad), "rows": [
+                rows.start, rows.stop], "grads": grads, "local_experts": m.w_gate.shape[0],
+                "spec": tuple(sharding_of(m.w_up)[0].spec)}
+        return case
+
+    def loss_fn(mod, b):
+        logits, aux = mod.forward_with_aux(b[0])
+        return F.cross_entropy(logits, b[1]) + 1e-2 * aux
+
+    def mixtral(axes):
+        def case():
+            mesh = mesh_of(axes)
+            m = tt.deferred_init(Mixtral.from_name, "tiny", device="cpu")
+            tt.materialize_module(m)
+            load_jax_params(m, payload["mixtral"])
+            plan = ShardingPlan(mesh, rules=((r"\.mlp\.(w_gate|w_up|w_down)$",
+                                              ("ep", None, None)),))
+            step = GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=MIXTRAL_LR), loss_fn,
+                                  mesh, plan=plan)
+            batch = tuple(torch.from_numpy(a) for a in mixtral_batch())
+            trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+            trainer.fit([batch] * MIXTRAL_STEPS, MIXTRAL_STEPS)
+            return {"losses": [float(x) for x in step.losses], "params": _np(step.full_params()),
+                    "specs": _specs(m), "local_experts": m.blocks[0].mlp.w_gate.shape[0]}
+        return case
+
+    def on_the_card():
+        # f32 on cuda:0, two ranks over gloo, each holding 4 of 8 experts
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = mesh_of({"ep": 2})
+        out = {}
+        for cf, mode in CARD_MOE_MODES:
+            m = MoE(64, 128, 8, top_k=2, capacity_factor=cf, dispatch_mode=mode, device="cuda")
+            load_jax_params(m, moe_weights(0))
+            shard_params(m, moe_shard_rule(mesh, "ep"))
+            x = torch.from_numpy(np.random.RandomState(1).randn(2, 16, 64).astype(np.float32))
+            x = x.to("cuda").requires_grad_()
+            y = m(x)
+            (y * y).sum().backward()
+            grads = {n: _np(gather_full(p.grad, sharding_of(p)[0]))
+                     for n, p in m.named_parameters()}
+            out[f"{cf}-{mode}"] = {"y": _np(y), "x_grad": _np(x.grad), "grads": grads,
+                                   "device": str(y.device), "local": m.w_gate.shape[0]}
+        return out
+
+    if payload.get("part") == "cuda":
+        yield "on_the_card", on_the_card
+        return
+
+    def born_sharded():
+        mesh = mesh_of({"dp": 2, "ep": 2})
+        tt.manual_seed(15)
+        m = tt.deferred_init(Mixtral.from_name, "tiny", device="cpu")
+        tt.materialize_module(m, sharding_rule=m.shard_rule(mesh))
+        return {"pieces": _np(dict(m.named_parameters())), "specs": _specs(m),
+                "ep_index": mesh.axes["ep"].index}
+
+    for name, (axes, cf, mode) in MOE_CASES.items():
+        yield name, moe(axes, cf, mode)
+    for name, axes in MIXTRAL_TRAINS.items():
+        yield name, mixtral(axes)
+    yield "born_sharded", born_sharded
+
+
+def _data(payload):
+    import torch
+
+    from torchdistx_tpu_torch.data import DataLoader, TokenDataset
+    from torchdistx_tpu_torch.parallel import create_mesh
+    from torchdistx_tpu_torch.parallel.mesh import NamedSharding, sharding_of
+
+    mesh = create_mesh({"dp": 2, "tp": 2})
+
+    def load(spec, prefetch):
+        def case():
+            sh = NamedSharding(mesh, spec)
+            dl = DataLoader(TokenDataset(payload["stream"], payload["seq"]), payload["batch"],
+                            shuffle=True, seed=3, sharding=sh, prefetch=prefetch, device="cpu")
+            out = []
+            for _ in range(2):
+                for b in dl:
+                    marks = [sharding_of(t) for t in b]
+                    out.append({"arrays": [_np(t) for t in b],
+                                "specs": [tuple(m[0].spec) for m in marks],
+                                "shapes": [m[1] for m in marks],
+                                "tensors": all(isinstance(t, torch.Tensor) for t in b)})
+            return {"batches": out, "coords": {k: a.index for k, a in mesh.axes.items()}}
+        return case
+
+    for prefetch in (0, 2):
+        yield f"dp_p{prefetch}", load(("dp",), prefetch)
+        yield f"dp_tp_p{prefetch}", load((("dp", "tp"),), prefetch)
+
+
 SUITES = {"collectives": _collectives, "ring": _ring, "fsdp": _fsdp, "sp_llama": _sp_llama,
-          "gossip": _gossip}
+          "gossip": _gossip, "plan": _plan, "tp": _tp, "moe_ep": _moe_ep, "data": _data}

@@ -1104,6 +1104,76 @@ def test_exchange_over_gloo_stages_cuda_tensors_through_the_host(cuda, tmp_path)
         np.testing.assert_array_equal(r["shifted"], grads["a"][peer])
 
 
+def _cpu_moe(cf, mode):
+    from _torch_dist_worker import moe_weights
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.nn.moe import MoE
+
+    m = MoE(64, 128, 8, top_k=2, capacity_factor=cf, dispatch_mode=mode, device="cpu")
+    return load_jax_params(m, moe_weights(0))
+
+
+def _moe_x(dev):
+    import numpy as np
+
+    x = np.random.RandomState(1).randn(2, 16, 64).astype(np.float32)
+    return torch.from_numpy(x).to(dev).requires_grad_()
+
+
+@pytest.mark.parametrize("cf,mode", [(None, "einsum"), (2.0, "einsum"), (1.25, "gather")],
+                         ids=["dense", "einsum", "gather"])
+def test_ep_moe_at_world_one_on_the_card_matches_the_cpu(cuda, cf, mode):
+    """The expert-parallel MoE forward at ``{"ep": 1}`` (the sharded path,
+    its collectives the identity) on the card in f32, TF32 off, against
+    the unsharded layer on the CPU: output, input and weight gradients
+    within 1e-4."""
+    from torchdistx_tpu_torch.nn.moe import moe_shard_rule
+    from torchdistx_tpu_torch.parallel import create_mesh, shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = _cpu_moe(cf, mode)
+    xr = _moe_x("cpu")
+    yr = ref(xr)
+    (yr * yr).sum().backward()
+    m = _cpu_moe(cf, mode).to(cuda)
+    shard_params(m, moe_shard_rule(create_mesh({"ep": 1}), "ep"))
+    assert m._ep()[0] is not None
+    x = _moe_x(cuda)
+    y = m(x)
+    (y * y).sum().backward()
+    torch.testing.assert_close(y.cpu(), yr.detach(), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(x.grad.cpu(), xr.grad, atol=1e-4, rtol=1e-4)
+    for (n, p), q in zip(m.named_parameters(), ref.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4, rtol=1e-4, msg=n)
+
+
+def test_ep_moe_over_two_ranks_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Two ranks on one card over ``gloo``, each holding 4 of the 8 experts
+    (``moe_shard_rule`` on ``{"ep": 2}``), in f32, TF32 off: each rank's
+    output, input gradient and gathered weight gradients against the
+    unsharded layer on the CPU within 1e-4, in each mode."""
+    from _torch_dist_worker import CARD_MOE_MODES, spawn_world
+
+    res = [r["on_the_card"] for r in spawn_world("moe_ep", tmp_path, {"part": "cuda"}, world=2)]
+    for r in res:
+        assert "error" not in r, r["error"]
+    for cf, mode in CARD_MOE_MODES:
+        ref = _cpu_moe(cf, mode)
+        xr = _moe_x("cpu")
+        yr = ref(xr)
+        (yr * yr).sum().backward()
+        for r in res:
+            got = r[f"{cf}-{mode}"]
+            assert got["device"] == "cuda:0" and got["local"] == 4
+            torch.testing.assert_close(torch.from_numpy(got["y"]), yr.detach(), atol=1e-4,
+                                       rtol=1e-4)
+            torch.testing.assert_close(torch.from_numpy(got["x_grad"]), xr.grad, atol=1e-4,
+                                       rtol=1e-4)
+            for n, q in ref.named_parameters():
+                torch.testing.assert_close(torch.from_numpy(got["grads"][n]), q.grad,
+                                           atol=1e-4, rtol=1e-4, msg=n)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_adamw8bit_on_the_card_matches_the_cpu(cuda, dtype):
     """``AdamW8bit`` on CUDA tensors against the same update on the CPU:

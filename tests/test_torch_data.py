@@ -2,7 +2,13 @@
 
 The same numpy stream goes into both packages' ``TokenDataset`` and
 ``DataLoader``: items and batches must be equal exactly, across epochs and
-across a ``state_dict`` resume (the JAX side with ``prefetch=0``).
+across a ``state_dict`` resume (the JAX side with ``prefetch=0``).  With
+``sharding=`` (a ``parallel.NamedSharding``) each rank's batches are its
+slice of the JAX loader's batch, bit for bit, marked with the global
+shape, inline and through the prefetch thread: at world size 1 here, and
+at world size 4 on ``gloo`` (the ``data`` suite of
+``tests/_torch_dist_worker.py``) over ``{"dp": 2, "tp": 2}``, sharded over
+dp and over (dp, tp).
 """
 
 import numpy as np
@@ -12,7 +18,10 @@ import _jax_isolation  # noqa: F401  (adapts jax.monitoring listeners)
 
 from torchdistx_tpu.data import DataLoader as JLoader
 from torchdistx_tpu.data import TokenDataset as JDataset
+from _torch_dist_worker import spawn_world
 from torchdistx_tpu_torch.data import DataLoader, TokenDataset, prefetch_to_device
+from torchdistx_tpu_torch.parallel import NamedSharding, create_mesh
+from torchdistx_tpu_torch.parallel.mesh import sharding_of
 
 SEQ, BATCH = 16, 4
 STREAM = np.random.RandomState(0).randint(0, 50257, 30 * SEQ + 5)
@@ -83,8 +92,42 @@ def test_partial_batch_and_unported_sharding():
     assert len(tl) == len(jl) == 8
     last_t, last_j = list(tl)[-1], list(jl)[-1]
     assert last_t[0].shape == (2, SEQ) and np.array_equal(_np(last_t)[0], _np(last_j)[0])
-    with pytest.raises(NotImplementedError, match="sharding"):
-        DataLoader(TokenDataset(STREAM, SEQ), BATCH, sharding=object())
+    # sharding= is ported: at world size 1 the piece is the whole batch, marked
+    sh = NamedSharding(create_mesh({"dp": 1}), ("dp",))
+    for prefetch in (0, 2):
+        loader = DataLoader(TokenDataset(STREAM, SEQ), BATCH, sharding=sh, prefetch=prefetch,
+                            device="cpu")
+        for a, b in zip(loader, JLoader(JDataset(STREAM, SEQ), BATCH, prefetch=0)):
+            for x, y in zip(a, _np(b)):
+                assert np.array_equal(x.numpy(), y)
+                assert sharding_of(x) == (sh, (BATCH, SEQ))
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    payload = {"stream": STREAM, "seq": SEQ, "batch": BATCH}
+    return spawn_world("data", tmp_path_factory.mktemp("data"), payload)
+
+
+@pytest.mark.parametrize("case", ["dp_p0", "dp_p2", "dp_tp_p0", "dp_tp_p2"])
+def test_sharded_batches_are_slices_of_the_jax_batches(world, case):
+    jl = JLoader(JDataset(STREAM, SEQ), BATCH, shuffle=True, seed=3, prefetch=0)
+    want = [_np(b) for _ in range(2) for b in jl]
+    assert len(want) == 14
+    spec = ("dp",) if case.startswith("dp_p") else (("dp", "tp"),)
+    for rank, res in enumerate(world):
+        r = res[case]
+        assert "error" not in r, r["error"]
+        c = r["coords"]
+        n, idx = (2, c["dp"]) if spec == ("dp",) else (4, 2 * c["dp"] + c["tp"])
+        assert c == {"dp": rank // 2, "tp": rank % 2}
+        assert len(r["batches"]) == len(want)
+        for got, full in zip(r["batches"], want):
+            assert got["tensors"]
+            assert [tuple(s) for s in got["specs"]] == [spec, spec]
+            assert [tuple(s) for s in got["shapes"]] == [(BATCH, SEQ)] * 2
+            for x, y in zip(got["arrays"], full):
+                assert np.array_equal(x, np.split(y, n, axis=0)[idx])
 
 
 def test_prefetch_propagates_errors_and_stops_early():

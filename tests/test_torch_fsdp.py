@@ -12,8 +12,10 @@ devices.
   AnyPrecisionAdamW (lr 1e-3, f32 variance) on both sides: at fsdp 4, and
   at dp 2 x fsdp 2 with ``allreduce_hook`` and with ``noop_hook`` (whose
   dp replicas diverge; JAX's arrays read back the dp = 0 replica, so the
-  port's dp = 0 ranks are held), and at fsdp 4 with ``accum_steps=2``
-  (batch 8 x 32 in all).  Tolerances those of
+  port's dp = 0 ranks are held), at fsdp 4 with ``accum_steps=2``, and at
+  fsdp 4 with the port's model rematerialized (``remat=True``: each block
+  recomputed in the backward from the gathered parameters) (batch 8 x 32
+  in all).  Tolerances those of
   ``tests/test_torch_train.py``: losses rtol = atol = 1e-5; parameters all
   within 1e-4 (a tenth of one step) and 99.9% within 1e-5.
 """
@@ -52,6 +54,8 @@ TRAINS = {
                              True),
     "train_fsdp4_accum2": ({"fsdp": 4}, dict(shard_axis="fsdp", accum_steps=2,
                                              batch_axes=("fsdp",)), False),
+    # the port's model with remat=True (the JAX one without: the same math)
+    "train_fsdp4_remat": ({"fsdp": 4}, dict(shard_axis="fsdp"), False),
 }
 
 

@@ -105,10 +105,29 @@ def test_moe_argument_errors_match_jax(kw, match):
 
 
 def test_expert_parallel_rules_wait_for_the_parallel_stack():
-    with pytest.raises(NotImplementedError, match="parallel stack"):
-        moe_shard_rule(None)
-    with pytest.raises(NotImplementedError, match="parallel stack"):
-        TMixtral.from_name("tiny", device="cpu").shard_rule(None)
+    """The parallel stack is ported: ``moe_shard_rule`` and
+    ``Mixtral.shard_rule`` give JAX's specs on every path of tiny Mixtral
+    (3-D expert weights over ``ep``, the rest replicated or
+    ``base_rule``'s)."""
+    from jax.sharding import NamedSharding as JNamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from torchdistx_tpu.nn.moe import moe_shard_rule as j_moe_shard_rule
+    from torchdistx_tpu.parallel import create_mesh as jcreate_mesh
+    from torchdistx_tpu_torch.parallel import NamedSharding, create_mesh
+
+    mesh, jmesh = create_mesh({"dp": 1, "ep": 1}), jcreate_mesh({"dp": 1, "ep": 1},
+                                                                devices=jax.devices()[:1])
+    model = TMixtral.from_name("tiny", device="cpu")
+    base = lambda path, like: NamedSharding(mesh, ("dp",) if like.ndim == 2 else ())  # noqa: E731
+    jbase = lambda path, like: JNamedSharding(jmesh, P("dp") if like.ndim == 2 else P())  # noqa: E731
+    for rule, jrule in ((model.shard_rule(mesh), j_moe_shard_rule(jmesh)),
+                        (moe_shard_rule(mesh, "ep", base), j_moe_shard_rule(jmesh, "ep", jbase))):
+        for name, p in model.named_parameters():
+            like = jax.ShapeDtypeStruct(tuple(p.shape), jnp.float32)
+            assert tuple(rule(name, p).spec) == tuple(jrule(name, like).spec), name
+    assert tuple(model.shard_rule(mesh)("blocks.0.mlp.w_gate", model.blocks[0].mlp.w_gate)
+                 .spec) == ("ep", None, None)
 
 
 def _mixtral_pair(**overrides):

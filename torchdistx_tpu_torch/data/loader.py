@@ -8,8 +8,11 @@ yield the same batches) and resumes from ``state_dict`` the same way.
 Batches arrive as torch tensors on ``device``; with ``prefetch`` > 0 a
 background thread assembles them in pinned host memory and copies them
 with ``non_blocking`` transfers, overlapping the next batches with the
-card's compute.  Sharded placement (the JAX ``sharding`` argument) waits
-for the port's parallel stack and raises.
+card's compute.  With ``sharding=NamedSharding(mesh, spec)`` (the JAX
+argument) each rank's batches are its piece of the global batch
+(``shard_slices``), cut on the host before the transfer and marked with
+the sharding and the global shape (``parallel.mesh.mark_sharded``), which
+``parallel.GSPMDTrainStep`` takes as the rank's piece.
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ class DataLoader:
       drop_last: drop the trailing partial batch (default True).
       collate: optional ``list[item] -> batch`` override; default stacks.
       device: where batches land (default ``"cuda"``).
+      sharding: a ``parallel.NamedSharding``: each rank takes its piece of
+        every array, marked with the sharding and the global shape.
 
     One ``iter()`` walks the rest of the current epoch, as in the JAX
     package.
@@ -78,12 +83,11 @@ class DataLoader:
         collate: Optional[Callable[[list], Any]] = None,
         device="cuda",
     ) -> None:
-        if sharding is not None:
-            raise NotImplementedError("DataLoader(sharding=...) is not ported yet")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.sharding = sharding
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.collate = collate or _default_collate
@@ -124,9 +128,10 @@ class DataLoader:
         host = self._host_batches()
         nb = len(self)
         if self.prefetch <= 0:
-            stream: Iterator[Any] = (_place(b, self.device) for b in host)
+            stream: Iterator[Any] = (_place(b, self.device, sharding=self.sharding)
+                                     for b in host)
         else:
-            stream = prefetch_to_device(host, self.device, self.prefetch)
+            stream = prefetch_to_device(host, self.device, self.prefetch, self.sharding)
         for b in stream:
             # a delivered batch counts as consumed, however far the
             # prefetch thread has run ahead
@@ -154,27 +159,39 @@ def _map(fn, batch):
     return fn(batch)
 
 
-def _place(batch: Any, device: torch.device, pin: bool = False) -> Any:
+def _place(batch: Any, device: torch.device, pin: bool = False, sharding: Any = None) -> Any:
     """Every array of ``batch`` as a tensor on ``device``; with ``pin`` (a
-    CUDA target) through pinned host memory and a ``non_blocking`` copy."""
+    CUDA target) through pinned host memory and a ``non_blocking`` copy;
+    with ``sharding`` this rank's piece of it, marked."""
 
     def one(a):
+        a = np.asarray(a)
+        shape = a.shape
+        if sharding is not None:
+            a = a[sharding.shard_slices(shape)]
         t = torch.as_tensor(np.ascontiguousarray(a))
         if device.type != "cuda":
-            return t.to(device)
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=pin)
+            t = t.to(device)
+        else:
+            if pin:
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=pin)
+        if sharding is not None:
+            from ..parallel.mesh import mark_sharded
+
+            mark_sharded(t, sharding, shape)
+        return t
 
     return _map(one, batch)
 
 
-def prefetch_to_device(batches: Iterable[Any], device="cuda", size: int = 2
-                       ) -> Iterator[Any]:
+def prefetch_to_device(batches: Iterable[Any], device="cuda", size: int = 2,
+                       sharding: Any = None) -> Iterator[Any]:
     """Background-thread prefetch: keeps ``size`` batches transferred ahead
     of the consumer, from pinned host memory with ``non_blocking`` copies
     to ``device``, so the consumer's compute overlaps the next batches'
-    host work and transfers."""
+    host work and transfers; with ``sharding`` each batch is this rank's
+    piece, as the loader places it."""
     device = torch.device(device)
     q: "queue.Queue[Any]" = queue.Queue(maxsize=size)
     sentinel = object()
@@ -195,7 +212,7 @@ def prefetch_to_device(batches: Iterable[Any], device="cuda", size: int = 2
     def worker() -> None:
         try:
             for b in batches:
-                if not put(_place(b, device, pin=device.type == "cuda")):
+                if not put(_place(b, device, pin=device.type == "cuda", sharding=sharding)):
                     return
         except BaseException as e:  # propagate into the consumer
             err.append(e)

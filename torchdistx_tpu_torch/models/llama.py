@@ -223,16 +223,19 @@ class LlamaAttention(tnn.Module):
         self.wo = _linear(cfg, cfg.n_heads * hd, d, device)
 
     def _qkv(self, x):
+        # the head counts come from the projections' outputs: under tensor
+        # parallelism (parallel.tp) a rank holds n_heads / tp query heads
+        # and n_kv_heads / tp KV heads
         b, s, _ = x.shape
-        cfg = self.cfg
-        q = self.wq(x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        hd = self.cfg.head_dim
+        q = self.wq(x).reshape(b, s, -1, hd)
+        k = self.wk(x).reshape(b, s, -1, hd)
+        v = self.wv(x).reshape(b, s, -1, hd)
         return q, k, v
 
     def _out(self, out):
         b, s = out.shape[:2]
-        return self.wo(out.reshape(b, s, self.cfg.n_heads * self.cfg.head_dim))
+        return self.wo(out.reshape(b, s, -1))
 
     def forward(self, x, rope, pos_offset: int = 0):
         cfg = self.cfg

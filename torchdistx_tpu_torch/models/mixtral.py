@@ -7,7 +7,9 @@ A Llama decoder whose FFN is a top-k-routed mixture of SwiGLU experts
 the card), the KV-cache paths, serving and deferred init are Llama's.
 ``forward_with_aux`` also returns the router load-balancing loss of the
 same routing pass, to be added with a small weight to the training loss.
-Expert parallelism (``shard_rule``) waits for the port's parallel stack.
+``shard_rule`` is the expert-parallel sharding rule (``nn.moe.
+moe_shard_rule``): materialized under it, each rank holds E / ep experts
+of every block and the MoE computes its local experts' share.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..nn.moe import MoE
+from ..nn.moe import MoE, moe_shard_rule
 from .llama import Llama, LlamaBlock, LlamaConfig, checkpoint_block
 
 __all__ = ["MixtralConfig", "MixtralBlock", "Mixtral", "mixtral_configs"]
@@ -89,8 +91,7 @@ class Mixtral(Llama):
         return self.lm_head(self.norm(x)), aux_total / len(self.blocks)
 
     def shard_rule(self, mesh, ep_axis: str = "ep", base_rule=None):
-        """Expert-parallel sharding rule of the JAX package: it waits for the
-        port's parallel stack."""
-        raise NotImplementedError(
-            "Mixtral.shard_rule (expert parallelism) waits for the port's "
-            "parallel stack")
+        """Expert-parallel sharding rule for ``materialize_module`` and
+        checkpoint restore: the expert-stacked weights over ``ep_axis``, the
+        rest through ``base_rule`` (see :func:`nn.moe.moe_shard_rule`)."""
+        return moe_shard_rule(mesh, ep_axis=ep_axis, base_rule=base_rule)

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts layer, counterpart of ``torchdistx_tpu/nn/moe.py``.
+"""Mixture-of-Experts layer with expert parallelism, counterpart of
+``torchdistx_tpu/nn/moe.py``.
 
 Top-k softmax routing with renormalized weights over SwiGLU experts whose
 weights are stacked with a leading expert dim: ``w_gate``/``w_up`` (E, D,
@@ -18,8 +19,21 @@ compute modes:
     expert batches.
 
 The expert products are plain batched matrix products (``torch.matmul``):
-the JAX package leaves them to XLA, outside any Pallas kernel.  Expert
-parallelism (``moe_shard_rule``) waits for the port's parallel stack.
+the JAX package leaves them to XLA, outside any Pallas kernel.
+
+Expert parallelism: ``moe_shard_rule`` shards the expert dim over an
+``ep`` mesh axis, so each rank holds E / ep experts (its
+``parallel.mesh.sharding_of`` records it).  Where XLA partitions the JAX
+einsums, the forward here reads that sharding and computes its local
+experts' share of the combine, with the tokens replicated over ``ep``:
+the tokens and the combine weights enter the expert region through
+``copy_psum_grad`` (their gradients summed over ``ep``) and the partial
+outputs leave it through ``allreduce_linear``.  Routing, the capacity
+slots (over all E experts, so the drops are the unsharded drops) and the
+aux loss are computed whole on every rank.  All three modes run this
+way, ``"gather"`` included: its slot table is cut to the local experts'
+rows.  An axis of size 1 makes every collective the identity.  Tokens
+sharded over ``ep`` (the all-to-all dispatch) are not supported.
 """
 
 from __future__ import annotations
@@ -70,6 +84,29 @@ class MoE(nn.Module):
         self.w_down = nn.Parameter(
             init.uniform((n_experts, ffn_dim, dim), -down, down, dtype, device))
 
+    def _ep(self):
+        """``(axis, first local expert, local expert count)`` of the expert
+        weights' sharding; ``(None, 0, E)`` when no sharding marks them."""
+        from ..parallel.mesh import sharding_of
+
+        found = [sharding_of(getattr(self, n)) for n in ("w_gate", "w_up", "w_down")]
+        if found[0] is None:
+            if any(f is not None for f in found):
+                raise ValueError("the expert weights must share one sharding")
+            return None, 0, self.n_experts
+        sh = found[0][0]
+        spec = tuple(sh.spec) + (None,) * (3 - len(sh.spec))
+        if any(f is None or tuple(f[0].spec) != tuple(sh.spec) or f[0].mesh is not sh.mesh
+               for f in found) or spec[1:] != (None, None) or isinstance(spec[0], tuple):
+            raise ValueError(
+                f"MoE computes on expert shards (spec (ep, None, None)), not on "
+                f"{[f and f[0].spec for f in found]}: gather the other dims first")
+        if spec[0] is None:
+            return None, 0, self.n_experts
+        ax = sh.mesh.axes[spec[0]]
+        local = self.w_gate.shape[0]
+        return ax, ax.index * local, local
+
     def _route(self, x):
         return torch.softmax(self.router(x).float(), dim=-1)  # (..., E)
 
@@ -90,11 +127,14 @@ class MoE(nn.Module):
         return top_p / top_p.sum(-1, keepdim=True), top_i
 
     def _dense_forward(self, x, probs):
+        ax, lo, local = self._ep()
         top_p, top_i = self._top_k(probs)
         onehot = _F.one_hot(top_i, self.n_experts).to(probs.dtype)
         combine = torch.einsum("...k,...ke->...e", top_p, onehot)
-        expert_out = self._dense_ffn(x)
-        return torch.einsum("...e,...ed->...d", combine.to(x.dtype), expert_out)
+        combine = _enter(combine, ax)[..., lo:lo + local]
+        expert_out = self._dense_ffn(_enter(x, ax))
+        y = torch.einsum("...e,...ed->...d", combine.to(x.dtype), expert_out)
+        return _leave(y, ax)
 
     def _proj(self, x, name: str):
         """(E or 1, N, K) x the stacked weight ``name`` (E, K, M) -> (E, N, M)."""
@@ -107,10 +147,11 @@ class MoE(nn.Module):
         return self._proj(h, "w_down")
 
     def _dense_ffn(self, x):
-        """(..., D) -> (..., E, D): every expert's FFN on every token."""
+        """(..., D) -> (..., E, D): every (local) expert's FFN on every
+        token."""
         lead, d = x.shape[:-1], x.shape[-1]
         out = self._experts(x.reshape(1, -1, d))  # (E, n, D)
-        return out.transpose(0, 1).reshape(*lead, self.n_experts, d)
+        return out.transpose(0, 1).reshape(*lead, out.shape[0], d)
 
     def _capacity_slots(self, pf, cap):
         """GShard slot assignment shared by both dispatch modes: for each of
@@ -137,8 +178,10 @@ class MoE(nn.Module):
         n = xf.shape[0]
         cap = min(int(math.ceil(n * self.top_k / e * float(self.capacity_factor))), n)
         slots = self._capacity_slots(pf, cap)
+        ax, lo, local = self._ep()
         if self.dispatch_mode == "gather":
-            return self._capacity_gather(xf, slots, n, cap).reshape(*lead, d)
+            y = self._capacity_gather(xf, slots, n, cap, ax, lo, local)
+            return y.reshape(*lead, d)
         dt = x.dtype
         dispatch = torch.zeros((n, e, cap), dtype=dt, device=x.device)
         combine = torch.zeros((n, e, cap), dtype=dt, device=x.device)
@@ -147,15 +190,17 @@ class MoE(nn.Module):
             sel = _F.one_hot(ei, e).to(dt) * keep[:, None].to(dt)
             dispatch = dispatch + sel[:, :, None] * slot[:, None, :]
             combine = combine + (sel * w[:, None].to(dt))[:, :, None] * slot[:, None, :]
-        expert_in = torch.einsum("nec,nd->ecd", dispatch, xf)
+        dispatch = dispatch[:, lo:lo + local]
+        combine = _enter(combine, ax)[:, lo:lo + local]
+        expert_in = torch.einsum("nec,nd->ecd", dispatch, _enter(xf, ax))
         y = torch.einsum("nec,ecd->nd", combine, self._experts(expert_in))
-        return y.reshape(*lead, d)
+        return _leave(y, ax).reshape(*lead, d)
 
-    def _capacity_gather(self, xf, slots, n, cap):
+    def _capacity_gather(self, xf, slots, n, cap, ax, lo, local):
         """The einsum path's slots by index: a (E*C,) table of token ids
         (dropped tokens write nowhere), empty slots exact zeros, and the
         combine a per-choice gather weighted by the (zero when dropped)
-        routing weight."""
+        routing weight.  The local experts take their rows of the table."""
         e, d, dt = self.n_experts, xf.shape[-1], xf.dtype
         tok_ids = torch.arange(n, device=xf.device)
         slot_token = torch.zeros((e * cap,), dtype=torch.long, device=xf.device)
@@ -164,13 +209,16 @@ class MoE(nn.Module):
             flat = (ei * cap + pos_t)[keep]
             slot_token[flat] = tok_ids[keep]
             slot_valid[flat] = 1
-        expert_in = (xf[slot_token] * slot_valid[:, None]).reshape(e, cap, d)
-        expert_out = self._experts(expert_in).reshape(e * cap, d)
+        rows = slice(lo * cap, (lo + local) * cap)
+        xin = _enter(xf, ax)
+        expert_in = (xin[slot_token[rows]] * slot_valid[rows, None]).reshape(local, cap, d)
+        expert_out = self._experts(expert_in).reshape(local * cap, d)
         y = torch.zeros((n, d), dtype=dt, device=xf.device)
         for ei, pos_t, keep, w in slots:
-            flat = torch.where(keep, ei * cap + pos_t, 0)
-            y = y + expert_out[flat] * (w.to(dt) * keep.to(dt))[:, None]
-        return y
+            mine = keep & (ei >= lo) & (ei < lo + local)
+            flat = torch.where(mine, (ei - lo) * cap + pos_t, 0)
+            y = y + expert_out[flat] * (_enter(w, ax).to(dt) * mine.to(dt))[:, None]
+        return _leave(y, ax)
 
     def _balance_loss(self, probs):
         pf = probs.reshape(-1, self.n_experts)
@@ -184,8 +232,35 @@ class MoE(nn.Module):
         return self._balance_loss(self._route(x))
 
 
+def _enter(x, ax):
+    """Into the expert region: the identity, with the gradient summed over
+    ``ax`` (None: unsharded experts)."""
+    from ..parallel.collectives import copy_psum_grad
+
+    return x if ax is None else copy_psum_grad(x, ax)
+
+
+def _leave(y, ax):
+    """Out of the expert region: the local experts' partial sums added
+    over ``ax``, the gradient passed through."""
+    from ..parallel.collectives import allreduce_linear
+
+    return y if ax is None else allreduce_linear(y, ax)
+
+
 def moe_shard_rule(mesh, ep_axis: str = "ep", base_rule: Optional[Callable] = None):
-    """Expert-parallel sharding rule of the JAX package: it waits for the
-    port's parallel stack."""
-    raise NotImplementedError(
-        "moe_shard_rule (expert parallelism) waits for the port's parallel stack")
+    """Sharding rule: the 3-D expert-stacked weights shard their expert dim
+    over ``ep_axis``; everything else goes to ``base_rule``, or is
+    replicated.  For ``materialize_module(sharding_rule=)`` and
+    ``parallel.shard_params``."""
+    from ..parallel.mesh import NamedSharding
+
+    def rule(path: str, like):
+        leaf = path.rsplit(".", 1)[-1]
+        if leaf in ("w_gate", "w_up", "w_down") and like.ndim == 3:
+            return NamedSharding(mesh, (ep_axis, None, None))
+        if base_rule is not None:
+            return base_rule(path, like)
+        return NamedSharding(mesh, ())
+
+    return rule

@@ -13,7 +13,13 @@ resharding are not ported yet.
 
 from . import collectives
 from .comm_hooks import DefaultState, HookContext, allreduce_hook, noop_hook
-from .fsdp import ShardedTrainStep, fsdp_partition_spec, fsdp_shard_rule
+from .fsdp import (
+    ShardedTrainStep,
+    donated_carry_shardings,
+    fsdp_partition_spec,
+    fsdp_shard_rule,
+    optimizer_state_shardings,
+)
 from .gossip_grad import (
     INVALID_PEER,
     GossipGraDState,
@@ -23,6 +29,8 @@ from .gossip_grad import (
 )
 from .mesh import Mesh, NamedSharding, create_mesh, hierarchical_mesh, mesh_sharding, replicated
 from .multihost import init_multihost, is_multihost, process_count, process_index
+from .plan import PlanError, ShardingPlan, derive_optimizer_state_shardings, tree_path_str
+from .tp import GSPMDTrainStep, llama_tp_plan, llama_tp_rule, shard_params, tp_shard_rule
 
 __all__ = [
     "collectives",
@@ -33,6 +41,17 @@ __all__ = [
     "ShardedTrainStep",
     "fsdp_partition_spec",
     "fsdp_shard_rule",
+    "donated_carry_shardings",
+    "optimizer_state_shardings",
+    "PlanError",
+    "ShardingPlan",
+    "derive_optimizer_state_shardings",
+    "tree_path_str",
+    "GSPMDTrainStep",
+    "tp_shard_rule",
+    "llama_tp_plan",
+    "llama_tp_rule",
+    "shard_params",
     "Topology",
     "GossipGraDState",
     "gossip_grad_hook",

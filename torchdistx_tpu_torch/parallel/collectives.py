@@ -28,6 +28,10 @@ backend and the tensor's device before anything is sent, and counted in
 ``_permute.staged_bytes`` (bytes sent plus bytes received through the
 host).  One card can hold a multi-rank world only on ``gloo`` (NCCL
 refuses two ranks on one device); on NCCL nothing is staged.
+
+``payload_bytes`` counts, by kind, the bytes each rank hands to the
+reductions, gathers, scatters and all-to-alls over axes of size > 1 (an
+input's bytes once a call); a caller zeroes it to read a window.
 """
 
 from __future__ import annotations
@@ -69,9 +73,17 @@ def _axes(axis) -> list:
     return [resolve_axis(a) for a in names]
 
 
+payload_bytes = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0, "all_to_all": 0}
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    payload_bytes[kind] += x.numel() * x.element_size()
+
+
 def _psum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     if ax.size == 1:
         return x
+    _count("all_reduce", x)
     out = x.clone()
     dist.all_reduce(out, group=ax.group)
     return out
@@ -218,6 +230,7 @@ def shift(tree: Any, axis, offset: int = 1) -> Any:
 def _gather(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
     if ax.size == 1:
         return x
+    _count("all_gather", x)
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((ax.size * x.shape[0], *x.shape[1:]))
     gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
@@ -230,6 +243,7 @@ def _reduce_scatter(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
         return x
     if x.shape[dim] % ax.size:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {ax.size}")
+    _count("reduce_scatter", x)
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // ax.size, *x.shape[1:]))
     rs = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
@@ -258,6 +272,7 @@ def _all_to_all(x: torch.Tensor, ax: Axis, split_axis: int, concat_axis: int) ->
     if ax.size == 1:
         return x
     n = ax.size
+    _count("all_to_all", x)
     chunks = x.chunk(n, dim=split_axis)
     inp = torch.stack(chunks, 0).contiguous()
     out = torch.empty_like(inp)

@@ -12,8 +12,9 @@ from full parameters).  A step mirrors the JAX ``shard_map`` step:
 2. all-gather every sharded parameter over ``shard_axis`` through an
    autograd function whose backward is the reduce-scatter of the gradient
    divided by the shard count (a replicated parameter's backward is the
-   mean over ``shard_axis``), and run ``loss_fn`` on the full parameters
-   through ``torch.func.functional_call``;
+   mean over ``shard_axis``), and run ``loss_fn`` with the full parameters
+   in the model's place (``swapped_parameters``, through the backward, so
+   a rematerialized block recomputes from them too);
 3. take the mean of the gradient shards over every batch axis that is
    neither a replica axis (the hook's) nor the shard axis: under sequence
    parallelism the gradient of a parameter is the mean over ``sp`` of the
@@ -35,13 +36,23 @@ parameters, so a rank's parameters are its node's replica and nothing is
 stacked.  ``stack_replicas()`` broadcasts every parameter (or shard) from
 node index 0 over the replica axis, so all replicas start from the same
 weights; ``consensus()`` returns every parameter gathered over the shard
-axis and averaged over the replica axis.  Not ported yet: the numerics
-taps, the declarative ``plan``, and the donated-carry and optimizer-state
-sharding helpers, which have no eager counterpart.
+axis and averaged over the replica axis.
+
+The JAX module's helpers of the compiled steps, in their eager form:
+``accumulate_grads`` (microbatch gradients summed in f32) with
+``strided_split``;
+``optimizer_state_shardings`` (each slot of a torch optimizer's state
+that mirrors its parameter inherits the parameter's sharding; see
+``parallel.plan``); ``donated_carry_shardings``, which in JAX pins a
+donated jit carry to the layouts it arrived with.  Nothing is donated or
+re-placed by an eager step, so here it only reports each tensor's
+``sharding_of`` (or None, for a tensor no sharding marks).  The numerics
+taps are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Optional, Sequence
 
@@ -53,7 +64,15 @@ from . import collectives
 from .comm_hooks import DefaultState, HookContext, allreduce_hook
 from .mesh import Mesh, NamedSharding, mark_sharded, sharding_of
 
-__all__ = ["fsdp_partition_spec", "fsdp_shard_rule", "ShardedTrainStep"]
+__all__ = [
+    "fsdp_partition_spec",
+    "fsdp_shard_rule",
+    "donated_carry_shardings",
+    "optimizer_state_shardings",
+    "accumulate_grads",
+    "strided_split",
+    "ShardedTrainStep",
+]
 
 
 def fsdp_partition_spec(shape: Sequence[int], mesh: Mesh, axis: str,
@@ -81,6 +100,95 @@ def fsdp_shard_rule(mesh: Mesh, axis: str = "fsdp",
                                                        min_shard_elems))
 
     return rule
+
+
+def donated_carry_shardings(*trees: Any) -> tuple:
+    """Per tree, each tensor's :func:`~.mesh.sharding_of` sharding (None
+    where no sharding marks it), in the tree's structure.  The JAX
+    function pins a donated jit carry to its arrival layouts; an eager step
+    donates nothing and never re-places a tensor, so this only reports
+    them."""
+
+    def one(t):
+        found = sharding_of(t)
+        return found[0] if found else None
+
+    return tuple(collectives._map(one, tree) for tree in trees)
+
+
+def optimizer_state_shardings(state: Any, params: Any, mesh: Mesh) -> dict:
+    """Shardings of a torch optimizer's state: each slot tensor shaped
+    like its parameter's piece inherits the parameter's
+    :func:`~.mesh.sharding_of` sharding; every other leaf (step counts,
+    differently shaped slots) is replicated.  ``state`` is the optimizer
+    or its state keyed by parameter name, ``params`` a module or
+    ``{name: tensor}``; the result is ``{name: {slot: NamedSharding}}``.
+    The torch optimizer makes its state from the rank's pieces, so this
+    describes a layout that already holds (``ShardingPlan.
+    optimizer_state_shardings`` derives the same from a plan's rules)."""
+    from .plan import derive_optimizer_state_shardings
+
+    repl = NamedSharding(mesh, ())
+
+    def param_sharding(_path: str, p) -> NamedSharding:
+        found = sharding_of(p)
+        return found[0] if found else repl
+
+    return derive_optimizer_state_shardings(state, params, mesh, param_sharding)
+
+
+def strided_split(x, accum: int) -> list:
+    """Microbatch i takes rows ``i::accum``, so each keeps the whole
+    data-parallel extent of a batch sharded over its leading dim."""
+    return [x[i::accum] for i in range(accum)]
+
+
+def _split_batch(batch: Any, accum: int, split: Callable) -> list:
+    leads = set()
+    collectives._map(lambda x: leads.add(tuple(x.shape[:1])), batch)
+    if len(leads) != 1 or leads == {()}:
+        raise ValueError(
+            "gradient accumulation requires every batch leaf to share one "
+            f"batch-major leading dim; got leading dims {sorted(leads)}")
+    (lead,) = leads.pop()
+    if lead % accum:
+        raise ValueError(f"batch leading dim {lead} not divisible by accum_steps={accum}")
+    pieces = []
+    collectives._map(lambda x: pieces.append(split(x, accum)), batch)
+    its = [iter(p) for p in zip(*pieces)]
+    return [collectives._map(lambda _, it=it: next(it), batch) for it in its]
+
+
+def accumulate_grads(loss_fn: Callable, params: Sequence[torch.Tensor], batch: Any,
+                     accum: int, split: Callable = strided_split):
+    """``(mean loss, grads)`` of ``loss_fn(microbatch)`` over ``accum``
+    microbatches of ``batch`` (cut by ``split``): each microbatch's
+    gradients with respect to ``params`` are summed in f32, the sum divided
+    by ``accum`` and cast to each parameter's dtype, and the losses' f32
+    mean returned detached; the JAX function's arithmetic.  With
+    ``accum`` 1 the gradients come straight from autograd, in the
+    parameters' dtypes.  A parameter the loss does not reach gets zeros."""
+    params = list(params)
+
+    def grads_of(loss):
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+
+    if accum == 1:
+        loss = loss_fn(batch)
+        return loss.detach().float(), grads_of(loss)
+    total, acc = None, None
+    for mb in _split_batch(batch, accum, split):
+        loss = loss_fn(mb)
+        gs = grads_of(loss)
+        loss = loss.detach().float()
+        total = loss if total is None else total + loss
+        if acc is None:
+            acc = [g.float() for g in gs]
+        else:
+            for a, g in zip(acc, gs):
+                a.add_(g.float())
+    return total / accum, [(a / accum).to(p.dtype) for a, p in zip(acc, params)]
 
 
 class _GatherShard(torch.autograd.Function):
@@ -113,14 +221,29 @@ class _MeanGrad(torch.autograd.Function):
         return collectives.all_mean(g, ctx.ax), None
 
 
-class _Loss(nn.Module):
-    def __init__(self, model, loss_fn):
-        super().__init__()
-        self.model = model
-        self.loss_fn = loss_fn
+@contextlib.contextmanager
+def swapped_parameters(model: nn.Module):
+    """Yields ``swap(param, tensor)``, which puts ``tensor`` wherever the
+    model holds ``param`` (a gathered or reduced stand-in, part of the
+    autograd graph); every parameter goes back on exit.  A step keeps it
+    open through the backward: a rematerialized block recomputes from what
+    its modules hold then."""
+    owners = {}
+    for mod in model.modules():
+        for name, p in mod._parameters.items():
+            if p is not None:
+                owners.setdefault(id(p), []).append((mod, name, p))
 
-    def forward(self, batch):
-        return self.loss_fn(self.model, batch)
+    def swap(p, t) -> None:
+        for mod, name, _ in owners[id(p)]:
+            mod._parameters[name] = t
+
+    try:
+        yield swap
+    finally:
+        for entries in owners.values():
+            for mod, name, p in entries:
+                mod._parameters[name] = p
 
 
 def _spec_axes(spec) -> list:
@@ -173,7 +296,6 @@ class ShardedTrainStep(TrainStep):
         self.grad_reduce_axes = tuple(dict.fromkeys(
             ax for ax in _spec_axes(self.batch_spec)
             if ax not in self.replica_axes and ax != shard_axis))
-        self._wrapper = _Loss(model, loss_fn)
         self._params = self.shard_params()
 
     def param_spec(self, shape) -> tuple:
@@ -248,11 +370,13 @@ class ShardedTrainStep(TrainStep):
         micro = [collectives._map(lambda x, i=i: _chunks(x, n)[i], local) for i in range(n)]
         total = 0.0
         with self.mesh:
-            for mb in micro:
-                full = {f"model.{name}": self._full(p, dim) for name, p, dim in self._params}
-                loss = torch.func.functional_call(self._wrapper, full, (mb,))
-                (loss / self.accum_steps).backward()
-                total = total + loss.detach() / self.accum_steps
+            with swapped_parameters(self.model) as swap:
+                for mb in micro:
+                    for _, p, dim in self._params:
+                        swap(p, self._full(p, dim))
+                    loss = self.loss_fn(self.model, mb)
+                    (loss / self.accum_steps).backward()
+                    total = total + loss.detach() / self.accum_steps
             grads = {name: p.grad for name, p, _ in self._params if p.grad is not None}
             if self.grad_reduce_axes:
                 grads = collectives.all_mean(grads, self.grad_reduce_axes)

@@ -1,0 +1,356 @@
+"""Declarative sharding plans, counterpart of
+``torchdistx_tpu/parallel/plan.py``: one object that owns a model's
+placement.
+
+A :class:`ShardingPlan` is a frozen value: ordered ``(regex, spec)`` rules
+over dotted parameter paths (``re.search``, first match wins, t5x
+``match_partition_rules`` style), a spec being the port's per-dimension
+tuple of axis names (``parallel.mesh.NamedSharding``).  From the rules
+every other placement is derived:
+
+- parameter shardings (:meth:`~ShardingPlan.param_shardings`, and
+  :meth:`~ShardingPlan.as_rule` for ``materialize_module(sharding_rule=)``);
+- a materialized model's placement (:meth:`~ShardingPlan.apply` cuts each
+  full parameter to this rank's piece in place, and re-cuts one sharded
+  another way);
+- optimizer-state shardings (:meth:`~ShardingPlan.optimizer_state_shardings`:
+  each slot shaped like its parameter inherits the parameter's rule);
+- the serve KV pool's layout, as a ``kv_cache`` pseudo-path rule
+  (:meth:`~ShardingPlan.maybe_spec_for`).
+
+An eager step creates the optimizer's state from the rank's pieces and
+donates nothing, so the derived optimizer and carry shardings describe a
+layout that already holds (:meth:`~ShardingPlan.shardings_for` reports
+each tensor's own).  Not ported yet, and raising ``NotImplementedError``:
+``validate`` and the closed-form pricing (``price_step``,
+``record_step_collectives``), which need ``obs/memory`` and ``obs/comm``
+(ROADMAP A.7), and ZeRO-2 (``zero2=True``, ROADMAP A.4.4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+from torch import nn
+
+from . import collectives
+from .fsdp import _spec_axes, donated_carry_shardings, fsdp_partition_spec
+from .mesh import Mesh, NamedSharding, mark_sharded, sharding_of
+
+__all__ = [
+    "PlanError",
+    "ShardingPlan",
+    "derive_optimizer_state_shardings",
+    "tree_path_str",
+    "gather_full",
+    "place_params",
+]
+
+
+class PlanError(ValueError):
+    """A sharding plan failed validation: an axis the mesh lacks, or an
+    option without the one it needs.  The message names the offending
+    rule or argument."""
+
+
+def tree_path_str(path: Sequence[Any]) -> str:
+    """The dotted parameter path of a key path (strings, indices, or JAX-style
+    keys with ``key`` / ``name`` / ``idx``): ``("blocks", 0, "attn")`` is
+    ``"blocks.0.attn"``, the string ``named_parameters`` gives and the
+    plan's regexes match."""
+    parts = []
+    for k in path:
+        for attr in ("key", "name", "idx"):
+            if hasattr(k, attr):
+                k = getattr(k, attr)
+                break
+        parts.append(str(k))
+    return ".".join(parts)
+
+
+def _norm_spec(spec) -> tuple:
+    """A spec as a tuple of None, names and tuples of names."""
+    out = []
+    for entry in spec:
+        if isinstance(entry, (list, tuple)):
+            entry = tuple(entry) if len(entry) > 1 else (entry[0] if entry else None)
+        out.append(entry)
+    return tuple(out)
+
+
+def _global_shape(t: Any) -> tuple:
+    found = sharding_of(t) if isinstance(t, torch.Tensor) else None
+    return found[1] if found else tuple(getattr(t, "shape", ()) or ())
+
+
+def _named(params: Any) -> dict:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _leaf_bytes(t: Any) -> int:
+    shape = _global_shape(t)
+    item = t.element_size() if isinstance(t, torch.Tensor) else 4
+    return math.prod(shape) * item
+
+
+def _effective(sharding: NamedSharding, ndim: int) -> tuple:
+    """Per dimension the axes of size > 1 that cut it: shardings with equal
+    ones place a tensor the same way."""
+    spec = tuple(sharding.spec) + (None,) * (ndim - len(sharding.spec))
+    return tuple(tuple(a for a in (e if isinstance(e, tuple) else (e,))
+                       if e is not None and sharding.mesh.shape[a] > 1) for e in spec)
+
+
+def equivalent(a: NamedSharding, b: NamedSharding, ndim: int) -> bool:
+    """Whether ``a`` and ``b`` place a tensor of rank ``ndim`` alike (the
+    same mesh, the same cuts; axes of size 1 cut nothing)."""
+    return a.mesh is b.mesh and _effective(a, ndim) == _effective(b, ndim)
+
+
+def gather_full(t: torch.Tensor, sharding: Optional[NamedSharding] = None) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's piece (under
+    ``sharding``, default ``t``'s :func:`~.mesh.sharding_of`), all-gathered
+    dim by dim, every rank of each axis taking part; no gradient."""
+    if sharding is None:
+        found = sharding_of(t)
+        if found is None:
+            return t.detach()
+        sharding = found[0]
+    out = t.detach()
+    for d, entry in enumerate(sharding.spec):
+        names = entry if isinstance(entry, tuple) else (entry,) if entry else ()
+        for name in reversed(names):  # the minor axis first
+            out = collectives._gather(out, sharding.mesh.axes[name], d)
+    return out
+
+
+def place(t: torch.Tensor, target: NamedSharding):
+    """``(piece, global shape)``: this rank's piece of ``t``'s whole tensor
+    under ``target``; ``t`` itself when it is already placed so, a new
+    tensor otherwise (re-cut from the gathered whole if another sharding
+    marks ``t``)."""
+    found = sharding_of(t)
+    shape = found[1] if found else tuple(t.shape)
+    if found is not None and equivalent(found[0], target, len(shape)):
+        return t, shape
+    full = gather_full(t, found[0]) if found else t.detach()
+    return full[target.shard_slices(shape)].clone(), shape
+
+
+def place_params(params: Any, rule: Callable[[str, Any], NamedSharding]) -> Any:
+    """Place parameters by ``rule(path, like)``.  A module is placed in
+    place: each parameter is cut to this rank's piece (``param.data``, so an
+    optimizer made before keeps it) and marked; one already placed so is
+    left as it is.  A ``{name: tensor}`` dict gives a new dict of marked
+    pieces.  Every rank of the mesh must call it together (a parameter
+    sharded another way is gathered first)."""
+    if isinstance(params, nn.Module):
+        for name, p in params.named_parameters():
+            target = rule(name, p)
+            piece, shape = place(p, target)
+            if piece is not p:
+                with torch.no_grad():
+                    p.data = piece
+            mark_sharded(p, target, shape)
+        return params
+    out = {}
+    for name, t in dict(params).items():
+        target = rule(name, t)
+        piece, shape = place(t, target)
+        out[name] = t if piece is t else mark_sharded(piece, target, shape)
+    return out
+
+
+def _state_tree(state: Any, named: dict) -> dict:
+    """``{name: {slot: leaf}}`` of a torch optimizer (by parameter
+    identity), or ``state`` itself when it is already keyed by name."""
+    if hasattr(state, "state") and hasattr(state, "param_groups"):
+        name_of = {id(p): n for n, p in named.items()}
+        return {name_of.get(id(p), str(i)): dict(s)
+                for i, (p, s) in enumerate(state.state.items())}
+    return dict(state)
+
+
+def derive_optimizer_state_shardings(
+    state: Any,
+    params: Any,
+    mesh: Mesh,
+    sharding_of: Callable[[str, Any], NamedSharding],
+) -> dict:
+    """The optimizer-state sharding engine shared by the plan and
+    ``fsdp.optimizer_state_shardings``.
+
+    ``state`` is a torch optimizer or ``{param name: {slot: leaf}}``;
+    ``params`` a module or ``{name: tensor}``.  A slot tensor shaped like
+    its parameter (the rank's piece of it) inherits ``sharding_of(name,
+    param)``; every other leaf (step counts, factored or blockwise slots,
+    entries of no parameter) is replicated.  Returns ``{name: {slot:
+    NamedSharding}}``."""
+    repl = NamedSharding(mesh, ())
+    named = _named(params)
+    out = {}
+    for name, slots in _state_tree(state, named).items():
+        p = named.get(name)
+        row = {}
+        for slot, leaf in slots.items():
+            sh = repl
+            if (p is not None and isinstance(leaf, torch.Tensor)
+                    and tuple(leaf.shape) == tuple(p.shape)):
+                sh = sharding_of(name, p)
+            row[slot] = sh
+        out[name] = row
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    """A frozen, declarative sharding plan over one mesh.
+
+    Args:
+      mesh: the :class:`~.mesh.Mesh` every derived sharding targets.
+      rules: ordered ``(regex, spec)`` pairs matched against dotted
+        parameter paths with ``re.search``; the first match wins.  An
+        explicit rule applies even to tiny tensors.
+      default_axis: placement of paths no rule matches: None replicates
+        them, a mesh axis name FSDP-shards them on their first divisible
+        dim (``fsdp_partition_spec``, honoring ``min_shard_elems``).
+      dp_axis: the data-parallel axis ZeRO-2 would shard updates over.
+      zero2: not ported yet (ROADMAP A.4.4): True raises.
+      min_shard_elems: tensors smaller than this stay replicated on the
+        ``default_axis`` path.
+      tp_groups: the model's Megatron sub-layers (``parallel.tp.TPGroup``),
+        which ``GSPMDTrainStep`` runs on their local shards; a model-specific
+        plan (``llama_tp_plan``) declares them.  Not in the JAX plan, whose
+        collectives XLA places.
+    """
+
+    mesh: Mesh
+    rules: tuple = ()
+    default_axis: Optional[str] = None
+    dp_axis: Optional[str] = None
+    zero2: bool = False
+    min_shard_elems: int = 1024
+    tp_groups: tuple = ()
+
+    def __post_init__(self) -> None:
+        rules = tuple((str(pat), _norm_spec(spec)) for pat, spec in self.rules)
+        object.__setattr__(self, "rules", rules)
+        object.__setattr__(self, "_compiled", tuple((re.compile(p), s) for p, s in rules))
+        axis_names = set(self.mesh.axis_names)
+        for name in ("default_axis", "dp_axis"):
+            ax = getattr(self, name)
+            if ax is not None and ax not in axis_names:
+                raise PlanError(
+                    f"{name}={ax!r} is not a mesh axis (mesh has {sorted(axis_names)})")
+        for pat, spec in rules:
+            for ax in _spec_axes(spec):
+                if ax not in axis_names:
+                    raise PlanError(
+                        f"rule {pat!r} -> {spec} references axis {ax!r} "
+                        f"not in mesh axes {sorted(axis_names)}")
+        if self.zero2 and self.dp_axis is None:
+            raise PlanError("zero2=True requires dp_axis=")
+        if self.zero2:
+            raise NotImplementedError("ShardingPlan(zero2=True) is not ported yet "
+                                      "(ROADMAP A.4.4)")
+
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def fsdp(cls, mesh: Mesh, axis: str = "fsdp", min_shard_elems: int = 1024
+             ) -> "ShardingPlan":
+        """The classic FSDP plan: no rules, every parameter sharded on its
+        first divisible dim over ``axis``."""
+        return cls(mesh, rules=(), default_axis=axis, min_shard_elems=min_shard_elems)
+
+    @classmethod
+    def replicated(cls, mesh: Mesh) -> "ShardingPlan":
+        """Everything replicated."""
+        return cls(mesh, rules=())
+
+    def with_mesh(self, mesh: Mesh) -> "ShardingPlan":
+        """The same rules over another mesh (validated again)."""
+        return dataclasses.replace(self, mesh=mesh)
+
+    # -- rule resolution ---------------------------------------------------
+
+    def maybe_spec_for(self, path: str, shape: Sequence[int]) -> Optional[tuple]:
+        """The first matching rule's spec, or None when no rule matches."""
+        for pat, spec in self._compiled:
+            if pat.search(path):
+                return spec
+        return None
+
+    def spec_for(self, path: str, shape: Sequence[int]) -> tuple:
+        """The plan's spec for one parameter path of global ``shape``."""
+        spec = self.maybe_spec_for(path, shape)
+        if spec is not None:
+            return spec
+        if self.default_axis is not None:
+            return fsdp_partition_spec(tuple(shape), self.mesh, self.default_axis,
+                                       self.min_shard_elems)
+        return ()
+
+    def sharding_for(self, path: str, like: Any) -> NamedSharding:
+        return NamedSharding(self.mesh, self.spec_for(path, _global_shape(like)))
+
+    def as_rule(self) -> Callable[[str, Any], NamedSharding]:
+        """``(path, like) -> NamedSharding``, the signature of
+        ``materialize_module(sharding_rule=)``."""
+        return self.sharding_for
+
+    def describe(self, params: Any) -> dict:
+        """``{path: spec}`` over a module or ``{name: tensor}``."""
+        return {name: self.spec_for(name, _global_shape(t))
+                for name, t in _named(params).items()}
+
+    # -- derived placements ------------------------------------------------
+
+    def param_shardings(self, params: Any) -> dict:
+        return {name: self.sharding_for(name, t) for name, t in _named(params).items()}
+
+    def apply(self, params: Any) -> Any:
+        """Place parameters by the plan (:func:`place_params`): a module in
+        place, a ``{name: tensor}`` dict into a new dict."""
+        return place_params(params, self.sharding_for)
+
+    def optimizer_state_shardings(self, state: Any, params: Any) -> dict:
+        """``{name: {slot: NamedSharding}}`` derived from the rules: slots
+        shaped like their parameter take its rule, the rest replicate."""
+        return derive_optimizer_state_shardings(state, params, self.mesh,
+                                                lambda path, t: self.sharding_for(path, t))
+
+    def shardings_for(self, *trees: Any) -> tuple:
+        """Each tensor's own sharding (``fsdp.donated_carry_shardings``):
+        for a plan-placed tree that is the plan's placement."""
+        return donated_carry_shardings(*trees)
+
+    # -- validation and pricing --------------------------------------------
+
+    def validate(self, params: Any, *, optimizer_state: Any = None,
+                 budget_bytes_per_device: Optional[int] = None,
+                 budget_name: str = "device HBM") -> dict:
+        raise NotImplementedError("ShardingPlan.validate needs obs/memory, not ported "
+                                  "yet (ROADMAP A.7)")
+
+    def _num_shards(self, spec) -> int:
+        return math.prod(int(self.mesh.shape[ax]) for ax in _spec_axes(spec))
+
+    def per_device_bytes(self, params: Any) -> int:
+        """Closed-form parameter bytes a rank holds under the plan."""
+        return sum(_leaf_bytes(t) // self._num_shards(self.spec_for(name, _global_shape(t)))
+                   for name, t in _named(params).items())
+
+    def price_step(self, params: Any) -> list:
+        raise NotImplementedError("ShardingPlan.price_step needs obs/comm, not ported "
+                                  "yet (ROADMAP A.7)")
+
+    def record_step_collectives(self, params: Any) -> None:
+        raise NotImplementedError("ShardingPlan.record_step_collectives needs obs/comm, "
+                                  "not ported yet (ROADMAP A.7)")
