@@ -182,6 +182,30 @@ Phases, each fatal:
    world-1 update), the flash launches of each rank counted, and per step its ms
    and the bytes its collectives handed to ``gloo`` (staged through the
    host: a check of correctness on real CUDA tensors, not of speed);
+   before the world starts, the flash kernels at the shapes of the runs
+   below against their plain versions (``check_parallel_kernels``: the
+   residuals forward and the f32-output backward at the ring blocks, the
+   dbias kernel at T5's, rows 1-3 at llama_1b's); then in the same world
+   (e) GPT-2 sequence parallelism: gpt2_large at full width and 4 of its
+   36 layers on ``{"sp": 2}``, 4 x 1024 tokens (512 a rank), 3 SGD steps
+   through the flash ring, then one Ulysses forward on the same weights
+   against the ring's; (f) T5 sequence parallelism: t5_3b at full width
+   and 2 layers a stack on ``{"sp": 2}``, the materialized bias sliced per
+   rank, 2 x 1024 encoder and decoder tokens, 2 steps; (g) pipeline
+   parallelism: llama_1b, 4 of 16 layers (2 a stage) on ``{"pp": 2}``, the
+   embedding outside the stages and the final norm, head and loss in
+   ``loss_fn``, one ``pipeline_apply`` and 2 ``pipeline_train_step`` calls
+   over 8 microbatches of 1 x 2048; (h) ZeRO-2: llama_1b, 2 layers, on
+   ``{"dp": 2}`` through ``GSPMDTrainStep`` with ``ShardingPlan(dp_axis=
+   "dp", zero2=True)`` and AnyPrecisionAdamW, 3 steps, the parameters bit
+   for bit against the replicated-optimizer oracle and the optimizer's
+   bytes a rank half of its; (i) resharding: llama_1b, 2 layers, on
+   ``{"fsdp": 2}`` with ``on_failure="reshard"``: ``inject_device_loss(1)``
+   after step 2 bounces the state through the checkpoint onto ``{"fsdp":
+   1}`` on rank 0 (rank 1 leaves), and 2 more steps bit-equal to a world-1
+   run resumed from the replayed state; on ``{"dp": 2}`` the same loss
+   takes the live path with 0 wire bytes; (e)-(g) held against a world-1
+   run with the TP tolerances, the launches of every run gated;
 25. BASELINE config 5 on one card: the flash backward kernels and the lse
    forward at llama2_7b's attention (B 1, S 4096, 32 heads, D 128,
    causal) and the fused CE kernels at its loss (N 4096, D 4096, V 32000)
@@ -257,15 +281,17 @@ shape, phase 11 one per dbias and dtable variant: its ms, bound and
 library ms, the factor over the library and over the bound (the decode
 variants also by device time), phase 25 one per kernel at config 5's
 shapes; phases 22-23 one ``train slowmo llama_1b`` line and one
-``gossip``/``slowmo``/``tp llama_1b``/``ep mixtral_8x7b`` line per rank,
+``gossip``/``slowmo``/``tp llama_1b``/``ep mixtral_8x7b``/``sp gpt2_large``/``sp
+t5_3b``/``pp llama_1b``/``zero2 llama_1b``/``reshard llama_1b`` line per rank,
 phase 25 ``train llama2_7b config 5`` and ``train mixtral_8x7b``, phase 26 ``checkpoint and failure llama_1b``, phases 27-28 ``train
 resnet50 config 2`` and ``train vit_b16``.  Each phase's start
 second is printed (``phase start``).  It prints the card's name and power limit, one ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``.  In the kernels
 line each flash and fused-CE entry's ``launches`` counts phase 25b's
 timed Mixtral steps among the training runs (also apart, as
-``launches_mixtral_train``), and ``launches_tp_ep_ranks`` gives each
-rank's launches in phase 23 (c) and (d).  Without a CUDA device, or
+``launches_mixtral_train``), ``launches_tp_ep_ranks`` gives each
+rank's launches in phase 23 (c) and (d), and ``launches_parallel_ranks``
+in (e)-(i).  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
 """
@@ -399,9 +425,9 @@ SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_d
 SERVE_MODES = (("chunked-1", {}), ("persistent", {"decode_mode": "persistent"}),
                ("chunked-8", {"decode_chunk": 8}))
 # decode steps run before, and profiled in, each mode's profile window: one
-# persistent ring of this capacity (16, not 32, to keep the smoke inside its
+# persistent ring of this capacity (8, not 32, to keep the smoke inside its
 # time: the profiler's key_averages takes about a second a profiled step)
-PROFILE_RING = 16
+PROFILE_RING = 8
 # the other decode kernels' persistent engines, profiled the same way for
 # each kernel's device time a call inside the graph
 GRAPH_VARIANTS = (("paged_decode_attention", {"page_size": 16}),
@@ -3651,6 +3677,529 @@ def _tp_ep_runs(torch, seed, cases=TP_EP_CASES, device="cuda"):
     return out, failures
 
 
+# phase 23 (e)-(i) in the same world, each held against a world-1 run of the
+# same seed and batch with the TP_* tolerances: (e) gpt2_large, SP_GPT2_LAYERS
+# of its 36 layers at full width, on {"sp": 2}, SP_GPT2_BATCH x SP_GPT2_SEQ
+# global tokens (512 a rank), SP_GPT2_STEPS SGD steps through the flash ring,
+# then one Ulysses forward on the same weights (its logits within
+# ULYSSES_RTOL of the ring's by norm); (f) t5_3b at full width and
+# SP_T5_LAYERS layers a stack on {"sp": 2}, the materialized bias,
+# SP_T5_BATCH x SP_T5_SEQ encoder and decoder tokens, SP_T5_STEPS steps;
+# (g) llama_1b, PP_LAYERS of its 16 layers (PP_LAYERS / 2 a stage) on
+# {"pp": 2}, PP_MICRO microbatches of 1 x PP_SEQ (the embedding outside the
+# stages, the final norm, head and loss in loss_fn), PP_STEPS
+# pipeline_train_step calls (SGD between them) and one pipeline_apply
+# before them (its outputs within ULYSSES_RTOL of the unpipelined ones by
+# norm); (h) llama_1b, ZERO2_LAYERS layers, on {"dp": 2}, ZeRO-2 against the
+# replicated-optimizer oracle, AnyPrecisionAdamW, ZERO2_STEPS steps at
+# 2 x ZERO2_SEQ: parameters bit-equal, optimizer bytes a rank half; (i)
+# llama_1b, RESHARD_LAYERS layers, 2 x RESHARD_SEQ: {"fsdp": 2} with
+# on_failure="reshard", inject_device_loss(1) after RESHARD_AFTER steps, the
+# bounce onto {"fsdp": 1} on rank 0 and RESHARD_AFTER more steps bit-equal
+# to a world-1 run resumed from a replayed state; then {"dp": 2} losing a
+# rank takes the live path with 0 wire bytes
+SP_GPT2_NAME, SP_T5_NAME, PARALLEL_LLAMA = "gpt2_large", "t5_3b", "llama_1b"
+PARALLEL_COUNTERS = ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_delta",
+                     "flash_fwd_residuals", "flash_bwd_dkv_f32", "flash_bwd_dq_f32",
+                     "flash_bwd_dbias")
+PARALLEL_LINES = (("e", "sp gpt2_large"), ("f", "sp t5_3b"), ("g", "pp llama_1b"),
+                  ("h", "zero2 llama_1b"), ("i", "reshard llama_1b"))
+SP_GPT2_LAYERS, SP_GPT2_BATCH, SP_GPT2_SEQ, SP_GPT2_STEPS = 4, 4, 1024, 3
+SP_T5_LAYERS, SP_T5_BATCH, SP_T5_SEQ, SP_T5_STEPS = 2, 2, 1024, 2
+SP_LR = 1.0  # at TP_LR (10) a tiny GPT-2's loss climbs by its third step
+ULYSSES_RTOL = 2e-2
+PP_LAYERS, PP_MICRO, PP_SEQ, PP_STEPS, PP_LR = 4, 8, 2048, 2, 10.0
+ZERO2_LAYERS, ZERO2_SEQ, ZERO2_STEPS = 2, 2048, 3
+RESHARD_LAYERS, RESHARD_SEQ, RESHARD_AFTER = 2, 2048, 2
+# the ring blocks of (e) and (f) and llama_1b's attention, against their
+# plain versions before the world starts: (B, S, Hq, Hkv, D, causal, bias)
+# for the residuals forward and the f32-output backward (phase 19's check),
+# llama_1b's (B, S, Hq, Hkv, D) for phase 4's, T5's (B, S) for phase 11's
+PARALLEL_RESIDUAL_CASES = [(4, 512, 20, 20, 64, True, False), (4, 512, 20, 20, 64, False, False),
+                           (2, 512, 32, 32, 128, True, True),
+                           (2, 512, 32, 32, 128, False, True),
+                           (2, 512, 32, 32, 128, False, False)]
+PARALLEL_BWD_CASE = (1, 2048, 16, 16, 128)
+PARALLEL_BIAS_CASE = (2, 512)
+
+
+def check_parallel_kernels(torch, device):
+    """Phase 23's kernel check: the flash kernels at the shapes the
+    parallel runs give them (``PARALLEL_*``), each against its plain
+    version with the phase's own bounds."""
+    res, failures = check_flash_residuals(torch, device, cases=PARALLEL_RESIDUAL_CASES)
+    bwd, f = check_flash_bwd(torch, device, cases=[PARALLEL_BWD_CASE], timed=(), phase=23)
+    failures += f
+    bias, f = check_flash_bias(torch, device, cases=[PARALLEL_BIAS_CASE], iters=2)
+    failures += f
+    return {"residuals": res, "bwd": bwd, "bias": bias}, failures
+
+
+def _ring_blocks(causal, idx, n):
+    """The blocks a ring rank computes a call: all ``n``, or ``idx + 1``
+    when causal."""
+    return idx + 1 if causal else n
+
+
+def _window_bytes(torch, fn):
+    """``fn()`` timed on the card's clock, with the bytes each collective
+    kind and the pipe took (``collectives.payload_bytes``) and the bytes
+    staged through the host."""
+    from torchdistx_tpu_torch.parallel import collectives
+
+    before, staged = dict(collectives.payload_bytes), collectives._permute.staged_bytes
+    _sync(torch, "cuda" if torch.cuda.is_available() else "cpu")
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, "cuda" if torch.cuda.is_available() else "cpu")
+    ms = (time.perf_counter() - t0) * 1e3
+    sent = {k: v - before[k] for k, v in collectives.payload_bytes.items()}
+    sent["staged"] = collectives._permute.staged_bytes - staged
+    return out, ms, sent
+
+
+def _held(torch, what, rows, ref_losses, grads, ref_grads, full, init, ref_params, failures):
+    """The TP_* checks of a run against its world-1 run: each step's loss,
+    the first step's gradient of every parameter by norm and the update."""
+    import math
+
+    for row, ref in zip(rows, ref_losses):
+        row["ref_loss"] = ref
+        if not (math.isfinite(row["loss"]) and abs(row["loss"] - ref) <= TP_LOSS_RTOL * abs(ref)):
+            failures.append(f"{what}: step {row['step']} loss {row['loss']} against the "
+                            f"world-1 run's {ref}")
+    grad_err = {n: _rel_norm_err(torch, g, ref_grads[n]) for n, g in grads.items()}
+    worst = max(grad_err, key=grad_err.get)
+    if not grad_err[worst] <= TP_GRAD_RTOL:
+        failures.append(f"{what}: the first gradient of {worst} is {grad_err[worst]} off the "
+                        "world-1 run's by norm")
+    out = {"grad_rel_err_max": grad_err[worst], "grad_rel_err_worst": worst}
+    if full is not None:
+        out["update_rel_err"] = _bf16_update_err(torch, full, init, ref_params)
+        if not out["update_rel_err"] <= TP_UPDATE_RTOL:
+            failures.append(f"{what}: the update is {out['update_rel_err']} off the world-1 "
+                            "run's by norm")
+    return out
+
+
+def _gate(what, launches, want, failures):
+    failures += [f"{what}: {k} launches {launches[k]} != {n}" for k, n in want.items()
+                 if launches[k] != n]
+
+
+def _world1(torch, world, rank, fn):
+    """``fn()`` on each rank in turn (the card holds one at a time)."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+            _empty(torch, "cuda" if torch.cuda.is_available() else "cpu")
+        dist.barrier()
+    return out
+
+
+def _sp_model_run(torch, seed, part, device="cuda"):
+    """(e) or (f) on one rank of two (module comment above ``SP_GPT2_LAYERS``)."""
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import GPT2, T5
+    from torchdistx_tpu_torch.models.gpt2 import gpt2_configs
+    from torchdistx_tpu_torch.models.t5 import t5_configs
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import ShardedTrainStep, create_mesh
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    gpt2 = part == "e"
+    name, cls = (SP_GPT2_NAME, GPT2) if gpt2 else (SP_T5_NAME, T5)
+    n_layers, batch, seq, steps = ((SP_GPT2_LAYERS, SP_GPT2_BATCH, SP_GPT2_SEQ, SP_GPT2_STEPS)
+                                   if gpt2 else (SP_T5_LAYERS, SP_T5_BATCH, SP_T5_SEQ, SP_T5_STEPS))
+    lr = SP_LR
+    vocab = (gpt2_configs if gpt2 else t5_configs)[name].get("vocab_size", 50257 if gpt2
+                                                              else 32128)
+    mesh = create_mesh({"sp": world})
+    rs = np.random.RandomState(seed + n_layers)
+    # (tokens, labels) for GPT-2; (sources, decoder inputs, labels) for T5,
+    # whose labels are drawn apart: on its own input T5's tied head scores
+    # the input token so high that the loss is about 0 (the JAX script's)
+    data = tuple(torch.from_numpy(rs.randint(0, vocab, (batch, seq))).to(device)
+                 for _ in range(2 if gpt2 else 3))
+
+    def loss_fn(mod, b):
+        return F.cross_entropy(mod(b[0]) if gpt2 else mod(b[0], b[1]), b[-1])
+
+    def build(sp_axis):
+        tt.manual_seed(seed)
+        m = tt.deferred_init(cls.from_name, name, n_layers=n_layers, dtype=torch.bfloat16,
+                             sp_axis=sp_axis, device=device)
+        return tt.materialize_module(m)
+
+    def reference():
+        m = build(None)
+        init = {n: p.detach().clone() for n, p in m.named_parameters()}
+        step = tt.TrainStep(m, torch.optim.SGD(m.parameters(), lr=lr), loss_fn)
+        step(m, step.optimizer, data)
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+        for _ in range(steps - 1):
+            step(m, step.optimizer, data)
+        return {"init": init, "grads": grads, "losses": [float(x) for x in step.losses],
+                "params": {n: p.detach().clone() for n, p in m.named_parameters()}}
+
+    ref = _world1(torch, world, rank, reference)
+    m = build("sp")
+    step = ShardedTrainStep(m, torch.optim.SGD(m.parameters(), lr=lr), loss_fn, mesh,
+                            shard_axis=None, batch_spec=(None, "sp"))
+    rows, failures, grads = [], [], None
+    _reset_counters()
+    for i in range(steps):
+        _, ms, sent = _window_bytes(torch, lambda: step(m, step.optimizer, data))
+        rows.append({"step": i + 1, "ms": ms, "loss": float(step.losses[-1]),
+                     "collective_bytes": sent})
+        if i == 0:
+            grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+    launches = _read_counters()
+    what = f"sp {name} rank {rank}"
+    out = {"model": name, "mesh": dict(mesh.shape), "layers": n_layers,
+           "tokens": [batch, seq], "tokens_a_rank": [batch, seq // world], "steps": rows,
+           "launches": launches, "n_params": sum(p.numel() for p in m.parameters())}
+    full = {n: p.detach() for n, p in m.named_parameters()}
+    out.update(_held(torch, what, rows, ref["losses"], grads, ref["grads"], full, ref["init"],
+                     ref["params"], failures))
+    idx = mesh.axes["sp"].index
+    blocks = _ring_blocks(True, idx, world)
+    if gpt2:
+        want = {"flash_fwd_residuals": n_layers * steps * blocks}
+    else:  # encoder (full ring, bias), decoder self (causal, bias), cross (full)
+        biased = n_layers * (world + blocks)
+        want = {"flash_fwd_residuals": steps * (biased + n_layers * world),
+                "flash_fwd_bias": steps * biased, "flash_bwd_dbias": steps * biased}
+    want.update(flash_bwd_dkv_f32=want["flash_fwd_residuals"],
+                flash_bwd_dq_f32=want["flash_fwd_residuals"],
+                flash_bwd_delta=steps * n_layers * (1 if gpt2 else 3))
+    _gate(what, launches, want, failures)
+    if gpt2:  # one Ulysses forward on the trained weights, against the ring's
+        local = tuple(x[:, idx * (seq // world):(idx + 1) * (seq // world)] for x in data)
+        with mesh, torch.no_grad():
+            ring = m(local[0])
+            m.cfg.sp_mode = "ulysses"
+            _reset_counters()
+            uly, ms, sent = _window_bytes(torch, lambda: m(local[0]))
+            m.cfg.sp_mode = "ring"
+        err = _rel_norm_err(torch, uly, ring)
+        out["ulysses"] = {"ms": ms, "collective_bytes": sent, "rel_err_vs_ring": err,
+                          "launches": _read_counters()}
+        if not err <= ULYSSES_RTOL:
+            failures.append(f"{what}: the Ulysses logits are {err} off the ring's by norm")
+        _gate(f"{what} ulysses", out["ulysses"]["launches"], {"flash_fwd": n_layers}, failures)
+        if not sent["all_to_all"]:
+            failures.append(f"{what}: the Ulysses forward handed nothing to all_to_all")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    return out, failures
+
+
+def _pp_run(torch, seed, device="cuda"):
+    """(g) on one rank of two."""
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models.llama import Llama, LlamaConfig, llama_configs, pp_stage
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import create_mesh
+    from torchdistx_tpu_torch.parallel.pp import (pipeline_apply, pipeline_train_step,
+                                                 split_microbatches, stack_pipeline_stages)
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = create_mesh({"pp": world})
+    per_stage = PP_LAYERS // world
+    kw = dict(llama_configs[PARALLEL_LLAMA], max_seq_len=PP_SEQ, remat=False)
+    Stage = pp_stage(LlamaConfig(**dict(kw, n_layers=PP_LAYERS)), n_blocks=per_stage)
+    modules = []
+    for i in range(world):
+        tt.manual_seed(seed + i)
+        modules.append(tt.materialize_module(tt.deferred_init(Stage, device=device)))
+    tt.manual_seed(seed + world)
+    head = tt.materialize_module(tt.deferred_init(Llama.from_name, PARALLEL_LLAMA, n_layers=0,
+                                                  max_seq_len=PP_SEQ, device=device))
+    for p in head.parameters():
+        p.requires_grad_(False)
+    template = modules[rank]
+    rs = np.random.RandomState(seed)
+    toks, labels = (torch.from_numpy(rs.randint(0, kw["vocab_size"], (PP_MICRO, PP_SEQ)))
+                    .to(device) for _ in range(2))
+    with torch.no_grad():
+        hidden = split_microbatches(head.tok_emb(toks), PP_MICRO)
+    targets = split_microbatches(labels, PP_MICRO)
+
+    def stage_fn(p, x):
+        return torch.func.functional_call(template, p, (x,))
+
+    def loss_fn(y, t):
+        return F.cross_entropy(head.lm_head(head.norm(y)), t)
+
+    def reference():
+        params = [{n: p.detach().clone().requires_grad_() for n, p in mod.named_parameters()}
+                  for mod in modules]
+        outs, total = [], 0.0
+        for i in range(PP_MICRO):
+            x = hidden[i]
+            for p in params:
+                x = stage_fn(p, x)
+            outs.append(x.detach())
+            loss = loss_fn(x, targets[i]) / PP_MICRO
+            loss.backward()
+            total += float(loss.detach())
+        return {"loss": total, "out": torch.stack(outs),
+                "grads": {n: t.grad for n, t in params[rank].items()}}
+
+    ref = _world1(torch, world, rank, reference)
+    stacked = stack_pipeline_stages([dict(mod.named_parameters()) for mod in modules], mesh)
+    failures, what = [], f"pp llama_1b rank {rank}"
+    _reset_counters()
+    with torch.no_grad():
+        out, apply_ms, apply_sent = _window_bytes(
+            torch, lambda: pipeline_apply(stacked, hidden, mesh=mesh, stage_fn=stage_fn))
+    apply_launches = _read_counters()
+    err = _rel_norm_err(torch, out, ref["out"])
+    if not err <= ULYSSES_RTOL:
+        failures.append(f"{what}: pipeline_apply's outputs are {err} off the unpipelined by norm")
+    rows = []
+    _reset_counters()
+    for i in range(PP_STEPS):
+        (loss, grads), ms, sent = _window_bytes(torch, lambda: pipeline_train_step(
+            stacked, hidden, targets, mesh=mesh, stage_fn=stage_fn, loss_fn=loss_fn))
+        rows.append({"step": i + 1, "ms": ms, "loss": float(loss), "collective_bytes": sent})
+        if i == 0:
+            first = {n: g[0] for n, g in grads.items()}
+        with torch.no_grad():
+            for n, g in grads.items():
+                stacked[n].sub_(PP_LR * g)
+    launches = _read_counters()
+    held = _held(torch, what, rows[:1], [ref["loss"]], first, ref["grads"], None, None, None,
+                 failures)
+    last = rank == world - 1
+    n = PP_MICRO * per_stage
+    _gate(what, launches, {"flash_fwd_lse": PP_STEPS * n, "flash_bwd_dkv": PP_STEPS * n,
+                           "flash_bwd_dq": PP_STEPS * n, "flash_bwd_delta": PP_STEPS * n,
+                           "flash_fwd": 0 if last else PP_STEPS * n}, failures)
+    _gate(f"{what} apply", apply_launches, {"flash_fwd": n}, failures)
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        failures.append(f"{what}: losses not finite: {[r['loss'] for r in rows]}")
+    return {"model": PARALLEL_LLAMA, "mesh": dict(mesh.shape), "layers": PP_LAYERS,
+            "microbatches": [PP_MICRO, 1, PP_SEQ], "steps": rows, "launches": launches,
+            "apply": {"ms": apply_ms, "collective_bytes": apply_sent,
+                      "rel_err_vs_unpipelined": err, "launches": apply_launches},
+            "ref_loss": ref["loss"], **held,
+            "stage_params": sum(p.numel() for p in template.parameters()),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated() if device == "cuda"
+            else None}, failures
+
+
+def _state_bytes(torch, opt) -> int:
+    """Bytes of an optimizer's state tensors on this rank, scalars left out."""
+    return sum(t.numel() * t.element_size() for s in opt.state.values() for t in s.values()
+               if isinstance(t, torch.Tensor) and t.ndim)
+
+
+def _zero2_run(torch, seed, device="cuda"):
+    """(h) on one rank of two."""
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import GSPMDTrainStep, ShardingPlan, create_mesh
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = create_mesh({"dp": world})
+    rs = np.random.RandomState(seed)
+    vocab = Llama.configs[PARALLEL_LLAMA]["vocab_size"]
+    data = tuple(torch.from_numpy(rs.randint(0, vocab, (world, ZERO2_SEQ))).to(device)
+                 for _ in range(2))
+
+    def loss_fn(mod, b):
+        return F.cross_entropy(mod(b[0]), b[1])
+
+    def run(plan):
+        tt.manual_seed(seed)
+        m = tt.materialize_module(tt.deferred_init(
+            Llama.from_name, PARALLEL_LLAMA, n_layers=ZERO2_LAYERS, max_seq_len=ZERO2_SEQ,
+            remat=False, device=device))
+        opt = tt.AnyPrecisionAdamW(m.parameters(), lr=1e-4)
+        step = GSPMDTrainStep(m, opt, loss_fn, mesh, batch_spec=("dp",), plan=plan)
+        rows = []
+        _reset_counters()
+        for i in range(ZERO2_STEPS):
+            _, ms, sent = _window_bytes(torch, lambda: step(m, opt, data))
+            rows.append({"step": i + 1, "ms": ms, "loss": float(step.losses[-1]),
+                         "collective_bytes": sent})
+        return m, opt, step, rows, _read_counters()
+
+    plan = ShardingPlan(mesh, dp_axis="dp", zero2=True)
+    m, opt, step, rows, launches = run(plan)
+    om, oopt, _, orows, _ = run(None)
+    what = f"zero2 llama_1b rank {rank}"
+    failures = []
+    differ = [n for (n, p), q in zip(m.named_parameters(), om.parameters())
+              if not torch.equal(p, q)]
+    if differ:
+        failures.append(f"{what}: parameters not bit-equal to the oracle's: {differ[:4]}")
+    if [r["loss"] for r in rows] != [r["loss"] for r in orows]:
+        failures.append(f"{what}: losses {[r['loss'] for r in rows]} against the oracle's "
+                        f"{[r['loss'] for r in orows]}")
+    local, whole = _state_bytes(torch, opt), _state_bytes(torch, oopt)
+    if local * world != whole:
+        failures.append(f"{what}: optimizer bytes {local} a rank against the oracle's {whole}")
+    n = ZERO2_LAYERS * ZERO2_STEPS
+    _gate(what, launches, {"flash_fwd_lse": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
+                           "flash_bwd_delta": n}, failures)
+    return {"model": PARALLEL_LLAMA, "mesh": dict(mesh.shape), "layers": ZERO2_LAYERS,
+            "tokens": [world, ZERO2_SEQ], "steps": rows, "oracle_steps": orows,
+            "launches": launches, "params_bit_equal": not differ,
+            "optimizer_bytes": local, "oracle_optimizer_bytes": whole,
+            "sliced_params": len(step._zero2),
+            "zero2_participating_bytes": plan.zero2_participating_bytes(m),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated() if device == "cuda"
+            else None}, failures
+
+
+def _reshard_run(torch, seed, tmp, device="cuda"):
+    """(i) on one rank of two; ``tmp`` the checkpoint directory both share."""
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import ShardedTrainStep, create_mesh
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+    from torchdistx_tpu_torch.parallel.reshard import optimizer_state_tree
+    from torchdistx_tpu_torch.utils.failure import FailureDetector
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rs = np.random.RandomState(seed)
+    vocab = Llama.configs[PARALLEL_LLAMA]["vocab_size"]
+    data = [tuple(torch.from_numpy(rs.randint(0, vocab, (world, RESHARD_SEQ))).to(device)
+                  for _ in range(2)) for _ in range(2 * RESHARD_AFTER + 1)]
+
+    def loss_fn(mod, b):
+        return F.cross_entropy(mod(b[0]), b[1])
+
+    def step_on(mesh, **kw):
+        tt.manual_seed(seed)
+        m = tt.materialize_module(tt.deferred_init(
+            Llama.from_name, PARALLEL_LLAMA, n_layers=RESHARD_LAYERS, max_seq_len=RESHARD_SEQ,
+            remat=False, device=device))
+        return ShardedTrainStep(m, tt.AnyPrecisionAdamW(m.parameters(), lr=1e-4), loss_fn,
+                                mesh, **kw)
+
+    failures, out = [], {}
+    # (i.1) the bounce: {"fsdp": 2} -> {"fsdp": 1}; first the replayed state
+    # at the recovery step (a clean run to it, gathered whole)
+    mesh = create_mesh({"fsdp": world})
+    ref = step_on(mesh, shard_axis="fsdp")
+    tt.Trainer(ref, log_every=1, log_fn=lambda _: None).fit(data, RESHARD_AFTER + 1)
+    with mesh:
+        params = {n: gather_full(p).clone() for n, p in ref.model.named_parameters()}
+        slots = {n: {k: gather_full(v).clone() for k, v in row.items()}
+                 for n, row in optimizer_state_tree(ref.optimizer, ref.model).items()}
+    counts = {id(p): {k: v for k, v in st.items() if not isinstance(v, torch.Tensor)}
+              for p, st in ref.optimizer.state.items()}
+    for n, p in ref.model.named_parameters():
+        slots[n].update(counts[id(p)])  # the step counts
+    del ref
+    _empty(torch, device)
+    det, logs = FailureDetector(), []
+    step = step_on(mesh, shard_axis="fsdp")
+    tr = tt.Trainer(step, log_every=1, log_fn=logs.append, checkpoint_dir=tmp,
+                    checkpoint_every=1000, failure_detector=det, on_failure="reshard")
+    tr.fit(data, RESHARD_AFTER)
+    det.inject_device_loss(1)
+    _reset_counters()
+    _, ms, sent = _window_bytes(torch, lambda: tr.fit(data[RESHARD_AFTER:],
+                                                       2 * RESHARD_AFTER + 1))
+    launches = _read_counters()
+    what = f"reshard llama_1b rank {rank}"
+    bounce = {"log": [m for m in logs if "failure" in m], "last": tr.last_reshard,
+              "departed": tr.departed, "ms": ms, "collective_bytes": sent,
+              "launches": launches, "t_reshard_s": tr._t_reshard}
+    small = create_mesh({"fsdp": 1}, devices=[0], member=False)
+    steps_run = RESHARD_AFTER + 1 if rank else 2 * RESHARD_AFTER + 1
+    n = RESHARD_LAYERS * (steps_run - RESHARD_AFTER)
+    _gate(what, launches, {"flash_fwd_lse": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
+                           "flash_bwd_delta": n}, failures)
+    if (tr.last_reshard or {}).get("mode") != "checkpoint" or tr.departed != bool(rank):
+        failures.append(f"{what}: the bounce gave {tr.last_reshard}, departed {tr.departed}")
+    if rank == 0:  # the world-1 run resumed from the replayed state
+        bounce["losses"] = [float(x) for x in tr.step.losses[RESHARD_AFTER + 1:]]
+        final = {n: p.detach().clone() for n, p in tr.step.model.named_parameters()}
+        del tr, step
+        _empty(torch, device)
+        oracle = step_on(small, shard_axis="fsdp")
+        with torch.no_grad():
+            for n, p in oracle.model.named_parameters():
+                p.copy_(params[n])
+        names = {id(p): n for n, p in oracle.model.named_parameters()}
+        for _, p, _ in oracle._params:
+            oracle.optimizer.state[p] = slots[names[id(p)]]
+        tt.Trainer(oracle, log_every=1, log_fn=lambda _: None).fit(data[RESHARD_AFTER + 1:])
+        bounce["oracle_losses"] = [float(x) for x in oracle.losses]
+        differ = [n for n, p in oracle.model.named_parameters() if not torch.equal(p, final[n])]
+        bounce["bit_equal"] = not differ and bounce["losses"] == bounce["oracle_losses"]
+        if not bounce["bit_equal"]:
+            failures.append(f"{what}: the resumed run is not bit-equal to the oracle's "
+                            f"({differ[:4]}, losses {bounce['losses']} against "
+                            f"{bounce['oracle_losses']})")
+        del oracle, final
+    else:
+        del tr, step
+    del params, slots
+    _empty(torch, device)
+    out["bounce"] = bounce
+    # (i.2) live: {"dp": 2} losing a rank keeps a whole replica on rank 0
+    dp = create_mesh({"dp": world})
+    det = FailureDetector()
+    step = step_on(dp, shard_axis=None, replica_axes=("dp",))
+    tr = tt.Trainer(step, log_every=1, log_fn=lambda _: None, checkpoint_dir=tmp,
+                    checkpoint_every=1000, failure_detector=det, on_failure="reshard")
+    tr.fit(data, 1)
+    det.inject_device_loss(1)
+    tr.fit(data[1:], 3)
+    live = {"last": tr.last_reshard, "departed": tr.departed,
+            "losses": [float(x) for x in tr.step.losses] if not tr.departed else None}
+    last = tr.last_reshard or {}
+    if (last.get("mode") != "live" or last.get("wire_bytes") != 0
+            or any(last.get("payload_bytes", {1: 1}).values())):
+        failures.append(f"{what}: the dp shrink gave {last}")
+    out["live"] = live
+    del tr, step
+    _empty(torch, device)
+    return out, failures
+
+
+def _parallel_launches(runs, key) -> dict:
+    """``{part: launches of counter key}`` of phase 23 (e)-(i) on one rank."""
+    return {part: (runs[part]["bounce"] if part == "i" else runs[part])["launches"].get(key, 0)
+            for part in "efghi"}
+
+
+def _parallel_runs(torch, seed, tmp, device="cuda"):
+    """Phase 23 (e)-(i) on one rank of two: returns ``{part: result}`` and
+    the failures."""
+    out, failures = {}, []
+    for part, fn in (("e", lambda: _sp_model_run(torch, seed, "e", device)),
+                     ("f", lambda: _sp_model_run(torch, seed, "f", device)),
+                     ("g", lambda: _pp_run(torch, seed, device)),
+                     ("h", lambda: _zero2_run(torch, seed, device)),
+                     ("i", lambda: _reshard_run(torch, seed, tmp, device))):
+        t0 = time.perf_counter()
+        out[part], f = fn()
+        out[part]["seconds"] = time.perf_counter() - t0
+        failures += f
+        _empty(torch, device)
+    return out, failures
+
+
 def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
     """One spawned rank of phase 23: joins the ``gloo`` world through a
     ``FileStore``, runs ``_gossip_runs`` on ``cuda:0`` and writes its result
@@ -3669,6 +4218,10 @@ def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
             t0 = time.perf_counter()
             result["tp_ep"], fails = _tp_ep_runs(torch, seed)
             result["tp_ep"]["seconds"] = time.perf_counter() - t0
+            result["failures"] += fails
+            torch.cuda.empty_cache()
+            result["parallel"], fails = _parallel_runs(torch, seed,
+                                                       os.path.dirname(store_path))
             result["failures"] += fails
         finally:
             dist.destroy_process_group()
@@ -4964,9 +5517,13 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
-    # -- 23. GossipGraD, SlowMo, TP and EP across two ranks on the one card ---------
+    # -- 23. GossipGraD, SlowMo, TP, EP, SP, PP, ZeRO-2 and resharding across two
+    # ranks on the one card, the flash kernels first at the parallel runs' shapes
     try:
         torch.cuda.empty_cache()
+        par_kernels, f23 = check_parallel_kernels(torch, device)
+        failures += f23
+        report["parallel_kernels"] = par_kernels
         gossip, f23 = gossip_two_ranks(args.seed + 12)
         for res in gossip["ranks"]:
             for run in ("gossip", "slowmo"):
@@ -4974,6 +5531,9 @@ def main(argv=None) -> int:
             for part, what in (("c", "tp llama_1b"), ("d", "ep mixtral_8x7b")):
                 print(f"{what} rank {res.get('rank')}",
                       json.dumps(res.get("tp_ep", {}).get(part)))
+            for part, what in PARALLEL_LINES:
+                print(f"{what} rank {res.get('rank')}",
+                      json.dumps(res.get("parallel", {}).get(part)))
         print("gossip world", json.dumps({k: v for k, v in gossip.items() if k != "ranks"}))
         failures += f23
         report["gossip_two_ranks"] = gossip
@@ -5204,6 +5764,11 @@ def main(argv=None) -> int:
                 "ms": row[ms], "plain_ms": row[plain], "bound_ms": row[bound],
                 "library_ms": row[lib] if lib else None,
                 "max_abs_err": max(row[e] for e in errs)}
+    for entry in kernels:  # phase 23 (e)-(i): the ring's kernels and the plain ones
+        key = counter_of.get(entry["name"], entry["name"])
+        if key in PARALLEL_COUNTERS:
+            entry["launches_parallel_ranks"] = [_parallel_launches(r["parallel"], key)
+                                                for r in gossip["ranks"]]
     report["kernels"] = kernels
     failures += [f"{k['name']}: no launch on the main path" for k in kernels
                  if not k["launches"]]

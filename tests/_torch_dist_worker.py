@@ -1081,5 +1081,577 @@ def _data(payload):
         yield f"dp_tp_p{prefetch}", load((("dp", "tp"),), prefetch)
 
 
+# -- sequence-parallel GPT-2 and T5, ZeRO-2, pipelines, resharding ------------------
+
+
+# GPT-2 and T5 under sp: (mesh axes, model kwargs); {"dp": 2, "sp": 2} runs two
+# 2-way rings, one a batch row, {"sp": 4} one 4-way ring
+SP_MESHES = {"sp2": {"dp": 2, "sp": 2}, "sp4": {"sp": WORLD}}
+SP_GPT2_CASES = {"ring_plain": dict(use_flash=False), "ring_flash": dict(use_flash=True),
+                 "ulysses": dict(use_flash=False, sp_mode="ulysses")}
+SP_T5_CASES = {"plain": dict(use_flash=False), "flash": dict(use_flash=True)}
+
+
+def sp_batch(kind):
+    """test_models.py's SP inputs: GPT-2 (2, 64) tokens and labels; T5
+    (2, 64) sources and (2, 32) targets (unequal: the cross ring's q and k
+    shards differ)."""
+    rs = np.random.RandomState(9 if kind == "gpt2" else 7)
+    if kind == "gpt2":
+        return (rs.randint(0, 256, (2, 64)).astype(np.int64),
+                rs.randint(0, 256, (2, 64)).astype(np.int64))
+    return (rs.randint(0, 256, (2, 64)).astype(np.int64),
+            rs.randint(0, 256, (2, 32)).astype(np.int64))
+
+
+def _sp_models(payload):
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import GPT2, T5
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import collectives, create_mesh
+
+    meshes = {k: create_mesh(v) for k, v in SP_MESHES.items()}
+
+    def run(kind, mesh_key, kw):
+        def case():
+            mesh = meshes[mesh_key]
+            cls = GPT2 if kind == "gpt2" else T5
+            m = tt.deferred_init(cls.from_name, "tiny", device="cpu", sp_axis="sp", **kw)
+            tt.materialize_module(m)
+            load_jax_params(m, payload[kind])
+            sp, dp = mesh.axes["sp"], mesh.axes.get("dp")
+            rows = slice(None) if dp is None else slice(dp.index, dp.index + 1)
+            a, b = (torch.from_numpy(x[rows]) for x in sp_batch(kind))
+            a, b = (torch.from_numpy(np.split(x.numpy(), sp.size, axis=1)[sp.index].copy())
+                    for x in (a, b))
+            with mesh:
+                logits = m(a) if kind == "gpt2" else m(a, b)
+                F.cross_entropy(logits, b).backward()
+                grads = collectives.all_mean({n: p.grad for n, p in m.named_parameters()},
+                                             tuple(mesh.axis_names))
+            return {"logits": _np(logits), "grads": _np(grads), "rows": [rows.start, rows.stop],
+                    "sp_index": sp.index, "sp_size": sp.size}
+        return case
+
+    for mesh_key in SP_MESHES:
+        for name, kw in SP_GPT2_CASES.items():
+            yield f"gpt2-{name}-{mesh_key}", run("gpt2", mesh_key, kw)
+        for name, kw in SP_T5_CASES.items():
+            yield f"t5-{name}-{mesh_key}", run("t5", mesh_key, kw)
+
+    def n_positions():
+        m = GPT2.from_name("tiny", device="cpu", sp_axis="sp")
+        with meshes["sp4"]:
+            try:
+                m(torch.zeros((1, 17), dtype=torch.long))
+            except ValueError as e:
+                return {"message": str(e)}
+        return {"message": None}
+
+    yield "err_n_positions", n_positions
+
+
+ZERO2_STEPS, ZERO2_LR, ZERO2_MOMENTUM = 10, 1e-1, 0.9
+
+
+def zero2_batch(vocab=256, b=8, s=16, seed=0):
+    """test_plan.py's ``_data``: globally unique tokens."""
+    rs = np.random.RandomState(seed)
+    tokens = rs.permutation(vocab)[: b * s].reshape(b, s).astype(np.int64)
+    labels = rs.randint(0, vocab, (b, s)).astype(np.int64)
+    return tokens, labels
+
+
+def _zero2(payload):
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import GSPMDTrainStep, ShardingPlan, create_mesh
+    from torchdistx_tpu_torch.utils.benchmarks import build_train_workload, optimizer_bytes
+
+    def loss_fn(mod, b):
+        return F.cross_entropy(mod(b[0]), b[1])
+
+    if payload.get("part") == "cuda":
+        # two ranks on cuda:0 over gloo, bf16 tiny Llama at head_dim 64 (the
+        # kernels take 64 or 128) through the flash kernels,
+        # AnyPrecisionAdamW: ZeRO-2 against the replicated oracle
+        def on_the_card():
+            mesh = create_mesh({"dp": 2})
+            out = {}
+            batch = tuple(torch.from_numpy(a[:4]).to("cuda") for a in zero2_batch())
+            for key, plan in (("zero2", ShardingPlan(mesh, dp_axis="dp", zero2=True)),
+                              ("oracle", None)):
+                tt.manual_seed(3)
+                m = tt.materialize_module(tt.deferred_init(
+                    Llama.from_name, "tiny", dim=128, n_heads=2, dtype=torch.bfloat16,
+                    device="cuda"))
+                opt = tt.AnyPrecisionAdamW(m.parameters(), lr=1e-3)
+                step = GSPMDTrainStep(m, opt, loss_fn, mesh, batch_spec=("dp",), plan=plan)
+                for _ in range(3):
+                    step(m, opt, batch)
+                out[key] = {"params": _np({n: p.float() for n, p in m.named_parameters()}),
+                            "losses": [float(x) for x in step.losses],
+                            "bytes": optimizer_bytes(opt), "sliced": len(step._zero2)}
+            return out
+
+        yield "on_the_card", on_the_card
+        return
+    mesh = create_mesh({"dp": WORLD})
+
+    def model():
+        m = tt.deferred_init(Llama.from_name, "tiny", device="cpu")
+        tt.materialize_module(m)
+        return load_jax_params(m, payload["init"])
+
+    def train(plan):
+        m = model()
+        opt = torch.optim.SGD(m.parameters(), lr=ZERO2_LR, momentum=ZERO2_MOMENTUM)
+        step = GSPMDTrainStep(m, opt, loss_fn, mesh, batch_spec=("dp",), plan=plan)
+        batch = tuple(torch.from_numpy(a) for a in zero2_batch())
+        trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+        trainer.fit([batch] * ZERO2_STEPS, ZERO2_STEPS)
+        return m, opt, step
+
+    def ten_steps():
+        plan = ShardingPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
+        m, opt, step = train(plan)
+        om, oopt, ostep = train(None)
+        derived = plan.optimizer_state_shardings(opt, m)
+        return {"params": _np(dict(m.named_parameters())),
+                "oracle": _np(dict(om.named_parameters())),
+                "losses": [float(x) for x in step.losses],
+                "oracle_losses": [float(x) for x in ostep.losses],
+                "bytes": optimizer_bytes(opt), "oracle_bytes": optimizer_bytes(oopt),
+                "sliced": len(step._zero2),
+                "derived": {n: {k: tuple(v.spec) for k, v in row.items()}
+                            for n, row in derived.items()},
+                "participating": plan.zero2_participating_bytes(m),
+                "specs": {n: tuple(p._tdx_sharding.spec) for n, p in m.named_parameters()}}
+
+    def workload():
+        w = build_train_workload("tiny", batch=2, seq=16, device="cpu", zero2=True)
+        losses = w["run"](2)
+        return {"losses": losses, "plan": w["plan"], "zero2_dp": w["zero2_dp"],
+                "participating": w["zero2_participating_bytes"],
+                "bytes": w["optimizer_bytes"]()}
+
+    def eight_bit():
+        plan = ShardingPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
+        m = model()
+        step = GSPMDTrainStep(m, tt.optimizers.adamw_8bit(m.parameters(), 1e-3), loss_fn, mesh,
+                              batch_spec=("dp",), plan=plan)
+        return {"sliced": len(step._zero2)}
+
+    yield "ten_steps", ten_steps
+    yield "workload", workload
+    yield "eight_bit", eight_bit
+
+
+PP_D = 8
+
+
+def pp_stages(n, d, key, h=None):
+    """test_pp.py's ``_stages`` (w, b), or the 3-D test's MLP stages (w1,
+    b1, w2, b2) with ``h``."""
+    rs = np.random.RandomState(key)
+    if h is None:
+        return [{"w": (rs.randn(d, d) * 0.1).astype(np.float32),
+                 "b": (rs.randn(d) * 0.1).astype(np.float32)} for _ in range(n)]
+    return [{"w1": (rs.randn(h, d) * 0.1).astype(np.float32),
+             "b1": (rs.randn(h) * 0.1).astype(np.float32),
+             "w2": (rs.randn(d, h) * 0.1).astype(np.float32),
+             "b2": (rs.randn(d) * 0.1).astype(np.float32)} for _ in range(n)]
+
+
+# name: (mesh axes, stage key, d, microbatch shape (n_micro, b), dp_axis)
+PP_TRAINS = {"loss_grads_pp4": ({"pp": 4}, 10, 16, (6, 8), None),
+             "fewer_micro_pp4": ({"pp": 4}, 12, 8, (2, 4), None),
+             "dp2_pp2": ({"dp": 2, "pp": 2}, 14, 8, (4, 8), "dp")}
+PP_APPLY = {"forward_pp4": (16, 6, 8, 1, 4), "micro_not_multiple_pp4": (8, 5, 4, 3, 2)}
+PP_TP_SPECS = {"w1": ("pp", "tp", None), "b1": ("pp", "tp"), "w2": ("pp", None, "tp"),
+               "b2": ("pp", None)}
+
+
+def pp_inputs(seed, shape, d):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(*shape, d).astype(np.float32), rs.randn(*shape, d).astype(np.float32))
+
+
+def _pp(payload):
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models.llama import LlamaConfig, pp_stage
+    from torchdistx_tpu_torch.parallel import collectives as C
+    from torchdistx_tpu_torch.parallel import create_mesh
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+    from torchdistx_tpu_torch.parallel.pp import (pipeline_apply, pipeline_train_step,
+                                                 split_microbatches, stack_pipeline_stages)
+
+    meshes = {}
+
+    def mesh_of(axes):
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = create_mesh(axes)
+        return meshes[key]
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def mse(y, t):
+        return ((y - t) ** 2).mean()
+
+    def torch_stages(stages):
+        return [{k: torch.from_numpy(v) for k, v in st.items()} for st in stages]
+
+    def whole(g):
+        return {k: _np(gather_full(v)) for k, v in g.items()}
+
+    def train(axes, key, d, shape, dp):
+        def case():
+            mesh = mesh_of(axes)
+            stacked = stack_pipeline_stages(torch_stages(pp_stages(mesh.shape["pp"], d, key)),
+                                            mesh)
+            mb, tgt = (torch.from_numpy(a) for a in pp_inputs(key + 1, shape, d))
+            before = C.payload_bytes["pipe"]
+            loss, g = pipeline_train_step(stacked, mb, tgt, mesh=mesh, stage_fn=stage_fn,
+                                          loss_fn=mse, dp_axis=dp)
+            return {"loss": float(loss), "grads": whole(g),
+                    "pipe_bytes": C.payload_bytes["pipe"] - before,
+                    "grad_shape": tuple(g["w"].shape)}
+        return case
+
+    def apply(d, n_micro, b, key, seed):
+        def case():
+            mesh = mesh_of({"pp": WORLD})
+            stacked = stack_pipeline_stages(torch_stages(pp_stages(WORLD, d, key)), mesh)
+            micro = torch.from_numpy(
+                np.random.RandomState(seed).randn(n_micro, b, d).astype(np.float32))
+            return {"out": _np(pipeline_apply(stacked, micro, mesh=mesh, stage_fn=stage_fn))}
+        return case
+
+    def autodiff():
+        # test_pp.py's gradients through pipeline_apply, and its training loop
+        out = {}
+        mesh = mesh_of({"dp": 2, "pp": 2})  # two 2-stage pipelines, the same inputs
+        stacked = stack_pipeline_stages(torch_stages(pp_stages(2, 8, 4)), mesh)
+        for t in stacked.values():
+            t.requires_grad_()
+        micro = torch.from_numpy(np.random.RandomState(5).randn(4, 4, 8).astype(np.float32))
+        (pipeline_apply(stacked, micro, mesh=mesh, stage_fn=stage_fn) ** 2).mean().backward()
+        out["grads"] = whole({k: _marked(t.grad, t) for k, t in stacked.items()})
+        mesh4 = mesh_of({"pp": WORLD})
+        stacked = stack_pipeline_stages(torch_stages(pp_stages(WORLD, 8, 6)), mesh4)
+        params = {k: t.clone().requires_grad_() for k, t in stacked.items()}
+        opt = torch.optim.SGD(params.values(), lr=0.1)
+        micro = torch.from_numpy(np.random.RandomState(7).randn(4, 8, 8).astype(np.float32))
+        losses = []
+        for _ in range(5):
+            opt.zero_grad()
+            loss = ((pipeline_apply({k: _marked(v, stacked[k]) for k, v in params.items()},
+                                    micro, mesh=mesh4, stage_fn=stage_fn) - 1.0) ** 2).mean()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        out["losses"] = losses
+        # the 1F1B step's training loop (test_training_reduces_loss)
+        stacked = stack_pipeline_stages(torch_stages(pp_stages(WORLD, 8, 16)), mesh4)
+        rs = np.random.RandomState(17)
+        mb = split_microbatches(torch.from_numpy(rs.randn(16, 8).astype(np.float32)), 4)
+        tgt = split_microbatches(torch.zeros((16, 8)), 4)
+        params = {k: v.clone() for k, v in stacked.items()}
+        losses = []
+        for _ in range(8):
+            loss, g = pipeline_train_step({k: _marked(v, stacked[k]) for k, v in params.items()},
+                                          mb, tgt, mesh=mesh4, stage_fn=stage_fn, loss_fn=mse)
+            for k in params:
+                params[k] -= 0.3 * g[k]
+            losses.append(float(loss))
+        out["train_losses"] = losses
+        try:
+            stack_pipeline_stages(torch_stages(pp_stages(3, 8, 0)), mesh4)
+            out["wrong_count"] = None
+        except ValueError as e:
+            out["wrong_count"] = str(e)
+        return out
+
+    def tp_stage_fn(p, x):
+        xin = C.copy_psum_grad(x, "tp")
+        h = torch.relu(xin @ p["w1"].T + p["b1"])
+        return x + C.allreduce_linear(h @ p["w2"].T, "tp") + p["b2"]
+
+    def tp(train_step):
+        def case():
+            mesh = mesh_of({"tp": 2, "pp": 2})
+            stages = pp_stages(2, 8, 21 if train_step else 20, h=16)
+            stacked = stack_pipeline_stages(torch_stages(stages), mesh)
+            rs = np.random.RandomState(22 if train_step else 23)
+            if not train_step:
+                mb = torch.from_numpy(rs.randn(3, 4, 8).astype(np.float32))
+                out = pipeline_apply(stacked, mb, mesh=mesh, stage_fn=tp_stage_fn,
+                                     param_specs=PP_TP_SPECS)
+                return {"out": _np(out)}
+            mb, tgt = (torch.from_numpy(rs.randn(4, 4, 8).astype(np.float32)) for _ in range(2))
+            loss, g = pipeline_train_step(stacked, mb, tgt, mesh=mesh, stage_fn=tp_stage_fn,
+                                          loss_fn=mse, param_specs=PP_TP_SPECS)
+            return {"loss": float(loss), "grads": whole(g),
+                    "local_w1": tuple(g["w1"].shape)}
+        return case
+
+    def llama():
+        # deferred-init Llama blocks, one a stage, against the port's own
+        # unpipelined run of the same stages (test_pp.py's TestLlamaPipeline)
+        cfg = LlamaConfig(vocab_size=64, dim=32, n_layers=4, n_heads=4, n_kv_heads=2,
+                          max_seq_len=16, dtype=torch.float32, use_flash=False)
+        Stage = pp_stage(cfg)
+        mesh = mesh_of({"dp": 2, "pp": 2})
+        stages = []
+        for i in range(2):
+            tt.manual_seed(100 + i)
+            m = tt.deferred_init(Stage, device="cpu")
+            tt.materialize_module(m)
+            stages.append(dict(m.named_parameters()))
+        template = Stage(device="cpu")
+        fn = lambda p, x: torch.func.functional_call(template, p, (x,))  # noqa: E731
+        rs = np.random.RandomState(21)
+        hidden = torch.from_numpy(rs.randn(4, 4, 8, 32).astype(np.float32))
+        tgt = torch.from_numpy(rs.randn(4, 4, 8, 32).astype(np.float32))
+        stacked = stack_pipeline_stages(stages, mesh)
+        loss, g = pipeline_train_step(stacked, hidden, tgt, mesh=mesh, stage_fn=fn, loss_fn=mse,
+                                      dp_axis="dp")
+        # the unpipelined reference: every microbatch through both stages
+        params = [{k: v.detach().clone().requires_grad_() for k, v in st.items()}
+                  for st in stages]
+        total = 0.0
+        for i in range(hidden.shape[0]):
+            x = hidden[i]
+            for p in params:
+                x = fn(p, x)
+            total = total + mse(x, tgt[i])
+        total = total / hidden.shape[0]
+        total.backward()
+        return {"loss": float(loss), "ref_loss": float(total), "grads": whole(g),
+                "ref_grads": [{k: _np(v.grad) for k, v in p.items()} for p in params]}
+
+    for name, (axes, key, d, shape, dp) in PP_TRAINS.items():
+        yield name, train(axes, key, d, shape, dp)
+    for name, (d, n_micro, b, key, seed) in PP_APPLY.items():
+        yield name, apply(d, n_micro, b, key, seed)
+    yield "autodiff", autodiff
+    yield "tp_apply", tp(False)
+    yield "tp_train", tp(True)
+    yield "llama", llama
+
+
+def _marked(t, like):
+    from torchdistx_tpu_torch.parallel.mesh import mark_sharded, sharding_of
+
+    return mark_sharded(t, *sharding_of(like))
+
+
+RESHARD_STEPS, RESHARD_INJECT = 8, 5
+
+
+def reshard_batches(n, d=16):
+    """test_reshard.py's ``_batches``: (x, x) pairs of (8, 16)."""
+    rs = np.random.RandomState(0)
+    return [(b, b) for b in (rs.randn(8, d).astype(np.float32) for _ in range(n))]
+
+
+def _reshard(payload):
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.parallel import ShardedTrainStep, can_reshard_live, create_mesh
+    from torchdistx_tpu_torch.parallel import collectives as C
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+    from torchdistx_tpu_torch.parallel.reshard import optimizer_state_tree
+    from torchdistx_tpu_torch.utils.failure import FailureDetector, StepFailure
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+
+    class MLP(torch.nn.Module):
+        def __init__(self, d=16, h=64):
+            super().__init__()
+            self.fc1 = tt.nn.Linear(d, h, device="cpu")
+            self.fc2 = tt.nn.Linear(h, d, device="cpu")
+
+        def forward(self, x):
+            return self.fc2(torch.relu(self.fc1(x)))
+
+    def mlp():
+        m = MLP()
+        return load_jax_params(m, payload["mlp"])
+
+    def loss_fn(mod, b):
+        return ((mod(b[0]) - b[1]) ** 2).mean()
+
+    def step_on(mesh, m, **kw):
+        opt = torch.optim.Adam(m.parameters(), lr=1e-2)
+        return ShardedTrainStep(m, opt, loss_fn, mesh, **kw)
+
+    def batches(n):
+        return [tuple(torch.from_numpy(a) for a in b) for b in reshard_batches(n)]
+
+    def full_state(step):
+        tree = optimizer_state_tree(step.optimizer, step.model)
+        with step.mesh:  # copies: an unsharded tensor gathers to itself
+            return ({n: gather_full(p).clone() for n, p in step.model.named_parameters()},
+                    {n: {k: gather_full(v).clone() for k, v in row.items()}
+                     for n, row in tree.items()})
+
+    def transplant(mesh, params, slots, data, **kw):
+        """A fresh step on ``mesh`` from whole ``params`` and Adam ``slots``,
+        trained on ``data``."""
+        m = mlp()
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                p.copy_(params[n])
+        step = step_on(mesh, m, **kw)
+        names = {id(p): n for n, p in m.named_parameters()}
+        for _, p, _ in step._params:
+            sh = p._tdx_sharding
+            step.optimizer.state[p] = {k: (v[sh.shard_slices(v.shape)].clone()
+                                           if v.ndim else v.clone())
+                                       for k, v in slots[names[id(p)]].items()}
+        trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+        trainer.fit(data)
+        return step
+
+    def bounce(tmp):
+        def case():
+            data = batches(RESHARD_STEPS)
+            mesh4 = create_mesh({"fsdp": WORLD})
+            # the oracle's first half: a clean 4-rank run to the recovery step
+            ref = step_on(mesh4, mlp(), shard_axis="fsdp")
+            tt.Trainer(ref, log_every=1, log_fn=lambda _: None).fit(data[:RESHARD_INJECT + 1])
+            params, slots = full_state(ref)
+            det, logs = FailureDetector(), []
+            step = step_on(mesh4, mlp(), shard_axis="fsdp")
+            tr = tt.Trainer(step, log_every=1, log_fn=logs.append, checkpoint_dir=tmp,
+                            checkpoint_every=100, failure_detector=det, on_failure="reshard")
+            tr.fit(data[:RESHARD_INJECT])
+            det.inject_device_loss(2)
+            tr.fit(data[RESHARD_INJECT:], RESHARD_STEPS)
+            out = {"logs": [m for m in logs if "failure" in m], "last": tr.last_reshard,
+                   "departed": tr.departed, "t_reshard": tr._t_reshard,
+                   "global_step": tr.global_step}
+            # the oracle's second half on a fresh {"fsdp": 2} of ranks 0 and 1
+            small = create_mesh({"fsdp": 2}, devices=[0, 1], member=False)
+            if not tr.departed:
+                ostep = transplant(small, params, slots, data[RESHARD_INJECT + 1:],
+                                   shard_axis="fsdp")
+                out.update(params=_np(tr.step.full_params()), oracle=_np(ostep.full_params()),
+                           losses=[float(x) for x in tr.step.losses[RESHARD_INJECT + 1:]],
+                           oracle_losses=[float(x) for x in ostep.losses],
+                           mesh=dict(tr.step.mesh.shape),
+                           local_shapes={n: tuple(p.shape)
+                                         for n, p in tr.step.model.named_parameters()})
+            return out
+        return case
+
+    def live():
+        data = batches(RESHARD_STEPS)
+        mesh = create_mesh({"dp": 2, "fsdp": 2})
+        step = step_on(mesh, mlp(), shard_axis="fsdp", replica_axes=("dp",))
+        tr = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+        tr.fit(data[:4])
+        params, slots = full_state(step)
+        mode = tr.reshard(mesh=tt.Trainer._shrunk_mesh(mesh, 2))
+        out = {"mode": mode, "last": tr.last_reshard, "departed": tr.departed}
+        tr.fit(data[4:], RESHARD_STEPS)
+        if not tr.departed:
+            ostep = transplant(tr.step.mesh, params, slots, data[4:], shard_axis="fsdp",
+                               replica_axes=("dp",))
+            out.update(params=_np(tr.step.full_params()), oracle=_np(ostep.full_params()),
+                       mesh=dict(tr.step.mesh.shape))
+        return out
+
+    def shrunk():
+        out = {}
+        for key, axes, lost in (("dp_fsdp", {"dp": 2, "fsdp": 2}, 2),
+                                ("fsdp", {"fsdp": WORLD}, 2), ("odd", {"fsdp": WORLD}, 1)):
+            mesh = create_mesh(axes)
+            try:
+                small = tt.Trainer._shrunk_mesh(mesh, lost)
+                out[key] = {"shape": dict(small.shape), "member": small.is_member,
+                            "ranks": small.devices.tolist()}
+            except StepFailure as e:
+                out[key] = {"error": str(e)}
+        return out
+
+    def fallback(tmp):
+        def case():
+            # "reshard" on a non-device-loss failure rolls back as "restore"
+            from torchdistx_tpu_torch.utils.failure import apply_failure_policy
+
+            mesh = create_mesh({"fsdp": WORLD})
+            step = step_on(mesh, mlp(), shard_axis="fsdp")
+            tr = tt.Trainer(step, log_every=1, log_fn=lambda _: None, checkpoint_dir=tmp,
+                            checkpoint_every=2, on_failure="reshard")
+            data = batches(4)
+            tr.fit(data[:2])
+            saved = {n: _np(gather_full(p)) for n, p in step.model.named_parameters()}
+            dist.barrier()
+            tr.fit(data[2:], 3)
+            action = apply_failure_policy(tr, StepFailure("nonfinite", "x"), "reshard")
+            return {"action": action, "global_step": tr.global_step, "saved": saved,
+                    "restored": {n: _np(gather_full(p))
+                                 for n, p in step.model.named_parameters()}}
+        return case
+
+    def live_check():
+        mesh = create_mesh({"fsdp": WORLD})
+        small = create_mesh({"fsdp": 2}, devices=[0, 1], member=False)
+        grid = create_mesh({"dp": 2, "fsdp": 2})
+        m = step_on(mesh, mlp(), shard_axis="fsdp").model
+        r = step_on(grid, mlp(), shard_axis="fsdp", replica_axes=("dp",)).model
+        surv = tt.Trainer._shrunk_mesh(grid, 2)
+        return {"sharded_onto_2": can_reshard_live(dict(m.named_parameters()), small),
+                "sharded_onto_4": can_reshard_live(dict(m.named_parameters()), mesh),
+                "replica_onto_2": can_reshard_live(dict(r.named_parameters()), surv)}
+
+    def to_plan():
+        # reshard_to_plan: an FSDP-placed MLP and its Adam state onto the
+        # replicated plan of the same mesh, live, priced first
+        from torchdistx_tpu_torch.parallel import (ShardingPlan, plan_transition_wire_bytes,
+                                                   reshard_to_plan)
+
+        mesh = create_mesh({"fsdp": WORLD})
+        m = mlp()
+        ShardingPlan.fsdp(mesh, min_shard_elems=1).apply(m)
+        opt = torch.optim.Adam(m.parameters(), lr=1e-2)
+        for p in m.parameters():
+            p.grad = torch.ones_like(p)
+        opt.step()
+        target = ShardingPlan.replicated(mesh)
+        priced = plan_transition_wire_bytes(m, target, optimizer_state=opt)
+        with mesh:
+            before = dict(C.payload_bytes)
+            reshard_to_plan(m, target, optimizer_state=opt)
+            sent = C.payload_bytes["all_gather"] - before["all_gather"]
+        return {"priced": priced, "gathered": sent,
+                "params": _np(dict(m.named_parameters())),
+                "slots": {n: _np(opt.state[p]["exp_avg"]) for n, p in m.named_parameters()}}
+
+    yield "to_plan", to_plan
+    yield "bounce", bounce(os.path.join(payload["tmp"], "bounce"))
+    yield "live", live
+    yield "shrunk", shrunk
+    yield "fallback", fallback(os.path.join(payload["tmp"], "fallback"))
+    yield "live_check", live_check
+
+
 SUITES = {"collectives": _collectives, "ring": _ring, "fsdp": _fsdp, "sp_llama": _sp_llama,
-          "gossip": _gossip, "plan": _plan, "tp": _tp, "moe_ep": _moe_ep, "data": _data}
+          "gossip": _gossip, "plan": _plan, "tp": _tp, "moe_ep": _moe_ep, "data": _data,
+          "sp_models": _sp_models, "zero2": _zero2, "pp": _pp, "reshard": _reshard}

@@ -1295,3 +1295,61 @@ def test_resnet18_forward_on_the_card_matches_the_cpu(cuda, no_tf32, training):
         ref = model.cpu()(x)
     assert out.shape == (2, 1000) and torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, atol=1e-3 * ref.abs().max().item(), rtol=0)
+
+
+# the ring blocks of GPT-2's and T5's sequence parallelism at two ranks
+# (chip_smoke.PARALLEL_RESIDUAL_CASES): (B, S, Hq, D, causal, bias)
+RING_BLOCKS = [(4, 512, 20, 64, True, False), (4, 512, 20, 64, False, False),
+               (2, 512, 32, 128, True, True), (2, 512, 32, 128, False, True)]
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,bias", RING_BLOCKS)
+def test_ring_block_kernels_match_plain(cuda, b, s, h, d, causal, bias):
+    """The residuals forward and the f32-output dK/dV, dQ (and dbias) kernels
+    at the ring blocks' shapes against their plain versions in f32."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k, v, do = (_rand(g, (b, s, h, d), cuda) for _ in range(4))
+    bi = _rand(g, (h, s, s), cuda) if bias else None
+    f32 = torch.float32
+    kw = dict(causal=causal, bias=bi)
+    acc, m, l = tflash.flash_fwd_cuda(q, k, v, return_residuals=True, **kw)
+    o, lse = tflash.flash_fwd_cuda(q, k, v, return_lse=True, **kw)
+    wide = [x.float() for x in (q, k, v, o, do)]
+    bias32 = None if bi is None else bi.float()
+    racc, rm, rl = tflash.flash_attention_residuals_reference(*wide[:3], causal=causal,
+                                                               bias=bias32)
+    torch.testing.assert_close(m, rm, atol=1e-5, rtol=0)
+    torch.testing.assert_close(l, rl, atol=0, rtol=1e-5)
+    torch.testing.assert_close(acc / l.transpose(1, 2)[..., None],
+                               racc / rl.transpose(1, 2)[..., None], **TOL)
+    dk, dv = tflash.flash_bwd_dkv_cuda(q, k, v, o, lse, do, part_dtype=f32, **kw)
+    dq = tflash.flash_bwd_dq_cuda(q, k, v, o, lse, do, dq_dtype=f32, **kw)
+    ref = tflash.flash_bwd_reference(*wide[:4], lse, wide[4], causal=causal, bias=bias32,
+                                     dq_dtype=f32, part_dtype=f32)
+    for got, want in zip((dq, dk, dv), ref[:3]):
+        assert got.dtype == f32
+        torch.testing.assert_close(got, want, **TOL)
+    if bias:  # scaled by its largest element, as chip_smoke's BIAS_GRAD_TOL
+        db = tflash.flash_bwd_dbias_cuda(q, k, v, o, lse, do, bi, causal=causal)
+        scale = ref[3].abs().max()
+        assert float((db.float() - ref[3]).abs().max() / scale) <= 2e-2
+
+
+def test_zero2_over_two_ranks_on_the_card_is_bit_equal(cuda, tmp_path):
+    """Two ranks on one card over ``gloo``: ZeRO-2 (``ShardingPlan(zero2=
+    True)``) against the replicated-optimizer oracle, bf16 tiny Llama through
+    the flash kernels, AnyPrecisionAdamW, 3 steps: parameters and losses bit
+    for bit, the optimizer's bytes a rank half."""
+    import numpy as np
+
+    from _torch_dist_worker import spawn_world
+
+    for r in spawn_world("zero2", tmp_path, {"part": "cuda"}, world=2):
+        res = r["on_the_card"]
+        assert "error" not in res, res["error"]
+        z, o = res["zero2"], res["oracle"]
+        for name, p in o["params"].items():
+            np.testing.assert_array_equal(z["params"][name], p, err_msg=name)
+        assert z["losses"] == o["losses"]
+        assert z["sliced"] > 0 and z["bytes"][0] == o["bytes"][0]
+        assert z["bytes"][1] < o["bytes"][1]

@@ -91,8 +91,17 @@ def test_unported_methods_raise(method):
     tt.manual_seed(0)
     toks = torch.zeros(1, 4, dtype=torch.long)
     if method == "sp_axis":
+        # ported: on a one-rank sp mesh (no process group) the ring is one
+        # block and the model equals the unsharded one; outside a mesh the
+        # axis is unbound
+        from torchdistx_tpu_torch.parallel import create_mesh
+
         m = GPT2.from_name("tiny", device="cpu", sp_axis="sp")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        ref = GPT2.from_name("tiny", device="cpu")
+        ref.load_state_dict(m.state_dict())
+        with create_mesh({"sp": 1}):
+            torch.testing.assert_close(m(toks), ref(toks))
+        with pytest.raises(NameError, match="unbound axis"):
             m(toks)
         return
     m = GPT2.from_name("tiny", device="cpu")

@@ -28,6 +28,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         "torchdistx_tpu_torch.parallel.mesh, torchdistx_tpu_torch.parallel.collectives, "
         "torchdistx_tpu_torch.parallel.comm_hooks, torchdistx_tpu_torch.parallel.fsdp, "
         "torchdistx_tpu_torch.parallel.plan, torchdistx_tpu_torch.parallel.tp, "
+        "torchdistx_tpu_torch.parallel.pp, torchdistx_tpu_torch.parallel.reshard, "
         "torchdistx_tpu_torch.models.resnet, torchdistx_tpu_torch.models.vit, "
         "torchdistx_tpu_torch.interop.torch_interop, torchdistx_tpu_torch.nn.layers, "
         "torchdistx_tpu_torch.nn.functional\n"

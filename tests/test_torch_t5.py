@@ -177,9 +177,15 @@ def test_bias_modes_use_the_same_bucket_ids(jax_params):
 def test_unported_paths_raise(what):
     toks = torch.zeros(1, 4, dtype=torch.long)
     if what == "sp_axis":
+        # ported: on a one-rank sp mesh the ring is one block, with the
+        # whole bias, and the model equals the unsharded one
+        from torchdistx_tpu_torch.parallel import create_mesh
+
         m = T5.from_name("tiny", device="cpu", sp_axis="sp")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            m(toks, toks)
+        ref = T5.from_name("tiny", device="cpu")
+        ref.load_state_dict(m.state_dict())
+        with create_mesh({"sp": 1}):
+            torch.testing.assert_close(m(toks, toks), ref(toks, toks), rtol=2e-5, atol=2e-5)
         with pytest.raises(ValueError, match="flash_bucket_bias"):
             T5.from_name("tiny", device="cpu", sp_axis="sp", flash_bucket_bias=True)
         return

@@ -258,7 +258,9 @@ def test_return_hidden_and_unported_options():
     for kw in (dict(flight=object()), dict(stall_timeout_s=1.0), dict(cost_card=True)):
         with pytest.raises(NotImplementedError):
             tt.Trainer(lambda p, s, b: (p, s, 0.0), **kw)
-    with pytest.raises(NotImplementedError, match="ZeRO-2"):
+    # ZeRO-2 is ported (tests/test_torch_zero2.py) and needs several ranks,
+    # as JAX's arm needs several devices
+    with pytest.raises(ValueError, match="multi-rank"):
         build_train_workload("tiny", device="cpu", zero2=True)
 
 

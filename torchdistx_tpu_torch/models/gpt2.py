@@ -7,12 +7,18 @@ N(0, 0.02 / sqrt(2 * n_layers)), zero biases) are the JAX package's, so
 ``interop.load_jax_params`` carries a JAX model's weights across one to
 one.  With ``use_flash`` resolved on, attention runs through the
 differentiable ``ops.flash_attention.flash_attention`` (head_dim 64).
+With ``sp_axis`` set the sequence is sharded over that mesh axis (run the
+model inside the ``parallel.Mesh``, as the sharded train steps do): each
+rank embeds its block at the global positions ``axis_index * s +
+arange(s)`` (a ``ValueError`` when ``s * n`` exceeds ``n_positions``) and
+attends through ``ops.attention.sp_attention``, the flash ring
+(``sp_mode="ring"``, the plain ring without flash) or Ulysses.
 ``forward(tokens, return_hidden=True)`` returns the post-``ln_f`` hidden
 states for ``ops.fused_ce.fused_linear_cross_entropy`` with the tied
 ``tok_emb.weight`` as the head.
 
-Serving (``init_cache``, ``forward_cached``, ``forward_decode``) and
-sequence parallelism (``sp_axis``) are not ported yet and raise.
+Serving (``init_cache``, ``forward_cached``, ``forward_decode``) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from torch import nn as tnn
 from .. import nn
 from ..nn import functional as F
 from ..nn import init as nn_init
-from ..ops.attention import multihead_attention
+from ..ops.attention import multihead_attention, sp_attention
 from ..ops.flash_attention import flash_attention, resolve_use_flash
 
 __all__ = ["GPT2Config", "GPT2", "GPT2Block", "gpt2_configs"]
@@ -44,7 +50,8 @@ class GPT2Config:
     dtype: torch.dtype = torch.float32
     # the kernels; None = auto: on for CUDA tensors, off on the CPU
     use_flash: Optional[bool] = None
-    # sequence parallelism: kept for the JAX config's shape, not ported
+    # sequence parallelism: the mesh axis the sequence is sharded over, and
+    # "ring" (the flash ring, or the plain ring without flash) or "ulysses"
     sp_axis: Optional[str] = None
     sp_mode: str = "ring"
 
@@ -99,7 +106,10 @@ class GPT2Block(tnn.Module):
         # (b, s, 3, H, hd), then [:, :, 0/1/2]: the JAX split order
         qkv = self.attn_qkv(h).reshape(b, s, 3, self.n_heads, d // self.n_heads)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if resolve_use_flash(self.cfg.use_flash, x.device):
+        if self.cfg.sp_axis is not None:
+            a = sp_attention(q, k, v, axis=self.cfg.sp_axis, mode=self.cfg.sp_mode,
+                             causal=True, use_flash=self.cfg.use_flash)
+        elif resolve_use_flash(self.cfg.use_flash, x.device):
             a = flash_attention(q, k, v, causal=True)
         else:
             a = multihead_attention(q, k, v, causal=True)
@@ -135,15 +145,25 @@ class GPT2(tnn.Module):
         """Logits (B, S, vocab) through the tied head; ``return_hidden=True``
         returns the post-``ln_f`` hidden states instead (the input of
         ``fused_linear_cross_entropy`` with ``tok_emb.weight``)."""
-        if self.cfg.sp_axis is not None:
-            _unported("sequence parallelism (sp_axis)")
         s = tokens.shape[1]
-        if s > self.cfg.n_positions:
+        start = 0
+        if self.cfg.sp_axis is not None:
+            from ..parallel.collectives import axis_index, axis_size
+
+            # s is this rank's shard; the positions are global
+            n = axis_size(self.cfg.sp_axis)
+            if s * n > self.cfg.n_positions:
+                raise ValueError(
+                    f"global sequence length {s * n} exceeds n_positions="
+                    f"{self.cfg.n_positions}"
+                )
+            start = axis_index(self.cfg.sp_axis) * s
+        elif s > self.cfg.n_positions:
             # an embedding lookup past the table would fail less clearly
             raise ValueError(
                 f"sequence length {s} exceeds n_positions={self.cfg.n_positions}"
             )
-        pos = torch.arange(s, device=tokens.device)
+        pos = torch.arange(start, start + s, device=tokens.device)
         x = self.tok_emb(tokens) + self.pos_emb(pos)[None]
         for blk in self.blocks:
             x = blk(x)

@@ -43,7 +43,7 @@ from ..ops.attention import (
 )
 from ..ops.flash_attention import flash_attention, resolve_use_flash
 
-__all__ = ["LlamaConfig", "Llama", "llama_configs", "apply_rope", "apply_rope_at"]
+__all__ = ["LlamaConfig", "Llama", "llama_configs", "apply_rope", "apply_rope_at", "pp_stage"]
 
 
 @dataclasses.dataclass
@@ -413,3 +413,27 @@ class Llama(tnn.Module):
             x, c = blk.forward_decode(x, rope, c, positions, page_tables)
             new_cache.append(c)
         return self.lm_head(self.norm(x)), new_cache
+
+
+def pp_stage(cfg: LlamaConfig, n_blocks: int = 1):
+    """Module class for one pipeline stage: ``n_blocks`` Llama blocks with
+    the ``forward(x) -> x`` signature ``parallel.pp``'s stage functions
+    take (the rotary table made from the config on ``x``'s device, no
+    parameter).  Build one per stage under ``deferred_init`` (``Stage(
+    device=...)``), materialize it, and pass the stages' parameters to
+    ``stack_pipeline_stages``; ``torch.func.functional_call`` on one
+    instance applies a stage's parameters."""
+
+    class LlamaStage(tnn.Module):
+        def __init__(self, device="cuda"):
+            super().__init__()
+            self.cfg = cfg
+            self.blocks = tnn.ModuleList([LlamaBlock(cfg, device) for _ in range(n_blocks)])
+
+        def forward(self, x):
+            rope = _rope_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, x.device)
+            for blk in self.blocks:
+                x = blk(x, rope)
+            return x
+
+    return LlamaStage

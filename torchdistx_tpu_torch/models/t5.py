@@ -22,8 +22,15 @@ device), so the materialized bias and the kernels' agree.  The plain
 path (``use_flash`` off) is the kernels' plain version, the JAX einsum
 branch's math.
 
-Cached generation (``decode_step``, ``init_decoder_cache``) and sequence
-parallelism (``sp_axis``) are not ported yet and raise.
+With ``sp_axis`` set the sequence is sharded over that mesh axis (run the
+model inside the ``parallel.Mesh``): self-attention runs the ring
+(``ops.attention.sp_attention``: the flash ring when ``use_flash``
+resolves on) with this rank's slice of the relative-position bias, its
+query rows at their global positions against every key, (H, sq_local,
+S); cross-attention runs a non-causal ring over the encoder's key
+shards.  ``flash_bucket_bias`` with ``sp_axis`` raises.  Cached
+generation (``decode_step``, ``init_decoder_cache``) runs unsharded and
+is not ported yet: it raises.
 """
 
 from __future__ import annotations
@@ -36,9 +43,11 @@ from torch import nn as tnn
 
 from .. import nn
 from ..nn import functional as F
+from ..ops.attention import sp_attention
 from ..ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
+    rel_bucket_ids,
     rel_bucket_matrix,
     resolve_use_flash,
 )
@@ -64,7 +73,8 @@ class T5Config:
     # self-attention passes the (H, buckets) table into the flash kernels
     # instead of the materialized (H, S, S) bias; requires use_flash
     flash_bucket_bias: bool = False
-    # sequence parallelism: kept for the JAX config's shape, not ported
+    # sequence parallelism: the mesh axis the sequence (of both stacks) is
+    # sharded over; the ring, with the bias sliced per rank
     sp_axis: Optional[str] = None
 
     def __post_init__(self) -> None:
@@ -120,10 +130,25 @@ class T5Attention(tnn.Module):
         bucket = rel_bucket_matrix(sq, skv, self._bucket_cfg(), self.rel_bias.weight.device)
         return self.rel_bias(bucket).permute(2, 0, 1).contiguous()  # (H, Sq, Skv)
 
+    def _bias_sp(self, sq: int):
+        """This rank's slice of the sequence-parallel bias: its query rows
+        (global positions from ``axis_index * sq``) against every key
+        position, (H, sq, n * sq), the ring's layout."""
+        if self.rel_bias is None:
+            return None
+        from ..parallel.collectives import axis_index, axis_size
+
+        n, idx = axis_size(self.cfg.sp_axis), axis_index(self.cfg.sp_axis)
+        s, dev = n * sq, self.rel_bias.weight.device
+        buckets, max_dist, bidirectional = self._bucket_cfg()
+        ids = rel_bucket_ids(s, s, bidirectional=bidirectional, buckets=buckets,
+                             max_dist=max_dist, device=dev)
+        rows = idx * sq + torch.arange(sq, device=dev)
+        rel = torch.arange(s, device=dev)[None, :] - rows[:, None] + (s - 1)
+        return self.rel_bias(ids.long()[rel]).permute(2, 0, 1).contiguous()
+
     def forward(self, x, kv=None, causal: bool = False, bias=None):
         cfg = self.cfg
-        if cfg.sp_axis is not None:
-            _unported("sequence parallelism (sp_axis)")
         b, sq, _ = x.shape
         is_self = kv is None
         kv = x if kv is None else kv
@@ -131,6 +156,15 @@ class T5Attention(tnn.Module):
         q = self.q(x).reshape(b, sq, cfg.n_heads, cfg.d_kv)
         k = self.k(kv).reshape(b, skv, cfg.n_heads, cfg.d_kv)
         v = self.v(kv).reshape(b, skv, cfg.n_heads, cfg.d_kv)
+        if cfg.sp_axis is not None:
+            # self-attention: the ring with this rank's bias rows (layer 0
+            # makes them, the stack shares them); cross-attention: a
+            # non-causal ring over the encoder's key shards
+            if is_self and bias is None:
+                bias = self._bias_sp(sq)
+            out = sp_attention(q, k, v, axis=cfg.sp_axis, causal=causal, scale=1.0,
+                               bias=bias if is_self else None, use_flash=cfg.use_flash)
+            return self.o(out.reshape(b, sq, cfg.n_heads * cfg.d_kv)), bias
         use_flash = is_self and resolve_use_flash(cfg.use_flash, x.device)
         if use_flash and cfg.flash_bucket_bias:
             # the shared "bias" is the (H, buckets) TABLE in this mode:

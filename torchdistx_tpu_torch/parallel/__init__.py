@@ -3,12 +3,13 @@
 ranks with one process group per axis (``mesh``), collectives over mesh
 axes (``collectives``), gradient comm hooks (``comm_hooks``, and
 GossipGraD's in ``gossip_grad``; SlowMo's is in ``torchdistx_tpu_torch.
-slowmo``) and the FSDP-style sharded train step (``fsdp``, with divergent
-replicas).
+slowmo``), the FSDP-style sharded train step (``fsdp``, with divergent
+replicas), sharding plans with ZeRO-2 (``plan``), tensor and expert
+parallelism (``tp``), pipeline parallelism (``pp``) and moving live state
+between meshes (``reshard``, behind ``Trainer.reshard``).
 
 NCCL on the card, ``gloo`` when the caller asks for the CPU (or for
-several ranks on one card).  Tensor, pipeline and planned parallelism and
-resharding are not ported yet.
+several ranks on one card).
 """
 
 from . import collectives
@@ -27,9 +28,29 @@ from .gossip_grad import (
     get_num_modules,
     gossip_grad_hook,
 )
-from .mesh import Mesh, NamedSharding, create_mesh, hierarchical_mesh, mesh_sharding, replicated
+from .mesh import (
+    AbstractMesh,
+    Mesh,
+    NamedSharding,
+    create_mesh,
+    hierarchical_mesh,
+    mesh_sharding,
+    replicated,
+)
 from .multihost import init_multihost, is_multihost, process_count, process_index
 from .plan import PlanError, ShardingPlan, derive_optimizer_state_shardings, tree_path_str
+from .pp import pipeline_apply, pipeline_train_step, split_microbatches, stack_pipeline_stages
+from .reshard import (
+    can_reshard_live,
+    devices_hold_full_copy,
+    plan_reshard,
+    plan_transition_wire_bytes,
+    reshard,
+    reshard_to_plan,
+    reshard_via_checkpoint,
+    reshard_wire_bytes,
+    split_counts,
+)
 from .tp import GSPMDTrainStep, llama_tp_plan, llama_tp_rule, shard_params, tp_shard_rule
 
 __all__ = [
@@ -57,6 +78,7 @@ __all__ = [
     "gossip_grad_hook",
     "get_num_modules",
     "INVALID_PEER",
+    "AbstractMesh",
     "Mesh",
     "NamedSharding",
     "create_mesh",
@@ -67,4 +89,17 @@ __all__ = [
     "is_multihost",
     "process_index",
     "process_count",
+    "stack_pipeline_stages",
+    "split_microbatches",
+    "pipeline_apply",
+    "pipeline_train_step",
+    "plan_reshard",
+    "plan_transition_wire_bytes",
+    "split_counts",
+    "reshard",
+    "reshard_to_plan",
+    "reshard_wire_bytes",
+    "devices_hold_full_copy",
+    "can_reshard_live",
+    "reshard_via_checkpoint",
 ]

@@ -31,7 +31,9 @@ refuses two ranks on one device); on NCCL nothing is staged.
 
 ``payload_bytes`` counts, by kind, the bytes each rank hands to the
 reductions, gathers, scatters and all-to-alls over axes of size > 1 (an
-input's bytes once a call); a caller zeroes it to read a window.
+input's bytes once a call), and under ``"pipe"`` the bytes it sends to a
+pipeline neighbour (``parallel.pp``); a caller zeroes it to read a
+window.
 """
 
 from __future__ import annotations
@@ -68,12 +70,39 @@ def _map(fn, tree: Any) -> Any:
     raise TypeError(f"collectives take tensors, lists, tuples and dicts, not {type(tree)}")
 
 
+def tree_flatten(tree: Any, is_leaf=None) -> tuple:
+    """``(leaves, unflatten)`` of a dict (sorted keys), list or tuple tree;
+    anything else, or a node ``is_leaf`` accepts, is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree], lambda leaves: leaves[0]
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k], is_leaf) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [tree_flatten(v, is_leaf) for v in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    counts = [len(p[0]) for p in parts]
+    leaves = [x for p in parts for x in p[0]]
+
+    def unflatten(flat):
+        out, i = [], 0
+        for (_, un), n in zip(parts, counts):
+            out.append(un(flat[i:i + n]))
+            i += n
+        return dict(zip(keys, out)) if keys is not None else type(tree)(out)
+
+    return leaves, unflatten
+
+
 def _axes(axis) -> list:
     names = axis if isinstance(axis, tuple) and not isinstance(axis, Axis) else (axis,)
     return [resolve_axis(a) for a in names]
 
 
-payload_bytes = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0, "all_to_all": 0}
+payload_bytes = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0, "all_to_all": 0,
+                 "pipe": 0}
 
 
 def _count(kind: str, x: torch.Tensor) -> None:

@@ -298,10 +298,33 @@ class ShardedTrainStep(TrainStep):
             if ax not in self.replica_axes and ax != shard_axis))
         self._params = self.shard_params()
 
-    def param_spec(self, shape) -> tuple:
+    def param_spec(self, shape, mesh: Optional[Mesh] = None) -> tuple:
         if self.shard_axis is None:
             return ()
-        return fsdp_partition_spec(tuple(shape), self.mesh, self.shard_axis)
+        return fsdp_partition_spec(tuple(shape), mesh or self.mesh, self.shard_axis)
+
+    def placement_on(self, mesh: Mesh) -> Callable[[str, Any], NamedSharding]:
+        """``(name, param) -> NamedSharding``: where this step would place a
+        parameter on ``mesh`` (``Trainer.reshard``'s targets)."""
+
+        def rule(name: str, p) -> NamedSharding:
+            found = sharding_of(p)
+            return NamedSharding(mesh, self.param_spec(found[1] if found else p.shape, mesh))
+
+        return rule
+
+    def with_mesh(self, mesh: Mesh) -> "ShardedTrainStep":
+        """This step's model, optimizer, loss, hook and settings over
+        ``mesh``; the parameters must already be placed there as
+        :meth:`placement_on` says (``Trainer.reshard`` places them)."""
+        step = type(self)(self.model, self.optimizer, self.loss_fn, mesh,
+                          shard_axis=self.shard_axis, replica_axes=self.replica_axes,
+                          comm_hook=self.comm_hook, hook_state=self.hook_state,
+                          batch_axes=self.batch_axes, batch_spec=self.batch_spec,
+                          accum_steps=self.accum_steps,
+                          divergent_replicas=self.divergent_replicas)
+        step.losses = self.losses
+        return step
 
     def shard_params(self) -> list:
         """Cut every full parameter of the model to this rank's shard (in

@@ -9,6 +9,14 @@ of size 1 has no group: every collective over it is the identity.  With
 no process group initialized the world is one rank, so a mesh of size-1
 axes works without one.
 
+A mesh may leave ranks of the world out (the survivors of a lost rank,
+``Trainer.reshard``).  ``new_group`` is collective over the whole world,
+so every rank builds every mesh, members or not: a rank outside the mesh
+passes ``member=False`` to take part in the groups and gets a mesh with
+no axes (``is_member`` False).  :class:`AbstractMesh` is a mesh's shape
+and rank layout without groups, for pricing a layout before committing to
+it (``parallel.reshard``'s closed forms).
+
 A ``Mesh`` is a context manager, as a JAX ``Mesh`` is: collectives
 (``parallel.collectives``) resolve an axis name through the innermost
 active mesh that has it.  The stack of active meshes is the process's,
@@ -36,6 +44,7 @@ from .multihost import process_count, process_index
 
 __all__ = [
     "Mesh",
+    "AbstractMesh",
     "NamedSharding",
     "create_mesh",
     "hierarchical_mesh",
@@ -65,17 +74,31 @@ class Axis(NamedTuple):
         return self.ranks[index]
 
 
-class Mesh:
+class AbstractMesh:
+    """A mesh's ``devices`` (ranks) and ``axis_names`` without process
+    groups: ``shape``, ``size`` and the rank layout, for arithmetic over
+    shardings."""
+
     def __init__(self, devices, axis_names: Sequence[str]):
         devices = np.asarray(devices, dtype=np.int64)
         if devices.ndim != len(axis_names):
             raise ValueError(f"devices of rank {devices.ndim} for axes {tuple(axis_names)}")
+        self.is_member = False
+        self.axes: dict = {}
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
         self.size = int(devices.size)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.shape})"
+
+
+class Mesh(AbstractMesh):
+    def __init__(self, devices, axis_names: Sequence[str], *, member: bool = True):
+        super().__init__(devices, axis_names)
+        devices = self.devices
         rank = process_index()
-        self.axes = {}
         for i, name in enumerate(self.axis_names):
             lines = np.moveaxis(devices, i, -1).reshape(-1, devices.shape[i])
             for line in lines:
@@ -83,11 +106,9 @@ class Mesh:
                 group = dist.new_group(list(ranks)) if len(ranks) > 1 else None
                 if rank in ranks:
                     self.axes[name] = Axis(name, len(ranks), ranks.index(rank), ranks, group)
-        if len(self.axes) != len(self.axis_names):
+        self.is_member = len(self.axes) == len(self.axis_names)
+        if member and not self.is_member:
             raise ValueError(f"rank {rank} is not in the mesh {devices.tolist()}")
-
-    def __repr__(self) -> str:
-        return f"Mesh({self.shape})"
 
     def __enter__(self) -> "Mesh":
         _ACTIVE.append(self)
@@ -146,10 +167,13 @@ class NamedSharding:
         return tuple(out)
 
 
-def create_mesh(axis_sizes: dict, *, devices: Optional[Sequence[int]] = None) -> Mesh:
+def create_mesh(axis_sizes: dict, *, devices: Optional[Sequence[int]] = None,
+                member: bool = True) -> Mesh:
     """A mesh from ``{axis_name: size}`` over ``devices`` (ranks; default
     every rank of the world).  One size of -1 takes the ranks left over,
-    like a reshape wildcard: ``create_mesh({"dp": -1, "sp": 4})``."""
+    like a reshape wildcard: ``create_mesh({"dp": -1, "sp": 4})``.  A rank
+    outside ``devices`` passes ``member=False`` (it still takes part in
+    making the groups)."""
     devs = list(devices) if devices is not None else list(range(process_count()))
     names, sizes = list(axis_sizes), list(axis_sizes.values())
     n = len(devs)
@@ -163,7 +187,7 @@ def create_mesh(axis_sizes: dict, *, devices: Optional[Sequence[int]] = None) ->
     total = math.prod(sizes)
     if total != n:
         raise ValueError(f"mesh {dict(zip(names, sizes))} wants {total} devices, have {n}")
-    return Mesh(np.array(devs).reshape(sizes), names)
+    return Mesh(np.array(devs).reshape(sizes), names, member=member)
 
 
 def hierarchical_mesh(num_nodes: int, *, devices: Optional[Sequence[int]] = None) -> Mesh:

@@ -14,17 +14,22 @@ every other placement is derived:
   full parameter to this rank's piece in place, and re-cuts one sharded
   another way);
 - optimizer-state shardings (:meth:`~ShardingPlan.optimizer_state_shardings`:
-  each slot shaped like its parameter inherits the parameter's rule);
+  each slot shaped like its parameter inherits the parameter's rule; with
+  ``zero2=True`` a slot whose parameter the plan replicates is sharded
+  over ``dp_axis`` by its own shape, the ZeRO-2 layout that
+  ``GSPMDTrainStep`` realizes);
 - the serve KV pool's layout, as a ``kv_cache`` pseudo-path rule
   (:meth:`~ShardingPlan.maybe_spec_for`).
 
 An eager step creates the optimizer's state from the rank's pieces and
 donates nothing, so the derived optimizer and carry shardings describe a
 layout that already holds (:meth:`~ShardingPlan.shardings_for` reports
-each tensor's own).  Not ported yet, and raising ``NotImplementedError``:
+each tensor's own).  ``zero2_participating_bytes`` is ZeRO-2's closed
+form, the bytes of the parameters whose update it shards (the step's
+all-gather payload).  Not ported yet, and raising ``NotImplementedError``:
 ``validate`` and the closed-form pricing (``price_step``,
 ``record_step_collectives``), which need ``obs/memory`` and ``obs/comm``
-(ROADMAP A.7), and ZeRO-2 (``zero2=True``, ROADMAP A.4.4).
+(ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -168,13 +173,19 @@ def place_params(params: Any, rule: Callable[[str, Any], NamedSharding]) -> Any:
 
 
 def _state_tree(state: Any, named: dict) -> dict:
-    """``{name: {slot: leaf}}`` of a torch optimizer (by parameter
-    identity), or ``state`` itself when it is already keyed by name."""
+    """``{name: (held, {slot: leaf})}`` of a torch optimizer (by the
+    identity of the tensor it holds: the parameter, or the slice a ZeRO-2
+    step gave it, which carries its parameter's path as ``_tdx_path``), or
+    of ``{name: {slot: leaf}}`` (held: the parameter)."""
     if hasattr(state, "state") and hasattr(state, "param_groups"):
         name_of = {id(p): n for n, p in named.items()}
-        return {name_of.get(id(p), str(i)): dict(s)
+        return {getattr(p, "_tdx_path", None) or name_of.get(id(p), str(i)): (p, dict(s))
                 for i, (p, s) in enumerate(state.state.items())}
-    return dict(state)
+    return {n: (named.get(n), dict(slots)) for n, slots in dict(state).items()}
+
+
+def _is_replicated(sh: NamedSharding) -> bool:
+    return not _spec_axes(sh.spec)
 
 
 def derive_optimizer_state_shardings(
@@ -182,27 +193,36 @@ def derive_optimizer_state_shardings(
     params: Any,
     mesh: Mesh,
     sharding_of: Callable[[str, Any], NamedSharding],
+    *,
+    replicated_override: Optional[Callable[[str, Any], NamedSharding]] = None,
 ) -> dict:
     """The optimizer-state sharding engine shared by the plan and
     ``fsdp.optimizer_state_shardings``.
 
     ``state`` is a torch optimizer or ``{param name: {slot: leaf}}``;
     ``params`` a module or ``{name: tensor}``.  A slot tensor shaped like
-    its parameter (the rank's piece of it) inherits ``sharding_of(name,
-    param)``; every other leaf (step counts, factored or blockwise slots,
-    entries of no parameter) is replicated.  Returns ``{name: {slot:
-    NamedSharding}}``."""
+    the tensor the optimizer holds for a parameter (its piece, or a ZeRO-2
+    slice of it) inherits ``sharding_of(name, param)``; every other leaf
+    (step counts, blockwise slots, entries of no parameter) is replicated.
+    ``replicated_override(name, param)``, when given, replaces the
+    replicated sharding of a param-shaped slot whose parameter is
+    replicated: the ZeRO-2 hook (the slot is sharded over ``dp`` by the
+    parameter's own shape).  The 8-bit AdamW's blockwise codes stay
+    replicated under it, as the JAX package's flat code lists do.  Returns
+    ``{name: {slot: NamedSharding}}``."""
     repl = NamedSharding(mesh, ())
     named = _named(params)
     out = {}
-    for name, slots in _state_tree(state, named).items():
+    for name, (held, slots) in _state_tree(state, named).items():
         p = named.get(name)
         row = {}
         for slot, leaf in slots.items():
             sh = repl
-            if (p is not None and isinstance(leaf, torch.Tensor)
-                    and tuple(leaf.shape) == tuple(p.shape)):
+            if (p is not None and isinstance(leaf, torch.Tensor) and held is not None
+                    and tuple(leaf.shape) == tuple(held.shape)):
                 sh = sharding_of(name, p)
+                if replicated_override is not None and _is_replicated(sh):
+                    sh = replicated_override(name, p)
             row[slot] = sh
         out[name] = row
     return out
@@ -220,10 +240,14 @@ class ShardingPlan:
       default_axis: placement of paths no rule matches: None replicates
         them, a mesh axis name FSDP-shards them on their first divisible
         dim (``fsdp_partition_spec``, honoring ``min_shard_elems``).
-      dp_axis: the data-parallel axis ZeRO-2 would shard updates over.
-      zero2: not ported yet (ROADMAP A.4.4): True raises.
+      dp_axis: the data-parallel axis ZeRO-2 shards updates over.
+      zero2: when True, optimizer slots whose parameter the plan replicates
+        are sharded over ``dp_axis`` by the parameter's own shape
+        (``fsdp_partition_spec``), and ``GSPMDTrainStep`` updates each
+        rank's ``dp`` slice of such a parameter and all-gathers the result
+        (ZeRO-2, arXiv:1910.02054); the parameters stay replicated.
       min_shard_elems: tensors smaller than this stay replicated on the
-        ``default_axis`` path.
+        ``default_axis`` and ZeRO-2 paths.
       tp_groups: the model's Megatron sub-layers (``parallel.tp.TPGroup``),
         which ``GSPMDTrainStep`` runs on their local shards; a model-specific
         plan (``llama_tp_plan``) declares them.  Not in the JAX plan, whose
@@ -256,9 +280,6 @@ class ShardingPlan:
                         f"not in mesh axes {sorted(axis_names)}")
         if self.zero2 and self.dp_axis is None:
             raise PlanError("zero2=True requires dp_axis=")
-        if self.zero2:
-            raise NotImplementedError("ShardingPlan(zero2=True) is not ported yet "
-                                      "(ROADMAP A.4.4)")
 
     # -- constructors ------------------------------------------------------
 
@@ -320,11 +341,32 @@ class ShardingPlan:
         place, a ``{name: tensor}`` dict into a new dict."""
         return place_params(params, self.sharding_for)
 
+    def zero2_sharding(self, path: str, like: Any) -> Optional[NamedSharding]:
+        """The ``dp`` sharding of the update of parameter ``path`` under
+        ZeRO-2: its own shape over ``dp_axis`` (``fsdp_partition_spec``,
+        honoring ``min_shard_elems``) when the plan replicates it and that
+        cuts it; else None (the update is not sharded)."""
+        if not self.zero2:
+            return None
+        shape = _global_shape(like)
+        if _spec_axes(self.spec_for(path, shape)):
+            return None  # the plan shards the parameter itself
+        spec = fsdp_partition_spec(shape, self.mesh, self.dp_axis, self.min_shard_elems)
+        return NamedSharding(self.mesh, spec) if _spec_axes(spec) else None
+
     def optimizer_state_shardings(self, state: Any, params: Any) -> dict:
         """``{name: {slot: NamedSharding}}`` derived from the rules: slots
-        shaped like their parameter take its rule, the rest replicate."""
-        return derive_optimizer_state_shardings(state, params, self.mesh,
-                                                lambda path, t: self.sharding_for(path, t))
+        shaped like their parameter take its rule, the rest replicate; with
+        ``zero2=True`` a slot of a parameter the plan replicates is sharded
+        over ``dp_axis`` by its own shape."""
+        override = None
+        if self.zero2:
+            def override(path: str, p: Any) -> NamedSharding:
+                return self.zero2_sharding(path, p) or NamedSharding(self.mesh, ())
+
+        return derive_optimizer_state_shardings(
+            state, params, self.mesh, lambda path, t: self.sharding_for(path, t),
+            replicated_override=override)
 
     def shardings_for(self, *trees: Any) -> tuple:
         """Each tensor's own sharding (``fsdp.donated_carry_shardings``):
@@ -346,6 +388,14 @@ class ShardingPlan:
         """Closed-form parameter bytes a rank holds under the plan."""
         return sum(_leaf_bytes(t) // self._num_shards(self.spec_for(name, _global_shape(t)))
                    for name, t in _named(params).items())
+
+    def zero2_participating_bytes(self, params: Any) -> int:
+        """Bytes of the parameters whose update ZeRO-2 shards (the plan
+        replicates them, and their own shape cuts over ``dp_axis`` above
+        ``min_shard_elems``): the step's all-gather payload.  0 without
+        ``zero2``."""
+        return sum(_leaf_bytes(t) for name, t in _named(params).items()
+                   if self.zero2_sharding(name, t) is not None)
 
     def price_step(self, params: Any) -> list:
         raise NotImplementedError("ShardingPlan.price_step needs obs/comm, not ported "

@@ -34,6 +34,20 @@ parameter's sharding (``parallel.mesh.sharding_of``, set by
   ranks' batches), and keeps the rank's slice over any other (its ranks
   computed the same gradient).  Correct for every plan, no saving.
 
+With a ``ShardingPlan(zero2=True)`` the step is ZeRO-2 (arXiv:1910.02054):
+the parameters the plan replicates stay replicated, their gradients are
+mean-reduced over ``dp`` as in the replicated step, and each rank updates
+only its ``dp`` slice of each (``plan.zero2_sharding``), with its slice of
+the optimizer's slots; the updated slices are all-gathered over ``dp``
+and written back into the parameters in place.  ``torch.optim`` keys its
+state by tensor, so the optimizer is handed the rank's slice tensors in
+place of those parameters (each slice an ``nn.Parameter`` marked with its
+``dp`` sharding and its parameter's path, ``_tdx_path``).  The update is
+elementwise, so the parameters are bit-equal to the replicated step's.
+The 8-bit AdamW's blockwise state does not slice along a parameter's
+rows; its parameters keep whole updates, as the JAX plan leaves that
+optimizer's flat code lists replicated.
+
 The batch is sharded by ``batch_spec``; the gradient of a parameter is then
 the mean over each batch axis its own spec does not name, and the loss the
 mean over the batch axes.  The loss is each rank's ``loss_fn`` on its
@@ -229,7 +243,10 @@ class GSPMDTrainStep(TrainStep):
     (``fsdp.accumulate_grads``); ``plan``, a :class:`~.plan.ShardingPlan`
     applied to the model first (full parameters cut, others re-cut where
     they differ), so the parameters take and keep its shardings.  Without
-    a plan each parameter keeps its own (unmarked: replicated).
+    a plan each parameter keeps its own (unmarked: replicated).  A plan
+    with ``zero2=True`` makes the step ZeRO-2 (module docstring): build the
+    optimizer over the model's parameters, and the step hands it the
+    rank's slices.
 
     The batch is the global batch, the same on every rank, and each rank
     takes its piece; a batch tensor that carries a sharding
@@ -266,6 +283,64 @@ class GSPMDTrainStep(TrainStep):
                 raise ValueError(f"{name} is sharded over another mesh")
             self._params.append(_Param(name, p, *found))
         self._forwards = self._local_forwards()
+        self._zero2 = self._zero2_slices() if plan is not None and plan.zero2 else {}
+
+    def with_mesh(self, mesh: Mesh) -> "GSPMDTrainStep":
+        """This step's model, optimizer, loss and settings over ``mesh``
+        (the plan's rules over it, ``plan.with_mesh``): the elastic
+        rebuild of ``Trainer.reshard``.  The parameters must already be
+        placed on ``mesh`` as the new plan places them."""
+        plan = self.plan.with_mesh(mesh) if self.plan is not None else None
+        step = type(self)(self.model, self.optimizer, self.loss_fn, mesh,
+                          batch_spec=self.batch_spec, accum_steps=self.accum_steps, plan=plan)
+        step.losses = self.losses
+        return step
+
+    def placement_on(self, mesh: Mesh) -> Callable[[str, Any], NamedSharding]:
+        """``(name, param) -> NamedSharding``: the plan's placement over
+        ``mesh`` (``plan.with_mesh``), or each parameter's own spec there
+        without a plan (``Trainer.reshard``'s targets)."""
+        if self.plan is not None:
+            return self.plan.with_mesh(mesh).sharding_for
+        specs = {q.name: q.sharding.spec for q in self._params}
+        return lambda name, p: NamedSharding(mesh, specs[name])
+
+    # -- ZeRO-2 --------------------------------------------------------------
+
+    def _zero2_slices(self) -> dict:
+        """``{_Param: (slice, its slices, its sharding)}``: each replicated
+        parameter whose update the plan shards gets a slice tensor (this
+        rank's ``dp`` piece), which replaces the parameter in the optimizer
+        (its state, if any, cut alike).  Empty for the 8-bit AdamW (module
+        docstring)."""
+        from ..optimizers.quantized import AdamW8bit
+
+        opt = self.optimizer
+        if isinstance(opt, AdamW8bit):
+            return {}
+        out = {}
+        for q in self._params:
+            sh = self.plan.zero2_sharding(q.name, q.p) if q.p.requires_grad else None
+            if sh is None:
+                continue
+            cut = sh.shard_slices(q.shape)
+            piece = nn.Parameter(q.p.detach()[cut].clone())
+            mark_sharded(piece, sh, q.shape)
+            piece._tdx_path = q.name
+            for group in opt.param_groups:
+                group["params"] = [piece if t is q.p else t for t in group["params"]]
+            if q.p in opt.state:
+                opt.state[piece] = {k: v[cut].clone() if isinstance(v, torch.Tensor)
+                                    and v.shape == q.p.shape else v
+                                    for k, v in opt.state.pop(q.p).items()}
+            out[q] = (piece, cut, sh)
+        return out
+
+    def _zero2_gather(self) -> None:
+        """The updated slices all-gathered over ``dp`` into the parameters."""
+        with torch.no_grad():
+            for q, (piece, _, sh) in self._zero2.items():
+                q.p.copy_(gather_full(piece, sh))
 
     # -- the layout --------------------------------------------------------
 
@@ -429,7 +504,11 @@ class GSPMDTrainStep(TrainStep):
             for q, g in zip(trained, grads):
                 axes = tuple(ax for ax in self.batch_axes if ax not in _spec_axes(q.spec()))
                 q.p.grad = collectives.all_mean(g, axes) if axes else g
+                if q in self._zero2:
+                    piece, cut, _ = self._zero2[q]
+                    piece.grad = q.p.grad[cut].contiguous()
             opt_state.step()
+            self._zero2_gather()
             if self.batch_axes:
                 loss = collectives.all_mean(loss, self.batch_axes)
         self.losses.append(loss)

@@ -23,14 +23,15 @@ into ``checkpoint_dir/step_<n>``, and ``save()`` / ``restore()`` by hand;
 the module and the optimizer are saved as their state dicts and restored
 in place.  Failures (``utils/failure.py``): with a ``failure_detector``,
 each log boundary checks the loss (and the window against a deadline);
-``on_failure`` is ``"raise"``, ``"continue"`` (log only) or ``"restore"``
-(roll back to the latest checkpoint and go on), and the log gets
-``{"step", "failure", "action", "resumed_from"}``.  The health gate: no
-checkpoint is written at a non-finite loss while a detector is set, so a
-poisoned state never becomes the rollback target.  The flight recorder,
-the session black box, the stall watchdog, cost cards and resharding
-(``on_failure="reshard"``) are not ported yet: their arguments raise
-``NotImplementedError``.
+``on_failure`` is ``"raise"``, ``"continue"`` (log only), ``"restore"``
+(roll back to the latest checkpoint and go on) or ``"reshard"`` (a
+``device_loss`` shrinks the mesh and moves the state onto the survivors,
+:meth:`Trainer.reshard`; any other failure rolls back as ``"restore"``),
+and the log gets ``{"step", "failure", "action", "resumed_from"}``.  The
+health gate: no checkpoint is written at a non-finite loss while a
+detector is set, so a poisoned state never becomes the rollback target.
+The flight recorder, the session black box, the stall watchdog and cost
+cards are not ported yet: their arguments raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -104,9 +105,7 @@ class Trainer:
         for name, val in unported.items():
             if val is not None:
                 raise NotImplementedError(f"Trainer({name}=...) is not ported yet")
-        if on_failure == "reshard":
-            raise NotImplementedError('on_failure="reshard" is not ported yet')
-        if on_failure not in ("raise", "continue", "restore"):
+        if on_failure not in ("raise", "continue", "restore", "reshard"):
             raise ValueError(f"unknown failure policy {on_failure!r}")
         if isinstance(step, TrainStep):
             params = step.model if params is None else params
@@ -127,6 +126,9 @@ class Trainer:
         self._history: list = []
         self._last_checkpoint: Optional[str] = None
         self._warmed = False
+        self._t_reshard = 0.0  # seconds spent moving state onto a shrunk mesh
+        self.last_reshard: Optional[dict] = None
+        self.departed = False  # this rank was lost and has left the mesh
         self.metrics: dict = {
             "steps_total": 0,
             "tokens_total": 0,
@@ -159,8 +161,110 @@ class Trainer:
         self.params, self.opt_state = out["params"], out["opt_state"]
         self.global_step = int(out["global_step"])
 
-    def reshard(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.reshard is not ported yet")
+    # -- elastic resharding ------------------------------------------------
+
+    @staticmethod
+    def _shrunk_mesh(mesh, n_lost: int):
+        """The surviving mesh after losing the LAST ``n_lost`` ranks of
+        ``mesh``'s flat order (the injection contract; a real loss would
+        pass the survivors' mesh to :meth:`reshard`): the survivors are the
+        first ranks, and the shrink factor is taken by the outermost axis
+        that divides it, so ``{"dp": 2, "fsdp": 2}`` losing a replica
+        becomes ``{"dp": 1, "fsdp": 2}`` and ``{"fsdp": 4}`` losing two
+        ``{"fsdp": 2}``.  Building a mesh makes process groups, which is
+        collective over the world: every rank calls it, the lost ones
+        too (they get a mesh they are not a member of)."""
+        import numpy as np
+
+        from .parallel.mesh import Mesh
+
+        devices = [int(r) for r in np.asarray(mesh.devices).flat]
+        n_surv = len(devices) - int(n_lost)
+        if n_surv < 1 or len(devices) % n_surv != 0:
+            raise StepFailure("device_loss", f"cannot shrink a {len(devices)}-rank mesh to "
+                              f"{n_surv} survivors (need a divisor)")
+        factor = len(devices) // n_surv
+        shape = {ax: int(mesh.shape[ax]) for ax in mesh.axis_names}
+        for ax in shape:
+            if shape[ax] % factor == 0:
+                shape[ax] //= factor
+                break
+        else:
+            raise StepFailure("device_loss", f"no mesh axis of {shape} divides the shrink "
+                              f"factor {factor}")
+        arr = np.asarray(devices[:n_surv]).reshape(tuple(shape.values()))
+        return Mesh(arr, tuple(shape), member=False)
+
+    def reshard(self, failure: Any = None, *, mesh: Any = None) -> str:
+        """Elastic recovery: move the parameters and the optimizer's state
+        onto a shrunk mesh and rebuild the step there (the
+        ``on_failure="reshard"`` leg of the failure policy).
+
+        ``mesh`` defaults to :meth:`_shrunk_mesh` of the step's mesh by
+        ``failure.n_lost`` ranks.  The step must have ``mesh``,
+        ``placement_on`` and ``with_mesh`` (``ShardedTrainStep``,
+        ``GSPMDTrainStep``; a plan's rules carry over, ``plan.with_mesh``).
+        The state moves by ``parallel.reshard.reshard`` when the survivors
+        hold every piece (``can_reshard_live``: ``"live"``), else by the
+        checkpoint bounce (``"checkpoint"``: saved whole from the old mesh
+        under ``checkpoint_dir``, restored into the new placements).
+
+        The contract with the lost ranks, which this port only simulates:
+        every rank of the old mesh calls ``reshard`` at the same step (the
+        detector's injection is the same on every rank).  The lost ranks
+        take part in making the survivors' process groups (collective
+        over the world), in any gather of the live path and in the
+        bounce's save on the old mesh, then leave: ``departed`` becomes
+        True and ``fit`` returns.  The survivors go on with the new step.
+        The time spent goes into ``_t_reshard``; ``last_reshard`` records
+        the step, both mesh shapes, the mode, the closed-form wire bytes
+        (``reshard_wire_bytes``; the bounce's restore reads from the
+        checkpoint and moves none), the bytes the move handed to
+        collectives and the seconds.  Booking them into a comm audit and
+        the flight recorder waits for ``obs/comm`` and ``obs/flight``.
+        Returns the mode."""
+        from .parallel import collectives
+        from .parallel.reshard import (can_reshard_live, optimizer_state_tree, reshard,
+                                       reshard_via_checkpoint, reshard_wire_bytes,
+                                       state_targets, write_back)
+
+        step = self.step
+        old_mesh = getattr(step, "mesh", None)
+        kind = getattr(failure, "kind", "device_loss")
+        if old_mesh is None or not hasattr(step, "with_mesh"):
+            raise StepFailure(kind, f"{failure} (and the step carries no mesh to reshard)")
+        if getattr(step, "_zero2", None):
+            raise NotImplementedError("resharding a ZeRO-2 step is not ported yet "
+                                      "(ROADMAP A.4.6)")
+        if mesh is None:
+            mesh = self._shrunk_mesh(old_mesh, getattr(failure, "n_lost", None) or 1)
+        t0 = time.perf_counter()
+        sent = dict(collectives.payload_bytes)
+        model, opt = step.model, step.optimizer
+        tree = {"params": dict(model.named_parameters()),
+                "opt_state": optimizer_state_tree(opt, model)}
+        targets = state_targets(tree, step.placement_on(mesh))
+        live = can_reshard_live(tree, mesh)
+        wire = reshard_wire_bytes(tree, targets) if live else 0
+        if live:
+            new = reshard(tree, targets)
+        else:
+            path = os.path.join(self.checkpoint_dir or ".", f"reshard_{self.global_step}")
+            new = reshard_via_checkpoint(tree, path, targets)
+        if mesh.is_member:
+            write_back(model, opt, new)
+            self.step = step.with_mesh(mesh)
+        else:
+            self.departed = True
+        dt = time.perf_counter() - t0
+        self._t_reshard += dt
+        mode = "live" if live else "checkpoint"
+        self.last_reshard = {
+            "step": self.global_step, "mesh_from": dict(old_mesh.shape),
+            "mesh_to": dict(mesh.shape), "mode": mode, "wire_bytes": wire,
+            "payload_bytes": {k: v - sent[k] for k, v in collectives.payload_bytes.items()},
+            "seconds": dt, "departed": self.departed}
+        return mode
 
     def _update_derived_metrics(self) -> None:
         sps = self.metrics["steps_per_sec"]
@@ -172,13 +276,14 @@ class Trainer:
 
     def fit(self, batches: Iterable[Any], num_steps: Optional[int] = None) -> dict:
         """Run until ``global_step`` reaches ``num_steps`` (or the batches
-        run out).  Returns ``{"step", "loss"}``."""
+        run out, or this rank leaves a shrinking mesh: ``departed``).
+        Returns ``{"step", "loss"}``."""
         t_window = time.perf_counter()
         window_steps = 0
         warmup_pending = not self._warmed
         loss = None
         it = iter(batches)
-        while num_steps is None or self.global_step < num_steps:
+        while (num_steps is None or self.global_step < num_steps) and not self.departed:
             try:
                 batch = next(it)
             except StopIteration:

@@ -20,8 +20,17 @@ trains BASELINE config 5 on one card.  ``flops_per_token`` keeps the JAX
 formula, which counts every causal pair and so overcounts a windowed
 model's attention.  The workload also reports the process's host RSS
 before deferred init, its peak over deferred init and materialize, and
-the growth (GB; sampled, see :class:`_PeakRss`).  The ZeRO-2 plan and the numerics taps
-are not ported yet and raise.
+the growth (GB; sampled, see :class:`_PeakRss`).  ``zero2=True`` trains
+the JAX workload's ZeRO-2 arm: ``ShardingPlan(mesh, dp_axis="dp",
+zero2=True, min_shard_elems=1)`` on ``{"dp": world}`` (every rank of the
+process group; a ``ValueError`` below two), the batch replicated, through
+``GSPMDTrainStep``: parameters replicated, each rank updating its ``dp``
+slice with its slice of the optimizer state.  The dict then also holds
+``plan``, ``zero2_dp``, ``zero2_participating_bytes`` and
+``optimizer_bytes()``, which returns ``(bytes of the whole state, bytes
+this rank holds)`` once a step has made the state.  The JAX dict's
+``zero2_step_wire_bytes`` needs ``obs/comm`` (ROADMAP A.7).  The numerics
+taps are not ported yet and raise.
 
 The T5 workload is the JAX script's step: ``deferred_init`` of
 ``T5.from_name(name, use_flash=True)``, ``materialize_module``,
@@ -55,7 +64,8 @@ import torch
 
 from ..optimizers import AnyPrecisionAdamW, adamw_8bit
 
-__all__ = ["build_train_workload", "build_t5_train_workload", "build_vision_train_workload"]
+__all__ = ["build_train_workload", "build_t5_train_workload", "build_vision_train_workload",
+           "optimizer_bytes"]
 
 _RSS_INTERVAL_S = 0.005  # host RSS sampling period over deferred init
 
@@ -87,9 +97,8 @@ def build_train_workload(
     if optimizer not in _OPTIMIZERS:
         raise ValueError(f"optimizer must be one of {sorted(_OPTIMIZERS)}, "
                          f"got {optimizer!r}")
-    for flag, what in ((zero2, "the ZeRO-2 plan"), (numerics, "numerics taps")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if numerics:
+        raise NotImplementedError("numerics taps are not ported yet")
     if remat_policy != "full" and not remat:
         raise ValueError("remat_policy has no effect without remat=True")
 
@@ -120,9 +129,54 @@ def build_train_workload(
     # model FLOPs per token: 6N for the forward and backward matmuls plus
     # the attention term 12 * L * dim * seq (PaLM appendix convention)
     flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.dim * seq
+    extra, make_step = {}, None
+    if zero2:
+        extra, make_step = _zero2_arm(model)
     return _workload(model, loss_fn, (tokens, labels), name, batch, seq, n_params,
-                     flops_per_token, init_s, optimizer, remat=remat,
-                     remat_policy=remat_policy, fused_ce=fused_ce)
+                     flops_per_token, init_s, optimizer, make_step=make_step,
+                     remat=remat, remat_policy=remat_policy, fused_ce=fused_ce,
+                     zero2=zero2, **extra)
+
+
+def _zero2_arm(model):
+    """The ZeRO-2 plan over every rank and the step that realizes it."""
+    from ..parallel import GSPMDTrainStep, ShardingPlan, create_mesh
+    from ..parallel.multihost import process_count
+
+    world = process_count()
+    if world < 2:
+        raise ValueError(f"zero2=True needs a multi-rank mesh (have {world} rank(s))")
+    mesh = create_mesh({"dp": world})
+    plan = ShardingPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
+    extra = {"plan": f"zero2(dp={world})", "zero2_dp": world,
+             "zero2_participating_bytes": plan.zero2_participating_bytes(model)}
+
+    def make_step(opt, loss_fn):
+        return (GSPMDTrainStep(model, opt, loss_fn, mesh, plan=plan),
+                lambda: optimizer_bytes(opt))
+
+    return extra, make_step
+
+
+def optimizer_bytes(opt) -> tuple:
+    """``(bytes of the whole state, bytes this rank holds)`` of a torch
+    optimizer's state tensors: a tensor marked as a piece
+    (``parallel.mesh.sharding_of``, or the slot of such a held tensor)
+    counts its global shape in the first."""
+    from ..parallel.mesh import sharding_of
+
+    total = local = 0
+    for held, slots in opt.state.items():
+        found = sharding_of(held)
+        for t in slots.values():
+            if not isinstance(t, torch.Tensor):
+                continue
+            n = t.numel() * t.element_size()
+            local += n
+            if found is not None and t.shape == held.shape:
+                n = int(np.prod(found[1])) * t.element_size()
+            total += n
+    return total, local
 
 
 def build_t5_train_workload(
@@ -310,11 +364,14 @@ _OPTIMIZERS = {
 
 
 def _workload(model, loss_fn, batch_data, name, batch, seq, n_params,
-              flops_per_token, init_s, optimizer, **flags):
+              flops_per_token, init_s, optimizer, make_step=None, **flags):
     from ..trainer import Trainer, TrainStep
 
     opt = _OPTIMIZERS[optimizer](model.parameters())
-    step = TrainStep(model, opt, loss_fn)
+    if make_step is None:
+        step = TrainStep(model, opt, loss_fn)
+    else:
+        step, flags["optimizer_bytes"] = make_step(opt, loss_fn)
     trainer = Trainer(step, tokens_per_batch=batch * seq, log_every=1,
                       log_fn=lambda m: None, flops_per_token=flops_per_token)
 

@@ -20,9 +20,9 @@ layers, as in the JAX package:
 Trainer policies (``on_failure``): ``"raise"`` stops the run,
 ``"restore"`` rolls back to the latest health-gated checkpoint and goes
 on, ``"continue"`` only logs (pair it with :func:`guard_nonfinite_updates`
-if the update itself must be suppressed).  ``"reshard"`` raises
-``NotImplementedError``: it needs the elastic mesh, which the port has not
-got yet.
+if the update itself must be suppressed), ``"reshard"`` sends a
+``device_loss`` to ``trainer.reshard(failure)`` (the mesh shrinks onto the
+survivors) and rolls any other failure back as ``"restore"`` does.
 """
 
 from __future__ import annotations
@@ -346,7 +346,9 @@ def apply_failure_policy(
 
     Returns the action taken: "raise" never returns, "continue" keeps
     current state (log-only), "restore" rolled back to the latest
-    health-gated checkpoint.  Handled failures reset the detector's
+    health-gated checkpoint, "resharded" moved the state onto the
+    survivors of a device loss (``policy="reshard"``; other failures fall
+    back to the restore path).  Handled failures reset the detector's
     transient counters so its tolerance applies afresh.
     """
     if policy == "raise":
@@ -357,8 +359,14 @@ def apply_failure_policy(
             det.reset()
         return "continued"
     if policy == "reshard":
-        raise NotImplementedError(
-            'on_failure="reshard" is not ported yet (it needs the elastic mesh)')
+        if failure.kind == "device_loss" and hasattr(trainer, "reshard"):
+            trainer.reshard(failure)
+            if det is not None:
+                det.reset()
+            return "resharded"
+        # a failure that is not a lost device means the state is suspect,
+        # not the mesh: roll back as "restore" does
+        policy = "restore"
     if policy == "restore":
         if not getattr(trainer, "_last_checkpoint", None):
             raise StepFailure(
