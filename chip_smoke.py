@@ -48,6 +48,7 @@ Phases, each fatal:
    (d) paged + speculate 4 + int8 (the cache at most 0.53 of the bf16
    one), persistent equal to chunked, and each remaining decode variant's
    engine alone; so all four decode kernels also launch from a graph;
+   then phase 29 on the same model (below);
 4. hold the flash backward kernels (``flash_bwd_dkv``, its delta
    pre-pass ``flash_bwd_delta``, ``flash_bwd_dq``) and the forward's
    ``lse`` variant (its output and its lse) against their plain versions,
@@ -273,7 +274,32 @@ Phases, each fatal:
 28. ViT-B/16 the same way: f32 deferred init and materialize (86,567,656
    parameters), the eval forward against the CPU at batch 2, bf16 training
    at 64 x 224 x 224 (3 x 35.1e9 FLOPs an image), one profiled step; its
-   attention is the plain einsum path, as in the JAX package.
+   attention is the plain einsum path, as in the JAX package;
+29. in phase 3's process, on its full-width llama3_8b, with the cost cards
+   on and buckets (64, 512, 2048): (a) chunked prefill, 8 slots x 2048,
+   slab and paged, persistent with an 8-row ring, ``chunked_prefill=512``:
+   4 short requests decoding, then 4 prompts of 1200-1536 tokens and 4
+   more short ones; gated on 4 chunked prefills,
+   decode dispatches between chunks, the flash launches equal to the
+   layers times the cold prefills and first chunks, the mid-cache chunks
+   on the plain path, and the long prompt's last logits chunked against
+   one unchunked prefill (CHUNK_LOGITS_RTOL); the share of streams equal
+   to an unchunked engine's printed; (b) the paged engine's
+   ``memory_plan()`` (weights and KV exact, ``program_temp`` from the
+   cards), a budget one byte short refusing with ``why == "hbm_budget"``,
+   the raised budget admitting on the next step; (c) 16 greedy requests of
+   the ``diurnal`` catalog scenario (64 new tokens, in waves by arrival
+   tick) through three paged persistent replicas behind
+   ``AffinityPolicy`` (the busiest removed in the last wave: no drop), a
+   warmed replica added (its program count unmoved by routed traffic),
+   then one prefill replica and two persistent decode replicas (one
+   graph capture each, replays equal to loop iterations), every stream
+   bit for bit against one engine of the same geometry, every handoff
+   moving pages over zero wire; (d) ``migrate_to`` an engine of 5 slots (the share of streams
+   equal to an undrained run printed); (e) ``AutoscaleController`` with
+   ``LoadSignal`` over a cut flash crowd, twice: identical decisions, no
+   drop, a scale-up; every part's launches counted, and no cost-card
+   probe failed.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
 dQ variant and per decode variant, phase 7 one per fused CE kernel and
@@ -284,14 +310,17 @@ shapes; phases 22-23 one ``train slowmo llama_1b`` line and one
 ``gossip``/``slowmo``/``tp llama_1b``/``ep mixtral_8x7b``/``sp gpt2_large``/``sp
 t5_3b``/``pp llama_1b``/``zero2 llama_1b``/``reshard llama_1b`` line per rank,
 phase 25 ``train llama2_7b config 5`` and ``train mixtral_8x7b``, phase 26 ``checkpoint and failure llama_1b``, phases 27-28 ``train
-resnet50 config 2`` and ``train vit_b16``.  Each phase's start
+resnet50 config 2`` and ``train vit_b16``, phase 29 one line a part
+((a) to (e): requests, tokens/s, TTFT p50, counters, launches) and
+``serve fleet launches``.  Each phase's start
 second is printed (``phase start``).  It prints the card's name and power limit, one ``{"kernels":
 [...]}`` line and, last, ``{"ok": true, "device": {...}}``.  In the kernels
 line each flash and fused-CE entry's ``launches`` counts phase 25b's
 timed Mixtral steps among the training runs (also apart, as
 ``launches_mixtral_train``), ``launches_tp_ep_ranks`` gives each
-rank's launches in phase 23 (c) and (d), and ``launches_parallel_ranks``
-in (e)-(i).  Without a CUDA device, or
+rank's launches in phase 23 (c) and (d), ``launches_parallel_ranks``
+in (e)-(i), and the flash forward's and the decode kernels'
+``launches_serving_fleet`` phase 29's (also in ``launches``).  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
 """
@@ -413,6 +442,9 @@ BIAS_GRAD_TOL = 2e-2
 T5_BATCH, T5_SEQ = 4, 512
 T5_TRAIN_LAYERS = 8
 # engine counters a serve run reports
+# the serve runs before phase 29 read the allocator's peak across a whole
+# run, and a cost card's probe resets it at a program's first dispatch: those
+# engines run with cost_cards=False (phase 29's with the cards on)
 SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
                   "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
                   "draft_tokens_accepted", "host_syncs", "ring_drains",
@@ -1137,7 +1169,8 @@ def serve(torch, model, requests, num_slots, max_len, expect_kernels=True,
     from torchdistx_tpu_torch.serve import ServeEngine
 
     failures = []
-    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, **engine_kw)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False,
+                         **engine_kw)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1264,7 +1297,8 @@ def profile_decode(torch, model, requests, num_slots, max_len, **engine_kw):
 
     if engine_kw.get("decode_mode") == "persistent":
         engine_kw = dict(engine_kw, ring_capacity=PROFILE_RING)
-    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, **engine_kw)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False,
+                         **engine_kw)
     for r in requests:
         engine.submit(**r)
     counters = engine.metrics.counters
@@ -1415,7 +1449,8 @@ def serve_variants(torch, model, rng, num_slots=8, max_len=2048):
     failures, report = [], {}
 
     def engine(**kw):
-        return ServeEngine(model, num_slots=num_slots, max_len=max_len, **kw)
+        return ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False,
+                           **kw)
 
     # -- b. paged + prefix cache, bf16 ---------------------------------------
     reqs = prefix_share_requests(rng, vocab, n=num_slots, max_len=max_len)
@@ -1576,7 +1611,7 @@ def slot_independence(torch, model, requests, results, num_slots, max_len):
     from torchdistx_tpu_torch.serve import ServeEngine
 
     idx = max(i for i, r in enumerate(requests) if r["temperature"] == 0.0)
-    alone = ServeEngine(model, num_slots=num_slots, max_len=max_len).run(
+    alone = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False).run(
         [requests[idx]])[0]
     same = np.array_equal(np.asarray(alone.tokens), np.asarray(results[idx].tokens))
     return same, idx
@@ -2669,7 +2704,7 @@ def serve_mistral(torch, tt, seed, num_slots=8, max_len=8192):
     model = tt.models.Llama.from_name("mistral_7b", dtype=torch.bfloat16, device="cuda")
     model.requires_grad_(False)
     requests = long_requests(np.random.RandomState(seed), model.cfg.vocab_size)
-    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     results, summary = run_engine(torch, engine, requests)
@@ -2840,7 +2875,7 @@ def serve_mixtral(torch, tt, seed, num_slots=8, max_len=4096):
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     requests = make_requests(np.random.RandomState(seed), model.cfg.vocab_size, n=8,
                              n_greedy=8, max_new=32)
-    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len)
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     results, summary = run_engine(torch, engine, requests)
@@ -4992,6 +5027,530 @@ def checkpoint_and_failure(torch, seed, name="llama_1b", n_layers=CKPT_LAYERS, b
     return info, failures
 
 
+# -- phase 29: chunked prefill, the HBM gate, the fleet, the autoscaler ----------
+# All on phase 3's full-width llama3_8b (random weights from the seed), the
+# engines of a part sharing its weights; explicit short bucket lists keep a
+# fleet replica's warm-up (two throwaway generations a bucket) cheap.
+FLEET_SLOTS, FLEET_MAX_LEN = 8, 2048
+FLEET_BUCKETS = (64, 512, 2048)
+CHUNK = 512
+# (a) the long prompt's last-position logits, chunked (first chunk through
+# the flash kernel, the later ones mid-cache on the plain path) against one
+# unchunked prefill (all flash): ||chunked - flash|| / ||flash|| in f32
+# within CHUNK_LOGITS_RTOL (bf16: 8 significant bits a value, rounded at
+# other places by the two attention paths over 32 layers), or no further
+# than LOGITS_FACTOR times the plain path's own distance from the flash one
+CHUNK_LOGITS_RTOL = 2e-2
+# (a) 4 short requests decoding (48 new tokens), then 4 long prompts and 4
+# more short ones (16 new); the engines persistent with an 8-row ring, so
+# each interleaved dispatch is one ring of the loop's captured graph
+CHUNK_LONG, CHUNK_SHORT, CHUNK_NEW, CHUNK_FIRST_NEW, CHUNK_RING = 4, 8, 16, 48, 8
+# (c) a catalog scenario's first requests, in waves by arrival tick, greedy;
+# persistent engines (the affinity replicas with a 16-row ring, so a replica
+# removed in the last wave still holds running requests)
+FLEET_SCENARIO, FLEET_REQUESTS, FLEET_NEW, FLEET_RING = "diurnal", 16, 64, 16
+# (e) the autoscaler on a cut flash crowd, replicas of 2 slots x 256 rows,
+# persistent with a 4-row ring (a scheduler tick decodes at most 4 tokens)
+AUTOSCALE_POLICY = dict(min_replicas=1, max_replicas=3, windows=(2, 4), up_threshold=0.9,
+                        up_sustain=2, down_sustain=4, up_cooldown=2, down_cooldown=4)
+AUTOSCALE_SPEC = dict(horizon_ticks=20, flash_tick=4, flash_len=5, output_lens=(4, 6))
+FLEET_LAUNCH_KEYS = ("flash_fwd", "decode_attention", "paged_decode_attention",
+                     "decode_attention_block", "paged_decode_attention_block")
+
+
+def _add_launches(total, got):
+    for k in FLEET_LAUNCH_KEYS:
+        total[k] = total.get(k, 0) + got.get(k, 0)
+
+
+def _cold_prefills(requests):
+    """Prefills whose first (or only) dispatch ran from cache position 0:
+    the flash kernel's, one launch a layer each."""
+    return sum(1 for r in requests for name, _, data in r.events
+               if name == "prefill" and data.get("cold"))
+
+
+def _ttft_p50(results):
+    import numpy as np
+
+    ttft = [r.ttft_s for r in results if r.ttft_s is not None]
+    return float(np.median(ttft)) if ttft else None
+
+
+def _first_divergence(a, b):
+    """The first token index where two streams differ (None when equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def chunk_requests(rng, vocab, n_long=CHUNK_LONG, n_short=CHUNK_SHORT):
+    def mk(n, new):
+        return {"prompt": rng.randint(0, vocab, size=int(n)).astype("int32"),
+                "max_new_tokens": new}
+
+    shorts = [mk(n, CHUNK_FIRST_NEW if i < n_short // 2 else CHUNK_NEW)
+              for i, n in enumerate(rng.randint(16, 65, size=n_short))]
+    longs = [mk(n, CHUNK_NEW) for n in rng.randint(1200, 1537, size=n_long)]
+    return shorts, longs
+
+
+def _chunked_run(torch, engine, shorts, longs):
+    """Half the shorts first, two steps, then the long prompts (chunked
+    while those shorts decode) and the other shorts; the launch counters
+    set to 0 just before."""
+    half = len(shorts) // 2
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    handles = [engine.submit(**r) for r in shorts[:half]]
+    engine.step()
+    engine.step()
+    handles += [engine.submit(**r) for r in longs + shorts[half:]]
+    while engine.step():
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [h.result() for h in handles], _read_counters(), wall
+
+
+def chunked_prefill_logits(torch, model, prompt, chunk=CHUNK):
+    """The long prompt's last-position logits three ways: one cold prefill
+    (flash), the chunked path (the first chunk cold, the later ones
+    mid-cache), one cold prefill on the plain path.  Returns the verdict."""
+    ids = torch.as_tensor(prompt, device=model.device)[None].long()
+    n = ids.shape[1]
+    with torch.no_grad():
+        flash, _ = model.forward_cached(ids, model.init_cache(1, n), 0)
+        cache = model.init_cache(1, n)
+        for start in range(0, n, chunk):
+            logits, cache = model.forward_cached(ids[:, start:start + chunk], cache, start)
+        saved = model.cfg.use_flash
+        model.cfg.use_flash = False
+        try:
+            plain, _ = model.forward_cached(ids, model.init_cache(1, n), 0)
+        finally:
+            model.cfg.use_flash = saved
+    ref = flash[0, -1].float()
+
+    def rel(x):
+        return float((x[0, -1].float() - ref).norm() / ref.norm())
+
+    chunk_err, plain_err = rel(logits), rel(plain)
+    finite = bool(torch.isfinite(logits).all())
+    ok = finite and chunk_err <= max(CHUNK_LOGITS_RTOL, LOGITS_FACTOR * plain_err)
+    return ok, {"prompt": n, "chunk": chunk, "chunked_vs_flash_rel": chunk_err,
+                "plain_vs_flash_rel": plain_err, "rtol": CHUNK_LOGITS_RTOL,
+                "argmax_equal": bool(torch.argmax(logits[0, -1]) == torch.argmax(ref)),
+                "finite": finite}
+
+
+def chunked_part(torch, model, rng, launches):
+    """(a) chunked prefill at 8 slots x 2048, slab and paged (prefix cache
+    on), 512-token chunks; its streams beside an unchunked engine's."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    n_layers, vocab = model.cfg.n_layers, model.cfg.vocab_size
+    shorts, longs = chunk_requests(rng, vocab)
+    half = len(shorts) // 2
+    reqs = shorts[:half] + longs + shorts[half:]  # in submission order
+    failures, out, engines = [], {}, {}
+    base = dict(num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN, prefill_buckets=FLEET_BUCKETS,
+                decode_mode="persistent", ring_capacity=CHUNK_RING)
+    plain = ServeEngine(model, **base)
+    ref, _, _ = _chunked_run(torch, plain, shorts, longs)
+    errors = plain.cost_card_errors
+    del plain
+    for layout, kw in (("slab", {}), ("paged", {"page_size": 16})):
+        engine = ServeEngine(model, chunked_prefill=CHUNK, **base, **kw)
+        results, got, wall = _chunked_run(torch, engine, shorts, longs)
+        _add_launches(launches, got)
+        c = engine.metrics.counters
+        cold = _cold_prefills(results)
+        key = "paged_decode_attention" if kw else "decode_attention"
+        want = {"flash_fwd": n_layers * cold, key: n_layers * c["decode_steps"]}
+        failures += [f"(a) {layout}: {k} launches {got.get(k, 0)} != {v}"
+                     for k, v in want.items() if got.get(k, 0) != v]
+        failures += _greedy_failures(f"(a) {layout}", reqs, results, vocab)
+        if c["chunked_prefills"] != len(longs):
+            failures.append(f"(a) {layout}: {c['chunked_prefills']} chunked prefills")
+        if not c["prefill_interleaved_dispatches"] > 0:
+            failures.append(f"(a) {layout}: no decode dispatch between chunks")
+        if engine.plain_prefill_chunks != c["prefill_chunks"] - c["chunked_prefills"]:
+            failures.append(f"(a) {layout}: {engine.plain_prefill_chunks} mid-cache chunks")
+        equal = [bool(np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens)))
+                 for a, b in zip(results, ref)]
+        firsts = [_first_divergence(np.asarray(a.tokens).tolist(),
+                                    np.asarray(b.tokens).tolist())
+                  for a, b in zip(results, ref)]
+        out[layout] = {
+            "requests": len(reqs), "long_prompts": [len(r["prompt"]) for r in longs],
+            "wall_s": wall, "tokens_per_sec": c["tokens_generated"] / wall,
+            "ttft_p50_s": _ttft_p50(results), "cold_prefills": cold,
+            "plain_prefill_chunks": engine.plain_prefill_chunks,
+            "launches": {k: got.get(k, 0) for k in ("flash_fwd", key)},
+            "counters": {k: c[k] for k in ("chunked_prefills", "prefill_chunks",
+                                           "prefill_interleaved_dispatches",
+                                           "tokens_prefilled", "decode_steps",
+                                           "prefix_hit_tokens")},
+            "streams_equal_unchunked_share": sum(equal) / len(equal),
+            "first_divergent_token": firsts,
+        }
+        print(f"(a) chunked prefill {layout}", json.dumps(out[layout]))
+        if layout == "slab":  # the paged engine's go on into (b)
+            errors += engine.cost_card_errors
+        engines[layout] = engine
+    ok, info = chunked_prefill_logits(torch, model, longs[0]["prompt"])
+    print("(a) chunked prefill logits", json.dumps(info))
+    if not ok:
+        failures.append(f"(a) chunked logits: {info}")
+    out["logits"] = info
+    return out, failures, engines["paged"], errors
+
+
+def hbm_part(torch, model, engine, rng):
+    """(b) the memory plan of (a)'s paged engine and the HBM gate."""
+    failures = []
+    plan = engine.memory_plan()
+    comps = plan["components"]
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if comps["weights"] != weights:
+        failures.append(f"(b) weights {comps['weights']} != {weights}")
+    if comps["kv_cache"] != engine.cache.kv_data_nbytes:
+        failures.append(f"(b) kv_cache {comps['kv_cache']} != {engine.cache.kv_data_nbytes}")
+    if not comps.get("program_temp", 0) > 0:
+        failures.append(f"(b) no program_temp from the cost cards: {comps}")
+    footprint = plan["projected_peak_bytes"]
+    engine.hbm_budget = footprint - 1
+    h = engine.submit(rng.randint(0, model.cfg.vocab_size, size=40).astype("int32"),
+                      max_new_tokens=4)
+    engine.step()
+    gated = [d for name, _, d in h._request.events if name == "gated"]
+    refused = engine.metrics.counters["admissions_rejected_hbm"]
+    if not gated or gated[-1]["why"] != "hbm_budget" or refused < 1:
+        failures.append(f"(b) not refused by name: {gated}, {refused}")
+    engine.hbm_budget = footprint
+    engine.step()
+    admitted = any(name == "admitted" for name, _, _ in h._request.events)
+    if not admitted:
+        failures.append("(b) not admitted after the budget rose")
+    while engine.step():
+        pass
+    cards = engine.cost_book.cards()
+    out = {"components": comps, "budget_source": plan["budget_source"],
+           "card_budget_bytes": plan["budget_bytes"], "refused_why": gated[-1]["why"]
+           if gated else None, "admissions_rejected_hbm": refused,
+           "admitted_after_raise": admitted, "finish": h.result().finish_reason,
+           "cards": {k: {"temp_bytes": c.temp_bytes, "peak_bytes": c.peak_bytes,
+                         "peak_source": c.peak_source} for k, c in sorted(cards.items())},
+           "cost_card_errors": engine.cost_card_errors}
+    print("(b) hbm gate", json.dumps(out))
+    return out, failures
+
+
+def fleet_requests(model):
+    """The catalog scenario's first requests, greedy, FLEET_NEW new tokens
+    each; vocabulary ids as the scenario draws them (< 256)."""
+    from torchdistx_tpu_torch.serve import generate, scenario
+
+    work = generate(scenario(FLEET_SCENARIO))[:FLEET_REQUESTS]
+    return [(r.arrival_tick, dict(r.submit_kwargs(), max_new_tokens=FLEET_NEW))
+            for r in work]
+
+
+def run_waves(torch, target, work, launches, on_last_wave=None):
+    """Submit the requests of one arrival tick, step until they are done,
+    then the next tick's: each request's prefix hit is then decided by the
+    earlier waves alone, in one engine and in a fleet alike.  Returns
+    (handles, wall, launches)."""
+    ticks = sorted({t for t, _ in work})
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    handles = []
+    for i, t in enumerate(ticks):
+        wave = [target.submit(**kw) for tick, kw in work if tick == t]
+        handles += wave
+        target.step()
+        if on_last_wave is not None and i == len(ticks) - 1:
+            on_last_wave()
+        while not all(h.done() for h in wave):
+            target.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    _add_launches(launches, got)
+    return handles, wall, got
+
+
+def _fleet_line(what, handles, wall, got, counters, **extra):
+    reqs = [h.result() for h in handles if h.done()]
+    out = {"requests": len(handles), "wall_s": wall,
+           "tokens_per_sec": sum(len(r.tokens) for r in reqs) / wall,
+           "ttft_p50_s": _ttft_p50(reqs),
+           "launches": {k: got.get(k, 0) for k in FLEET_LAUNCH_KEYS if got.get(k, 0)},
+           "counters": {k: counters.get(k, 0) for k in (
+               "prefill_calls", "prefix_hit_tokens", "decode_steps", "tokens_generated",
+               "requests_handed_off", "handoff_pages_moved", "handoff_wire_bytes",
+               "requests_migrated_out", "migration_wire_bytes", "loop_iterations")},
+           **extra}
+    print(what, json.dumps(out))
+    return out
+
+
+def fleet_part(torch, model, launches):
+    """(c) the fleet, every engine paged with the prefix cache, 8 slots x
+    2048: three persistent replicas behind the affinity router, the
+    busiest removed in the last wave; a warmed replica added; then one
+    prefill replica and two persistent decode replicas.  Every stream of
+    the scenario against one engine of equal geometry."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import LeastLoadedPolicy, ServeEngine, ServeFleet
+
+    failures, out = [], {}
+    kw = dict(num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN, prefill_buckets=FLEET_BUCKETS,
+              page_size=16, prefix_cache=True)
+    loop = dict(kw, decode_mode="persistent")
+    ring = dict(loop, ring_capacity=FLEET_RING)
+    work = fleet_requests(model)
+    single = ServeEngine(model, **loop)
+    ref_h, wall, got = run_waves(torch, single, work, launches)
+    ref = [np.asarray(h.result().tokens).tolist() for h in ref_h]
+    out["single"] = _fleet_line("(c) one engine", ref_h, wall, got, single.metrics.counters)
+    errors = single.cost_card_errors
+    del single
+
+    def streams(handles):
+        return [np.asarray(h.result().tokens).tolist() for h in handles]
+
+    def check(what, handles):
+        got_s = streams(handles)
+        if not all(h.done() for h in handles):
+            failures.append(f"{what}: a request was dropped")
+        if got_s != ref:
+            failures.append(f"{what}: streams differ from one engine's at "
+                            f"{[_first_divergence(a, b) for a, b in zip(got_s, ref)]}")
+        return got_s == ref
+
+    # -- affinity, three replicas, one removed mid-run ---------------------------
+    fleet = ServeFleet([ServeEngine(model, **ring) for _ in range(3)], policy="affinity")
+    removed = {}
+
+    def remove_busiest():
+        busy = max(fleet.replicas, key=lambda r: len(r.engine.scheduler.running))
+        removed.update(fleet.remove(busy.rid))
+        removed["cost_card_errors"] = busy.engine.cost_card_errors
+
+    handles, wall, got = run_waves(torch, fleet, work, launches, on_last_wave=remove_busiest)
+    j = fleet.metrics_json()
+    routed = [d["replica"] for name, _, d in fleet.events if name == "routed"]
+    eq = check("(c) affinity fleet", handles)
+    if not removed.get("migrated_running"):
+        failures.append(f"(c) remove moved no running request: {removed}")
+    out["affinity"] = _fleet_line(
+        "(c) fleet affinity", handles, wall, got, j["counters"], streams_equal=eq,
+        routed=routed, removed={k: removed.get(k) for k in (
+            "replica", "to", "migrated_running", "migrated_queued", "pages_moved",
+            "wire_bytes")})
+
+    errors += removed.get("cost_card_errors", 0)
+
+    # -- a warmed replica added: routed traffic sets up no program ------------
+    # (least-loaded for this wave: affinity sends every group to the warm
+    # replicas, and the new one should take traffic)
+    new = ServeEngine(model, **ring)
+    rid = fleet.add(new)
+    fleet.policy = LeastLoadedPolicy()
+    warm = [d for name, _, d in fleet.events if name == "add"][-1]["warm"]
+    programs = {r.rid: r.engine.num_compiled_programs() for r in fleet.replicas}
+    more = [(t, dict(k, seed=k["seed"] + 100)) for t, k in work[:6]]
+    n_events = len(fleet.events)
+    handles2, wall2, got2 = run_waves(torch, fleet, more, launches)
+    after = {r.rid: r.engine.num_compiled_programs() for r in fleet.replicas}
+    if after != programs:
+        failures.append(f"(c) add: programs {programs} -> {after} under routed traffic")
+    if not all(h.done() for h in handles2):
+        failures.append("(c) add: a request was dropped")
+    out["add"] = _fleet_line("(c) fleet add", handles2, wall2, got2,
+                             fleet.metrics_json()["counters"], replica=rid, warm=warm,
+                             programs=after, routed_to_new=sum(
+                                 1 for name, _, d in fleet.events[n_events:]
+                                 if name == "routed" and d["replica"] == rid))
+    errors += sum(r.engine.cost_card_errors for r in fleet.replicas)
+    del fleet, new
+
+    # -- disaggregated: one prefill (chunked mode), two persistent decode -------
+    pre = ServeEngine(model, **kw)
+    dec_p = ServeEngine(model, **loop)
+    dec_c = ServeEngine(model, **ring)
+    fleet = ServeFleet([pre, dec_p, dec_c], disaggregate=True,
+                       roles=["prefill", "decode", "decode"])
+    handles, wall, got = run_waves(torch, fleet, work, launches)
+    handoffs = [d for name, _, d in fleet.events if name == "handoff"]
+    eq = check("(c) disaggregated fleet", handles)
+    if len(handoffs) != len(work):
+        failures.append(f"(c) {len(handoffs)} handoffs for {len(work)} requests")
+    bad = [h for h in handoffs if not (h["pages_moved"] > 0 and h["wire_bytes"] == 0)]
+    if bad:
+        failures.append(f"(c) handoffs moving no pages or booking wire: {bad[:2]}")
+    loop = dec_p._decode.loop
+    graph = {"captures": loop.captures if loop else 0, "replays": dec_p.loop_replays,
+             "loop_iterations": dec_p.metrics.counters["loop_iterations"],
+             "handed_in": dec_p.metrics.counters["requests_handed_in"]}
+    if graph["captures"] != 1 or graph["replays"] != graph["loop_iterations"] \
+            or not graph["handed_in"]:
+        failures.append(f"(c) persistent decode target: {graph}")
+    out["disaggregated"] = _fleet_line(
+        "(c) fleet disaggregated", handles, wall, got, fleet.metrics_json()["counters"],
+        streams_equal=eq, handoffs=len(handoffs),
+        pages_moved=[h["pages_moved"] for h in handoffs],
+        wire_bytes=sum(h["wire_bytes"] for h in handoffs), persistent_target=graph)
+    errors += sum(e.cost_card_errors for e in (pre, dec_p, dec_c))
+    del fleet, pre, dec_p, dec_c
+    return out, failures, errors
+
+
+def migrate_part(torch, model, launches):
+    """(d) ``migrate_to`` an engine with fewer slots: the share of streams
+    equal to an undrained run (a 5-slot decode batch is another cuBLAS
+    shape; printed, not gated) and no drop.  Persistent engines, the
+    source's ring 8 rows deep, so the requests move mid-stream."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    kw = dict(max_len=FLEET_MAX_LEN, prefill_buckets=FLEET_BUCKETS,
+              decode_mode="persistent")
+    src_kw = dict(kw, num_slots=FLEET_SLOTS, ring_capacity=CHUNK_RING)
+    work = [k for _, k in fleet_requests(model)[:5]]
+    ref = [np.asarray(r.tokens).tolist() for r in ServeEngine(model, **src_kw).run(work)]
+    src = ServeEngine(model, **src_kw)
+    dst = ServeEngine(model, num_slots=5, **kw)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    handles = [src.submit(**k) for k in work]
+    for _ in range(3):
+        src.step()
+    summary = src.migrate_to(dst)
+    while dst.step():
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    _add_launches(launches, got)
+    streams = [np.asarray(h.result().tokens).tolist() for h in handles]
+    firsts = [_first_divergence(a, b) for a, b in zip(streams, ref)]
+    both = {k: v + dst.metrics.counters[k] for k, v in src.metrics.counters.items()}
+    out = _fleet_line("(d) migrate 8 -> 5 slots", handles, wall, got, both,
+                      summary=summary,
+                      streams_equal_share=sum(f is None for f in firsts) / len(firsts),
+                      first_divergent_token=firsts)
+    failures = []
+    if not all(h.done() for h in handles) or summary["migrated_running"] != len(work):
+        failures.append(f"(d) migration dropped or kept requests: {summary}")
+    return out, failures, src.cost_card_errors + dst.cost_card_errors
+
+
+def _autoscale_run(torch, model, spec, launches):
+    from torchdistx_tpu_torch.serve import (AutoscaleController, ScalingPolicy,
+                                            ServeEngine, ServeFleet, generate)
+
+    made = []
+
+    def factory(role):
+        made.append(ServeEngine(model, num_slots=2, max_len=256, prefill_buckets=(64,),
+                                page_size=16, decode_mode="persistent", ring_capacity=4))
+        return made[-1]
+
+    work = generate(spec)
+    fleet = ServeFleet([factory("serve")])
+    ctrl = AutoscaleController(fleet, ScalingPolicy(**AUTOSCALE_POLICY),
+                               engine_factory=factory, flight=False)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    handles, decisions, k = [], [], 0
+    for tick in range(spec.horizon_ticks + 40):
+        while k < len(work) and work[k].arrival_tick == tick:
+            handles.append(fleet.submit(**work[k].submit_kwargs()))
+            k += 1
+        fleet.step()
+        d = ctrl.tick()
+        decisions.append((d["tick"], d["action"], d["mode"], d["replica"], d["reason"],
+                          d["replicas_after"], d["signal"]["pressure"]))
+        if k == len(work) and all(h.done() for h in handles):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    _add_launches(launches, got)
+    streams = [h.result().tokens.tolist() if h.done() else None for h in handles]
+    errors = sum(e.cost_card_errors for e in made)
+    return decisions, streams, dict(ctrl.counters), handles, wall, got, fleet, errors
+
+
+def autoscale_part(torch, model, launches):
+    """(e) ``AutoscaleController`` with ``LoadSignal`` over a seeded flash
+    crowd, twice: the decision streams identical, no request dropped."""
+    from torchdistx_tpu_torch.serve import scenario
+
+    spec = scenario("flash_crowd", **AUTOSCALE_SPEC)
+    runs = [_autoscale_run(torch, model, spec, launches) for _ in range(2)]
+    failures = []
+    (d1, s1, c1, h1, w1, g1, f1, e1), (d2, s2, c2, *_rest, e2) = runs
+    if d1 != d2:
+        first = next(i for i, (a, b) in enumerate(zip(d1, d2)) if a != b)
+        failures.append(f"(e) decisions differ at tick {d1[first][0]}: {d1[first]} vs {d2[first]}")
+    if None in s1 or None in s2:
+        failures.append("(e) a request was dropped")
+    if not c1["autoscale_scale_ups"]:
+        failures.append(f"(e) the flash crowd scaled nothing up: {c1}")
+    out = _fleet_line("(e) autoscale flash_crowd", h1, w1, g1,
+                      f1.metrics_json()["counters"], decisions=len(d1),
+                      decisions_identical=d1 == d2, streams_identical=s1 == s2,
+                      controller=c1, actions=[d[:4] for d in d1 if d[1] != "hold"])
+    return out, failures, e1 + e2
+
+
+def serve_fleet_phase(torch, model, seed):
+    """Phase 29 on phase 3's model: (a)-(e), each fatal.  Returns (report,
+    failures, launches), the launches of rows 1, 9-12 summed over every run
+    of the phase (the counters set to 0 just before each run)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    launches, report, failures = {}, {}, []
+    t0 = time.perf_counter()
+    report["a"], f, paged, errors = chunked_part(torch, model, rng, launches)
+    failures += f
+    report["b"], f = hbm_part(torch, model, paged, rng)
+    failures += f
+    errors += paged.cost_card_errors
+    del paged
+    torch.cuda.empty_cache()
+    report["c"], f, e = fleet_part(torch, model, launches)
+    failures += f
+    errors += e
+    torch.cuda.empty_cache()
+    report["d"], f, e = migrate_part(torch, model, launches)
+    failures += f
+    errors += e
+    report["e"], f, e = autoscale_part(torch, model, launches)
+    failures += f
+    errors += e
+    torch.cuda.empty_cache()
+    if errors:
+        failures.append(f"phase 29: {errors} cost-card probes failed")
+    report["cost_card_errors"] = errors
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t0
+    print("serve fleet launches", json.dumps({"launches": launches,
+                                              "seconds": report["seconds"]}))
+    return report, [f"phase 29 {x}" for x in failures], launches
+
+
 def sp_kernel_entries(rows, sp_run):
     """The residuals forward and the f32-output backward kernels for the
     ``kernels`` line: timed at RESIDUAL_REPORTED (the non-causal 8192 row
@@ -5243,6 +5802,14 @@ def main(argv=None) -> int:
             variants, f3 = serve_variants(torch, model, np.random.RandomState(args.seed + 4))
         failures += f3
         report["serve_variants"] = variants
+        torch.cuda.empty_cache()
+        print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+        # -- 29. chunked prefill, the HBM gate, the fleet, the autoscaler ------
+        with torch.no_grad():
+            fleet_report, f29, fleet_launches = serve_fleet_phase(torch, model,
+                                                                  args.seed + 15)
+        failures += f29
+        report["serve_fleet"] = fleet_report
         del model
         torch.cuda.empty_cache()
     except Exception:
@@ -5620,12 +6187,14 @@ def main(argv=None) -> int:
 
     mixtral_fwd = mixtral_serve["launches"].get("flash_fwd", 0)
     served_fwd = sum(r["launches"]["flash_fwd"] for r in serve_runs)
+    fleet_fwd = fleet_launches.get("flash_fwd", 0)
     fwd = _kernel_entry(
         "flash_fwd", "torchdistx_tpu_torch/csrc/flash_fwd.cu",
         "torchdistx_tpu/ops/flash_attention.py:141",
-        served_fwd + mixtral_fwd + trained("flash_fwd_lse"), rep,
+        served_fwd + mixtral_fwd + fleet_fwd + trained("flash_fwd_lse"), rep,
         max(r["max_abs_err"] for r in flash_rows))
     fwd.update(launches_plain=served_fwd, launches_mixtral=mixtral_fwd,
+               launches_serving_fleet=fleet_fwd,
                launches_lse=trained("flash_fwd_lse"), lse_ms=brep["lse_ms"],
                lse_plain_ms=brep["lse_plain_ms"],
                lse_library_ms=brep["lse_library_ms"],
@@ -5668,7 +6237,7 @@ def main(argv=None) -> int:
     # b-d); the bf16 one-token kernel timed at DECODE_POSITIONS as before,
     # every variant at VARIANT_POSITIONS
     served = ([r["launches"] for r in serve_runs] + [r["launches"] for r in _serve_runs(variants)]
-              + [mixtral_serve["launches"]])
+              + [mixtral_serve["launches"], fleet_launches])
 
     def decode_entry(name, dt, row):
         key = name if dt == "bf16" else f"{name}_int8"
@@ -5677,7 +6246,8 @@ def main(argv=None) -> int:
             sum(r.get(key, 0) for r in served), row, row["max_abs_err"])
         entry.update(dtype=dt, S=row.get("S", 1), positions=row["positions"],
                      device_ms=row.get("device_ms"),
-                     library_device_ms=row.get("library_device_ms"))
+                     library_device_ms=row.get("library_device_ms"),
+                     launches_serving_fleet=fleet_launches.get(key, 0))
         for k in ("bitwise_repeat", "paged_equals_slab_bitwise", "paged_ms",
                   "paged_device_ms"):
             if k in row:

@@ -1353,3 +1353,80 @@ def test_zero2_over_two_ranks_on_the_card_is_bit_equal(cuda, tmp_path):
         assert z["losses"] == o["losses"]
         assert z["sliced"] > 0 and z["bytes"][0] == o["bytes"][0]
         assert z["bytes"][1] < o["bytes"][1]
+
+
+# -- moved state: migration and handoff into a persistent engine -----------------
+
+
+def _moved_streams(model, make_target, paged, n_new=10):
+    """The graph requests served by a source engine for two steps, drained
+    and migrated into ``make_target()``, whose graph (persistent mode) was
+    captured by a warm-up run before the move.  Returns (streams, target)."""
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    kw = dict(num_slots=3, max_len=64, prefill_buckets=(32,))
+    if paged:
+        kw.update(page_size=8, num_pages=32)
+    src = ServeEngine(model, **kw)
+    target = make_target(kw)
+    target.run(_graph_requests(2)[:2])  # captures the target's graph
+    handles = [src.submit(**r) for r in _graph_requests(n_new)[:3]]
+    src.step()
+    src.step()
+    src.migrate_to(target)
+    while target.step():
+        pass
+    return [h.result().tokens.tolist() for h in handles], target, kw
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_migration_into_a_persistent_engine_on_the_card(cuda, paged):
+    """KV rows or pages and the sampling state move in place into a
+    persistent engine: its graph, captured before, replays on (captured
+    once) and the streams equal an undrained engine of equal geometry."""
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _graph_llama(cuda)
+    streams, target, kw = _moved_streams(
+        model, lambda kw: ServeEngine(model, decode_mode="persistent", **kw), paged)
+    ref = ServeEngine(model, **kw).run(_graph_requests(10)[:3])
+    assert streams == [r.tokens.tolist() for r in ref]
+    loop = target._decode.loop
+    assert loop.captures == 1 and loop.graph is not None
+    assert target.loop_replays == target.metrics.counters["loop_iterations"] > 0
+    assert target.metrics.counters["requests_migrated_in"] == 3
+
+
+def test_handoff_into_a_persistent_decode_engine_on_the_card(cuda):
+    from torchdistx_tpu_torch.serve import ServeEngine, ServeFleet
+
+    model = _graph_llama(cuda)
+    kw = dict(num_slots=3, max_len=64, prefill_buckets=(32,), page_size=8, num_pages=32)
+    pre = ServeEngine(model, **kw)
+    dec = ServeEngine(model, decode_mode="persistent", **kw)
+    fleet = ServeFleet([pre, dec], disaggregate=True)
+    out = fleet.run(_graph_requests(8))
+    ref = ServeEngine(model, **kw).run(_graph_requests(8))
+    assert [o.tokens.tolist() for o in out] == [r.tokens.tolist() for r in ref]
+    handoffs = [d for name, _, d in fleet.events if name == "handoff"]
+    assert len(handoffs) == len(out)
+    assert all(h["pages_moved"] > 0 and h["wire_bytes"] == 0 for h in handoffs)
+    assert dec._decode.loop.captures == 1
+
+
+def test_memory_plan_charges_the_cards_bytes_on_the_card(cuda):
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _graph_llama(cuda)
+    engine = ServeEngine(model, num_slots=3, max_len=64, prefill_buckets=(32,))
+    engine.run(_graph_requests(4))
+    plan = engine.memory_plan()
+    comps = plan["components"]
+    assert comps["program_temp"] > 0
+    assert comps["weights"] == sum(p.numel() * p.element_size() for p in model.parameters())
+    assert comps["kv_cache"] == engine.cache.kv_data_nbytes
+    assert plan["budget_source"] == "cuda_mem_get_info" and plan["fits"] is True
+    cards = engine.cost_book.cards()
+    assert set(cards) == {"serve/prefill/b32", "serve/decode/k1"}
+    assert all(c.peak_source == "cuda_allocator" and c.peak_bytes > 0 for c in cards.values())
+    assert engine.cost_card_errors == 0

@@ -31,7 +31,14 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         "torchdistx_tpu_torch.parallel.pp, torchdistx_tpu_torch.parallel.reshard, "
         "torchdistx_tpu_torch.models.resnet, torchdistx_tpu_torch.models.vit, "
         "torchdistx_tpu_torch.interop.torch_interop, torchdistx_tpu_torch.nn.layers, "
-        "torchdistx_tpu_torch.nn.functional\n"
+        "torchdistx_tpu_torch.nn.functional, torchdistx_tpu_torch.obs, "
+        "torchdistx_tpu_torch.obs.trace, torchdistx_tpu_torch.obs.metrics, "
+        "torchdistx_tpu_torch.obs.memory, torchdistx_tpu_torch.obs.cost, "
+        "torchdistx_tpu_torch.obs.recompile, torchdistx_tpu_torch.obs.slo, "
+        "torchdistx_tpu_torch.obs.flight, torchdistx_tpu_torch.obs.watchdog, "
+        "torchdistx_tpu_torch.utils.profiling, torchdistx_tpu_torch.utils.rng, "
+        "torchdistx_tpu_torch.serve.fleet, torchdistx_tpu_torch.serve.autoscale, "
+        "torchdistx_tpu_torch.serve.workload\n"
         "import torch.distributed as dist\n"
         "from torchdistx_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

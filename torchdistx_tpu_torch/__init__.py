@@ -8,7 +8,12 @@ first launch, never at import.  Entry points run on ``"cuda"`` unless the
 caller asks for the CPU, where every kernel's plain PyTorch version runs.
 
 Serving: ``Llama.from_name`` -> ``ServeEngine(model, ...)`` ->
-``engine.run(requests)``.  Training: ``deferred_init(Llama.from_name,
+``engine.run(requests)``; ``serve.ServeFleet([engines...])`` routes over
+replicas (prefix affinity, drain and scale events, prefill/decode
+disaggregation), ``serve.AutoscaleController`` scales it, and
+``serve.generate(serve.scenario(name))`` makes open-loop traffic.
+``obs`` holds the tracer, the Prometheus registry, the cost cards and the
+capacity plan the engine admits against.  Training: ``deferred_init(Llama.from_name,
 "llama_1b", device="cuda")`` -> ``materialize_module(model)`` ->
 ``Trainer(TrainStep(model, AnyPrecisionAdamW(...), loss_fn)).fit(batches,
 n)``; GPT-2 the same way through ``examples.train_gpt2.main`` (param
@@ -39,6 +44,7 @@ from . import (
     interop,
     models,
     nn,
+    obs,
     ops,
     optimizers,
     parallel,
@@ -66,6 +72,7 @@ __all__ = [
     "interop",
     "models",
     "nn",
+    "obs",
     "ops",
     "optimizers",
     "parallel",

@@ -1,0 +1,85 @@
+"""Tracing and telemetry of the port, counterpart of ``torchdistx_tpu/obs``.
+
+The layers the serving engine and the fleet need, each touching no JAX:
+
+- :mod:`.trace` — host span tracer with Chrome-trace (Perfetto) export,
+  per-request and cross-replica request tracks.
+- :mod:`.metrics` — metrics registry with Prometheus text exposition.
+- :mod:`.recompile` — counts the programs the engine sets up (first
+  dispatches of a new shape, CUDA-graph captures), per scope.
+- :mod:`.memory` — the allocator watermark, the card's budget and the
+  live capacity plan the engine admits against.
+- :mod:`.cost` — per-program cost cards from the CUDA caching allocator.
+- :mod:`.flight` / :mod:`.watchdog` — the bounded flight recorder and the
+  dispatch-stall watchdog that dumps it.
+- :mod:`.slo` — declarative latency objectives over request histories.
+"""
+
+from .cost import CostBook, CostCard, validate_cost_card
+from .flight import FlightRecorder, get_flight_recorder
+from .memory import capacity_plan, device_hbm_budget, hbm_watermark
+from .metrics import (
+    Counter,
+    Gauge,
+    MetricFamily,
+    MetricsRegistry,
+    Summary,
+    default_registry,
+    parse_prometheus,
+    render_prometheus,
+    start_metrics_server,
+)
+from .recompile import RecompileWatcher, recompile_scope, track_jit_cache
+from .slo import (
+    SLO_SCHEMA,
+    SloSpec,
+    evaluate_slo,
+    slo_collector,
+    validate_slo_report,
+)
+from .trace import (
+    Tracer,
+    disable_tracing,
+    enable_tracing,
+    fleet_request_spans,
+    fleet_request_trace_events,
+    get_tracer,
+    request_trace_events,
+)
+from .watchdog import DispatchWatchdog
+
+__all__ = [
+    "Tracer",
+    "get_tracer",
+    "enable_tracing",
+    "disable_tracing",
+    "request_trace_events",
+    "fleet_request_spans",
+    "fleet_request_trace_events",
+    "SLO_SCHEMA",
+    "SloSpec",
+    "evaluate_slo",
+    "slo_collector",
+    "validate_slo_report",
+    "MetricFamily",
+    "Counter",
+    "Gauge",
+    "Summary",
+    "MetricsRegistry",
+    "default_registry",
+    "render_prometheus",
+    "parse_prometheus",
+    "start_metrics_server",
+    "RecompileWatcher",
+    "recompile_scope",
+    "track_jit_cache",
+    "FlightRecorder",
+    "get_flight_recorder",
+    "hbm_watermark",
+    "capacity_plan",
+    "device_hbm_budget",
+    "CostBook",
+    "CostCard",
+    "validate_cost_card",
+    "DispatchWatchdog",
+]

@@ -1,0 +1,326 @@
+"""Device cost observatory: per-program cost cards.
+
+Counterpart of ``torchdistx_tpu/obs/cost.py``.  The JAX card is XLA's
+``cost_analysis`` and ``memory_analysis`` of a compiled program.  The port
+has no compiled program: its card for a serving program (a prefill
+bucket, cold or warm; the decode step of a ``decode_chunk``; the
+persistent loop) is taken at that program's FIRST dispatch on the card,
+from the CUDA caching allocator (:func:`begin_allocator_card`, then
+:func:`finish_allocator_card`):
+``torch.cuda.reset_peak_memory_stats`` before the dispatch, then
+``max_memory_allocated`` (the card's ``peak_bytes``) and its excess over
+``memory_allocated`` after it (``temp_bytes``: what the dispatch held
+only while it ran).  The card names that source (``"cuda_allocator"``).
+A probe resets the allocator's peak statistics: a caller that reads
+``max_memory_allocated`` across a first dispatch sees only the peak since
+the probe.
+
+FLOPs and bytes accessed stay None: nothing in the port counts them
+(``torch.utils.flop_counter.FlopCounterMode`` does not see the kernels
+the port launches through ctypes), and a card never invents a count.
+On the CPU no card is taken.
+
+Exports, as in the JAX package: :meth:`CostBook.collector` projects every
+card as ``tdx_cost_*{program=...}`` gauges through an ``obs.metrics``
+registry, and recording a card emits a counter-track sample on the
+``obs.trace`` timebase (``cost/<program>``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import threading
+from typing import Dict, List, Optional
+
+__all__ = [
+    "CostCard",
+    "CostBook",
+    "begin_allocator_card",
+    "finish_allocator_card",
+    "cards_enabled",
+    "force_disabled",
+    "roofline",
+    "validate_cost_card",
+]
+
+CARD_SCHEMA = "tdx-cost-v1"
+
+#: the peak sources that are properties of a program, not of the load
+_PROGRAM_PEAK_SOURCES = ("xla_peak", "arg+out+temp", "cuda_allocator")
+
+@dataclasses.dataclass
+class CostCard:
+    """What one program cost: FLOP and memory-traffic counts where
+    something counted them (None otherwise), temp and peak bytes, and
+    their provenance.  ``scope`` is the ``obs.recompile`` attribution
+    scope active when the card was taken, so a card and the program
+    counters name programs identically."""
+
+    program: str
+    flops: Optional[float] = None
+    bytes_accessed: Optional[float] = None
+    output_bytes_accessed: Optional[float] = None
+    transcendentals: Optional[float] = None
+    arg_bytes: Optional[int] = None
+    out_bytes: Optional[int] = None
+    temp_bytes: Optional[int] = None
+    alias_bytes: Optional[int] = None
+    generated_code_bytes: Optional[int] = None
+    peak_bytes: Optional[int] = None
+    peak_source: str = "unavailable"
+    scope: Optional[str] = None
+    platform: Optional[str] = None
+    #: the analytic model's FLOP count for one execution of this program
+    analytic_flops: Optional[float] = None
+
+    @property
+    def arithmetic_intensity(self) -> Optional[float]:
+        if self.flops and self.bytes_accessed:
+            return self.flops / self.bytes_accessed
+        return None
+
+    @property
+    def flop_attribution(self) -> Optional[float]:
+        """analytic / counted FLOPs; None where nothing counted them."""
+        if self.analytic_flops and self.flops:
+            return self.analytic_flops / self.flops
+        return None
+
+    def to_json(self) -> dict:
+        d = {"schema": CARD_SCHEMA}
+        d.update(dataclasses.asdict(self))
+        d["arithmetic_intensity"] = self.arithmetic_intensity
+        d["flop_attribution"] = self.flop_attribution
+        return d
+
+
+#: TDX_COST_CARDS spellings that mean OFF — one list for both probes
+_OFF_VALUES = ("0", "false", "")
+
+
+def _env_state() -> Optional[bool]:
+    """TDX_COST_CARDS as a tri-state: None (unset), True (on), False
+    (any off spelling, case-insensitive)."""
+    v = os.environ.get("TDX_COST_CARDS")
+    if v is None:
+        return None
+    return v.strip().lower() not in _OFF_VALUES
+
+
+def cards_enabled(default: bool = False) -> bool:
+    """The global opt-in for card capture at unbounded hook sites.
+    Bounded-program components (the serve engine's per-bucket / per-K
+    programs) take an explicit constructor flag instead and default ON —
+    ``TDX_COST_CARDS=0`` force-disables those too."""
+    state = _env_state()
+    return default if state is None else state
+
+
+def force_disabled() -> bool:
+    """True when ``TDX_COST_CARDS`` is explicitly set to an off spelling:
+    the kill switch that turns every capture site off."""
+    return _env_state() is False
+
+
+def begin_allocator_card(name: str, device, *,
+                         analytic_flops: Optional[float] = None) -> CostCard:
+    """Start the card of one dispatch on ``device``: reset the caching
+    allocator's peak statistics (module docstring).  Dispatch, then
+    :func:`finish_allocator_card`."""
+    import torch
+
+    from .recompile import current_scope
+
+    card = CostCard(
+        program=name,
+        scope=current_scope(),
+        analytic_flops=analytic_flops,
+        platform="gpu",
+    )
+    torch.cuda.reset_peak_memory_stats(torch.device(device))
+    return card
+
+
+def finish_allocator_card(card: CostCard, device, *,
+                          book: Optional["CostBook"] = None) -> CostCard:
+    """Read the dispatch's peak and temp bytes into ``card`` and, with
+    ``book``, record it."""
+    import torch
+
+    dev = torch.device(device)
+    peak = int(torch.cuda.max_memory_allocated(dev))
+    card.peak_bytes = peak
+    card.temp_bytes = peak - int(torch.cuda.memory_allocated(dev))
+    card.peak_source = "cuda_allocator"
+    if book is not None:
+        book.record(card)
+    return card
+
+
+class CostBook:
+    """Per-program card store: the queryable runtime surface ("what did
+    serve/decode/k4 hold?") plus the Prometheus projection.  Thread-safe;
+    recording emits the card's Perfetto counter sample (no-op unless
+    tracing is enabled)."""
+
+    def __init__(self) -> None:
+        self._cards: Dict[str, CostCard] = {}
+        self._lock = threading.Lock()
+
+    def record(self, card: CostCard) -> CostCard:
+        with self._lock:
+            self._cards[card.program] = card
+        from .trace import get_tracer
+
+        get_tracer().counter(
+            f"cost/{card.program}",
+            flops=float(card.flops or 0.0),
+            bytes_accessed=float(card.bytes_accessed or 0.0),
+            peak_bytes=float(card.peak_bytes or 0.0),
+        )
+        return card
+
+    def get(self, program: str) -> Optional[CostCard]:
+        with self._lock:
+            return self._cards.get(program)
+
+    def cards(self) -> Dict[str, CostCard]:
+        with self._lock:
+            return dict(self._cards)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._cards)
+
+    def max_temp_bytes(self) -> int:
+        """The worst per-program temp footprint on record — what the
+        capacity planner charges as transient dispatch overhead (the
+        programs run serially, so the max, not the sum)."""
+        return max(
+            (c.temp_bytes or 0 for c in self.cards().values()), default=0
+        )
+
+    def max_peak_bytes(self) -> int:
+        return max(
+            (
+                c.peak_bytes or 0
+                for c in self.cards().values()
+                if c.peak_source in _PROGRAM_PEAK_SOURCES
+            ),
+            default=0,
+        )
+
+    def to_json(self) -> Dict[str, dict]:
+        """``{program: card}``."""
+        return {
+            name: card.to_json()
+            for name, card in sorted(self.cards().items())
+        }
+
+    def collector(self, prefix: str = "tdx_cost"):
+        """An ``obs.metrics`` collector over the book: one labeled sample
+        per card for flops / bytes-accessed / temp / peak, where the card
+        has the value (the peak family carries its source label)."""
+        import weakref
+
+        from .metrics import MetricFamily
+
+        ref = weakref.ref(self)  # never pin a discarded engine's book
+
+        def collect():
+            book = ref()
+            if book is None:
+                return []
+            cards = book.cards()
+            if not cards:
+                return []
+            fams = []
+            specs = (
+                ("flops", "flops", "counted FLOPs per execution"),
+                ("bytes_accessed", "bytes_accessed",
+                 "counted bytes accessed per execution"),
+                ("temp_bytes", "temp_bytes",
+                 "bytes held only while the program ran"),
+            )
+            for field, suffix, help_ in specs:
+                fam = MetricFamily(f"{prefix}_{suffix}", "gauge", help_)
+                for name in sorted(cards):
+                    v = getattr(cards[name], field)
+                    if v is not None:
+                        fam.add(v, program=name)
+                if fam.samples:
+                    fams.append(fam)
+            peak = MetricFamily(
+                f"{prefix}_peak_bytes", "gauge",
+                "per-program peak bytes (source labeled)",
+            )
+            for name in sorted(cards):
+                c = cards[name]
+                if c.peak_bytes is not None:
+                    peak.add(
+                        c.peak_bytes, program=name, source=c.peak_source
+                    )
+            if peak.samples:
+                fams.append(peak)
+            return fams
+
+        return collect
+
+
+def roofline(
+    card: CostCard,
+    *,
+    peak_flops: Optional[float] = None,
+    hbm_bw: Optional[float] = None,
+) -> dict:
+    """Roofline classification of one program: compute-bound floor
+    (``flops / peak_flops``), memory-bound floor (``bytes_accessed /
+    hbm_bw``), and which bound dominates — each only where the card has
+    the count."""
+    out: dict = {
+        "flops": card.flops,
+        "bytes_accessed": card.bytes_accessed,
+        "arithmetic_intensity": card.arithmetic_intensity,
+    }
+    cb = mb = None
+    if peak_flops and card.flops:
+        cb = card.flops / peak_flops
+        out["compute_bound_s"] = cb
+    if hbm_bw and card.bytes_accessed:
+        mb = card.bytes_accessed / hbm_bw
+        out["memory_bound_s"] = mb
+    if cb is not None and mb is not None:
+        out["bound"] = "compute" if cb >= mb else "memory"
+    return out
+
+
+def validate_cost_card(card, where: str = "card") -> List[str]:
+    """Schema errors for one serialized card (empty list == valid).  The
+    JAX package's rules, except that ``flops`` and ``bytes_accessed`` may
+    be null on an allocator card: the key must be there, and a value
+    that is there must be a finite non-negative number."""
+    errs: List[str] = []
+    if not isinstance(card, dict):
+        return [f"{where}: not an object"]
+    if card.get("schema") != CARD_SCHEMA:
+        errs.append(f"{where}: bad schema {card.get('schema')!r}")
+    if not card.get("program") or not isinstance(card.get("program"), str):
+        errs.append(f"{where}: missing str 'program'")
+    src = card.get("peak_source")
+    for key in ("flops", "bytes_accessed"):
+        v = card.get(key)
+        if key not in card or (v is None and src != "cuda_allocator"):
+            errs.append(f"{where}: missing {key}")
+        elif v is None:
+            continue
+        elif isinstance(v, bool) or not isinstance(v, (int, float)):
+            errs.append(f"{where}: non-numeric {key}: {v!r}")
+        elif not math.isfinite(v) or v < 0:
+            errs.append(f"{where}: bad {key}: {v!r}")
+    if not isinstance(src, str) or not src or src == "unavailable":
+        errs.append(f"{where}: peak_bytes source not named ({src!r})")
+    elif card.get("peak_bytes") is None:
+        errs.append(f"{where}: peak_source {src!r} without peak_bytes")
+    return errs

@@ -1,12 +1,16 @@
 """``ServeEngine``: continuous-batching inference over a slot KV cache,
 counterpart of ``torchdistx_tpu/serve/engine.py`` on a single device, in
 its chunked and persistent decode modes: the contiguous slab or the paged
-pools with the radix prefix cache, self-speculative decode, and the
-model-dtype, plain-cast or int8 cache.
+pools with the radix prefix cache, self-speculative decode, the
+model-dtype, plain-cast or int8 cache, chunked prefill, the HBM admission
+gate, and the elastic surface a fleet drives (drain, migration, handoff).
 
 The public surface is the JAX engine's: ``submit(prompt, ...) ->
-RequestHandle``, ``step()``, ``run(requests)``, ``finished_requests()``.
-Device work comes in two kinds of dispatch:
+RequestHandle``, ``step()``, ``step_prefill()``, ``run(requests)``,
+``drain()``, ``migrate_to(engine)``, ``handoff_to(engine, request)``,
+``memory_plan()``, ``num_compiled_programs()``, ``reset_metrics()``,
+``dump_trace(path)``, ``finished_requests()``.  Device work comes in two
+kinds of dispatch:
 
 1. **Prefill**: one request's prompt, padded up to its bucket, runs through
    ``forward_cached`` against a fresh single-request cache from position 0
@@ -19,7 +23,11 @@ Device work comes in two kinds of dispatch:
    radix index already holds: a cold prefill (no hit) is the slab's, a warm
    one runs the suffix at the prefix length over the slot's gathered pages
    on the plain path, and only the bucket's rows are scattered into the
-   pools.
+   pools.  With ``chunked_prefill=C`` a longer prompt lands in chunks of at
+   most ``C`` tokens with one decode dispatch between consecutive chunks:
+   the first chunk of a cold prompt is a cold prefill (flash), the later
+   chunks are mid-cache and run on the plain path over the slot's rows
+   (the JAX package keeps mid-cache chunks on its jnp path the same way).
 2. **Decode**: ``decode_chunk`` batched ``forward_decode`` steps over ALL
    slots, each row at its own depth (the decode-attention CUDA kernels on
    the card: slab or paged, bf16 or int8), with the on-device finish mask
@@ -33,13 +41,27 @@ Device work comes in two kinds of dispatch:
    captured in a CUDA graph and replayed (``serve.graph_loop``), then ONE
    host sync drains the ring, the cursor and the pending first tokens.
 
-PyTorch runs eagerly, so there are no compiled programs to count and no
-buffers to donate: the slab is updated in place.
+**Programs.**  PyTorch runs eagerly, so the port's counterpart of a
+compiled program is a program SHAPE, set up at its first dispatch: the
+JAX engine's program keys (a prefill bucket, cold or warm; a decode
+``decode_chunk``; the persistent ring) plus the engine's static geometry.
+They are kept on the model, as the JAX jit store is, so engines of equal
+geometry share them; a CUDA graph captured by a persistent engine is its
+own and counts once per capturing engine, in the count of every engine of
+equal geometry.  ``num_compiled_programs()`` reads that registry; each new
+entry is reported to ``obs.recompile``'s watchers under the current scope.
+The slab and the pools are updated in place: there are no buffers to
+donate, and a KV move into a persistent engine keeps the addresses its
+captured graph holds.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import math
 import time
+import weakref
 from collections import deque
 from typing import Any, Iterable, List, Optional, Sequence, Union
 
@@ -54,10 +76,21 @@ from ..generation import (
     _make_persistent_spec_decode,
     _make_slot_sampler,
 )
+from ..obs import memory as obs_memory
+from ..obs.cost import (
+    CostBook,
+    begin_allocator_card,
+    finish_allocator_card,
+    force_disabled as _cost_force_disabled,
+)
+from ..obs.recompile import note_compile
+from ..obs.trace import get_tracer, request_trace_events
+from ..utils.profiling import timed_annotation
 from .kv_cache import (
     PagedKVCache,
     SlotKVCache,
     canonicalize_kv_dtype,
+    dequantize_kv,
     paged_scatter_rows,
     paged_view,
     write_slot,
@@ -71,10 +104,13 @@ __all__ = ["ServeEngine"]
 #: the JAX engine's constructor arguments this port does not carry yet;
 #: passing any of them raises instead of being ignored
 _UNPORTED = (
-    "persistent_stream", "params", "cost_cards", "numerics",
-    "hbm_budget", "stall_timeout_s", "mesh", "plan", "tp_rule", "tp_axis",
-    "chunked_prefill", "record",
+    "persistent_stream", "params", "numerics", "mesh", "plan", "tp_rule",
+    "tp_axis", "record",
 )
+
+
+#: engine serials: a CUDA graph is keyed on the engine that captured it
+_SERIALS = itertools.count()
 
 
 def _default_buckets(max_len: int) -> tuple:
@@ -86,6 +122,17 @@ def _default_buckets(max_len: int) -> tuple:
         b *= 2
     buckets.append(max_len)
     return tuple(buckets)
+
+
+def _split_counts(t: torch.Tensor) -> tuple:
+    """Per-dimension split counts of a tensor's placement (all 1s for a
+    tensor whole on its device, as every cache tensor is without a
+    mesh)."""
+    from ..parallel.mesh import sharding_of
+    from ..parallel.reshard import split_counts
+
+    marked = sharding_of(t)
+    return split_counts(t.shape, None if marked is None else marked[0])
 
 
 class ServeEngine:
@@ -128,12 +175,38 @@ class ServeEngine:
       prefix_cache: in paged mode, keep the radix prefix index: page-aligned
         shared prompt prefixes are handed over by page-table rewrite and
         prefill computes only the uncached suffix.
+      finished_history: finished requests kept for ``finished_requests()``
+        and ``dump_trace``.
+      cost_cards: take a :class:`~torchdistx_tpu_torch.obs.cost.CostCard`
+        of every program at its first dispatch on the card (from the CUDA
+        caching allocator: temp and peak bytes), kept in
+        ``engine.cost_book``; ``memory_plan()`` charges the worst temp.
+        A probe resets the allocator's peak statistics.  Probes that fail
+        are counted in ``cost_card_errors`` and never fail a dispatch.
+        No card is taken on the CPU.  ``TDX_COST_CARDS=0`` force-disables.
+      hbm_budget: device memory budget in BYTES for the second admission
+        gate: before admitting, the engine projects its footprint (weights
+        + KV cache + the worst program temp on record, ``memory_plan()``)
+        and refuses admission while it exceeds the budget, recording
+        ``("gated", why="hbm_budget")`` in the request's lifecycle events
+        and counting ``admissions_rejected_hbm``.  Mutable at runtime
+        (raise it and the next ``step()`` admits); None disables the gate.
+      stall_timeout_s: arm a dispatch-stall watchdog
+        (:class:`~torchdistx_tpu_torch.obs.watchdog.DispatchWatchdog`)
+        around every dispatch and its host sync: a region that overruns
+        this many seconds dumps the flight recorder naming the program and
+        its cost card.  None disables.
+      chunked_prefill: prefill-chunk threshold in tokens.  A prompt (or
+        paged uncached suffix) LONGER than this is prefilled in chunks of
+        at most this many tokens, with one decode dispatch interleaved
+        between consecutive chunks, so a long prompt does not stall every
+        decoding slot for its whole prefill.  Must be one of
+        ``prefill_buckets``.  None disables.
       speculate: draft this many tokens per slot per decode iteration by
         prompt lookup in the slot's own history and verify them in one
         batched call; 0 disables.  Greedy streams equal ``speculate=0``'s
         wherever the (B, K+1) verify rounds as the (B, 1) step does.
       spec_ngram: trailing-token match length of the draft lookup.
-      finished_history: finished requests kept for ``finished_requests()``.
       device: where the engine runs; defaults to the model's device (the
         model's own default is ``"cuda"``), and must equal it.
 
@@ -158,9 +231,13 @@ class ServeEngine:
         num_pages: Optional[int] = None,
         kv_dtype: Optional[str] = None,
         prefix_cache: bool = True,
+        finished_history: int = 1024,
+        cost_cards: bool = True,
+        hbm_budget: Optional[int] = None,
+        stall_timeout_s: Optional[float] = None,
+        chunked_prefill: Optional[int] = None,
         speculate: int = 0,
         spec_ngram: int = 2,
-        finished_history: int = 1024,
         device=None,
         **unported,
     ):
@@ -201,6 +278,8 @@ class ServeEngine:
                 f"length {limit}"
             )
         self.model = model
+        self.tp = 1  # no mesh: every tensor is whole on the one device
+        self._serial = next(_SERIALS)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.eos_token = eos_token
@@ -236,7 +315,17 @@ class ServeEngine:
                     f"bucket {buckets[-1]} exceeds max_len {self.max_len}"
                 )
         self.prefill_buckets = buckets
+        if chunked_prefill is not None:
+            chunked_prefill = int(chunked_prefill)
+            if chunked_prefill not in self.prefill_buckets:
+                raise ValueError(
+                    f"chunked_prefill ({chunked_prefill}) must be one of "
+                    f"prefill_buckets {self.prefill_buckets} — every full "
+                    "chunk is dispatched through that bucket's program"
+                )
+        self.chunked_prefill = chunked_prefill
         self.kv_dtype = canonicalize_kv_dtype(kv_dtype)
+        self._prefix_cache_flag = bool(prefix_cache)
         self.page_size = None if page_size is None else int(page_size)
         self.paged = self.page_size is not None
         if self.paged:
@@ -263,17 +352,9 @@ class ServeEngine:
         self.kv_quantized = self.cache.quantized
         self.kv_dtype_name = str(self.cache.kv[0][0].dtype).replace("torch.", "")
         self.scheduler = Scheduler(self.num_slots, max_tokens_in_flight)
-        kv_rows = (self.num_pages * self.page_size if self.paged
-                   else self.num_slots * self.max_len)
-        self.metrics = ServeMetrics(
-            self.num_slots,
-            num_pages=self.num_pages,
-            ring_capacity=self.ring_capacity,
-            speculate=self.speculate or None,
-            kv_cache_bytes=self.cache.nbytes,
-            kv_bytes_per_token=self.cache.nbytes // kv_rows,
-            kv_quant_err_max=0.0 if self.kv_quantized else None,
-            kv_quant_err_rms=0.0 if self.kv_quantized else None,
+        self.metrics = self._new_metrics(
+            0.0 if self.kv_quantized else None,
+            0.0 if self.kv_quantized else None,
         )
         self._sampler = _make_slot_sampler(top_k, top_p)
         if self._persistent and self.speculate:
@@ -312,6 +393,42 @@ class ServeEngine:
         self._hist = (torch.zeros((self.num_slots, self.max_len), dtype=torch.int64,
                                   device=self.device) if self.speculate else None)
         self._finished: deque = deque(maxlen=int(finished_history))
+        # mid-cache prefill chunks run on the plain path (module docstring)
+        self.plain_prefill_chunks = 0
+        # cost observatory: one card per program, at its first dispatch on
+        # the card; a probe that fails is counted, never raised
+        self.cost_book = CostBook()
+        self._cards_on = (bool(cost_cards) and not _cost_force_disabled()
+                          and self.device.type == "cuda")
+        self._carded: set = set()
+        self.cost_card_errors = 0
+        # the HBM gate (mutable); the static plan components (weights,
+        # kv) are computed once, at first use
+        self.hbm_budget = hbm_budget
+        self._static_footprint: Optional[dict] = None
+        self._gate = self._make_admission_gate()
+        # drain state: a draining engine refuses new submissions and
+        # admits nothing, but keeps stepping its running slots
+        self._draining = False
+        self.watchdog = None
+        if stall_timeout_s is not None:
+            from ..obs.watchdog import DispatchWatchdog
+
+            self.watchdog = DispatchWatchdog(stall_timeout_s, book=self.cost_book)
+
+    def _new_metrics(self, err_max, err_rms) -> ServeMetrics:
+        kv_rows = (self.num_pages * self.page_size if self.paged
+                   else self.num_slots * self.max_len)
+        return ServeMetrics(
+            self.num_slots,
+            num_pages=self.num_pages,
+            ring_capacity=self.ring_capacity,
+            speculate=self.speculate or None,
+            kv_cache_bytes=self.cache.nbytes,
+            kv_bytes_per_token=self.cache.nbytes // kv_rows,
+            kv_quant_err_max=err_max,
+            kv_quant_err_rms=err_rms,
+        )
 
     # -- public API ------------------------------------------------------
 
@@ -319,7 +436,17 @@ class ServeEngine:
                seed: int = 0, deadline_s: Optional[float] = None,
                trace_id: Optional[int] = None) -> RequestHandle:
         """Enqueue one request; returns immediately.  ``step()`` (or
-        ``run``) drives it to completion."""
+        ``run``) drives it to completion.  ``trace_id`` propagates a
+        fleet-scoped trace context; left None, the scheduler mints a
+        process-unique one, which rides the request through
+        ``handoff_to`` / ``migrate_to``."""
+        if self._draining:
+            # a named refusal: a draining engine never admits again
+            self.metrics.count("submits_rejected_draining")
+            raise RuntimeError(
+                "engine is draining: new submissions are refused — "
+                "submit to the migration target engine instead"
+            )
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -364,29 +491,55 @@ class ServeEngine:
         self.metrics.count("requests_submitted")
         return RequestHandle(req)
 
-    @torch.no_grad()
-    def step(self) -> int:
-        """One scheduler tick: expire deadlines, admit new requests into
-        free slots (one prefill dispatch each), then ONE decode dispatch of
-        ``decode_chunk`` steps over every slot.  Returns the number of
-        unfinished requests (queued + running)."""
-        now = time.monotonic()
+    def _admit_tick(self, now: float) -> None:
+        """Expire deadlines, then admit and prefill into free slots."""
         for req in self.scheduler.expire_queued(now):
             self._count_finish(req)
         for req in list(self.scheduler.running):
             if req.expired(now):
                 self._finish(req, "deadline", now)
-        gate = self._page_gate if self.paged else None
+        gate = (self._gate
+                if (self._draining or self.paged or self.hbm_budget is not None)
+                else None)
         for req, slot in self.scheduler.admit(now, gate=gate):
             self._prefill_request(req, slot)
-        if self.scheduler.running:
-            self._decode_step()
+
+    def _tick_end(self) -> int:
         self.metrics.observe_gauges(
             self.scheduler.queue_depth, self.cache.active_count
         )
         if self.paged:
             self.metrics.observe_pages(self.pool.in_use)
         return self.scheduler.queue_depth + len(self.scheduler.running)
+
+    @torch.no_grad()
+    def step(self) -> int:
+        """One scheduler tick: expire deadlines, admit new requests into
+        free slots (one prefill dispatch each, or chunks), then ONE decode
+        dispatch of ``decode_chunk`` steps over every slot.  Returns the
+        number of unfinished requests (queued + running)."""
+        self._admit_tick(time.monotonic())
+        if self.scheduler.running:
+            self._decode_step()
+        return self._tick_end()
+
+    @torch.no_grad()
+    def step_prefill(self) -> int:
+        """The disaggregated prefill role's tick: expire deadlines and
+        admit + prefill into free slots exactly like :meth:`step`, but
+        NEVER run a decode dispatch — a prefilled request parks in its slot
+        (first token sampled and recorded) until ``handoff_to`` moves its
+        KV to a decode engine.  Chunked mode only: the persistent loop's
+        deferred first-token fetch would ride a decode drain this role
+        never performs.  Returns unfinished requests (queued + parked)."""
+        if self._persistent:
+            raise RuntimeError(
+                "step_prefill requires decode_mode='chunked' — the "
+                "persistent loop defers first-token fetches to a decode "
+                "drain a prefill-role engine never runs"
+            )
+        self._admit_tick(time.monotonic())
+        return self._tick_end()
 
     def run(self, requests: Iterable[Union[dict, Any]], *,
             max_new_tokens: int = 32) -> List[RequestResult]:
@@ -402,9 +555,338 @@ class ServeEngine:
             pass
         return [h.result() for h in handles]
 
+    # -- elastic drain / live migration ----------------------------------
+
+    @torch.no_grad()
+    def drain(self, *, complete: bool = False) -> int:
+        """Stop admission so the engine can be resized or retired.
+
+        Queued requests stay queued — the FCFS head gets a ``("gated",
+        {"why": "draining"})`` lifecycle event — and new :meth:`submit`
+        calls raise.  Running slots keep their KV state; with
+        ``complete=True`` the engine steps until every running request
+        finishes (queued ones wait for :meth:`migrate_to`), otherwise they
+        stay suspended at the current chunk boundary with positions, host
+        sampling state and cache rows intact.  Persistent mode's pending
+        first tokens are fetched (one host sync) so the suspended state is
+        complete.  Returns the number of unfinished requests."""
+        self._draining = True
+        now = time.monotonic()
+        # the queued head learns WHY it stopped moving right away
+        if self.scheduler.queue_depth:
+            Scheduler._record_gated(self.scheduler.queued[0], now, "draining")
+        by_slot = {r.slot: r for r in self.scheduler.running}
+        for slot, pending in list(self._pending_first.items()):
+            del self._pending_first[slot]
+            req = by_slot.get(slot)
+            if req is None:
+                continue
+            tok = int(pending[0].item())
+            self.metrics.count("host_syncs")
+            self._record_first(req, tok, now)
+            self._check_finished(req, tok, now)
+        if complete:
+            while self.scheduler.running:
+                self.step()
+        return self.scheduler.queue_depth + len(self.scheduler.running)
+
+    def _check_kv_compatible(self, target: "ServeEngine", what: str) -> None:
+        if self.paged != target.paged:
+            raise RuntimeError(
+                f"cannot {what} between slab and paged engines — KV "
+                "layouts are not interconvertible in place"
+            )
+        if self.max_len != target.max_len:
+            raise RuntimeError(
+                f"KV geometry mismatch: source max_len {self.max_len} "
+                f"!= target max_len {target.max_len}"
+            )
+        if self.paged and self.page_size != target.page_size:
+            raise RuntimeError(
+                f"page-size mismatch: source {self.page_size} != "
+                f"target {target.page_size}"
+            )
+        if self.kv_dtype_name != target.kv_dtype_name:
+            raise RuntimeError(
+                f"KV dtype mismatch: source {self.kv_dtype_name} cache "
+                f"!= target {target.kv_dtype_name} — KV moves never "
+                "requantize"
+            )
+
+    @torch.no_grad()
+    def migrate_to(self, target: "ServeEngine") -> dict:
+        """Hand every unfinished request to ``target`` — a differently
+        shaped engine (other slot count, other decode mode) over the same
+        model — without dropping any of them.
+
+        Suspended running slots move WITH their KV state (slab rows or
+        page chains, int8 data with its scales), their speculative history
+        and their host sampling state (seed, step, temperature, budget),
+        and each request resumes mid-stream.  Queued requests transfer
+        rid-intact, so every outstanding :class:`RequestHandle` stays
+        valid.  Validation happens before any state moves (a failed
+        migration leaves both engines untouched).  Every KV write into the
+        target is in place, so a persistent target's captured graph stays
+        valid.  Returns the JAX engine's summary dict; without a mesh the
+        gather group of every move is 1, so ``wire_bytes`` and
+        ``collectives`` come out 0 from the same closed form."""
+        if target is self:
+            raise ValueError("cannot migrate an engine into itself")
+        if target._draining:
+            raise RuntimeError(
+                "migration target is itself draining — migrate to a "
+                "live engine"
+            )
+        if not self._draining:
+            self.drain()
+        now = time.monotonic()
+        running = sorted(self.scheduler.running,
+                         key=lambda r: (r.admitted_at or 0.0, r.rid))
+        queued = self.scheduler.queued
+        # -- validate everything before moving anything ------------------
+        self._check_kv_compatible(target, "migrate")
+        free_b = target.scheduler.free_slot_count
+        if len(running) > free_b:
+            raise RuntimeError(
+                f"{len(running)} suspended request(s) need slots but the "
+                f"target has only {free_b} free — drain(complete=True) "
+                "further, or migrate to a larger engine"
+            )
+        if self.paged:
+            need = sum(len(r.pages or ()) for r in running)
+            if need > target.pool.free_count:
+                raise RuntimeError(
+                    f"suspended requests hold {need} KV page(s) but the "
+                    f"target pool has only {target.pool.free_count} free"
+                )
+        for q in queued:
+            if q.prompt.size > target.prefill_buckets[-1]:
+                raise RuntimeError(
+                    f"queued request {q.rid}: prompt ({q.prompt.size}) "
+                    "exceeds the target's largest prefill bucket "
+                    f"({target.prefill_buckets[-1]})"
+                )
+            if target.paged:
+                need = -(-(q.cost) // target.page_size)
+                if need > target.pool.capacity:
+                    raise RuntimeError(
+                        f"queued request {q.rid} needs {need} pages but "
+                        f"the target pool holds only "
+                        f"{target.pool.capacity}"
+                    )
+        # -- move suspended slots (KV + host sampling state) -------------
+        wire = n_coll = pages_moved = 0
+        for req in running:
+            s_a, s_b, w, c, moved = self._move_running(target, req)
+            wire += w
+            n_coll += c
+            pages_moved += moved
+            req.record_event("migrated", ts=now, from_slot=s_a, to_slot=s_b)
+            self.metrics.count("requests_migrated_out")
+            target.metrics.count("requests_migrated_in")
+        # -- move the queue (rid-intact, FCFS order preserved) -----------
+        for req in self.scheduler.drain_queue():
+            req.record_event("migrated", ts=now, queued=True)
+            target.scheduler.adopt_queued(req)
+            self.metrics.count("requests_migrated_out")
+            target.metrics.count("requests_migrated_in")
+        if self.paged and self.prefix_index is not None:
+            # the source cache is decommissioned: release every page the
+            # radix index kept for future hits
+            self.prefix_index.evict(self.pool, self.pool.capacity)
+        self.metrics.count("migration_wire_bytes", wire)
+        return {
+            "migrated_running": len(running),
+            "migrated_queued": len(queued),
+            "pages_moved": pages_moved,
+            "wire_bytes": int(wire),
+            "collectives": int(n_coll),
+            "tp_from": self.tp,
+            "tp_to": target.tp,
+            "slots_from": self.num_slots,
+            "slots_to": target.num_slots,
+        }
+
+    def _move_running(self, target: "ServeEngine", req: Request):
+        """Move ONE running request's slot — KV state (slab row or page
+        chain), speculative history and host sampling state — into
+        ``target``.  The shared mechanics of :meth:`migrate_to` and
+        :meth:`handoff_to`; the caller has validated capacity.  Returns
+        ``(src_slot, dst_slot, wire_bytes, collectives, pages_moved)``."""
+        s_a = req.slot
+        pos_a = int(self.cache.pos[s_a])
+        pages_a = list(req.pages) if (self.paged and req.pages) else None
+        s_b = target.scheduler.adopt_running(req)  # sets req.slot
+        if self.paged:
+            new_pages = target.pool.alloc(len(pages_a))
+            w, c = self._copy_kv_pages(target, pages_a, new_pages)
+            target.cache.set_table(s_b, new_pages)
+        else:
+            w, c = self._copy_kv_slot(target, s_a, s_b)
+        # detach from the source AFTER the copy; retire validates the
+        # slot mapping, so point it at the source slot for the call
+        req.slot = s_a
+        self.scheduler.retire(req)
+        req.slot = s_b
+        self.cache.retire(s_a)
+        if pages_a is not None:
+            self.pool.decref(pages_a)
+            req.pages = new_pages  # prefix-shared pages become private
+        target.cache.admit(s_b, pos_a)
+        for arr_a, arr_b in (
+            (self._last_tok, target._last_tok),
+            (self._temps, target._temps),
+            (self._seeds, target._seeds),
+            (self._ntok, target._ntok),
+            (self._budget, target._budget),
+        ):
+            arr_b[s_b] = arr_a[s_a]
+        if target._hist is not None:
+            # in place: a persistent target holds its history by address
+            if self._hist is not None:
+                target._hist[s_b].copy_(self._hist[s_a])
+            else:
+                # the source keeps no history; it is the request's stream
+                stream = np.concatenate([req.prompt, req.generated]).astype(np.int64)
+                row = torch.zeros(target.max_len, dtype=torch.int64)
+                n = min(stream.size, target.max_len)
+                row[:n] = torch.as_tensor(stream[:n])
+                target._hist[s_b].copy_(row)
+        return s_a, s_b, w, c, len(pages_a) if pages_a is not None else 0
+
+    @torch.no_grad()
+    def handoff_to(self, target: "ServeEngine", req: Request) -> dict:
+        """Hand ONE prefilled running request — KV pages (or slab row),
+        speculative history and host sampling state — to ``target``: the
+        prefill -> decode disaggregation step.  Unlike :meth:`migrate_to`
+        this moves a single request between two LIVE engines: the source
+        keeps admitting and prefilling, the target keeps decoding.  The
+        greedy stream continues bit-identically on the target.  Returns
+        ``{"from_slot", "to_slot", "wire_bytes", "collectives",
+        "pages_moved"}`` (without a mesh the wire and the collectives are
+        0, from the JAX engine's closed form)."""
+        if target is self:
+            raise ValueError("cannot hand a request off to its own engine")
+        if target._draining:
+            raise RuntimeError(
+                "handoff target is draining — hand off to a live engine"
+            )
+        if req.slot is None or not any(r is req for r in self.scheduler.running):
+            raise ValueError(f"request {req.rid} is not running on this engine")
+        self._check_kv_compatible(target, "hand off")
+        if target.scheduler.free_slot_count < 1:
+            raise RuntimeError(
+                f"handoff target has no free slot for request {req.rid}"
+            )
+        if self.paged and len(req.pages or ()) > target.pool.free_count:
+            raise RuntimeError(
+                f"request {req.rid} holds {len(req.pages or ())} KV "
+                f"page(s) but the target pool has only "
+                f"{target.pool.free_count} free"
+            )
+        now = time.monotonic()
+        s_a, s_b, wire, n_coll, pages_moved = self._move_running(target, req)
+        req.record_event("handoff", ts=now, from_slot=s_a, to_slot=s_b,
+                         wire_bytes=wire)
+        self.metrics.count("requests_handed_off")
+        self.metrics.count("handoff_pages_moved", pages_moved)
+        self.metrics.count("handoff_wire_bytes", wire)
+        self.metrics.count("handoff_collectives", n_coll)
+        target.metrics.count("requests_handed_in")
+        return {
+            "from_slot": s_a,
+            "to_slot": s_b,
+            "wire_bytes": int(wire),
+            "collectives": int(n_coll),
+            "pages_moved": int(pages_moved),
+        }
+
+    @staticmethod
+    def _kv_migration_group(src: torch.Tensor, dst: torch.Tensor) -> int:
+        """Ring gather group for moving one slot row / page chain between
+        two KV arrays (the JAX engine's formula over the placements' split
+        counts; dim 0, the slot / page index, is never split).  Every
+        cache tensor of the port is whole on its device, so this is 1."""
+        src_c = _split_counts(src)[1:]
+        tgt_c = _split_counts(dst)[1:]
+        n_src = int(np.prod(src_c)) if src_c else 1
+        keep = 1
+        for a, b in zip(src_c, tgt_c):
+            keep *= math.gcd(int(a), int(b))
+        return max(1, n_src // max(1, keep))
+
+    def _wire(self, src: torch.Tensor, dst: torch.Tensor, n: int):
+        """The closed-form wire bytes and collectives of moving ``n`` units
+        (slot rows or pages) of ``src`` into ``dst``: a ring all-gather of
+        group ``g`` moves ``unit * (g - 1) / g`` per unit, none at g = 1."""
+        g = self._kv_migration_group(src, dst)
+        unit = int(np.prod(src.shape[1:])) * src.element_size()
+        if g > 1 and n:
+            return (unit * (g - 1) // g) * n, 1
+        return 0, 0
+
+    def _copy_kv_slot(self, target, s_a: int, s_b: int):
+        """Copy slab slot ``s_a``'s rows into ``target`` slot ``s_b``, in
+        place, over each layer's FULL entry — ``(k, v)`` or the quantized
+        ``(k, v, k_scale, v_scale)`` — so int8 data and its scales move
+        together.  Returns (wire_bytes, collectives)."""
+        wire = n_coll = 0
+        for entry_a, entry_b in zip(self.cache.kv, target.cache.kv):
+            for src, dst in zip(entry_a, entry_b):
+                w, c = self._wire(src, dst, 1)
+                wire += w
+                n_coll += c
+                dst[s_b].copy_(src[s_a])
+        return wire, n_coll
+
+    def _copy_kv_pages(self, target, pages_a: List[int], pages_b: List[int]):
+        """Copy a page chain between paged pools, in place (one gather and
+        one ``index_copy_`` per layer and array, scales included).  Returns
+        (wire_bytes, collectives)."""
+        dev_a, dev_b = self.cache.kv[0][0].device, target.cache.kv[0][0].device
+        idx_a = torch.as_tensor(pages_a, dtype=torch.long, device=dev_a)
+        idx_b = torch.as_tensor(pages_b, dtype=torch.long, device=dev_b)
+        wire = n_coll = 0
+        for entry_a, entry_b in zip(self.cache.kv, target.cache.kv):
+            for src, dst in zip(entry_a, entry_b):
+                w, c = self._wire(src, dst, len(pages_a))
+                wire += w
+                n_coll += c
+                dst.index_copy_(0, idx_b, src.index_select(0, idx_a).to(dst.device))
+        return wire, n_coll
+
     def finished_requests(self) -> List[Request]:
         """The bounded finished-request history (newest last)."""
         return list(self._finished)
+
+    def dump_trace(self, path: str) -> str:
+        """Export the host trace as a catapult/Perfetto ``traceEvents``
+        JSON: the global tracer's spans (engine dispatches, anything else
+        instrumented in-process) plus one thread row per finished request
+        (queued/prefill/decode spans + lifecycle instants).  Request rows
+        are exported even when tracing was disabled; enable tracing
+        (``obs.trace.enable_tracing``) to get the dispatch spans too."""
+        return get_tracer().export(
+            path, extra_events=request_trace_events(self._finished)
+        )
+
+    def num_compiled_programs(self) -> int:
+        """Programs behind THIS engine's geometry (module docstring): one
+        per prefill bucket and family used, one per decode program used,
+        and, on the card, one per CUDA graph a persistent engine of this
+        geometry captured.  The contract is the JAX engine's: the count is
+        STABLE after warm-up — a late admission never sets up a program."""
+        static = self._static_key()
+        programs = self.model.__dict__.get("_serve_programs", ())
+        return sum(1 for key in programs if key[-len(static):] == static)
+
+    def reset_metrics(self) -> ServeMetrics:
+        """Rebind ``self.metrics`` to a fresh :class:`ServeMetrics` of THIS
+        engine's geometry (slots, pages, ring, speculate); the KV gauges
+        carry over."""
+        self.metrics = self._new_metrics(self.metrics.kv_quant_err_max,
+                                         self.metrics.kv_quant_err_rms)
+        return self.metrics
 
     @property
     def loop_replays(self) -> int:
@@ -412,6 +894,127 @@ class ServeEngine:
         on the card); equal to ``loop_iterations``, since the host never
         launches one past the loop's end.  0 in chunked mode."""
         return self._decode.replays if self._persistent else 0
+
+    # -- programs, cost cards, the stall watchdog ------------------------
+
+    def _static_key(self) -> tuple:
+        """The engine's static geometry: programs of engines with equal
+        keys are shared, as the JAX engine's jit store shares them."""
+        return (self.num_slots, self.max_len, self.top_k, self.top_p,
+                self.page_size, self.kv_dtype)
+
+    def _note_program(self, key: tuple) -> bool:
+        """Register ``key`` + the static key on the model; True when new."""
+        programs = self.model.__dict__.setdefault("_serve_programs", set())
+        full = tuple(key) + self._static_key()
+        if full in programs:
+            return False
+        programs.add(full)
+        return True
+
+    def _card_begin(self, name: str):
+        if not self._cards_on or name in self._carded:
+            return None
+        self._carded.add(name)
+        try:
+            return begin_allocator_card(name, self.device)
+        except Exception:
+            self.cost_card_errors += 1
+            return None
+
+    def _card_finish(self, card) -> None:
+        if card is None:
+            return
+        try:
+            finish_allocator_card(card, self.device, book=self.cost_book)
+        except Exception:
+            self.cost_card_errors += 1
+
+    @contextlib.contextmanager
+    def _dispatch(self, name: str, key: tuple, region: str, sink):
+        """One device dispatch and its host sync: the ``timed_annotation``
+        region (profiler range, tracer span, attribution scope, ``sink``),
+        the stall watchdog, the program registry (a new program is
+        reported to ``obs.recompile``'s watchers) and, at the program's
+        first dispatch on the card, its cost card.  Yields the timing
+        dict."""
+        new = self._note_program(key)
+        card = self._card_begin(name)
+        t0 = time.perf_counter()
+        with timed_annotation(region, sink) as timing, self._watch(name):
+            yield timing
+            if new:
+                note_compile(time.perf_counter() - t0)
+        self._card_finish(card)
+
+    def _watch(self, name: str):
+        """The stall-watchdog guard for one dispatch+sync region (a no-op
+        context when no watchdog is configured)."""
+        if self.watchdog is None:
+            return contextlib.nullcontext()
+        return self.watchdog.arm(name)
+
+    # -- the admission gate and the memory plan --------------------------
+
+    def _make_admission_gate(self):
+        """The composed admission predicate ``Scheduler.admit`` runs on the
+        FCFS head: draining first (a draining refusal reserves nothing a
+        migration would unwind), then the HBM budget (a request the device
+        cannot hold must not grab pages), then the paged engine's free
+        pages.  The closure names its refusal in ``why``, which the
+        scheduler writes into the request's lifecycle log.  It holds the
+        engine by weakref: the engine holds the gate, and a cycle would
+        keep a discarded engine (its cache, its captured graph) alive
+        until a collection."""
+        ref = weakref.ref(self)
+
+        def gate(req: Request) -> bool:
+            eng = ref()
+            gate.why = "gate"
+            if eng._draining:
+                gate.why = "draining"
+                return False
+            if eng.hbm_budget is not None:
+                if eng.memory_plan()["fits"] is False:
+                    gate.why = "hbm_budget"
+                    eng.metrics.count("admissions_rejected_hbm")
+                    return False
+            if eng.paged:
+                return eng._page_gate(req)
+            return True
+
+        gate.why = "gate"
+        return gate
+
+    def memory_plan(self, budget_bytes: Optional[int] = None) -> dict:
+        """The live capacity plan (``obs.memory.capacity_plan``): the
+        weights + the KV slab or pools (+ the int8 scales as
+        ``kv_scales``) + the worst per-program temp bytes the cost cards
+        hold (``program_temp``, absent where no card has temp bytes: on the
+        CPU, or with cards off), against ``budget_bytes`` /
+        ``self.hbm_budget`` / the card's total (in that order).  What the
+        admission gate refuses on.  The weights and KV components are
+        computed once, then cached."""
+        if self._static_footprint is None:
+            self._static_footprint = {
+                "weights": obs_memory.tree_device_bytes(
+                    dict(self.model.named_parameters())),
+                "kv_cache": obs_memory.tree_device_bytes(
+                    [e[:2] for e in self.cache.kv]),
+            }
+            if self.kv_quantized:
+                self._static_footprint["kv_scales"] = (
+                    obs_memory.tree_device_bytes([e[2:] for e in self.cache.kv]))
+        components = dict(self._static_footprint)
+        temp = self.cost_book.max_temp_bytes()
+        if temp:
+            components["program_temp"] = temp
+        if budget_bytes is None:
+            budget_bytes = self.hbm_budget
+        plan = obs_memory.capacity_plan(components, budget_bytes=budget_bytes,
+                                        device=self.device)
+        plan["kv_cache_dtype"] = self.kv_dtype_name
+        return plan
 
     # -- internals -------------------------------------------------------
 
@@ -424,6 +1027,41 @@ class ServeEngine:
             f"({self.prefill_buckets[-1]})"
         )
 
+    def _prefill_chunks(self, start0: int, total: int) -> list:
+        """Split ``total`` prefill tokens starting at cache position
+        ``start0`` into ``(start, length)`` chunks of at most
+        ``chunked_prefill`` tokens.  Every non-final chunk is exactly the
+        threshold (a real bucket) and fits: ``start + C <= start0 + total
+        <= max_len``.  A final chunk whose padded bucket would overrun
+        ``max_len`` is folded into its predecessor, ending — at worst — at
+        the one-chunk split, whose fit admission guaranteed."""
+        c = self.chunked_prefill
+        chunks = []
+        s = 0
+        while s < total:
+            ln = min(c, total - s)
+            chunks.append((start0 + s, ln))
+            s += ln
+        while len(chunks) > 1:
+            st, ln = chunks[-1]
+            if st + self._bucket_for(ln) <= self.max_len:
+                break
+            pst, pln = chunks[-2]
+            chunks[-2:] = [(pst, pln + ln)]
+        return chunks
+
+    def _interleave_decode(self, req: Request) -> None:
+        """One decode dispatch between two prefill chunks, skipping the
+        half-prefilled request: active slots emit tokens while the long
+        prompt is still landing.  Skipped when this request is the only
+        one running.  The half-prefilled slot is not cache-admitted yet,
+        so the dispatch's per-call ``active`` / ``finished`` staging
+        freezes it (in persistent mode a staged input of the captured
+        graph: no re-capture)."""
+        if len(self.scheduler.running) > 1:
+            self.metrics.count("prefill_interleaved_dispatches")
+            self._decode_step(skip=req)
+
     def _sample_first(self, logits, true_len: int, temp: float, seed: int):
         """Sampler step 0 at the last real prompt position."""
         dev = logits.device
@@ -434,28 +1072,49 @@ class ServeEngine:
 
     def _prefill(self, tokens, pfx: int, true_len: int, slot: int,
                  temp: float, seed: int) -> torch.Tensor:
-        """The JAX engine's prefill programs: the padded (suffix) bucket
-        through ``forward_cached`` from ``pfx``, sampled at ``true_len - 1``
-        (sampler step 0), its rows written into the slot.  A cold prefill
-        (``pfx == 0``, every slab prefill) runs into a fresh (1, bucket)
-        cache (the flash path); a warm paged one runs at the page-aligned
-        prefix length over the slot's pages below ``pfx + bucket`` (the
-        plain path), gathered and, for int8, dequantized into the model's
-        dtype, which holds every ``int8 * 2^k`` exactly.  The slab takes the
-        rows with ``write_slot``; the pools take only the bucket's rows
-        (shared prefix pages are never rewritten; padding rows past the
-        chain land on the scratch page).  Returns the (1,) token."""
+        """The JAX engine's prefill programs: the padded bucket through
+        ``forward_cached`` from cache position ``pfx``, sampled at
+        ``true_len - 1`` (sampler step 0), its rows written into the slot.
+
+        - ``pfx == 0`` (a cold prefill, or the first chunk of a cold
+          prompt): a fresh (1, bucket) cache, the flash path; the slab
+          takes the rows with ``write_slot``, the pools the bucket's rows.
+        - ``pfx > 0``, paged (a prefix hit, or a later chunk): the slot's
+          pages below ``pfx + bucket`` gathered (int8 dequantized into the
+          model's dtype, which holds every ``int8 * 2^k`` exactly) and run
+          at ``pfx`` on the plain path; only the bucket's rows are
+          scattered back (shared prefix pages are never rewritten; padding
+          rows past the chain land on the scratch page).
+        - ``pfx > 0``, slab (a later chunk): the slot's row read as a view
+          of the model's dtype, run at ``pfx`` on the plain path, and
+          written back with ``write_slot`` (an unquantized row of the
+          model's dtype is written in place already; int8 rows requantize
+          bit-stably: power-of-two scales).
+
+        Returns the (1,) token."""
         model, bucket = self.model, tokens.shape[1]
+        dt = model.cfg.dtype
         if self.paged:
             n_pages = -(-(pfx + bucket) // self.page_size)
             table_row = torch.as_tensor(self.cache.page_tables[slot, :n_pages],
                                         device=self.device)
         if pfx == 0:
             view = model.init_cache(1, bucket)
-        else:
-            dt = model.cfg.dtype
+        elif self.paged:
             view = [(k.to(dt), v.to(dt))
                     for k, v in paged_view(self.cache.kv, table_row, self.page_size)]
+        else:
+            view = []
+            for e in self.cache.kv:
+                if len(e) == 4:
+                    k = dequantize_kv(e[0][slot:slot + 1], e[2][slot:slot + 1])
+                    v = dequantize_kv(e[1][slot:slot + 1], e[3][slot:slot + 1])
+                else:
+                    k, v = e[0][slot:slot + 1], e[1][slot:slot + 1]
+                view.append((k.to(dt), v.to(dt)))
+        if pfx > 0:
+            # mid-cache: the plain path, as the JAX package routes it
+            self.plain_prefill_chunks += 1
         logits, view = model.forward_cached(tokens, view, pfx)
         tok = self._sample_first(logits, true_len, temp, seed)
         if self.paged:
@@ -463,6 +1122,75 @@ class ServeEngine:
                                pfx, bucket)
         else:
             write_slot(self.cache.kv, view, slot)
+        return tok
+
+    def _prefill_dispatch(self, req: Request, slot: int, start: int, ln: int,
+                          final: bool):
+        """One prefill program dispatch of ``req.prompt[start:start+ln]``
+        at cache position ``start``; the token comes back as an int (one
+        host sync) when ``final`` and not in persistent mode, else as the
+        (1,) device tensor."""
+        bucket = self._bucket_for(ln)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :ln] = req.prompt[start:start + ln]
+        if self.paged:
+            warm = start > 0
+            name = "serve/prefill/{}/b{}".format("warm" if warm else "cold", bucket)
+            key = ("serve_prefill_paged", bucket, warm)
+        elif start > 0:
+            name, key = f"serve/prefill/warm/b{bucket}", ("serve_prefill_warm", bucket)
+        else:
+            name, key = f"serve/prefill/b{bucket}", ("serve_prefill", bucket)
+        with self._dispatch(name, key, "serve/prefill", self.metrics.prefill_s.record):
+            tokens = torch.as_tensor(padded, device=self.device)
+            tok = self._prefill(tokens, start, ln, slot, req.temperature, req.seed)
+            if final and not self._persistent:
+                tok = int(tok[0].item())  # host sync: the first token exists
+        self.metrics.count("tokens_prefilled", bucket)
+        return tok
+
+    def _dispatch_prefill(self, req: Request, slot: int):
+        """Prefill the request's prompt (paged: its uncached suffix) into
+        ``slot``, in chunks when it is longer than ``chunked_prefill``.
+
+        While chunks land the slot is PARKED at row ``max_len - 1``: every
+        interleaved decode dispatch rewrites each slot's current row,
+        inactive slots included, and a stale position could land that
+        write inside an already-written chunk.  Row ``max_len - 1`` is
+        safe: prefill never claims it (``prompt <= max_len - max_new <
+        max_len``), a slab row is private to its slot, a paged slot's last
+        table entry is the scratch page or the request's own tail page
+        (never a shared prefix page), and the slot's own decode write
+        replaces the row in the dispatch that first makes it visible.
+        ``cache.admit`` restores the true position after the last chunk."""
+        pfx = req.prefix_len if self.paged else 0
+        total = req.prompt.size - pfx
+        chunked = self.chunked_prefill is not None and total > self.chunked_prefill
+        chunks = (self._prefill_chunks(pfx, total) if chunked
+                  else [(pfx, total)])
+        info = dict(bucket=self._bucket_for(chunks[0][1]), cold=pfx == 0)
+        if self.paged:
+            info["prefix_hit_tokens"] = pfx
+            self.cache.set_table(slot, req.pages)
+        if chunked:
+            info["chunks"] = len(chunks)
+        req.record_event("prefill", **info)
+        if chunked:
+            self.cache.pos[slot] = self.max_len - 1  # park (docstring)
+            self.metrics.count("chunked_prefills")
+        tok = None
+        for i, (start, ln) in enumerate(chunks):
+            if i > 0:
+                self._interleave_decode(req)
+            if chunked:
+                req.record_event("prefill_chunk", start=start,
+                                 bucket=self._bucket_for(ln))
+            tok = self._prefill_dispatch(req, slot, start, ln,
+                                         final=i == len(chunks) - 1)
+            if chunked:
+                self.metrics.count("prefill_chunks")
+        if self.paged:
+            self._adopt_prefix(req)
         return tok
 
     def _page_gate(self, req: Request) -> bool:
@@ -513,29 +1241,7 @@ class ServeEngine:
                                  self.pool)
 
     def _prefill_request(self, req: Request, slot: int) -> None:
-        pfx = req.prefix_len if self.paged else 0
-        suffix = req.prompt[pfx:]
-        bucket = self._bucket_for(suffix.size)
-        if self.paged:
-            req.record_event("prefill", bucket=bucket, cold=pfx == 0,
-                             prefix_hit_tokens=pfx)
-            self.cache.set_table(slot, req.pages)
-        else:
-            req.record_event("prefill", bucket=bucket, cold=True)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, : suffix.size] = suffix
-        tokens = torch.as_tensor(padded, device=self.device)
-        t0 = time.perf_counter()
-        tok = self._prefill(tokens, pfx, suffix.size, slot, req.temperature,
-                            req.seed)
-        if not self._persistent:
-            tok = int(tok[0].item())  # host sync: the first token exists
-        self.metrics.prefill_s.record(time.perf_counter() - t0)
-        # only the suffix bucket was computed: the prefix hit is the
-        # prefill the cache saved
-        self.metrics.count("tokens_prefilled", bucket)
-        if self.paged:
-            self._adopt_prefix(req)
+        tok = self._dispatch_prefill(req, slot)
         self.cache.admit(slot, req.prompt.size)
         self._temps[slot] = req.temperature
         self._seeds[slot] = req.seed
@@ -585,31 +1291,44 @@ class ServeEngine:
             state.append(torch.as_tensor(self.cache.page_tables, device=dev))
         return state
 
-    def _decode_step(self) -> None:
+    def _decode_step(self, skip: Optional[Request] = None) -> None:
         """One decode dispatch: ``K = decode_chunk`` steps (speculative
         iterations with ``speculate``), ONE host sync for the token block,
         then the host walk with the finish rules the device mask applied
-        (``_check_finished``).  Persistent mode: ``_persistent_step``."""
+        (``_check_finished``).  ``skip`` is a half-prefilled request (an
+        interleaved dispatch of chunked prefill): it and every slot not
+        cache-admitted yet are frozen on the device and left out of the
+        walk.  Persistent mode: ``_persistent_step``."""
         if self._persistent:
-            return self._persistent_step()
+            return self._persistent_step(skip)
         running = self.scheduler.running
         k_steps = self.decode_chunk
-        t0 = time.perf_counter()
-        out = self._decode(self.cache.kv, *self._decode_args())
-        self.cache.kv = out[0]
         if self.speculate:
-            self._hist = out[3]
-            ys, cs = (t.cpu().numpy() for t in out[1:3])  # ONE host sync
+            name = f"serve/decode/spec{self.speculate}/k{k_steps}"
+            key = ("serve_decode_spec", k_steps, self.eos_token, self.speculate,
+                   self.spec_ngram)
         else:
-            block = out[1].cpu().numpy()  # ONE host sync per K slot-steps
-        seconds = time.perf_counter() - t0
-        self.metrics.decode_s.record(seconds)
+            name = f"serve/decode/k{k_steps}"
+            key = ("serve_decode", k_steps, self.eos_token)
+        with self._dispatch(name, key, "serve/decode",
+                            self.metrics.decode_s.record) as timing:
+            out = self._decode(self.cache.kv, *self._decode_args())
+            self.cache.kv = out[0]
+            if self.speculate:
+                self._hist = out[3]
+                ys, cs = (t.cpu().numpy() for t in out[1:3])  # ONE host sync
+            else:
+                block = out[1].cpu().numpy()  # ONE host sync per K slot-steps
         self.metrics.count("host_syncs")
         self.metrics.count("decode_dispatches")
         self.metrics.count("decode_steps", k_steps)
         now = time.monotonic()
         emitted = 0
         for req in running:
+            if req is skip or not self.cache.active[req.slot]:
+                # not cache-admitted yet: the half-prefilled request or a
+                # same-batch admit this dispatch ran ahead of
+                continue
             slot = req.slot
             took = 0
             for j in range(k_steps):
@@ -634,9 +1353,9 @@ class ServeEngine:
         self.metrics.count("tokens_generated", emitted)
         self.metrics.count("tokens_decoded", emitted)
         if emitted:
-            self.metrics.decode_token_s.record(seconds / emitted)
+            self.metrics.decode_token_s.record(timing["seconds"] / emitted)
 
-    def _persistent_step(self) -> None:
+    def _persistent_step(self, skip: Optional[Request] = None) -> None:
         """One persistent dispatch: the loop runs on the card until every
         slot's finish bit is set or the ring is full, then ONE host sync
         drains the ring, its valid mask (speculation: the count ring), the
@@ -645,33 +1364,47 @@ class ServeEngine:
         exactly on the rows a live slot sampled, the finishing token
         included), so host bookkeeping and device carries agree iteration
         for iteration.  A request the ring cut off stays running and
-        continues from its frozen carry at the next dispatch.  Shared by the
-        one-token and the speculative loop, as the chunked walk is."""
+        continues from its frozen carry at the next dispatch.  ``skip``
+        (a half-prefilled request) is not cache-admitted, so the staged
+        ``active`` input freezes it; the walk leaves it out.  Shared by
+        the one-token and the speculative loop, as the chunked walk is."""
         running = self.scheduler.running
         cache, dev = self.cache, self.device
         pending = self._pending_first
-        t0 = time.perf_counter()
         args = [self._last_tok, cache.positions(), self._hist, self._temps,
                 self._seeds, self._ntok, self._budget,
                 # the cache-full rule from the UNCLAMPED host positions
                 cache.active & (cache.pos < self.max_len)]
         if self.paged:
             args.append(cache.page_tables)
-        _, ring, marks, it = self._decode(cache.kv, *args, firsts=pending)
-        slots = list(pending)
-        firsts = (torch.cat([pending[s] for s in slots]) if slots
-                  else torch.zeros(0, dtype=torch.int64, device=dev))
-        # ONE host sync: the ring, its marks, the cursor, the first tokens
-        flat = torch.cat([ring.reshape(-1), marks.reshape(-1).long(), it,
-                          firsts.long()]).cpu().numpy()
-        seconds = time.perf_counter() - t0
+        if self.speculate:
+            name = (f"serve/decode/persistent/spec{self.speculate}"
+                    f"/r{self.ring_capacity}")
+            key = ("serve_decode_persistent_spec", self.ring_capacity,
+                   self.eos_token, self.speculate, self.spec_ngram)
+        else:
+            name = f"serve/decode/persistent/r{self.ring_capacity}"
+            key = ("serve_decode_persistent", self.ring_capacity, self.eos_token)
+        captured = self._graph_captures()
+        with self._dispatch(name, key, "serve/decode",
+                            self.metrics.decode_s.record) as timing:
+            _, ring, marks, it = self._decode(cache.kv, *args, firsts=pending)
+            if self._graph_captures() > captured:
+                # this engine's own CUDA graph: a program of its own
+                self._note_program(("graph", self._serial))
+                note_compile()
+            slots = list(pending)
+            firsts = (torch.cat([pending[s] for s in slots]) if slots
+                      else torch.zeros(0, dtype=torch.int64, device=dev))
+            # ONE host sync: the ring, its marks, the cursor, the first tokens
+            flat = torch.cat([ring.reshape(-1), marks.reshape(-1).long(), it,
+                              firsts.long()]).cpu().numpy()
         n_ring, n_marks = ring.numel(), marks.numel()
         block = flat[:n_ring].reshape(ring.shape)
         marks = flat[n_ring:n_ring + n_marks].reshape(marks.shape)
         n_it = int(flat[n_ring + n_marks])
         firsts = dict(zip(slots, flat[n_ring + n_marks + 1:].tolist()))
         pending.clear()
-        self.metrics.decode_s.record(seconds)
         self.metrics.count("host_syncs")  # the drain IS the sync
         self.metrics.count("ring_drains")
         self.metrics.count("decode_dispatches")
@@ -682,6 +1415,8 @@ class ServeEngine:
         emitted = 0
         any_cut = False
         for req in running:
+            if req is skip:
+                continue  # half-prefilled: frozen by the staged active mask
             slot = req.slot
             taken = 0
             finished = False
@@ -716,7 +1451,11 @@ class ServeEngine:
         self.metrics.count("tokens_generated", emitted)
         self.metrics.count("tokens_decoded", emitted)
         if emitted:
-            self.metrics.decode_token_s.record(seconds / emitted)
+            self.metrics.decode_token_s.record(timing["seconds"] / emitted)
+
+    def _graph_captures(self) -> int:
+        loop = getattr(self._decode, "loop", None)
+        return 0 if loop is None else loop.captures
 
     def _consume_token(self, req: Request, tok: int, now: float) -> tuple:
         """One decoded token of one request.  Returns ``(1, finished)``."""

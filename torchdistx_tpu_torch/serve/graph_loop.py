@@ -36,6 +36,18 @@ __all__ = ["GraphLoop", "launch_counters"]
 #: eager iterations on the capture stream before the capture
 WARMUP_ITERATIONS = 2
 
+#: one capture stream per device, shared by every loop: cuBLAS keeps a
+#: workspace (tens of MiB, from the caching allocator, for the process's
+#: life) for each stream it has run on, so a stream per loop would leave one
+#: behind per persistent engine
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
 
 def launch_counters() -> List[Tuple[object, str]]:
     """Every ``(wrapper, attribute)`` launch counter of the kernel modules."""
@@ -77,6 +89,7 @@ class GraphLoop:
         self.graph = None
         self._deltas: List[Tuple[object, str, int]] = []
         self.replays = 0  # iterations launched over the loop's life
+        self.captures = 0  # CUDA graphs captured (at most one)
 
     def run(self, body: Callable[[], None], fewest: int, most: int) -> int:
         """Launch between ``fewest`` and ``most`` iterations of ``body`` (on
@@ -115,7 +128,7 @@ class GraphLoop:
         saved_cursor, saved_done = self.cursor.clone(), self.done.clone()
         self.cursor.fill_(self.capacity)  # parked: the body advances nothing
         main = torch.cuda.current_stream(self.cursor.device)
-        side = torch.cuda.Stream(self.cursor.device)
+        side = _capture_stream(self.cursor.device)
         side.wait_stream(main)
         graph = torch.cuda.CUDAGraph()
         try:
@@ -137,3 +150,4 @@ class GraphLoop:
         self._flag = torch.zeros(1, dtype=torch.bool, pin_memory=True)
         self._flag_ready = torch.cuda.Event()
         self.graph = graph
+        self.captures += 1

@@ -2,9 +2,9 @@
 snapshot.
 
 A copy of ``torchdistx_tpu/serve/metrics.py`` (host-only bookkeeping for
-``serve.engine.ServeEngine``), without the Prometheus collector, whose
-registry lives in the JAX package's ``obs`` layer and is not ported yet.
-Recording a value never touches the device.
+``serve.engine.ServeEngine``): recording a value never touches the device.
+:meth:`ServeMetrics.collector` projects it through the port's
+``obs.metrics`` registry.
 
 ``snapshot()`` returns one flat JSON-serializable dict (counters verbatim,
 gauges verbatim, ``<hist>_mean/_p50/_p95/_max/_count`` per histogram, plus
@@ -421,3 +421,53 @@ class ServeMetrics:
                 out[f"{name}_{k}"] = v
         out.update(j["derived"])
         return out
+
+    def collector(self, prefix: str = "tdx_serve"):
+        """An ``obs.metrics`` collector over THIS object's live state —
+        register with ``registry.register_collector(m.collector(),
+        obj=m)`` so a rebound ``engine.metrics`` drops out of the
+        exposition when the old object is collected.  Rendering reads
+        :meth:`to_json`, so the exposition can never drift from the
+        JSON/snapshot schema."""
+        import weakref
+
+        from ..obs.metrics import MetricFamily
+
+        # close over a weakref, not self: a registered collector must
+        # not pin a rebound engine.metrics object in the exposition
+        ref = weakref.ref(self)
+
+        def collect():
+            self = ref()
+            if self is None:
+                return []
+            j = self.to_json()
+            fams = []
+            for name, v in j["counters"].items():
+                fams.append(
+                    MetricFamily(
+                        f"{prefix}_{name}_total", "counter"
+                    ).add(v)
+                )
+            for name, v in j["gauges"].items():
+                fams.append(
+                    MetricFamily(f"{prefix}_{name}", "gauge").add(v)
+                )
+            for name, s in j["histograms"].items():
+                base = name[:-2] + "_seconds" if name.endswith("_s") else name
+                fam = MetricFamily(f"{prefix}_{base}", "summary")
+                fam.add(s["p50"], quantile="0.5")
+                fam.add(s["p95"], quantile="0.95")
+                hist = getattr(self, name)
+                fam.add(hist.total, "_sum")
+                fam.add(hist.count, "_count")
+                fams.append(fam)
+                # quantile-window size (Histogram window semantics)
+                fams.append(
+                    MetricFamily(
+                        f"{prefix}_{base}_window_count", "gauge"
+                    ).add(s["window_count"])
+                )
+            return fams
+
+        return collect

@@ -11,13 +11,21 @@ packages carry weights across with ``interop.load_jax_params``.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import struct
 import threading
 
 import torch
 
-__all__ = ["manual_seed", "derive_seed", "next_generator"]
+__all__ = [
+    "manual_seed",
+    "current_seed",
+    "derive_seed",
+    "next_generator",
+    "next_host_uniform",
+    "rng_scope",
+]
 
 
 class _RngState(threading.local):
@@ -33,6 +41,10 @@ def manual_seed(seed: int) -> None:
     """Reset the init RNG stream (``torch.manual_seed`` analog)."""
     _state.seed = int(seed)
     _state.counter = 0
+
+
+def current_seed() -> int:
+    return _state.seed
 
 
 def derive_seed(seed: int, counter: int) -> int:
@@ -58,3 +70,27 @@ def next_generator(device="cuda") -> torch.Generator:
     g.manual_seed(derive_seed(_state.seed, _state.counter))
     _state.counter += 1
     return g
+
+
+def next_host_uniform() -> float:
+    """Next sample in ``[0, 1)`` from the same counter stream, drawn on the
+    host: SHA-256 of ``(seed, counter)``, 53 mantissa bits.  Advances the
+    counter :func:`next_generator` advances, so host draws and generator
+    draws interleave into one deterministic sequence.  The bits are the JAX
+    package's ``next_host_uniform``'s for the same seed and counter: the
+    open-loop traffic generator (``serve/workload.py``) gives the same
+    request lists on both sides."""
+    digest = hashlib.sha256(struct.pack("<qq", _state.seed, _state.counter)).digest()
+    _state.counter += 1
+    return (int.from_bytes(digest[:8], "little") >> 11) * (2.0 ** -53)
+
+
+@contextlib.contextmanager
+def rng_scope(seed: int):
+    """Temporarily switch to a fresh stream; restores the outer one."""
+    prev = (_state.seed, _state.counter)
+    manual_seed(seed)
+    try:
+        yield
+    finally:
+        _state.seed, _state.counter = prev
