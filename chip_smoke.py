@@ -8,9 +8,10 @@ Phases, each fatal:
 
 1. build the port's CUDA kernels from ``torchdistx_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together), and print the
-   ptxas lines (registers, spills) of each kernel of the four sources,
-   ``flash_fwd.cu``, ``flash_bwd.cu`` (dbias and dtable with it),
-   ``decode_attention.cu`` and ``fused_ce.cu``;
+   ptxas lines (registers, spills) of each kernel of the four kernel
+   sources, ``flash_fwd.cu``, ``flash_bwd.cu`` (dbias and dtable with it),
+   ``decode_attention.cu`` and ``fused_ce.cu``, and build the streamed
+   tail's host function, ``stream_ring.cu``;
 2. hold each kernel against its plain PyTorch version on the card, in bf16
    at llama3_8b shapes (Hq 32, Hkv 8, D 128), and time kernel, plain
    version and the PyTorch library call that computes the same function
@@ -28,8 +29,8 @@ Phases, each fatal:
    past a slot's end included); then
    serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
    random weights drawn from the seed, in turns chunked one step a
-   dispatch, persistent (the decode loop one CUDA graph of an iteration,
-   replayed), chunked eight steps a dispatch;
+   dispatch, then persistent (the decode loop one CUDA graph of an
+   iteration, replayed);
    check the results, every persistent stream (greedy and sampled) equal
    to the first chunked run's, one host sync per ring drain, one graph
    replay per loop iteration, the slot independence of a greedy stream,
@@ -59,9 +60,9 @@ Phases, each fatal:
    and through the plain path, each held against the f32 plain path;
 6. train llama_1b at full width and depth: ``deferred_init`` on the card
    allocates nothing, ``materialize_module`` is bit-identical to an eager
-   construction, then ``Trainer.fit`` takes 10 AnyPrecisionAdamW steps
+   construction, then ``Trainer.fit`` takes 5 AnyPrecisionAdamW steps
    (batch 2 x 2048) with every attention forward and backward through the
-   kernels (launch counters reset just before the fit); then the same 10
+   kernels (launch counters reset just before the fit); then the same 5
    steps with the fused LM-head loss (``fused_ce=True``), every loss
    forward and backward through the ``fused_ce`` kernels;
 7. hold the fused LM-head cross-entropy kernels (``fused_ce_fwd``, and
@@ -75,7 +76,7 @@ Phases, each fatal:
    the plain path, each held against the f32 plain path;
 9. train gpt2_large at full width and depth (36 layers, bf16, batch 8 x
    1024) through ``examples.train_gpt2.main`` with the fused loss: one
-   warm-up step, then 10 steps with the launch counters reset just before;
+   warm-up step, then 5 steps with the launch counters reset just before;
 10. ``torch.profiler`` over one more gpt2_large step: device time per
    step by kernel and kernel class against the step's host-clock time;
 11. hold T5's relative-position-bias variants of the flash kernels (an
@@ -89,10 +90,10 @@ Phases, each fatal:
 12. one backward step of a T5-3B with 4 layers per stack through the
    kernels, in each bias mode, and through the plain path, each held
    against the f32 plain path;
-13. train T5-3B at full width and 8 of its 24 layers a stack (bf16,
+13. train T5-3B at full width and 4 of its 24 layers a stack (bf16,
    batch 4 x 512) through
    ``build_t5_train_workload``: deferred init, materialize on the card,
-   one warm-up step, then 10 ``Trainer.fit`` steps with the launch
+   one warm-up step, then 5 ``Trainer.fit`` steps with the launch
    counters reset just before, then ``torch.profiler`` over two more
    steps, (a) with the materialized bias (dbias), (b) with the bucket
    table (dtable), whose loss and gradients are then computed twice from
@@ -114,7 +115,7 @@ Phases, each fatal:
    through the window forward kernel (counters reset just before);
 17. train mistral_7b at full width and 8 of its 32 layers (batch 1 x 8192)
    through ``build_train_workload``: deferred init, materialize on the
-   card, one warm-up step, then 10 ``Trainer.fit`` steps with every
+   card, one warm-up step, then 5 ``Trainer.fit`` steps with every
    attention forward and backward through the window kernels;
 18. a 2-layer, full-width mixtral_8x7b in int8 at four seeds against its
    bf16 self (the JAX package's MoE fidelity metric over 64 prompts of 16
@@ -142,7 +143,7 @@ Phases, each fatal:
 21. sequence-parallel training at world size 1: ``init_multihost`` on
    NCCL, deferred init of llama3_8b (8 of 32 layers, ``sp_axis="sp"``),
    ``materialize_module(sharding_rule=fsdp_shard_rule(mesh))`` on the
-   card, ``ShardedTrainStep(batch_spec=(None, "sp"))`` and 10
+   card, ``ShardedTrainStep(batch_spec=(None, "sp"))`` and 5
    ``Trainer.fit`` steps at 1 x 8192 with every attention forward through
    the residuals kernel and every backward through the f32-output kernels
    (counters reset just before), the first loss held against the plain
@@ -161,7 +162,7 @@ Phases, each fatal:
 23. GossipGraD and SlowMo across two ranks on the one card: 2 spawned
    processes joined over ``gloo`` (NCCL refuses two ranks on one device;
    ``gloo``'s sends go through pinned host buffers), each with llama_1b
-   at full width and 4 of its 16 layers from the same seed and its own
+   at full width and 2 of its 16 layers from the same seed and its own
    half of each batch, on ``hierarchical_mesh(2)``: (a) 6 GossipGraD
    steps, after each of which the two ranks' parameters are bit-identical
    (with two nodes both take the same sum, (own + peer) * 0.5); (b) 6
@@ -215,8 +216,8 @@ Phases, each fatal:
    emptied its cache), ``build_train_workload("llama2_7b", batch=1,
    seq=4096, optimizer="adamw_8bit", remat=True, remat_policy="dots",
    fused_ce=True)`` on full llama2_7b (32 layers, dim 4096, bf16):
-   deferred init (no card bytes), materialize on the card, 2 warm-up
-   steps, 4 timed ``Trainer.fit`` steps with the launch counters set to 0
+   deferred init (no card bytes), materialize on the card, 1 warm-up
+   step, 2 timed ``Trainer.fit`` steps with the launch counters set to 0
    just before (the flash forward twice a layer a step: ``dots``
    recomputes it), then ``torch.profiler`` over one more step; gated on
    finite losses, the host RSS growth under 32 GB, 6.74e9 parameters on
@@ -232,7 +233,7 @@ Phases, each fatal:
    checked) and the 8-bit AdamW through ``Trainer.fit``: the loss
    ``cross_entropy + 1e-2 * aux`` through ``forward_with_aux``, its first
    value held against the plain attention path's on the same weights and
-   batch (rtol 1e-4), one warm-up step, 3 timed steps at 1 x 4096 with the
+   batch (rtol 1e-4), one warm-up step, 2 timed steps at 1 x 4096 with the
    launch counters set to 0 just before (every attention forward and
    backward through the flash kernels; remat "full" runs the forward twice
    a layer a step): step ms, tokens/s, MFU on active parameters (6 x
@@ -247,7 +248,7 @@ Phases, each fatal:
    logits lay within twice the largest change the other mode made to a
    logit; the logits of the tokens routed alike in every layer within
    2e-2 of the largest, those of all tokens and the argmax agreement
-   printed), and 2 timed steps at 1.25; between the two,
+   printed), and 1 timed step at 1.25; between the two,
    ``torch.profiler`` over one more dense step;
 26. checkpoint, resume and the failure policy on llama_1b at full width
    and 4 of its 16 layers with the 8-bit AdamW and the fused loss:
@@ -264,7 +265,7 @@ Phases, each fatal:
    host RSS growth under 32 GB), its eval forward at 2 x 224 x 224 held
    against the same weights' forward on the CPU (f32, TF32 off, within
    1e-3 of the largest logit), then bf16 ResNet-50 at 128 x 224 x 224
-   with AnyPrecisionAdamW: one warm-up step, 10 timed ``Trainer.fit``
+   with AnyPrecisionAdamW: one warm-up step, 5 timed ``Trainer.fit``
    steps (step ms, images/s, MFU at 3 x 8.18e9 FLOPs an image, peak) with
    the launch counters set to 0 just before (no port kernel lies on this
    path: cuDNN's convolutions stand where the JAX package's XLA
@@ -299,7 +300,42 @@ Phases, each fatal:
    equal to an undrained run printed); (e) ``AutoscaleController`` with
    ``LoadSignal`` over a cut flash crowd, twice: identical decisions, no
    drop, a scale-up; every part's launches counted, and no cost-card
-   probe failed.
+   probe failed; (c)'s disaggregated fleet records its session;
+30. in phase 3's process, after phase 29, on its llama3_8b: (c) the
+   streamed tail, ``persistent_stream=True`` on (c)'s one-engine geometry
+   and scenario: one push a loop iteration (a host node of the captured
+   iteration, ``csrc/stream_ring.cu``), each dispatch's live rows the
+   tokens its drain gave, every first-token stamp before its drain, the
+   streams, host syncs and tokens those of (c)'s run without the stream;
+   (d) the black box: (c)'s one-engine run recorded (its counters, host
+   syncs included, those of the unrecorded run), the stream's cost an
+   iteration (that engine's and (c)'s captured iterations replayed in
+   alternating blocks at their fixpoint, one host function a streamed
+   replay), then the run replayed, (c)'s
+   recorded disaggregated fleet replayed, both chains equal, both files
+   valid, a copy with one token changed naming its drain and request;
+   then, once llama3_8b is freed: (a) full gpt2_large (36 layers, dim
+   1280, 20 heads of 64: group size 1, bf16, 774,030,080 parameters):
+   one 768-token prompt's logits through the kernels against the f32
+   plain path (the 2x rule), then ``ServeEngine`` over 8 slots x 1024, 16
+   requests of 16-768 prompt tokens and 64 new ones (12 greedy, 4
+   sampled) chunked one step a dispatch, persistent and chunked eight
+   steps a dispatch (every stream equal to the first), the paged engine
+   with the prefix cache cold and warm (cold equal to the slab engine),
+   speculate 4 and paged + speculate 4 + int8 on repeating prompts (each
+   above one token a verify; the share of streams equal to a run without
+   drafts printed), each run's flash and decode launches exactly the
+   layers times its cold prefills and its decode steps; one persistent
+   decode ring profiled (the engine's ``serve/*`` annotations left out);
+   the four decode kernels at this shape, bf16 and int8, against their
+   plain versions and timed beside their bounds and SDPA (``speed`` lines
+   of phase 30); (b) full T5-3B (24 + 24 layers, bf16):
+   ``generate_encdec`` of 32 tokens for 4 x 512 encoder tokens with the
+   materialized bias and with the bucket table, one flash launch an
+   encoder layer, the first decode step's logits against the f32 plain
+   model (the 2x rule); (e) phase 26's llama_1b through ``Trainer.fit``,
+   3 steps with ``flight``, ``record``, ``stall_timeout_s`` and
+   ``cost_card`` on, then off: the losses equal.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
 dQ variant and per decode variant, phase 7 one per fused CE kernel and
@@ -320,7 +356,11 @@ timed Mixtral steps among the training runs (also apart, as
 ``launches_mixtral_train``), ``launches_tp_ep_ranks`` gives each
 rank's launches in phase 23 (c) and (d), ``launches_parallel_ranks``
 in (e)-(i), and the flash forward's and the decode kernels'
-``launches_serving_fleet`` phase 29's (also in ``launches``).  Without a CUDA device, or
+``launches_serving_fleet`` phase 29's (also in ``launches``); the
+flash forward's and the decode kernels' ``launches_gpt2_serving`` and
+the T5 forward variants' ``launches_t5_generation`` phase 30's (also in
+``launches``), and each decode entry's ``gpt2_shape`` its times at
+gpt2_large's serving shape.  Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.  It imports nothing of JAX.
 """
@@ -332,8 +372,10 @@ import contextlib
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -412,7 +454,8 @@ DELTA_ATOL = 1e-4
 # the redesigned sources, whose ptxas lines (registers, spills) the build
 # phase prints per kernel
 HOPPER_LIBS = ("flash_fwd", "flash_bwd", "decode_attention", "fused_ce")
-TRAIN_STEPS = 10
+# timed training steps of phases 6, 9, 13, 17 and 21 (10 before phase 30)
+TRAIN_STEPS = 5
 # (N, D, V) of the fused LM-head loss: llama_1b (2 x 2048 tokens), gpt2_large
 # (8 x 1024 tokens, vocab 50257 with no tile divisor), a prime and a tiny N
 CE_CASES = [(4096, 2048, 32000), (8192, 1280, 50257), (509, 1280, 50257), (3, 2048, 32000)]
@@ -438,9 +481,9 @@ BIAS_GRAD_TOL = 2e-2
 # the T5-3B training runs: scripts/bench_t5_train.py's batch and length, at
 # full width and T5_TRAIN_LAYERS of its 24 layers a stack (cut to keep the
 # smoke inside its time: 12 with phases 25-26, 8 with phases 23 (c)/(d) and
-# 25b)
+# 25b, 4 with phase 30)
 T5_BATCH, T5_SEQ = 4, 512
-T5_TRAIN_LAYERS = 8
+T5_TRAIN_LAYERS = 4
 # engine counters a serve run reports
 # the serve runs before phase 29 read the allocator's peak across a whole
 # run, and a cost card's probe resets it at a program's first dispatch: those
@@ -451,15 +494,15 @@ SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_d
                   "ring_full_drains", "loop_iterations")
 # the main serve run's decode modes, run in turns on one model: the
 # chunked engine one step a dispatch, the persistent loop (one CUDA graph
-# of an iteration, replayed), the chunked engine eight steps a dispatch
-# (two more turns, persistent and chunked-1 again, were cut to keep the
-# smoke inside its time with phases 23 (c)/(d) and 25b)
-SERVE_MODES = (("chunked-1", {}), ("persistent", {"decode_mode": "persistent"}),
-               ("chunked-8", {"decode_chunk": 8}))
+# of an iteration, replayed) (two more turns, persistent and chunked-1
+# again, were cut to keep the smoke inside its time with phases 23 (c)/(d)
+# and 25b; the chunked turn of eight steps a dispatch runs on gpt2_large in
+# phase 30 (a) since phase 30)
+SERVE_MODES = (("chunked-1", {}), ("persistent", {"decode_mode": "persistent"}))
 # decode steps run before, and profiled in, each mode's profile window: one
-# persistent ring of this capacity (8, not 32, to keep the smoke inside its
+# persistent ring of this capacity (4, not 32, to keep the smoke inside its
 # time: the profiler's key_averages takes about a second a profiled step)
-PROFILE_RING = 8
+PROFILE_RING = 4
 # the other decode kernels' persistent engines, profiled the same way for
 # each kernel's device time a call inside the graph
 GRAPH_VARIANTS = (("paged_decode_attention", {"page_size": 16}),
@@ -534,7 +577,7 @@ SLOWMO_ULPS = 1.0
 # phase 23: two ranks on the one card over gloo (NCCL refuses two ranks on
 # one device), llama_1b at full width and GOSSIP_LAYERS of its 16 layers a
 # rank, GOSSIP_STEPS steps of GossipGraD, then as many of SlowMo
-GOSSIP_LAYERS = 4
+GOSSIP_LAYERS = 2  # 4 before phase 30
 GOSSIP_STEPS = 6
 GOSSIP_TIMEOUT_S = 480
 # phase 23 (c) and (d) in the same world: tensor parallelism on {"tp": 2},
@@ -562,7 +605,7 @@ TP_UPDATE_RTOL = 0.09
 # shapes: the flash backward at B 1, S 4096, 32 heads, D 128, causal, the
 # fused CE at its loss (N 4096, D 4096, V 32000)
 CONFIG5_BATCH, CONFIG5_SEQ = 1, 4096
-CONFIG5_WARMUP, CONFIG5_STEPS = 2, 4
+CONFIG5_WARMUP, CONFIG5_STEPS = 1, 2  # 2, 4 before phase 30
 CONFIG5_PROFILE_STEPS = 1
 CONFIG5_BWD_CASE = (1, 4096, 32, 32, 128)
 CONFIG5_CE_CASE = (4096, 4096, 32000)
@@ -579,8 +622,8 @@ CONFIG5_TIMEOUT_S = 600
 # (gather) at capacity 4.0 (no token can drop: E / top_k) against the dense
 # forward and MIXTRAL_CAPACITY_STEPS steps at 1.25
 MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_SEQ = 4, 4096
-MIXTRAL_TRAIN_WARMUP, MIXTRAL_TRAIN_STEPS = 1, 3
-MIXTRAL_CAPACITY_STEPS = 2
+MIXTRAL_TRAIN_WARMUP, MIXTRAL_TRAIN_STEPS = 1, 2  # 3 steps before phase 30
+MIXTRAL_CAPACITY_STEPS = 1  # 2 before phase 30
 MIXTRAL_PROFILE_STEPS = 1
 MIXTRAL_AUX_WEIGHT = 1e-2
 MIXTRAL_TRAIN_LR = 1e-5
@@ -618,7 +661,7 @@ VISION_RUNS = ((27, "resnet50", 128), (28, "vit_b16", 64))
 VISION_PARAMS = {"resnet50": 25_557_032, "vit_b16": 86_567_656}
 VISION_EVAL_BATCH = 2
 VISION_EVAL_RTOL = 1e-3
-VISION_WARMUP, VISION_STEPS = 1, 10
+VISION_WARMUP, VISION_STEPS = 1, 5  # 10 steps before phase 30
 VISION_PROFILE_STEPS = 1
 VISION_TIMEOUT_S = 400
 
@@ -898,7 +941,8 @@ def _shuffled_tables(torch, rng, b, pp, num_pages, shared, device):
 
 
 def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
-                          d=128, page_size=16, iters=50):
+                          d=128, page_size=16, iters=20, positions_of=VARIANT_POSITIONS,
+                          phase=2):
     """Each decode kernel variant, {slab, paged} x {S = 1, S = 5} x {bf16,
     int8}, against its plain version at the llama3_8b serving geometry.
     Positions include 0, page boundaries +-1 and ``max_len - 1``; for S = 5
@@ -929,7 +973,7 @@ def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
     rows, failures = [], []
     for layout in ("slab", "paged"):
         for s in (1, 5):
-            positions = VARIANT_POSITIONS[s]
+            positions = positions_of[s]
             pos = torch.tensor(positions, dtype=torch.int32, device=device)
             q = rnd((b, s, hq, d))
             for dt in ("bf16", "int8"):
@@ -1004,9 +1048,9 @@ def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
                 rows.append(row)
                 print("decode variant", json.dumps(row))
                 shape = f"{name} {dt} S{s} B{b} max_len {max_len} Hq{hq}/Hkv{hkv} D{d}"
-                speed_line(2, shape, row, "ms", "bound_ms", "library_ms")
+                speed_line(phase, shape, row, "ms", "bound_ms", "library_ms")
                 if row["device_ms"] and row["library_device_ms"]:
-                    speed_line(2, f"{shape} (device time)", row, "device_ms", "bound_ms",
+                    speed_line(phase, f"{shape} (device time)", row, "device_ms", "bound_ms",
                                "library_device_ms")
     return rows, failures
 
@@ -1289,9 +1333,12 @@ def profile_decode(torch, model, requests, num_slots, max_len, **engine_kw):
     slot) admitted at once, :data:`PROFILE_RING` decode steps run
     unprofiled, then the next PROFILE_RING profiled (a persistent
     engine's second ring, at ``ring_capacity=PROFILE_RING``).  Device ms a
-    step is the profiler's sum of kernel and copy time; the idle share
-    is 1 - that over the window's host-clock time (the profiler's own
-    host overhead included)."""
+    step is the sum of the card's kernel and copy times; the engine's
+    ``serve/*`` regions also land on the card's timeline as annotations,
+    each spanning its dispatch's kernels, and are left out (they counted
+    the kernels a second time).  Busy ms a step is the union of those
+    intervals; the idle share is 1 - busy over the window's host-clock
+    time (the profiler's own host overhead included), unclipped."""
     from torch.profiler import ProfilerActivity, profile
     from torchdistx_tpu_torch.serve import ServeEngine
 
@@ -1313,23 +1360,37 @@ def profile_decode(torch, model, requests, num_slots, max_len, **engine_kw):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     steps = counters["decode_steps"] - first
-    cuda = torch.autograd.DeviceType.CUDA
-    by_class = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == cuda:
-            cls = _kernel_class(e.key) if "decode_" not in e.key else "decode_attention"
-            by_class[cls] = (by_class.get(cls, 0.0)
-                             + getattr(e, "self_device_time_total", 0.0) / 1e3 / max(steps, 1))
-    busy = sum(by_class.values())
     del engine
     if not steps:
         return {"decode_steps": 0, "device_ms_per_step": "not measured"}
+    cuda = torch.autograd.DeviceType.CUDA
+    by_class, spans, annotations = {}, [], 0
+    for e in prof.events():
+        if getattr(e, "device_type", None) != cuda:
+            continue
+        if getattr(e, "is_user_annotation", False) or e.name.startswith("serve/"):
+            annotations += 1
+            continue
+        cls = _kernel_class(e.name) if "decode_" not in e.name else "decode_attention"
+        by_class[cls] = by_class.get(cls, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        spans.append((e.time_range.start, e.time_range.end))
     out = {"decode_steps": steps, "wall_ms_per_step": wall_ms / steps}
-    if not busy:
+    if not spans:
         out["device_ms_per_step"] = "not measured"
         return out
-    out["device_ms_per_step"] = busy
-    out["device_idle_share"] = max(0.0, 1.0 - busy * steps / wall_ms)
+    busy_us, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    busy_ms = busy_us / 1e3
+    out["device_ms_per_step"] = sum(by_class.values())
+    out["device_busy_ms_per_step"] = busy_ms / steps
+    out["device_idle_share"] = 1.0 - busy_ms / wall_ms
+    out["annotations_left_out"] = annotations
     out["by_class_ms_per_step"] = dict(sorted(by_class.items(), key=lambda kv: -kv[1]))
     return out
 
@@ -1354,6 +1415,7 @@ def run_engine(torch, engine, requests):
     summary = {"decode_mode": engine.decode_mode, "requests": len(requests),
                "wall_s": wall, "launches": launches, "cold_prefills": cold,
                "decode_tokens_per_sec": counters["tokens_decoded"] / wall,
+               "ttft_p50_s": _ttft_p50(results),
                "counters": {k: counters[k] for k in SERVE_COUNTERS},
                "loop_replays": engine.loop_replays - replays,
                "graph_captured": _graph_captured(engine),
@@ -1573,7 +1635,7 @@ def _speculative_variants(torch, engine, rng, n_layers, vocab, num_slots, report
     print("d. paged + speculate 4 + int8", json.dumps(ds))
 
     # -- each remaining variant's engine alone ------------------------------------
-    short = [dict(r, max_new_tokens=32) for r in reqs]
+    short = [dict(r, max_new_tokens=16) for r in reqs]  # 32 before phase 30
     alone = {}
     for kw, kernel in ((dict(kv_dtype="int8"), "decode_attention_int8"),
                        (dict(kv_dtype="int8", page_size=16), "paged_decode_attention_int8"),
@@ -5300,12 +5362,15 @@ def _fleet_line(what, handles, wall, got, counters, **extra):
     return out
 
 
-def fleet_part(torch, model, launches):
+def fleet_part(torch, model, launches, record_dir=None):
     """(c) the fleet, every engine paged with the prefix cache, 8 slots x
     2048: three persistent replicas behind the affinity router, the
     busiest removed in the last wave; a warmed replica added; then one
     prefill replica and two persistent decode replicas.  Every stream of
-    the scenario against one engine of equal geometry."""
+    the scenario against one engine of equal geometry.  With
+    ``record_dir`` the disaggregated fleet records its session there
+    (``fleet.jsonl``, replayed by phase 30 (d)); the one engine's streams
+    and counters are kept in the report for phase 30."""
     import numpy as np
     from torchdistx_tpu_torch.serve import LeastLoadedPolicy, ServeEngine, ServeFleet
 
@@ -5319,6 +5384,7 @@ def fleet_part(torch, model, launches):
     ref_h, wall, got = run_waves(torch, single, work, launches)
     ref = [np.asarray(h.result().tokens).tolist() for h in ref_h]
     out["single"] = _fleet_line("(c) one engine", ref_h, wall, got, single.metrics.counters)
+    out["single_streams"], out["single_counters"] = ref, dict(single.metrics.counters)
     errors = single.cost_card_errors
     del single
 
@@ -5385,8 +5451,14 @@ def fleet_part(torch, model, launches):
     pre = ServeEngine(model, **kw)
     dec_p = ServeEngine(model, **loop)
     dec_c = ServeEngine(model, **ring)
+    record = None
+    if record_dir is not None:
+        from torchdistx_tpu_torch.obs.blackbox import SessionRecorder
+
+        record = SessionRecorder(os.path.join(record_dir, "fleet.jsonl"), enabled=True)
+        record.record("model_spec", family="llama", name="llama3_8b", dtype="bfloat16")
     fleet = ServeFleet([pre, dec_p, dec_c], disaggregate=True,
-                       roles=["prefill", "decode", "decode"])
+                       roles=["prefill", "decode", "decode"], record=record)
     handles, wall, got = run_waves(torch, fleet, work, launches)
     handoffs = [d for name, _, d in fleet.events if name == "handoff"]
     eq = check("(c) disaggregated fleet", handles)
@@ -5407,6 +5479,10 @@ def fleet_part(torch, model, launches):
         streams_equal=eq, handoffs=len(handoffs),
         pages_moved=[h["pages_moved"] for h in handoffs],
         wire_bytes=sum(h["wire_bytes"] for h in handoffs), persistent_target=graph)
+    if record is not None:
+        record.close()
+        out["disaggregated"]["streams"] = [np.asarray(h.result().tokens).tolist()
+                                           for h in handles]
     errors += sum(e.cost_card_errors for e in (pre, dec_p, dec_c))
     del fleet, pre, dec_p, dec_c
     return out, failures, errors
@@ -5514,10 +5590,11 @@ def autoscale_part(torch, model, launches):
     return out, failures, e1 + e2
 
 
-def serve_fleet_phase(torch, model, seed):
+def serve_fleet_phase(torch, model, seed, record_dir=None):
     """Phase 29 on phase 3's model: (a)-(e), each fatal.  Returns (report,
     failures, launches), the launches of rows 1, 9-12 summed over every run
-    of the phase (the counters set to 0 just before each run)."""
+    of the phase (the counters set to 0 just before each run).  With
+    ``record_dir``, (c)'s disaggregated fleet records its session there."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -5530,7 +5607,7 @@ def serve_fleet_phase(torch, model, seed):
     errors += paged.cost_card_errors
     del paged
     torch.cuda.empty_cache()
-    report["c"], f, e = fleet_part(torch, model, launches)
+    report["c"], f, e = fleet_part(torch, model, launches, record_dir)
     failures += f
     errors += e
     torch.cuda.empty_cache()
@@ -5549,6 +5626,549 @@ def serve_fleet_phase(torch, model, seed):
     print("serve fleet launches", json.dumps({"launches": launches,
                                               "seconds": report["seconds"]}))
     return report, [f"phase 29 {x}" for x in failures], launches
+
+
+# -- phase 30: GPT-2 and T5 on the card, the streamed tail, the black box -------
+# (a) gpt2_large at full width and depth (36 layers, dim 1280, 20 heads of 64:
+# Hq = Hkv, group size 1), bf16, 8 slots x 1024, 16 requests of 16-768 prompt
+# tokens, 64 new tokens, 12 greedy and 4 sampled
+GPT2_SERVE, GPT2_PARAMS = "gpt2_large", 774_030_080
+GPT2_SLOTS, GPT2_MAX_LEN, GPT2_PROMPTS, GPT2_NEW = 8, 1024, (16, 768), 64
+GPT2_LOGITS_PROMPT = 768
+# decode steps a dispatch of (a)'s fused multi-step chunked run
+GPT2_DECODE_CHUNK = 8
+# (c)'s stream cost: replays of each captured iteration a timed block, and
+# blocks each, alternating with and without the stream
+STREAM_COST_REPLAYS, STREAM_COST_ROUNDS = 20, 6
+# the decode variants' slot depths at GPT-2's geometry (page 16): 0, page
+# boundaries +-1, max_len - 1; with S = 5 the last slots' rows run past it
+GPT2_VARIANT_POSITIONS = {1: [0, 15, 16, 17, 511, 512, 800, 1023],
+                          5: [0, 12, 15, 508, 512, 900, 1020, 1023]}
+# (b) T5-3B at full depth (24 + 24 layers), bf16, B 4 x 512 encoder tokens,
+# 32 new tokens, in the materialized-bias and the bucket-table modes
+T5_GEN, T5_GEN_BATCH, T5_GEN_SEQ, T5_GEN_NEW = "t5_3b", 4, 512, 32
+# (e) phase 26's llama_1b (full width, CKPT_LAYERS layers, 8-bit AdamW, fused
+# loss, 2 x 2048), TRAINER_STEPS steps with the Trainer's telemetry on and off
+TRAINER_STEPS = 3
+TRAINER_STALL_S = 600.0
+
+
+def gpt2_serve_phase(torch, tt, seed):
+    """(a) ``ServeEngine`` serving full gpt2_large through the flash kernel
+    (cold prefills, D 64) and the four decode kernels at group size 1:
+    chunked against persistent (every stream equal), paged with the prefix
+    cache cold and warm (cold equal to the slab engine), speculate 4 (the
+    block kernel), paged + speculate 4 + int8; each run's launches exact.
+    Before them the kernel path's logits of one long prompt against the f32
+    plain path (the 2x rule), after them one persistent decode ring under
+    the profiler and the four decode kernels at this shape beside their
+    plain versions, their bounds and SDPA (rows 9-12, entry G)."""
+    import numpy as np
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    failures, report = [], {}
+    GPT2 = tt.models.GPT2
+    tt.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = GPT2.from_name(GPT2_SERVE, dtype=torch.bfloat16, device="cuda").requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    cfg = model.cfg
+    n_layers, vocab = cfg.n_layers, cfg.vocab_size
+    report["model"] = {"name": GPT2_SERVE, "n_params": n_params, "layers": n_layers,
+                       "dim": cfg.dim, "heads": cfg.n_heads, "head_dim": cfg.dim // cfg.n_heads,
+                       "init_s": time.perf_counter() - t0}
+    if n_params != GPT2_PARAMS:
+        failures.append(f"{GPT2_SERVE}: {n_params} parameters != {GPT2_PARAMS}")
+    ref = GPT2.from_name(GPT2_SERVE, dtype=torch.float32, device="cuda").requires_grad_(False)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        ok, info = check_logits(torch, model, ref, prompt_len=GPT2_LOGITS_PROMPT)
+    del ref
+    torch.cuda.empty_cache()
+    print("gpt2_large logits vs f32 plain path", json.dumps(info))
+    if not ok:
+        failures.append(f"gpt2 logits: {info}")
+    report["logits"] = info
+
+    rng = np.random.RandomState(seed)
+    reqs = make_requests(rng, vocab, n=16, n_greedy=12, max_new=GPT2_NEW,
+                         lo=GPT2_PROMPTS[0], hi=GPT2_PROMPTS[1])
+    runs = {}
+    with torch.no_grad():
+        res_c, runs["chunked"], f = serve(torch, model, reqs, GPT2_SLOTS, GPT2_MAX_LEN)
+        failures += [f"gpt2 chunked: {x}" for x in f]
+        res_p, runs["persistent"], f = serve(torch, model, reqs, GPT2_SLOTS, GPT2_MAX_LEN,
+                                             decode_mode="persistent")
+        failures += [f"gpt2 persistent: {x}" for x in f]
+        runs["persistent"]["streams_equal_chunked"] = _streams(res_p) == _streams(res_c)
+        if not runs["persistent"]["streams_equal_chunked"]:
+            failures.append("gpt2 persistent streams differ from chunked")
+        # the fused multi-step decode: GPT2_DECODE_CHUNK steps a dispatch
+        res_8, runs["chunked_8"], f = serve(torch, model, reqs, GPT2_SLOTS, GPT2_MAX_LEN,
+                                            decode_chunk=GPT2_DECODE_CHUNK)
+        failures += [f"gpt2 chunked-{GPT2_DECODE_CHUNK}: {x}" for x in f]
+        runs["chunked_8"]["streams_equal_chunked"] = _streams(res_8) == _streams(res_c)
+        if not runs["chunked_8"]["streams_equal_chunked"]:
+            failures.append(f"gpt2 chunked-{GPT2_DECODE_CHUNK} streams differ from chunked-1")
+
+        def engine(**kw):
+            return ServeEngine(model, num_slots=GPT2_SLOTS, max_len=GPT2_MAX_LEN,
+                               cost_cards=False, **kw)
+
+        share = prefix_share_requests(rng, vocab, n=GPT2_SLOTS, max_len=GPT2_MAX_LEN,
+                                      max_new=GPT2_NEW)
+        paged = engine(page_size=16, prefix_cache=True)
+        cold, runs["paged_cold"] = run_engine(torch, paged, share)
+        warm, runs["paged_warm"] = run_engine(torch, paged, share)
+        del paged
+        slab, runs["slab"] = run_engine(torch, engine(), share)
+        for what, res, key in (("paged_cold", cold, "paged_decode_attention"),
+                               ("paged_warm", warm, "paged_decode_attention"),
+                               ("slab", slab, "decode_attention")):
+            summ = runs[what]
+            failures += _greedy_failures(f"gpt2 {what}", share, res, vocab)
+            failures += _launch_failures(f"gpt2 {what}", summ, {
+                key: n_layers * summ["counters"]["decode_steps"],
+                "flash_fwd": n_layers * summ["cold_prefills"]})
+        if not runs["paged_warm"]["counters"]["prefix_hit_tokens"] > 0:
+            failures.append("gpt2 paged warm pass: no prefix hit")
+        runs["paged_cold"]["streams_equal_slab"] = _streams(cold) == _streams(slab)
+        if not runs["paged_cold"]["streams_equal_slab"]:
+            failures.append("gpt2 paged cold pass differs from the slab engine")
+
+        cyc = cyclic_requests(rng, vocab, n=GPT2_SLOTS, max_new=GPT2_NEW)
+        spec, runs["speculate"] = run_engine(torch, engine(speculate=4, spec_ngram=2), cyc)
+        full, runs["paged_spec_int8"] = run_engine(
+            torch, engine(page_size=16, speculate=4, kv_dtype="int8"), cyc)
+        # the same prompts without drafts (persistent: its streams are the
+        # chunked slab engine's), for the share of greedy streams unchanged
+        base, runs["speculate_0"] = run_engine(torch, engine(decode_mode="persistent"), cyc)
+        failures += _greedy_failures("gpt2 speculate_0", cyc, base, vocab)
+        failures += _launch_failures("gpt2 speculate_0", runs["speculate_0"], {
+            "decode_attention": n_layers * runs["speculate_0"]["counters"]["decode_steps"],
+            "flash_fwd": n_layers * runs["speculate_0"]["cold_prefills"]})
+        for what, res, key in (("speculate", spec, "decode_attention_block"),
+                               ("paged_spec_int8", full, "paged_decode_attention_block_int8")):
+            summ = runs[what]
+            summ["tokens_per_verify"] = _tokens_per_verify(summ["counters"], 4)
+            summ["greedy_share_equal_to_speculate0"] = float(np.mean([
+                np.array_equal(np.asarray(a.tokens), np.asarray(b.tokens))
+                for a, b in zip(res, base)]))  # every cyclic request is greedy
+            if not summ["tokens_per_verify"] > 1:
+                failures.append(f"gpt2 {what}: {summ['tokens_per_verify']} tokens per verify")
+            failures += _greedy_failures(f"gpt2 {what}", cyc, res, vocab)
+            failures += _launch_failures(f"gpt2 {what}", summ, {
+                key: n_layers * summ["counters"]["decode_steps"],
+                "flash_fwd": n_layers * summ["cold_prefills"]})
+        for name, summ in runs.items():
+            print(f"serve gpt2_large {name}", json.dumps(summ))
+        prof = profile_decode(torch, model, reqs[:GPT2_SLOTS], GPT2_SLOTS, GPT2_MAX_LEN,
+                              decode_mode="persistent")
+        print("serve profile persistent gpt2_large", json.dumps(prof))
+    report["runs"], report["profile_persistent"] = runs, prof
+    rows, f = check_decode_variants(torch, torch.device("cuda"), b=GPT2_SLOTS,
+                                    max_len=GPT2_MAX_LEN, hq=cfg.n_heads, hkv=cfg.n_heads,
+                                    d=cfg.dim // cfg.n_heads, iters=20,
+                                    positions_of=GPT2_VARIANT_POSITIONS, phase=30)
+    failures += [f"gpt2 decode variants: {x}" for x in f]
+    report["decode_variants"] = rows
+    del model
+    torch.cuda.empty_cache()
+    return report, [f"phase 30 (a) {x}" for x in failures]
+
+
+def _t5_first_logits(torch, model, src, use_flash):
+    """The first decode step's f32 logits (the start token at position 0)
+    after the encoder, through the kernels or the plain path."""
+    saved = model.cfg.use_flash
+    model.cfg.use_flash = use_flash
+    try:
+        enc = model.encode(src)
+        cache = model.init_decoder_cache(enc, 1)
+        tok = torch.zeros((src.shape[0], 1), dtype=torch.long, device=src.device)
+        return model.decode_step(tok, cache, 0)[0].float()
+    finally:
+        model.cfg.use_flash = saved
+
+
+def t5_generate_phase(torch, tt, seed):
+    """(b) ``generate_encdec`` on full T5-3B, bf16, B 4 x 512 encoder
+    tokens, 32 new tokens, with the materialized bias and with the bucket
+    table: the encoder once through the flash kernel's bias or bucket
+    variant (one launch an encoder layer), the decoder on the plain path.
+    The first decode step's logits through the kernel encoder are held
+    against the f32 plain model within LOGITS_FACTOR times the bf16 plain
+    path's distance."""
+    from torchdistx_tpu_torch.generation import generate_encdec
+
+    failures, report = [], {}
+    T5 = tt.models.T5
+    tt.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = T5.from_name(T5_GEN, dtype=torch.bfloat16, device="cuda",
+                         use_flash=True).requires_grad_(False)
+    cfg = model.cfg
+    report["model"] = {"name": T5_GEN, "layers_per_stack": cfg.n_layers, "dim": cfg.dim,
+                       "heads": cfg.n_heads, "d_kv": cfg.d_kv,
+                       "n_params": sum(p.numel() for p in model.parameters()),
+                       "init_s": time.perf_counter() - t0}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    src = torch.randint(1, cfg.vocab_size, (T5_GEN_BATCH, T5_GEN_SEQ), generator=g,
+                        device="cuda")
+    with torch.no_grad():
+        ref_model = T5.from_name(T5_GEN, dtype=torch.float32, device="cuda",
+                                 use_flash=False).requires_grad_(False)
+        ref_model.load_state_dict(model.state_dict())
+        ref = _t5_first_logits(torch, ref_model, src, False)
+        del ref_model
+        torch.cuda.empty_cache()
+        for bucket in (False, True):
+            mode = "bucket" if bucket else "bias"
+            model.cfg.flash_bucket_bias = bucket
+            kern = _t5_first_logits(torch, model, src, True)
+            plain = _t5_first_logits(torch, model, src, False)
+            ok, info = _logits_verdict(torch, model, kern, plain, ref,
+                                       [T5_GEN_BATCH, 1, cfg.vocab_size], mode=mode)
+            info["layers"] = cfg.n_layers
+            print(f"t5_3b first decode logits vs f32 plain path ({mode})", json.dumps(info))
+            if not ok:
+                failures.append(f"t5 {mode} logits: {info}")
+            torch.cuda.synchronize()
+            _reset_counters()
+            t0 = time.perf_counter()
+            out = generate_encdec(model, src, T5_GEN_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in _read_counters().items() if v}
+            key = f"flash_fwd_{mode}"
+            run = {"mode": mode, "batch": T5_GEN_BATCH, "encoder_tokens": T5_GEN_SEQ,
+                   "new_tokens": T5_GEN_NEW, "wall_s": wall,
+                   "s_per_generated_token": wall / T5_GEN_NEW,
+                   "launches": got, "logits": info,
+                   "shape": list(out.shape),
+                   "in_vocab": bool(((out >= 0) & (out < cfg.vocab_size)).all())}
+            print(f"generate t5_3b {mode}", json.dumps(run))
+            if got.get(key, 0) != cfg.n_layers or got.get("flash_fwd", 0) != cfg.n_layers:
+                failures.append(f"t5 {mode}: {key} launches {got} != {cfg.n_layers}")
+            if run["shape"] != [T5_GEN_BATCH, T5_GEN_NEW] or not run["in_vocab"]:
+                failures.append(f"t5 {mode}: output {run['shape']}, in vocab {run['in_vocab']}")
+            report[mode] = run
+    del model
+    torch.cuda.empty_cache()
+    return report, [f"phase 30 (b) {x}" for x in failures]
+
+
+def _slot_of(req):
+    return next(d["slot"] for name, _, d in req.events if name == "admitted")
+
+
+def stream_waves(torch, engine, work):
+    """:func:`run_waves` on a ``persistent_stream`` engine, checking each
+    dispatch: its pushes are its loop iterations, the cursors 0, 1, ...,
+    and each request's live rows are the tokens its drain walk took.
+    Returns (handles, wall, failures)."""
+    failures = []
+    ticks = sorted({t for t, _ in work})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = []
+
+    def step():
+        reqs = [h._request for h in handles]
+        before = {id(r): len(r.generated) for r in reqs}
+        iters = engine.metrics.counters["loop_iterations"]
+        engine.step()
+        n_it = engine.metrics.counters["loop_iterations"] - iters
+        events = engine.stream_events if n_it else []
+        if len(events) != n_it or [e[3] for e in events] != list(range(n_it)):
+            failures.append(f"(c) {len(events)} pushes for {n_it} iterations")
+        for req in reqs:
+            got = req.generated[before[id(req)]:]
+            chunks = [d for name, _, d in req.events if name == "decode_chunk"]
+            if not got or not chunks or not n_it:
+                continue
+            ring = got[len(got) - chunks[-1]["tokens"]:]
+            slot = _slot_of(req)
+            streamed = [int(toks[slot]) for _, toks, live, _ in events if live[slot]]
+            if streamed[:len(ring)] != ring:
+                failures.append(f"(c) request {req.rid}: streamed {streamed[:4]}... "
+                                f"!= drained {ring[:4]}...")
+
+    for t in ticks:
+        wave = [engine.submit(**kw) for tick, kw in work if tick == t]
+        handles += wave
+        step()
+        while not all(h.done() for h in wave):
+            step()
+    torch.cuda.synchronize()
+    return handles, time.perf_counter() - t0, failures
+
+
+def stream_part(torch, model, c_report):
+    """(c) ``persistent_stream=True`` on phase 29 (c)'s one-engine geometry
+    and scenario: one push a loop iteration (a host node of the captured
+    iteration), streamed tokens equal to the drained ones, every
+    first-token stamp before its drain, and the streams, host syncs and
+    tokens those of (c)'s run without the stream."""
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    kw = dict(num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN, prefill_buckets=FLEET_BUCKETS,
+              page_size=16, prefix_cache=True, decode_mode="persistent")
+    work = fleet_requests(model)
+    engine = ServeEngine(model, persistent_stream=True, **kw)
+    handles, wall, failures = stream_waves(torch, engine, work)
+    c = engine.metrics.counters
+    ref = c_report["single_counters"]
+    streams = [h.result().tokens.tolist() for h in handles]
+    before = [
+        (r.rid, first, drain)
+        for r in (h._request for h in handles)
+        for first in [next(ts for name, ts, _ in r.events if name == "first_token")]
+        for drain in [next((ts for name, ts, _ in r.events if name == "decode_chunk"), None)]
+        if drain is not None and not first < drain]
+    out = {"requests": len(handles), "wall_s": wall, "stream_supported": engine.stream_supported,
+           "pushes": c["stream_callbacks"], "loop_iterations": c["loop_iterations"],
+           "loop_replays": engine.loop_replays, "dropped": engine._decode.stream.dropped,
+           "host_syncs": c["host_syncs"], "host_syncs_without_stream": ref["host_syncs"],
+           "tokens_generated": c["tokens_generated"],
+           "host_syncs_per_token": c["host_syncs"] / c["tokens_generated"],
+           "host_syncs_per_token_without_stream": ref["host_syncs"] / ref["tokens_generated"],
+           "streams_equal_without_stream": streams == c_report["single_streams"],
+           "first_token_stamps_after_drain": before,
+           "wall_s_without_stream": c_report["single"]["wall_s"],
+           "ttft_p50_s": _ttft_p50([h.result() for h in handles]),
+           "ttft_p50_s_without_stream": c_report["single"]["ttft_p50_s"]}
+    print("(c) persistent_stream", json.dumps(out))
+    if engine.stream_supported != "host_node":
+        failures.append(f"(c) stream_supported {engine.stream_supported}")
+    if not (out["pushes"] == out["loop_iterations"] == out["loop_replays"] > 0):
+        failures.append(f"(c) pushes {out['pushes']}, iterations {out['loop_iterations']}, "
+                        f"replays {out['loop_replays']}")
+    if out["dropped"] or before:
+        failures.append(f"(c) dropped {out['dropped']}, stamps after the drain {before[:3]}")
+    if (c["host_syncs"], c["tokens_generated"]) != (ref["host_syncs"], ref["tokens_generated"]):
+        failures.append(f"(c) host syncs {c['host_syncs']} / tokens {c['tokens_generated']} != "
+                        f"{ref['host_syncs']} / {ref['tokens_generated']} without the stream")
+    if not out["streams_equal_without_stream"]:
+        failures.append("(c) streams differ from the run without the stream")
+    return out, [f"phase 30 {x}" for x in failures], engine
+
+
+def stream_cost(torch, streamed, plain):
+    """The streamed tail's cost a loop iteration, in one process: two
+    persistent engines of one geometry that ran the same scenario to its
+    end, ``streamed`` with ``persistent_stream=True`` and ``plain``
+    without, so both loops stand at their fixpoint (every slot finished:
+    an iteration computes and changes no loop state) at equal positions.
+    Their captured iterations, with and without the copy and the host
+    node, are replayed STREAM_COST_REPLAYS times a block, in alternating
+    blocks (ABBA order), STREAM_COST_ROUNDS blocks each, timed by CUDA
+    events (the host node's wait included) and the host clock.  Every
+    replay of the streamed graph must run its host function once."""
+    import numpy as np
+
+    n, rounds = STREAM_COST_REPLAYS, STREAM_COST_ROUNDS
+    graphs = {"stream": streamed._decode.loop.graph, "plain": plain._decode.loop.graph}
+    ring = streamed._decode.stream
+    pushed = ring.count() + ring.dropped
+    dev = {k: [] for k in graphs}
+    host = {k: [] for k in graphs}
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        for name in (("stream", "plain") if r % 2 == 0 else ("plain", "stream")):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                graphs[name].replay()
+            end.record()
+            end.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3 / n)
+            dev[name].append(start.elapsed_time(end) / n)
+    pushes = ring.count() + ring.dropped - pushed
+    diff = np.array(dev["stream"]) - np.array(dev["plain"])
+    host_diff = np.array(host["stream"]) - np.array(host["plain"])
+    out = {"replays_a_block": n, "blocks_each": rounds, "pushes": pushes,
+           "device_ms_per_replay": {k: float(np.median(v)) for k, v in dev.items()},
+           "device_ms_per_replay_min_max": {k: [min(v), max(v)] for k, v in dev.items()},
+           "host_ms_per_replay": {k: float(np.median(v)) for k, v in host.items()},
+           "stream_cost_device_ms_per_iteration": float(np.median(diff)),
+           "stream_cost_device_ms_min_max": [float(diff.min()), float(diff.max())],
+           "stream_cost_host_ms_per_iteration": float(np.median(host_diff)),
+           "stream_cost_host_ms_min_max": [float(host_diff.min()), float(host_diff.max())]}
+    print("(c) stream cost", json.dumps(out))
+    failures = []
+    if pushes != n * rounds:
+        failures.append(f"(c) stream cost: {pushes} host functions for {n * rounds} replays")
+    return out, [f"phase 30 {x}" for x in failures]
+
+
+def _replay_engine(model):
+    from torchdistx_tpu_torch.obs.blackbox import geometry_kwargs
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    return lambda rec, geom: ServeEngine(model, record=rec, **geometry_kwargs(geom))
+
+
+def blackbox_part(torch, model, c_report, record_dir, streamed):
+    """(d) the black box on phase 29 (c)'s runs: the one engine's run
+    recorded again (its counters, host syncs included, those of (c)'s
+    unrecorded run), then replayed in this process; (c)'s disaggregated
+    three-replica fleet, recorded in (c), replayed; both files valid, both
+    chains equal; a copy with one token changed in a mid-session drain
+    names that drain and that request.  Between the recorded run and its
+    replay, :func:`stream_cost` on that engine (no stream) and 30 (c)'s
+    ``streamed`` engine, which ran the same scenario."""
+    from torchdistx_tpu_torch.obs.blackbox import (SessionRecorder, load_session, rechain,
+                                                   replay_session, validate_session_jsonl)
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    failures, out = [], {}
+    kw = dict(num_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN, prefill_buckets=FLEET_BUCKETS,
+              page_size=16, prefix_cache=True, decode_mode="persistent")
+    path = os.path.join(record_dir, "engine.jsonl")
+    rec = SessionRecorder(path, enabled=True)
+    rec.record("model_spec", family="llama", name="llama3_8b", dtype="bfloat16")
+    engine = ServeEngine(model, record=rec, **kw)
+    # the recorder's own host time: every call into it, and the engine's
+    # drain fold, timed (nested calls once)
+    spent, depth = [0.0], [0]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    spent[0] += time.perf_counter() - t
+        return run
+
+    for obj, name in ((rec, "record"), (rec, "record_submit"), (rec, "register_request"),
+                      (rec, "drain"), (engine, "_record_drain")):
+        setattr(obj, name, timed(getattr(obj, name)))
+    handles, wall, _ = run_waves(torch, engine, fleet_requests(model), {})
+    rec.close()
+    c, ref = dict(engine.metrics.counters), c_report["single_counters"]
+    out["stream_cost"], f = stream_cost(torch, streamed, engine)
+    failures += f
+    del engine
+    out["engine"] = {"drains": rec.drains, "host_syncs": c["host_syncs"],
+                     "host_syncs_unrecorded": ref["host_syncs"],
+                     "counters_equal_unrecorded": c == ref, "wall_s": wall,
+                     "wall_s_unrecorded": c_report["single"]["wall_s"],
+                     "loop_iterations": c["loop_iterations"],
+                     "file_bytes": os.path.getsize(path),
+                     "errors": validate_session_jsonl(path)}
+    out["engine"]["recorder_host_s"] = spent[0]
+    out["engine"]["recorder_cost_ms_per_iteration"] = (
+        spent[0] / max(1, c["loop_iterations"]) * 1e3)
+    if c != ref:
+        failures.append(f"(d) recording moved counters: "
+                        f"{ {k: (c.get(k), ref.get(k)) for k in set(c) | set(ref) if c.get(k) != ref.get(k)} }")
+    t0 = time.perf_counter()
+    v = replay_session(path, engine_factory=_replay_engine(model))
+    out["engine"]["replay"] = {k: v.get(k) for k in (
+        "verdict", "drains_recorded", "drains_replayed", "chain_recorded", "chain_replayed")}
+    out["engine"]["replay"]["seconds"] = time.perf_counter() - t0
+    if v["verdict"] != "match" or v["chain_recorded"] != rec.chain:
+        failures.append(f"(d) engine replay: {out['engine']['replay']}")
+
+    fleet_path = os.path.join(record_dir, "fleet.jsonl")
+    t0 = time.perf_counter()
+    v = replay_session(fleet_path, engine_factory=_replay_engine(model))
+    out["fleet"] = {k: v.get(k) for k in (
+        "verdict", "drains_recorded", "drains_replayed", "chain_recorded", "chain_replayed")}
+    out["fleet"].update(seconds=time.perf_counter() - t0,
+                        errors=validate_session_jsonl(fleet_path),
+                        file_bytes=os.path.getsize(fleet_path))
+    if v["verdict"] != "match" or v["chain_recorded"] != v["chain_replayed"]:
+        failures.append(f"(d) fleet replay: {out['fleet']}")
+
+    events, _ = load_session(path)
+    drains = [e for e in events if e.get("kind") == "drain" and e.get("tokens")]
+    target = drains[len(drains) // 2]
+    # the copy ends at the changed drain (a killed run's file): replay
+    # re-drives only the events before it
+    tampered = []
+    for e in events:
+        e = dict(e)
+        tampered.append(e)
+        if e.get("kind") == "drain" and e.get("seq") == target["seq"]:
+            rid = sorted(e["tokens"])[0]
+            e["tokens"] = dict(e["tokens"], **{rid: [t + 1 for t in e["tokens"][rid]]})
+            break
+    v = replay_session(rechain(tampered), engine_factory=_replay_engine(model))
+    d = v.get("first_divergence") or {}
+    out["tampered"] = {"verdict": v["verdict"], "seq": d.get("seq"), "tick": d.get("tick"),
+                       "rids": d.get("rids"), "counters": d.get("counters"),
+                       "expected_seq": target["seq"],
+                       "expected_rid": int(sorted(target["tokens"])[0])}
+    if (v["verdict"] != "divergent" or d.get("seq") != target["seq"]
+            or d.get("rids") != [out["tampered"]["expected_rid"]]):
+        failures.append(f"(d) tampered copy: {out['tampered']}")
+    for what in ("engine", "fleet"):
+        if out[what]["errors"]:
+            failures.append(f"(d) {what} file invalid: {out[what]['errors'][:2]}")
+    print("(d) black box", json.dumps(out))
+    return out, [f"phase 30 {x}" for x in failures]
+
+
+def trainer_phase(torch, seed, record_dir):
+    """(e) phase 26's llama_1b through ``Trainer.fit`` twice from the same
+    seed and batch: with ``flight``, ``record``, ``stall_timeout_s`` and
+    ``cost_card`` all on, then all off.  The losses must be equal; the
+    session file valid, one ``train_step`` a step."""
+    import itertools
+
+    from torchdistx_tpu_torch.obs.blackbox import load_session, validate_session_jsonl
+    from torchdistx_tpu_torch.obs.flight import FlightRecorder
+    from torchdistx_tpu_torch.trainer import Trainer
+    from torchdistx_tpu_torch.utils.benchmarks import build_train_workload
+
+    failures, out = [], {}
+    path = os.path.join(record_dir, "train.jsonl")
+    for on in (True, False):
+        w = build_train_workload("llama_1b", batch=2, seq=2048, n_layers=CKPT_LAYERS,
+                                 optimizer="adamw_8bit", fused_ce=True, device="cuda",
+                                 seed=seed)
+        kw = (dict(flight=FlightRecorder(), record=path, stall_timeout_s=TRAINER_STALL_S,
+                   cost_card=True) if on else dict(flight=False))
+        tr = Trainer(w["step"], log_every=1, log_fn=lambda m: None,
+                     tokens_per_batch=w["tokens_per_batch"],
+                     flops_per_token=w["flops_per_token"], **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.fit(itertools.repeat(w["batch"]), TRAINER_STEPS)
+        torch.cuda.synchronize()
+        run = {"losses": [float(x) for x in w["step"].losses], "wall_s": time.perf_counter() - t0}
+        if on:
+            tr.recorder.close()
+            card = tr.cost_card
+            run.update(cost_card=None if card is None else card.to_json(),
+                       stalls=tr.watchdog.stalls_total,
+                       flight_records=tr.flight.recorded_total,
+                       session_errors=validate_session_jsonl(path),
+                       train_steps_recorded=sum(1 for e in load_session(path)[0]
+                                                if e.get("kind") == "train_step"))
+        out["on" if on else "off"] = run
+        del w, tr
+        torch.cuda.empty_cache()
+    on, off = out["on"], out["off"]
+    out["losses_equal"] = on["losses"] == off["losses"]
+    print("(e) trainer telemetry llama_1b", json.dumps(out))
+    if not out["losses_equal"]:
+        failures.append(f"(e) losses {on['losses']} != {off['losses']} with telemetry off")
+    if on["session_errors"] or on["train_steps_recorded"] != TRAINER_STEPS:
+        failures.append(f"(e) session: {on['session_errors']}, {on['train_steps_recorded']} steps")
+    if on["cost_card"] is None or not on["cost_card"].get("peak_bytes"):
+        failures.append(f"(e) no cost card: {on['cost_card']}")
+    if on["stalls"]:
+        failures.append(f"(e) the watchdog fired {on['stalls']} times")
+    return out, [f"phase 30 {x}" for x in failures]
 
 
 def sp_kernel_entries(rows, sp_run):
@@ -5726,7 +6346,7 @@ def main(argv=None) -> int:
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = ["flash_fwd", "flash_bwd", "decode_attention", "fused_ce"]
+    libs = ["flash_fwd", "flash_bwd", "decode_attention", "fused_ce", "stream_ring"]
     built = _build.build_all(libs)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({', '.join(built) or 'up to date'})")
@@ -5805,16 +6425,48 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         print(f"phase start: {time.perf_counter() - t_start:.1f} s")
         # -- 29. chunked prefill, the HBM gate, the fleet, the autoscaler ------
+        # (the session files of phase 30 (d) and (e) go to record_dir)
+        record_dir = tempfile.mkdtemp(prefix="tdx_session_")
         with torch.no_grad():
             fleet_report, f29, fleet_launches = serve_fleet_phase(torch, model,
-                                                                  args.seed + 15)
+                                                                  args.seed + 15, record_dir)
         failures += f29
         report["serve_fleet"] = fleet_report
+        torch.cuda.empty_cache()
+        print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+        # -- 30 (c), (d). the streamed tail and the black box on phase 29 ------
+        with torch.no_grad():
+            stream_report, f30, streamed = stream_part(torch, model, fleet_report["c"])
+            failures += f30
+            bb_report, f30 = blackbox_part(torch, model, fleet_report["c"], record_dir,
+                                           streamed)
+            failures += f30
+            del streamed
+        report["phase30"] = {"c_stream": stream_report, "d_blackbox": bb_report}
         del model
         torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         _fail("serve phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 30 (a), (b), (e). GPT-2 serving, T5 generation, the Trainer's telemetry
+    try:
+        gpt2_serve, f30 = gpt2_serve_phase(torch, tt, args.seed + 16)
+        failures += f30
+        torch.cuda.empty_cache()
+        print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+        t5_gen, f30 = t5_generate_phase(torch, tt, args.seed + 17)
+        failures += f30
+        print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+        trainer_tel, f30 = trainer_phase(torch, args.seed + 18, record_dir)
+        failures += f30
+        shutil.rmtree(record_dir, ignore_errors=True)
+        report["phase30"].update(a_gpt2=gpt2_serve, b_t5=t5_gen, e_trainer=trainer_tel)
+        torch.cuda.empty_cache()
+    except Exception:
+        traceback.print_exc()
+        _fail("phase 30 failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 4. backward kernels vs plain versions ------------------------------
@@ -6188,13 +6840,16 @@ def main(argv=None) -> int:
     mixtral_fwd = mixtral_serve["launches"].get("flash_fwd", 0)
     served_fwd = sum(r["launches"]["flash_fwd"] for r in serve_runs)
     fleet_fwd = fleet_launches.get("flash_fwd", 0)
+    # phase 30 (a): gpt2_large's cold prefills (D 64)
+    gpt2_runs = list(gpt2_serve["runs"].values())
+    gpt2_fwd = sum(r["launches"].get("flash_fwd", 0) for r in gpt2_runs)
     fwd = _kernel_entry(
         "flash_fwd", "torchdistx_tpu_torch/csrc/flash_fwd.cu",
         "torchdistx_tpu/ops/flash_attention.py:141",
-        served_fwd + mixtral_fwd + fleet_fwd + trained("flash_fwd_lse"), rep,
+        served_fwd + mixtral_fwd + fleet_fwd + gpt2_fwd + trained("flash_fwd_lse"), rep,
         max(r["max_abs_err"] for r in flash_rows))
     fwd.update(launches_plain=served_fwd, launches_mixtral=mixtral_fwd,
-               launches_serving_fleet=fleet_fwd,
+               launches_serving_fleet=fleet_fwd, launches_gpt2_serving=gpt2_fwd,
                launches_lse=trained("flash_fwd_lse"), lse_ms=brep["lse_ms"],
                lse_plain_ms=brep["lse_plain_ms"],
                lse_library_ms=brep["lse_library_ms"],
@@ -6237,17 +6892,28 @@ def main(argv=None) -> int:
     # b-d); the bf16 one-token kernel timed at DECODE_POSITIONS as before,
     # every variant at VARIANT_POSITIONS
     served = ([r["launches"] for r in serve_runs] + [r["launches"] for r in _serve_runs(variants)]
-              + [mixtral_serve["launches"], fleet_launches])
+              + [mixtral_serve["launches"], fleet_launches]
+              + [r["launches"] for r in gpt2_runs])
+    # entry G: each decode variant at gpt2_large's serving shape (D 64,
+    # Hq = Hkv = 20: group size 1)
+    at_gpt2 = {(r["kernel"], r["dtype"]): r for r in gpt2_serve["decode_variants"]}
 
     def decode_entry(name, dt, row):
         key = name if dt == "bf16" else f"{name}_int8"
         entry = _kernel_entry(
             key, "torchdistx_tpu_torch/csrc/decode_attention.cu", TPU_KERNEL_OF[name],
             sum(r.get(key, 0) for r in served), row, row["max_abs_err"])
+        g = at_gpt2[(name, dt)]
         entry.update(dtype=dt, S=row.get("S", 1), positions=row["positions"],
                      device_ms=row.get("device_ms"),
                      library_device_ms=row.get("library_device_ms"),
-                     launches_serving_fleet=fleet_launches.get(key, 0))
+                     launches_serving_fleet=fleet_launches.get(key, 0),
+                     launches_gpt2_serving=sum(r.get(key, 0) for r in
+                                               (r["launches"] for r in gpt2_runs)),
+                     gpt2_shape={k: g.get(k) for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                         "device_ms", "library_device_ms", "max_abs_err",
+                         "max_row_rel_err", "positions", "S")})
         for k in ("bitwise_repeat", "paged_equals_slab_bitwise", "paged_ms",
                   "paged_device_ms"):
             if k in row:
@@ -6290,7 +6956,14 @@ def main(argv=None) -> int:
         if k == "bwd":
             entry["one_launch_computes"] = "dx and dw"
         kernels.append(entry)
-    kernels += t5_kernel_entries(bias_rows, t5_runs)
+    t5_entries = t5_kernel_entries(bias_rows, t5_runs)
+    for entry in t5_entries:  # phase 30 (b): the encoder of T5-3B's generation
+        mode = {"flash_fwd_bias": "bias", "flash_fwd_bucket": "bucket"}.get(entry["name"])
+        if mode is not None:
+            n = t5_gen[mode]["launches"].get(f"flash_fwd_{mode}", 0)
+            entry["launches"] += n
+            entry["launches_t5_generation"] = n
+    kernels += t5_entries
     kernels += window_kernel_entries(window_rows, mistral_serve, mistral_train)
     kernels += sp_kernel_entries(residual_rows, sp_train)
     # phases 22-23 apart: SlowMo at world size 1, and each rank of the

@@ -1430,3 +1430,122 @@ def test_memory_plan_charges_the_cards_bytes_on_the_card(cuda):
     assert set(cards) == {"serve/prefill/b32", "serve/decode/k1"}
     assert all(c.peak_source == "cuda_allocator" and c.peak_bytes > 0 for c in cards.values())
     assert engine.cost_card_errors == 0
+
+
+@pytest.mark.parametrize("kind", ["slab", "block", "paged", "paged_block"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_kernels_at_group_one_match_plain(cuda, kind, quant):
+    """GPT-2's serving shape: D 64, Hq = Hkv = 20 (group size 1), one token
+    or a 5-token verify block, slab or pages of 16."""
+    from torchdistx_tpu_torch.serve.kv_cache import quantize_kv
+
+    g = torch.Generator(device=cuda).manual_seed(20 + len(kind))
+    b, max_len, h, d, ps = 4, 256, 20, 64, 16
+    s = 5 if kind.endswith("block") else 1
+    q = _rand(g, (b, s, h, d), cuda)
+    ck, cv = _rand(g, (b, max_len, h, d), cuda), _rand(g, (b, max_len, h, d), cuda)
+    pos = torch.tensor([0, 250, 128, 17], dtype=torch.int32, device=cuda)
+    kw = {}
+    if quant:
+        (ck, ks), (cv, vs) = quantize_kv(ck), quantize_kv(cv)
+        kw = dict(k_scale=ks, v_scale=vs)
+    if kind.startswith("paged"):
+        pp = max_len // ps
+        perm = torch.randperm(b * pp, generator=torch.Generator().manual_seed(3)) + 1
+        tables = perm.reshape(b, pp).to(torch.int32).to(cuda)
+        pool = lambda t: torch.zeros((b * pp + 1, ps) + t.shape[2:], dtype=t.dtype,  # noqa: E731
+                                     device=cuda).index_copy_(
+            0, tables.reshape(-1).long(), t.reshape(b * pp, ps, *t.shape[2:]))
+        ck, cv = pool(ck), pool(cv)
+        kw = {k: pool(v) for k, v in kw.items()}
+        fn = tdec.paged_decode_attention if s == 1 else tdec.paged_decode_attention_block
+        ref = (tdec.paged_decode_attention_reference if s == 1
+               else tdec.paged_decode_attention_block_reference)
+        args = (q, ck, cv, tables, pos)
+    else:
+        fn = tdec.decode_attention if s == 1 else tdec.decode_attention_block
+        ref = tdec.decode_attention_reference if s == 1 else tdec.decode_attention_block_reference
+        args = (q, ck, cv, pos)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref(*args, **kw).float(), **TOL)
+
+
+def _gpt2_tiny_card(cuda):
+    """GPT-2 with head_dim 64 (dim 256, 4 heads), bf16 on the card."""
+    tt.manual_seed(4)
+    return tt.models.GPT2.from_name("tiny", dim=256, n_heads=4, dtype=torch.bfloat16,
+                                    device=cuda).requires_grad_(False)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(decode_mode="persistent"),
+                                dict(page_size=8, decode_chunk=2),
+                                dict(speculate=2, decode_mode="persistent"),
+                                dict(kv_dtype="int8")],
+                         ids=["chunked", "persistent", "paged", "speculate", "int8"])
+def test_gpt2_serves_through_the_kernels_on_the_card(cuda, kw):
+    """Each engine mode serves GPT-2 through the flash kernel (cold
+    prefills) and the decode kernels; greedy streams equal the plain
+    path's engine where both round alike (the first tokens)."""
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _gpt2_tiny_card(cuda)
+    geom = dict(num_slots=3, max_len=64, prefill_buckets=(32,), **kw)
+    before = (tflash.flash_fwd_cuda.launches, tdec.decode_attention_cuda.launches
+              + tdec.paged_decode_attention_cuda.launches
+              + tdec.decode_attention_block_cuda.launches
+              + tdec.paged_decode_attention_block_cuda.launches)
+    out = ServeEngine(model, **geom).run(_graph_requests(8))
+    torch.cuda.synchronize()
+    after = (tflash.flash_fwd_cuda.launches, tdec.decode_attention_cuda.launches
+             + tdec.paged_decode_attention_cuda.launches
+             + tdec.decode_attention_block_cuda.launches
+             + tdec.paged_decode_attention_block_cuda.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    assert all(len(o.tokens) == 8 for o in out)
+
+
+def test_persistent_stream_host_node_on_the_card(cuda):
+    """The streamed tail on the card: a host node of the captured
+    iteration pushes one row per iteration, the live rows' tokens are the
+    drained ones, every first-token stamp precedes its drain, and the
+    stream adds no host sync."""
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _graph_llama(cuda)
+    kw = dict(num_slots=3, max_len=64, prefill_buckets=(32,), decode_mode="persistent")
+    engine = ServeEngine(model, persistent_stream=True, **kw)
+    assert engine.stream_supported == "host_node"
+    out = engine.run(_graph_requests(10))
+    plain = ServeEngine(model, **kw)
+    ref = plain.run(_graph_requests(10))
+    assert [o.tokens.tolist() for o in out] == [r.tokens.tolist() for r in ref]
+    c = engine.metrics.counters
+    assert c["stream_callbacks"] == c["loop_iterations"] == engine.loop_replays > 0
+    assert c["host_syncs"] == plain.metrics.counters["host_syncs"]
+    assert engine._decode.stream.dropped == 0 and engine._decode.loop.captures == 1
+    for req in engine.finished_requests():
+        first = next(ts for name, ts, _ in req.events if name == "first_token")
+        drain = next(ts for name, ts, _ in req.events if name == "decode_chunk")
+        assert first < drain
+
+
+def test_t5_generate_encdec_on_the_card_matches_the_plain_encoder(cuda):
+    """T5's encoder through the flash bias and bucket variants, the cached
+    decoder on the plain path: greedy ids equal the plain model's."""
+    from torchdistx_tpu_torch.generation import generate_encdec
+
+    tt.manual_seed(6)
+    src = torch.randint(1, 256, (2, 40), device=cuda)
+    plain = T5.from_name("tiny", d_kv=64, dtype=torch.float32, device=cuda, use_flash=False)
+    ref = generate_encdec(plain, src, 6)
+    for bucket in (False, True):
+        model = T5.from_name("tiny", d_kv=64, dtype=torch.float32, device=cuda,
+                             use_flash=True, flash_bucket_bias=bucket)
+        model.load_state_dict(plain.state_dict())
+        model = model.to(torch.bfloat16)
+        before = tflash.flash_fwd_cuda.launches
+        out = generate_encdec(model, src, 6)
+        torch.cuda.synchronize()
+        assert tflash.flash_fwd_cuda.launches == before + 2  # one per encoder layer
+        assert out.shape == ref.shape

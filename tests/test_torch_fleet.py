@@ -153,8 +153,11 @@ def test_round_robin_and_policy_objects(models):
         ServeFleet(engines, policy="warmest")
     with pytest.raises(TypeError, match="route"):
         ServeFleet(engines, policy=object())
-    with pytest.raises(NotImplementedError, match="black-box"):
-        ServeFleet(engines, record=True)
+    # the black box is ported: the fleet records its composition and
+    # each replica its geometry
+    fleet = ServeFleet([_engine(models, "torch", 2) for _ in range(2)], record=True)
+    kinds = [e["kind"] for e in fleet.recorder.events]
+    assert kinds == ["session_header", "fleet", "geometry", "geometry"]
 
 
 def test_remove_mid_workload_drops_nothing_and_equals_jax(models):

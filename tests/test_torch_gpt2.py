@@ -104,9 +104,20 @@ def test_unported_methods_raise(method):
         with pytest.raises(NameError, match="unbound axis"):
             m(toks)
         return
+    # ported: each serving entry point constructs and runs (parity with
+    # JAX in tests/test_torch_gpt2_serve.py)
     m = GPT2.from_name("tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        getattr(m, method)(toks, None, 0)
+    cache = m.init_cache(1, 16)
+    assert len(cache) == 2 and tuple(cache[0][0].shape) == (1, 16, 4, 16)
+    if method == "init_cache":
+        return
+    with torch.no_grad():
+        if method == "forward_cached":
+            logits, cache = m.forward_cached(toks, cache, 0)
+            torch.testing.assert_close(logits, m(toks))
+        else:
+            logits, _ = m.forward_decode(toks[:, :1], cache, torch.tensor([3]))
+    assert logits.shape[-1] == 256 and torch.isfinite(logits).all()
 
 
 def test_init_scheme():

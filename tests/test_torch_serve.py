@@ -118,7 +118,8 @@ def test_submit_validation(models):
 
 # arguments the port has taken since: each is accepted with a valid value
 _PORTED_SINCE = {"page_size": 8, "num_pages": None, "kv_dtype": "int8",
-                 "prefix_cache": False, "spec_ngram": 3, "ring_capacity": 8}
+                 "prefix_cache": False, "spec_ngram": 3, "ring_capacity": 8,
+                 "persistent_stream": True, "record": True}
 
 
 @pytest.mark.parametrize("name", _UNPORTED + tuple(_PORTED_SINCE))
@@ -131,6 +132,21 @@ def test_unported_argument_raises(models, name):
         engine = ServeEngine(tm, max_len=32, decode_mode="persistent",
                              ring_capacity=8)
         assert engine.ring_capacity == 8
+        return
+    if name == "persistent_stream":
+        # persistent mode's: refused in chunked mode, taken and run in it
+        with pytest.raises(ValueError, match="requires decode_mode='persistent'"):
+            ServeEngine(tm, max_len=32, persistent_stream=True)
+        engine = ServeEngine(tm, max_len=32, decode_mode="persistent", persistent_stream=True)
+        engine.run(_requests(3, (5, 7), max_new=4))
+        assert engine.metrics.counters["stream_callbacks"] == \
+            engine.metrics.counters["loop_iterations"] > 0
+        return
+    if name == "record":
+        engine = ServeEngine(tm, max_len=32, record=True)
+        engine.run(_requests(3, (5,), max_new=3))
+        assert [e["kind"] for e in engine.recorder.events][:3] == [
+            "session_header", "geometry", "submit"]
         return
     if name in _PORTED_SINCE:
         ServeEngine(tm, max_len=32, **{name: _PORTED_SINCE[name]})
@@ -155,9 +171,16 @@ def test_unported_modes_raise(models, kw):
     for a, b in zip(chunked, out):
         np.testing.assert_array_equal(b.tokens, a.tokens)
         assert b.finish_reason == a.finish_reason
-    assert "persistent_stream" in _UNPORTED
-    with pytest.raises(NotImplementedError, match="persistent_stream"):
-        ServeEngine(tm, max_len=32, persistent_stream=True, **kw)
+    # the streamed tail, ported: the one-token loop takes it and streams
+    # the same tokens; the speculative one refuses it, as JAX's does
+    assert "persistent_stream" not in _UNPORTED
+    if kw.get("speculate"):
+        with pytest.raises(ValueError, match="speculate is not supported"):
+            ServeEngine(tm, persistent_stream=True, **kw, **common)
+    else:
+        streamed = ServeEngine(tm, persistent_stream=True, **kw, **common).run(reqs)
+        for a, b in zip(out, streamed):
+            np.testing.assert_array_equal(b.tokens, a.tokens)
 
 
 def test_engine_device_must_match_model(models):

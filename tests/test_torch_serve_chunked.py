@@ -200,5 +200,8 @@ def test_stall_watchdog_and_cost_cards_off_the_card(models, tmp_path):
     assert engine.watchdog.stalls_total == 0
     assert engine.watchdog.last_program == "serve/decode/k2"
     assert len(engine.cost_book) == 0 and engine.cost_card_errors == 0
-    with pytest.raises(NotImplementedError, match="record"):
-        ServeEngine(tm, record=True, **_geometry())
+    # the black box is ported: a recording engine runs and folds a drain
+    # at every host sync
+    rec = ServeEngine(tm, record=True, **_geometry())
+    rec.run([{"prompt": p, "max_new_tokens": 3} for p in _prompts(45, (5, 9))])
+    assert rec.recorder.drains == rec.metrics.counters["host_syncs"] > 0

@@ -343,8 +343,12 @@ def test_validation(models):
         ServeEngine(tm, max_len=32, ring_capacity=8)
     with pytest.raises(ValueError, match="ring_capacity"):
         ServeEngine(tm, max_len=32, decode_mode="persistent", ring_capacity=0)
-    with pytest.raises(NotImplementedError, match="persistent_stream"):
-        ServeEngine(tm, max_len=32, decode_mode="persistent", persistent_stream=True)
+    # the streamed tail is ported: taken in persistent mode, refused in
+    # chunked mode as JAX's engine refuses it
+    assert ServeEngine(tm, max_len=32, decode_mode="persistent",
+                       persistent_stream=True).stream_supported == "host_call"
+    with pytest.raises(ValueError, match="persistent_stream"):
+        ServeEngine(tm, max_len=32, persistent_stream=True)
 
 
 def test_ring_gauges_only_when_persistent(models):

@@ -255,9 +255,15 @@ def test_return_hidden_and_unported_options():
     out = dots(toks)
     out.sum().backward()
     torch.testing.assert_close(out.detach(), m(toks).detach())
-    for kw in (dict(flight=object()), dict(stall_timeout_s=1.0), dict(cost_card=True)):
-        with pytest.raises(NotImplementedError):
-            tt.Trainer(lambda p, s, b: (p, s, 0.0), **kw)
+    # the telemetry arguments are ported: each constructs and runs a fit
+    from torchdistx_tpu_torch.obs import FlightRecorder
+
+    for kw in (dict(flight=FlightRecorder()), dict(stall_timeout_s=60.0),
+               dict(cost_card=True), dict(record=True)):
+        trainer = tt.Trainer(lambda p, s, b: (p, s, torch.tensor(float(b))), None, None,
+                             log_every=1, log_fn=lambda m: None, **kw)
+        assert trainer.fit(iter([1.0, 2.0]), 2) == {"step": 2, "loss": 2.0}
+    assert trainer.cost_card is None  # no card on the CPU
     # ZeRO-2 is ported (tests/test_torch_zero2.py) and needs several ranks,
     # as JAX's arm needs several devices
     with pytest.raises(ValueError, match="multi-rank"):

@@ -1,7 +1,6 @@
 """Autoregressive generation with a static-shape KV cache, counterpart of
-``torchdistx_tpu/generation.py`` (the decoder-only paths the serving engine
-uses; encoder-decoder generation, ``generate_encdec``, is not ported yet
-and raises).
+``torchdistx_tpu/generation.py``: the decoder-only paths the serving engine
+uses, and ``generate_encdec`` for the encoder-decoder models (T5).
 
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` loops are Python
 loops here; the caches are updated in place.  Its ``lax.while_loop`` (the
@@ -29,7 +28,14 @@ import numpy as np
 import torch
 
 
-__all__ = ["generate", "generate_encdec"]
+__all__ = ["generate", "generate_encdec", "max_positions"]
+
+
+def max_positions(cfg) -> Optional[int]:
+    """A model's maximum sequence length, read as the JAX package reads
+    it: ``max_seq_len`` (Llama, Mixtral), else ``n_positions`` (GPT-2);
+    None when the config names neither."""
+    return getattr(cfg, "max_seq_len", None) or getattr(cfg, "n_positions", None)
 
 
 def _apply_top_k(logits, top_k: int):
@@ -338,10 +344,17 @@ class _PersistentDecode:
     positions.  It returns ``(kv, ring, valid, iterations)`` device tensors,
     the rings cut to the host's bound on the iterations (the rows past the
     cursor are zeros).  The cache tensors and ``hist`` are held by address:
-    passing others after the first call raises."""
+    passing others after the first call raises.
+
+    ``stream=True`` (one-token loop only) adds the streamed tail: every
+    iteration also pushes its ``(tokens, live mask, cursor)`` into
+    ``self.stream``, a :class:`~torchdistx_tpu_torch.serve.stream.
+    StreamRing` (on the card a host node of the captured iteration), emptied
+    at the start of each call; the warm-up's pushes before the capture are
+    discarded."""
 
     def __init__(self, step, *, eos_token: Optional[int], max_len: int,
-                 ring_capacity: int, speculate: int = 0):
+                 ring_capacity: int, speculate: int = 0, stream: bool = False):
         if ring_capacity < 1:
             raise ValueError(f"ring_capacity must be >= 1, got {ring_capacity}")
         self.step = step
@@ -349,6 +362,8 @@ class _PersistentDecode:
         self.max_len = int(max_len)
         self.ring_capacity = int(ring_capacity)
         self.speculate = int(speculate)
+        self.stream_on = bool(stream)
+        self.stream = None  # serve.stream.StreamRing, at the first call
         self.loop = None  # serve.graph_loop.GraphLoop, at the first call
 
     @property
@@ -387,6 +402,10 @@ class _PersistentDecode:
         self._held = self._addresses(kv, hist)
         self.loop = GraphLoop(cursor=self.it, capacity=self.ring_capacity,
                               done=self.done)
+        if self.stream_on:
+            from .serve.stream import StreamRing
+
+            self.stream = StreamRing(self.ring_capacity, b, device)
 
     @staticmethod
     def _addresses(kv, hist):
@@ -408,6 +427,8 @@ class _PersistentDecode:
             carry = self.step(carry, temps=self.temps, seeds=self.seeds,
                               budgets=self.budgets, extra=extra)
             row, mark = carry[1], live
+            if self.stream is not None:
+                self.stream.push(row, mark, it)
         at = it.clamp(max=cap - 1)
         for ring, new in ((self.ring, row), (self.valid, mark)):
             ring.index_copy_(0, at, torch.where(go, new[None], ring.index_select(0, at)))
@@ -475,20 +496,28 @@ class _PersistentDecode:
         self.it.zero_()
         self.done.copy_(self.fin.all())
         fewest, most = self._bounds(positions, steps, budgets, active, firsts)
+        if self.stream is not None:
+            if self.loop.cuda and self.loop.graph is None:
+                self.loop.capture(self._iteration)
+                # the warm-up ran its host functions for real: let them
+                # finish, then drop their rows (set-up, like the build)
+                torch.cuda.synchronize(device)
+            self.stream.reset()
         self.loop.run(self._iteration, fewest, most)
         return kv, self.ring[:most], self.valid[:most], self.it
 
 
 def _make_persistent_decode(model, sampler, *, eos_token: Optional[int],
-                            max_len: int, ring_capacity: int):
+                            max_len: int, ring_capacity: int, stream: bool = False):
     """The persistent decode program (JAX: ``lax.while_loop`` over
     ``_make_decode_body``): ``run(kv, toks, positions, None, temps, seeds,
     steps, budgets, active, *extra, firsts=) -> (kv, ring, valid,
-    iterations)``; see :class:`_PersistentDecode`."""
+    iterations)``; ``stream=True`` adds the streamed tail.  See
+    :class:`_PersistentDecode`."""
     step = _make_decode_body(model, sampler, eos_token=eos_token,
                              max_len=max_len)
     return _PersistentDecode(step, eos_token=eos_token, max_len=max_len,
-                             ring_capacity=ring_capacity)
+                             ring_capacity=ring_capacity, stream=stream)
 
 
 def _make_persistent_spec_decode(model, sampler, *, eos_token: Optional[int],
@@ -505,6 +534,14 @@ def _make_persistent_spec_decode(model, sampler, *, eos_token: Optional[int],
                              ring_capacity=ring_capacity, speculate=speculate)
 
 
+def _tokens_on(tokens, device) -> torch.Tensor:
+    """Token ids (a tensor anywhere, an array or nested lists) as int64 on
+    ``device``."""
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(tokens), device=device).long()
+
+
 @torch.no_grad()
 def generate(model, prompt, max_new_tokens: int, *, temperature: float = 0.0,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -515,12 +552,12 @@ def generate(model, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     model's.  Returns (B, S + max_new_tokens) int64 on that device."""
     _check_sampling_args(top_k, top_p)
     device = torch.device(device) if device is not None else model.device
-    prompt = torch.as_tensor(np.asarray(prompt), device=device).long()
+    prompt = _tokens_on(prompt, device)
     b, s = prompt.shape
     if max_new_tokens <= 0:
         return prompt
-    limit = model.cfg.max_seq_len
-    if s + max_new_tokens > limit:
+    limit = max_positions(model.cfg)
+    if limit is not None and s + max_new_tokens > limit:
         raise ValueError(
             f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds the "
             f"model's maximum sequence length {limit}"
@@ -539,7 +576,39 @@ def generate(model, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
 
 
-def generate_encdec(model, enc_tokens, max_new_tokens: int, **kwargs):
-    """Encoder-decoder (T5) generation: not ported yet (T5 serves through
-    ``T5.init_decoder_cache`` / ``decode_step``, which raise too)."""
-    raise NotImplementedError("generate_encdec (T5 generation) is not ported yet")
+@torch.no_grad()
+def generate_encdec(model, enc_tokens, max_new_tokens: int, *,
+                    start_token: int = 0, temperature: float = 0.0,
+                    top_k: Optional[int] = None, top_p: Optional[float] = None,
+                    seed: int = 0, device=None):
+    """Encoder-decoder (T5) generation.  The encoder runs once (through the
+    flash kernel's bias variant on the card, or its bucket variant under
+    ``flash_bucket_bias``); every decode step reuses the encoder K/V that
+    ``init_decoder_cache`` projected once and the causal self-attention
+    cache, whose biased attention stays on the plain path as JAX's stays on
+    its jnp path.  Decoding starts from ``start_token`` (T5's pad id, 0) and
+    returns the (B, max_new_tokens) int64 generated ids on ``device``
+    (default: the model's), the start token excluded.  ``temperature == 0``
+    is greedy, the parity contract with JAX; otherwise token ``i`` of every
+    row is sampled with noise keyed on ``(seed, i)``, the port's sampler,
+    which does not reproduce ``jax.random``'s bits."""
+    if max_new_tokens <= 0:
+        raise ValueError("max_new_tokens must be positive")
+    _check_sampling_args(top_k, top_p)
+    device = torch.device(device) if device is not None else model.device
+    enc_tokens = _tokens_on(enc_tokens, device)
+    b = enc_tokens.shape[0]
+    sample = _make_slot_sampler(top_k, top_p)
+    temps = torch.full((b,), temperature, dtype=torch.float32, device=device)
+    seeds = torch.full((b,), seed, dtype=torch.int64, device=device)
+    enc = model.encode(enc_tokens)
+    cache = model.init_decoder_cache(enc, max_new_tokens)
+    tok = torch.full((b, 1), start_token, dtype=torch.int64, device=device)
+    logits, cache = model.decode_step(tok, cache, 0)
+    toks = []
+    for i in range(max_new_tokens):
+        tok = sample(logits[:, -1], temps, seeds, torch.full_like(seeds, i))
+        toks.append(tok)
+        if i + 1 < max_new_tokens:
+            logits, cache = model.decode_step(tok[:, None], cache, i + 1)
+    return torch.stack(toks, dim=1)

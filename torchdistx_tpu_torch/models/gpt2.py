@@ -17,8 +17,16 @@ attends through ``ops.attention.sp_attention``, the flash ring
 states for ``ops.fused_ce.fused_linear_cross_entropy`` with the tied
 ``tok_emb.weight`` as the head.
 
-Serving (``init_cache``, ``forward_cached``, ``forward_decode``) is not
-ported yet and raises.
+Serving follows the Llama contract (``generation.generate``,
+``serve.ServeEngine``): ``init_cache`` gives per-layer (k, v) slabs of
+(B, max_seq, H, 64), ``forward_cached`` runs a prompt or a token against
+them from a host position (a from-empty prefill through the flash kernel
+on the card), and ``forward_decode`` runs one token or a verify block per
+serving slot at the (B,) device ``positions`` through the decode kernels,
+slab or paged.  Learned positions are looked up per row from
+``positions`` on the device, so a decode iteration reads nothing back and
+can be captured in a CUDA graph.  GPT-2 has as many KV heads as query
+heads: the decode kernels run at group size 1.
 """
 
 from __future__ import annotations
@@ -33,7 +41,12 @@ from torch import nn as tnn
 from .. import nn
 from ..nn import functional as F
 from ..nn import init as nn_init
-from ..ops.attention import multihead_attention, sp_attention
+from ..ops.attention import (
+    cached_attention,
+    multihead_attention,
+    slot_cached_attention,
+    sp_attention,
+)
 from ..ops.flash_attention import flash_attention, resolve_use_flash
 
 __all__ = ["GPT2Config", "GPT2", "GPT2Block", "gpt2_configs"]
@@ -80,10 +93,6 @@ def _zeros_init(s, d, dev):
     return nn_init.zeros(s, d, dev)
 
 
-def _unported(what):
-    raise NotImplementedError(f"GPT-2 {what} is not ported yet")
-
-
 class GPT2Block(tnn.Module):
     def __init__(self, cfg: GPT2Config, device="cuda"):
         super().__init__()
@@ -100,12 +109,22 @@ class GPT2Block(tnn.Module):
         self.mlp_down = nn.Linear(4 * d, d, weight_init=w_res, bias_init=_zeros_init, **kw)
         self.n_heads = cfg.n_heads
 
-    def forward(self, x):
+    def _qkv(self, x):
         b, s, d = x.shape
         h = self.ln1(x)
         # (b, s, 3, H, hd), then [:, :, 0/1/2]: the JAX split order
         qkv = self.attn_qkv(h).reshape(b, s, 3, self.n_heads, d // self.n_heads)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def _rest(self, x, a):
+        b, s, d = x.shape
+        x = x + self.attn_out(a.reshape(b, s, d))
+        h = self.ln2(x)
+        return x + self.mlp_down(F.gelu(self.mlp_up(h)))
+
+    def forward(self, x):
+        b, s, d = x.shape
+        q, k, v = self._qkv(x)
         if self.cfg.sp_axis is not None:
             a = sp_attention(q, k, v, axis=self.cfg.sp_axis, mode=self.cfg.sp_mode,
                              causal=True, use_flash=self.cfg.use_flash)
@@ -113,9 +132,26 @@ class GPT2Block(tnn.Module):
             a = flash_attention(q, k, v, causal=True)
         else:
             a = multihead_attention(q, k, v, causal=True)
-        x = x + self.attn_out(a.reshape(b, s, d))
-        h = self.ln2(x)
-        return x + self.mlp_down(F.gelu(self.mlp_up(h)))
+        return self._rest(x, a)
+
+    def forward_cached(self, x, cache, cache_pos):
+        """Attention against the (k, v) cache from host position
+        ``cache_pos`` (``ops.attention.cached_attention``: the flash kernel
+        for a from-empty prefill on the card).  Returns (x, cache)."""
+        q, k, v = self._qkv(x)
+        a, cache = cached_attention(q, k, v, cache, cache_pos,
+                                    use_flash=self.cfg.use_flash)
+        return self._rest(x, a), cache
+
+    def forward_decode(self, x, cache, positions, page_tables=None):
+        """One token (or a verify block) per serving slot at its own depth
+        (``ops.attention.slot_cached_attention``: the decode kernels on the
+        card, the paged ones with ``page_tables``).  Returns (x, cache)."""
+        q, k, v = self._qkv(x)
+        a, cache = slot_cached_attention(q, k, v, cache, positions,
+                                         use_flash=self.cfg.use_flash,
+                                         page_tables=page_tables)
+        return self._rest(x, a), cache
 
 
 class GPT2(tnn.Module):
@@ -172,11 +208,53 @@ class GPT2(tnn.Module):
             return x
         return x @ self.tok_emb.weight.T
 
-    def init_cache(self, *args, **kwargs):
-        _unported("init_cache (serving)")
+    # -- KV-cache decode (the generation.generate contract, as Llama's) ----
 
-    def forward_cached(self, *args, **kwargs):
-        _unported("forward_cached (serving)")
+    def init_cache(self, batch_size: int, max_seq: Optional[int] = None):
+        """Per-layer (k, v) caches of static shape (B, max_seq, H, D)."""
+        cfg = self.cfg
+        max_seq = max_seq or cfg.n_positions
+        shape = (batch_size, max_seq, cfg.n_heads, cfg.dim // cfg.n_heads)
+        return [
+            (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+             torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+            for _ in range(cfg.n_layers)
+        ]
 
-    def forward_decode(self, *args, **kwargs):
-        _unported("forward_decode (serving)")
+    def _head(self, x):
+        return self.ln_f(x) @ self.tok_emb.weight.T
+
+    def forward_cached(self, tokens, cache, cache_pos):
+        """Run ``tokens`` (a prompt or one token) against the cache from
+        host position ``cache_pos`` (the cache is updated in place).
+        Returns (logits, cache)."""
+        s = tokens.shape[1]
+        pos = int(cache_pos) + torch.arange(s, device=tokens.device)
+        x = self.tok_emb(tokens) + self.pos_emb(pos)[None]
+        new_cache = []
+        for blk, c in zip(self.blocks, cache):
+            x, c = blk.forward_cached(x, c, cache_pos)
+            new_cache.append(c)
+        return self._head(x), new_cache
+
+    def forward_decode(self, tokens, cache, positions, page_tables=None):
+        """One decode step for independent serving slots: ``tokens`` (B, S),
+        ``positions`` (B,) integer on the device, token ``(b, i)`` at depth
+        ``positions[b] + i`` (``S > 1`` is the speculative verify block,
+        whose positions clip to ``n_positions - 1`` as JAX's do).  With
+        ``page_tables`` the cache is the per-layer page pools.  Returns
+        (logits, cache)."""
+        s = tokens.shape[1]
+        positions = positions.to(tokens.device).long()
+        if s == 1:
+            x = self.tok_emb(tokens) + self.pos_emb(positions)[:, None]
+        else:
+            pos = (positions[:, None]
+                   + torch.arange(s, device=tokens.device)[None, :])
+            x = self.tok_emb(tokens) + self.pos_emb(
+                pos.clamp(0, self.cfg.n_positions - 1))
+        new_cache = []
+        for blk, c in zip(self.blocks, cache):
+            x, c = blk.forward_decode(x, c, positions, page_tables)
+            new_cache.append(c)
+        return self._head(x), new_cache

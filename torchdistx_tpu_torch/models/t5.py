@@ -28,9 +28,15 @@ model inside the ``parallel.Mesh``): self-attention runs the ring
 resolves on) with this rank's slice of the relative-position bias, its
 query rows at their global positions against every key, (H, sq_local,
 S); cross-attention runs a non-causal ring over the encoder's key
-shards.  ``flash_bucket_bias`` with ``sp_axis`` raises.  Cached
-generation (``decode_step``, ``init_decoder_cache``) runs unsharded and
-is not ported yet: it raises.
+shards.  ``flash_bucket_bias`` with ``sp_axis`` raises.
+
+Cached generation (``generation.generate_encdec``) runs unsharded:
+``init_decoder_cache`` projects each decoder layer's encoder K/V once and
+zeroes its causal self-attention cache; ``decode_step`` runs a token (or a
+chunk) against both, with the first decoder layer's relative-position
+bias sliced for the rows being decoded.  The cached self-attention with a
+bias stays on the plain path, as JAX's stays on its jnp path; the
+cross-attention is plain ``einsum`` and softmax over the projected K/V.
 """
 
 from __future__ import annotations
@@ -43,12 +49,13 @@ from torch import nn as tnn
 
 from .. import nn
 from ..nn import functional as F
-from ..ops.attention import sp_attention
+from ..ops.attention import _einsum_logits, _einsum_out, cached_attention, sp_attention
 from ..ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
     rel_bucket_ids,
     rel_bucket_matrix,
+    rel_pos_bucket,
     resolve_use_flash,
 )
 
@@ -95,10 +102,6 @@ t5_configs = {
     "t5_3b": dict(dim=1024, d_ff=16384, d_kv=128, n_heads=32, n_layers=24),
     "t5_11b": dict(dim=1024, d_ff=65536, d_kv=128, n_heads=128, n_layers=24),
 }
-
-
-def _unported(what):
-    raise NotImplementedError(f"T5 {what} is not ported yet")
 
 
 class T5Attention(tnn.Module):
@@ -187,11 +190,31 @@ class T5Attention(tnn.Module):
         out = attend(q, k, v, bias=bias, causal=causal, scale=1.0)
         return self.o(out.reshape(b, sq, cfg.n_heads * cfg.d_kv)), bias
 
-    def forward_cached_self(self, *args, **kwargs):
-        _unported("cached self-attention (generation)")
+    def _split(self, t, b, s):
+        return t.reshape(b, s, self.cfg.n_heads, self.cfg.d_kv)
 
-    def forward_cross_cached(self, *args, **kwargs):
-        _unported("cached cross-attention (generation)")
+    def forward_cached_self(self, x, cache, cache_pos, bias):
+        """Causal self-attention against a (k, v) cache from host position
+        ``cache_pos``, unscaled, with ``bias`` the (H, sq, max_seq) slice of
+        the relative-position bias for the rows being decoded (computed
+        once a step by the stack and shared by every layer).  Returns
+        (out, cache)."""
+        cfg = self.cfg
+        b, sq, _ = x.shape
+        q, k, v = (self._split(proj(x), b, sq) for proj in (self.q, self.k, self.v))
+        out, cache = cached_attention(q, k, v, cache, cache_pos, scale=1.0,
+                                      bias=bias, use_flash=cfg.use_flash)
+        return self.o(out.reshape(b, sq, cfg.n_heads * cfg.d_kv)), cache
+
+    def forward_cross_cached(self, x, ke, ve):
+        """Cross-attention against the encoder K/V projected once up front
+        (``T5.init_decoder_cache``): the JAX einsum branch's math."""
+        cfg = self.cfg
+        b, sq, _ = x.shape
+        q = self._split(self.q(x), b, sq)
+        probs = torch.softmax(_einsum_logits(q, ke, 1.0), dim=-1).to(x.dtype)
+        out = _einsum_out(probs, ve, x.dtype)
+        return self.o(out.reshape(b, sq, cfg.n_heads * cfg.d_kv))
 
 
 class T5Block(tnn.Module):
@@ -219,8 +242,16 @@ class T5Block(tnn.Module):
             x = x + c
         return x + self.wo(F.relu(self.wi(self.ln2(x)))), bias
 
-    def decode_step(self, *args, **kwargs):
-        _unported("decode_step (generation)")
+    def decode_step(self, x, cache, cache_pos, bias):
+        """Incremental decoder block: cached causal self-attention, then
+        cross-attention over the projected encoder K/V.  ``cache`` is
+        ``(k, v, ke, ve)``; returns (x, cache)."""
+        ck, cv, ke, ve = cache
+        a, (ck, cv) = self.self_attn.forward_cached_self(self.ln1(x), (ck, cv),
+                                                         cache_pos, bias)
+        x = x + a
+        x = x + self.cross_attn.forward_cross_cached(self.ln_cross(x), ke, ve)
+        return x + self.wo(F.relu(self.wi(self.ln2(x)))), (ck, cv, ke, ve)
 
 
 class T5(tnn.Module):
@@ -280,8 +311,48 @@ class T5(tnn.Module):
             return x
         return x @ self.shared_emb.weight.T
 
-    def init_decoder_cache(self, *args, **kwargs):
-        _unported("init_decoder_cache (generation)")
+    # -- incremental encoder-decoder decode (generation.generate_encdec) --
 
-    def decode_step(self, *args, **kwargs):
-        _unported("decode_step (generation)")
+    def init_decoder_cache(self, enc, max_seq: int):
+        """Per decoder layer ``(k, v, ke, ve)``: the causal self-attention
+        cache, zeros of (B, max_seq, H, d_kv), and the encoder's K/V
+        projected once, (B, S_enc, H, d_kv), which cross-attention reuses
+        every step."""
+        cfg = self.cfg
+        b, s_enc, _ = enc.shape
+        shape = (b, max_seq, cfg.n_heads, cfg.d_kv)
+        caches = []
+        for blk in self.dec_blocks:
+            ke = blk.cross_attn.k(enc).reshape(b, s_enc, cfg.n_heads, cfg.d_kv)
+            ve = blk.cross_attn.v(enc).reshape(b, s_enc, cfg.n_heads, cfg.d_kv)
+            zeros = lambda: torch.zeros(shape, dtype=cfg.dtype, device=enc.device)  # noqa: E731
+            caches.append((zeros(), zeros(), ke, ve))
+        return caches
+
+    def _decoder_bias_slice(self, sq: int, max_seq: int, cache_pos):
+        """(H, sq, max_seq): the first decoder layer's relative-position
+        bias for decode rows ``cache_pos + [0, sq)`` against every cache
+        slot, the incremental slice of the stack's shared bias."""
+        layer0 = self.dec_blocks[0].self_attn
+        dev = layer0.rel_bias.weight.device
+        ctx = (int(cache_pos) + torch.arange(sq, device=dev))[:, None]
+        mem = torch.arange(max_seq, device=dev)[None, :]
+        bucket = rel_pos_bucket(mem - ctx, bidirectional=False,
+                                buckets=self.cfg.rel_pos_buckets,
+                                max_dist=self.cfg.rel_pos_max_dist)
+        return layer0.rel_bias(bucket).permute(2, 0, 1)
+
+    def decode_step(self, dec_tokens, cache, cache_pos):
+        """Run a decoder token (or chunk) against the cache from host
+        position ``cache_pos`` (updated in place).  Returns (logits,
+        cache)."""
+        sq = dec_tokens.shape[1]
+        max_seq = cache[0][0].shape[1]
+        x = self.shared_emb(dec_tokens)
+        bias = self._decoder_bias_slice(sq, max_seq, cache_pos)
+        new_cache = []
+        for blk, c in zip(self.dec_blocks, cache):
+            x, c = blk.decode_step(x, c, cache_pos, bias)
+            new_cache.append(c)
+        x = self.dec_norm(x)
+        return (x * (self.cfg.dim**-0.5)) @ self.shared_emb.weight.T, new_cache

@@ -13,8 +13,18 @@ The layers the serving engine and the fleet need, each touching no JAX:
 - :mod:`.flight` / :mod:`.watchdog` — the bounded flight recorder and the
   dispatch-stall watchdog that dumps it.
 - :mod:`.slo` — declarative latency objectives over request histories.
+- :mod:`.blackbox` — the session black box: a replayable ``tdx-session-v1``
+  recording of a serve session or a training run, and its replay.
 """
 
+from .blackbox import (
+    SESSION_SCHEMA,
+    SessionRecorder,
+    load_session,
+    replay_session,
+    resolve_record,
+    validate_session_jsonl,
+)
 from .cost import CostBook, CostCard, validate_cost_card
 from .flight import FlightRecorder, get_flight_recorder
 from .memory import capacity_plan, device_hbm_budget, hbm_watermark
@@ -82,4 +92,10 @@ __all__ = [
     "CostCard",
     "validate_cost_card",
     "DispatchWatchdog",
+    "SESSION_SCHEMA",
+    "SessionRecorder",
+    "load_session",
+    "replay_session",
+    "resolve_record",
+    "validate_session_jsonl",
 ]

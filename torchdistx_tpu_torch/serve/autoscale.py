@@ -287,6 +287,11 @@ class AutoscaleController:
         self.engine_factory = engine_factory
         self.signal_fn = signal_fn or LoadSignal(self.policy)
         self.flight = flight
+        if getattr(fleet, "_bb_on", False):
+            # the session black box: the policy is part of the recorded
+            # outside world; replay rebuilds this controller from it and
+            # re-drives the recorded signal vectors (replay_signal)
+            fleet.recorder.record("autoscale", policy=self.policy.to_json())
         self.counters = {
             "autoscale_decisions": 0,
             "autoscale_scale_ups": 0,
@@ -375,6 +380,13 @@ class AutoscaleController:
             "signal": sig,
         }
         self.fleet.events.append(("scale", time.monotonic(), data))
+        if getattr(self.fleet, "_bb_on", False):
+            # an outside event (the live signal vector is the controller's
+            # whole outside world) and the decision's attribution: replay
+            # compares the (tick, action, replica) streams exactly
+            self.fleet.recorder.record("ctrl_tick", tick=data["tick"], action=action,
+                                       mode=mode, replica=replica,
+                                       reason=data["reason"], signal=sig)
         if self.flight:
             from ..obs.flight import get_flight_recorder
 

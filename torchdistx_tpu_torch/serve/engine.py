@@ -9,7 +9,9 @@ The public surface is the JAX engine's: ``submit(prompt, ...) ->
 RequestHandle``, ``step()``, ``step_prefill()``, ``run(requests)``,
 ``drain()``, ``migrate_to(engine)``, ``handoff_to(engine, request)``,
 ``memory_plan()``, ``num_compiled_programs()``, ``reset_metrics()``,
-``dump_trace(path)``, ``finished_requests()``.  Device work comes in two
+``dump_trace(path)``, ``finished_requests()``, ``attach_recorder`` and
+``session_geometry`` (the session black box, ``obs.blackbox``) and
+``poll_stream()`` (the persistent loop's streamed tail, ``serve.stream``).  Device work comes in two
 kinds of dispatch:
 
 1. **Prefill**: one request's prompt, padded up to its bucket, runs through
@@ -75,8 +77,10 @@ from ..generation import (
     _make_persistent_decode,
     _make_persistent_spec_decode,
     _make_slot_sampler,
+    max_positions,
 )
 from ..obs import memory as obs_memory
+from ..obs.blackbox import resolve_record
 from ..obs.cost import (
     CostBook,
     begin_allocator_card,
@@ -103,10 +107,7 @@ __all__ = ["ServeEngine"]
 
 #: the JAX engine's constructor arguments this port does not carry yet;
 #: passing any of them raises instead of being ignored
-_UNPORTED = (
-    "persistent_stream", "params", "numerics", "mesh", "plan", "tp_rule",
-    "tp_axis", "record",
-)
+_UNPORTED = ("params", "numerics", "mesh", "plan", "tp_rule", "tp_axis")
 
 
 #: engine serials: a CUDA graph is keyed on the engine that captured it
@@ -164,6 +165,24 @@ class ServeEngine:
         the chunked mode's token for token.
       ring_capacity: persistent mode's output ring depth (max loop
         iterations per dispatch); default ``max_len``.
+      persistent_stream: persistent mode's streamed tail
+        (:mod:`~torchdistx_tpu_torch.serve.stream`): each loop iteration
+        also pushes its ``(tokens, live mask, cursor)`` to a host ring with
+        a clock stamp (on the card a host node of the captured iteration,
+        C code built from ``csrc/stream_ring.cu``; on the CPU a plain call),
+        so first tokens are stamped when they exist, before the drain.
+        The ring drain still decides every token.  ``stream_supported``
+        reads ``"host_node"`` on the card, ``"host_call"`` on the CPU;
+        ``stream_events`` holds the last dispatch's pushes and the
+        ``stream_callbacks`` counter counts them.  Needs
+        ``decode_mode="persistent"`` and no ``speculate``.
+      record: the session black box (:mod:`~torchdistx_tpu_torch.obs.
+        blackbox`): a :class:`SessionRecorder`, a path (a streaming
+        recorder), ``True`` (in memory) or None.  The engine records its
+        geometry, every submit, step and drain, and folds a digest of its
+        integer counters and emitted tokens at every drain, from values
+        already on the host: recording adds no host sync.
+        ``TDX_SESSION_RECORD=0`` turns every implicit recorder off.
       page_size: switch the KV cache to the PAGED layout with pages of this
         many tokens (must divide ``max_len``); ``None`` keeps the slab.
         Greedy paged streams are bit-identical to the slab engine's.
@@ -238,6 +257,8 @@ class ServeEngine:
         chunked_prefill: Optional[int] = None,
         speculate: int = 0,
         spec_ngram: int = 2,
+        persistent_stream: bool = False,
+        record: Any = None,
         device=None,
         **unported,
     ):
@@ -262,6 +283,14 @@ class ServeEngine:
         self.spec_ngram = int(spec_ngram)
         if self.speculate and self.spec_ngram < 1:
             raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
+        if persistent_stream and decode_mode != "persistent":
+            raise ValueError("persistent_stream requires decode_mode='persistent'")
+        if persistent_stream and self.speculate:
+            raise ValueError(
+                "speculate is not supported with persistent_stream: the "
+                "streamed tail pushes one token per iteration, but a "
+                "speculative iteration emits a variable-length block only "
+                "the drain walk can consume")
         _check_sampling_args(top_k, top_p)
         if device is not None and torch.device(device) != model.device:
             raise ValueError(
@@ -269,7 +298,8 @@ class ServeEngine:
                 f"{model.device}: move the model first"
             )
         self.device = model.device
-        limit = model.cfg.max_seq_len
+        # the JAX engine's reading: max_seq_len, else n_positions (GPT-2)
+        limit = max_positions(model.cfg)
         if max_len is None:
             max_len = limit
         if max_len > limit:
@@ -349,6 +379,16 @@ class ServeEngine:
             self.prefix_index = None
             self.cache = SlotKVCache(model, self.num_slots, self.max_len,
                                      kv_dtype=self.kv_dtype)
+        # the JAX engine's reading of the KV head count: n_kv_heads, else
+        # n_heads (GPT-2: plain multi-head attention, group size 1)
+        cfg = model.cfg
+        self.kv_heads = getattr(cfg, "n_kv_heads", None) or getattr(cfg, "n_heads", None)
+        heads = self.cache.kv[0][0].shape[2]
+        if self.kv_heads is not None and heads != self.kv_heads:
+            raise ValueError(
+                f"the model's cache holds {heads} KV heads, its config "
+                f"{self.kv_heads}"
+            )
         self.kv_quantized = self.cache.quantized
         self.kv_dtype_name = str(self.cache.kv[0][0].dtype).replace("torch.", "")
         self.scheduler = Scheduler(self.num_slots, max_tokens_in_flight)
@@ -367,6 +407,7 @@ class ServeEngine:
             self._decode = _make_persistent_decode(
                 model, self._sampler, eos_token=eos_token,
                 max_len=self.max_len, ring_capacity=self.ring_capacity,
+                stream=persistent_stream,
             )
         elif self.speculate:
             self._decode = _make_fused_spec_decode(
@@ -415,6 +456,26 @@ class ServeEngine:
             from ..obs.watchdog import DispatchWatchdog
 
             self.watchdog = DispatchWatchdog(stall_timeout_s, book=self.cost_book)
+        # the streamed tail: the last dispatch's pushes, (stamp, tokens,
+        # live, cursor) per loop iteration, read at step() and the drain
+        self.persistent_stream = bool(persistent_stream)
+        self.stream_supported: Optional[str] = None
+        if self.persistent_stream:
+            self.stream_supported = "host_node" if self.device.type == "cuda" else "host_call"
+        self.stream_events: list = []
+        # the session black box: the recorder takes geometry and outside
+        # events and folds the digest chain at every drain boundary; under
+        # TDX_SESSION_RECORD=0 resolve_record gives a disabled recorder and
+        # every hook is dead
+        self.recorder = None
+        self._bb_on = False
+        self._bb_driver = True
+        self._bb_source = "engine"
+        self._bb_in_drain = False
+        self._bb_finished_pending: list = []
+        rec = resolve_record(record)
+        if rec is not None:
+            self.attach_recorder(rec)
 
     def _new_metrics(self, err_max, err_rms) -> ServeMetrics:
         kv_rows = (self.num_pages * self.page_size if self.paged
@@ -489,6 +550,13 @@ class ServeEngine:
         )
         self.scheduler.submit(req)
         self.metrics.count("requests_submitted")
+        if self._bb_on:
+            if self._bb_driver:
+                self.recorder.record_submit(self._bb_source, req)
+            else:
+                # a fleet replica: the fleet recorded the submit; register
+                # the identity so this engine's drain tokens key on it
+                self.recorder.register_request(req.trace_id)
         return RequestHandle(req)
 
     def _admit_tick(self, now: float) -> None:
@@ -518,6 +586,8 @@ class ServeEngine:
         free slots (one prefill dispatch each, or chunks), then ONE decode
         dispatch of ``decode_chunk`` steps over every slot.  Returns the
         number of unfinished requests (queued + running)."""
+        self._record_tick("step")
+        self.poll_stream()
         self._admit_tick(time.monotonic())
         if self.scheduler.running:
             self._decode_step()
@@ -538,6 +608,7 @@ class ServeEngine:
                 "persistent loop defers first-token fetches to a decode "
                 "drain a prefill-role engine never runs"
             )
+        self._record_tick("step_prefill")
         self._admit_tick(time.monotonic())
         return self._tick_end()
 
@@ -555,6 +626,101 @@ class ServeEngine:
             pass
         return [h.result() for h in handles]
 
+    # -- the streamed tail -------------------------------------------------
+
+    def poll_stream(self) -> int:
+        """Read the streamed tail's new pushes into ``stream_events`` and
+        count them in ``stream_callbacks``; host memory only, no sync.
+        Returns the number read (0 without ``persistent_stream``)."""
+        ring = getattr(self._decode, "stream", None)
+        if ring is None:
+            return 0
+        new = ring.take()
+        self.stream_events.extend(new)
+        if new:
+            self.metrics.count("stream_callbacks", len(new))
+        return len(new)
+
+    # -- the session black box (obs/blackbox.py) ---------------------------
+
+    def attach_recorder(self, recorder, *, source: str = "engine",
+                        driver: bool = True,
+                        geometry_extra: Optional[dict] = None) -> None:
+        """Wire a :class:`~torchdistx_tpu_torch.obs.blackbox.SessionRecorder`
+        into this engine.  ``driver=True`` (a standalone engine): submits
+        and steps are recorded as outside events.  ``driver=False`` (a fleet
+        replica): the fleet owns the event log, and this engine adds only
+        its geometry and its drain folds, under ``source`` (the replica's
+        name)."""
+        self.recorder = recorder
+        self._bb_source = str(source)
+        self._bb_driver = bool(driver)
+        self._bb_on = bool(getattr(recorder, "enabled", False))
+        self._bb_finished_pending = []
+        if not self._bb_on:
+            return
+        recorder.record("geometry", source=self._bb_source,
+                        **self.session_geometry(), **(geometry_extra or {}))
+        if recorder.path:
+            # every flight or watchdog dump names the recording it pairs with
+            from ..obs.flight import get_flight_recorder
+
+            get_flight_recorder().session_path = recorder.path
+
+    def session_geometry(self) -> dict:
+        """Everything :func:`~torchdistx_tpu_torch.obs.blackbox.
+        replay_session` needs to rebuild this engine, plus attribution (the
+        model class, the resolved storage dtype)."""
+        return {
+            "model": type(self.model).__name__,
+            "num_slots": self.num_slots,
+            "max_len": self.max_len,
+            "eos_token": self.eos_token,
+            "top_k": self.top_k,
+            "top_p": self.top_p,
+            "prefill_buckets": list(self.prefill_buckets),
+            "decode_chunk": self.decode_chunk,
+            "decode_mode": self.decode_mode,
+            "ring_capacity": self.ring_capacity,
+            "page_size": self.page_size,
+            "num_pages": self.num_pages,
+            "kv_dtype": self.kv_dtype,
+            "kv_dtype_name": self.kv_dtype_name,
+            "chunked_prefill": self.chunked_prefill,
+            "speculate": self.speculate,
+            "spec_ngram": self.spec_ngram,
+            "prefix_cache": self._prefix_cache_flag,
+            "tp": self.tp,
+            "plan": None,  # no mesh, no sharding plan
+        }
+
+    def _record_tick(self, kind: str) -> None:
+        if self._bb_on and self._bb_driver and not self._bb_in_drain:
+            self.recorder.tick += 1
+            self.recorder.record(kind, tick=self.recorder.tick)
+
+    def _record_drain(self) -> None:
+        """Fold one drain boundary into the session digest chain: the
+        integer counters' delta and every token this drain's walk appended,
+        keyed by session request id.  Called at the end of each walk that
+        counted ``host_syncs``; it reads only values already on the host,
+        so recording adds no host sync."""
+        if not self._bb_on:
+            return
+        rec = self.recorder
+        toks: dict = {}
+        pend, self._bb_finished_pending = self._bb_finished_pending, []
+        for req in list(self.scheduler.running) + pend:
+            sid = rec.session_rid(req.trace_id)
+            if sid is None:
+                continue  # submitted before the recorder was attached
+            done = getattr(req, "_bb_emitted", 0)
+            tail = req.generated[done:]
+            if tail:
+                toks[sid] = [int(t) for t in tail]
+                req._bb_emitted = len(req.generated)
+        rec.drain(self._bb_source, self.metrics.counters, toks)
+
     # -- elastic drain / live migration ----------------------------------
 
     @torch.no_grad()
@@ -570,6 +736,18 @@ class ServeEngine:
         sampling state and cache rows intact.  Persistent mode's pending
         first tokens are fetched (one host sync) so the suspended state is
         complete.  Returns the number of unfinished requests."""
+        if self._bb_on and self._bb_driver and not self._bb_in_drain:
+            # the intent, recorded before it runs: a kill mid-drain leaves
+            # the event, and replay re-enters the same drain (its inner
+            # steps are the drain's own, not outside events)
+            self.recorder.record("engine_drain", complete=bool(complete))
+        self._bb_in_drain = True
+        try:
+            return self._drain_impl(complete)
+        finally:
+            self._bb_in_drain = False
+
+    def _drain_impl(self, complete: bool) -> int:
         self._draining = True
         now = time.monotonic()
         # the queued head learns WHY it stopped moving right away
@@ -585,6 +763,7 @@ class ServeEngine:
             self.metrics.count("host_syncs")
             self._record_first(req, tok, now)
             self._check_finished(req, tok, now)
+        self._record_drain()  # the flush above was a drain boundary
         if complete:
             while self.scheduler.running:
                 self.step()
@@ -1267,6 +1446,7 @@ class ServeEngine:
         self.metrics.count("host_syncs")
         self._record_first(req, tok, now)
         self._check_finished(req, tok, now)
+        self._record_drain()
 
     def _record_first(self, req: Request, tok: int, now: float) -> None:
         self._last_tok[req.slot] = tok
@@ -1354,6 +1534,7 @@ class ServeEngine:
         self.metrics.count("tokens_decoded", emitted)
         if emitted:
             self.metrics.decode_token_s.record(timing["seconds"] / emitted)
+        self._record_drain()
 
     def _persistent_step(self, skip: Optional[Request] = None) -> None:
         """One persistent dispatch: the loop runs on the card until every
@@ -1405,6 +1586,8 @@ class ServeEngine:
         n_it = int(flat[n_ring + n_marks])
         firsts = dict(zip(slots, flat[n_ring + n_marks + 1:].tolist()))
         pending.clear()
+        self.stream_events = []
+        self.poll_stream()
         self.metrics.count("host_syncs")  # the drain IS the sync
         self.metrics.count("ring_drains")
         self.metrics.count("decode_dispatches")
@@ -1412,6 +1595,9 @@ class ServeEngine:
         self.metrics.count("loop_iterations", n_it)
         self.metrics.observe_ring(n_it)
         now = time.monotonic()
+        # the streamed tail: iteration 0's stamp is when the wave's first
+        # tokens existed on the host, earlier than the drain
+        first_ts = min(now, self.stream_events[0][0]) if self.stream_events else now
         emitted = 0
         any_cut = False
         for req in running:
@@ -1422,10 +1608,10 @@ class ServeEngine:
             finished = False
             if slot in firsts:
                 tok = firsts[slot]
-                self._record_first(req, tok, now)
+                self._record_first(req, tok, first_ts)
                 # fin0 froze an EOS first token or a spent one-token budget
                 # before iteration 0: the slot idled the whole loop
-                finished = self._check_finished(req, tok, now)
+                finished = self._check_finished(req, tok, first_ts)
             j = 0
             while not finished and j < n_it and marks[j, slot]:
                 if self.speculate:
@@ -1452,6 +1638,7 @@ class ServeEngine:
         self.metrics.count("tokens_decoded", emitted)
         if emitted:
             self.metrics.decode_token_s.record(timing["seconds"] / emitted)
+        self._record_drain()
 
     def _graph_captures(self) -> int:
         loop = getattr(self._decode, "loop", None)
@@ -1528,3 +1715,7 @@ class ServeEngine:
         if result.tpot_s is not None:
             self.metrics.tpot_s.record(result.tpot_s)
         self._finished.append(req)
+        if self._bb_on:
+            # retired from scheduler.running before the walk's drain fold:
+            # kept here so the fold still sees its last tokens
+            self._bb_finished_pending.append(req)

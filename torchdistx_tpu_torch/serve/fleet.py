@@ -51,6 +51,7 @@ import itertools
 import time
 from typing import Any, Iterable, List, Optional, Sequence, Union
 
+from ..obs.blackbox import resolve_record as _resolve_record
 from .engine import ServeEngine
 from .scheduler import Request, RequestHandle, RequestResult
 
@@ -245,8 +246,8 @@ class ServeFleet:
     per engine (default: first half prefill) — prefill engines must be
     chunked-mode (``step_prefill``) and KV-compatible with every decode
     engine (same paged-ness, ``max_len``, ``page_size``); decode engines
-    may run the persistent mode.  ``record=`` (the black-box recorder) is
-    not ported yet and raises."""
+    may run the persistent mode.  ``record=`` wires the session black box
+    (:meth:`attach_recorder`)."""
 
     def __init__(
         self,
@@ -257,8 +258,6 @@ class ServeFleet:
         roles: Optional[Sequence[str]] = None,
         record: Any = None,
     ):
-        if record is not None:
-            self.attach_recorder(record)
         engines = list(engines)
         if not engines:
             raise ValueError("a fleet needs at least one engine")
@@ -329,14 +328,33 @@ class ServeFleet:
         # still show requests that FINISHED on a replica later scaled
         # away — dump_trace() merges these like any live replica's
         self._retired_finished: List[tuple] = []
+        # the session black box: the FLEET is the caller of record: it records
+        # submits and ticks; replicas add their geometry and their drain
+        # folds under their replica name
+        self.recorder = None
+        self._bb_on = False
+        rec = _resolve_record(record)
+        if rec is not None:
+            self.attach_recorder(rec)
 
     def attach_recorder(self, recorder) -> None:
-        """The black-box recorder (a log of every submit, tick and
-        drain, replayable bit for bit) is not ported yet."""
-        raise NotImplementedError(
-            "ServeFleet(record=) / attach_recorder: the black-box recorder "
-            "(obs.blackbox) is not ported to torchdistx_tpu_torch yet"
+        """Wire a :class:`~torchdistx_tpu_torch.obs.blackbox.SessionRecorder`
+        across the fleet: one fleet-composition event, one geometry event
+        per replica, and every replica folding its drains under its
+        ``r<rid>`` source into the one session chain (replicas step one
+        after another, so the fold order is deterministic)."""
+        self.recorder = recorder
+        self._bb_on = bool(getattr(recorder, "enabled", False))
+        recorder.record(
+            "fleet",
+            replicas=[r.rid for r in self._replicas],
+            roles=[r.role for r in self._replicas],
+            policy=getattr(self.policy, "name", "custom"),
+            disaggregate=self.disaggregate,
         )
+        for rep in self._replicas:
+            rep.engine.attach_recorder(recorder, source=f"r{rep.rid}", driver=False,
+                                       geometry_extra={"role": rep.role})
 
     # -- rotation ---------------------------------------------------------
 
@@ -482,6 +500,10 @@ class ServeFleet:
               "replica": rep.rid, "policy": policy, "tick": self.tick,
               "candidates": scored})
         )
+        if self._bb_on:
+            # a fleet-level event: replay submits here and routes again;
+            # the routed replica is attribution, never replayed
+            self.recorder.record_submit("fleet", req, routed=rep.rid)
         return handle
 
     # -- stepping ---------------------------------------------------------
@@ -497,6 +519,9 @@ class ServeFleet:
         take their decode ``step()``.  Returns total unfinished
         requests across the fleet."""
         self.tick += 1
+        if self._bb_on:
+            self.recorder.tick = self.tick
+            self.recorder.record("tick", tick=self.tick)
         for rep in self._replicas:
             rep.snapshot_rejections()  # roll the tie-break window
         unfinished = 0
@@ -661,6 +686,7 @@ class ServeFleet:
             for req in rep.engine.finished_requests()
         )
         self._replicas.remove(rep)
+        rep.engine._bb_on = False  # out of rotation: no more chain folds
         out = {**summary, "replica": rep.rid, "to": to, "tick": self.tick}
         self.events.append(("remove", time.monotonic(), out))
         return out
@@ -821,6 +847,13 @@ class ServeFleet:
                 raise
         warm_info = self._warm_engine(engine) if warm else None
         rep.snapshot_rejections()  # warm-up gatings never bias routing
+        if self.recorder is not None:
+            # attached AFTER the warm-up, whose metrics reset would fold
+            # negative deltas into the chain; ``added`` keeps replay's
+            # initial build to the constructor's replicas (scale-ups are
+            # rebuilt by the replayed controller)
+            engine.attach_recorder(self.recorder, source=f"r{rep.rid}", driver=False,
+                                   geometry_extra={"role": role, "added": True})
         self.events.append(
             ("add", time.monotonic(),
              {"replica": rep.rid, "role": role, "tick": self.tick,

@@ -99,7 +99,7 @@ class GraphLoop:
         copy queued behind the last replay, so no iteration is launched past
         the fixpoint.  Returns the iterations launched."""
         if self.cuda and self.graph is None:
-            self._capture(body)
+            self.capture(body)
         n = 0
         while n < most:
             if n >= fewest and self._read_done():
@@ -122,7 +122,9 @@ class GraphLoop:
         self._flag_ready.synchronize()
         return bool(self._flag[0])
 
-    def _capture(self, body: Callable[[], None]) -> None:
+    def capture(self, body: Callable[[], None]) -> None:
+        """Warm ``body`` up and capture one iteration of it (CUDA only;
+        :meth:`run` calls this at its first run)."""
         counters = launch_counters()
         before = _read(counters)
         saved_cursor, saved_done = self.cursor.clone(), self.done.clone()

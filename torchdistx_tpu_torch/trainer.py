@@ -30,24 +30,40 @@ each log boundary checks the loss (and the window against a deadline);
 and the log gets ``{"step", "failure", "action", "resumed_from"}``.  The
 health gate: no checkpoint is written at a non-finite loss while a
 detector is set, so a poisoned state never becomes the rollback target.
-The flight recorder, the session black box, the stall watchdog and cost
-cards are not ported yet: their arguments raise ``NotImplementedError``.
+
+Telemetry, as in the JAX loop: the flight recorder (``flight``: default
+the process-wide one, ``False`` for none) records ``fit_start``, the
+warm-up, every log boundary, checkpoints, failures and rollbacks,
+reshards and ``fit_end``, and dumps its ring on an exception or a handled
+failure; the session black box (``record``) records the trainer and, per
+step, the batch's identity digest (:func:`batch_digest`) and the rng
+counter; ``stall_timeout_s`` arms a dispatch-stall watchdog around every
+step and every sync; ``cost_card=True`` takes the step's cost card from
+the CUDA caching allocator at the first step (peak and temp bytes, the
+analytic FLOPs).  A card resets the allocator's peak statistics, which a
+caller measuring peaks reads, so the port's default is off where JAX's is
+on.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import math
 import os
 import time
 from typing import Any, Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
+from .obs.blackbox import resolve_record
+from .obs.flight import get_flight_recorder
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.failure import StepFailure, apply_failure_policy
 
-__all__ = ["Trainer", "TrainStep", "H100_PEAK_BF16"]
+__all__ = ["Trainer", "TrainStep", "H100_PEAK_BF16", "batch_digest"]
 
 H100_PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 
@@ -79,6 +95,47 @@ def _sync(loss) -> None:
         torch.cuda.synchronize(loss.device)
 
 
+def batch_digest(batch: Any) -> str:
+    """Identity digest of one training batch, host side only: numpy arrays
+    and CPU tensors hash by their bytes (shape and dtype included), tensors
+    on the card by shape, dtype and device, never fetched, so a digest
+    costs no device sync.  Bit-identical host batches give equal digests;
+    a shuffled or corrupted pipeline names the first step that differs."""
+    h = hashlib.sha256()
+    leaves, _ = torch.utils._pytree.tree_flatten(batch)
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu":
+            leaf = leaf.detach().contiguous().numpy()
+        if isinstance(leaf, np.ndarray):
+            h.update(str((leaf.shape, str(leaf.dtype))).encode())
+            h.update(np.ascontiguousarray(leaf).tobytes())
+        elif isinstance(leaf, (bool, int, float, str, bytes)):
+            h.update(repr(leaf).encode())
+        else:
+            h.update(str((type(leaf).__name__, tuple(getattr(leaf, "shape", ()) or ()),
+                          str(getattr(leaf, "dtype", "")),
+                          str(getattr(leaf, "device", "")))).encode())
+    return h.hexdigest()
+
+
+class _NoFlight:
+    """The flight recorder of ``Trainer(flight=False)``: records nothing."""
+
+    session_path = None
+
+    def record(self, kind: str, **fields) -> None:
+        return None
+
+    def dump(self, reason: str = "manual") -> None:
+        return None
+
+
+def _rng_counter() -> int:
+    from .utils.rng import _state
+
+    return int(_state.counter)
+
+
 class Trainer:
     def __init__(
         self,
@@ -100,11 +157,6 @@ class Trainer:
         stall_timeout_s: Optional[float] = None,
         cost_card: bool = False,
     ) -> None:
-        unported = dict(flight=flight, record=record, stall_timeout_s=stall_timeout_s,
-                        cost_card=cost_card or None)
-        for name, val in unported.items():
-            if val is not None:
-                raise NotImplementedError(f"Trainer({name}=...) is not ported yet")
         if on_failure not in ("raise", "continue", "restore", "reshard"):
             raise ValueError(f"unknown failure policy {on_failure!r}")
         if isinstance(step, TrainStep):
@@ -139,6 +191,36 @@ class Trainer:
             "checkpoints_total": 0,
             "failures_total": 0,
         }
+        # the flight recorder: ring records at the log boundaries,
+        # checkpoints and failures, dumped when the run breaks
+        if flight is False:
+            flight = _NoFlight()
+        self.flight = flight if flight is not None else get_flight_recorder()
+        self.last_flight_dump: Optional[str] = None
+        # the session black box: the trainer, then per step the batch's
+        # identity digest and the rng counter (TDX_SESSION_RECORD=0: none)
+        self.recorder = resolve_record(record)
+        self._bb_on = bool(getattr(self.recorder, "enabled", False))
+        self._last_batch_digest: Optional[str] = None
+        if self._bb_on:
+            self.recorder.record("trainer", step_type=type(step).__name__,
+                                 tokens_per_batch=tokens_per_batch,
+                                 start_step=self.global_step, rng_counter=_rng_counter())
+            if self.recorder.path:
+                self.flight.session_path = self.recorder.path
+        # the step's cost card (obs.cost), taken at the first step on the card
+        from .obs.cost import CostBook, force_disabled
+
+        self._want_cost_card = bool(cost_card) and not force_disabled()
+        self.cost_card = None
+        self.cost_book = CostBook()
+        # the dispatch-stall watchdog around every step and every sync
+        self.watchdog = None
+        if stall_timeout_s is not None:
+            from .obs.watchdog import DispatchWatchdog
+
+            self.watchdog = DispatchWatchdog(stall_timeout_s, flight=self.flight,
+                                             book=self.cost_book)
 
     # -- checkpoint --------------------------------------------------------
 
@@ -149,9 +231,12 @@ class Trainer:
         """Write the module, the optimizer and the step to ``path``
         (default ``checkpoint_dir/step_<global_step>``)."""
         path = path or os.path.join(self.checkpoint_dir or ".", f"step_{self.global_step}")
+        t0 = time.time()
         save_checkpoint(path, self._state(self.global_step))
         self._last_checkpoint = path
         self.metrics["checkpoints_total"] += 1
+        self.flight.record("checkpoint", step=self.global_step, path=path,
+                           seconds=round(time.time() - t0, 3))
         return path
 
     def restore(self, path: str) -> None:
@@ -220,9 +305,9 @@ class Trainer:
         the step, both mesh shapes, the mode, the closed-form wire bytes
         (``reshard_wire_bytes``; the bounce's restore reads from the
         checkpoint and moves none), the bytes the move handed to
-        collectives and the seconds.  Booking them into a comm audit and
-        the flight recorder waits for ``obs/comm`` and ``obs/flight``.
-        Returns the mode."""
+        collectives and the seconds; the flight recorder gets
+        ``reshard_start`` / ``reshard_done``.  Booking them into a comm
+        audit waits for ``obs/comm``.  Returns the mode."""
         from .parallel import collectives
         from .parallel.reshard import (can_reshard_live, optimizer_state_tree, reshard,
                                        reshard_via_checkpoint, reshard_wire_bytes,
@@ -239,6 +324,8 @@ class Trainer:
         if mesh is None:
             mesh = self._shrunk_mesh(old_mesh, getattr(failure, "n_lost", None) or 1)
         t0 = time.perf_counter()
+        self.flight.record("reshard_start", step=self.global_step,
+                           mesh_from=dict(old_mesh.shape), mesh_to=dict(mesh.shape))
         sent = dict(collectives.payload_bytes)
         model, opt = step.model, step.optimizer
         tree = {"params": dict(model.named_parameters()),
@@ -264,6 +351,9 @@ class Trainer:
             "mesh_to": dict(mesh.shape), "mode": mode, "wire_bytes": wire,
             "payload_bytes": {k: v - sent[k] for k, v in collectives.payload_bytes.items()},
             "seconds": dt, "departed": self.departed}
+        self.flight.record("reshard_done", step=self.global_step,
+                           mesh_from=dict(old_mesh.shape), mesh_to=dict(mesh.shape),
+                           mode=mode, wire_bytes=int(wire), seconds=round(dt, 3))
         return mode
 
     def _update_derived_metrics(self) -> None:
@@ -274,11 +364,77 @@ class Trainer:
             if self.flops_per_token:
                 self.metrics["mfu"] = tps * self.flops_per_token / self.peak_flops
 
+    def _watch(self, name: str):
+        """The stall-watchdog guard of one region (a no-op without one)."""
+        if self.watchdog is None:
+            return contextlib.nullcontext()
+        return self.watchdog.arm(name)
+
+    def _safe_dump(self, reason: str) -> Optional[str]:
+        """Dump the flight ring; telemetry I/O never turns a survivable
+        incident, or the original exception, into a telemetry crash."""
+        try:
+            self.last_flight_dump = self.flight.dump(reason=reason)
+        except Exception:
+            pass
+        return self.last_flight_dump
+
+    def _card_device(self):
+        params = self.params
+        if isinstance(params, torch.nn.Module):
+            p = next(params.parameters(), None)
+            if p is not None and p.is_cuda:
+                return p.device
+        return None
+
+    def _begin_card(self):
+        """Start the step's cost card before the first step on the card
+        (one attempt); None on the CPU, with cards off, or on a failure."""
+        if not self._want_cost_card:
+            return None
+        self._want_cost_card = False
+        dev = self._card_device()
+        if dev is None:
+            return None
+        from .obs.cost import begin_allocator_card
+
+        analytic = (self.flops_per_token * self.tokens_per_batch
+                    if self.flops_per_token and self.tokens_per_batch else None)
+        try:
+            return begin_allocator_card("trainer/step", dev, analytic_flops=analytic)
+        except Exception:
+            return None
+
+    def _finish_card(self, card) -> None:
+        if card is None:
+            return
+        from .obs.cost import finish_allocator_card
+
+        try:
+            self.cost_card = finish_allocator_card(card, self._card_device(),
+                                                   book=self.cost_book)
+        except Exception:
+            self.cost_card = None
+
     def fit(self, batches: Iterable[Any], num_steps: Optional[int] = None) -> dict:
         """Run until ``global_step`` reaches ``num_steps`` (or the batches
         run out, or this rank leaves a shrinking mesh: ``departed``).
-        Returns ``{"step", "loss"}``."""
-        t_window = time.perf_counter()
+        Returns ``{"step", "loss"}``.  An exception, a ``StepFailure``
+        under ``on_failure="raise"`` included, is recorded and dumps the
+        flight ring before it propagates."""
+        self.flight.record("fit_start", step=self.global_step, num_steps=num_steps,
+                           rng_counter=_rng_counter())
+        try:
+            return self._fit(batches, num_steps)
+        except BaseException as e:
+            self.flight.record("exception", step=self.global_step,
+                               error=f"{type(e).__name__}: {e}"[:300],
+                               last_checkpoint=self._last_checkpoint)
+            self._safe_dump(f"exception:{type(e).__name__}")
+            raise
+
+    def _fit(self, batches: Iterable[Any], num_steps: Optional[int]) -> dict:
+        t_window = t_warm0 = time.perf_counter()
         window_steps = 0
         warmup_pending = not self._warmed
         loss = None
@@ -288,21 +444,33 @@ class Trainer:
                 batch = next(it)
             except StopIteration:
                 break
-            self.params, self.opt_state, loss = self.step(
-                self.params, self.opt_state, batch)
+            if self._bb_on:
+                self._last_batch_digest = batch_digest(batch)
+                self.recorder.record("train_step", step=self.global_step,
+                                     rng_counter=_rng_counter(),
+                                     batch=self._last_batch_digest)
+            card = self._begin_card() if warmup_pending else None
+            with self._watch("trainer/step"):
+                self.params, self.opt_state, loss = self.step(
+                    self.params, self.opt_state, batch)
             self.global_step += 1
             window_steps += 1
             self.metrics["steps_total"] += 1
             if self.tokens_per_batch:
                 self.metrics["tokens_total"] += self.tokens_per_batch
             if warmup_pending:
-                _sync(loss)
+                with self._watch("trainer/warmup_sync"):
+                    _sync(loss)
+                self._finish_card(card)
+                self.flight.record("warmup", step=self.global_step,
+                                   seconds=round(time.perf_counter() - t_warm0, 3))
                 t_window = time.perf_counter()
                 window_steps = 0
                 warmup_pending = False
                 self._warmed = True
             if self.global_step % self.log_every == 0 and window_steps > 0:
-                _sync(loss)
+                with self._watch("trainer/step_sync"):
+                    _sync(loss)
                 dt = time.perf_counter() - t_window
                 last_loss = float(loss)
                 if self.failure_detector is not None:
@@ -315,7 +483,18 @@ class Trainer:
                     except StepFailure as failure:
                         self.metrics["failures_total"] += 1
                         failed_step = self.global_step  # before any rollback
+                        self.flight.record("failure", step=failed_step,
+                                           failure_kind=failure.kind, loss=last_loss,
+                                           last_checkpoint=self._last_checkpoint)
+                        t_rb = time.perf_counter()
                         action = apply_failure_policy(self, failure, self.on_failure)
+                        self.flight.record("rollback", step=failed_step, action=action,
+                                           restored_step=self.global_step,
+                                           checkpoint=self._last_checkpoint,
+                                           seconds=round(time.perf_counter() - t_rb, 3))
+                        # the dump is the incident's evidence, written even
+                        # though the run goes on
+                        self._safe_dump(f"failure:{failure.kind}")
                         self.log_fn({"step": failed_step, "failure": failure.kind,
                                      "action": action,
                                      "resumed_from": self.global_step})
@@ -331,6 +510,11 @@ class Trainer:
                     out["tokens_per_sec"] = round(
                         self.tokens_per_batch * window_steps / dt, 1)
                 self._history.append(last_loss)
+                self.flight.record("step", step=self.global_step, loss=last_loss,
+                                   steps_per_sec=round(window_steps / dt, 3),
+                                   window_s=round(dt, 4), rng_counter=_rng_counter(),
+                                   last_checkpoint=self._last_checkpoint,
+                                   batch=self._last_batch_digest)
                 self.log_fn(out)
                 t_window = time.perf_counter()
                 window_steps = 0
@@ -343,5 +527,7 @@ class Trainer:
                 else:
                     self.save()
         self._update_derived_metrics()
-        return {"step": self.global_step,
-                "loss": float(loss) if loss is not None else float("nan")}
+        final = float(loss) if loss is not None else float("nan")
+        self.flight.record("fit_end", step=self.global_step,
+                           loss=None if loss is None else final, rng_counter=_rng_counter())
+        return {"step": self.global_step, "loss": final}
