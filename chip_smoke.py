@@ -24,11 +24,11 @@ Phases, each fatal:
    paged variant against the slab one, timed beside SDPA by call and by
    device time;
 3. a 4-layer, full-width llama3_8b through the kernels and the plain path
-   against f32, decoding over the slab, the int8 cache and page pools, one
-   token at a time and in the speculative verify's 5-token blocks (rows
+   against f32, decoding over the slab in bf16 and int8 and int8 page
+   pools, one token at a time and in the speculative verify's 5-token blocks (rows
    past a slot's end included); then
-   serve 16 requests through ``ServeEngine`` on a full-width llama3_8b with
-   random weights drawn from the seed, in turns chunked one step a
+   serve 16 requests of ``SERVE_NEW`` new tokens through ``ServeEngine``
+   on a full-width llama3_8b with random weights drawn from the seed, in turns chunked one step a
    dispatch, then persistent (the decode loop one CUDA graph of an
    iteration, replayed);
    check the results, every persistent stream (greedy and sampled) equal
@@ -75,8 +75,9 @@ Phases, each fatal:
    kernels (flash at head_dim 64, fused loss on the tied head) and through
    the plain path, each held against the f32 plain path;
 9. train gpt2_large at full width and depth (36 layers, bf16, batch 8 x
-   1024) through ``examples.train_gpt2.main`` with the fused loss: one
-   warm-up step, then 5 steps with the launch counters reset just before;
+   1024) through ``examples.train_gpt2.main`` with the fused loss:
+   ``TRAIN_STEPS`` steps with the launch counters reset just before (the
+   first out of the trainer's window);
 10. ``torch.profiler`` over one more gpt2_large step: device time per
    step by kernel and kernel class against the step's host-clock time;
 11. hold T5's relative-position-bias variants of the flash kernels (an
@@ -93,7 +94,7 @@ Phases, each fatal:
 13. train T5-3B at full width and 4 of its 24 layers a stack (bf16,
    batch 4 x 512) through
    ``build_t5_train_workload``: deferred init, materialize on the card,
-   one warm-up step, then 5 ``Trainer.fit`` steps with the launch
+   one warm-up step, then ``TRAIN_STEPS`` ``Trainer.fit`` steps with the launch
    counters reset just before, then ``torch.profiler`` over two more
    steps, (a) with the materialized bias (dbias), (b) with the bucket
    table (dtable), whose loss and gradients are then computed twice from
@@ -111,11 +112,11 @@ Phases, each fatal:
    of one backward step;
 16. serve full mistral_7b (32 layers, random weights from the seed)
    through ``ServeEngine`` over 8 slots x 8192 rows: 8 greedy requests
-   with prompts of 4097-7000 tokens and 64 new tokens, every prefill
+   with prompts of 4097-7000 tokens and ``MISTRAL_NEW`` new tokens, every prefill
    through the window forward kernel (counters reset just before);
 17. train mistral_7b at full width and 8 of its 32 layers (batch 1 x 8192)
    through ``build_train_workload``: deferred init, materialize on the
-   card, one warm-up step, then 5 ``Trainer.fit`` steps with every
+   card, one warm-up step, then ``TRAIN_STEPS`` ``Trainer.fit`` steps with every
    attention forward and backward through the window kernels;
 18. a 2-layer, full-width mixtral_8x7b in int8 at four seeds against its
    bf16 self (the JAX package's MoE fidelity metric over 64 prompts of 16
@@ -163,16 +164,17 @@ Phases, each fatal:
    processes joined over ``gloo`` (NCCL refuses two ranks on one device;
    ``gloo``'s sends go through pinned host buffers), each with llama_1b
    at full width and 2 of its 16 layers from the same seed and its own
-   half of each batch, on ``hierarchical_mesh(2)``: (a) 6 GossipGraD
-   steps, after each of which the two ranks' parameters are bit-identical
-   (with two nodes both take the same sum, (own + peer) * 0.5); (b) 6
-   SlowMo steps (``slowmo_freq`` 3), the ranks bit-identical after steps 3
-   and 6 and different after step 4, and ``consensus()`` the mean of the
+   half of each batch, on ``hierarchical_mesh(2)``: (a) ``GOSSIP_STEPS``
+   GossipGraD steps, after each of which the two ranks' parameters are
+   bit-identical (with two nodes both take the same sum, (own + peer) *
+   0.5); (b) as many SlowMo steps (``slowmo_freq`` 3), the ranks
+   bit-identical after every third step and different after the others,
+   and ``consensus()`` the mean of the
    two ranks' parameters; the kernels' launches on each rank, and per step
    its ms, the bytes it exchanged and the ms the exchange took; then in
    the same world (c) tensor parallelism: llama_1b at full width and 2 of
    its 16 layers, ``materialize_module(sharding_rule=llama_tp_rule(mesh,
-   "tp"))`` on ``{"tp": 2}``, 3 ``GSPMDTrainStep`` steps with
+   "tp"))`` on ``{"tp": 2}``, ``TP_STEPS`` ``GSPMDTrainStep`` steps with
    ``llama_tp_plan`` (Megatron compute, each rank's 8 of 16 heads through
    the flash kernels), and (d) expert parallelism: mixtral_8x7b at full
    width and 1 layer under ``m.shard_rule(mesh)`` on ``{"ep": 2}`` (4 of 8
@@ -199,7 +201,7 @@ Phases, each fatal:
    ``loss_fn``, one ``pipeline_apply`` and 2 ``pipeline_train_step`` calls
    over 8 microbatches of 1 x 2048; (h) ZeRO-2: llama_1b, 2 layers, on
    ``{"dp": 2}`` through ``GSPMDTrainStep`` with ``ShardingPlan(dp_axis=
-   "dp", zero2=True)`` and AnyPrecisionAdamW, 3 steps, the parameters bit
+   "dp", zero2=True)`` and AnyPrecisionAdamW, ``ZERO2_STEPS`` steps, the parameters bit
    for bit against the replicated-optimizer oracle and the optimizer's
    bytes a rank half of its; (i) resharding: llama_1b, 2 layers, on
    ``{"fsdp": 2}`` with ``on_failure="reshard"``: ``inject_device_loss(1)``
@@ -207,7 +209,21 @@ Phases, each fatal:
    1}`` on rank 0 (rank 1 leaves), and 2 more steps bit-equal to a world-1
    run resumed from the replayed state; on ``{"dp": 2}`` the same loss
    takes the live path with 0 wire bytes; (e)-(g) held against a world-1
-   run with the TP tolerances, the launches of every run gated;
+   run with the TP tolerances, the launches of every run gated; (j)
+   tensor-parallel serving (after the flash and the two decode kernels it
+   runs are held against their plain versions at a rank's heads, Hq 16 and
+   Hkv 4): llama3_8b at full width, 2 of 32 layers, materialized under
+   ``llama_tp_plan`` on ``{"tp": 2}`` and checked by ``plan.validate``
+   against the card's memory, ``ServeEngine(model, mesh=, plan=)`` serving 8
+   greedy requests of 16-1024 prompt tokens, 32 new, on 8 slots x 2048,
+   chunked on a bf16 slab and paged with an int8 cache, each under a comm
+   audit equal to its closed form and with ``gloo``'s bytes equal to
+   theirs, the flash and decode launches gated on each rank, the two
+   ranks' streams equal; each run against a world-1 engine of its mode on
+   rank 0 (every first token equal, greedy agreement at least 0.5, the
+   logits every prefill and the first decode step sampled from within 5e-2
+   of the row's largest); a persistent TP engine over ``gloo`` must be
+   refused;
 25. BASELINE config 5 on one card: the flash backward kernels and the lse
    forward at llama2_7b's attention (B 1, S 4096, 32 heads, D 128,
    causal) and the fused CE kernels at its loss (N 4096, D 4096, V 32000)
@@ -344,7 +360,8 @@ library ms, the factor over the library and over the bound (the decode
 variants also by device time), phase 25 one per kernel at config 5's
 shapes; phases 22-23 one ``train slowmo llama_1b`` line and one
 ``gossip``/``slowmo``/``tp llama_1b``/``ep mixtral_8x7b``/``sp gpt2_large``/``sp
-t5_3b``/``pp llama_1b``/``zero2 llama_1b``/``reshard llama_1b`` line per rank,
+t5_3b``/``pp llama_1b``/``zero2 llama_1b``/``reshard llama_1b``/``tp serve
+llama3_8b`` line per rank,
 phase 25 ``train llama2_7b config 5`` and ``train mixtral_8x7b``, phase 26 ``checkpoint and failure llama_1b``, phases 27-28 ``train
 resnet50 config 2`` and ``train vit_b16``, phase 29 one line a part
 ((a) to (e): requests, tokens/s, TTFT p50, counters, launches) and
@@ -355,7 +372,8 @@ line each flash and fused-CE entry's ``launches`` counts phase 25b's
 timed Mixtral steps among the training runs (also apart, as
 ``launches_mixtral_train``), ``launches_tp_ep_ranks`` gives each
 rank's launches in phase 23 (c) and (d), ``launches_parallel_ranks``
-in (e)-(i), and the flash forward's and the decode kernels'
+in (e)-(i), ``launches_tp_serve_ranks`` in (j) (each rank's, a run), and
+the flash forward's and the decode kernels'
 ``launches_serving_fleet`` phase 29's (also in ``launches``); the
 flash forward's and the decode kernels' ``launches_gpt2_serving`` and
 the T5 forward variants' ``launches_t5_generation`` phase 30's (also in
@@ -454,8 +472,9 @@ DELTA_ATOL = 1e-4
 # the redesigned sources, whose ptxas lines (registers, spills) the build
 # phase prints per kernel
 HOPPER_LIBS = ("flash_fwd", "flash_bwd", "decode_attention", "fused_ce")
-# timed training steps of phases 6, 9, 13, 17 and 21 (10 before phase 30)
-TRAIN_STEPS = 5
+# timed training steps of phases 6, 9, 13, 17 and 21 (10 before phase 30, 5
+# before phase 23 (j))
+TRAIN_STEPS = 3
 # (N, D, V) of the fused LM-head loss: llama_1b (2 x 2048 tokens), gpt2_large
 # (8 x 1024 tokens, vocab 50257 with no tile divisor), a prime and a tiny N
 CE_CASES = [(4096, 2048, 32000), (8192, 1280, 50257), (509, 1280, 50257), (3, 2048, 32000)]
@@ -499,10 +518,14 @@ SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_d
 # and 25b; the chunked turn of eight steps a dispatch runs on gpt2_large in
 # phase 30 (a) since phase 30)
 SERVE_MODES = (("chunked-1", {}), ("persistent", {"decode_mode": "persistent"}))
+# new tokens of each request of phase 3's serve runs and its variants (b)-(d)
+# (64 before phase 23 (j))
+SERVE_NEW = 32
 # decode steps run before, and profiled in, each mode's profile window: one
-# persistent ring of this capacity (4, not 32, to keep the smoke inside its
-# time: the profiler's key_averages takes about a second a profiled step)
-PROFILE_RING = 4
+# persistent ring of this capacity (2, not 32, to keep the smoke inside its
+# time: the profiler's key_averages takes about a second a profiled step; 4
+# before phase 23 (j))
+PROFILE_RING = 2
 # the other decode kernels' persistent engines, profiled the same way for
 # each kernel's device time a call inside the graph
 GRAPH_VARIANTS = (("paged_decode_attention", {"page_size": 16}),
@@ -517,6 +540,8 @@ WINDOW_CASES = [(37, 16), (1000, 300), (2048, 4096), (8192, 4096), (777, 1)]
 WINDOW_REPORTED = (8192, 4096)
 # the 4-layer mistral_7b check: one prompt past the 4096-token window
 MISTRAL_PROMPT = 4600
+# new tokens of each of phase 16's 8 requests (64 before phase 23 (j))
+MISTRAL_NEW = 32
 # mistral_7b training at full width is cut to this depth: 32 layers of
 # weights, gradients and optimizer state take about 72 GB
 MISTRAL_TRAIN_LAYERS = 8
@@ -578,7 +603,7 @@ SLOWMO_ULPS = 1.0
 # one device), llama_1b at full width and GOSSIP_LAYERS of its 16 layers a
 # rank, GOSSIP_STEPS steps of GossipGraD, then as many of SlowMo
 GOSSIP_LAYERS = 2  # 4 before phase 30
-GOSSIP_STEPS = 6
+GOSSIP_STEPS = 4  # 6 before phase 23 (j); SlowMo syncs at step 3, parts at 4
 GOSSIP_TIMEOUT_S = 480
 # phase 23 (c) and (d) in the same world: tensor parallelism on {"tp": 2},
 # llama_1b at full width and TP_LAYERS of its 16 layers, TP_STEPS steps at
@@ -591,7 +616,30 @@ GOSSIP_TIMEOUT_S = 480
 # TP_GRAD_RTOL of the world-1 one by norm, and the update every parameter
 # took, p - p0, within TP_UPDATE_RTOL of the world-1 update by norm over
 # the model
-TP_LAYERS, TP_STEPS, TP_SEQ = 2, 3, 2048
+# phase 23 (j) in the same world: tensor-parallel serving of llama3_8b at
+# full width (bf16), TP_SERVE_LAYERS of its 32 layers, on {"tp": 2}: 8
+# greedy requests of 16-1024 prompt tokens, TP_SERVE_NEW new, on
+# TP_SERVE_SLOTS slots x 2048, chunked 1 step a dispatch on a bf16 slab and
+# paged (page 16) with an int8 cache, each under a comm audit held to the
+# engine's closed form and gloo's bytes to theirs; each run held against a
+# world-1 engine of the same mode on rank 0 over the same seed's model
+# whole (its pieces gathered): every stream's first token equal, the greedy
+# agreement at least TP_SERVE_AGREEMENT (0.738 slab, 0.699 paged int8 in
+# the first runs: bf16 partial products summed in another order part the
+# streams at token 5 or later), and the logits the dispatches sampled from
+# (each prefill's, the first decode step's) within TP_SERVE_LOGITS_RTOL of
+# the row's largest world-1 logit (0.0103 and 0.0110 for the first
+# request); the two ranks' streams equal
+TP_SERVE_LAYERS = 2
+TP_SERVE_REQUESTS, TP_SERVE_NEW, TP_SERVE_SLOTS = 8, 32, 8
+TP_SERVE_AGREEMENT = 0.5
+TP_SERVE_LOGITS_RTOL = 5e-2
+TP_SERVE_RUNS = (("slab", {"decode_chunk": 1}), ("paged_int8", {"page_size": 16,
+                                                                 "kv_dtype": "int8"}))
+# the decode variants (layout, S, dtype) those runs launch, checked at a
+# rank's heads before the world starts
+TP_SERVE_VARIANTS = (("slab", 1, "bf16"), ("paged", 1, "int8"))
+TP_LAYERS, TP_STEPS, TP_SEQ = 2, 2, 2048  # 3 steps before phase 23 (j)
 EP_LAYERS, EP_STEPS, EP_SEQ = 1, 2, 1024
 TP_LR = 10.0
 # about 3x the largest readings on an H100 (losses 2.6e-4, gradients
@@ -942,7 +990,7 @@ def _shuffled_tables(torch, rng, b, pp, num_pages, shared, device):
 
 def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
                           d=128, page_size=16, iters=20, positions_of=VARIANT_POSITIONS,
-                          phase=2):
+                          phase=2, only=None):
     """Each decode kernel variant, {slab, paged} x {S = 1, S = 5} x {bf16,
     int8}, against its plain version at the llama3_8b serving geometry.
     Positions include 0, page boundaries +-1 and ``max_len - 1``; for S = 5
@@ -951,7 +999,8 @@ def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
     paged output must equal the slab kernel's on the gathered rows bit for
     bit.  Timed beside the plain version and the library yardstick (SDPA
     with an explicit mask over the slab; over the gather, timed with it,
-    for paged; after the dequantization, timed with it, for int8)."""
+    for paged; after the dequantization, timed with it, for int8).
+    ``only``: the ``(layout, S, dtype)`` variants to check (default all)."""
     import numpy as np
     from torchdistx_tpu_torch.ops import decode_attention as da
     from torchdistx_tpu_torch.ops.attention import _paged_gather
@@ -977,6 +1026,8 @@ def check_decode_variants(torch, device, b=8, max_len=2048, hq=32, hkv=8,
             pos = torch.tensor(positions, dtype=torch.int32, device=device)
             q = rnd((b, s, hq, d))
             for dt in ("bf16", "int8"):
+                if only is not None and (layout, s, dt) not in only:
+                    continue
                 quant = dt == "int8"
                 if quant:
                     (kd, ksc), (vd, vsc) = qpools["k"], qpools["v"]
@@ -1515,7 +1566,7 @@ def serve_variants(torch, model, rng, num_slots=8, max_len=2048):
                            **kw)
 
     # -- b. paged + prefix cache, bf16 ---------------------------------------
-    reqs = prefix_share_requests(rng, vocab, n=num_slots, max_len=max_len)
+    reqs = prefix_share_requests(rng, vocab, n=num_slots, max_len=max_len, max_new=SERVE_NEW)
     paged = engine(page_size=16, prefix_cache=True)
     cold, cs = run_engine(torch, paged, reqs)
     warm, ws = run_engine(torch, paged, reqs)
@@ -1580,7 +1631,7 @@ def _speculative_variants(torch, engine, rng, n_layers, vocab, num_slots, report
 
     failures = []
     # -- c. slab, speculate 4, spec_ngram 2 ------------------------------------
-    reqs = cyclic_requests(rng, vocab, n=num_slots)
+    reqs = cyclic_requests(rng, vocab, n=num_slots, max_new=SERVE_NEW)
     spec, ss = run_engine(torch, engine(speculate=4, spec_ngram=2), reqs)
     base, bs = run_engine(torch, engine(), reqs)
     failures += _greedy_failures("speculate 4", reqs, spec, vocab)
@@ -2075,19 +2126,17 @@ def train(torch, seed, steps=TRAIN_STEPS, fused_ce=False):
 def train_gpt2(torch, seed, steps=TRAIN_STEPS, batch=8, seq=1024):
     """The GPT-2 training main path: ``examples.train_gpt2.main`` on full
     gpt2_large in bf16 with the fused loss, over a stream of 4 batches per
-    epoch (so the loss can fall).  One call of one step warms up; the
-    launch counters are set to 0 just before the measured call of
-    ``steps`` steps and read just after.  Step time, tokens/s and MFU are
-    the trainer's (steps 2..``steps``: it keeps a call's first step out of
-    its window)."""
+    epoch (so the loss can fall).  The launch counters are set to 0 just
+    before the call of ``steps`` steps and read just after.  Step time,
+    tokens/s and MFU are the trainer's (steps 2..``steps``: it keeps a
+    call's first step out of its window; a separate one-step warm-up call,
+    a second build of gpt2_large, was cut for phase 23 (j))."""
     import numpy as np
     from torchdistx_tpu_torch.examples.train_gpt2 import main as train_main
 
     stream = np.random.RandomState(seed).randint(0, 50257, 4 * batch * seq + 1)
     kw = dict(batch=batch, seq=seq, fused_ce=True, device="cuda",
               dtype=torch.bfloat16, stream=stream, log_fn=lambda m: None)
-    warm = train_main("gpt2_large", steps=1, **kw)
-    del warm
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2765,7 +2814,8 @@ def serve_mistral(torch, tt, seed, num_slots=8, max_len=8192):
     tt.manual_seed(seed)
     model = tt.models.Llama.from_name("mistral_7b", dtype=torch.bfloat16, device="cuda")
     model.requires_grad_(False)
-    requests = long_requests(np.random.RandomState(seed), model.cfg.vocab_size)
+    requests = long_requests(np.random.RandomState(seed), model.cfg.vocab_size,
+                             max_new=MISTRAL_NEW)
     engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3583,7 +3633,7 @@ def _gossip_runs(torch, seed, steps, n_layers, seq):
                  for r in gossip_rows if not r["ranks_bit_identical"]]
     del step, opt
 
-    # (b) SlowMo: the nodes meet only at the slow steps (3 and 6)
+    # (b) SlowMo: the nodes meet only at the slow steps (every third)
     def payload(args):
         return sum(t.numel() * t.element_size() for t in args[0])
 
@@ -3766,7 +3816,7 @@ def _tp_ep_runs(torch, seed, cases=TP_EP_CASES, device="cuda"):
                      "grad_rel_err": grad_err, "update_rel_err_by_param": update_by_param,
                      "max_abs_param_diff": max_diff, "local_params": local_params,
                      "full_params": sum(t.numel() for t in full.values()),
-                     "local_forwards": len(step._forwards),
+                     "local_forwards": len(step._layout.forwards),
                      "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                            if device == "cuda" else None)}
         del m, step, trainer, full, init, ref, ref_grads
@@ -3806,7 +3856,7 @@ SP_T5_LAYERS, SP_T5_BATCH, SP_T5_SEQ, SP_T5_STEPS = 2, 2, 1024, 2
 SP_LR = 1.0  # at TP_LR (10) a tiny GPT-2's loss climbs by its third step
 ULYSSES_RTOL = 2e-2
 PP_LAYERS, PP_MICRO, PP_SEQ, PP_STEPS, PP_LR = 4, 8, 2048, 2, 10.0
-ZERO2_LAYERS, ZERO2_SEQ, ZERO2_STEPS = 2, 2048, 3
+ZERO2_LAYERS, ZERO2_SEQ, ZERO2_STEPS = 2, 2048, 2  # 3 steps before phase 23 (j)
 RESHARD_LAYERS, RESHARD_SEQ, RESHARD_AFTER = 2, 2048, 2
 # the ring blocks of (e) and (f) and llama_1b's attention, against their
 # plain versions before the world starts: (B, S, Hq, Hkv, D, causal, bias)
@@ -4297,6 +4347,191 @@ def _parallel_runs(torch, seed, tmp, device="cuda"):
     return out, failures
 
 
+@contextlib.contextmanager
+def _logits_tap(engine):
+    """The logits ``engine``'s own dispatches sample from, f32 on the host:
+    ``firsts``, each prefill's row at its last real prompt position in
+    dispatch order, and ``decode``, the first decode step's last row of
+    every slot.  A TP engine's are the head's gathered logits."""
+    tap = {"firsts": [], "decode": None}
+    model = engine.model
+    sample_first, forward_decode = engine._sample_first, model.forward_decode
+
+    def first(logits, true_len, temp, seed):
+        tap["firsts"].append(logits[0, true_len - 1].float().cpu())
+        return sample_first(logits, true_len, temp, seed)
+
+    def decode(*args, **kw):
+        logits, kv = forward_decode(*args, **kw)
+        if tap["decode"] is None:
+            tap["decode"] = logits[:, -1].float().cpu()
+        return logits, kv
+
+    engine._sample_first, model.forward_decode = first, decode
+    try:
+        yield tap
+    finally:
+        del engine._sample_first, model.forward_decode
+
+
+def _row_rel_errs(got, want) -> list:
+    """Each row's ``max |got - want| / max |want|``."""
+    return [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]))]
+
+
+def _tp_serve_run(torch, seed):
+    """Phase 23 (j) on one rank of two: llama3_8b at full width,
+    TP_SERVE_LAYERS deep, deferred and materialized under ``llama_tp_plan``
+    on ``{"tp": 2}``, checked by ``plan.validate`` against the card's
+    memory, then served by ``ServeEngine(model, mesh=, plan=)`` in each of
+    TP_SERVE_RUNS under ``comm_audit``.  Each run is held to: the audit
+    equal to the engine's closed form (2 L all-reduces of n_tokens x dim x
+    2 bytes a prefill dispatch and a decode step); what ``gloo`` carried
+    (``collectives.payload_bytes``) equal to that plus the embedding's
+    vocabulary all-reduce (n_tokens x dim x 2 bytes) in all-reduce, and to
+    the head's logits pieces (n_tokens x vocab / 2 x 2 bytes) in
+    all-gather; flash and decode launches; every stream TP_SERVE_NEW long.
+    Tokens/s is reported (``gloo`` staged through the host: not a speed
+    figure).  A persistent TP engine over ``gloo`` must be refused.  Rank 0
+    then serves the same requests in each run's mode on a world-1 engine
+    over the model whole (the pieces gathered: the same seed's weights):
+    every stream's first token equal, the greedy agreement at least
+    TP_SERVE_AGREEMENT, and the logits both engines' dispatches sampled
+    from (every prefill's, the first decode step's) within
+    TP_SERVE_LOGITS_RTOL of the row's largest world-1 logit."""
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.obs import comm_audit, device_hbm_budget
+    from torchdistx_tpu_torch.interop import from_torch_state_dict
+    from torchdistx_tpu_torch.parallel import collectives, create_mesh, llama_tp_plan
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    rank = dist.get_rank()
+    failures, out = [], {"rank": rank}
+    t0 = time.perf_counter()
+    mesh = create_mesh({"tp": 2})
+    plan = llama_tp_plan(mesh)
+
+    tt.manual_seed(seed)
+    model = tt.materialize_module(
+        tt.deferred_init(Llama.from_name, "llama3_8b", n_layers=TP_SERVE_LAYERS,
+                         device="cuda", dtype=torch.bfloat16), sharding_rule=plan.as_rule())
+    report = plan.validate(model, budget_bytes_per_device=device_hbm_budget("cuda"))
+    out["validate"] = {k: report[k] for k in ("total_bytes", "bytes_per_device", "flags",
+                                              "shard_budget", "n_entries") if k in report}
+    out["build_s"] = time.perf_counter() - t0
+    cfg = model.cfg
+    itemsize = 2  # bf16 activations and logits
+    reqs = make_requests(np.random.RandomState(seed), cfg.vocab_size, n=TP_SERVE_REQUESTS,
+                         n_greedy=TP_SERVE_REQUESTS, max_new=TP_SERVE_NEW, lo=16, hi=1024)
+    taps = {}
+    for label, kw in TP_SERVE_RUNS:
+        eng = ServeEngine(model, num_slots=TP_SERVE_SLOTS, max_len=2048, mesh=mesh, plan=plan,
+                          cost_cards=False, **kw)
+        torch.cuda.synchronize()
+        _reset_counters()
+        sent = dict(collectives.payload_bytes)
+        t1 = time.perf_counter()
+        with comm_audit() as prof, _logits_tap(eng) as taps[label]:
+            results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        c = eng.metrics.counters
+        n_tokens = c["tokens_prefilled"] + c["decode_steps"] * TP_SERVE_SLOTS
+        ops = 2 * TP_SERVE_LAYERS * (c["prefill_calls"] + c["decode_steps"])
+        payload = 2 * TP_SERVE_LAYERS * n_tokens * cfg.dim * itemsize
+        carried = {k: v - sent[k] for k, v in collectives.payload_bytes.items()}
+        want_carried = {"all_reduce": payload + n_tokens * cfg.dim * itemsize,
+                        "all_gather": n_tokens * (cfg.vocab_size // 2) * itemsize}
+        launches = {k: v for k, v in _read_counters().items() if v}
+        row = {"audit": prof.to_json()["entries"], "closed_form_ops": ops,
+               "closed_form_payload_bytes": payload, "gloo_payload_bytes": carried,
+               "gloo_closed_form_bytes": want_carried,
+               "launches": launches, "wall_s": wall,
+               "tokens_per_sec": c["tokens_generated"] / wall,
+               "counters": {k: c[k] for k in SERVE_COUNTERS},
+               "kv_heads_a_rank": eng.cache.kv[0][0].shape[2],
+               "memory_plan": eng.memory_plan()["components"],
+               "streams": [list(map(int, r.tokens)) for r in results]}
+        out[label] = row
+        if (prof.ops("all_reduce", "tp") != ops or prof.payload_bytes("all_reduce", "tp") != payload
+                or len(row["audit"]) != 1):
+            failures.append(f"tp serve {label} rank {rank}: audit {row['audit']} != closed form "
+                            f"{ops} ops, {payload} bytes")
+        if any(carried[k] != v for k, v in want_carried.items()):
+            failures.append(f"tp serve {label} rank {rank}: gloo carried {carried}, the closed "
+                            f"forms give {want_carried}")
+        want = ("decode_attention",) if label == "slab" else ("paged_decode_attention_int8",)
+        for key in ("flash_fwd",) + want:
+            if not launches.get(key):
+                failures.append(f"tp serve {label} rank {rank}: no {key} launch")
+        if any(len(s) != TP_SERVE_NEW for s in row["streams"]):
+            failures.append(f"tp serve {label} rank {rank}: a stream is not {TP_SERVE_NEW} long")
+    try:
+        ServeEngine(model, num_slots=TP_SERVE_SLOTS, max_len=2048, mesh=mesh, plan=plan,
+                    decode_mode="persistent", cost_cards=False)
+        failures.append(f"tp serve rank {rank}: a persistent engine over gloo was built")
+    except RuntimeError as e:
+        out["persistent_refused"] = str(e)[:160]
+    del eng
+    with torch.no_grad():  # every rank takes part in the gathers
+        full = {n: gather_full(p) for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    if rank == 0:  # world 1: the same seed's model whole, the same requests
+        whole = tt.deferred_init(Llama.from_name, "llama3_8b", n_layers=TP_SERVE_LAYERS,
+                                 device="cuda", dtype=torch.bfloat16)
+        from_torch_state_dict(whole, full, {k: (k, None) for k in full})
+        for label, kw in TP_SERVE_RUNS:
+            eng = ServeEngine(whole, num_slots=TP_SERVE_SLOTS, max_len=2048, cost_cards=False,
+                              **kw)
+            with _logits_tap(eng) as ref_tap:
+                ref = [list(map(int, r.tokens)) for r in eng.run(reqs)]
+            row, tap = out[label], taps[label]
+            parts = [_first_divergence(a, b) for a, b in zip(row["streams"], ref)]
+            agree = sum(len(a) if p is None else p for a, p in zip(ref, parts))
+            row["world1_agreement"] = agree / sum(len(a) for a in ref)
+            row["world1_first_divergence"] = parts
+            if len(tap["firsts"]) != TP_SERVE_REQUESTS or len(ref_tap["firsts"]) != TP_SERVE_REQUESTS:
+                failures.append(f"tp serve {label}: {len(tap['firsts'])} and "
+                                f"{len(ref_tap['firsts'])} prefills sampled, not "
+                                f"{TP_SERVE_REQUESTS}")
+            errs = {"prefill": _row_rel_errs(torch.stack(tap["firsts"]),
+                                             torch.stack(ref_tap["firsts"])),
+                    "decode": _row_rel_errs(tap["decode"], ref_tap["decode"])}
+            row["world1_logits_rel_err"] = errs
+            if 0 in parts:
+                failures.append(f"tp serve {label}: a first token differs from world 1's "
+                                f"({parts})")
+            if row["world1_agreement"] < TP_SERVE_AGREEMENT:
+                failures.append(f"tp serve {label}: greedy agreement with world 1 "
+                                f"{row['world1_agreement']} < {TP_SERVE_AGREEMENT}")
+            worst = max(errs["prefill"] + errs["decode"])
+            if worst > TP_SERVE_LOGITS_RTOL:
+                failures.append(f"tp serve {label}: logits against world 1 {worst} > "
+                                f"{TP_SERVE_LOGITS_RTOL}")
+        del whole, eng
+    del full
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
+    return out, failures
+
+
+def _tp_serve_failures(ranks) -> list:
+    """The two ranks' streams of phase 23 (j) equal, bit for bit."""
+    runs = [r.get("tp_serve", {}) for r in ranks]
+    if len(runs) != 2 or not all(runs):
+        return ["tp serve: a rank returned no result"]
+    return [f"tp serve {label}: the ranks' streams differ"
+            for label, _ in TP_SERVE_RUNS
+            if runs[0].get(label, {}).get("streams") != runs[1].get(label, {}).get("streams")]
+
+
 def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
     """One spawned rank of phase 23: joins the ``gloo`` world through a
     ``FileStore``, runs ``_gossip_runs`` on ``cuda:0`` and writes its result
@@ -4319,6 +4554,9 @@ def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
             torch.cuda.empty_cache()
             result["parallel"], fails = _parallel_runs(torch, seed,
                                                        os.path.dirname(store_path))
+            result["failures"] += fails
+            torch.cuda.empty_cache()
+            result["tp_serve"], fails = _tp_serve_run(torch, seed)
             result["failures"] += fails
         finally:
             dist.destroy_process_group()
@@ -5110,7 +5348,8 @@ CHUNK_LONG, CHUNK_SHORT, CHUNK_NEW, CHUNK_FIRST_NEW, CHUNK_RING = 4, 8, 16, 48, 
 # (c) a catalog scenario's first requests, in waves by arrival tick, greedy;
 # persistent engines (the affinity replicas with a 16-row ring, so a replica
 # removed in the last wave still holds running requests)
-FLEET_SCENARIO, FLEET_REQUESTS, FLEET_NEW, FLEET_RING = "diurnal", 16, 64, 16
+# (32 new tokens, 64 before phase 23 (j): still past the ring)
+FLEET_SCENARIO, FLEET_REQUESTS, FLEET_NEW, FLEET_RING = "diurnal", 16, 32, 16
 # (e) the autoscaler on a cut flash crowd, replicas of 2 slots x 256 rows,
 # persistent with a 4-row ring (a scheduler tick decodes at most 4 tokens)
 AUTOSCALE_POLICY = dict(min_replicas=1, max_replicas=3, windows=(2, 4), up_threshold=0.9,
@@ -5631,9 +5870,9 @@ def serve_fleet_phase(torch, model, seed, record_dir=None):
 # -- phase 30: GPT-2 and T5 on the card, the streamed tail, the black box -------
 # (a) gpt2_large at full width and depth (36 layers, dim 1280, 20 heads of 64:
 # Hq = Hkv, group size 1), bf16, 8 slots x 1024, 16 requests of 16-768 prompt
-# tokens, 64 new tokens, 12 greedy and 4 sampled
+# tokens, 32 new tokens (64 before phase 23 (j)), 12 greedy and 4 sampled
 GPT2_SERVE, GPT2_PARAMS = "gpt2_large", 774_030_080
-GPT2_SLOTS, GPT2_MAX_LEN, GPT2_PROMPTS, GPT2_NEW = 8, 1024, (16, 768), 64
+GPT2_SLOTS, GPT2_MAX_LEN, GPT2_PROMPTS, GPT2_NEW = 8, 1024, (16, 768), 32
 GPT2_LOGITS_PROMPT = 768
 # decode steps a dispatch of (a)'s fused multi-step chunked run
 GPT2_DECODE_CHUNK = 8
@@ -6385,8 +6624,9 @@ def main(argv=None) -> int:
                                     device="cuda", n_layers=CHECK_LAYERS)
         small_f32.load_state_dict(small.state_dict())
         report["logits"], report["verify_logits"] = [], []
-        for kw in ({}, {"kv_dtype": "int8"}, {"page_size": 16},
-                   {"page_size": 16, "kv_dtype": "int8"}):
+        # the slab in bf16 and int8 and the pages in int8 (paged bf16 was
+        # cut for phase 23 (j): its logits equal the bf16 slab's bit for bit)
+        for kw in ({}, {"kv_dtype": "int8"}, {"page_size": 16, "kv_dtype": "int8"}):
             with torch.no_grad():
                 ok, info = check_logits(torch, small, small_f32, **kw)
                 vok, vinfo = check_verify_logits(torch, small, small_f32, **kw)
@@ -6409,7 +6649,7 @@ def main(argv=None) -> int:
         print(f"model: llama3_8b, {sum(p.numel() for p in model.parameters())} "
               f"params, init {time.perf_counter() - t0:.1f} s")
         rng = np.random.RandomState(args.seed)
-        requests = make_requests(rng, model.cfg.vocab_size)
+        requests = make_requests(rng, model.cfg.vocab_size, max_new=SERVE_NEW)
         serve_runs, profiles, f3, results = serve_modes(torch, model, requests)
         failures += f3
         same, idx = slot_independence(torch, model, requests, results, 8, 2048)
@@ -6743,6 +6983,13 @@ def main(argv=None) -> int:
         par_kernels, f23 = check_parallel_kernels(torch, device)
         failures += f23
         report["parallel_kernels"] = par_kernels
+        # (j)'s kernels at a rank's heads of llama3_8b at tp 2: Hq 16, Hkv 4
+        tp_flash, f23 = check_flash(torch, device, hq=16, hkv=4, cases=[(1, 1024)], iters=3)
+        failures += f23
+        tp_decode, f23 = check_decode_variants(torch, device, hq=16, hkv=4, iters=3, phase=23,
+                                               only=TP_SERVE_VARIANTS)
+        failures += f23
+        report["tp_serve_kernels"] = {"flash": tp_flash, "decode_variants": tp_decode}
         gossip, f23 = gossip_two_ranks(args.seed + 12)
         for res in gossip["ranks"]:
             for run in ("gossip", "slowmo"):
@@ -6753,6 +7000,8 @@ def main(argv=None) -> int:
             for part, what in PARALLEL_LINES:
                 print(f"{what} rank {res.get('rank')}",
                       json.dumps(res.get("parallel", {}).get(part)))
+            print(f"tp serve llama3_8b rank {res.get('rank')}", json.dumps(res.get("tp_serve")))
+        f23 += _tp_serve_failures(gossip["ranks"])
         print("gossip world", json.dumps({k: v for k, v in gossip.items() if k != "ranks"}))
         failures += f23
         report["gossip_two_ranks"] = gossip
@@ -7012,6 +7261,11 @@ def main(argv=None) -> int:
         if key in PARALLEL_COUNTERS:
             entry["launches_parallel_ranks"] = [_parallel_launches(r["parallel"], key)
                                                 for r in gossip["ranks"]]
+    for entry in kernels:  # phase 23 (j): TP serving's prefill and decode, a rank
+        tp_runs = [{label: r["tp_serve"][label]["launches"].get(entry["name"], 0)
+                    for label, _ in TP_SERVE_RUNS} for r in gossip["ranks"]]
+        if any(any(v.values()) for v in tp_runs):
+            entry["launches_tp_serve_ranks"] = tp_runs
     report["kernels"] = kernels
     failures += [f"{k['name']}: no launch on the main path" for k in kernels
                  if not k["launches"]]

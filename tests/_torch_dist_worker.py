@@ -860,7 +860,7 @@ def _tp(payload):
             before = dict(collectives.payload_bytes)
             out = run(step, tuple(torch.from_numpy(a) for a in tp_batch()), TP_STEPS)
             out["payload_bytes"] = {k: v - before[k] for k, v in collectives.payload_bytes.items()}
-            out["local_forwards"] = len(step._forwards)
+            out["local_forwards"] = len(step._layout.forwards)
             return out
         return case
 
@@ -1240,7 +1240,7 @@ def _zero2(payload):
         losses = w["run"](2)
         return {"losses": losses, "plan": w["plan"], "zero2_dp": w["zero2_dp"],
                 "participating": w["zero2_participating_bytes"],
-                "bytes": w["optimizer_bytes"]()}
+                "step_wire": w["zero2_step_wire_bytes"], "bytes": w["optimizer_bytes"]()}
 
     def eight_bit():
         plan = ShardingPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
@@ -1652,6 +1652,505 @@ def _reshard(payload):
     yield "live_check", live_check
 
 
+# -- the comm audit and the memory audit (tests/test_torch_comm_audit.py) -------------
+
+AUDIT_RING = dict(b=2, s=64, h=4, d=16)
+AUDIT_FLASH_RING = dict(b=1, s=64, h=4, d=8)
+AUDIT_ULYSSES = dict(b=2, s=64, h=8, d=16)
+AUDIT_PP = dict(d=8, b=2, n_micro=6)
+AUDIT_TP = dict(d=16, h=64, b=4, n_layers=3)
+
+
+def audit_inputs(name, seed):
+    """The numpy inputs of one audit case, made the same way on both sides."""
+    rs = np.random.RandomState(seed)
+    if name == "tp":
+        c = AUDIT_TP
+        w = {f"w1_{i}": rs.randn(c["d"], c["h"]).astype(np.float32)
+             for i in range(c["n_layers"])}
+        w.update({f"w2_{i}": rs.randn(c["h"], c["d"]).astype(np.float32)
+                  for i in range(c["n_layers"])})
+        return w, rs.randn(c["b"], c["d"]).astype(np.float32)
+    if name == "pp":
+        c = AUDIT_PP
+        stages = [{"w": (rs.randn(c["d"], c["d"]) * 0.1).astype(np.float32)} for _ in range(4)]
+        return stages, rs.randn(c["n_micro"] * c["b"], c["d"]).astype(np.float32)
+    c = {"ring": AUDIT_RING, "flash_ring": AUDIT_FLASH_RING, "ulysses": AUDIT_ULYSSES}[name]
+    return tuple(rs.randn(c["b"], c["s"], c["h"], c["d"]).astype(np.float32) for _ in range(3))
+
+
+def _comm_audit(payload):
+    """The comm audit of every choke point and step at world 4 (JAX's
+    ``tests/test_comm_audit.py`` on 4 of its devices), the Trainer's
+    profile and flight digest, ZeRO-2's k-step audit against the plan's
+    price, the plan transition's, and the memory audit: ``sharding_report``
+    and ``ShardingPlan.validate`` on materialized tensors."""
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.obs import FlightRecorder, sharding_report
+    from torchdistx_tpu_torch.obs.comm import comm_audit
+    from torchdistx_tpu_torch.ops.attention import (ring_attention, ring_flash_attention,
+                                                    ulysses_attention)
+    from torchdistx_tpu_torch.parallel import (GossipGraDState, GSPMDTrainStep, ShardedTrainStep,
+                                               ShardingPlan, collectives, create_mesh,
+                                               gossip_grad_hook, hierarchical_mesh)
+    from torchdistx_tpu_torch.parallel.mesh import NamedSharding, mark_sharded, shard_tensor
+    from torchdistx_tpu_torch.parallel.plan import PlanError
+    from torchdistx_tpu_torch.parallel.pp import (pipeline_train_step, split_microbatches,
+                                                 stack_pipeline_stages)
+    from torchdistx_tpu_torch.parallel.reshard import plan_transition_wire_bytes, reshard_to_plan
+
+    class MLP(torch.nn.Module):
+        def __init__(self, d=16, h=64):
+            super().__init__()
+            self.fc1 = tt.nn.Linear(d, h, device="cpu")
+            self.fc2 = tt.nn.Linear(h, d, device="cpu")
+
+        def forward(self, x):
+            return self.fc2(torch.relu(self.fc1(x)))
+
+    def mlp():
+        return load_jax_params(MLP(), payload["mlp"])
+
+    def mse(mod, b):
+        return ((mod(b[0]) - b[1]) ** 2).mean()
+
+    fsdp4 = create_mesh({"fsdp": 4})
+
+    def fsdp():
+        m = mlp()
+        step = ShardedTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-2), mse, fsdp4)
+        x = torch.zeros(8, 16)
+        with comm_audit() as prof:
+            step(m, step.optimizer, (x, x))
+        with comm_audit() as again:
+            step(m, step.optimizer, (x, x))
+        return {"profile": prof.to_json(), "again": bool(again)}
+
+    def tp():
+        w, x = audit_inputs("tp", 0)
+        n, rank = 4, collectives.axis_index
+
+        def run(wrt_input):
+            with create_mesh({"tp": 4}) as mesh:
+                i = rank("tp")
+                ws = {k: torch.from_numpy(v[:, i * 16:(i + 1) * 16] if k.startswith("w1")
+                                          else v[i * 16:(i + 1) * 16]).requires_grad_()
+                      for k, v in w.items()}
+                xt = torch.from_numpy(x).requires_grad_(wrt_input)
+                h = xt
+                with comm_audit() as prof:
+                    for j in range(AUDIT_TP["n_layers"]):
+                        xin = collectives.copy_psum_grad(h, "tp")
+                        mid = torch.relu(xin @ ws[f"w1_{j}"])
+                        h = collectives.allreduce_linear(mid @ ws[f"w2_{j}"], "tp")
+                    wrt = list(ws.values()) + ([xt] if wrt_input else [])
+                    torch.autograd.grad(h.sum(), wrt)
+            del mesh
+            return prof.to_json()
+
+        assert n == 4
+        return {"live": run(True), "dead": run(False)}
+
+    def pp():
+        stages, x = audit_inputs("pp", 1)
+        with create_mesh({"pp": 4}) as mesh:
+            stacked = stack_pipeline_stages([{k: torch.from_numpy(v) for k, v in st.items()}
+                                             for st in stages], mesh)
+            mb = split_microbatches(torch.from_numpy(x), AUDIT_PP["n_micro"])
+            with comm_audit() as prof:
+                pipeline_train_step(stacked, mb, torch.zeros_like(mb), mesh=mesh,
+                                    stage_fn=lambda p, a: a + torch.tanh(a @ p["w"]),
+                                    loss_fn=lambda y, t: ((y - t) ** 2).mean())
+        return prof.to_json()
+
+    def gossip():
+        m = mlp()
+        mesh = hierarchical_mesh(2)
+        state = GossipGraDState(2, node_axis="node", local_axis="local")
+        step = ShardedTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-2), mse, mesh,
+                                shard_axis=None, replica_axes=("node",),
+                                comm_hook=gossip_grad_hook, hook_state=state,
+                                divergent_replicas=True, batch_axes=("node", "local"))
+        step.stack_replicas()
+        x = torch.zeros(8, 16)
+        with comm_audit() as prof:
+            step(m, step.optimizer, (x, x))
+        return {"profile": prof.to_json(), "branches": len(state.branch_table()[0])}
+
+    def ring():
+        out = {}
+        with create_mesh({"fsdp": 4}) as mesh:
+            i = collectives.axis_index("fsdp")
+
+            def local(arrs, c, grad=False):
+                blk = c["s"] // 4
+                return [torch.from_numpy(a[:, i * blk:(i + 1) * blk].copy()).requires_grad_(grad)
+                        for a in arrs]
+
+            q, k, v = local(audit_inputs("ring", 0), AUDIT_RING)
+            with comm_audit() as prof:
+                ring_attention(q, k, v, axis="fsdp", causal=True)
+            out["ring"] = prof.to_json()
+            q, k, v = local(audit_inputs("flash_ring", 1), AUDIT_FLASH_RING, grad=True)
+            with comm_audit() as prof:
+                o = ring_flash_attention(q, k, v, axis="fsdp", causal=True)
+                torch.autograd.grad(torch.sin(o).sum(), [q, k, v])
+            out["flash_ring"] = prof.to_json()
+            q, k, v = local(audit_inputs("ulysses", 2), AUDIT_ULYSSES)
+            with comm_audit() as prof:
+                ulysses_attention(q, k, v, axis="fsdp", causal=True, use_flash=False)
+            out["ulysses"] = prof.to_json()
+        del mesh
+        return out
+
+    def llama(rule=None):
+        m = tt.deferred_init(Llama.from_name, "tiny", device="cpu")
+        tt.materialize_module(m, sharding_rule=rule)
+        return load_jax_params(m, payload["llama"]) if rule is None else m
+
+    def zero2():
+        mesh = create_mesh({"dp": 4})
+        plan = ShardingPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
+        m = llama()
+        step = GSPMDTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-2),
+                              lambda mod, b: F.cross_entropy(mod(b[0]), b[1]), mesh,
+                              batch_spec=("dp",), plan=plan)
+        batch = tuple(torch.from_numpy(a) for a in lm_batch(4, 8))
+        k = 2
+        with comm_audit() as prof:
+            for _ in range(k):
+                step(m, step.optimizer, batch)
+        return {"profile": prof.to_json(), "rows": plan.price_step(m), "k": k,
+                "wire": plan.step_wire_bytes(m), "gather_wire": plan.step_wire_bytes(
+                    m, "all_gather")}
+
+    def transition():
+        src = ShardingPlan.fsdp(fsdp4)
+        m = llama(src.as_rule())
+        target = ShardingPlan.replicated(fsdp4)
+        expected = plan_transition_wire_bytes(m, target)
+        with comm_audit() as prof:
+            reshard_to_plan(m, target)
+        return {"expected": expected, "profile": prof.to_json()}
+
+    def trainer():
+        m = mlp()
+        step = ShardedTrainStep(m, torch.optim.SGD(m.parameters(), lr=1e-2), mse, fsdp4)
+        rs = np.random.RandomState(0)
+        batches = [(b, b) for b in (torch.from_numpy(rs.randn(8, 16).astype(np.float32))
+                                    for _ in range(3))]
+        rec = FlightRecorder()
+        tr = tt.Trainer(step, log_every=1, log_fn=lambda _: None, flight=rec)
+        with comm_audit() as outer:
+            tr.fit(batches)
+        steps = [r for r in rec.records() if r["kind"] == "step"]
+        return {"profile": tr.comm_profile.to_json(), "outer": outer.to_json(),
+                "digest": tr.comm_profile.digest(), "step_comm": [r.get("comm") for r in steps]}
+
+    def report():
+        big = mark_sharded(torch.zeros(64, 64), NamedSharding(fsdp4, ()), (64, 64))
+        sharded = shard_tensor(torch.zeros(64, 64), NamedSharding(fsdp4, ("fsdp", None)))
+        small = mark_sharded(torch.zeros(8), NamedSharding(fsdp4, ()), (8,))
+        rep = sharding_report({"big": big, "sharded": sharded, "small": small})
+        planned = sharding_report({"big": big},
+                                  intended_rule=lambda p, a: NamedSharding(fsdp4, ()))
+        mismatch = sharding_report({"big": big}, intended_rule=lambda p, a: NamedSharding(
+            fsdp4, ("fsdp", None)))
+        m = mlp()
+        params = {k: shard_tensor(v.detach(), NamedSharding(fsdp4, ("fsdp", None) if v.ndim == 2
+                                                            else ()))
+                  for k, v in m.named_parameters()}
+        repl = NamedSharding(fsdp4, ())
+        bad = {k: {s: mark_sharded(torch.zeros(v.shape), repl, v.shape) for s in ("mu", "nu")}
+               for k, v in m.named_parameters()}
+        bad_rep = sharding_report(params, optimizer_state=bad)
+        pieces = {k: torch.nn.Parameter(v) for k, v in params.items()}
+        opt = torch.optim.Adam(pieces.values(), lr=1e-3)
+        for v in pieces.values():
+            v.grad = torch.zeros_like(v)
+        opt.step()
+        good = {k: {s: opt.state[v][s] for s in ("exp_avg", "exp_avg_sq")}
+                for k, v in pieces.items()}
+        good_rep = sharding_report(params, optimizer_state=good)
+        return {"report": {k: rep[k] for k in ("flags", "total_bytes", "bytes_per_device")},
+                "planned": planned["flags"], "mismatch": mismatch["flags"],
+                "bad": bad_rep["flags"], "good": good_rep["flags"],
+                "budget": sharding_report(params, budget_bytes_per_device=1)["flags"]}
+
+    def validate():
+        plan = ShardingPlan.fsdp(fsdp4)
+        x = mark_sharded(torch.zeros(4096, 64), NamedSharding(fsdp4, ()), (4096, 64))
+        out = {}
+        try:
+            plan.validate({"w": x})
+            out["mismatch"] = None
+        except PlanError as e:
+            out["mismatch"] = str(e)
+        good = shard_tensor(torch.zeros(4096, 64), plan.sharding_for("w", x))
+        out["conforming"] = plan.validate({"w": good})["flags"]
+        return out
+
+    yield "fsdp", fsdp
+    yield "tp", tp
+    yield "pp", pp
+    yield "gossip", gossip
+    yield "ring", ring
+    yield "zero2", zero2
+    yield "transition", transition
+    yield "trainer", trainer
+    yield "report", report
+    yield "validate", validate
+
+
+# -- tensor-parallel serving (tests/test_torch_serve_tp.py) --------------------------
+
+
+def serve_prompts(seed, lengths):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, 256, (n,)).astype(np.int32) for n in lengths]
+
+
+def shared_prefix_prompts(seed, n, prefix_len=16, tail_len=4):
+    rs = np.random.RandomState(seed)
+    prefix = rs.randint(0, 256, (prefix_len,)).astype(np.int32)
+    return [np.concatenate([prefix, rs.randint(0, 256, (tail_len,)).astype(np.int32)])
+            for _ in range(n)]
+
+
+CYCLIC_PROMPTS = ([3, 1, 2, 3, 1, 2, 3], [9, 9, 9, 9], [5, 7, 5, 7, 5])
+ELASTIC_MNT = [8, 10, 12, 6]
+HANDOFF_MNT = [6, 8, 6, 8]
+
+
+def _serve_tp(payload):
+    """TP serving on two ranks: the cases of JAX's ``TestTPServing``,
+    ``TestServeEnginePlan``, the tp=2 -> tp=1 migration and handoff, int8
+    under TP and ``TestSpecTP``, each engine next to its world-1 twin; the
+    ``"cuda"`` part builds a persistent TP engine on the card over ``gloo``
+    and reports the refusal."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.models.llama import LlamaConfig
+    from torchdistx_tpu_torch.obs.comm import CommProfile, comm_audit
+    from torchdistx_tpu_torch.parallel import create_mesh, llama_tp_plan, llama_tp_rule
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+    from torchdistx_tpu_torch.serve import ServeEngine, ServeFleet
+
+    mesh = create_mesh({"tp": 2})
+
+    def model(kind, device="cpu"):
+        if kind == "plan":
+            m = Llama(LlamaConfig(vocab_size=64, dim=32, n_layers=2, n_heads=4, n_kv_heads=2,
+                                  max_seq_len=64), device=device)
+        elif kind == "kv1":
+            return Llama.from_name("tiny", n_kv_heads=1, max_seq_len=64, device=device)
+        else:
+            m = Llama.from_name("tiny", max_seq_len=64, device=device,
+                                **({"n_kv_heads": 2} if kind == "kv2" else {}))
+        if kind in payload.get("weights", {}):
+            load_jax_params(m, payload["weights"][kind])
+        return m
+
+    def toks(results):
+        return [np.asarray(r.tokens) for r in results]
+
+    def run(eng, prompts, mnt):
+        mnt = mnt if isinstance(mnt, list) else [mnt] * len(prompts)
+        return toks(eng.run([{"prompt": p, "max_new_tokens": m} for p, m in zip(prompts, mnt)]))
+
+    if payload.get("part") == "cuda":
+        def refused():
+            try:
+                ServeEngine(model("tp", "cuda"), num_slots=2, max_len=64, mesh=mesh,
+                            decode_mode="persistent")
+            except RuntimeError as e:
+                return {"refused": str(e)}
+            return {"refused": None}
+
+        yield "refused", refused
+        return
+
+    tp_model = model("tp")
+    kv2_model = model("kv2")
+
+    def slab4():
+        prompts = serve_prompts(21, (6, 11, 9, 4, 13))
+        eng = ServeEngine(tp_model, num_slots=3, max_len=64, prefill_buckets=(16,),
+                          decode_chunk=4, mesh=mesh)
+        one = ServeEngine(tp_model, num_slots=3, max_len=64, prefill_buckets=(16,),
+                          decode_chunk=4)
+        kv = eng.cache.kv[0][0]
+        return {"tp": eng.tp, "tokens": run(eng, prompts, 6), "world1": run(one, prompts, 6),
+                "local_shape": tuple(kv.shape), "global_shape": sharding_of(kv)[1],
+                "kv_plan": eng.memory_plan()["components"]["kv_cache"],
+                "nbytes": eng.cache.nbytes}
+
+    def paged_persistent():
+        prompts = serve_prompts(22, (5, 12, 9))
+        kw = dict(num_slots=2, max_len=64, prefill_buckets=(16,), decode_mode="persistent",
+                  page_size=16)
+        return {"tokens": run(ServeEngine(tp_model, mesh=mesh, **kw), prompts, 6),
+                "world1": run(ServeEngine(tp_model, **kw), prompts, 6)}
+
+    def audit():
+        kw = dict(num_slots=2, max_len=64, prefill_buckets=(16,))
+        eng = ServeEngine(tp_model, decode_chunk=4, mesh=mesh, **kw)
+        with comm_audit() as prof:
+            run(eng, serve_prompts(23, (7, 10)), 6)
+        single = ServeEngine(tp_model, **kw)
+        with comm_audit() as empty:
+            run(single, serve_prompts(23, (7,)), 4)
+        return {"profile": prof.to_json(), "counters": dict(eng.metrics.counters),
+                "single_ops": empty.ops()}
+
+    def errors():
+        out = {}
+        for key, fn in (
+                ("divide", lambda: ServeEngine(model("kv1"), num_slots=2, max_len=64, mesh=mesh)),
+                ("axis", lambda: ServeEngine(tp_model, num_slots=1, max_len=32,
+                                             mesh=create_mesh({"data": 2}))),
+                ("rule", lambda: ServeEngine(tp_model, num_slots=1, max_len=32,
+                                             tp_rule=llama_tp_rule(mesh))),
+                ("plan", lambda: ServeEngine(tp_model, num_slots=1, max_len=32,
+                                             plan=llama_tp_plan(mesh))),
+                ("both", lambda: ServeEngine(tp_model, num_slots=1, max_len=32, mesh=mesh,
+                                             plan=llama_tp_plan(mesh),
+                                             tp_rule=llama_tp_rule(mesh)))):
+            try:
+                fn()
+                out[key] = None
+            except ValueError as e:
+                out[key] = str(e)
+        return out
+
+    def plan():
+        m = model("plan")
+        eng = ServeEngine(m, num_slots=2, max_len=32, mesh=mesh)
+        h = eng.submit([1, 2, 3], max_new_tokens=4)
+        while not h.done():
+            eng.step()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            shim = ServeEngine(m, num_slots=2, max_len=32, mesh=mesh,
+                               tp_rule=llama_tp_rule(mesh))
+        return {"plan_type": type(eng.plan).__name__,
+                "wq_spec": tuple(sharding_of(eng.params["blocks.0.attn.wq.weight"])[0].spec),
+                "kv_spec": tuple(eng._kv_sharding.spec),
+                "plan_kv_spec": tuple(eng.plan.maybe_spec_for("kv_cache", ())),
+                "tokens": np.asarray(h.result().tokens),
+                "warned": [x.category.__name__ for x in w], "shim_plan": shim.plan,
+                "shim_tokens": run(shim, [np.asarray([1, 2, 3], np.int32)], 4)}
+
+    def elastic(paged):
+        def engine(tp, slots):
+            kw = dict(max_len=64, prefill_buckets=(16,), decode_chunk=2)
+            if paged:
+                kw.update(page_size=8, num_pages=32)
+            return ServeEngine(kv2_model, num_slots=slots, mesh=mesh if tp > 1 else None, **kw)
+
+        def case():
+            prompts = serve_prompts(7, (6, 9, 5, 11))
+            ref = run(engine(2, 3), prompts, ELASTIC_MNT)
+            src, dst = engine(2, 3), engine(1, 4)
+            hs = [src.submit(p, max_new_tokens=m) for p, m in zip(prompts, ELASTIC_MNT)]
+            for _ in range(2):
+                src.step()
+            src.drain()
+            prof = CommProfile()
+            with comm_audit(prof):
+                summary = src.migrate_to(dst)
+            while dst.step():
+                pass
+            return {"ref": ref, "tokens": [np.asarray(h.result().tokens) for h in hs],
+                    "reasons": [h.result().finish_reason for h in hs], "summary": summary,
+                    "profile": prof.to_json(),
+                    "counters": {k: src.metrics.counters[k] for k in
+                                 ("migration_wire_bytes", "requests_migrated_out")},
+                    "in": dst.metrics.counters["requests_migrated_in"]}
+
+        return case
+
+    def handoff():
+        def engine(tp):
+            return ServeEngine(kv2_model, num_slots=4, max_len=64, prefill_buckets=(32,),
+                               decode_chunk=2, mesh=mesh if tp > 1 else None)
+
+        reqs = [dict(prompt=p, max_new_tokens=m)
+                for p, m in zip(shared_prefix_prompts(13, 4), HANDOFF_MNT)]
+        ref = toks(engine(1).run(reqs))
+        pre, dec = engine(2), engine(1)
+        fleet = ServeFleet([pre, dec], disaggregate=True, roles=["prefill", "decode"])
+        prof = CommProfile()
+        with comm_audit(prof):
+            out = toks(fleet.run(reqs))
+        c = pre.metrics.counters
+        return {"ref": ref, "tokens": out, "profile": prof.to_json(),
+                "pre": {k: c[k] for k in ("tokens_generated", "decode_dispatches",
+                                          "requests_handed_off", "handoff_wire_bytes")},
+                "dec": {k: dec.metrics.counters[k] for k in ("prefill_calls",
+                                                             "requests_handed_in")},
+                "events_wire": sum(e[2]["wire_bytes"] for e in fleet.events
+                                   if e[0] == "handoff")}
+
+    def int8_migrate():
+        def engine(tp, slots=3):
+            return ServeEngine(kv2_model, num_slots=slots, max_len=64, prefill_buckets=(16,),
+                               kv_dtype="int8", decode_chunk=2, mesh=mesh if tp > 1 else None)
+
+        prompts = serve_prompts(7, (6, 9, 5, 11))
+        ref = run(engine(2), prompts, ELASTIC_MNT)
+        src, dst = engine(2), engine(1, 4)
+        hs = [src.submit(p, max_new_tokens=m) for p, m in zip(prompts, ELASTIC_MNT)]
+        for _ in range(2):
+            src.step()
+        src.drain()
+        prof = CommProfile()
+        with comm_audit(prof):
+            summary = src.migrate_to(dst)
+        while dst.step():
+            pass
+        return {"ref": ref, "tokens": [np.asarray(h.result().tokens) for h in hs],
+                "summary": summary, "profile": prof.to_json(),
+                "scale_shape": tuple(src.cache.kv[0][2].shape)}
+
+    def spec():
+        def go(speculate, tp):
+            return ServeEngine(tp_model, num_slots=2, max_len=64, prefill_buckets=(16,),
+                               decode_mode="persistent", speculate=speculate,
+                               mesh=mesh if tp > 1 else None)
+
+        prompts = [np.asarray(p, np.int32) for p in CYCLIC_PROMPTS]
+        base = run(go(0, 1), prompts, 16)
+        eng = go(2, 2)
+        with comm_audit() as prof:
+            got = run(eng, prompts, 16)
+        return {"base": base, "tokens": got, "profile": prof.to_json(),
+                "counters": dict(eng.metrics.counters)}
+
+    yield "slab4", slab4
+    yield "paged_persistent", paged_persistent
+    yield "audit", audit
+    yield "errors", errors
+    yield "plan", plan
+    yield "elastic_slab", elastic(False)
+    yield "elastic_paged", elastic(True)
+    yield "handoff", handoff
+    yield "int8_migrate", int8_migrate
+    yield "spec", spec
+    dist.barrier()
+
+
 SUITES = {"collectives": _collectives, "ring": _ring, "fsdp": _fsdp, "sp_llama": _sp_llama,
           "gossip": _gossip, "plan": _plan, "tp": _tp, "moe_ep": _moe_ep, "data": _data,
-          "sp_models": _sp_models, "zero2": _zero2, "pp": _pp, "reshard": _reshard}
+          "sp_models": _sp_models, "zero2": _zero2, "pp": _pp, "reshard": _reshard,
+          "serve_tp": _serve_tp, "comm_audit": _comm_audit}

@@ -220,6 +220,22 @@ def test_decode_variant_matches_plain(cuda, name, s, quant, hq, hkv, d, ps):
     under shuffled tables whose slots share a first page; any page size.
     A paged output equals the slab kernel's on the gathered rows bit for
     bit."""
+    _check_decode_variant(cuda, name, s, quant, hq, hkv, d, ps)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name,s", [("decode_attention", 1), ("paged_decode_attention", 1),
+                                    ("decode_attention_block", 5),
+                                    ("paged_decode_attention_block", 5)])
+def test_head_split_decode_kernels_match_plain(cuda, name, s, quant):
+    """The decode kernels at a rank's heads of llama3_8b served at tp 2
+    (Hq 16, Hkv 4, D 128, page 16), as tensor-parallel serving runs them,
+    against their plain versions (the checks of
+    :func:`test_decode_variant_matches_plain`)."""
+    _check_decode_variant(cuda, name, s, quant, 16, 4, 128, 16)
+
+
+def _check_decode_variant(cuda, name, s, quant, hq, hkv, d, ps):
     from torchdistx_tpu_torch.ops.attention import _paged_gather
     from torchdistx_tpu_torch.serve.kv_cache import quantize_kv
 
@@ -1076,6 +1092,19 @@ def test_a_body_that_syncs_fails_to_capture(cuda):
     assert int(cursor.item()) == 0 and not bool(done.item())
     assert torch.equal(x, torch.zeros_like(x))
     assert tdec.decode_attention_cuda.launches == before
+
+
+def test_persistent_tp_engine_over_gloo_is_refused(cuda, tmp_path):
+    """Two ranks on one card over ``gloo``: a tensor-parallel engine in
+    persistent mode is refused at construction (a CUDA graph cannot
+    capture a ``gloo`` collective, and NCCL refuses two ranks on one card),
+    naming the cause and what works instead."""
+    from _torch_dist_worker import spawn_world
+
+    for r in spawn_world("serve_tp", tmp_path, {"part": "cuda"}, world=2):
+        assert "error" not in r["refused"], r["refused"]["error"]
+        msg = r["refused"]["refused"]
+        assert msg is not None and "gloo" in msg and "CUDA graph" in msg and "NCCL" in msg
 
 
 def test_exchange_over_gloo_stages_cuda_tensors_through_the_host(cuda, tmp_path):

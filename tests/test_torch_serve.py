@@ -119,7 +119,9 @@ def test_submit_validation(models):
 # arguments the port has taken since: each is accepted with a valid value
 _PORTED_SINCE = {"page_size": 8, "num_pages": None, "kv_dtype": "int8",
                  "prefix_cache": False, "spec_ngram": 3, "ring_capacity": 8,
-                 "persistent_stream": True, "record": True}
+                 "persistent_stream": True, "record": True, "params": None, "mesh": None,
+                 "plan": None, "tp_rule": None, "tp_axis": None}
+_TP_ARGS = ("params", "mesh", "plan", "tp_rule", "tp_axis")
 
 
 @pytest.mark.parametrize("name", _UNPORTED + tuple(_PORTED_SINCE))
@@ -147,6 +149,27 @@ def test_unported_argument_raises(models, name):
         engine.run(_requests(3, (5,), max_new=3))
         assert [e["kind"] for e in engine.recorder.events][:3] == [
             "session_header", "geometry", "submit"]
+        return
+    if name in _TP_ARGS:
+        # tensor-parallel serving's arguments, ported: taken over a one-rank
+        # mesh (tests/test_torch_serve_tp.py serves over two), and the same
+        # greedy streams as the plain engine's
+        from torchdistx_tpu_torch.parallel import create_mesh, llama_tp_plan, llama_tp_rule
+
+        mesh = create_mesh({"tp": 1})
+        kw = {"params": dict(params={k: v.detach().clone() for k, v in tm.named_parameters()}),
+              "mesh": dict(mesh=mesh), "plan": dict(mesh=mesh, plan=llama_tp_plan(mesh)),
+              "tp_rule": dict(mesh=mesh, tp_rule=llama_tp_rule(mesh)),
+              "tp_axis": dict(mesh=create_mesh({"model": 1}), tp_axis="model")}[name]
+        reqs = _requests(3, (5, 7), max_new=4)
+        want = [r.tokens for r in ServeEngine(tm, max_len=32).run(reqs)]
+        if name == "tp_rule":
+            with pytest.warns(DeprecationWarning, match="tp_rule"):
+                engine = ServeEngine(tm, max_len=32, **kw)
+        else:
+            engine = ServeEngine(tm, max_len=32, **kw)
+        for got, ref in zip(engine.run(reqs), want):
+            np.testing.assert_array_equal(got.tokens, ref)
         return
     if name in _PORTED_SINCE:
         ServeEngine(tm, max_len=32, **{name: _PORTED_SINCE[name]})

@@ -129,6 +129,8 @@ def test_build_train_workload_zero2(world):
         # AnyPrecisionAdamW: two param-shaped slots (f32, bf16) a parameter,
         # sliced 1/dp, and a scalar step count each
         assert local < total and r["participating"] > 0
+        # the ring all-gather of the participating bytes, (n - 1) / n of them
+        assert r["step_wire"] == r["participating"] * (WORLD - 1) // WORLD
 
 
 def test_eight_bit_state_stays_whole(world):

@@ -17,6 +17,7 @@ each rank keeps only its piece of every tensor the rule shards.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -120,6 +121,7 @@ def materialize_module(
             )
     if sharding_rule is not None:
         _materialize_sharded(entries, sharding_rule, device)
+        _record_materialize(entries)
         return module
     groups = {}
     for _, store, name, fake, is_param in entries:
@@ -133,7 +135,25 @@ def materialize_module(
         for (store, name, fake, is_param), ref, real in zip(items, refs, reals):
             store[name] = (session.parameter(ref, dev, fake.requires_grad)
                            if is_param else real)
+    _record_materialize(entries)
     return module
+
+
+def _record_materialize(entries) -> None:
+    """The memory audit's stamp (``obs.memory.record_materialize``): the
+    tensors made and their whole bytes; it never fails a materialize."""
+    try:
+        from .obs import memory as obs_memory
+        from .parallel.mesh import sharding_of
+
+        total = 0
+        for _, store, name, _, _ in entries:
+            t = store[name]
+            found = sharding_of(t)
+            total += math.prod(found[1] if found else t.shape) * t.element_size()
+        obs_memory.record_materialize(len(entries), total)
+    except Exception:
+        pass
 
 
 def _materialize_sharded(entries, rule, device) -> None:

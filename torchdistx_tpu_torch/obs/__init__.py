@@ -7,8 +7,10 @@ The layers the serving engine and the fleet need, each touching no JAX:
 - :mod:`.metrics` — metrics registry with Prometheus text exposition.
 - :mod:`.recompile` — counts the programs the engine sets up (first
   dispatches of a new shape, CUDA-graph captures), per scope.
-- :mod:`.memory` — the allocator watermark, the card's budget and the
-  live capacity plan the engine admits against.
+- :mod:`.memory` — the allocator watermark, the card's budget, the live
+  capacity plan the engine admits against, and the sharding audit.
+- :mod:`.comm` — the collective-traffic audit (``tdx-comm-v1``): op counts
+  and analytic bytes per mesh axis from every collective choke point.
 - :mod:`.cost` — per-program cost cards from the CUDA caching allocator.
 - :mod:`.flight` / :mod:`.watchdog` — the bounded flight recorder and the
   dispatch-stall watchdog that dumps it.
@@ -25,9 +27,18 @@ from .blackbox import (
     resolve_record,
     validate_session_jsonl,
 )
+from .comm import CommProfile, comm_audit, record_collective
 from .cost import CostBook, CostCard, validate_cost_card
 from .flight import FlightRecorder, get_flight_recorder
-from .memory import capacity_plan, device_hbm_budget, hbm_watermark
+from .memory import (
+    capacity_plan,
+    device_hbm_budget,
+    hbm_watermark,
+    last_materialize_report,
+    memory_report,
+    record_materialize,
+    sharding_report,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -83,9 +94,16 @@ __all__ = [
     "RecompileWatcher",
     "recompile_scope",
     "track_jit_cache",
+    "CommProfile",
+    "comm_audit",
+    "record_collective",
     "FlightRecorder",
     "get_flight_recorder",
+    "sharding_report",
     "hbm_watermark",
+    "memory_report",
+    "record_materialize",
+    "last_materialize_report",
     "capacity_plan",
     "device_hbm_budget",
     "CostBook",

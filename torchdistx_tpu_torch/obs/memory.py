@@ -17,23 +17,38 @@ Counterpart of ``torchdistx_tpu/obs/memory.py``:
   per-program temp bytes of the cost cards) into a per-device budget
   report with headroom and a ``fits`` verdict (``tdx-capacity-v1``, the
   JAX package's schema).
-
-The sharding audit (``sharding_report``) waits for tensor-parallel
-serving, where a cache or a weight can be cut across cards.
+- :func:`sharding_report` — the post-materialization sharding audit
+  (``tdx-sharding-v1``): per entry the whole tensor's bytes, the bytes a
+  rank holds and the spec; flags for a large tensor left replicated over
+  a mesh of more than one rank (``accidental_replication``), a placement
+  other than an intended rule's (``sharding_mismatch``), an optimizer slot
+  held whole while its parameter is sharded (``unsharded_optimizer_state``)
+  and, with a budget, a rank's footprint over it (``over_budget``).  Where
+  the JAX package counts ``jax.devices()`` and an array's largest
+  addressable shard, the port counts the ranks of the tensor's mesh and a
+  rank's local piece (``parallel.mesh.sharding_of``).
+- :func:`memory_report` — the watermark plus the audit's summary.
+- :func:`record_materialize` / :func:`last_materialize_report` — the
+  totals and watermark of the latest ``materialize_module``.
 """
 
 from __future__ import annotations
 
+import math
 import resource
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 __all__ = [
+    "sharding_report",
     "hbm_watermark",
+    "memory_report",
     "capacity_plan",
     "device_hbm_budget",
     "tree_device_bytes",
+    "record_materialize",
+    "last_materialize_report",
 ]
 
 
@@ -153,3 +168,220 @@ def capacity_plan(
         ),
         "fits": None if budget_bytes is None else total <= budget_bytes,
     }
+
+
+def _spec_str(spec: tuple) -> str:
+    """A spec as the JAX package prints a ``PartitionSpec``."""
+    return "PartitionSpec(" + ", ".join(repr(e) for e in spec) + ")"
+
+
+def _named_entries(target: Any, prefix: str = ""):
+    """``(path, leaf)`` of a module (parameters, then buffers), a flat
+    ``{name: tensor}`` dict (its keys as they are, the paths a sharding
+    rule sees) or a nested dict / list / tuple (dotted paths); a torch
+    optimizer gives ``"<param path>.<slot>"`` per state slot."""
+    if hasattr(target, "named_parameters"):
+        yield from target.named_parameters()
+        yield from target.named_buffers()
+        return
+    if hasattr(target, "state") and hasattr(target, "param_groups"):
+        from ..parallel.plan import _state_tree
+
+        for name, (_, slots) in _state_tree(target, {}).items():
+            for slot, leaf in slots.items():
+                yield f"{name}.{slot}", leaf
+        return
+    items = (target.items() if isinstance(target, dict)
+             else enumerate(target) if isinstance(target, (list, tuple)) else ())
+    for k, v in items:
+        path = f"{prefix}{k}"
+        if isinstance(v, (dict, list, tuple)):
+            yield from _named_entries(v, path + ".")
+        else:
+            yield path, v
+
+
+def _placed(t: torch.Tensor):
+    """``(sharding or None, global shape)`` of a rank's tensor."""
+    from ..parallel.mesh import sharding_of
+
+    found = sharding_of(t)
+    return (found[0], tuple(found[1])) if found else (None, tuple(t.shape))
+
+
+def _real(t: Any) -> bool:
+    from ..fake import is_fake
+
+    return isinstance(t, torch.Tensor) and not is_fake(t) and t.device.type != "meta"
+
+
+def sharding_report(
+    target: Any,
+    *,
+    intended_rule: Optional[Callable[[str, Any], Any]] = None,
+    optimizer_state: Any = None,
+    min_shard_elems: int = 1024,
+    budget_bytes_per_device: Optional[int] = None,
+) -> dict:
+    """Post-materialization sharding audit (module docstring).
+
+    ``target``: a module, or a ``{name: tensor}`` dict / nested tree of a
+    rank's tensors.  ``intended_rule(path, tensor) -> NamedSharding`` (a
+    ``materialize_module`` sharding rule, ``ShardingPlan.as_rule()``) marks
+    entries placed otherwise; replication it asks for is not flagged.
+    ``optimizer_state`` (a torch optimizer, or ``{name: {slot: tensor}}``)
+    is checked for slots shaped like their sharded parameter's whole
+    tensor: an optimizer made over a rank's pieces holds pieces.
+    ``budget_bytes_per_device`` adds the ``shard_budget`` section (a rank's
+    parameter, buffer and optimizer bytes against it) and an
+    ``over_budget`` flag.  ``report["flags"]`` empty: the plan holds."""
+    from ..parallel.mesh import NamedSharding
+    from ..parallel.multihost import process_count
+    from ..parallel.plan import _effective, equivalent
+
+    entries: list = []
+    flags: list = []
+    total_bytes = device_bytes = 0
+    sharded: dict = {}  # path -> (local shape, global shape)
+
+    for path, t in _named_entries(target):
+        if not _real(t):
+            entries.append({"path": path, "status": "unmaterialized",
+                            "type": type(t).__name__})
+            continue
+        sh, shape = _placed(t)
+        item = t.element_size()
+        g = math.prod(shape) * item
+        d = t.numel() * item
+        total_bytes += g
+        device_bytes += d
+        spec = tuple(sh.spec) if sh is not None else ()
+        replicated = sh is None or not any(_effective(sh, len(shape)))
+        n_ranks = sh.mesh.size if sh is not None else 1
+        entry = {"path": path, "shape": list(shape), "dtype": str(t.dtype).replace("torch.", ""),
+                 "bytes": g, "bytes_per_device": d, "sharding": _spec_str(spec),
+                 "replicated": replicated}
+        if not replicated:
+            sharded[path] = (tuple(t.shape), shape)
+        planned = False  # replication the intended rule asked for
+        if intended_rule is not None:
+            try:
+                want = intended_rule(path, t)
+            except Exception as e:  # a partial rule must not kill the audit
+                want = None
+                entry["intended_error"] = str(e)[:120]
+            if want is not None:
+                planned = True
+                actual = sh if sh is not None else NamedSharding(want.mesh, ())
+                if not equivalent(actual, want, len(shape)):
+                    entry["flag"] = "sharding_mismatch"
+                    entry["intended"] = _spec_str(tuple(want.spec))
+                    flags.append({"kind": "sharding_mismatch", "path": path,
+                                  "actual": entry["sharding"],
+                                  "intended": entry["intended"]})
+        if replicated and not planned and n_ranks > 1 and math.prod(shape) >= min_shard_elems:
+            entry["flag"] = "accidental_replication"
+            flags.append({"kind": "accidental_replication", "path": path, "bytes": g,
+                          "detail": f"{math.prod(shape)} elems fully replicated over "
+                                    f"{n_ranks} devices"})
+        entries.append(entry)
+
+    opt_entries = opt_bytes = opt_device_bytes = 0
+    if optimizer_state is not None:
+        for path, leaf in _named_entries(optimizer_state):
+            if not _real(leaf):
+                continue
+            opt_entries += 1
+            sh, shape = _placed(leaf)
+            local = tuple(leaf.shape)
+            owner = next((p for p, (loc, glob) in sharded.items()
+                          if p in path and local in (loc, glob)), None)
+            if owner is not None and sh is None and local == sharded[owner][0]:
+                shape = sharded[owner][1]  # a slot of the rank's piece
+            item = leaf.element_size()
+            opt_bytes += math.prod(shape) * item
+            opt_device_bytes += leaf.numel() * item
+            if owner is None:
+                continue
+            whole = local == sharded[owner][1] and (
+                sh is None or not any(_effective(sh, len(local))))
+            if whole and leaf.numel() >= min_shard_elems:
+                flags.append({
+                    "kind": "unsharded_optimizer_state", "path": path, "param": owner,
+                    "bytes": math.prod(shape) * item,
+                    "detail": "param is sharded but this state slot is fully "
+                              "replicated — derive the slot shardings from the plan "
+                              "(ShardingPlan.optimizer_state_shardings, parallel/plan.py) "
+                              "and build the optimizer over the rank's pieces"})
+
+    n_devices = process_count()
+    report = {
+        "schema": "tdx-sharding-v1",
+        "n_devices": n_devices,
+        "n_entries": len(entries),
+        "n_optimizer_entries": opt_entries,
+        "total_bytes": total_bytes,
+        "bytes_per_device": device_bytes,
+        "optimizer_bytes": opt_bytes,
+        "optimizer_bytes_per_device": opt_device_bytes,
+        "replication_factor": (round(device_bytes * n_devices / total_bytes, 3)
+                               if total_bytes else None),
+        "entries": entries,
+        "flags": flags,
+    }
+    if budget_bytes_per_device is not None:
+        shard_total = device_bytes + opt_device_bytes
+        budget = int(budget_bytes_per_device)
+        report["shard_budget"] = {
+            "budget_bytes": budget,
+            "bytes_per_device": shard_total,
+            "headroom_bytes": budget - shard_total,
+            "utilization": round(shard_total / budget, 4) if budget else None,
+        }
+        if shard_total > budget:
+            flags.append({"kind": "over_budget", "path": None, "bytes": shard_total,
+                          "detail": f"per-device footprint {shard_total} exceeds the "
+                                    f"per-shard HBM budget {budget}"})
+    return report
+
+
+def memory_report(
+    target: Any = None,
+    *,
+    intended_rule: Optional[Callable[[str, Any], Any]] = None,
+    optimizer_state: Any = None,
+    include_entries: bool = False,
+) -> dict:
+    """The watermark and, for a ``target``, the sharding audit's summary
+    (its entry list only with ``include_entries``)."""
+    out: dict = {"watermark": hbm_watermark()}
+    if target is not None:
+        rep = sharding_report(target, intended_rule=intended_rule,
+                              optimizer_state=optimizer_state)
+        if not include_entries:
+            rep = {k: v for k, v in rep.items() if k != "entries"}
+        out["sharding"] = rep
+    return out
+
+
+_LAST_MATERIALIZE: Optional[dict] = None
+
+
+def record_materialize(n_tensors: int, total_bytes: int) -> dict:
+    """Called by ``materialize_module`` after each replay: the number of
+    tensors, their whole bytes and the watermark, for a caller to read
+    back without walking the module (:func:`last_materialize_report`)."""
+    global _LAST_MATERIALIZE
+    _LAST_MATERIALIZE = {
+        "n_tensors": int(n_tensors),
+        "total_bytes": int(total_bytes),
+        "watermark": hbm_watermark(),
+    }
+    from .trace import get_tracer
+
+    get_tracer().counter("materialize_bytes", total=float(total_bytes))
+    return _LAST_MATERIALIZE
+
+
+def last_materialize_report() -> Optional[dict]:
+    return _LAST_MATERIALIZE

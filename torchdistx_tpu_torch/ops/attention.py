@@ -346,6 +346,21 @@ def _validate_ring_bias(name, bias, hq, sq, n, skv):
         )
 
 
+def _record_ring_pass(ax, blocks) -> None:
+    """Book one ring pass into the comm audit as the JAX ring does: ``n``
+    ``ppermute`` hops of each rotating tensor (its scan's home-coming hop
+    included) and of the 4-byte block index (None in ``blocks``).  The
+    ring's own ``shift`` calls run muted: they are these rows."""
+    from ..obs.comm import record_collective
+
+    for blk in blocks:
+        if blk is None:
+            record_collective("ppermute", ax, payload_bytes=4, count=ax.size,
+                              axis_size=ax.size)
+        else:
+            record_collective("ppermute", ax, blk, count=ax.size, axis_size=ax.size)
+
+
 def _hops(n, idx, causal):
     """(hop, held block j, whether block j is computed, its causal mask)."""
     for t in range(n):
@@ -360,6 +375,7 @@ def ring_attention(q, k, v, *, axis, causal: bool = True,
     an f32 online softmax, then passes the block on.  Differentiable by
     autograd (the shift's backward is the opposite shift).  ``bias``:
     (H, sq_local, S_global), this shard's query rows against every key."""
+    from ..obs.comm import muted
     from ..parallel.collectives import shift
     from ..parallel.mesh import resolve_axis
 
@@ -368,6 +384,7 @@ def ring_attention(q, k, v, *, axis, causal: bool = True,
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     _validate_ring_bias("ring_attention", bias, hq, sq, n, skv)
+    _record_ring_pass(ax, (k, v, None))
     n_rep = hq // hkv
     scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
     local_mask = torch.tril(torch.ones((sq, skv), dtype=torch.bool, device=q.device))
@@ -394,7 +411,8 @@ def ring_attention(q, k, v, *, axis, causal: bool = True,
             "bhqk,bkhd->bhqd", probs, _repeat_kv(vb, n_rep).float())
         row_max = new_max
         if t < n - 1:
-            kb, vb = shift((kb, vb), ax)
+            with muted():
+                kb, vb = shift((kb, vb), ax)
     out = acc / row_sum.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
@@ -447,8 +465,10 @@ class _RingFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, ax, causal, scale):
+        from ..obs.comm import muted
         from ..parallel.collectives import shift
 
+        _record_ring_pass(ax, (k, v, None))
         n, idx = ax.size, ax.index
         b, sq, hq, d = q.shape
         skv = k.shape[1]
@@ -461,7 +481,8 @@ class _RingFlash(torch.autograd.Function):
                 acc, m, l = ring_flash_fwd_block(q, kb, vb, acc, m, l, causal=diag, scale=scale,
                                                  bias=_ring_bias_block(bias, j, skv))
             if t < n - 1:
-                kb, vb = shift((kb, vb), ax)
+                with muted():
+                    kb, vb = shift((kb, vb), ax)
         safe_l = l.clamp_min(1e-30)
         out = (acc / safe_l[..., None]).transpose(1, 2).to(q.dtype)
         lse = m + torch.log(safe_l)
@@ -471,6 +492,7 @@ class _RingFlash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from ..obs.comm import muted
         from ..parallel.collectives import shift
         from .flash_attention import flash_bwd_delta
 
@@ -485,6 +507,8 @@ class _RingFlash(torch.autograd.Function):
               if bias is not None else None)
         dkb = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dvb = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        # five tensors rotate: the K/V blocks, their f32 accumulators, the index
+        _record_ring_pass(ax, (k, v, dkb, dvb, None))
         kb, vb = k, v
         for t, j, compute, diag in _hops(n, idx, causal):
             if compute:
@@ -496,9 +520,10 @@ class _RingFlash(torch.autograd.Function):
                 dvb += dv_c
                 if db_c is not None:
                     db[:, :, j * skv:(j + 1) * skv] = db_c
-            if t < n - 1:
-                kb, vb = shift((kb, vb), ax)
-            dkb, dvb = shift((dkb, dvb), ax)
+            with muted():
+                if t < n - 1:
+                    kb, vb = shift((kb, vb), ax)
+                dkb, dvb = shift((dkb, dvb), ax)
         dbias = db.to(bias.dtype) if bias is not None else None
         return (dq.to(q.dtype), dkb.to(k.dtype), dvb.to(v.dtype), dbias,
                 None, None, None)

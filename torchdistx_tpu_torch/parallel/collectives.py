@@ -29,6 +29,15 @@ backend and the tensor's device before anything is sent, and counted in
 host).  One card can hold a multi-rank world only on ``gloo`` (NCCL
 refuses two ranks on one device); on NCCL nothing is staged.
 
+Every public function is a comm-audit choke point (``obs.comm``): under
+an active ``comm_audit`` a call books its op and its analytic payload and
+wire bytes over its axis, as the JAX package's functions do at trace time,
+whatever the axis size; ``allreduce_linear`` and ``copy_psum_grad`` book
+their backward too (``allreduce_linear_bwd``, zero wire, and
+``copy_psum_grad_bwd``).  The private helpers (``_psum``, ``_gather``,
+``_reduce_scatter``, ``_permute``) book nothing: the callers that use them
+book the JAX package's rows themselves.
+
 ``payload_bytes`` counts, by kind, the bytes each rank hands to the
 reductions, gathers, scatters and all-to-alls over axes of size > 1 (an
 input's bytes once a call), and under ``"pipe"`` the bytes it sends to a
@@ -43,6 +52,8 @@ from typing import Any, Sequence
 import torch
 import torch.distributed as dist
 
+from ..obs.comm import record_collective as _record
+from ..obs.comm import tree_bytes
 from .mesh import Axis, resolve_axis
 
 __all__ = [
@@ -121,6 +132,7 @@ def _psum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
 def all_reduce(tree: Any, axis) -> Any:
     """Sum over the axis (or axes)."""
     axes = _axes(axis)
+    _record("all_reduce", axis, tree)
 
     def one(x):
         for ax in axes:
@@ -134,6 +146,7 @@ def all_mean(tree: Any, axis) -> Any:
     """Mean over the axis (or axes): the reference's default allreduce hook
     divides the sum by the world size."""
     axes = _axes(axis)
+    _record("all_mean", axis, tree)
 
     def one(x):
         for ax in axes:
@@ -146,6 +159,7 @@ def all_mean(tree: Any, axis) -> Any:
 def broadcast(tree: Any, axis, source: int = 0) -> Any:
     """``source``'s value (an index along the axis) to every member."""
     ax = resolve_axis(axis)
+    _record("broadcast", ax, tree)
 
     def one(x):
         if ax.size == 1:
@@ -218,6 +232,8 @@ def exchange(tree: Any, axis, send_to: Sequence[int], recv_from: Sequence[int], 
                     f"inconsistent peer lists: member {i} expects to receive "
                     f"from {src} but the send permutation delivers {implied.get(i)}")
     dst, src = int(send_to[ax.index]), implied.get(ax.index, -1)
+    _record("exchange", ax, tree, axis_size=len(send_to),
+            senders=sum(1 for d in send_to if int(d) >= 0))
     leaves = []
     _map(leaves.append, tree)
     it = iter(_permute(leaves, ax, dst, src, fill))
@@ -250,6 +266,7 @@ def shift(tree: Any, axis, offset: int = 1) -> Any:
     tensor of the tree in one batch of sends and receives.  At axis size 1
     the identity (a copy)."""
     ax = resolve_axis(axis)
+    _record("shift", ax, tree, axis_size=ax.size, senders=ax.size)
     leaves = []
     _map(leaves.append, tree)
     it = iter(_Shift.apply(ax, offset, *leaves))
@@ -282,8 +299,10 @@ def _reduce_scatter(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
 
 def all_gather(tree: Any, axis, tiled_axis: int = 0) -> Any:
     """Concatenate every member's value along ``tiled_axis``, in axis order
-    (``lax.all_gather(tiled=True)``)."""
+    (``lax.all_gather(tiled=True)``).  The audit's payload is the
+    gathered bytes."""
     ax = resolve_axis(axis)
+    _record("all_gather", ax, payload_bytes=tree_bytes(tree) * ax.size, axis_size=ax.size)
     return _map(lambda x: _gather(x, ax, tiled_axis), tree)
 
 
@@ -291,6 +310,7 @@ def reduce_scatter(tree: Any, axis, scatter_axis: int = 0) -> Any:
     """Sum over the axis, then keep this member's slice of ``scatter_axis``
     (``lax.psum_scatter(tiled=True)``)."""
     ax = resolve_axis(axis)
+    _record("reduce_scatter", ax, tree)
     return _map(lambda x: _reduce_scatter(x, ax, scatter_axis), tree)
 
 
@@ -323,47 +343,64 @@ class _AllToAll(torch.autograd.Function):
 
 def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int) -> torch.Tensor:
     """The differentiable tiled all-to-all of Ulysses attention (not among
-    the JAX module's names, which calls ``lax.all_to_all`` in place)."""
-    return _AllToAll.apply(x, resolve_axis(axis), split_axis, concat_axis)
+    the JAX module's names, which calls ``lax.all_to_all`` in place).  The
+    forward books one ``all_to_all`` of ``x``'s bytes, as JAX's Ulysses
+    attention does; the backward books nothing (a jaxpr transpose in JAX)."""
+    ax = resolve_axis(axis)
+    _record("all_to_all", ax, x, axis_size=ax.size)
+    return _AllToAll.apply(x, ax, split_axis, concat_axis)
 
 
 class _AllreduceLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes):
+    def forward(ctx, x, axes, axis):
+        ctx.axis = axis
         for ax in axes:
             x = _psum(x, ax)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        # identity: zero wire, booked so the audit shows it was traversed
+        _record("allreduce_linear_bwd", ctx.axis, g)
+        return g, None, None
 
 
 class _CopyPsumGrad(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes):
-        ctx.axes = axes
+    def forward(ctx, x, axes, axis):
+        ctx.axes, ctx.axis = axes, axis
         return x
 
     @staticmethod
     def backward(ctx, g):
+        _record("copy_psum_grad_bwd", ctx.axis, g)
         for ax in ctx.axes:
             g = _psum(g, ax)
-        return g, None
+        return g, None, None
 
 
 def allreduce_linear(tree: Any, axis) -> Any:
     """All-reduce whose backward is the identity (Megatron's ``g``, after a
-    row-parallel product): the cotangent arriving is already replicated."""
+    row-parallel product): the cotangent arriving is already replicated.
+    Books one ``allreduce_linear`` a tensor, and its backward one
+    ``allreduce_linear_bwd``."""
     axes = _axes(axis)
-    return _map(lambda x: _AllreduceLinear.apply(x, axes), tree)
+
+    def one(x):
+        _record("allreduce_linear", axis, x)
+        return _AllreduceLinear.apply(x, axes, axis)
+
+    return _map(one, tree)
 
 
 def copy_psum_grad(tree: Any, axis) -> Any:
     """Identity whose backward is an all-reduce (Megatron's ``f``, where a
-    replicated activation enters a tensor-parallel region)."""
+    replicated activation enters a tensor-parallel region).  Its backward
+    books one ``copy_psum_grad_bwd`` a tensor (none where the cotangent is
+    not needed)."""
     axes = _axes(axis)
-    return _map(lambda x: _CopyPsumGrad.apply(x, axes), tree)
+    return _map(lambda x: _CopyPsumGrad.apply(x, axes, axis), tree)
 
 
 def axis_index(axis) -> int:

@@ -48,6 +48,16 @@ donated jit carry to the layouts it arrived with.  Nothing is donated or
 re-placed by an eager step, so here it only reports each tensor's
 ``sharding_of`` (or None, for a tensor no sharding marks).  The numerics
 taps are not ported yet.
+
+The comm audit (``obs.comm``) sees what the JAX step books when it traces:
+per sharded parameter one ``all_gather`` and one ``reduce_scatter`` over
+the shard axis (payload the full parameter's bytes), a ``pmean`` of each
+replicated parameter's gradient over it, a ``pmean`` of the whole
+gradient over each batch axis the step reduces, the hook's collectives
+and a ``pmean`` of the loss over every mesh axis.  The step's own
+collectives run muted, and it books a batch signature's first call only
+(the JAX step's cached program records nothing); the later calls run
+under ``obs.comm.muted``.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 from torch import nn
 
+from ..obs.comm import muted, record_collective
 from ..trainer import TrainStep
 from . import collectives
 from .comm_hooks import DefaultState, HookContext, allreduce_hook
@@ -218,7 +229,8 @@ class _MeanGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return collectives.all_mean(g, ctx.ax), None
+        with muted():  # booked by the step as a pmean
+            return collectives.all_mean(g, ctx.ax), None
 
 
 @contextlib.contextmanager
@@ -297,6 +309,7 @@ class ShardedTrainStep(TrainStep):
             ax for ax in _spec_axes(self.batch_spec)
             if ax not in self.replica_axes and ax != shard_axis))
         self._params = self.shard_params()
+        self._booked: set = set()  # batch signatures whose step was booked
 
     def param_spec(self, shape, mesh: Optional[Mesh] = None) -> tuple:
         if self.shard_axis is None:
@@ -386,12 +399,41 @@ class ShardedTrainStep(TrainStep):
             return _MeanGrad.apply(p, self.mesh.axes[self.shard_axis])
         return p
 
+    def _book_grad_sync(self) -> None:
+        """The JAX step's gradient-side rows (module docstring)."""
+        trained = [(p, dim) for _, p, dim in self._params if p.requires_grad]
+        full = [(_full_bytes(p), dim) for p, dim in trained]
+        for ax in self.grad_reduce_axes:
+            record_collective("pmean", ax, payload_bytes=sum(b for b, _ in full),
+                              axis_size=self.mesh.shape[ax])
+        sa = self.shard_axis
+        if sa is None:
+            return
+        n = self.mesh.shape[sa]
+        for b, dim in full:
+            record_collective("reduce_scatter" if dim is not None else "pmean", sa,
+                              payload_bytes=b, axis_size=n)
+
     def __call__(self, params, opt_state, batch):
+        leaves = []
+        collectives._map(leaves.append, batch)
+        sig = tuple((tuple(x.shape), str(x.dtype)) for x in leaves)
+        fresh = sig not in self._booked
+        self._booked.add(sig)
+        with contextlib.nullcontext() if fresh else muted():
+            return self._step(params, opt_state, batch)
+
+    def _step(self, params, opt_state, batch):
         opt_state.zero_grad(set_to_none=True)
         local = self.local_batch(batch)
         n = self.accum_steps
         micro = [collectives._map(lambda x, i=i: _chunks(x, n)[i], local) for i in range(n)]
         total = 0.0
+        sa = self.shard_axis
+        for _, p, dim in self._params:
+            if dim is not None:
+                record_collective("all_gather", sa, payload_bytes=_full_bytes(p),
+                                  axis_size=self.mesh.shape[sa])
         with self.mesh:
             with swapped_parameters(self.model) as swap:
                 for mb in micro:
@@ -400,9 +442,11 @@ class ShardedTrainStep(TrainStep):
                     loss = self.loss_fn(self.model, mb)
                     (loss / self.accum_steps).backward()
                     total = total + loss.detach() / self.accum_steps
+            self._book_grad_sync()
             grads = {name: p.grad for name, p, _ in self._params if p.grad is not None}
             if self.grad_reduce_axes:
-                grads = collectives.all_mean(grads, self.grad_reduce_axes)
+                with muted():
+                    grads = collectives.all_mean(grads, self.grad_reduce_axes)
             ctx = HookContext(replica_axes=self.replica_axes,
                               step=self.hook_state.step_args())
             grads = self.comm_hook(self.hook_state, grads, ctx)
@@ -411,9 +455,20 @@ class ShardedTrainStep(TrainStep):
                     p.grad = grads[name]
             opt_state.step()
             self.hook_state.advance()
-            loss = collectives.all_mean(total, tuple(self.mesh.axes.values()))
+            axes = tuple(self.mesh.axes.values())
+            for ax in axes:
+                record_collective("pmean", ax, total)
+            with muted():
+                loss = collectives.all_mean(total, axes)
         self.losses.append(loss)
         return params, opt_state, loss
+
+
+def _full_bytes(p: torch.Tensor) -> int:
+    """Bytes of the whole parameter of which ``p`` is this rank's piece."""
+    found = sharding_of(p)
+    shape = found[1] if found else tuple(p.shape)
+    return math.prod(shape) * p.element_size()
 
 
 def _chunks(x, n):

@@ -225,12 +225,23 @@ def gossip_grad_hook(state: GossipGraDState, grads: Any, ctx: HookContext) -> An
     """The hook: ``ctx.step`` is ``state.step_args()``, the branch whose
     peers this step exchanges with.  Every member takes part in the
     exchange; a member with a peer takes ``(g + received) * 0.5``, one
-    without (CUBE past the last node) keeps ``g``."""
+    without (CUBE past the last node) keeps ``g``.
+
+    The comm audit books one exchange of every branch of the table, as
+    the JAX step's ``lax.switch`` traces every branch (a conservative
+    upper bound, exact for a one-branch schedule); the exchange that runs
+    is muted."""
+    from ..obs.comm import muted, record_collective
+
     if state.local_axis is not None and state.local_axis in ctx.replica_axes:
         grads = collectives.all_mean(grads, state.local_axis)
     specs, _ = state.branch_table()
+    for b_send, _, _ in specs:
+        record_collective("exchange", state.node_axis, grads, axis_size=len(b_send),
+                          senders=sum(1 for d in b_send if int(d) >= 0))
     send, recv, valid = specs[ctx.step]
-    received = collectives.exchange(grads, state.node_axis, send, recv, fill="zero")
+    with muted():
+        received = collectives.exchange(grads, state.node_axis, send, recv, fill="zero")
     if not valid[collectives.axis_index(state.node_axis)]:
         return grads
     return _zip_map(lambda g, r: (g + r) * 0.5, grads, received)

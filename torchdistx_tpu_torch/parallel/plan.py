@@ -26,10 +26,15 @@ donates nothing, so the derived optimizer and carry shardings describe a
 layout that already holds (:meth:`~ShardingPlan.shardings_for` reports
 each tensor's own).  ``zero2_participating_bytes`` is ZeRO-2's closed
 form, the bytes of the parameters whose update it shards (the step's
-all-gather payload).  Not ported yet, and raising ``NotImplementedError``:
-``validate`` and the closed-form pricing (``price_step``,
-``record_step_collectives``), which need ``obs/memory`` and ``obs/comm``
-(ROADMAP A.7).
+all-gather payload).
+
+The plan checks and prices itself: :meth:`~ShardingPlan.validate` holds a
+materialized state against the plan through ``obs.memory.sharding_report``
+and prices a shape-only one (fake or meta tensors) in closed form through
+``obs.memory.capacity_plan``; :meth:`~ShardingPlan.price_step` gives a
+train step's collective rows on the ring model of ``obs.comm``, which
+:meth:`~ShardingPlan.record_step_collectives` books into the active comm
+audit.
 """
 
 from __future__ import annotations
@@ -57,9 +62,10 @@ __all__ = [
 
 
 class PlanError(ValueError):
-    """A sharding plan failed validation: an axis the mesh lacks, or an
-    option without the one it needs.  The message names the offending
-    rule or argument."""
+    """A sharding plan failed validation: an axis the mesh lacks, an
+    option without the one it needs, a state placed otherwise than the
+    plan says, or a state over its budget.  The message names the
+    offending rule, argument or numbers."""
 
 
 def tree_path_str(path: Sequence[Any]) -> str:
@@ -378,8 +384,50 @@ class ShardingPlan:
     def validate(self, params: Any, *, optimizer_state: Any = None,
                  budget_bytes_per_device: Optional[int] = None,
                  budget_name: str = "device HBM") -> dict:
-        raise NotImplementedError("ShardingPlan.validate needs obs/memory, not ported "
-                                  "yet (ROADMAP A.7)")
+        """Check a materialized or shape-only state against the plan.
+
+        ``params``: a module or ``{name: tensor}``; ``optimizer_state``: a
+        torch optimizer or ``{name: {slot: tensor}}``.  When every tensor
+        is real, the state runs through ``obs.memory.sharding_report`` with
+        this plan as the intended rule, and ANY flag raises
+        :class:`PlanError` with the flags; the report is returned.  When
+        they are fake or meta tensors (shapes alone), the rank's bytes are
+        priced from the rules (``per_device_bytes``, and the optimizer's
+        slots by :meth:`optimizer_state_shardings`) and gated through
+        ``obs.memory.capacity_plan``: over ``budget_bytes_per_device`` the
+        plan raises with the numbers; the capacity plan is returned.  Both
+        failures name the budget (``budget_name``)."""
+        from ..obs import memory as obs_memory
+
+        named = _named(params)
+        leaves = list(named.values())
+        if optimizer_state is not None:
+            leaves += [leaf for _, (_, slots) in _state_tree(optimizer_state, named).items()
+                       for leaf in slots.values() if isinstance(leaf, torch.Tensor)]
+        if leaves and all(obs_memory._real(t) for t in leaves):
+            report = obs_memory.sharding_report(
+                params, intended_rule=self.as_rule(), optimizer_state=optimizer_state,
+                min_shard_elems=self.min_shard_elems,
+                budget_bytes_per_device=budget_bytes_per_device)
+            if report.get("flags"):
+                budget = (f"{budget_name} budget {budget_bytes_per_device} bytes/device"
+                          if budget_bytes_per_device is not None else "no per-device budget")
+                raise PlanError(f"sharding plan validation failed ({budget}): "
+                                f"flags={report['flags']}")
+            return report
+        components = {"params": self.per_device_bytes(params)}
+        if optimizer_state is not None:
+            components["optimizer_state"] = self._per_device_bytes_with(
+                optimizer_state, self.optimizer_state_shardings(optimizer_state, params),
+                named)
+        plan_doc = obs_memory.capacity_plan(components, budget_bytes=budget_bytes_per_device)
+        if budget_bytes_per_device is not None and not plan_doc["fits"]:
+            raise PlanError(
+                f"sharding plan overshoots the {budget_name} budget: projected "
+                f"{plan_doc['projected_peak_bytes']} bytes/device > "
+                f"{budget_bytes_per_device} bytes/device (headroom "
+                f"{plan_doc['headroom_bytes']}); components={plan_doc['components']}")
+        return plan_doc
 
     def _num_shards(self, spec) -> int:
         return math.prod(int(self.mesh.shape[ax]) for ax in _spec_axes(spec))
@@ -388,6 +436,17 @@ class ShardingPlan:
         """Closed-form parameter bytes a rank holds under the plan."""
         return sum(_leaf_bytes(t) // self._num_shards(self.spec_for(name, _global_shape(t)))
                    for name, t in _named(params).items())
+
+    def _per_device_bytes_with(self, state: Any, shardings: dict, named: dict) -> int:
+        """Closed-form bytes a rank holds of an optimizer state under
+        ``{name: {slot: NamedSharding}}``."""
+        total = 0
+        for name, (_, slots) in _state_tree(state, named).items():
+            for slot, leaf in slots.items():
+                if isinstance(leaf, torch.Tensor):
+                    spec = shardings.get(name, {}).get(slot, NamedSharding(self.mesh, ())).spec
+                    total += _leaf_bytes(leaf) // self._num_shards(spec)
+        return total
 
     def zero2_participating_bytes(self, params: Any) -> int:
         """Bytes of the parameters whose update ZeRO-2 shards (the plan
@@ -398,9 +457,51 @@ class ShardingPlan:
                    if self.zero2_sharding(name, t) is not None)
 
     def price_step(self, params: Any) -> list:
-        raise NotImplementedError("ShardingPlan.price_step needs obs/comm, not ported "
-                                  "yet (ROADMAP A.7)")
+        """The plan's collective rows of one train step, from the rules
+        alone on the ``obs.comm`` ring model: ``{kind, axis,
+        payload_bytes, wire_bytes, count, axis_size}`` each, what the step
+        books into the comm audit.  A ``zero2`` plan prices ONE all-gather
+        of the participating parameters over ``dp_axis``; a
+        ``default_axis`` (FSDP) plan a gather and a reduce-scatter of each
+        parameter it shards (payload the whole parameter) and a pmean of
+        the others.  The 4-byte loss reductions are not priced."""
+        from ..obs.comm import _WIRE
+
+        rows = []
+
+        def row(kind: str, axis: str, payload: int, count: int = 1) -> None:
+            n = int(self.mesh.shape[axis])
+            ratio = _WIRE.get(kind)
+            wire = payload * ratio(n, None) if ratio else float(payload)
+            rows.append({"kind": kind, "axis": axis, "payload_bytes": int(payload),
+                         "wire_bytes": int(round(wire * count)), "count": int(count),
+                         "axis_size": n})
+
+        if self.zero2:
+            payload = self.zero2_participating_bytes(params)
+            if payload:
+                row("all_gather", self.dp_axis, payload)
+        if self.default_axis is not None:
+            axis = self.default_axis
+            for name, t in sorted(_named(params).items()):
+                if axis in _spec_axes(self.spec_for(name, _global_shape(t))):
+                    row("all_gather", axis, _leaf_bytes(t))
+                    row("reduce_scatter", axis, _leaf_bytes(t))
+                else:
+                    row("pmean", axis, _leaf_bytes(t))
+        return rows
+
+    def step_wire_bytes(self, params: Any, kind: Optional[str] = None) -> int:
+        """Total closed-form wire bytes of one step (optionally one kind)."""
+        return sum(r["wire_bytes"] for r in self.price_step(params)
+                   if kind is None or r["kind"] == kind)
 
     def record_step_collectives(self, params: Any) -> None:
-        raise NotImplementedError("ShardingPlan.record_step_collectives needs obs/comm, "
-                                  "not ported yet (ROADMAP A.7)")
+        """Book :meth:`price_step`'s rows into the active comm audit, once
+        per dispatched step: a k-step audit equals k times the closed form
+        (``GSPMDTrainStep`` does it for a ZeRO-2 plan)."""
+        from ..obs.comm import record_collective
+
+        for r in self.price_step(params):
+            record_collective(r["kind"], r["axis"], payload_bytes=r["payload_bytes"],
+                              count=r["count"], axis_size=r["axis_size"])

@@ -44,8 +44,12 @@ then carries the ``tp`` collectives itself, ``collectives.copy_psum_grad``
 where the replicated activation enters and ``allreduce_linear`` after the
 row-parallel product).  Gradients come back in the parameters' layout.
 
-Booking the pipe's traffic into a comm audit waits for ``obs/comm``
-(ROADMAP A.7).
+The comm audit (``obs.comm``) books the JAX schedules' closed forms at
+each call: ``ticks`` exchanges of one microbatch activation (``2 * ticks``
+for 1F1B) over the axis, its ``n_stages - 1`` links sending, and the
+all-reduce that replicates the result (the outputs; 1F1B's f32 loss),
+plus with ``dp_axis`` a ``pmean`` of the gradients and one of the loss.
+The schedules' own sends, broadcasts and means run muted.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from ..obs.comm import muted, record_collective
 from . import collectives
 from .mesh import Mesh, NamedSharding, mark_sharded, sharding_of
 from .plan import _norm_spec, equivalent, place
@@ -164,6 +169,10 @@ class _PipeApply(torch.autograd.Function):
     def forward(ctx, info, mb, *leaves):
         ax, stage_fn, unflatten = info
         n_stages, s, n_micro = ax.size, ax.index, mb.shape[0]
+        act = mb.numel() * mb.element_size() // n_micro
+        record_collective("exchange", ax, payload_bytes=act, count=n_micro + n_stages - 1,
+                          axis_size=n_stages, senders=n_stages - 1)
+        record_collective("all_reduce", ax, payload_bytes=act * n_micro, axis_size=n_stages)
         p = unflatten([t.detach()[0] for t in leaves])
         stash, outputs, prev = [None] * n_micro, torch.zeros_like(mb), None
         for t in range(n_micro + n_stages - 1):
@@ -180,7 +189,8 @@ class _PipeApply(torch.autograd.Function):
                     outputs[i] = y
                 else:
                     prev = y
-        outputs = collectives.broadcast(outputs, ax, n_stages - 1)
+        with muted():
+            outputs = collectives.broadcast(outputs, ax, n_stages - 1)
         ctx.info = info
         ctx.save_for_backward(*[x for x in stash if x is not None], *leaves)
         ctx.n_stash = sum(x is not None for x in stash)
@@ -272,8 +282,12 @@ def pipeline_train_step(stage_params: Any, microbatches: torch.Tensor, targets: 
     loss_acc = torch.zeros((), dtype=torch.float32, device=mb.device)
     stash = [None] * depth
     prev_f = prev_b = None
+    ticks = n_micro + 2 * (n_stages - 1)
+    record_collective("exchange", ax, payload_bytes=mb.numel() * mb.element_size() // n_micro,
+                      count=2 * ticks, axis_size=n_stages, senders=n_stages - 1)
+    record_collective("all_reduce", ax, payload_bytes=4, axis_size=n_stages)
     with mesh:
-        for t in range(n_micro + 2 * (n_stages - 1)):
+        for t in range(ticks):
             i_f = t - s
             i_b = t - 2 * (n_stages - 1) + s
             valid_f, valid_b = 0 <= i_f < n_micro, 0 <= i_b < n_micro
@@ -304,9 +318,14 @@ def pipeline_train_step(stage_params: Any, microbatches: torch.Tensor, targets: 
                         a.add_(g)
                 if s > 0:
                     prev_b = gs[-1]
-        loss = collectives.broadcast(loss_acc, ax, n_stages - 1) / n_micro
+        with muted():
+            loss = collectives.broadcast(loss_acc, ax, n_stages - 1) / n_micro
         grads = [a / n_micro for a in acc]
         if dp_axis is not None:
-            loss = collectives.all_mean(loss, dp_axis)
-            grads = collectives.all_mean(grads, dp_axis)
+            n_dp = mesh.shape[dp_axis]
+            record_collective("pmean", dp_axis, grads, axis_size=n_dp)
+            record_collective("pmean", dp_axis, loss, axis_size=n_dp)
+            with muted():
+                loss = collectives.all_mean(loss, dp_axis)
+                grads = collectives.all_mean(grads, dp_axis)
     return loss, unflatten(_stacked(grads, shardings))

@@ -32,10 +32,12 @@ outside it.  :func:`optimizer_state_tree` and :func:`write_back` turn a
 module and a torch optimizer into such a tree and back (each slot shaped
 like the tensor the optimizer holds takes that tensor's sharding, the
 rest are replicated); :func:`reshard_to_plan` moves both onto a plan's
-placements.  Booking a migration into a comm audit and the flight
-recorder waits for ``obs/comm`` and ``obs/flight`` (ROADMAP A.7): the
-closed forms price it, and ``collectives.payload_bytes`` counts the
-gathers it runs.
+placements.  A migration books its closed form into the active comm
+audit (``obs.comm``), as the JAX module does: the live path one
+``all_gather`` of each moving leaf's bytes over a group of ``g``, filed
+under the source's axes; the bounce one ``broadcast`` of each leaf over
+the target mesh.  ``collectives.payload_bytes`` counts the gathers it
+actually runs.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..obs.comm import record_collective
 from . import collectives
 from .mesh import AbstractMesh, NamedSharding, mark_sharded, sharding_of, shard_tensor
 from .multihost import process_index
@@ -207,9 +210,13 @@ def _local_ok(src_sh, target, shape) -> bool:
 
 def reshard(tree: Any, shardings: Any) -> Any:
     """Move a live tree into ``shardings`` (one for every leaf, or a tree of
-    them) on their mesh: the live path (module docstring).  Every rank of
-    the source and target meshes calls it; returns the new tree on the
-    target mesh's ranks, None elsewhere."""
+    them) on their mesh: the live path (module docstring), each moving
+    leaf's gather booked into the active comm audit.  Every rank of the
+    source and target meshes calls it; returns the new tree on the target
+    mesh's ranks, None elsewhere."""
+    for p in plan_reshard(tree, shardings):
+        record_collective("all_gather", p["axis"], payload_bytes=p["nbytes"],
+                          axis_size=p["gather_group"])
     unflatten = collectives.tree_flatten(tree)[1]
     pairs = _targets(tree, shardings)
     member = pairs[0][1].mesh.is_member if pairs else True
@@ -235,8 +242,15 @@ def reshard(tree: Any, shardings: Any) -> Any:
 def reshard_via_checkpoint(tree: Any, path: str, shardings: Any) -> Any:
     """The bounce path (module docstring): save ``tree`` on its mesh (every
     rank of it calls this), then restore it into ``shardings`` on the
-    target mesh's ranks; None elsewhere."""
+    target mesh's ranks; None elsewhere.  Books one broadcast of each leaf
+    over the target mesh's ranks (``(n - 1) / n`` of its bytes)."""
     from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    for leaf, target in _targets(tree, shardings):
+        n = target.mesh.size
+        if isinstance(leaf, torch.Tensor) and n > 1:
+            record_collective("broadcast", _axis_label(target),
+                              payload_bytes=_leaf_bytes(leaf), axis_size=n)
 
     save_checkpoint(path, tree)
     if dist.is_initialized():
@@ -345,7 +359,8 @@ def _plan_tree(params, target_plan, opt) -> tuple:
 def reshard_to_plan(params: Any, target_plan: Any, *, optimizer_state: Any = None):
     """Move a module's parameters (and its torch optimizer's state) into
     ``target_plan``'s placements (typically ``old_plan.with_mesh(new)``),
-    in place, by the live path.  Returns ``params`` (or ``(params,
+    in place, by the live path, each leaf's gather booked as
+    :func:`reshard` books it.  Returns ``params`` (or ``(params,
     optimizer_state)``)."""
     tree, targets = _plan_tree(params, target_plan, optimizer_state)
     new = reshard(tree, targets)

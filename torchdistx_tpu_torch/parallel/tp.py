@@ -48,6 +48,18 @@ The 8-bit AdamW's blockwise state does not slice along a parameter's
 rows; its parameters keep whole updates, as the JAX plan leaves that
 optimizer's flat code lists replicated.
 
+:class:`TPLayout` holds the local forwards and the gathered-at-use
+tensors of one model over one mesh; the train step installs it for a
+step, and ``serve.ServeEngine(mesh=, plan=)`` for each dispatch, on its own
+placed copy of the parameters (an inference forward needs no gradient, so
+there ``copy_psum_grad`` costs nothing and the row-parallel and vocabulary
+all-reduces and the head's all-gather are its collectives).
+
+The comm audit (``obs.comm``) sees what the JAX step books: nothing of the
+collectives XLA places, and with a ZeRO-2 plan the plan's closed form
+(``plan.price_step``) at each dispatch, so that a k-step audit is k times
+the plan's price.  The step's own collectives run muted.
+
 The batch is sharded by ``batch_spec``; the gradient of a parameter is then
 the mean over each batch axis its own spec does not name, and the loss the
 mean over the batch axes.  The loss is each rank's ``loss_fn`` on its
@@ -67,6 +79,7 @@ import torch
 from torch import nn
 
 from ..nn import functional as F
+from ..obs.comm import muted
 from ..trainer import TrainStep
 from . import collectives
 from .fsdp import _GatherShard, accumulate_grads, strided_split, swapped_parameters
@@ -80,6 +93,7 @@ __all__ = [
     "llama_tp_plan",
     "llama_tp_rule",
     "shard_params",
+    "TPLayout",
     "GSPMDTrainStep",
 ]
 
@@ -229,6 +243,163 @@ class _Param:
         return tuple(self.sharding.spec) + (None,) * (len(self.shape) - len(self.sharding.spec))
 
 
+class TPLayout:
+    """The Megatron local forwards of one model over one mesh (module
+    docstring), shared by :class:`GSPMDTrainStep` and the tensor-parallel
+    serving engine.
+
+    ``params``: ``{name: tensor}``, the rank's pieces, each marked with its
+    sharding (``parallel.mesh.sharding_of``; unmarked: replicated), by the
+    names of ``model.named_parameters()``; default the model's own
+    parameters.  ``groups``: the plan's ``tp_groups``.  ``batch_axes``:
+    axes the batch is sharded over; a parameter sharded over one of them
+    is gathered at use (the train step's FSDP dimension).  :meth:`use`
+    gives what the forward sees for a parameter, :meth:`installed` puts the
+    forwards and those tensors in the model for a region."""
+
+    def __init__(self, model: nn.Module, mesh: Mesh, *, params: Optional[dict] = None,
+                 groups: Sequence[TPGroup] = (), batch_axes: Sequence[str] = ()):
+        self.model, self.mesh = model, mesh
+        self.groups = tuple(groups)
+        self.batch_axes = tuple(batch_axes)
+        named = dict(model.named_parameters())
+        params = named if params is None else params
+        self._module_tensor = named
+        self.params = []
+        for name in named:
+            p = params[name]
+            found = sharding_of(p)
+            if found is None:
+                found = (NamedSharding(mesh, ()), tuple(p.shape))
+                mark_sharded(p, *found)
+            if found[0].mesh is not mesh:
+                raise ValueError(f"{name} is sharded over another mesh")
+            self.params.append(_Param(name, p, *found))
+        self._by_module_tensor = {id(named[q.name]): q for q in self.params}
+        self.forwards = self._local_forwards()
+
+    def _local_forwards(self) -> dict:
+        """``{module: forward}`` of the modules that compute on their local
+        pieces, marking each such parameter's kept (dim, axis)."""
+        from ..nn.layers import Embedding, Linear
+        from ..nn.moe import MoE
+
+        by_id = self._by_module_tensor
+        batch = set(self.batch_axes)
+
+        def info(mod, attr="weight"):
+            t = mod._parameters.get(attr)
+            return by_id.get(id(t)) if isinstance(t, torch.Tensor) else None
+
+        def col(mod):  # output features over one non-batch axis, bias alike
+            q = info(mod)
+            if not isinstance(mod, Linear) or q is None:
+                return None
+            ax = _single(q.spec()[0])
+            b = info(mod, "bias")
+            if ax is None or ax in batch or (b is not None and _single(b.spec()[0]) != ax):
+                return None
+            return ax
+
+        def row(mod):
+            q = info(mod)
+            if not isinstance(mod, Linear) or q is None:
+                return None
+            ax = _single(q.spec()[1])
+            b = info(mod, "bias")
+            if ax is None or ax in batch or (b is not None and _spec_axes(b.spec())):
+                return None
+            return ax
+
+        def keep(mod, dim, ax):
+            info(mod).keep = (dim, ax)
+            if dim == 0 and info(mod, "bias") is not None:
+                info(mod, "bias").keep = (0, ax)
+            return self.mesh.axes[ax]
+
+        # the plan's Megatron sub-layers: its input entered once, the
+        # column-parallel projections, then the row-parallel one
+        groups = self.groups
+        out = {}
+        for mod in self.model.modules():
+            for g in groups:
+                subs = [getattr(mod, n, None) for n in g.columns + g.rows]
+                if not all(isinstance(s, Linear) for s in subs) or any(s in out for s in subs):
+                    continue
+                cols, rows = subs[:len(g.columns)], subs[len(g.columns):]
+                axes = {col(s) for s in cols} | {row(s) for s in rows}
+                if len(axes) != 1 or None in axes:
+                    continue
+                (name,) = axes
+                if g.check is not None:
+                    g.check(mod, name, self.mesh.shape[name])
+                out[mod] = functools.partial(_entered, mod, ax=self.mesh.axes[name])
+                for s in cols:
+                    out[s] = functools.partial(_column, s, ax=keep(s, 0, name), alone=False)
+                for s in rows:
+                    out[s] = functools.partial(_row, s, ax=keep(s, 1, name), cut=False)
+        for mod in self.model.modules():
+            if mod in out:
+                continue
+            if isinstance(mod, Linear):
+                if col(mod):
+                    out[mod] = functools.partial(_column, mod, ax=keep(mod, 0, col(mod)),
+                                                 alone=True)
+                elif row(mod):
+                    out[mod] = functools.partial(_row, mod, ax=keep(mod, 1, row(mod)), cut=True)
+            elif isinstance(mod, Embedding) and info(mod) is not None:
+                ax = _single(info(mod).spec()[0])
+                if ax is not None and ax not in batch:
+                    out[mod] = functools.partial(_vocab, mod, ax=keep(mod, 0, ax))
+            elif isinstance(mod, MoE):  # it computes on expert shards itself
+                qs = [info(mod, n) for n in ("w_gate", "w_up", "w_down")]
+                axes = {_single(q.spec()[0]) if q is not None else None for q in qs}
+                if len(axes) == 1 and None not in axes and not axes & batch:
+                    (ax,) = axes
+                    for q in qs:
+                        q.keep = (0, ax)
+        return out
+
+    def use(self, q: _Param) -> torch.Tensor:
+        """What the forward sees for ``q``: gathered over every axis but the
+        kept one (marked with what stays sharded), or the parameter."""
+        t, kept = q.p, q.keep
+        for d, entry in enumerate(q.spec()):
+            names = entry if isinstance(entry, tuple) else (entry,) if entry else ()
+            for name in reversed(names):
+                if kept == (d, name):
+                    continue
+                ax = self.mesh.axes[name]
+                fn = _GatherShard if name in self.batch_axes else _GatherKeep
+                t = fn.apply(t, ax, d)
+        if t is not q.p and kept is not None:
+            spec = [None] * len(q.shape)
+            spec[kept[0]] = kept[1]
+            mark_sharded(t, NamedSharding(self.mesh, tuple(spec)), q.shape)
+        return t
+
+    @contextlib.contextmanager
+    def installed(self):
+        """The local forwards on their modules, and ``swap(q, tensor)``,
+        which puts ``tensor`` wherever the model holds ``q``'s parameter,
+        for the forward and the backward (remat recomputes under them).
+        Every parameter and forward goes back on exit."""
+        for mod, fwd in self.forwards.items():
+            mod.forward = fwd
+        try:
+            with swapped_parameters(self.model) as swap:
+                yield lambda q, t: swap(self._module_tensor[q.name], t)
+        finally:
+            for mod in self.forwards:
+                del mod.forward
+
+    def swap_all(self, swap) -> None:
+        """Every parameter's :meth:`use` into the model (``swap`` of
+        :meth:`installed`)."""
+        for q in self.params:
+            swap(q, self.use(q))
+
+
 class GSPMDTrainStep(TrainStep):
     """``step(model, optimizer, batch) -> (model, optimizer, loss)`` on
     parameters that keep their shardings from step to step (TP, 2-D TP x
@@ -273,17 +444,13 @@ class GSPMDTrainStep(TrainStep):
         self._warned: set = set()
         if plan is not None:
             plan.apply(model)
-        self._params = []
-        for name, p in model.named_parameters():
-            found = sharding_of(p)
-            if found is None:
-                found = (NamedSharding(mesh, ()), tuple(p.shape))
-                mark_sharded(p, *found)
-            if found[0].mesh is not mesh:
-                raise ValueError(f"{name} is sharded over another mesh")
-            self._params.append(_Param(name, p, *found))
-        self._forwards = self._local_forwards()
+        self._layout = TPLayout(model, mesh, groups=plan.tp_groups if plan is not None else (),
+                                batch_axes=self.batch_axes)
+        self._params = self._layout.params
         self._zero2 = self._zero2_slices() if plan is not None and plan.zero2 else {}
+        # the ZeRO-2 gather's closed form, booked at each dispatch
+        self._step_rows = (tuple(plan.price_step(model))
+                           if plan is not None and plan.zero2 else ())
 
     def with_mesh(self, mesh: Mesh) -> "GSPMDTrainStep":
         """This step's model, optimizer, loss and settings over ``mesh``
@@ -342,122 +509,6 @@ class GSPMDTrainStep(TrainStep):
             for q, (piece, _, sh) in self._zero2.items():
                 q.p.copy_(gather_full(piece, sh))
 
-    # -- the layout --------------------------------------------------------
-
-    def _local_forwards(self) -> dict:
-        """``{module: forward}`` of the modules that compute on their local
-        pieces, marking each such parameter's kept (dim, axis)."""
-        from ..nn.layers import Embedding, Linear
-        from ..nn.moe import MoE
-
-        by_id = {id(q.p): q for q in self._params}
-        batch = set(self.batch_axes)
-
-        def info(mod, attr="weight"):
-            t = getattr(mod, attr, None)
-            return by_id.get(id(t)) if isinstance(t, torch.Tensor) else None
-
-        def col(mod):  # output features over one non-batch axis, bias alike
-            q = info(mod)
-            if not isinstance(mod, Linear) or q is None:
-                return None
-            ax = _single(q.spec()[0])
-            b = info(mod, "bias")
-            if ax is None or ax in batch or (b is not None and _single(b.spec()[0]) != ax):
-                return None
-            return ax
-
-        def row(mod):
-            q = info(mod)
-            if not isinstance(mod, Linear) or q is None:
-                return None
-            ax = _single(q.spec()[1])
-            b = info(mod, "bias")
-            if ax is None or ax in batch or (b is not None and _spec_axes(b.spec())):
-                return None
-            return ax
-
-        def keep(mod, dim, ax):
-            info(mod).keep = (dim, ax)
-            if dim == 0 and info(mod, "bias") is not None:
-                info(mod, "bias").keep = (0, ax)
-            return self.mesh.axes[ax]
-
-        # the plan's Megatron sub-layers: its input entered once, the
-        # column-parallel projections, then the row-parallel one
-        groups = self.plan.tp_groups if self.plan is not None else ()
-        out = {}
-        for mod in self.model.modules():
-            for g in groups:
-                subs = [getattr(mod, n, None) for n in g.columns + g.rows]
-                if not all(isinstance(s, Linear) for s in subs) or any(s in out for s in subs):
-                    continue
-                cols, rows = subs[:len(g.columns)], subs[len(g.columns):]
-                axes = {col(s) for s in cols} | {row(s) for s in rows}
-                if len(axes) != 1 or None in axes:
-                    continue
-                (name,) = axes
-                if g.check is not None:
-                    g.check(mod, name, self.mesh.shape[name])
-                out[mod] = functools.partial(_entered, mod, ax=self.mesh.axes[name])
-                for s in cols:
-                    out[s] = functools.partial(_column, s, ax=keep(s, 0, name), alone=False)
-                for s in rows:
-                    out[s] = functools.partial(_row, s, ax=keep(s, 1, name), cut=False)
-        for mod in self.model.modules():
-            if mod in out:
-                continue
-            if isinstance(mod, Linear):
-                if col(mod):
-                    out[mod] = functools.partial(_column, mod, ax=keep(mod, 0, col(mod)),
-                                                 alone=True)
-                elif row(mod):
-                    out[mod] = functools.partial(_row, mod, ax=keep(mod, 1, row(mod)), cut=True)
-            elif isinstance(mod, Embedding) and info(mod) is not None:
-                ax = _single(info(mod).spec()[0])
-                if ax is not None and ax not in batch:
-                    out[mod] = functools.partial(_vocab, mod, ax=keep(mod, 0, ax))
-            elif isinstance(mod, MoE):  # it computes on expert shards itself
-                qs = [info(mod, n) for n in ("w_gate", "w_up", "w_down")]
-                axes = {_single(q.spec()[0]) if q is not None else None for q in qs}
-                if len(axes) == 1 and None not in axes and not axes & batch:
-                    (ax,) = axes
-                    for q in qs:
-                        q.keep = (0, ax)
-        return out
-
-    def _use(self, q: _Param) -> torch.Tensor:
-        """What the forward sees for ``q``: gathered over every axis but the
-        kept one (marked with what stays sharded), or the parameter."""
-        t, kept = q.p, q.keep
-        for d, entry in enumerate(q.spec()):
-            names = entry if isinstance(entry, tuple) else (entry,) if entry else ()
-            for name in reversed(names):
-                if kept == (d, name):
-                    continue
-                ax = self.mesh.axes[name]
-                fn = _GatherShard if name in self.batch_axes else _GatherKeep
-                t = fn.apply(t, ax, d)
-        if t is not q.p and kept is not None:
-            spec = [None] * len(q.shape)
-            spec[kept[0]] = kept[1]
-            mark_sharded(t, NamedSharding(self.mesh, tuple(spec)), q.shape)
-        return t
-
-    @contextlib.contextmanager
-    def _installed(self):
-        """The local forwards on their modules and ``swap`` of
-        ``swapped_parameters``, for the forward and the backward (remat
-        recomputes under them)."""
-        for mod, fwd in self._forwards.items():
-            mod.forward = fwd
-        try:
-            with swapped_parameters(self.model) as swap:
-                yield swap
-        finally:
-            for mod in self._forwards:
-                del mod.forward
-
     # -- the batch ---------------------------------------------------------
 
     def local_batch(self, batch: Any) -> Any:
@@ -489,14 +540,22 @@ class GSPMDTrainStep(TrainStep):
         return {q.name: gather_full(q.p, q.sharding) for q in self._params}
 
     def __call__(self, params, opt_state, batch):
+        from ..obs.comm import record_collective
+
+        for r in self._step_rows:
+            record_collective(r["kind"], r["axis"], payload_bytes=r["payload_bytes"],
+                              count=r["count"], axis_size=r["axis_size"])
+        with muted():
+            return self._step(params, opt_state, batch)
+
+    def _step(self, params, opt_state, batch):
         opt_state.zero_grad(set_to_none=True)
         local = self.local_batch(batch)
         trained = [q for q in self._params if q.p.requires_grad]
-        with self.mesh, self._installed() as swap:
+        with self.mesh, self._layout.installed() as swap:
 
             def loss_of(mb):
-                for q in self._params:
-                    swap(q.p, self._use(q))
+                self._layout.swap_all(swap)
                 return self.loss_fn(self.model, mb)
 
             loss, grads = accumulate_grads(loss_of, [q.p for q in trained], local,

@@ -55,6 +55,31 @@ entry is reported to ``obs.recompile``'s watchers under the current scope.
 The slab and the pools are updated in place: there are no buffers to
 donate, and a KV move into a persistent engine keeps the addresses its
 captured graph holds.
+
+**Tensor parallelism.**  ``mesh=`` (a ``parallel.Mesh`` with a
+``tp_axis``) and ``plan=`` (default ``parallel.tp.llama_tp_plan(mesh,
+tp_axis)``) serve Megatron-style over the mesh's ranks: every rank runs
+its own engine over the same requests, the parameters placed by the plan
+into the engine's own ``{name: piece}`` dict (the model's own parameters
+are left whole), and every dispatch runs with the plan's local forwards
+(``parallel.tp.TPLayout``) and those pieces in the model: column-parallel
+``wq`` / ``wk`` / ``wv`` and ``w_gate`` / ``w_up``, row-parallel ``wo`` and
+``w_down`` leaving through an all-reduce, the vocabulary-sharded embedding,
+and the head's logits all-gathered before the sampler, so every rank
+samples the same tokens from the same seeds and keeps the same host
+schedule.  Each rank's attention runs its ``n_heads / tp`` query and
+``n_kv_heads / tp`` KV heads through the flash and decode kernels, and the
+slab and the pools hold its ``n_kv_heads / tp`` heads (the plan's
+``kv_cache`` rule; int8 scales split alike).  The comm audit
+(``obs.comm``) gets the JAX engine's closed form at each dispatch: 2 * L
+all-reduces of ``n_tokens x dim`` activations (the row-parallel
+projections), the activation's own element size; the embedding's
+all-reduce and the head's gather, which the JAX engine leaves out, run
+muted, as do the row-parallel all-reduces themselves
+(``collectives.payload_bytes`` still counts every byte the transport
+carried).  On the card a persistent engine over a ``gloo`` group is
+refused: a CUDA graph cannot capture a ``gloo`` collective, and NCCL
+refuses two ranks on one card.
 """
 
 from __future__ import annotations
@@ -81,6 +106,7 @@ from ..generation import (
 )
 from ..obs import memory as obs_memory
 from ..obs.blackbox import resolve_record
+from ..obs.comm import muted, record_collective
 from ..obs.cost import (
     CostBook,
     begin_allocator_card,
@@ -95,6 +121,7 @@ from .kv_cache import (
     SlotKVCache,
     canonicalize_kv_dtype,
     dequantize_kv,
+    init_kv,
     paged_scatter_rows,
     paged_view,
     write_slot,
@@ -107,7 +134,7 @@ __all__ = ["ServeEngine"]
 
 #: the JAX engine's constructor arguments this port does not carry yet;
 #: passing any of them raises instead of being ignored
-_UNPORTED = ("params", "numerics", "mesh", "plan", "tp_rule", "tp_axis")
+_UNPORTED = ("numerics",)
 
 
 #: engine serials: a CUDA graph is keyed on the engine that captured it
@@ -226,10 +253,22 @@ class ServeEngine:
         batched call; 0 disables.  Greedy streams equal ``speculate=0``'s
         wherever the (B, K+1) verify rounds as the (B, 1) step does.
       spec_ngram: trailing-token match length of the draft lookup.
+      params: ``{name: tensor}`` served in place of the model's own
+        parameters (FSDP-materialized weights, say); with a mesh, placed by
+        the plan.
+      mesh: a ``parallel.Mesh`` to serve tensor-parallel over (module
+        docstring); every rank of it runs an engine over the same requests.
+        ``n_kv_heads`` must divide over ``tp_axis``.
+      plan: the :class:`~torchdistx_tpu_torch.parallel.plan.ShardingPlan`
+        that places the parameters and the KV pool (its ``kv_cache``
+        rule); default ``llama_tp_plan(mesh, tp_axis)``.  Requires a mesh.
+      tp_rule: deprecated: a bare ``sharding_rule(path, like)`` in place of
+        the plan (``DeprecationWarning``; ``plan`` stays None).
+      tp_axis: the mesh axis to tensor-shard over (default ``"tp"``).
       device: where the engine runs; defaults to the model's device (the
         model's own default is ``"cuda"``), and must equal it.
 
-    Every other argument of the JAX engine raises ``NotImplementedError``.
+    ``numerics`` raises ``NotImplementedError`` (not ported yet).
     """
 
     def __init__(
@@ -259,6 +298,11 @@ class ServeEngine:
         spec_ngram: int = 2,
         persistent_stream: bool = False,
         record: Any = None,
+        params: Optional[dict] = None,
+        mesh: Any = None,
+        plan: Any = None,
+        tp_rule: Any = None,
+        tp_axis: str = "tp",
         device=None,
         **unported,
     ):
@@ -308,7 +352,7 @@ class ServeEngine:
                 f"length {limit}"
             )
         self.model = model
-        self.tp = 1  # no mesh: every tensor is whole on the one device
+        self._setup_tp(model, params, mesh, plan, tp_rule, tp_axis, decode_mode)
         self._serial = next(_SERIALS)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
@@ -370,6 +414,7 @@ class ServeEngine:
             self.cache = PagedKVCache(
                 model, self.num_slots, self.max_len, self.page_size,
                 self.num_pages, kv_dtype=self.kv_dtype,
+                sharding=self._kv_sharding,
             )
         else:
             if num_pages is not None:
@@ -378,12 +423,8 @@ class ServeEngine:
             self.pool = None
             self.prefix_index = None
             self.cache = SlotKVCache(model, self.num_slots, self.max_len,
-                                     kv_dtype=self.kv_dtype)
-        # the JAX engine's reading of the KV head count: n_kv_heads, else
-        # n_heads (GPT-2: plain multi-head attention, group size 1)
-        cfg = model.cfg
-        self.kv_heads = getattr(cfg, "n_kv_heads", None) or getattr(cfg, "n_heads", None)
-        heads = self.cache.kv[0][0].shape[2]
+                                     kv_dtype=self.kv_dtype, sharding=self._kv_sharding)
+        heads = self.cache.kv[0][0].shape[2] * self.tp
         if self.kv_heads is not None and heads != self.kv_heads:
             raise ValueError(
                 f"the model's cache holds {heads} KV heads, its config "
@@ -476,6 +517,129 @@ class ServeEngine:
         rec = resolve_record(record)
         if rec is not None:
             self.attach_recorder(rec)
+
+    def _setup_tp(self, model, params, mesh, plan, tp_rule, tp_axis, decode_mode) -> None:
+        """The JAX engine's ``params`` / ``mesh`` / ``plan`` / ``tp_rule`` /
+        ``tp_axis`` (module docstring): the served parameters, the TP layout
+        and the KV cache's sharding."""
+        import warnings
+
+        import torch.distributed as dist
+
+        from ..parallel.mesh import NamedSharding
+        from ..parallel.plan import place_params
+        from ..parallel.tp import LLAMA_TP_GROUPS, TPLayout, llama_tp_plan
+
+        cfg = model.cfg
+        # the JAX engine's reading of the KV head count: n_kv_heads, else
+        # n_heads (GPT-2: plain multi-head attention, group size 1)
+        self.kv_heads = getattr(cfg, "n_kv_heads", None) or getattr(cfg, "n_heads", None)
+        self.mesh = mesh
+        self.tp_axis = str(tp_axis)
+        self._kv_sharding = None
+        self._layout = None
+        named = dict(model.named_parameters())
+        if params is not None and set(params) != set(named):
+            raise ValueError(
+                f"params must name the model's parameters: missing "
+                f"{sorted(set(named) - set(params))[:4]}, unknown "
+                f"{sorted(set(params) - set(named))[:4]}")
+        self._own_params = params is not None or mesh is not None
+        # the closed form's block geometry; a model that hides it serves
+        # unaudited, as in the JAX engine
+        layers = getattr(cfg, "n_layers", None) or getattr(cfg, "n_layer", None)
+        dim = getattr(cfg, "dim", None) or getattr(cfg, "n_embd", None)
+        self._tp_geom = (int(layers), int(dim)) if layers and dim else None
+        self._act_itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        if mesh is None:
+            if tp_rule is not None:
+                raise ValueError("tp_rule requires mesh=")
+            if plan is not None:
+                raise ValueError("plan requires mesh=")
+            self.tp = 1  # no mesh: every tensor is whole on the one device
+            self.plan = None
+            self.params = dict(params) if params is not None else named
+            return
+        if self.tp_axis not in mesh.axis_names:
+            raise ValueError(
+                f"mesh has no '{self.tp_axis}' axis (axes: "
+                f"{tuple(mesh.axis_names)}) — pass tp_axis=")
+        self.tp = int(mesh.shape[self.tp_axis])
+        if plan is not None and tp_rule is not None:
+            raise ValueError("pass plan= or tp_rule=, not both")
+        if tp_rule is not None:
+            # a bare rule places parameters but cannot validate or price
+            warnings.warn(
+                "ServeEngine(tp_rule=) is deprecated: pass the declarative plan "
+                "instead — ServeEngine(plan=llama_tp_plan(mesh, tp_axis)) or any "
+                "ShardingPlan (parallel/plan.py)", DeprecationWarning, stacklevel=3)
+            rule, groups = tp_rule, LLAMA_TP_GROUPS
+        else:
+            if plan is None:
+                plan = llama_tp_plan(mesh, self.tp_axis)
+            if plan.mesh is not mesh:
+                raise ValueError("plan.mesh is not the engine's mesh — build the plan "
+                                 "on the serving mesh (plan.with_mesh)")
+            rule, groups = plan.as_rule(), plan.tp_groups
+        self.plan = plan
+        if self.kv_heads is None:
+            raise ValueError(
+                "cannot head-shard the KV cache: the model's config exposes no KV "
+                "head count (n_kv_heads / n_heads) — pass mesh=None to serve it whole")
+        if self.kv_heads % self.tp:
+            raise ValueError(
+                f"KV cache head axis (n_kv_heads={self.kv_heads}) does not divide over "
+                f"the '{self.tp_axis}' mesh axis ({self.tp} ranks): {self.kv_heads} % "
+                f"{self.tp} != 0.  Pick a tp degree that divides n_kv_heads")
+        spec = (plan.maybe_spec_for("kv_cache", (0, 0, self.kv_heads, 0))
+                if plan is not None else None)
+        self._kv_sharding = NamedSharding(mesh, spec if spec is not None
+                                          else (None, None, self.tp_axis, None))
+        if (self.tp > 1 and decode_mode == "persistent" and model.device.type == "cuda"
+                and dist.get_backend(mesh.axes[self.tp_axis].group) == "gloo"):
+            raise RuntimeError(
+                "decode_mode='persistent' with tensor parallelism over a gloo group "
+                "cannot run on the card: the persistent loop is one CUDA graph, and a "
+                "CUDA graph cannot capture a gloo collective.  Serve it with "
+                "decode_mode='chunked', or with the ranks on distinct cards over an "
+                "NCCL group (NCCL refuses two ranks on one card)")
+        self.params = place_params(dict(params if params is not None else named), rule)
+        self._layout = TPLayout(model, mesh, params=self.params, groups=groups)
+
+    @contextlib.contextmanager
+    def _model_region(self):
+        """The model as one dispatch runs it: with a mesh the plan's local
+        forwards and this engine's pieces, the collectives muted (the
+        dispatch books the JAX engine's closed form); with ``params=``
+        those parameters; else the model as it is."""
+        if self._layout is not None:
+            with self.mesh, muted(), self._layout.installed() as swap:
+                self._layout.swap_all(swap)
+                yield
+        elif self._own_params:
+            from ..parallel.fsdp import swapped_parameters
+
+            named = dict(self.model.named_parameters())
+            with swapped_parameters(self.model) as swap:
+                for name, t in self.params.items():
+                    swap(named[name], t)
+                yield
+        else:
+            yield
+
+    def _record_tp_collectives(self, n_tokens: int, steps: int = 1) -> None:
+        """The JAX engine's closed form at dispatch: one all-reduce of the
+        ``(n_tokens, dim)`` activation per row-parallel projection (``wo``
+        and ``w_down``, 2 a block) per step, at the activation's element
+        size.  The head's gather and the embedding's all-reduce are left
+        out, as the JAX engine leaves them (module docstring).  Nothing
+        without a mesh, at tp 1, or for a model hiding its geometry."""
+        if self.tp <= 1 or self._tp_geom is None:
+            return
+        n_layers, dim = self._tp_geom
+        record_collective("all_reduce", self.tp_axis,
+                          payload_bytes=int(n_tokens) * dim * self._act_itemsize,
+                          count=2 * n_layers * int(steps), axis_size=self.tp)
 
     def _new_metrics(self, err_max, err_rms) -> ServeMetrics:
         kv_rows = (self.num_pages * self.page_size if self.paged
@@ -691,7 +855,8 @@ class ServeEngine:
             "spec_ngram": self.spec_ngram,
             "prefix_cache": self._prefix_cache_flag,
             "tp": self.tp,
-            "plan": None,  # no mesh, no sharding plan
+            "plan": (None if self.plan is None
+                     else getattr(self.plan, "name", type(self.plan).__name__)),
         }
 
     def _record_tick(self, kind: str) -> None:
@@ -806,9 +971,11 @@ class ServeEngine:
         valid.  Validation happens before any state moves (a failed
         migration leaves both engines untouched).  Every KV write into the
         target is in place, so a persistent target's captured graph stays
-        valid.  Returns the JAX engine's summary dict; without a mesh the
-        gather group of every move is 1, so ``wire_bytes`` and
-        ``collectives`` come out 0 from the same closed form."""
+        valid.  Returns the JAX engine's summary dict.  Between engines
+        whose KV heads split differently (``tp`` 2 -> 1) the rows are
+        gathered over ``tp_axis`` and booked as ``all_gather``s of group
+        ``g`` (``_kv_migration_group``); an equal split (or no mesh) is
+        ``g = 1``: no wire, nothing booked."""
         if target is self:
             raise ValueError("cannot migrate an engine into itself")
         if target._draining:
@@ -984,8 +1151,8 @@ class ServeEngine:
     def _kv_migration_group(src: torch.Tensor, dst: torch.Tensor) -> int:
         """Ring gather group for moving one slot row / page chain between
         two KV arrays (the JAX engine's formula over the placements' split
-        counts; dim 0, the slot / page index, is never split).  Every
-        cache tensor of the port is whole on its device, so this is 1."""
+        counts; dim 0, the slot / page index, is never split): 2 from a
+        tp=2 cache into a whole one, 1 between equal splits."""
         src_c = _split_counts(src)[1:]
         tgt_c = _split_counts(dst)[1:]
         n_src = int(np.prod(src_c)) if src_c else 1
@@ -996,13 +1163,41 @@ class ServeEngine:
 
     def _wire(self, src: torch.Tensor, dst: torch.Tensor, n: int):
         """The closed-form wire bytes and collectives of moving ``n`` units
-        (slot rows or pages) of ``src`` into ``dst``: a ring all-gather of
-        group ``g`` moves ``unit * (g - 1) / g`` per unit, none at g = 1."""
+        (slot rows or pages) of ``src`` into ``dst``, booked into the comm
+        audit: a ring all-gather of group ``g`` moves ``unit * (g - 1) /
+        g`` per unit (``unit``: one whole row or page, every rank's heads,
+        at the array's own element size), none at g = 1."""
+        from ..parallel.mesh import sharding_of
+
         g = self._kv_migration_group(src, dst)
-        unit = int(np.prod(src.shape[1:])) * src.element_size()
+        found = sharding_of(src)
+        unit = int(np.prod((found[1] if found else src.shape)[1:])) * src.element_size()
         if g > 1 and n:
+            record_collective("all_gather", self.tp_axis, payload_bytes=unit, count=n,
+                              axis_size=g)
             return (unit * (g - 1) // g) * n, 1
         return 0, 0
+
+    @staticmethod
+    def _relayout(rows: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        """Rows taken from ``src`` (its dim 0 selected) laid out as ``dst``
+        holds them: gathered over the axes that split ``src``'s other
+        dims, then cut to ``dst``'s piece (every rank of the mesh takes
+        part in the gather)."""
+        from ..parallel.mesh import sharding_of
+        from ..parallel.plan import equivalent, gather_full
+
+        s_found, d_found = sharding_of(src), sharding_of(dst)
+        if s_found is None and d_found is None:
+            return rows
+        if s_found and d_found and equivalent(s_found[0], d_found[0], rows.ndim):
+            return rows
+        if s_found is not None:
+            rows = gather_full(rows, s_found[0])
+        if d_found is not None:
+            shape = (rows.shape[0],) + tuple(d_found[1][1:])
+            rows = rows[d_found[0].shard_slices(shape)]
+        return rows
 
     def _copy_kv_slot(self, target, s_a: int, s_b: int):
         """Copy slab slot ``s_a``'s rows into ``target`` slot ``s_b``, in
@@ -1015,7 +1210,7 @@ class ServeEngine:
                 w, c = self._wire(src, dst, 1)
                 wire += w
                 n_coll += c
-                dst[s_b].copy_(src[s_a])
+                dst[s_b].copy_(self._relayout(src[s_a:s_a + 1], src, dst)[0])
         return wire, n_coll
 
     def _copy_kv_pages(self, target, pages_a: List[int], pages_b: List[int]):
@@ -1031,7 +1226,8 @@ class ServeEngine:
                 w, c = self._wire(src, dst, len(pages_a))
                 wire += w
                 n_coll += c
-                dst.index_copy_(0, idx_b, src.index_select(0, idx_a).to(dst.device))
+                rows = self._relayout(src.index_select(0, idx_a), src, dst)
+                dst.index_copy_(0, idx_b, rows.to(dst.device))
         return wire, n_coll
 
     def finished_requests(self) -> List[Request]:
@@ -1120,7 +1316,8 @@ class ServeEngine:
         new = self._note_program(key)
         card = self._card_begin(name)
         t0 = time.perf_counter()
-        with timed_annotation(region, sink) as timing, self._watch(name):
+        with timed_annotation(region, sink) as timing, self._watch(name), \
+                self._model_region():
             yield timing
             if new:
                 note_compile(time.perf_counter() - t0)
@@ -1176,8 +1373,7 @@ class ServeEngine:
         computed once, then cached."""
         if self._static_footprint is None:
             self._static_footprint = {
-                "weights": obs_memory.tree_device_bytes(
-                    dict(self.model.named_parameters())),
+                "weights": obs_memory.tree_device_bytes(self.params),
                 "kv_cache": obs_memory.tree_device_bytes(
                     [e[:2] for e in self.cache.kv]),
             }
@@ -1278,7 +1474,7 @@ class ServeEngine:
             table_row = torch.as_tensor(self.cache.page_tables[slot, :n_pages],
                                         device=self.device)
         if pfx == 0:
-            view = model.init_cache(1, bucket)
+            view = init_kv(model, 1, bucket, self._kv_sharding)
         elif self.paged:
             view = [(k.to(dt), v.to(dt))
                     for k, v in paged_view(self.cache.kv, table_row, self.page_size)]
@@ -1326,6 +1522,7 @@ class ServeEngine:
             if final and not self._persistent:
                 tok = int(tok[0].item())  # host sync: the first token exists
         self.metrics.count("tokens_prefilled", bucket)
+        self._record_tp_collectives(bucket)
         return tok
 
     def _dispatch_prefill(self, req: Request, slot: int):
@@ -1502,6 +1699,7 @@ class ServeEngine:
         self.metrics.count("host_syncs")
         self.metrics.count("decode_dispatches")
         self.metrics.count("decode_steps", k_steps)
+        self._record_tp_collectives(self.num_slots * (self.speculate + 1), k_steps)
         now = time.monotonic()
         emitted = 0
         for req in running:
@@ -1593,6 +1791,7 @@ class ServeEngine:
         self.metrics.count("decode_dispatches")
         self.metrics.count("decode_steps", n_it)
         self.metrics.count("loop_iterations", n_it)
+        self._record_tp_collectives(self.num_slots * (self.speculate + 1), n_it)
         self.metrics.observe_ring(n_it)
         now = time.monotonic()
         # the streamed tail: iteration 0's stamp is when the wave's first

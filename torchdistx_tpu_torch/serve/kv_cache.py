@@ -20,6 +20,14 @@ The scales are powers of two (``2^ceil(log2(amax / 127))`` through
 values bit for bit -- what keeps untouched prefix rows stable across the
 dequantize -> forward -> requantize trip of a paged prefill.
 
+Tensor-parallel serving splits every cache tensor over the KV heads
+(``sharding=``, a ``parallel.mesh.NamedSharding`` whose spec cuts dim 2,
+the ``kv_cache`` rule of ``parallel.tp.llama_tp_plan``): a rank holds
+``Hkv / tp`` heads of the data and of the int8 scales alike, each tensor
+marked with its sharding and its whole shape (``parallel.mesh.
+sharding_of``).  ``nbytes`` counts the whole cache, as the JAX package's
+does; a rank holds ``nbytes / tp``.
+
 Admitting or retiring a request changes only host bookkeeping (positions,
 a table row, an active bit), never a device shape.  The JAX package writes
 with functional updates inside programs that donate the cache; here every
@@ -46,6 +54,7 @@ import torch
 from .prefix_cache import SCRATCH_PAGE
 
 __all__ = [
+    "init_kv",
     "SlotKVCache",
     "PagedKVCache",
     "write_slot",
@@ -87,6 +96,43 @@ def canonicalize_kv_dtype(kv_dtype: Any) -> Optional[str]:
             f"(model default), got {kv_dtype!r}"
         )
     return name
+
+
+def init_kv(model: Any, lead: int, rows: int, sharding: Any = None) -> List[tuple]:
+    """Per-layer zero ``(k, v)`` of ``(lead, rows, Hkv, D)`` in the model's
+    dtype (``model.init_cache``), or with ``sharding`` this rank's piece of
+    each, marked: the head-split cache of tensor-parallel serving."""
+    if sharding is None:
+        return model.init_cache(lead, rows)
+    from ..parallel.mesh import mark_sharded
+
+    cfg = model.cfg
+    heads = getattr(cfg, "n_kv_heads", None) or cfg.n_heads
+    shape = (lead, rows, heads, cfg.dim // cfg.n_heads)
+    local = torch.empty(shape, device="meta")[sharding.shard_slices(shape)].shape
+    n_layers = getattr(cfg, "n_layers", None) or cfg.n_layer
+    return [tuple(mark_sharded(torch.zeros(local, dtype=cfg.dtype, device=model.device),
+                               sharding, shape) for _ in range(2))
+            for _ in range(n_layers)]
+
+
+def _whole_bytes(t: torch.Tensor) -> int:
+    from ..parallel.mesh import sharding_of
+
+    found = sharding_of(t)
+    return (int(np.prod(found[1])) if found else t.numel()) * t.element_size()
+
+
+def _mark_like(entry: tuple, sharding: Any) -> tuple:
+    """Mark each tensor of a layer's entry as its rank's piece under
+    ``sharding`` (the whole shape: the local one times the split counts)."""
+    from ..parallel.mesh import mark_sharded
+    from ..parallel.reshard import split_counts
+
+    for t in entry:
+        counts = split_counts(t.shape, sharding)
+        mark_sharded(t, sharding, tuple(n * c for n, c in zip(t.shape, counts)))
+    return entry
 
 
 def quantize_kv(x: torch.Tensor):
@@ -312,40 +358,46 @@ class _HostBookkeeping:
 
     @property
     def nbytes(self) -> int:
-        return sum(a.numel() * a.element_size() for entry in self.kv for a in entry)
+        """Bytes of the whole cache (every rank's heads)."""
+        return sum(_whole_bytes(a) for entry in self.kv for a in entry)
 
     @property
     def kv_data_nbytes(self) -> int:
         """Bytes of the K/V data tensors alone (scales excluded) -- the
         quantity that halves exactly under ``kv_dtype="int8"``."""
-        return sum(a.numel() * a.element_size() for entry in self.kv for a in entry[:2])
+        return sum(_whole_bytes(a) for entry in self.kv for a in entry[:2])
 
     @property
     def kv_scale_nbytes(self) -> int:
         """Bytes of the f32 scale tensors (0 for unquantized caches)."""
-        return sum(a.numel() * a.element_size() for entry in self.kv for a in entry[2:])
+        return sum(_whole_bytes(a) for entry in self.kv for a in entry[2:])
 
-    def _apply_kv_dtype(self, base: Any, kv_dtype: Any) -> List[tuple]:
+    def _apply_kv_dtype(self, base: Any, kv_dtype: Any, sharding: Any = None) -> List[tuple]:
         """Canonicalize and record ``kv_dtype`` and turn the freshly
-        initialized model-dtype pairs into the stored representation."""
+        initialized model-dtype pairs into the stored representation
+        (each tensor marked with ``sharding``, if any)."""
         self.kv_dtype = canonicalize_kv_dtype(kv_dtype)
         self.quantized = self.kv_dtype == "int8"
         if self.quantized:
-            return quantize_cache(base)
-        if self.kv_dtype is not None:
+            out = quantize_cache(base)
+        elif self.kv_dtype is not None:
             dt = _KV_DTYPES[self.kv_dtype]
-            return [(k.to(dt), v.to(dt)) for k, v in base]
-        return list(base)
+            out = [(k.to(dt), v.to(dt)) for k, v in base]
+        else:
+            out = list(base)
+        if sharding is not None:
+            out = [_mark_like(e, sharding) for e in out]
+        return out
 
 
 class SlotKVCache(_HostBookkeeping):
     """Host bookkeeping around the contiguous per-slot device cache."""
 
     def __init__(self, model: Any, num_slots: int, max_len: int,
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None, sharding: Any = None):
         self._init_host(num_slots, max_len)
         self.kv = self._apply_kv_dtype(
-            model.init_cache(self.num_slots, self.max_len), kv_dtype
+            init_kv(model, self.num_slots, self.max_len, sharding), kv_dtype, sharding
         )
         self.device: torch.device = self.kv[0][0].device
 
@@ -358,7 +410,7 @@ class PagedKVCache(_HostBookkeeping):
 
     def __init__(self, model: Any, num_slots: int, max_len: int,
                  page_size: int, num_pages: int,
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None, sharding: Any = None):
         self._init_host(num_slots, max_len)
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -376,7 +428,7 @@ class PagedKVCache(_HostBookkeeping):
         self.num_pages = int(num_pages)
         self.pages_per_slot = self.max_len // self.page_size
         self.kv = self._apply_kv_dtype(
-            model.init_cache(self.num_pages, self.page_size), kv_dtype
+            init_kv(model, self.num_pages, self.page_size, sharding), kv_dtype, sharding
         )
         self.device: torch.device = self.kv[0][0].device
         self.page_tables = np.full(

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from .obs.blackbox import resolve_record
+from .obs.comm import CommProfile, comm_audit
 from .obs.flight import get_flight_recorder
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.failure import StepFailure, apply_failure_policy
@@ -181,6 +182,10 @@ class Trainer:
         self._t_reshard = 0.0  # seconds spent moving state onto a shrunk mesh
         self.last_reshard: Optional[dict] = None
         self.departed = False  # this rank was lost and has left the mesh
+        # every step runs under this comm audit (obs.comm): the sharded
+        # steps book one execution of their program, a ZeRO-2 step its
+        # closed form at each dispatch, and a reshard its migration
+        self.comm_profile = CommProfile()
         self.metrics: dict = {
             "steps_total": 0,
             "tokens_total": 0,
@@ -306,8 +311,10 @@ class Trainer:
         (``reshard_wire_bytes``; the bounce's restore reads from the
         checkpoint and moves none), the bytes the move handed to
         collectives and the seconds; the flight recorder gets
-        ``reshard_start`` / ``reshard_done``.  Booking them into a comm
-        audit waits for ``obs/comm``.  Returns the mode."""
+        ``reshard_start`` / ``reshard_done`` (the latter with the wire bytes
+        the migration booked).  The migration's collectives are booked into
+        ``comm_profile`` (``parallel.reshard``'s closed forms).  Returns
+        the mode."""
         from .parallel import collectives
         from .parallel.reshard import (can_reshard_live, optimizer_state_tree, reshard,
                                        reshard_via_checkpoint, reshard_wire_bytes,
@@ -320,7 +327,7 @@ class Trainer:
             raise StepFailure(kind, f"{failure} (and the step carries no mesh to reshard)")
         if getattr(step, "_zero2", None):
             raise NotImplementedError("resharding a ZeRO-2 step is not ported yet "
-                                      "(ROADMAP A.4.6)")
+                                      "(ROADMAP A.6)")
         if mesh is None:
             mesh = self._shrunk_mesh(old_mesh, getattr(failure, "n_lost", None) or 1)
         t0 = time.perf_counter()
@@ -333,11 +340,13 @@ class Trainer:
         targets = state_targets(tree, step.placement_on(mesh))
         live = can_reshard_live(tree, mesh)
         wire = reshard_wire_bytes(tree, targets) if live else 0
-        if live:
-            new = reshard(tree, targets)
-        else:
-            path = os.path.join(self.checkpoint_dir or ".", f"reshard_{self.global_step}")
-            new = reshard_via_checkpoint(tree, path, targets)
+        migration = CommProfile()
+        with comm_audit(self.comm_profile), comm_audit(migration):
+            if live:
+                new = reshard(tree, targets)
+            else:
+                path = os.path.join(self.checkpoint_dir or ".", f"reshard_{self.global_step}")
+                new = reshard_via_checkpoint(tree, path, targets)
         if mesh.is_member:
             write_back(model, opt, new)
             self.step = step.with_mesh(mesh)
@@ -353,7 +362,8 @@ class Trainer:
             "seconds": dt, "departed": self.departed}
         self.flight.record("reshard_done", step=self.global_step,
                            mesh_from=dict(old_mesh.shape), mesh_to=dict(mesh.shape),
-                           mode=mode, wire_bytes=int(wire), seconds=round(dt, 3))
+                           mode=mode, wire_bytes=int(round(migration.wire_bytes())),
+                           seconds=round(dt, 3))
         return mode
 
     def _update_derived_metrics(self) -> None:
@@ -450,7 +460,7 @@ class Trainer:
                                      rng_counter=_rng_counter(),
                                      batch=self._last_batch_digest)
             card = self._begin_card() if warmup_pending else None
-            with self._watch("trainer/step"):
+            with self._watch("trainer/step"), comm_audit(self.comm_profile):
                 self.params, self.opt_state, loss = self.step(
                     self.params, self.opt_state, batch)
             self.global_step += 1
@@ -463,7 +473,8 @@ class Trainer:
                     _sync(loss)
                 self._finish_card(card)
                 self.flight.record("warmup", step=self.global_step,
-                                   seconds=round(time.perf_counter() - t_warm0, 3))
+                                   seconds=round(time.perf_counter() - t_warm0, 3),
+                                   comm=self.comm_profile.digest())
                 t_window = time.perf_counter()
                 window_steps = 0
                 warmup_pending = False
@@ -513,6 +524,7 @@ class Trainer:
                 self.flight.record("step", step=self.global_step, loss=last_loss,
                                    steps_per_sec=round(window_steps / dt, 3),
                                    window_s=round(dt, 4), rng_counter=_rng_counter(),
+                                   comm=self.comm_profile.digest(),
                                    last_checkpoint=self._last_checkpoint,
                                    batch=self._last_batch_digest)
                 self.log_fn(out)

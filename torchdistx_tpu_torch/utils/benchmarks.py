@@ -26,11 +26,11 @@ zero2=True, min_shard_elems=1)`` on ``{"dp": world}`` (every rank of the
 process group; a ``ValueError`` below two), the batch replicated, through
 ``GSPMDTrainStep``: parameters replicated, each rank updating its ``dp``
 slice with its slice of the optimizer state.  The dict then also holds
-``plan``, ``zero2_dp``, ``zero2_participating_bytes`` and
-``optimizer_bytes()``, which returns ``(bytes of the whole state, bytes
-this rank holds)`` once a step has made the state.  The JAX dict's
-``zero2_step_wire_bytes`` needs ``obs/comm`` (ROADMAP A.7).  The numerics
-taps are not ported yet and raise.
+``plan``, ``zero2_dp``, ``zero2_participating_bytes``,
+``zero2_step_wire_bytes`` (``plan.step_wire_bytes``: the closed form a
+step books into the comm audit) and ``optimizer_bytes()``, which returns
+``(bytes of the whole state, bytes this rank holds)`` once a step has made
+the state.  The numerics taps are not ported yet and raise.
 
 The T5 workload is the JAX script's step: ``deferred_init`` of
 ``T5.from_name(name, use_flash=True)``, ``materialize_module``,
@@ -149,7 +149,8 @@ def _zero2_arm(model):
     mesh = create_mesh({"dp": world})
     plan = ShardingPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
     extra = {"plan": f"zero2(dp={world})", "zero2_dp": world,
-             "zero2_participating_bytes": plan.zero2_participating_bytes(model)}
+             "zero2_participating_bytes": plan.zero2_participating_bytes(model),
+             "zero2_step_wire_bytes": plan.step_wire_bytes(model)}
 
     def make_step(opt, loss_fn):
         return (GSPMDTrainStep(model, opt, loss_fn, mesh, plan=plan),
