@@ -350,8 +350,25 @@ Phases, each fatal:
    materialized bias and with the bucket table, one flash launch an
    encoder layer, the first decode step's logits against the f32 plain
    model (the 2x rule); (e) phase 26's llama_1b through ``Trainer.fit``,
-   3 steps with ``flight``, ``record``, ``stall_timeout_s`` and
-   ``cost_card`` on, then off: the losses equal.
+   3 steps with ``flight``, ``record``, ``stall_timeout_s``,
+   ``cost_card`` and numerics on, then off, then numerics alone: the
+   losses equal, the two numerics books of the JAX step's site families
+   (``params``, ``act``, ``loss``, ``grads``) with equal integer fields;
+   a step, a parameter set to NaN, a step: the failure's flight record
+   names its ``params/`` site;
+31. in phase 3's process, after (d), on its llama3_8b: the numerics
+   observatory (``ServeEngine(numerics=True)``) over phase 3's requests,
+   chunked one step a dispatch and persistent on the slab (against phase
+   3's runs) and persistent paged int8 (against a run without it): the
+   same streams, ``host_syncs``, ``decode_dispatches``, ``decode_steps``
+   and ``prefill_calls`` equal, every book's partition identity, no
+   nonfinite value, ``logits.count`` equal to its closed form
+   (:func:`logits_count`), the int8 error within half a scale and no
+   anomaly; the persistent run twice, both records turned into
+   ``tdx-ledger-v1`` rows (each valid) and the second gated against the
+   first's expectations (``ok``); decode device ms a step with numerics on
+   against off (``torch.profiler``, in this call).  One ``(31) numerics``
+   line a mode; the runs' launches count in the kernels line.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
 dQ variant and per decode variant, phase 7 one per fused CE kernel and
@@ -510,7 +527,7 @@ T5_TRAIN_LAYERS = 4
 SERVE_COUNTERS = ("prefill_calls", "decode_steps", "tokens_prefilled", "tokens_decoded",
                   "prefix_hit_tokens", "pages_evicted", "draft_tokens_proposed",
                   "draft_tokens_accepted", "host_syncs", "ring_drains",
-                  "ring_full_drains", "loop_iterations")
+                  "ring_full_drains", "loop_iterations", "decode_dispatches")
 # the main serve run's decode modes, run in turns on one model: the
 # chunked engine one step a dispatch, the persistent loop (one CUDA graph
 # of an iteration, replayed) (two more turns, persistent and chunked-1
@@ -6357,25 +6374,35 @@ def blackbox_part(torch, model, c_report, record_dir, streamed):
 
 
 def trainer_phase(torch, seed, record_dir):
-    """(e) phase 26's llama_1b through ``Trainer.fit`` twice from the same
-    seed and batch: with ``flight``, ``record``, ``stall_timeout_s`` and
-    ``cost_card`` all on, then all off.  The losses must be equal; the
-    session file valid, one ``train_step`` a step."""
+    """(e) phase 26's llama_1b through ``Trainer.fit`` from the same seed
+    and batch: with ``flight``, ``record``, ``stall_timeout_s``,
+    ``cost_card`` and the numerics observatory all on, then all off, then
+    with numerics alone (phase 31's training half).  The losses must be
+    equal; the session file valid, one ``train_step`` a step; the two
+    numerics books hold the JAX step's site families with equal integer
+    fields.  Then a step, :data:`NUMERICS_POISON` set to NaN and one more
+    step under a failure detector: the failure's flight record must name
+    that parameter's ``params/`` site."""
     import itertools
 
     from torchdistx_tpu_torch.obs.blackbox import load_session, validate_session_jsonl
     from torchdistx_tpu_torch.obs.flight import FlightRecorder
     from torchdistx_tpu_torch.trainer import Trainer
     from torchdistx_tpu_torch.utils.benchmarks import build_train_workload
+    from torchdistx_tpu_torch.utils.failure import FailureDetector
 
-    failures, out = [], {}
+    failures, out, books = [], {}, {}
     path = os.path.join(record_dir, "train.jsonl")
-    for on in (True, False):
-        w = build_train_workload("llama_1b", batch=2, seq=2048, n_layers=CKPT_LAYERS,
-                                 optimizer="adamw_8bit", fused_ce=True, device="cuda",
-                                 seed=seed)
+
+    def workload(numerics):
+        return build_train_workload("llama_1b", batch=2, seq=2048, n_layers=CKPT_LAYERS,
+                                    optimizer="adamw_8bit", fused_ce=True, device="cuda",
+                                    seed=seed, numerics=numerics)
+
+    for run in ("on", "off", "numerics"):
+        w = workload(run != "off")
         kw = (dict(flight=FlightRecorder(), record=path, stall_timeout_s=TRAINER_STALL_S,
-                   cost_card=True) if on else dict(flight=False))
+                   cost_card=True) if run == "on" else dict(flight=False))
         tr = Trainer(w["step"], log_every=1, log_fn=lambda m: None,
                      tokens_per_batch=w["tokens_per_batch"],
                      flops_per_token=w["flops_per_token"], **kw)
@@ -6383,21 +6410,52 @@ def trainer_phase(torch, seed, record_dir):
         t0 = time.perf_counter()
         tr.fit(itertools.repeat(w["batch"]), TRAINER_STEPS)
         torch.cuda.synchronize()
-        run = {"losses": [float(x) for x in w["step"].losses], "wall_s": time.perf_counter() - t0}
-        if on:
+        res = {"losses": [float(x) for x in w["step"].losses],
+               "wall_s": time.perf_counter() - t0}
+        if run == "on":
             tr.recorder.close()
             card = tr.cost_card
-            run.update(cost_card=None if card is None else card.to_json(),
+            res.update(cost_card=None if card is None else card.to_json(),
                        stalls=tr.watchdog.stalls_total,
                        flight_records=tr.flight.recorded_total,
                        session_errors=validate_session_jsonl(path),
                        train_steps_recorded=sum(1 for e in load_session(path)[0]
                                                 if e.get("kind") == "train_step"))
-        out["on" if on else "off"] = run
+        if run != "off":
+            books[run] = tr.numerics_book
+            res.update(numerics_sites=len(tr.numerics_book.sites()),
+                       numerics_harvests=tr.numerics_book.harvests,
+                       numerics_harvest_errors=tr.numerics_harvest_errors)
+        out[run] = res
         del w, tr
         torch.cuda.empty_cache()
     on, off = out["on"], out["off"]
-    out["losses_equal"] = on["losses"] == off["losses"]
+    out["losses_equal"] = on["losses"] == off["losses"] == out["numerics"]["losses"]
+    a, b = books["on"], books["numerics"]
+    families = sorted({s.split("/")[0] for s in a.sites()})
+    out["numerics_families"] = families
+    out["numerics_int_fields_equal"] = a.sites() == b.sites() and all(
+        a.digest(s) == b.digest(s) and a.digest(s).hist_hash == b.digest(s).hist_hash
+        for s in a.sites())
+    out["numerics_first_nonfinite"] = a.first_nonfinite_site()
+    # the poisoned run: a clean warm-up step, then the parameter set to NaN;
+    # the detector fails the next step at its log boundary, before the NaN
+    # has reached any other parameter
+    w = workload(True)
+    flight = FlightRecorder()
+    tr = Trainer(w["step"], log_every=1, log_fn=lambda m: None, flight=flight,
+                 failure_detector=FailureDetector(), on_failure="continue")
+    tr.fit(itertools.repeat(w["batch"]), 1)
+    with torch.no_grad():
+        w["model"].get_parameter(NUMERICS_POISON).fill_(float("nan"))
+    tr.fit(itertools.repeat(w["batch"]), 2)
+    failed = [e for e in flight.records() if e.get("kind") == "failure"]
+    want_site = "params/" + ".".join(NUMERICS_POISON.split(".")[:2])
+    out["poison"] = {"parameter": NUMERICS_POISON, "failures": len(failed),
+                     "nonfinite_site": failed[0].get("nonfinite_site") if failed else None,
+                     "want": want_site}
+    del w, tr
+    torch.cuda.empty_cache()
     print("(e) trainer telemetry llama_1b", json.dumps(out))
     if not out["losses_equal"]:
         failures.append(f"(e) losses {on['losses']} != {off['losses']} with telemetry off")
@@ -6407,6 +6465,17 @@ def trainer_phase(torch, seed, record_dir):
         failures.append(f"(e) no cost card: {on['cost_card']}")
     if on["stalls"]:
         failures.append(f"(e) the watchdog fired {on['stalls']} times")
+    if families != ["act", "grads", "loss", "params"] or not out["numerics_int_fields_equal"]:
+        failures.append(f"(e) numerics books: families {families}, int fields equal "
+                        f"{out['numerics_int_fields_equal']}")
+    # one harvest a log boundary: every step but the first fit's warm-up
+    if (a.harvests != TRAINER_STEPS - 1 or on["numerics_harvest_errors"]
+            or a.first_nonfinite_site()):
+        failures.append(f"(e) numerics: {a.harvests} harvests, "
+                        f"{on['numerics_harvest_errors']} failed, first nonfinite "
+                        f"{a.first_nonfinite_site()}")
+    if out["poison"]["nonfinite_site"] != want_site:
+        failures.append(f"(e) poisoned {NUMERICS_POISON}: {out['poison']}")
     return out, [f"phase 30 {x}" for x in failures]
 
 
@@ -6558,6 +6627,191 @@ def t5_kernel_entries(rows, runs):
 
 
 
+# -- phase 31: the numerics observatory (obs.numerics, obs.ledger, obs.gate) --
+# phase 3's requests again with numerics=True, each run held to a run of
+# its mode without it: (label, engine options, phase 3's run of the mode
+# or None when this phase runs its own)
+NUMERICS_RUNS = (("chunked-1", {}, 0), ("persistent", {"decode_mode": "persistent"}, 1),
+                 ("persistent paged int8", {"decode_mode": "persistent", "page_size": 16,
+                                            "kv_dtype": "int8"}, None))
+# the JAX engine's zero-overhead pin (tests/test_numerics.py)
+NUMERICS_PINNED = ("host_syncs", "decode_dispatches", "decode_steps", "prefill_calls")
+NUMERICS_SITES = ("logits", "kv_quant_err", "kv_quant_scale")
+NUMERICS_POISON = "blocks.1.attn.wq.weight"  # phase 30 (e)'s poisoned parameter
+
+
+def logits_count(counters, num_slots, vocab, speculate=0):
+    """The closed form of a serve run's ``logits`` digest count: one row of
+    the vocabulary a prefill dispatch (its last prompt row) and every slot's
+    row of each decode step (``speculate + 1`` rows a verify), finished
+    slots included (``generation._make_decode_body``)."""
+    return vocab * (counters["prefill_calls"]
+                    + num_slots * (speculate + 1) * counters["decode_steps"])
+
+
+def book_failures(what, book, counters, num_slots, vocab, head_dim, int8):
+    """A serve run's numerics book: the declared sites, every site's
+    partition identity, no nonfinite value, ``logits.count`` against
+    :func:`logits_count`, and for an int8 cache one error element a scale
+    element's ``head_dim`` and the error within half the largest scale."""
+    out = []
+    if sorted(book.sites()) != sorted(NUMERICS_SITES):
+        out.append(f"{what}: sites {book.sites()}")
+    for site in book.sites():
+        d = book.digest(site)
+        if d.nonfinite + d.zeros + sum(d.exp_hist) != d.count:
+            out.append(f"{what}: {site} partition {d.nonfinite} + {d.zeros} + "
+                       f"{sum(d.exp_hist)} != {d.count}")
+        if d.nonfinite:
+            out.append(f"{what}: {site} has {d.nonfinite} nonfinite values")
+    logits, err, sc = (book.digest(s) for s in NUMERICS_SITES)
+    want = logits_count(counters, num_slots, vocab)
+    if logits is None or logits.count != want:
+        out.append(f"{what}: logits count {logits and logits.count} != {want}")
+    if int8:
+        if not err or not err.count or err.count != head_dim * sc.count:
+            out.append(f"{what}: kv_quant_err count {err and err.count} != "
+                       f"{head_dim} x kv_quant_scale {sc and sc.count}")
+        elif err.max_abs > 0.5 * sc.max_abs:
+            out.append(f"{what}: kv error {err.max_abs} above half the scale {sc.max_abs}")
+    elif (err and err.count) or (sc and sc.count):
+        out.append(f"{what}: kv digests on an unquantized cache")
+    return out
+
+
+def serve_record(engine, label, requests):
+    """One run as ``obs.ledger.ingest_serve_record`` reads a serving
+    benchmark's record: a phase with its workload keys, the engine's
+    metrics and its numerics book."""
+    return {"phases": {label: {
+        "platform": "gpu", "model": "llama3_8b", "requests": len(requests),
+        "max_new_tokens": requests[0]["max_new_tokens"], "num_slots": engine.num_slots,
+        "max_len": engine.max_len, "decode_mode": engine.decode_mode,
+        "decode_chunk": engine.decode_chunk, "ring_capacity": engine.ring_capacity,
+        "page_size": engine.page_size, "kv_dtype": engine.kv_dtype, "numerics": True,
+        "metrics": engine.metrics.to_json(),
+        "numerics_book": engine.numerics_book.to_json()}}}
+
+
+def numerics_phase(torch, model, requests, phase3_runs, phase3_results, profiles,
+                   num_slots=8, max_len=2048):
+    """Phase 31 on phase 3's model: :data:`NUMERICS_RUNS`, each against its
+    mode's run without numerics (the same streams, the four pinned counters
+    equal), each book held by :func:`book_failures`; the persistent slab run
+    twice, both records turned into ledger rows (every row valid) and the
+    second gated against expectations built from the first; decode device
+    ms a step with numerics on against off, from ``profile_decode`` within
+    this call.  Returns (report, failures, launches of each run)."""
+    from torchdistx_tpu_torch.obs.flight import get_flight_recorder
+    from torchdistx_tpu_torch.obs.gate import build_expectations, gate_rows
+    from torchdistx_tpu_torch.obs.ledger import ingest_serve_record, validate_ledger_row
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    failures, report, launches = [], {}, []
+    cfg = model.cfg
+    head_dim, vocab, n_layers = cfg.dim // cfg.n_heads, cfg.vocab_size, cfg.n_layers
+    flight = get_flight_recorder()
+    records = []
+    for label, kw, ref in NUMERICS_RUNS:
+        int8 = kw.get("kv_dtype") == "int8"
+        runs = {}
+        for on in ((False, True) if ref is None else (True,)):
+            engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False,
+                                 numerics=on, **kw)
+            anomalies = sum(1 for e in flight.records() if e.get("anomaly") == "kv_quant_err")
+            results, summary = run_engine(torch, engine, requests)
+            summary["streams"] = _streams(results)
+            # phase 3's measure: the decode dispatches' host wall clock, the
+            # sync included, a step (a fresh engine: this run's alone)
+            summary["host_ms_per_decode_step"] = (
+                engine.metrics.decode_s.total / summary["counters"]["decode_steps"] * 1e3)
+            if on:
+                book = engine.numerics_book
+                summary["book"] = book
+                summary["harvest_errors"] = engine.numerics_harvest_errors
+                summary["anomalies"] = sum(1 for e in flight.records()
+                                           if e.get("anomaly") == "kv_quant_err") - anomalies
+                summary["record"] = serve_record(engine, label, requests)
+                launches.append(summary["launches"])
+            runs.setdefault(on, []).append(summary)
+            del engine
+        if ref is None:
+            off = runs[False][0]
+        else:
+            off = dict(phase3_runs[ref], streams=_streams(phase3_results))
+        on = runs[True][0]
+        what = f"(31) {label}"
+        if on["streams"] != off["streams"]:
+            failures.append(f"{what}: streams differ with numerics on")
+        for k in NUMERICS_PINNED:
+            if on["counters"][k] != off["counters"][k]:
+                failures.append(f"{what}: {k} {on['counters'][k]} != {off['counters'][k]} off")
+        book = on["book"]
+        failures += book_failures(what, book, on["counters"], num_slots, vocab, head_dim, int8)
+        if on["harvest_errors"] or on["anomalies"]:
+            failures.append(f"{what}: {on['harvest_errors']} failed harvests, "
+                            f"{on['anomalies']} kv_quant_err anomalies")
+        decode = ("paged_decode_attention" if kw.get("page_size") else "decode_attention") + (
+            "_int8" if int8 else "")
+        expect = {"flash_fwd": n_layers * on["counters"]["prefill_calls"],
+                  decode: n_layers * on["counters"]["decode_steps"]}
+        failures += _launch_failures(what, on, expect)
+        if kw.get("decode_mode") == "persistent":
+            failures += _persistent_failures(what, on)
+        line = {"sites": {s: book.digest(s).to_json() for s in book.sites()},
+                "logits_count": book.digest("logits").count,
+                "logits_count_closed_form": logits_count(on["counters"], num_slots, vocab),
+                "counters_on": {k: on["counters"][k] for k in NUMERICS_PINNED},
+                "counters_off": {k: off["counters"][k] for k in NUMERICS_PINNED},
+                "streams_equal": on["streams"] == off["streams"],
+                "wall_s_on": on["wall_s"], "wall_s_off": off.get("wall_s"),
+                "host_ms_per_decode_step_on": on["host_ms_per_decode_step"],
+                "host_ms_per_decode_step_off": off.get("host_ms_per_decode_step"),
+                "launches": on["launches"], "harvests": book.harvests}
+        for site in line["sites"].values():
+            site.pop("exp_hist")
+        if label == "persistent":
+            # a second run: every row valid, and gated against the first's
+            rows = [ingest_serve_record(r["record"], run_id=f"numerics-{i}", git_sha=None)
+                    for i, r in enumerate(runs[True] + [_second_run(
+                        torch, model, requests, kw, label, num_slots, max_len)])]
+            bad = [e for rs in rows for r in rs for e in validate_ledger_row(r)]
+            verdict = gate_rows(rows[1], build_expectations(rows[0]), [])
+            line["ledger_rows"] = [len(r) for r in rows]
+            line["gate"] = {k: verdict[k] for k in ("ok", "checked_counters",
+                                                     "checked_timings")}
+            line["gate"]["failures"] = verdict["failures"][:5]
+            if bad:
+                failures.append(f"{what}: invalid ledger rows: {bad[:3]}")
+            if not verdict["ok"] or verdict["failures"] or not verdict["checked_counters"]:
+                failures.append(f"{what}: the second run's gate {line['gate']}")
+            records.append(rows)
+        # decode device ms a step, numerics on against off, in this call
+        pkw = dict(kw, decode_chunk=1) if "decode_mode" not in kw else dict(kw)
+        prof_on = profile_decode(torch, model, requests[:num_slots], num_slots, max_len,
+                                 numerics=True, **pkw)
+        prof_off = (profiles.get(label) if ref is not None else
+                    profile_decode(torch, model, requests[:num_slots], num_slots, max_len,
+                                   **pkw))
+        line["decode_device_ms_on"] = prof_on.get("device_ms_per_step")
+        line["decode_device_ms_off"] = (prof_off or {}).get("device_ms_per_step")
+        line["decode_kernels_on"] = prof_on.get("by_class_ms_per_step")
+        line["decode_idle_share_on"] = prof_on.get("device_idle_share")
+        line["decode_idle_share_off"] = (prof_off or {}).get("device_idle_share")
+        print(f"(31) numerics {label}", json.dumps(line))
+        report[label] = line
+    return report, [f"phase 31 {x}" for x in failures], launches
+
+
+def _second_run(torch, model, requests, kw, label, num_slots, max_len):
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False,
+                         numerics=True, **kw)
+    run_engine(torch, engine, requests)
+    return {"record": serve_record(engine, label, requests)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6662,6 +6916,14 @@ def main(argv=None) -> int:
             variants, f3 = serve_variants(torch, model, np.random.RandomState(args.seed + 4))
         failures += f3
         report["serve_variants"] = variants
+        torch.cuda.empty_cache()
+        print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+        # -- 31. the numerics observatory on phase 3's runs ---------------------
+        with torch.no_grad():
+            numerics_report, f31, numerics_launches = numerics_phase(
+                torch, model, requests, serve_runs, results, profiles)
+        failures += f31
+        report["numerics"] = numerics_report
         torch.cuda.empty_cache()
         print(f"phase start: {time.perf_counter() - t_start:.1f} s")
         # -- 29. chunked prefill, the HBM gate, the fleet, the autoscaler ------
@@ -7087,7 +7349,9 @@ def main(argv=None) -> int:
         return {f"{k}_d64": brep64[f"{key}{k}"] for k in ("ms", "bound_ms")}
 
     mixtral_fwd = mixtral_serve["launches"].get("flash_fwd", 0)
-    served_fwd = sum(r["launches"]["flash_fwd"] for r in serve_runs)
+    # phase 3's runs and phase 31's numerics runs of the same requests
+    served_fwd = (sum(r["launches"]["flash_fwd"] for r in serve_runs)
+                  + sum(r.get("flash_fwd", 0) for r in numerics_launches))
     fleet_fwd = fleet_launches.get("flash_fwd", 0)
     # phase 30 (a): gpt2_large's cold prefills (D 64)
     gpt2_runs = list(gpt2_serve["runs"].values())
@@ -7142,7 +7406,7 @@ def main(argv=None) -> int:
     # every variant at VARIANT_POSITIONS
     served = ([r["launches"] for r in serve_runs] + [r["launches"] for r in _serve_runs(variants)]
               + [mixtral_serve["launches"], fleet_launches]
-              + [r["launches"] for r in gpt2_runs])
+              + [r["launches"] for r in gpt2_runs] + list(numerics_launches))
     # entry G: each decode variant at gpt2_large's serving shape (D 64,
     # Hq = Hkv = 20: group size 1)
     at_gpt2 = {(r["kernel"], r["dtype"]): r for r in gpt2_serve["decode_variants"]}

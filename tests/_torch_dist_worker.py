@@ -2150,7 +2150,82 @@ def _serve_tp(payload):
     dist.barrier()
 
 
+def _numerics(payload):
+    """The numerics observatory of the train steps at world 1 or 2: each
+    step's digests of ``ShardedTrainStep`` (FSDP over every rank) and of
+    ``GSPMDTrainStep`` (``dp``, and TP under ``llama_tp_plan``) on tiny
+    Llama with JAX weights, the FSDP step's comm audit, a poisoned
+    parameter's provenance, and (world 2) the refusal of numerics on a TP
+    serving engine."""
+    import torch
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.obs.comm import comm_audit
+    from torchdistx_tpu_torch.obs.numerics import NumericsBook, fetch_digests
+    from torchdistx_tpu_torch.parallel import (GSPMDTrainStep, ShardedTrainStep, create_mesh,
+                                               llama_tp_plan)
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    world = dist.get_world_size()
+    batch = tuple(torch.from_numpy(a) for a in payload["batch"])
+
+    def model():
+        m = Llama.from_name("tiny", device="cpu")
+        return load_jax_params(m, payload["init"])
+
+    def loss_fn(mod, b):
+        return F.cross_entropy(mod(b[0]), b[1])
+
+    def steps(make, poison=None):
+        def case():
+            m = model()
+            if poison:
+                with torch.no_grad():
+                    m.get_parameter(poison).fill_(float("nan"))
+            step = make(m, torch.optim.SGD(m.parameters(), lr=payload["lr"]))
+            book, trees, profile = NumericsBook(), [], None
+            for i in range(payload["steps"]):
+                with comm_audit() as prof:
+                    step(m, step.optimizer, batch)
+                profile = profile or prof.to_json()
+                (tree,) = fetch_digests([step.last_digests])
+                book.update_tree(tree, step=i)
+                trees.append({k: d.to_json() for k, d in tree.items()})
+            return {"trees": trees, "book": book.to_json(), "profile": profile}
+        return case
+
+    def fsdp(m, opt):
+        return ShardedTrainStep(m, opt, loss_fn, create_mesh({"fsdp": world}),
+                                shard_axis="fsdp", numerics=True)
+
+    def gspmd_dp(m, opt):
+        return GSPMDTrainStep(m, opt, loss_fn, create_mesh({"dp": world}), batch_spec=("dp",),
+                              numerics=True)
+
+    def gspmd_tp(m, opt):
+        mesh = create_mesh({"tp": world})
+        return GSPMDTrainStep(m, opt, loss_fn, mesh, plan=llama_tp_plan(mesh), numerics=True)
+
+    def tp_engine():
+        mesh = create_mesh({"tp": world})
+        try:
+            ServeEngine(model(), max_len=64, mesh=mesh, numerics=True)
+        except NotImplementedError as e:
+            return {"refused": str(e)}
+        return {"refused": None}
+
+    yield "fsdp", steps(fsdp)
+    yield "gspmd_dp", steps(gspmd_dp)
+    yield "gspmd_tp", steps(gspmd_tp)
+    yield "fsdp_poison", steps(fsdp, poison=payload["poison"])
+    if world > 1:
+        yield "tp_engine", tp_engine
+
+
 SUITES = {"collectives": _collectives, "ring": _ring, "fsdp": _fsdp, "sp_llama": _sp_llama,
           "gossip": _gossip, "plan": _plan, "tp": _tp, "moe_ep": _moe_ep, "data": _data,
           "sp_models": _sp_models, "zero2": _zero2, "pp": _pp, "reshard": _reshard,
-          "serve_tp": _serve_tp, "comm_audit": _comm_audit}
+          "serve_tp": _serve_tp, "comm_audit": _comm_audit, "numerics": _numerics}

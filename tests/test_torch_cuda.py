@@ -1578,3 +1578,169 @@ def test_t5_generate_encdec_on_the_card_matches_the_plain_encoder(cuda):
         torch.cuda.synchronize()
         assert tflash.flash_fwd_cuda.launches == before + 2  # one per encoder layer
         assert out.shape == ref.shape
+
+
+# -- the numerics observatory on the card ----------------------------------------
+
+
+def test_array_digest_on_the_card_equals_the_cpu(cuda):
+    """The digest's integer fields and ``max_abs`` bit for bit on CUDA and
+    the CPU (integer atomics, no data-dependent shape)."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.obs.numerics import HostDigest, array_digest
+
+    rs = np.random.RandomState(0)
+    x = (rs.randn(100_000) * np.exp2(rs.randint(-60, 60, 100_000))).astype(np.float32)
+    x[::97], x[1::97], x[2::197], x[3::197] = 0.0, 1e-42, np.nan, -np.inf
+    cpu = HostDigest.from_device(array_digest(torch.from_numpy(x)))
+    dev = HostDigest.from_device(array_digest(torch.from_numpy(x).to(cuda)))
+    assert dev == cpu and dev.max_abs == cpu.max_abs
+    assert dev.count == dev.nonfinite + dev.zeros + sum(dev.exp_hist)
+
+
+def test_array_digest_is_captured_in_a_graph(cuda):
+    """A digest inside a captured CUDA graph: each replay digests the
+    static input's current values (no host sync at capture)."""
+    from torchdistx_tpu_torch.obs.numerics import HostDigest, array_digest
+
+    x = torch.ones(1000, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        array_digest(x)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        d = array_digest(x)
+    x.copy_(torch.arange(1000, device=cuda, dtype=torch.float32))
+    graph.replay()
+    torch.cuda.synchronize()
+    got = HostDigest.from_device(d)
+    assert got.count == 1000 and got.zeros == 1 and got.max_abs == 999.0
+
+
+@pytest.mark.parametrize("kw", [{}, dict(page_size=8, kv_dtype="int8"), dict(speculate=2)],
+                         ids=["slab", "paged-int8", "spec"])
+def test_persistent_digests_equal_chunked_on_the_card(cuda, kw):
+    """The captured iteration's digest accumulators: the streams equal the
+    chunked engine's, the pinned counters equal numerics off, ``logits``
+    counts exactly the iterations the loop ran, and nothing leaks from the
+    warm-up, the capture or iterations past the fixpoint (a second run's
+    book is the first's doubled)."""
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _graph_llama(cuda)
+    # no prefix cache: the second run below must prefill cold again
+    common = dict(num_slots=3, max_len=64, prefill_buckets=(32,), prefix_cache=False, **kw)
+    chunked = ServeEngine(model, numerics=True, **common)
+    ref = chunked.run(_graph_requests())
+    off = ServeEngine(model, decode_mode="persistent", **common)
+    off.run(_graph_requests())
+    engine = ServeEngine(model, decode_mode="persistent", numerics=True, **common)
+    out = engine.run(_graph_requests())
+    assert engine._decode.loop.graph is not None
+    assert [o.tokens.tolist() for o in out] == [r.tokens.tolist() for r in ref]
+    for k in ("host_syncs", "decode_dispatches", "decode_steps", "prefill_calls"):
+        assert engine.metrics.counters[k] == off.metrics.counters[k], k
+    a, b = chunked.numerics_book, engine.numerics_book
+    assert sorted(a.sites()) == sorted(b.sites())
+    # every slot's rows of each iteration the loop ran, none past its end
+    steps = engine.metrics.counters["decode_steps"]
+    vocab = model.cfg.vocab_size
+    rows = 3 * (kw.get("speculate", 0) + 1)
+    assert b.digest("logits").count == vocab * (
+        engine.metrics.counters["prefill_calls"] + rows * steps)
+    for site in b.sites():
+        d = b.digest(site)
+        assert d.count == d.nonfinite + d.zeros + sum(d.exp_hist) and not d.nonfinite
+    first = {s: b.digest(s) for s in b.sites()}
+    engine.run(_graph_requests())
+    for s, d in first.items():
+        again = engine.numerics_book.digest(s)
+        assert again.count == 2 * d.count, s
+        assert again.exp_hist == [2 * v for v in d.exp_hist], s
+    if kw.get("kv_dtype") == "int8":
+        err, sc = b.digest("kv_quant_err"), b.digest("kv_quant_scale")
+        assert err.count and err.max_abs <= 0.5 * sc.max_abs
+
+
+def _no_sync_harvest(monkeypatch, owner, ready):
+    """Wrap ``owner._harvest_numerics`` so that it runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any sync it made would
+    raise, and a failed harvest is counted), noting first whether each
+    staged copy had already finished."""
+    real = owner._harvest_numerics
+
+    def harvest(*args):
+        staged = args[0] if args else owner._pending_digests
+        for s in (staged if isinstance(staged, list) else [staged]):
+            if s is not None and s._event is not None:
+                ready.append(s._event.query())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(owner, "_harvest_numerics", harvest)
+
+
+class _Fetched:
+    """Host digest trees already fetched, read as a staged copy is."""
+
+    def __init__(self, trees):
+        self._trees, self._event = trees, None
+
+    def read(self):
+        return self._trees
+
+
+@pytest.mark.parametrize("mode", ["chunked", "persistent"])
+def test_numerics_harvest_makes_no_sync_on_the_card(cuda, mode, monkeypatch):
+    """The digests' copy to the host is queued in each dispatch before its
+    own sync, so the harvest after that sync finds it finished and makes
+    no sync of its own; the book equals one harvested as before, with a
+    blocking copy of each dispatch's digests."""
+    from torchdistx_tpu_torch.obs import numerics as tn
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    model = _graph_llama(cuda)
+    common = dict(num_slots=3, max_len=64, prefill_buckets=(32,), prefix_cache=False,
+                  numerics=True, page_size=8, kv_dtype="int8")
+    if mode == "persistent":
+        common["decode_mode"] = "persistent"
+    ref = ServeEngine(model, **common)
+    monkeypatch.setattr(ref, "_stage_numerics",
+                        lambda d: ref._pending_digests.append(_Fetched(tn.fetch_digests([d]))))
+    ref.run(_graph_requests())
+    engine = ServeEngine(model, **common)
+    ready = []
+    _no_sync_harvest(monkeypatch, engine, ready)
+    engine.run(_graph_requests())
+    assert engine.numerics_harvest_errors == 0 and ready and all(ready)
+    a, b = ref.numerics_book, engine.numerics_book
+    assert b.harvests == a.harvests > 0 and a.sites() == b.sites()
+    for s in a.sites():
+        assert b.digest(s) == a.digest(s) and b.digest(s).max_abs == a.digest(s).max_abs, s
+
+
+def test_trainer_numerics_harvest_makes_no_sync_on_the_card(cuda, monkeypatch):
+    """The ``Trainer`` stages the step's digests before the loss's sync at
+    a log boundary; the harvest after it makes no sync of its own."""
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.trainer import Trainer, TrainStep
+
+    model = _graph_llama(cuda)  # bf16: the flash kernels take bf16
+    step = TrainStep(model, torch.optim.SGD(model.parameters(), lr=1e-2),
+                     lambda m, b: F.cross_entropy(m(b[0]), b[1]), numerics=True)
+    tr = Trainer(step, log_every=1, log_fn=lambda m: None, flight=False)
+    ready = []
+    _no_sync_harvest(monkeypatch, tr, ready)
+    g = torch.Generator().manual_seed(0)
+    batch = tuple(torch.randint(0, 256, (2, 16), generator=g).to(cuda) for _ in range(2))
+    tr.fit([batch] * 3, 3)  # the first step warms up; the next two log
+    assert tr.numerics_harvest_errors == 0 and len(ready) == 2 and all(ready)
+    assert tr.numerics_book.harvests == 2
+    assert {s.split("/")[0] for s in tr.numerics_book.sites()} == {
+        "params", "act", "loss", "grads"}

@@ -39,7 +39,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         "torchdistx_tpu_torch.utils.profiling, torchdistx_tpu_torch.utils.rng, "
         "torchdistx_tpu_torch.serve.fleet, torchdistx_tpu_torch.serve.autoscale, "
         "torchdistx_tpu_torch.serve.workload, torchdistx_tpu_torch.obs.blackbox, "
-        "torchdistx_tpu_torch.serve.stream, torchdistx_tpu_torch.serve.graph_loop\n"
+        "torchdistx_tpu_torch.serve.stream, torchdistx_tpu_torch.serve.graph_loop, "
+        "torchdistx_tpu_torch.obs.numerics, torchdistx_tpu_torch.obs.ledger, "
+        "torchdistx_tpu_torch.obs.gate\n"
         "import torch.distributed as dist\n"
         "from torchdistx_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -58,7 +60,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
 
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "scripts/torch_replay_session.py"]
+    + ["chip_smoke.py", "scripts/torch_replay_session.py", "scripts/torch_perf_gate.py"]
 )
 def test_source_has_no_jax_import(path):
     tree = ast.parse((ROOT / path).read_text())

@@ -120,7 +120,7 @@ def test_submit_validation(models):
 _PORTED_SINCE = {"page_size": 8, "num_pages": None, "kv_dtype": "int8",
                  "prefix_cache": False, "spec_ngram": 3, "ring_capacity": 8,
                  "persistent_stream": True, "record": True, "params": None, "mesh": None,
-                 "plan": None, "tp_rule": None, "tp_axis": None}
+                 "plan": None, "tp_rule": None, "tp_axis": None, "numerics": True}
 _TP_ARGS = ("params", "mesh", "plan", "tp_rule", "tp_axis")
 
 
@@ -170,6 +170,12 @@ def test_unported_argument_raises(models, name):
             engine = ServeEngine(tm, max_len=32, **kw)
         for got, ref in zip(engine.run(reqs), want):
             np.testing.assert_array_equal(got.tokens, ref)
+        return
+    if name == "numerics":
+        # the observatory, ported: a book of the declared sites
+        engine = ServeEngine(tm, max_len=32, numerics=True)
+        engine.run(_requests(3, (5,), max_new=3))
+        assert engine.numerics_book.digest("logits").count > 0
         return
     if name in _PORTED_SINCE:
         ServeEngine(tm, max_len=32, **{name: _PORTED_SINCE[name]})

@@ -22,13 +22,27 @@ does not reproduce ``jax.random``'s bits.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .obs.numerics import merge_digest_trees, numerics_tape, tap, zero_digest
 
 __all__ = ["generate", "generate_encdec", "max_positions"]
+
+#: the serving programs' declared numerics tap sites (``obs.numerics``):
+#: the sampled position's logits, and the int8 caches' dequantization
+#: error and scales at every quantize-on-write (``serve.kv_cache._tap_quant``)
+_NUMERICS_SITES = ("logits", "kv_quant_err", "kv_quant_scale")
+
+
+def _step_tape(device):
+    """The numerics tape of one decode step: the declared sites, each
+    site's tapped tensors digested in one pass at the step's end (the
+    integer fields exact; ``obs.numerics``)."""
+    return numerics_tape(sites=_NUMERICS_SITES, device=device, defer=True)
 
 
 def max_positions(cfg) -> Optional[int]:
@@ -149,7 +163,8 @@ def _make_decode_body(model, sampler, *, eos_token: Optional[int],
     def step(carry, *, temps, seeds, budgets, extra=()):
         kv, tok, pos, stp, fin = carry
         logits, kv = model.forward_decode(tok[:, None], kv, pos, *extra)
-        sampled = sampler(logits[:, -1, :], temps, seeds, stp)
+        # every row of the last position, finished slots included
+        sampled = sampler(tap("logits", logits[:, -1, :]), temps, seeds, stp)
         new_tok = torch.where(fin, tok, sampled)
         new_stp = torch.where(fin, stp, stp + 1)
         if eos_token is not None:
@@ -166,13 +181,16 @@ def _make_decode_body(model, sampler, *, eos_token: Optional[int],
 
 
 def _make_fused_decode(model, sampler, *, eos_token: Optional[int],
-                       max_len: int, decode_chunk: int):
+                       max_len: int, decode_chunk: int, numerics: bool = False):
     """``decode_chunk`` decode iterations in a Python loop with no host sync
     inside it.  Returns ``run(kv, toks, positions, temps, seeds, steps,
     budgets, finished, *extra) -> (kv, (K, B) token block)``, every input
     a device tensor.  ``extra`` is empty for the slab; the paged engine
     passes its device page tables there, invariant over the chunk (a
-    request's whole footprint is allocated at admission)."""
+    request's whole footprint is allocated at admission).  With
+    ``numerics=True`` each step runs under a declared-site tape and the
+    merged ``{site: digest}`` dict of the chunk is one more, trailing,
+    output (device tensors, read at the dispatch's own sync)."""
     step = _make_decode_body(model, sampler, eos_token=eos_token,
                              max_len=max_len)
 
@@ -181,10 +199,17 @@ def _make_fused_decode(model, sampler, *, eos_token: Optional[int],
             *extra):
         carry = (kv, toks, positions, steps, finished)
         block = []
+        digs = None
         for _ in range(decode_chunk):
-            carry = step(carry, temps=temps, seeds=seeds, budgets=budgets,
-                         extra=extra)
+            with _step_tape(toks.device) if numerics else contextlib.nullcontext() as tape:
+                carry = step(carry, temps=temps, seeds=seeds, budgets=budgets,
+                             extra=extra)
+            if tape is not None:
+                d = tape.digests()
+                digs = d if digs is None else merge_digest_trees(digs, d)
             block.append(carry[1])
+        if numerics:
+            return carry[0], torch.stack(block), digs
         return carry[0], torch.stack(block)
 
     return run
@@ -243,6 +268,7 @@ def _make_spec_decode_body(model, sampler, *, eos_token: Optional[int],
         # -- verify: one (B, K+1) forward through slot_cached_attention
         qtok = torch.cat([tok[:, None], draft.to(tok.dtype)], dim=1)
         logits, kv = model.forward_decode(qtok, kv, pos, *extra)
+        logits = tap("logits", logits)  # the whole (B, K+1) verify block
         y1 = sampler(logits[:, 0, :], temps, seeds, stp)
         gre = torch.argmax(logits, dim=-1).to(tok.dtype)
         y_block = torch.cat([y1.to(tok.dtype)[:, None], gre[:, 1:]], dim=1)
@@ -286,13 +312,14 @@ def _make_spec_decode_body(model, sampler, *, eos_token: Optional[int],
 
 def _make_fused_spec_decode(model, sampler, *, eos_token: Optional[int],
                             max_len: int, decode_chunk: int, speculate: int,
-                            ngram: int = 2):
+                            ngram: int = 2, numerics: bool = False):
     """``decode_chunk`` speculative iterations (``_make_spec_decode_body``)
     with no host sync inside.  Returns ``run(kv, toks, positions, hist,
     temps, seeds, steps, budgets, finished, *extra) -> (kv, (chunk, B, K+1)
     token blocks, (chunk, B) counts, hist)``, every input a device tensor:
     ``hist`` the (B, max_len) history with every emitted token in place, the
-    next dispatch's input."""
+    next dispatch's input; ``numerics=True`` adds the trailing merged
+    ``{site: digest}`` dict, as in :func:`_make_fused_decode`."""
     step = _make_spec_decode_body(model, sampler, eos_token=eos_token,
                                   max_len=max_len, speculate=speculate,
                                   ngram=ngram)
@@ -302,12 +329,18 @@ def _make_fused_spec_decode(model, sampler, *, eos_token: Optional[int],
             finished, *extra):
         carry = (kv, toks, positions, steps, finished, hist)
         ys, cs = [], []
+        digs = None
         for _ in range(decode_chunk):
-            carry, y_block, cnt = step(carry, temps=temps, seeds=seeds,
-                                       budgets=budgets, extra=extra)
+            with _step_tape(toks.device) if numerics else contextlib.nullcontext() as tape:
+                carry, y_block, cnt = step(carry, temps=temps, seeds=seeds,
+                                           budgets=budgets, extra=extra)
+            if tape is not None:
+                d = tape.digests()
+                digs = d if digs is None else merge_digest_trees(digs, d)
             ys.append(y_block)
             cs.append(cnt)
-        return carry[0], torch.stack(ys), torch.stack(cs), carry[5]
+        out = (carry[0], torch.stack(ys), torch.stack(cs), carry[5])
+        return out + ((digs,) if numerics else ())
 
     return run
 
@@ -351,10 +384,19 @@ class _PersistentDecode:
     ``self.stream``, a :class:`~torchdistx_tpu_torch.serve.stream.
     StreamRing` (on the card a host node of the captured iteration), emptied
     at the start of each call; the warm-up's pushes before the capture are
-    discarded."""
+    discarded.
+
+    ``numerics=True`` adds the numerics observatory: each iteration runs
+    under a declared-site tape (``_NUMERICS_SITES``) and adds its digests
+    into static per-site accumulators, gated on the device by ``go`` like
+    every other write of the loop state, so the warm-up, the capture and
+    an iteration past the fixpoint add nothing.  The accumulators are
+    zeroed at the start of each call and returned as a trailing
+    ``{site: digest}`` output, read after the drain's sync."""
 
     def __init__(self, step, *, eos_token: Optional[int], max_len: int,
-                 ring_capacity: int, speculate: int = 0, stream: bool = False):
+                 ring_capacity: int, speculate: int = 0, stream: bool = False,
+                 numerics: bool = False):
         if ring_capacity < 1:
             raise ValueError(f"ring_capacity must be >= 1, got {ring_capacity}")
         self.step = step
@@ -363,6 +405,8 @@ class _PersistentDecode:
         self.ring_capacity = int(ring_capacity)
         self.speculate = int(speculate)
         self.stream_on = bool(stream)
+        self.numerics = bool(numerics)
+        self.digests = None  # {site: digest} accumulators, at the first call
         self.stream = None  # serve.stream.StreamRing, at the first call
         self.loop = None  # serve.graph_loop.GraphLoop, at the first call
 
@@ -400,6 +444,8 @@ class _PersistentDecode:
             self.tables = torch.zeros(tables.shape, dtype=torch.int32, device=device)
         self.kv, self.hist = kv, hist
         self._held = self._addresses(kv, hist)
+        if self.numerics:
+            self.digests = {site: zero_digest(device) for site in _NUMERICS_SITES}
         self.loop = GraphLoop(cursor=self.it, capacity=self.ring_capacity,
                               done=self.done)
         if self.stream_on:
@@ -418,17 +464,25 @@ class _PersistentDecode:
         go = ~fin.all() & (it[0] < cap)
         extra = () if self.tables is None else (self.tables,)
         carry = (self.kv, self.tok, self.pos, self.stp, fin)
-        if self.speculate:
-            carry, row, mark = self.step(carry + (self.hist,), temps=self.temps,
-                                         seeds=self.seeds, budgets=self.budgets,
-                                         extra=extra)
-        else:
-            live = ~fin
-            carry = self.step(carry, temps=self.temps, seeds=self.seeds,
-                              budgets=self.budgets, extra=extra)
-            row, mark = carry[1], live
-            if self.stream is not None:
-                self.stream.push(row, mark, it)
+        with _step_tape(fin.device) if self.numerics else contextlib.nullcontext() as tape:
+            if self.speculate:
+                carry, row, mark = self.step(carry + (self.hist,), temps=self.temps,
+                                             seeds=self.seeds, budgets=self.budgets,
+                                             extra=extra)
+            else:
+                live = ~fin
+                carry = self.step(carry, temps=self.temps, seeds=self.seeds,
+                                  budgets=self.budgets, extra=extra)
+                row, mark = carry[1], live
+        if self.stream is not None:
+            self.stream.push(row, mark, it)
+        if tape is not None:
+            for site, d in tape.digests().items():
+                acc = self.digests[site]
+                for f in ("nonfinite", "zeros", "count", "exp_hist", "sumsq"):
+                    acc[f].add_(torch.where(go, d[f], torch.zeros_like(d[f])))
+                acc["max_abs"].copy_(torch.where(
+                    go, torch.maximum(acc["max_abs"], d["max_abs"]), acc["max_abs"]))
         at = it.clamp(max=cap - 1)
         for ring, new in ((self.ring, row), (self.valid, mark)):
             ring.index_copy_(0, at, torch.where(go, new[None], ring.index_select(0, at)))
@@ -494,6 +548,10 @@ class _PersistentDecode:
         self.ring.zero_()
         self.valid.zero_()
         self.it.zero_()
+        if self.digests is not None:
+            for d in self.digests.values():
+                for t in d.values():
+                    t.zero_()
         self.done.copy_(self.fin.all())
         fewest, most = self._bounds(positions, steps, budgets, active, firsts)
         if self.stream is not None:
@@ -504,34 +562,40 @@ class _PersistentDecode:
                 torch.cuda.synchronize(device)
             self.stream.reset()
         self.loop.run(self._iteration, fewest, most)
-        return kv, self.ring[:most], self.valid[:most], self.it
+        out = (kv, self.ring[:most], self.valid[:most], self.it)
+        return out + ((self.digests,) if self.numerics else ())
 
 
 def _make_persistent_decode(model, sampler, *, eos_token: Optional[int],
-                            max_len: int, ring_capacity: int, stream: bool = False):
+                            max_len: int, ring_capacity: int, stream: bool = False,
+                            numerics: bool = False):
     """The persistent decode program (JAX: ``lax.while_loop`` over
     ``_make_decode_body``): ``run(kv, toks, positions, None, temps, seeds,
     steps, budgets, active, *extra, firsts=) -> (kv, ring, valid,
-    iterations)``; ``stream=True`` adds the streamed tail.  See
-    :class:`_PersistentDecode`."""
+    iterations)``; ``stream=True`` adds the streamed tail, ``numerics=True``
+    a trailing ``{site: digest}``.  See :class:`_PersistentDecode`."""
     step = _make_decode_body(model, sampler, eos_token=eos_token,
                              max_len=max_len)
     return _PersistentDecode(step, eos_token=eos_token, max_len=max_len,
-                             ring_capacity=ring_capacity, stream=stream)
+                             ring_capacity=ring_capacity, stream=stream,
+                             numerics=numerics)
 
 
 def _make_persistent_spec_decode(model, sampler, *, eos_token: Optional[int],
                                  max_len: int, ring_capacity: int,
-                                 speculate: int, ngram: int = 2):
+                                 speculate: int, ngram: int = 2,
+                                 numerics: bool = False):
     """The persistent speculative decode (``_make_spec_decode_body`` under
     the same loop): ``run(kv, toks, positions, hist, temps, seeds, steps,
     budgets, active, *extra, firsts=) -> (kv, ring, cnts, iterations)``,
-    one ring row per ITERATION (up to ``speculate + 1`` tokens each)."""
+    one ring row per ITERATION (up to ``speculate + 1`` tokens each), and
+    with ``numerics=True`` a trailing ``{site: digest}``."""
     step = _make_spec_decode_body(model, sampler, eos_token=eos_token,
                                   max_len=max_len, speculate=speculate,
                                   ngram=ngram)
     return _PersistentDecode(step, eos_token=eos_token, max_len=max_len,
-                             ring_capacity=ring_capacity, speculate=speculate)
+                             ring_capacity=ring_capacity, speculate=speculate,
+                             numerics=numerics)
 
 
 def _tokens_on(tokens, device) -> torch.Tensor:

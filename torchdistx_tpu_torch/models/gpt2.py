@@ -41,6 +41,7 @@ from torch import nn as tnn
 from .. import nn
 from ..nn import functional as F
 from ..nn import init as nn_init
+from ..obs.numerics import tap as _num_tap
 from ..ops.attention import (
     cached_attention,
     multihead_attention,
@@ -200,13 +201,13 @@ class GPT2(tnn.Module):
                 f"sequence length {s} exceeds n_positions={self.cfg.n_positions}"
             )
         pos = torch.arange(start, start + s, device=tokens.device)
-        x = self.tok_emb(tokens) + self.pos_emb(pos)[None]
-        for blk in self.blocks:
-            x = blk(x)
+        x = _num_tap("tok_emb", self.tok_emb(tokens) + self.pos_emb(pos)[None])
+        for i, blk in enumerate(self.blocks):
+            x = _num_tap(f"block{i}", blk(x))
         x = self.ln_f(x)
         if return_hidden:
             return x
-        return x @ self.tok_emb.weight.T
+        return _num_tap("logits", x @ self.tok_emb.weight.T)
 
     # -- KV-cache decode (the generation.generate contract, as Llama's) ----
 

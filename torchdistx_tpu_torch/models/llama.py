@@ -35,6 +35,7 @@ from torch import nn as tnn
 from .. import nn
 from ..nn import functional as F
 from ..nn import init as nn_init
+from ..obs.numerics import tap as _num_tap
 from ..ops.attention import (
     cached_attention,
     multihead_attention,
@@ -366,17 +367,19 @@ class Llama(tnn.Module):
         loss)."""
         cfg = self.cfg
         rope = self.rope_table()
-        x = self.tok_emb(tokens)
+        x = _num_tap("tok_emb", self.tok_emb(tokens))
         remat = cfg.remat and torch.is_grad_enabled()
-        for blk in self.blocks:
+        for i, blk in enumerate(self.blocks):
+            # tapped on the block's result, outside the remat wrapper: a
+            # recompute does not digest it again
             if remat:
-                x = checkpoint_block(cfg, blk, x, rope)
+                x = _num_tap(f"block{i}", checkpoint_block(cfg, blk, x, rope))
             else:
-                x = blk(x, rope)
+                x = _num_tap(f"block{i}", blk(x, rope))
         x = self.norm(x)
         if return_hidden:
             return x
-        return self.lm_head(x)
+        return _num_tap("logits", self.lm_head(x))
 
     # -- incremental decoding (KV cache) ----------------------------------
 

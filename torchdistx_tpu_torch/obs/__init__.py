@@ -17,6 +17,13 @@ The layers the serving engine and the fleet need, each touching no JAX:
 - :mod:`.slo` — declarative latency objectives over request histories.
 - :mod:`.blackbox` — the session black box: a replayable ``tdx-session-v1``
   recording of a serve session or a training run, and its replay.
+- :mod:`.numerics` — the numerics observatory (``tdx-numerics-v1``): value
+  digests on the device (exact nonfinite / zero counts and exponent
+  histograms, max-abs and rms gauges) at the serving and training tap
+  sites, harvested at existing syncs into a :class:`NumericsBook`.
+- :mod:`.ledger` / :mod:`.gate` — the ``tdx-ledger-v1`` rows with every
+  artifact family's adapter, and the expectations gate over them
+  (``scripts/torch_perf_gate.py``).
 """
 
 from .blackbox import (
@@ -30,6 +37,22 @@ from .blackbox import (
 from .comm import CommProfile, comm_audit, record_collective
 from .cost import CostBook, CostCard, validate_cost_card
 from .flight import FlightRecorder, get_flight_recorder
+from .gate import (
+    build_expectations,
+    gate_rows,
+    render_gate_markdown,
+    timing_direction,
+)
+from .ledger import (
+    append_record_rows,
+    append_rows,
+    ingest_artifact,
+    make_row,
+    read_ledger,
+    record_stamp,
+    validate_ledger_file,
+    validate_ledger_row,
+)
 from .memory import (
     capacity_plan,
     device_hbm_budget,
@@ -49,6 +72,17 @@ from .metrics import (
     parse_prometheus,
     render_prometheus,
     start_metrics_server,
+)
+from .numerics import (
+    NUMERICS_SCHEMA,
+    HostDigest,
+    NumericsBook,
+    array_digest,
+    numerics_enabled,
+    numerics_tape,
+    tap,
+    tap_error,
+    tree_digest,
 )
 from .recompile import RecompileWatcher, recompile_scope, track_jit_cache
 from .slo import (
@@ -116,4 +150,25 @@ __all__ = [
     "replay_session",
     "resolve_record",
     "validate_session_jsonl",
+    "NUMERICS_SCHEMA",
+    "HostDigest",
+    "NumericsBook",
+    "array_digest",
+    "numerics_enabled",
+    "numerics_tape",
+    "tap",
+    "tap_error",
+    "tree_digest",
+    "make_row",
+    "append_rows",
+    "append_record_rows",
+    "read_ledger",
+    "record_stamp",
+    "ingest_artifact",
+    "validate_ledger_row",
+    "validate_ledger_file",
+    "build_expectations",
+    "gate_rows",
+    "render_gate_markdown",
+    "timing_direction",
 ]

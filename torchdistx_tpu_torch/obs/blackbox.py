@@ -50,10 +50,11 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import subprocess
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
+
+from .ledger import git_sha
 
 __all__ = [
     "SESSION_SCHEMA",
@@ -97,31 +98,6 @@ def session_force_disabled() -> bool:
     the kill switch that turns every implicit recorder into a no-op
     object (engines/fleets/trainers built with ``record=`` included)."""
     return _env_state() is False
-
-
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SHA_CACHE: Dict[str, Optional[str]] = {}
-
-
-def git_sha(cwd: Optional[str] = None) -> Optional[str]:
-    """The current commit's short sha, or None when git is unavailable
-    (the JAX package's ``obs.ledger.git_sha``, copied).  ``TDX_GIT_SHA``
-    overrides.  Cached per directory: the sha cannot change mid-run."""
-    env_sha = os.environ.get("TDX_GIT_SHA")
-    if env_sha:
-        return env_sha
-    key = cwd or _REPO_ROOT
-    if key in _SHA_CACHE:
-        return _SHA_CACHE[key]
-    try:
-        out = subprocess.run(["git", "rev-parse", "--short=12", "HEAD"],
-                             capture_output=True, text=True, timeout=10, cwd=key)
-        sha = (out.stdout or "").strip()
-        sha = sha if out.returncode == 0 and sha else None
-    except (OSError, subprocess.TimeoutExpired):
-        sha = None
-    _SHA_CACHE[key] = sha
-    return sha
 
 
 def _env_stamp() -> dict:

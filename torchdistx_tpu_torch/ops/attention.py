@@ -215,6 +215,7 @@ def slot_cached_attention(
             f"(got S={s}, window={window})"
         )
     from ..serve.kv_cache import (
+        _tap_quant,
         dequantize_kv,
         paged_scatter_tokens,
         quantize_kv,
@@ -226,6 +227,8 @@ def slot_cached_attention(
     if quantized:
         ck, cv, cks, cvs = cache
         (wk, sk), (wv, sv) = quantize_kv(k_new), quantize_kv(v_new)
+        _tap_quant(k_new, wk, sk)
+        _tap_quant(v_new, wv, sv)
         writes = ((ck, wk), (cv, wv), (cks, sk), (cvs, sv))
     else:
         ck, cv = cache

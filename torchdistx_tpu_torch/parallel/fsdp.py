@@ -46,8 +46,17 @@ that mirrors its parameter inherits the parameter's sharding; see
 ``parallel.plan``); ``donated_carry_shardings``, which in JAX pins a
 donated jit carry to the layouts it arrived with.  Nothing is donated or
 re-placed by an eager step, so here it only reports each tensor's
-``sharding_of`` (or None, for a tensor no sharding marks).  The numerics
-taps are not ported yet.
+``sharding_of`` (or None, for a tensor no sharding marks).
+
+``numerics=True`` (None: ``TDX_NUMERICS``) takes the JAX step's digests
+(``obs.numerics``) into ``last_digests``: ``params/<group>`` and
+``grads/<group>`` of the whole tensors (each rank digests the pieces it is
+the first holder of and the partials are folded over the mesh:
+``obs.numerics.mesh_group_digest``), ``act/<site>`` of the model's taps
+over the rank's batch folded over the batch axes by
+``obs.numerics.allreduce_digests`` (booked into the comm audit as the JAX
+step books it: a ``psum`` of count 2 and a ``pmax``), and ``loss``.  The
+integer fields are the same at any world size.
 
 The comm audit (``obs.comm``) sees what the JAX step books when it traces:
 per sharded parameter one ``all_gather`` and one ``reduce_scatter`` over
@@ -70,6 +79,12 @@ import torch
 from torch import nn
 
 from ..obs.comm import muted, record_collective
+from ..obs.numerics import (
+    allreduce_digests,
+    array_digest,
+    mesh_group_digest,
+    numerics_tape,
+)
 from ..trainer import TrainStep
 from . import collectives
 from .comm_hooks import DefaultState, HookContext, allreduce_hook
@@ -286,8 +301,9 @@ class ShardedTrainStep(TrainStep):
                  comm_hook: Callable = allreduce_hook,
                  hook_state: Optional[DefaultState] = None,
                  batch_axes: Optional[tuple] = None, batch_spec: Optional[tuple] = None,
-                 accum_steps: int = 1, divergent_replicas: bool = False):
-        super().__init__(model, optimizer, loss_fn)
+                 accum_steps: int = 1, divergent_replicas: bool = False,
+                 numerics: Optional[bool] = None):
+        super().__init__(model, optimizer, loss_fn, numerics=numerics)
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if divergent_replicas and len(replica_axes) != 1:
@@ -335,7 +351,8 @@ class ShardedTrainStep(TrainStep):
                           comm_hook=self.comm_hook, hook_state=self.hook_state,
                           batch_axes=self.batch_axes, batch_spec=self.batch_spec,
                           accum_steps=self.accum_steps,
-                          divergent_replicas=self.divergent_replicas)
+                          divergent_replicas=self.divergent_replicas,
+                          numerics=self.numerics)
         step.losses = self.losses
         return step
 
@@ -434,14 +451,25 @@ class ShardedTrainStep(TrainStep):
             if dim is not None:
                 record_collective("all_gather", sa, payload_bytes=_full_bytes(p),
                                   axis_size=self.mesh.shape[sa])
+        num_on = self.numerics_on
         with self.mesh:
-            with swapped_parameters(self.model) as swap:
+            if num_on:
+                digs = mesh_group_digest(self._pieces(), "params/", tuple(self.mesh.axes))
+            with swapped_parameters(self.model) as swap, \
+                    numerics_tape() if num_on else contextlib.nullcontext() as tape:
                 for mb in micro:
                     for _, p, dim in self._params:
                         swap(p, self._full(p, dim))
                     loss = self.loss_fn(self.model, mb)
                     (loss / self.accum_steps).backward()
                     total = total + loss.detach() / self.accum_steps
+            if num_on:
+                # partial over the rank's batch: the sum over the batch axes
+                # counts each (row, token) once
+                acts = allreduce_digests(tape.digests(),
+                                         tuple(dict.fromkeys(_spec_axes(self.batch_spec))),
+                                         self.mesh.shape)
+                digs.update({f"act/{site}": d for site, d in acts.items()})
             self._book_grad_sync()
             grads = {name: p.grad for name, p, _ in self._params if p.grad is not None}
             if self.grad_reduce_axes:
@@ -460,8 +488,23 @@ class ShardedTrainStep(TrainStep):
                 record_collective("pmean", ax, total)
             with muted():
                 loss = collectives.all_mean(total, axes)
+            if num_on:
+                digs["loss"] = array_digest(loss)
+                digs.update(mesh_group_digest(self._pieces(grads=True), "grads/",
+                                              tuple(self.mesh.axes)))
+                self.last_digests = digs
         self.losses.append(loss)
         return params, opt_state, loss
+
+    def _pieces(self, grads: bool = False):
+        """``(path, piece, cut axes)`` of every parameter (or its gradient)
+        for ``obs.numerics.mesh_group_digest``: the pieces differ over the
+        shard axis when the parameter is sharded, and over the replica axis
+        when the replicas diverge."""
+        rep = tuple(self.replica_axes) if self.divergent_replicas else ()
+        for name, p, dim in self._params:
+            cut = ((self.shard_axis,) if dim is not None else ()) + rep
+            yield name, p.grad if grads else p, cut
 
 
 def _full_bytes(p: torch.Tensor) -> int:

@@ -80,6 +80,12 @@ from torch import nn
 
 from ..nn import functional as F
 from ..obs.comm import muted
+from ..obs.numerics import (
+    array_digest,
+    fold_digests,
+    mesh_group_digest,
+    numerics_tape,
+)
 from ..trainer import TrainStep
 from . import collectives
 from .fsdp import _GatherShard, accumulate_grads, strided_split, swapped_parameters
@@ -423,12 +429,19 @@ class GSPMDTrainStep(TrainStep):
     takes its piece; a batch tensor that carries a sharding
     (``mark_sharded``, as ``DataLoader(sharding=)`` gives) is taken as the
     rank's piece as it is if that sharding is ``batch_spec``, else gathered
-    and cut again, with a warning once per layout."""
+    and cut again, with a warning once per layout.
+
+    ``numerics=True`` (None: ``TDX_NUMERICS``) leaves the JAX step's digests
+    on ``last_digests``, of the whole tensors as the JAX step takes them on
+    its global arrays: ``params/`` and ``grads/`` folded from the pieces
+    over the mesh (``obs.numerics.mesh_group_digest``), ``act/`` from the
+    rank's batch folded over the batch axes, ``loss``; nothing is booked
+    into the comm audit for them, as the JAX step books nothing."""
 
     def __init__(self, model: nn.Module, optimizer, loss_fn: Callable, mesh: Mesh, *,
                  batch_spec: Sequence = (), accum_steps: int = 1,
-                 plan: Optional[ShardingPlan] = None):
-        super().__init__(model, optimizer, loss_fn)
+                 plan: Optional[ShardingPlan] = None, numerics: Optional[bool] = None):
+        super().__init__(model, optimizer, loss_fn, numerics=numerics)
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if plan is not None and plan.mesh is not mesh:
@@ -459,7 +472,8 @@ class GSPMDTrainStep(TrainStep):
         placed on ``mesh`` as the new plan places them."""
         plan = self.plan.with_mesh(mesh) if self.plan is not None else None
         step = type(self)(self.model, self.optimizer, self.loss_fn, mesh,
-                          batch_spec=self.batch_spec, accum_steps=self.accum_steps, plan=plan)
+                          batch_spec=self.batch_spec, accum_steps=self.accum_steps, plan=plan,
+                          numerics=self.numerics)
         step.losses = self.losses
         return step
 
@@ -552,23 +566,39 @@ class GSPMDTrainStep(TrainStep):
         opt_state.zero_grad(set_to_none=True)
         local = self.local_batch(batch)
         trained = [q for q in self._params if q.p.requires_grad]
+        num_on = self.numerics_on
+        mesh_axes = tuple(self.mesh.axis_names)
         with self.mesh, self._layout.installed() as swap:
+            if num_on:
+                digs = mesh_group_digest(((q.name, q.p, _spec_axes(q.spec()))
+                                          for q in self._params), "params/", mesh_axes)
 
             def loss_of(mb):
                 self._layout.swap_all(swap)
                 return self.loss_fn(self.model, mb)
 
-            loss, grads = accumulate_grads(loss_of, [q.p for q in trained], local,
-                                           self.accum_steps, strided_split)
+            with numerics_tape() if num_on else contextlib.nullcontext() as tape:
+                loss, grads = accumulate_grads(loss_of, [q.p for q in trained], local,
+                                               self.accum_steps, strided_split)
+            if num_on:
+                acts = fold_digests(tape.digests(), self.batch_axes)
+                digs.update({f"act/{site}": d for site, d in acts.items()})
             for q, g in zip(trained, grads):
                 axes = tuple(ax for ax in self.batch_axes if ax not in _spec_axes(q.spec()))
                 q.p.grad = collectives.all_mean(g, axes) if axes else g
                 if q in self._zero2:
                     piece, cut, _ = self._zero2[q]
                     piece.grad = q.p.grad[cut].contiguous()
+            if num_on:
+                grad_digs = mesh_group_digest(((q.name, q.p.grad, _spec_axes(q.spec()))
+                                               for q in self._params), "grads/", mesh_axes)
             opt_state.step()
             self._zero2_gather()
             if self.batch_axes:
                 loss = collectives.all_mean(loss, self.batch_axes)
+            if num_on:
+                digs["loss"] = array_digest(loss)
+                digs.update(grad_digs)
+                self.last_digests = digs
         self.losses.append(loss)
         return params, opt_state, loss

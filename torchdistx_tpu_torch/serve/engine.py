@@ -96,6 +96,7 @@ import numpy as np
 import torch
 
 from ..generation import (
+    _NUMERICS_SITES,
     _check_sampling_args,
     _make_fused_decode,
     _make_fused_spec_decode,
@@ -112,6 +113,13 @@ from ..obs.cost import (
     begin_allocator_card,
     finish_allocator_card,
     force_disabled as _cost_force_disabled,
+)
+from ..obs.numerics import (
+    NumericsBook,
+    StagedDigests,
+    numerics_enabled,
+    numerics_tape,
+    tap,
 )
 from ..obs.recompile import note_compile
 from ..obs.trace import get_tracer, request_trace_events
@@ -134,7 +142,7 @@ __all__ = ["ServeEngine"]
 
 #: the JAX engine's constructor arguments this port does not carry yet;
 #: passing any of them raises instead of being ignored
-_UNPORTED = ("numerics",)
+_UNPORTED: tuple = ()
 
 
 #: engine serials: a CUDA graph is keyed on the engine that captured it
@@ -265,10 +273,19 @@ class ServeEngine:
       tp_rule: deprecated: a bare ``sharding_rule(path, like)`` in place of
         the plan (``DeprecationWarning``; ``plan`` stays None).
       tp_axis: the mesh axis to tensor-shard over (default ``"tp"``).
+      numerics: the numerics observatory (``obs.numerics``); None reads
+        ``TDX_NUMERICS``.  Every dispatch digests its sampled logits (the
+        last prompt row of a prefill; all B rows of each decode step, the
+        whole (B, K+1) block of a verify) and, on an int8 cache, the
+        dequantization error and the scales of every quantize-on-write,
+        on the card and inside the captured persistent iteration.  The
+        digests are read only at the syncs the engine already counts
+        (``host_syncs``, ``decode_dispatches`` and every other counter are
+        unchanged) and folded into ``numerics_book``; a KV error above
+        half the largest scale records one ``kv_quant_err`` flight anomaly.
+        Not yet with a tensor-parallel mesh (tp > 1): ``NotImplementedError``.
       device: where the engine runs; defaults to the model's device (the
         model's own default is ``"cuda"``), and must equal it.
-
-    ``numerics`` raises ``NotImplementedError`` (not ported yet).
     """
 
     def __init__(
@@ -303,6 +320,7 @@ class ServeEngine:
         plan: Any = None,
         tp_rule: Any = None,
         tp_axis: str = "tp",
+        numerics: Optional[bool] = None,
         device=None,
         **unported,
     ):
@@ -354,6 +372,18 @@ class ServeEngine:
         self.model = model
         self._setup_tp(model, params, mesh, plan, tp_rule, tp_axis, decode_mode)
         self._serial = next(_SERIALS)
+        # the numerics observatory: digests ride each dispatch and are read
+        # at its existing sync (the JAX engine's zero-overhead contract)
+        self.numerics = numerics_enabled() if numerics is None else bool(numerics)
+        if self.numerics and self.tp > 1:
+            raise NotImplementedError(
+                "numerics=True with a tensor-parallel mesh (tp > 1) is not "
+                "ported yet (ROADMAP A.6: numerics under TP serving): a rank's "
+                "head-split KV error digests must fold over tp")
+        self.numerics_book = NumericsBook()
+        self._pending_digests: list = []
+        self._kv_quant_alarmed = False
+        self.numerics_harvest_errors = 0
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.eos_token = eos_token
@@ -443,23 +473,26 @@ class ServeEngine:
                 model, self._sampler, eos_token=eos_token,
                 max_len=self.max_len, ring_capacity=self.ring_capacity,
                 speculate=self.speculate, ngram=self.spec_ngram,
+                numerics=self.numerics,
             )
         elif self._persistent:
             self._decode = _make_persistent_decode(
                 model, self._sampler, eos_token=eos_token,
                 max_len=self.max_len, ring_capacity=self.ring_capacity,
-                stream=persistent_stream,
+                stream=persistent_stream, numerics=self.numerics,
             )
         elif self.speculate:
             self._decode = _make_fused_spec_decode(
                 model, self._sampler, eos_token=eos_token,
                 max_len=self.max_len, decode_chunk=self.decode_chunk,
                 speculate=self.speculate, ngram=self.spec_ngram,
+                numerics=self.numerics,
             )
         else:
             self._decode = _make_fused_decode(
                 model, self._sampler, eos_token=eos_token,
                 max_len=self.max_len, decode_chunk=self.decode_chunk,
+                numerics=self.numerics,
             )
         self._last_tok = np.zeros(self.num_slots, np.int64)
         self._temps = np.zeros(self.num_slots, np.float32)
@@ -926,6 +959,7 @@ class ServeEngine:
                 continue
             tok = int(pending[0].item())
             self.metrics.count("host_syncs")
+            self._harvest_numerics()
             self._record_first(req, tok, now)
             self._check_finished(req, tok, now)
         self._record_drain()  # the flush above was a drain boundary
@@ -1275,8 +1309,10 @@ class ServeEngine:
     def _static_key(self) -> tuple:
         """The engine's static geometry: programs of engines with equal
         keys are shared, as the JAX engine's jit store shares them."""
+        # numerics keys the observatory: a digesting program has one more
+        # output and never shares with the plain one (the JAX engine's key)
         return (self.num_slots, self.max_len, self.top_k, self.top_p,
-                self.page_size, self.kv_dtype)
+                self.page_size, self.kv_dtype, self.numerics)
 
     def _note_program(self, key: tuple) -> bool:
         """Register ``key`` + the static key on the model; True when new."""
@@ -1440,7 +1476,7 @@ class ServeEngine:
     def _sample_first(self, logits, true_len: int, temp: float, seed: int):
         """Sampler step 0 at the last real prompt position."""
         dev = logits.device
-        return self._sampler(logits[:, true_len - 1, :],
+        return self._sampler(tap("logits", logits[:, true_len - 1, :]),
                              torch.tensor([temp], dtype=torch.float32, device=dev),
                              torch.tensor([seed], dtype=torch.int64, device=dev),
                              torch.zeros(1, dtype=torch.int64, device=dev))
@@ -1518,7 +1554,13 @@ class ServeEngine:
             name, key = f"serve/prefill/b{bucket}", ("serve_prefill", bucket)
         with self._dispatch(name, key, "serve/prefill", self.metrics.prefill_s.record):
             tokens = torch.as_tensor(padded, device=self.device)
-            tok = self._prefill(tokens, start, ln, slot, req.temperature, req.seed)
+            # digested as tapped, not deferred: a prefill's KV error tensors
+            # run to hundreds of MB at full width
+            with (numerics_tape(sites=_NUMERICS_SITES, device=self.device)
+                  if self.numerics else contextlib.nullcontext()) as tape:
+                tok = self._prefill(tokens, start, ln, slot, req.temperature, req.seed)
+            if tape is not None:
+                self._stage_numerics(tape.digests())
             if final and not self._persistent:
                 tok = int(tok[0].item())  # host sync: the first token exists
         self.metrics.count("tokens_prefilled", bucket)
@@ -1641,9 +1683,51 @@ class ServeEngine:
             self._pending_first[slot] = tok
             return
         self.metrics.count("host_syncs")
+        self._harvest_numerics()
         self._record_first(req, tok, now)
         self._check_finished(req, tok, now)
         self._record_drain()
+
+    def _stage_numerics(self, digests) -> None:
+        """Park one dispatch's digests with their copy to the host already
+        queued (:class:`StagedDigests`), before the dispatch's own sync."""
+        try:
+            self._pending_digests.append(StagedDigests([digests]))
+        except Exception:  # telemetry must not kill serving
+            self.numerics_harvest_errors += 1
+
+    def _harvest_numerics(self) -> None:
+        """Fold every parked dispatch digest into ``numerics_book``: called
+        only right after a counted ``host_syncs``, which the copies queued
+        at staging came before, so reading them copies nothing and waits
+        on nothing (no sync of its own, counted or not).  A KV dequantization
+        error above the round-to-nearest bound ``s / 2`` (``s`` the largest
+        scale seen) records ONE ``kv_quant_err`` flight anomaly per
+        engine.  A failed harvest loses a window, never the run."""
+        if not self._pending_digests:
+            return
+        pend, self._pending_digests = self._pending_digests, []
+        try:
+            for staged in pend:
+                for tree in staged.read():
+                    self.numerics_book.update_tree(tree)
+            book = self.numerics_book
+            err = book.digest("kv_quant_err")
+            if err is not None and err.count:
+                self.metrics.observe_kv_quant(err.max_abs, err.rms)
+                sc = book.digest("kv_quant_scale")
+                bound = 0.5 * sc.max_abs if sc is not None else None
+                if (bound and err.max_abs > bound * (1.0 + 1e-6)
+                        and not self._kv_quant_alarmed):
+                    self._kv_quant_alarmed = True
+                    from ..obs.flight import get_flight_recorder
+
+                    get_flight_recorder().record(
+                        "anomaly", anomaly="kv_quant_err",
+                        err_max=float(err.max_abs), bound=float(bound))
+            book.emit_counter_tracks(get_tracer())
+        except Exception:  # telemetry must not kill serving
+            self.numerics_harvest_errors += 1
 
     def _record_first(self, req: Request, tok: int, now: float) -> None:
         self._last_tok[req.slot] = tok
@@ -1691,12 +1775,15 @@ class ServeEngine:
                             self.metrics.decode_s.record) as timing:
             out = self._decode(self.cache.kv, *self._decode_args())
             self.cache.kv = out[0]
+            if self.numerics:
+                self._stage_numerics(out[-1])
             if self.speculate:
                 self._hist = out[3]
                 ys, cs = (t.cpu().numpy() for t in out[1:3])  # ONE host sync
             else:
                 block = out[1].cpu().numpy()  # ONE host sync per K slot-steps
         self.metrics.count("host_syncs")
+        self._harvest_numerics()
         self.metrics.count("decode_dispatches")
         self.metrics.count("decode_steps", k_steps)
         self._record_tp_collectives(self.num_slots * (self.speculate + 1), k_steps)
@@ -1767,7 +1854,10 @@ class ServeEngine:
         captured = self._graph_captures()
         with self._dispatch(name, key, "serve/decode",
                             self.metrics.decode_s.record) as timing:
-            _, ring, marks, it = self._decode(cache.kv, *args, firsts=pending)
+            out = self._decode(cache.kv, *args, firsts=pending)
+            _, ring, marks, it = out[:4]
+            if self.numerics:
+                self._stage_numerics(out[4])
             if self._graph_captures() > captured:
                 # this engine's own CUDA graph: a program of its own
                 self._note_program(("graph", self._serial))
@@ -1787,6 +1877,7 @@ class ServeEngine:
         self.stream_events = []
         self.poll_stream()
         self.metrics.count("host_syncs")  # the drain IS the sync
+        self._harvest_numerics()
         self.metrics.count("ring_drains")
         self.metrics.count("decode_dispatches")
         self.metrics.count("decode_steps", n_it)
@@ -1891,6 +1982,7 @@ class ServeEngine:
             # a finish before the first drain (a deadline): the prefill did
             # sample a token; fetch it, at the cost of one sync
             self.metrics.count("host_syncs")
+            self._harvest_numerics()
             self._record_first(req, int(pending[0].item()), now)
         self.scheduler.retire(req)
         self.cache.retire(slot)  # paged: also rewires the table to scratch

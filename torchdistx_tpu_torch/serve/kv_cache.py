@@ -51,6 +51,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from ..obs.numerics import tap, tap_made
 from .prefix_cache import SCRATCH_PAGE
 
 __all__ = [
@@ -157,6 +158,23 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
+def _dequant_err(orig: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return orig.float() - dequantize_kv(q, scale)
+
+
+def _tap_quant(orig: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
+    """Numerics-observatory probe at a quantize-on-write site: the digest of
+    the dequantization error ``orig - q * scale`` and of the scale rows
+    (``max_abs`` of the scales is the ``s`` of the round-to-nearest bound
+    ``|err| <= s / 2``), as (rows, D) and (rows, 1) pieces that a decode
+    step's deferring tape concatenates over its writes.  Nothing without an
+    active tape."""
+    d = orig.shape[-1]
+    tap_made("kv_quant_err", _dequant_err, orig.reshape(-1, d), q.reshape(-1, d),
+             scale.reshape(-1, 1))
+    tap("kv_quant_scale", scale)
+
+
 def quantize_cache(kv: Any) -> List[tuple]:
     """Pairs -> per-layer ``(k, v, k_scale, v_scale)`` 4-tuples."""
     out: List[tuple] = []
@@ -190,6 +208,7 @@ def write_slot(kv: List[tuple], slab: List[tuple], slot: int) -> List[tuple]:
             ck, cv, cks, cvs = entry
             for data, scales, x in ((ck, cks, sk), (cv, cvs, sv)):
                 qx, sx = quantize_kv(x[0])
+                _tap_quant(x[0], qx, sx)
                 data[slot, :n].copy_(qx)
                 scales[slot, :n].copy_(sx)
             continue
@@ -241,6 +260,7 @@ def paged_scatter_rows(kv: Any, view: Any, table_row: torch.Tensor,
             for data, scales, seg in ((entry[0], entry[2], seg_k),
                                       (entry[1], entry[3], seg_v)):
                 qx, sx = quantize_kv(seg)
+                _tap_quant(seg, qx, sx)
                 _flat(data)[rows] = qx
                 _flat(scales)[rows] = sx
             continue

@@ -43,6 +43,16 @@ the CUDA caching allocator at the first step (peak and temp bytes, the
 analytic FLOPs).  A card resets the allocator's peak statistics, which a
 caller measuring peaks reads, so the port's default is off where JAX's is
 on.
+
+The numerics observatory (``obs.numerics``): a step built with
+``numerics=True`` (:class:`TrainStep`, ``parallel.ShardedTrainStep``,
+``parallel.GSPMDTrainStep``; None reads ``TDX_NUMERICS``) leaves its
+digests on ``step.last_digests``: ``params/<group>`` before the update,
+``act/<site>`` from the model's taps, ``loss`` and ``grads/<group>``, the
+JAX package's sites.  The trainer folds them into ``numerics_book`` at each
+log boundary, after the loss has been read (no sync of its own), and the
+failure and rollback flight records name the earliest site whose
+nonfinite count went positive (``nonfinite_site``).
 """
 
 from __future__ import annotations
@@ -61,6 +71,14 @@ import torch
 from .obs.blackbox import resolve_record
 from .obs.comm import CommProfile, comm_audit
 from .obs.flight import get_flight_recorder
+from .obs.numerics import (
+    NumericsBook,
+    StagedDigests,
+    array_digest,
+    numerics_enabled,
+    numerics_tape,
+    tree_group_digest,
+)
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.failure import StepFailure, apply_failure_policy
 
@@ -73,18 +91,37 @@ class TrainStep:
     """``step(model, optimizer, batch) -> (model, optimizer, loss)``:
     ``loss_fn(model, batch)`` forward, backward, ``optimizer.step()``.
     The loss comes back detached and unsynchronized; each one is also
-    kept in ``losses``."""
+    kept in ``losses``.  ``numerics=True`` (None: ``TDX_NUMERICS``) leaves
+    the step's digests on ``last_digests`` (module docstring): device
+    tensors, read by the trainer at its next sync."""
 
-    def __init__(self, model: torch.nn.Module, optimizer, loss_fn: Callable):
+    def __init__(self, model: torch.nn.Module, optimizer, loss_fn: Callable, *,
+                 numerics: Optional[bool] = None):
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.losses: list = []
+        self.numerics = numerics
+        self.last_digests: Optional[dict] = None
+
+    @property
+    def numerics_on(self) -> bool:
+        return numerics_enabled() if self.numerics is None else bool(self.numerics)
 
     def __call__(self, params, opt_state, batch):
         opt_state.zero_grad(set_to_none=True)
-        loss = self.loss_fn(params, batch)
+        num_on = self.numerics_on
+        if num_on:
+            digs = tree_group_digest(self.model.named_parameters(), "params/")
+        with numerics_tape() if num_on else contextlib.nullcontext() as tape:
+            loss = self.loss_fn(params, batch)
         loss.backward()
+        if num_on:
+            digs.update({f"act/{s}": d for s, d in tape.digests().items()})
+            digs["loss"] = array_digest(loss)
+            digs.update(tree_group_digest(
+                ((n, p.grad) for n, p in self.model.named_parameters()), "grads/"))
+            self.last_digests = digs
         opt_state.step()
         loss = loss.detach()
         self.losses.append(loss)
@@ -186,6 +223,10 @@ class Trainer:
         # steps book one execution of their program, a ZeRO-2 step its
         # closed form at each dispatch, and a reshard its migration
         self.comm_profile = CommProfile()
+        # the numerics observatory: the step's digests (last_digests), read
+        # at the log boundaries
+        self.numerics_book = NumericsBook()
+        self.numerics_harvest_errors = 0
         self.metrics: dict = {
             "steps_total": 0,
             "tokens_total": 0,
@@ -366,6 +407,33 @@ class Trainer:
                            seconds=round(dt, 3))
         return mode
 
+    def _stage_numerics(self) -> Optional[StagedDigests]:
+        """The step's digests (``step.last_digests``) with their copy to the
+        host queued, at a log boundary before the loss's sync."""
+        digs = getattr(self.step, "last_digests", None)
+        if digs is None:
+            return None
+        try:
+            return StagedDigests([digs])
+        except Exception:
+            self.numerics_harvest_errors += 1
+            return None
+
+    def _harvest_numerics(self, staged: Optional[StagedDigests]) -> None:
+        """Fold staged digests into ``numerics_book`` right after the loss
+        was read: that sync came after the copy, so reading copies nothing
+        and waits on nothing.  A failed harvest is counted, never raised."""
+        if staged is None:
+            return
+        try:
+            (tree,) = staged.read()
+            self.numerics_book.update_tree(tree, step=self.global_step)
+            from .obs.trace import get_tracer
+
+            self.numerics_book.emit_counter_tracks(get_tracer())
+        except Exception:
+            self.numerics_harvest_errors += 1
+
     def _update_derived_metrics(self) -> None:
         sps = self.metrics["steps_per_sec"]
         if sps and self.tokens_per_batch:
@@ -480,10 +548,12 @@ class Trainer:
                 warmup_pending = False
                 self._warmed = True
             if self.global_step % self.log_every == 0 and window_steps > 0:
+                staged = self._stage_numerics()
                 with self._watch("trainer/step_sync"):
                     _sync(loss)
                 dt = time.perf_counter() - t_window
                 last_loss = float(loss)
+                self._harvest_numerics(staged)
                 if self.failure_detector is not None:
                     try:
                         if hasattr(self.failure_detector, "check_devices"):
@@ -494,15 +564,19 @@ class Trainer:
                     except StepFailure as failure:
                         self.metrics["failures_total"] += 1
                         failed_step = self.global_step  # before any rollback
+                        # the EARLIEST tap site whose nonfinite count went
+                        # positive: where a NaN was born, not only the loss
                         self.flight.record("failure", step=failed_step,
                                            failure_kind=failure.kind, loss=last_loss,
-                                           last_checkpoint=self._last_checkpoint)
+                                           last_checkpoint=self._last_checkpoint,
+                                           nonfinite_site=self.numerics_book.first_nonfinite_site())
                         t_rb = time.perf_counter()
                         action = apply_failure_policy(self, failure, self.on_failure)
                         self.flight.record("rollback", step=failed_step, action=action,
                                            restored_step=self.global_step,
                                            checkpoint=self._last_checkpoint,
-                                           seconds=round(time.perf_counter() - t_rb, 3))
+                                           seconds=round(time.perf_counter() - t_rb, 3),
+                                           nonfinite_site=self.numerics_book.first_nonfinite_site())
                         # the dump is the incident's evidence, written even
                         # though the run goes on
                         self._safe_dump(f"failure:{failure.kind}")

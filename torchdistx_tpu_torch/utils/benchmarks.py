@@ -30,7 +30,11 @@ slice with its slice of the optimizer state.  The dict then also holds
 ``zero2_step_wire_bytes`` (``plan.step_wire_bytes``: the closed form a
 step books into the comm audit) and ``optimizer_bytes()``, which returns
 ``(bytes of the whole state, bytes this rank holds)`` once a step has made
-the state.  The numerics taps are not ported yet and raise.
+the state.  ``numerics=True`` builds the step with the numerics observatory
+(``obs.numerics``: ``params/``, ``act/``, ``loss`` and ``grads/`` digests a
+step, the JAX workload's ``TDX_NUMERICS`` taps plus the activations), which
+the trainer harvests at every step (``log_every=1``) into
+``workload["trainer"].numerics_book``.
 
 The T5 workload is the JAX script's step: ``deferred_init`` of
 ``T5.from_name(name, use_flash=True)``, ``materialize_module``,
@@ -97,8 +101,6 @@ def build_train_workload(
     if optimizer not in _OPTIMIZERS:
         raise ValueError(f"optimizer must be one of {sorted(_OPTIMIZERS)}, "
                          f"got {optimizer!r}")
-    if numerics:
-        raise NotImplementedError("numerics taps are not ported yet")
     if remat_policy != "full" and not remat:
         raise ValueError("remat_policy has no effect without remat=True")
 
@@ -131,14 +133,14 @@ def build_train_workload(
     flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.dim * seq
     extra, make_step = {}, None
     if zero2:
-        extra, make_step = _zero2_arm(model)
+        extra, make_step = _zero2_arm(model, numerics)
     return _workload(model, loss_fn, (tokens, labels), name, batch, seq, n_params,
                      flops_per_token, init_s, optimizer, make_step=make_step,
                      remat=remat, remat_policy=remat_policy, fused_ce=fused_ce,
-                     zero2=zero2, **extra)
+                     zero2=zero2, numerics=numerics, **extra)
 
 
-def _zero2_arm(model):
+def _zero2_arm(model, numerics: bool = False):
     """The ZeRO-2 plan over every rank and the step that realizes it."""
     from ..parallel import GSPMDTrainStep, ShardingPlan, create_mesh
     from ..parallel.multihost import process_count
@@ -153,7 +155,7 @@ def _zero2_arm(model):
              "zero2_step_wire_bytes": plan.step_wire_bytes(model)}
 
     def make_step(opt, loss_fn):
-        return (GSPMDTrainStep(model, opt, loss_fn, mesh, plan=plan),
+        return (GSPMDTrainStep(model, opt, loss_fn, mesh, plan=plan, numerics=numerics),
                 lambda: optimizer_bytes(opt))
 
     return extra, make_step
@@ -370,7 +372,7 @@ def _workload(model, loss_fn, batch_data, name, batch, seq, n_params,
 
     opt = _OPTIMIZERS[optimizer](model.parameters())
     if make_step is None:
-        step = TrainStep(model, opt, loss_fn)
+        step = TrainStep(model, opt, loss_fn, numerics=flags.get("numerics", False))
     else:
         step, flags["optimizer_bytes"] = make_step(opt, loss_fn)
     trainer = Trainer(step, tokens_per_batch=batch * seq, log_every=1,
