@@ -1744,3 +1744,66 @@ def test_trainer_numerics_harvest_makes_no_sync_on_the_card(cuda, monkeypatch):
     assert tr.numerics_book.harvests == 2
     assert {s.split("/")[0] for s in tr.numerics_book.sites()} == {
         "params", "act", "loss", "grads"}
+
+
+# -- the counted cost card on the card ----------------------------------------------
+
+
+def _counted_llama_step(device, dtype):
+    """One train step of a small Llama through the flash path (head_dim 64,
+    the kernels' smallest), counted by ``obs.cost.compute_cost_card``."""
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.obs.cost import compute_cost_card
+
+    tt.manual_seed(0)
+    m = Llama.from_name("tiny", device=device, dtype=dtype, dim=256, n_heads=4,
+                        vocab_size=512, max_seq_len=128, use_flash=True)
+    opt = tt.AnyPrecisionAdamW(m.parameters(), lr=1e-3)
+    step = tt.TrainStep(m, opt, lambda mm, b: F.cross_entropy(mm(b[0]), b[1]))
+    g = torch.Generator().manual_seed(0)
+    batch = tuple(torch.randint(0, 512, (2, 128), generator=g).to(device) for _ in range(2))
+    return compute_cost_card(step, m, opt, batch, name="step"), step
+
+
+def test_counted_step_flops_on_the_card_equal_the_cpus(cuda):
+    """The kernels book their formulas where the CPU counts their plain
+    versions: the same step counts the same FLOPs on both."""
+    card, _ = _counted_llama_step(cuda, torch.bfloat16)
+    cpu, _ = _counted_llama_step("cpu", torch.float32)
+    assert card.flops == cpu.flops
+    assert cpu.kernel_flops == 0 and card.kernel_flops > 0
+    launches = card.kernel_launches
+    assert launches["flash_fwd_cuda"] == 2 and launches["flash_bwd_dkv_cuda"] == 2
+    assert card.peak_source == "cuda_allocator" and card.peak_bytes > 0
+
+
+def test_trainer_card_is_the_first_step_itself_on_the_card(cuda, monkeypatch):
+    import itertools
+
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.obs.cost import default_book
+
+    monkeypatch.delenv("TDX_COST_CARDS", raising=False)
+    ref, ref_step = _counted_llama_step(cuda, torch.bfloat16)
+
+    def fit(card):
+        tt.manual_seed(0)
+        m = Llama.from_name("tiny", device=cuda, dtype=torch.bfloat16, dim=256, n_heads=4,
+                            vocab_size=512, max_seq_len=128, use_flash=True)
+        opt = tt.AnyPrecisionAdamW(m.parameters(), lr=1e-3)
+        step = tt.TrainStep(m, opt, lambda mm, b: F.cross_entropy(mm(b[0]), b[1]))
+        g = torch.Generator().manual_seed(0)
+        batch = tuple(torch.randint(0, 512, (2, 128), generator=g).to(cuda) for _ in range(2))
+        tr = tt.Trainer(step, log_every=1, log_fn=lambda x: None, cost_card=card,
+                        tokens_per_batch=256, flops_per_token=1e6)
+        tr.fit(itertools.repeat(batch), 3)
+        return tr, [float(x) for x in step.losses]
+
+    tr, losses = fit(True)
+    assert len(losses) == 3  # no extra execution for the card
+    assert losses == fit(False)[1]  # a counted step trains as an uncounted one
+    assert tr.cost_card is default_book().get("trainer/step")
+    assert tr.cost_card.flops == ref.flops and len(ref_step.losses) == 1
+    assert tr.metrics["mfu_xla"] > 0 and 0 < tr.metrics["goodput"] <= 1

@@ -41,7 +41,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         "torchdistx_tpu_torch.serve.workload, torchdistx_tpu_torch.obs.blackbox, "
         "torchdistx_tpu_torch.serve.stream, torchdistx_tpu_torch.serve.graph_loop, "
         "torchdistx_tpu_torch.obs.numerics, torchdistx_tpu_torch.obs.ledger, "
-        "torchdistx_tpu_torch.obs.gate\n"
+        "torchdistx_tpu_torch.obs.gate, torchdistx_tpu_torch.analysis, "
+        "torchdistx_tpu_torch.analysis.core, torchdistx_tpu_torch.analysis.rules, "
+        "torchdistx_tpu_torch.ops._cost\n"
         "import torch.distributed as dist\n"
         "from torchdistx_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -60,7 +62,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
 
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "scripts/torch_replay_session.py", "scripts/torch_perf_gate.py"]
+    + ["chip_smoke.py", "scripts/torch_replay_session.py", "scripts/torch_perf_gate.py",
+       "scripts/torch_tdx_lint.py"]
 )
 def test_source_has_no_jax_import(path):
     tree = ast.parse((ROOT / path).read_text())

@@ -11,7 +11,8 @@ The layers the serving engine and the fleet need, each touching no JAX:
   capacity plan the engine admits against, and the sharding audit.
 - :mod:`.comm` — the collective-traffic audit (``tdx-comm-v1``): op counts
   and analytic bytes per mesh axis from every collective choke point.
-- :mod:`.cost` — per-program cost cards from the CUDA caching allocator.
+- :mod:`.cost` — per-program cost cards from the CUDA caching allocator,
+  and counted cards (FLOPs of the aten products and the kernels' formulas).
 - :mod:`.flight` / :mod:`.watchdog` — the bounded flight recorder and the
   dispatch-stall watchdog that dumps it.
 - :mod:`.slo` — declarative latency objectives over request histories.
@@ -35,7 +36,7 @@ from .blackbox import (
     validate_session_jsonl,
 )
 from .comm import CommProfile, comm_audit, record_collective
-from .cost import CostBook, CostCard, validate_cost_card
+from .cost import CostBook, CostCard, compute_cost_card, validate_cost_card
 from .flight import FlightRecorder, get_flight_recorder
 from .gate import (
     build_expectations,
@@ -142,6 +143,7 @@ __all__ = [
     "device_hbm_budget",
     "CostBook",
     "CostCard",
+    "compute_cost_card",
     "validate_cost_card",
     "DispatchWatchdog",
     "SESSION_SCHEMA",

@@ -15,10 +15,24 @@ A probe resets the allocator's peak statistics: a caller that reads
 ``max_memory_allocated`` across a first dispatch sees only the peak since
 the probe.
 
-FLOPs and bytes accessed stay None: nothing in the port counts them
-(``torch.utils.flop_counter.FlopCounterMode`` does not see the kernels
-the port launches through ctypes), and a card never invents a count.
-On the CPU no card is taken.
+A **counted** card (:func:`compute_cost_card`, :func:`counted_card`; the
+``Trainer``'s, taken on its first step) also counts FLOPs.  The port has
+no compile-only path, so the program EXECUTES once under a dispatch mode
+that counts the aten matrix products by
+``torch.utils.flop_counter.FlopCounterMode``'s own per-op formulas, while
+every kernel the port launches through ctypes (which no counter can see)
+books its launch's FLOPs from its shapes, one formula per kernel
+(``ops._cost``).  The mode runs every op as dispatched:
+``FlopCounterMode`` itself decomposes the ops that have an implicit
+decomposition (``silu_backward`` among them), which changes a step's bits,
+and a counted step must train as an uncounted one does.  ``card.flops`` is the sum,
+``kernel_flops`` the kernels' share, ``kernel_launches`` the launches by
+wrapper, and ``flops_source`` names the source, ``"flop_counter+kernels"``
+(as ``peak_source`` names the peak's).  On the CPU the wrappers run their
+plain versions, which the counter sees, so the CPU and the card count the
+same program.  Bytes accessed stay None: nothing counts the aten ops'
+bytes, and a card never invents a count.  On the CPU a card has no
+allocator peak.
 
 Exports, as in the JAX package: :meth:`CostBook.collector` projects every
 card as ``tdx_cost_*{program=...}`` gauges through an ``obs.metrics``
@@ -28,15 +42,20 @@ registry, and recording a card emits a counter-track sample on the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 __all__ = [
     "CostCard",
     "CostBook",
+    "compute_cost_card",
+    "counted_card",
+    "default_book",
+    "span_mfu",
     "begin_allocator_card",
     "finish_allocator_card",
     "cards_enabled",
@@ -46,6 +65,10 @@ __all__ = [
 ]
 
 CARD_SCHEMA = "tdx-cost-v1"
+
+#: ``flops_source`` of a counted card: the aten products FlopCounterMode
+#: saw plus the kernels' formulas
+COUNTED_FLOPS = "flop_counter+kernels"
 
 #: the peak sources that are properties of a program, not of the load
 _PROGRAM_PEAK_SOURCES = ("xla_peak", "arg+out+temp", "cuda_allocator")
@@ -74,6 +97,12 @@ class CostCard:
     platform: Optional[str] = None
     #: the analytic model's FLOP count for one execution of this program
     analytic_flops: Optional[float] = None
+    #: what counted ``flops`` ("unavailable": nothing did)
+    flops_source: str = "unavailable"
+    #: of ``flops``, what the hand-written kernels' formulas booked
+    kernel_flops: Optional[float] = None
+    #: the kernel launches the count saw, by wrapper name
+    kernel_launches: Optional[Dict[str, int]] = None
 
     @property
     def arithmetic_intensity(self) -> Optional[float]:
@@ -89,8 +118,13 @@ class CostCard:
         return None
 
     def to_json(self) -> dict:
+        """The JAX card's JSON; a counted card adds ``flops_source``,
+        ``kernel_flops`` and ``kernel_launches``."""
         d = {"schema": CARD_SCHEMA}
         d.update(dataclasses.asdict(self))
+        if self.flops_source == "unavailable":
+            for key in ("flops_source", "kernel_flops", "kernel_launches"):
+                del d[key]
         d["arithmetic_intensity"] = self.arithmetic_intensity
         d["flop_attribution"] = self.flop_attribution
         return d
@@ -122,6 +156,98 @@ def force_disabled() -> bool:
     """True when ``TDX_COST_CARDS`` is explicitly set to an off spelling:
     the kill switch that turns every capture site off."""
     return _env_state() is False
+
+
+def _device_of(tree) -> Optional["torch.device"]:  # noqa: F821
+    """The device of the first tensor (or module parameter) in ``tree``."""
+    import torch
+
+    leaves, _ = torch.utils._pytree.tree_flatten(tree)
+    for leaf in leaves:
+        if isinstance(leaf, torch.nn.Module):
+            leaf = next(leaf.parameters(), None)
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return None
+
+
+_PRODUCT_COUNTER = None
+
+
+def _product_counter():
+    """A fresh dispatch mode whose ``flops`` adds, for every aten op that
+    runs, ``FlopCounterMode``'s formula of that op (matrix products and
+    convolutions; 0 for the rest), the op executed exactly as dispatched."""
+    global _PRODUCT_COUNTER
+    if _PRODUCT_COUNTER is None:
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import flop_registry
+
+        class ProductCounter(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.flops = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                count = flop_registry.get(func._overloadpacket)
+                if count is not None:
+                    self.flops += int(count(*args, **kwargs, out_val=out))
+                return out
+
+        _PRODUCT_COUNTER = ProductCounter
+    return _PRODUCT_COUNTER()
+
+
+@contextlib.contextmanager
+def counted_card(name: str, *, device=None, analytic_flops: Optional[float] = None,
+                 book: Optional["CostBook"] = None) -> Iterator[CostCard]:
+    """Count what the body executes into the card it yields (module
+    docstring): the aten products' FLOPs by ``FlopCounterMode``'s formulas
+    plus the kernels' booked ones, and on a CUDA ``device`` the allocator's
+    peak and temp bytes
+    (:func:`begin_allocator_card`, which resets the peak statistics).  The
+    card is filled when the body ends, and with ``book`` recorded; a body
+    that raises leaves it unfilled."""
+    import torch
+
+    from ..ops import _cost
+
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda:
+        card = begin_allocator_card(name, device, analytic_flops=analytic_flops)
+    else:
+        from .recompile import current_scope
+
+        card = CostCard(program=name, scope=current_scope(), analytic_flops=analytic_flops,
+                        platform="cpu" if device is not None else None)
+    counter = _product_counter()
+    with counter, _cost.tally() as kernels:
+        yield card
+    card.kernel_flops = float(kernels.flops)
+    card.kernel_launches = dict(kernels.launches)
+    card.flops = float(counter.flops + kernels.flops)
+    card.flops_source = COUNTED_FLOPS
+    if cuda:
+        finish_allocator_card(card, device)
+    if book is not None:
+        book.record(card)
+
+
+def compute_cost_card(fn: Any, *args: Any, name: str,
+                      analytic_flops: Optional[float] = None,
+                      book: Optional["CostBook"] = None, **kwargs: Any) -> CostCard:
+    """The counted card of one call ``fn(*args, **kwargs)``, counterpart of
+    the JAX function, which lowers and compiles only.  The port has no
+    compile-only path: this EXECUTES ``fn`` once (a train step takes its
+    step; pass copies where that matters) inside :func:`counted_card` on
+    the device of the first tensor or module parameter in the arguments.
+    With ``book`` the card is also recorded."""
+    device = _device_of((args, kwargs))
+    with counted_card(name, device=device, analytic_flops=analytic_flops, book=book) as card:
+        fn(*args, **kwargs)
+    return card
 
 
 def begin_allocator_card(name: str, device, *,
@@ -269,6 +395,36 @@ class CostBook:
         return collect
 
 
+_DEFAULT: Optional[CostBook] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_book() -> CostBook:
+    """Process-wide book for components without a natural owner (the
+    trainer's step program).  Engine-owned books (``ServeEngine.cost_book``)
+    stay separate so two engines' programs never collide."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = CostBook()
+        return _DEFAULT
+
+
+def span_mfu(
+    card: CostCard,
+    *,
+    executions: int,
+    seconds: Optional[float],
+    peak_flops: Optional[float],
+) -> Optional[float]:
+    """Measured MFU of one program's span: counted FLOPs x how many times
+    it ran, over the span's wall seconds and the card's peak.  None when
+    any input is missing (no count, no peak, no time recorded)."""
+    if not (card.flops and executions and seconds and peak_flops):
+        return None
+    return card.flops * executions / (seconds * peak_flops)
+
+
 def roofline(
     card: CostCard,
     *,
@@ -299,8 +455,9 @@ def roofline(
 def validate_cost_card(card, where: str = "card") -> List[str]:
     """Schema errors for one serialized card (empty list == valid).  The
     JAX package's rules, except that ``flops`` and ``bytes_accessed`` may
-    be null on an allocator card: the key must be there, and a value
-    that is there must be a finite non-negative number."""
+    be null on an allocator card, and ``bytes_accessed`` on a counted one:
+    the key must be there, and a value that is there must be a finite
+    non-negative number."""
     errs: List[str] = []
     if not isinstance(card, dict):
         return [f"{where}: not an object"]
@@ -311,7 +468,9 @@ def validate_cost_card(card, where: str = "card") -> List[str]:
     src = card.get("peak_source")
     for key in ("flops", "bytes_accessed"):
         v = card.get(key)
-        if key not in card or (v is None and src != "cuda_allocator"):
+        nullable = src == "cuda_allocator" or (
+            key == "bytes_accessed" and card.get("flops_source") == COUNTED_FLOPS)
+        if key not in card or (v is None and not nullable):
             errs.append(f"{where}: missing {key}")
         elif v is None:
             continue

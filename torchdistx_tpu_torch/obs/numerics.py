@@ -266,10 +266,9 @@ def allreduce_digests(digests: Dict[str, Dict[str, Any]], axes,
 def fold_digests(digests: Dict[str, Dict[str, Any]], axes) -> Dict[str, Dict[str, Any]]:
     """Sum (``max_abs``: max) ``{site: digest}`` over each of ``axes`` of
     the active mesh, books nothing: three all-reduces of the packed fields
-    on each axis's group through ``parallel.collectives``' axes (bytes
-    counted in its ``payload_bytes``).  Every rank gets the same result."""
-    import torch.distributed as dist
-
+    on each axis's group through ``parallel.collectives``' private helpers
+    (bytes counted in its ``payload_bytes``).  Every rank gets the same
+    result."""
     from ..parallel import collectives
 
     axes = tuple(axes)
@@ -281,12 +280,8 @@ def fold_digests(digests: Dict[str, Dict[str, Any]], axes) -> Dict[str, Dict[str
     sums = torch.stack([digests[s]["sumsq"].float() for s in sites])
     mx = torch.stack([digests[s]["max_abs"].float() for s in sites])
     for ax in collectives._axes(axes):
-        if ax.size == 1:
-            continue
-        for t, op in ((ints, dist.ReduceOp.SUM), (sums, dist.ReduceOp.SUM),
-                      (mx, dist.ReduceOp.MAX)):
-            collectives._count("all_reduce", t)
-            dist.all_reduce(t, op=op, group=ax.group)
+        ints, sums = collectives._psum(ints, ax), collectives._psum(sums, ax)
+        mx = collectives._pmax(mx, ax)
     return {s: {"nonfinite": ints[i, NBUCKETS], "zeros": ints[i, NBUCKETS + 1],
                 "count": ints[i, NBUCKETS + 2], "exp_hist": ints[i, :NBUCKETS],
                 "max_abs": mx[i], "sumsq": sums[i]}

@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .attention import _paged_gather, _slot_attend, _slot_attend_block
 
 __all__ = [
@@ -222,8 +222,9 @@ def _lib():
 
 def _launch(name, q, ck, cv, positions, page_tables, k_scale, v_scale, scale):
     """Check the operands and launch ``tdx_decode_attention`` on the
-    current stream.  Returns the (B, S, Hq, D) output and whether the cache
-    was int8."""
+    current stream, booking its cost (``ops._cost``) under
+    ``<name>_cuda``.  Returns the (B, S, Hq, D) output and whether the
+    cache was int8."""
     b, s, hq, d = q.shape
     paged = page_tables is not None
     named = [("q", q), ("ck", ck), ("cv", cv), ("positions", positions)]
@@ -286,6 +287,9 @@ def _launch(name, q, ck, cv, positions, page_tables, k_scale, v_scale, scale):
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    cost = (_cost.paged_decode_attention(b, s, hq, hkv, d, pp, ps, int8=quant) if paged
+            else _cost.decode_attention(b, s, hq, hkv, d, max_len, int8=quant))
+    _cost.book(name + "_cuda", cost)
     return out, quant
 
 

@@ -58,7 +58,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .attention import _NEG_INF, _causal_mask, _repeat_kv, multihead_attention
 
 __all__ = [
@@ -294,14 +294,15 @@ def flash_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
 
 def flash_bias_grad_reference(q, k, v, o, lse, do, *, causal: bool = True,
                               scale: Optional[float] = None, bias=None,
-                              table=None, bucket_cfg=None):
+                              table=None, bucket_cfg=None, delta=None):
     """The plain version of the dbias and dtable kernels alone: with a
     ``bias``, the batch sum of ``p * (dp - delta)`` in the bias's dtype;
-    with a ``table``, that sum added up per bucket id, in the table's."""
+    with a ``table``, that sum added up per bucket id, in the table's.
+    ``delta`` as ``flash_bwd_reference``'s."""
     if (bias is None) == (table is None):
         raise ValueError("flash_bias_grad_reference takes one of bias and table")
     dense = _dense_bias(q, k, bias, table, bucket_cfg)
-    _, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense)
+    _, dlogits = _bwd_probs(q, k, v, o, lse, do, causal, scale, dense, delta=delta)
     return _bias_grad(dlogits, bias, table, bucket_cfg)
 
 
@@ -377,6 +378,15 @@ def _bias_args(fn_name, q, k, bias, table, bucket_cfg):
                              buckets=buckets, max_dist=max_dist, device=q.device)
         return (None, table.data_ptr(), ids.data_ptr(), buckets), (table, ids)
     return (None, None, None, 0), ()
+
+
+def _bias_mode(bias, table, bucket_cfg):
+    """The cost formulas' ``(bias, buckets)`` of a launch."""
+    if bias is not None:
+        return "bias", 0
+    if table is not None:
+        return "table", int(bucket_cfg[0])
+    return None, 0
 
 
 def _count(fn, bias, table, window):
@@ -467,6 +477,10 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     _count(flash_fwd_cuda, bias, table, window)
+    mode, buckets = _bias_mode(bias, table, bucket_cfg)
+    out_kind = "residuals" if return_residuals else "lse" if return_lse else "plain"
+    _cost.book("flash_fwd_cuda", _cost.flash_fwd(b, sq, skv, hq, hkv, d, out=out_kind,
+                                                 bias=mode, buckets=buckets))
     if return_residuals:
         flash_fwd_cuda.residual_launches += 1
     elif return_lse:
@@ -553,6 +567,7 @@ def flash_bwd_delta_cuda(o, do):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     flash_bwd_delta_cuda.launches += 1
+    _cost.book(name, _cost.flash_bwd_delta(b, s, h, d))
     return delta
 
 
@@ -585,6 +600,10 @@ def flash_bwd_dkv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.f32_launches += tag == "f32"
     _count(flash_bwd_dkv_cuda, bias, table, window)
+    mode, buckets = _bias_mode(bias, table, bucket_cfg)
+    b, s, hq, d = q.shape
+    _cost.book(name, _cost.flash_bwd_dkv(b, s, hq, k.shape[2], d, bias=mode, buckets=buckets,
+                                         out_bytes=dt.itemsize))
     return dk, dv
 
 
@@ -604,6 +623,10 @@ def flash_bwd_dq_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     flash_bwd_dq_cuda.launches += 1
     flash_bwd_dq_cuda.f32_launches += tag == "f32"
     _count(flash_bwd_dq_cuda, bias, table, window)
+    mode, buckets = _bias_mode(bias, table, bucket_cfg)
+    b, s, hq, d = q.shape
+    _cost.book(name, _cost.flash_bwd_dq(b, s, hq, k.shape[2], d, bias=mode, buckets=buckets,
+                                        out_bytes=dt.itemsize))
     return dq
 
 
@@ -625,6 +648,8 @@ def flash_bwd_dbias_cuda(q, k, v, o, lse, do, bias, *, causal: bool = True,
     _launch_tma_bwd("tdx_flash_bwd_dbias_bf16", "flash_bwd_dbias_cuda", q, k, v, o, lse, do,
                     delta, (dbias,), causal, scale, bias, None, None, None)
     flash_bwd_dbias_cuda.launches += 1
+    b, s, hq, d = q.shape
+    _cost.book("flash_bwd_dbias_cuda", _cost.flash_bwd_dbias(b, s, hq, k.shape[2], d))
     return dbias
 
 
@@ -648,6 +673,8 @@ def flash_bwd_dtable_cuda(q, k, v, o, lse, do, table, bucket_cfg, *,
     _launch_tma_bwd("tdx_flash_bwd_dtable_bf16", name, q, k, v, o, lse, do, delta,
                     (part, dtable), causal, scale, None, table, bucket_cfg, None)
     flash_bwd_dtable_cuda.launches += 1
+    b, s, _, d = q.shape
+    _cost.book(name, _cost.flash_bwd_dtable(b, s, hq, k.shape[2], d, buckets))
     return dtable
 
 
@@ -695,11 +722,19 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
     bkw = dict(bias=bias, table=table, bucket_cfg=bucket_cfg)
     has_bias = bias is not None or table is not None
     if not q.is_cuda:
+        # the plain version of each kernel the card launches: dQ, dK and dV,
+        # then the bias's or table's gradient from its own recompute of the
+        # logits and dP, as the dbias and dtable kernels take it (the same
+        # bits as the fused plain backward's, and the same FLOPs as the card)
         grads = flash_bwd_reference(q, k, v, o, lse, do, **kw, **bkw, window=window,
-                                    dq_dtype=dq_dtype, part_dtype=part_dtype, delta=delta)
-        if has_bias and not bias_grad:
-            grads = grads[:3] + (None,)
-        return grads
+                                    dq_dtype=dq_dtype, part_dtype=part_dtype,
+                                    delta=delta)[:3]
+        if not has_bias:
+            return grads
+        if not bias_grad:
+            return grads + (None,)
+        return grads + (flash_bias_grad_reference(q, k, v, o, lse, do, **kw, **bkw,
+                                                  delta=delta),)
     if delta is None:
         delta = flash_bwd_delta_cuda(o, do)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, o, lse, do, **kw, **bkw, window=window,

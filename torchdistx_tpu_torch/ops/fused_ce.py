@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 __all__ = [
     "fused_linear_cross_entropy",
@@ -160,6 +160,7 @@ def fused_ce_fwd_cuda(x, w, labels):
     if err != 0:
         raise RuntimeError(f"fused_ce_fwd kernel launch failed: CUDA error {err}")
     fused_ce_fwd_cuda.launches += 1
+    _cost.book("fused_ce_fwd_cuda", _cost.fused_ce_fwd(n, d, v))
     return loss, lse
 
 
@@ -189,6 +190,7 @@ def fused_ce_bwd_cuda(x, w, labels, lse, g):
     if err != 0:
         raise RuntimeError(f"fused_ce_bwd kernel launch failed: CUDA error {err}")
     fused_ce_bwd_cuda.launches += 1
+    _cost.book("fused_ce_bwd_cuda", _cost.fused_ce_bwd(n, d, v))
     return dx, dw
 
 

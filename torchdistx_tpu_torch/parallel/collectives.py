@@ -34,9 +34,10 @@ an active ``comm_audit`` a call books its op and its analytic payload and
 wire bytes over its axis, as the JAX package's functions do at trace time,
 whatever the axis size; ``allreduce_linear`` and ``copy_psum_grad`` book
 their backward too (``allreduce_linear_bwd``, zero wire, and
-``copy_psum_grad_bwd``).  The private helpers (``_psum``, ``_gather``,
-``_reduce_scatter``, ``_permute``) book nothing: the callers that use them
-book the JAX package's rows themselves.
+``copy_psum_grad_bwd``).  The private helpers (``_psum``, ``_pmax``,
+``_gather``, ``_reduce_scatter``, ``_permute``) book nothing: the callers
+that use them book the JAX package's rows themselves.  ``barrier`` moves no
+payload and books nothing.
 
 ``payload_bytes`` counts, by kind, the bytes each rank hands to the
 reductions, gathers, scatters and all-to-alls over axes of size > 1 (an
@@ -68,6 +69,7 @@ __all__ = [
     "copy_psum_grad",
     "axis_index",
     "axis_size",
+    "barrier",
 ]
 
 
@@ -120,13 +122,17 @@ def _count(kind: str, x: torch.Tensor) -> None:
     payload_bytes[kind] += x.numel() * x.element_size()
 
 
-def _psum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+def _psum(x: torch.Tensor, ax: Axis, op=None) -> torch.Tensor:
     if ax.size == 1:
         return x
     _count("all_reduce", x)
     out = x.clone()
-    dist.all_reduce(out, group=ax.group)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op, group=ax.group)
     return out
+
+
+def _pmax(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    return _psum(x, ax, op=dist.ReduceOp.MAX)
 
 
 def all_reduce(tree: Any, axis) -> Any:
@@ -409,3 +415,9 @@ def axis_index(axis) -> int:
 
 def axis_size(axis) -> int:
     return resolve_axis(axis).size
+
+
+def barrier(axis=None) -> None:
+    """Wait for every rank of the axis's group (the whole world when
+    ``axis`` is None).  It carries no payload, so it books nothing."""
+    dist.barrier(group=None if axis is None else resolve_axis(axis).group)

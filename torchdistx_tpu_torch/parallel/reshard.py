@@ -254,7 +254,7 @@ def reshard_via_checkpoint(tree: Any, path: str, shardings: Any) -> Any:
 
     save_checkpoint(path, tree)
     if dist.is_initialized():
-        dist.barrier()
+        collectives.barrier()
     first = shardings if _is_sharding(shardings) else _leaves(shardings)[0]
     if not first.mesh.is_member:
         return None

@@ -80,6 +80,9 @@ class GraphLoop:
     owner that holds the loop forms no cycle and frees the graph and the
     state with itself."""
 
+    #: CUDA graphs captured by every loop of the process
+    captures_total = 0
+
     def __init__(self, *, cursor: torch.Tensor, capacity: int,
                  done: torch.Tensor):
         self.cursor = cursor
@@ -153,3 +156,4 @@ class GraphLoop:
         self._flag_ready = torch.cuda.Event()
         self.graph = graph
         self.captures += 1
+        GraphLoop.captures_total += 1

@@ -13,10 +13,19 @@ works.
 blocks only there.  The first step of the first ``fit`` is kept out of the
 throughput window (its lazy setup: kernel builds, cuBLAS handles).
 
-Metrics: ``steps_total``, ``tokens_total``, ``loss``, ``steps_per_sec``,
+Metrics, the JAX loop's keys: ``steps_total``, ``tokens_total``,
+``checkpoints_total``, ``failures_total``, ``loss``, ``steps_per_sec``,
 ``tokens_per_sec``, ``mfu`` = tokens/s x ``flops_per_token`` /
 ``peak_flops`` (default: the H100 SXM's published dense bf16 peak),
-``checkpoints_total`` and ``failures_total``.
+``mfu_xla``, ``flop_attribution`` and ``goodput``.  The names are JAX's,
+so a scrape (:meth:`Trainer.metrics_collector`) has JAX's families; in the
+port ``mfu_xla`` is steps/s x the step's COUNTED FLOPs (the cost card's,
+``obs.cost.counted_card``: the aten matrix products by FlopCounterMode's
+per-op formulas plus the hand-written kernels' formulas) / ``peak_flops``, and
+``flop_attribution`` the analytic over the counted FLOPs.  ``goodput`` is
+the productive share of the wall time the loop has split, as JAX's:
+productive (the log windows), compile (the first step, and the card taken
+on it), checkpoint, rollback and reshard seconds.
 
 Checkpoints (``utils/checkpoint.py``): every ``checkpoint_every`` steps
 into ``checkpoint_dir/step_<n>``, and ``save()`` / ``restore()`` by hand;
@@ -38,9 +47,11 @@ reshards and ``fit_end``, and dumps its ring on an exception or a handled
 failure; the session black box (``record``) records the trainer and, per
 step, the batch's identity digest (:func:`batch_digest`) and the rng
 counter; ``stall_timeout_s`` arms a dispatch-stall watchdog around every
-step and every sync; ``cost_card=True`` takes the step's cost card from
-the CUDA caching allocator at the first step (peak and temp bytes, the
-analytic FLOPs).  A card resets the allocator's peak statistics, which a
+step and every sync; ``cost_card=True`` takes the step's counted cost
+card on the FIRST real step itself (no extra execution; the step is booked
+to the compile bucket), into ``obs.cost.default_book()`` as JAX's: its
+FLOPs, the analytic FLOPs, and on the card the caching allocator's peak
+and temp bytes.  A card resets the allocator's peak statistics, which a
 caller measuring peaks reads, so the port's default is off where JAX's is
 on.
 
@@ -216,6 +227,12 @@ class Trainer:
         self._history: list = []
         self._last_checkpoint: Optional[str] = None
         self._warmed = False
+        # the wall-time split goodput reads, host-measured at boundaries
+        # that already wait on the card
+        self._t_productive = 0.0
+        self._t_compile = 0.0
+        self._t_checkpoint = 0.0
+        self._t_rollback = 0.0
         self._t_reshard = 0.0  # seconds spent moving state onto a shrunk mesh
         self.last_reshard: Optional[dict] = None
         self.departed = False  # this rank was lost and has left the mesh
@@ -230,12 +247,15 @@ class Trainer:
         self.metrics: dict = {
             "steps_total": 0,
             "tokens_total": 0,
+            "checkpoints_total": 0,
+            "failures_total": 0,
             "loss": None,
             "steps_per_sec": None,
             "tokens_per_sec": None,
             "mfu": None,
-            "checkpoints_total": 0,
-            "failures_total": 0,
+            "mfu_xla": None,
+            "flop_attribution": None,
+            "goodput": None,
         }
         # the flight recorder: ring records at the log boundaries,
         # checkpoints and failures, dumped when the run breaks
@@ -254,12 +274,12 @@ class Trainer:
                                  start_step=self.global_step, rng_counter=_rng_counter())
             if self.recorder.path:
                 self.flight.session_path = self.recorder.path
-        # the step's cost card (obs.cost), taken at the first step on the card
-        from .obs.cost import CostBook, force_disabled
+        # the step's counted cost card (obs.cost), taken on the first step
+        from .obs.cost import default_book, force_disabled
 
         self._want_cost_card = bool(cost_card) and not force_disabled()
         self.cost_card = None
-        self.cost_book = CostBook()
+        self.cost_book = default_book()
         # the dispatch-stall watchdog around every step and every sync
         self.watchdog = None
         if stall_timeout_s is not None:
@@ -277,12 +297,14 @@ class Trainer:
         """Write the module, the optimizer and the step to ``path``
         (default ``checkpoint_dir/step_<global_step>``)."""
         path = path or os.path.join(self.checkpoint_dir or ".", f"step_{self.global_step}")
-        t0 = time.time()
+        t0 = time.perf_counter()
         save_checkpoint(path, self._state(self.global_step))
         self._last_checkpoint = path
+        dt = time.perf_counter() - t0
+        self._t_checkpoint += dt
         self.metrics["checkpoints_total"] += 1
         self.flight.record("checkpoint", step=self.global_step, path=path,
-                           seconds=round(time.time() - t0, 3))
+                           seconds=round(dt, 3))
         return path
 
     def restore(self, path: str) -> None:
@@ -435,12 +457,21 @@ class Trainer:
             self.numerics_harvest_errors += 1
 
     def _update_derived_metrics(self) -> None:
+        """tokens/s, mfu, mfu_xla, flop_attribution and goodput from the
+        latest window and the accumulated wall-time split; host only."""
         sps = self.metrics["steps_per_sec"]
         if sps and self.tokens_per_batch:
             tps = sps * self.tokens_per_batch
             self.metrics["tokens_per_sec"] = tps
             if self.flops_per_token:
                 self.metrics["mfu"] = tps * self.flops_per_token / self.peak_flops
+        card = self.cost_card
+        if card is not None and card.flops and sps:
+            self.metrics["mfu_xla"] = sps * card.flops / self.peak_flops
+            self.metrics["flop_attribution"] = card.flop_attribution
+        overhead = self._t_compile + self._t_checkpoint + self._t_rollback + self._t_reshard
+        if self._t_productive + overhead > 0:
+            self.metrics["goodput"] = self._t_productive / (self._t_productive + overhead)
 
     def _watch(self, name: str):
         """The stall-watchdog guard of one region (a no-op without one)."""
@@ -458,41 +489,29 @@ class Trainer:
         return self.last_flight_dump
 
     def _card_device(self):
+        """The step's device: its module's parameters' (None when the
+        step's params are not a module)."""
         params = self.params
         if isinstance(params, torch.nn.Module):
             p = next(params.parameters(), None)
-            if p is not None and p.is_cuda:
+            if p is not None:
                 return p.device
         return None
 
-    def _begin_card(self):
-        """Start the step's cost card before the first step on the card
-        (one attempt); None on the CPU, with cards off, or on a failure."""
+    def _card_scope(self):
+        """The counted cost card around the first real step (one attempt;
+        ``obs.cost.counted_card``), or a no-op with cards off.  The card
+        lands in ``cost_card`` and ``obs.cost.default_book()`` when the
+        step returns."""
         if not self._want_cost_card:
-            return None
+            return contextlib.nullcontext()
         self._want_cost_card = False
-        dev = self._card_device()
-        if dev is None:
-            return None
-        from .obs.cost import begin_allocator_card
+        from .obs.cost import counted_card
 
         analytic = (self.flops_per_token * self.tokens_per_batch
                     if self.flops_per_token and self.tokens_per_batch else None)
-        try:
-            return begin_allocator_card("trainer/step", dev, analytic_flops=analytic)
-        except Exception:
-            return None
-
-    def _finish_card(self, card) -> None:
-        if card is None:
-            return
-        from .obs.cost import finish_allocator_card
-
-        try:
-            self.cost_card = finish_allocator_card(card, self._card_device(),
-                                                   book=self.cost_book)
-        except Exception:
-            self.cost_card = None
+        return counted_card("trainer/step", device=self._card_device(),
+                            analytic_flops=analytic, book=self.cost_book)
 
     def fit(self, batches: Iterable[Any], num_steps: Optional[int] = None) -> dict:
         """Run until ``global_step`` reaches ``num_steps`` (or the batches
@@ -527,10 +546,12 @@ class Trainer:
                 self.recorder.record("train_step", step=self.global_step,
                                      rng_counter=_rng_counter(),
                                      batch=self._last_batch_digest)
-            card = self._begin_card() if warmup_pending else None
-            with self._watch("trainer/step"), comm_audit(self.comm_profile):
+            scope = self._card_scope() if warmup_pending else contextlib.nullcontext()
+            with scope as card, self._watch("trainer/step"), comm_audit(self.comm_profile):
                 self.params, self.opt_state, loss = self.step(
                     self.params, self.opt_state, batch)
+            if card is not None:
+                self.cost_card = card
             self.global_step += 1
             window_steps += 1
             self.metrics["steps_total"] += 1
@@ -539,9 +560,9 @@ class Trainer:
             if warmup_pending:
                 with self._watch("trainer/warmup_sync"):
                     _sync(loss)
-                self._finish_card(card)
-                self.flight.record("warmup", step=self.global_step,
-                                   seconds=round(time.perf_counter() - t_warm0, 3),
+                warm_s = time.perf_counter() - t_warm0
+                self._t_compile += warm_s
+                self.flight.record("warmup", step=self.global_step, seconds=round(warm_s, 3),
                                    comm=self.comm_profile.digest())
                 t_window = time.perf_counter()
                 window_steps = 0
@@ -571,7 +592,11 @@ class Trainer:
                                            last_checkpoint=self._last_checkpoint,
                                            nonfinite_site=self.numerics_book.first_nonfinite_site())
                         t_rb = time.perf_counter()
+                        rs0 = self._t_reshard
                         action = apply_failure_policy(self, failure, self.on_failure)
+                        # reshard() books its own time: the buckets stay disjoint
+                        self._t_rollback += max(0.0, time.perf_counter() - t_rb
+                                                - (self._t_reshard - rs0))
                         self.flight.record("rollback", step=failed_step, action=action,
                                            restored_step=self.global_step,
                                            checkpoint=self._last_checkpoint,
@@ -588,6 +613,7 @@ class Trainer:
                         continue
                 self.metrics["loss"] = last_loss
                 self.metrics["steps_per_sec"] = window_steps / dt
+                self._t_productive += dt
                 self._update_derived_metrics()
                 out = {"step": self.global_step, "loss": round(last_loss, 6),
                        "steps_per_sec": round(window_steps / dt, 3)}
@@ -617,3 +643,55 @@ class Trainer:
         self.flight.record("fit_end", step=self.global_step,
                            loss=None if loss is None else final, rng_counter=_rng_counter())
         return {"step": self.global_step, "loss": final}
+
+    # -- observability -----------------------------------------------------
+
+    def metrics_collector(self, prefix: str = "tdx_train"):
+        """An ``obs.metrics`` collector over this trainer's live metrics
+        (``registry.register_collector(t.metrics_collector(), obj=t)``), the
+        JAX loop's families: ``*_total`` counters for steps, tokens,
+        checkpoints and failures, ``loss`` / ``steps_per_sec`` /
+        ``tokens_per_sec`` / ``mfu`` / ``mfu_xla`` / ``flop_attribution`` /
+        ``goodput`` / ``global_step`` gauges from the latest log boundary,
+        the numerics book's families once it has harvested, and, with a
+        failure detector, its ``consecutive_nonfinite`` and per-kind
+        ``failure_events_total``.  Holds the trainer by weak reference."""
+        import weakref
+
+        from .obs.metrics import MetricFamily
+
+        ref = weakref.ref(self)  # don't pin the trainer in a registry
+
+        def collect():
+            self = ref()
+            if self is None:
+                return []
+            m = self.metrics
+            fams = []
+            for name in ("steps_total", "tokens_total", "checkpoints_total", "failures_total"):
+                fams.append(MetricFamily(f"{prefix}_{name}", "counter").add(m[name]))
+            fams.append(MetricFamily(f"{prefix}_global_step", "gauge").add(self.global_step))
+            for name in ("loss", "steps_per_sec", "tokens_per_sec", "mfu", "mfu_xla",
+                         "flop_attribution", "goodput"):
+                if m[name] is not None:
+                    fams.append(MetricFamily(f"{prefix}_{name}", "gauge").add(m[name]))
+            book = self.numerics_book
+            if book is not None and book.harvests:
+                fams.extend(book.collector(prefix=f"{prefix}_numerics")())
+            det = self.failure_detector
+            if det is not None:
+                fams.append(MetricFamily(f"{prefix}_consecutive_nonfinite", "gauge")
+                            .add(det.consecutive_nonfinite))
+                ev = MetricFamily(
+                    f"{prefix}_failure_events_total", "counter",
+                    "detector-observed failure events by kind (incl. tolerated ones "
+                    "that have not tripped the policy)")
+                counts = det.counts_by_kind()
+                for kind in sorted(counts):
+                    ev.add(counts[kind], kind=kind)
+                if not counts:
+                    ev.add(0.0)
+                fams.append(ev)
+            return fams
+
+        return collect

@@ -34,7 +34,12 @@ the state.  ``numerics=True`` builds the step with the numerics observatory
 (``obs.numerics``: ``params/``, ``act/``, ``loss`` and ``grads/`` digests a
 step, the JAX workload's ``TDX_NUMERICS`` taps plus the activations), which
 the trainer harvests at every step (``log_every=1``) into
-``workload["trainer"].numerics_book``.
+``workload["trainer"].numerics_book``.  ``cost_card=True`` has the trainer
+take the counted cost card on its first step (``Trainer.cost_card``:
+FLOPs counted, ``metrics["mfu_xla"]`` and ``["flop_attribution"]``).
+
+:func:`warm_to_steady_state` warms any ``run(carry)`` up until a call sets
+up nothing new, the JAX function's contract.
 
 The T5 workload is the JAX script's step: ``deferred_init`` of
 ``T5.from_name(name, use_flash=True)``, ``materialize_module``,
@@ -69,7 +74,7 @@ import torch
 from ..optimizers import AnyPrecisionAdamW, adamw_8bit
 
 __all__ = ["build_train_workload", "build_t5_train_workload", "build_vision_train_workload",
-           "optimizer_bytes"]
+           "optimizer_bytes", "warm_to_steady_state"]
 
 _RSS_INTERVAL_S = 0.005  # host RSS sampling period over deferred init
 
@@ -87,6 +92,7 @@ def build_train_workload(
     fused_ce: bool = False,
     zero2: bool = False,
     numerics: bool = False,
+    cost_card: bool = False,
     **model_overrides: Any,
 ) -> dict:
     """Returns ``{"run", "trainer", "step", "model", "optimizer", "batch",
@@ -136,8 +142,52 @@ def build_train_workload(
         extra, make_step = _zero2_arm(model, numerics)
     return _workload(model, loss_fn, (tokens, labels), name, batch, seq, n_params,
                      flops_per_token, init_s, optimizer, make_step=make_step,
+                     cost_card=cost_card,
                      remat=remat, remat_policy=remat_policy, fused_ce=fused_ce,
                      zero2=zero2, numerics=numerics, **extra)
+
+
+def warm_to_steady_state(run, carry, sync, max_calls: int = 5, watcher=None,
+                         label: str = "warm_to_steady_state"):
+    """Call ``run(carry) -> (carry, aux)`` until a call sets up nothing
+    new, returning ``(carry, warm_times, converged)``, as the JAX function
+    does.  ``sync(aux)`` must wait until the call's work is done (e.g. read
+    a loss).  ``converged`` is False when ``max_calls`` ran out while calls
+    still set things up: callers MUST surface it, since a timed window after
+    such a warm-up may still hold a setup.
+
+    "Sets up nothing new" is the port's "compiles nothing new": no new
+    ``obs.recompile`` program (the engine's first dispatches and graph
+    captures, counted by ``watcher``, or by a watcher installed for the
+    warm-up, each call under ``recompile_scope(label)``) and no new CUDA
+    graph capture (``serve.graph_loop.GraphLoop.captures_total``)."""
+    from ..obs.recompile import RecompileWatcher
+    from ..serve.graph_loop import GraphLoop
+
+    own = watcher is None
+    if own:
+        watcher = RecompileWatcher()
+
+    def setups():
+        return watcher.total, GraphLoop.captures_total
+
+    warm_times = []
+    converged = False
+    try:
+        for _ in range(max_calls):
+            before = setups()
+            t0 = time.perf_counter()
+            with watcher.scope(label):
+                carry, aux = run(carry)
+                sync(aux)
+            warm_times.append(time.perf_counter() - t0)
+            if setups() == before:
+                converged = True
+                break
+    finally:
+        if own:
+            watcher.uninstall()
+    return carry, warm_times, converged
 
 
 def _zero2_arm(model, numerics: bool = False):
@@ -367,7 +417,7 @@ _OPTIMIZERS = {
 
 
 def _workload(model, loss_fn, batch_data, name, batch, seq, n_params,
-              flops_per_token, init_s, optimizer, make_step=None, **flags):
+              flops_per_token, init_s, optimizer, make_step=None, cost_card=False, **flags):
     from ..trainer import Trainer, TrainStep
 
     opt = _OPTIMIZERS[optimizer](model.parameters())
@@ -376,7 +426,8 @@ def _workload(model, loss_fn, batch_data, name, batch, seq, n_params,
     else:
         step, flags["optimizer_bytes"] = make_step(opt, loss_fn)
     trainer = Trainer(step, tokens_per_batch=batch * seq, log_every=1,
-                      log_fn=lambda m: None, flops_per_token=flops_per_token)
+                      log_fn=lambda m: None, flops_per_token=flops_per_token,
+                      cost_card=cost_card)
 
     def run(n_steps: int) -> list:
         start = len(step.losses)
