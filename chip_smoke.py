@@ -406,6 +406,7 @@ import argparse
 import contextlib
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -728,7 +729,6 @@ VISION_EVAL_BATCH = 2
 VISION_EVAL_RTOL = 1e-3
 VISION_WARMUP, VISION_STEPS = 1, 3  # 10 steps before phase 30, 5 before the 600 s cut
 VISION_PROFILE_STEPS = 1
-VISION_TIMEOUT_S = 400
 
 
 def _fail(msg: str, code: int = 1):
@@ -4339,6 +4339,99 @@ def _reshard_run(torch, seed, tmp, device="cuda"):
     out["live"] = live
     del tr, step
     _empty(torch, device)
+    # (i.3) ZeRO-2: {"dp": 2} losing a rank; the optimizer's dp slices bounce
+    # through the checkpoint and are cut again over {"dp": 1}, then
+    # RESHARD_AFTER steps, held bit for bit against world 1 resumed from
+    # the state a clean two-rank run reaches at the recovery step
+    zero2, f = _zero2_bounce(torch, seed, tmp, data, loss_fn, device)
+    failures += f
+    out["zero2"] = zero2
+    return out, failures
+
+
+def _held_by_name(step) -> dict:
+    """``{parameter name: the tensor the step's optimizer holds for it}``:
+    a ZeRO-2 slice (``_tdx_path``) or the parameter itself."""
+    name_of = {id(p): n for n, p in step.model.named_parameters()}
+    return {getattr(t, "_tdx_path", None) or name_of[id(t)]: t
+            for g in step.optimizer.param_groups for t in g["params"]}
+
+
+def _zero2_bounce(torch, seed, tmp, data, loss_fn, device):
+    """(i.3) on one rank of two (``_reshard_run``'s batches and loss)."""
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.parallel import GSPMDTrainStep, ShardingPlan, create_mesh
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+    from torchdistx_tpu_torch.parallel.reshard import optimizer_state_tree
+    from torchdistx_tpu_torch.utils.failure import FailureDetector
+
+    rank = dist.get_rank()
+    dp = create_mesh({"dp": dist.get_world_size()})
+
+    def step_on(mesh, params=None):
+        tt.manual_seed(seed)
+        m = tt.materialize_module(tt.deferred_init(
+            Llama.from_name, PARALLEL_LLAMA, n_layers=RESHARD_LAYERS, max_seq_len=RESHARD_SEQ,
+            remat=False, device=device))
+        if params is not None:  # before the step slices them
+            with torch.no_grad():
+                for n, p in m.named_parameters():
+                    p.copy_(params[n])
+        return GSPMDTrainStep(m, tt.AnyPrecisionAdamW(m.parameters(), lr=1e-4), loss_fn,
+                              mesh, batch_spec=("dp",),
+                              plan=ShardingPlan(mesh, dp_axis="dp", zero2=True))
+
+    ref = step_on(dp)
+    tt.Trainer(ref, log_every=1, log_fn=lambda _: None).fit(data, RESHARD_AFTER + 1)
+    tree = optimizer_state_tree(ref.optimizer, ref.model)
+    with dp:
+        params = {n: gather_full(p).clone() for n, p in ref.model.named_parameters()}
+        slots = {n: {k: gather_full(v).clone() for k, v in row.items()}
+                 for n, row in tree.items()}
+    for n, t in _held_by_name(ref).items():  # the step counts
+        slots[n].update({k: v for k, v in ref.optimizer.state[t].items()
+                         if not isinstance(v, torch.Tensor)})
+    sliced = len(ref._zero2)
+    del ref, tree
+    _empty(torch, device)
+    det, logs = FailureDetector(), []
+    step = step_on(dp)
+    tr = tt.Trainer(step, log_every=1, log_fn=logs.append, checkpoint_dir=tmp,
+                    checkpoint_every=1000, failure_detector=det, on_failure="reshard")
+    tr.fit(data, RESHARD_AFTER)
+    det.inject_device_loss(1)
+    t0 = time.perf_counter()
+    tr.fit(data[RESHARD_AFTER:], 2 * RESHARD_AFTER + 1)
+    what = f"zero2 reshard llama_1b rank {rank}"
+    out = {"log": [m for m in logs if "failure" in m], "last": tr.last_reshard,
+           "departed": tr.departed, "seconds": time.perf_counter() - t0,
+           "sliced_before": sliced, "t_reshard_s": tr._t_reshard}
+    failures = []
+    if (tr.last_reshard or {}).get("mode") != "checkpoint" or tr.departed != bool(rank):
+        failures.append(f"{what}: the bounce gave {tr.last_reshard}, departed {tr.departed}")
+    if rank == 0:
+        out["losses"] = [float(x) for x in tr.step.losses[RESHARD_AFTER + 1:]]
+        out["sliced_after"] = len(tr.step._zero2)
+        final = {n: p.detach().clone() for n, p in tr.step.model.named_parameters()}
+        del tr, step
+        _empty(torch, device)
+        oracle = step_on(create_mesh({"dp": 1}, devices=[0], member=False), params)
+        for n, t in _held_by_name(oracle).items():
+            oracle.optimizer.state[t] = slots[n]
+        tt.Trainer(oracle, log_every=1, log_fn=lambda _: None).fit(data[RESHARD_AFTER + 1:])
+        out["oracle_losses"] = [float(x) for x in oracle.losses]
+        differ = [n for n, p in oracle.model.named_parameters() if not torch.equal(p, final[n])]
+        out["bit_equal"] = not differ and out["losses"] == out["oracle_losses"]
+        if not out["bit_equal"] or len(out["losses"]) != RESHARD_AFTER:
+            failures.append(f"{what}: the resumed run is not world 1's ({differ[:4]}, losses "
+                            f"{out['losses']} against {out['oracle_losses']})")
+        del oracle, final
+    else:
+        del tr, step
+    del params, slots
+    _empty(torch, device)
     return out, failures
 
 
@@ -4575,6 +4668,13 @@ def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
             result["failures"] += fails
             torch.cuda.empty_cache()
             result["tp_serve"], fails = _tp_serve_run(torch, seed)
+            result["failures"] += fails
+            torch.cuda.empty_cache()
+            # phase 32, in this world: a process of its own would pay its
+            # start and its first deferred init again
+            t0 = time.perf_counter()
+            result["config5_sharded"], fails = _config5_sharded_runs(torch, seed + 20)
+            result["config5_sharded"]["seconds"] = time.perf_counter() - t0
             result["failures"] += fails
         finally:
             dist.destroy_process_group()
@@ -5114,36 +5214,384 @@ def _mixtral_failures(r):
     return failures
 
 
-def _phase25_runs(torch, seed, warmup, steps):
+def _phase25_runs(torch, seed, warmup, steps, vision_seed):
     """Phase 25's spawned process: config 5, then, once its model,
-    optimizer and cached blocks are released, phase 25b's Mixtral run
-    (``{..., "mixtral": {...}}``)."""
+    optimizer and cached blocks are released, phase 25b's Mixtral run,
+    then phases 27-28 (``{..., "mixtral": {...}, "vision": {...}}``): one
+    process start and one first deferred init for all three."""
     import gc
 
     info = _config5_run(torch, seed, warmup, steps)
-    gc.collect()
-    torch.cuda.empty_cache()
-    info["card_bytes_before_mixtral"] = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    try:
-        info["mixtral"] = _mixtral_train_run(torch, seed + 100)
-    except Exception:
-        info["mixtral"] = {"error": traceback.format_exc()}
-    info["mixtral"]["phase_s"] = time.perf_counter() - t0
+    for key, run in (("mixtral", lambda: _mixtral_train_run(torch, seed + 100)),
+                     ("vision", lambda: _vision_runs(torch, vision_seed))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        info[f"card_bytes_before_{key}"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            info[key] = run()
+        except Exception:
+            info[key] = {"error": traceback.format_exc()}
+        info[key]["phase_s"] = time.perf_counter() - t0
     return info
 
 
-def train_config5(torch, seed, warmup=CONFIG5_WARMUP, steps=CONFIG5_STEPS):
-    """Phases 25 and 25b: ``_phase25_runs`` in a spawned process, killed
-    after CONFIG5_TIMEOUT_S."""
-    result, failures = _run_spawned(torch, "_phase25_runs", (seed, warmup, steps),
+def train_config5(torch, seed, vision_seed, warmup=CONFIG5_WARMUP, steps=CONFIG5_STEPS):
+    """Phases 25, 25b and 27-28: ``_phase25_runs`` in a spawned process,
+    killed after CONFIG5_TIMEOUT_S."""
+    result, failures = _run_spawned(torch, "_phase25_runs",
+                                    (seed, warmup, steps, vision_seed),
                                     CONFIG5_TIMEOUT_S, "config 5")
     return result, failures or _config5_failures(result)
 
 
+# -- phase 32: BASELINE config 5 sharded, two gloo ranks on the one card ------------
+TRAIN_FSDP_LAYERS = 4  # of llama2_7b's 32: full width, the depth cut for time
+FSDP_WORLD = 2
+FSDP_STEPS = 2  # timed, after one warm-up whose update is checked bit for bit
+FSDP_LR = 1e-4  # build_train_workload's 8-bit AdamW
+# losses of the two ranks against one rank over the same global batch:
+# the gradients reach the update reduced in another order (bf16); the
+# first call saw 2.0e-4 and 1.1e-3 on the second and third steps
+FSDP_LOSS_RTOL = 1e-2
+FSDP_VIT = ("vit_b16", 3)  # examples.vit_train: model, steps (of the example's 30)
+
+
+def _bits_digests(torch, named, slices=None) -> dict:
+    """``{name: [sum, weighted sum]}`` of each tensor's bit pattern
+    (:func:`_bits_checksum`), of ``slices[name]`` of it when given."""
+    return {n: _bits_checksum(torch, [t if slices is None else t[slices[n]]])[0]
+            for n, t in named}
+
+
+def _fsdp_materialize_part(torch, seed, mesh, device, name="llama2_7b"):
+    """(a): ``examples.deferred_init_7b`` of full llama2_7b, materialized
+    FSDP-sharded over ``mesh``: seconds, host RSS, the card's bytes
+    against the closed form (each sharded tensor's whole bytes over the
+    mesh, each replicated one whole, the whole bytes those of
+    ``obs.memory.last_materialize_report``), and the digest of every
+    piece; rank 0 then materializes the model whole from the same seed and
+    digests each rank's slice of it (nothing but digests crosses)."""
+    import torch.distributed as dist
+    from torchdistx_tpu_torch.examples import deferred_init_7b
+    from torchdistx_tpu_torch.obs.memory import last_materialize_report
+    from torchdistx_tpu_torch.parallel import collectives
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+
+    rank = dist.get_rank()
+    out = deferred_init_7b.main(name, device=device, seed=seed, mesh=mesh,
+                                log_fn=lambda *_: None)
+    model = out.pop("model")
+    tensors = list(model.named_parameters()) + list(model.named_buffers())
+    whole = cut_whole = held = 0
+    for _, t in tensors:
+        found = sharding_of(t)
+        n = math.prod(found[1]) if found else t.numel()
+        whole += n * t.element_size()
+        if found and found[0].spec:
+            cut_whole += n * t.element_size()
+        held += t.untyped_storage().nbytes()
+    report = last_materialize_report()
+    cut = [n for n, t in model.named_parameters() if sharding_of(t) and sharding_of(t)[0].spec]
+    # the closed form: the report's whole bytes less what the other ranks
+    # hold of each cut tensor; the allocator's figure (card_bytes) adds the
+    # slack of blocks it does not split (at most 1 MiB a block)
+    out.update(rank=rank, whole_bytes=whole, report_total_bytes=report["total_bytes"],
+               closed_form_bytes=report["total_bytes"] - cut_whole * (mesh.size - 1)
+               // mesh.size, held_bytes=held, allocator_slack_bytes=out["card_bytes"] - held,
+               sharded_params=len(cut), params=len(list(model.parameters())))
+    mine = _bits_digests(torch, model.named_parameters())
+    specs = {n: (tuple(sharding_of(p)[0].spec), tuple(sharding_of(p)[1]))
+             for n, p in model.named_parameters()}
+    names = sorted(mine)
+    del model, tensors
+    _empty(torch, device)
+    # every rank's digests to every rank, through the booked choke point
+    with mesh:
+        table = collectives.all_gather(torch.tensor([mine[n] for n in names]), "fsdp")
+    per_rank = table.reshape(mesh.size, len(names), 2).tolist()
+    if rank == 0:
+        from torchdistx_tpu_torch import deferred_init, manual_seed, materialize_module
+        from torchdistx_tpu_torch.models import Llama
+
+        manual_seed(seed)
+        t0 = time.perf_counter()
+        ref = materialize_module(deferred_init(Llama.from_name, name, device=device))
+        _sync(torch, device)
+        out["world1_materialize_s"] = time.perf_counter() - t0
+        named = list(ref.named_parameters())
+        differ = []
+        for r, got in enumerate(per_rank):
+            want = _bits_digests(torch, named, {n: _piece_of(*specs[n], r, mesh.size)
+                                                for n in names})
+            differ += [(r, n) for n, g in zip(names, got) if want[n] != g]
+        out["pieces_equal_world1"] = not differ
+        out["pieces_differ"] = differ[:8]
+        del ref, named
+        _empty(torch, device)
+    collectives.barrier()
+    return out
+
+
+def _piece_of(spec, shape, index, n) -> tuple:
+    """The slices of member ``index``'s piece of a ``shape`` tensor cut by
+    ``spec`` over one axis of ``n`` members."""
+    out = []
+    for d, size in enumerate(shape):
+        cut = d < len(spec) and spec[d] is not None
+        out.append(slice(index * size // n, (index + 1) * size // n) if cut else slice(None))
+    return tuple(out)
+
+
+def _fsdp_train_part(torch, seed, mesh, device, name="llama2_7b", layers=TRAIN_FSDP_LAYERS,
+                     seq=CONFIG5_SEQ, steps=FSDP_STEPS):
+    """(b): config 5 at ``layers`` of llama2_7b's layers, full width,
+    through ``ShardedTrainStep`` and a ``Trainer`` over ``mesh``: the
+    8-bit AdamW placed by ``adam8bit_state_shardings`` (``init_optimizer``),
+    ``remat_policy="dots"``, the fused loss, a global batch of
+    ``world x seq`` tokens (config 5's one sequence a rank).  One warm-up
+    step, whose update is held bit for bit against an unsharded
+    ``AdamW8bit`` on the same gathered gradients, parameters and state,
+    then ``steps`` timed steps (the launch counters set to 0 just before
+    and read just after).  Rank 0 then trains the same model whole (world
+    1) over the same global batch for the losses and the state bytes."""
+    import numpy as np
+    import torch.distributed as dist
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.obs.cost import span_mfu
+    from torchdistx_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+    from torchdistx_tpu_torch.optimizers import AdamW8bit
+    from torchdistx_tpu_torch.parallel import ShardedTrainStep, collectives, fsdp_shard_rule
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+    from torchdistx_tpu_torch.parallel.plan import gather_full
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    kw = dict(n_layers=layers, max_seq_len=seq, remat=True, remat_policy="dots",
+              device=device)
+    vocab = Llama.configs[name]["vocab_size"]
+    rs = np.random.RandomState(seed)
+    batch = tuple(torch.from_numpy(rs.randint(0, vocab, (world, seq))).to(device)
+                  for _ in range(2))
+
+    def loss_fn(m, b):
+        return fused_linear_cross_entropy(m(b[0], return_hidden=True), m.lm_head.weight, b[1])
+
+    def built(rule):
+        tt.manual_seed(seed)
+        m = tt.materialize_module(tt.deferred_init(Llama.from_name, name, **kw),
+                                  sharding_rule=rule)
+        n = sum(math.prod(sharding_of(p)[1]) if sharding_of(p) else p.numel()
+                for p in m.parameters())
+        return m, n, 6 * n + 12 * m.cfg.n_layers * m.cfg.dim * seq
+
+    model, n_params, fpt = built(fsdp_shard_rule(mesh))
+    opt = AdamW8bit(model.parameters(), lr=FSDP_LR)
+    step = ShardedTrainStep(model, opt, loss_fn, mesh, shard_axis="fsdp")
+    step.init_optimizer()
+    tokens = seq  # a rank's tokens a step
+    trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None, tokens_per_batch=tokens,
+                         flops_per_token=fpt, cost_card=True)
+    # the warm-up step's update, held against the unsharded one on the same
+    # gathered gradients, parameters and state
+    named = list(model.named_parameters())
+    captured = {}
+    plain_step = opt.step
+
+    def capture_then_step():
+        with torch.no_grad():
+            st = opt.adam8bit_state(dict(named))
+            names = [n for n, _ in sorted(named)]
+            captured["p"] = {n: gather_full(p).clone() for n, p in named}
+            captured["g"] = {n: gather_full(p.grad, sharding_of(p)[0]).clone()
+                             for n, p in named}
+            captured["state"] = {n: {k: gather_full(getattr(st, k)[i]).clone()
+                                     for k in ("m_codes", "m_scales", "v_codes", "v_scales")}
+                                 for i, n in enumerate(names)}
+            captured["count"] = opt.count
+        return plain_step()
+
+    opt.step = capture_then_step
+    trainer.fit([batch], 1)
+    opt.step = plain_step
+    _sync(torch, device)
+    update_differ = _placed_update_differ(torch, opt, named, captured)
+    del captured
+    _empty(torch, device)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    trainer.fit([batch] * steps, 1 + steps)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    state_bytes = opt.state_bytes()
+    prof = trainer.comm_profile
+    comm = {f"{e['kind']}/{e['axis']}": [e["ops"], e["payload_bytes"]]
+            for e in prof.to_json()["entries"]}
+    whole_bytes = sum(math.prod(sharding_of(p)[1]) * p.element_size()
+                      for p in model.parameters())
+    cut = [p for p in model.parameters() if sharding_of(p)[0].spec]
+    # JAX's FSDP step, traced once: a gather and a reduce-scatter of each
+    # cut parameter's whole bytes, a pmean of each replicated one's, the
+    # loss's pmean; the 8-bit update adds nothing (every piece is whole
+    # blocks)
+    want = {"all_gather/fsdp": [len(cut), sum(math.prod(sharding_of(p)[1]) * p.element_size()
+                                              for p in cut)],
+            "reduce_scatter/fsdp": [len(cut), sum(math.prod(sharding_of(p)[1])
+                                                  * p.element_size() for p in cut)]}
+    repl = [p for p in model.parameters() if not sharding_of(p)[0].spec]
+    pmean = [len(repl) + 1, sum(p.numel() * p.element_size() for p in repl) + 4]
+    want["pmean/fsdp"] = pmean
+    card = trainer.cost_card
+    out = {"rank": rank, "model": name, "layers": layers, "dim": model.cfg.dim,
+           "mesh": dict(mesh.shape), "global_batch": [world, seq], "tokens_a_rank": tokens,
+           "n_params": n_params, "whole_param_bytes": whole_bytes,
+           "losses": [float(x) for x in step.losses], "steps": steps,
+           "step_ms": wall / steps * 1e3, "tokens_per_sec": tokens * steps / wall,
+           "mfu": fpt * tokens * steps / wall / H100_BF16_FLOPS,
+           "mfu_xla": None if card is None else span_mfu(
+               card, executions=steps, seconds=wall, peak_flops=H100_BF16_FLOPS),
+           "counted_flops": None if card is None else card.flops,
+           "peak_memory_bytes": peak, "state_bytes": state_bytes, "launches": launches,
+           "comm": comm, "comm_want": want,
+           "local_updates": sum(opt.placement(p).local for p in model.parameters()),
+           "placed": len(list(model.parameters()))}
+    out["update_bit_equal"] = not update_differ
+    out["update_differ"] = update_differ[:8]
+    del trainer, step, opt, model, named
+    _empty(torch, device)
+    collectives.barrier()
+    if rank == 0:  # world 1: the whole model over the whole batch
+        m, _, _ = built(None)
+        o = AdamW8bit(m.parameters(), lr=FSDP_LR)
+        one = tt.TrainStep(m, o, loss_fn)
+        tt.Trainer(one, log_every=1, log_fn=lambda _: None).fit([batch] * (1 + steps))
+        out["world1_losses"] = [float(x) for x in one.losses]
+        out["world1_state_bytes"] = o.state_bytes()
+        del m, o, one
+        _empty(torch, device)
+    collectives.barrier()
+    return out
+
+
+def _placed_update_differ(torch, opt, named, captured) -> list:
+    """Where a placed ``AdamW8bit``'s last update (each rank's pieces of
+    the parameters, codes and scales) differs from an unsharded one's on
+    the ``captured`` whole parameters, gradients and state."""
+    from torchdistx_tpu_torch.optimizers import AdamW8bit
+
+    with torch.no_grad():
+        whole = {n: torch.nn.Parameter(t) for n, t in captured["p"].items()}
+        ref = AdamW8bit(list(whole.values()), lr=opt.param_groups[0]["lr"])
+        ref.count = captured["count"]
+        for n, q in whole.items():
+            q.grad = captured["g"][n]
+            ref.state[q] = captured["state"][n]
+        ref.step()
+        differ = []
+        for n, p in named:
+            pl = opt.placement(p)
+            if not torch.equal(p, whole[n][pl.param_sharding.shard_slices(pl.shape)]):
+                differ.append((n, "param"))
+            for k in ("m_codes", "m_scales", "v_codes", "v_scales"):
+                if not torch.equal(opt.state[p][k], pl.piece(k, ref.state[whole[n]][k])):
+                    differ.append((n, k))
+    return differ
+
+
+def _fsdp_vit_part(torch, seed, mesh, device, vit=FSDP_VIT):
+    """``examples.vit_train`` cut to a few steps: ViT-B/16 FSDP-sharded
+    over ``mesh`` through ``ShardedTrainStep`` and ``init_optimizer``."""
+    from torchdistx_tpu_torch.examples import vit_train
+
+    name, steps = vit
+    v = vit_train.main(name, steps=steps, device=device, mesh=mesh, seed=seed,
+                       log_fn=lambda *_: None)
+    out = {"model": name, "steps": steps, "batch": vit_train.BATCH, "losses": v["losses"],
+           "n_params": v["n_params"], "fake_params_vit_l16": v["fake_params"]}
+    del v
+    _empty(torch, device)
+    return out
+
+
+def _config5_sharded_runs(torch, seed, device="cuda", name="llama2_7b", seq=CONFIG5_SEQ,
+                          layers=TRAIN_FSDP_LAYERS, vit=FSDP_VIT):
+    """Phase 32 on one rank of ``FSDP_WORLD`` (phase 23's world): (a), (b)
+    and the ViT example; returns ``{part: result}`` and the failures.  On the CPU at a tiny
+    size (``name="tiny", seq=32, layers=2, vit=("tiny", 2),
+    device="cpu"``) it rehearses, and the card's gates then fail, as they
+    must."""
+    from torchdistx_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh({"fsdp": FSDP_WORLD})
+    out, failures = {}, []
+    for part, fn in (("a", lambda: _fsdp_materialize_part(torch, seed, mesh, device, name)),
+                     ("b", lambda: _fsdp_train_part(torch, seed, mesh, device, name, layers,
+                                                    seq)),
+                     ("vit", lambda: _fsdp_vit_part(torch, seed, mesh, device, vit))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]["seconds"] = time.perf_counter() - t0
+    failures += _config5_sharded_failures(out)
+    return out, failures
+
+
+def _config5_sharded_failures(out):
+    import math as m_
+
+    a, b, v = out["a"], out["b"], out["vit"]
+    what = f"config 5 sharded rank {b['rank']}"
+    failures = []
+    if a["fake_params"] != 6_738_415_616 or a["fake_bytes_held"]:
+        failures.append(f"{what}: fake mode counted {a['fake_params']}, "
+                        f"held {a['fake_bytes_held']} bytes")
+    if a["report_total_bytes"] != a["whole_bytes"] or a["sharded_params"] != a["params"]:
+        failures.append(f"{what}: materialize report {a['report_total_bytes']} bytes against "
+                        f"{a['whole_bytes']}, {a['sharded_params']} of {a['params']} cut")
+    if (a["held_bytes"] != a["closed_form_bytes"]
+            or not 0 <= a["allocator_slack_bytes"] <= a["params"] << 20):
+        failures.append(f"{what}: {a['held_bytes']} bytes held ({a['card_bytes']} allocated) "
+                        f"against the closed form {a['closed_form_bytes']}")
+    if a.get("pieces_equal_world1") is False:
+        failures.append(f"{what}: pieces differ from world 1's: {a['pieces_differ']}")
+    if a["host_rss_peak_gb"] - a["host_rss_before_gb"] >= CONFIG5_HOST_RSS_GB:
+        failures.append(f"{what}: host RSS grew {a['host_rss_peak_gb'] - a['host_rss_before_gb']}")
+    losses = b["losses"]
+    if not all(m_.isfinite(x) for x in losses):
+        failures.append(f"{what}: losses {losses}")
+    per = b["layers"] * b["steps"]
+    _gate(what, b["launches"], {"flash_fwd_lse": 2 * per, "flash_bwd_dkv": per,
+                                "flash_bwd_dq": per, "flash_bwd_delta": per,
+                                "fused_ce_fwd": b["steps"], "fused_ce_bwd": b["steps"]},
+          failures)
+    if b["comm"] != b["comm_want"]:
+        failures.append(f"{what}: comm audit {b['comm']} against JAX's closed form "
+                        f"{b['comm_want']}")
+    if b["local_updates"] != b["placed"]:
+        failures.append(f"{what}: {b['placed'] - b['local_updates']} parameters not updated "
+                        "in place")
+    if not b["update_bit_equal"]:
+        failures.append(f"{what}: the placed update differs from the unsharded one: "
+                        f"{b['update_differ']}")
+    if "world1_losses" in b:
+        w1 = b["world1_losses"]
+        if any(abs(x - y) > FSDP_LOSS_RTOL * abs(y) for x, y in zip(b["losses"], w1)):
+            failures.append(f"{what}: losses {b['losses']} against world 1's {w1}")
+        if b["state_bytes"] * FSDP_WORLD != b["world1_state_bytes"]:
+            failures.append(f"{what}: 8-bit state {b['state_bytes']} bytes a rank against "
+                            f"world 1's {b['world1_state_bytes']}")
+    if not b["mfu_xla"] or not b["counted_flops"]:
+        failures.append(f"{what}: counted card {b['counted_flops']}, mfu_xla {b['mfu_xla']}")
+    if len(v["losses"]) != v["steps"] or not all(m_.isfinite(x) for x in v["losses"]):
+        failures.append(f"{what}: vit_train losses {v['losses']}")
+    return failures
+
+
 def _vision_runs(torch, seed):
-    """Phases 27-28 in the spawned process: ``_vision_run`` of each of
-    VISION_RUNS in turn, ``{name: result}``."""
+    """Phases 27-28 in phase 25's spawned process: ``_vision_run`` of each
+    of VISION_RUNS in turn, ``{name: result}``."""
     out = {}
     for phase, name, batch in VISION_RUNS:
         t0 = time.perf_counter()
@@ -5251,15 +5699,11 @@ def _vision_failures(r):
     return failures
 
 
-def train_vision(torch, seed):
-    """Phases 27-28: ``_vision_runs`` in a spawned process, killed after
-    VISION_TIMEOUT_S: ``{name: result}``, failures."""
-    result, failures = _run_spawned(torch, "_vision_runs", (seed,), VISION_TIMEOUT_S,
-                                    "phases 27-28")
-    if failures:
-        return result, failures
-    names = [name for _, name, _ in VISION_RUNS]
-    return result, [f for name in names for f in _vision_failures(result[name])]
+def vision_failures(result):
+    """Phases 27-28's checks of ``_vision_runs``'s result."""
+    if "error" in result:
+        return [f"phases 27-28 raised:\n{result['error']}"]
+    return [f for _, name, _ in VISION_RUNS for f in _vision_failures(result[name])]
 
 
 def _snapshot(torch, model, opt):
@@ -7314,7 +7758,8 @@ def main(argv=None) -> int:
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 23. GossipGraD, SlowMo, TP, EP, SP, PP, ZeRO-2 and resharding across two
-    # ranks on the one card, the flash kernels first at the parallel runs' shapes
+    # ranks on the one card, the flash kernels first at the parallel runs' shapes;
+    # phase 32 (config 5 sharded) runs in the same world last
     try:
         torch.cuda.empty_cache()
         par_kernels, f23 = check_parallel_kernels(torch, device)
@@ -7338,7 +7783,16 @@ def main(argv=None) -> int:
                 print(f"{what} rank {res.get('rank')}",
                       json.dumps(res.get("parallel", {}).get(part)))
             print(f"tp serve llama3_8b rank {res.get('rank')}", json.dumps(res.get("tp_serve")))
+            # -- 32. BASELINE config 5 sharded, in phase 23's world after (j)
+            c5s = res.get("config5_sharded", {})
+            for part, what in (("a", "(32a) materialize llama2_7b fsdp 2"),
+                               ("b", f"(32b) train llama2_7b {TRAIN_FSDP_LAYERS} layers fsdp 2"),
+                               ("vit", f"(32) vit_train {FSDP_VIT[0]} fsdp 2")):
+                print(f"{what} rank {res.get('rank')}", json.dumps(c5s.get(part)))
+            print(f"(32) seconds rank {res.get('rank')}", c5s.get("seconds"))
         f23 += _tp_serve_failures(gossip["ranks"])
+        if any("b" not in r.get("config5_sharded", {}) for r in gossip["ranks"]):
+            _fail("phase 32 failed: " + "; ".join(f23))
         print("gossip world", json.dumps({k: v for k, v in gossip.items() if k != "ranks"}))
         failures += f23
         report["gossip_two_ranks"] = gossip
@@ -7356,8 +7810,9 @@ def main(argv=None) -> int:
         c5_ce, f25 = check_fused_ce(torch, device, cases=[CONFIG5_CE_CASE], phase=25)
         failures += f25
         torch.cuda.empty_cache()
-        config5, f25 = train_config5(torch, args.seed + 13)
+        config5, f25 = train_config5(torch, args.seed + 13, args.seed)
         mixtral_train = config5.pop("mixtral", {"error": "phase 25's process did not run it"})
+        vision = config5.pop("vision", {"error": "phase 25's process did not run it"})
         print("train llama2_7b config 5", json.dumps(config5))
         print("config 5 counted", json.dumps(config5.get("counted")))
         print("train mixtral_8x7b", json.dumps(mixtral_train))
@@ -7382,9 +7837,10 @@ def main(argv=None) -> int:
         _fail("checkpoint phase failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
-    # -- 27-28. BASELINE config 2 (ResNet-50) and ViT-B/16 ---------------------------
+    # -- 27-28. BASELINE config 2 (ResNet-50) and ViT-B/16, run in phase 25's
+    # process after 25b -----------------------------------------------------------
     try:
-        vision, f27 = train_vision(torch, args.seed)
+        f27 = vision_failures(vision)
         for phase, name, _ in VISION_RUNS:
             label = "train resnet50 config 2" if phase == 27 else f"train {name}"
             print(label, json.dumps(vision.get(name)))
@@ -7584,6 +8040,8 @@ def main(argv=None) -> int:
             entry["launches_two_ranks"] = [r["launches_gossip"][key] + r["launches_slowmo"][key]
                                            for r in gossip["ranks"]]
             entry["launches_config5"] = config5["launches"][key]
+            entry["launches_config5_sharded_ranks"] = [
+                r["config5_sharded"]["b"]["launches"][key] for r in gossip["ranks"]]
             entry["launches_checkpoint"] = ckpt["launches"][key]
             entry["launches_mixtral_train"] = mixtral_train["launches"][key]
             entry["launches_tp_ep_ranks"] = [

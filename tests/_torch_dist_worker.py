@@ -259,14 +259,71 @@ def _ring(payload):
         z, z, z, axis="sp", bias=torch.zeros((4, 8, 8))))
 
 
+# the 8-bit cases of the fsdp suite: tiny GPT-2 at this vocabulary cuts its
+# embedding on dim 1 at fsdp 2 (257 is odd), and at these positions its
+# position table on dim 0 into pieces of 2240 values, not whole blocks
+FSDP8_GPT2 = dict(vocab_size=257, n_positions=70)
+FSDP8_LR, FSDP8_WD = 1e-3, 0.01
+VIT_STEPS = 3  # the ViT example's loop, cut from its 30 steps
+# the card case: (shape, dtype) of parameters at fsdp 2, every placement
+FSDP8_CARD = (((257, 64), "bfloat16"), ((70, 64), "bfloat16"), ((256, 64), "bfloat16"),
+              ((64,), "bfloat16"), ((1000, 8), "float32"))
+
+
+def fsdp8_placed_update(device="cuda", axes=None):
+    """A placed ``AdamW8bit`` at fsdp 2 (a dim-1 cut with its block dim
+    sharded, a misaligned dim-0 cut, an aligned one, a replicated
+    parameter, an f32 one) for 3 steps from seeded gradients, against an
+    unsharded ``AdamW8bit`` over the whole parameters and gradients on the
+    same device: each rank's pieces of the codes, scales and parameters
+    bit for bit.  On the card: two ranks on cuda:0 over ``gloo``."""
+    import torch
+
+    from torchdistx_tpu_torch.optimizers import AdamW8bit
+    from torchdistx_tpu_torch.parallel import create_mesh, fsdp_partition_spec
+    from torchdistx_tpu_torch.parallel.mesh import NamedSharding, shard_tensor
+
+    mesh = create_mesh(axes or {"fsdp": 2})
+    rs = np.random.RandomState(4)
+    full = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(device, getattr(torch, dt))
+            for s, dt in FSDP8_CARD]
+    grads = [[torch.from_numpy((0.01 * rs.randn(*s)).astype(np.float32)).to(
+        device, getattr(torch, dt)) for s, dt in FSDP8_CARD] for _ in range(3)]
+    shards = [NamedSharding(mesh, fsdp_partition_spec(t.shape, mesh, "fsdp")) for t in full]
+    mine = [torch.nn.Parameter(shard_tensor(t.clone(), sh)) for t, sh in zip(full, shards)]
+    for p, sh, t in zip(mine, shards, full):
+        p._tdx_sharding, p._tdx_global_shape = sh, tuple(t.shape)
+    whole = [torch.nn.Parameter(t.clone()) for t in full]
+    opt = AdamW8bit(mine, lr=FSDP8_LR, weight_decay=FSDP8_WD).place(mesh, "fsdp")
+    ref = AdamW8bit(whole, lr=FSDP8_LR, weight_decay=FSDP8_WD)
+    for gs in grads:
+        for p, q, g, sh in zip(mine, whole, gs, shards):
+            p.grad = g[sh.shard_slices(g.shape)].clone()
+            q.grad = g.clone()
+        opt.step()
+        ref.step()
+    out = {"placements": [], "equal": {}}
+    for i, (p, q, sh) in enumerate(zip(mine, whole, shards)):
+        pl = opt.placement(p)
+        out["placements"].append({"local": pl.local, "state_dim": pl.state_dim,
+                                  "param_dim": pl.param_dim})
+        out["equal"][f"{i}/param"] = bool(torch.equal(p.detach(),
+                                                      q.detach()[sh.shard_slices(q.shape)]))
+        for k in ("m_codes", "m_scales", "v_codes", "v_scales"):
+            out["equal"][f"{i}/{k}"] = bool(torch.equal(opt.state[p][k],
+                                                        pl.piece(k, ref.state[q][k])))
+    return out
+
+
 def _fsdp(payload):
     import torch
     import torch.distributed as dist
 
     import torchdistx_tpu_torch as tt
     from torchdistx_tpu_torch.interop import load_jax_params
-    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.models import GPT2, Llama
     from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.optimizers import AdamW8bit
     from torchdistx_tpu_torch.parallel import (
         ShardedTrainStep,
         allreduce_hook,
@@ -275,8 +332,13 @@ def _fsdp(payload):
         fsdp_shard_rule,
         noop_hook,
     )
+    from torchdistx_tpu_torch.parallel.fsdp import contiguous_split
     from torchdistx_tpu_torch.parallel.mesh import sharding_of
+    from torchdistx_tpu_torch.parallel.plan import gather_full
 
+    if payload.get("part") == "cuda":
+        yield "on_the_card", fsdp8_placed_update
+        return
     rank = dist.get_rank()
     fsdp = create_mesh({"fsdp": WORLD})
     grid = create_mesh({"dp": 2, "fsdp": 2})
@@ -318,8 +380,72 @@ def _fsdp(payload):
                     "coords": {k: a.index for k, a in mesh.axes.items()}}
         return case
 
+    def train8(mesh, kind, **kw):
+        """3 steps of ``AdamW8bit`` through the sharded step, its state
+        made by ``init_optimizer`` in JAX's ZeRO layout: losses, the whole
+        parameters, the whole codes and scales (``adam8bit_state`` by sorted
+        name, gathered), each piece's spec, the trainer's comm audit."""
+        def case():
+            tt.manual_seed(0)
+            if kind == "gpt2":
+                m = tt.deferred_init(GPT2.from_name, "tiny", device="cpu", **FSDP8_GPT2)
+                init = payload["gpt2_init"]
+            else:
+                m = tt.deferred_init(Llama.from_name, "tiny", device="cpu")
+                init = payload["init"]
+            tt.materialize_module(m)
+            load_jax_params(m, init)
+            opt = AdamW8bit(m.parameters(), lr=FSDP8_LR, weight_decay=FSDP8_WD)
+            step = ShardedTrainStep(
+                m, opt, lambda mod, b: F.cross_entropy(mod(b[0]), b[1]), mesh, **kw)
+            step.init_optimizer()
+            state = opt.adam8bit_state(m)
+            specs = {k: [tuple(sharding_of(x)[0].spec) for x in getattr(state, k)]
+                     for k in ("m_codes", "m_scales", "v_codes", "v_scales")}
+            batch = tuple(torch.from_numpy(a) for a in payload["batch"])
+            trainer = tt.Trainer(step, log_every=1, log_fn=lambda _: None)
+            trainer.fit([batch] * payload["steps"], payload["steps"])
+            state = opt.adam8bit_state(m)
+            whole = {k: [_np(gather_full(x)) for x in getattr(state, k)]
+                     for k in ("m_codes", "m_scales", "v_codes", "v_scales")}
+            return {"losses": [float(x) for x in step.losses],
+                    "params": _np(step.full_params()), "state": whole,
+                    "count": int(state.count), "specs": specs,
+                    "local": [opt.placement(p).local for _, p in sorted(m.named_parameters())],
+                    "comm": trainer.comm_profile.to_json()["entries"]}
+        return case
+
+    def helpers():
+        x = torch.arange(48).reshape(12, 4)
+        return {"contiguous_split": _np(contiguous_split(x, 12, 3)),
+                "param_sharding": {k: tuple(v.spec) for k, v in ShardedTrainStep(
+                    Llama.from_name("tiny", device="cpu"), torch.optim.SGD([torch.zeros(1)],
+                                                                            lr=0.1),
+                    lambda mod, b: None, fsdp).param_sharding(
+                        {str(s): torch.zeros(s) for s in payload["shapes"]}).items()}}
+
+    def examples():
+        from torchdistx_tpu_torch.examples import deferred_init_7b, vit_train
+
+        quiet = lambda *_: None  # noqa: E731
+        d = deferred_init_7b.main("tiny", device="cpu", log_fn=quiet)
+        v = vit_train.main("tiny", steps=VIT_STEPS, device="cpu", mesh=fsdp,
+                           params=payload["vit_init"], log_fn=quiet)
+        return {"deferred": {k: d[k] for k in ("fake_params", "fake_bytes_held", "n_params",
+                                              "sharded", "card_bytes")},
+                "tok_emb": tuple(sharding_of(d["model"].tok_emb.weight)[0].spec),
+                "vit_losses": v["losses"], "vit_fake_params": v["fake_params"],
+                "vit_n_params": v["n_params"],
+                "vit_slots": sorted(next(iter(v["step"].optimizer.state.values())))}
+
     yield "specs", specs
+    yield "helpers", helpers
+    yield "examples", examples
+    yield "placed_update", lambda: fsdp8_placed_update("cpu", {"dp": 2, "fsdp": 2})
     yield "materialize", materialize
+    yield "train_fsdp4_8bit", train8(fsdp, "llama", shard_axis="fsdp")
+    yield "train_fsdp2_8bit_misaligned", train8(grid, "gpt2", shard_axis="fsdp",
+                                                replica_axes=("dp",), comm_hook=allreduce_hook)
     yield "train_fsdp4", train(fsdp, shard_axis="fsdp")
     yield "train_dp2_fsdp2_allreduce", train(grid, shard_axis="fsdp", replica_axes=("dp",),
                                              comm_hook=allreduce_hook)
@@ -1155,6 +1281,7 @@ def _sp_models(payload):
 
 
 ZERO2_STEPS, ZERO2_LR, ZERO2_MOMENTUM = 10, 1e-1, 0.9
+ZERO2_INJECT, ZERO2_AFTER = 3, 2  # the bounce: a loss at step 4, then 2 steps
 
 
 def zero2_batch(vocab=256, b=8, s=16, seed=0):
@@ -1173,6 +1300,7 @@ def _zero2(payload):
     from torchdistx_tpu_torch.models import Llama
     from torchdistx_tpu_torch.nn import functional as F
     from torchdistx_tpu_torch.parallel import GSPMDTrainStep, ShardingPlan, create_mesh
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
     from torchdistx_tpu_torch.utils.benchmarks import build_train_workload, optimizer_bytes
 
     def loss_fn(mod, b):
@@ -1249,9 +1377,48 @@ def _zero2(payload):
                               batch_spec=("dp",), plan=plan)
         return {"sliced": len(step._zero2)}
 
+    def bounce(tmp):
+        """ZeRO-2 on ``{"dp": 4}`` loses ranks 2 and 3 after step
+        ``ZERO2_INJECT + 1``: the momentum's ``dp`` slices bounce through the
+        checkpoint and are cut again over ``{"dp": 2}``, then
+        ``ZERO2_AFTER`` steps."""
+        def case():
+            from torchdistx_tpu_torch.parallel.plan import gather_full
+            from torchdistx_tpu_torch.parallel.reshard import optimizer_state_tree
+            from torchdistx_tpu_torch.utils.failure import FailureDetector
+
+            plan = ShardingPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
+            m = model()
+            opt = torch.optim.SGD(m.parameters(), lr=ZERO2_LR, momentum=ZERO2_MOMENTUM)
+            step = GSPMDTrainStep(m, opt, loss_fn, mesh, batch_spec=("dp",), plan=plan)
+            det, logs = FailureDetector(), []
+            tr = tt.Trainer(step, log_every=1, log_fn=logs.append, checkpoint_dir=tmp,
+                            checkpoint_every=100, failure_detector=det, on_failure="reshard")
+            batch = tuple(torch.from_numpy(a) for a in zero2_batch())
+            tr.fit([batch] * ZERO2_INJECT)
+            det.inject_device_loss(2)
+            total = ZERO2_INJECT + 1 + ZERO2_AFTER
+            tr.fit([batch] * (total - ZERO2_INJECT), total)
+            out = {"logs": [x for x in logs if "failure" in x], "last": tr.last_reshard,
+                   "departed": tr.departed, "global_step": tr.global_step}
+            if not tr.departed:
+                new = tr.step
+                tree = optimizer_state_tree(opt, m)
+                with new.mesh:
+                    momentum = {n: _np(gather_full(row["momentum_buffer"]))
+                                for n, row in tree.items()}
+                out.update(params=_np(dict(m.named_parameters())), momentum=momentum,
+                           losses=[float(x) for x in new.losses], mesh=dict(new.mesh.shape),
+                           bytes=optimizer_bytes(opt), sliced=len(new._zero2),
+                           specs={n: tuple(sharding_of(row["momentum_buffer"])[0].spec)
+                                  for n, row in tree.items()})
+            return out
+        return case
+
     yield "ten_steps", ten_steps
     yield "workload", workload
     yield "eight_bit", eight_bit
+    yield "bounce", bounce(os.path.join(payload["tmp"], "zero2_bounce"))
 
 
 PP_D = 8
@@ -1458,6 +1625,8 @@ def _marked(t, like):
 
 
 RESHARD_STEPS, RESHARD_INJECT = 8, 5
+RESHARD_LR8 = 1e-2
+SLOTS8 = ("m_codes", "m_scales", "v_codes", "v_scales")
 
 
 def reshard_batches(n, d=16):
@@ -1470,9 +1639,11 @@ def _reshard(payload):
     import torch
 
     import torchdistx_tpu_torch as tt
-    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.interop import load_jax_adam8bit_state, load_jax_params
+    from torchdistx_tpu_torch.optimizers import AdamW8bit
     from torchdistx_tpu_torch.parallel import ShardedTrainStep, can_reshard_live, create_mesh
     from torchdistx_tpu_torch.parallel import collectives as C
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
     from torchdistx_tpu_torch.parallel.plan import gather_full
     from torchdistx_tpu_torch.parallel.reshard import optimizer_state_tree
     from torchdistx_tpu_torch.utils.failure import FailureDetector, StepFailure
@@ -1557,6 +1728,63 @@ def _reshard(payload):
                            mesh=dict(tr.step.mesh.shape),
                            local_shapes={n: tuple(p.shape)
                                          for n, p in tr.step.model.named_parameters()})
+            return out
+        return case
+
+    def step8_on(mesh, m):
+        opt = AdamW8bit(m.parameters(), lr=RESHARD_LR8)
+        step = ShardedTrainStep(m, opt, loss_fn, mesh, shard_axis="fsdp")
+        step.init_optimizer()
+        return step
+
+    def whole8(step):
+        """``(count, {slot: [whole array]})`` of a placed 8-bit state, by
+        sorted parameter name."""
+        st = step.optimizer.adam8bit_state(step.model)
+        with step.mesh:
+            return int(st.count), {k: [gather_full(x).clone() for x in getattr(st, k)]
+                                   for k in SLOTS8}
+
+    def bounce8(tmp):
+        """The bounce of ``bounce`` with the 8-bit AdamW in JAX's layout:
+        the state's pieces leave the 4-rank layout and come back in the
+        2-rank one (codes of the 64-value biases cut on the block dim)."""
+        def case():
+            data = batches(RESHARD_STEPS)
+            mesh4 = create_mesh({"fsdp": WORLD})
+            ref = step8_on(mesh4, mlp())
+            tt.Trainer(ref, log_every=1, log_fn=lambda _: None).fit(data[:RESHARD_INJECT + 1])
+            with mesh4:
+                params = {n: gather_full(p).clone() for n, p in ref.model.named_parameters()}
+            count, state = whole8(ref)
+            det, logs = FailureDetector(), []
+            step = step8_on(mesh4, mlp())
+            tr = tt.Trainer(step, log_every=1, log_fn=logs.append, checkpoint_dir=tmp,
+                            checkpoint_every=100, failure_detector=det, on_failure="reshard")
+            tr.fit(data[:RESHARD_INJECT])
+            det.inject_device_loss(2)
+            tr.fit(data[RESHARD_INJECT:], RESHARD_STEPS)
+            out = {"last": tr.last_reshard, "departed": tr.departed,
+                   "global_step": tr.global_step}
+            small = create_mesh({"fsdp": 2}, devices=[0, 1], member=False)
+            if not tr.departed:
+                m = mlp()
+                with torch.no_grad():
+                    for n, p in m.named_parameters():
+                        p.copy_(params[n])
+                ostep = step8_on(small, m)
+                load_jax_adam8bit_state(ostep.optimizer, m, {"count": count, **state})
+                tt.Trainer(ostep, log_every=1, log_fn=lambda _: None).fit(
+                    data[RESHARD_INJECT + 1:])
+                opt = tr.step.optimizer
+                out.update(
+                    params=_np(tr.step.full_params()), oracle=_np(ostep.full_params()),
+                    losses=[float(x) for x in tr.step.losses[RESHARD_INJECT + 1:]],
+                    oracle_losses=[float(x) for x in ostep.losses],
+                    state=_np(whole8(tr.step)), oracle_state=_np(whole8(ostep)),
+                    specs={n: {k: tuple(sharding_of(v)[0].spec) for k, v in row.items()}
+                           for n, row in optimizer_state_tree(opt, tr.step.model).items()},
+                    mesh=dict(tr.step.mesh.shape), state_bytes=opt.state_bytes())
             return out
         return case
 
@@ -1646,6 +1874,7 @@ def _reshard(payload):
 
     yield "to_plan", to_plan
     yield "bounce", bounce(os.path.join(payload["tmp"], "bounce"))
+    yield "bounce_8bit", bounce8(os.path.join(payload["tmp"], "bounce_8bit"))
     yield "live", live
     yield "shrunk", shrunk
     yield "fallback", fallback(os.path.join(payload["tmp"], "fallback"))

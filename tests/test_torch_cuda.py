@@ -1203,6 +1203,23 @@ def test_ep_moe_over_two_ranks_on_the_card_matches_the_cpu(cuda, tmp_path):
                                            atol=1e-4, rtol=1e-4, msg=n)
 
 
+def test_placed_adamw8bit_on_the_card_equals_the_unsharded_update(cuda, tmp_path):
+    """Two ranks on one card over ``gloo``: ``AdamW8bit.place`` at fsdp 2
+    (JAX's ``adam8bit_state_shardings`` layout) for 3 steps, each rank's
+    pieces of the parameters, codes and scales bit-equal to an unsharded
+    ``AdamW8bit`` on the card over the whole parameters and gradients;
+    among them a dim-1 cut whose codes are cut on the block dim (the
+    absmax all-reduced over the ranks) and a misaligned dim-0 cut."""
+    from _torch_dist_worker import spawn_world
+
+    res = [r["on_the_card"] for r in spawn_world("fsdp", tmp_path, {"part": "cuda"}, world=2)]
+    for r in res:
+        assert "error" not in r, r["error"]
+        assert all(r["equal"].values()), [k for k, v in r["equal"].items() if not v]
+        kinds = [(p["local"], p["param_dim"], p["state_dim"]) for p in r["placements"]]
+        assert (False, 1, 1) in kinds and (False, 0, 0) in kinds and (True, 0, 0) in kinds
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_adamw8bit_on_the_card_matches_the_cpu(cuda, dtype):
     """``AdamW8bit`` on CUDA tensors against the same update on the CPU:

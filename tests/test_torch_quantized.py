@@ -11,7 +11,10 @@ Llama with the same seeded gradients on both sides, from a zero state and
 from a JAX state carried over after three JAX steps, f32 parameters within
 atol 1e-6, rtol 1e-5, bf16 ones within one bf16 ulp and equal on all but
 a few in 10^3; per-group lr through ``with_param_groups``; the state-dict
-round trip bit for bit.
+round trip bit for bit.  ``adam8bit_state_shardings`` equal to JAX's spec for
+spec over meshes of 2, 3 and 4 (every branch: ``n_blocks`` sharded, the
+block dim, replicated, and ``count``), and ``load_jax_adam8bit_state`` of a
+JAX state placed by that rule.
 """
 
 import io
@@ -28,10 +31,13 @@ import torchdistx_tpu as tdx
 from torchdistx_tpu.models import Llama as JLlama
 from torchdistx_tpu.optimizers import adamw_8bit as jadamw_8bit
 from torchdistx_tpu.optimizers import quantized as jq
+from torchdistx_tpu.optimizers import adam8bit_state_shardings as jstate_shardings
 from torchdistx_tpu.optimizers import with_param_groups as jwith_param_groups
 from torchdistx_tpu_torch.interop import load_jax_adam8bit_state
 from torchdistx_tpu_torch.optimizers import (
+    Adam8bitState,
     AdamW8bit,
+    adam8bit_state_shardings,
     adamw_8bit,
     blockwise_dequantize,
     blockwise_quantize,
@@ -225,3 +231,54 @@ def test_state_dict_round_trip(dtype):
     assert opt.state_bytes() == sum(
         2 * ((p.numel() + 63) // 64) * (64 + 4) for p in tparams.values())
     assert 2.0 < opt.state_bytes() / n < 2.5
+
+
+# parameter shapes whose state takes every branch of the rule: at n = 4,
+# (4096,) and (1000, 8) shard n_blocks (16, 32), (257, 64) and (64,) the
+# block dim (65 and 1 blocks); at n = 3 (256 % 3 != 0) the latter replicate
+STATE_SHAPES = [(4096,), (1000, 8), (257, 64), (64,), (1536,), (3, 5, 7)]
+
+
+def _jmesh(n):
+    from jax.sharding import Mesh
+
+    return Mesh(np.asarray(jax.devices()[:n]), ("fsdp",))
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_state_shardings_equal_jax_spec_for_spec(n):
+    from torchdistx_tpu_torch.parallel import AbstractMesh
+
+    params = {f"p{i}": np.zeros(s, np.float32) for i, s in enumerate(STATE_SHAPES)}
+    js = jadamw_8bit().init({k: jnp.asarray(v) for k, v in params.items()})
+    want = jstate_shardings(js, _jmesh(n), "fsdp")
+    tparams = _torch_params(params)
+    state = AdamW8bit(list(tparams.values())).adam8bit_state(tparams)
+    assert isinstance(state, Adam8bitState) and int(state.count) == 0
+    got = adam8bit_state_shardings(state, AbstractMesh(np.arange(n), ("fsdp",)))
+    assert got.count.spec == tuple(want.count.spec) == ()
+    branches = set()
+    for k in ("m_codes", "m_scales", "v_codes", "v_scales"):
+        for x, g, w in zip(getattr(state, k), getattr(got, k), getattr(want, k)):
+            assert g.spec == tuple(w.spec), (k, tuple(x.shape), g.spec, w.spec)
+            branches.add(g.spec)
+    assert branches == ({("fsdp", None), (None, "fsdp"), ()} if n != 3
+                        else {("fsdp", None), ()})
+
+
+def test_load_jax_state_placed_by_the_rule():
+    params = _tiny_params()
+    grads = _grads(params, 3, seed=5)
+    tx = jadamw_8bit(LR, weight_decay=WD)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jp, js = _jax_steps(tx, jp, tx.init(jp), grads)
+    js = jax.device_put(js, jstate_shardings(js, _jmesh(4), "fsdp"))
+    assert any(not x.sharding.is_fully_replicated for x in js.m_codes)
+    tparams = _torch_params({k: np.asarray(v) for k, v in jp.items()})
+    opt = adamw_8bit(list(tparams.values()), LR, weight_decay=WD)
+    load_jax_adam8bit_state(opt, tparams, js)
+    _assert_state_matches(opt, tparams, js)
+    view = opt.adam8bit_state(tparams)
+    for k in ("m_codes", "v_codes"):
+        for got, want in zip(getattr(view, k), getattr(js, k)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -15,6 +15,18 @@
   a fresh ``{"fsdp": 2}`` run transplanted from the recovery step's state,
   and within rtol 1e-4 / atol 1e-5 of JAX's own elastic run (8 -> 4 CPU
   devices) of the same MLP, Adam and batches.
+- The same bounce with the 8-bit AdamW, its state placed by
+  ``adam8bit_state_shardings`` (the 64-value biases' codes cut on the block
+  dim, the weights' blocks by rows): the state leaves as the rank's pieces
+  of the 4-rank layout and comes back as those of the 2-rank one (half the
+  blocks a rank, the biases' codes 128 columns each); the continuation
+  (losses, parameters, every code and scale) bit-equal to a fresh
+  ``{"fsdp": 2}`` run loaded with the recovery step's whole state, and
+  equal to JAX's elastic run (8-bit, 4 -> 2 CPU devices): parameters within
+  rtol 1e-4 / atol 1e-5, codes at most 1 apart, scales within rtol 5e-5
+  (gradients summed in another order, ``test_torch_fsdp.py``).  JAX's
+  ``Trainer.reshard`` re-places the flat code lists replicated (its plan
+  does not know them); the values are the global arrays either way.
 - A live shrink of ``{"dp": 2, "fsdp": 2}`` to ``{"dp": 1, "fsdp": 2}``:
   mode ``"live"``, zero wire bytes and no collective, continuation
   bit-equal to the transplant.
@@ -38,7 +50,10 @@ from jax.sharding import PartitionSpec as P
 
 import _jax_isolation  # noqa: F401  (adapts jax.monitoring listeners)
 import torchdistx_tpu as tdx
-from _torch_dist_worker import RESHARD_INJECT, RESHARD_STEPS, WORLD, reshard_batches, spawn_world
+from _torch_dist_worker import (RESHARD_INJECT, RESHARD_LR8, RESHARD_STEPS, SLOTS8, WORLD,
+                                reshard_batches, spawn_world)
+from torchdistx_tpu.optimizers import adam8bit_state_shardings as jstate_shardings
+from torchdistx_tpu.optimizers import adamw_8bit as jadamw_8bit
 from torchdistx_tpu import nn as jnn
 from torchdistx_tpu.nn import functional_call
 from torchdistx_tpu.parallel import ShardedTrainStep as JShardedTrainStep
@@ -159,19 +174,24 @@ def test_can_reshard_live_over_ranks(world):
 # -- the trainer ----------------------------------------------------------------------
 
 
-def _jax_elastic():
-    """JAX's elastic run of test_reshard.py on 8 -> 4 CPU devices, with the
-    port suite's batches: the final parameters."""
+def _jax_elastic(eight_bit=False):
+    """JAX's elastic run of test_reshard.py on 8 -> 4 CPU devices (the
+    8-bit AdamW: 4 -> 2, its state placed by ``adam8bit_state_shardings``),
+    with the port suite's batches: the final parameters (and the trainer)."""
     model = _jax_mlp()
 
     def loss_fn(p, batch):
         x, y = batch
         return jnp.mean((functional_call(model, p, (x,)) - y) ** 2)
 
-    mesh = jcreate_mesh({"fsdp": 8})
-    step = JShardedTrainStep(loss_fn, optax.adam(1e-2), mesh, shard_axis="fsdp")
+    n = 4 if eight_bit else 8
+    mesh = jcreate_mesh({"fsdp": n}, devices=jax.devices()[:n])
+    tx = jadamw_8bit(RESHARD_LR8) if eight_bit else optax.adam(1e-2)
+    step = JShardedTrainStep(loss_fn, tx, mesh, shard_axis="fsdp")
     params = step.shard_params(dict(model.named_parameters()))
     opt = step.init_optimizer(params)
+    if eight_bit:
+        opt = jax.device_put(opt, jstate_shardings(opt, mesh, "fsdp"))
     det = JFailureDetector()
     import tempfile
 
@@ -181,13 +201,13 @@ def _jax_elastic():
                       on_failure="reshard")
         batches = reshard_batches(RESHARD_STEPS)
         tr.fit(batches[:RESHARD_INJECT])
-        det.inject_device_loss(4)
+        det.inject_device_loss(n // 2)
         tr.fit(batches[RESHARD_INJECT:])
-        return {k: np.asarray(v) for k, v in tr.params.items()}
+        return {k: np.asarray(v) for k, v in tr.params.items()}, tr
 
 
 def test_bounce_4_to_2_bit_consistent_and_matches_jax(world):
-    jfinal = _jax_elastic()
+    jfinal, _ = _jax_elastic()
     for rank, r in enumerate(_got(world, "bounce")):
         (fail,) = r["logs"]
         assert fail["failure"] == "device_loss" and fail["action"] == "resharded"
@@ -206,6 +226,42 @@ def test_bounce_4_to_2_bit_consistent_and_matches_jax(world):
             np.testing.assert_array_equal(r["params"][k], v, err_msg=k)
             np.testing.assert_allclose(r["params"][k], jfinal[k], rtol=1e-4, atol=1e-5,
                                        err_msg=k)
+
+
+def test_bounce_4_to_2_with_8bit_state_bit_consistent_and_matches_jax(world):
+    jfinal, jtr = _jax_elastic(eight_bit=True)
+    jstate = {k: [np.asarray(x) for x in getattr(jtr.opt_state, k)] for k in SLOTS8}
+    assert jtr.step.mesh.devices.size == 2
+    for rank, r in enumerate(_got(world, "bounce_8bit")):
+        last = r["last"]
+        assert last["mode"] == "checkpoint" and last["mesh_to"] == {"fsdp": 2}
+        assert r["departed"] is (rank >= 2)
+        if rank >= 2:
+            continue
+        assert r["mesh"] == {"fsdp": 2} and r["global_step"] == RESHARD_STEPS
+        assert r["losses"] == r["oracle_losses"] and len(r["losses"]) == 2
+        for k, v in r["oracle"].items():
+            np.testing.assert_array_equal(r["params"][k], v, err_msg=k)
+            np.testing.assert_allclose(r["params"][k], jfinal[k], rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+        (count, state), (ocount, ostate) = r["state"], r["oracle_state"]
+        assert count == ocount == RESHARD_STEPS == int(jtr.opt_state.count)
+        for k in SLOTS8:
+            for got, ora, want in zip(state[k], ostate[k], jstate[k]):
+                np.testing.assert_array_equal(got, ora, err_msg=k)
+                if k.endswith("codes"):
+                    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+                else:
+                    np.testing.assert_allclose(got, want, rtol=5e-5, atol=0, err_msg=k)
+        # the pieces in the 2-rank layout: weights' blocks by rows, the
+        # biases' codes by columns (their one block), the biases' scales whole
+        assert r["specs"]["fc1.weight"]["m_codes"] == ("fsdp", None)
+        assert r["specs"]["fc1.bias"] == {"m_codes": (None, "fsdp"), "m_scales": (),
+                                          "v_codes": (None, "fsdp"), "v_scales": ()}
+        # fc1.weight (64, 16) and fc2.weight (16, 64): 4 blocks each; the
+        # biases 1 block each; a rank's codes (2 * 2 + 2 * 128 a moment) and
+        # scales (2 * 2 + 2 a moment)
+        assert r["state_bytes"] == 2 * ((2 * 2 * 256 + 2 * 128) + 4 * (2 * 2 + 2))
 
 
 def test_live_dp_shrink_zero_wire_bit_consistent(world):

@@ -18,6 +18,15 @@ batch of globally unique tokens over ``{"dp": 4}``, 10 steps:
   bitwise oracle test fails on the JAX package's tree): losses rtol 1e-5,
   parameters rtol 1e-4 / atol 1e-5 after 10 steps.
 
+The ZeRO-2 bounce: ``on_failure="reshard"`` with ``inject_device_loss(2)``
+after step 4 on ``{"dp": 4}``: the momentum's ``dp`` slices go through the
+checkpoint and are cut again over ``{"dp": 2}`` (ranks 0 and 1; 2 and 3
+leave), then 2 steps.  Against JAX's ``Trainer.reshard`` of its
+``GSPMDTrainStep`` on the same plan (4 -> 2 CPU devices): the momentum
+(gathered) and the parameters after the 2 steps within rtol 1e-4 / atol
+1e-5, the losses within rtol 1e-5; each rank then holds half of every
+slot, each cut on the parameter's first dimension over the new ``dp``.
+
 Also ``build_train_workload("tiny", zero2=True)`` (the plan on every rank,
 ``min_shard_elems=1``; its bytes a rank 1/4), and the 8-bit AdamW, whose
 blockwise state the step leaves whole (no parameter sliced), as the JAX
@@ -33,8 +42,10 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 import _jax_isolation  # noqa: F401  (adapts jax.monitoring listeners)
 import torchdistx_tpu as tdx
-from _torch_dist_worker import (WORLD, ZERO2_LR, ZERO2_MOMENTUM, ZERO2_STEPS, spawn_world,
-                                zero2_batch)
+from _torch_dist_worker import (WORLD, ZERO2_AFTER, ZERO2_INJECT, ZERO2_LR, ZERO2_MOMENTUM,
+                                ZERO2_STEPS, spawn_world, zero2_batch)
+from torchdistx_tpu.trainer import Trainer as JTrainer
+from torchdistx_tpu.utils.failure import FailureDetector as JFailureDetector
 from torchdistx_tpu.models import Llama as JLlama
 from torchdistx_tpu.nn import functional as jF
 from torchdistx_tpu.nn import functional_call
@@ -53,8 +64,8 @@ def _jax_model():
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     _, init = _jax_model()
-    return spawn_world("zero2", tmp_path_factory.mktemp("zero2"), {"init": init},
-                       timeout=150.0)
+    tmp = tmp_path_factory.mktemp("zero2")
+    return spawn_world("zero2", tmp, {"init": init, "tmp": str(tmp)}, timeout=150.0)
 
 
 def _got(world, name):
@@ -136,3 +147,53 @@ def test_build_train_workload_zero2(world):
 def test_eight_bit_state_stays_whole(world):
     for r in _got(world, "eight_bit"):
         assert r["sliced"] == 0
+
+
+def test_zero2_bounce_4_to_2_matches_jax_reshard(world, tmp_path):
+    jm, init = _jax_model()
+    mesh = _mesh()
+
+    def loss_fn(p, batch):
+        return jF.cross_entropy(functional_call(jm, p, (batch[0],)), batch[1])
+
+    plan = JPlan(mesh, dp_axis="dp", zero2=True, min_shard_elems=1)
+    step = JStep(loss_fn, optax.sgd(ZERO2_LR, momentum=ZERO2_MOMENTUM), mesh,
+                 batch_spec=P("dp"), plan=plan)
+    params = jax.device_put({k: jnp.asarray(v) for k, v in init.items()},
+                            NamedSharding(mesh, P()))
+    det, logs = JFailureDetector(), []
+    tr = JTrainer(step, params, step.init_optimizer(params), checkpoint_dir=str(tmp_path),
+                  checkpoint_every=100, log_every=1, log_fn=logs.append,
+                  failure_detector=det, on_failure="reshard")
+    batch = tuple(jnp.asarray(a.astype(np.int32)) for a in zero2_batch())
+    tr.fit([batch] * ZERO2_INJECT)
+    det.inject_device_loss(2)
+    tr.fit([batch] * (1 + ZERO2_AFTER))
+    assert tr.step.mesh.devices.size == 2
+    jparams = {k: np.asarray(v) for k, v in tr.params.items()}
+    (trace,) = [s for s in jax.tree_util.tree_leaves(
+        tr.opt_state, is_leaf=lambda x: isinstance(x, optax.TraceState))
+        if isinstance(s, optax.TraceState)]
+    jmomentum = {k: np.asarray(v) for k, v in trace.trace.items()}
+    for rank, r in enumerate(_got(world, "bounce")):
+        (fail,) = r["logs"]
+        assert fail["failure"] == "device_loss" and fail["action"] == "resharded"
+        last = r["last"]
+        assert last["step"] == ZERO2_INJECT + 1 and last["mode"] == "checkpoint"
+        assert last["mesh_from"] == {"dp": WORLD} and last["mesh_to"] == {"dp": 2}
+        assert r["departed"] is (rank >= 2)
+        if rank >= 2:
+            continue
+        assert r["mesh"] == {"dp": 2} and r["global_step"] == ZERO2_INJECT + 1 + ZERO2_AFTER
+        assert r["sliced"] == len(init)
+        total, local = r["bytes"]
+        assert local * 2 == total == sum(v.nbytes for v in init.values())
+        assert all(spec[0] == "dp" for spec in r["specs"].values())
+        assert len(r["losses"]) == ZERO2_INJECT + 1 + ZERO2_AFTER
+        jlosses = [m["loss"] for m in logs if "loss" in m and "failure" not in m]
+        np.testing.assert_allclose(r["losses"][-ZERO2_AFTER:], jlosses[-ZERO2_AFTER:],
+                                   rtol=1e-5)
+        for k, v in jparams.items():
+            np.testing.assert_allclose(r["params"][k], v, rtol=1e-4, atol=1e-5, err_msg=k)
+            np.testing.assert_allclose(r["momentum"][k], jmomentum[k], rtol=1e-4, atol=1e-5,
+                                       err_msg=k)

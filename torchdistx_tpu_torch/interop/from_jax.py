@@ -78,7 +78,10 @@ def load_jax_adam8bit_state(optimizer, params, state):
     JAX flattens as a dict, by sorted name.  ``state`` has the fields
     ``count``, ``m_codes``, ``m_scales``, ``v_codes`` and ``v_scales``
     (the NamedTuple, or a dict of them); codes cross in their own integer
-    dtype and scales in f32, bit for bit."""
+    dtype and scales in f32, bit for bit.  Each array is the whole one
+    (``np.asarray`` of a JAX array gathers it, however
+    ``adam8bit_state_shardings`` placed it); an optimizer placed over a
+    mesh (``AdamW8bit.place``) keeps the rank's piece of it."""
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
     if isinstance(params, Mapping):
@@ -94,8 +97,16 @@ def load_jax_adam8bit_state(optimizer, params, state):
     for i, p in enumerate(params):
         if id(p) not in owned:
             raise ValueError(f"leaf {i} is not a parameter of the optimizer")
-        optimizer.state[p] = {
-            k: torch.from_numpy(np.array(lists[k][i], copy=True)).to(p.device)
-            for k in fields}
+        placed = getattr(optimizer, "placement", lambda _: None)(p)
+        row = {}
+        for k in fields:
+            whole = torch.from_numpy(np.array(lists[k][i], copy=True))
+            if placed is not None:
+                if tuple(whole.shape) != placed.global_shape(k):
+                    raise ValueError(f"leaf {i} {k}: shape {tuple(whole.shape)}, the "
+                                     f"placement wants {placed.global_shape(k)}")
+                whole = placed.piece(k, whole).clone()
+            row[k] = whole.to(p.device)
+        optimizer.state[p] = row
     optimizer.count = int(np.asarray(get("count")))
     return optimizer

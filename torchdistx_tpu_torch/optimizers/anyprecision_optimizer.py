@@ -56,18 +56,24 @@ class AnyPrecisionAdamW(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                self._update(p, p.grad, self.state[p], group, b1, b2, lr, eps, wd)
+                state = self.state[p] if self.state.get(p) else self._init_state(p, group)
+                self._update(p, p.grad, state, group, b1, b2, lr, eps, wd)
         return loss
+
+    def _init_state(self, p, group) -> dict:
+        """Zero moments (and Kahan buffer) shaped like ``p``, in the
+        group's dtypes."""
+        state = self.state[p]
+        state["step"] = 0
+        state["exp_avg"] = torch.zeros_like(p, dtype=group["momentum_dtype"])
+        state["exp_avg_sq"] = torch.zeros_like(p, dtype=group["variance_dtype"])
+        if group["use_kahan_summation"]:
+            state["compensation"] = torch.zeros_like(
+                p, dtype=group["compensation_buffer_dtype"])
+        return state
 
     @staticmethod
     def _update(p, grad, state, group, b1, b2, lr, eps, wd):
-        if not state:
-            state["step"] = 0
-            state["exp_avg"] = torch.zeros_like(p, dtype=group["momentum_dtype"])
-            state["exp_avg_sq"] = torch.zeros_like(p, dtype=group["variance_dtype"])
-            if group["use_kahan_summation"]:
-                state["compensation"] = torch.zeros_like(
-                    p, dtype=group["compensation_buffer_dtype"])
         state["step"] += 1
         step = torch.tensor(float(state["step"]), dtype=torch.float32, device=p.device)
         bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=p.device), step)

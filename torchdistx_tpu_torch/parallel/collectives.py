@@ -60,6 +60,7 @@ from .mesh import Axis, resolve_axis
 __all__ = [
     "all_reduce",
     "all_mean",
+    "all_max",
     "broadcast",
     "exchange",
     "shift",
@@ -157,6 +158,20 @@ def all_mean(tree: Any, axis) -> Any:
     def one(x):
         for ax in axes:
             x = _psum(x, ax) / ax.size if ax.size > 1 else x
+        return x
+
+    return _map(one, tree)
+
+
+def all_max(tree: Any, axis) -> Any:
+    """Elementwise max over the axis (or axes), ``lax.pmax``: booked as a
+    ``pmax`` of the operand's bytes."""
+    axes = _axes(axis)
+    _record("pmax", axis, tree)
+
+    def one(x):
+        for ax in axes:
+            x = _pmax(x, ax)
         return x
 
     return _map(one, tree)

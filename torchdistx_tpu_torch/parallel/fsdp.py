@@ -22,6 +22,12 @@ from full parameters).  A step mirrors the JAX ``shard_map`` step:
 4. hand the shards to the comm hook (``allreduce_hook``: the mean over the
    replica axes);
 5. step the torch optimizer on the shards, so its state is born sharded.
+   The 8-bit AdamW is placed (``AdamW8bit.place``) when the step is made:
+   each rank holds its pieces of JAX's ``adam8bit_state_shardings``
+   layout, over the whole parameter's blocks, and its update equals
+   JAX's global-view update (``optimizers.quantized``).
+   :meth:`ShardedTrainStep.init_optimizer` makes the state before the
+   first step.
 
 The loss returned is the mean over every mesh axis.  ``accum_steps``
 splits the local batch into microbatches whose gradients add up in the
@@ -40,7 +46,7 @@ axis and averaged over the replica axis.
 
 The JAX module's helpers of the compiled steps, in their eager form:
 ``accumulate_grads`` (microbatch gradients summed in f32) with
-``strided_split``;
+``strided_split`` and ``contiguous_split`` (the step's own microbatches);
 ``optimizer_state_shardings`` (each slot of a torch optimizer's state
 that mirrors its parameter inherits the parameter's sharding; see
 ``parallel.plan``); ``donated_carry_shardings``, which in JAX pins a
@@ -97,6 +103,7 @@ __all__ = [
     "optimizer_state_shardings",
     "accumulate_grads",
     "strided_split",
+    "contiguous_split",
     "ShardedTrainStep",
 ]
 
@@ -167,6 +174,13 @@ def strided_split(x, accum: int) -> list:
     """Microbatch i takes rows ``i::accum``, so each keeps the whole
     data-parallel extent of a batch sharded over its leading dim."""
     return [x[i::accum] for i in range(accum)]
+
+
+def contiguous_split(x, lead: int, accum: int):
+    """``(lead, ...) -> (accum, lead / accum, ...)``: microbatch i is rows
+    ``[i * lead / accum, (i + 1) * lead / accum)`` of a rank's local
+    batch."""
+    return x.reshape(accum, lead // accum, *x.shape[1:])
 
 
 def _split_batch(batch: Any, accum: int, split: Callable) -> list:
@@ -326,11 +340,48 @@ class ShardedTrainStep(TrainStep):
             if ax not in self.replica_axes and ax != shard_axis))
         self._params = self.shard_params()
         self._booked: set = set()  # batch signatures whose step was booked
+        if shard_axis is not None and not divergent_replicas and hasattr(optimizer, "place"):
+            optimizer.place(mesh, shard_axis)  # the 8-bit state in JAX's ZeRO layout
 
     def param_spec(self, shape, mesh: Optional[Mesh] = None) -> tuple:
         if self.shard_axis is None:
             return ()
         return fsdp_partition_spec(tuple(shape), mesh or self.mesh, self.shard_axis)
+
+    def param_sharding(self, tree: Any) -> Any:
+        """A ``NamedSharding`` of :meth:`param_spec` for every tensor of
+        ``tree``, by its whole shape."""
+
+        def one(t):
+            found = sharding_of(t)
+            return NamedSharding(self.mesh, self.param_spec(found[1] if found else t.shape))
+
+        return collectives._map(one, tree)
+
+    def init_optimizer(self):
+        """Make this step's optimizer's state on each rank in its placement
+        before the first step, as JAX's ``init_optimizer`` places it: the
+        8-bit AdamW's as the rank's pieces of ``adam8bit_state_shardings``;
+        AnyPrecisionAdamW's and ``torch.optim.Adam`` / ``AdamW``'s
+        per-parameter slots as zeros shaped like the parameter's piece (its
+        sharding).  Another optimizer makes its state at its first step,
+        from the pieces.  Returns the optimizer."""
+        from ..optimizers import AdamW8bit, AnyPrecisionAdamW
+
+        opt = self.optimizer
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if opt.state.get(p):
+                    continue
+                if isinstance(opt, AdamW8bit):
+                    opt._init_state(p)
+                elif isinstance(opt, AnyPrecisionAdamW):
+                    opt._init_state(p, group)
+                elif isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+                    opt.state[p].update(step=torch.tensor(0.0),
+                                        exp_avg=torch.zeros_like(p),
+                                        exp_avg_sq=torch.zeros_like(p))
+        return opt
 
     def placement_on(self, mesh: Mesh) -> Callable[[str, Any], NamedSharding]:
         """``(name, param) -> NamedSharding``: where this step would place a
@@ -339,6 +390,29 @@ class ShardedTrainStep(TrainStep):
         def rule(name: str, p) -> NamedSharding:
             found = sharding_of(p)
             return NamedSharding(mesh, self.param_spec(found[1] if found else p.shape, mesh))
+
+        return rule
+
+    def state_placement_on(self, mesh: Mesh) -> Optional[Callable]:
+        """``(name, slot, leaf) -> NamedSharding or None``: where a placed
+        8-bit AdamW's blockwise array goes on ``mesh`` (the
+        ``adam8bit_state_shardings`` rule over the shard axis there, by the
+        array's whole shape); None for every other slot, which follows its
+        parameter (``Trainer.reshard``'s slot targets).  None without such
+        an optimizer."""
+        from ..optimizers.quantized import _SLOTS, _state_spec
+
+        if self.shard_axis is None or self.divergent_replicas or not hasattr(
+                self.optimizer, "place"):
+            return None
+        n, axis = mesh.shape[self.shard_axis], self.shard_axis
+
+        def rule(name: str, slot: str, leaf) -> Optional[NamedSharding]:
+            if slot not in _SLOTS:
+                return None
+            found = sharding_of(leaf)
+            shape = found[1] if found else tuple(leaf.shape)
+            return NamedSharding(mesh, _state_spec(shape, n, axis))
 
         return rule
 
@@ -517,4 +591,4 @@ def _full_bytes(p: torch.Tensor) -> int:
 def _chunks(x, n):
     if x.shape[0] % n:
         raise ValueError(f"batch leading dim {x.shape[0]} not divisible by accum_steps={n}")
-    return x.chunk(n, 0)
+    return contiguous_split(x, x.shape[0], n)

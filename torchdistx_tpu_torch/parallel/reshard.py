@@ -281,10 +281,13 @@ def _held_name(opt, named: dict) -> dict:
 
 def optimizer_state_tree(opt, params: Any) -> dict:
     """``{name: {slot: tensor}}`` of a torch optimizer's state tensors, each
-    marked (in place) as its held tensor's piece when shaped like it, else
-    as replicated on that tensor's mesh."""
+    marked (in place) with the placement it has: the optimizer's own
+    (``opt.state_sharding(held, slot)``: a placed 8-bit AdamW's pieces of
+    its blockwise arrays), else its held tensor's when shaped like it, else
+    replicated on that tensor's mesh."""
     named = _named(params)
     names = _held_name(opt, named)
+    placed = getattr(opt, "state_sharding", None)
     out = {}
     for held, slots in opt.state.items():
         found = sharding_of(held)
@@ -292,7 +295,10 @@ def optimizer_state_tree(opt, params: Any) -> dict:
         for slot, t in slots.items():
             if not isinstance(t, torch.Tensor):
                 continue
-            if found is not None:
+            own = placed(held, slot) if placed is not None else None
+            if own is not None:
+                mark_sharded(t, *own)
+            elif found is not None:
                 if t.shape == held.shape:
                     mark_sharded(t, *found)
                 else:
@@ -321,11 +327,13 @@ def write_back(params: Any, opt, new: dict) -> None:
             slots[slot] = piece
 
 
-def state_targets(tree: dict, param_target) -> dict:
+def state_targets(tree: dict, param_target, slot_target=None) -> dict:
     """Targets of a ``{"params", "opt_state"}`` tree: each parameter's
-    ``param_target(name, p)``, each slot its parameter's when shaped like
-    the parameter's piece (``param`` or a held slice), else replicated on
-    that target's mesh."""
+    ``param_target(name, p)``; each slot ``slot_target(name, slot, leaf)``
+    where that gives one (a step's ``state_placement_on``: the 8-bit
+    AdamW's blockwise arrays, ZeRO-2's ``dp`` slices), else its
+    parameter's when shaped like the parameter's piece (``param`` or a
+    held slice), else replicated on that target's mesh."""
     out = {"params": {n: param_target(n, p) for n, p in tree["params"].items()}}
     if "opt_state" in tree:
         rows = {}
@@ -334,6 +342,10 @@ def state_targets(tree: dict, param_target) -> dict:
             shape = _source(tree["params"][name])[1]
             rows[name] = {}
             for slot, t in slots.items():
+                own = slot_target(name, slot, t) if slot_target is not None else None
+                if own is not None:
+                    rows[name][slot] = own
+                    continue
                 same = tuple(_source(t)[1]) == tuple(shape)
                 rows[name][slot] = tgt if same else NamedSharding(tgt.mesh, ())
         out["opt_state"] = rows

@@ -486,6 +486,38 @@ class GSPMDTrainStep(TrainStep):
         specs = {q.name: q.sharding.spec for q in self._params}
         return lambda name, p: NamedSharding(mesh, specs[name])
 
+    def state_placement_on(self, mesh: Mesh) -> Optional[Callable]:
+        """``(name, slot, leaf) -> NamedSharding or None``: under ZeRO-2, a
+        sliced parameter's slot shaped like it goes to its ``dp`` slice of
+        the plan over ``mesh`` (``plan.with_mesh(mesh).zero2_sharding``, or
+        replicated where that cuts nothing); None for every other slot
+        (``Trainer.reshard``'s slot targets).  None without ZeRO-2."""
+        if not self._zero2:
+            return None
+        plan = self.plan.with_mesh(mesh)
+        sliced = {q.name: q for q in self._zero2}
+
+        def rule(name: str, slot: str, leaf) -> Optional[NamedSharding]:
+            q = sliced.get(name)
+            found = sharding_of(leaf)
+            if q is None or found is None or tuple(found[1]) != tuple(q.shape):
+                return None
+            return plan.zero2_sharding(name, q.p) or NamedSharding(mesh, ())
+
+        return rule
+
+    def release_zero2_slices(self) -> None:
+        """Hand the optimizer its parameters back in place of the ZeRO-2
+        slices, each with the slice's state as it stands (a reshard has
+        already cut it for the next mesh, whose step slices again)."""
+        opt = self.optimizer
+        for q, (piece, _, _) in self._zero2.items():
+            for group in opt.param_groups:
+                group["params"] = [q.p if t is piece else t for t in group["params"]]
+            if piece in opt.state:
+                opt.state[q.p] = opt.state.pop(piece)
+        self._zero2 = {}
+
     # -- ZeRO-2 --------------------------------------------------------------
 
     def _zero2_slices(self) -> dict:

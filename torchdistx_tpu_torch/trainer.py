@@ -357,6 +357,10 @@ class Trainer:
         ``failure.n_lost`` ranks.  The step must have ``mesh``,
         ``placement_on`` and ``with_mesh`` (``ShardedTrainStep``,
         ``GSPMDTrainStep``; a plan's rules carry over, ``plan.with_mesh``).
+        Slots the step places itself (``state_placement_on``: a placed
+        8-bit AdamW's blockwise arrays, ZeRO-2's ``dp`` slices) go where
+        its rule puts them on the new mesh; a ZeRO-2 step hands the
+        optimizer its parameters back, and the new step slices them again.
         The state moves by ``parallel.reshard.reshard`` when the survivors
         hold every piece (``can_reshard_live``: ``"live"``), else by the
         checkpoint bounce (``"checkpoint"``: saved whole from the old mesh
@@ -388,9 +392,6 @@ class Trainer:
         kind = getattr(failure, "kind", "device_loss")
         if old_mesh is None or not hasattr(step, "with_mesh"):
             raise StepFailure(kind, f"{failure} (and the step carries no mesh to reshard)")
-        if getattr(step, "_zero2", None):
-            raise NotImplementedError("resharding a ZeRO-2 step is not ported yet "
-                                      "(ROADMAP A.6)")
         if mesh is None:
             mesh = self._shrunk_mesh(old_mesh, getattr(failure, "n_lost", None) or 1)
         t0 = time.perf_counter()
@@ -400,7 +401,9 @@ class Trainer:
         model, opt = step.model, step.optimizer
         tree = {"params": dict(model.named_parameters()),
                 "opt_state": optimizer_state_tree(opt, model)}
-        targets = state_targets(tree, step.placement_on(mesh))
+        slot_target = getattr(step, "state_placement_on", None)
+        targets = state_targets(tree, step.placement_on(mesh),
+                                slot_target(mesh) if slot_target is not None else None)
         live = can_reshard_live(tree, mesh)
         wire = reshard_wire_bytes(tree, targets) if live else 0
         migration = CommProfile()
@@ -412,6 +415,8 @@ class Trainer:
                 new = reshard_via_checkpoint(tree, path, targets)
         if mesh.is_member:
             write_back(model, opt, new)
+            if getattr(step, "_zero2", None):
+                step.release_zero2_slices()  # the new step slices them again
             self.step = step.with_mesh(mesh)
         else:
             self.departed = True
