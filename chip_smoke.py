@@ -113,7 +113,10 @@ Phases, each fatal:
 16. serve full mistral_7b (32 layers, random weights from the seed)
    through ``ServeEngine`` over 8 slots x 8192 rows: 8 greedy requests
    with prompts of 4097-7000 tokens and ``MISTRAL_NEW`` new tokens, every prefill
-   through the window forward kernel (counters reset just before);
+   through the window forward kernel (counters reset just before); then the
+   same requests through a persistent engine (one captured CUDA graph an
+   iteration, one host sync a ring drain), its streams equal to the chunked
+   run's bit for bit;
 17. train mistral_7b at full width and 8 of its 32 layers (batch 1 x 8192)
    through ``build_train_workload``: deferred init, materialize on the
    card, one warm-up step, then ``TRAIN_STEPS`` ``Trainer.fit`` steps with every
@@ -127,7 +130,8 @@ Phases, each fatal:
    with its dense MoE over 8 slots x 4096 rows: 8 requests of 16-1536
    prompt tokens and 32 new tokens, prefill through the flash forward
    kernel and decode through the slot decode kernel, peak memory under
-   the card's;
+   the card's; then the same requests persistent, as in 16 (the graph's
+   capture seconds and the reserved bytes its pool took printed);
 19. hold the ``(m, l)`` residuals variant of the flash forward (the raw f32
    accumulator per (row, head), each row's max and sum) and the f32-output
    variants of the dK/dV and dQ kernels against their plain versions in
@@ -222,8 +226,12 @@ Phases, each fatal:
    ranks' streams equal; each run against a world-1 engine of its mode on
    rank 0 (every first token equal, greedy agreement at least 0.5, the
    logits every prefill and the first decode step sampled from within 5e-2
-   of the row's largest); a persistent TP engine over ``gloo`` must be
-   refused;
+   of the row's largest); each run again with ``numerics=True``: the
+   books (the KV digests folded over ``tp``) equal on both ranks, the
+   logits count its closed form, streams, counters and audit equal to the
+   run's with numerics off; a persistent TP engine over ``gloo`` must be
+   refused; last in the world, ``examples.long_context_sp`` (the ring) over
+   ``{"sp": 2}`` at 1024 tokens, its kernel launches gated;
 25. BASELINE config 5 on one card: the flash backward kernels and the lse
    forward at llama2_7b's attention (B 1, S 4096, 32 heads, D 128,
    causal) and the fused CE kernels at its loss (N 4096, D 4096, V 32000)
@@ -369,6 +377,13 @@ Phases, each fatal:
    first's expectations (``ok``); decode device ms a step with numerics on
    against off (``torch.profiler``, in this call).  One ``(31) numerics``
    line a mode; the runs' launches count in the kernels line.
+33. after phase 6, the examples a user runs on one card:
+   ``examples.quantized_inference`` on full llama_1b (bf16, every
+   ``Linear`` but the head to int8, 64 greedy tokens; the flash forward
+   once a layer) and ``examples.elastic_training`` (the poisoned batch of
+   step 30 rolled back to step 20's checkpoint, 60 steps, finite
+   parameters).  Phase 6 also materializes llama_1b twice with
+   ``TDX_NUMERICS=1``: the replays' ``replay/chunk`` books bit-identical.
 
 Phases 2, 4, 11, 14 and 19 print one ``speed`` line per forward, dK/dV and
 dQ variant and per decode variant, phase 7 one per fused CE kernel and
@@ -2012,7 +2027,11 @@ def check_grads(torch, model, ref_model, seq=512, batch=1, head=None):
 def check_deferred(torch, tt, seed):
     """``deferred_init`` of full llama_1b on the card allocates no parameter
     storage; ``materialize_module`` gives parameters on the card equal to an
-    eager construction from the same seed."""
+    eager construction from the same seed.  Then the same materialize twice
+    with ``TDX_NUMERICS=1``: each session's ``replay/chunk`` book (every
+    floating op output of the replay, one digest on the card, read once)
+    equal bit for bit to the other's, no nonfinite value, the parameters
+    unchanged, and the seconds with numerics on beside the run's off."""
     from torchdistx_tpu_torch.models import Llama
 
     torch.cuda.synchronize()
@@ -2034,7 +2053,82 @@ def check_deferred(torch, tt, seed):
             "params": sum(p.numel() for _, p in params), "tensors": len(params),
             "materialize_s": mat_s, "on_card": on_card, "bit_identical": same}
     ok = grew < 1 << 20 and deferred and on_card and same and not tt.is_deferred(model)
+    del model
+    books, digests_ok = [], True
+    saved = os.environ.get("TDX_NUMERICS")
+    os.environ["TDX_NUMERICS"] = "1"
+    try:
+        for _ in range(2):  # the replay's digests: two sessions, one book
+            tt.manual_seed(seed)
+            twin = tt.deferred_init(Llama.from_name, "llama_1b", device="cuda")
+            session = twin.tok_emb.weight._ref[0]
+            t0 = time.perf_counter()
+            tt.materialize_module(twin)
+            torch.cuda.synchronize()
+            d = session.numerics_book.digest("replay/chunk")
+            books.append({"materialize_s": time.perf_counter() - t0, "count": d.count,
+                          "nonfinite": d.nonfinite, "zeros": d.zeros,
+                          "hist_hash": d.hist_hash, "max_abs": d.max_abs, "sumsq": d.sumsq})
+            digests_ok &= all(torch.equal(p, q) for (_, p), (_, q)
+                              in zip(twin.named_parameters(), eager.named_parameters()))
+            del twin, session
+    finally:
+        if saved is None:
+            os.environ.pop("TDX_NUMERICS", None)
+        else:
+            os.environ["TDX_NUMERICS"] = saved
+    a, b = books
+    same_book = all(a[k] == b[k] for k in a if k != "materialize_s")
+    info["replay_digests"] = {"books": books, "bit_identical": same_book,
+                              "params_unchanged": digests_ok,
+                              "materialize_s_off": mat_s}
+    ok = ok and same_book and digests_ok and a["nonfinite"] == 0 and a["count"] > 0
     return ok, info
+
+
+def examples_phase(torch):
+    """Phase 33: the examples a user runs on one card.
+    ``examples.quantized_inference`` on full llama_1b (bf16; every
+    ``Linear`` but ``lm_head`` to int8; 64 greedy tokens after a 32-token
+    prompt), with the launch counters set to 0 just before: 7 ``Linear`` a
+    layer quantized, the head kept, the weight bytes fallen, every token in
+    the vocabulary, the flash forward once a layer (the prefill; decode
+    through ``generate`` is plain).  ``examples.elastic_training``: the
+    poisoned batch of step 30 rolled back to the checkpoint of step 20, 60
+    steps done, the parameters finite, the heartbeat stamped."""
+    from torchdistx_tpu_torch.examples import elastic_training, quantized_inference
+
+    failures = []
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    q = quantized_inference.main("llama_1b", device="cuda", log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counters().items() if v}
+    model = q.pop("model")
+    cfg = model.cfg
+    q.update(seconds=time.perf_counter() - t0, launches=launches, layers=cfg.n_layers,
+             head=type(model.lm_head).__name__)
+    del model
+    torch.cuda.empty_cache()
+    if (q["n_quantized"] != 7 * cfg.n_layers or q["head"] != "Linear"
+            or not q["bytes_after"] < q["bytes_before"] or len(q["tokens"]) != 64
+            or not all(0 <= t < cfg.vocab_size for t in q["tokens"])):
+        failures.append(f"quantized_inference: {q}")
+    failures += _launch_failures("quantized_inference", q, {"flash_fwd": cfg.n_layers})
+    tmp = tempfile.mkdtemp(prefix="tdx_elastic_")
+    try:
+        t0 = time.perf_counter()
+        e = elastic_training.main(device="cuda", workdir=tmp, log_fn=lambda m: None)
+        e["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    e.pop("workdir")
+    if (e["failures"] != [{"step": 30, "failure": "nonfinite", "action": "restored",
+                           "resumed_from": 20}]
+            or e["global_step"] != 60 or not e["params_finite"]):
+        failures.append(f"elastic_training: {e}")
+    return {"quantized_inference": q, "elastic_training": e}, failures
 
 
 def _reset_counters():
@@ -2820,12 +2914,62 @@ def long_requests(rng, vocab, n=8, max_new=64, lo=4097, hi=7000):
             for i, m in enumerate(rng.randint(lo, hi + 1, size=n))]
 
 
+def persistent_twin(torch, model, requests, chunked, what, expect, num_slots, max_len):
+    """The same model and requests through a persistent engine (one CUDA
+    graph of a decode iteration, replayed), after the chunked engine of the
+    phase is gone: the loop contract (:func:`_persistent_failures`: a
+    captured graph, one host sync a ring drain), greedy streams equal to
+    the chunked run's ``chunked`` results bit for bit, and ``expect(counters)``
+    the launch gates.  Also the seconds of the warm-up and capture, the
+    growth of the allocator's reserved bytes over the run (the graph's
+    private pool takes its segments there: a dequantized int8 weight per
+    product lives in it) and the run's peak over the bytes held before the
+    engine was built (its cache, loop state and that pool)."""
+    from torchdistx_tpu_torch.serve import ServeEngine
+    from torchdistx_tpu_torch.serve.graph_loop import GraphLoop
+
+    captures = []
+    capture = GraphLoop.capture
+
+    def timed_capture(loop, body):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        capture(loop, body)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    engine = ServeEngine(model, num_slots=num_slots, max_len=max_len, cost_cards=False,
+                         decode_mode="persistent")
+    GraphLoop.capture = timed_capture
+    try:
+        results, summary = run_engine(torch, engine, requests)
+    finally:
+        GraphLoop.capture = capture
+    summary.update(capture_s=captures[0] if captures else None,
+                   reserved_growth_bytes=torch.cuda.memory_reserved() - reserved,
+                   peak_over_held_bytes=summary["peak_memory_bytes"] - held,
+                   streams_equal_chunked=_streams(results) == _streams(chunked))
+    failures = _persistent_failures(what, summary)
+    failures += _greedy_failures(what, requests, results, model.cfg.vocab_size)
+    failures += _launch_failures(what, summary, expect(summary["counters"]))
+    if not summary["streams_equal_chunked"]:
+        failures.append(f"{what}: streams differ from the chunked run's")
+    del engine
+    torch.cuda.empty_cache()
+    return summary, failures
+
+
 def serve_mistral(torch, tt, seed, num_slots=8, max_len=8192):
     """The windowed serving main path: full mistral_7b (32 layers, random
     weights from the seed) through ``ServeEngine`` over a slab of 8 slots x
     8192 rows, 8 greedy requests past the window; every prefill goes
     through the window forward kernel (its counter checked), decode is
-    plain (windowed decode is jnp in the JAX package too)."""
+    plain (windowed decode is jnp in the JAX package too).  Then the same
+    requests through a persistent engine (:func:`persistent_twin`: the
+    windowed mask of each captured iteration built on the card from the
+    slot positions), its streams equal to the chunked run's."""
     import numpy as np
     from torchdistx_tpu_torch.serve import ServeEngine
 
@@ -2850,7 +2994,15 @@ def serve_mistral(torch, tt, seed, num_slots=8, max_len=8192):
         "decode_attention": 0})
     if prefills != len(requests):
         failures.append(f"mistral serve: {prefills} prefills for {len(requests)} requests")
-    del engine, model
+    del engine
+    torch.cuda.empty_cache()
+    summary["persistent"], f = persistent_twin(
+        torch, model, requests, results, "mistral serve persistent",
+        lambda c: {"flash_fwd": n_layers * c["prefill_calls"],
+                   "flash_fwd_window": n_layers * c["prefill_calls"],
+                   "decode_attention": 0}, num_slots, max_len)
+    failures += f
+    del model
     torch.cuda.empty_cache()
     return summary, failures
 
@@ -2996,7 +3148,12 @@ def serve_mixtral(torch, tt, seed, num_slots=8, max_len=4096):
     ``capacity_factor=None``) over 8 slots x 4096 rows, 8 requests of
     16-1536 prompt tokens and 32 new tokens: every prefill through the
     flash forward kernel, every decode step through the slot decode kernel
-    (counters checked), peak memory under the card's."""
+    (counters checked), peak memory under the card's.  Then the same
+    requests through a persistent engine (:func:`persistent_twin`: 32 MoE
+    layers in one captured iteration, each int8 product's dequantized copy
+    in the graph's pool), its streams equal to the chunked run's and its
+    peak under the card's too, and one persistent ring profiled
+    (:func:`profile_decode`: device ms a step by kernel class)."""
     import numpy as np
     from torchdistx_tpu_torch.serve import ServeEngine
 
@@ -3026,7 +3183,21 @@ def serve_mixtral(torch, tt, seed, num_slots=8, max_len=4096):
     if max(build_peak, summary["peak_memory_bytes"]) >= total:
         failures.append(f"mixtral serve: peak memory {summary['peak_memory_bytes']} "
                         f"(build {build_peak}) not under the card's {total}")
-    del engine, model
+    del engine
+    torch.cuda.empty_cache()
+    persistent, f = persistent_twin(
+        torch, model, requests, results, "mixtral serve persistent",
+        lambda c: {"flash_fwd": n_layers * c["prefill_calls"],
+                   "decode_attention": n_layers * c["decode_steps"]}, num_slots, max_len)
+    failures += f
+    if persistent["peak_memory_bytes"] >= total:
+        failures.append(f"mixtral serve persistent: peak memory "
+                        f"{persistent['peak_memory_bytes']} not under the card's {total}")
+    # the persistent decode step's device time, by kernel class
+    persistent["profile"] = profile_decode(torch, model, requests[:num_slots], num_slots,
+                                           max_len, decode_mode="persistent")
+    summary["persistent"] = persistent
+    del model
     torch.cuda.empty_cache()
     return summary, failures
 
@@ -4510,7 +4681,12 @@ def _tp_serve_run(torch, seed):
     every stream's first token equal, the greedy agreement at least
     TP_SERVE_AGREEMENT, and the logits both engines' dispatches sampled
     from (every prefill's, the first decode step's) within
-    TP_SERVE_LOGITS_RTOL of the row's largest world-1 logit."""
+    TP_SERVE_LOGITS_RTOL of the row's largest world-1 logit.  Each run is
+    also served again with ``numerics=True``: its book held by
+    :func:`book_failures` (the folded KV digests of both ranks' heads; the
+    logits count the closed form, unfolded), its streams, counters and
+    audit equal to the run with numerics off; the two ranks' books equal
+    (:func:`_tp_serve_failures`)."""
     import numpy as np
     import torch.distributed as dist
     import torchdistx_tpu_torch as tt
@@ -4582,6 +4758,30 @@ def _tp_serve_run(torch, seed):
                 failures.append(f"tp serve {label} rank {rank}: no {key} launch")
         if any(len(s) != TP_SERVE_NEW for s in row["streams"]):
             failures.append(f"tp serve {label} rank {rank}: a stream is not {TP_SERVE_NEW} long")
+    for label, kw in TP_SERVE_RUNS:  # again with the numerics observatory on
+        eng = ServeEngine(model, num_slots=TP_SERVE_SLOTS, max_len=2048, mesh=mesh, plan=plan,
+                          cost_cards=False, numerics=True, **kw)
+        t1 = time.perf_counter()
+        with comm_audit() as prof:
+            results = eng.run(reqs)
+        torch.cuda.synchronize()
+        c, row = eng.metrics.counters, out[label]
+        book = eng.numerics_book
+        num = {"wall_s": time.perf_counter() - t1, "book": book.to_json()["sites"],
+               "harvest_errors": eng.numerics_harvest_errors,
+               "streams_equal_off": [list(map(int, r.tokens)) for r in results]
+               == row["streams"],
+               "counters_equal_off": {k: c[k] for k in SERVE_COUNTERS} == row["counters"],
+               "audit_equal_off": prof.to_json()["entries"] == row["audit"]}
+        row["numerics"] = num
+        what = f"tp serve {label} numerics rank {rank}"
+        failures += book_failures(what, book, c, TP_SERVE_SLOTS, cfg.vocab_size,
+                                  cfg.dim // cfg.n_heads, kw.get("kv_dtype") == "int8")
+        for key in ("streams_equal_off", "counters_equal_off", "audit_equal_off"):
+            if not num[key]:
+                failures.append(f"{what}: {key} is false")
+        if num["harvest_errors"]:
+            failures.append(f"{what}: {num['harvest_errors']} failed harvests")
     try:
         ServeEngine(model, num_slots=TP_SERVE_SLOTS, max_len=2048, mesh=mesh, plan=plan,
                     decode_mode="persistent", cost_cards=False)
@@ -4633,14 +4833,56 @@ def _tp_serve_run(torch, seed):
     return out, failures
 
 
+EXAMPLE_SP_SEQ = 1024  # TDX_SEQ of examples.long_context_sp in phase 23's world
+
+
+def _sp_example_run(torch, seq=EXAMPLE_SP_SEQ):
+    """``examples.long_context_sp.main`` (the ring) on one rank of phase
+    23's world over ``{"sp": 2}`` at a global context of ``seq``, with the
+    launch counters set to 0 just before: the residuals forward kernel
+    once a ring block a layer a step and once a block for the biased ring,
+    the f32 dK/dV and dQ kernels once a block a layer a step (the rank's
+    blocks: ``_ring_blocks``); every loss finite and the last below the
+    first, the biased output finite."""
+    import torch.distributed as dist
+    from torchdistx_tpu_torch.examples import long_context_sp
+
+    rank = dist.get_rank()
+    _reset_counters()
+    t0 = time.perf_counter()
+    out = long_context_sp.main(sp_mode="ring", seq=seq, device="cuda", log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counters().items() if v}
+    layers, steps = out["step"].model.cfg.n_layers, len(out["losses"])
+    blocks = _ring_blocks(True, rank, out["ranks"])
+    res = {k: out[k] for k in ("ranks", "sp_mode", "seq", "losses", "biased_out_shape",
+                               "biased_out_finite")}
+    res.update(seconds=time.perf_counter() - t0, launches=launches)
+    want = {"flash_fwd_residuals": blocks * (layers * steps + 1),
+            "flash_bwd_dkv_f32": blocks * layers * steps,
+            "flash_bwd_dq_f32": blocks * layers * steps}
+    failures = _launch_failures(f"long_context_sp rank {rank}", res, want)
+    losses = res["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and res["biased_out_finite"]):
+        failures.append(f"long_context_sp rank {rank}: losses {losses}, biased output "
+                        f"finite {res['biased_out_finite']}")
+    return res, failures
+
+
 def _tp_serve_failures(ranks) -> list:
     """The two ranks' streams of phase 23 (j) equal, bit for bit."""
     runs = [r.get("tp_serve", {}) for r in ranks]
     if len(runs) != 2 or not all(runs):
         return ["tp serve: a rank returned no result"]
-    return [f"tp serve {label}: the ranks' streams differ"
-            for label, _ in TP_SERVE_RUNS
-            if runs[0].get(label, {}).get("streams") != runs[1].get(label, {}).get("streams")]
+    out = [f"tp serve {label}: the ranks' streams differ"
+           for label, _ in TP_SERVE_RUNS
+           if runs[0].get(label, {}).get("streams") != runs[1].get(label, {}).get("streams")]
+    books = [[r.get(label, {}).get("numerics", {}).get("book") for r in runs]
+             for label, _ in TP_SERVE_RUNS]
+    out += [f"tp serve {label} numerics: the ranks' books differ or are missing"
+            for (label, _), (a, b) in zip(TP_SERVE_RUNS, books) if a is None or a != b]
+    return out
 
 
 def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
@@ -4675,6 +4917,9 @@ def _gossip_rank(rank, world, store_path, out_path, seed, steps, n_layers, seq):
             t0 = time.perf_counter()
             result["config5_sharded"], fails = _config5_sharded_runs(torch, seed + 20)
             result["config5_sharded"]["seconds"] = time.perf_counter() - t0
+            result["failures"] += fails
+            torch.cuda.empty_cache()
+            result["example_sp"], fails = _sp_example_run(torch)
             result["failures"] += fails
         finally:
             dist.destroy_process_group()
@@ -4794,6 +5039,8 @@ def _config5_run(torch, seed, warmup, steps):
         "card": card_label(), "flops": card.flops, "kernel_flops": card.kernel_flops,
         "flops_source": card.flops_source, "analytic_flops": card.analytic_flops,
         "flop_attribution": card.flop_attribution, "kernel_launches": card.kernel_launches,
+        "bytes_accessed": card.bytes_accessed,
+        "arithmetic_intensity": card.arithmetic_intensity,
         "mfu_xla": span_mfu(card, executions=steps, seconds=wall, peak_flops=H100_BF16_FLOPS),
         "trainer_mfu_xla": w["trainer"].metrics["mfu_xla"]}
 
@@ -4915,7 +5162,8 @@ def _config5_failures(r):
     if not all(math.isfinite(x) for x in losses):
         failures.append(f"config 5 losses not finite: {losses}")
     c = r.get("counted")
-    if not c or not c["flops"] or not c["kernel_flops"] or not c["mfu_xla"]:
+    if (not c or not c["flops"] or not c["kernel_flops"] or not c["mfu_xla"]
+            or not c["bytes_accessed"]):
         failures.append(f"config 5 counted card: {c}")
     if not r["host_rss_delta_gb"] < CONFIG5_HOST_RSS_GB:
         failures.append(f"config 5 host RSS grew {r['host_rss_delta_gb']} GB")
@@ -5248,13 +5496,13 @@ def train_config5(torch, seed, vision_seed, warmup=CONFIG5_WARMUP, steps=CONFIG5
 # -- phase 32: BASELINE config 5 sharded, two gloo ranks on the one card ------------
 TRAIN_FSDP_LAYERS = 4  # of llama2_7b's 32: full width, the depth cut for time
 FSDP_WORLD = 2
-FSDP_STEPS = 2  # timed, after one warm-up whose update is checked bit for bit
+FSDP_STEPS = 1  # timed, after one warm-up whose update is checked bit for bit (2 before phase 33)
 FSDP_LR = 1e-4  # build_train_workload's 8-bit AdamW
 # losses of the two ranks against one rank over the same global batch:
 # the gradients reach the update reduced in another order (bf16); the
 # first call saw 2.0e-4 and 1.1e-3 on the second and third steps
 FSDP_LOSS_RTOL = 1e-2
-FSDP_VIT = ("vit_b16", 3)  # examples.vit_train: model, steps (of the example's 30)
+FSDP_VIT = ("vit_b16", 2)  # examples.vit_train: model, steps (of the example's 30; 3 before phase 33)
 
 
 def _bits_digests(torch, named, slices=None) -> dict:
@@ -6407,7 +6655,8 @@ def _counted_summary(card, launches, cfg, batch, seq, metrics):
             "formula_kernel_flops": counted_kernel_flops(
                 launches, batch, seq, hq, hkv, d, batch * seq, cfg.dim, cfg.vocab_size),
             "kernel_launches": card["kernel_launches"], "first_step_launches": launches,
-            "analytic_flops": card["analytic_flops"],
+            "analytic_flops": card["analytic_flops"], "bytes_accessed": card["bytes_accessed"],
+            "arithmetic_intensity": card["arithmetic_intensity"],
             **{k: metrics[k] for k in ("mfu", "mfu_xla", "flop_attribution", "goodput")}}
 
 
@@ -6982,6 +7231,8 @@ def trainer_phase(torch, seed, record_dir):
                             f"x the first step's launches {c['formula_kernel_flops']}")
         if not (c["goodput"] is not None and 0 < c["goodput"] <= 1):
             failures.append(f"(e) goodput {c['goodput']} outside (0, 1]")
+        if not c["bytes_accessed"] or not c["arithmetic_intensity"]:
+            failures.append(f"(e) the counted card has no bytes: {c['bytes_accessed']}")
     if on["stalls"]:
         failures.append(f"(e) the watchdog fired {on['stalls']} times")
     if families != ["act", "grads", "loss", "params"] or not out["numerics_int_fields_equal"]:
@@ -7546,6 +7797,18 @@ def main(argv=None) -> int:
         _fail("train phase failed")
 
     print(f"phase start: {time.perf_counter() - t_start:.1f} s")
+    # -- 33. the examples on one card: quantized inference, elastic training ---
+    try:
+        torch.cuda.empty_cache()
+        report["examples"], f33 = examples_phase(torch)
+        for name, row in report["examples"].items():
+            print(f"(33) example {name}", json.dumps(row))
+        failures += f33
+    except Exception:
+        traceback.print_exc()
+        _fail("examples phase failed")
+
+    print(f"phase start: {time.perf_counter() - t_start:.1f} s")
     # -- 7. fused LM-head cross-entropy kernels vs plain versions -------------
     try:
         ce_rows, f7 = check_fused_ce(torch, device)
@@ -7790,7 +8053,11 @@ def main(argv=None) -> int:
                                ("vit", f"(32) vit_train {FSDP_VIT[0]} fsdp 2")):
                 print(f"{what} rank {res.get('rank')}", json.dumps(c5s.get(part)))
             print(f"(32) seconds rank {res.get('rank')}", c5s.get("seconds"))
+            print(f"(23) example long_context_sp rank {res.get('rank')}",
+                  json.dumps(res.get("example_sp")))
         f23 += _tp_serve_failures(gossip["ranks"])
+        if any("example_sp" not in r for r in gossip["ranks"]):
+            f23.append("phase 23: examples.long_context_sp did not run on every rank")
         if any("b" not in r.get("config5_sharded", {}) for r in gossip["ranks"]):
             _fail("phase 32 failed: " + "; ".join(f23))
         print("gossip world", json.dumps({k: v for k, v in gossip.items() if k != "ranks"}))

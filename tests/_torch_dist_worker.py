@@ -2439,12 +2439,17 @@ def _numerics(payload):
         return GSPMDTrainStep(m, opt, loss_fn, mesh, plan=llama_tp_plan(mesh), numerics=True)
 
     def tp_engine():
+        # ported: numerics on a TP engine builds and serves (its books:
+        # tests/test_torch_serve_tp_numerics.py)
         mesh = create_mesh({"tp": world})
         try:
-            ServeEngine(model(), max_len=64, mesh=mesh, numerics=True)
+            eng = ServeEngine(model(), max_len=64, mesh=mesh, numerics=True)
         except NotImplementedError as e:
             return {"refused": str(e)}
-        return {"refused": None}
+        eng.run([{"prompt": np.arange(1, 6, dtype=np.int32), "max_new_tokens": 3}])
+        return {"refused": None, "sites": eng.numerics_book.sites(),
+                "logits_count": eng.numerics_book.digest("logits").count,
+                "errors": eng.numerics_harvest_errors}
 
     yield "fsdp", steps(fsdp)
     yield "gspmd_dp", steps(gspmd_dp)
@@ -2454,7 +2459,122 @@ def _numerics(payload):
         yield "tp_engine", tp_engine
 
 
+#: the runs of the serve_tp_numerics suite: a bf16 slab chunked, a paged
+#: int8 cache chunked and persistent (eager on the CPU)
+TP_NUMERICS_RUNS = {
+    "slab_bf16": {"decode_chunk": 1},
+    "paged_int8": {"page_size": 8, "kv_dtype": "int8"},
+    "paged_int8_persistent": {"page_size": 8, "kv_dtype": "int8",
+                              "decode_mode": "persistent"},
+}
+TP_NUMERICS_KW = dict(num_slots=3, max_len=64, prefill_buckets=(16, 32))
+TP_NUMERICS_FOLDED = ("kv_quant_err", "kv_quant_scale")
+
+
+def tp_numerics_requests():
+    rs = np.random.RandomState(5)
+    return [{"prompt": rs.randint(0, 256, (n,)).astype(np.int32), "max_new_tokens": 8}
+            for n in (5, 9, 12, 20, 7)]
+
+
+def digest_fields(d) -> tuple:
+    """A host digest as a picklable tuple: the integer fields, then
+    ``max_abs`` and ``sumsq``."""
+    return (d.nonfinite, d.zeros, d.count, tuple(d.exp_hist), d.max_abs, d.sumsq)
+
+
+def _serve_tp_numerics(payload):
+    """Numerics under TP serving on two ranks (tiny Llama with the JAX
+    model's weights, 2 KV heads: one a rank), each run of
+    :data:`TP_NUMERICS_RUNS` with numerics on and off.  With it on, every
+    KV tap is also all-gathered over ``tp`` and digested whole (the tape's
+    ``hold`` wrapped): the reference the folded book must equal."""
+    import torch
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.interop import load_jax_params
+    from torchdistx_tpu_torch.models import Llama
+    from torchdistx_tpu_torch.obs import numerics as tn
+    from torchdistx_tpu_torch.obs.comm import comm_audit
+    from torchdistx_tpu_torch.parallel import create_mesh
+    from torchdistx_tpu_torch.serve import ServeEngine
+
+    mesh = create_mesh({"tp": 2})
+    group = mesh.axes["tp"].group
+    m = Llama.from_name("tiny", n_kv_heads=2, max_seq_len=64, device="cpu")
+    load_jax_params(m, payload["weights"])
+    hold = tn.Tape.hold
+
+    def run(kw, numerics):
+        whole = {}
+
+        def gathering_hold(tape, site, *parts, make=None):
+            if site in TP_NUMERICS_FOLDED:
+                x = (parts[0] if make is None else make(*parts)).detach().float().reshape(-1)
+                pieces = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+                dist.all_gather(pieces, x, group=group)
+                d = tn.array_digest(torch.cat(pieces))
+                whole[site] = d if site not in whole else tn.merge_digests(whole[site], d)
+            return hold(tape, site, *parts, make=make)
+
+        eng = ServeEngine(m, mesh=mesh, numerics=numerics, **TP_NUMERICS_KW, **kw)
+        tn.Tape.hold = gathering_hold if numerics else hold
+        try:
+            with comm_audit() as prof:
+                res = eng.run(tp_numerics_requests())
+        finally:
+            tn.Tape.hold = hold
+        book = eng.numerics_book
+        return {"tokens": [np.asarray(r.tokens) for r in res],
+                "counters": dict(eng.metrics.counters), "profile": prof.to_json(),
+                "sites": book.sites(),
+                "book": {s: digest_fields(book.digest(s)) for s in book.sites()},
+                "whole": {s: digest_fields(tn.HostDigest.from_device(d))
+                          for s, d in whole.items()},
+                "errors": eng.numerics_harvest_errors,
+                "kv_quant_err_max": eng.metrics.kv_quant_err_max}
+
+    for name, kw in TP_NUMERICS_RUNS.items():
+        yield name, (lambda kw=kw: {"on": run(kw, True), "off": run(kw, False)})
+
+
+#: the examples' tiny runs, shared with the parent's world-1 runs
+EXAMPLE_GPT2 = dict(batch=8, seq=64, steps=3)
+EXAMPLE_SP = dict(seq=64, steps=3)
+
+
+def _examples(payload):
+    """The port's examples in a world of two ranks: ``train_gpt2`` FSDP over
+    ``{"fsdp": 2}`` (plain and fused loss, and fused from the payload's JAX
+    weights ``gpt2_init`` on its ``gpt2_stream``) and ``long_context_sp``
+    over ``{"sp": 2}`` (ring and Ulysses)."""
+    from torchdistx_tpu_torch.examples import long_context_sp, train_gpt2
+    from torchdistx_tpu_torch.parallel.mesh import sharding_of
+
+    def gpt2(fused, **kw):
+        out = train_gpt2.main("tiny", fused_ce=fused, device="cpu", log_fn=lambda m: None,
+                              **EXAMPLE_GPT2, **kw)
+        return {"losses": out["losses"], "n_params": out["n_params"],
+                "pieces": {n: (tuple(p.shape), tuple(sharding_of(p)[1]) if sharding_of(p)
+                               else tuple(p.shape))
+                           for n, p in out["model"].named_parameters()}}
+
+    def sp(mode):
+        out = long_context_sp.main(sp_mode=mode, device="cpu", log_fn=lambda m: None,
+                                   **EXAMPLE_SP)
+        return {k: out[k] for k in ("ranks", "losses", "biased_out_shape",
+                                    "biased_out_finite")}
+
+    yield "gpt2", lambda: gpt2(False)
+    yield "gpt2_fused", lambda: gpt2(True)
+    yield "gpt2_jax", lambda: gpt2(True, params=payload["gpt2_init"],
+                                   stream=payload["gpt2_stream"])
+    yield "sp_ring", lambda: sp("ring")
+    yield "sp_ulysses", lambda: sp("ulysses")
+
+
 SUITES = {"collectives": _collectives, "ring": _ring, "fsdp": _fsdp, "sp_llama": _sp_llama,
           "gossip": _gossip, "plan": _plan, "tp": _tp, "moe_ep": _moe_ep, "data": _data,
           "sp_models": _sp_models, "zero2": _zero2, "pp": _pp, "reshard": _reshard,
-          "serve_tp": _serve_tp, "comm_audit": _comm_audit, "numerics": _numerics}
+          "serve_tp": _serve_tp, "comm_audit": _comm_audit, "numerics": _numerics,
+          "serve_tp_numerics": _serve_tp_numerics, "examples": _examples}

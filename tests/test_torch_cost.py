@@ -256,8 +256,61 @@ def test_tallies_add_what_is_booked_while_open():
             _cost.book("fused_ce_bwd_cuda", _cost.Cost(5, 1))
     _cost.book("flash_fwd_cuda", _cost.Cost(7, 1))  # none open: nothing counts
     assert (outer.flops, inner.flops) == (15, 5)
+    assert (outer.bytes, inner.bytes) == (4, 1)
     assert outer.launches == {"flash_fwd_cuda": 1, "fused_ce_bwd_cuda": 1}
     assert inner.launches == {"fused_ce_bwd_cuda": 1}
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 8, 16), (3, 5, 7)])
+def test_counted_bytes_of_a_matmul_and_an_add_are_the_closed_form(m, k, n):
+    """``x @ w + b`` in f32: the product reads x and w and writes y, the add
+    reads y and b and writes z; the transpose of a view and a detach move
+    nothing; a booked launch adds its own bytes."""
+    g = torch.Generator().manual_seed(0)
+    x, w, b = (torch.randn(*s, generator=g) for s in ((m, k), (n, k), (n,)))
+
+    def body():
+        y = x @ w.t().detach()
+        return y + b
+
+    with cost.counted_card("body") as card:
+        z = body()
+    want = 4 * (m * k + k * n + m * n) + 4 * (m * n + n + m * n)
+    assert card.bytes_accessed == want
+    assert card.flops == 2 * m * k * n
+    np.testing.assert_array_equal(z.numpy(), (x @ w.t() + b).numpy())
+    with cost.counted_card("body+launch") as card:
+        body()
+        _cost.book("flash_fwd_cuda", _cost.Cost(11, 13))
+    assert card.bytes_accessed == want + 13 and card.flops == 2 * m * k * n + 11
+    assert cost.validate_cost_card(card.to_json()) == [
+        "card: peak_bytes source not named ('unavailable')"]
+
+
+def test_a_counted_card_needs_its_bytes_as_jax_cards_do():
+    card = cost.CostCard(program="step", flops=8.0, peak_bytes=1, peak_source="cuda_allocator",
+                         flops_source=cost.COUNTED_FLOPS)
+    assert cost.validate_cost_card(card.to_json()) == ["card: missing bytes_accessed"]
+    card.bytes_accessed = 4.0
+    assert cost.validate_cost_card(card.to_json()) == []
+    # an allocator card that nothing counted keeps its nulls
+    assert cost.validate_cost_card(cost.CostCard(
+        program="serve/decode", peak_bytes=1, peak_source="cuda_allocator").to_json()) == []
+
+
+@pytest.mark.parametrize("source", ["xla_peak", "arg+out+temp", "cuda_allocator", "unavailable"])
+def test_counter_fields_keys_equal_jax(source):
+    """The same fields filled: JAX's keys, except that on an allocator card
+    ``temp_bytes`` is a runtime watermark and never gates."""
+    kw = dict(program="p", flops=1.0e9, bytes_accessed=2.0e6, transcendentals=3.0,
+              arg_bytes=4, out_bytes=5, temp_bytes=6, peak_bytes=7, peak_source=source)
+    got, want = cost.CostCard(**kw).counter_fields(), jcost.CostCard(**kw).counter_fields()
+    if source == "cuda_allocator":
+        assert want.pop("cost_temp_bytes") == 6
+    assert got == want
+    assert ("cost_peak_bytes" in got) == (source in ("xla_peak", "arg+out+temp"))
+    assert cost.CostCard(program="q").counter_fields() == jcost.CostCard(
+        program="q").counter_fields() == {}
 
 
 # -- the counted card against the JAX package's --------------------------------
@@ -309,7 +362,8 @@ def test_counted_step_flops_match_jax_within_the_elementwise_share(wide_cards):
     j, t = wide_cards["jcard"], wide_cards["tcard"]
     assert t.flops_source == cost.COUNTED_FLOPS == "flop_counter+kernels"
     assert t.kernel_flops == 0.0 and t.kernel_launches == {}  # CPU: plain versions
-    assert t.bytes_accessed is None  # never invented
+    # counted, never invented: every aten op's tensor bytes (views none)
+    assert isinstance(t.bytes_accessed, float) and t.bytes_accessed > 0
     assert t.flops <= j.flops  # XLA counts the elementwise ops too
     assert t.flops == pytest.approx(j.flops, rel=COUNT_RTOL)
     assert wide_cards["book"].get("step") is t

@@ -63,7 +63,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
 @pytest.mark.parametrize(
     "path", sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
     + ["chip_smoke.py", "scripts/torch_replay_session.py", "scripts/torch_perf_gate.py",
-       "scripts/torch_tdx_lint.py"]
+       "scripts/torch_tdx_lint.py", "scripts/torch_perf_report.py",
+       "scripts/torch_backfill_ledger.py"]
 )
 def test_source_has_no_jax_import(path):
     tree = ast.parse((ROOT / path).read_text())

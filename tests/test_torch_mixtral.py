@@ -267,3 +267,20 @@ def test_materialize_allocates_one_block_and_releases_dropped_weights():
     assert not tt.is_deferred(m)
     with torch.no_grad():
         assert torch.isfinite(m(torch.from_numpy(_tokens(9, 1, 8)).long())).all()
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixtral_8x7b"])
+def test_from_name_takes_the_jax_config(name):
+    """``Mixtral.from_name`` (a classmethod of its own, as JAX's): the
+    JAX table's shapes, the overrides applied, the config's class kept."""
+    from torchdistx_tpu.models.mixtral import mixtral_configs as jconfigs
+    from torchdistx_tpu_torch.models.mixtral import MixtralConfig
+
+    assert "from_name" in vars(TMixtral)
+    with tt.fake_mode():
+        m = TMixtral.from_name(name, device="cpu", n_layers=1)
+    assert isinstance(m.cfg, MixtralConfig) and m.cfg.n_layers == 1
+    for key, want in jconfigs[name].items():
+        if key not in ("dtype", "n_layers"):
+            assert getattr(m.cfg, key) == want, key
+    assert m.blocks[0].mlp.w_gate.shape[0] == jconfigs[name]["n_experts"]

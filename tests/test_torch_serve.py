@@ -7,6 +7,8 @@ Sampled streams cannot match ``jax.random``'s bits; they are held to
 reproducibility by seed instead.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,6 @@ from torchdistx_tpu.serve import ServeEngine as JServeEngine
 from torchdistx_tpu_torch.interop import load_jax_params
 from torchdistx_tpu_torch.models import Llama as TLlama
 from torchdistx_tpu_torch.serve import ServeEngine
-from torchdistx_tpu_torch.serve.engine import _UNPORTED
 
 EOS = 78  # sampled by some requests below: the stop rule is exercised
 
@@ -124,7 +125,7 @@ _PORTED_SINCE = {"page_size": 8, "num_pages": None, "kv_dtype": "int8",
 _TP_ARGS = ("params", "mesh", "plan", "tp_rule", "tp_axis")
 
 
-@pytest.mark.parametrize("name", _UNPORTED + tuple(_PORTED_SINCE))
+@pytest.mark.parametrize("name", tuple(_PORTED_SINCE))
 def test_unported_argument_raises(models, name):
     _, tm = models
     if name == "ring_capacity":
@@ -177,11 +178,10 @@ def test_unported_argument_raises(models, name):
         engine.run(_requests(3, (5,), max_new=3))
         assert engine.numerics_book.digest("logits").count > 0
         return
-    if name in _PORTED_SINCE:
-        ServeEngine(tm, max_len=32, **{name: _PORTED_SINCE[name]})
-        return
-    with pytest.raises(NotImplementedError, match=name):
-        ServeEngine(tm, max_len=32, **{name: None})
+    ServeEngine(tm, max_len=32, **{name: _PORTED_SINCE[name]})
+    # every JAX argument is ported: an unknown one is Python's TypeError
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        ServeEngine(tm, max_len=32, **{f"not_{name}": None})
 
 
 @pytest.mark.parametrize("kw", [dict(decode_mode="persistent"),
@@ -202,7 +202,7 @@ def test_unported_modes_raise(models, kw):
         assert b.finish_reason == a.finish_reason
     # the streamed tail, ported: the one-token loop takes it and streams
     # the same tokens; the speculative one refuses it, as JAX's does
-    assert "persistent_stream" not in _UNPORTED
+    assert "persistent_stream" in inspect.signature(ServeEngine).parameters
     if kw.get("speculate"):
         with pytest.raises(ValueError, match="speculate is not supported"):
             ServeEngine(tm, persistent_stream=True, **kw, **common)

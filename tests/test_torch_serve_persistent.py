@@ -412,3 +412,69 @@ def test_spec_eos_stop_identical(models, eos, first):
     spec, _ = _spec_run(tm, eos_token=eos, speculate=4)
     assert spec == base
     assert base[0] == (_greedy_stream(tm, CYCLIC[0], 24)[:first + 1], "stop")
+
+
+# -- Mistral (a window shorter than the context) and Mixtral int8 ------------
+
+WINDOW = 8
+
+
+def _window_pair():
+    tdx.manual_seed(0)
+    kw = dict(sliding_window=WINDOW, n_kv_heads=2, max_seq_len=64)
+    jm = JLlama.from_name("tiny", **kw)
+    tm = TLlama.from_name("tiny", device="cpu", **kw)
+    load_jax_params(tm, {k: np.asarray(v) for k, v in jm.named_parameters()})
+    return jm, tm
+
+
+def _mixtral_int8_pair():
+    from torchdistx_tpu.models import Mixtral as JMixtral
+    from torchdistx_tpu.nn import quantize_module as j_quantize
+    from torchdistx_tpu_torch.models import Mixtral as TMixtral
+    from torchdistx_tpu_torch.nn import quantize_module
+
+    def keep_head(path, mod):
+        return "lm_head" not in path
+
+    tdx.manual_seed(9)
+    jm = JMixtral.from_name("tiny", n_kv_heads=2, max_seq_len=64)
+    tm = TMixtral.from_name("tiny", device="cpu", n_kv_heads=2, max_seq_len=64)
+    load_jax_params(tm, {k: np.asarray(v) for k, v in jm.named_parameters()})
+    j_quantize(jm, filter_fn=keep_head)
+    quantize_module(tm, filter_fn=keep_head)
+    return jm, tm
+
+
+@pytest.mark.parametrize("family", ["mistral_window", "mixtral_int8"])
+def test_persistent_model_streams_equal_chunked_and_jax_persistent(family):
+    """Persistent decode of a windowed Llama (prompts of 9-27 tokens and 10
+    new ones against a window of 8: every decode step reads past it) and of
+    an int8 Mixtral (the keep-head filter the card's build uses): greedy
+    and sampled streams equal to the port's chunked engine's bit for bit,
+    greedy streams and the loop counters equal to the JAX persistent
+    engine's."""
+    jm, tm = _window_pair() if family == "mistral_window" else _mixtral_int8_pair()
+    rs = np.random.RandomState(4)
+    lengths = (9, 27, 14, 20)
+    temps = (0.0, 0.9, 0.0, 0.0)
+    reqs = [{"prompt": rs.randint(0, 256, (n,)).astype(np.int32), "max_new_tokens": 10,
+             "temperature": t, "seed": i} for i, (n, t) in enumerate(zip(lengths, temps))]
+    kw = dict(num_slots=2, max_len=64, prefill_buckets=(16, 32))
+    chunked = ServeEngine(tm, **kw).run(reqs)
+    eng = ServeEngine(tm, decode_mode="persistent", **kw)
+    out = eng.run(reqs)
+    assert _streams(out) == _streams(chunked)
+    c = eng.metrics.counters
+    assert c["loop_iterations"] == c["decode_steps"] > 0
+    assert c["host_syncs"] == c["ring_drains"]
+    greedy = [r for r in reqs if r["temperature"] == 0.0]
+    jeng = JServeEngine(jm, decode_mode="persistent", **kw)
+    ref = jeng.run(greedy)
+    mine = ServeEngine(tm, decode_mode="persistent", **kw)
+    got = mine.run(greedy)
+    assert _streams(got) == _streams(ref)
+    jc, tc = jeng.metrics.counters, mine.metrics.counters
+    for k in ("loop_iterations", "ring_drains", "host_syncs", "decode_steps",
+              "tokens_generated"):
+        assert tc[k] == jc[k], k

@@ -170,3 +170,37 @@ def test_mismatched_batch_sharding_warns_once(world):
 def test_tp_must_divide_the_kv_heads(world):
     for r in _got(world, "kv_heads"):
         assert r["message"] is not None and "n_kv_heads" in r["message"]
+
+
+def test_gspmd_init_optimizer_places_the_state_and_keeps_the_step():
+    """``GSPMDTrainStep.init_optimizer`` (JAX's method): the state of every
+    tensor the optimizer holds before the first step, shaped like it; a
+    step after it equals a step whose optimizer made its state itself."""
+    import torch
+
+    import torchdistx_tpu_torch as tt
+    from torchdistx_tpu_torch.models import Llama as TLlama
+    from torchdistx_tpu_torch.nn import functional as F
+    from torchdistx_tpu_torch.parallel import GSPMDTrainStep, create_mesh, llama_tp_plan
+
+    batch = tuple(torch.from_numpy(x).long() for x in tp_batch())
+
+    def run(init):
+        tt.manual_seed(0)
+        m = TLlama.from_name("tiny", device="cpu")
+        mesh = create_mesh({"tp": 1})
+        opt = tt.AnyPrecisionAdamW(m.parameters(), lr=1e-3)
+        step = GSPMDTrainStep(m, opt, lambda mod, b: F.cross_entropy(mod(b[0]), b[1]), mesh,
+                              plan=llama_tp_plan(mesh))
+        if init:
+            assert step.init_optimizer() is opt
+            for p in m.parameters():
+                st = opt.state[p]
+                assert st and all(v.shape == p.shape for v in st.values()
+                                  if isinstance(v, torch.Tensor) and v.dim())
+        step(m, opt, batch)
+        return {n: p.detach().clone() for n, p in m.named_parameters()}
+
+    a, b = run(True), run(False)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n

@@ -23,7 +23,15 @@ group's cached tensors, so a model materialized one block at a time holds
 only what its modules still reference.
 
 The JAX package's jit compile cache, chunked replay and native core are
-JAX-specific and have no counterpart here.
+JAX-specific and have no counterpart here; the book its chunked replay
+leaves does.  With ``TDX_NUMERICS`` on, a replay digests every floating
+output of every node it runs (``obs.numerics.array_digest``; not the
+uninitialized outputs of ``empty`` and its kin) and merges
+them into ONE digest on the device; the host reads it once, at the end of
+the replay (``StagedDigests``), and folds it into ``numerics_book`` under
+JAX's site name ``replay/chunk``: one chunk a replay, where JAX digests one
+a jitted chunk of closures.  With numerics off the book stays None and
+the replay digests nothing.
 """
 
 from __future__ import annotations
@@ -36,9 +44,14 @@ import torch
 from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from ._aten import UNINITIALIZED_OPS
+
 __all__ = ["RecordingSession"]
 
 _INF = float("inf")
+
+#: the numerics site of a replay's digest (the JAX package's chunk site)
+REPLAY_SITE = "replay/chunk"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +121,9 @@ class RecordingSession:
         self.group_nodes: Dict[int, List[int]] = {}
         self._gens: Dict[int, torch.Generator] = {}
         self._devices: Dict[torch.device, _DeviceState] = {}
+        # the numerics observatory's book of the replays (``replay/chunk``),
+        # made at the first replay with numerics on
+        self.numerics_book: Any = None
 
     # -- recording -----------------------------------------------------------
 
@@ -234,6 +250,9 @@ class RecordingSession:
         keep = groups - stale
         wanted = set(targets)
         env: Dict[Tuple[int, int], torch.Tensor] = {}
+        from .obs import numerics
+
+        digest = numerics.zero_digest(device) if numerics.numerics_enabled() and order else None
         with _disable_current_modes(), torch.no_grad():
             for n in order:
                 node = self.nodes[n]
@@ -242,6 +261,10 @@ class RecordingSession:
                 if any(a.name == "device" for a in node.func._schema.arguments):
                     kwargs = dict(kwargs, device=device)
                 outs = tree_flatten(node.func(*args, **kwargs))[0]
+                if digest is not None and node.func._schema.name not in UNINITIALIZED_OPS:
+                    for o in outs:
+                        if isinstance(o, torch.Tensor) and o.is_floating_point():
+                            digest = numerics.merge_digests(digest, numerics.array_digest(o))
                 for i in node.outs:
                     env[(n, i)] = outs[i]
                 persist = bool(node.touches & keep) and not node.touches & stale
@@ -256,8 +279,20 @@ class RecordingSession:
                         if uses[key] == 0 and key not in wanted:
                             env.pop(key, None)
         st.persisted |= keep
+        if digest is not None:
+            self._book_replay(digest)
         return [st.cache[(n, i)] if (n, i) in st.cache else env[(n, i)]
                 for n, i in targets]
+
+    def _book_replay(self, digest) -> None:
+        """Fold one replay's device digest into ``numerics_book``: its one
+        copy to the host, read once the replay has been queued."""
+        from .obs.numerics import NumericsBook, StagedDigests
+
+        if self.numerics_book is None:
+            self.numerics_book = NumericsBook()
+        (tree,) = StagedDigests([{REPLAY_SITE: digest}]).read()
+        self.numerics_book.update_tree(tree)
 
     def _release(self, st: _DeviceState) -> None:
         """Drop the cached tensors of every group whose parameters have all

@@ -6,7 +6,9 @@ module imports no JAX) and copies them into the port's module of the same
 architecture, so both packages compute the same function in the parity
 tests; ``load_jax_buffers(model, buffers)`` does the same for
 ``named_buffers()`` (BatchNorm's running statistics).  Names and shapes
-must match exactly: a missing, extra or mis-shaped key raises.  Float arrays cross through f32 (exact for bf16 and
+must match exactly: a missing, extra or mis-shaped key raises.  A
+parameter that is a rank's piece (a sharded ``materialize_module`` or
+``parallel.shard_tensor``) takes its slice of the whole array.  Float arrays cross through f32 (exact for bf16 and
 f32); integer arrays (the int8 codes of ``nn.quantization``) cross in
 their own dtype, so codes arrive exactly.  Stacked MoE expert weights
 (E, D, F) keep their layout.  ``export_params(model)`` is the inverse:
@@ -37,13 +39,17 @@ def _load(own: Mapping[str, torch.Tensor], arrays: Mapping[str, np.ndarray],
         )
     for name, t in own.items():
         src = np.asarray(arrays[name])
-        if tuple(src.shape) != tuple(t.shape):
+        want = getattr(t, "_tdx_global_shape", tuple(t.shape))
+        if tuple(src.shape) != tuple(want):
             raise ValueError(
-                f"{name}: shape {tuple(src.shape)} != {tuple(t.shape)}"
+                f"{name}: shape {tuple(src.shape)} != {tuple(want)}"
             )
     with torch.no_grad():
         for name, t in own.items():
             src = np.asarray(arrays[name])
+            sharding = getattr(t, "_tdx_sharding", None)
+            if sharding is not None:  # a rank's piece: its slice of the whole
+                src = src[sharding.shard_slices(src.shape)]
             if not np.issubdtype(src.dtype, np.integer):
                 src = src.astype(np.float32)
             t.copy_(torch.from_numpy(np.array(src, copy=True)).to(t.dtype))

@@ -74,6 +74,13 @@ class Mixtral(Llama):
     configs = mixtral_configs
     config_cls = MixtralConfig
 
+    @classmethod
+    def from_name(cls, name: str, *, device="cuda", dtype=None, **overrides) -> "Mixtral":
+        """A Mixtral of ``mixtral_configs[name]`` with ``overrides`` (the
+        JAX classmethod's), on ``device``; ``dtype`` overrides the
+        configuration's."""
+        return super().from_name(name, device=device, dtype=dtype, **overrides)
+
     def forward_with_aux(self, tokens):
         """(logits, aux): ``aux`` is the mean over layers of the Switch
         load-balancing loss, from the same routing pass as the forward."""

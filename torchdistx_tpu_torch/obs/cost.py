@@ -30,9 +30,14 @@ and a counted step must train as an uncounted one does.  ``card.flops`` is the s
 wrapper, and ``flops_source`` names the source, ``"flop_counter+kernels"``
 (as ``peak_source`` names the peak's).  On the CPU the wrappers run their
 plain versions, which the counter sees, so the CPU and the card count the
-same program.  Bytes accessed stay None: nothing counts the aten ops'
-bytes, and a card never invents a count.  On the CPU a card has no
-allocator peak.
+same program.  The same mode counts ``bytes_accessed``: for each aten op,
+the bytes of its tensor inputs (each read once) and of its tensor outputs
+(each written once); an op whose outputs alias an input without writing
+it (a view: ``view``, ``t``, ``detach``, ``expand``, ``as_strided``, ...,
+by its schema's ``alias_info``) moves nothing, nor does one whose output
+holds no values yet (``empty`` and its kin); each kernel launch adds the
+bytes ``ops._cost`` books for it.  On the CPU a card has no allocator
+peak.
 
 Exports, as in the JAX package: :meth:`CostBook.collector` projects every
 card as ``tdx_cost_*{program=...}`` gauges through an ``obs.metrics``
@@ -48,6 +53,8 @@ import math
 import os
 import threading
 from typing import Any, Dict, Iterator, List, Optional
+
+from .._aten import UNINITIALIZED_OPS
 
 __all__ = [
     "CostCard",
@@ -72,6 +79,19 @@ COUNTED_FLOPS = "flop_counter+kernels"
 
 #: the peak sources that are properties of a program, not of the load
 _PROGRAM_PEAK_SOURCES = ("xla_peak", "arg+out+temp", "cuda_allocator")
+
+#: the JAX card's deterministic numeric fields, the ledger's counter rows
+_COUNTER_FIELDS = (
+    "flops",
+    "bytes_accessed",
+    "transcendentals",
+    "arg_bytes",
+    "out_bytes",
+    "temp_bytes",
+)
+
+#: peak sources a compiler's analysis gives: deterministic, so they gate
+_ANALYSIS_PEAK_SOURCES = ("xla_peak", "arg+out+temp")
 
 @dataclasses.dataclass
 class CostCard:
@@ -116,6 +136,27 @@ class CostCard:
         if self.analytic_flops and self.flops:
             return self.analytic_flops / self.flops
         return None
+
+    def counter_fields(self) -> Dict[str, float]:
+        """The deterministic numeric fields, prefixed ``cost_``: the ledger's
+        counter rows for this card, by the JAX card's rule that a runtime
+        watermark never gates.  The JAX card's ``temp_bytes`` is the
+        compiler's buffer assignment; the port's comes from the caching
+        allocator (``peak_source="cuda_allocator"``), a watermark of one
+        dispatch that moves with what else the allocator holds, so on such
+        a card it stays out, as its ``peak_bytes`` does.  A card whose peak
+        a compiler's analysis gave keeps both, as JAX's does."""
+        out: Dict[str, float] = {}
+        for f in _COUNTER_FIELDS:
+            if f == "temp_bytes" and self.peak_source == "cuda_allocator":
+                continue
+            v = getattr(self, f)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[f"cost_{f}"] = v
+        if (isinstance(self.peak_bytes, (int, float))
+                and self.peak_source in _ANALYSIS_PEAK_SOURCES):
+            out["cost_peak_bytes"] = self.peak_bytes
+        return out
 
     def to_json(self) -> dict:
         """The JAX card's JSON; a counted card adds ``flops_source``,
@@ -174,10 +215,29 @@ def _device_of(tree) -> Optional["torch.device"]:  # noqa: F821
 _PRODUCT_COUNTER = None
 
 
+def _tensor_bytes(tree) -> int:
+    import torch
+
+    leaves, _ = torch.utils._pytree.tree_flatten(tree)
+    return sum(x.numel() * x.element_size() for x in leaves if isinstance(x, torch.Tensor))
+
+
+def _moves_bytes(func) -> bool:
+    """False for an op that moves no bytes: a view (an output aliasing an
+    input, not written) or an op whose output holds no values yet."""
+    schema = func._schema
+    if schema.name in UNINITIALIZED_OPS:
+        return False
+    return not any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in schema.returns)
+
+
 def _product_counter():
     """A fresh dispatch mode whose ``flops`` adds, for every aten op that
     runs, ``FlopCounterMode``'s formula of that op (matrix products and
-    convolutions; 0 for the rest), the op executed exactly as dispatched."""
+    convolutions; 0 for the rest), and whose ``bytes`` adds the bytes of
+    its tensor inputs and outputs (0 for a view or an uninitialized
+    output), the op executed exactly as dispatched."""
     global _PRODUCT_COUNTER
     if _PRODUCT_COUNTER is None:
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -187,6 +247,7 @@ def _product_counter():
             def __init__(self):
                 super().__init__()
                 self.flops = 0
+                self.bytes = 0
 
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 kwargs = kwargs or {}
@@ -194,6 +255,8 @@ def _product_counter():
                 count = flop_registry.get(func._overloadpacket)
                 if count is not None:
                     self.flops += int(count(*args, **kwargs, out_val=out))
+                if _moves_bytes(func):
+                    self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
                 return out
 
         _PRODUCT_COUNTER = ProductCounter
@@ -205,7 +268,8 @@ def counted_card(name: str, *, device=None, analytic_flops: Optional[float] = No
                  book: Optional["CostBook"] = None) -> Iterator[CostCard]:
     """Count what the body executes into the card it yields (module
     docstring): the aten products' FLOPs by ``FlopCounterMode``'s formulas
-    plus the kernels' booked ones, and on a CUDA ``device`` the allocator's
+    plus the kernels' booked ones, the aten ops' and the kernels' bytes
+    accessed, and on a CUDA ``device`` the allocator's
     peak and temp bytes
     (:func:`begin_allocator_card`, which resets the peak statistics).  The
     card is filled when the body ends, and with ``book`` recorded; a body
@@ -228,6 +292,7 @@ def counted_card(name: str, *, device=None, analytic_flops: Optional[float] = No
     card.kernel_flops = float(kernels.flops)
     card.kernel_launches = dict(kernels.launches)
     card.flops = float(counter.flops + kernels.flops)
+    card.bytes_accessed = float(counter.bytes + kernels.bytes)
     card.flops_source = COUNTED_FLOPS
     if cuda:
         finish_allocator_card(card, device)
@@ -455,9 +520,9 @@ def roofline(
 def validate_cost_card(card, where: str = "card") -> List[str]:
     """Schema errors for one serialized card (empty list == valid).  The
     JAX package's rules, except that ``flops`` and ``bytes_accessed`` may
-    be null on an allocator card, and ``bytes_accessed`` on a counted one:
-    the key must be there, and a value that is there must be a finite
-    non-negative number."""
+    be null on an allocator card that nothing counted: the key must be
+    there, and a value that is there must be a finite non-negative number.
+    A counted card (``flops_source``) needs both, as every JAX card does."""
     errs: List[str] = []
     if not isinstance(card, dict):
         return [f"{where}: not an object"]
@@ -468,8 +533,7 @@ def validate_cost_card(card, where: str = "card") -> List[str]:
     src = card.get("peak_source")
     for key in ("flops", "bytes_accessed"):
         v = card.get(key)
-        nullable = src == "cuda_allocator" or (
-            key == "bytes_accessed" and card.get("flops_source") == COUNTED_FLOPS)
+        nullable = src == "cuda_allocator" and card.get("flops_source") != COUNTED_FLOPS
         if key not in card or (v is None and not nullable):
             errs.append(f"{where}: missing {key}")
         elif v is None:

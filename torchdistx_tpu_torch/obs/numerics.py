@@ -71,6 +71,7 @@ __all__ = [
     "reduce_stacked_digests",
     "allreduce_digests",
     "fold_digests",
+    "fold_host_digests",
     "mesh_group_digest",
     "tree_group_digest",
     "provenance_key",
@@ -286,6 +287,44 @@ def fold_digests(digests: Dict[str, Dict[str, Any]], axes) -> Dict[str, Dict[str
                 "count": ints[i, NBUCKETS + 2], "exp_hist": ints[i, :NBUCKETS],
                 "max_abs": mx[i], "sumsq": sums[i]}
             for i, s in enumerate(sites)}
+
+
+def fold_host_digests(trees: List[Dict[str, "HostDigest"]], sites: Iterable[str],
+                      axes) -> List[Dict[str, "HostDigest"]]:
+    """:func:`fold_digests` of host digests: the ``sites`` of each tree in
+    ``trees`` (``{site: HostDigest}``, as :meth:`StagedDigests.read`
+    returns them) summed (``max_abs``: maxed) over ``axes`` of the active
+    mesh, the other sites as they are; books nothing.  Three all-reduces a
+    call whatever the number of trees: the integer fields as int64, the
+    gauges as f64, host tensors on a ``gloo`` group (the fold waits on no
+    device work).  Every
+    rank must call it with as many trees, a site absent from a tree
+    taking part as zeros."""
+    from ..parallel import collectives
+
+    sites = tuple(sites)
+    rows = [(i, s) for i in range(len(trees)) for s in sites]
+    if not rows:
+        return trees
+    ints = torch.zeros((len(rows), NBUCKETS + 3), dtype=torch.int64)
+    sums = torch.zeros(len(rows), dtype=torch.float64)
+    mx = torch.zeros(len(rows), dtype=torch.float64)
+    for r, (i, s) in enumerate(rows):
+        d = trees[i].get(s)
+        if d is not None:
+            ints[r] = torch.tensor(list(d.exp_hist) + [d.nonfinite, d.zeros, d.count])
+            sums[r], mx[r] = d.sumsq, d.max_abs
+    for ax in collectives._axes(tuple(axes)):
+        ints, sums = collectives._psum(ints, ax), collectives._psum(sums, ax)
+        mx = collectives._pmax(mx, ax)
+    ih, sh, mh = ints.tolist(), sums.tolist(), mx.tolist()
+    out = [dict(t) for t in trees]
+    for r, (i, s) in enumerate(rows):
+        if s in trees[i]:
+            out[i][s] = HostDigest(nonfinite=ih[r][NBUCKETS], zeros=ih[r][NBUCKETS + 1],
+                                   count=ih[r][NBUCKETS + 2], exp_hist=ih[r][:NBUCKETS],
+                                   max_abs=mh[r], sumsq=sh[r])
+    return out
 
 
 def mesh_group_digest(items: Iterable, prefix: str, mesh_axes: Iterable[str],

@@ -186,15 +186,17 @@ def paged_decode_attention(b, s, hq, hkv, d, pages_per_slot, page_size, *,
 
 
 class KernelTally:
-    """What the kernels launched while it was open: their FLOPs, and the
-    launches by wrapper name."""
+    """What the kernels launched while it was open: their FLOPs and bytes,
+    and the launches by wrapper name."""
 
     def __init__(self) -> None:
         self.flops = 0
+        self.bytes = 0
         self.launches: Dict[str, int] = {}
 
     def _add(self, name: str, cost: Cost) -> None:
         self.flops += cost.flops
+        self.bytes += cost.bytes
         self.launches[name] = self.launches.get(name, 0) + 1
 
 

@@ -295,6 +295,30 @@ def _spec_axes(spec) -> list:
     return axes
 
 
+def init_optimizer_state(opt):
+    """Make ``opt``'s per-parameter state before the first step, for the
+    tensors its ``param_groups`` hold (a sharded step's pieces): the 8-bit
+    AdamW's placed codes and scales, AnyPrecisionAdamW's and
+    ``torch.optim.Adam`` / ``AdamW``'s slots as zeros shaped like the
+    piece.  Another optimizer makes its state at its first step.  State
+    already there is kept.  Returns ``opt``."""
+    from ..optimizers import AdamW8bit, AnyPrecisionAdamW
+
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if opt.state.get(p):
+                continue
+            if isinstance(opt, AdamW8bit):
+                opt._init_state(p)
+            elif isinstance(opt, AnyPrecisionAdamW):
+                opt._init_state(p, group)
+            elif isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+                opt.state[p].update(step=torch.tensor(0.0),
+                                    exp_avg=torch.zeros_like(p),
+                                    exp_avg_sq=torch.zeros_like(p))
+    return opt
+
+
 class ShardedTrainStep(TrainStep):
     """``step(model, optimizer, batch) -> (model, optimizer, loss)`` over a
     mesh.  ``loss_fn(model, batch)`` as for :class:`TrainStep`; ``batch``
@@ -362,26 +386,9 @@ class ShardedTrainStep(TrainStep):
         """Make this step's optimizer's state on each rank in its placement
         before the first step, as JAX's ``init_optimizer`` places it: the
         8-bit AdamW's as the rank's pieces of ``adam8bit_state_shardings``;
-        AnyPrecisionAdamW's and ``torch.optim.Adam`` / ``AdamW``'s
-        per-parameter slots as zeros shaped like the parameter's piece (its
-        sharding).  Another optimizer makes its state at its first step,
-        from the pieces.  Returns the optimizer."""
-        from ..optimizers import AdamW8bit, AnyPrecisionAdamW
-
-        opt = self.optimizer
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if opt.state.get(p):
-                    continue
-                if isinstance(opt, AdamW8bit):
-                    opt._init_state(p)
-                elif isinstance(opt, AnyPrecisionAdamW):
-                    opt._init_state(p, group)
-                elif isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
-                    opt.state[p].update(step=torch.tensor(0.0),
-                                        exp_avg=torch.zeros_like(p),
-                                        exp_avg_sq=torch.zeros_like(p))
-        return opt
+        the others' as :func:`init_optimizer_state` makes them.  Returns the
+        optimizer."""
+        return init_optimizer_state(self.optimizer)
 
     def placement_on(self, mesh: Mesh) -> Callable[[str, Any], NamedSharding]:
         """``(name, param) -> NamedSharding``: where this step would place a

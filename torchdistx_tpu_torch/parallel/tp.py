@@ -477,6 +477,17 @@ class GSPMDTrainStep(TrainStep):
         step.losses = self.losses
         return step
 
+    def init_optimizer(self):
+        """Make the optimizer's state before the first step, in each
+        parameter's placement (JAX's ``init_optimizer`` places it by the
+        plan's ``optimizer_state_shardings``): the slots of the tensors the
+        optimizer holds, which are the plan's pieces, and under ZeRO-2 the
+        ``dp`` slices (``fsdp.init_optimizer_state``).  Returns the
+        optimizer."""
+        from .fsdp import init_optimizer_state
+
+        return init_optimizer_state(self.optimizer)
+
     def placement_on(self, mesh: Mesh) -> Callable[[str, Any], NamedSharding]:
         """``(name, param) -> NamedSharding``: the plan's placement over
         ``mesh`` (``plan.with_mesh``), or each parameter's own spec there

@@ -140,9 +140,9 @@ from .scheduler import Request, RequestHandle, RequestResult, Scheduler
 
 __all__ = ["ServeEngine"]
 
-#: the JAX engine's constructor arguments this port does not carry yet;
-#: passing any of them raises instead of being ignored
-_UNPORTED: tuple = ()
+#: the sites a tensor-parallel harvest folds over ``tp``: each rank digests
+#: its heads of the KV cache's writes
+_TP_FOLDED_SITES = ("kv_quant_err", "kv_quant_scale")
 
 
 #: engine serials: a CUDA graph is keyed on the engine that captured it
@@ -283,7 +283,13 @@ class ServeEngine:
         (``host_syncs``, ``decode_dispatches`` and every other counter are
         unchanged) and folded into ``numerics_book``; a KV error above
         half the largest scale records one ``kv_quant_err`` flight anomaly.
-        Not yet with a tensor-parallel mesh (tp > 1): ``NotImplementedError``.
+        With a tensor-parallel mesh (tp > 1) the book is the JAX engine's
+        global one on every rank: each harvest folds the ranks' head-split
+        KV digests over ``tp`` (``obs.numerics.fold_host_digests``: the
+        host copies the harvest already read, three all-reduces that book
+        nothing in the comm audit), and takes the logits digest as it is
+        (the gathered logits are the same on every rank).  That fold needs
+        a ``gloo`` tp group: over NCCL ``numerics=True`` is refused.
       device: where the engine runs; defaults to the model's device (the
         model's own default is ``"cuda"``), and must equal it.
     """
@@ -322,18 +328,7 @@ class ServeEngine:
         tp_axis: str = "tp",
         numerics: Optional[bool] = None,
         device=None,
-        **unported,
     ):
-        named = sorted(k for k in unported if k in _UNPORTED)
-        if named:
-            raise NotImplementedError(
-                f"ServeEngine argument(s) {named} are not ported to "
-                "torchdistx_tpu_torch yet"
-            )
-        if unported:
-            raise TypeError(
-                f"unexpected ServeEngine argument(s) {sorted(unported)}"
-            )
         if decode_mode not in ("chunked", "persistent"):
             raise ValueError(
                 f"decode_mode must be 'chunked' or 'persistent', got "
@@ -376,10 +371,13 @@ class ServeEngine:
         # at its existing sync (the JAX engine's zero-overhead contract)
         self.numerics = numerics_enabled() if numerics is None else bool(numerics)
         if self.numerics and self.tp > 1:
-            raise NotImplementedError(
-                "numerics=True with a tensor-parallel mesh (tp > 1) is not "
-                "ported yet (ROADMAP A.6: numerics under TP serving): a rank's "
-                "head-split KV error digests must fold over tp")
+            import torch.distributed as dist
+
+            if dist.get_backend(self.mesh.axes[self.tp_axis].group) != "gloo":
+                raise RuntimeError(
+                    "numerics=True with tensor parallelism folds the ranks' host "
+                    "digests over the tp group, which needs a gloo group; serve "
+                    "with numerics=False over NCCL")
         self.numerics_book = NumericsBook()
         self._pending_digests: list = []
         self._kv_quant_alarmed = False
@@ -1707,10 +1705,20 @@ class ServeEngine:
         if not self._pending_digests:
             return
         pend, self._pending_digests = self._pending_digests, []
+        trees = None
         try:
-            for staged in pend:
-                for tree in staged.read():
-                    self.numerics_book.update_tree(tree)
+            trees = [tree for staged in pend for tree in staged.read()]
+        except Exception:  # telemetry must not kill serving
+            self.numerics_harvest_errors += 1
+        if self.tp > 1:
+            # outside the try: every rank folds at every harvest, in the
+            # same order, or its peers wait in the fold for ever
+            trees = self._fold_tp_digests(trees, len(pend))
+        if trees is None:
+            return
+        try:
+            for tree in trees:
+                self.numerics_book.update_tree(tree)
             book = self.numerics_book
             err = book.digest("kv_quant_err")
             if err is not None and err.count:
@@ -1728,6 +1736,18 @@ class ServeEngine:
             book.emit_counter_tracks(get_tracer())
         except Exception:  # telemetry must not kill serving
             self.numerics_harvest_errors += 1
+
+    def _fold_tp_digests(self, trees, n: int):
+        """The harvest's ``n`` digest trees (None: this rank's read failed,
+        and it folds zeros) with the KV sites summed over ``tp`` into the
+        whole cache's, as the JAX engine digests its global arrays: the
+        host copies as they are, over the ``gloo`` group."""
+        from ..obs.numerics import fold_host_digests
+
+        with self.mesh:
+            folded = fold_host_digests(trees if trees is not None else [{}] * n,
+                                       _TP_FOLDED_SITES, (self.tp_axis,))
+        return folded if trees is not None else None
 
     def _record_first(self, req: Request, tok: int, now: float) -> None:
         self._last_tok[req.slot] = tok
